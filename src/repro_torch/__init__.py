@@ -1,0 +1,53 @@
+"""ACE (Arrays of locality-sensitive Count Estimators) in PyTorch, with
+hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
+
+The port of the JAX package ``repro``, module for module under the same
+names (``core.srp``, ``core.sketch``, ``core.estimators``,
+``kernels.ops``, ``data.pipeline``, ``serve.engine``).  It imports
+neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
+against, and only the tests import both.
+
+This slice carries the dense SRP hash, the int32 flat sketch, the
+``AceEstimator`` (paper Algorithm 1) and the flat single-tenant
+``Guardrail``; its kernels are ``srp_hash``, ``ace_update``,
+``ace_query`` and ``ace_admit_fused`` (``repro_torch/csrc``).
+
+Entry points run on the card (``torch.device("cuda")``) unless the caller
+passes ``device="cpu"``; on CPU tensors every kernel wrapper takes its
+plain PyTorch version instead of the CUDA kernel.
+"""
+from __future__ import annotations
+
+import torch
+
+# ROADMAP.md queue 1 items that bring what this slice leaves out.
+ROADMAP_QUEUE_1 = {
+    4: "repro_torch.core.srht and the hash_mode dispatch",
+    5: "repro.window",
+    6: "repro.fleet",
+    7: "repro.quantile",
+    8: "repro.attribution",
+    9: "repro.core.quantize (int8/int16 planes plus the escalation table)",
+    10: "repro.resilience",
+    13: "repro.dist",
+}
+
+
+def not_ported(feature: str, item: int):
+    """Raise NotImplementedError for a feature a later slice brings,
+    naming its ROADMAP.md queue item."""
+    raise NotImplementedError(
+        f"{feature} is not ported to repro_torch yet: ROADMAP.md queue 1 "
+        f"item {item} ({ROADMAP_QUEUE_1[item]})")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller names
+    another.  Raises when CUDA is asked for (or defaulted to) and there is
+    no card — the port never falls back to the CPU on its own."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "repro_torch runs on a CUDA device by default and none is "
+            "available; pass device='cpu' to run the plain PyTorch path")
+    return dev

@@ -1,0 +1,3 @@
+"""The paper's ACE sketch in PyTorch: SRP hashing (``srp``), the count
+arrays and their statistics (``sketch``), the estimators (``estimators``),
+and the carry-over of JAX-package state (``convert``)."""

@@ -1,0 +1,40 @@
+"""Carry parameters and sketch state between the JAX package and the port.
+
+Both directions go through numpy arrays, so this module needs neither JAX
+nor ``repro``: the caller turns JAX arrays into numpy (``np.asarray``)
+before calling, and back (``jnp.asarray``) after.  The layouts are the
+same in both packages — W is (d, P) with P = round_up(K·L, 128), counts
+are (L, 2^K) — so nothing is reshaped.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.sketch import AceState
+
+
+def params_from_numpy(w, device) -> torch.Tensor:
+    """The SRP projection matrix W (d, P) as a float32 tensor on ``device``."""
+    return torch.as_tensor(np.array(w, np.float32), device=device)
+
+
+def state_from_numpy(counts, n, welford_mean, welford_m2, device) -> AceState:
+    """An ``AceState`` on ``device`` from the reference state's leaves."""
+    def scalar(v):
+        return torch.tensor(float(np.asarray(v, np.float32)),
+                            dtype=torch.float32, device=device)
+    return AceState(
+        counts=torch.as_tensor(np.array(counts), device=device),
+        n=scalar(n), welford_mean=scalar(welford_mean),
+        welford_m2=scalar(welford_m2))
+
+
+def params_to_numpy(w: torch.Tensor) -> np.ndarray:
+    return w.detach().cpu().numpy()
+
+
+def state_to_numpy(state: AceState) -> dict[str, np.ndarray]:
+    """The state's leaves as numpy arrays, keyed by field name."""
+    return {k: getattr(state, k).detach().cpu().numpy()
+            for k in ("counts", "n", "welford_mean", "welford_m2")}

@@ -1,0 +1,349 @@
+"""The ACE sketch: L count arrays of size 2^K + streaming statistics.
+
+Port of ``repro.core.sketch`` for int32 and float32 counts (paper
+Algorithm 1, batch-parallel):
+
+* state  = counts (L, 2^K) + n (items inserted) + the Welford stream of
+  insert-time collision rates; no data point is stored;
+* insert = scatter-add of the batch bucket histogram (order-invariant);
+* score  = mean over L of counts[j, H_j(q)]  (Theorem 1);
+* mean   = the closed form μ = Σ_j Σ_b A_j[b]² / (n·L) of Eq. 11.
+
+Every function here is plain PyTorch and functional: it returns new
+tensors and leaves its inputs as they were.  The kernel path
+(``repro_torch.kernels.ops``) updates counts in place instead.
+
+The ``esc``/``qhist``/``attr`` leaves of ``AceState`` stay ``None``: the
+quantized planes, quantile histograms and attribution planes belong to
+later slices (ROADMAP.md queue 1).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple, Optional
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.core.srp import SrpConfig, hash_buckets, make_projections
+
+COUNT_DTYPES = {"int32": torch.int32, "float32": torch.float32}
+
+
+class AceState(NamedTuple):
+    """Dynamic sketch state (``repro.core.sketch.AceState``'s fields).
+
+    counts: (L, 2^K) int32 or float32 counters.
+    n:      () float32 — number of items represented (exact up to 2^24).
+    welford_mean / welford_m2: () float32 — streaming mean/M2 of the
+            insert-time collision RATES score/n (the σ of the threshold).
+    esc, qhist, attr: always None in this slice.
+    """
+
+    counts: torch.Tensor
+    n: torch.Tensor
+    welford_mean: torch.Tensor
+    welford_m2: torch.Tensor
+    esc: Optional[object] = None
+    qhist: Optional[torch.Tensor] = None
+    attr: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class AceConfig:
+    """Static ACE configuration (``repro.core.sketch.AceConfig``'s fields)."""
+
+    dim: int
+    num_bits: int = 15          # K
+    num_tables: int = 50        # L
+    seed: int = 0
+    counter_dtype: str = "int32"
+    welford_min_n: float = 0.0  # skip σ-stream updates below this n
+    hash_mode: str = "dense"
+    esc_capacity: int = 0
+    attr_rows: int = 0
+
+    def __post_init__(self):
+        if self.esc_capacity < 0:
+            raise ValueError("esc_capacity must be >= 0, got "
+                             f"{self.esc_capacity}")
+        if self.attr_rows < 0:
+            raise ValueError("attr_rows must be >= 0, got "
+                             f"{self.attr_rows}")
+        if self.attr_rows > 0:
+            not_ported("attribution (attr_rows > 0)", 8)
+        if self.counter_dtype in ("int8", "int16") or self.esc_capacity > 0:
+            not_ported(f"counter_dtype={self.counter_dtype!r} / "
+                       "esc_capacity", 9)
+        if self.counter_dtype not in COUNT_DTYPES:
+            raise ValueError(f"unknown counter_dtype {self.counter_dtype!r}")
+
+    @property
+    def srp(self) -> SrpConfig:
+        return SrpConfig(dim=self.dim, num_bits=self.num_bits,
+                         num_tables=self.num_tables, seed=self.seed,
+                         hash_mode=self.hash_mode)
+
+    @property
+    def num_buckets(self) -> int:
+        return 1 << self.num_bits
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        return COUNT_DTYPES[self.counter_dtype]
+
+    def memory_bytes(self) -> int:
+        """The paper's headline number: L × 2^K × sizeof(counter)."""
+        itemsize = torch.empty((), dtype=self.torch_dtype).element_size()
+        return self.num_tables * self.num_buckets * itemsize
+
+
+def init(cfg: AceConfig, device) -> AceState:
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return AceState(
+        counts=torch.zeros((cfg.num_tables, cfg.num_buckets),
+                           dtype=cfg.torch_dtype, device=device),
+        n=zero, welford_mean=zero.clone(), welford_m2=zero.clone())
+
+
+def make_params(cfg: AceConfig, generator: torch.Generator | None = None,
+                device=None) -> torch.Tensor:
+    """The SRP projection matrix W (d, KL_padded); see
+    ``srp.make_projections`` for how the draw relates to the reference."""
+    return make_projections(cfg.srp, generator=generator, device=device)
+
+
+def _rows(buckets: torch.Tensor) -> torch.Tensor:
+    """(1, L) table index broadcasting against (B, L) bucket ids."""
+    return torch.arange(buckets.shape[-1], device=buckets.device)[None, :]
+
+
+def reciprocal(L: int) -> torch.Tensor:
+    """float32(1/L): every mean over L is this reciprocal multiply, never a
+    bare ``/ L``, as in the reference (``repro.core.sketch.batch_scores``)
+    and in the kernels, so that scores agree bitwise."""
+    return torch.tensor(1.0 / L, dtype=torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Bucket-level primitives (input: precomputed bucket ids (B, L)).
+# ---------------------------------------------------------------------------
+
+def batch_scores(counts: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
+    """Scores of a batch of bucket ids vs a counts array: (B, L) -> (B,)."""
+    gathered = counts[_rows(buckets), buckets.long()].to(torch.float32)
+    return torch.sum(gathered, dim=-1) * reciprocal(counts.shape[0])
+
+
+def lookup(state: AceState, buckets: torch.Tensor,
+           table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Ŝ(q, D) of Algorithm 1 (query phase): (B, L) -> (B,) float32."""
+    if table_mask is not None:
+        not_ported("table_mask (degraded scoring)", 10)
+    return batch_scores(state.counts, buckets)
+
+
+def histogram(buckets: torch.Tensor, cfg: AceConfig) -> torch.Tensor:
+    """Batch bucket histogram: (B, L) ids -> (L, 2^K) counts of this batch."""
+    zero = torch.zeros((cfg.num_tables, cfg.num_buckets),
+                       dtype=cfg.torch_dtype, device=buckets.device)
+    return _scatter_add(zero, buckets, torch.ones(
+        buckets.shape, dtype=cfg.torch_dtype, device=buckets.device))
+
+
+def _scatter_add(counts: torch.Tensor, buckets: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+    """counts with weights[b, j] added at [j, buckets[b, j]] (a new tensor)."""
+    return counts.index_put((_rows(buckets), buckets.long()),
+                            weights.to(counts.dtype), accumulate=True)
+
+
+def welford_fold(welford_mean, welford_m2, n, b, tot, mean_b, m2_b,
+                 min_n: float):
+    """Fold one batch's rate statistics into the Welford stream.
+
+    The cold-start gate (``min_n``) restarts the stream on the first gated
+    batch, as in the reference.
+    """
+    delta = mean_b - welford_mean
+    gate = n >= min_n
+    eff_n = torch.where(gate, n, 0.0)
+    safe = torch.clamp_min(tot, 1.0)
+    new_mean = torch.where(gate, welford_mean + delta * b / safe, mean_b)
+    new_m2 = torch.where(gate, welford_m2 + m2_b + delta**2 * eff_n * b / safe,
+                         m2_b)
+    return new_mean, new_m2
+
+
+def insert_buckets(state: AceState, buckets: torch.Tensor,
+                   cfg: AceConfig) -> AceState:
+    """Insert a batch.  Order-invariant; exact for any batch size.
+
+    Welford stats take the post-insert score of each item (its own count
+    included), Algorithm 1 line 12's convention.
+    """
+    new_counts = _scatter_add(state.counts, buckets,
+                              torch.ones_like(buckets))
+    scores = batch_scores(new_counts, buckets)
+    b = float(buckets.shape[0])
+    tot = state.n + b
+    rates = scores / torch.clamp_min(tot, 1.0)
+    mean_b = torch.mean(rates)
+    m2_b = torch.sum((rates - mean_b) ** 2)
+    new_mean, new_m2 = welford_fold(state.welford_mean, state.welford_m2,
+                                    state.n, b, tot, mean_b, m2_b,
+                                    cfg.welford_min_n)
+    return AceState(new_counts, tot, new_mean, new_m2)
+
+
+def masked_batch_welford(state: AceState, scores: torch.Tensor,
+                         maskf: torch.Tensor, min_n: float):
+    """Welford fold over only the masked items of a fixed-shape batch.
+
+    ``scores`` are post-insert scores of ALL items (B,); ``maskf`` is the
+    0/1 float admit mask.  Returns (n, welford_mean, welford_m2); an
+    all-zero mask leaves the stream untouched.
+    """
+    b = torch.sum(maskf)
+    tot = state.n + b
+    rates = scores / torch.clamp_min(tot, 1.0)
+    mean_b = torch.sum(rates * maskf) / torch.clamp_min(b, 1.0)
+    m2_b = torch.sum(((rates - mean_b) ** 2) * maskf)
+    new_mean, new_m2 = welford_fold(state.welford_mean, state.welford_m2,
+                                    state.n, b, tot, mean_b, m2_b, min_n)
+    has = b > 0
+    return (tot, torch.where(has, new_mean, state.welford_mean),
+            torch.where(has, new_m2, state.welford_m2))
+
+
+def insert_buckets_masked(state: AceState, buckets: torch.Tensor,
+                          mask: torch.Tensor, cfg: AceConfig) -> AceState:
+    """Masked (0/1-weighted) insert: insert only the items where ``mask``.
+
+    Equivalent to ``insert_buckets(state, buckets[mask], cfg)`` exactly for
+    counts/n/μ and up to float summation order for the Welford stream,
+    with fixed shapes (the serving guardrail's insert).
+    """
+    w_ctr = mask.to(state.counts.dtype)[:, None].expand(buckets.shape)
+    new_counts = _scatter_add(state.counts, buckets, w_ctr)
+    scores = batch_scores(new_counts, buckets)
+    tot, new_mean, new_m2 = masked_batch_welford(
+        state, scores, mask.to(torch.float32), cfg.welford_min_n)
+    return AceState(new_counts, tot, new_mean, new_m2)
+
+
+def delete_buckets(state: AceState, buckets: torch.Tensor,
+                   cfg: AceConfig) -> AceState:
+    """Remove previously inserted items (paper §3.4.1, Eq. 12).  The Welford
+    stream is not un-merged; μ is a pure function of the counts."""
+    new_counts = _scatter_add(state.counts, buckets,
+                              torch.full_like(buckets, -1))
+    return state._replace(counts=new_counts,
+                          n=state.n - float(buckets.shape[0]))
+
+
+def merge(a: AceState, b: AceState) -> AceState:
+    """Merge two sketches over disjoint data: counts add, the Welford
+    streams merge by Chan's parallel rule."""
+    delta = b.welford_mean - a.welford_mean
+    tot = a.n + b.n
+    safe = torch.clamp_min(tot, 1.0)
+    return AceState(
+        counts=a.counts + b.counts,
+        n=tot,
+        welford_mean=a.welford_mean + delta * b.n / safe,
+        welford_m2=a.welford_m2 + b.welford_m2 + delta**2 * a.n * b.n / safe)
+
+
+# ---------------------------------------------------------------------------
+# Statistics of the sketch.
+# ---------------------------------------------------------------------------
+
+def mean_mu(state: AceState,
+            table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11)."""
+    if table_mask is not None:
+        not_ported("table_mask (degraded scoring)", 10)
+    L = state.counts.shape[0]
+    c = state.counts.to(torch.float32)
+    return torch.sum(c * c) / (torch.clamp_min(state.n, 1.0) * L)
+
+
+def mu_sequential_increment(state: AceState, buckets_one: torch.Tensor,
+                            cfg: AceConfig):
+    """One step of the paper's literal Eq. 11 (sequential, for testing).
+
+    Returns (new_state, new_mu) for a SINGLE item with bucket ids (L,).
+    """
+    L = cfg.num_tables
+    rows = torch.arange(L, device=buckets_one.device)
+    b1 = buckets_one.long()
+    old_mu = mean_mu(state)
+    n = state.n
+    new_counts = state.counts.index_put(
+        (rows, b1), torch.ones(L, dtype=state.counts.dtype,
+                               device=b1.device), accumulate=True)
+    incr = torch.sum(
+        (2.0 * new_counts[rows, b1].to(torch.float32) - 1.0) / L)
+    new_mu = (n * old_mu + incr) / (n + 1.0)
+    return state._replace(counts=new_counts, n=n + 1.0), new_mu
+
+
+def mean_rate(state: AceState) -> torch.Tensor:
+    """Exact mean collision RATE μ/n (scale-free across stream growth)."""
+    return mean_mu(state) / torch.clamp_min(state.n, 1.0)
+
+
+def sigma_welford(state: AceState) -> torch.Tensor:
+    """Streaming σ of collision RATES (score/n) from the insert-time stream."""
+    return torch.sqrt(state.welford_m2 / torch.clamp_min(state.n - 1.0, 1.0))
+
+
+def admit_threshold(state: AceState, alpha: float, warmup_items: float,
+                    table_mask: torch.Tensor | None = None,
+                    threshold_mode: str = "mu_sigma",
+                    q: float = 0.01) -> torch.Tensor:
+    """Score-space admission threshold: admit iff score >= threshold.
+
+    The μ−ασ rule in rate space, multiplied through by max(n, 1) so the
+    decision is one compare against ONE device scalar (what the fused
+    admit kernel reads through a pointer).  −inf during warmup
+    (n < warmup_items).  Device ops only: no host sync.
+    """
+    if table_mask is not None:
+        not_ported("table_mask (degraded scoring)", 10)
+    if threshold_mode == "quantile":
+        not_ported("threshold_mode='quantile'", 7)
+    if threshold_mode != "mu_sigma":
+        raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
+    t = (mean_rate(state) - alpha * sigma_welford(state)) \
+        * torch.clamp_min(state.n, 1.0)
+    return torch.where(state.n >= warmup_items, t, float("-inf"))
+
+
+# ---------------------------------------------------------------------------
+# Vector-level API (hashing included).
+# ---------------------------------------------------------------------------
+
+def insert(state: AceState, w: torch.Tensor, x: torch.Tensor,
+           cfg: AceConfig) -> AceState:
+    """Insert raw vectors x (B, d)."""
+    return insert_buckets(state, hash_buckets(x, w, cfg.srp), cfg)
+
+
+def delete(state: AceState, w: torch.Tensor, x: torch.Tensor,
+           cfg: AceConfig) -> AceState:
+    return delete_buckets(state, hash_buckets(x, w, cfg.srp), cfg)
+
+
+def score(state: AceState, w: torch.Tensor, q: torch.Tensor,
+          cfg: AceConfig) -> torch.Tensor:
+    """Ŝ(q, D) for raw queries q (B, d) -> (B,)."""
+    return lookup(state, hash_buckets(q, w, cfg.srp))
+
+
+def is_anomaly(state: AceState, w: torch.Tensor, q: torch.Tensor,
+               cfg: AceConfig, alpha: float = 1.0) -> torch.Tensor:
+    """Algorithm 1 line 22 with the μ − α·σ threshold, in RATE space."""
+    r = score(state, w, q, cfg) / torch.clamp_min(state.n, 1.0)
+    return r < mean_rate(state) - alpha * sigma_welford(state)

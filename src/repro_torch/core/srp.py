@@ -1,0 +1,126 @@
+"""Signed Random Projections (SRP) — the LSH family used by ACE.
+
+Port of ``repro.core.srp`` (dense hash family only).  The paper (§2.1)
+uses h_w(x) = sign(w^T x), w ~ N(0, I_d), with collision probability
+Pr[h_w(x) = h_w(y)] = 1 − θ(x, y)/π.  ACE takes K·L such bits per input,
+grouped into L meta-hashes of K bits, each packed into a bucket id in
+[0, 2^K).
+
+The projection matrix keeps the reference's padded width
+P = round_up(K·L, 128), so a JAX-drawn ``W`` of shape (d, P) carries
+across unchanged (``repro_torch.core.convert``); the pad columns are never
+read.  The CUDA kernel ``repro_torch.kernels.srp_hash`` implements
+``hash_buckets``; this module is the plain path and the parameter factory.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from repro_torch import not_ported
+
+LANE = 128  # the reference pads K·L to this multiple; kept for W's shape
+
+
+def _round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+HASH_MODES = ("dense", "srht", "auto")
+
+
+@dataclasses.dataclass(frozen=True)
+class SrpConfig:
+    """Static configuration of an SRP meta-hash bank (``repro``'s fields).
+
+    Only ``hash_mode="dense"`` is ported; the others raise where a hash
+    is drawn or computed.
+    """
+
+    dim: int
+    num_bits: int = 15
+    num_tables: int = 50
+    seed: int = 0
+    hash_mode: str = "dense"
+
+    @property
+    def num_projections(self) -> int:
+        return self.num_bits * self.num_tables
+
+    @property
+    def padded_projections(self) -> int:
+        return _round_up(self.num_projections, LANE)
+
+    @property
+    def num_buckets(self) -> int:
+        return 1 << self.num_bits
+
+
+def require_dense(cfg: SrpConfig) -> None:
+    """Raise unless ``cfg`` asks for the dense hash family."""
+    if cfg.hash_mode not in HASH_MODES:
+        raise ValueError(f"unknown hash_mode {cfg.hash_mode!r} "
+                         f"(want one of {HASH_MODES})")
+    if cfg.hash_mode != "dense":
+        not_ported(f"hash_mode={cfg.hash_mode!r}", 4)
+
+
+def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
+                     device=None) -> torch.Tensor:
+    """Sample the (d, P) Gaussian projection matrix W.
+
+    Column j*K + k is bit k of meta-hash j; columns from K·L on are pad.
+    The draw comes from ``generator`` (default: a CPU generator seeded
+    with ``cfg.seed``, so the same seed gives the same W on every device)
+    and is then moved to ``device``.  It is NOT the reference's
+    ``jax.random`` draw for the same seed: to run both packages on the
+    same projections, carry the JAX ``W`` across with
+    ``repro_torch.core.convert.params_from_numpy``.
+    """
+    require_dense(cfg)
+    if generator is None:
+        generator = torch.Generator().manual_seed(cfg.seed)
+    w = torch.randn((cfg.dim, cfg.padded_projections), generator=generator,
+                    device=generator.device, dtype=torch.float32)
+    return w.to(device if device is not None else generator.device)
+
+
+def srp_bits(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
+    """Raw sign bits.  x: (..., d) -> (..., K*L) int32 in {0, 1}.
+
+    sign(0) is +1 (bit 1), as in the reference; a NaN projection gives 0.
+    """
+    proj = torch.matmul(x, w.to(x.dtype))
+    bits = (proj >= 0).to(torch.int32)
+    return bits[..., : cfg.num_projections]
+
+
+def pack_buckets(bits: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
+    """Pack K-bit groups into bucket ids.  (..., K*L) -> (..., L) int32.
+
+    Bit k of meta-hash j is column j*K + k; packing is big-endian on k
+    (first bit = MSB) — the reference's persisted-sketch convention.
+    """
+    K, L = cfg.num_bits, cfg.num_tables
+    grouped = bits.reshape(*bits.shape[:-1], L, K)
+    weights = torch.bitwise_left_shift(
+        torch.ones((), dtype=torch.int32, device=bits.device),
+        torch.arange(K - 1, -1, -1, dtype=torch.int32, device=bits.device))
+    return torch.sum(grouped * weights, dim=-1, dtype=torch.int32)
+
+
+def hash_buckets(x: torch.Tensor, w: torch.Tensor,
+                 cfg: SrpConfig) -> torch.Tensor:
+    """Full SRP meta-hash: (..., d) -> (..., L) bucket ids in [0, 2^K)."""
+    require_dense(cfg)
+    return pack_buckets(srp_bits(x, w, cfg), cfg)
+
+
+def collision_probability(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """p(q, x) = 1 − θ/π for SRP (paper Eq. 1).  Broadcasts over leading dims."""
+    qn = q / (torch.linalg.vector_norm(q, dim=-1, keepdim=True) + 1e-12)
+    xn = x / (torch.linalg.vector_norm(x, dim=-1, keepdim=True) + 1e-12)
+    cos = torch.clamp(torch.sum(qn * xn, dim=-1), -1.0, 1.0)
+    return 1.0 - torch.arccos(cos) / math.pi

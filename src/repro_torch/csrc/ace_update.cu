@@ -1,0 +1,44 @@
+// ACE count-array insert: counts[j, buckets[b, j]] += 1 for every (b, j),
+// in place.  Replaces the Pallas kernel of src/repro/kernels/ace_update.py
+// (ace_update, both its scalar-loop and one-hot-histogram lowerings).
+//
+// Bound on the H100: memory — reading the (B, L) ids and one
+// read-modify-write of each counter the batch touches; there is no
+// arithmetic to speak of.  Design: one thread per (b, j) and a global
+// int32 atomicAdd, which is exact in any order, so no lowering choice is
+// carried over from the TPU.  Clustered data sends many items of a batch
+// to one bucket, and atomics on one address serialise; a shared-memory
+// histogram per table is the remedy, left for a later change.
+//
+// Ids outside [0, 2^K) are dropped, as the reference's scatter drops
+// out-of-bounds updates (the hash never produces one).
+
+#include "common.cuh"
+
+namespace {
+
+__global__ void ace_update_kernel(int* __restrict__ counts,
+                                  const int* __restrict__ buckets, int B,
+                                  int L, int nbuckets) {
+  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
+                      + threadIdx.x;
+  if (i >= static_cast<long long>(B) * L) return;
+  const int j = static_cast<int>(i % L);
+  const int b = buckets[i];
+  if (b < 0 || b >= nbuckets) return;
+  atomicAdd(&counts[static_cast<long long>(j) * nbuckets + b], 1);
+}
+
+}  // namespace
+
+// counts (L, nbuckets) int32, updated in place; buckets (B, L) int32.
+REPRO_API int repro_ace_update(int* counts, const int* buckets, int B, int L,
+                               int nbuckets, void* stream) {
+  constexpr int kThreads = 256;
+  const long long n = static_cast<long long>(B) * L;
+  const unsigned int blocks =
+      static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+  ace_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      counts, buckets, B, L, nbuckets);
+  return static_cast<int>(cudaGetLastError());
+}

@@ -1,0 +1,258 @@
+"""The port's CUDA kernels and entry points on the card, each against its
+plain PyTorch version on the same CUDA tensors, at awkward shapes as well
+as the main path's.  Every test here is marked ``gpu`` and skips where
+``torch.cuda.is_available()`` is false; on a machine with a card run
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+
+(the first test builds the kernels with nvcc, a few seconds).  This file
+imports neither JAX nor ``repro``, so it runs where only PyTorch is
+installed.
+
+Tolerances, as in ``chip_smoke.py``: bucket ids agree >= 0.999 with TF32
+off for the plain hash (the kernels use none); everything downstream of
+one set of bucket ids (counts, gathers, pre-insert scores, admit masks)
+bitwise; Welford mean/M2 rtol 1e-5.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")   # the optional `torch` extra
+
+from repro_torch.core import sketch as sk  # noqa: E402
+from repro_torch.core.estimators import AceEstimator  # noqa: E402
+from repro_torch.core.srp import SrpConfig, make_projections  # noqa: E402
+from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
+from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_update as U  # noqa: E402
+from repro_torch.kernels import srp_hash as H  # noqa: E402
+from repro_torch.serve.engine import Guardrail, GuardrailConfig  # noqa: E402
+
+pytestmark = pytest.mark.gpu
+
+HASH_AGREEMENT = 0.999
+
+
+@pytest.fixture
+def cuda():
+    """The card, with TF32 matmuls off for the plain hash; skips without
+    one (decided here, never at import: every worker collects alike)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run with -m gpu on a GPU machine")
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    yield torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def _agreement(a, b) -> float:
+    return float((a == b).double().mean())
+
+
+def _counts(L, K, device, seed=1):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, 9, size=(L, 1 << K)),
+                           dtype=torch.int32, device=device)
+
+
+def _ids(B, K, L, device, seed=2, repeat=1):
+    ids = np.random.default_rng(seed).integers(0, 1 << K, size=(B, L))
+    return torch.as_tensor(np.concatenate([ids] * repeat), dtype=torch.int32,
+                           device=device)
+
+
+# (B, d, K, L): one of everything; depth below, at and across the 64-deep
+# x slice; K = 1, 16 (tables straddle no block) and 31 (4 tables a block);
+# L not a multiple of the tables a block holds; the two main-path shapes.
+HASH_SHAPES = [(1, 1, 1, 1), (7, 9, 4, 3), (17, 64, 7, 19), (33, 130, 31, 5),
+               (5, 65, 16, 9), (4096, 36, 15, 50), (256, 4097, 15, 50)]
+
+
+@pytest.mark.parametrize("B,d,K,L", HASH_SHAPES)
+def test_srp_hash_matches_plain(cuda, B, d, K, L):
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=B)
+    w = make_projections(cfg, device=cuda)
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
+        .to(cuda)
+    before = H.KERNEL.launches
+    got = H.srp_hash(x, w, cfg)
+    assert H.KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
+    assert bool(((got >= 0) & (got.long() < (1 << K))).all())
+    assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+
+
+def test_srp_hash_zero_row_is_all_ones(cuda):
+    """sign(0) gives bit 1, so a zero row lands in bucket 2^K − 1."""
+    cfg = SrpConfig(dim=70, num_bits=15, num_tables=50)
+    got = H.srp_hash(torch.zeros((3, 70), device=cuda),
+                     make_projections(cfg, device=cuda), cfg)
+    assert bool((got == (1 << 15) - 1).all())
+
+
+def test_empty_batches_launch_nothing(cuda):
+    cfg = SrpConfig(dim=8, num_bits=5, num_tables=3)
+    w = make_projections(cfg, device=cuda)
+    counts = _counts(3, 5, cuda)
+    ids = torch.zeros((0, 3), dtype=torch.int32, device=cuda)
+    before = [m.KERNEL.launches for m in (H, U, Q)]
+    assert tuple(H.srp_hash(torch.zeros((0, 8), device=cuda), w,
+                            cfg).shape) == (0, 3)
+    assert torch.equal(U.ace_update(counts.clone(), ids), counts)
+    assert tuple(Q.ace_query(counts, ids).shape) == (0, 3)
+    assert [m.KERNEL.launches for m in (H, U, Q)] == before
+
+
+@pytest.mark.parametrize("B,K,L,repeat", [(40, 4, 3, 1), (30, 6, 10, 4),
+                                          (4096, 15, 50, 1), (64, 3, 50, 64)])
+def test_ace_update_matches_plain(cuda, B, K, L, repeat):
+    """Repeated rows and tiny bucket spaces make the atomics collide."""
+    counts, ids = _counts(L, K, cuda), _ids(B, K, L, cuda, repeat=repeat)
+    c = counts.clone()
+    got = U.ace_update(c, ids)
+    assert got is c, "the update is in place"
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids))
+
+
+@pytest.mark.parametrize("B,K,L", [(40, 4, 3), (33, 12, 50), (4096, 15, 50)])
+def test_ace_query_matches_plain(cuda, B, K, L):
+    counts, ids = _counts(L, K, cuda), _ids(B, K, L, cuda, repeat=2)
+    got = Q.ace_query(counts, ids)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, Q.ace_query_plain(counts, ids))
+
+
+@pytest.mark.parametrize("thresh", ["median", "-inf", "+inf"])
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("B,d,K,L,repeat", [(16, 32, 8, 10, 1),
+                                            (8, 36, 15, 50, 4),
+                                            (6, 9, 3, 4, 3),
+                                            (32, 4097, 15, 50, 8)])
+def test_ace_admit_fused_matches_plain(cuda, B, d, K, L, repeat, thresh,
+                                       masked):
+    """Warmup (−inf), armed (median) and reject-all thresholds, with and
+    without the quarantine mask, on batches of repeated rows: every copy
+    of a row must score against the PRE-insert counts."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=3)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator().manual_seed(B + d)
+    q = torch.randn((B, d), generator=gen).repeat(repeat, 1).to(cuda)
+    n = B * repeat
+    counts = _counts(L, K, cuda)
+    rows = torch.arange(L, device=cuda)[None, :]
+    recip = torch.tensor(1.0 / L, dtype=torch.float32)
+    pre = H.srp_hash_plain(q, w, cfg)
+    t = {"median": torch.median(counts[rows, pre.long()].float().sum(-1)
+                                * recip),
+         "-inf": torch.tensor(float("-inf"), device=cuda),
+         "+inf": torch.tensor(float("inf"), device=cuda)}[thresh]
+    mask = (torch.rand((n,), generator=gen) < 0.7).to(cuda) if masked \
+        else None
+    before = A.KERNEL.launches
+    c = counts.clone()
+    got_c, got_s, got_a, got_b = A.ace_admit_fused(c, q, w, t, cfg,
+                                                   item_mask=mask)
+    assert A.KERNEL.launches == before + 1
+    assert got_c is c, "counts are updated in place"
+    _, _, _, plain_b = A.ace_admit_fused_plain(counts.clone(), q, w, t, cfg,
+                                               item_mask=mask)
+    assert _agreement(got_b, plain_b) >= HASH_AGREEMENT
+    # downstream of the kernel's own bucket ids: bitwise
+    ref_s = counts[rows, got_b.long()].float().sum(-1) * recip
+    ref_a = ref_s >= t
+    if mask is not None:
+        ref_a &= mask
+    ref_c = counts.clone().index_put_(
+        (rows, got_b.long()), ref_a.to(torch.int32)[:, None].expand(n, L),
+        accumulate=True)
+    assert torch.equal(got_s, ref_s)
+    assert torch.equal(got_a, ref_a)
+    assert torch.equal(got_c, ref_c)
+    if repeat > 1:
+        s = got_s.view(repeat, B)
+        assert torch.equal(s, s[:1].expand_as(s)), "copies score alike"
+
+
+def test_wrappers_refuse_mixed_devices(cuda):
+    cfg = SrpConfig(dim=8, num_bits=5, num_tables=3)
+    w = make_projections(cfg, device="cpu")
+    with pytest.raises(ValueError, match="different devices"):
+        H.srp_hash(torch.zeros((2, 8), device=cuda), w, cfg)
+    with pytest.raises(ValueError, match="different devices"):
+        Q.ace_query(_counts(3, 5, cuda), torch.zeros((2, 3),
+                                                     dtype=torch.int32))
+
+
+def _guardrail_batches(n, d, seed=11, b=64, s=4):
+    """Request embeddings around a few topics, one NaN row each, an
+    off-topic share from the middle on."""
+    rng = np.random.default_rng(seed)
+    topics = rng.normal(size=(4, d))
+    for i in range(n):
+        e = topics[rng.integers(0, 4, b)][:, None, :] \
+            + 0.3 * rng.normal(size=(b, s, d))
+        if i >= n // 2:
+            e[: 8 * (i - n // 2 + 1)] = rng.normal(size=(8 * (i - n // 2 + 1),
+                                                         s, d)) * 3.0
+        e[i % b, i % s, 0] = np.nan
+        yield e.astype(np.float32)
+
+
+def test_guardrail_kernels_match_plain_path(cuda):
+    """``Guardrail.admit`` through the kernels against the plain path on
+    the card, same W: masks differ in under 1% (hash flips at |proj| ~ 0);
+    with none differing, counts and n bitwise and Welford at rtol 1e-5."""
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, alpha=2.0)
+    gk = Guardrail(gcfg, use_kernels=True, device=cuda)
+    gp = Guardrail(gcfg, use_kernels=False, device=cuda, w=gk.w)
+    before = (A.KERNEL.launches, Q.KERNEL.launches)
+    mismatch = total = 0
+    for e in _guardrail_batches(8, 96):
+        mk, mp = gk.admit(e), gp.admit(e)
+        mismatch += int((mk != mp).sum())
+        total += mk.size
+    assert (A.KERNEL.launches, Q.KERNEL.launches) == (before[0] + 8,
+                                                      before[1] + 8)
+    assert mismatch / total < 0.01
+    assert gk.quarantined == gp.quarantined == 8
+    assert 0 < float(gk.state.n) < 8 * 64
+    if mismatch == 0:
+        assert torch.equal(gk.state.counts, gp.state.counts)
+        assert float(gk.state.n) == float(gp.state.n)
+        for k in ("welford_mean", "welford_m2"):
+            np.testing.assert_allclose(float(getattr(gk.state, k)),
+                                       float(getattr(gp.state, k)), rtol=1e-5)
+
+
+def test_estimator_kernels_match_plain_path(cuda):
+    """``AceEstimator`` fit/score/predict through the kernels against the
+    plain sketch path on the card, same W."""
+    cfg = sk.AceConfig(dim=16, num_bits=12, num_tables=30, seed=5)
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=16) + 0.4 * rng.normal(size=(3000, 16))) \
+        .astype(np.float32)
+    q = np.concatenate([x[:100], 2.0 * rng.normal(size=(20, 16))]) \
+        .astype(np.float32)
+    ek = AceEstimator(cfg, use_kernels=True, device=cuda)
+    ep = AceEstimator(cfg, use_kernels=False, device=cuda, w=ek.w)
+    before = [m.KERNEL.launches for m in (H, U, Q)]
+    ek.fit(x, batch=512)
+    ep.fit(x, batch=512)
+    assert [m.KERNEL.launches for m in (H, U, Q)] == [b + 6 for b in before]
+    assert float(ek.state.n) == 3000
+    assert bool((ek.state.counts.sum(dim=1) == 3000).all())
+    pts = torch.as_tensor(np.concatenate([x, q]), device=cuda)
+    kid = H.srp_hash(pts, ek.w, cfg.srp)
+    pid = H.srp_hash_plain(pts, ek.w, cfg.srp)
+    assert _agreement(kid, pid) >= HASH_AGREEMENT
+    scores = ek.score(q)
+    assert scores.shape == (120,) and bool(torch.isfinite(scores).all())
+    if torch.equal(kid, pid):
+        assert torch.equal(ek.state.counts, ep.state.counts)
+        for k in ("welford_mean", "welford_m2"):
+            np.testing.assert_allclose(float(getattr(ek.state, k)),
+                                       float(getattr(ep.state, k)), rtol=1e-5)
+        np.testing.assert_allclose(float(ek.mu), float(ep.mu), rtol=1e-5)
+        assert torch.equal(scores, ep.score(q))
+        assert torch.equal(ek.predict(q), ep.predict(q))

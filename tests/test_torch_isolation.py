@@ -1,0 +1,78 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, every module of the port imports and a
+guardrail admit runs with JAX blocked, and without a CUDA device the
+entry points raise instead of falling back to the CPU."""
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")   # the optional `torch` extra
+
+from repro_torch.core import estimators as est  # noqa: E402
+from repro_torch.core import sketch as sk  # noqa: E402
+from repro_torch.serve import engine  # noqa: E402
+
+REPO = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
+    + [REPO / "chip_smoke.py"]
+
+
+def _imported_roots(path: Path) -> set[str]:
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(REPO)))
+def test_no_jax_or_reference_import(path):
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+def test_port_imports_and_admits_with_jax_blocked():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        sys.modules["jax"] = None          # any `import jax` now fails
+        import numpy as np
+        import repro_torch
+        for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+            importlib.import_module(m.name)
+        from repro_torch.serve.engine import Guardrail, GuardrailConfig
+        g = Guardrail(GuardrailConfig(d_model=8, num_bits=5, num_tables=4,
+                                      warmup_items=4.0), device="cpu")
+        e = np.random.default_rng(0).normal(size=(6, 2, 8)).astype("f4")
+        mask = g.admit(e)
+        assert mask.shape == (6,) and mask.all() and float(g.state.n) == 6
+        assert not any(k == "repro" or k.startswith("repro.")
+                       for k in sys.modules), "the JAX package was imported"
+        print("ISOLATED_OK")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "ISOLATED_OK" in out.stdout
+
+
+def test_entry_points_without_cuda_raise(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        engine.Guardrail(engine.GuardrailConfig(d_model=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        est.AceEstimator(sk.AceConfig(dim=8))
+    # asking for the CPU is the one way onto it
+    g = engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu")
+    assert g.state.counts.device.type == "cpu"
+    mask = g.admit(np.ones((2, 1, 8), np.float32))
+    assert mask.shape == (2,)

@@ -1,0 +1,297 @@
+"""The port's four kernel modules (``repro_torch.kernels``) on CPU tensors,
+where each wrapper takes its plain PyTorch version, against the
+reference's oracles (``repro.kernels.ref``) on the same numpy-made inputs
+and the same projection matrix W (drawn by JAX, carried across with
+``repro_torch.core.convert``).
+
+Tolerances:
+* hash bucket ids: agreement >= 0.999, the reference's own floor for its
+  dense-hash kernels (tests/test_kernels.py, TestKernelParityMatrix);
+* everything downstream of one set of bucket ids — counts, gathers,
+  pre-insert scores, admit masks — bitwise (every count sum here stays far
+  below 2^24, so float sums of counts are exact in any order).
+
+The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds
+each against these plain versions there.
+"""
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")   # the optional `torch` extra
+
+from repro.core.srp import SrpConfig as JSrpConfig  # noqa: E402
+from repro.core.srp import make_projections as jax_projections  # noqa: E402
+from repro.kernels import ref as R  # noqa: E402
+from repro.kernels.ace_admit_fused import \
+    ace_admit_fused as jax_admit_fused  # noqa: E402
+from repro_torch.core.convert import params_from_numpy  # noqa: E402
+from repro_torch.core.srp import SrpConfig  # noqa: E402
+from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
+from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_update as U  # noqa: E402
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import srp_hash as H  # noqa: E402
+
+jax.config.update("jax_platform_name", "cpu")
+
+CPU = torch.device("cpu")
+HASH_AGREEMENT = 0.999
+
+# (B, d, K, L): awkward sizes, the paper's K=15/L=50, and the KDD d=36
+SHAPES = [(16, 32, 8, 10), (7, 9, 4, 3), (33, 128, 12, 50), (64, 36, 15, 50)]
+
+
+def _inputs(B, d, K, L, seed=0, repeat=1):
+    """Same inputs for both packages: JAX's W, numpy x and counts.
+    ``repeat`` > 1 stacks copies of the rows so buckets collide."""
+    jcfg = JSrpConfig(dim=d, num_bits=K, num_tables=L, seed=seed + 1)
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=seed + 1)
+    w = np.asarray(jax_projections(jcfg))
+    rng = np.random.default_rng(seed + 2)
+    x = rng.normal(size=(B, d)).astype(np.float32)
+    x = np.concatenate([x] * repeat)
+    counts = rng.integers(0, 9, size=(L, 1 << K)).astype(np.int32)
+    return jcfg, cfg, w, x, counts
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _ids(B, K, L, seed, repeat=1):
+    ids = np.random.default_rng(seed).integers(0, 1 << K, size=(B, L))
+    return np.concatenate([ids] * repeat).astype(np.int32)
+
+
+class TestSrpHash:
+    @pytest.mark.parametrize("B,d,K,L", SHAPES)
+    def test_matches_ref(self, B, d, K, L):
+        jcfg, cfg, w, x, _ = _inputs(B, d, K, L)
+        got = H.srp_hash(_t(x), params_from_numpy(w, CPU), cfg)
+        want = np.asarray(R.srp_hash_ref(jnp.asarray(x), jnp.asarray(w),
+                                         jcfg))
+        assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
+        assert (got.numpy() == want).mean() >= HASH_AGREEMENT
+
+    def test_empty_batch(self):
+        _, cfg, w, _, _ = _inputs(4, 8, 5, 3)
+        got = H.srp_hash(torch.zeros((0, 8)), params_from_numpy(w, CPU), cfg)
+        assert tuple(got.shape) == (0, 3)
+
+
+class TestAceUpdate:
+    @pytest.mark.parametrize("B,K,L,repeat", [(40, 4, 3, 1), (30, 6, 10, 4),
+                                              (128, 15, 50, 2)])
+    def test_matches_ref_with_collisions(self, B, K, L, repeat):
+        """Repeated rows and a tiny bucket space make ids collide."""
+        counts = np.random.default_rng(1).integers(
+            0, 9, size=(L, 1 << K)).astype(np.int32)
+        ids = _ids(B, K, L, 2, repeat)
+        c = _t(counts.copy())
+        got = U.ace_update(c, _t(ids))
+        want = np.asarray(R.ace_update_ref(jnp.asarray(counts),
+                                           jnp.asarray(ids)))
+        assert got is c, "the update is in place"
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+class TestAceQuery:
+    @pytest.mark.parametrize("B,K,L", [(40, 4, 3), (33, 12, 50),
+                                       (64, 15, 50)])
+    def test_matches_ref(self, B, K, L):
+        counts = np.random.default_rng(3).integers(
+            0, 1000, size=(L, 1 << K)).astype(np.int32)
+        ids = _ids(B, K, L, 4, 2)
+        got = Q.ace_query(_t(counts), _t(ids))
+        want = np.asarray(R.ace_query_ref(jnp.asarray(counts),
+                                          jnp.asarray(ids)))
+        assert got.dtype == torch.float32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_ops_mean_matches_reference_ops(self):
+        """``ops.ace_query``: the gather kernel + the mean over L, against
+        the reference's own kernel-path op (Pallas, interpret mode)."""
+        from repro.core import sketch as jsk
+        from repro.kernels import ops as jops
+        from repro_torch.core.convert import state_from_numpy
+        from repro_torch.kernels import ops
+        counts = np.random.default_rng(7).integers(
+            0, 1000, size=(10, 1 << 8)).astype(np.int32)
+        ids = _ids(33, 8, 10, 8)
+        js = jsk.init(jsk.AceConfig(dim=4, num_bits=8, num_tables=10))
+        js = js._replace(counts=jnp.asarray(counts))
+        got = ops.ace_query(state_from_numpy(counts, 0, 0, 0, CPU), _t(ids))
+        want = jops.ace_query(js, jnp.asarray(ids))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+def _jax_admit_from_buckets(counts, buckets, thresh, item_mask):
+    """The reference's admission downstream of a given set of bucket ids
+    (tests/test_kernels.py ``_admit_from_buckets``, plus the item mask)."""
+    L = counts.shape[0]
+    gathered = R.ace_query_ref(counts, buckets)
+    scores = jnp.sum(gathered, axis=-1) * jnp.float32(1.0 / L)
+    admit = scores >= thresh
+    if item_mask is not None:
+        admit = jnp.logical_and(admit, item_mask)
+    rows = jnp.broadcast_to(jnp.arange(L, dtype=jnp.int32)[None, :],
+                            buckets.shape)
+    nc = counts.at[rows, buckets].add(
+        jnp.broadcast_to(admit.astype(counts.dtype)[:, None], buckets.shape))
+    return nc, scores, admit
+
+
+class TestAceAdmitFused:
+    @pytest.mark.parametrize("thresh", ["median", "-inf", "+inf"])
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("B,d,K,L,repeat", [(16, 32, 8, 10, 1),
+                                                (8, 36, 15, 50, 4),
+                                                (6, 9, 3, 4, 3)])
+    def test_matches_ref(self, B, d, K, L, repeat, thresh, masked):
+        """Warmup (−inf admits all), armed (median) and reject-all
+        thresholds, with and without the quarantine mask, on batches
+        whose rows repeat: every score must be the PRE-insert one."""
+        jcfg, cfg, w, x, counts = _inputs(B, d, K, L, repeat=repeat)
+        pre = np.asarray(R.ace_score_ref(jnp.asarray(counts), jnp.asarray(x),
+                                         jnp.asarray(w), jcfg))
+        t = {"median": np.median(pre), "-inf": -np.inf,
+             "+inf": np.inf}[thresh]
+        mask = (np.random.default_rng(5).random(len(x)) < 0.7) if masked \
+            else None
+        c = _t(counts.copy())
+        got_c, got_s, got_a, got_b = A.ace_admit_fused(
+            c, _t(x), params_from_numpy(w, CPU),
+            torch.tensor(t, dtype=torch.float32), cfg,
+            item_mask=None if mask is None else _t(mask))
+        assert got_c is c, "counts are updated in place"
+        _, _, _, want_b = R.ace_admit_ref(jnp.asarray(counts), jnp.asarray(x),
+                                          jnp.asarray(w), jnp.float32(t),
+                                          jcfg)
+        assert (got_b.numpy() == np.asarray(want_b)).mean() \
+            >= HASH_AGREEMENT
+        # downstream of the port's own bucket ids: bitwise
+        nc, s, a = _jax_admit_from_buckets(
+            jnp.asarray(counts), jnp.asarray(got_b.numpy()), jnp.float32(t),
+            None if mask is None else jnp.asarray(mask))
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(s))
+        np.testing.assert_array_equal(got_a.numpy(), np.asarray(a))
+        np.testing.assert_array_equal(got_c.numpy(), np.asarray(nc))
+        if repeat > 1:
+            s_rep = got_s.numpy().reshape(repeat, -1)
+            assert (s_rep == s_rep[:1]).all(), "copies score alike"
+
+    def test_matches_pallas_kernel_in_interpret_mode(self):
+        """The Pallas kernel itself (interpret mode, as the reference's
+        tests run it on the CPU), with the item mask."""
+        jcfg, cfg, w, x, counts = _inputs(16, 32, 8, 10, repeat=2)
+        thresh = np.float32(np.median(np.asarray(R.ace_score_ref(
+            jnp.asarray(counts), jnp.asarray(x), jnp.asarray(w), jcfg))))
+        mask = np.random.default_rng(6).random(len(x)) < 0.8
+        jc, js, ja, jb = jax_admit_fused(
+            jnp.asarray(counts), jnp.asarray(x), jnp.asarray(w),
+            jnp.float32(thresh), jcfg, interpret=True,
+            item_mask=jnp.asarray(mask))
+        c, s, a, b = A.ace_admit_fused(
+            _t(counts.copy()), _t(x), params_from_numpy(w, CPU),
+            torch.tensor(thresh), cfg, item_mask=_t(mask))
+        assert (b.numpy() == np.asarray(jb)).mean() >= HASH_AGREEMENT
+        if (b.numpy() == np.asarray(jb)).all():
+            np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+            np.testing.assert_array_equal(a.numpy(), np.asarray(ja))
+            np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
+
+
+class TestWrapperContract:
+    """What every wrapper checks before it runs anything."""
+
+    def _args(self):
+        _, cfg, w, x, counts = _inputs(4, 8, 5, 3)
+        return cfg, params_from_numpy(w, CPU), _t(x), _t(counts)
+
+    def test_rejects_wrong_dtype(self):
+        cfg, w, x, counts = self._args()
+        with pytest.raises(TypeError):
+            H.srp_hash(x.double(), w, cfg)
+        with pytest.raises(TypeError):
+            U.ace_update(counts.float(), torch.zeros((2, 3), dtype=torch.int32))
+
+    def test_rejects_wrong_shape(self):
+        cfg, w, x, counts = self._args()
+        with pytest.raises(ValueError):
+            H.srp_hash(x, w[:, :64].contiguous(), cfg)
+        with pytest.raises(ValueError):
+            Q.ace_query(counts, torch.zeros((2, 4), dtype=torch.int32))
+
+    def test_rejects_non_contiguous(self):
+        cfg, w, x, counts = self._args()
+        with pytest.raises(ValueError):
+            H.srp_hash(torch.zeros((8, 4)).T, w, cfg)
+
+    def test_rejects_other_devices(self):
+        """Only CPU tensors take the plain version; anything that is
+        neither CPU nor CUDA raises instead of running somewhere."""
+        cfg, w, x, counts = self._args()
+        with pytest.raises(ValueError):
+            H.srp_hash(x.to("meta"), w.to("meta"), cfg)
+        with pytest.raises(ValueError):
+            H.srp_hash(x, w.to("meta"), cfg)
+
+    def test_plain_versions_count_no_launch(self):
+        """The launch counters grow only where a CUDA kernel launches."""
+        cfg, w, x, counts = self._args()
+        before = [m.KERNEL.launches for m in (H, U, Q, A)]
+        b = H.srp_hash(x, w, cfg)
+        U.ace_update(counts, b)
+        Q.ace_query(counts, b)
+        A.ace_admit_fused(counts, x, w, torch.tensor(0.0), cfg)
+        assert [m.KERNEL.launches for m in (H, U, Q, A)] == before
+
+    def test_admit_rejects_non_scalar_threshold(self):
+        cfg, w, x, counts = self._args()
+        with pytest.raises(ValueError):
+            A.ace_admit_fused(counts, x, w, torch.zeros(2), cfg)
+
+
+class TestBuild:
+    def test_nvcc_command_targets_hopper(self):
+        cmd = build.nvcc_command("nvcc", "srp_hash", build.BUILD_DIR / "x.so")
+        assert "arch=compute_90a,code=sm_90a" in cmd
+        assert "-shared" in cmd and cmd[-1].endswith("srp_hash.cu")
+
+    def test_every_kernel_has_a_source(self):
+        assert build.sources() == ["ace_admit_fused", "ace_query",
+                                   "ace_update", "srp_hash"]
+
+    def test_cache_key_follows_the_sources(self, tmp_path, monkeypatch):
+        csrc = tmp_path / "csrc"
+        shutil.copytree(build.CSRC, csrc)
+        monkeypatch.setattr(build, "CSRC", csrc)
+        before = build.library_path("srp_hash")
+        (csrc / "srp_tile.cuh").write_text(
+            (csrc / "srp_tile.cuh").read_text() + "\n// edit\n")
+        assert build.library_path("srp_hash") != before
+
+    def test_missing_nvcc_raises(self, tmp_path, monkeypatch):
+        import torch.utils.cpp_extension as cpp_ext
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
+        monkeypatch.delenv("CUDA_HOME", raising=False)
+        monkeypatch.setattr(shutil, "which", lambda _name: None)
+        monkeypatch.setattr(cpp_ext, "CUDA_HOME", None)
+        with pytest.raises(RuntimeError, match="no nvcc"):
+            build.build_all()
+
+    def test_failed_compile_raises_with_compiler_output(self, tmp_path,
+                                                        monkeypatch):
+        fake = tmp_path / "nvcc"
+        fake.write_text("#!/bin/sh\necho 'error: no such target' >&2\n"
+                        "exit 2\n")
+        fake.chmod(0o755)
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+        monkeypatch.setattr(build, "find_nvcc", lambda: str(fake))
+        with pytest.raises(RuntimeError, match="no such target"):
+            build.build_all()
+        assert not list((tmp_path / "build").glob("*.so"))
