@@ -1,23 +1,27 @@
 #!/usr/bin/env python3
 """Build the PyTorch/CUDA port of ACE (``src/repro_torch``) and drive its
-main path on one NVIDIA GPU, checking every result.
+main paths on one NVIDIA GPU, checking every result.
 
     python3 chip_smoke.py          # from the root of a checkout
 
 Phases, in order (any failed check raises, and the script then exits
 non-zero without printing its result line):
 
-1. build   — compile the four CUDA kernels (one ``nvcc`` per source, all
+1. build   — compile the six CUDA kernels (one ``nvcc`` per source, all
              at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card, at
-             the shapes of the main path: hash bucket ids agree >= 0.999,
-             counts, gathers, scores and admit masks bitwise (downstream of
-             the kernel's own bucket ids), including a batch of repeated
-             rows for the fused admission;
+             the shapes of the main paths: dense hash bucket ids agree
+             >= 0.999, SRHT ids bitwise at d = 36, 4097 and 12289, and
+             counts, gathers, scores and admit masks bitwise (downstream
+             of the kernel's own bucket ids), including a batch of
+             repeated rows for the fused admission and the weighted
+             (two tables masked) form of the fused score;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
-             predicted;
+             predicted (``ace_score_fused``); then a shorter fit and score
+             under ``hash_mode="srht"``, held bitwise against the plain
+             path;
 4. guardrail — ``Guardrail`` at d_model=4096, K=15, L=50: 32 admits of
              256 requests x 16 tokens, one NaN row per batch, an
              off-distribution burst in half the rows of the last 4; held
@@ -25,12 +29,23 @@ non-zero without printing its result line):
              in <= 1%, insertions a hash flip moved to another bucket
              <= 1e-3 of n*L (the hash floor), mu and Welford within rtol
              1e-3 (1e-5 when no insertion moved);
-5. timing  — each kernel, its plain version and (where one PyTorch call
+5. stream  — ``AceDataFilter(d_model=4096)`` with its defaults (K=13,
+             L=32, alpha=4, warmup 512) through ``StreamRunner(chunk_T=16)``
+             over 8 chunks of 16 x 512 feature rows (clustered around 8
+             topics, one NaN row a step, a burst of unseen topics in the
+             last two chunks), once per hash family: the chunked run equals
+             a sequential loop of ``step`` bitwise, the kernel path equals
+             the plain path (bitwise under SRHT, within the dense ids floor
+             otherwise), one transfer each way per chunk, no host sync
+             inside ``consume`` (sync debug mode "error"), items/s printed;
+6. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
-             beside the least time the card could take (its bound).
+             beside the least time the card could take (its bound); and
+             both hash kernels at the corners of hash_mode="auto"
+             (d = 64 and 4096), checked against the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 and 4 and read just after, and every kernel
+before each path of phases 3 to 5 and read just after, and every kernel
 of a path must have been launched in it.  The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line of per-kernel numbers,
 and ``{"ok": true, "device": {...}}``.  A kernel's ``max_abs_err`` there is
@@ -55,19 +70,29 @@ SEED = 0
 ROOT = Path(__file__).resolve().parent
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores, and HBM3 bandwidth.
+# tensor cores (an FMA counts two, so plain adds run at half of it), and
+# HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
+PEAK_FP32_ADDS = 33.5e12
 PEAK_BYTES_PER_S = 3.35e12
 
 KDD_N, KDD_D = 596_853, 36          # KDD-Cup99 HTTP (repro/data/synthetic.py)
 K_BITS, L_TABLES = 15, 50           # the paper's sketch
 FIT_BATCH, N_QUERIES = 4096, 16_384
 D_MODEL, ADMITS, ADMIT_B, ADMIT_S = 4096, 32, 256, 16
+SRHT_FIT_N = 65_536                 # the shorter hash_mode="srht" fit
+STREAM_T, STREAM_B, STREAM_CHUNKS = 16, 512, 8
+SRHT_WIDTHS = (36, 4097, 12289)     # d_pad 64, 8192, 16384
+AUTO_DIMS, AUTO_B = (64, 4096), 256  # benchmarks/stream_throughput.py
 
+KERNELS = ("srp_hash", "srht_hash", "ace_update", "ace_query",
+           "ace_score_fused", "ace_admit_fused")
 REPLACES = {
     "srp_hash": "src/repro/kernels/srp_hash.py:125",
+    "srht_hash": "src/repro/kernels/srht_hash.py:100",
     "ace_update": "src/repro/kernels/ace_update.py:122",
     "ace_query": "src/repro/kernels/ace_query.py:66",
+    "ace_score_fused": "src/repro/kernels/ace_score_fused.py:130",
     "ace_admit_fused": "src/repro/kernels/ace_admit_fused.py:178",
 }
 
@@ -88,12 +113,18 @@ def import_port():
         raise SystemExit("chip_smoke: src/repro_torch not found beside "
                          "chip_smoke.py; run it from a checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    import repro_torch.kernels.ace_admit_fused as admit_mod
-    import repro_torch.kernels.ace_query as query_mod
-    import repro_torch.kernels.ace_update as update_mod
-    import repro_torch.kernels.srp_hash as hash_mod
-    return {"srp_hash": hash_mod, "ace_update": update_mod,
-            "ace_query": query_mod, "ace_admit_fused": admit_mod}
+    import importlib
+    return {k: importlib.import_module(f"repro_torch.kernels.{k}")
+            for k in KERNELS}
+
+
+def reset_launches(mods) -> None:
+    for m in mods.values():
+        m.KERNEL.launches = 0
+
+
+def read_launches(mods) -> dict:
+    return {k: m.KERNEL.launches for k, m in mods.items()}
 
 
 def card_line() -> str:
@@ -116,6 +147,11 @@ def kdd_like(n: int, d: int, rng: np.random.Generator) -> np.ndarray:
     return x.astype(np.float32)
 
 
+def sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
 def agreement(a: torch.Tensor, b: torch.Tensor) -> float:
     return float((a == b).to(torch.float64).mean())
 
@@ -131,7 +167,7 @@ def distinct_counters(buckets: torch.Tensor, nbuckets: int) -> int:
 # ---------------------------------------------------------------------------
 
 def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
-                  admit_b=ADMIT_B) -> dict:
+                  admit_b=ADMIT_B, n_queries=N_QUERIES) -> dict:
     from repro_torch.core.srp import SrpConfig, make_projections
     h, u, q, a = (mods[k] for k in ("srp_hash", "ace_update", "ace_query",
                                     "ace_admit_fused"))
@@ -203,6 +239,57 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
             check(torch.equal(s8, s8[:1].expand_as(s8)),
                   "colliding copies score alike: every score is pre-insert")
     err["ace_admit_fused"] = worst
+
+    # ace_update's row mask: the masked insert of the SRHT/degraded paths
+    rmask = torch.rand((fit_batch,), generator=gen, device=device) < 0.5
+    ck = u.ace_update(counts0.clone(), kb, row_mask=rmask)
+    cp = u.ace_update_plain(counts0.clone(), kb, rmask)
+    err["ace_update"] = max(err["ace_update"], float((ck - cp).abs().max()))
+    check(torch.equal(ck, cp), "ace_update with a row mask bitwise equal "
+          "to plain")
+
+    # ace_score_fused at the estimator's score shape, both forms
+    f = mods["ace_score_fused"]
+    qs = torch.as_tensor(kdd_like(n_queries, KDD_D,
+                                  np.random.default_rng(SEED + 4)),
+                         device=device)
+    ids = h.srp_hash(qs, w, cfg)
+    same = (ids == h.srp_hash_plain(qs, w, cfg)).all(dim=1)
+    tmask = torch.ones(L_TABLES, device=device)
+    tmask[[3, 31]] = 0.0
+    worst = 0.0
+    for name, tw in (("unweighted", None),
+                     ("weighted, 2 tables masked", tmask / tmask.sum())):
+        sk_ = f.ace_score_fused(ck, qs, w, cfg, table_weights=tw)
+        sp = f.ace_score_fused_plain(ck, qs, w, cfg, table_weights=tw)
+        g = f.flat_table_gather(ck, ids)
+        ref = torch.zeros(n_queries, device=device)
+        for j in range(L_TABLES):
+            ref = ref + (g[:, j] if tw is None else g[:, j] * tw[j])
+        if tw is None:
+            ref = ref * torch.tensor(1.0 / L_TABLES, dtype=torch.float32)
+        worst = max(worst, float((sk_ - sp).abs().max()))
+        check(torch.equal(sk_, ref), f"ace_score_fused ({name}) bitwise "
+              "equal to the table-order sum of its own ids' gathers")
+        check(torch.equal(sk_[same], sp[same]), f"ace_score_fused ({name}) "
+              f"bitwise equal to plain on the {int(same.sum())} of "
+              f"{n_queries} rows whose ids agree")
+    err["ace_score_fused"] = worst
+
+    # srht_hash: ids bitwise at three widths, one above 48 KB of smem
+    sh = mods["srht_hash"]
+    worst = 0.0
+    for d in SRHT_WIDTHS:
+        scfg = SrpConfig(dim=d, num_bits=13, num_tables=32, seed=29,
+                         hash_mode="srht")
+        xs = torch.randn((STREAM_B, d), generator=gen, device=device)
+        xs[0] = 0.0
+        kb_s, pb_s = sh.srht_hash(xs, scfg), sh.srht_hash_plain(xs, scfg)
+        worst = max(worst, float((kb_s - pb_s).abs().max()))
+        check(torch.equal(kb_s, pb_s), f"srht_hash ids bitwise equal to "
+              f"plain at B={STREAM_B}, d={d} (d_pad "
+              f"{sh.srht_params(scfg).d_pad})")
+    err["srht_hash"] = worst
     return err
 
 
@@ -222,8 +309,7 @@ def phase_estimator(mods, device, n=KDD_N, n_queries=N_QUERIES) -> dict:
         pts[n:], rng.normal(0.0, 1.0, size=(n_out, KDD_D)).astype(np.float32)])
     cfg = AceConfig(dim=KDD_D, num_bits=K_BITS, num_tables=L_TABLES)
 
-    for m in mods.values():
-        m.KERNEL.launches = 0
+    reset_launches(mods)
     est = AceEstimator(cfg, use_kernels=True, device=device)
     t0 = time.perf_counter()
     est.fit(x, batch=FIT_BATCH)
@@ -232,7 +318,7 @@ def phase_estimator(mods, device, n=KDD_N, n_queries=N_QUERIES) -> dict:
     if device.type == "cuda":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: m.KERNEL.launches for k, m in mods.items()}
+    launches = read_launches(mods)
     print(f"  estimator path: fit {n} x {KDD_D} + score/predict "
           f"{n_queries} in {secs:.3f} s (host clock); launches {launches}")
 
@@ -262,13 +348,48 @@ def phase_estimator(mods, device, n=KDD_N, n_queries=N_QUERIES) -> dict:
           f"{float(flags[:-n_out].float().mean()):.4f}, outliers "
           f"{float(flags[-n_out:].float().mean()):.4f}")
     check(out < inl, "off-distribution queries score below inliers")
-    for k in ("srp_hash", "ace_update", "ace_query"):
+    for k in ("srp_hash", "ace_update", "ace_query", "ace_score_fused"):
         check(launches[k] > 0, f"estimator path launched {k}")
-    return {"launches": launches, "seconds": secs,
+    return {"launches": launches, "seconds": secs, "counts": counts,
             "buckets": mods["srp_hash"].srp_hash(
                 torch.as_tensor(x[:FIT_BATCH], device=device), est.w,
                 cfg.srp),
             "w": est.w}
+
+
+def phase_estimator_srht(mods, device, n=SRHT_FIT_N,
+                         n_queries=N_QUERIES) -> dict:
+    """A shorter fit and score at the KDD shape under hash_mode="srht",
+    held bitwise against the plain path on the card."""
+    from repro_torch.core.estimators import AceEstimator
+    from repro_torch.core.sketch import AceConfig
+    rng = np.random.default_rng(SEED + 5)
+    pts = kdd_like(n + n_queries, KDD_D, rng)
+    x, queries = pts[:n], pts[n:]
+    cfg = AceConfig(dim=KDD_D, num_bits=K_BITS, num_tables=L_TABLES,
+                    hash_mode="srht")
+    reset_launches(mods)
+    est = AceEstimator(cfg, use_kernels=True, device=device)
+    t0 = time.perf_counter()
+    est.fit(x, batch=FIT_BATCH)
+    scores = est.score(queries)
+    sync(device)
+    secs = time.perf_counter() - t0
+    launches = read_launches(mods)
+    print(f"  estimator path (srht): fit {n} x {KDD_D} + score {n_queries} "
+          f"in {secs:.3f} s (host clock); launches {launches}")
+    plain = AceEstimator(cfg, use_kernels=False, device=device, w=est.w)
+    plain.fit(x, batch=FIT_BATCH)
+    check(tuple(est.w.shape) == (KDD_D, 0), "W is the (d, 0) placeholder")
+    check(torch.equal(est.state.counts, plain.state.counts)
+          and float(est.state.n) == float(plain.state.n) == n,
+          "srht estimator counts and n bitwise equal to the plain path")
+    check(torch.equal(scores, plain.score(queries)),
+          "srht estimator scores bitwise equal to the plain path")
+    check(bool(torch.isfinite(scores).all()), "srht scores finite")
+    for k in ("srht_hash", "ace_update", "ace_query"):
+        check(launches[k] > 0, f"srht estimator path launched {k}")
+    return {"launches": launches, "seconds": secs}
 
 
 # ---------------------------------------------------------------------------
@@ -298,8 +419,7 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
     from repro_torch.serve.engine import Guardrail, GuardrailConfig
     gcfg = GuardrailConfig(d_model=d_model, num_bits=K_BITS,
                            num_tables=L_TABLES)
-    for m in mods.values():
-        m.KERNEL.launches = 0
+    reset_launches(mods)
     g = Guardrail(gcfg, use_kernels=True, device=device)
     masks, lat, bursts = [], [], []
     for e, burst in guardrail_batches(device, d_model, admits, b, s):
@@ -307,7 +427,7 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
         masks.append(g.admit(e))                 # ends in the one transfer
         lat.append(time.perf_counter() - t0)
         bursts.append(burst)
-    launches = {k: m.KERNEL.launches for k, m in mods.items()}
+    launches = read_launches(mods)
     print(f"  guardrail path: {admits} admits of {b} x {s} x {d_model}; "
           f"admit p50 {1e3 * statistics.median(lat):.3f} ms (host clock, "
           f"ends in the mask transfer); launches {launches}")
@@ -375,7 +495,202 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: timing on the card.
+# Phase 5: the data filter through the chunked stream runner, d_model 4096.
+# ---------------------------------------------------------------------------
+
+def stream_features(device, d_model, chunks, T, B):
+    """(chunks * T, B, d_model + 1) float32 feature rows, made on the card
+    and brought to the host once (set-up): unit-norm rows around 8 topics
+    plus the 0.25 bias coordinate, one NaN row a step, and in the last two
+    chunks a quarter of each step's rows around 4 unseen topics.  Returns
+    (host array, burst-row mask (steps, B))."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    topics = torch.nn.functional.normalize(
+        torch.randn((12, d_model), generator=gen, device=device), dim=-1)
+    steps = chunks * T
+    pick = torch.randint(0, 8, (steps, B), generator=gen, device=device)
+    burst = torch.zeros((steps, B), dtype=torch.bool, device=device)
+    burst[(chunks - 2) * T:, : B // 4] = True
+    pick = torch.where(burst, 8 + pick % 4, pick)
+    f = topics[pick] + 0.005 * torch.randn((steps, B, d_model),
+                                           generator=gen, device=device)
+    f = torch.nn.functional.normalize(f, dim=-1)
+    feats = torch.cat([f, torch.full((steps, B, 1), 0.25, device=device)],
+                      dim=-1)
+    idx = torch.arange(steps, device=device)
+    feats[idx, idx % B, 0] = float("nan")
+    return feats.cpu().numpy(), burst.cpu().numpy()
+
+
+def phase_stream(mods, device, mode, d_model=D_MODEL, chunks=STREAM_CHUNKS,
+                 T=STREAM_T, B=STREAM_B) -> dict:
+    import repro_torch.stream.runner as runner_mod
+    from repro_torch.data.pipeline import AceDataFilter
+    feats, burst = stream_features(device, d_model, chunks, T, B)
+    filt = AceDataFilter(d_model=d_model, hash_mode=mode, device=device)
+    runner = runner_mod.StreamRunner(filt, chunk_T=T)
+    transfers = {"h2d": 0, "d2h": 0}
+    real_in, real_out, real_consume = (runner_mod._to_device,
+                                       runner_mod._to_host, runner.consume)
+
+    def to_device(x, dev):
+        transfers["h2d"] += 1
+        return real_in(x, dev)
+
+    def to_host(x):
+        transfers["d2h"] += 1
+        return real_out(x)
+
+    def consume_no_sync(*a, **k):     # any host sync inside raises
+        if device.type != "cuda":
+            return real_consume(*a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_consume(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runner_mod._to_device, runner_mod._to_host = to_device, to_host
+    runner.consume = consume_no_sync
+    try:
+        # one unrecorded chunk first, so the timed run pays no first-call
+        # costs (cuBLAS/allocator); then the main path on a fresh state
+        s0, w = runner.init()
+        runner.consume(s0, w, torch.as_tensor(feats[:T], device=device))
+        sync(device)
+        transfers.update(h2d=0, d2h=0)
+        state, w = runner.init()
+        sync(device)
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        state, sums = runner.run(state, w, iter(feats))
+        secs = time.perf_counter() - t0          # ends in the last D2H
+        launches = read_launches(mods)
+    finally:
+        runner_mod._to_device, runner_mod._to_host = real_in, real_out
+        runner.consume = real_consume
+    items = chunks * T * B
+    print(f"  stream path ({mode}): {chunks} chunks of {T} x {B} x "
+          f"{d_model + 1}; {items / secs:,.0f} items/s ({secs:.3f} s, host "
+          f"clock, ends in the last summary transfer); launches {launches}")
+    check(len(sums) == chunks, f"{chunks} chunk summaries")
+    check(transfers == {"h2d": chunks, "d2h": chunks},
+          f"one H2D and one D2H per chunk ({transfers})")
+    check(all(int(x.quarantined) == T for x in sums),
+          "quarantined == 1 per step in every chunk")
+
+    # the same features step by step: kernel path (bitwise), plain path
+    dev_feats = torch.as_tensor(feats, device=device)
+    seq, _ = filt.init()
+    plain_f = AceDataFilter(d_model=d_model, hash_mode=mode,
+                            use_kernels=False, device=device)
+    plain, _ = plain_f.init()
+    keep_k, keep_p, n_before = [], [], []
+    for t in range(chunks * T):
+        n_before.append(float(seq.n))
+        seq, kk, _ = filt.step(seq, w, dev_feats[t])
+        plain, kp, _ = plain_f.step(plain, w, dev_feats[t])
+        keep_k.append(kk)
+        keep_p.append(kp)
+    check(torch.equal(seq.counts, state.counts)
+          and float(seq.n) == float(state.n),
+          "chunked run equals the sequential loop of step: counts and n "
+          "bitwise")
+    check(torch.equal(seq.welford_m2, state.welford_m2),
+          "chunked run equals the sequential loop: Welford bitwise")
+    keep_k, keep_p = torch.stack(keep_k), torch.stack(keep_p)
+    agree = agreement(keep_k, keep_p)
+    if mode == "srht":
+        check(all(torch.equal(getattr(state, k), getattr(plain, k))
+                  for k in ("counts", "n", "welford_mean", "welford_m2"))
+              and torch.equal(keep_k, keep_p),
+              "srht kernel path equals the plain path bitwise (counts, n, "
+              "Welford, keep masks)")
+    else:
+        moved = int((state.counts - plain.counts).abs().sum()) // 2
+        share = moved / max(float(plain.n) * filt.num_tables, 1.0)
+        check(agree >= 0.999 and share <= 1e-3,
+              f"dense kernel path within the ids floor of the plain path: "
+              f"keep masks agree {agree:.6f} >= 0.999, {moved} displaced "
+              f"insertions ({share:.2e} <= 1e-3 of n*L)")
+
+    # warmup: the steps that began with n below warmup_items
+    warm = np.array(n_before) < filt.warmup_items
+    burst_steps = burst.any(axis=1)
+    for c, x in enumerate(sums):
+        steps = c * T + x.topk_step
+        check(not (x.topk_valid & warm[steps]).any(),
+              f"chunk {c}: no valid top-k row in warmup")
+    anom = np.concatenate([x.anom_counts for x in sums]) - 1   # NaN rows
+    normal_rate = float(anom[~burst_steps & ~warm].mean()) / B
+    burst_rate = float(anom[burst_steps].mean()) / B
+    print(f"  flagged per step: normal {normal_rate:.4f}, burst steps "
+          f"{burst_rate:.4f} (a quarter of their rows are burst rows); "
+          f"warmup steps {int(warm.sum())}")
+    check(burst_rate > normal_rate + 0.1, "the burst is flagged")
+    for x in sums[-2:]:
+        rows = x.topk_item[x.topk_valid]
+        check(x.topk_valid.all() and (rows < B // 4).all(),
+              "burst chunks: every top-k row is a valid burst row")
+    path = (("srht_hash", "ace_query", "ace_update") if mode == "srht"
+            else ("ace_admit_fused", "ace_query"))
+    for k in path:
+        check(launches[k] > 0, f"stream path ({mode}) launched {k}")
+    breakdown = stream_breakdown(runner, seq, w, feats[:T], device)
+    return {"launches": launches, "items_per_s": items / secs,
+            "seconds": secs, "breakdown": breakdown}
+
+
+def stream_breakdown(runner, state, w, batches, device) -> dict:
+    """Where one chunk's time goes: the host clock of each stage of
+    ``run`` (each ends in a sync), and a ``torch.profiler`` trace of
+    ``consume`` for the device's busy time and kernel count."""
+    import repro_torch.stream.runner as runner_mod
+    from torch.profiler import ProfilerActivity, profile
+    t = [time.perf_counter()]
+    stacked = np.stack(list(batches))
+    t.append(time.perf_counter())
+    chunk = runner_mod._to_device(stacked, device)
+    sync(device)
+    t.append(time.perf_counter())
+    state, summary = runner.consume(state, w, chunk)
+    sync(device)
+    t.append(time.perf_counter())
+    runner.fetch(summary)
+    t.append(time.perf_counter())
+    ms = dict(zip(("stack", "h2d", "consume", "fetch"),
+                  (1e3 * (b - a) for a, b in zip(t, t[1:]))))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, summary = runner.consume(state, w, chunk)
+        sync(device)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name: dict[str, float] = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    print(f"  one chunk, host clock: stack {ms['stack']:.2f} ms, H2D "
+          f"{ms['h2d']:.2f} ms, consume {ms['consume']:.2f} ms, summary "
+          f"fetch {ms['fetch']:.2f} ms")
+    if not kernels:
+        print("  consume under torch.profiler: no device op in the trace; "
+              "device idle share not measured")
+    else:
+        print(f"  consume under torch.profiler: wall {wall_us / 1e3:.3f} "
+              f"ms, {len(kernels)} device ops, device busy "
+              f"{busy_us / 1e3:.3f} ms (idle share "
+              f"{1 - busy_us / wall_us:.3f}); top: "
+              + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in top))
+    return {**ms, "profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3, "device_ops": len(kernels)}
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: timing on the card.
 # ---------------------------------------------------------------------------
 
 def device_ms(fn, reps: int = 30, inner: int = 10) -> float:
@@ -406,7 +721,7 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_timing(mods, device, est, guard) -> dict:
+def phase_timing(mods, device, est, guard) -> tuple:
     from repro_torch.core.srp import SrpConfig
     h, u, q, a = (mods[k] for k in ("srp_hash", "ace_update", "ace_query",
                                     "ace_admit_fused"))
@@ -481,13 +796,90 @@ def phase_timing(mods, device, est, guard) -> dict:
     hash_ms = device_ms(lambda: h.srp_hash(feat, g.w, acfg))
     print(f"  srp_hash at the admit shape B={B2}, d={d2}: {hash_ms:.5f} ms "
           "(the admit kernel's phase 1 without its gather)")
+
+    # ace_score_fused at the estimator's score shape, on its fitted counts
+    f, sh = mods["ace_score_fused"], mods["srht_hash"]
+    qs = torch.as_tensor(kdd_like(N_QUERIES, KDD_D,
+                                  np.random.default_rng(SEED + 4)),
+                         device=device)
+    ec = est["counts"]
+    Us = distinct_counters(h.srp_hash(qs, w, cfg), nb)
+    B3 = N_QUERIES
+    out["ace_score_fused"] = dict(
+        ms=device_ms(lambda: f.ace_score_fused(ec, qs, w, cfg)),
+        plain_ms=device_ms(lambda: f.ace_score_fused_plain(ec, qs, w, cfg)),
+        library_ms=None,
+        shape=f"B={B3}, d={KDD_D}, K={K_BITS}, L={L}, distinct counters "
+              f"{Us}",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * B3 * KDD_D * KL + B3 * L,
+            4 * (B3 * KDD_D + KDD_D * KL) + 4 * Us + 4 * B3))))
+
+    # srht_hash at the stream step's shape (AceDataFilter(d_model=4096))
+    scfg = SrpConfig(dim=D_MODEL + 1, num_bits=13, num_tables=32, seed=29,
+                     hash_mode="srht")
+    xs = torch.randn((STREAM_B, D_MODEL + 1),
+                     generator=torch.Generator(device=device).manual_seed(7),
+                     device=device)
+    out["srht_hash"] = dict(
+        ms=device_ms(lambda: sh.srht_hash(xs, scfg)),
+        plain_ms=device_ms(lambda: sh.srht_hash_plain(xs, scfg)),
+        library_ms=None,
+        shape=f"B={STREAM_B}, d={D_MODEL + 1}, d_pad "
+              f"{sh.srht_params(scfg).d_pad}, K=13, L=32",
+        **dict(zip(("bound_ms", "bound_by"),
+                   srht_bound(STREAM_B, D_MODEL + 1, scfg))))
+
+    # hash_mode="auto": both hash kernels at the benchmark corners
+    from repro_torch.core.srht import choose_hash_mode
+    from repro_torch.core.srp import make_projections
+    auto = {}
+    for d in AUTO_DIMS:
+        dcfg = SrpConfig(dim=d, num_bits=K_BITS, num_tables=L)
+        hcfg = SrpConfig(dim=d, num_bits=K_BITS, num_tables=L,
+                         hash_mode="srht")
+        wd = make_projections(dcfg, device=device)
+        xd = torch.randn((AUTO_B, d), generator=torch.Generator(
+            device=device).manual_seed(d), device=device)
+        dense_ms = device_ms(lambda: h.srp_hash(xd, wd, dcfg))
+        srht_ms = device_ms(lambda: sh.srht_hash(xd, hcfg))
+        winner = "srht" if srht_ms < dense_ms else "dense"
+        pick = choose_hash_mode(SrpConfig(dim=d, num_bits=K_BITS,
+                                          num_tables=L, hash_mode="auto"))
+        auto[d] = dict(dense_ms=dense_ms, srht_ms=srht_ms, winner=winner,
+                       auto_picks=pick)
+        print(f"  auto corner d={d}, B={AUTO_B}, K={K_BITS}, L={L}: "
+              f"srp_hash {dense_ms:.5f} ms, srht_hash {srht_ms:.5f} ms; "
+              f"measured winner {winner}, auto picks {pick}")
+    for d, a in auto.items():
+        # a pick that is not the winner is allowed only in a near tie:
+        # auto must never cost more than 25% over the faster family
+        picked = a[f"{a['auto_picks']}_ms"]
+        best = min(a["dense_ms"], a["srht_ms"])
+        check(picked <= 1.25 * best, f"hash_mode='auto' at d={d} picks "
+              f"{a['auto_picks']} ({picked:.5f} ms), within 25% of the "
+              f"measured winner {a['winner']} ({best:.5f} ms)")
     for k, v in out.items():
         lib = "null" if v["library_ms"] is None else f"{v['library_ms']:.5f}"
         print(f"  {k:16s} {v['shape']}: kernel {v['ms']:.5f} ms, plain "
               f"{v['plain_ms']:.5f} ms, library {lib} ms, bound "
               f"{v['bound_ms']:.5f} ms ({v['bound_by']}), "
               f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound")
-    return out
+    return out, auto
+
+
+def srht_bound(B: int, d: int, cfg):
+    """The SRHT's bound: its adds, sign flips and sampled compares at the
+    add rate against x, the signs, the row sample and the ids in bytes."""
+    from repro_torch.core.srht import next_pow2
+    d_pad = next_pow2(max(d, 2))
+    log2 = d_pad.bit_length() - 1
+    m = cfg.num_projections
+    ops = B * (2 * d_pad * log2 + 2 * d_pad + m)
+    nbytes = 4 * B * d + 2 * 4 * d_pad + 4 * m + 4 * B * cfg.num_tables
+    t_ops, t_bytes = ops / PEAK_FP32_ADDS, nbytes / PEAK_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def main() -> int:
@@ -519,16 +911,22 @@ def main() -> int:
     print("phase 2: kernels against their plain versions on the card")
     err = phase_kernels(mods, device)
     print("phase 3: AceEstimator path")
-    est = phase_estimator(mods, device)
+    paths = {"estimator": phase_estimator(mods, device),
+             "estimator_srht": phase_estimator_srht(mods, device)}
     print("phase 4: Guardrail path")
-    guard = phase_guardrail(mods, device)
-    print("phase 5: timing (CUDA events, median of 30)")
-    times = phase_timing(mods, device, est, guard)
+    paths["guardrail"] = phase_guardrail(mods, device)
+    print("phase 5: stream path (AceDataFilter + StreamRunner)")
+    for mode in ("dense", "srht"):
+        paths[f"stream_{mode}"] = phase_stream(mods, device, mode)
+    print("phase 6: timing (CUDA events, median of 30)")
+    times, _ = phase_timing(mods, device, paths["estimator"],
+                            paths["guardrail"])
 
     kernels = []
-    for name in ("srp_hash", "ace_update", "ace_query", "ace_admit_fused"):
-        launches = est["launches"][name] + guard["launches"][name]
-        check(launches > 0, f"{name} launched on the main path ({launches})")
+    for name in KERNELS:
+        by_path = {p: r["launches"][name] for p, r in paths.items()}
+        launches = sum(by_path.values())
+        check(launches > 0, f"{name} launched on the main paths ({launches})")
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -537,12 +935,13 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"],
-            "launches_by_path": {"estimator": est["launches"][name],
-                                 "guardrail": guard["launches"][name]}})
+            "shape": t["shape"], "launches_by_path": by_path})
     print(f"end to end (host clock): estimator fit + score + predict "
-          f"{est['seconds']:.3f} s; guardrail admit p50 "
-          f"{guard['p50_ms']:.3f} ms")
+          f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
+          f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "
+          f"admit p50 {paths['guardrail']['p50_ms']:.3f} ms; stream "
+          f"{paths['stream_dense']['items_per_s']:,.0f} items/s dense, "
+          f"{paths['stream_srht']['items_per_s']:,.0f} items/s srht")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -7,10 +7,12 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
-This slice carries the dense SRP hash, the int32 flat sketch, the
-``AceEstimator`` (paper Algorithm 1) and the flat single-tenant
-``Guardrail``; its kernels are ``srp_hash``, ``ace_update``,
-``ace_query`` and ``ace_admit_fused`` (``repro_torch/csrc``).
+The port carries both SRP hash families (dense and SRHT), the int32 flat
+sketch with degraded (table-masked) scoring, the ``AceEstimator`` (paper
+Algorithm 1), the ``AceDataFilter`` and its chunked ``StreamRunner``, and
+the flat single-tenant ``Guardrail``; its kernels are ``srp_hash``,
+``srht_hash``, ``ace_update``, ``ace_query``, ``ace_score_fused`` and
+``ace_admit_fused`` (``repro_torch/csrc``).
 
 Entry points run on the card (``torch.device("cuda")``) unless the caller
 passes ``device="cpu"``; on CPU tensors every kernel wrapper takes its
@@ -20,9 +22,8 @@ from __future__ import annotations
 
 import torch
 
-# ROADMAP.md queue 1 items that bring what this slice leaves out.
+# ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    4: "repro_torch.core.srht and the hash_mode dispatch",
     5: "repro.window",
     6: "repro.fleet",
     7: "repro.quantile",

@@ -3,8 +3,10 @@
 Both directions go through numpy arrays, so this module needs neither JAX
 nor ``repro``: the caller turns JAX arrays into numpy (``np.asarray``)
 before calling, and back (``jnp.asarray``) after.  The layouts are the
-same in both packages — W is (d, P) with P = round_up(K·L, 128), counts
-are (L, 2^K) — so nothing is reshaped.
+same in both packages — W is (d, P) with P = round_up(K·L, 128), or the
+(d, 0) placeholder under the SRHT family, counts are (L, 2^K) — so
+nothing is reshaped.  The SRHT's sign diagonals and row sample need no
+carrying: both packages draw them from ``cfg.seed`` with numpy.
 """
 from __future__ import annotations
 
@@ -15,7 +17,8 @@ from repro_torch.core.sketch import AceState
 
 
 def params_from_numpy(w, device) -> torch.Tensor:
-    """The SRP projection matrix W (d, P) as a float32 tensor on ``device``."""
+    """The SRP projection matrix W (d, P), or (d, 0) under SRHT, as a
+    float32 tensor on ``device``."""
     return torch.as_tensor(np.array(w, np.float32), device=device)
 
 

@@ -129,18 +129,36 @@ def reciprocal(L: int) -> torch.Tensor:
 # Bucket-level primitives (input: precomputed bucket ids (B, L)).
 # ---------------------------------------------------------------------------
 
-def batch_scores(counts: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
-    """Scores of a batch of bucket ids vs a counts array: (B, L) -> (B,)."""
+def batch_scores(counts: torch.Tensor, buckets: torch.Tensor,
+                 table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Scores of a batch of bucket ids vs a counts array: (B, L) -> (B,).
+
+    ``table_mask`` (L,) 0/1 restricts the mean to the healthy tables
+    (``masked_table_mean``); None keeps the plain mean over L.
+    """
     gathered = counts[_rows(buckets), buckets.long()].to(torch.float32)
-    return torch.sum(gathered, dim=-1) * reciprocal(counts.shape[0])
+    if table_mask is None:
+        return torch.sum(gathered, dim=-1) * reciprocal(counts.shape[0])
+    return masked_table_mean(gathered, table_mask)
+
+
+def masked_table_mean(gathered: torch.Tensor,
+                      table_mask: torch.Tensor) -> torch.Tensor:
+    """Mean of a (..., L) gather over the healthy tables only: the masked
+    sum times the reciprocal of the healthy-table count (the degraded-mode
+    combine of ``repro.core.sketch.masked_table_mean``).  A masked table
+    contributes an exact 0.0, so the survivors sum as if it never
+    existed."""
+    maskf = table_mask.to(torch.float32)
+    nh = torch.clamp_min(torch.sum(maskf), 1.0)
+    return torch.sum(gathered * maskf, dim=-1) * (1.0 / nh)
 
 
 def lookup(state: AceState, buckets: torch.Tensor,
            table_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Ŝ(q, D) of Algorithm 1 (query phase): (B, L) -> (B,) float32."""
-    if table_mask is not None:
-        not_ported("table_mask (degraded scoring)", 10)
-    return batch_scores(state.counts, buckets)
+    """Ŝ(q, D) of Algorithm 1 (query phase): (B, L) -> (B,) float32,
+    over the healthy tables only when ``table_mask`` is given."""
+    return batch_scores(state.counts, buckets, table_mask)
 
 
 def histogram(buckets: torch.Tensor, cfg: AceConfig) -> torch.Tensor:
@@ -261,12 +279,20 @@ def merge(a: AceState, b: AceState) -> AceState:
 
 def mean_mu(state: AceState,
             table_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11)."""
-    if table_mask is not None:
-        not_ported("table_mask (degraded scoring)", 10)
+    """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11).
+
+    ``table_mask`` (L,) restricts it to the healthy tables:
+    Σ_{j healthy} ‖A_j‖² / (n · num_healthy).
+    """
     L = state.counts.shape[0]
     c = state.counts.to(torch.float32)
-    return torch.sum(c * c) / (torch.clamp_min(state.n, 1.0) * L)
+    if table_mask is None:
+        return torch.sum(c * c) / (torch.clamp_min(state.n, 1.0) * L)
+    maskf = table_mask.to(torch.float32)
+    nh = torch.clamp_min(torch.sum(maskf), 1.0)
+    per_table = torch.sum(c * c, dim=1)                          # (L,)
+    return torch.sum(per_table * maskf) / (torch.clamp_min(state.n, 1.0)
+                                           * nh)
 
 
 def mu_sequential_increment(state: AceState, buckets_one: torch.Tensor,
@@ -289,9 +315,10 @@ def mu_sequential_increment(state: AceState, buckets_one: torch.Tensor,
     return state._replace(counts=new_counts, n=n + 1.0), new_mu
 
 
-def mean_rate(state: AceState) -> torch.Tensor:
+def mean_rate(state: AceState,
+              table_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Exact mean collision RATE μ/n (scale-free across stream growth)."""
-    return mean_mu(state) / torch.clamp_min(state.n, 1.0)
+    return mean_mu(state, table_mask) / torch.clamp_min(state.n, 1.0)
 
 
 def sigma_welford(state: AceState) -> torch.Tensor:
@@ -308,15 +335,15 @@ def admit_threshold(state: AceState, alpha: float, warmup_items: float,
     The μ−ασ rule in rate space, multiplied through by max(n, 1) so the
     decision is one compare against ONE device scalar (what the fused
     admit kernel reads through a pointer).  −inf during warmup
-    (n < warmup_items).  Device ops only: no host sync.
+    (n < warmup_items).  Device ops only: no host sync.  ``table_mask``
+    takes μ over the same healthy tables the masked scores average over
+    (the Welford σ is a scalar over batch means and needs no mask).
     """
-    if table_mask is not None:
-        not_ported("table_mask (degraded scoring)", 10)
     if threshold_mode == "quantile":
         not_ported("threshold_mode='quantile'", 7)
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    t = (mean_rate(state) - alpha * sigma_welford(state)) \
+    t = (mean_rate(state, table_mask) - alpha * sigma_welford(state)) \
         * torch.clamp_min(state.n, 1.0)
     return torch.where(state.n >= warmup_items, t, float("-inf"))
 

@@ -1,6 +1,6 @@
 """Signed Random Projections (SRP) — the LSH family used by ACE.
 
-Port of ``repro.core.srp`` (dense hash family only).  The paper (§2.1)
+Port of ``repro.core.srp``.  The paper (§2.1)
 uses h_w(x) = sign(w^T x), w ~ N(0, I_d), with collision probability
 Pr[h_w(x) = h_w(y)] = 1 − θ(x, y)/π.  ACE takes K·L such bits per input,
 grouped into L meta-hashes of K bits, each packed into a bucket id in
@@ -9,8 +9,12 @@ grouped into L meta-hashes of K bits, each packed into a bucket id in
 The projection matrix keeps the reference's padded width
 P = round_up(K·L, 128), so a JAX-drawn ``W`` of shape (d, P) carries
 across unchanged (``repro_torch.core.convert``); the pad columns are never
-read.  The CUDA kernel ``repro_torch.kernels.srp_hash`` implements
-``hash_buckets``; this module is the plain path and the parameter factory.
+read.  ``SrpConfig.hash_mode`` picks the hash family: ``"dense"`` (this
+module), ``"srht"`` (the Fast-JL transform of ``repro_torch.core.srht``)
+or ``"auto"`` (the cheaper of the two for the config,
+``srht.choose_hash_mode``).  The CUDA kernels ``srp_hash`` and
+``srht_hash`` implement ``hash_buckets``; this module is the plain path
+and the parameter factory.
 """
 from __future__ import annotations
 
@@ -18,8 +22,6 @@ import dataclasses
 import math
 
 import torch
-
-from repro_torch import not_ported
 
 LANE = 128  # the reference pads K·L to this multiple; kept for W's shape
 
@@ -33,11 +35,7 @@ HASH_MODES = ("dense", "srht", "auto")
 
 @dataclasses.dataclass(frozen=True)
 class SrpConfig:
-    """Static configuration of an SRP meta-hash bank (``repro``'s fields).
-
-    Only ``hash_mode="dense"`` is ported; the others raise where a hash
-    is drawn or computed.
-    """
+    """Static configuration of an SRP meta-hash bank (``repro``'s fields)."""
 
     dim: int
     num_bits: int = 15
@@ -58,13 +56,15 @@ class SrpConfig:
         return 1 << self.num_bits
 
 
-def require_dense(cfg: SrpConfig) -> None:
-    """Raise unless ``cfg`` asks for the dense hash family."""
+def resolve_hash_mode(cfg: SrpConfig) -> str:
+    """``cfg.hash_mode`` as a concrete family ("auto" -> the break-even)."""
     if cfg.hash_mode not in HASH_MODES:
         raise ValueError(f"unknown hash_mode {cfg.hash_mode!r} "
                          f"(want one of {HASH_MODES})")
-    if cfg.hash_mode != "dense":
-        not_ported(f"hash_mode={cfg.hash_mode!r}", 4)
+    if cfg.hash_mode == "auto":
+        from repro_torch.core import srht   # srht imports this module
+        return srht.choose_hash_mode(cfg)
+    return cfg.hash_mode
 
 
 def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
@@ -78,8 +78,12 @@ def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
     ``jax.random`` draw for the same seed: to run both packages on the
     same projections, carry the JAX ``W`` across with
     ``repro_torch.core.convert.params_from_numpy``.
+
+    Under the SRHT family W is never read: a (d, 0) placeholder keeps
+    every ``(state, w, x)`` signature, as in the reference.
     """
-    require_dense(cfg)
+    if resolve_hash_mode(cfg) == "srht":
+        return torch.zeros((cfg.dim, 0), dtype=torch.float32, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     w = torch.randn((cfg.dim, cfg.padded_projections), generator=generator,
@@ -113,8 +117,14 @@ def pack_buckets(bits: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
 
 def hash_buckets(x: torch.Tensor, w: torch.Tensor,
                  cfg: SrpConfig) -> torch.Tensor:
-    """Full SRP meta-hash: (..., d) -> (..., L) bucket ids in [0, 2^K)."""
-    require_dense(cfg)
+    """Full SRP meta-hash: (..., d) -> (..., L) bucket ids in [0, 2^K).
+
+    THE hash of every plain path: dispatches on ``cfg.hash_mode`` between
+    the dense product and the SRHT (which ignores ``w``).
+    """
+    if resolve_hash_mode(cfg) == "srht":
+        from repro_torch.core import srht   # srht imports this module
+        return srht.srht_hash_buckets(x, srht.srht_params(cfg))
     return pack_buckets(srp_bits(x, w, cfg), cfg)
 
 

@@ -1,6 +1,8 @@
 // ACE count-array insert: counts[j, buckets[b, j]] += 1 for every (b, j),
-// in place.  Replaces the Pallas kernel of src/repro/kernels/ace_update.py
-// (ace_update, both its scalar-loop and one-hot-histogram lowerings).
+// in place, or only for the rows b where row_mask[b] when a mask is given
+// (the masked insert of the SRHT and degraded admission paths).  Replaces
+// the Pallas kernel of src/repro/kernels/ace_update.py (ace_update, both
+// its scalar-loop and one-hot-histogram lowerings).
 //
 // Bound on the H100: memory — reading the (B, L) ids and one
 // read-modify-write of each counter the batch touches; there is no
@@ -18,11 +20,13 @@
 namespace {
 
 __global__ void ace_update_kernel(int* __restrict__ counts,
-                                  const int* __restrict__ buckets, int B,
-                                  int L, int nbuckets) {
+                                  const int* __restrict__ buckets,
+                                  const unsigned char* __restrict__ row_mask,
+                                  int B, int L, int nbuckets) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
   if (i >= static_cast<long long>(B) * L) return;
+  if (row_mask != nullptr && !row_mask[i / L]) return;
   const int j = static_cast<int>(i % L);
   const int b = buckets[i];
   if (b < 0 || b >= nbuckets) return;
@@ -31,14 +35,16 @@ __global__ void ace_update_kernel(int* __restrict__ counts,
 
 }  // namespace
 
-// counts (L, nbuckets) int32, updated in place; buckets (B, L) int32.
-REPRO_API int repro_ace_update(int* counts, const int* buckets, int B, int L,
+// counts (L, nbuckets) int32, updated in place; buckets (B, L) int32;
+// row_mask (B,) bool or null (every row).
+REPRO_API int repro_ace_update(int* counts, const int* buckets,
+                               const unsigned char* row_mask, int B, int L,
                                int nbuckets, void* stream) {
   constexpr int kThreads = 256;
   const long long n = static_cast<long long>(B) * L;
   const unsigned int blocks =
       static_cast<unsigned int>((n + kThreads - 1) / kThreads);
   ace_update_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, buckets, B, L, nbuckets);
+      counts, buckets, row_mask, B, L, nbuckets);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,1 +1,1 @@
-"""Data-side helpers of the port (featurisation)."""
+"""Data-side ACE: featurisation and the ``AceDataFilter`` (``pipeline``)."""

@@ -1,7 +1,8 @@
 """The ACE request guardrail: out-of-distribution requests are rejected in
 O(K·L) before they reach the model (the paper's query phase as an
 admission filter).  Port of ``repro.serve.engine`` for the flat,
-single-tenant, ``mu_sigma``, int32, dense-hash guardrail.
+single-tenant, ``mu_sigma``, int32 guardrail, under either hash family
+(``hash_mode`` "dense", "srht" or "auto").
 
 ``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
 item 12); windows, fleets, quantile thresholds, quantized planes,
@@ -52,11 +53,14 @@ class Guardrail:
     warmup), and inserts the admitted rows — with ``use_kernels=True``
     (the default here; the reference defaults to False) all of it in the
     fused ``ace_admit_fused`` kernel plus the ``ace_query`` gather of the
-    Welford epilogue.  The only device→host transfer of a call is the
+    Welford epilogue (under ``hash_mode="srht"``: the ``srht_hash``,
+    ``ace_query`` and ``ace_update`` kernels, ``ops.ace_admit_at``).
+    The only device→host transfer of a call is the
     packed (2, B) verdict + quarantine block (``_to_host``).
 
     ``device`` defaults to CUDA and raises when there is none; ``w``
-    carries a given projection matrix (d_model + 1, P) instead of
+    carries a given projection matrix (d_model + 1, P; (d_model + 1, 0)
+    under SRHT) instead of
     drawing one.
     """
 

@@ -110,8 +110,28 @@ class TestSrp:
             np.asarray(want), rtol=RTOL)
 
     def test_other_hash_modes_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-            srp.make_projections(srp.SrpConfig(dim=4, hash_mode="srht"))
+        """Only an unknown hash mode raises now; "srht" and "auto" are
+        ported and hash like the reference (tests/test_torch_srht.py holds
+        them bitwise)."""
+        with pytest.raises(ValueError, match="hash_mode"):
+            srp.make_projections(srp.SrpConfig(dim=4, hash_mode="fwht"))
+        with pytest.raises(ValueError, match="hash_mode"):
+            srp.hash_buckets(torch.zeros((1, 4)), torch.zeros((4, 128)),
+                             srp.SrpConfig(dim=4, hash_mode="fwht"))
+        x = _data(30, 20)
+        for mode in ("srht", "auto"):
+            jcfg = jsrp.SrpConfig(dim=20, num_bits=6, num_tables=5, seed=2,
+                                  hash_mode=mode)
+            cfg = srp.SrpConfig(dim=20, num_bits=6, num_tables=5, seed=2,
+                                hash_mode=mode)
+            jw = jsrp.make_projections(jcfg)
+            want = np.asarray(jsrp.hash_buckets(jnp.asarray(x), jw, jcfg))
+            got = srp.hash_buckets(_t(x), params_from_numpy(np.asarray(jw),
+                                                            CPU), cfg)
+            if srp.resolve_hash_mode(cfg) == "srht":
+                np.testing.assert_array_equal(got.numpy(), want)
+            else:
+                assert (got.numpy() == want).mean() >= 0.999
 
 
 CFG = dict(dim=12, num_bits=8, num_tables=16, seed=11)
@@ -279,13 +299,75 @@ class TestSketch:
             sk.AceConfig(dim=4, **kw)
 
     def test_degraded_and_quantile_raise(self):
-        _, cfg = _pair()
-        ps = sk.init(cfg, CPU)
-        with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-            sk.lookup(ps, torch.zeros((1, 16), dtype=torch.int32),
-                      table_mask=torch.ones(16))
+        """The quantile threshold still raises (queue 1 item 7); degraded
+        scoring (``table_mask``) is ported and scores like the
+        reference."""
+        jcfg, cfg = _pair()
+        ids = _bucket_ids(40, 8, 16, 70)
+        js = jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids), jcfg)
+        ps = sk.insert_buckets(sk.init(cfg, CPU), _t(ids), cfg)
+        mask = np.ones(16, np.float32)
+        mask[[2, 9]] = 0.0
+        np.testing.assert_array_equal(
+            sk.lookup(ps, _t(ids[:5]), table_mask=_t(mask)).numpy(),
+            np.asarray(jsk.lookup(js, jnp.asarray(ids[:5]),
+                                  table_mask=jnp.asarray(mask))))
         with pytest.raises(NotImplementedError, match="queue 1 item 7"):
             sk.admit_threshold(ps, 1.0, 0.0, threshold_mode="quantile")
+
+    @pytest.mark.parametrize("dead", [[], [0], [3, 7, 15], list(range(16))])
+    def test_masked_statistics_match_reference(self, dead):
+        """``masked_table_mean``, ``lookup``, ``mean_mu``, ``mean_rate``
+        and ``admit_threshold`` over the healthy tables, down to none
+        healthy: scores bitwise, μ and the threshold at RTOL."""
+        jcfg, cfg = _pair(welford_min_n=4.0)
+        ids = _bucket_ids(60, 8, 16, 31)
+        js = jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids), jcfg)
+        ps = sk.insert_buckets(sk.init(cfg, CPU), _t(ids), cfg)
+        mask = np.ones(16, np.float32)
+        mask[dead] = 0.0
+        jm, pm = jnp.asarray(mask), _t(mask)
+        g = np.random.default_rng(1).integers(0, 90, (7, 16)) \
+            .astype(np.float32)
+        np.testing.assert_array_equal(
+            sk.masked_table_mean(_t(g), pm).numpy(),
+            np.asarray(jsk.masked_table_mean(jnp.asarray(g), jm)))
+        np.testing.assert_array_equal(
+            sk.lookup(ps, _t(ids), table_mask=pm).numpy(),
+            np.asarray(jsk.lookup(js, jnp.asarray(ids), table_mask=jm)))
+        np.testing.assert_array_equal(
+            sk.batch_scores(ps.counts, _t(ids), table_mask=pm).numpy(),
+            np.asarray(jsk.batch_scores(js.counts, jnp.asarray(ids),
+                                        table_mask=jm)))
+        for name in ("mean_mu", "mean_rate"):
+            np.testing.assert_allclose(
+                float(getattr(sk, name)(ps, pm)),
+                float(getattr(jsk, name)(js, table_mask=jm)), rtol=RTOL)
+        np.testing.assert_allclose(
+            float(sk.admit_threshold(ps, 1.5, 10.0, table_mask=pm)),
+            float(jsk.admit_threshold(js, 1.5, 10.0, table_mask=jm)),
+            rtol=RTOL)
+        if not dead:
+            assert float(sk.mean_mu(ps, pm)) == float(sk.mean_mu(ps))
+
+    @pytest.mark.parametrize("dead", [None, [1, 4]])
+    @pytest.mark.parametrize("alpha", [1.0, 1.25, 2.0])
+    def test_falpha_index_matches_reference(self, alpha, dead):
+        from repro.quantile.moments import falpha_index as jfalpha
+        from repro_torch.quantile.moments import falpha_index
+        counts = np.random.default_rng(2).integers(
+            -2, 40, size=(16, 256)).astype(np.int32)   # negatives clamp
+        n = np.float32(counts.clip(0).sum(1).mean())
+        mask = None
+        if dead is not None:
+            mask = np.ones(16, np.float32)
+            mask[dead] = 0.0
+        got = falpha_index(_t(counts), torch.tensor(n), alpha,
+                           None if mask is None else _t(mask))
+        want = jfalpha(jnp.asarray(counts), jnp.asarray(n), alpha,
+                       None if mask is None else jnp.asarray(mask))
+        assert got.dtype == torch.float32 and got.shape == ()
+        np.testing.assert_allclose(float(got), float(want), rtol=RTOL)
 
 
 class TestEstimators:

@@ -12,7 +12,9 @@ installed.
 Tolerances, as in ``chip_smoke.py``: bucket ids agree >= 0.999 with TF32
 off for the plain hash (the kernels use none); everything downstream of
 one set of bucket ids (counts, gathers, pre-insert scores, admit masks)
-bitwise; Welford mean/M2 rtol 1e-5.
+bitwise; Welford mean/M2 rtol 1e-5.  SRHT ids bitwise, against the plain
+version on the card and on the CPU; fused scores bitwise wherever the
+ids agree, the weighted form too (both sum in table order, no FMA).
 """
 import numpy as np
 import pytest
@@ -23,10 +25,14 @@ from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.estimators import AceEstimator  # noqa: E402
 from repro_torch.core.srp import SrpConfig, make_projections  # noqa: E402
 from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
+from repro_torch.data.pipeline import AceDataFilter  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_score_fused as F  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
+from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import srp_hash as H  # noqa: E402
 from repro_torch.serve.engine import Guardrail, GuardrailConfig  # noqa: E402
+from repro_torch.stream.runner import StreamRunner  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -256,3 +262,143 @@ def test_estimator_kernels_match_plain_path(cuda):
         np.testing.assert_allclose(float(ek.mu), float(ep.mu), rtol=1e-5)
         assert torch.equal(scores, ep.score(q))
         assert torch.equal(ek.predict(q), ep.predict(q))
+
+
+# d -> d_pad: 1 -> 2, 36 -> 64, 4097 -> 8192, 9000 -> 16384, 12289 ->
+# 16384 (dynamic shared memory above 48 KB), 32768 -> 32768 (128 KB).
+SRHT_SHAPES = [(3, 1, 5, 4), (37, 36, 15, 50), (512, 4097, 13, 32),
+               (9, 9000, 15, 50), (5, 12289, 13, 32), (2, 32768, 31, 3)]
+
+
+@pytest.mark.parametrize("B,d,K,L", SRHT_SHAPES)
+def test_srht_hash_matches_plain_bitwise(cuda, B, d, K, L):
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=d,
+                    hash_mode="srht")
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d))
+    x[0] = 0.0                       # padded −0.0 lanes: bucket 2^K − 1
+    before = SH.KERNEL.launches
+    got = SH.srht_hash(x.to(cuda), cfg)
+    assert SH.KERNEL.launches == before + 1
+    assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
+    assert torch.equal(got, SH.srht_hash_plain(x.to(cuda), cfg))
+    assert torch.equal(got.cpu(), SH.srht_hash_plain(x, cfg))
+    assert bool((got[0] == (1 << K) - 1).all())
+
+
+def test_srht_hash_refuses_wider_rows(cuda):
+    d = SH.MAX_D_PAD + 1
+    cfg = SrpConfig(dim=d, num_bits=4, num_tables=2, hash_mode="srht")
+    before = SH.KERNEL.launches
+    with pytest.raises(SH.SrhtWidthError):
+        SH.srht_hash(torch.zeros((1, d), device=cuda), cfg)
+    assert SH.KERNEL.launches == before
+
+
+# K = 1, 16 and 31 (two tables of 2^31 counters: 17 GB); L not a multiple
+# of the tables a block holds (128 // K); the estimator's score shape.
+SCORE_SHAPES = [(7, 9, 1, 130), (33, 64, 16, 9), (17, 40, 31, 2),
+                (16384, 36, 15, 50)]
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("B,d,K,L", SCORE_SHAPES)
+def test_ace_score_fused_matches_plain(cuda, B, d, K, L, weighted):
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=7)
+    w = make_projections(cfg, device=cuda)
+    q = torch.randn((B, d), generator=torch.Generator().manual_seed(B)) \
+        .to(cuda)
+    counts = torch.randint(0, 1 << 20, (L, 1 << K), dtype=torch.int32,
+                           device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(K))
+    tw = None
+    if weighted:
+        m = torch.ones(L, device=cuda)
+        m[0] = 0.0
+        m[L // 2] = 0.0
+        tw = m / torch.clamp_min(m.sum(), 1.0)
+    before = F.KERNEL.launches
+    got = F.ace_score_fused(counts, q, w, cfg, table_weights=tw)
+    assert F.KERNEL.launches == before + 1
+    ids = H.srp_hash(q, w, cfg)
+    plain_ids = H.srp_hash_plain(q, w, cfg)
+    assert _agreement(ids, plain_ids) >= HASH_AGREEMENT
+    g = F.flat_table_gather(counts, ids)
+    ref = torch.zeros(B, device=cuda)
+    for j in range(L):
+        ref = ref + (g[:, j] if tw is None else g[:, j] * tw[j])
+    if tw is None:
+        ref = ref * torch.tensor(1.0 / L, dtype=torch.float32)
+    assert torch.equal(got, ref), "bitwise, downstream of the kernel's ids"
+    same = (ids == plain_ids).all(dim=1)
+    plain = F.ace_score_fused_plain(counts, q, w, cfg, table_weights=tw)
+    assert torch.equal(got[same], plain[same])
+    del counts
+    torch.cuda.empty_cache()
+
+
+def test_ace_score_fused_empty_batch(cuda):
+    cfg = SrpConfig(dim=8, num_bits=5, num_tables=3)
+    before = F.KERNEL.launches
+    got = F.ace_score_fused(_counts(3, 5, cuda), torch.zeros((0, 8),
+                                                             device=cuda),
+                            make_projections(cfg, device=cuda), cfg)
+    assert tuple(got.shape) == (0,) and F.KERNEL.launches == before
+
+
+def test_ace_update_row_mask_matches_plain(cuda):
+    counts, ids = _counts(10, 6, cuda), _ids(64, 6, 10, cuda, repeat=4)
+    mask = torch.rand((256,), generator=torch.Generator().manual_seed(1)) \
+        .to(cuda) < 0.5
+    got = U.ace_update(counts.clone(), ids, row_mask=mask)
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids, mask))
+
+
+@pytest.mark.parametrize("mode", ["dense", "srht"])
+def test_stream_consume_has_no_host_sync(cuda, mode):
+    """``StreamRunner.consume`` under sync-debug "error": any host sync
+    inside the chunk raises.  The chunk then equals the plain path's:
+    bitwise under SRHT, within the dense ids floor otherwise."""
+    kw = dict(d_model=96, num_bits=10, num_tables=20, warmup_items=200.0,
+              hash_mode=mode)
+    fk = AceDataFilter(**kw, device=cuda)
+    fp = AceDataFilter(**kw, use_kernels=False, device=cuda)
+    runner = StreamRunner(fk, 4)
+    sk_, w = fk.init()
+    sp = fp.init()[0]
+    rng = np.random.default_rng(0)
+    for c in range(3):
+        f = rng.normal(size=(4, 64, 97)).astype(np.float32)
+        f[:, 0, 0] = np.nan
+        chunk = torch.as_tensor(f, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sk_, summary = runner.consume(sk_, w, chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for t in range(4):
+            sp, _, _ = fp.step(sp, w, chunk[t])
+    host = runner.fetch(summary)
+    assert int(host.quarantined) == 4 and float(host.n) == float(sk_.n)
+    if mode == "srht":
+        for k in ("counts", "n", "welford_mean", "welford_m2"):
+            assert torch.equal(getattr(sk_, k), getattr(sp, k)), k
+    else:
+        moved = int((sk_.counts - sp.counts).abs().sum()) // 2
+        assert moved <= 1e-3 * float(sp.n) * 20
+
+
+def test_estimator_srht_kernels_match_plain_path(cuda):
+    cfg = sk.AceConfig(dim=40, num_bits=12, num_tables=30, seed=5,
+                       hash_mode="srht")
+    rng = np.random.default_rng(0)
+    x = (rng.normal(size=40) + 0.4 * rng.normal(size=(2000, 40))) \
+        .astype(np.float32)
+    ek = AceEstimator(cfg, use_kernels=True, device=cuda)
+    ep = AceEstimator(cfg, use_kernels=False, device=cuda, w=ek.w)
+    before = SH.KERNEL.launches
+    ek.fit(x, batch=500)
+    ep.fit(x, batch=500)
+    assert SH.KERNEL.launches == before + 4
+    assert torch.equal(ek.state.counts, ep.state.counts)
+    assert torch.equal(ek.score(x[:50]), ep.score(x[:50]))

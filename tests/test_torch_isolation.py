@@ -16,6 +16,7 @@ torch = pytest.importorskip("torch")   # the optional `torch` extra
 
 from repro_torch.core import estimators as est  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
+from repro_torch.data.pipeline import AceDataFilter  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -71,6 +72,8 @@ def test_entry_points_without_cuda_raise(monkeypatch):
         engine.Guardrail(engine.GuardrailConfig(d_model=8))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         est.AceEstimator(sk.AceConfig(dim=8))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        AceDataFilter(d_model=8)
     # asking for the CPU is the one way onto it
     g = engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu")
     assert g.state.counts.device.type == "cpu"

@@ -1,4 +1,4 @@
-"""The port's four kernel modules (``repro_torch.kernels``) on CPU tensors,
+"""The port's kernel modules (``repro_torch.kernels``) on CPU tensors,
 where each wrapper takes its plain PyTorch version, against the
 reference's oracles (``repro.kernels.ref``) on the same numpy-made inputs
 and the same projection matrix W (drawn by JAX, carried across with
@@ -9,7 +9,12 @@ Tolerances:
   dense-hash kernels (tests/test_kernels.py, TestKernelParityMatrix);
 * everything downstream of one set of bucket ids — counts, gathers,
   pre-insert scores, admit masks — bitwise (every count sum here stays far
-  below 2^24, so float sums of counts are exact in any order).
+  below 2^24, so float sums of counts are exact in any order);
+* weighted (table-masked) scores: rtol 1e-6, the reference's tolerance
+  for its own fused kernels — its sum runs in XLA's order, the port's in
+  table order.
+
+``srht_hash`` has its own file, tests/test_torch_srht.py.
 
 The CUDA kernels themselves run only on a GPU; ``chip_smoke.py`` holds
 each against these plain versions there.
@@ -32,6 +37,8 @@ from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.srp import SrpConfig  # noqa: E402
 from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_score_fused as F  # noqa: E402
+from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import srp_hash as H  # noqa: E402
@@ -98,6 +105,25 @@ class TestAceUpdate:
         assert got is c, "the update is in place"
         np.testing.assert_array_equal(got.numpy(), want)
 
+    @pytest.mark.parametrize("density", [0.0, 0.5, 1.0])
+    def test_row_mask_matches_masked_insert(self, density):
+        """With a row mask only the masked rows insert: the counts of the
+        reference's ``insert_buckets_masked``."""
+        from repro.core import sketch as jsk
+        K, L = 6, 10
+        jcfg = jsk.AceConfig(dim=4, num_bits=K, num_tables=L)
+        counts = np.random.default_rng(1).integers(
+            0, 9, size=(L, 1 << K)).astype(np.int32)
+        ids = _ids(30, K, L, 2, repeat=2)
+        mask = np.random.default_rng(3).random(60) < density
+        want = jsk.insert_buckets_masked(
+            jsk.init(jcfg)._replace(counts=jnp.asarray(counts)),
+            jnp.asarray(ids), jnp.asarray(mask), jcfg).counts
+        got = U.ace_update(_t(counts.copy()), _t(ids), row_mask=_t(mask))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        with pytest.raises(TypeError):
+            U.ace_update(_t(counts), _t(ids), row_mask=_t(mask).int())
+
 
 class TestAceQuery:
     @pytest.mark.parametrize("B,K,L", [(40, 4, 3), (33, 12, 50),
@@ -127,6 +153,152 @@ class TestAceQuery:
         got = ops.ace_query(state_from_numpy(counts, 0, 0, 0, CPU), _t(ids))
         want = jops.ace_query(js, jnp.asarray(ids))
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+class TestAceScoreFused:
+    @pytest.mark.parametrize("weighted", [False, True])
+    @pytest.mark.parametrize("B,d,K,L", SHAPES)
+    def test_matches_pallas_kernel_in_interpret_mode(self, B, d, K, L,
+                                                     weighted):
+        """The Pallas kernel itself (interpret mode), on JAX's W, with and
+        without ``table_weights`` (two tables masked, the rest weighted
+        1/num_healthy)."""
+        from repro.kernels.ace_score_fused import ace_score_fused as jfused
+        jcfg, cfg, w, x, counts = _inputs(B, d, K, L)
+        tw = None
+        if weighted:
+            m = np.ones(L, np.float32)
+            m[[0, L // 2]] = 0.0
+            tw = (m / max(m.sum(), 1.0)).astype(np.float32)
+        want = np.asarray(jfused(
+            jnp.asarray(counts), jnp.asarray(x), jnp.asarray(w), jcfg,
+            interpret=True,
+            table_weights=None if tw is None else jnp.asarray(tw)))
+        got = F.ace_score_fused(_t(counts), _t(x), params_from_numpy(w, CPU),
+                                cfg, table_weights=None if tw is None
+                                else _t(tw))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (B,)
+        ids = H.srp_hash(_t(x), params_from_numpy(w, CPU), cfg).numpy()
+        jids = np.asarray(R.srp_hash_ref(jnp.asarray(x), jnp.asarray(w),
+                                         jcfg))
+        assert (ids == jids).mean() >= HASH_AGREEMENT
+        same = (ids == jids).all(axis=1)
+        if weighted:
+            np.testing.assert_allclose(got.numpy()[same], want[same],
+                                       rtol=1e-6)
+        else:
+            np.testing.assert_array_equal(got.numpy()[same], want[same])
+
+    def test_sums_in_table_order(self):
+        """Above 2^24 a float sum depends on its order: the plain version
+        adds the L gathers in table order j = 0..L−1, as the kernel does."""
+        _, cfg, w, x, _ = _inputs(5, 8, 4, 3)
+        counts = np.zeros((3, 16), np.int32)
+        counts[0], counts[1], counts[2] = 1 << 24, 1, 1
+        got = F.ace_score_fused(_t(counts), _t(x),
+                                params_from_numpy(w, CPU), cfg)
+        s = np.float32(1 << 24)
+        for v in (1.0, 1.0):
+            s = np.float32(s + np.float32(v))
+        np.testing.assert_array_equal(
+            got.numpy(), np.full(5, s * np.float32(1.0 / 3), np.float32))
+
+    def test_flat_table_gather_matches_reference(self):
+        from repro.kernels.ace_score_fused import flat_table_gather as jflat
+        counts = np.random.default_rng(4).integers(
+            0, 99, size=(7, 64)).astype(np.int32)
+        ids = _ids(11, 6, 7, 5)
+        np.testing.assert_array_equal(
+            F.flat_table_gather(_t(counts), _t(ids)).numpy(),
+            np.asarray(jflat(jnp.asarray(counts), jnp.asarray(ids), 7, 64)))
+
+    def test_empty_batch(self):
+        _, cfg, w, _, counts = _inputs(4, 8, 5, 3)
+        got = F.ace_score_fused(_t(counts), torch.zeros((0, 8)),
+                                params_from_numpy(w, CPU), cfg)
+        assert tuple(got.shape) == (0,)
+
+
+class TestOps:
+    """``repro_torch.kernels.ops`` against the reference's kernel-path ops
+    (Pallas in interpret mode) on the same state and W."""
+
+    def _pair(self, mode, d=24, K=6, L=8, seed=2, min_n=0.0):
+        from repro.core import sketch as jsk
+        from repro_torch.core import sketch as sk
+        kw = dict(dim=d, num_bits=K, num_tables=L, seed=seed,
+                  hash_mode=mode, welford_min_n=min_n)
+        jcfg, cfg = jsk.AceConfig(**kw), sk.AceConfig(**kw)
+        jw = jsk.make_params(jcfg)
+        ids = _ids(60, K, L, seed)
+        js = jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids), jcfg)
+        ps = sk.insert_buckets(sk.init(cfg, CPU), _t(ids), cfg)
+        return jcfg, cfg, jw, params_from_numpy(np.asarray(jw), CPU), js, ps
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("mode", ["dense", "srht"])
+    def test_ace_score_and_query(self, mode, masked):
+        from repro.kernels import ops as jops
+        from repro_torch.kernels import ops
+        jcfg, cfg, jw, w, js, ps = self._pair(mode)
+        x = np.random.default_rng(3).normal(size=(20, 24)).astype(np.float32)
+        mask = None
+        if masked:
+            mask = np.ones(8, np.float32)
+            mask[[1, 6]] = 0.0
+        jm = None if mask is None else jnp.asarray(mask)
+        pm = None if mask is None else _t(mask)
+        want = np.asarray(jops.ace_score(js, jnp.asarray(x), jw, jcfg,
+                                         table_mask=jm))
+        got = ops.ace_score(ps, _t(x), w, cfg, table_mask=pm).numpy()
+        ids = ops.hash_dispatch(_t(x), w, cfg.srp)
+        jids = np.asarray(jops.hash_dispatch(jnp.asarray(x), jw, jcfg.srp))
+        same = (ids.numpy() == jids).all(axis=1)
+        assert same.mean() >= 0.9
+        np.testing.assert_allclose(got[same], want[same], rtol=1e-6)
+        np.testing.assert_allclose(
+            ops.ace_query(ps, ids, table_mask=pm).numpy(),
+            np.asarray(jops.ace_query(js, jnp.asarray(ids.numpy()),
+                                      table_mask=jm)), rtol=1e-6)
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("mode", ["dense", "srht"])
+    def test_ace_admit(self, mode, masked):
+        """Admission in both hash families, healthy and degraded, with a
+        quarantine mask: the same admits and counts as the reference's
+        ``ops.ace_admit``, n bitwise, Welford at rtol 1e-5."""
+        from repro.kernels import ops as jops
+        from repro_torch.kernels import ops
+        jcfg, cfg, jw, w, js, ps = self._pair(mode, min_n=8.0)
+        rng = np.random.default_rng(5)
+        x = rng.normal(size=(24, 24)).astype(np.float32)
+        item = rng.random(24) < 0.8
+        mask = None
+        if masked:
+            mask = np.ones(8, np.float32)
+            mask[3] = 0.0
+        jm = None if mask is None else jnp.asarray(mask)
+        pm = None if mask is None else _t(mask)
+        j2, ja = jops.ace_admit(js, jnp.asarray(x), jw, jcfg, alpha=0.5,
+                                warmup_items=10.0, table_mask=jm,
+                                item_mask=jnp.asarray(item))
+        p2, pa = ops.ace_admit(ps, _t(x), w, cfg, alpha=0.5,
+                               warmup_items=10.0, table_mask=pm,
+                               item_mask=_t(item))
+        assert p2.counts is ps.counts, "the insert is in place"
+        ids = ops.hash_dispatch(_t(x), w, cfg.srp).numpy()
+        jids = np.asarray(jops.hash_dispatch(jnp.asarray(x), jw, jcfg.srp))
+        if mode == "srht":
+            np.testing.assert_array_equal(ids, jids)
+        assert (ids == jids).mean() >= HASH_AGREEMENT
+        if (ids == jids).all():
+            np.testing.assert_array_equal(pa.numpy(), np.asarray(ja))
+            np.testing.assert_array_equal(p2.counts.numpy(),
+                                          np.asarray(j2.counts))
+            assert float(p2.n) == float(j2.n)
+            for k in ("welford_mean", "welford_m2"):
+                np.testing.assert_allclose(float(getattr(p2, k)),
+                                           float(getattr(j2, k)), rtol=1e-5)
 
 
 def _jax_admit_from_buckets(counts, buckets, thresh, item_mask):
@@ -243,12 +415,17 @@ class TestWrapperContract:
     def test_plain_versions_count_no_launch(self):
         """The launch counters grow only where a CUDA kernel launches."""
         cfg, w, x, counts = self._args()
-        before = [m.KERNEL.launches for m in (H, U, Q, A)]
+        mods = (H, U, Q, A, F, SH)
+        before = [m.KERNEL.launches for m in mods]
         b = H.srp_hash(x, w, cfg)
         U.ace_update(counts, b)
+        U.ace_update(counts, b, row_mask=torch.ones(4, dtype=torch.bool))
         Q.ace_query(counts, b)
         A.ace_admit_fused(counts, x, w, torch.tensor(0.0), cfg)
-        assert [m.KERNEL.launches for m in (H, U, Q, A)] == before
+        F.ace_score_fused(counts, x, w, cfg)
+        F.ace_score_fused(counts, x, w, cfg, table_weights=torch.ones(3))
+        SH.srht_hash(x, cfg)
+        assert [m.KERNEL.launches for m in mods] == before
 
     def test_admit_rejects_non_scalar_threshold(self):
         cfg, w, x, counts = self._args()
@@ -264,7 +441,8 @@ class TestBuild:
 
     def test_every_kernel_has_a_source(self):
         assert build.sources() == ["ace_admit_fused", "ace_query",
-                                   "ace_update", "srp_hash"]
+                                   "ace_score_fused", "ace_update",
+                                   "srht_hash", "srp_hash"]
 
     def test_cache_key_follows_the_sources(self, tmp_path, monkeypatch):
         csrc = tmp_path / "csrc"

@@ -90,6 +90,20 @@ class TestGuardrailSlice:
         assert gp.quarantined == 6
         assert 0 < float(gp.state.n) < 6 * 16
 
+    @pytest.mark.parametrize("port_kernels", [True, False])
+    @pytest.mark.parametrize("mode", ["srht", "auto"])
+    def test_admit_matches_reference_in_other_hash_modes(self, mode,
+                                                         port_kernels):
+        """``hash_mode="srht"`` (the SRHT ids are bitwise, so no mask may
+        differ) and ``"auto"`` (which resolves to the dense family at
+        d_model = 12 in both packages)."""
+        gj, gp = _pair(port_kernels, True, hash_mode=mode)
+        mismatch = _compare(gj, gp, _batches(6))
+        if mode == "srht":
+            assert mismatch == 0
+            assert tuple(gp.w.shape) == (13, 0)
+        assert gp.quarantined == 6
+
     @pytest.mark.parametrize("policy", ["fail_open", "fail_closed"])
     def test_quarantine_follows_fail_policy(self, policy):
         gj, gp = _pair(True, False, fail_policy=policy)
@@ -134,8 +148,7 @@ class TestNotPorted:
         (dict(num_tenants=2), 6),
         (dict(threshold_mode="quantile"), 7),
         (dict(count_dtype="int8"), 9),
-        (dict(hash_mode="srht"), 4),
-        (dict(hash_mode="auto"), 4)])
+        (dict(esc_capacity=4), 9)])
     def test_guardrail_features_of_later_slices_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             engine.Guardrail(engine.GuardrailConfig(d_model=8, **kw),
@@ -152,11 +165,12 @@ class TestNotPorted:
 
 
 class TestEstimatorSlice:
+    @pytest.mark.parametrize("mode", ["dense", "srht"])
     @pytest.mark.parametrize("use_kernels", [True, False])
-    def test_fit_score_predict_match_reference(self, use_kernels):
+    def test_fit_score_predict_match_reference(self, use_kernels, mode):
         """Algorithm 1 end to end: fit in batches, score, predict, with the
-        same kernel/plain choice on both sides."""
-        cfg = dict(dim=8, num_bits=6, num_tables=8, seed=3)
+        same kernel/plain choice on both sides, in both hash families."""
+        cfg = dict(dim=8, num_bits=6, num_tables=8, seed=3, hash_mode=mode)
         j = jest.AceEstimator(jsk.AceConfig(**cfg), use_kernels=use_kernels)
         p = est.AceEstimator(sk.AceConfig(**cfg), use_kernels=use_kernels,
                              device="cpu",
