@@ -7,15 +7,17 @@ main paths on one NVIDIA GPU, checking every result.
 Phases, in order (any failed check raises, and the script then exits
 non-zero without printing its result line):
 
-1. build   — compile the six CUDA kernels (one ``nvcc`` per source, all
+1. build   — compile the nine CUDA kernels (one ``nvcc`` per source, all
              at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths: dense hash bucket ids agree
              >= 0.999, SRHT ids bitwise at d = 36, 4097 and 12289, and
              counts, gathers, scores and admit masks bitwise (downstream
              of the kernel's own bucket ids), including a batch of
-             repeated rows for the fused admission and the weighted
-             (two tables masked) form of the fused score;
+             repeated rows for both fused admissions, the weighted (two
+             tables masked) forms of the fused score and the window
+             combine, and ``ace_update``/``ace_query`` at per-item base
+             rows of the windowed fleet's (T·E·L, 2^15) ring;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -29,23 +31,38 @@ non-zero without printing its result line):
              in <= 1%, insertions a hash flip moved to another bucket
              <= 1e-3 of n*L (the hash floor), mu and Welford within rtol
              1e-3 (1e-5 when no insertion moved);
-5. stream  — ``AceDataFilter(d_model=4096)`` with its defaults (K=13,
-             L=32, alpha=4, warmup 512) through ``StreamRunner(chunk_T=16)``
-             over 8 chunks of 16 x 512 feature rows (clustered around 8
-             topics, one NaN row a step, a burst of unseen topics in the
-             last two chunks), once per hash family: the chunked run equals
-             a sequential loop of ``step`` bitwise, the kernel path equals
-             the plain path (bitwise under SRHT, within the dense ids floor
-             otherwise), one transfer each way per chunk, no host sync
-             inside ``consume`` (sync debug mode "error"), items/s printed;
-6. timing  — each kernel, its plain version and (where one PyTorch call
+5. stream  — ``StreamRunner(chunk_T=16)`` over 8 chunks of 16 x 512 feature
+             rows at d_model=4096 (clustered around 8 topics, one NaN row a
+             step, a burst of unseen topics in the last two chunks) through
+             four filters at their defaults (K=13, L=32, alpha=4, warmup
+             512): ``AceDataFilter`` in each hash family,
+             ``WindowedAceFilter`` (E=4, gamma=1) with ``rotate_every=4``,
+             and ``FleetDataFilter`` of 8 tenants (every batch mixes all of
+             them): the chunked run equals a sequential loop of ``step``
+             bitwise, the kernel path equals the plain path (bitwise under
+             SRHT, within the dense ids floor otherwise), one transfer each
+             way per chunk, no host sync inside ``consume`` (sync debug
+             mode "error"), items/s printed;
+6. windows and fleets — three ``Guardrail`` flavours at the phase-4 width
+             (d_model=4096, K=15, L=50), 40 admits of 256 x 16 whose
+             traffic shifts to 4 unseen topics after admit 16: windowed
+             (E=4, gamma=0.9, rotate every 4 admits), a fleet of 8 tenants
+             and the windowed fleet (8 x 4 epochs, a 210 MB int32 ring and a
+             52 MB tail), each held against its plain path (masks, the hash
+             floor, cursors and ticks); the windowed ones must re-admit the
+             new regime once the old one has aged out (E x R admits), the
+             flat fleet, like the flat guardrail, keeps rejecting it; then
+             ``ops.ace_window_score`` (``ace_window_combine``) and
+             ``ops.ace_fleet_score`` (``ace_fleet_score``) on the states
+             those guardrails built;
+7. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
              beside the least time the card could take (its bound); and
              both hash kernels at the corners of hash_mode="auto"
              (d = 64 and 4096), checked against the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 5 and read just after, and every kernel
+before each path of phases 3 to 6 and read just after, and every kernel
 of a path must have been launched in it.  The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line of per-kernel numbers,
 and ``{"ok": true, "device": {...}}``.  A kernel's ``max_abs_err`` there is
@@ -84,9 +101,14 @@ SRHT_FIT_N = 65_536                 # the shorter hash_mode="srht" fit
 STREAM_T, STREAM_B, STREAM_CHUNKS = 16, 512, 8
 SRHT_WIDTHS = (36, 4097, 12289)     # d_pad 64, 8192, 16384
 AUTO_DIMS, AUTO_B = (64, 4096), 256  # benchmarks/stream_throughput.py
+WIN_E, WIN_GAMMA, WIN_R = 4, 0.9, 4  # the windowed guardrails
+FLEET_T = 8                          # tenants of the fleets
+SHIFT_ADMITS, SHIFT_AT = 40, 16      # phase 7: the traffic shifts here
+STREAM_R = 4                         # the windowed stream's rotate_every
 
 KERNELS = ("srp_hash", "srht_hash", "ace_update", "ace_query",
-           "ace_score_fused", "ace_admit_fused")
+           "ace_score_fused", "ace_admit_fused", "ace_window_combine",
+           "ace_fleet_score", "ace_fleet_window_admit")
 REPLACES = {
     "srp_hash": "src/repro/kernels/srp_hash.py:125",
     "srht_hash": "src/repro/kernels/srht_hash.py:100",
@@ -94,6 +116,10 @@ REPLACES = {
     "ace_query": "src/repro/kernels/ace_query.py:66",
     "ace_score_fused": "src/repro/kernels/ace_score_fused.py:130",
     "ace_admit_fused": "src/repro/kernels/ace_admit_fused.py:178",
+    "ace_window_combine": "src/repro/kernels/ace_window_combine.py:174",
+    "ace_fleet_score": "src/repro/kernels/ace_fleet_score.py:108",
+    "ace_fleet_window_admit":
+        "src/repro/kernels/ace_fleet_window_admit.py:250",
 }
 
 
@@ -290,6 +316,112 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
               f"plain at B={STREAM_B}, d={d} (d_pad "
               f"{sh.srht_params(scfg).d_pad})")
     err["srht_hash"] = worst
+    return err
+
+
+def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
+                                 admit_b=ADMIT_B) -> dict:
+    """Phase 2 for the kernels of the windowed and fleet paths, at the
+    shapes of phase 7: the windowed fleet's (8, 4, 50, 2^15) ring, its
+    fractional tail, B = 256 queries of d_model + 1."""
+    from repro_torch.core.srp import SrpConfig, make_projections
+    h, u, q = mods["srp_hash"], mods["ace_update"], mods["ace_query"]
+    wc, fs, fwa = (mods[k] for k in ("ace_window_combine", "ace_fleet_score",
+                                     "ace_fleet_window_admit"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 7)
+    T, E, L, K = FLEET_T, WIN_E, L_TABLES, K_BITS
+    nb = 1 << K
+    err = {}
+    cfg = SrpConfig(dim=d_model + 1, num_bits=K, num_tables=L, seed=41)
+    w = make_projections(cfg, device=device)
+    x = torch.randn((admit_b, d_model + 1), generator=gen, device=device)
+    ids = h.srp_hash(x, w, cfg)
+    ring = torch.randint(0, 9, (T, E, L, nb), generator=gen, device=device,
+                         dtype=torch.int32)
+    tail = torch.randint(0, 40, (T, L, nb), generator=gen,
+                         device=device).float() * 0.9
+    cursor = torch.randint(0, E, (T,), generator=gen, device=device,
+                           dtype=torch.int32)
+    tids = (torch.arange(admit_b, device=device) % T).to(torch.int32)
+
+    # ace_update / ace_query at the live rows tid·E·L + cursor[tid]·L
+    base = ((tids.long() * E + cursor.long()[tids.long()]) * L) \
+        .to(torch.int32)
+    mask = torch.rand((admit_b,), generator=gen, device=device) < 0.8
+    flat = ring.view(T * E * L, nb)
+    ck = u.ace_update(flat.clone(), ids, row_mask=mask, row_base=base)
+    cp = u.ace_update_plain(flat.clone(), ids, mask, base)
+    gk, gp = (q.ace_query(ck, ids, row_base=base),
+              q.ace_query_plain(ck, ids, base))
+    err["ace_update"] = float((ck - cp).abs().max())
+    err["ace_query"] = float((gk - gp).abs().max())
+    check(torch.equal(ck, cp), "ace_update at per-item base rows of the "
+          f"({T * E * L}, 2^{K}) ring bitwise equal to plain")
+    check(torch.equal(gk, gp), "ace_query at per-item base rows bitwise "
+          "equal to plain")
+
+    # ace_window_combine on one tenant's ring, both forms
+    weights = WIN_GAMMA ** torch.arange(E, dtype=torch.float32,
+                                        device=device)
+    tmask = torch.ones(L, device=device)
+    tmask[[3, 31]] = 0.0
+    worst = 0.0
+    for name, tw in (("unweighted", None),
+                     ("weighted, 2 tables masked", tmask / tmask.sum())):
+        sk_ = wc.ace_window_combine(ring[0], ids, weights, tw)
+        sp = wc.ace_window_combine_plain(ring[0], ids, weights, tw)
+        worst = max(worst, float((sk_ - sp).abs().max()))
+        check(torch.equal(sk_, sp), f"ace_window_combine ({name}) bitwise "
+              f"equal to plain at B={admit_b}, E={E}, L={L}, K={K}")
+    err["ace_window_combine"] = worst
+
+    # ace_fleet_score on the ring's live epochs seen as a fleet
+    counts = ring[:, 0].contiguous()
+    sk_ = fs.ace_fleet_score(counts, x, tids, w, cfg)
+    sp = fs.ace_fleet_score_plain(counts, x, tids, w, cfg)
+    ref = fs.fleet_score_from_ids(counts, ids, tids)
+    same = (ids == h.srp_hash_plain(x, w, cfg)).all(dim=1)
+    err["ace_fleet_score"] = float((sk_ - sp).abs().max())
+    check(torch.equal(sk_, ref), "ace_fleet_score bitwise equal to the "
+          "routed table-order gather of its own ids")
+    check(torch.equal(sk_[same], sp[same]), f"ace_fleet_score bitwise equal "
+          f"to plain on the {int(same.sum())} of {admit_b} rows whose ids "
+          "agree")
+
+    # ace_fleet_window_admit: random and colliding batches, quarantine mask
+    xc = x[: admit_b // 8].repeat(8, 1).contiguous()
+    tc = tids[: admit_b // 8].repeat(8).contiguous()
+    pre = fwa.fleet_window_admit_from_ids(
+        ring.clone(), tail, cursor, ids, tids,
+        torch.full((T,), float("-inf"), device=device))[0]
+    thr = torch.stack([torch.median(pre[tids == t]) for t in range(T)])
+    worst = 0.0
+    for name, qb, tb in (("random", x, tids), ("colliding", xc, tc)):
+        r = ring.clone()
+        out = fwa.ace_fleet_window_admit_fused(r, tail, cursor, qb, tb, w,
+                                               thr, cfg, item_mask=mask)
+        plain = fwa.ace_fleet_window_admit_fused_plain(
+            ring.clone(), tail, cursor, qb, tb, w, thr, cfg, item_mask=mask)
+        share = agreement(out[3], plain[3])
+        check(share >= 0.999, f"ace_fleet_window_admit ({name}) ids agree "
+              f"with plain: {share:.6f} >= 0.999")
+        r_ref = ring.clone()
+        ref = (r_ref, *fwa.fleet_window_admit_from_ids(
+            r_ref, tail, cursor, out[3], tb, thr, mask))
+        for a, b in ((r, ref[0]), (out[1], ref[1]), (out[2], ref[2]),
+                     (out[4], ref[3]), (out[5], ref[4])):
+            worst = max(worst, float((a.float() - b.float()).abs().max()))
+        check(torch.equal(r, ref[0]) and torch.equal(out[1], ref[1])
+              and torch.equal(out[2], ref[2]) and torch.equal(out[4], ref[3])
+              and torch.equal(out[5], ref[4]),
+              f"ace_fleet_window_admit ({name}) ring, scores, admit mask and "
+              "both sums bitwise downstream of its own ids")
+        worst = max(worst, float((out[3] - plain[3]).abs().max()))
+        if name == "colliding":
+            s8 = out[1].view(8, -1)
+            check(torch.equal(s8, s8[:1].expand_as(s8)), "colliding copies "
+                  "score alike: every windowed-fleet score is pre-insert")
+    err["ace_fleet_window_admit"] = worst
     return err
 
 
@@ -495,6 +627,207 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
 
 
 # ---------------------------------------------------------------------------
+# Phase 6: the windowed, fleet and windowed-fleet guardrails, then the
+# arbitrary-γ window query and the fleet query on the states they built.
+# ---------------------------------------------------------------------------
+
+GUARD_KINDS = {
+    "window": dict(window_epochs=WIN_E, window_decay=WIN_GAMMA,
+                   rotate_every=WIN_R),
+    "fleet": dict(num_tenants=FLEET_T),
+    "fleet_window": dict(num_tenants=FLEET_T, window_epochs=WIN_E,
+                         window_decay=WIN_GAMMA, rotate_every=WIN_R),
+}
+
+
+def shift_batches(device, d_model, admits, b, s, shift_at, tenants=None):
+    """Request embeddings (b, s, d_model) for each admit, with their host
+    tenant ids when ``tenants`` is given (every batch mixes all tenants):
+    traffic around 8 topics up to admit ``shift_at``, around 4 unseen
+    topics from there on, one NaN row per batch."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 8)
+    topics = torch.nn.functional.normalize(
+        torch.randn((12, d_model), generator=gen, device=device), dim=-1)
+    for i in range(admits):
+        lo, n = (0, 8) if i < shift_at else (8, 4)
+        pick = lo + torch.randint(0, n, (b,), generator=gen, device=device)
+        e = topics[pick][:, None, :] + 0.02 * torch.randn(
+            (b, s, d_model), generator=gen, device=device)
+        e[i % b, 0, 0] = float("nan")
+        tids = None if tenants is None \
+            else ((np.arange(b) + i) % tenants).astype(np.int32)
+        yield e, tids
+
+
+def phase_shift_guardrail(mods, device, kind, d_model=D_MODEL,
+                          admits=SHIFT_ADMITS, b=ADMIT_B, s=ADMIT_S) -> dict:
+    from repro_torch.serve.engine import Guardrail, GuardrailConfig
+    gcfg = GuardrailConfig(d_model=d_model, num_bits=K_BITS,
+                           num_tables=L_TABLES, **GUARD_KINDS[kind])
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    windowed = gcfg.window_epochs > 1
+
+    def batches():
+        return shift_batches(device, d_model, admits, b, s, SHIFT_AT, T)
+    reset_launches(mods)
+    g = Guardrail(gcfg, use_kernels=True, device=device)
+    masks, lat = [], []
+    for e, t in batches():
+        t0 = time.perf_counter()
+        masks.append(g.admit(e, t))                 # ends in the one transfer
+        lat.append(time.perf_counter() - t0)
+    launches = read_launches(mods)
+    p50 = 1e3 * statistics.median(lat)
+    print(f"  guardrail ({kind}): {admits} admits of {b} x {s} x {d_model}, "
+          f"K={K_BITS}, L={L_TABLES}, {gcfg}; admit p50 {p50:.3f} ms (host "
+          f"clock, ends in the mask transfer); launches {launches}")
+    plain = Guardrail(gcfg, use_kernels=False, device=device, w=g.w)
+    plain_masks = [plain.admit(e, t) for e, t in batches()]
+
+    m = np.stack(masks)
+    nan_rows = np.zeros_like(m)
+    nan_rows[np.arange(admits), np.arange(admits) % b] = True
+    check(g.quarantined == admits, f"quarantined {g.quarantined} == "
+          f"{admits} NaN rows")
+    check(m[nan_rows].all(),
+          "NaN rows answered by fail_open (admitted, not inserted)")
+    st = g.state
+    check(torch.all(st.counts.sum(dim=-1, dtype=torch.int64)
+                    == st.n[..., None].long()),
+          "every table of every epoch/tenant sums to its n")
+    mismatch = int((np.stack(plain_masks) != m).sum())
+    check(mismatch <= 0.01 * m.size, f"masks agree with the plain-path "
+          f"guardrail ({mismatch} of {m.size} differ, <= 1%)")
+    moved = int((st.counts - plain.state.counts).abs().sum()) // 2
+    share = moved / max(float(plain.state.n.sum()) * L_TABLES, 1.0)
+    check(share <= 0.001, f"counts equal the plain path's but for {moved} "
+          f"displaced insertions ({share:.2e} <= 1e-3 of n*L)")
+    if windowed:
+        check(torch.equal(st.cursor, plain.state.cursor)
+              and torch.equal(st.tick, plain.state.tick),
+              f"cursors {st.cursor.tolist()} and ticks equal the plain "
+              "path's")
+        check(int(st.tick.min()) == admits, f"every clock ticked {admits} "
+              "times (every batch held every tenant)")
+        want = admits // WIN_R % WIN_E
+        check(torch.all(st.cursor == want), f"every ring rotated on the "
+              f"admit that filled an epoch (cursor {want})")
+    tol = 1e-5 if moved == 0 else 1e-3
+    for name in ("welford_mean", "welford_m2") + (("ssq",) if windowed
+                                                  else ()):
+        a, p = getattr(st, name), getattr(plain.state, name)
+        rel = float((a - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+        check(rel <= tol, f"{name} within rtol {tol:g} of the plain path "
+              f"({rel:.2e}; {moved} displaced insertions)")
+
+    normal = ~nan_rows
+    pre = normal[SHIFT_AT - 4:SHIFT_AT]
+    post = normal[-4:]
+    f_pre = float(m[SHIFT_AT - 4:SHIFT_AT][pre].mean())
+    f_post = float(m[-4:][post].mean())
+    f_new = float(m[SHIFT_AT:SHIFT_AT + 4][normal[SHIFT_AT:SHIFT_AT + 4]]
+                  .mean())
+    print(f"  admitted: before the shift {f_pre:.4f}, first 4 admits after "
+          f"it {f_new:.4f}, last 4 admits {f_post:.4f}")
+    check(f_pre > 0.7, "the armed guardrail admits its own traffic")
+    check(f_new < 0.2, "the new regime is rejected right after the shift")
+    if windowed:
+        check(f_post > 0.8, f"the stale regime aged out within "
+              f"{WIN_E} x {WIN_R} admits: the new regime is admitted again")
+    else:
+        check(f_post < 0.2, "without a window the new regime stays "
+              "rejected (the stale regime pins mu/sigma)")
+    path = ("ace_fleet_window_admit", "ace_query") if kind == "fleet_window" \
+        else ("srp_hash", "ace_query", "ace_update")
+    for k in path:
+        check(launches[k] > 0, f"guardrail ({kind}) path launched {k}")
+    e, t = next(batches())
+    breakdown = admit_breakdown(g, e, t, device)
+    return {"launches": launches, "p50_ms": p50, "guardrail": g,
+            "breakdown": breakdown}
+
+
+def admit_breakdown(g, e, t, device) -> dict:
+    """A ``torch.profiler`` trace of one admit: wall, device busy, device
+    ops and the top device ops by time."""
+    from torch.profiler import ProfilerActivity, profile
+    g.admit(e, t)
+    sync(device)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        g.admit(e, t)
+        sync(device)
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    kernels = [x for x in prof.events()
+               if x.device_type == torch.autograd.DeviceType.CUDA]
+    busy_us = sum(x.time_range.elapsed_us() for x in kernels)
+    by_name: dict[str, float] = {}
+    for x in kernels:
+        by_name[x.name] = by_name.get(x.name, 0.0) \
+            + x.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+    if not kernels:
+        print("  one admit under torch.profiler: no device op in the trace; "
+              "device idle share not measured")
+    else:
+        print(f"  one admit under torch.profiler: wall {wall_us / 1e3:.3f} "
+              f"ms, {len(kernels)} device ops, device busy "
+              f"{busy_us / 1e3:.3f} ms (idle share "
+              f"{1 - busy_us / wall_us:.3f}); top: "
+              + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in top))
+    return {"profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3, "device_ops": len(kernels)}
+
+
+def phase_queries(mods, device, gw, gf, b=ADMIT_B) -> dict:
+    """Path 6: ``ops.ace_window_score`` on the windowed guardrail's ring at
+    its own γ and at another, and ``ops.ace_fleet_score`` on the fleet
+    guardrail's tables, for one batch of the post-shift traffic."""
+    from repro_torch.data.pipeline import mean_embed_features
+    from repro_torch.fleet import state as fl
+    from repro_torch.kernels import ops
+    from repro_torch.window import ring
+    wc = mods["ace_window_combine"]
+    for e, tids in shift_batches(device, D_MODEL, SHIFT_AT + 1, b, ADMIT_S,
+                                 SHIFT_AT, FLEET_T):
+        pass                            # the first batch after the shift
+    feat = mean_embed_features(e, gw.gcfg.bias_const)
+    feat = torch.where(torch.isfinite(feat).all(-1)[:, None], feat, 0.0)
+    tids = torch.as_tensor(tids, device=device)
+    ids = mods["srp_hash"].srp_hash(feat, gw.w, gw.ace_cfg.srp)
+    reset_launches(mods)
+    own = ops.ace_window_score(gw.state, ids, WIN_GAMMA)
+    other = ops.ace_window_score(gw.state, ids, 0.5)
+    fscores = ops.ace_fleet_score(gf.state, feat, tids, gf.w, gf.ace_cfg)
+    launches = read_launches(mods)
+    print(f"  queries: ace_window_score x 2 (gamma {WIN_GAMMA} and 0.5) and "
+          f"ace_fleet_score on {b} rows; launches {launches}")
+    for gamma, got in ((WIN_GAMMA, own), (0.5, other)):
+        wts = ring.epoch_weights(gw.state.cursor, WIN_E, gamma)
+        check(torch.equal(got, wc.ace_window_combine_plain(
+            gw.state.counts, ids, wts)), f"ace_window_score (gamma {gamma}) "
+            "bitwise equal to the plain combine")
+        ref = ring.score_windowed(gw.state, ids, gamma)
+        rel = float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                    1e-30)
+        check(rel <= 1e-6, f"ace_window_score (gamma {gamma}) equals "
+              f"ring.score_windowed within rtol 1e-6 ({rel:.2e})")
+    hot = ring.score_combined(gw.state, ids)
+    rel = float((own - hot).abs().max()) / max(float(hot.abs().max()), 1e-30)
+    check(rel <= 1e-5, f"at the ring's own gamma the E-way combine equals "
+          f"the tail + live hot path within rtol 1e-5 ({rel:.2e})")
+    fids = mods["srp_hash"].srp_hash(feat, gf.w, gf.ace_cfg.srp)
+    check(torch.equal(fscores, fl.fleet_scores(gf.state, tids, fids)),
+          "ace_fleet_score bitwise equal to fleet_scores of the same ids")
+    check(bool(torch.isfinite(fscores).all()) and fscores.shape == (b,),
+          "fleet scores finite, shape (B,)")
+    for k in ("ace_window_combine", "ace_fleet_score"):
+        check(launches[k] > 0, f"query path launched {k}")
+    return {"launches": launches}
+
+
+# ---------------------------------------------------------------------------
 # Phase 5: the data filter through the chunked stream runner, d_model 4096.
 # ---------------------------------------------------------------------------
 
@@ -522,12 +855,36 @@ def stream_features(device, d_model, chunks, T, B):
     return feats.cpu().numpy(), burst.cpu().numpy()
 
 
-def phase_stream(mods, device, mode, d_model=D_MODEL, chunks=STREAM_CHUNKS,
+def stream_filter(kind, device, d_model, use_kernels=True):
+    """The filter of one stream run: ``AceDataFilter`` in the "dense" or
+    "srht" hash family, ``WindowedAceFilter`` ("window") or
+    ``FleetDataFilter`` ("fleet"), each at its defaults."""
+    from repro_torch.data.pipeline import AceDataFilter
+    from repro_torch.fleet.filter import FleetDataFilter
+    from repro_torch.window.filter import WindowedAceFilter
+    kw = dict(d_model=d_model, use_kernels=use_kernels, device=device)
+    if kind == "window":
+        return WindowedAceFilter(**kw, rotate_every=STREAM_R)
+    if kind == "fleet":
+        return FleetDataFilter(**kw, num_tenants=FLEET_T)
+    return AceDataFilter(**kw, hash_mode=kind)
+
+
+def state_leaves(state) -> dict:
+    return {k: v for k, v in zip(state._fields, state) if v is not None}
+
+
+def phase_stream(mods, device, kind, d_model=D_MODEL, chunks=STREAM_CHUNKS,
                  T=STREAM_T, B=STREAM_B) -> dict:
     import repro_torch.stream.runner as runner_mod
-    from repro_torch.data.pipeline import AceDataFilter
+    from repro_torch.window import ring
     feats, burst = stream_features(device, d_model, chunks, T, B)
-    filt = AceDataFilter(d_model=d_model, hash_mode=mode, device=device)
+    steps = chunks * T
+    tids = None
+    if kind == "fleet":    # every batch mixes all tenants
+        tids = np.random.default_rng(SEED + 9).integers(
+            0, FLEET_T, size=(steps, B)).astype(np.int32)
+    filt = stream_filter(kind, device, d_model)
     runner = runner_mod.StreamRunner(filt, chunk_T=T)
     transfers = {"h2d": 0, "d2h": 0}
     real_in, real_out, real_consume = (runner_mod._to_device,
@@ -550,27 +907,33 @@ def phase_stream(mods, device, mode, d_model=D_MODEL, chunks=STREAM_CHUNKS,
         finally:
             torch.cuda.set_sync_debug_mode("default")
 
+    def chunk_ids(c):
+        return None if tids is None else torch.as_tensor(
+            tids[c * T:(c + 1) * T], device=device)
+
     runner_mod._to_device, runner_mod._to_host = to_device, to_host
     runner.consume = consume_no_sync
     try:
         # one unrecorded chunk first, so the timed run pays no first-call
         # costs (cuBLAS/allocator); then the main path on a fresh state
         s0, w = runner.init()
-        runner.consume(s0, w, torch.as_tensor(feats[:T], device=device))
+        runner.consume(s0, w, torch.as_tensor(feats[:T], device=device),
+                       chunk_ids(0))
         sync(device)
         transfers.update(h2d=0, d2h=0)
         state, w = runner.init()
         sync(device)
         reset_launches(mods)
         t0 = time.perf_counter()
-        state, sums = runner.run(state, w, iter(feats))
+        state, sums = runner.run(state, w, iter(feats),
+                                 None if tids is None else iter(tids))
         secs = time.perf_counter() - t0          # ends in the last D2H
         launches = read_launches(mods)
     finally:
         runner_mod._to_device, runner_mod._to_host = real_in, real_out
         runner.consume = real_consume
     items = chunks * T * B
-    print(f"  stream path ({mode}): {chunks} chunks of {T} x {B} x "
+    print(f"  stream path ({kind}): {chunks} chunks of {T} x {B} x "
           f"{d_model + 1}; {items / secs:,.0f} items/s ({secs:.3f} s, host "
           f"clock, ends in the last summary transfer); launches {launches}")
     check(len(sums) == chunks, f"{chunks} chunk summaries")
@@ -581,26 +944,30 @@ def phase_stream(mods, device, mode, d_model=D_MODEL, chunks=STREAM_CHUNKS,
 
     # the same features step by step: kernel path (bitwise), plain path
     dev_feats = torch.as_tensor(feats, device=device)
-    seq, _ = filt.init()
-    plain_f = AceDataFilter(d_model=d_model, hash_mode=mode,
-                            use_kernels=False, device=device)
-    plain, _ = plain_f.init()
-    keep_k, keep_p, n_before = [], [], []
-    for t in range(chunks * T):
-        n_before.append(float(seq.n))
-        seq, kk, _ = filt.step(seq, w, dev_feats[t])
-        plain, kp, _ = plain_f.step(plain, w, dev_feats[t])
+    dev_tids = None if tids is None else torch.as_tensor(tids, device=device)
+    plain_f = stream_filter(kind, device, d_model, use_kernels=False)
+    seq, plain = filt.init()[0], plain_f.init()[0]
+    keep_k, keep_p, n_lo, n_hi = [], [], [], []
+    for t in range(steps):
+        n_lo.append(float(seq.n.min()) if kind == "fleet"
+                    else float(seq.n.sum()))
+        n_hi.append(float(seq.n.max()) if kind == "fleet" else n_lo[-1])
+        extra = () if tids is None else (dev_tids[t],)
+        seq, kk, _ = filt.step(seq, w, dev_feats[t], *extra)
+        plain, kp, _ = plain_f.step(plain, w, dev_feats[t], *extra)
+        if kind == "window" and (t + 1) % STREAM_R == 0:
+            seq = ring.maybe_rotate(seq, STREAM_R, filt.decay)
+            plain = ring.maybe_rotate(plain, STREAM_R, filt.decay)
         keep_k.append(kk)
         keep_p.append(kp)
-    check(torch.equal(seq.counts, state.counts)
-          and float(seq.n) == float(state.n),
-          "chunked run equals the sequential loop of step: counts and n "
-          "bitwise")
-    check(torch.equal(seq.welford_m2, state.welford_m2),
-          "chunked run equals the sequential loop: Welford bitwise")
+    got, want = state_leaves(state), state_leaves(seq)
+    check(got.keys() == want.keys()
+          and all(torch.equal(got[k], want[k]) for k in got),
+          f"chunked run equals the sequential loop of step: every state leaf "
+          f"bitwise ({', '.join(got)})")
     keep_k, keep_p = torch.stack(keep_k), torch.stack(keep_p)
     agree = agreement(keep_k, keep_p)
-    if mode == "srht":
+    if kind == "srht":
         check(all(torch.equal(getattr(state, k), getattr(plain, k))
                   for k in ("counts", "n", "welford_mean", "welford_m2"))
               and torch.equal(keep_k, keep_p),
@@ -608,40 +975,52 @@ def phase_stream(mods, device, mode, d_model=D_MODEL, chunks=STREAM_CHUNKS,
               "Welford, keep masks)")
     else:
         moved = int((state.counts - plain.counts).abs().sum()) // 2
-        share = moved / max(float(plain.n) * filt.num_tables, 1.0)
+        share = moved / max(float(plain.n.sum()) * filt.num_tables, 1.0)
         check(agree >= 0.999 and share <= 1e-3,
               f"dense kernel path within the ids floor of the plain path: "
               f"keep masks agree {agree:.6f} >= 0.999, {moved} displaced "
               f"insertions ({share:.2e} <= 1e-3 of n*L)")
+    if kind == "window":
+        check(int(state.tick) == steps
+              and int(state.cursor) == (steps // STREAM_R) % filt.num_epochs,
+              f"the ring rotated every {STREAM_R} steps inside the chunks: "
+              f"tick {int(state.tick)}, cursor {int(state.cursor)}")
 
-    # warmup: the steps that began with n below warmup_items
-    warm = np.array(n_before) < filt.warmup_items
+    # cold: every tenant in warmup; armed: every tenant past it
+    cold = np.array(n_hi) < filt.warmup_items
+    armed = np.array(n_lo) >= filt.warmup_items
     burst_steps = burst.any(axis=1)
     for c, x in enumerate(sums):
-        steps = c * T + x.topk_step
-        check(not (x.topk_valid & warm[steps]).any(),
+        st = c * T + x.topk_step
+        check(not (x.topk_valid & cold[st]).any(),
               f"chunk {c}: no valid top-k row in warmup")
     anom = np.concatenate([x.anom_counts for x in sums]) - 1   # NaN rows
-    normal_rate = float(anom[~burst_steps & ~warm].mean()) / B
+    normal_rate = float(anom[~burst_steps & armed].mean()) / B
     burst_rate = float(anom[burst_steps].mean()) / B
     print(f"  flagged per step: normal {normal_rate:.4f}, burst steps "
           f"{burst_rate:.4f} (a quarter of their rows are burst rows); "
-          f"warmup steps {int(warm.sum())}")
+          f"steps with a tenant in warmup {int((~armed).sum())}")
     check(burst_rate > normal_rate + 0.1, "the burst is flagged")
     for x in sums[-2:]:
         rows = x.topk_item[x.topk_valid]
         check(x.topk_valid.all() and (rows < B // 4).all(),
               "burst chunks: every top-k row is a valid burst row")
-    path = (("srht_hash", "ace_query", "ace_update") if mode == "srht"
-            else ("ace_admit_fused", "ace_query"))
+    if kind == "fleet":
+        check(all(int(x.per_tenant_items.sum()) == T * B for x in sums),
+              "fleet summaries: per-tenant item counts add up to the chunk")
+    path = {"dense": ("ace_admit_fused", "ace_query"),
+            "srht": ("srht_hash", "ace_query", "ace_update")}.get(
+                kind, ("srp_hash", "ace_query", "ace_update"))
     for k in path:
-        check(launches[k] > 0, f"stream path ({mode}) launched {k}")
-    breakdown = stream_breakdown(runner, seq, w, feats[:T], device)
+        check(launches[k] > 0, f"stream path ({kind}) launched {k}")
+    breakdown = stream_breakdown(runner, seq, w, feats[:T], device,
+                                 chunk_ids(0))
     return {"launches": launches, "items_per_s": items / secs,
             "seconds": secs, "breakdown": breakdown}
 
 
-def stream_breakdown(runner, state, w, batches, device) -> dict:
+def stream_breakdown(runner, state, w, batches, device,
+                     tids=None) -> dict:
     """Where one chunk's time goes: the host clock of each stage of
     ``run`` (each ends in a sync), and a ``torch.profiler`` trace of
     ``consume`` for the device's busy time and kernel count."""
@@ -653,7 +1032,7 @@ def stream_breakdown(runner, state, w, batches, device) -> dict:
     chunk = runner_mod._to_device(stacked, device)
     sync(device)
     t.append(time.perf_counter())
-    state, summary = runner.consume(state, w, chunk)
+    state, summary = runner.consume(state, w, chunk, tids)
     sync(device)
     t.append(time.perf_counter())
     runner.fetch(summary)
@@ -663,7 +1042,7 @@ def stream_breakdown(runner, state, w, batches, device) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        state, summary = runner.consume(state, w, chunk)
+        state, summary = runner.consume(state, w, chunk, tids)
         sync(device)
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [e for e in prof.events()
@@ -690,7 +1069,7 @@ def stream_breakdown(runner, state, w, batches, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: timing on the card.
+# Phase 7: timing on the card.
 # ---------------------------------------------------------------------------
 
 def device_ms(fn, reps: int = 30, inner: int = 10) -> float:
@@ -868,6 +1247,92 @@ def phase_timing(mods, device, est, guard) -> tuple:
     return out, auto
 
 
+def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
+    """The three kernels of the windowed and fleet paths at the shapes of
+    phase 6, on the states its guardrails built: B = 256 queries of
+    d_model + 1 = 4097, K = 15, L = 50, E = 4, T = 8."""
+    from repro_torch.data.pipeline import mean_embed_features
+    from repro_torch.fleet import window as fw
+    from repro_torch.window import ring
+    wc, fs, fwa = (mods[k] for k in ("ace_window_combine", "ace_fleet_score",
+                                     "ace_fleet_window_admit"))
+    L, nb = L_TABLES, 1 << K_BITS
+    for e, tids in shift_batches(device, D_MODEL, SHIFT_ADMITS, ADMIT_B,
+                                 ADMIT_S, SHIFT_AT, FLEET_T):
+        pass        # the last batch: the regime the windows now admit
+    feat = mean_embed_features(e, gw.gcfg.bias_const)
+    finite = torch.isfinite(feat).all(-1)
+    feat = torch.where(finite[:, None], feat, 0.0).contiguous()
+    tids = torch.as_tensor(tids, device=device)
+    B, d = feat.shape
+    KL = K_BITS * L
+    out = {}
+
+    ids = mods["srp_hash"].srp_hash(feat, gw.w, gw.ace_cfg.srp)
+    wts = ring.epoch_weights(gw.state.cursor, WIN_E, WIN_GAMMA)
+    counts = gw.state.counts
+    Uw = WIN_E * distinct_counters(ids, nb)
+    out["ace_window_combine"] = dict(
+        ms=device_ms(lambda: wc.ace_window_combine(counts, ids, wts)),
+        plain_ms=device_ms(lambda: wc.ace_window_combine_plain(counts, ids,
+                                                               wts)),
+        library_ms=None, shape=f"B={B}, E={WIN_E}, L={L}, 2^K={nb}, "
+        f"counters touched {Uw}",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * B * WIN_E * L, 4 * B * L + 4 * Uw + 4 * WIN_E + 4 * B))))
+
+    fc = gf.state.counts
+    fids = mods["srp_hash"].srp_hash(feat, gf.w, gf.ace_cfg.srp)
+    table_rows = mods["ace_update"].table_rows
+    rows = table_rows(fids, tids.long() * L)
+    Uf = int(torch.unique(rows * nb + fids.long()).numel())
+    out["ace_fleet_score"] = dict(
+        ms=device_ms(lambda: fs.ace_fleet_score(fc, feat, tids, gf.w,
+                                                gf.ace_cfg.srp)),
+        plain_ms=device_ms(lambda: fs.ace_fleet_score_plain(
+            fc, feat, tids, gf.w, gf.ace_cfg.srp)),
+        library_ms=None, shape=f"B={B}, d={d}, T={FLEET_T}, K={K_BITS}, "
+        f"L={L}, counters touched {Uf}",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * B * d * KL + B * L,
+            4 * (B * d + d * KL) + 4 * B + 4 * Uf + 4 * B))))
+
+    st = gfw.state
+    cfg = gfw.ace_cfg
+    thr = fw.window_admit_thresholds(st, WIN_GAMMA, gfw.gcfg.alpha,
+                                     gfw.gcfg.warmup_items)
+    ring_c = st.counts.clone()
+    _, _, adm, aids, _, _ = fwa.ace_fleet_window_admit_fused(
+        ring_c.clone(), st.tail, st.cursor, feat, tids, gfw.w, thr, cfg.srp,
+        item_mask=finite)
+    t = tids.long()
+    tail_rows = table_rows(aids, t * L)
+    live_rows = table_rows(aids, (t * WIN_E + st.cursor.long()[t]) * L)
+    Ut = int(torch.unique(tail_rows * nb + aids.long()).numel())
+    Ul = int(torch.unique(live_rows * nb + aids.long()).numel())
+    Ui = int(torch.unique((live_rows * nb + aids.long())[adm]).numel()) \
+        if bool(adm.any()) else 0
+    out["ace_fleet_window_admit"] = dict(
+        ms=device_ms(lambda: fwa.ace_fleet_window_admit_fused(
+            ring_c, st.tail, st.cursor, feat, tids, gfw.w, thr, cfg.srp,
+            item_mask=finite)),
+        plain_ms=device_ms(lambda: fwa.ace_fleet_window_admit_fused_plain(
+            ring_c, st.tail, st.cursor, feat, tids, gfw.w, thr, cfg.srp,
+            item_mask=finite)),
+        library_ms=None, shape=f"B={B}, d={d}, T={FLEET_T}, E={WIN_E}, "
+        f"K={K_BITS}, L={L}, admitted {int(adm.sum())}",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * B * d * KL + 3 * B * L,
+            4 * (B * d + d * KL) + 4 * Ut + 4 * Ul + 2 * 4 * Ui
+            + 4 * B * L + 4 * 4 * B + 2 * B + 8 * FLEET_T))))
+    for k, v in out.items():
+        print(f"  {k:16s} {v['shape']}: kernel {v['ms']:.5f} ms, plain "
+              f"{v['plain_ms']:.5f} ms, library null, bound "
+              f"{v['bound_ms']:.5f} ms ({v['bound_by']}), "
+              f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound")
+    return out
+
+
 def srht_bound(B: int, d: int, cfg):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
     add rate against x, the signs, the row sample and the ids in bytes."""
@@ -910,17 +1375,31 @@ def main() -> int:
 
     print("phase 2: kernels against their plain versions on the card")
     err = phase_kernels(mods, device)
+    for k, v in phase_kernels_windows_fleets(mods, device).items():
+        err[k] = max(err.get(k, 0.0), v)
     print("phase 3: AceEstimator path")
     paths = {"estimator": phase_estimator(mods, device),
              "estimator_srht": phase_estimator_srht(mods, device)}
     print("phase 4: Guardrail path")
     paths["guardrail"] = phase_guardrail(mods, device)
-    print("phase 5: stream path (AceDataFilter + StreamRunner)")
-    for mode in ("dense", "srht"):
-        paths[f"stream_{mode}"] = phase_stream(mods, device, mode)
-    print("phase 6: timing (CUDA events, median of 30)")
+    print("phase 5: stream paths (AceDataFilter, WindowedAceFilter, "
+          "FleetDataFilter + StreamRunner)")
+    for kind in ("dense", "srht", "window", "fleet"):
+        paths[f"stream_{kind}"] = phase_stream(mods, device, kind)
+    print("phase 6: windowed, fleet and windowed-fleet guardrails; window "
+          "and fleet queries")
+    for kind in GUARD_KINDS:
+        paths[f"guardrail_{kind}"] = phase_shift_guardrail(mods, device,
+                                                           kind)
+    paths["queries"] = phase_queries(
+        mods, device, paths["guardrail_window"]["guardrail"],
+        paths["guardrail_fleet"]["guardrail"])
+    print("phase 7: timing (CUDA events, median of 30)")
     times, _ = phase_timing(mods, device, paths["estimator"],
                             paths["guardrail"])
+    times.update(phase_timing_windows_fleets(
+        mods, device, *(paths[f"guardrail_{k}"]["guardrail"]
+                        for k in GUARD_KINDS)))
 
     kernels = []
     for name in KERNELS:
@@ -939,9 +1418,12 @@ def main() -> int:
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
           f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "
-          f"admit p50 {paths['guardrail']['p50_ms']:.3f} ms; stream "
-          f"{paths['stream_dense']['items_per_s']:,.0f} items/s dense, "
-          f"{paths['stream_srht']['items_per_s']:,.0f} items/s srht")
+          f"admit p50 {paths['guardrail']['p50_ms']:.3f} ms (windowed "
+          f"{paths['guardrail_window']['p50_ms']:.3f}, fleet "
+          f"{paths['guardrail_fleet']['p50_ms']:.3f}, windowed fleet "
+          f"{paths['guardrail_fleet_window']['p50_ms']:.3f}); stream "
+          + ", ".join(f"{paths[f'stream_{k}']['items_per_s']:,.0f} items/s "
+                      f"{k}" for k in ("dense", "srht", "window", "fleet")))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

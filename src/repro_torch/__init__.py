@@ -3,16 +3,21 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of the JAX package ``repro``, module for module under the same
 names (``core.srp``, ``core.sketch``, ``core.estimators``,
-``kernels.ops``, ``data.pipeline``, ``serve.engine``).  It imports
+``kernels.ops``, ``data.pipeline``, ``window``, ``fleet``, ``stream``,
+``serve.engine``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
 The port carries both SRP hash families (dense and SRHT), the int32 flat
 sketch with degraded (table-masked) scoring, the ``AceEstimator`` (paper
-Algorithm 1), the ``AceDataFilter`` and its chunked ``StreamRunner``, and
-the flat single-tenant ``Guardrail``; its kernels are ``srp_hash``,
-``srht_hash``, ``ace_update``, ``ace_query``, ``ace_score_fused`` and
-``ace_admit_fused`` (``repro_torch/csrc``).
+Algorithm 1), the sliding-window epoch ring (``window``), tenant fleets
+and windowed fleets (``fleet``), the ``AceDataFilter``,
+``WindowedAceFilter`` and ``FleetDataFilter`` with their chunked
+``StreamRunner``, and the ``Guardrail`` in its flat, windowed, fleet and
+windowed-fleet flavours; its kernels are ``srp_hash``, ``srht_hash``,
+``ace_update``, ``ace_query``, ``ace_score_fused``, ``ace_admit_fused``,
+``ace_window_combine``, ``ace_fleet_score`` and
+``ace_fleet_window_admit`` (``repro_torch/csrc``).
 
 Entry points run on the card (``torch.device("cuda")``) unless the caller
 passes ``device="cpu"``; on CPU tensors every kernel wrapper takes its
@@ -24,8 +29,6 @@ import torch
 
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    5: "repro.window",
-    6: "repro.fleet",
     7: "repro.quantile",
     8: "repro.attribution",
     9: "repro.core.quantize (int8/int16 planes plus the escalation table)",

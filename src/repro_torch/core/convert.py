@@ -37,7 +37,19 @@ def params_to_numpy(w: torch.Tensor) -> np.ndarray:
     return w.detach().cpu().numpy()
 
 
-def state_to_numpy(state: AceState) -> dict[str, np.ndarray]:
-    """The state's leaves as numpy arrays, keyed by field name."""
-    return {k: getattr(state, k).detach().cpu().numpy()
-            for k in ("counts", "n", "welford_mean", "welford_m2")}
+def state_to_numpy(state) -> dict[str, np.ndarray]:
+    """Any port state's leaves (``AceState``, ``WindowedAceState``,
+    ``FleetState``, ``WindowedFleetState``) as numpy arrays, keyed by
+    field name; ``None`` leaves are left out."""
+    return {k: v.detach().cpu().numpy() for k, v in zip(state._fields, state)
+            if v is not None}
+
+
+def tree_from_numpy(cls, leaves, device):
+    """A port state of NamedTuple type ``cls`` (``WindowedAceState``,
+    ``FleetState``, ``WindowedFleetState``, ``AceState``) from the
+    reference state's leaves in field order — numpy arrays, or anything
+    ``np.array`` takes; a ``None`` leaf stays ``None``."""
+    return cls(*(None if x is None
+                 else torch.as_tensor(np.array(x), device=device)
+                 for x in leaves))

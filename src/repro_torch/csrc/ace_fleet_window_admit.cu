@@ -1,0 +1,125 @@
+// Fused windowed-fleet admission: hash -> tail and live-epoch gathers ->
+// PRE-insert score (tail + live) * (1/L) -> per-tenant threshold -> masked
+// insert into each admitted item's tenant's live epoch, ring updated in
+// place.  Replaces the Pallas kernel of
+// src/repro/kernels/ace_fleet_window_admit.py
+// (ace_fleet_window_admit_fused -> _admit_fused_impl).
+//
+// Bound on the H100: fp32 operations of the hash (2*B*d*K*L FLOP; at
+// B = 256, d = 4097, K = 15, L = 50 that is 1.57 GFLOP, 23 us at
+// 67 TFLOP/s); the ring (T*E*L*2^K int32) and the tails (T*L*2^K fp32)
+// stay where they are and only the counters the batch touches move.
+//
+// Design: ace_admit_fused.cu's, two kernels on one stream.
+//   Phase 1 (fwa_hash_gather): the srp_tile.cuh block hash, whose epilogue
+//     writes each bucket id and gathers, for item b of tenant t with live
+//     epoch c = cursor[t], the tail value tail[(t*L + j) * 2^K + bucket]
+//     and the live counter ring[((t*E + c)*L + j) * 2^K + bucket].  No
+//     counter is written in this phase.
+//   Phase 2 (fwa_score_insert): one thread per row sums its tail and live
+//     gathers in table order (__fadd_rn), forms (tail + live) * (1/L) as
+//     the reference's ring.score_live does, compares with thr[t] read from
+//     device memory (no host sync), gates on the item mask, writes score,
+//     verdict and both sums, and for an admitted row atomically adds 1 at
+//     each of its L live-epoch counters.
+// Stream order puts every gather before any insert: all scores are taken
+// against the ring as it was before the batch, also when copies of one
+// row go to one tenant.  The cursor indirection is a read inside the
+// kernel, so the host never learns a cursor.  The TPU kernel's one-tile
+// batch, lane-broadcast routing blocks and VMEM guard do not apply.
+// int32 rings only.  A row whose tenant id lies outside [0, T) gathers
+// zeros and never inserts: nothing outside the ring is read or written.
+// Offsets are 64-bit.
+
+#include "srp_tile.cuh"
+
+namespace {
+
+__global__ void __launch_bounds__(repro::kThreads)
+fwa_hash_gather(const int* __restrict__ ring, const float* __restrict__ tail,
+                const int* __restrict__ cursor, const float* __restrict__ q,
+                const float* __restrict__ w,
+                const int* __restrict__ tenant_ids, int* __restrict__ buckets,
+                float* __restrict__ tail_g, float* __restrict__ live_g, int B,
+                int d, int P, int K, int L, int E, int T) {
+  __shared__ repro::SrpTileSmem sm;
+  const long long nbuckets = 1LL << K;
+  repro::srp_tile(
+      q, w, B, d, P, K, L, sm, [&](int row, int j, int bucket) {
+        const long long o = static_cast<long long>(row) * L + j;
+        buckets[o] = bucket;
+        const int t = tenant_ids[row];
+        if (t < 0 || t >= T) {
+          tail_g[o] = 0.0f;
+          live_g[o] = 0.0f;
+          return;
+        }
+        tail_g[o] = tail[(static_cast<long long>(t) * L + j) * nbuckets
+                         + bucket];
+        const long long r =
+            (static_cast<long long>(t) * E + cursor[t]) * L + j;
+        live_g[o] = static_cast<float>(ring[r * nbuckets + bucket]);
+      });
+}
+
+__global__ void fwa_score_insert(int* __restrict__ ring,
+                                 const int* __restrict__ cursor,
+                                 const int* __restrict__ tenant_ids,
+                                 const int* __restrict__ buckets,
+                                 const float* __restrict__ tail_g,
+                                 const float* __restrict__ live_g,
+                                 const float* __restrict__ thr,
+                                 const unsigned char* __restrict__ item_mask,
+                                 float* __restrict__ scores,
+                                 unsigned char* __restrict__ admit,
+                                 float* __restrict__ tail_sums,
+                                 float* __restrict__ live_pre, int B, int L,
+                                 int E, int T, int K, float inv_l) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= B) return;
+  const long long base = static_cast<long long>(row) * L;
+  const float ts = repro::table_order_sum(tail_g + base, L);
+  const float ls = repro::table_order_sum(live_g + base, L);
+  const float s = __fmul_rn(__fadd_rn(ts, ls), inv_l);
+  const int t = tenant_ids[row];
+  const bool a = t >= 0 && t < T
+                 && (item_mask == nullptr || item_mask[row]) && s >= thr[t];
+  scores[row] = s;
+  tail_sums[row] = ts;
+  live_pre[row] = ls;
+  admit[row] = a ? 1 : 0;
+  if (!a) return;
+  const long long nbuckets = 1LL << K;
+  const long long r0 = (static_cast<long long>(t) * E + cursor[t]) * L;
+#pragma unroll 10
+  for (int j = 0; j < L; ++j)
+    atomicAdd(&ring[(r0 + j) * nbuckets + buckets[base + j]], 1);
+}
+
+}  // namespace
+
+// ring (T, E, L, 2^K) int32, updated in place; tail (T, L, 2^K) fp32;
+// cursor (T,) int32; q (B, d), w (d, P) fp32; tenant_ids (B,) int32;
+// thr (T,) fp32 per-tenant score-space thresholds; item_mask (B,) bool or
+// null.  Outputs: buckets (B, L) int32, scores, tail_sums, live_pre (B,)
+// fp32, admit (B,) bool; tail_g and live_g (B, L) fp32 are scratch.
+// Needs 1 <= K <= 31, B >= 1.
+REPRO_API int repro_ace_fleet_window_admit(
+    int* ring, const float* tail, const int* cursor, const float* q,
+    const float* w, const int* tenant_ids, const float* thr,
+    const unsigned char* item_mask, int* buckets, float* tail_g,
+    float* live_g, float* scores, unsigned char* admit, float* tail_sums,
+    float* live_pre, int B, int d, int P, int K, int L, int E, int T,
+    float inv_l, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  fwa_hash_gather<<<repro::tile_grid(B, K, L), repro::kThreads, 0, s>>>(
+      ring, tail, cursor, q, w, tenant_ids, buckets, tail_g, live_g, B, d, P,
+      K, L, E, T);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr int kThreads = 256;
+  fwa_score_insert<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      ring, cursor, tenant_ids, buckets, tail_g, live_g, thr, item_mask,
+      scores, admit, tail_sums, live_pre, B, L, E, T, K, inv_l);
+  return static_cast<int>(cudaGetLastError());
+}

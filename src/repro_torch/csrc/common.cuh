@@ -9,3 +9,17 @@
 REPRO_API const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+namespace repro {
+
+// Sum of a row's L gathered values in table order j = 0..L-1, with
+// __fadd_rn so that nvcc contracts nothing and a plain loop of adds in
+// the same order gives the same bits (above 2^24 too).
+__device__ __forceinline__ float table_order_sum(const float* g, int L) {
+  float s = 0.0f;
+#pragma unroll 10
+  for (int j = 0; j < L; ++j) s = __fadd_rn(s, g[j]);
+  return s;
+}
+
+}  // namespace repro

@@ -47,6 +47,20 @@ def flat_table_gather(counts: torch.Tensor,
     return counts.reshape(-1)[offs].to(torch.float32)
 
 
+def table_order_sum(g: torch.Tensor,
+                    table_weights: torch.Tensor | None = None
+                    ) -> torch.Tensor:
+    """(B, L) -> (B,): the L columns (times ``table_weights`` (L,) when
+    given) added in table order j = 0..L−1, one add each, as every kernel
+    of the port that sums a row of gathers does (``__fadd_rn``/
+    ``__fmul_rn``), so the plain versions give the kernels' bits."""
+    s = torch.zeros(g.shape[0], dtype=torch.float32, device=g.device)
+    for j in range(g.shape[1]):
+        s = s + (g[:, j] if table_weights is None
+                 else g[:, j] * table_weights[j])
+    return s
+
+
 def ace_score_fused_plain(counts: torch.Tensor, q: torch.Tensor,
                           w: torch.Tensor, cfg: SrpConfig,
                           table_weights: torch.Tensor | None = None
@@ -55,11 +69,8 @@ def ace_score_fused_plain(counts: torch.Tensor, q: torch.Tensor,
     j = 0..L−1 as the kernel does (``repro.kernels.ref.ace_score_ref``
     sums in XLA's order instead)."""
     L = counts.shape[0]
-    g = flat_table_gather(counts, srp_hash_plain(q, w, cfg))
-    s = torch.zeros(g.shape[0], dtype=torch.float32, device=g.device)
-    for j in range(L):
-        s = s + (g[:, j] if table_weights is None
-                 else g[:, j] * table_weights[j])
+    s = table_order_sum(flat_table_gather(counts, srp_hash_plain(q, w, cfg)),
+                        table_weights)
     if table_weights is None:
         s = s * torch.tensor(1.0 / L, dtype=torch.float32)
     return s

@@ -1,5 +1,7 @@
 """ACE count-array insert kernel: counts[j, buckets[b, j]] += 1, in place,
-for every row b or for the rows of an optional row mask.
+for every row b or for the rows of an optional row mask; with an optional
+per-row base row, item b's table j is row row_base[b] + j of a stacked
+(R, 2^K) table (a window ring, a fleet, a windowed fleet).
 
 Replaces the TPU kernel ``repro.kernels.ace_update.ace_update`` (Pallas,
 in ``src/repro/kernels/ace_update.py``, both its scalar and one-hot
@@ -14,6 +16,13 @@ shared-memory histogram is the remedy, left for a later change.
 
 Unlike the reference, which returns a new array, the update is in place
 (the counts tensor passed in is the one returned), on the CPU too.
+
+The base row is the port's way into the live epoch of a ring and the
+tenant rows of a fleet without a host sync: the reference slices
+``ring[cursor]`` inside its program, and in PyTorch that slice at a
+device cursor is either a gather copy or an ``int(cursor)`` sync, while a
+(B,) base row computed on the device is neither.  Rows outside [0, R)
+are dropped, so a bad base row never writes outside the table.
 """
 from __future__ import annotations
 
@@ -24,37 +33,69 @@ import torch
 from repro_torch.kernels import build
 
 KERNEL = build.Kernel("ace_update", "repro_ace_update",
-                      [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3)
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+
+
+def table_rows(buckets: torch.Tensor,
+               row_base: torch.Tensor | None = None) -> torch.Tensor:
+    """(…, L) int64 table row of each id: j, or row_base[…] + j."""
+    rows = torch.arange(buckets.shape[-1], device=buckets.device)
+    return rows if row_base is None else rows + row_base.long()[..., None]
+
+
+def gather_rows(table: torch.Tensor, buckets: torch.Tensor,
+                row_base: torch.Tensor | None = None) -> torch.Tensor:
+    """table[row_base[…] + j, b_…j] (or table[j, b_…j]) from a stacked
+    (R, 2^K) table, in its own dtype: every routed gather of the plain
+    versions (a ring's live epoch or tail, a fleet's tenant rows)."""
+    return table[table_rows(buckets, row_base), buckets.long()]
 
 
 def ace_update_plain(counts: torch.Tensor, buckets: torch.Tensor,
-                     row_mask: torch.Tensor | None = None) -> torch.Tensor:
+                     row_mask: torch.Tensor | None = None,
+                     row_base: torch.Tensor | None = None) -> torch.Tensor:
     """The same function in plain PyTorch (``repro.kernels.ref.ace_update_ref``;
     with a mask, ``repro.core.sketch.insert_buckets_masked``'s scatter),
     in place."""
-    rows = torch.arange(counts.shape[0], device=counts.device)[None, :]
     ones = (torch.ones_like(buckets) if row_mask is None
             else row_mask.to(torch.int32)[:, None].expand(buckets.shape))
-    return counts.index_put_((rows, buckets.long()), ones, accumulate=True)
+    return counts.index_put_((table_rows(buckets, row_base),
+                              buckets.long()), ones, accumulate=True)
+
+
+def check_rows(counts: torch.Tensor, buckets: torch.Tensor,
+               row_base: torch.Tensor | None, operands: list) -> None:
+    """The shape contract shared with ``ace_query``: counts (R, 2^K) and
+    buckets (B, L) with R == L, or any R with a (B,) int32 ``row_base``."""
+    B, L = buckets.shape
+    build.check(buckets, "buckets", torch.int32, (B, L))
+    if row_base is None:
+        build.check(counts, "counts", counts.dtype, (L, counts.shape[1]))
+    else:
+        build.check(row_base, "row_base", torch.int32, (B,))
+        operands.append(row_base)
 
 
 def ace_update(counts: torch.Tensor, buckets: torch.Tensor,
-               row_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """counts (L, 2^K) int32 += histogram of buckets (B, L) int32, over the
-    rows where ``row_mask`` (B,) bool is True when one is given; returns
+               row_mask: torch.Tensor | None = None,
+               row_base: torch.Tensor | None = None) -> torch.Tensor:
+    """counts (R, 2^K) int32 += histogram of buckets (B, L) int32, over the
+    rows where ``row_mask`` (B,) bool is True when one is given; item b's
+    table j is row ``row_base[b] + j`` ((B,) int32) or j.  Returns
     ``counts``, updated in place."""
-    L, nbuckets = counts.shape
-    B = buckets.shape[0]
-    build.check(counts, "counts", torch.int32, (L, nbuckets))
-    build.check(buckets, "buckets", torch.int32, (B, L))
+    R, nbuckets = counts.shape
+    B, L = buckets.shape
+    build.check(counts, "counts", torch.int32, (R, nbuckets))
     operands = [counts, buckets]
+    check_rows(counts, buckets, row_base, operands)
     if row_mask is not None:
         build.check(row_mask, "row_mask", torch.bool, (B,))
         operands.append(row_mask)
     if build.on_cpu(*operands):
-        return ace_update_plain(counts, buckets, row_mask)
+        return ace_update_plain(counts, buckets, row_mask, row_base)
     if B:
         KERNEL(counts.device, counts.data_ptr(), buckets.data_ptr(),
                None if row_mask is None else row_mask.data_ptr(),
-               B, L, nbuckets)
+               None if row_base is None else row_base.data_ptr(),
+               B, L, R, nbuckets)
     return counts

@@ -15,6 +15,16 @@ kernels hash densely inside; under ``"srht"`` (and, for admission, with a
 table mask) the one hash runs as its own kernel and the gather and
 insert as the ``ace_query`` and ``ace_update`` kernels — still one hash a
 batch.
+
+Windows and fleets (``repro_torch.window``, ``repro_torch.fleet``) address
+a stacked table — the (E·L, 2^K) ring, the (T·L, 2^K) fleet, the
+(T·E·L, 2^K) windowed fleet — through the ``ace_query``/``ace_update``
+kernels' per-item base row (cursor·L, tid·L, tid·E·L + cursor[tid]·L),
+computed on the device, so no cursor ever reaches the host.  The float
+tail views are gathered with plain PyTorch indexing, as the reference
+gathers them with jnp; the stats epilogues are the plain modules' own
+(``ring.insert_stats``, ``fleet.state.fleet_masked_welford``,
+``fleet.window.apply_insert_stats``).
 """
 from __future__ import annotations
 
@@ -23,12 +33,18 @@ import torch
 from repro_torch.core import sketch as _sk
 from repro_torch.core.sketch import AceConfig, AceState
 from repro_torch.core.srp import SrpConfig, resolve_hash_mode
+from repro_torch.fleet import state as _fls
+from repro_torch.fleet import window as _fw
 from repro_torch.kernels import ace_admit_fused as _a
+from repro_torch.kernels import ace_fleet_score as _fl
+from repro_torch.kernels import ace_fleet_window_admit as _fwa
 from repro_torch.kernels import ace_query as _q
 from repro_torch.kernels import ace_score_fused as _f
 from repro_torch.kernels import ace_update as _u
+from repro_torch.kernels import ace_window_combine as _wc
 from repro_torch.kernels import srht_hash as _sh
 from repro_torch.kernels import srp_hash as _h
+from repro_torch.window import ring as _ring
 
 
 def srht_hash(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
@@ -150,4 +166,199 @@ def ace_admit(state: AceState, q: torch.Tensor, w: torch.Tensor,
     new_state, admit, _ = ace_admit_at(state, q, w, cfg, thresh,
                                        table_mask=table_mask,
                                        item_mask=item_mask)
+    return new_state, admit
+
+
+# ---------------------------------------------------------------------------
+# Windows and fleets.
+# ---------------------------------------------------------------------------
+
+def _flat(counts: torch.Tensor) -> torch.Tensor:
+    """A stacked table (…, L, 2^K) as its (R, 2^K) rows (a view)."""
+    return counts.view(-1, counts.shape[-1])
+
+
+def ace_window_score(wstate, buckets: torch.Tensor, gamma: float,
+                     table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Windowed Ŝ(q) of (B, L) bucket ids against a ``WindowedAceState``
+    at any γ: one ``ace_window_combine`` launch (the E-way weighted gather
+    and combine), with the health mask baked into its ``table_weights``
+    when ``table_mask`` (L,) is given.  The canonical order of
+    ``window.ring.score_windowed``."""
+    weights = _ring.epoch_weights(wstate.cursor, wstate.num_epochs, gamma)
+    if table_mask is None:
+        return _wc.ace_window_combine(wstate.counts, buckets, weights)
+    return _wc.ace_window_combine(wstate.counts, buckets, weights,
+                                  table_weights=_mask_weights(table_mask))
+
+
+def _window_sums(wstate, buckets: torch.Tensor, rows: torch.Tensor,
+                 tail_rows: torch.Tensor | None,
+                 table_mask: torch.Tensor | None):
+    """Pre-insert (tail_sums, live_sums) and the masked pair the decision
+    uses (the same pair without a mask): the live gather through
+    ``ace_query`` at base rows ``rows``, the float tail by indexing."""
+    live_g = _q.ace_query(_flat(wstate.counts), buckets, row_base=rows)
+    tail_g = _u.gather_rows(_flat(wstate.tail), buckets, tail_rows)
+    pre = _ring.table_sums(tail_g, live_g)
+    if table_mask is None:
+        return pre, pre
+    return pre, _ring.table_sums(tail_g, live_g, table_mask)
+
+
+def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
+                          cfg: AceConfig, thresh: torch.Tensor, *,
+                          gamma: float,
+                          table_mask: torch.Tensor | None = None,
+                          item_mask: torch.Tensor | None = None,
+                          masked_sums: bool = True):
+    """Windowed admission against a given score-space threshold: ONE hash,
+    no host sync.  Scores are tail + live-epoch gathers (masked for the
+    decision under ``table_mask``; ``masked_sums=False`` scores the
+    unmasked sums over the healthy count instead, as the reference's
+    ``WindowedAceFilter.step`` does); admitted rows go into the live epoch
+    through ``ace_update`` at base row cursor·L, in place; the post-insert
+    live gather feeds ``ring.insert_stats`` with the unmasked scoring
+    sums.  Returns (new_state, admit (B,) bool, pre-insert scores (B,))."""
+    L = cfg.num_tables
+    buckets = hash_dispatch(q, w, cfg.srp)
+    rows = _ring.live_rows(wstate, buckets.shape[0])
+    (tail_sums, live_pre), dec = _window_sums(
+        wstate, buckets, rows, None, table_mask if masked_sums else None)
+    scores = _ring.score_live(*dec, L, table_mask=table_mask)
+    admit = scores >= thresh
+    if item_mask is not None:
+        admit = admit & item_mask
+    flat = _u.ace_update(_flat(wstate.counts), buckets, row_mask=admit,
+                         row_base=rows)
+    live_post = torch.sum(_q.ace_query(flat, buckets, row_base=rows),
+                          dim=-1)
+    new_state = _ring.insert_stats(wstate, wstate.counts, admit, cfg, gamma,
+                                   tail_sums, live_pre, live_post)
+    return new_state, admit, scores
+
+
+def ace_admit_windowed(wstate, q: torch.Tensor, w: torch.Tensor,
+                       cfg: AceConfig, *, gamma: float, alpha: float,
+                       warmup_items: float, rotate_every: int = 0,
+                       table_mask: torch.Tensor | None = None,
+                       item_mask: torch.Tensor | None = None):
+    """Kernel-path windowed admission (``repro.kernels.ops
+    .ace_admit_windowed``): the window-combined μ−ασ threshold on the
+    device, ``ace_admit_windowed_at``, then the epoch clock
+    (``ring.maybe_rotate``, a device-side select).  Returns
+    (new_state, admit (B,) bool)."""
+    thresh = _ring.admit_threshold_windowed(wstate, gamma, alpha,
+                                            warmup_items,
+                                            table_mask=table_mask)
+    new_state, admit, _ = ace_admit_windowed_at(
+        wstate, q, w, cfg, thresh, gamma=gamma, table_mask=table_mask,
+        item_mask=item_mask)
+    return _ring.maybe_rotate(new_state, rotate_every, gamma), admit
+
+
+def ace_fleet_score(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
+                    w: torch.Tensor, cfg: AceConfig,
+                    table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Multi-tenant scoring of raw queries, each against its own tenant's
+    tables, one hash for the batch.  Dense: one ``ace_fleet_score`` call.
+    SRHT or a table mask (T, L): the one hash kernel, then the routed
+    ``ace_query`` gather and the shared combine."""
+    if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
+        buckets = hash_dispatch(q, w, cfg.srp)
+        g = _q.ace_query(_flat(fstate.counts), buckets, row_base=_fls
+                         .tenant_rows(tenant_ids, cfg.num_tables))
+        return _fls.fleet_combine(g, tenant_ids, table_mask)
+    return _fl.ace_fleet_score(fstate.counts, q, tenant_ids, w, cfg.srp)
+
+
+def ace_fleet_admit_at(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
+                       w: torch.Tensor, cfg: AceConfig,
+                       thresh: torch.Tensor, *,
+                       table_mask: torch.Tensor | None = None,
+                       item_mask: torch.Tensor | None = None):
+    """Multi-tenant admission against given per-item thresholds (B,): ONE
+    hash, the routed ``ace_query`` gather at base row tid·L, the
+    ``ace_update`` insert of the admitted rows there (in place), the
+    post-insert gather for the per-tenant Welford fold.  Returns
+    (new_state, admit (B,) bool, pre-insert scores (B,))."""
+    buckets = hash_dispatch(q, w, cfg.srp)
+    rows = _fls.tenant_rows(tenant_ids, cfg.num_tables)
+    flat = _flat(fstate.counts)
+    scores = _fls.fleet_combine(_q.ace_query(flat, buckets, row_base=rows),
+                                tenant_ids, table_mask)
+    admit = scores >= thresh
+    if item_mask is not None:
+        admit = admit & item_mask
+    _u.ace_update(flat, buckets, row_mask=admit, row_base=rows)
+    post = _fls.fleet_combine(_q.ace_query(flat, buckets, row_base=rows),
+                              tenant_ids)
+    tot, mean, m2 = _fls.fleet_masked_welford(
+        fstate, tenant_ids, post, admit.to(torch.float32), cfg.welford_min_n)
+    return _fls.FleetState(fstate.counts, tot, mean, m2), admit, scores
+
+
+def ace_fleet_admit(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
+                    w: torch.Tensor, cfg: AceConfig, *, alpha: float,
+                    warmup_items: float,
+                    table_mask: torch.Tensor | None = None,
+                    item_mask: torch.Tensor | None = None):
+    """Kernel-path multi-tenant admission (``repro.kernels.ops
+    .ace_fleet_admit``): per-tenant μ−ασ thresholds routed to the items,
+    then ``ace_fleet_admit_at``.  Returns (new_state, admit (B,) bool)."""
+    thresh = _fls.admit_thresholds(fstate, alpha, warmup_items,
+                                   table_mask=table_mask)[tenant_ids.long()]
+    new_state, admit, _ = ace_fleet_admit_at(
+        fstate, q, tenant_ids, w, cfg, thresh, table_mask=table_mask,
+        item_mask=item_mask)
+    return new_state, admit
+
+
+def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
+                           w: torch.Tensor, cfg: AceConfig, *, gamma: float,
+                           alpha: float, warmup_items: float,
+                           rotate_every: int = 0,
+                           table_mask: torch.Tensor | None = None,
+                           item_mask: torch.Tensor | None = None):
+    """Kernel-path windowed-fleet admission (``repro.kernels.ops
+    .ace_fleet_window_admit``): per-tenant windowed thresholds on the
+    device, then, dense and healthy, the fused
+    ``ace_fleet_window_admit_fused`` kernel (hash, tail and live gathers,
+    score, threshold, masked live-epoch insert); under SRHT or a table
+    mask (T, L) the one hash kernel with the routed ``ace_query`` gathers
+    (masked for the decision) and ``ace_update`` insert.  Both then gather
+    the post-insert live counters with ``ace_query`` for
+    ``fleet.window.apply_insert_stats`` and run the presence-gated clocks
+    (``maybe_rotate_fleet``).  Returns (new_state, admit (B,) bool)."""
+    thr_t = _fw.window_admit_thresholds(state, gamma, alpha, warmup_items,
+                                        table_mask=table_mask)
+    rows = _fw.live_rows_fleet(state, tenant_ids)
+    flat = _flat(state.counts)
+    if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
+        buckets = hash_dispatch(q, w, cfg.srp)
+        mask = None if table_mask is None \
+            else table_mask.to(torch.float32)[tenant_ids.long()]
+        (tail_sums, live_pre), dec = _window_sums(
+            state, buckets, rows, _fls.tenant_rows(tenant_ids,
+                                                   cfg.num_tables), mask)
+        if table_mask is None:
+            scores = _ring.score_live(*dec, cfg.num_tables)
+        else:
+            nh = torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
+            scores = (dec[0] + dec[1]) * (1.0 / nh)
+        admit = scores >= thr_t[tenant_ids.long()]
+        if item_mask is not None:
+            admit = admit & item_mask
+        _u.ace_update(flat, buckets, row_mask=admit, row_base=rows)
+    else:
+        _, _, admit, buckets, tail_sums, live_pre = \
+            _fwa.ace_fleet_window_admit_fused(
+                state.counts, state.tail, state.cursor, q, tenant_ids, w,
+                thr_t, cfg.srp, item_mask=item_mask)
+    live_post = torch.sum(_q.ace_query(flat, buckets, row_base=rows), dim=-1)
+    new_state = _fw.apply_insert_stats(state, state.counts, tenant_ids,
+                                       admit, cfg, gamma, tail_sums,
+                                       live_pre, live_post)
+    new_state = _fw.maybe_rotate_fleet(new_state, rotate_every, gamma,
+                                       tenant_ids=tenant_ids)
     return new_state, admit

@@ -1,13 +1,14 @@
 """The ACE request guardrail: out-of-distribution requests are rejected in
 O(K·L) before they reach the model (the paper's query phase as an
-admission filter).  Port of ``repro.serve.engine`` for the flat,
-single-tenant, ``mu_sigma``, int32 guardrail, under either hash family
-(``hash_mode`` "dense", "srht" or "auto").
+admission filter).  Port of ``repro.serve.engine``'s ``Guardrail`` in
+``mu_sigma`` mode with int32 counts, under either hash family
+(``hash_mode`` "dense", "srht" or "auto"), in its four flavours: the flat
+sketch, the sliding window (``window_epochs > 1``), the tenant fleet
+(``num_tenants > 1``) and the windowed fleet (both).
 
 ``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
-item 12); windows, fleets, quantile thresholds, quantized planes,
-health/repair and meshes raise ``NotImplementedError`` naming the queue
-item that brings them.
+item 12); quantile thresholds, quantized planes, health/repair and meshes
+raise ``NotImplementedError`` naming the queue item that brings them.
 """
 from __future__ import annotations
 
@@ -21,13 +22,22 @@ from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig
 from repro_torch.core.srp import hash_buckets
 from repro_torch.data.pipeline import mean_embed_features
+from repro_torch.fleet import state as fl
+from repro_torch.fleet import window as fw
 from repro_torch.kernels import ops as kops
+from repro_torch.window import ring
 
 
 @dataclasses.dataclass(frozen=True)
 class GuardrailConfig:
-    """The fields of ``repro.serve.engine.GuardrailConfig`` that this slice
-    reads or refuses, with the reference's defaults."""
+    """The fields of ``repro.serve.engine.GuardrailConfig`` that the port
+    reads or refuses, with the reference's defaults.
+
+    ``window_epochs > 1`` makes the sketch an epoch ring of that many
+    epochs, weighted γ^age by ``window_decay`` and rotated every
+    ``rotate_every`` admit calls; ``num_tenants > 1`` stacks that many
+    tenant sketches (``admit`` then takes tenant ids); ``fail_policy`` is
+    one policy or, for a fleet, a tuple of one per tenant."""
 
     d_model: int
     num_bits: int = 13
@@ -37,11 +47,13 @@ class GuardrailConfig:
     bias_const: float = 0.25
     hash_mode: str = "dense"
     window_epochs: int = 1
+    window_decay: float = 1.0
+    rotate_every: int = 0
     num_tenants: int = 1
     count_dtype: str = "int32"
     esc_capacity: int = 0
     threshold_mode: str = "mu_sigma"
-    fail_policy: str = "fail_open"
+    fail_policy: str | tuple = "fail_open"
 
 
 class Guardrail:
@@ -50,26 +62,33 @@ class Guardrail:
     ``admit`` featurises a (B, S, D) batch, quarantines rows whose
     features are non-finite, hashes once, scores against the PRE-insert
     counts, compares with the on-device μ−ασ score threshold (−inf during
-    warmup), and inserts the admitted rows — with ``use_kernels=True``
-    (the default here; the reference defaults to False) all of it in the
-    fused ``ace_admit_fused`` kernel plus the ``ace_query`` gather of the
-    Welford epilogue (under ``hash_mode="srht"``: the ``srht_hash``,
-    ``ace_query`` and ``ace_update`` kernels, ``ops.ace_admit_at``).
-    The only device→host transfer of a call is the
-    packed (2, B) verdict + quarantine block (``_to_host``).
+    warmup), and inserts the admitted rows.  With ``use_kernels=True``
+    (the default here; the reference defaults to False) the flat sketch
+    runs the fused ``ace_admit_fused`` kernel plus the ``ace_query``
+    gather of the Welford epilogue (``ops.ace_admit``); the window
+    ``ops.ace_admit_windowed``, the fleet ``ops.ace_fleet_admit`` and the
+    windowed fleet the fused ``ace_fleet_window_admit_fused`` kernel
+    (``ops.ace_fleet_window_admit``).  The only device→host transfer of a
+    call is the packed (2, B) verdict + quarantine block (``_to_host``).
+
+    Windowed (``window_epochs > 1``): the threshold comes from the
+    window-combined μ/σ, admits insert into the live epoch, and every
+    ``rotate_every`` admit calls the ring rotates: the reference's eager
+    clock, ``ring.maybe_rotate`` (a windowed fleet's presence-gated
+    per-tenant clocks: ``fleet.window.maybe_rotate_fleet``), a device-side
+    select, so no admit syncs on the clock.
+
+    Fleet (``num_tenants > 1``): ``admit(embeds, tenant_ids)`` routes each
+    request to its own tenant's sketch; the ids are checked on the host
+    (shape, integer, in [0, T)) before they go to the device.
 
     ``device`` defaults to CUDA and raises when there is none; ``w``
     carries a given projection matrix (d_model + 1, P; (d_model + 1, 0)
-    under SRHT) instead of
-    drawing one.
+    under SRHT) instead of drawing one.
     """
 
     def __init__(self, gcfg: GuardrailConfig, *, use_kernels: bool = True,
                  device=None, w: torch.Tensor | None = None, mesh=None):
-        if gcfg.window_epochs > 1:
-            not_ported("windowed guardrails (window_epochs > 1)", 5)
-        if gcfg.num_tenants > 1:
-            not_ported("multi-tenant guardrails (num_tenants > 1)", 6)
         if gcfg.threshold_mode == "quantile":
             not_ported("threshold_mode='quantile'", 7)
         if gcfg.threshold_mode != "mu_sigma":
@@ -78,9 +97,6 @@ class Guardrail:
                              "'mu_sigma' or 'quantile'")
         if mesh is not None:
             not_ported("sharded guardrails (mesh)", 13)
-        if gcfg.fail_policy not in ("fail_open", "fail_closed"):
-            raise ValueError(f"unknown fail_policy {gcfg.fail_policy!r} — "
-                             "expected 'fail_open' or 'fail_closed'")
         self.gcfg = gcfg
         self.ace_cfg = AceConfig(dim=gcfg.d_model + 1,
                                  num_bits=gcfg.num_bits,
@@ -92,43 +108,143 @@ class Guardrail:
         if use_kernels and gcfg.count_dtype != "int32":
             raise ValueError("the kernels take int32 counts; use "
                              "use_kernels=False for float32 counts")
+        self.windowed = gcfg.window_epochs > 1
+        self.multi_tenant = gcfg.num_tenants > 1
+        pol = gcfg.fail_policy
+        if isinstance(pol, str):
+            pol = (pol,) * max(gcfg.num_tenants, 1)
+        if len(pol) != max(gcfg.num_tenants, 1):
+            raise ValueError(f"fail_policy tuple has {len(pol)} entries for "
+                             f"{gcfg.num_tenants} tenants")
+        bad = [p for p in pol if p not in ("fail_open", "fail_closed")]
+        if bad:
+            raise ValueError(f"unknown fail_policy {bad[0]!r} — expected "
+                             "'fail_open' or 'fail_closed'")
         self.device = resolve_device(device)
-        self.state = sk.init(self.ace_cfg, self.device)
+        if self.windowed:
+            if gcfg.rotate_every <= 0:
+                raise ValueError(
+                    "windowed guardrail (window_epochs > 1) needs "
+                    "rotate_every > 0 — without a rotation clock the ring "
+                    "never expires and behaves like the frozen sketch")
+            wcfg = ring.WindowConfig(ace=self.ace_cfg,
+                                     num_epochs=gcfg.window_epochs,
+                                     decay=gcfg.window_decay,
+                                     rotate_every=gcfg.rotate_every)
+        if self.multi_tenant and self.windowed:
+            state = fw.init_fleet_window(wcfg, gcfg.num_tenants, self.device)
+        elif self.multi_tenant:
+            state = fl.init(fl.FleetConfig(ace=self.ace_cfg,
+                                           num_tenants=gcfg.num_tenants),
+                            self.device)
+        elif self.windowed:
+            state = ring.init_window(wcfg, self.device)
+        else:
+            state = sk.init(self.ace_cfg, self.device)
+        self.state = state
         self.w = (sk.make_params(self.ace_cfg, device=self.device) if w is None
                   else w.to(self.device, torch.float32).contiguous())
         self.use_kernels = use_kernels
-        self._fail_open = gcfg.fail_policy == "fail_open"
+        self._fail_open = torch.tensor([p == "fail_open" for p in pol],
+                                       device=self.device)
         self.quarantined = 0          # total non-finite rows seen
 
-    def _admit_device(self, embeds: torch.Tensor) -> torch.Tensor:
+    def _admit_device(self, embeds: torch.Tensor,
+                      tids: torch.Tensor | None) -> torch.Tensor:
         """The admission step on the device; returns the packed (2, B)
         bool block [verdicts, finite]."""
         feat = mean_embed_features(embeds, self.gcfg.bias_const)
         finite = torch.all(torch.isfinite(feat), dim=-1)          # (B,)
         feat = torch.where(finite[:, None], feat, 0.0)
-        cfg = self.ace_cfg
-        if self.use_kernels:
-            self.state, admit = kops.ace_admit(
-                self.state, feat, self.w, cfg, alpha=self.gcfg.alpha,
-                warmup_items=self.gcfg.warmup_items, item_mask=finite)
-        else:
-            buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
-            scores = sk.lookup(self.state, buckets)
-            admit = scores >= sk.admit_threshold(
-                self.state, self.gcfg.alpha, self.gcfg.warmup_items)
-            admit = admit & finite
-            self.state = sk.insert_buckets_masked(self.state, buckets,
-                                                  admit, cfg)
-        final = torch.where(finite, admit, self._fail_open)
+        admit = self._admit_branches(feat, finite, tids)
+        fail_open = self._fail_open[0] if tids is None \
+            else self._fail_open[tids.long()]
+        final = torch.where(finite, admit, fail_open)
         return torch.stack([final, finite])
 
-    def admit(self, embeds) -> np.ndarray:
+    def _admit_branches(self, feat, finite, tids):
+        """Score → threshold → masked insert for every sketch flavour;
+        ``finite`` is the item mask (quarantined rows never admit and
+        never insert).  Updates ``self.state``; returns the admit mask."""
+        g, cfg, st = self.gcfg, self.ace_cfg, self.state
+        gamma = g.window_decay
+        if self.multi_tenant and self.windowed:
+            if self.use_kernels:
+                st, admit = kops.ace_fleet_window_admit(
+                    st, feat, tids, self.w, cfg, gamma=gamma, alpha=g.alpha,
+                    warmup_items=g.warmup_items, rotate_every=g.rotate_every,
+                    item_mask=finite)
+            else:
+                buckets = hash_buckets(feat, self.w, cfg.srp)
+                pre = fw.window_table_sums_fleet(st, tids, buckets)
+                scores = ring.score_live(*pre, cfg.num_tables)
+                admit = scores >= fw.window_admit_thresholds(
+                    st, gamma, g.alpha, g.warmup_items)[tids.long()]
+                admit = admit & finite
+                st = fw.insert_current_fleet(st, tids, buckets, admit, cfg,
+                                             gamma=gamma, pre_sums=pre)
+                st = fw.maybe_rotate_fleet(st, g.rotate_every, gamma,
+                                           tenant_ids=tids)
+        elif self.multi_tenant:
+            if self.use_kernels:
+                st, admit = kops.ace_fleet_admit(
+                    st, feat, tids, self.w, cfg, alpha=g.alpha,
+                    warmup_items=g.warmup_items, item_mask=finite)
+            else:
+                buckets = hash_buckets(feat, self.w, cfg.srp)
+                scores = fl.fleet_scores(st, tids, buckets)
+                admit = scores >= fl.admit_thresholds(
+                    st, g.alpha, g.warmup_items)[tids.long()]
+                admit = admit & finite
+                st = fl.insert_masked(st, tids, buckets, admit, cfg)
+        elif self.windowed:
+            if self.use_kernels:
+                st, admit = kops.ace_admit_windowed(
+                    st, feat, self.w, cfg, gamma=gamma, alpha=g.alpha,
+                    warmup_items=g.warmup_items, rotate_every=g.rotate_every,
+                    item_mask=finite)
+            else:
+                buckets = hash_buckets(feat, self.w, cfg.srp)
+                pre = ring.window_table_sums(st, buckets)
+                scores = ring.score_live(*pre, cfg.num_tables)
+                admit = scores >= ring.admit_threshold_windowed(
+                    st, gamma, g.alpha, g.warmup_items)
+                admit = admit & finite
+                st = ring.insert_current(st, buckets, admit, cfg,
+                                         gamma=gamma, pre_sums=pre)
+                st = ring.maybe_rotate(st, g.rotate_every, gamma)
+        elif self.use_kernels:
+            st, admit = kops.ace_admit(
+                st, feat, self.w, cfg, alpha=g.alpha,
+                warmup_items=g.warmup_items, item_mask=finite)
+        else:
+            buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
+            scores = sk.lookup(st, buckets)
+            admit = scores >= sk.admit_threshold(st, g.alpha,
+                                                 g.warmup_items)
+            admit = admit & finite
+            st = sk.insert_buckets_masked(st, buckets, admit, cfg)
+        self.state = st
+        return admit
+
+    def admit(self, embeds, tenant_ids=None) -> np.ndarray:
         """(B, S, D) request embeddings -> (B,) bool admitted; admitted rows
-        update the sketch.  Non-finite rows are quarantined (never scored
-        against real counts, never inserted, counted in
-        ``self.quarantined``) and answered by ``gcfg.fail_policy``."""
+        update the sketch.  A fleet takes ``tenant_ids`` (B,) integers in
+        [0, num_tenants), checked here on the host.  Non-finite rows are
+        quarantined (never scored against real counts, never inserted,
+        counted in ``self.quarantined``) and answered by the fail policy
+        (of their tenant)."""
         embeds = torch.as_tensor(embeds, device=self.device)
-        out = _to_host(self._admit_device(embeds))   # the ONE transfer
+        tids = None
+        if self.multi_tenant:
+            if tenant_ids is None:
+                raise ValueError("multi-tenant guardrail needs tenant_ids")
+            tids = torch.as_tensor(fl.check_tenant_ids(
+                tenant_ids, self.gcfg.num_tenants, embeds.shape[:1]),
+                device=self.device)
+        elif tenant_ids is not None:
+            raise ValueError("tenant_ids given but num_tenants == 1")
+        out = _to_host(self._admit_device(embeds, tids))  # the ONE transfer
         self.quarantined += int((~out[1]).sum())
         return out[0].astype(bool)
 

@@ -1,21 +1,36 @@
 """Chunked streaming ingest: T batches per device loop, one host transfer
-each way per chunk — port of ``repro.stream.runner`` in flat mode.
+each way per chunk — port of ``repro.stream.runner``.
 
-``StreamRunner.consume`` runs T steps of ``AceDataFilter.step`` (hash once
+``StreamRunner.consume`` runs T steps of the filter's ``step`` (hash once
 → score from the same bucket ids → on-device μ−ασ threshold → masked
 insert) over a (T, B, d) chunk that is already on the device, with no host
-sync inside, and reduces the chunk to a small ``ChunkSummary`` on the
-device (kept fraction, per-step anomaly counts, the top-k most anomalous
-items).  ``run`` drives an iterator of batches: per chunk one stacked
-host-to-device copy (``_to_device``) and one device-to-host copy of the
-packed summary (``_to_host``).  On the kernel path the counts are updated
-in place across the whole stream.
+sync inside, and reduces the chunk to a small summary on the device
+(kept fraction, per-step anomaly counts, the top-k most anomalous items).
+``run`` drives an iterator of batches: per chunk one host-to-device copy
+(``_to_device``) and one device-to-host copy of the packed summary
+(``_to_host``).  On the kernel path the counts are updated in place
+across the whole stream.
 
-Meshes, fleets, windowed filters (``rotate_every``) and attribution raise
-``NotImplementedError`` naming their ROADMAP.md queue item.  The
-reference compiles a chunk into one program (``trace_count``); the port
-runs it eagerly, and a captured CUDA graph of the chunk is ROADMAP.md
-queue 1 item 3's open point.
+The filter decides the mode, as in the reference:
+
+* ``AceDataFilter`` — the flat sketch, ``ChunkSummary``;
+* ``WindowedAceFilter`` — the epoch ring; ``rotate_every=R`` (default:
+  the filter's own) rotates the ring at segment boundaries of the chunk,
+  every R steps when R divides T, or once at the chunk's end when T
+  divides R, each time through the tick-gated ``ring.maybe_rotate`` (a
+  device-side select: no sync), so rotations land where the per-batch
+  drivers' eager clock puts them.  The summary's ``n`` is the ring total
+  and its ``falpha`` is taken over the γ-combined counts;
+* ``FleetDataFilter`` — the tenant fleet: each chunk carries a (T, B)
+  tenant-id plane, checked on the host in ``run`` and sent to the device
+  in the same one copy as the features, and the summary is a
+  ``FleetChunkSummary`` with per-tenant rows.  A windowed fleet in the
+  runner is refused, as in the reference.
+
+Meshes and attribution raise ``NotImplementedError`` naming their ROADMAP.md
+queue item.  The reference compiles a chunk into one program
+(``trace_count``); the port runs it eagerly, and a captured CUDA graph of
+the chunk is ROADMAP.md queue 1 item 3's open point.
 """
 from __future__ import annotations
 
@@ -25,8 +40,9 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
-from repro_torch.data.pipeline import AceDataFilter
+from repro_torch.fleet.state import check_tenant_ids, per_tenant_counts
 from repro_torch.quantile.moments import falpha_index
+from repro_torch.window import ring
 
 
 class ChunkSummary(NamedTuple):
@@ -69,57 +85,135 @@ class ChunkSummary(NamedTuple):
     hh_valid: torch.Tensor = None
 
 
-_PACKED = ChunkSummary._fields[:10]     # the fields ``run`` transfers
+class FleetChunkSummary(NamedTuple):
+    """The fleet summary (``repro.stream.runner.FleetChunkSummary``'s
+    fields), fetched in the same ONE transfer.  The global fields are
+    ``ChunkSummary``'s; per tenant:
+
+    per_tenant_items: (T,) float32 — items routed to each tenant.
+    per_tenant_kept:  (T,) float32 — of those, how many were kept.
+    n:                (T,) float32 — each tenant's n after the chunk.
+    misrouted:        () int32 — items of tenants outside the ownership
+                      mask (scored, never kept or inserted); 0 without one.
+    falpha:           (T,) float32 — each tenant's drift index.
+    hh_*:             always None here (ROADMAP.md queue 1 item 8).
+    """
+
+    kept_frac: torch.Tensor
+    anom_counts: torch.Tensor
+    topk_step: torch.Tensor
+    topk_item: torch.Tensor
+    topk_margin: torch.Tensor
+    per_tenant_items: torch.Tensor
+    per_tenant_kept: torch.Tensor
+    n: torch.Tensor
+    quarantined: torch.Tensor
+    degraded: torch.Tensor
+    misrouted: torch.Tensor
+    falpha: torch.Tensor
+    topk_valid: torch.Tensor = None
+    hh_coord: torch.Tensor = None
+    hh_est: torch.Tensor = None
+    hh_valid: torch.Tensor = None
+    hh_tenant: torch.Tensor = None
+    hh_tenant_est: torch.Tensor = None
 
 
 class StreamRunner:
-    """Chunked ingest around an ``AceDataFilter`` (flat mode).
+    """Chunked ingest around an ``AceDataFilter``, a ``WindowedAceFilter``
+    or a ``FleetDataFilter``.
 
-    ``consume`` takes one (T, B, d) chunk with T = ``chunk_T``;
-    ``return_masks=True`` also returns the (T, B) keep mask.
+    ``consume`` takes one (T, B, d) chunk with T = ``chunk_T`` (and, for a
+    fleet, its (T, B) int32 tenant ids); ``return_masks=True`` also
+    returns the (T, B) keep mask.
     """
 
-    def __init__(self, filt: AceDataFilter, chunk_T: int, topk: int = 8,
+    def __init__(self, filt, chunk_T: int, topk: int = 8,
                  return_masks: bool = False, *, mesh=None,
                  rotate_every: int | None = None):
         if mesh is not None:
             not_ported("sharded stream ingest (mesh)", 13)
-        if hasattr(filt, "num_tenants"):
-            not_ported("fleet stream ingest (num_tenants)", 6)
-        if rotate_every or hasattr(filt, "num_epochs"):
-            not_ported("windowed stream ingest (rotate_every)", 5)
         self.filt = filt
         self.chunk_T = int(chunk_T)
         self.topk = int(topk)
         self.return_masks = return_masks
+        self.is_fleet = hasattr(filt, "num_tenants")
+        self.windowed = hasattr(filt, "num_epochs")
+        if rotate_every is None:
+            rotate_every = int(getattr(filt, "rotate_every", 0))
+        self.rotate_every = int(rotate_every)
+        R = self.rotate_every
+        if self.is_fleet and R:
+            raise NotImplementedError(
+                "windowed fleets are host-driven (per-tenant clocks via "
+                "repro_torch.fleet.window.maybe_rotate_fleet), as in the "
+                "reference; the runner consumes flat fleets only")
+        if R and not self.windowed:
+            raise ValueError("rotate_every needs a windowed filter "
+                             "(repro_torch.window.filter.WindowedAceFilter)"
+                             "; the flat AceDataFilter has no epoch ring")
+        if R and self.chunk_T % R != 0 and R % self.chunk_T != 0:
+            raise ValueError(
+                f"rotate_every={R} must divide or be a multiple of "
+                f"chunk_T={self.chunk_T} so epoch boundaries land "
+                "deterministically inside or between chunks")
 
     def init(self):
         """(state, w) on the filter's device."""
         return self.filt.init()
 
     def consume(self, state, w: torch.Tensor, feats: torch.Tensor,
-                table_mask: torch.Tensor | None = None):
-        """One chunk: feats (T, B, d) on the filter's device.  Returns
+                tenant_ids: torch.Tensor | None = None,
+                table_mask: torch.Tensor | None = None,
+                tenant_mask: torch.Tensor | None = None):
+        """One chunk: feats (T, B, d) on the filter's device, plus the
+        (T, B) int32 tenant ids of a fleet.  Returns
         (new_state, summary[, keeps]), all still on the device.
-        ``table_mask`` (L,) scores the chunk over healthy tables only and
-        sets the summary's ``degraded``."""
+        ``table_mask`` ((L,), or (T, L) for a fleet) scores the chunk over
+        healthy tables only and sets the summary's ``degraded``;
+        ``tenant_mask`` (T,) is a fleet's ownership mask."""
         if feats.ndim != 3 or feats.shape[0] != self.chunk_T:
             raise ValueError(f"want a ({self.chunk_T}, B, d) chunk, got "
                              f"{tuple(feats.shape)}")
+        if self.is_fleet:
+            if tenant_ids is None or tuple(tenant_ids.shape) \
+                    != tuple(feats.shape[:2]):
+                raise ValueError("fleet filters need a (T, B) tenant_ids "
+                                 "plane")
+        elif tenant_ids is not None or tenant_mask is not None:
+            raise ValueError("tenant_ids/tenant_mask given but the filter "
+                             "is not a fleet")
+        T, R = self.chunk_T, self.rotate_every
+        gamma = getattr(self.filt, "decay", 1.0)
         keeps, margins = [], []
-        for t in range(self.chunk_T):
-            state, keep, margin = self.filt.step(state, w, feats[t],
-                                                 table_mask=table_mask)
+        for t in range(T):
+            if self.is_fleet:
+                state, keep, margin = self.filt.step(
+                    state, w, feats[t], tenant_ids[t], table_mask=table_mask,
+                    tenant_mask=tenant_mask)
+            else:
+                state, keep, margin = self.filt.step(state, w, feats[t],
+                                                     table_mask=table_mask)
             keeps.append(keep)
             margins.append(margin)
+            # the tick-gated clock at each segment boundary (R | T) or at
+            # the chunk's end (T | R)
+            if R and (t + 1) % min(R, T) == 0:
+                state = ring.maybe_rotate(state, R, gamma)
         keeps, margins = torch.stack(keeps), torch.stack(margins)
-        summary = self._summary(state, keeps, margins, table_mask)
+        if self.is_fleet:
+            summary = self._fleet_summary(state, keeps, margins, tenant_ids,
+                                          table_mask, tenant_mask)
+        else:
+            summary = self._summary(state, keeps, margins, table_mask)
         if self.return_masks:
             return state, summary, keeps
         return state, summary
 
-    def _summary(self, state, keeps: torch.Tensor, margins: torch.Tensor,
-                 table_mask) -> ChunkSummary:
+    def _topk(self, keeps: torch.Tensor, margins: torch.Tensor) -> dict:
+        """The fields every summary shares: kept fraction, per-step
+        anomaly counts, the top-k most anomalous rows and the quarantine
+        count."""
         T, B = keeps.shape
         k = min(self.topk, T * B)
         # quarantined rows carry the −inf sentinel: rank them last, with
@@ -130,59 +224,126 @@ class StreamRunner:
         # jax.lax.top_k orders them (torch.topk does not)
         topk_margin, idx = torch.sort(ranked, stable=True)
         topk_margin, idx = topk_margin[:k], idx[:k]
-        dev = margins.device
-        return ChunkSummary(
+        return dict(
             kept_frac=torch.mean(keeps.to(torch.float32)),
             anom_counts=torch.sum(~keeps, dim=1, dtype=torch.int32),
             topk_step=torch.div(idx, B, rounding_mode="floor")
             .to(torch.int32),
             topk_item=(idx % B).to(torch.int32),
             topk_margin=topk_margin,
-            n=state.n,
             quarantined=torch.sum(torch.isneginf(margins),
                                   dtype=torch.int32),
+            topk_valid=torch.isfinite(topk_margin) & (topk_margin < 0.0))
+
+    def _summary(self, state, keeps: torch.Tensor, margins: torch.Tensor,
+                 table_mask) -> ChunkSummary:
+        if self.windowed:
+            gamma = self.filt.decay
+            n = torch.sum(state.n)                    # the ring total
+            falpha = falpha_index(ring.decayed_counts(state, gamma),
+                                  ring.combined_n(state, gamma),
+                                  table_mask=table_mask)
+        else:
+            n = state.n
+            falpha = falpha_index(state.counts, state.n,
+                                  table_mask=table_mask)
+        return ChunkSummary(
+            n=n, falpha=falpha,
+            degraded=torch.full((), table_mask is not None, dtype=torch.bool,
+                                device=margins.device),
+            **self._topk(keeps, margins))
+
+    def _fleet_summary(self, state, keeps: torch.Tensor,
+                       margins: torch.Tensor, tenant_ids: torch.Tensor,
+                       table_mask, tenant_mask) -> FleetChunkSummary:
+        nt = self.filt.num_tenants
+        tids = tenant_ids.reshape(-1)
+        dev = margins.device
+        misrouted = torch.zeros((), dtype=torch.int32, device=dev) \
+            if tenant_mask is None else torch.sum(
+                tenant_mask[tids.long()] <= 0, dtype=torch.int32)
+        return FleetChunkSummary(
+            per_tenant_items=per_tenant_counts(tids, torch.ones_like(tids),
+                                               nt),
+            per_tenant_kept=per_tenant_counts(tids, keeps.reshape(-1), nt),
+            n=state.n, misrouted=misrouted,
             degraded=torch.full((), table_mask is not None, dtype=torch.bool,
                                 device=dev),
             falpha=falpha_index(state.counts, state.n,
                                 table_mask=table_mask),
-            topk_valid=torch.isfinite(topk_margin) & (topk_margin < 0.0))
+            **self._topk(keeps, margins))
 
-    def fetch(self, summary: ChunkSummary) -> ChunkSummary:
+    def fetch(self, summary):
         """The summary on the host as numpy arrays, in ONE transfer: its
         fields are packed into one byte tensor on the device."""
-        fields = [getattr(summary, f) for f in _PACKED]
+        names = [f for f in summary._fields
+                 if getattr(summary, f) is not None]
+        fields = [getattr(summary, f) for f in names]
         packed = torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
                             for t in fields])
         buf = _to_host(packed)
         out, off = {}, 0
-        for name, t in zip(_PACKED, fields):
+        for name, t in zip(names, fields):
             dtype = np.dtype(str(t.dtype).removeprefix("torch."))
             nbytes = t.numel() * dtype.itemsize
             out[name] = buf[off: off + nbytes].view(dtype) \
                 .reshape(tuple(t.shape)).copy()
             off += nbytes
-        return ChunkSummary(**out)
+        return type(summary)(**out)
 
     def run(self, state, w: torch.Tensor, batches: Iterable[np.ndarray],
             tenant_ids=None):
-        """Host driver: chunk an iterator of (B, d) feature batches and
-        consume each chunk with one stacked copy to the device and one
-        summary copy back.  Returns (final state, [host ChunkSummary per
-        chunk]).  A trailing partial chunk (fewer than T batches) is
+        """Host driver: chunk an iterator of (B, d) feature batches (and,
+        for a fleet, an iterable of (B,) tenant ids beside them, each
+        checked here to lie in [0, T)) and consume each chunk with one
+        copy to the device and one summary copy back.  Returns (final
+        state, [host summary per chunk]).  A trailing partial chunk is
         dropped, as in the reference."""
-        if tenant_ids is not None:
-            not_ported("fleet stream ingest (tenant_ids)", 6)
+        if self.is_fleet and tenant_ids is None:
+            raise ValueError("fleet filters need tenant_ids batches")
+        if not self.is_fleet and tenant_ids is not None:
+            raise ValueError("tenant_ids given but the filter is not a "
+                             "fleet (num_tenants attribute missing)")
         summaries = []
         buf: list[np.ndarray] = []
+        tbuf: list[np.ndarray] = []
+        tit = iter(tenant_ids) if tenant_ids is not None else None
         for b in batches:
-            buf.append(np.asarray(b, np.float32))
+            b = np.asarray(b, np.float32)
+            buf.append(b)
+            if tit is not None:
+                tbuf.append(check_tenant_ids(next(tit), self.filt.num_tenants,
+                                             b.shape[:1]))
             if len(buf) < self.chunk_T:
                 continue
-            feats = _to_device(np.stack(buf), self.filt.device)
+            if self.is_fleet:
+                feats, tids = self._upload_fleet(buf, tbuf)
+                tbuf.clear()
+                out = self.consume(state, w, feats, tids)
+            else:
+                out = self.consume(state, w, _to_device(np.stack(buf),
+                                                        self.filt.device))
             buf.clear()
-            state, summary = self.consume(state, w, feats)[:2]
-            summaries.append(self.fetch(summary))
+            state = out[0]
+            summaries.append(self.fetch(out[1]))
         return state, summaries
+
+    def _upload_fleet(self, buf: list[np.ndarray], tbuf: list[np.ndarray]):
+        """A fleet chunk's features and tenant ids in ONE host-to-device
+        copy: one float32 buffer holding the (T, B, d) features then the
+        (T, B) int32 ids' bits, split on the device into two contiguous
+        views."""
+        T = len(buf)
+        B, d = buf[0].shape
+        n = T * B * d
+        host = np.empty(n + T * B, np.float32)
+        feats = host[:n].reshape(T, B, d)
+        for t, b in enumerate(buf):
+            feats[t] = b
+        host[n:].view(np.int32).reshape(T, B)[:] = np.stack(tbuf)
+        dev = _to_device(host, self.filt.device)
+        return (dev[:n].view(T, B, d),
+                dev[n:].view(torch.int32).view(T, B))
 
 
 def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -12,7 +12,10 @@ installed.
 Tolerances, as in ``chip_smoke.py``: bucket ids agree >= 0.999 with TF32
 off for the plain hash (the kernels use none); everything downstream of
 one set of bucket ids (counts, gathers, pre-insert scores, admit masks)
-bitwise; Welford mean/M2 rtol 1e-5.  SRHT ids bitwise, against the plain
+bitwise; Welford mean/M2 rtol 1e-5.  The window combine, the fleet score
+and the windowed-fleet admission sum in table order with no FMA, as their
+plain versions do, so they are bitwise too (the admission's tail sums
+included, at fractional tail values).  SRHT ids bitwise, against the plain
 version on the card and on the CPU; fused scores bitwise wherever the
 ids agree, the weighted form too (both sum in table order, no FMA).
 """
@@ -26,13 +29,18 @@ from repro_torch.core.estimators import AceEstimator  # noqa: E402
 from repro_torch.core.srp import SrpConfig, make_projections  # noqa: E402
 from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
 from repro_torch.data.pipeline import AceDataFilter  # noqa: E402
+from repro_torch.fleet.filter import FleetDataFilter  # noqa: E402
+from repro_torch.kernels import ace_fleet_score as FS  # noqa: E402
+from repro_torch.kernels import ace_fleet_window_admit as FWA  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_window_combine as WC  # noqa: E402
 from repro_torch.kernels import ace_score_fused as F  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
 from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import srp_hash as H  # noqa: E402
 from repro_torch.serve.engine import Guardrail, GuardrailConfig  # noqa: E402
 from repro_torch.stream.runner import StreamRunner  # noqa: E402
+from repro_torch.window.filter import WindowedAceFilter  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 
@@ -402,3 +410,289 @@ def test_estimator_srht_kernels_match_plain_path(cuda):
     assert SH.KERNEL.launches == before + 4
     assert torch.equal(ek.state.counts, ep.state.counts)
     assert torch.equal(ek.score(x[:50]), ep.score(x[:50]))
+
+
+# ---------------------------------------------------------------------------
+# Windows and fleets: the per-item base row, the three kernels of the slice,
+# and the windowed and fleet entry points.
+# ---------------------------------------------------------------------------
+
+def _base_rows(R, L, B, device, seed=4):
+    g = torch.Generator().manual_seed(seed)
+    return torch.randint(0, R - L + 1, (B,), generator=g,
+                         dtype=torch.int32).to(device)
+
+
+@pytest.mark.parametrize("masked", ["none", "half", "all"])
+@pytest.mark.parametrize("R,K,L,B,repeat", [(40, 6, 8, 1, 1),
+                                            (120, 10, 12, 301, 3),
+                                            (65535, 15, 50, 257, 2)])
+def test_row_base_update_and_query_match_plain(cuda, R, K, L, B, repeat,
+                                               masked):
+    """B = 1, B off the block size, colliding rows, every row masked, and
+    a (65535, 2^15) table (2^31 − 2^15 counters: 64-bit offsets)."""
+    counts = torch.zeros((R, 1 << K), dtype=torch.int32, device=cuda)
+    counts[: min(R, 64)] = _counts(min(R, 64), K, cuda)
+    ids = _ids(B, K, L, cuda, repeat=repeat)
+    base = _base_rows(R, L, B, cuda).repeat(repeat)
+    if R > 1000:
+        base[:B // 2] = R - L            # the last rows of the table
+    mask = {"none": None,
+            "half": torch.arange(B * repeat, device=cuda) % 2 == 0,
+            "all": torch.zeros(B * repeat, dtype=torch.bool, device=cuda)
+            }[masked]
+    before = (U.KERNEL.launches, Q.KERNEL.launches)
+    got = U.ace_update(counts.clone(), ids, row_mask=mask, row_base=base)
+    want = U.ace_update_plain(counts.clone(), ids, mask, base)
+    assert torch.equal(got, want)
+    if masked == "all":
+        assert torch.equal(got, counts)
+    assert torch.equal(Q.ace_query(got, ids, row_base=base),
+                       Q.ace_query_plain(got, ids, base))
+    assert (U.KERNEL.launches, Q.KERNEL.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    del counts, got, want
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("E,L,K,B,repeat", [(1, 5, 4, 1, 1),
+                                            (4, 50, 15, 300, 1),
+                                            (3, 7, 3, 64, 8),
+                                            (2, 33, 25, 5, 1)])
+def test_ace_window_combine_matches_plain(cuda, E, L, K, B, repeat,
+                                          weighted):
+    """E = 1, B = 1 and off the block size, colliding rows, and a ring of
+    2·33·2^25 > 2^31 counters (64-bit offsets): bitwise."""
+    g = torch.Generator(cuda).manual_seed(E + L)
+    counts = torch.randint(0, 1 << 20, (E, L, 1 << K), dtype=torch.int32,
+                           device=cuda, generator=g)
+    ids = _ids(B, K, L, cuda, repeat=repeat)
+    w = 0.9 ** torch.arange(E, dtype=torch.float32, device=cuda)
+    tw = None
+    if weighted:
+        m = torch.ones(L, device=cuda)
+        m[0] = 0.0
+        tw = m / m.sum()
+    before = WC.KERNEL.launches
+    got = WC.ace_window_combine(counts, ids, w, tw)
+    assert WC.KERNEL.launches == before + 1
+    assert torch.equal(got, WC.ace_window_combine_plain(counts, ids, w, tw))
+    if repeat > 1:
+        s = got.view(repeat, B)
+        assert torch.equal(s, s[:1].expand_as(s))
+    del counts
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("T,B,d,K,L", [(3, 1, 9, 4, 3), (8, 257, 4097, 15, 50),
+                                       (1310, 64, 36, 15, 50)])
+def test_ace_fleet_score_matches_plain(cuda, T, B, d, K, L):
+    """B = 1 and off the block size, the guardrail's width, and a fleet of
+    1310 × 50 × 2^15 counters (the int32 offset cap: 64-bit offsets)."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=5)
+    w = make_projections(cfg, device=cuda)
+    q = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
+        .to(cuda)
+    counts = torch.randint(0, 1 << 20, (T, L, 1 << K), dtype=torch.int32,
+                           device=cuda,
+                           generator=torch.Generator(cuda).manual_seed(T))
+    tids = torch.randint(0, T, (B,), generator=torch.Generator()
+                         .manual_seed(B), dtype=torch.int32).to(cuda)
+    tids[0] = T - 1
+    before = FS.KERNEL.launches
+    got = FS.ace_fleet_score(counts, q, tids, w, cfg)
+    assert FS.KERNEL.launches == before + 1
+    ids = H.srp_hash(q, w, cfg)
+    plain_ids = H.srp_hash_plain(q, w, cfg)
+    assert _agreement(ids, plain_ids) >= HASH_AGREEMENT
+    rows = tids.long()[:, None] * L + torch.arange(L, device=cuda)[None, :]
+    gth = counts.view(T * L, -1)[rows, ids.long()].float()
+    ref = torch.zeros(B, device=cuda)
+    for j in range(L):
+        ref = ref + gth[:, j]
+    assert torch.equal(got, ref * torch.tensor(1.0 / L))
+    same = (ids == plain_ids).all(dim=1)
+    plain = FS.ace_fleet_score_plain(counts, q, tids, w, cfg)
+    assert torch.equal(got[same], plain[same])
+    del counts
+    torch.cuda.empty_cache()
+
+
+def _fwa_from_ids(ring, tail, cursor, tids, ids, thr, mask):
+    """The windowed-fleet admission downstream of a given set of ids, in
+    table order (what the kernel must produce from its own ids)."""
+    T, E, L, nb = ring.shape
+    t = tids.long()
+    iota = torch.arange(L, device=ring.device)[None, :]
+    tg = tail.view(T * L, nb)[t[:, None] * L + iota, ids.long()]
+    rows = (t * E + cursor.long()[t])[:, None] * L + iota
+    lg = ring.view(-1, nb)[rows, ids.long()].float()
+    ts = torch.zeros(len(t), device=ring.device)
+    ls = torch.zeros_like(ts)
+    for j in range(L):
+        ts, ls = ts + tg[:, j], ls + lg[:, j]
+    s = (ts + ls) * torch.tensor(1.0 / L)
+    a = s >= thr[t]
+    if mask is not None:
+        a &= mask
+    r = ring.clone()
+    r.view(-1, nb).index_put_((rows, ids.long()),
+                              a.int()[:, None].expand(ids.shape),
+                              accumulate=True)
+    return r, s, a, ts, ls
+
+
+@pytest.mark.parametrize("thresh", ["spread", "-inf", "+inf"])
+@pytest.mark.parametrize("masked", ["none", "some", "all"])
+@pytest.mark.parametrize("T,E,B,d,K,L,repeat", [(3, 1, 1, 9, 4, 3, 1),
+                                                (8, 4, 32, 4097, 15, 50, 8),
+                                                (5, 3, 301, 64, 10, 20, 1),
+                                                (327, 4, 64, 36, 15, 50, 2)])
+def test_ace_fleet_window_admit_matches_plain(cuda, T, E, B, d, K, L,
+                                              repeat, masked, thresh):
+    """E = 1, B = 1 and off the block size, 8 copies of each row sent to
+    one tenant (every copy must score pre-insert), every row masked, and
+    a ring of 327·4·50·2^15 counters (64-bit offsets)."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=2)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator().manual_seed(T + B)
+    q = torch.randn((B, d), generator=gen).repeat(repeat, 1).to(cuda)
+    n = B * repeat
+    gc = torch.Generator(cuda).manual_seed(E)
+    ring = torch.randint(0, 9, (T, E, L, 1 << K), dtype=torch.int32,
+                         device=cuda, generator=gc)
+    tail = torch.randint(0, 20, (T, L, 1 << K), device=cuda,
+                         generator=gc).float() * 0.37
+    cursor = torch.randint(0, E, (T,), generator=gen,
+                           dtype=torch.int32).to(cuda)
+    tids = torch.randint(0, T, (B,), generator=gen,
+                         dtype=torch.int32).repeat(repeat).to(cuda)
+    thr = {"spread": torch.linspace(2.0, 12.0, T),
+           "-inf": torch.full((T,), float("-inf")),
+           "+inf": torch.full((T,), float("inf"))}[thresh].to(cuda)
+    mask = {"none": None,
+            "some": (torch.rand((n,), generator=gen) < 0.7).to(cuda),
+            "all": torch.zeros(n, dtype=torch.bool, device=cuda)}[masked]
+    before = FWA.KERNEL.launches
+    r = ring.clone()
+    got = FWA.ace_fleet_window_admit_fused(r, tail, cursor, q, tids, w, thr,
+                                           cfg, item_mask=mask)
+    assert FWA.KERNEL.launches == before + 1
+    assert got[0] is r, "the ring is updated in place"
+    plain = FWA.ace_fleet_window_admit_fused_plain(
+        ring.clone(), tail, cursor, q, tids, w, thr, cfg, item_mask=mask)
+    assert _agreement(got[3], plain[3]) >= HASH_AGREEMENT
+    ref_r, ref_s, ref_a, ref_t, ref_l = _fwa_from_ids(
+        ring, tail, cursor, tids, got[3], thr, mask)
+    assert torch.equal(got[1], ref_s) and torch.equal(got[2], ref_a)
+    assert torch.equal(got[4], ref_t) and torch.equal(got[5], ref_l)
+    assert torch.equal(r, ref_r)
+    if masked == "all" or thresh == "+inf":
+        assert torch.equal(r, ring) and not bool(got[2].any())
+    if repeat > 1:
+        s = got[1].view(repeat, B)
+        assert torch.equal(s, s[:1].expand_as(s)), "copies score alike"
+    if torch.equal(got[3], plain[3]):
+        for a, b in zip(got, plain):
+            assert torch.equal(a, b)
+    del ring, tail, r, plain
+    torch.cuda.empty_cache()
+
+
+def test_new_kernels_launch_nothing_on_empty_batches(cuda):
+    cfg = SrpConfig(dim=8, num_bits=5, num_tables=3)
+    w = make_projections(cfg, device=cuda)
+    ring = torch.zeros((2, 2, 3, 32), dtype=torch.int32, device=cuda)
+    none = torch.zeros((0,), dtype=torch.int32, device=cuda)
+    ids = torch.zeros((0, 3), dtype=torch.int32, device=cuda)
+    q = torch.zeros((0, 8), device=cuda)
+    before = [m.KERNEL.launches for m in (WC, FS, FWA)]
+    assert WC.ace_window_combine(ring[0], ids, torch.ones(2, device=cuda)) \
+        .shape == (0,)
+    assert FS.ace_fleet_score(ring[0], q, none, w, cfg).shape == (0,)
+    out = FWA.ace_fleet_window_admit_fused(
+        ring, ring[:, 0].float(), torch.zeros(2, dtype=torch.int32,
+                                              device=cuda), q, none, w,
+        torch.zeros(2, device=cuda), cfg)
+    assert out[1].shape == (0,)
+    assert [m.KERNEL.launches for m in (WC, FS, FWA)] == before
+
+
+def _guard_pair(cuda, **kw):
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, alpha=2.0, **kw)
+    gk = Guardrail(gcfg, use_kernels=True, device=cuda)
+    return gk, Guardrail(gcfg, use_kernels=False, device=cuda, w=gk.w)
+
+
+@pytest.mark.parametrize("kw,kernels", [
+    (dict(window_epochs=3, rotate_every=2, window_decay=0.9),
+     ("srp_hash", "ace_query", "ace_update")),
+    (dict(num_tenants=4), ("srp_hash", "ace_query", "ace_update")),
+    (dict(num_tenants=4, window_epochs=3, rotate_every=2, window_decay=0.9),
+     ("ace_fleet_window_admit", "ace_query"))])
+def test_window_and_fleet_guardrails_match_plain_path(cuda, kw, kernels):
+    """The three new guardrail flavours through the kernels against their
+    plain paths on the card, same W: masks differ in under 1% (hash flips
+    at |proj| ~ 0); with none differing, counts and ticks bitwise."""
+    mods = {"srp_hash": H, "ace_query": Q, "ace_update": U,
+            "ace_fleet_window_admit": FWA}
+    gk, gp = _guard_pair(cuda, **kw)
+    before = {k: mods[k].KERNEL.launches for k in kernels}
+    rng = np.random.default_rng(3)
+    mismatch = total = 0
+    for e in _guardrail_batches(8, 96):
+        t = rng.integers(0, 4, len(e)) if "num_tenants" in kw else None
+        mk, mp = gk.admit(e, t), gp.admit(e, t)
+        mismatch += int((mk != mp).sum())
+        total += mk.size
+    for k in kernels:
+        assert mods[k].KERNEL.launches >= before[k] + 8, k
+    assert mismatch / total < 0.01
+    assert gk.quarantined == gp.quarantined == 8
+    if mismatch == 0:
+        assert torch.equal(gk.state.counts, gp.state.counts)
+        assert torch.equal(gk.state.n, gp.state.n)
+        if "window_epochs" in kw:
+            assert torch.equal(gk.state.cursor, gp.state.cursor)
+            assert torch.equal(gk.state.tick, gp.state.tick)
+
+
+@pytest.mark.parametrize("fleet", [False, True])
+def test_window_and_fleet_consume_have_no_host_sync(cuda, fleet):
+    """``StreamRunner.consume`` of a windowed filter rotating inside the
+    chunk, and of a fleet filter, under sync-debug "error"; the chunk
+    then equals the sequential steps bitwise."""
+    kw = dict(d_model=96, num_bits=10, num_tables=20, warmup_items=200.0,
+              device=cuda)
+    filt = FleetDataFilter(**kw, num_tenants=4) if fleet \
+        else WindowedAceFilter(**kw, rotate_every=2, decay=0.9)
+    runner = StreamRunner(filt, 4)
+    s, w = filt.init()
+    seq = filt.init()[0]
+    rng = np.random.default_rng(0)
+    for c in range(3):
+        f = rng.normal(size=(4, 64, 97)).astype(np.float32)
+        f[:, 0, 0] = np.nan
+        chunk = torch.as_tensor(f, device=cuda)
+        tids = torch.as_tensor(rng.integers(0, 4, (4, 64)), dtype=torch.int32,
+                               device=cuda) if fleet else None
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            s, summary = runner.consume(s, w, chunk, tids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        for t in range(4):
+            if fleet:
+                seq, _, _ = filt.step(seq, w, chunk[t], tids[t])
+            else:
+                seq, _, _ = filt.step(seq, w, chunk[t])
+                from repro_torch.window import ring
+                seq = ring.maybe_rotate(seq, 2, 0.9)
+    host = runner.fetch(summary)
+    assert int(host.quarantined) == 4
+    for a, b in zip(s, seq):
+        if b is not None:
+            assert torch.equal(a, b)

@@ -10,9 +10,9 @@ Tolerances:
 * everything downstream of one set of bucket ids — counts, gathers,
   pre-insert scores, admit masks — bitwise (every count sum here stays far
   below 2^24, so float sums of counts are exact in any order);
-* weighted (table-masked) scores: rtol 1e-6, the reference's tolerance
-  for its own fused kernels — its sum runs in XLA's order, the port's in
-  table order.
+* weighted (table-masked) scores, and sums of non-integer tail values:
+  rtol 1e-6, the reference's tolerance for its own fused kernels — its
+  sum runs in XLA's order, the port's in table order.
 
 ``srht_hash`` has its own file, tests/test_torch_srht.py.
 
@@ -36,7 +36,10 @@ from repro.kernels.ace_admit_fused import \
 from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.core.srp import SrpConfig  # noqa: E402
 from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
+from repro_torch.kernels import ace_fleet_score as FS  # noqa: E402
+from repro_torch.kernels import ace_fleet_window_admit as FWA  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
+from repro_torch.kernels import ace_window_combine as WC  # noqa: E402
 from repro_torch.kernels import ace_score_fused as F  # noqa: E402
 from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
@@ -377,6 +380,274 @@ class TestAceAdmitFused:
             np.testing.assert_array_equal(c.numpy(), np.asarray(jc))
 
 
+def _stacked(R, K, L, B, seed, repeat=1):
+    """A stacked (R, 2^K) table, (B, L) ids and (B,) base rows that keep
+    every row inside it; ``repeat`` > 1 repeats the (ids, base) pairs so
+    inserts collide."""
+    rng = np.random.default_rng(seed)
+    counts = rng.integers(0, 50, size=(R, 1 << K)).astype(np.int32)
+    ids = _ids(B, K, L, seed + 1, repeat)
+    base = rng.integers(0, R - L + 1, size=B).astype(np.int32)
+    return counts, ids, np.concatenate([base] * repeat)
+
+
+class TestRowBase:
+    """The per-item base row of ``ace_update``/``ace_query``: item b's
+    table j is row row_base[b] + j of a stacked table (a window ring, a
+    fleet, a windowed fleet)."""
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("R,K,L,B,repeat", [(24, 6, 4, 9, 3),
+                                                (6, 5, 6, 1, 1),
+                                                (100, 8, 10, 33, 2)])
+    def test_update_matches_reference_scatter(self, R, K, L, B, repeat,
+                                              masked):
+        """The reference's stacked scatter (``fleet.window``'s
+        ``.at[rows, buckets].add``), colliding rows included."""
+        counts, ids, base = _stacked(R, K, L, B, R + K, repeat)
+        mask = np.random.default_rng(2).random(len(ids)) < 0.6 \
+            if masked else np.ones(len(ids), bool)
+        rows = base[:, None] + np.arange(L)[None, :]
+        want = jnp.asarray(counts).at[jnp.asarray(rows), jnp.asarray(ids)] \
+            .add(jnp.broadcast_to(jnp.asarray(mask, jnp.int32)[:, None],
+                                  ids.shape))
+        c = _t(counts.copy())
+        got = U.ace_update(c, _t(ids), row_mask=_t(mask) if masked else None,
+                           row_base=_t(base))
+        assert got is c
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+    @pytest.mark.parametrize("R,K,L,B", [(24, 6, 4, 9), (6, 5, 6, 1),
+                                         (100, 8, 10, 33)])
+    def test_query_matches_reference_gather(self, R, K, L, B):
+        counts, ids, base = _stacked(R, K, L, B, R)
+        rows = base[:, None] + np.arange(L)[None, :]
+        want = np.asarray(jnp.asarray(counts)[jnp.asarray(rows),
+                                              jnp.asarray(ids)]
+                          .astype(jnp.float32))
+        got = Q.ace_query(_t(counts), _t(ids), row_base=_t(base))
+        np.testing.assert_array_equal(got.numpy(), want)
+
+    def test_contract(self):
+        counts, ids, base = _stacked(12, 4, 3, 5, 0)
+        with pytest.raises(ValueError, match="counts"):
+            Q.ace_query(_t(counts), _t(ids))        # R != L needs row_base
+        with pytest.raises(TypeError, match="row_base"):
+            U.ace_update(_t(counts), _t(ids), row_base=_t(base).long())
+        with pytest.raises(ValueError, match="row_base"):
+            Q.ace_query(_t(counts), _t(ids), row_base=_t(base[:2]))
+
+
+class TestAceWindowCombine:
+    @pytest.mark.parametrize("weighted", [False, True])
+    @pytest.mark.parametrize("E,L,K,B,repeat", [(4, 8, 6, 16, 1),
+                                                (1, 5, 4, 7, 1),
+                                                (3, 50, 10, 9, 3),
+                                                (2, 3, 3, 1, 1)])
+    def test_matches_pallas_kernel_in_interpret_mode(self, E, L, K, B,
+                                                     repeat, weighted):
+        """The Pallas kernel (interpret mode) on the same ring, ids and
+        γ^age weights, E = 1 and colliding rows included: rtol 1e-6, the
+        reference's own tolerance for this kernel against its oracle
+        (XLA may contract the weighted add into an FMA inside the
+        kernel); unweighted, bitwise against the oracle
+        ``ref.ace_window_combine_ref`` (integer sums, the same weighted
+        ring-order adds)."""
+        from repro.kernels.ace_window_combine import \
+            ace_window_combine as jwc
+        rng = np.random.default_rng(E * 10 + L)
+        counts = rng.integers(0, 999, size=(E, L, 1 << K)).astype(np.int32)
+        ids = _ids(B, K, L, 3, repeat)
+        weights = (0.8 ** rng.permutation(E)).astype(np.float32)
+        tw = None
+        if weighted:
+            m = np.ones(L, np.float32)
+            m[[0, L // 2]] = 0.0
+            tw = (m / max(m.sum(), 1.0)).astype(np.float32)
+        want = np.asarray(jwc(jnp.asarray(counts), jnp.asarray(ids),
+                              jnp.asarray(weights), interpret=True,
+                              table_weights=None if tw is None
+                              else jnp.asarray(tw)))
+        got = WC.ace_window_combine(_t(counts), _t(ids), _t(weights),
+                                    None if tw is None else _t(tw))
+        assert got.dtype == torch.float32 and tuple(got.shape) == (len(ids),)
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
+        if not weighted:
+            np.testing.assert_array_equal(got.numpy(), np.asarray(
+                R.ace_window_combine_ref(jnp.asarray(counts),
+                                         jnp.asarray(ids),
+                                         jnp.asarray(weights))))
+        if repeat > 1:
+            s = got.numpy().reshape(repeat, -1)
+            assert (s == s[:1]).all()
+
+    def test_sums_in_table_then_ring_order(self):
+        """Above 2^24 the order matters: table order within an epoch,
+        weighted, then ring-index order across epochs."""
+        counts = np.zeros((2, 3, 16), np.int32)
+        counts[0, 0], counts[0, 1:] = 1 << 24, 1
+        counts[1] = 3
+        ids = np.zeros((4, 3), np.int32)
+        w = np.array([1.0, 0.5], np.float32)
+        got = WC.ace_window_combine(_t(counts), _t(ids), _t(w))
+        s0 = np.float32(1 << 24)
+        for _ in range(2):
+            s0 = np.float32(s0 + np.float32(1))
+        acc = np.float32(np.float32(0) + w[0] * s0)
+        acc = np.float32(acc + w[1] * np.float32(9))
+        np.testing.assert_array_equal(
+            got.numpy(), np.full(4, acc * np.float32(1.0 / 3), np.float32))
+
+    def test_empty_batch(self):
+        got = WC.ace_window_combine(torch.zeros((2, 3, 8), dtype=torch.int32),
+                                    torch.zeros((0, 3), dtype=torch.int32),
+                                    torch.ones(2))
+        assert tuple(got.shape) == (0,)
+
+
+def _fleet_inputs(T, B, d, K, L, seed=0, repeat=1):
+    jcfg, cfg, w, x, _ = _inputs(B, d, K, L, seed=seed, repeat=repeat)
+    rng = np.random.default_rng(seed + 7)
+    counts = rng.integers(0, 9, size=(T, L, 1 << K)).astype(np.int32)
+    tids = rng.integers(0, T, size=B).astype(np.int32)
+    return jcfg, cfg, w, x, counts, np.concatenate([tids] * repeat)
+
+
+class TestAceFleetScore:
+    @pytest.mark.parametrize("T,B,d,K,L", [(3, 16, 32, 8, 10),
+                                           (1, 7, 9, 4, 3),
+                                           (5, 33, 36, 15, 50)])
+    def test_matches_pallas_kernel_in_interpret_mode(self, T, B, d, K, L):
+        """The Pallas kernel (interpret mode) on JAX's W: ids agree >=
+        0.999, scores bitwise where they do; bitwise against the routed
+        gather of the port's own ids everywhere."""
+        from repro.kernels.ace_fleet_score import ace_fleet_score as jfs
+        jcfg, cfg, w, x, counts, tids = _fleet_inputs(T, B, d, K, L)
+        want = np.asarray(jfs(jnp.asarray(counts), jnp.asarray(x),
+                              jnp.asarray(tids), jnp.asarray(w), jcfg,
+                              interpret=True))
+        pw = params_from_numpy(w, CPU)
+        got = FS.ace_fleet_score(_t(counts), _t(x), _t(tids), pw, cfg)
+        ids = H.srp_hash(_t(x), pw, cfg).numpy()
+        jids = np.asarray(R.srp_hash_ref(jnp.asarray(x), jnp.asarray(w),
+                                         jcfg))
+        assert (ids == jids).mean() >= HASH_AGREEMENT
+        same = (ids == jids).all(axis=1)
+        np.testing.assert_array_equal(got.numpy()[same], want[same])
+        from repro.fleet.state import fleet_scores
+        from repro.fleet.state import init as jinit
+        from repro.fleet.state import FleetConfig
+        from repro.core.sketch import AceConfig as JAceConfig
+        js = jinit(FleetConfig(ace=JAceConfig(dim=d, num_bits=K,
+                                              num_tables=L), num_tenants=T))
+        js = js._replace(counts=jnp.asarray(counts))
+        np.testing.assert_array_equal(got.numpy(), np.asarray(fleet_scores(
+            js, jnp.asarray(tids), jnp.asarray(ids))))
+
+    def test_fleet_of_one_is_the_fused_score(self):
+        _, cfg, w, x, counts, _ = _fleet_inputs(1, 12, 20, 6, 7)
+        pw = params_from_numpy(w, CPU)
+        assert torch.equal(
+            FS.ace_fleet_score(_t(counts), _t(x),
+                               torch.zeros(12, dtype=torch.int32), pw, cfg),
+            F.ace_score_fused(_t(counts[0]), _t(x), pw, cfg))
+
+
+class TestAceFleetWindowAdmit:
+    def _case(self, T, E, B, d, K, L, repeat, thresh, integral, seed=0):
+        jcfg, cfg, w, x, _ = _inputs(B, d, K, L, seed=seed, repeat=repeat)
+        rng = np.random.default_rng(seed + 11)
+        ring = rng.integers(0, 9, size=(T, E, L, 1 << K)).astype(np.int32)
+        tail = rng.integers(0, 20, size=(T, L, 1 << K)).astype(np.float32)
+        if not integral:
+            tail = tail * np.float32(0.37)
+        cursor = rng.integers(0, E, size=T).astype(np.int32)
+        tids = np.concatenate([rng.integers(0, T, size=B)] * repeat) \
+            .astype(np.int32)
+        thr = {"-inf": np.full(T, -np.inf), "+inf": np.full(T, np.inf),
+               "spread": np.linspace(2.0, 12.0, T)}[thresh].astype(np.float32)
+        return jcfg, cfg, w, x, ring, tail, cursor, tids, thr
+
+    @pytest.mark.parametrize("masked", [False, True])
+    @pytest.mark.parametrize("thresh", ["spread", "-inf", "+inf"])
+    @pytest.mark.parametrize("T,E,B,d,K,L,repeat", [(3, 4, 16, 32, 6, 8, 1),
+                                                    (2, 1, 6, 9, 3, 4, 3),
+                                                    (4, 2, 8, 36, 15, 50, 2)])
+    def test_matches_pallas_kernel_in_interpret_mode(self, T, E, B, d, K, L,
+                                                     repeat, thresh, masked):
+        """The fused Pallas kernel (interpret mode) on the same ring,
+        tails, cursors, thresholds and W, with colliding copies of rows
+        sent to one tenant: every output bitwise where the ids agree
+        (integer-valued tails), and every copy scores alike (all scores
+        are pre-insert)."""
+        from repro.kernels.ace_fleet_window_admit import \
+            ace_fleet_window_admit_fused as jfwa
+        jcfg, cfg, w, x, ring, tail, cursor, tids, thr = self._case(
+            T, E, B, d, K, L, repeat, thresh, integral=True)
+        mask = np.random.default_rng(5).random(len(x)) < 0.7 if masked \
+            else None
+        want = jfwa(jnp.asarray(ring), jnp.asarray(tail),
+                    jnp.asarray(cursor), jnp.asarray(x), jnp.asarray(tids),
+                    jnp.asarray(w), jnp.asarray(thr), jcfg, interpret=True,
+                    item_mask=None if mask is None else jnp.asarray(mask))
+        r = _t(ring.copy())
+        got = FWA.ace_fleet_window_admit_fused(
+            r, _t(tail), _t(cursor), _t(x), _t(tids),
+            params_from_numpy(w, CPU), _t(thr), cfg,
+            item_mask=None if mask is None else _t(mask))
+        assert got[0] is r, "the ring is updated in place"
+        assert (got[3].numpy() == np.asarray(want[3])).mean() \
+            >= HASH_AGREEMENT
+        if (got[3].numpy() == np.asarray(want[3])).all():
+            for i, (a, b) in enumerate(zip(got, want)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                              err_msg=str(i))
+        if repeat > 1:
+            s = got[1].numpy().reshape(repeat, -1)
+            assert (s == s[:1]).all(), "copies score alike: pre-insert"
+        if thresh == "+inf":
+            np.testing.assert_array_equal(r.numpy(), ring)
+
+    def test_downstream_of_its_own_ids_with_fractional_tails(self):
+        """γ < 1 tails: the tail sums are table-order float sums (rtol
+        1e-6 against XLA's); everything after them is exact."""
+        from repro.fleet import window as jfw_
+        jcfg, cfg, w, x, ring, tail, cursor, tids, thr = self._case(
+            3, 3, 12, 20, 6, 8, 2, "spread", integral=False)
+        r = _t(ring.copy())
+        _, s, a, b, ts, lp = FWA.ace_fleet_window_admit_fused(
+            r, _t(tail), _t(cursor), _t(x), _t(tids),
+            params_from_numpy(w, CPU), _t(thr), cfg)
+        from repro.core.sketch import AceConfig as JAceConfig
+        from repro.window.ring import WindowConfig as JWC
+        js = jfw_.init_fleet_window(JWC(ace=JAceConfig(dim=20, num_bits=6,
+                                                       num_tables=8),
+                                        num_epochs=3), 3)
+        js = js._replace(counts=jnp.asarray(ring), tail=jnp.asarray(tail),
+                         cursor=jnp.asarray(cursor))
+        jt, jl = jfw_.window_table_sums_fleet(js, jnp.asarray(tids),
+                                              jnp.asarray(b.numpy()))
+        np.testing.assert_allclose(ts.numpy(), np.asarray(jt), rtol=1e-6)
+        np.testing.assert_array_equal(lp.numpy(), np.asarray(jl))
+        want_s = (ts + lp) * torch.tensor(1.0 / 8, dtype=torch.float32)
+        assert torch.equal(s, want_s)
+        assert torch.equal(a, s >= _t(thr)[_t(tids).long()])
+        rows = (_t(tids).long() * 3 + _t(cursor).long()[_t(tids).long()]) \
+            [:, None] * 8 + torch.arange(8)[None, :]
+        want_r = _t(ring.copy()).view(-1, 64).index_put_(
+            (rows, b.long()), a.int()[:, None].expand(b.shape),
+            accumulate=True)
+        assert torch.equal(r.view(-1, 64), want_r)
+
+    def test_narrow_rings_are_a_later_slice(self):
+        _, cfg, w, x, ring, tail, cursor, tids, thr = self._case(
+            2, 2, 4, 8, 5, 3, 1, "spread", integral=True)
+        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            FWA.ace_fleet_window_admit_fused(
+                _t(ring.astype(np.int16)), _t(tail), _t(cursor), _t(x),
+                _t(tids), params_from_numpy(w, CPU), _t(thr), cfg)
+
+
 class TestWrapperContract:
     """What every wrapper checks before it runs anything."""
 
@@ -415,7 +686,7 @@ class TestWrapperContract:
     def test_plain_versions_count_no_launch(self):
         """The launch counters grow only where a CUDA kernel launches."""
         cfg, w, x, counts = self._args()
-        mods = (H, U, Q, A, F, SH)
+        mods = (H, U, Q, A, F, SH, WC, FS, FWA)
         before = [m.KERNEL.launches for m in mods]
         b = H.srp_hash(x, w, cfg)
         U.ace_update(counts, b)
@@ -425,6 +696,17 @@ class TestWrapperContract:
         F.ace_score_fused(counts, x, w, cfg)
         F.ace_score_fused(counts, x, w, cfg, table_weights=torch.ones(3))
         SH.srht_hash(x, cfg)
+        ring = counts[None].repeat(2, 1, 1)
+        rows = torch.zeros(4, dtype=torch.int32)
+        U.ace_update(ring.view(6, -1), b, row_base=rows)
+        Q.ace_query(ring.view(6, -1), b, row_base=rows + 3)
+        WC.ace_window_combine(ring, b, torch.ones(2))
+        tids = torch.tensor([0, 1, 1, 0], dtype=torch.int32)
+        FS.ace_fleet_score(ring, x, tids, w, cfg)
+        FWA.ace_fleet_window_admit_fused(
+            ring[:, None].contiguous(), ring.float(),
+            torch.zeros(2, dtype=torch.int32), x, tids, w, torch.zeros(2),
+            cfg)
         assert [m.KERNEL.launches for m in mods] == before
 
     def test_admit_rejects_non_scalar_threshold(self):
@@ -440,9 +722,11 @@ class TestBuild:
         assert "-shared" in cmd and cmd[-1].endswith("srp_hash.cu")
 
     def test_every_kernel_has_a_source(self):
-        assert build.sources() == ["ace_admit_fused", "ace_query",
+        assert build.sources() == ["ace_admit_fused", "ace_fleet_score",
+                                   "ace_fleet_window_admit", "ace_query",
                                    "ace_score_fused", "ace_update",
-                                   "srht_hash", "srp_hash"]
+                                   "ace_window_combine", "srht_hash",
+                                   "srp_hash"]
 
     def test_cache_key_follows_the_sources(self, tmp_path, monkeypatch):
         csrc = tmp_path / "csrc"

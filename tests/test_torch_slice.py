@@ -144,8 +144,8 @@ class TestGuardrailSlice:
 
 class TestNotPorted:
     @pytest.mark.parametrize("kw,item", [
-        (dict(window_epochs=2), 5),
-        (dict(num_tenants=2), 6),
+        (dict(window_epochs=2, rotate_every=1, count_dtype="int16"), 9),
+        (dict(num_tenants=2, threshold_mode="quantile"), 7),
         (dict(threshold_mode="quantile"), 7),
         (dict(count_dtype="int8"), 9),
         (dict(esc_capacity=4), 9)])

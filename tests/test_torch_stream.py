@@ -264,20 +264,25 @@ class TestStreamRunner:
         assert (s.counts.sum(dim=1) == int(host.n)).all()
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(mesh=object()), 13), (dict(rotate_every=2), 5)])
+        (dict(mesh=object()), 13), (dict(mesh=object(), rotate_every=2), 13)])
     def test_later_slices_raise(self, kw, item):
         pf = AceDataFilter(**FKW, device="cpu")
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             StreamRunner(pf, T, **kw)
 
     def test_fleets_and_windows_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
-            StreamRunner(types.SimpleNamespace(num_tenants=4), T)
-        with pytest.raises(NotImplementedError, match="queue 1 item 5"):
-            StreamRunner(types.SimpleNamespace(num_epochs=4), T)
+        """Windows and fleets are ported (tests/test_torch_window.py and
+        tests/test_torch_fleet.py); what still raises is what the
+        reference refuses too: a rotation clock on a fleet or on the flat
+        filter, and tenant ids for a filter that is not a fleet."""
+        with pytest.raises(NotImplementedError, match="windowed fleets"):
+            StreamRunner(types.SimpleNamespace(num_tenants=4), T,
+                         rotate_every=2)
         pf = AceDataFilter(**FKW, device="cpu")
+        with pytest.raises(ValueError, match="windowed filter"):
+            StreamRunner(pf, T, rotate_every=2)
         s, w = pf.init()
-        with pytest.raises(NotImplementedError, match="queue 1 item 6"):
+        with pytest.raises(ValueError, match="not a fleet"):
             StreamRunner(pf, T).run(s, w, _features(T), tenant_ids=[0])
 
     def test_wrong_chunk_shape_raises(self):
