@@ -7,7 +7,7 @@ main paths on one NVIDIA GPU, checking every result.
 Phases, in order (any failed check raises, and the script then exits
 non-zero without printing its result line):
 
-1. build   — compile the nine CUDA kernels (one ``nvcc`` per source, all
+1. build   — compile the ten CUDA kernels (one ``nvcc`` per source, all
              at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths: dense hash bucket ids agree
@@ -16,8 +16,11 @@ non-zero without printing its result line):
              of the kernel's own bucket ids), including a batch of
              repeated rows for both fused admissions, the weighted (two
              tables masked) forms of the fused score and the window
-             combine, and ``ace_update``/``ace_query`` at per-item base
-             rows of the windowed fleet's (T·E·L, 2^15) ring;
+             combine, ``ace_update``/``ace_query`` at per-item base
+             rows of the windowed fleet's (T·E·L, 2^15) ring, and
+             ``attr_estimate`` equal by value at R = 1, 2, 5, 8 (C = 256)
+             for the beam's B = 32 and all 4097 leaf coordinates, and on
+             an all-zero plane;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -55,14 +58,25 @@ non-zero without printing its result line):
              ``ops.ace_window_score`` (``ace_window_combine``) and
              ``ops.ace_fleet_score`` (``ace_fleet_score``) on the states
              those guardrails built;
-7. timing  — each kernel, its plain version and (where one PyTorch call
+7. attribution — three of phase 5's filters with heavy-hitter
+             attribution (``attr_rows=5``, ``attr_bits=8``, ``topk=8``) on
+             phase 5's stream whose last two chunks also move a block of
+             64 rows a step onto three planted coordinates: the
+             ``AceDataFilter`` under SRHT, the fleet of 8 (the block routed
+             to one tenant) and the windowed filter; the last chunk's
+             heavy hitters name the planted coordinates (and the fleet's
+             ``hh_tenant[0]`` the offender), the kernel path's equal the
+             plain path's, one transfer each way a chunk and no host sync
+             in ``consume``, the post-mortem batch query over all 4097
+             coordinates kernel ≡ plain, items/s beside phase 5's;
+8. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
              beside the least time the card could take (its bound); and
              both hash kernels at the corners of hash_mode="auto"
              (d = 64 and 4096), checked against the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 6 and read just after, and every kernel
+before each path of phases 3 to 7 and read just after, and every kernel
 of a path must have been launched in it.  The last lines are the card's
 ``nvidia-smi`` name and power limit, one JSON line of per-kernel numbers,
 and ``{"ok": true, "device": {...}}``.  A kernel's ``max_abs_err`` there is
@@ -103,12 +117,18 @@ SRHT_WIDTHS = (36, 4097, 12289)     # d_pad 64, 8192, 16384
 AUTO_DIMS, AUTO_B = (64, 4096), 256  # benchmarks/stream_throughput.py
 WIN_E, WIN_GAMMA, WIN_R = 4, 0.9, 4  # the windowed guardrails
 FLEET_T = 8                          # tenants of the fleets
-SHIFT_ADMITS, SHIFT_AT = 40, 16      # phase 7: the traffic shifts here
+SHIFT_ADMITS, SHIFT_AT = 40, 16      # phase 6: the traffic shifts here
 STREAM_R = 4                         # the windowed stream's rotate_every
+ATTR_KINDS = ("srht", "fleet", "window")   # phase 7's filters
+ATTR_ROWS, ATTR_BITS, ATTR_TOPK = 5, 8, 8   # the reference's defaults
+ATTR_KW = dict(attr_rows=ATTR_ROWS, attr_bits=ATTR_BITS)
+PLANTED = (700, 2049, 3501)          # the dims the attack block moves onto
+ATTACK_ROWS = 64                     # rows B/4 … B/4 + 63 of a late step
+OFFENDER = 5                         # the fleet tenant they are routed to
 
 KERNELS = ("srp_hash", "srht_hash", "ace_update", "ace_query",
            "ace_score_fused", "ace_admit_fused", "ace_window_combine",
-           "ace_fleet_score", "ace_fleet_window_admit")
+           "ace_fleet_score", "ace_fleet_window_admit", "attr_estimate")
 REPLACES = {
     "srp_hash": "src/repro/kernels/srp_hash.py:125",
     "srht_hash": "src/repro/kernels/srht_hash.py:100",
@@ -120,6 +140,7 @@ REPLACES = {
     "ace_fleet_score": "src/repro/kernels/ace_fleet_score.py:108",
     "ace_fleet_window_admit":
         "src/repro/kernels/ace_fleet_window_admit.py:250",
+    "attr_estimate": "src/repro/kernels/attr_estimate.py:60",
 }
 
 
@@ -322,7 +343,7 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
 def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
                                  admit_b=ADMIT_B) -> dict:
     """Phase 2 for the kernels of the windowed and fleet paths, at the
-    shapes of phase 7: the windowed fleet's (8, 4, 50, 2^15) ring, its
+    shapes of phase 8: the windowed fleet's (8, 4, 50, 2^15) ring, its
     fractional tail, B = 256 queries of d_model + 1."""
     from repro_torch.core.srp import SrpConfig, make_projections
     h, u, q = mods["srp_hash"], mods["ace_update"], mods["ace_query"]
@@ -423,6 +444,38 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
                   "score alike: every windowed-fleet score is pre-insert")
     err["ace_fleet_window_admit"] = worst
     return err
+
+
+def attr_operands(device, B, R, C, seed, zero=False):
+    """(plane (R, C), cols (B, R) int32, signs (B, R) ±1) on the card: a
+    plane with a share of empty cells (zeros, so ±0 values) or all zero."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    plane = torch.randn((R, C), generator=gen, device=device)
+    plane[:, : C // 8] = 0.0
+    if zero:
+        plane.zero_()
+    cols = torch.randint(0, C, (B, R), generator=gen, device=device,
+                         dtype=torch.int32)
+    signs = torch.where(torch.rand((B, R), generator=gen, device=device)
+                        < 0.5, -1.0, 1.0)
+    return plane, cols, signs
+
+
+def phase_kernels_attr(mods, device, C=1 << ATTR_BITS) -> dict:
+    """Phase 2 for ``attr_estimate``: equal by value to its plain version
+    at the beam's B = 2·W = 32 and at B = 4097 (every leaf coordinate of
+    d_model + 1), odd and even R, and on an all-zero plane."""
+    ae = mods["attr_estimate"]
+    worst = 0.0
+    cases = [(B, R, False) for R in (1, 2, 5, 8) for B in (32, D_MODEL + 1)]
+    cases.append((D_MODEL + 1, ATTR_ROWS, True))
+    for i, (B, R, zero) in enumerate(cases):
+        ops_ = attr_operands(device, B, R, C, SEED + 20 + i, zero)
+        k, p = ae.attr_estimate(*ops_), ae.attr_estimate_plain(*ops_)
+        worst = max(worst, float((k - p).abs().max()))
+        check(torch.equal(k, p), f"attr_estimate equal by value to plain at "
+              f"B={B}, R={R}, C={C}" + (", all-zero plane" if zero else ""))
+    return {"attr_estimate": worst}
 
 
 # ---------------------------------------------------------------------------
@@ -855,14 +908,15 @@ def stream_features(device, d_model, chunks, T, B):
     return feats.cpu().numpy(), burst.cpu().numpy()
 
 
-def stream_filter(kind, device, d_model, use_kernels=True):
+def stream_filter(kind, device, d_model, use_kernels=True, **extra):
     """The filter of one stream run: ``AceDataFilter`` in the "dense" or
     "srht" hash family, ``WindowedAceFilter`` ("window") or
-    ``FleetDataFilter`` ("fleet"), each at its defaults."""
+    ``FleetDataFilter`` ("fleet"), each at its defaults but ``extra``."""
     from repro_torch.data.pipeline import AceDataFilter
     from repro_torch.fleet.filter import FleetDataFilter
     from repro_torch.window.filter import WindowedAceFilter
-    kw = dict(d_model=d_model, use_kernels=use_kernels, device=device)
+    kw = dict(d_model=d_model, use_kernels=use_kernels, device=device,
+              **extra)
     if kind == "window":
         return WindowedAceFilter(**kw, rotate_every=STREAM_R)
     if kind == "fleet":
@@ -872,6 +926,58 @@ def stream_filter(kind, device, d_model, use_kernels=True):
 
 def state_leaves(state) -> dict:
     return {k: v for k, v in zip(state._fields, state) if v is not None}
+
+
+def instrumented_run(mods, runner, device, feats, tids, T):
+    """``runner.run`` over the host features (and tenant ids) as a user
+    drives it, after one unrecorded chunk on a throw-away state (so the
+    timed run pays no first-call costs): every host-device transfer
+    counted, ``consume`` under sync-debug "error" (any host sync inside
+    raises), the launch counts set to 0 just before and read just after.
+    Returns (state, w, summaries, seconds, launches, transfers)."""
+    import repro_torch.stream.runner as runner_mod
+    transfers = {"h2d": 0, "d2h": 0}
+    real_in, real_out, real_consume = (runner_mod._to_device,
+                                       runner_mod._to_host, runner.consume)
+
+    def to_device(x, dev):
+        transfers["h2d"] += 1
+        return real_in(x, dev)
+
+    def to_host(x):
+        transfers["d2h"] += 1
+        return real_out(x)
+
+    def consume_no_sync(*a, **k):
+        if device.type != "cuda":
+            return real_consume(*a, **k)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_consume(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+
+    runner_mod._to_device, runner_mod._to_host = to_device, to_host
+    runner.consume = consume_no_sync
+    try:
+        s0, w = runner.init()
+        runner.consume(s0, w, torch.as_tensor(feats[:T], device=device),
+                       None if tids is None
+                       else torch.as_tensor(tids[:T], device=device))
+        sync(device)
+        transfers.update(h2d=0, d2h=0)
+        state, w = runner.init()
+        sync(device)
+        reset_launches(mods)
+        t0 = time.perf_counter()
+        state, sums = runner.run(state, w, iter(feats),
+                                 None if tids is None else iter(tids))
+        secs = time.perf_counter() - t0          # ends in the last D2H
+        launches = read_launches(mods)
+    finally:
+        runner_mod._to_device, runner_mod._to_host = real_in, real_out
+        runner.consume = real_consume
+    return state, w, sums, secs, launches, transfers
 
 
 def phase_stream(mods, device, kind, d_model=D_MODEL, chunks=STREAM_CHUNKS,
@@ -886,52 +992,13 @@ def phase_stream(mods, device, kind, d_model=D_MODEL, chunks=STREAM_CHUNKS,
             0, FLEET_T, size=(steps, B)).astype(np.int32)
     filt = stream_filter(kind, device, d_model)
     runner = runner_mod.StreamRunner(filt, chunk_T=T)
-    transfers = {"h2d": 0, "d2h": 0}
-    real_in, real_out, real_consume = (runner_mod._to_device,
-                                       runner_mod._to_host, runner.consume)
-
-    def to_device(x, dev):
-        transfers["h2d"] += 1
-        return real_in(x, dev)
-
-    def to_host(x):
-        transfers["d2h"] += 1
-        return real_out(x)
-
-    def consume_no_sync(*a, **k):     # any host sync inside raises
-        if device.type != "cuda":
-            return real_consume(*a, **k)
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            return real_consume(*a, **k)
-        finally:
-            torch.cuda.set_sync_debug_mode("default")
+    state, w, sums, secs, launches, transfers = instrumented_run(
+        mods, runner, device, feats, tids, T)
 
     def chunk_ids(c):
         return None if tids is None else torch.as_tensor(
             tids[c * T:(c + 1) * T], device=device)
 
-    runner_mod._to_device, runner_mod._to_host = to_device, to_host
-    runner.consume = consume_no_sync
-    try:
-        # one unrecorded chunk first, so the timed run pays no first-call
-        # costs (cuBLAS/allocator); then the main path on a fresh state
-        s0, w = runner.init()
-        runner.consume(s0, w, torch.as_tensor(feats[:T], device=device),
-                       chunk_ids(0))
-        sync(device)
-        transfers.update(h2d=0, d2h=0)
-        state, w = runner.init()
-        sync(device)
-        reset_launches(mods)
-        t0 = time.perf_counter()
-        state, sums = runner.run(state, w, iter(feats),
-                                 None if tids is None else iter(tids))
-        secs = time.perf_counter() - t0          # ends in the last D2H
-        launches = read_launches(mods)
-    finally:
-        runner_mod._to_device, runner_mod._to_host = real_in, real_out
-        runner.consume = real_consume
     items = chunks * T * B
     print(f"  stream path ({kind}): {chunks} chunks of {T} x {B} x "
           f"{d_model + 1}; {items / secs:,.0f} items/s ({secs:.3f} s, host "
@@ -1069,7 +1136,126 @@ def stream_breakdown(runner, state, w, batches, device,
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: timing on the card.
+# Phase 7: heavy-hitter attribution through the stream runner, d_model 4096.
+# ---------------------------------------------------------------------------
+
+def attack_stream(device, d_model=D_MODEL, chunks=STREAM_CHUNKS, T=STREAM_T,
+                  B=STREAM_B):
+    """Phase 5's stream (``stream_features``) with an attack in its last
+    two chunks: rows B/4 … B/4 + 63 of each step carry their energy on the
+    three PLANTED coordinates only (unit norm, the bias kept) — the
+    scenario of ``examples/drift_postmortem.py`` at full width.  Fleet
+    tenant ids as phase 5's, the attack rows routed to OFFENDER.  Returns
+    (features, tenant ids), both on the host."""
+    feats, _ = stream_features(device, d_model, chunks, T, B)
+    late = slice((chunks - 2) * T, None)
+    rows = slice(B // 4, B // 4 + ATTACK_ROWS)
+    att = feats[late, rows]
+    att[..., :d_model] = 0.0
+    att[..., list(PLANTED)] = 1.0 / np.sqrt(len(PLANTED))
+    tids = np.random.default_rng(SEED + 9).integers(
+        0, FLEET_T, size=(chunks * T, B)).astype(np.int32)
+    tids[late, rows] = OFFENDER
+    return feats, tids
+
+
+def phase_attribution(mods, device, kind, feats, tids, base_items_per_s,
+                      T=STREAM_T, B=STREAM_B) -> dict:
+    """One filter with attribution through ``StreamRunner.run`` (the main
+    path, launches counted), then the same stream through the plain path,
+    the heavy-hitter checks and the post-mortem batch query."""
+    import repro_torch.stream.runner as runner_mod
+    from repro_torch.attribution import sketch as at
+    tids = tids if kind == "fleet" else None
+    filt = stream_filter(kind, device, D_MODEL, **ATTR_KW)
+    runner = runner_mod.StreamRunner(filt, chunk_T=T, topk=ATTR_TOPK)
+    state, w, sums, secs, launches, transfers = instrumented_run(
+        mods, runner, device, feats, tids, T)
+    chunks = len(feats) // T
+    items = chunks * T * B
+    print(f"  attribution ({kind}): {chunks} chunks of {T} x {B} x "
+          f"{D_MODEL + 1}; {items / secs:,.0f} items/s with attribution, "
+          f"{base_items_per_s:,.0f} without (phase 5) ({secs:.3f} s, host "
+          f"clock); launches {launches}")
+    check(len(sums) == chunks and transfers == {"h2d": chunks,
+                                                 "d2h": chunks},
+          f"one H2D and one D2H per chunk, hh_* fields included "
+          f"({transfers})")
+    acfg = filt.ace_cfg.attr
+    check(launches["attr_estimate"] == chunks * acfg.num_levels,
+          f"attribution ({kind}) launched attr_estimate "
+          f"{launches['attr_estimate']} times: NL = {acfg.num_levels} a "
+          f"chunk ({acfg.num_levels - 1} beam levels and the leaf ranking)")
+    last = sums[-1]
+    named = sorted(last.hh_coord[last.hh_valid].tolist())
+    print(f"  last chunk: hh_coord {last.hh_coord.tolist()}, hh_valid "
+          f"{last.hh_valid.astype(int).tolist()}, hh_est "
+          f"{np.round(last.hh_est, 5).tolist()}")
+    check(set(PLANTED) <= set(named), f"attribution ({kind}): the last "
+          f"chunk's valid heavy hitters name the planted coordinates "
+          f"{PLANTED}")
+    if kind == "fleet":
+        print(f"  hh_tenant {last.hh_tenant.tolist()}, hh_tenant_est "
+              f"{np.round(last.hh_tenant_est, 5).tolist()}")
+        check(int(last.hh_tenant[0]) == OFFENDER,
+              f"the fleet's hh_tenant[0] is the offender, tenant {OFFENDER}")
+
+    # the plain path on the same stream and the same tables
+    plain_f = stream_filter(kind, device, D_MODEL, use_kernels=False,
+                            **ATTR_KW)
+    check(plain_f.attr_tables is filt.attr_tables,
+          "kernel and plain filters share one set of attribution tables")
+    pr = runner_mod.StreamRunner(plain_f, chunk_T=T, topk=ATTR_TOPK)
+    pstate, psums = pr.run(pr.init()[0], w, iter(feats),
+                           None if tids is None else iter(tids))
+    same = all(np.array_equal(a.hh_coord, b.hh_coord)
+               and np.array_equal(a.hh_valid, b.hh_valid)
+               for a, b in zip(sums, psums))
+    est_err = max(float(np.max(np.abs(a.hh_est - b.hh_est)
+                               / np.maximum(np.abs(b.hh_est), 1e-30)))
+                  for a, b in zip(sums, psums))
+    scale = float(pstate.attr.abs().max())
+    plane_err = float((state.attr - pstate.attr).abs().max())
+    print(f"  kernel vs plain path: hh_est largest relative difference "
+          f"{est_err:.3e}, planes largest difference {plane_err:.3e} "
+          f"(largest magnitude {scale:.3e})")
+    check(same, f"attribution ({kind}): kernel path's hh_coord and "
+          "hh_valid equal the plain path's in every chunk")
+    check(est_err <= 1e-4, "hh_est within rtol 1e-4 of the plain path")
+    check(torch.allclose(state.attr, pstate.attr, rtol=1e-5,
+                         atol=1e-5 * scale),
+          "planes within rtol 1e-5, atol 1e-5 x max|plane| of the plain "
+          "path")
+
+    # the post-mortem batch query: every coordinate of the anomaly channel
+    # (the fleet's offender; the ring's epochs summed)
+    plane = {"fleet": lambda a: a[OFFENDER, 1],
+             "window": lambda a: a.sum(0)[1]}.get(kind, lambda a: a[1])(
+        state.attr).contiguous()
+    coords = torch.arange(D_MODEL + 1, dtype=torch.int32, device=device)
+    before = mods["attr_estimate"].KERNEL.launches
+    est = at.estimate(acfg, filt.attr_tables, plane, coords)
+    sync(device)
+    check(mods["attr_estimate"].KERNEL.launches == before + 1,
+          "the post-mortem query is one attr_estimate launch")
+    plain_est = at.estimate(acfg, filt.attr_tables, plane, coords,
+                            use_kernels=False)
+    check(torch.equal(est, plain_est), "post-mortem estimates of all "
+          f"{D_MODEL + 1} coordinates equal by value to the plain version")
+    top4 = set(torch.topk(est, 4).indices.tolist())
+    check(set(PLANTED) <= top4, f"the planted coordinates rank in the top "
+          f"4 of the anomaly channel's estimates ({sorted(top4)}; the "
+          "fourth may be the bias coordinate every row carries)")
+    breakdown = stream_breakdown(
+        runner, state, w, feats[:T], device,
+        None if tids is None else torch.as_tensor(tids[:T], device=device))
+    return {"launches": launches, "items_per_s": items / secs,
+            "seconds": secs, "breakdown": breakdown, "filter": filt,
+            "state": state}
+
+
+# ---------------------------------------------------------------------------
+# Phase 8: timing on the card.
 # ---------------------------------------------------------------------------
 
 def device_ms(fn, reps: int = 30, inner: int = 10) -> float:
@@ -1333,6 +1519,44 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
     return out
 
 
+def phase_timing_attr(mods, device, attr) -> dict:
+    """``attr_estimate`` on the attribution phase's own state and tables
+    (the SRHT filter's anomaly channel, R = 5, C = 256): at the beam's
+    B = 2·W = 32 children of one level, the launch the drill-down makes 12
+    times a chunk, and at B = 4097, the post-mortem query of every leaf
+    coordinate.  Bound: the (B, R) columns and signs read, the (B,)
+    estimates written and each plane cell touched read once, against the
+    B·R sign multiplies."""
+    ae = mods["attr_estimate"]
+    filt, state = attr["filter"], attr["state"]
+    acfg, tables = filt.ace_cfg.attr, filt.attr_tables
+    lvl = acfg.num_levels - 1
+    plane = state.attr[1, lvl].contiguous()
+    R, C = plane.shape
+    out = {}
+    for B in (2 * max(2 * ATTR_TOPK, 8), D_MODEL + 1):
+        nodes = torch.arange(B, device=device)
+        cols = tables.cols[lvl][nodes].contiguous()
+        signs = tables.signs[lvl][nodes].contiguous()
+        rows = torch.arange(R, device=device)[None, :]
+        U = int(torch.unique(rows * C + cols.long()).numel())
+        bound_ms, bound_by = bound(B * R, 4 * (2 * B * R + B + U))
+        out[B] = dict(
+            ms=device_ms(lambda: ae.attr_estimate(plane, cols, signs)),
+            plain_ms=device_ms(lambda: ae.attr_estimate_plain(plane, cols,
+                                                              signs)),
+            library_ms=None, bound_ms=bound_ms, bound_by=bound_by,
+            shape=f"B={B}, R={R}, C={C}, plane cells touched {U}")
+        v = out[B]
+        print(f"  attr_estimate    {v['shape']}: kernel {v['ms']:.5f} ms, "
+              f"plain {v['plain_ms']:.5f} ms, library none (no one call: "
+              f"gather, sign and median), bound {v['bound_ms']:.3g} ms "
+              f"({v['bound_by']}), {100 * v['bound_ms'] / v['ms']:.1f}% of "
+              "bound")
+    beam, leaves = out.values()
+    return {"attr_estimate": {**beam, "at_post_mortem": leaves}}
+
+
 def srht_bound(B: int, d: int, cfg):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
     add rate against x, the signs, the row sample and the ids in bytes."""
@@ -1377,6 +1601,7 @@ def main() -> int:
     err = phase_kernels(mods, device)
     for k, v in phase_kernels_windows_fleets(mods, device).items():
         err[k] = max(err.get(k, 0.0), v)
+    err.update(phase_kernels_attr(mods, device))
     print("phase 3: AceEstimator path")
     paths = {"estimator": phase_estimator(mods, device),
              "estimator_srht": phase_estimator_srht(mods, device)}
@@ -1394,12 +1619,21 @@ def main() -> int:
     paths["queries"] = phase_queries(
         mods, device, paths["guardrail_window"]["guardrail"],
         paths["guardrail_fleet"]["guardrail"])
-    print("phase 7: timing (CUDA events, median of 30)")
+    print("phase 7: heavy-hitter attribution (AceDataFilter under SRHT, "
+          "FleetDataFilter, WindowedAceFilter + StreamRunner)")
+    feats, tids = attack_stream(device)
+    for kind in ATTR_KINDS:
+        paths[f"attribution_{kind}"] = phase_attribution(
+            mods, device, kind, feats, tids,
+            paths[f"stream_{kind}"]["items_per_s"])
+    del feats
+    print("phase 8: timing (CUDA events, median of 30)")
     times, _ = phase_timing(mods, device, paths["estimator"],
                             paths["guardrail"])
     times.update(phase_timing_windows_fleets(
         mods, device, *(paths[f"guardrail_{k}"]["guardrail"]
                         for k in GUARD_KINDS)))
+    times.update(phase_timing_attr(mods, device, paths["attribution_srht"]))
 
     kernels = []
     for name in KERNELS:
@@ -1414,7 +1648,8 @@ def main() -> int:
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-            "shape": t["shape"], "launches_by_path": by_path})
+            "shape": t["shape"], "launches_by_path": by_path,
+            **{k: t[k] for k in ("at_post_mortem",) if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
           f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "
@@ -1423,7 +1658,10 @@ def main() -> int:
           f"{paths['guardrail_fleet']['p50_ms']:.3f}, windowed fleet "
           f"{paths['guardrail_fleet_window']['p50_ms']:.3f}); stream "
           + ", ".join(f"{paths[f'stream_{k}']['items_per_s']:,.0f} items/s "
-                      f"{k}" for k in ("dense", "srht", "window", "fleet")))
+                      f"{k}" for k in ("dense", "srht", "window", "fleet"))
+          + "; with attribution "
+          + ", ".join(f"{paths[f'attribution_{k}']['items_per_s']:,.0f} "
+                      f"items/s {k}" for k in ATTR_KINDS))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

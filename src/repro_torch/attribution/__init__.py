@@ -1,0 +1,23 @@
+"""Heavy-hitter attribution — signed count-sketch planes and the dyadic
+findHH drill-down (port of ``repro.attribution``); see
+``repro_torch.attribution.sketch``.  Its point estimates run on the
+``attr_estimate`` CUDA kernel (``repro_torch.kernels.ops.attr_estimate``).
+"""
+from repro_torch.attribution.sketch import (AttrConfig, AttrTables,
+                                            chunk_energy, chunk_planes,
+                                            drift_vector, estimate,
+                                            estimate_level, find_hh,
+                                            init_plane, l2estimate,
+                                            level_tables, make_tables,
+                                            observe_flat, observe_fleet,
+                                            observe_fleet_window,
+                                            observe_window, sketch_vector,
+                                            sketch_vectors, tenant_drift_l2)
+
+__all__ = [
+    "AttrConfig", "AttrTables", "chunk_energy", "chunk_planes",
+    "drift_vector", "estimate", "estimate_level", "find_hh", "init_plane",
+    "l2estimate", "level_tables", "make_tables", "observe_flat",
+    "observe_fleet", "observe_fleet_window", "observe_window",
+    "sketch_vector", "sketch_vectors", "tenant_drift_l2",
+]

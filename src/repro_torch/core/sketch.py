@@ -13,9 +13,11 @@ Every function here is plain PyTorch and functional: it returns new
 tensors and leaves its inputs as they were.  The kernel path
 (``repro_torch.kernels.ops``) updates counts in place instead.
 
-The ``esc``/``qhist``/``attr`` leaves of ``AceState`` stay ``None``: the
-quantized planes, quantile histograms and attribution planes belong to
-later slices (ROADMAP.md queue 1).
+The ``esc``/``qhist`` leaves of ``AceState`` stay ``None``: the quantized
+planes and quantile histograms belong to later slices (ROADMAP.md queue
+1).  ``attr`` is the (2, NL, R, C) attribution plane when
+``AceConfig.attr_rows > 0`` (``repro_torch.attribution``); every function
+here that rebuilds a state carries it unchanged, and ``merge`` adds it.
 """
 from __future__ import annotations
 
@@ -37,7 +39,9 @@ class AceState(NamedTuple):
     n:      () float32 — number of items represented (exact up to 2^24).
     welford_mean / welford_m2: () float32 — streaming mean/M2 of the
             insert-time collision RATES score/n (the σ of the threshold).
-    esc, qhist, attr: always None in this slice.
+    esc, qhist: always None in this slice.
+    attr:   (2, NL, R, C) float32 signed count-sketch attribution planes
+            (``repro_torch.attribution``) when ``attr_rows > 0``, else None.
     """
 
     counts: torch.Tensor
@@ -61,7 +65,8 @@ class AceConfig:
     welford_min_n: float = 0.0  # skip σ-stream updates below this n
     hash_mode: str = "dense"
     esc_capacity: int = 0
-    attr_rows: int = 0
+    attr_rows: int = 0          # > 0: attribution planes with that many rows
+    attr_bits: int = 8          # log2 columns per attribution row
 
     def __post_init__(self):
         if self.esc_capacity < 0:
@@ -71,7 +76,7 @@ class AceConfig:
             raise ValueError("attr_rows must be >= 0, got "
                              f"{self.attr_rows}")
         if self.attr_rows > 0:
-            not_ported("attribution (attr_rows > 0)", 8)
+            self.attr                   # AttrConfig checks dim/rows/bits
         if self.counter_dtype in ("int8", "int16") or self.esc_capacity > 0:
             not_ported(f"counter_dtype={self.counter_dtype!r} / "
                        "esc_capacity", 9)
@@ -83,6 +88,16 @@ class AceConfig:
         return SrpConfig(dim=self.dim, num_bits=self.num_bits,
                          num_tables=self.num_tables, seed=self.seed,
                          hash_mode=self.hash_mode)
+
+    @property
+    def attr(self):
+        """The attribution hierarchy's ``AttrConfig``, or None when
+        ``attr_rows`` is 0."""
+        if self.attr_rows <= 0:
+            return None
+        from repro_torch.attribution.sketch import AttrConfig
+        return AttrConfig(dim=self.dim, rows=self.attr_rows,
+                          bits=self.attr_bits, seed=self.seed)
 
     @property
     def num_buckets(self) -> int:
@@ -99,11 +114,16 @@ class AceConfig:
 
 
 def init(cfg: AceConfig, device) -> AceState:
+    # imported here: the attribution module imports the kernels, which
+    # import this one
+    from repro_torch.attribution.sketch import init_plane
     zero = torch.zeros((), dtype=torch.float32, device=device)
+    acfg = cfg.attr
     return AceState(
         counts=torch.zeros((cfg.num_tables, cfg.num_buckets),
                            dtype=cfg.torch_dtype, device=device),
-        n=zero, welford_mean=zero.clone(), welford_m2=zero.clone())
+        n=zero, welford_mean=zero.clone(), welford_m2=zero.clone(),
+        attr=None if acfg is None else init_plane(acfg, device))
 
 
 def make_params(cfg: AceConfig, generator: torch.Generator | None = None,
@@ -211,7 +231,8 @@ def insert_buckets(state: AceState, buckets: torch.Tensor,
     new_mean, new_m2 = welford_fold(state.welford_mean, state.welford_m2,
                                     state.n, b, tot, mean_b, m2_b,
                                     cfg.welford_min_n)
-    return AceState(new_counts, tot, new_mean, new_m2)
+    return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
+                          welford_m2=new_m2)
 
 
 def masked_batch_welford(state: AceState, scores: torch.Tensor,
@@ -247,7 +268,8 @@ def insert_buckets_masked(state: AceState, buckets: torch.Tensor,
     scores = batch_scores(new_counts, buckets)
     tot, new_mean, new_m2 = masked_batch_welford(
         state, scores, mask.to(torch.float32), cfg.welford_min_n)
-    return AceState(new_counts, tot, new_mean, new_m2)
+    return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
+                          welford_m2=new_m2)
 
 
 def delete_buckets(state: AceState, buckets: torch.Tensor,
@@ -262,7 +284,12 @@ def delete_buckets(state: AceState, buckets: torch.Tensor,
 
 def merge(a: AceState, b: AceState) -> AceState:
     """Merge two sketches over disjoint data: counts add, the Welford
-    streams merge by Chan's parallel rule."""
+    streams merge by Chan's parallel rule, attribution planes add (the
+    count-sketch is linear).  A state with planes and one without do not
+    merge."""
+    if (a.attr is None) != (b.attr is None):
+        raise ValueError("cannot merge an attribution-tracking sketch "
+                         "with a non-tracking one")
     delta = b.welford_mean - a.welford_mean
     tot = a.n + b.n
     safe = torch.clamp_min(tot, 1.0)
@@ -270,7 +297,8 @@ def merge(a: AceState, b: AceState) -> AceState:
         counts=a.counts + b.counts,
         n=tot,
         welford_mean=a.welford_mean + delta * b.n / safe,
-        welford_m2=a.welford_m2 + b.welford_m2 + delta**2 * a.n * b.n / safe)
+        welford_m2=a.welford_m2 + b.welford_m2 + delta**2 * a.n * b.n / safe,
+        attr=None if a.attr is None else a.attr + b.attr)
 
 
 # ---------------------------------------------------------------------------

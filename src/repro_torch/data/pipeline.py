@@ -18,6 +18,7 @@ import dataclasses
 import torch
 
 from repro_torch import not_ported, resolve_device
+from repro_torch.attribution import sketch as at
 from repro_torch.core import sketch as sk
 from repro_torch.core import srht
 from repro_torch.core import srp
@@ -50,6 +51,9 @@ class AceDataFilter:
     (the default here; the reference filter has no kernel path) runs each
     step through ``repro_torch.kernels.ops``; False runs the plain sketch
     functions.  ``device`` defaults to CUDA and raises when there is none.
+    ``attr_rows > 0`` puts attribution planes on the state
+    (``repro_torch.attribution``, ``attr_bits`` wide rows); the
+    ``StreamRunner`` fills them and names each chunk's heavy hitters.
     """
 
     d_model: int
@@ -63,9 +67,14 @@ class AceDataFilter:
     count_dtype: str = "int32"
     esc_capacity: int = 0
     threshold_mode: str = "mu_sigma"
-    attr_rows: int = 0
+    attr_rows: int = 0          # > 0: attribution planes ride the state
+    attr_bits: int = 8          # log2 columns per attribution row
     use_kernels: bool = True
     device: torch.device | str | None = None
+    # the attribution hash tables on ``device`` (repro_torch.attribution
+    # .AttrTables); made from the config when not given
+    attr_tables: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     def __post_init__(self):
         if self.threshold_mode == "quantile":
@@ -74,12 +83,16 @@ class AceDataFilter:
             raise ValueError(f"unknown threshold_mode "
                              f"{self.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
-        cfg = self.ace_cfg          # raises for narrow planes, attribution
+        cfg = self.ace_cfg          # raises for narrow planes
         srp.resolve_hash_mode(cfg.srp)      # raises for an unknown mode
         if self.use_kernels and cfg.counter_dtype != "int32":
             raise ValueError("the kernels take int32 counts; use "
                              "use_kernels=False for float32 counts")
         object.__setattr__(self, "device", resolve_device(self.device))
+        acfg = self.ace_cfg.attr
+        if acfg is not None and self.attr_tables is None:
+            object.__setattr__(self, "attr_tables",
+                               at.level_tables(acfg, self.device))
 
     @property
     def ace_cfg(self) -> AceConfig:
@@ -89,7 +102,8 @@ class AceDataFilter:
                          hash_mode=self.hash_mode,
                          counter_dtype=self.count_dtype,
                          esc_capacity=self.esc_capacity,
-                         attr_rows=self.attr_rows)
+                         attr_rows=self.attr_rows,
+                         attr_bits=self.attr_bits)
 
     def init(self):
         """(state, w) on the filter's device.  Under the SRHT family the

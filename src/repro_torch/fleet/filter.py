@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch import not_ported, resolve_device
+from repro_torch.attribution import sketch as at
 from repro_torch.core import sketch as sk
 from repro_torch.core import srht
 from repro_torch.core import srp
@@ -41,9 +42,14 @@ class FleetDataFilter:
     insert_all: bool = False
     count_dtype: str = "int32"
     threshold_mode: str = "mu_sigma"
-    attr_rows: int = 0
+    attr_rows: int = 0          # > 0: attribution planes ride the state
+    attr_bits: int = 8          # log2 columns per attribution row
     use_kernels: bool = True
     device: torch.device | str | None = None
+    # the attribution hash tables on ``device`` (repro_torch.attribution
+    # .AttrTables); made from the config when not given
+    attr_tables: object = dataclasses.field(default=None, compare=False,
+                                            repr=False)
 
     def __post_init__(self):
         if self.threshold_mode == "quantile":
@@ -58,6 +64,10 @@ class FleetDataFilter:
             raise ValueError("the kernels take int32 counts; use "
                              "use_kernels=False for float32 counts")
         object.__setattr__(self, "device", resolve_device(self.device))
+        acfg = self.ace_cfg.attr
+        if acfg is not None and self.attr_tables is None:
+            object.__setattr__(self, "attr_tables",
+                               at.level_tables(acfg, self.device))
 
     @property
     def ace_cfg(self) -> AceConfig:
@@ -67,7 +77,8 @@ class FleetDataFilter:
                          welford_min_n=self.warmup_items / 2,
                          hash_mode=self.hash_mode,
                          counter_dtype=self.count_dtype,
-                         attr_rows=self.attr_rows)
+                         attr_rows=self.attr_rows,
+                         attr_bits=self.attr_bits)
 
     @property
     def fleet_cfg(self) -> FleetConfig:

@@ -5,6 +5,8 @@ port of ``repro.fleet.state``.
     n             (T,)          per-tenant item counts
     welford_mean  (T,)          per-tenant streaming rate means
     welford_m2    (T,)          per-tenant streaming rate M2s
+    attr          (T, 2, NL, R, C)  per-tenant attribution planes when
+                  ``attr_rows > 0`` (``repro_torch.attribution``)
 
 Every tenant shares one hash bank, so a mixed-tenant batch hashes once;
 routing is one index computation: the fleet seen as a (T·L, 2^K) matrix
@@ -78,7 +80,7 @@ class FleetState(NamedTuple):
     welford_mean: torch.Tensor  # (T,) float32
     welford_m2: torch.Tensor    # (T,) float32
     qhist: Optional[torch.Tensor] = None
-    attr: Optional[torch.Tensor] = None
+    attr: Optional[torch.Tensor] = None   # (T, 2, NL, R, C) float32
 
     @property
     def num_tenants(self) -> int:
@@ -110,35 +112,47 @@ def init(cfg: FleetConfig, device, quantile: bool = False) -> FleetState:
         not_ported("threshold_mode='quantile'", 7)
     T, ace = cfg.num_tenants, cfg.ace
     zeros = torch.zeros((T,), dtype=torch.float32, device=device)
+    acfg = ace.attr
     return FleetState(
         counts=torch.zeros((T, ace.num_tables, ace.num_buckets),
                            dtype=ace.torch_dtype, device=device),
-        n=zeros, welford_mean=zeros.clone(), welford_m2=zeros.clone())
+        n=zeros, welford_mean=zeros.clone(), welford_m2=zeros.clone(),
+        attr=None if acfg is None else torch.zeros(
+            (T,) + acfg.plane_shape(), dtype=torch.float32, device=device))
 
 
 def tenant_view(state: FleetState, t: int) -> AceState:
     """Tenant t's sketch as a plain ``AceState`` (views, no copy)."""
     return AceState(counts=state.counts[t], n=state.n[t],
                     welford_mean=state.welford_mean[t],
-                    welford_m2=state.welford_m2[t])
+                    welford_m2=state.welford_m2[t],
+                    attr=None if state.attr is None else state.attr[t])
 
 
 def set_tenant(state: FleetState, t: int, ace: AceState) -> FleetState:
-    """A copy of the fleet with tenant t's sketch replaced by ``ace``."""
-    out = []
-    for name in ("counts", "n", "welford_mean", "welford_m2"):
+    """A copy of the fleet with tenant t's sketch replaced by ``ace`` (its
+    attribution planes too, when both carry them)."""
+    names = ["counts", "n", "welford_mean", "welford_m2"]
+    if state.attr is not None and ace.attr is not None:
+        names.append("attr")
+    out = {}
+    for name in names:
         leaf = getattr(state, name).clone()
         leaf[t] = getattr(ace, name)
-        out.append(leaf)
-    return FleetState(*out)
+        out[name] = leaf
+    return state._replace(**out)
 
 
 def merge_fleet(a: FleetState, b: FleetState) -> FleetState:
     """Merge two fleets over disjoint data: ``sketch.merge`` per tenant
-    (counts add in int32, the Welford streams by Chan's rule)."""
+    (counts add in int32, the Welford streams by Chan's rule, attribution
+    planes add)."""
     if a.counts.shape != b.counts.shape:
         raise ValueError(f"fleet shape mismatch: {tuple(a.counts.shape)} "
                          f"vs {tuple(b.counts.shape)}")
+    if (a.attr is None) != (b.attr is None):
+        raise ValueError("cannot merge an attribution-tracking fleet with "
+                         "a non-tracking one")
     counts = a.counts.to(torch.int32) + b.counts.to(torch.int32)
     delta = b.welford_mean - a.welford_mean
     tot = a.n + b.n
@@ -147,14 +161,19 @@ def merge_fleet(a: FleetState, b: FleetState) -> FleetState:
         counts=counts, n=tot,
         welford_mean=a.welford_mean + delta * b.n / safe,
         welford_m2=a.welford_m2 + b.welford_m2
-        + delta**2 * a.n * b.n / safe)
+        + delta**2 * a.n * b.n / safe,
+        attr=None if a.attr is None else a.attr + b.attr)
 
 
 def from_states(states: Sequence[AceState]) -> FleetState:
-    """Stack single-tenant sketches into a fleet."""
-    return FleetState(*(torch.stack([getattr(s, k) for s in states])
-                        for k in ("counts", "n", "welford_mean",
-                                  "welford_m2")))
+    """Stack single-tenant sketches into a fleet (with attribution planes
+    when every one carries them)."""
+    attrs = [s.attr for s in states]
+    return FleetState(
+        *(torch.stack([getattr(s, k) for s in states])
+          for k in ("counts", "n", "welford_mean", "welford_m2")),
+        attr=(torch.stack(attrs) if all(p is not None for p in attrs)
+              else None))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +271,8 @@ def insert_masked(state: FleetState, tenant_ids: torch.Tensor,
                           buckets)
     tot, new_mean, new_m2 = fleet_masked_welford(
         state, tenant_ids, scores, mask.to(torch.float32), cfg.welford_min_n)
-    return FleetState(new_counts, tot, new_mean, new_m2)
+    return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
+                          welford_m2=new_m2)
 
 
 # ---------------------------------------------------------------------------

@@ -7,6 +7,8 @@
     ssq           (T,)             per-tenant ‖C_w‖² streams
     cursor        (T,)  int32      per-tenant ring pointers
     tick          (T,)  int32      per-tenant insert-step clocks
+    attr          (T, E, 2, NL, R, C) f32  per-tenant per-epoch
+                  attribution planes when ``attr_rows > 0``
 
 Each tenant's tick advances only on batches that held its items, and
 ``maybe_rotate_fleet`` rotates exactly the tenants whose live epoch just
@@ -50,7 +52,7 @@ class WindowedFleetState(NamedTuple):
     cursor: torch.Tensor        # (T,) int32
     tick: torch.Tensor          # (T,) int32
     qhist: Optional[torch.Tensor] = None
-    attr: Optional[torch.Tensor] = None
+    attr: Optional[torch.Tensor] = None   # (T, E, 2, NL, R, C) float32
 
     @property
     def num_tenants(self) -> int:

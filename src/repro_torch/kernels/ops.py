@@ -42,6 +42,7 @@ from repro_torch.kernels import ace_query as _q
 from repro_torch.kernels import ace_score_fused as _f
 from repro_torch.kernels import ace_update as _u
 from repro_torch.kernels import ace_window_combine as _wc
+from repro_torch.kernels import attr_estimate as _ae
 from repro_torch.kernels import srht_hash as _sh
 from repro_torch.kernels import srp_hash as _h
 from repro_torch.window import ring as _ring
@@ -61,6 +62,16 @@ def hash_dispatch(x: torch.Tensor, w: torch.Tensor,
     return _h.srp_hash(x, w, cfg)
 
 
+def attr_estimate(plane: torch.Tensor, cols: torch.Tensor,
+                  signs: torch.Tensor) -> torch.Tensor:
+    """Signed count-sketch point estimates through the ``attr_estimate``
+    kernel: one (R, C) attribution-level plane, (B, R) bucket columns and
+    ±1 signs -> (B,) median-of-rows estimates.  Every estimate of
+    ``repro_torch.attribution`` comes here: ``estimate``,
+    ``estimate_level`` and each level of ``find_hh``'s beam."""
+    return _ae.attr_estimate(plane, cols, signs)
+
+
 def ace_update(state: AceState, buckets: torch.Tensor,
                cfg: AceConfig) -> AceState:
     """Kernel-path insert: the ``ace_update`` kernel adds the batch, then
@@ -78,7 +89,7 @@ def ace_update(state: AceState, buckets: torch.Tensor,
     m2_b = torch.sum((rates - mean_b) ** 2)
     delta = mean_b - state.welford_mean
     safe = torch.clamp_min(tot, 1.0)
-    return AceState(
+    return state._replace(
         counts=new_counts, n=tot,
         welford_mean=state.welford_mean + delta * b / safe,
         welford_m2=state.welford_m2 + m2_b + delta**2 * n * b / safe)
@@ -151,7 +162,8 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
     post = ace_query(state._replace(counts=new_counts), buckets)
     tot, new_mean, new_m2 = _sk.masked_batch_welford(
         state, post, admit.to(torch.float32), cfg.welford_min_n)
-    return AceState(new_counts, tot, new_mean, new_m2), admit, scores
+    return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
+                          welford_m2=new_m2), admit, scores
 
 
 def ace_admit(state: AceState, q: torch.Tensor, w: torch.Tensor,
@@ -295,7 +307,8 @@ def ace_fleet_admit_at(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                               tenant_ids)
     tot, mean, m2 = _fls.fleet_masked_welford(
         fstate, tenant_ids, post, admit.to(torch.float32), cfg.welford_min_n)
-    return _fls.FleetState(fstate.counts, tot, mean, m2), admit, scores
+    return fstate._replace(n=tot, welford_mean=mean, welford_m2=m2), \
+        admit, scores
 
 
 def ace_fleet_admit(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,

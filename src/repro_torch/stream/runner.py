@@ -27,8 +27,16 @@ The filter decides the mode, as in the reference:
   ``FleetChunkSummary`` with per-tenant rows.  A windowed fleet in the
   runner is refused, as in the reference.
 
-Meshes and attribution raise ``NotImplementedError`` naming their ROADMAP.md
-queue item.  The reference compiles a chunk into one program
+Heavy-hitter attribution: when the filter carries attribution planes
+(``attr_rows > 0``), ``consume`` ends with the reference's
+``_attr_observe`` — the chunk's per-coordinate energy split into
+background and flagged channels, sketched into the state's planes (the
+live row of a ring, after the chunk's last rotation), and the dyadic
+``find_hh`` drill-down on the chunk's drift vector — all on the device,
+its results in the summary's ``hh_*`` fields (the same one transfer).
+
+Meshes raise ``NotImplementedError`` naming their ROADMAP.md queue item.
+The reference compiles a chunk into one program
 (``trace_count``); the port runs it eagerly, and a captured CUDA graph of
 the chunk is ROADMAP.md queue 1 item 3's open point.
 """
@@ -40,6 +48,7 @@ import numpy as np
 import torch
 
 from repro_torch import not_ported
+from repro_torch.attribution import sketch as at
 from repro_torch.fleet.state import check_tenant_ids, per_tenant_counts
 from repro_torch.quantile.moments import falpha_index
 from repro_torch.window import ring
@@ -66,8 +75,11 @@ class ChunkSummary(NamedTuple):
     topk_valid:  (k,) bool — True where the topk row is a genuine flagged
                  anomaly (finite negative margin), False for padding
                  (warmup +inf, quarantined rows, unflagged fill).
-    hh_coord/hh_est/hh_valid: heavy-hitter attribution; always None here
-                 (ROADMAP.md queue 1 item 8).
+    hh_coord/hh_est/hh_valid: (topk,) heavy-hitter attribution — the
+                 coordinates on which the chunk's flagged traffic moved
+                 most (int32), their signed estimated drift energies
+                 (float32) and which lanes are genuine (bool); None unless
+                 the filter enables attribution (``attr_rows > 0``).
     """
 
     kept_frac: torch.Tensor
@@ -96,7 +108,12 @@ class FleetChunkSummary(NamedTuple):
     misrouted:        () int32 — items of tenants outside the ownership
                       mask (scored, never kept or inserted); 0 without one.
     falpha:           (T,) float32 — each tenant's drift index.
-    hh_*:             always None here (ROADMAP.md queue 1 item 8).
+    hh_coord/hh_est/hh_valid: (topk,) chunk-global heavy hitters, as in
+                      ``ChunkSummary``; None without attribution.
+    hh_tenant/hh_tenant_est: (min(topk, T),) the tenants whose flagged
+                      traffic drifted most (int32) and their exact drift
+                      magnitudes ‖Δ_t‖₂ (float32); None without
+                      attribution.
     """
 
     kept_frac: torch.Tensor
@@ -142,6 +159,8 @@ class StreamRunner:
         if rotate_every is None:
             rotate_every = int(getattr(filt, "rotate_every", 0))
         self.rotate_every = int(rotate_every)
+        self.attr_cfg = (filt.ace_cfg.attr if hasattr(filt, "ace_cfg")
+                         else None)
         R = self.rotate_every
         if self.is_fleet and R:
             raise NotImplementedError(
@@ -201,11 +220,18 @@ class StreamRunner:
             if R and (t + 1) % min(R, T) == 0:
                 state = ring.maybe_rotate(state, R, gamma)
         keeps, margins = torch.stack(keeps), torch.stack(margins)
+        hh = {}
+        if self.attr_cfg is not None:
+            # after the chunk's last rotation: a ring observes into the
+            # row its cursor then points at, as in the reference
+            state, hh = self._attr_observe(
+                state, feats, margins.reshape(-1),
+                None if tenant_ids is None else tenant_ids.reshape(-1))
         if self.is_fleet:
             summary = self._fleet_summary(state, keeps, margins, tenant_ids,
-                                          table_mask, tenant_mask)
+                                          table_mask, tenant_mask, hh)
         else:
-            summary = self._summary(state, keeps, margins, table_mask)
+            summary = self._summary(state, keeps, margins, table_mask, hh)
         if self.return_masks:
             return state, summary, keeps
         return state, summary
@@ -235,8 +261,47 @@ class StreamRunner:
                                   dtype=torch.int32),
             topk_valid=torch.isfinite(topk_margin) & (topk_margin < 0.0))
 
+    def _attr_observe(self, state, feats: torch.Tensor,
+                      margins_flat: torch.Tensor,
+                      tenant_ids: torch.Tensor | None):
+        """Fold one chunk's energy split into the state's attribution
+        planes and drill down on the chunk's drift vector (the reference's
+        ``_attr_observe``).  The flat path runs the same T = 1 program the
+        fleet runs per tenant, so a fleet of one gives the flat path's
+        bits.  Returns (state, the summary's ``hh_*`` fields)."""
+        acfg, tables = self.attr_cfg, self.filt.attr_tables
+        feat = feats.reshape(-1, feats.shape[-1])
+        # quarantined rows carry non-finite features: their −inf margin
+        # keeps them out of both channels, but inf·0 = nan would poison
+        # the sums, so zero them first (the filter step's sanitize)
+        finite = torch.all(torch.isfinite(feat), dim=-1)
+        feat = torch.where(finite[:, None], feat, 0.0)
+        nt = self.filt.num_tenants if self.is_fleet else 1
+        split = at.chunk_energy(feat, margins_flat, nt, tenant_ids)
+        del feat                      # the chunk-sized copy, before find_hh
+        planes = at.chunk_planes(acfg, tables, split[0], split[1])
+        if self.is_fleet:
+            attr = at.observe_fleet(state.attr, planes)
+        elif self.windowed:
+            attr = at.observe_window(state.attr, planes[0], state.cursor)
+        else:
+            attr = at.observe_flat(state.attr, planes)
+        drift = at.sketch_vector(acfg, tables, at.drift_vector(*split))
+        coord, est, valid = at.find_hh(acfg, tables, drift, self.topk,
+                                       use_kernels=self.filt.use_kernels)
+        hh = dict(hh_coord=coord, hh_est=est, hh_valid=valid)
+        if self.is_fleet:
+            # the top min(topk, T) drift magnitudes, ties to the lower
+            # tenant id (as jax.lax.top_k): a stable descending sort
+            l2, idx = torch.sort(at.tenant_drift_l2(*split), descending=True,
+                                 stable=True)
+            kt = min(self.topk, nt)
+            hh.update(hh_tenant=idx[:kt].to(torch.int32),
+                      hh_tenant_est=l2[:kt])
+        return state._replace(attr=attr), hh
+
     def _summary(self, state, keeps: torch.Tensor, margins: torch.Tensor,
-                 table_mask) -> ChunkSummary:
+                 table_mask, hh: dict | None = None) -> ChunkSummary:
         if self.windowed:
             gamma = self.filt.decay
             n = torch.sum(state.n)                    # the ring total
@@ -251,11 +316,12 @@ class StreamRunner:
             n=n, falpha=falpha,
             degraded=torch.full((), table_mask is not None, dtype=torch.bool,
                                 device=margins.device),
-            **self._topk(keeps, margins))
+            **self._topk(keeps, margins), **(hh or {}))
 
     def _fleet_summary(self, state, keeps: torch.Tensor,
                        margins: torch.Tensor, tenant_ids: torch.Tensor,
-                       table_mask, tenant_mask) -> FleetChunkSummary:
+                       table_mask, tenant_mask,
+                       hh: dict | None = None) -> FleetChunkSummary:
         nt = self.filt.num_tenants
         tids = tenant_ids.reshape(-1)
         dev = margins.device
@@ -271,7 +337,7 @@ class StreamRunner:
                                 device=dev),
             falpha=falpha_index(state.counts, state.n,
                                 table_mask=table_mask),
-            **self._topk(keeps, margins))
+            **self._topk(keeps, margins), **(hh or {}))
 
     def fetch(self, summary):
         """The summary on the host as numpy arrays, in ONE transfer: its

@@ -42,8 +42,11 @@ order (Σ_e w_e·C_e as E multiply-adds), while the reference contracts with
 XLA's ``tensordot``: the two agree to float tolerance at γ < 1 and bitwise
 at γ = 1, where every value is an integer below 2^24.
 
-The ``qhist``/``attr`` leaves stay ``None``: quantile admission and
-attribution belong to later slices (ROADMAP.md queue 1 items 7 and 8).
+The ``qhist`` leaf stays ``None``: quantile admission belongs to a later
+slice (ROADMAP.md queue 1 item 7).  ``attr`` is the (E, 2, NL, R, C) ring
+of attribution planes when ``attr_rows > 0`` (``repro_torch.attribution``):
+the runner adds a chunk's planes to the live row, and ``rotate`` zeroes
+the row it moves into, as it zeroes the counts.
 """
 from __future__ import annotations
 
@@ -71,7 +74,7 @@ class WindowedAceState(NamedTuple):
     cursor: torch.Tensor        # () int32
     tick: torch.Tensor          # () int32
     qhist: Optional[torch.Tensor] = None
-    attr: Optional[torch.Tensor] = None
+    attr: Optional[torch.Tensor] = None   # (E, 2, NL, R, C) float32
 
     @property
     def num_epochs(self) -> int:
@@ -114,11 +117,14 @@ def init(cfg: AceConfig, num_epochs: int, device,
 
     def zeros(*s, dtype=torch.float32):
         return torch.zeros(s, dtype=dtype, device=device)
+    acfg = cfg.attr
     return WindowedAceState(
         counts=zeros(num_epochs, *shape, dtype=cfg.torch_dtype),
         n=zeros(num_epochs), welford_mean=zeros(num_epochs),
         welford_m2=zeros(num_epochs), tail=zeros(*shape), ssq=zeros(),
-        cursor=zeros(dtype=torch.int32), tick=zeros(dtype=torch.int32))
+        cursor=zeros(dtype=torch.int32), tick=zeros(dtype=torch.int32),
+        attr=None if acfg is None else zeros(num_epochs,
+                                             *acfg.plane_shape()))
 
 
 def init_window(cfg: WindowConfig, device,
@@ -177,7 +183,8 @@ def decay_sum(w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 
 def rotate(state, gamma: float = 1.0):
     """Advance the ring (every ring of a fleet): the oldest epoch expires
-    and becomes the new live epoch (zeroed counts and moments), and the
+    and becomes the new live epoch (zeroed counts, moments and, when the
+    state carries them, attribution planes — that row only), and the
     tail is recomputed from the updated ring, tail' = Σ_e γ^age'·C'_e (the
     zeroed new-live slab contributes nothing), with ssq = ‖tail'‖².  The
     zeroing is an ``index_fill`` at a device index: no host sync.  Applied
@@ -192,9 +199,14 @@ def rotate(state, gamma: float = 1.0):
 
     def clear(x):
         return x.reshape(-1).index_fill(0, rows, 0.0).reshape(x.shape)
+    attr = state.attr
+    if attr is not None:
+        plane = attr.shape[-4:]
+        attr = attr.reshape((-1,) + plane).index_fill(0, rows, 0.0) \
+            .reshape(attr.shape)
     tail = decay_sum(epoch_weights(new_cursor, E, gamma), counts)
     return state._replace(
-        counts=counts, n=clear(state.n),
+        counts=counts, n=clear(state.n), attr=attr,
         welford_mean=clear(state.welford_mean),
         welford_m2=clear(state.welford_m2), tail=tail,
         ssq=torch.sum(tail * tail, dim=(-2, -1)), cursor=new_cursor)
@@ -214,14 +226,19 @@ def maybe_rotate(state: WindowedAceState, rotate_every: int,
 
 
 def live_epoch(state: WindowedAceState) -> AceState:
-    """The live epoch as a plain ``AceState`` (a gather copy)."""
+    """The live epoch as a plain ``AceState`` (a gather copy), with its
+    attribution planes when the ring carries them."""
+    rows = slab_rows(state.cursor, state.num_epochs)
     slab = state.counts.shape[-2:]
+    attr = state.attr
+    if attr is not None:
+        attr = attr.index_select(0, rows)[0]
     return AceState(
         counts=state.counts.reshape((-1,) + slab).index_select(
-            0, slab_rows(state.cursor, state.num_epochs)).reshape(slab),
+            0, rows).reshape(slab),
         n=epoch_select(state.n, state.cursor),
         welford_mean=epoch_select(state.welford_mean, state.cursor),
-        welford_m2=epoch_select(state.welford_m2, state.cursor))
+        welford_m2=epoch_select(state.welford_m2, state.cursor), attr=attr)
 
 
 def live_rows(state: WindowedAceState, batch: int) -> torch.Tensor:
@@ -479,13 +496,14 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
 
 def combined_ace(state: WindowedAceState) -> AceState:
     """Hard-window (γ = 1) combine into ONE plain ``AceState``:
-    ``sketch.merge`` folded over the epochs."""
-    out = AceState(counts=state.counts[0], n=state.n[0],
-                   welford_mean=state.welford_mean[0],
-                   welford_m2=state.welford_m2[0])
+    ``sketch.merge`` folded over the epochs (attribution planes, when the
+    ring carries them, add up with the counts)."""
+    def epoch(e):
+        return AceState(counts=state.counts[e], n=state.n[e],
+                        welford_mean=state.welford_mean[e],
+                        welford_m2=state.welford_m2[e],
+                        attr=None if state.attr is None else state.attr[e])
+    out = epoch(0)
     for e in range(1, state.num_epochs):
-        out = sk.merge(out, AceState(
-            counts=state.counts[e], n=state.n[e],
-            welford_mean=state.welford_mean[e],
-            welford_m2=state.welford_m2[e]))
+        out = sk.merge(out, epoch(e))
     return out

@@ -293,7 +293,7 @@ class TestSketch:
 
     @pytest.mark.parametrize("kw,item", [
         (dict(counter_dtype="int16"), 9), (dict(esc_capacity=4), 9),
-        (dict(attr_rows=3), 8)])
+        (dict(counter_dtype="int8"), 9)])
     def test_later_slices_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             sk.AceConfig(dim=4, **kw)

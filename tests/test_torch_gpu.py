@@ -18,6 +18,9 @@ plain versions do, so they are bitwise too (the admission's tail sums
 included, at fractional tail values).  SRHT ids bitwise, against the plain
 version on the card and on the CPU; fused scores bitwise wherever the
 ids agree, the weighted form too (both sum in table order, no FMA).
+Attribution point estimates equal by value (an empty cell gives ±0.0, and
+which zero a median of zeros returns may differ); the attribution planes
+and heavy hitters of a fleet of one tenant equal the flat path's bitwise.
 """
 import numpy as np
 import pytest
@@ -35,6 +38,7 @@ from repro_torch.kernels import ace_fleet_window_admit as FWA  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
 from repro_torch.kernels import ace_window_combine as WC  # noqa: E402
 from repro_torch.kernels import ace_score_fused as F  # noqa: E402
+from repro_torch.kernels import attr_estimate as AE  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
 from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import srp_hash as H  # noqa: E402
@@ -696,3 +700,114 @@ def test_window_and_fleet_consume_have_no_host_sync(cuda, fleet):
     for a, b in zip(s, seq):
         if b is not None:
             assert torch.equal(a, b)
+
+
+# (B, R, C): one query; R = 1 and 2; the beam's 2W; every leaf coordinate
+# of d = 4097 at the default R = 5, C = 256; R = 8, the last register
+# sort; R = 9 and 33, the rank selection past it; a tiny C.
+@pytest.mark.parametrize("B,R,C", [(1, 1, 8), (1, 2, 8), (32, 5, 256),
+                                   (4097, 5, 256), (300, 4, 64),
+                                   (64, 8, 256), (129, 9, 32), (200, 33, 16),
+                                   (50, 6, 1)])
+def test_attr_estimate_matches_plain(cuda, B, R, C):
+    """Columns at 0, C − 1 and past the plane (clamped), signs ±1, empty
+    cells (±0 values) and repeated values: equal by value."""
+    rng = np.random.default_rng(B * 7 + R)
+    plane = rng.normal(size=(R, C)).astype(np.float32)
+    plane[:, : max(1, C // 8)] = 0.0
+    plane[:, -1] = 1.5                           # ties across rows
+    cols = rng.integers(0, C, size=(B, R)).astype(np.int32)
+    cols[0, 0] = 0
+    cols[-1, -1] = C - 1
+    cols[B // 2, 0] = C + 3
+    signs = rng.choice([-1.0, 1.0], size=(B, R)).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda) for a in (plane, cols, signs)]
+    before = AE.KERNEL.launches
+    got = AE.attr_estimate(*args)
+    torch.cuda.synchronize()
+    assert AE.KERNEL.launches == before + 1
+    want = AE.attr_estimate_plain(*args)
+    assert torch.equal(got, want)
+    cpu = AE.attr_estimate(*(a.cpu() for a in args))
+    assert torch.equal(got.cpu(), cpu)
+
+
+def test_attr_estimate_zero_plane_and_empty_batch(cuda):
+    plane = torch.zeros((5, 256), device=cuda)
+    cols = torch.randint(0, 256, (64, 5), dtype=torch.int32, device=cuda)
+    signs = torch.ones((64, 5), device=cuda)
+    signs[::2] = -1.0
+    got = AE.attr_estimate(plane, cols, signs)
+    assert torch.equal(got, torch.zeros(64, device=cuda))
+    before = AE.KERNEL.launches
+    assert AE.attr_estimate(plane, cols[:0], signs[:0]).shape == (0,)
+    assert AE.KERNEL.launches == before
+
+
+def _attr_filters(kind, cuda, use_kernels=True):
+    kw = dict(d_model=96, num_bits=10, num_tables=20, warmup_items=200.0,
+              attr_rows=5, attr_bits=8, use_kernels=use_kernels, device=cuda)
+    if kind == "window":
+        return WindowedAceFilter(**kw, rotate_every=2)
+    if kind == "fleet":
+        return FleetDataFilter(**kw, num_tenants=4)
+    return AceDataFilter(**kw, hash_mode=kind)
+
+
+@pytest.mark.parametrize("kind", ["dense", "srht", "window", "fleet"])
+def test_attribution_consume_has_no_host_sync(cuda, kind):
+    """An attribution chunk (energy split, planes, find_hh through the
+    kernel) under sync-debug "error"; the drift planted in the last chunk
+    is named, and the kernel path's heavy hitters equal the plain
+    path's."""
+    from repro_torch.attribution import sketch as at
+    fk, fp = _attr_filters(kind, cuda), _attr_filters(kind, cuda, False)
+    rk, rp = StreamRunner(fk, 4, topk=3), StreamRunner(fp, 4, topk=3)
+    (sk_, w), sp = fk.init(), fp.init()[0]
+    rng = np.random.default_rng(0)
+    tids = torch.as_tensor(rng.integers(0, 4, (4, 64)), dtype=torch.int32,
+                           device=cuda) if kind == "fleet" else None
+    before = AE.KERNEL.launches
+    for c in range(4):
+        f = (rng.normal(size=(4, 64, 97)) * 0.3).astype(np.float32)
+        f[..., :32] += 1.0
+        if c == 3:
+            f[:, :8, :32] = 0.1
+            f[:, :8, [5, 40, 77]] = 8.0
+        f[:, 0, 0] = np.nan
+        chunk = torch.as_tensor(f, device=cuda)
+        extra = () if tids is None else (tids,)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sk_, summary = rk.consume(sk_, w, chunk, *extra)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        sp, plain = rp.consume(sp, w, chunk, *extra)
+    assert AE.KERNEL.launches - before == 4 * at.AttrConfig(97).num_levels
+    host, hp = rk.fetch(summary), rp.fetch(plain)
+    assert {5, 40, 77} <= set(host.hh_coord[host.hh_valid].tolist())
+    if kind == "srht":
+        np.testing.assert_array_equal(host.hh_coord, hp.hh_coord)
+        np.testing.assert_array_equal(host.hh_est, hp.hh_est)
+        assert torch.equal(sk_.attr, sp.attr)
+
+
+@pytest.mark.parametrize("use_kernels", [True, False])
+def test_attribution_fleet_of_one_is_flat_on_the_card(cuda, use_kernels):
+    kw = dict(d_model=96, num_bits=10, num_tables=20, warmup_items=200.0,
+              attr_rows=5, use_kernels=use_kernels, device=cuda)
+    flat, fleet = AceDataFilter(**kw), FleetDataFilter(**kw, num_tenants=1)
+    r1, rf = StreamRunner(flat, 4, topk=4), StreamRunner(fleet, 4, topk=4)
+    (s1, w), sf = flat.init(), fleet.init()[0]
+    tids = torch.zeros((4, 64), dtype=torch.int32, device=cuda)
+    rng = np.random.default_rng(1)
+    for c in range(3):
+        f = rng.normal(size=(4, 64, 97)).astype(np.float32)
+        f[:, :4, 7] += 6.0 * c
+        chunk = torch.as_tensor(f, device=cuda)
+        s1, a = r1.consume(s1, w, chunk)
+        sf, b = rf.consume(sf, w, chunk, tids)
+        for k in ("hh_coord", "hh_est", "hh_valid"):
+            assert torch.equal(getattr(a, k), getattr(b, k)), k
+    assert torch.equal(s1.attr, sf.attr[0])

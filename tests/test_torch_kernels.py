@@ -40,6 +40,7 @@ from repro_torch.kernels import ace_fleet_score as FS  # noqa: E402
 from repro_torch.kernels import ace_fleet_window_admit as FWA  # noqa: E402
 from repro_torch.kernels import ace_query as Q  # noqa: E402
 from repro_torch.kernels import ace_window_combine as WC  # noqa: E402
+from repro_torch.kernels import attr_estimate as AE  # noqa: E402
 from repro_torch.kernels import ace_score_fused as F  # noqa: E402
 from repro_torch.kernels import srht_hash as SH  # noqa: E402
 from repro_torch.kernels import ace_update as U  # noqa: E402
@@ -686,7 +687,7 @@ class TestWrapperContract:
     def test_plain_versions_count_no_launch(self):
         """The launch counters grow only where a CUDA kernel launches."""
         cfg, w, x, counts = self._args()
-        mods = (H, U, Q, A, F, SH, WC, FS, FWA)
+        mods = (H, U, Q, A, F, SH, WC, FS, FWA, AE)
         before = [m.KERNEL.launches for m in mods]
         b = H.srp_hash(x, w, cfg)
         U.ace_update(counts, b)
@@ -707,6 +708,7 @@ class TestWrapperContract:
             ring[:, None].contiguous(), ring.float(),
             torch.zeros(2, dtype=torch.int32), x, tids, w, torch.zeros(2),
             cfg)
+        AE.attr_estimate(counts.float(), b, torch.ones(b.shape))
         assert [m.KERNEL.launches for m in mods] == before
 
     def test_admit_rejects_non_scalar_threshold(self):
@@ -725,8 +727,8 @@ class TestBuild:
         assert build.sources() == ["ace_admit_fused", "ace_fleet_score",
                                    "ace_fleet_window_admit", "ace_query",
                                    "ace_score_fused", "ace_update",
-                                   "ace_window_combine", "srht_hash",
-                                   "srp_hash"]
+                                   "ace_window_combine", "attr_estimate",
+                                   "srht_hash", "srp_hash"]
 
     def test_cache_key_follows_the_sources(self, tmp_path, monkeypatch):
         csrc = tmp_path / "csrc"

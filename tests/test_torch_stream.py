@@ -144,10 +144,14 @@ class TestFilterStep:
 
     @pytest.mark.parametrize("kw,item", [
         (dict(threshold_mode="quantile"), 7), (dict(count_dtype="int8"), 9),
-        (dict(esc_capacity=4), 9), (dict(attr_rows=2), 8)])
+        (dict(esc_capacity=4), 9),
+        (dict(threshold_mode="quantile", num_epochs=2), 7)])
     def test_later_slices_raise(self, kw, item):
+        cls = AceDataFilter
+        if "num_epochs" in kw:                 # the windowed filter
+            from repro_torch.window.filter import WindowedAceFilter as cls
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            AceDataFilter(d_model=8, device="cpu", **kw)
+            cls(d_model=8, device="cpu", **kw)
 
     def test_bad_options_raise(self):
         with pytest.raises(ValueError, match="threshold_mode"):
