@@ -11,7 +11,10 @@ non-zero without printing its result line):
              at once) and print the card's name and power limit;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths: dense hash bucket ids agree
-             >= 0.999, SRHT ids bitwise at d = 36, 4097 and 12289, and
+             >= 0.999 at the fit, admit and stream-step shapes, and are
+             bitwise equal between two calls (``srp_hash`` and every
+             output of ``ace_admit_fused``), SRHT ids bitwise at d = 36,
+             4097 and 12289, and
              counts, gathers, scores and admit masks bitwise (downstream
              of the kernel's own bucket ids), including a batch of
              repeated rows for both fused admissions, the weighted (two
@@ -71,9 +74,14 @@ non-zero without printing its result line):
              coordinates kernel ≡ plain, items/s beside phase 5's;
 8. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
-             beside the least time the card could take (its bound); and
-             both hash kernels at the corners of hash_mode="auto"
-             (d = 64 and 4096), checked against the rule's picks.
+             beside the least time the card could take (its bound);
+             ``srp_hash`` at its three main-path shapes (fit, admit, stream
+             step) under its launch plan and every other cluster size, and
+             ``ace_admit_fused`` at its two (admit, stream step), each
+             beside cuBLAS's fp32 projection alone (``matmul_ms``, TF32
+             off), with the plan printed; and both hash kernels at the
+             corners of hash_mode="auto" (d = 64 and 4096), checked against
+             the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path of phases 3 to 7 and read just after, and every kernel
@@ -113,6 +121,7 @@ FIT_BATCH, N_QUERIES = 4096, 16_384
 D_MODEL, ADMITS, ADMIT_B, ADMIT_S = 4096, 32, 256, 16
 SRHT_FIT_N = 65_536                 # the shorter hash_mode="srht" fit
 STREAM_T, STREAM_B, STREAM_CHUNKS = 16, 512, 8
+STREAM_K, STREAM_L = 13, 32          # the stream filters' defaults
 SRHT_WIDTHS = (36, 4097, 12289)     # d_pad 64, 8192, 16384
 AUTO_DIMS, AUTO_B = (64, 4096), 256  # benchmarks/stream_throughput.py
 WIN_E, WIN_GAMMA, WIN_R = 4, 0.9, 4  # the windowed guardrails
@@ -232,6 +241,22 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
     err["srp_hash"] = float((kb - pb).abs().max())
     check(share >= 0.999, f"srp_hash ids agree with plain: {share:.6f} "
           f">= 0.999 at B={fit_batch}, d={KDD_D}")
+    # the admits' and the stream step's shapes; the depth splits add in a
+    # fixed order, so a second call gives the same bits
+    for (hb, hd, hk, hl) in ((admit_b, d_model + 1, K_BITS, L_TABLES),
+                             (STREAM_B, d_model + 1, STREAM_K, STREAM_L)):
+        hcfg = SrpConfig(dim=hd, num_bits=hk, num_tables=hl, seed=43)
+        hw = make_projections(hcfg, device=device)
+        hx = torch.randn((hb, hd), generator=gen, device=device)
+        k1, p1 = h.srp_hash(hx, hw, hcfg), h.srp_hash_plain(hx, hw, hcfg)
+        share = agreement(k1, p1)
+        err["srp_hash"] = max(err["srp_hash"], float((k1 - p1).abs().max()))
+        plan = h.device_plan(hb, hd, hk, hl, device)
+        check(share >= 0.999, f"srp_hash ids agree with plain: {share:.6f} "
+              f">= 0.999 at B={hb}, d={hd}, K={hk}, L={hl} "
+              f"({plan.describe()})")
+        check(torch.equal(k1, h.srp_hash(hx, hw, hcfg)), "srp_hash ids "
+              f"bitwise equal between two calls at B={hb}, d={hd}")
 
     counts0 = torch.randint(0, 9, (L_TABLES, 1 << K_BITS), generator=gen,
                             device=device, dtype=torch.int32)
@@ -252,24 +277,35 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
     # item hits is hit by 7 others in the same launch
     qc = qr[: admit_b // 8].repeat(8, 1).contiguous()
     mask = torch.rand((admit_b,), generator=gen, device=device) < 0.9
+    # the dense stream step's admission: B = 512 at K = 13, L = 32
+    scfg = SrpConfig(dim=d_model + 1, num_bits=STREAM_K,
+                     num_tables=STREAM_L, seed=47)
+    sw = make_projections(scfg, device=device)
+    sq = torch.randn((STREAM_B, d_model + 1), generator=gen, device=device)
+    smask = torch.rand((STREAM_B,), generator=gen, device=device) < 0.9
+    scounts = torch.randint(0, 9, (STREAM_L, 1 << STREAM_K), generator=gen,
+                            device=device, dtype=torch.int32)
     worst = 0.0
-    for name, qb in (("random", qr), ("colliding", qc)):
-        pre = h.srp_hash_plain(qb, aw, acfg)
-        rows = torch.arange(L_TABLES, device=device)[None, :]
-        recip = torch.tensor(1.0 / L_TABLES, dtype=torch.float32)
-        thresh = torch.median(
-            counts0[rows, pre.long()].float().sum(-1) * recip)
-        ck, sk_, ak, bk = a.ace_admit_fused(counts0.clone(), qb, aw, thresh,
-                                            acfg, item_mask=mask)
-        _, sp, ap, bp = a.ace_admit_fused_plain(counts0.clone(), qb, aw,
-                                                thresh, acfg, item_mask=mask)
+    for name, qb, c0, wb, cb, mb in (
+            ("random", qr, counts0, aw, acfg, mask),
+            ("colliding", qc, counts0, aw, acfg, mask),
+            ("stream step", sq, scounts, sw, scfg, smask)):
+        pre = h.srp_hash_plain(qb, wb, cb)
+        nt = cb.num_tables
+        rows = torch.arange(nt, device=device)[None, :]
+        recip = torch.tensor(1.0 / nt, dtype=torch.float32)
+        thresh = torch.median(c0[rows, pre.long()].float().sum(-1) * recip)
+        ck, sk_, ak, bk = a.ace_admit_fused(c0.clone(), qb, wb, thresh, cb,
+                                            item_mask=mb)
+        _, sp, ap, bp = a.ace_admit_fused_plain(c0.clone(), qb, wb, thresh,
+                                                cb, item_mask=mb)
         share = agreement(bk, bp)
         check(share >= 0.999, f"ace_admit_fused ({name}) ids agree with "
               f"plain: {share:.6f} >= 0.999")
         # downstream of the kernel's own ids everything is exact
-        ref_s = counts0[rows, bk.long()].float().sum(-1) * recip
-        ref_a = (ref_s >= thresh) & mask
-        ref_c = counts0.clone().index_put_(
+        ref_s = c0[rows, bk.long()].float().sum(-1) * recip
+        ref_a = (ref_s >= thresh) & mb
+        ref_c = c0.clone().index_put_(
             (rows, bk.long()),
             ref_a.to(torch.int32)[:, None].expand(bk.shape), accumulate=True)
         worst = max(worst, float((bk - bp).abs().max()),
@@ -285,6 +321,11 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
             s8 = sk_.view(8, -1)
             check(torch.equal(s8, s8[:1].expand_as(s8)),
                   "colliding copies score alike: every score is pre-insert")
+        again = a.ace_admit_fused(c0.clone(), qb, wb, thresh, cb,
+                                  item_mask=mb)
+        check(all(torch.equal(u, v) for u, v in
+                  zip((ck, sk_, ak, bk), again)),
+              f"ace_admit_fused ({name}) bitwise equal between two calls")
     err["ace_admit_fused"] = worst
 
     # ace_update's row mask: the masked insert of the SRHT/degraded paths
@@ -1286,8 +1327,69 @@ def bound(flops: float, nbytes: float):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def time_dense_hash(h, where, x, w, cfg) -> dict:
+    """``srp_hash`` at one shape: the kernel under its plan and under every
+    other cluster size the depth allows, the plain version, and cuBLAS's
+    fp32 projection alone (``torch.matmul(x, w[:, :K·L])``, TF32 off) as a
+    yardstick (no one PyTorch call also signs and packs)."""
+    B, d = x.shape
+    K, L, KL = cfg.num_bits, cfg.num_tables, cfg.num_projections
+    plan = h.device_plan(B, d, K, L, x.device)
+    splits_ms = {}
+    for s in range(1, min(h.MAX_SPLITS, -(-d // h.SLICE)) + 1):
+        other = h.make_plan(B, d, K, L, plan.tables, s)
+        splits_ms[s] = device_ms(
+            lambda: h.srp_hash_planned(x, w, cfg, other))
+    r = dict(
+        ms=device_ms(lambda: h.srp_hash(x, w, cfg)),
+        plain_ms=device_ms(lambda: h.srp_hash_plain(x, w, cfg)),
+        matmul_ms=device_ms(lambda: torch.matmul(x, w[:, :KL])),
+        library_ms=None, plan=plan.describe(), splits_ms=splits_ms,
+        shape=f"{where} B={B}, d={d}, K={K}, L={L}",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(2 * B * d * KL, 4 * (B * d + d * KL + B * L)))))
+    print(f"  srp_hash {r['shape']} ({r['plan']}): kernel {r['ms']:.5f} ms "
+          f"(S: " + ", ".join(f"{k} {v:.5f}" for k, v in splits_ms.items())
+          + f"), plain {r['plain_ms']:.5f}, cuBLAS projection "
+          f"{r['matmul_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    return r
+
+
+def time_admit(a, where, counts, q, w, thresh, cfg, mask) -> dict:
+    """``ace_admit_fused`` at one shape on a copy of ``counts``: bound by
+    the hash's operations against q, W, the counters it gathers and the
+    ones its admitted rows insert, the ids, scores and verdicts."""
+    B, d = q.shape
+    K, L, KL = cfg.num_bits, cfg.num_tables, cfg.num_projections
+    nb = 1 << K
+    c = counts.clone()
+    _, _, adm, ab = a.ace_admit_fused(c, q, w, thresh, cfg, item_mask=mask)
+    Ua = distinct_counters(ab, nb)
+    Uins = distinct_counters(ab[adm], nb) if bool(adm.any()) else 0
+    r = dict(
+        ms=device_ms(lambda: a.ace_admit_fused(c, q, w, thresh, cfg,
+                                               item_mask=mask)),
+        plain_ms=device_ms(lambda: a.ace_admit_fused_plain(
+            c, q, w, thresh, cfg, item_mask=mask)),
+        matmul_ms=device_ms(lambda: torch.matmul(q, w[:, :KL])),
+        library_ms=None,
+        plan=a.device_plan(B, d, K, L, q.device).describe(),
+        shape=f"{where} B={B}, d={d}, K={K}, L={L}, admitted "
+              f"{int(adm.sum())}",
+        **dict(zip(("bound_ms", "bound_by"), bound(
+            2 * B * d * KL + B * L,
+            4 * (B * d + d * KL) + 4 * Ua + 2 * 4 * Uins
+            + 4 * B * L + 4 * B + 2 * B + 4))))
+    print(f"  ace_admit_fused {r['shape']} ({r['plan']}): kernel "
+          f"{r['ms']:.5f} ms, plain {r['plain_ms']:.5f}, cuBLAS projection "
+          f"{r['matmul_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+          f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of bound")
+    return r
+
+
 def phase_timing(mods, device, est, guard) -> tuple:
-    from repro_torch.core.srp import SrpConfig
+    from repro_torch.core.srp import SrpConfig, make_projections
     h, u, q, a = (mods[k] for k in ("srp_hash", "ace_update", "ace_query",
                                     "ace_admit_fused"))
     L, nb = L_TABLES, 1 << K_BITS
@@ -1300,34 +1402,18 @@ def phase_timing(mods, device, est, guard) -> tuple:
                         device=device)
     w = est["w"]
     B, d, KL = FIT_BATCH, KDD_D, K_BITS * L
-    out["srp_hash"] = dict(
-        ms=device_ms(lambda: h.srp_hash(x, w, cfg)),
-        plain_ms=device_ms(lambda: h.srp_hash_plain(x, w, cfg)),
-        library_ms=None, shape=f"B={B}, d={d}, K={K_BITS}, L={L}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(2 * B * d * KL, 4 * (B * d + d * KL + B * L)))))
-
     buckets = est["buckets"]
     U = distinct_counters(buckets, nb)
     counts = guard["guardrail"].state.counts.clone()
     rows = torch.arange(L, device=device)[None, :].expand(B, L)
     b64 = buckets.long()
     ones = torch.ones_like(buckets)
-    out["ace_update"] = dict(
-        ms=device_ms(lambda: u.ace_update(counts, buckets)),
-        plain_ms=device_ms(lambda: u.ace_update_plain(counts, buckets)),
-        library_ms=device_ms(
-            lambda: counts.index_put_((rows, b64), ones, accumulate=True)),
-        shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(B * L, 4 * B * L + 2 * 4 * U))))
-    out["ace_query"] = dict(
-        ms=device_ms(lambda: q.ace_query(counts, buckets)),
-        plain_ms=device_ms(lambda: q.ace_query_plain(counts, buckets)),
-        library_ms=device_ms(lambda: counts[rows, b64]),
-        shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(0, 4 * B * L * 2 + 4 * U))))
+    # ace_update timed as the first kernel of this phase, straight after
+    # the host-bound phases, into a copy of the counts (the later timings
+    # see the counts as they were); its reported time is taken below,
+    # after the dense hash's timings
+    first = counts.clone()
+    update_first_ms = device_ms(lambda: u.ace_update(first, buckets))
 
     # the guardrail's shapes: B=256 features of d_model + 1 = 4097
     g = guard["guardrail"]
@@ -1339,28 +1425,67 @@ def phase_timing(mods, device, est, guard) -> tuple:
     feat = torch.where(finite[:, None], feat, 0.0).contiguous()
     from repro_torch.core import sketch as sk
     thresh = sk.admit_threshold(g.state, g.gcfg.alpha, g.gcfg.warmup_items)
+    # the dense hash at each shape its main-path launches run at: the
+    # fit, the windowed and fleet admits, the stream step; and the card's
+    # cluster capacity its plans follow
+    clusters = h.device_clusters(device)
+    print(f"  clusters of S = 1..8 blocks the card runs at once, two blocks "
+          f"an SM: {clusters} (the CPU tests' stand-in: "
+          f"{h.H100_CLUSTERS})")
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    scfg = SrpConfig(dim=D_MODEL + 1, num_bits=STREAM_K,
+                     num_tables=STREAM_L, seed=47)
+    sw = make_projections(scfg, device=device)
+    sx = torch.randn((STREAM_B, D_MODEL + 1), generator=gen, device=device)
+    hashes = [time_dense_hash(h, "fit", x, w, cfg),
+              time_dense_hash(h, "admit", feat, g.w, acfg),
+              time_dense_hash(h, "stream step", sx, sw, scfg)]
+    out["srp_hash"] = {**hashes[-1], "by_shape": hashes}
+
+    out["ace_update"] = dict(
+        ms=device_ms(lambda: u.ace_update(counts, buckets)),
+        plain_ms=device_ms(lambda: u.ace_update_plain(counts, buckets)),
+        library_ms=device_ms(
+            lambda: counts.index_put_((rows, b64), ones, accumulate=True)),
+        first_ms=update_first_ms,
+        shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(B * L, 4 * B * L + 2 * 4 * U))))
+    # the same ids into three more copies of the same counts: the atomics'
+    # time moves with the buffer that holds the hot counters
+    copies_ms = [device_ms(lambda c=c: u.ace_update(c, buckets))
+                 for c in [counts.clone() for _ in range(3)]]
+    out["ace_update"]["copies_ms"] = copies_ms
+    print(f"  ace_update B={B}, L={L}: {update_first_ms:.5f} ms as the "
+          f"phase's first timed kernel (into a fresh copy of the counts), "
+          f"{out['ace_update']['ms']:.5f} ms after the dense hash's "
+          f"timings, then " + ", ".join(f"{t:.5f}" for t in copies_ms)
+          + " ms into three more fresh copies")
+    out["ace_query"] = dict(
+        ms=device_ms(lambda: q.ace_query(counts, buckets)),
+        plain_ms=device_ms(lambda: q.ace_query_plain(counts, buckets)),
+        library_ms=device_ms(lambda: counts[rows, b64]),
+        shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound(0, 4 * B * L * 2 + 4 * U))))
     c2 = counts.clone()
-    _, _, adm, ab = a.ace_admit_fused(c2, feat, g.w, thresh, acfg,
-                                      item_mask=finite)
-    Ua = distinct_counters(ab, nb)
-    Uins = distinct_counters(ab[adm], nb) if bool(adm.any()) else 0
-    B2, d2 = feat.shape
-    out["ace_admit_fused"] = dict(
-        ms=device_ms(lambda: a.ace_admit_fused(c2, feat, g.w, thresh, acfg,
-                                               item_mask=finite)),
-        plain_ms=device_ms(lambda: a.ace_admit_fused_plain(
-            c2, feat, g.w, thresh, acfg, item_mask=finite)),
-        library_ms=None,
-        shape=f"B={B2}, d={d2}, K={K_BITS}, L={L}, admitted "
-              f"{int(adm.sum())}",
-        **dict(zip(("bound_ms", "bound_by"), bound(
-            2 * B2 * d2 * KL + B2 * L,
-            4 * (B2 * d2 + d2 * KL) + 4 * Ua + 2 * 4 * Uins
-            + 4 * B2 * L + 4 * B2 + 2 * B2 + 4))))
-    # the admit kernel's hash alone: srp_hash shares its block hash
-    hash_ms = device_ms(lambda: h.srp_hash(feat, g.w, acfg))
-    print(f"  srp_hash at the admit shape B={B2}, d={d2}: {hash_ms:.5f} ms "
-          "(the admit kernel's phase 1 without its gather)")
+
+    # the admission at the guardrails' shape and at the dense stream
+    # step's (K = 13, L = 32: counts from the stream's own ids, a
+    # threshold that admits about half)
+    sc = torch.zeros((STREAM_L, 1 << STREAM_K), dtype=torch.int32,
+                     device=device)
+    u.ace_update(sc, h.srp_hash(sx, sw, scfg))
+    u.ace_update(sc, h.srp_hash(torch.randn(sx.shape, generator=gen,
+                                            device=device), sw, scfg))
+    srows = torch.arange(STREAM_L, device=device)[None, :]
+    sthresh = torch.median(sc[srows, h.srp_hash(sx, sw, scfg).long()]
+                           .float().sum(-1) / STREAM_L)
+    admits = [time_admit(a, "admit", c2, feat, g.w, thresh, acfg, finite),
+              time_admit(a, "stream step", sc, sx, sw, sthresh, scfg,
+                         torch.ones(STREAM_B, dtype=torch.bool,
+                                    device=device))]
+    out["ace_admit_fused"] = {**admits[-1], "by_shape": admits}
 
     # ace_score_fused at the estimator's score shape, on its fitted counts
     f, sh = mods["ace_score_fused"], mods["srht_hash"]
@@ -1649,7 +1774,9 @@ def main() -> int:
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "launches_by_path": by_path,
-            **{k: t[k] for k in ("at_post_mortem",) if k in t}})
+            **{k: t[k] for k in ("matmul_ms", "plan", "by_shape",
+                                 "first_ms", "copies_ms", "at_post_mortem")
+                 if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
           f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "

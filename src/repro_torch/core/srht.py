@@ -128,17 +128,20 @@ def flops_srht(cfg: SrpConfig, batch: int) -> int:
 # Raw operation counts are the wrong units to compare: the dense hash is
 # fused multiply-adds in a register-tiled product, the SRHT is log2(d)
 # shared-memory butterfly passes plus an m-element row gather.  The two
-# weights fold that in.  They are the reference's values, checked on the
-# card rather than carried over: both hash kernels timed on an NVIDIA
-# H100 80GB HBM3 (700 W) at the corners of benchmarks/stream_throughput.py
-# (K = 15, L = 50, B = 256) gave dense 5.7 µs vs SRHT 6.3 µs at d = 64
-# and dense 126 µs vs SRHT 16 µs at d = 4096, and the rule with these
-# weights picks the faster family at both (PERF.md; chip_smoke.py phase 6
-# re-times the corners and checks the picks).
+# weights fold that in.  They are fitted on the card: both hash kernels
+# timed on an NVIDIA H100 80GB HBM3 (700 W) at the corners of
+# benchmarks/stream_throughput.py (K = 15, L = 50, B = 256) gave dense
+# 7.3 µs vs SRHT 6.0 µs at d = 64 and dense 60 µs vs SRHT 16 µs at
+# d = 4096 (the dense hash of csrc/srp_gemm.cuh; PERF.md), and these
+# weights make the rule's cost ratios match those two time ratios (1.22
+# and 3.77): it picks SRHT at both corners and dense below d = 53 at that
+# K, L (chip_smoke.py phase 8 re-times the corners and checks the picks).
+# The reference's weights (32, 16) would pick dense at d = 64, at 1.22x
+# the SRHT's time there, and at every width up to d = 463.
 # ---------------------------------------------------------------------------
 
-DENSE_MATMUL_SPEEDUP = 32.0   # dense FLOPs per SRHT add of equal cost
-GATHER_COST_FACTOR = 16.0     # cost of one gathered row vs one add
+DENSE_MATMUL_SPEEDUP = 15.0   # dense FLOPs per SRHT add of equal cost
+GATHER_COST_FACTOR = 6.0      # cost of one gathered row vs one add
 
 
 def effective_cost_dense(cfg: SrpConfig) -> float:

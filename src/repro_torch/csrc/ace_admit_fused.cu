@@ -6,9 +6,10 @@
 // B = 256, d = 4097 that is 1.57 GFLOP against 12.6 MB of q and W).
 //
 // Design: two kernels, launched back to back on one stream.
-//   Phase 1 (admit_hash_gather): the srp_tile.cuh hash over
-//     (16 rows x one group of tables) blocks, as in srp_hash.cu, whose
-//     epilogue writes each bucket id and gathers its counter,
+//   Phase 1 (admit_hash_gather): the srp_gemm.cuh hash, as in srp_hash.cu
+//     (64-row x table-group tiles, the depth split across a thread-block
+//     cluster by the launch plan of kernels/srp_hash.py), whose epilogue
+//     writes each bucket id and gathers its counter,
 //     gathered[b, j] = counts[j, bucket].  No counter is written in this
 //     phase, so every gather sees the pre-insert counts.
 //   Phase 2 (admit_score_insert): one thread per row sums its gathered
@@ -21,22 +22,23 @@
 // the reference's "score strictly against the PRE-insert counts"
 // (ace_admit_fused.py:23-25), which a single launch with many blocks
 // could not promise (one block's gathers could see another's atomics).
-// The phase-1 hash keeps srp_hash's (rows x table groups) grid
-// instead of one block per row; that is why the row sum lives in phase 2.
-// The TPU kernel's one-tile batch and its VMEM batch cap do not apply.
+// The phase-1 hash keeps srp_hash's grid instead of one block per row;
+// that is why the row sum lives in phase 2.  The TPU kernel's one-tile
+// batch and its VMEM batch cap do not apply.
 
-#include "srp_tile.cuh"
+#include "srp_gemm.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::kThreads)
+__global__ void __launch_bounds__(repro::gemm::kThreads,
+                                  repro::gemm::kMinBlocks)
 admit_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
                   const float* __restrict__ w, int* __restrict__ buckets,
                   float* __restrict__ gathered, int B, int d, int P, int K,
-                  int L, int nbuckets) {
-  __shared__ repro::SrpTileSmem sm;
-  repro::srp_tile(
-      q, w, B, d, P, K, L, sm, [&](int row, int j, int bucket) {
+                  int L, int nbuckets, repro::gemm::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  repro::gemm::srp_gemm_tile(
+      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
         gathered[o] = static_cast<float>(
@@ -71,21 +73,32 @@ __global__ void admit_score_insert(int* __restrict__ counts,
 
 }  // namespace
 
-// counts (L, nbuckets) int32, updated in place; q (B, d), w (d, P) fp32;
-// thresh: one fp32 on the device; item_mask (B,) bool or null.
-// Outputs: buckets (B, L) int32, scores (B,) fp32, admit (B,) bool;
-// gathered (B, L) fp32 is scratch.  Needs 1 <= K <= 31, B >= 1.
+// counts (L, nbuckets) int32, updated in place; q (B, d), w (d, P) fp32,
+// w 16-byte aligned; thresh: one fp32 on the device; item_mask (B,) bool
+// or null.  Outputs: buckets (B, L) int32, scores (B,) fp32, admit (B,)
+// bool; gathered (B, L) fp32 is scratch.  The hash's plan as in
+// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does not fit
+// returns cudaErrorInvalidValue.
 REPRO_API int repro_ace_admit_fused(int* counts, const float* q,
                                     const float* w, const float* thresh,
                                     const unsigned char* item_mask,
                                     int* buckets, float* gathered,
                                     float* scores, unsigned char* admit,
                                     int B, int d, int P, int K, int L,
-                                    int nbuckets, float inv_l, void* stream) {
+                                    int nbuckets, float inv_l, int rows,
+                                    int row_tiles, int tables, int groups,
+                                    int splits, int b0, int b1, int b2,
+                                    int b3, int b4, int b5, int b6, int b7,
+                                    int b8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  admit_hash_gather<<<repro::tile_grid(B, K, L), repro::kThreads, 0, s>>>(
-      counts, q, w, buckets, gathered, B, d, P, K, L, nbuckets);
-  const cudaError_t err = cudaGetLastError();
+  const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Plan plan = repro::gemm::make_plan(
+      rows, row_tiles, tables, groups, splits, bounds);
+  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = repro::gemm::launch(
+      admit_hash_gather, plan, s, counts, q, w, buckets, gathered, B, d, P,
+      K, L, nbuckets, plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kThreads = 256;
   admit_score_insert<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(

@@ -4,31 +4,61 @@
 //
 // Bound on the H100: fp32 operations (2*B*d*K*L FLOP against 67 TFLOP/s
 // outside the tensor cores; the bytes of x, W and the ids are small beside
-// them).  Design: the block hash of srp_tile.cuh, one block per (16 rows x
-// one group of whole tables), with sign and pack fused into the epilogue,
-// so the (B, K*L) projection never reaches device memory.  The TPU
-// kernel's PACK matmul is not carried over: the pack is integer shifts.
+// them).  Design: the register-tiled block hash of srp_gemm.cuh, one
+// block per (64 rows x one group of whole tables x one depth split), the
+// splits of a tile one thread-block cluster that adds its partial tiles
+// through distributed shared memory, with sign and pack fused into the
+// epilogue, so the (B, K*L) projection never reaches device memory.  The
+// launch plan comes from kernels/srp_hash.py (`hash_plan`).  The TPU
+// kernel's PACK matmul is not carried over: the pack is a funnel shift.
 
-#include "srp_tile.cuh"
+#include "srp_gemm.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::kThreads)
+__global__ void __launch_bounds__(repro::gemm::kThreads,
+                                  repro::gemm::kMinBlocks)
 srp_hash_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                int* __restrict__ out, int B, int d, int P, int K, int L) {
-  __shared__ repro::SrpTileSmem sm;
-  repro::srp_tile(x, w, B, d, P, K, L, sm, [&](int row, int j, int bucket) {
-    out[static_cast<long long>(row) * L + j] = bucket;
-  });
+                int* __restrict__ out, int B, int d, int P, int K, int L,
+                repro::gemm::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  repro::gemm::srp_gemm_tile(
+      x, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+        out[static_cast<long long>(row) * L + j] = bucket;
+      });
 }
 
 }  // namespace
 
-// x (B, d), w (d, P) fp32; out (B, L) int32.  Needs 1 <= K <= 31, B >= 1.
+// x (B, d), w (d, P) fp32, w 16-byte aligned; out (B, L) int32.  The plan:
+// rows, row_tiles, tables, groups, splits, then the splits + 1 depth
+// bounds (b0..b8; the unused ones are ignored).  Needs 1 <= K <= 31,
+// B >= 1; a plan that does not fit returns cudaErrorInvalidValue.
 REPRO_API int repro_srp_hash(const float* x, const float* w, int* out, int B,
-                             int d, int P, int K, int L, void* stream) {
-  srp_hash_kernel<<<repro::tile_grid(B, K, L), repro::kThreads, 0,
-                    static_cast<cudaStream_t>(stream)>>>(x, w, out, B, d, P,
-                                                         K, L);
-  return static_cast<int>(cudaGetLastError());
+                             int d, int P, int K, int L, int rows,
+                             int row_tiles, int tables, int groups,
+                             int splits, int b0, int b1, int b2, int b3,
+                             int b4, int b5, int b6, int b7, int b8,
+                             void* stream) {
+  const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Plan plan = repro::gemm::make_plan(
+      rows, row_tiles, tables, groups, splits, bounds);
+  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(repro::gemm::launch(
+      srp_hash_kernel, plan, static_cast<cudaStream_t>(stream), x, w, out,
+      B, d, P, K, L, plan));
+}
+
+// How many clusters of `splits` blocks the card runs at once, each block
+// asking for `smem` bytes of dynamic shared memory (at least the
+// kernel's); written to *clusters.  The plan's cluster size follows it
+// (kernels/srp_hash.py device_clusters).
+REPRO_API int repro_srp_hash_max_clusters(int splits, int smem,
+                                          int* clusters) {
+  const int bounds[repro::gemm::kMaxSplits + 1] = {};
+  const repro::gemm::Plan plan = repro::gemm::make_plan(
+      repro::gemm::kRows, 1, 1, 1, splits, bounds);
+  return static_cast<int>(repro::gemm::max_active_clusters(
+      srp_hash_kernel, plan, smem, clusters));
 }

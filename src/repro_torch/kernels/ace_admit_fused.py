@@ -3,13 +3,13 @@ threshold -> masked insert, counts updated in place.
 
 Replaces the TPU kernel ``repro.kernels.ace_admit_fused.ace_admit_fused``
 (Pallas, in ``src/repro/kernels/ace_admit_fused.py``).  CUDA source:
-``csrc/ace_admit_fused.cu`` with the shared block hash
-``csrc/srp_tile.cuh``.
+``csrc/ace_admit_fused.cu`` with the block hash ``csrc/srp_gemm.cuh``.
 
 Bound on the H100: the hash's fp32 operations (2·B·d·K·L FLOP; at
 B=256, d=4097, K·L=750: 1.57 GFLOP, 23 µs at 67 TFLOP/s).  The design is
-two kernels on one stream: phase 1 hashes over (rows × table group)
-blocks and gathers each bucket's PRE-insert counter; phase 2 sums each
+two kernels on one stream: phase 1 is ``srp_hash``'s register-tiled,
+cluster-split hash under the same launch plan (``srp_hash.hash_plan``),
+whose epilogue gathers each bucket's PRE-insert counter; phase 2 sums each
 row's gathers in table order, multiplies by float32(1/L), compares with
 the threshold read through a device pointer (no host sync), gates on the
 item mask, and atomically inserts the admitted rows.  Stream order puts
@@ -25,11 +25,13 @@ import torch
 
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.srp_hash import srp_hash_plain
+from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
+                                          check_w_aligned, device_plan,
+                                          srp_hash_plain)
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                      + [ctypes.c_float])
+                      + [ctypes.c_float] + PLAN_ARGTYPES)
 
 
 def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -66,6 +68,16 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
          buckets (B, L) int32 — the one hash, for the Welford epilogue).
     Rows where ``item_mask`` is False neither admit nor insert.
     """
+    return ace_admit_fused_planned(counts, q, w, thresh, cfg, item_mask,
+                                   None)
+
+
+def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
+                            w: torch.Tensor, thresh: torch.Tensor,
+                            cfg: SrpConfig, item_mask: torch.Tensor | None,
+                            plan: HashPlan | None):
+    """``ace_admit_fused`` with the hash under a given launch plan (None:
+    ``srp_hash.device_plan``'s)."""
     L, nbuckets = counts.shape
     B, d = q.shape
     K, P = cfg.num_bits, cfg.padded_projections
@@ -89,9 +101,12 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     admit = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
+        check_w_aligned(w)
+        plan = plan or device_plan(B, d, K, L, dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                thresh.data_ptr(),
                None if item_mask is None else item_mask.data_ptr(),
                buckets.data_ptr(), gathered.data_ptr(), scores.data_ptr(),
-               admit.data_ptr(), B, d, P, K, L, nbuckets, 1.0 / L)
+               admit.data_ptr(), B, d, P, K, L, nbuckets, 1.0 / L,
+               *plan.args())
     return counts, scores, admit, buckets

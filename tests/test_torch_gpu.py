@@ -81,9 +81,29 @@ def _ids(B, K, L, device, seed=2, repeat=1):
 
 # (B, d, K, L): one of everything; depth below, at and across the 64-deep
 # x slice; K = 1, 16 (tables straddle no block) and 31 (4 tables a block);
-# L not a multiple of the tables a block holds; the two main-path shapes.
+# L not a multiple of the tables a block holds; the three main-path shapes
+# (fit, admit, stream step); a depth of 5 and rows across two row tiles.
 HASH_SHAPES = [(1, 1, 1, 1), (7, 9, 4, 3), (17, 64, 7, 19), (33, 130, 31, 5),
-               (5, 65, 16, 9), (4096, 36, 15, 50), (256, 4097, 15, 50)]
+               (5, 65, 16, 9), (4096, 36, 15, 50), (256, 4097, 15, 50),
+               (512, 4097, 13, 32), (70, 5, 13, 32)]
+
+# (B, d, K, L, tables, splits) under a forced launch plan: depths with
+# fewer slices than splits (d = 1, 5) or split unevenly (d = 33, 130),
+# d = 4097 at the largest S, K = 31 with one table a group, K = 13 groups
+# whose tiles start off a 4-column boundary, cluster sizes that do not
+# divide the 64 rows (S = 3, 5, 6, 7).
+FORCED_PLANS = [(70, 1, 13, 32, None, 8), (70, 5, 13, 32, None, 4),
+                (9, 5, 15, 50, 3, 8), (130, 33, 15, 50, None, 2),
+                (65, 130, 7, 19, 5, 4), (512, 4097, 13, 32, None, 8),
+                (40, 130, 31, 9, 1, 4), (65, 4097, 31, 7, 1, 8),
+                (3, 4097, 13, 32, 2, 8), (512, 4097, 13, 32, None, 7),
+                (70, 33, 15, 50, None, 3), (130, 130, 31, 9, 1, 5),
+                (100, 200, 12, 20, None, 6)]
+
+
+def _forced_plan(B, d, K, L, tables, splits):
+    return H.make_plan(B, d, K, L, tables or H.tables_per_group(K, L),
+                       splits)
 
 
 @pytest.mark.parametrize("B,d,K,L", HASH_SHAPES)
@@ -98,6 +118,71 @@ def test_srp_hash_matches_plain(cuda, B, d, K, L):
     assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
     assert bool(((got >= 0) & (got.long() < (1 << K))).all())
     assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+
+
+@pytest.mark.parametrize("B,d,K,L,tables,splits", FORCED_PLANS)
+def test_srp_hash_under_forced_plans(cuda, B, d, K, L, tables, splits):
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=B + d)
+    w = make_projections(cfg, device=cuda)
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
+        .to(cuda)
+    plan = _forced_plan(B, d, K, L, tables, splits)
+    before = H.KERNEL.launches
+    got = H.srp_hash_planned(x, w, cfg, plan)
+    assert H.KERNEL.launches == before + 1
+    assert bool(((got >= 0) & (got.long() < (1 << K))).all())
+    assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+
+
+def test_dense_hash_is_deterministic(cuda):
+    """The depth splits add their partial tiles in rank order, so two
+    calls give the same bits (stream step shape, S = 8)."""
+    cfg = SrpConfig(dim=4097, num_bits=13, num_tables=32, seed=9)
+    w = make_projections(cfg, device=cuda)
+    x = torch.randn((512, 4097), generator=torch.Generator().manual_seed(9)) \
+        .to(cuda)
+    assert H.device_plan(512, 4097, 13, 32, cuda).splits > 1
+    first = H.srp_hash(x, w, cfg)
+    assert torch.equal(first, H.srp_hash(x, w, cfg))
+    counts = _counts(32, 13, cuda)
+    t = torch.tensor(float("-inf"), device=cuda)
+    a = A.ace_admit_fused(counts.clone(), x, w, t, cfg)
+    b = A.ace_admit_fused(counts.clone(), x, w, t, cfg)
+    assert torch.equal(a[3], first) and torch.equal(b[3], first)
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def test_dense_hash_takes_x_off_a_16_byte_boundary(cuda):
+    """x rows are read in 4-byte copies: a contiguous view 4 bytes into
+    its buffer hashes to the same bits as an aligned copy."""
+    B, d = 100, 4097
+    cfg = SrpConfig(dim=d, num_bits=15, num_tables=50, seed=4)
+    w = make_projections(cfg, device=cuda)
+    buf = torch.randn((B * d + 1,), generator=torch.Generator()
+                      .manual_seed(4)).to(cuda)
+    x = buf[1:1 + B * d].view(B, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 == 4
+    want = H.srp_hash(x.clone(), w, cfg)
+    assert torch.equal(H.srp_hash(x, w, cfg), want)
+    assert _agreement(want, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+    counts = _counts(50, 15, cuda)
+    t = torch.tensor(float("-inf"), device=cuda)
+    got = A.ace_admit_fused(counts.clone(), x, w, t, cfg)
+    assert torch.equal(got[3], want)
+
+
+def test_dense_hash_refuses_a_misaligned_w_or_a_foreign_plan(cuda):
+    cfg = SrpConfig(dim=8, num_bits=5, num_tables=3)
+    w = make_projections(cfg, device=cuda)
+    x = torch.randn((4, 8), device=cuda)
+    buf = torch.zeros((w.numel() + 1,), device=cuda)
+    w_off = buf[1:].view(w.shape)
+    with pytest.raises(ValueError, match="16-byte"):
+        H.srp_hash(x, w_off, cfg)
+    before = H.KERNEL.launches
+    with pytest.raises(RuntimeError, match="repro_srp_hash"):
+        H.srp_hash_planned(x, w, cfg, H.make_plan(4, 9, 5, 3, 3, 1))
+    assert H.KERNEL.launches == before
 
 
 def test_srp_hash_zero_row_is_all_ones(cuda):
@@ -145,7 +230,8 @@ def test_ace_query_matches_plain(cuda, B, K, L):
 @pytest.mark.parametrize("B,d,K,L,repeat", [(16, 32, 8, 10, 1),
                                             (8, 36, 15, 50, 4),
                                             (6, 9, 3, 4, 3),
-                                            (32, 4097, 15, 50, 8)])
+                                            (32, 4097, 15, 50, 8),
+                                            (512, 4097, 13, 32, 1)])
 def test_ace_admit_fused_matches_plain(cuda, B, d, K, L, repeat, thresh,
                                        masked):
     """Warmup (−inf), armed (median) and reject-all thresholds, with and
@@ -189,6 +275,39 @@ def test_ace_admit_fused_matches_plain(cuda, B, d, K, L, repeat, thresh,
     if repeat > 1:
         s = got_s.view(repeat, B)
         assert torch.equal(s, s[:1].expand_as(s)), "copies score alike"
+
+
+# The admission's forced plans: K <= 15, so each (L, 2^K) counts table
+# stays small (K = 31 is covered by the hash alone).
+ADMIT_FORCED_PLANS = [p for p in FORCED_PLANS if p[2] <= 15]
+
+
+@pytest.mark.parametrize("B,d,K,L,tables,splits", ADMIT_FORCED_PLANS)
+def test_ace_admit_fused_under_forced_plans(cuda, B, d, K, L, tables,
+                                            splits):
+    """The admission's hash under the forced plans: ids within the floor,
+    scores, verdicts and counts bitwise downstream of its own ids."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=B)
+    w = make_projections(cfg, device=cuda)
+    q = torch.randn((B, d), generator=torch.Generator().manual_seed(B)) \
+        .to(cuda)
+    counts = _counts(L, K, cuda)
+    rows = torch.arange(L, device=cuda)[None, :]
+    recip = torch.tensor(1.0 / L, dtype=torch.float32)
+    pre = H.srp_hash_plain(q, w, cfg)
+    t = torch.median(counts[rows, pre.long()].float().sum(-1) * recip)
+    plan = _forced_plan(B, d, K, L, tables, splits)
+    got_c, got_s, got_a, got_b = A.ace_admit_fused_planned(
+        counts.clone(), q, w, t, cfg, None, plan)
+    assert _agreement(got_b, pre) >= HASH_AGREEMENT
+    ref_s = counts[rows, got_b.long()].float().sum(-1) * recip
+    ref_a = ref_s >= t
+    ref_c = counts.clone().index_put_(
+        (rows, got_b.long()), ref_a.to(torch.int32)[:, None].expand(B, L),
+        accumulate=True)
+    assert torch.equal(got_s, ref_s)
+    assert torch.equal(got_a, ref_a)
+    assert torch.equal(got_c, ref_c)
 
 
 def test_wrappers_refuse_mixed_devices(cuda):

@@ -739,6 +739,17 @@ class TestBuild:
             (csrc / "srp_tile.cuh").read_text() + "\n// edit\n")
         assert build.library_path("srp_hash") != before
 
+    def test_cache_key_follows_the_dense_hash_header(self, tmp_path,
+                                                     monkeypatch):
+        csrc = tmp_path / "csrc"
+        shutil.copytree(build.CSRC, csrc)
+        monkeypatch.setattr(build, "CSRC", csrc)
+        before = {n: build.library_path(n)
+                  for n in ("srp_hash", "ace_admit_fused")}
+        (csrc / "srp_gemm.cuh").write_text(
+            (csrc / "srp_gemm.cuh").read_text() + "\n// edit\n")
+        assert all(build.library_path(n) != p for n, p in before.items())
+
     def test_missing_nvcc_raises(self, tmp_path, monkeypatch):
         import torch.utils.cpp_extension as cpp_ext
         monkeypatch.setattr(build, "BUILD_DIR", tmp_path)

@@ -157,13 +157,17 @@ class TestHashModeDispatch:
                               fixed).numpy())
 
     def test_auto_picks_dense_low_and_srht_high(self):
-        """The corners of benchmarks/stream_throughput.py (K=15, L=50): the
-        port's weights pick dense at d = 64 and SRHT at d = 4096, the
-        winners its kernels showed on the H100 (PERF.md)."""
-        lo = srp.SrpConfig(dim=64, hash_mode="auto")
+        """At K=15, L=50 the port's weights, derived from both hash kernels
+        on the H100 at the corners of benchmarks/stream_throughput.py
+        (PERF.md), pick SRHT at both corners (d = 64 and 4096), the
+        winners there, and dense below the break-even (d = 36, the
+        KDD-Cup99 width)."""
+        lo = srp.SrpConfig(dim=36, hash_mode="auto")
         hi = srp.SrpConfig(dim=4096, hash_mode="auto")
         assert srp.resolve_hash_mode(lo) == "dense"
         assert srp.resolve_hash_mode(hi) == "srht"
+        assert srp.resolve_hash_mode(
+            srp.SrpConfig(dim=64, hash_mode="auto")) == "srht"
         assert srht.effective_cost_srht(lo) > srht.effective_cost_dense(lo)
         assert srht.effective_cost_srht(hi) < srht.effective_cost_dense(hi)
 
