@@ -14,10 +14,12 @@ non-zero without printing its result line):
              >= 0.999 at the fit, admit and stream-step shapes, and are
              bitwise equal between two calls (``srp_hash`` and every
              output of ``ace_admit_fused``), SRHT ids bitwise at d = 36,
-             4097 and 12289, and
+             64, 1024, 1025, 4097 and 12289 (an all-zero and a NaN row
+             each), and
              counts, gathers, scores and admit masks bitwise (downstream
              of the kernel's own bucket ids), including a batch of
-             repeated rows for both fused admissions, the weighted (two
+             repeated rows for both fused admissions, ``ace_update``
+             with every id of the fit batch in one bucket, the weighted (two
              tables masked) forms of the fused score and the window
              combine, ``ace_update``/``ace_query`` at per-item base
              rows of the windowed fleet's (T·E·L, 2^15) ring, and
@@ -79,9 +81,14 @@ non-zero without printing its result line):
              step) under its launch plan and every other cluster size, and
              ``ace_admit_fused`` at its two (admit, stream step), each
              beside cuBLAS's fp32 projection alone (``matmul_ms``, TF32
-             off), with the plan printed; and both hash kernels at the
-             corners of hash_mode="auto" (d = 64 and 4096), checked against
-             the rule's picks.
+             off), with the plan printed; ``ace_update`` at the fit (into
+             five fresh tables), admit and stream-step shapes and
+             ``srht_hash`` at the stream step, the d = 36 fit and the
+             d = 64 corner (``time_update_and_srht``, which
+             ``scripts/kernel_ab.py`` also runs on another checkout's
+             kernels); and both hash kernels at the corners of
+             hash_mode="auto" (d = 64 and 4096), checked against the
+             rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path of phases 3 to 7 and read just after, and every kernel
@@ -122,7 +129,7 @@ D_MODEL, ADMITS, ADMIT_B, ADMIT_S = 4096, 32, 256, 16
 SRHT_FIT_N = 65_536                 # the shorter hash_mode="srht" fit
 STREAM_T, STREAM_B, STREAM_CHUNKS = 16, 512, 8
 STREAM_K, STREAM_L = 13, 32          # the stream filters' defaults
-SRHT_WIDTHS = (36, 4097, 12289)     # d_pad 64, 8192, 16384
+SRHT_WIDTHS = (36, 64, 1024, 1025, 4097, 12289)   # d_pad 64 ... 16384
 AUTO_DIMS, AUTO_B = (64, 4096), 256  # benchmarks/stream_throughput.py
 WIN_E, WIN_GAMMA, WIN_R = 4, 0.9, 4  # the windowed guardrails
 FLEET_T = 8                          # tenants of the fleets
@@ -335,6 +342,15 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
     err["ace_update"] = max(err["ace_update"], float((ck - cp).abs().max()))
     check(torch.equal(ck, cp), "ace_update with a row mask bitwise equal "
           "to plain")
+    # every id of the fit batch in one bucket: each warp's 32 rows of a
+    # table merge in one lane, a block's 8 warps in its shared table, and
+    # 16 blocks' sums meet in each of the 50 counters
+    hot = torch.full_like(kb, 12345)
+    ck = u.ace_update(counts0.clone(), hot)
+    cp = u.ace_update_plain(counts0.clone(), hot)
+    err["ace_update"] = max(err["ace_update"], float((ck - cp).abs().max()))
+    check(torch.equal(ck, cp), f"ace_update with all {hot.numel()} ids in "
+          "one bucket a table bitwise equal to plain")
 
     # ace_score_fused at the estimator's score shape, both forms
     f = mods["ace_score_fused"]
@@ -364,7 +380,9 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
               f"{n_queries} rows whose ids agree")
     err["ace_score_fused"] = worst
 
-    # srht_hash: ids bitwise at three widths, one above 48 KB of smem
+    # srht_hash: ids bitwise on both sides of the one-warp / several-warp
+    # row (d_pad 1024 / 2048), at powers of two and the widths of the
+    # main paths, one above 48 KB of smem; an all-zero and a NaN row
     sh = mods["srht_hash"]
     worst = 0.0
     for d in SRHT_WIDTHS:
@@ -372,6 +390,7 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
                          hash_mode="srht")
         xs = torch.randn((STREAM_B, d), generator=gen, device=device)
         xs[0] = 0.0
+        xs[1, d // 2] = float("nan")
         kb_s, pb_s = sh.srht_hash(xs, scfg), sh.srht_hash_plain(xs, scfg)
         worst = max(worst, float((kb_s - pb_s).abs().max()))
         check(torch.equal(kb_s, pb_s), f"srht_hash ids bitwise equal to "
@@ -1407,14 +1426,6 @@ def phase_timing(mods, device, est, guard) -> tuple:
     counts = guard["guardrail"].state.counts.clone()
     rows = torch.arange(L, device=device)[None, :].expand(B, L)
     b64 = buckets.long()
-    ones = torch.ones_like(buckets)
-    # ace_update timed as the first kernel of this phase, straight after
-    # the host-bound phases, into a copy of the counts (the later timings
-    # see the counts as they were); its reported time is taken below,
-    # after the dense hash's timings
-    first = counts.clone()
-    update_first_ms = device_ms(lambda: u.ace_update(first, buckets))
-
     # the guardrail's shapes: B=256 features of d_model + 1 = 4097
     g = guard["guardrail"]
     acfg = g.ace_cfg.srp
@@ -1442,25 +1453,7 @@ def phase_timing(mods, device, est, guard) -> tuple:
               time_dense_hash(h, "stream step", sx, sw, scfg)]
     out["srp_hash"] = {**hashes[-1], "by_shape": hashes}
 
-    out["ace_update"] = dict(
-        ms=device_ms(lambda: u.ace_update(counts, buckets)),
-        plain_ms=device_ms(lambda: u.ace_update_plain(counts, buckets)),
-        library_ms=device_ms(
-            lambda: counts.index_put_((rows, b64), ones, accumulate=True)),
-        first_ms=update_first_ms,
-        shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound(B * L, 4 * B * L + 2 * 4 * U))))
-    # the same ids into three more copies of the same counts: the atomics'
-    # time moves with the buffer that holds the hot counters
-    copies_ms = [device_ms(lambda c=c: u.ace_update(c, buckets))
-                 for c in [counts.clone() for _ in range(3)]]
-    out["ace_update"]["copies_ms"] = copies_ms
-    print(f"  ace_update B={B}, L={L}: {update_first_ms:.5f} ms as the "
-          f"phase's first timed kernel (into a fresh copy of the counts), "
-          f"{out['ace_update']['ms']:.5f} ms after the dense hash's "
-          f"timings, then " + ", ".join(f"{t:.5f}" for t in copies_ms)
-          + " ms into three more fresh copies")
+    out.update(time_update_and_srht(u, mods["srht_hash"], device))
     out["ace_query"] = dict(
         ms=device_ms(lambda: q.ace_query(counts, buckets)),
         plain_ms=device_ms(lambda: q.ace_query_plain(counts, buckets)),
@@ -1504,21 +1497,6 @@ def phase_timing(mods, device, est, guard) -> tuple:
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * B3 * KDD_D * KL + B3 * L,
             4 * (B3 * KDD_D + KDD_D * KL) + 4 * Us + 4 * B3))))
-
-    # srht_hash at the stream step's shape (AceDataFilter(d_model=4096))
-    scfg = SrpConfig(dim=D_MODEL + 1, num_bits=13, num_tables=32, seed=29,
-                     hash_mode="srht")
-    xs = torch.randn((STREAM_B, D_MODEL + 1),
-                     generator=torch.Generator(device=device).manual_seed(7),
-                     device=device)
-    out["srht_hash"] = dict(
-        ms=device_ms(lambda: sh.srht_hash(xs, scfg)),
-        plain_ms=device_ms(lambda: sh.srht_hash_plain(xs, scfg)),
-        library_ms=None,
-        shape=f"B={STREAM_B}, d={D_MODEL + 1}, d_pad "
-              f"{sh.srht_params(scfg).d_pad}, K=13, L=32",
-        **dict(zip(("bound_ms", "bound_by"),
-                   srht_bound(STREAM_B, D_MODEL + 1, scfg))))
 
     # hash_mode="auto": both hash kernels at the benchmark corners
     from repro_torch.core.srht import choose_hash_mode
@@ -1682,6 +1660,121 @@ def phase_timing_attr(mods, device, attr) -> dict:
     return {"attr_estimate": {**beam, "at_post_mortem": leaves}}
 
 
+def fit_ids(device) -> torch.Tensor:
+    """The ids of the estimator's first fit batch (phase 3's data and
+    W): 4096 clustered rows at K = 15, L = 50, hashed by the plain dense
+    hash, so they are the same bits in every checkout on one card."""
+    from repro_torch.core.srp import (SrpConfig, make_projections,
+                                      pack_buckets, srp_bits)
+    pts = kdd_like(KDD_N + N_QUERIES - N_QUERIES // 100, KDD_D,
+                   np.random.default_rng(SEED + 2))
+    cfg = SrpConfig(dim=KDD_D, num_bits=K_BITS, num_tables=L_TABLES)
+    x = torch.as_tensor(pts[:FIT_BATCH], device=device)
+    return pack_buckets(srp_bits(x, make_projections(cfg, device=device),
+                                 cfg), cfg)
+
+
+def time_update_and_srht(u, sh, device) -> dict:
+    """``ace_update`` and ``srht_hash`` (the modules ``u`` and ``sh``, of
+    this checkout or another one's) at the main path's shapes, on inputs
+    made here from SEED, so two checkouts time the same work.
+
+    ``ace_update``: the fit (the estimator's first batch, K = 15, L = 50,
+    clustered: a few hundred hot counters) into five fresh zeroed tables,
+    its time the median of the five; the windowed and fleet admits' insert
+    (B = 256, L = 50, 2^15, a fleet of 8 tenants' stacked rows at tid·L,
+    90% of rows admitted); the SRHT stream step's masked insert (B = 512,
+    L = 32, 2^13, 90% kept).  Library: one ``index_put_(accumulate=True)``.
+    ``srht_hash``: the stream step (B = 512, d = 4097, K = 13, L = 32), the
+    SRHT fit (B = 4096, d = 36, K = 15, L = 50) and the ``"auto"`` corner
+    d = 64 (B = 256, K = 15, L = 50)."""
+    from repro_torch.core.srp import (SrpConfig, make_projections,
+                                      pack_buckets, srp_bits)
+    gen = torch.Generator(device=device).manual_seed(SEED + 16)
+    out = {}
+
+    def update_case(where, ids, R, nb, mask=None, base=None, buffers=1):
+        B, L = ids.shape
+        rows = torch.arange(L, device=device)[None, :].expand(B, L)
+        if base is not None:
+            rows = rows + base.long()[:, None]
+        sel = slice(None) if mask is None else mask
+        U = int(torch.unique(rows[sel] * nb + ids[sel].long()).numel())
+        tables = [torch.zeros((R, nb), dtype=torch.int32, device=device)
+                  for _ in range(buffers)]
+        times = [device_ms(lambda c=c: u.ace_update(c, ids, mask, base))
+                 for c in tables]
+        ones = (torch.ones_like(ids) if mask is None
+                else mask.to(torch.int32)[:, None].expand(B, L))
+        c = tables[0]
+        r = dict(
+            ms=statistics.median(times), copies_ms=times,
+            plain_ms=device_ms(lambda: u.ace_update_plain(c, ids, mask,
+                                                          base)),
+            library_ms=device_ms(lambda: c.index_put_(
+                (rows, ids.long()), ones, accumulate=True)),
+            shape=f"{where} B={B}, L={L}, R={R}, 2^K={nb}"
+                  + ("" if mask is None else f", {int(mask.sum())} rows in")
+                  + f", distinct counters {U}",
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound(B * L, 4 * B * L + 2 * 4 * U
+                             + (0 if mask is None else B)
+                             + (0 if base is None else 4 * B)))))
+        print(f"  ace_update {r['shape']}: kernel {r['ms']:.5f} ms"
+              + ("" if buffers == 1 else " (median of " + ", ".join(
+                  f"{t:.5f}" for t in times) + f" into {buffers} fresh "
+                  "tables)")
+              + f", plain {r['plain_ms']:.5f}, index_put_ "
+              f"{r['library_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
+              "bound")
+        return r
+
+    def dense_ids(B, d, K, L, seed):
+        cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=seed)
+        x = torch.randn((B, d), generator=gen, device=device)
+        return pack_buckets(srp_bits(x, make_projections(cfg, device=device),
+                                     cfg), cfg)
+
+    nb = 1 << K_BITS
+    updates = [update_case("fit", fit_ids(device), L_TABLES, nb,
+                           buffers=5)]
+    ids = dense_ids(ADMIT_B, D_MODEL + 1, K_BITS, L_TABLES, 41)
+    tid = torch.randint(0, FLEET_T, (ADMIT_B,), generator=gen,
+                        device=device, dtype=torch.int32)
+    keep = torch.rand((ADMIT_B,), generator=gen, device=device) < 0.9
+    updates.append(update_case("admit", ids, FLEET_T * L_TABLES, nb, keep,
+                               (tid * L_TABLES).contiguous()))
+    ids = dense_ids(STREAM_B, D_MODEL + 1, STREAM_K, STREAM_L, 47)
+    keep = torch.rand((STREAM_B,), generator=gen, device=device) < 0.9
+    updates.append(update_case("stream step", ids, STREAM_L, 1 << STREAM_K,
+                               keep))
+    out["ace_update"] = {**updates[0], "by_shape": updates}
+
+    hashes = []
+    for where, B, d, K, L in (
+            ("stream step", STREAM_B, D_MODEL + 1, STREAM_K, STREAM_L),
+            ("fit", FIT_BATCH, KDD_D, K_BITS, L_TABLES),
+            ("auto corner", AUTO_B, AUTO_DIMS[0], K_BITS, L_TABLES)):
+        cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=29,
+                        hash_mode="srht")
+        x = torch.randn((B, d), generator=gen, device=device)
+        r = dict(
+            ms=device_ms(lambda: sh.srht_hash(x, cfg)),
+            plain_ms=device_ms(lambda: sh.srht_hash_plain(x, cfg)),
+            library_ms=None,
+            shape=f"{where} B={B}, d={d}, d_pad "
+                  f"{sh.srht_params(cfg).d_pad}, K={K}, L={L}",
+            **dict(zip(("bound_ms", "bound_by"), srht_bound(B, d, cfg))))
+        print(f"  srht_hash {r['shape']}: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+              f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% of "
+              "bound")
+        hashes.append(r)
+    out["srht_hash"] = {**hashes[0], "by_shape": hashes}
+    return out
+
+
 def srht_bound(B: int, d: int, cfg):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
     add rate against x, the signs, the row sample and the ids in bytes."""
@@ -1775,7 +1868,7 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "launches_by_path": by_path,
             **{k: t[k] for k in ("matmul_ms", "plan", "by_shape",
-                                 "first_ms", "copies_ms", "at_post_mortem")
+                                 "copies_ms", "at_post_mortem")
                  if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "

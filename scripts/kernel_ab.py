@@ -1,0 +1,57 @@
+#!/usr/bin/env python3
+"""Time one checkout's ``ace_update`` and ``srht_hash`` CUDA kernels at the
+main path's shapes, on one card, and print one JSON line.
+
+    python scripts/kernel_ab.py [--root DIR] [--label NAME]
+
+The kernels come from ``DIR/src/repro_torch`` (default: this checkout)
+and are built there; the inputs, shapes and timing are this checkout's
+``chip_smoke.time_update_and_srht``, so two checkouts unpacked side by
+side time the same work.  To compare a change with its parent on one
+card, run parent, change, change, parent in one sitting: the card and
+its power limit are in each line.  Exits non-zero without a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+HERE = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--root", type=Path, default=HERE,
+                    help="checkout whose kernels to time")
+    ap.add_argument("--label", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("kernel_ab: torch.cuda.is_available() is false; this script "
+              "needs a CUDA device", file=sys.stderr)
+        return 1
+    root = args.root.resolve()
+    sys.path.insert(0, str(root / "src"))
+    sys.path.insert(1, str(HERE))
+    import chip_smoke
+    from repro_torch.kernels import ace_update, build, srht_hash
+    if not Path(ace_update.__file__).resolve().is_relative_to(root):
+        raise SystemExit(f"kernel_ab: repro_torch did not come from {root}")
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash's ids
+    build.build_all()
+    times = chip_smoke.time_update_and_srht(ace_update, srht_hash,
+                                            torch.device("cuda"))
+    keep = ("ms", "copies_ms", "plain_ms", "library_ms", "bound_ms",
+            "bound_by", "shape")
+    print(json.dumps({
+        "label": args.label or str(root), "card": chip_smoke.card_line(),
+        **{k: [{f: r[f] for f in keep if f in r} for r in v["by_shape"]]
+           for k, v in times.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

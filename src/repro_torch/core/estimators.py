@@ -15,6 +15,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.core import sketch as sk
+from repro_torch.core.srp import check_projections
 from repro_torch.kernels import ops as kops
 
 
@@ -75,6 +76,8 @@ class AceEstimator:
         if use_kernels and cfg.counter_dtype != "int32":
             raise ValueError("the kernels take int32 counts; use "
                              "use_kernels=False for float32 counts")
+        if w is not None:
+            check_projections(w, cfg.srp)
         self.w = (sk.make_params(cfg, generator, self.device) if w is None
                   else w.to(self.device, torch.float32).contiguous())
         self.state = sk.init(cfg, self.device)

@@ -127,10 +127,12 @@ def init(cfg: AceConfig, device) -> AceState:
 
 
 def make_params(cfg: AceConfig, generator: torch.Generator | None = None,
-                device=None) -> torch.Tensor:
+                device=None, *, dtype=torch.float32) -> torch.Tensor:
     """The SRP projection matrix W (d, KL_padded); see
-    ``srp.make_projections`` for how the draw relates to the reference."""
-    return make_projections(cfg.srp, generator=generator, device=device)
+    ``srp.make_projections`` for how the draw relates to the reference
+    (float32 only, like it)."""
+    return make_projections(cfg.srp, generator=generator, device=device,
+                            dtype=dtype)
 
 
 def _rows(buckets: torch.Tensor) -> torch.Tensor:
@@ -352,6 +354,19 @@ def mean_rate(state: AceState,
 def sigma_welford(state: AceState) -> torch.Tensor:
     """Streaming σ of collision RATES (score/n) from the insert-time stream."""
     return torch.sqrt(state.welford_m2 / torch.clamp_min(state.n - 1.0, 1.0))
+
+
+def sigma_cubic_proxy(state: AceState) -> torch.Tensor:
+    """Per-array second-moment proxy: E_i[A²] per array = Σ_b A³ / n.
+
+    Var_proxy = mean_j Σ_b A_j[b]³/n − μ² upper-bounds the true score
+    variance when arrays are independent (Jensen); a diagnostic beside
+    the Welford stream (``repro.core.sketch.sigma_cubic_proxy``).
+    """
+    c = state.counts.to(torch.float32)
+    n = torch.clamp_min(state.n, 1.0)
+    second = torch.mean(torch.sum(c**3, dim=1)) / n
+    return torch.sqrt(torch.clamp_min(second - mean_mu(state) ** 2, 0.0))
 
 
 def admit_threshold(state: AceState, alpha: float, warmup_items: float,

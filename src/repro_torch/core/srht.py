@@ -66,21 +66,37 @@ class SrhtParams:
         m = cfg.num_projections
         # rows with replacement: there may be more projections than d_pad
         self.rows = rng.integers(0, d_pad, size=(m,)).astype(np.int32)
+        # the two diagonals as bitmaps for the kernel: bit i % 32 of word
+        # i // 32 is set where the sign is -1
+        neg = np.zeros((2, max(d_pad, 32)), np.uint64)
+        neg[:, :d_pad] = np.stack([self.signs1, self.signs2]) < 0
+        self.sign_words = (neg.reshape(2, -1, 32)
+                           << np.arange(32, dtype=np.uint64)).sum(
+            -1).astype(np.uint32).view(np.int32)
         self._on: dict[torch.device, tuple] = {}
 
-    def tensors(self, device) -> tuple[torch.Tensor, torch.Tensor,
-                                       torch.Tensor]:
-        """(signs1, signs2, rows) on ``device``.  The first call for a
-        device copies them there (a host-to-device transfer); later calls
-        return the same tensors."""
+    def _placed(self, device) -> tuple:
         device = torch.device(device)
         if device.type == "cuda" and device.index is None:
             device = torch.device("cuda", torch.cuda.current_device())
         if device not in self._on:
             self._on[device] = tuple(
                 torch.as_tensor(a, device=device)
-                for a in (self.signs1, self.signs2, self.rows))
+                for a in (self.signs1, self.signs2, self.rows,
+                          self.sign_words))
         return self._on[device]
+
+    def tensors(self, device) -> tuple[torch.Tensor, torch.Tensor,
+                                       torch.Tensor]:
+        """(signs1, signs2, rows) on ``device``.  The first call for a
+        device copies them and ``sign_words`` there (a host-to-device
+        transfer); later calls return the same tensors."""
+        return self._placed(device)[:3]
+
+    def words(self, device) -> torch.Tensor:
+        """``sign_words`` (2, max(d_pad, 32) / 32) int32 on ``device``,
+        placed with ``tensors``."""
+        return self._placed(device)[3]
 
 
 @functools.lru_cache(maxsize=64)
@@ -127,8 +143,9 @@ def flops_srht(cfg: SrpConfig, batch: int) -> int:
 #
 # Raw operation counts are the wrong units to compare: the dense hash is
 # fused multiply-adds in a register-tiled product, the SRHT is log2(d)
-# shared-memory butterfly passes plus an m-element row gather.  The two
-# weights fold that in.  They are fitted on the card: both hash kernels
+# butterfly stages in registers with a shared-memory exchange every five,
+# plus an m-element row gather.  The two weights fold that in.  They are
+# fitted on the card: both hash kernels
 # timed on an NVIDIA H100 80GB HBM3 (700 W) at the corners of
 # benchmarks/stream_throughput.py (K = 15, L = 50, B = 256) gave dense
 # 7.3 µs vs SRHT 6.0 µs at d = 64 and dense 60 µs vs SRHT 16 µs at
@@ -136,8 +153,17 @@ def flops_srht(cfg: SrpConfig, batch: int) -> int:
 # weights make the rule's cost ratios match those two time ratios (1.22
 # and 3.77): it picks SRHT at both corners and dense below d = 53 at that
 # K, L (chip_smoke.py phase 8 re-times the corners and checks the picks).
-# The reference's weights (32, 16) would pick dense at d = 64, at 1.22x
-# the SRHT's time there, and at every width up to d = 463.
+#
+# The reference keeps its TPU weights (32, 16), so the two packages'
+# "auto" pick different families in a band above every power of two:
+# the port picks SRHT where the reference picks dense at d = 53-463,
+# 513-719, 1025-1274, 2049-2468, 4097-5028, 8193-10490 and from 16385
+# on at K = 15, L = 50, and at d = 50-64, 67-912, 1025-1744, 2049-3536,
+# 4097-7376, 8193-15568 and from 16385 on at K = 13, L = 32 — d = 4097,
+# the guardrail's and the streams' width, among them.  A sketch carries
+# its family, so every entry point that takes a W checks it against the
+# port's pick (srp.check_projections) and a reference W of the other
+# family raises instead of hashing with another function.
 # ---------------------------------------------------------------------------
 
 DENSE_MATMUL_SPEEDUP = 15.0   # dense FLOPs per SRHT add of equal cost

@@ -7,14 +7,18 @@ grouped into L meta-hashes of K bits, each packed into a bucket id in
 [0, 2^K).
 
 The projection matrix keeps the reference's padded width
-P = round_up(K·L, 128), so a JAX-drawn ``W`` of shape (d, P) carries
-across unchanged (``repro_torch.core.convert``); the pad columns are never
-read.  ``SrpConfig.hash_mode`` picks the hash family: ``"dense"`` (this
-module), ``"srht"`` (the Fast-JL transform of ``repro_torch.core.srht``)
-or ``"auto"`` (the cheaper of the two for the config,
-``srht.choose_hash_mode``).  The CUDA kernels ``srp_hash`` and
-``srht_hash`` implement ``hash_buckets``; this module is the plain path
-and the parameter factory.
+P = round_up(K·L, 128) (K·L with ``pad_lanes=False``), so a JAX-drawn
+``W`` of shape (d, P) carries across unchanged
+(``repro_torch.core.convert``); the pad columns are never read.
+``SrpConfig.hash_mode`` picks the hash family: ``"dense"`` (this module),
+``"srht"`` (the Fast-JL transform of ``repro_torch.core.srht``) or
+``"auto"`` (the cheaper of the two for the config,
+``srht.choose_hash_mode``, whose weights are the port's own: for some
+widths it picks another family than the reference's ``"auto"``, so
+every entry point that takes a W checks it against the resolved family,
+``check_projections``).  The CUDA kernels ``srp_hash`` and ``srht_hash``
+implement ``hash_buckets``; this module is the plain path and the
+parameter factory.
 """
 from __future__ import annotations
 
@@ -22,6 +26,8 @@ import dataclasses
 import math
 
 import torch
+
+from repro_torch import not_ported
 
 LANE = 128  # the reference pads K·L to this multiple; kept for W's shape
 
@@ -41,6 +47,7 @@ class SrpConfig:
     num_bits: int = 15
     num_tables: int = 50
     seed: int = 0
+    pad_lanes: bool = True     # False: W has exactly K·L columns
     hash_mode: str = "dense"
 
     @property
@@ -49,6 +56,8 @@ class SrpConfig:
 
     @property
     def padded_projections(self) -> int:
+        if not self.pad_lanes:
+            return self.num_projections
         return _round_up(self.num_projections, LANE)
 
     @property
@@ -67,8 +76,31 @@ def resolve_hash_mode(cfg: SrpConfig) -> str:
     return cfg.hash_mode
 
 
+def check_projections(w: torch.Tensor, cfg: SrpConfig) -> None:
+    """Raise ``ValueError`` unless W has the shape the config's resolved
+    hash family takes: (d, P) dense, the (d, 0) placeholder under SRHT.
+
+    A W of the other family would otherwise be taken without a word (the
+    SRHT never reads W) and the sketch would hash with another function
+    than the one that built it.  Under ``"auto"`` this is how a reference
+    W meets the port's break-even, which differs from the reference's
+    for some widths (``srht.choose_hash_mode``).
+    """
+    family = resolve_hash_mode(cfg)
+    want = (cfg.dim, 0 if family == "srht" else cfg.padded_projections)
+    if tuple(w.shape) == want:
+        return
+    msg = (f"W of shape {tuple(w.shape)} does not fit the {family} hash "
+           f"family this config resolves to, which takes W of shape {want}")
+    if cfg.hash_mode == "auto":
+        msg += ('; hash_mode="auto" resolves by repro_torch\'s own '
+                "break-even, and the JAX package's may resolve the same "
+                'config differently: pass hash_mode="dense" or "srht"')
+    raise ValueError(msg)
+
+
 def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
-                     device=None) -> torch.Tensor:
+                     device=None, *, dtype=torch.float32) -> torch.Tensor:
     """Sample the (d, P) Gaussian projection matrix W.
 
     Column j*K + k is bit k of meta-hash j; columns from K·L on are pad.
@@ -80,8 +112,12 @@ def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
     ``repro_torch.core.convert.params_from_numpy``.
 
     Under the SRHT family W is never read: a (d, 0) placeholder keeps
-    every ``(state, w, x)`` signature, as in the reference.
+    every ``(state, w, x)`` signature, as in the reference.  ``dtype``
+    is the reference's argument; only float32 is ported (narrower
+    projections come with the narrow planes of ROADMAP queue 1 item 9).
     """
+    if dtype != torch.float32:
+        not_ported(f"make_projections(dtype={dtype})", 9)
     if resolve_hash_mode(cfg) == "srht":
         return torch.zeros((cfg.dim, 0), dtype=torch.float32, device=device)
     if generator is None:
@@ -126,6 +162,17 @@ def hash_buckets(x: torch.Tensor, w: torch.Tensor,
         from repro_torch.core import srht   # srht imports this module
         return srht.srht_hash_buckets(x, srht.srht_params(cfg))
     return pack_buckets(srp_bits(x, w, cfg), cfg)
+
+
+def projection_memory_bytes(cfg: SrpConfig, dtype_bytes: int = 4) -> int:
+    """Memory to store the projections (paper §3.4: ~6d KB for K=15,L=50)."""
+    return cfg.dim * cfg.padded_projections * dtype_bytes
+
+
+def seeds_memory_bytes(cfg: SrpConfig) -> int:
+    """The paper's alternative: K·L integer seeds, rows regenerated on the
+    fly."""
+    return cfg.num_projections * 4
 
 
 def collision_probability(q: torch.Tensor, x: torch.Tensor) -> torch.Tensor:

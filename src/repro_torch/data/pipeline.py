@@ -134,6 +134,7 @@ class AceDataFilter:
         over the healthy tables only.
         """
         cfg = self.ace_cfg
+        srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
         thresh = sk.admit_threshold(state, self.alpha, self.warmup_items,

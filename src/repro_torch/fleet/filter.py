@@ -111,6 +111,7 @@ class FleetDataFilter:
         items of a tenant this replica does not own are scored (finite
         margin) but neither kept nor inserted."""
         cfg = self.ace_cfg
+        srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
         tids = tenant_ids.long()

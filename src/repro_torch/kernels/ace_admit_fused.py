@@ -27,7 +27,7 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
                                           check_w_aligned, device_plan,
-                                          srp_hash_plain)
+                                          lane_padded, srp_hash_plain)
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
@@ -101,6 +101,7 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     admit = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
+        w, P = lane_padded(w, cfg)
         check_w_aligned(w)
         plan = plan or device_plan(B, d, K, L, dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),

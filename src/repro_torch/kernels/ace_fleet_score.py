@@ -28,7 +28,7 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_score_fused import table_order_sum
 from repro_torch.kernels.ace_update import gather_rows
-from repro_torch.kernels.srp_hash import srp_hash_plain
+from repro_torch.kernels.srp_hash import lane_padded, srp_hash_plain
 
 KERNEL = build.Kernel("ace_fleet_score", "repro_ace_fleet_score",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
@@ -75,6 +75,7 @@ def ace_fleet_score(counts: torch.Tensor, q: torch.Tensor,
     dev = counts.device
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
+        w, P = lane_padded(w, cfg)
         gathered = torch.empty((B, L), dtype=torch.float32, device=dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                tenant_ids.data_ptr(), gathered.data_ptr(), scores.data_ptr(),

@@ -35,7 +35,7 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_score_fused import table_order_sum
 from repro_torch.kernels.ace_update import ace_update_plain, gather_rows
-from repro_torch.kernels.srp_hash import srp_hash_plain
+from repro_torch.kernels.srp_hash import lane_padded, srp_hash_plain
 
 KERNEL = build.Kernel("ace_fleet_window_admit", "repro_ace_fleet_window_admit",
                       [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
@@ -138,6 +138,7 @@ def ace_fleet_window_admit_fused(ring_counts: torch.Tensor,
         torch.empty((B,), dtype=torch.float32, device=dev) for _ in range(3))
     admit = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
+        w, P = lane_padded(w, cfg)
         KERNEL(dev, ring_counts.data_ptr(), tail.data_ptr(),
                cursor.data_ptr(), q.data_ptr(), w.data_ptr(),
                tenant_ids.data_ptr(), thresholds.data_ptr(),

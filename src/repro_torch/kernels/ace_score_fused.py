@@ -29,7 +29,7 @@ import torch
 
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.srp_hash import srp_hash_plain
+from repro_torch.kernels.srp_hash import lane_padded, srp_hash_plain
 
 KERNEL = build.Kernel("ace_score_fused", "repro_ace_score_fused",
                       [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
@@ -103,6 +103,7 @@ def ace_score_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     dev = counts.device
     scores = torch.empty((B,), dtype=torch.float32, device=dev)
     if B:
+        w, P = lane_padded(w, cfg)
         gathered = torch.empty((B, L), dtype=torch.float32, device=dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                None if table_weights is None else table_weights.data_ptr(),

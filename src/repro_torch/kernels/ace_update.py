@@ -8,11 +8,17 @@ in ``src/repro/kernels/ace_update.py``, both its scalar and one-hot
 lowerings).  CUDA source: ``csrc/ace_update.cu``.
 
 Bound on the H100: memory — the (B, L) ids plus one read-modify-write of
-each counter the batch touches.  The design is one thread per (b, j) and a
-global int32 ``atomicAdd``, exact in any order, so the TPU's lowering
-choice (``choose_mode`` and its break-even constants) is not carried
-over.  Clustered data serialises the atomics on hot buckets; a
-shared-memory histogram is the remedy, left for a later change.
+each counter the batch touches.  Clustered data sends hundreds of a
+batch's items to one counter, and global atomics on one address
+serialise, so the kernel adds equal (row, bucket) keys up inside a block
+first: a block takes one table and 256 rows, a warp whose 32 lanes all
+hold one key adds them with one lane, a warp of mostly distinct keys adds
+straight to the counts (nothing to merge), a 512-slot shared-memory hash
+table merges the block's other items, and the block then makes one
+global ``atomicAdd`` per distinct key (a key that finds no slot goes
+global at once).  Integer adds in any order give the same counts, so the TPU's
+lowering choice (``choose_mode`` and its break-even constants) is not
+carried over.
 
 Unlike the reference, which returns a new array, the update is in place
 (the counts tensor passed in is the one returned), on the CPU too.
@@ -34,6 +40,12 @@ from repro_torch.kernels import build
 
 KERNEL = build.Kernel("ace_update", "repro_ace_update",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+
+# The kernel's constants (csrc/ace_update.cu): rows b a block (of one
+# table), the block's shared table of counters and its probes, the hash
+# signatures above which a warp counts as spread (adds straight to the
+# counts), and the most tables (one grid row each).
+BLOCK_ROWS, TABLE_SLOTS, PROBES, SPREAD, MAX_TABLES = 256, 512, 8, 16, 65535
 
 
 def table_rows(buckets: torch.Tensor,
@@ -93,7 +105,10 @@ def ace_update(counts: torch.Tensor, buckets: torch.Tensor,
         operands.append(row_mask)
     if build.on_cpu(*operands):
         return ace_update_plain(counts, buckets, row_mask, row_base)
-    if B:
+    if L > MAX_TABLES:
+        raise ValueError(f"ace_update: L={L} tables; the kernel takes at "
+                         f"most {MAX_TABLES}")
+    if B and L:
         KERNEL(counts.device, counts.data_ptr(), buckets.data_ptr(),
                None if row_mask is None else row_mask.data_ptr(),
                None if row_base is None else row_base.data_ptr(),

@@ -32,7 +32,8 @@ import torch
 
 from repro_torch.core import sketch as _sk
 from repro_torch.core.sketch import AceConfig, AceState
-from repro_torch.core.srp import SrpConfig, resolve_hash_mode
+from repro_torch.core.srp import (SrpConfig, check_projections,
+                                  resolve_hash_mode)
 from repro_torch.fleet import state as _fls
 from repro_torch.fleet import window as _fw
 from repro_torch.kernels import ace_admit_fused as _a
@@ -48,6 +49,12 @@ from repro_torch.kernels import srp_hash as _h
 from repro_torch.window import ring as _ring
 
 
+def srp_hash(x: torch.Tensor, w: torch.Tensor,
+             cfg: SrpConfig) -> torch.Tensor:
+    """(B, d) -> (B, L) bucket ids via the dense-hash kernel."""
+    return _h.srp_hash(x, w, cfg)
+
+
 def srht_hash(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
     """(B, d) -> (B, L) bucket ids via the SRHT kernel."""
     return _sh.srht_hash(x, cfg)
@@ -56,7 +63,9 @@ def srht_hash(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
 def hash_dispatch(x: torch.Tensor, w: torch.Tensor,
                   cfg: SrpConfig) -> torch.Tensor:
     """THE kernel-path hash, dense or SRHT by ``cfg.hash_mode``:
-    (B, d) -> (B, L).  ``w`` is not read under ``"srht"``."""
+    (B, d) -> (B, L).  ``w`` is not read under ``"srht"``, but its shape
+    must be the resolved family's (``srp.check_projections``)."""
+    check_projections(w, cfg)
     if resolve_hash_mode(cfg) == "srht":
         return srht_hash(x, cfg)
     return _h.srp_hash(x, w, cfg)

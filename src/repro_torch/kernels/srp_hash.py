@@ -27,6 +27,7 @@ reports (its GPCs bound how many clusters fit).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -188,6 +189,18 @@ def device_plan(B: int, d: int, K: int, L: int,
     return hash_plan(B, d, K, L, device_clusters(device))
 
 
+def lane_padded(w: torch.Tensor, cfg: SrpConfig) -> tuple[torch.Tensor, int]:
+    """W as the dense-hash kernels read it, and its column count P.  A
+    ``pad_lanes=False`` W has exactly K·L columns, a row stride the
+    kernels' 16-byte W copies cannot follow (3000 bytes at K = 15, L = 50),
+    so it is copied into round_up(K·L, 128) columns, zero-padded; the pad
+    columns are never packed.  Any other W is returned as it is."""
+    if cfg.pad_lanes:
+        return w, cfg.padded_projections
+    P = dataclasses.replace(cfg, pad_lanes=True).padded_projections
+    return torch.nn.functional.pad(w, (0, P - w.shape[1])), P
+
+
 def check_w_aligned(w: torch.Tensor) -> None:
     """The kernel reads W in 16-byte copies."""
     if w.data_ptr() % 16:
@@ -221,6 +234,7 @@ def srp_hash_planned(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig,
         return srp_hash_plain(x, w, cfg)
     out = torch.empty((B, L), dtype=torch.int32, device=x.device)
     if B:
+        w, P = lane_padded(w, cfg)
         check_w_aligned(w)
         plan = plan or device_plan(B, d, K, L, x.device)
         KERNEL(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),

@@ -20,7 +20,7 @@ import torch
 from repro_torch import not_ported, resolve_device
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig
-from repro_torch.core.srp import hash_buckets
+from repro_torch.core.srp import check_projections, hash_buckets
 from repro_torch.data.pipeline import mean_embed_features
 from repro_torch.fleet import state as fl
 from repro_torch.fleet import window as fw
@@ -142,6 +142,8 @@ class Guardrail:
         else:
             state = sk.init(self.ace_cfg, self.device)
         self.state = state
+        if w is not None:
+            check_projections(w, self.ace_cfg.srp)
         self.w = (sk.make_params(self.ace_cfg, device=self.device) if w is None
                   else w.to(self.device, torch.float32).contiguous())
         self.use_kernels = use_kernels

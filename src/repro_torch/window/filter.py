@@ -111,6 +111,7 @@ class WindowedAceFilter:
         the sums too — ROADMAP.md queue 3); the insert's ssq increment
         keeps the true unmasked sums."""
         cfg = self.ace_cfg
+        srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
         thresh = ring.admit_threshold_windowed(

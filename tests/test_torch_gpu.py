@@ -425,6 +425,156 @@ def test_srht_hash_refuses_wider_rows(cuda):
     assert SH.KERNEL.launches == before
 
 
+# Around the kernel's layouts (srht_plan): d_pad 1024, a row in one warp,
+# against 2048, a row across warps; exact powers of two (64, 1024, 2048,
+# 4096); m = K·L above d_pad, so the row sample repeats rows (d = 36 and
+# 16 at K·L = 750 and 93); blocks of several rows cut short (B not a
+# multiple of the rows a block).
+SRHT_EDGES = [(130, 1000, 13, 32), (65, 1024, 13, 32), (33, 1025, 15, 50),
+              (17, 2048, 13, 32), (5, 4096, 15, 50), (300, 64, 15, 50),
+              (129, 36, 15, 50), (40, 16, 31, 3), (3, 2049, 7, 5)]
+
+
+@pytest.mark.parametrize("B,d,K,L", SRHT_EDGES)
+def test_srht_hash_edges_bitwise(cuda, B, d, K, L):
+    """Ids bitwise against the plain version on the card and on the CPU,
+    with an all-zero row (every padded −0.0 lane is bit 1: bucket
+    2^K − 1) and a NaN row (the transform spreads it to every element:
+    bucket 0)."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=d + 1,
+                    hash_mode="srht")
+    params = SH.srht_params(cfg)
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d))
+    x[0] = 0.0
+    x[1, d // 2] = float("nan")
+    got = SH.srht_hash(x.to(cuda), cfg)
+    assert torch.equal(got, SH.srht_hash_plain(x.to(cuda), cfg))
+    assert torch.equal(got.cpu(), SH.srht_hash_plain(x, cfg))
+    assert bool((got[0] == (1 << K) - 1).all()) and bool((got[1] == 0).all())
+    if K * L > params.d_pad:
+        assert len(np.unique(params.rows)) < K * L   # rows sampled twice
+
+
+def _dropping(counts, ids, mask, base):
+    """counts + the items whose id is in [0, 2^K) and row in [0, R), as
+    the reference's scatter drops the others (the plain version's
+    ``index_put_`` raises on them)."""
+    R, nb = counts.shape
+    rows = np.arange(ids.shape[1])[None, :] + base[:, None].astype(np.int64)
+    keep = (ids >= 0) & (ids < nb) & (rows >= 0) & (rows < R) & mask[:, None]
+    out = counts.astype(np.int64)
+    np.add.at(out, (rows[keep], ids[keep]), 1)
+    return out.astype(np.int32)
+
+
+def test_ace_update_every_id_in_one_bucket(cuda):
+    """B = 4096, L = 50: 4096 items on each of 50 counters, merged in the
+    warp and the block (16 atomics a counter) before they go global."""
+    counts = _counts(50, 15, cuda)
+    ids = torch.full((4096, 50), 777, dtype=torch.int32, device=cuda)
+    got = U.ace_update(counts.clone(), ids)
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids))
+    assert bool(((got - counts)[:, 777] == 4096).all())
+
+
+def _colliding_ids(n, nb):
+    """n distinct ids whose keys in table 0 share the kernel's first probe
+    (Fibonacci hashing into ``TABLE_SLOTS`` slots)."""
+    bits = U.TABLE_SLOTS.bit_length() - 1
+    slot = ((np.arange(nb, dtype=np.uint64) * 0x9E3779B1) & 0xFFFFFFFF) \
+        >> (32 - bits)
+    first = np.bincount(slot.astype(np.int64)).argmax()
+    return np.flatnonzero(slot == first)[:n].astype(np.int32)
+
+
+def test_ace_update_all_distinct_ids(cuda):
+    """All-distinct ids at K = 15, the stream step's and admit's kind of
+    batch: every warp spread, every block adds straight to the counts."""
+    B, L = 4096, 50
+    rng = np.random.default_rng(3)
+    ids = np.stack([rng.permutation(1 << 15)[:B] for _ in range(L)], 1)
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=cuda)
+    counts = _counts(L, 15, cuda)
+    got = U.ace_update(counts.clone(), ids)
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids))
+    assert int((got - counts).sum()) == B * L
+
+
+def test_ace_update_overflows_the_shared_table(cuda):
+    """A clustered block (rows 24-255 of table 0 on four ids, so it takes
+    the shared table) whose first 24 rows hold distinct ids on one first
+    probe: at most ``PROBES`` of those find a slot, the rest go straight
+    to global atomics; the other tables all-distinct."""
+    B, L = 300, 20
+    rng = np.random.default_rng(4)
+    ids = np.stack([rng.permutation(1 << 15)[:B] for _ in range(L)], 1)
+    hot = _colliding_ids(24, 1 << 15)
+    ids[:24, 0] = hot
+    ids[24:256, 0] = rng.choice(np.setdiff1d(np.arange(64), hot), 4)[
+        rng.integers(0, 4, 232)]
+    ids = torch.as_tensor(ids, dtype=torch.int32, device=cuda)
+    counts = _counts(L, 15, cuda)
+    got = U.ace_update(counts.clone(), ids)
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids))
+    assert int((got - counts).sum()) == B * L
+
+
+def test_ace_update_mask_and_base_rows_into_a_stacked_table(cuda):
+    """A fleet of 8 tenants' stacked (8·50, 2^15) table, half the rows
+    masked, colliding rows, each at its tenant's base row."""
+    T, L, K, B = 8, 50, 15, 300
+    counts = torch.zeros((T * L, 1 << K), dtype=torch.int32, device=cuda)
+    ids = _ids(B, K, L, cuda, repeat=3)
+    g = torch.Generator().manual_seed(5)
+    base = (torch.randint(0, T, (B,), generator=g, dtype=torch.int32)
+            * L).repeat(3).to(cuda)
+    mask = torch.rand((3 * B,), generator=g).to(cuda) < 0.5
+    got = U.ace_update(counts.clone(), ids, row_mask=mask, row_base=base)
+    assert torch.equal(got, U.ace_update_plain(counts.clone(), ids, mask,
+                                               base))
+    assert int(got.sum()) == L * int(mask.sum())
+
+
+def test_ace_update_drops_ids_and_rows_out_of_range(cuda):
+    rng = np.random.default_rng(6)
+    R, L, K, B = 40, 7, 6, 301
+    ids = rng.integers(0, 1 << K, size=(B, L)).astype(np.int32)
+    ids[::17, 3] = 1 << K
+    ids[::23, 1] = -1
+    base = rng.integers(0, R - L + 1, size=B).astype(np.int32)
+    base[::29] = R - 2               # rows j >= 2 fall off the table
+    base[::31] = -3                  # rows j < 3 fall before it
+    mask = rng.random(B) < 0.6
+    counts = rng.integers(0, 9, size=(R, 1 << K)).astype(np.int32)
+    got = U.ace_update(torch.as_tensor(counts, device=cuda),
+                       torch.as_tensor(ids, device=cuda),
+                       row_mask=torch.as_tensor(mask, device=cuda),
+                       row_base=torch.as_tensor(base, device=cuda))
+    np.testing.assert_array_equal(got.cpu().numpy(),
+                                  _dropping(counts, ids, mask, base))
+
+
+@pytest.mark.parametrize("B,d,K,L", [(256, 4097, 15, 50), (33, 36, 15, 50),
+                                     (7, 9, 4, 3)])
+def test_unpadded_w_through_the_dense_kernels(cuda, B, d, K, L):
+    """``pad_lanes=False``: W of exactly K·L columns (a row stride the
+    16-byte W copies cannot read) is re-padded for the kernels; ids agree
+    with the plain path on the same W, and the fused score is bitwise the
+    table-order mean of the kernel's own ids."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, pad_lanes=False)
+    w = make_projections(cfg, device=cuda)
+    assert tuple(w.shape) == (d, K * L)
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
+        .to(cuda)
+    got = H.srp_hash(x, w, cfg)
+    assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+    counts = _counts(L, K, cuda)
+    scores = F.ace_score_fused(counts, x, w, cfg)
+    want = F.ace_score_fused_plain(counts, x, w, cfg)
+    same = (got == H.srp_hash_plain(x, w, cfg)).all(dim=1)
+    assert torch.equal(scores[same], want[same])
+
+
 # K = 1, 16 and 31 (two tables of 2^31 counters: 17 GB); L not a multiple
 # of the tables a block holds (128 // K); the estimator's score shape.
 SCORE_SHAPES = [(7, 9, 1, 130), (33, 64, 16, 9), (17, 40, 31, 2),
