@@ -22,14 +22,22 @@ non-zero without printing its result line):
              with every id of the fit batch in one bucket, the weighted (two
              tables masked) forms of the fused score and the window
              combine, ``ace_update``/``ace_query`` at per-item base
-             rows of the windowed fleet's (T·E·L, 2^15) ring, and
+             rows of the windowed fleet's (T·E·L, 2^15) ring,
+             ``ace_query_sum`` (the one-launch gather and row sum) in
+             every scale, with a health mask and at those base rows with a
+             (T, L) mask routed by tenant id, also bitwise equal to the
+             (B, L) gather + PyTorch reduction it replaced, the windowed-
+             fleet admission's ids bitwise ``srp_hash``'s under one plan,
+             and
              ``attr_estimate`` equal by value at R = 1, 2, 5, 8 (C = 256)
              for the beam's B = 32 and all 4097 leaf coordinates, and on
              an all-zero plane;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
-             predicted (``ace_score_fused``); then a shorter fit and score
+             predicted (``ace_score_fused``), and the largest row sum a
+             fit point sees printed (below 2^24 every score is bitwise the
+             old gather + fp32 reduction's); then a shorter fit and score
              under ``hash_mode="srht"``, held bitwise against the plain
              path;
 4. guardrail — ``Guardrail`` at d_model=4096, K=15, L=50: 32 admits of
@@ -86,22 +94,32 @@ non-zero without printing its result line):
              ``srht_hash`` at the stream step, the d = 36 fit and the
              d = 64 corner (``time_update_and_srht``, which
              ``scripts/kernel_ab.py`` also runs on another checkout's
-             kernels); and both hash kernels at the corners of
-             hash_mode="auto" (d = 64 and 4096), checked against the
-             rule's picks.
+             kernels); ``ace_query_sum`` at the fit against the (B, L)
+             gather + ``torch.sum`` + multiply it replaced;
+             ``ops.ace_query``/``ace_update``/``ace_fleet_admit_at`` at
+             three shapes and the windowed-fleet admission
+             (``time_query_paths``, which ``kernel_ab.py`` also runs);
+             and both hash kernels at the corners of hash_mode="auto"
+             (d = 64 and 4096), checked against the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and read just after, and every kernel
-of a path must have been launched in it.  The last lines are the card's
-``nvidia-smi`` name and power limit, one JSON line of per-kernel numbers,
-and ``{"ok": true, "device": {...}}``.  A kernel's ``max_abs_err`` there is
-the largest absolute difference, in phase 2, between any of its outputs
-(bucket ids, counts, gathers, scores) and the plain version's.
+before each path of phases 3 to 7 and read just after, every kernel of a
+path must have been launched in it, and no path may launch the (B, L)
+``ace_query`` gather (every gather-and-reduce is one ``ace_query_sum``).
+The admits and ``consume`` calls traced in phases 4-7 are traced twice:
+as they run, and with the (B, L) gather + PyTorch reductions in place of
+``ace_query_sum``, the device ops before and after it.  The last lines
+are the card's ``nvidia-smi`` name and power limit, one JSON line of
+per-kernel numbers, and ``{"ok": true, "device": {...}}``.  A kernel's
+``max_abs_err`` there is the largest absolute difference, in phase 2,
+between any of its outputs (bucket ids, counts, gathers, scores) and the
+plain version's.
 
 Data and weights are made from SEED.  Nothing here imports JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -181,13 +199,21 @@ def import_port():
             for k in KERNELS}
 
 
+def launch_counters(mods) -> dict:
+    """Every wrapper's launch counter: each module's ``KERNEL`` (for
+    ``ace_query`` the one-launch gather-and-sum every main path takes),
+    and ``ace_query``'s (B, L) gather, which no main path takes."""
+    return {**{k: m.KERNEL for k, m in mods.items()},
+            "ace_query_gather": mods["ace_query"].GATHER_KERNEL}
+
+
 def reset_launches(mods) -> None:
-    for m in mods.values():
-        m.KERNEL.launches = 0
+    for c in launch_counters(mods).values():
+        c.launches = 0
 
 
 def read_launches(mods) -> dict:
-    return {k: m.KERNEL.launches for k, m in mods.items()}
+    return {k: c.launches for k, c in launch_counters(mods).items()}
 
 
 def card_line() -> str:
@@ -274,7 +300,34 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
 
     gk, gp = q.ace_query(ck, kb), q.ace_query_plain(ck, kb)
     err["ace_query"] = float((gk - gp).abs().max())
-    check(torch.equal(gk, gp), "ace_query gather bitwise equal to plain")
+    check(torch.equal(gk, gp), "ace_query (B, L) gather bitwise equal to "
+          "plain")
+    # the one-launch sum in every scale, with and without two tables
+    # masked: bitwise its plain version, and (below 2^24) the gather +
+    # PyTorch reduction each caller took before it
+    tmask = torch.ones(L_TABLES, device=device)
+    tmask[[3, 31]] = 0.0
+    old = {"sum": torch.sum(gk, dim=-1),
+           "mean": torch.sum(gk, dim=-1) * torch.tensor(1.0 / L_TABLES),
+           "masked mean": torch.sum(gk * tmask, dim=-1)
+           * (1.0 / torch.clamp_min(torch.sum(tmask), 1.0))}
+    for scale in q.SCALES:
+        for m in (None, tmask):
+            sk_ = q.ace_query_sum(ck, kb, table_mask=m, scale=scale)
+            sp = q.ace_query_sum_plain(ck, kb, table_mask=m, scale=scale)
+            err["ace_query"] = max(err["ace_query"],
+                                   float((sk_ - sp).abs().max()))
+            what = f"ace_query_sum ({scale}" + (", 2 tables masked)"
+                                                if m is not None else ")")
+            check(torch.equal(sk_, sp), f"{what} bitwise equal to plain at "
+                  f"B={fit_batch}, L={L_TABLES}")
+            key = ("masked " if m is not None else "") + scale
+            if key in old:
+                check(torch.equal(sk_, old[key]), f"{what} bitwise equal to "
+                      "the (B, L) gather + PyTorch reduction it replaces")
+    check(torch.equal(q.ace_query_sum(ck, kb), torch.mean(gk, dim=-1)),
+          "ace_query_sum (mean) bitwise equal to torch.mean of the (B, L) "
+          "gather on the card (ops.ace_update's old composition)")
 
     acfg = SrpConfig(dim=d_model + 1, num_bits=K_BITS, num_tables=L_TABLES,
                      seed=41)
@@ -440,6 +493,22 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
           f"({T * E * L}, 2^{K}) ring bitwise equal to plain")
     check(torch.equal(gk, gp), "ace_query at per-item base rows bitwise "
           "equal to plain")
+    # the sum at the live rows, its (T, L) mask routed by tenant id, with
+    # the unmasked sum beside it (the windowed fleet's live half)
+    routed = (torch.rand((T, L), generator=gen, device=device) < 0.9) \
+        .float()
+    for scale in q.SCALES:
+        got = q.ace_query_sum(ck, ids, base, table_mask=routed,
+                              tenant_ids=tids, scale=scale,
+                              with_unmasked=True)
+        want = q.ace_query_sum_plain(ck, ids, base, table_mask=routed,
+                                     tenant_ids=tids, scale=scale,
+                                     with_unmasked=True)
+        err["ace_query"] = max(err["ace_query"],
+                               float((got[0] - want[0]).abs().max()))
+        check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+              f"ace_query_sum ({scale}) at per-item base rows, a routed "
+              "(T, L) mask, with the unmasked sum: bitwise equal to plain")
 
     # ace_window_combine on one tenant's ring, both forms
     weights = WIN_GAMMA ** torch.arange(E, dtype=torch.float32,
@@ -477,6 +546,7 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
         torch.full((T,), float("-inf"), device=device))[0]
     thr = torch.stack([torch.median(pre[tids == t]) for t in range(T)])
     worst = 0.0
+    plan = h.device_plan(admit_b, d_model + 1, K, L, device)
     for name, qb, tb in (("random", x, tids), ("colliding", xc, tc)):
         r = ring.clone()
         out = fwa.ace_fleet_window_admit_fused(r, tail, cursor, qb, tb, w,
@@ -486,6 +556,9 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
         share = agreement(out[3], plain[3])
         check(share >= 0.999, f"ace_fleet_window_admit ({name}) ids agree "
               f"with plain: {share:.6f} >= 0.999")
+        check(torch.equal(out[3], h.srp_hash_planned(qb, w, cfg, plan)),
+              f"ace_fleet_window_admit ({name}) ids bitwise equal to "
+              f"srp_hash's under the same plan ({plan.describe()})")
         r_ref = ring.clone()
         ref = (r_ref, *fwa.fleet_window_admit_from_ids(
             r_ref, tail, cursor, out[3], tb, thr, mask))
@@ -595,6 +668,18 @@ def phase_estimator(mods, device, n=KDD_N, n_queries=N_QUERIES) -> dict:
     check(out < inl, "off-distribution queries score below inliers")
     for k in ("srp_hash", "ace_update", "ace_query", "ace_score_fused"):
         check(launches[k] > 0, f"estimator path launched {k}")
+    # every fit point's row sum against the final counts, the most any
+    # fit-time gather saw: below 2^24 every score is bitwise the old
+    # gather + fp32 reduction's
+    top = 0.0
+    for i in range(0, n, 1 << 16):
+        ids = mods["srp_hash"].srp_hash(
+            torch.as_tensor(x[i:i + (1 << 16)], device=device), est.w,
+            cfg.srp)
+        top = max(top, float(mods["ace_query"].ace_query_sum(
+            counts, ids, scale="sum").max()))
+    print(f"  fit: largest row sum of the {n:,} points against the final "
+          f"counts {top:,.0f} (2^24 = {1 << 24:,})")
     return {"launches": launches, "seconds": secs, "counts": counts,
             "buckets": mods["srp_hash"].srp_hash(
                 torch.as_tensor(x[:FIT_BATCH], device=device), est.w,
@@ -735,8 +820,10 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
               f"rel {rel:.2e} <= {tol:g} ({moved} displaced insertions)")
     for k in ("ace_admit_fused", "ace_query"):
         check(launches[k] > 0, f"guardrail path launched {k}")
+    e, _ = next(guardrail_batches(device, d_model, admits, b, s))
     return {"launches": launches, "p50_ms": 1e3 * statistics.median(lat),
-            "guardrail": g}
+            "guardrail": g, "breakdown": admit_breakdown(g, e, None,
+                                                         device)}
 
 
 # ---------------------------------------------------------------------------
@@ -860,16 +947,46 @@ def phase_shift_guardrail(mods, device, kind, d_model=D_MODEL,
             "breakdown": breakdown}
 
 
-def admit_breakdown(g, e, t, device) -> dict:
-    """A ``torch.profiler`` trace of one admit: wall, device busy, device
-    ops and the top device ops by time."""
+@contextlib.contextmanager
+def gather_then_reduce():
+    """``ace_query_sum`` replaced, inside the block, by the composition
+    each ``ops`` call site took before it: the (B, L) ``ace_query``
+    gather, then PyTorch's reductions and scaling — to trace a path's
+    device ops both ways in one run."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import ace_query as q
+    real = q.ace_query_sum
+
+    def composed(counts, buckets, row_base=None, *, table_mask=None,
+                 tenant_ids=None, scale="mean", with_unmasked=False):
+        g = q.ace_query(counts, buckets, row_base)
+        if table_mask is None:
+            if scale == "sum":
+                return torch.sum(g, dim=-1)
+            return torch.sum(g, dim=-1) * sk.reciprocal(g.shape[1])
+        maskf = table_mask.to(torch.float32)
+        if maskf.dim() == 2:
+            maskf = maskf[tenant_ids.long()]
+        s = torch.sum(g * maskf, dim=-1)
+        nh = torch.clamp_min(torch.sum(maskf, dim=-1), 1.0)
+        if scale == "mean":
+            s = s * (1.0 / nh)
+        return (s, torch.sum(g, dim=-1)) if with_unmasked else s
+    q.ace_query_sum = composed
+    try:
+        yield
+    finally:
+        q.ace_query_sum = real
+
+
+def device_trace(fn, device) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: its wall time (ends in a
+    sync), the device's busy time and ops, the top device ops by time."""
     from torch.profiler import ProfilerActivity, profile
-    g.admit(e, t)
-    sync(device)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        g.admit(e, t)
+        fn()
         sync(device)
         wall_us = 1e6 * (time.perf_counter() - t0)
     kernels = [x for x in prof.events()
@@ -879,18 +996,49 @@ def admit_breakdown(g, e, t, device) -> dict:
     for x in kernels:
         by_name[x.name] = by_name.get(x.name, 0.0) \
             + x.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-    if not kernels:
-        print("  one admit under torch.profiler: no device op in the trace; "
+    return {"profiled_wall_ms": wall_us / 1e3,
+            "device_busy_ms": busy_us / 1e3, "device_ops": len(kernels),
+            "top": sorted(by_name.items(), key=lambda kv: -kv[1])[:5]}
+
+
+def traced_both_ways(what, fn, device) -> dict:
+    """``device_trace`` of ``fn`` as it runs, then, after one untraced
+    call, with the (B, L) gather and PyTorch's reductions in place of
+    ``ace_query_sum``; prints both.  Each is traced twice and the trace
+    with more device ops kept: a trace can miss device events (PERF.md,
+    PR 17), never invent them."""
+    def fuller(a, b):
+        return a if a["device_ops"] >= b["device_ops"] else b
+    tr = fuller(device_trace(fn, device), device_trace(fn, device))
+    with gather_then_reduce():
+        fn()
+        sync(device)
+        old = fuller(device_trace(fn, device), device_trace(fn, device))
+    if not tr["device_ops"]:
+        print(f"  {what} under torch.profiler: no device op in the trace; "
               "device idle share not measured")
     else:
-        print(f"  one admit under torch.profiler: wall {wall_us / 1e3:.3f} "
-              f"ms, {len(kernels)} device ops, device busy "
-              f"{busy_us / 1e3:.3f} ms (idle share "
-              f"{1 - busy_us / wall_us:.3f}); top: "
-              + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in top))
-    return {"profiled_wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3, "device_ops": len(kernels)}
+        print(f"  {what} under torch.profiler: wall "
+              f"{tr['profiled_wall_ms']:.3f} ms, {tr['device_ops']} device "
+              f"ops, device busy {tr['device_busy_ms']:.3f} ms (idle share "
+              f"{1 - tr['device_busy_ms'] / tr['profiled_wall_ms']:.3f}); "
+              "top: " + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms"
+                                  for n, v in tr["top"]))
+        print(f"  {what} with the (B, L) gather + PyTorch reductions in "
+              f"place of ace_query_sum: {old['device_ops']} device ops, "
+              f"device busy {old['device_busy_ms']:.3f} ms, wall "
+              f"{old['profiled_wall_ms']:.3f} ms")
+    out = {k: v for k, v in tr.items() if k != "top"}
+    out.update({f"{k}_gather_then_reduce": v for k, v in old.items()
+                if k != "top"})
+    return out
+
+
+def admit_breakdown(g, e, t, device) -> dict:
+    """One admit traced both ways (``traced_both_ways``)."""
+    g.admit(e, t)
+    sync(device)
+    return traced_both_ways("one admit", lambda: g.admit(e, t), device)
 
 
 def phase_queries(mods, device, gw, gf, b=ADMIT_B) -> dict:
@@ -1149,10 +1297,9 @@ def phase_stream(mods, device, kind, d_model=D_MODEL, chunks=STREAM_CHUNKS,
 def stream_breakdown(runner, state, w, batches, device,
                      tids=None) -> dict:
     """Where one chunk's time goes: the host clock of each stage of
-    ``run`` (each ends in a sync), and a ``torch.profiler`` trace of
-    ``consume`` for the device's busy time and kernel count."""
+    ``run`` (each ends in a sync), and ``consume`` traced both ways
+    (``traced_both_ways``) for the device's busy time and op count."""
     import repro_torch.stream.runner as runner_mod
-    from torch.profiler import ProfilerActivity, profile
     t = [time.perf_counter()]
     stacked = np.stack(list(batches))
     t.append(time.perf_counter())
@@ -1166,33 +1313,11 @@ def stream_breakdown(runner, state, w, batches, device,
     t.append(time.perf_counter())
     ms = dict(zip(("stack", "h2d", "consume", "fetch"),
                   (1e3 * (b - a) for a, b in zip(t, t[1:]))))
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        state, summary = runner.consume(state, w, chunk, tids)
-        sync(device)
-        wall_us = 1e6 * (time.perf_counter() - t0)
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.time_range.elapsed_us() for e in kernels)
-    by_name: dict[str, float] = {}
-    for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
     print(f"  one chunk, host clock: stack {ms['stack']:.2f} ms, H2D "
           f"{ms['h2d']:.2f} ms, consume {ms['consume']:.2f} ms, summary "
           f"fetch {ms['fetch']:.2f} ms")
-    if not kernels:
-        print("  consume under torch.profiler: no device op in the trace; "
-              "device idle share not measured")
-    else:
-        print(f"  consume under torch.profiler: wall {wall_us / 1e3:.3f} "
-              f"ms, {len(kernels)} device ops, device busy "
-              f"{busy_us / 1e3:.3f} ms (idle share "
-              f"{1 - busy_us / wall_us:.3f}); top: "
-              + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in top))
-    return {**ms, "profiled_wall_ms": wall_us / 1e3,
-            "device_busy_ms": busy_us / 1e3, "device_ops": len(kernels)}
+    return {**ms, **traced_both_ways(
+        "consume", lambda: runner.consume(state, w, chunk, tids), device)}
 
 
 # ---------------------------------------------------------------------------
@@ -1454,13 +1579,30 @@ def phase_timing(mods, device, est, guard) -> tuple:
     out["srp_hash"] = {**hashes[-1], "by_shape": hashes}
 
     out.update(time_update_and_srht(u, mods["srht_hash"], device))
+    # ace_query: the one-launch sum (the score's scale) against its plain
+    # version, the (B, L) gather + torch.sum + multiply it replaces, the
+    # gather alone and one library call of the same mean (embedding_bag
+    # over a float copy of the counts, made outside the timing)
+    recip = torch.tensor(1.0 / L, dtype=torch.float32)
+    counts_f = counts.float().view(-1, 1)
+    flat_ids = rows * nb + b64
     out["ace_query"] = dict(
-        ms=device_ms(lambda: q.ace_query(counts, buckets)),
-        plain_ms=device_ms(lambda: q.ace_query_plain(counts, buckets)),
-        library_ms=device_ms(lambda: counts[rows, b64]),
+        ms=device_ms(lambda: q.ace_query_sum(counts, buckets)),
+        plain_ms=device_ms(lambda: q.ace_query_sum_plain(counts, buckets)),
+        library_ms=device_ms(lambda: torch.nn.functional.embedding_bag(
+            flat_ids, counts_f, mode="mean")),
+        old_sequence_ms=device_ms(
+            lambda: torch.sum(q.ace_query(counts, buckets), dim=-1) * recip),
+        gather_ms=device_ms(lambda: q.ace_query(counts, buckets)),
+        gather_library_ms=device_ms(lambda: counts[rows, b64]),
         shape=f"B={B}, L={L}, 2^K={nb}, distinct counters {U}",
         **dict(zip(("bound_ms", "bound_by"),
-                   bound(0, 4 * B * L * 2 + 4 * U))))
+                   bound(0, 4 * B * L + 4 * B + 4 * U))))
+    print(f"  ace_query_sum {out['ace_query']['shape']}: one launch "
+          f"{out['ace_query']['ms']:.5f} ms against the (B, L) gather + "
+          f"torch.sum + multiply {out['ace_query']['old_sequence_ms']:.5f} "
+          f"ms (the gather alone {out['ace_query']['gather_ms']:.5f}, "
+          f"counts[rows, ids] {out['ace_query']['gather_library_ms']:.5f})")
     c2 = counts.clone()
 
     # the admission at the guardrails' shape and at the dense stream
@@ -1610,6 +1752,8 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
             item_mask=finite)),
         library_ms=None, shape=f"B={B}, d={d}, T={FLEET_T}, E={WIN_E}, "
         f"K={K_BITS}, L={L}, admitted {int(adm.sum())}",
+        plan=mods["srp_hash"].device_plan(B, d, K_BITS, L, device)
+        .describe(),
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * B * d * KL + 3 * B * L,
             4 * (B * d + d * KL) + 4 * Ut + 4 * Ul + 2 * 4 * Ui
@@ -1775,6 +1919,63 @@ def time_update_and_srht(u, sh, device) -> dict:
     return out
 
 
+def time_query_paths(device) -> dict:
+    """``ops.ace_query``, ``ops.ace_update`` and ``ops.ace_fleet_admit_at``
+    (T = 8, every item admitted) at the fit, admit and stream-step shapes,
+    and the fused windowed-fleet admission at phase 6's shape (T = 8,
+    E = 4), through whichever ``repro_torch`` is first on the path, on
+    inputs made here from SEED: so two checkouts time the same work
+    (``scripts/kernel_ab.py``), each call's device time whatever kernels
+    and PyTorch ops it runs."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.srp import make_projections
+    from repro_torch.fleet import state as fl
+    from repro_torch.kernels import ace_fleet_window_admit as fwa
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=device).manual_seed(SEED + 31)
+    out = {k: {"by_shape": []} for k in ("ops.ace_query", "ops.ace_update",
+                                         "ops.ace_fleet_admit_at")}
+    for where, B, d, K, L in (
+            ("fit", FIT_BATCH, KDD_D, K_BITS, L_TABLES),
+            ("admit", ADMIT_B, D_MODEL + 1, K_BITS, L_TABLES),
+            ("stream step", STREAM_B, D_MODEL + 1, STREAM_K, STREAM_L)):
+        cfg = sk.AceConfig(dim=d, num_bits=K, num_tables=L, seed=53)
+        w = make_projections(cfg.srp, device=device)
+        x = torch.randn((B, d), generator=gen, device=device)
+        ids = fit_ids(device) if where == "fit" else torch.randint(
+            0, 1 << K, (B, L), generator=gen, device=device,
+            dtype=torch.int32)
+        state = ops.ace_update(sk.init(cfg, device), ids, cfg)
+        fstate = fl.init(fl.FleetConfig(ace=cfg, num_tenants=FLEET_T),
+                         device)
+        tids = (torch.arange(B, device=device) % FLEET_T).to(torch.int32)
+        thr = torch.full((B,), float("-inf"), device=device)
+        shape = f"{where}: B={B}, d={d}, K={K}, L={L}"
+        for k, fn in (
+                ("ops.ace_query", lambda: ops.ace_query(state, ids)),
+                ("ops.ace_update", lambda: ops.ace_update(state, ids, cfg)),
+                ("ops.ace_fleet_admit_at", lambda: ops.ace_fleet_admit_at(
+                    fstate, x, tids, w, cfg, thr))):
+            out[k]["by_shape"].append({"shape": shape, "ms": device_ms(fn)})
+    T, E, B, d, K, L = FLEET_T, WIN_E, ADMIT_B, D_MODEL + 1, K_BITS, L_TABLES
+    cfg = sk.AceConfig(dim=d, num_bits=K, num_tables=L, seed=41)
+    w = make_projections(cfg.srp, device=device)
+    x = torch.randn((B, d), generator=gen, device=device)
+    ring = torch.randint(0, 9, (T, E, L, 1 << K), generator=gen,
+                         device=device, dtype=torch.int32)
+    tail = torch.randint(0, 40, (T, L, 1 << K), generator=gen,
+                         device=device).float() * 0.9
+    cursor = torch.randint(0, E, (T,), generator=gen, device=device,
+                           dtype=torch.int32)
+    tids = (torch.arange(B, device=device) % T).to(torch.int32)
+    thr = torch.full((T,), 40.0, device=device)
+    out["ace_fleet_window_admit_fused"] = {"by_shape": [{
+        "shape": f"B={B}, d={d}, T={T}, E={E}, K={K}, L={L}",
+        "ms": device_ms(lambda: fwa.ace_fleet_window_admit_fused(
+            ring, tail, cursor, x, tids, w, thr, cfg.srp))}]}
+    return out
+
+
 def srht_bound(B: int, d: int, cfg):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
     add rate against x, the signs, the row sample and the ids in bytes."""
@@ -1852,7 +2053,13 @@ def main() -> int:
         mods, device, *(paths[f"guardrail_{k}"]["guardrail"]
                         for k in GUARD_KINDS)))
     times.update(phase_timing_attr(mods, device, paths["attribution_srht"]))
+    for k, v in time_query_paths(device).items():
+        print(f"  {k}: " + "; ".join(f"{r['shape']} {r['ms']:.5f} ms"
+                                     for r in v["by_shape"]))
 
+    gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
+    check(gathers == 0, "no main path launched the (B, L) ace_query gather "
+          f"({gathers}): every gather-and-reduce is one ace_query_sum")
     kernels = []
     for name in KERNELS:
         by_path = {p: r["launches"][name] for p, r in paths.items()}
@@ -1868,7 +2075,9 @@ def main() -> int:
             "bound_by": t["bound_by"], "library_ms": t["library_ms"],
             "shape": t["shape"], "launches_by_path": by_path,
             **{k: t[k] for k in ("matmul_ms", "plan", "by_shape",
-                                 "copies_ms", "at_post_mortem")
+                                 "copies_ms", "at_post_mortem",
+                                 "old_sequence_ms", "gather_ms",
+                                 "gather_library_ms")
                  if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "

@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
-"""Time one checkout's ``ace_update`` and ``srht_hash`` CUDA kernels at the
-main path's shapes, on one card, and print one JSON line.
+"""Time one checkout's kernels at the main path's shapes, on one card, and
+print one JSON line: the ``ace_update`` and ``srht_hash`` kernels, and the
+calls around the gather — ``ops.ace_query``, ``ops.ace_update`` and
+``ops.ace_fleet_admit_at`` at the fit, admit and stream-step shapes, and
+the fused windowed-fleet admission at its guardrail's shape.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
 
 The kernels come from ``DIR/src/repro_torch`` (default: this checkout)
 and are built there; the inputs, shapes and timing are this checkout's
-``chip_smoke.time_update_and_srht``, so two checkouts unpacked side by
-side time the same work.  To compare a change with its parent on one
+``chip_smoke.time_update_and_srht`` and ``chip_smoke.time_query_paths``,
+so two checkouts unpacked side by side time the same work.  To compare a change with its parent on one
 card, run parent, change, change, parent in one sitting: the card and
 its power limit are in each line.  Exits non-zero without a card.
 """
@@ -42,8 +45,9 @@ def main() -> int:
         raise SystemExit(f"kernel_ab: repro_torch did not come from {root}")
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash's ids
     build.build_all()
-    times = chip_smoke.time_update_and_srht(ace_update, srht_hash,
-                                            torch.device("cuda"))
+    device = torch.device("cuda")
+    times = chip_smoke.time_update_and_srht(ace_update, srht_hash, device)
+    times.update(chip_smoke.time_query_paths(device))
     keep = ("ms", "copies_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "shape")
     print(json.dumps({

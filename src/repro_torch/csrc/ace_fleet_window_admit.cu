@@ -11,11 +11,14 @@
 // stay where they are and only the counters the batch touches move.
 //
 // Design: ace_admit_fused.cu's, two kernels on one stream.
-//   Phase 1 (fwa_hash_gather): the srp_tile.cuh block hash, whose epilogue
-//     writes each bucket id and gathers, for item b of tenant t with live
-//     epoch c = cursor[t], the tail value tail[(t*L + j) * 2^K + bucket]
-//     and the live counter ring[((t*E + c)*L + j) * 2^K + bucket].  No
-//     counter is written in this phase.
+//   Phase 1 (fwa_hash_gather): the srp_gemm.cuh hash, as in srp_hash.cu
+//     (64-row x table-group tiles, the depth split across a thread-block
+//     cluster by the launch plan of kernels/srp_hash.py, so its ids are
+//     srp_hash's bits under the same plan), whose epilogue writes each
+//     bucket id and gathers, for item b of tenant t with live epoch
+//     c = cursor[t], the tail value tail[(t*L + j) * 2^K + bucket] and the
+//     live counter ring[((t*E + c)*L + j) * 2^K + bucket].  No counter is
+//     written in this phase.
 //   Phase 2 (fwa_score_insert): one thread per row sums its tail and live
 //     gathers in table order (__fadd_rn), forms (tail + live) * (1/L) as
 //     the reference's ring.score_live does, compares with thr[t] read from
@@ -31,21 +34,23 @@
 // zeros and never inserts: nothing outside the ring is read or written.
 // Offsets are 64-bit.
 
-#include "srp_tile.cuh"
+#include "srp_gemm.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(repro::kThreads)
+__global__ void __launch_bounds__(repro::gemm::kThreads,
+                                  repro::gemm::kMinBlocks)
 fwa_hash_gather(const int* __restrict__ ring, const float* __restrict__ tail,
                 const int* __restrict__ cursor, const float* __restrict__ q,
                 const float* __restrict__ w,
                 const int* __restrict__ tenant_ids, int* __restrict__ buckets,
                 float* __restrict__ tail_g, float* __restrict__ live_g, int B,
-                int d, int P, int K, int L, int E, int T) {
-  __shared__ repro::SrpTileSmem sm;
+                int d, int P, int K, int L, int E, int T,
+                repro::gemm::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const long long nbuckets = 1LL << K;
-  repro::srp_tile(
-      q, w, B, d, P, K, L, sm, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile(
+      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
         const int t = tenant_ids[row];
@@ -99,23 +104,31 @@ __global__ void fwa_score_insert(int* __restrict__ ring,
 }  // namespace
 
 // ring (T, E, L, 2^K) int32, updated in place; tail (T, L, 2^K) fp32;
-// cursor (T,) int32; q (B, d), w (d, P) fp32; tenant_ids (B,) int32;
-// thr (T,) fp32 per-tenant score-space thresholds; item_mask (B,) bool or
-// null.  Outputs: buckets (B, L) int32, scores, tail_sums, live_pre (B,)
-// fp32, admit (B,) bool; tail_g and live_g (B, L) fp32 are scratch.
-// Needs 1 <= K <= 31, B >= 1.
+// cursor (T,) int32; q (B, d), w (d, P) fp32, w 16-byte aligned;
+// tenant_ids (B,) int32; thr (T,) fp32 per-tenant score-space thresholds;
+// item_mask (B,) bool or null.  Outputs: buckets (B, L) int32, scores,
+// tail_sums, live_pre (B,) fp32, admit (B,) bool; tail_g and live_g (B, L)
+// fp32 are scratch.  The hash's plan as in repro_srp_hash.  Needs
+// 1 <= K <= 31, B >= 1; a plan that does not fit returns
+// cudaErrorInvalidValue.
 REPRO_API int repro_ace_fleet_window_admit(
     int* ring, const float* tail, const int* cursor, const float* q,
     const float* w, const int* tenant_ids, const float* thr,
     const unsigned char* item_mask, int* buckets, float* tail_g,
     float* live_g, float* scores, unsigned char* admit, float* tail_sums,
     float* live_pre, int B, int d, int P, int K, int L, int E, int T,
-    float inv_l, void* stream) {
+    float inv_l, int rows, int row_tiles, int tables, int groups,
+    int splits, int b0, int b1, int b2, int b3, int b4, int b5, int b6,
+    int b7, int b8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  fwa_hash_gather<<<repro::tile_grid(B, K, L), repro::kThreads, 0, s>>>(
-      ring, tail, cursor, q, w, tenant_ids, buckets, tail_g, live_g, B, d, P,
-      K, L, E, T);
-  const cudaError_t err = cudaGetLastError();
+  const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Plan plan = repro::gemm::make_plan(
+      rows, row_tiles, tables, groups, splits, bounds);
+  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = repro::gemm::launch(
+      fwa_hash_gather, plan, s, ring, tail, cursor, q, w, tenant_ids,
+      buckets, tail_g, live_g, B, d, P, K, L, E, T, plan);
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr int kThreads = 256;
   fwa_score_insert<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(

@@ -1,6 +1,7 @@
 // The dense SRP hash of one block, redesigned for Hopper: sign bits of
-// x @ W, packed K bits per table, MSB first.  Shared by srp_hash.cu and
-// ace_admit_fused.cu (the other three dense-hash kernels still use
+// x @ W, packed K bits per table, MSB first.  Shared by srp_hash.cu,
+// ace_admit_fused.cu and ace_fleet_window_admit.cu (the other two
+// dense-hash kernels, ace_score_fused.cu and ace_fleet_score.cu, still use
 // srp_tile.cuh).
 //
 // A block covers kRows = 64 rows of x and one group of whole tables (at

@@ -1,5 +1,6 @@
 // The dense SRP hash of one block: sign bits of x @ W, packed K bits per
-// table, MSB first.  Shared by srp_hash.cu and ace_admit_fused.cu.
+// table, MSB first.  Shared by ace_score_fused.cu and ace_fleet_score.cu;
+// the other three dense-hash kernels run on srp_gemm.cuh.
 //
 // A block covers kBM = 16 rows of x and one group of whole tables: as
 // many K-bit tables as fit in kCols = 128 projection columns (8 tables =

@@ -6,16 +6,20 @@ updated in place.
 Replaces the TPU kernel ``repro.kernels.ace_fleet_window_admit
 .ace_fleet_window_admit_fused`` (→ ``_admit_fused_impl``; Pallas, in
 ``src/repro/kernels/ace_fleet_window_admit.py``).  CUDA source:
-``csrc/ace_fleet_window_admit.cu`` with the shared block hash
-``csrc/srp_tile.cuh``.
+``csrc/ace_fleet_window_admit.cu`` with the block hash
+``csrc/srp_gemm.cuh``.
 
 Bound on the H100: the hash's fp32 operations (2·B·d·K·L FLOP; at B=256,
 d=4097, K·L=750: 1.57 GFLOP, 23 µs at 67 TFLOP/s).  The design is
-``ace_admit_fused``'s, two kernels on one stream: phase 1 hashes and
-gathers every item's tail value at row tid·L + j and live counter at row
-(tid·E + cursor[tid])·L + j, phase 2 sums both in table order, scores,
-compares with ``thresholds[tid]`` read on the device, gates on the item
-mask and atomically inserts the admitted rows into their live epochs.
+``ace_admit_fused``'s, two kernels on one stream: phase 1 is
+``srp_hash``'s register-tiled, cluster-split hash under the same launch
+plan (``srp_hash.hash_plan``), so its ids are ``srp_hash``'s bits, and its
+epilogue gathers every item's tail value at row tid·L + j and live
+counter at row (tid·E + cursor[tid])·L + j; phase 2 sums both in table
+order, scores, compares with ``thresholds[tid]`` read on the device,
+gates on the item mask and atomically inserts the admitted rows into
+their live epochs.  ``ops.ace_fleet_window_admit`` then sums the
+post-insert live counters with one ``ace_query_sum`` launch.
 Stream order puts every gather before any insert, so every score is
 pre-insert, copies of one row to one tenant included.  The cursor is read
 inside the kernel: no host sync.  ``ace_fleet_window_admit_fused_plain``
@@ -35,11 +39,13 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_score_fused import table_order_sum
 from repro_torch.kernels.ace_update import ace_update_plain, gather_rows
-from repro_torch.kernels.srp_hash import lane_padded, srp_hash_plain
+from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
+                                          check_w_aligned, device_plan,
+                                          lane_padded, srp_hash_plain)
 
 KERNEL = build.Kernel("ace_fleet_window_admit", "repro_ace_fleet_window_admit",
                       [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-                      + [ctypes.c_float])
+                      + [ctypes.c_float] + PLAN_ARGTYPES)
 
 
 def ace_fleet_window_admit_fused_plain(ring_counts: torch.Tensor,
@@ -106,6 +112,23 @@ def ace_fleet_window_admit_fused(ring_counts: torch.Tensor,
          tail_sums (B,) fp32, live_pre (B,) fp32 — the scoring sums, for
          the stats epilogue ``fleet.window.apply_insert_stats``).
     Rows where ``item_mask`` is False neither admit nor insert."""
+    return ace_fleet_window_admit_fused_planned(
+        ring_counts, tail, cursor, q, tenant_ids, w, thresholds, cfg,
+        item_mask, None)
+
+
+def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
+                                         tail: torch.Tensor,
+                                         cursor: torch.Tensor,
+                                         q: torch.Tensor,
+                                         tenant_ids: torch.Tensor,
+                                         w: torch.Tensor,
+                                         thresholds: torch.Tensor,
+                                         cfg: SrpConfig,
+                                         item_mask: torch.Tensor | None,
+                                         plan: HashPlan | None):
+    """``ace_fleet_window_admit_fused`` with the hash under a given launch
+    plan (None: ``srp_hash.device_plan``'s)."""
     if ring_counts.dtype in (torch.int8, torch.int16):
         not_ported("int8/int16 windowed fleet rings", 9)
     T, E, L, nbuckets = ring_counts.shape
@@ -139,11 +162,14 @@ def ace_fleet_window_admit_fused(ring_counts: torch.Tensor,
     admit = torch.empty((B,), dtype=torch.bool, device=dev)
     if B:
         w, P = lane_padded(w, cfg)
+        check_w_aligned(w)
+        plan = plan or device_plan(B, d, K, L, dev)
         KERNEL(dev, ring_counts.data_ptr(), tail.data_ptr(),
                cursor.data_ptr(), q.data_ptr(), w.data_ptr(),
                tenant_ids.data_ptr(), thresholds.data_ptr(),
                None if item_mask is None else item_mask.data_ptr(),
                buckets.data_ptr(), tail_g.data_ptr(), live_g.data_ptr(),
                scores.data_ptr(), admit.data_ptr(), tail_sums.data_ptr(),
-               live_pre.data_ptr(), B, d, P, K, L, E, T, 1.0 / L)
+               live_pre.data_ptr(), B, d, P, K, L, E, T, 1.0 / L,
+               *plan.args())
     return ring_counts, scores, admit, buckets, tail_sums, live_pre

@@ -12,19 +12,26 @@ Hash-family dispatch: ``hash_dispatch`` routes ``SrpConfig.hash_mode``
 between the ``srp_hash`` and ``srht_hash`` kernels (``"auto"`` resolves by
 ``repro_torch.core.srht.choose_hash_mode``).  The fused score and admit
 kernels hash densely inside; under ``"srht"`` (and, for admission, with a
-table mask) the one hash runs as its own kernel and the gather and
-insert as the ``ace_query`` and ``ace_update`` kernels — still one hash a
+table mask) the one hash runs as its own kernel and the score and insert
+as the ``ace_query_sum`` and ``ace_update`` kernels — still one hash a
 batch.
+
+Every gather of counters that a caller reduces over L at once — a
+score, a post-insert score, a (masked) live-epoch sum — is one
+``ace_query_sum`` launch: the gather, the exact row sum and the caller's
+scaling (× float32(1/L), × 1/healthy, or none), with no (B, L)
+matrix and no PyTorch reduction after it.  The (B, L) ``ace_query``
+gather is not on any path here.
 
 Windows and fleets (``repro_torch.window``, ``repro_torch.fleet``) address
 a stacked table — the (E·L, 2^K) ring, the (T·L, 2^K) fleet, the
-(T·E·L, 2^K) windowed fleet — through the ``ace_query``/``ace_update``
-kernels' per-item base row (cursor·L, tid·L, tid·E·L + cursor[tid]·L),
-computed on the device, so no cursor ever reaches the host.  The float
-tail views are gathered with plain PyTorch indexing, as the reference
-gathers them with jnp; the stats epilogues are the plain modules' own
-(``ring.insert_stats``, ``fleet.state.fleet_masked_welford``,
-``fleet.window.apply_insert_stats``).
+(T·E·L, 2^K) windowed fleet — through the ``ace_query_sum``/
+``ace_update`` kernels' per-item base row (cursor·L, tid·L, tid·E·L +
+cursor[tid]·L), computed on the device, so no cursor ever reaches the
+host.  The float tail views are gathered and summed with plain PyTorch,
+as the reference gathers them with jnp; the stats epilogues are the
+plain modules' own (``ring.insert_stats``,
+``fleet.state.fleet_masked_welford``, ``fleet.window.apply_insert_stats``).
 """
 from __future__ import annotations
 
@@ -84,12 +91,13 @@ def attr_estimate(plane: torch.Tensor, cols: torch.Tensor,
 def ace_update(state: AceState, buckets: torch.Tensor,
                cfg: AceConfig) -> AceState:
     """Kernel-path insert: the ``ace_update`` kernel adds the batch, then
-    the ``ace_query`` kernel gathers the post-insert counts for the
-    Welford stream (the reference's formula, with no ``welford_min_n``
-    gate, as in ``repro.kernels.ops.ace_update``)."""
+    one ``ace_query_sum`` launch gives the post-insert means over L (times
+    float32(1/L), as ``torch.mean`` computes them on the card and
+    ``sketch.insert_buckets`` everywhere) for the Welford stream (the
+    reference's formula, with no ``welford_min_n`` gate, as in
+    ``repro.kernels.ops.ace_update``)."""
     new_counts = _u.ace_update(state.counts, buckets)
-    gathered = _q.ace_query(new_counts, buckets)
-    scores = torch.mean(gathered, dim=-1)
+    scores = _q.ace_query_sum(new_counts, buckets)
     b = float(scores.shape[0])
     n = state.n
     tot = n + b
@@ -113,15 +121,11 @@ def _mask_weights(table_mask: torch.Tensor) -> torch.Tensor:
 
 def ace_query(state: AceState, buckets: torch.Tensor,
               table_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """(B, L) bucket ids -> (B,) scores via the gather kernel: the sum
-    times float32(1/L) (``sketch.reciprocal``, so kernel and plain scores
-    agree bitwise), or the mean over the healthy tables of
-    ``table_mask``."""
-    gathered = _q.ace_query(state.counts, buckets)
-    if table_mask is None:
-        return torch.sum(gathered, dim=-1) \
-            * _sk.reciprocal(state.counts.shape[0])
-    return _sk.masked_table_mean(gathered, table_mask)
+    """(B, L) bucket ids -> (B,) scores in one ``ace_query_sum`` launch:
+    the sum times float32(1/L) (``sketch.reciprocal``, so kernel and plain
+    scores agree bitwise), or the mean over the healthy tables of
+    ``table_mask`` (``sketch.masked_table_mean``'s)."""
+    return _q.ace_query_sum(state.counts, buckets, table_mask=table_mask)
 
 
 def ace_score(state: AceState, q: torch.Tensor, w: torch.Tensor,
@@ -131,7 +135,7 @@ def ace_score(state: AceState, q: torch.Tensor, w: torch.Tensor,
 
     Dense: one ``ace_score_fused`` call, with the health mask baked into
     its ``table_weights`` when ``table_mask`` is given.  SRHT: the
-    ``srht_hash`` kernel, then ``ace_query``.
+    ``srht_hash`` kernel, then ``ace_query_sum``.
     """
     if resolve_hash_mode(cfg.srp) == "srht":
         return ace_query(state, hash_dispatch(q, w, cfg.srp),
@@ -152,9 +156,9 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
 
     Dense with no table mask: the ``ace_admit_fused`` kernel (hash,
     pre-insert score, threshold, masked insert).  SRHT or a table mask:
-    ``hash_dispatch``, the ``ace_query`` kernel for the (masked) score,
-    the ``ace_update`` kernel with the admit mask as its row mask.  Both
-    then gather the post-insert counts with ``ace_query`` from the same
+    ``hash_dispatch``, ``ace_query_sum`` for the (masked) score, the
+    ``ace_update`` kernel with the admit mask as its row mask.  Both then
+    score the post-insert counts with ``ace_query_sum`` from the same
     bucket ids, as ``repro.core.sketch.insert_buckets_masked`` does.
     Returns (new_state, admit (B,) bool, pre-insert scores (B,) f32).
     """
@@ -215,16 +219,28 @@ def ace_window_score(wstate, buckets: torch.Tensor, gamma: float,
 
 def _window_sums(wstate, buckets: torch.Tensor, rows: torch.Tensor,
                  tail_rows: torch.Tensor | None,
-                 table_mask: torch.Tensor | None):
+                 table_mask: torch.Tensor | None,
+                 tenant_ids: torch.Tensor | None = None):
     """Pre-insert (tail_sums, live_sums) and the masked pair the decision
-    uses (the same pair without a mask): the live gather through
-    ``ace_query`` at base rows ``rows``, the float tail by indexing."""
-    live_g = _q.ace_query(_flat(wstate.counts), buckets, row_base=rows)
+    uses (the same pair without a mask): the live sums in one
+    ``ace_query_sum`` launch at base rows ``rows`` (masked and unmasked
+    at once), the float tail gathered and summed in plain PyTorch, as
+    ``ring.table_sums`` does.  ``table_mask`` is (L,), or (T, L) routed
+    by ``tenant_ids``."""
+    flat = _flat(wstate.counts)
     tail_g = _u.gather_rows(_flat(wstate.tail), buckets, tail_rows)
-    pre = _ring.table_sums(tail_g, live_g)
+    tail_pre = torch.sum(tail_g, dim=-1)
     if table_mask is None:
+        pre = (tail_pre, _q.ace_query_sum(flat, buckets, rows, scale="sum"))
         return pre, pre
-    return pre, _ring.table_sums(tail_g, live_g, table_mask)
+    live_dec, live_pre = _q.ace_query_sum(
+        flat, buckets, rows, table_mask=table_mask, tenant_ids=tenant_ids,
+        scale="sum", with_unmasked=True)
+    maskf = table_mask.to(torch.float32)
+    if maskf.dim() == 2:
+        maskf = maskf[tenant_ids.long()]
+    return (tail_pre, live_pre), (torch.sum(tail_g * maskf, dim=-1),
+                                  live_dec)
 
 
 def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
@@ -239,8 +255,9 @@ def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
     unmasked sums over the healthy count instead, as the reference's
     ``WindowedAceFilter.step`` does); admitted rows go into the live epoch
     through ``ace_update`` at base row cursor·L, in place; the post-insert
-    live gather feeds ``ring.insert_stats`` with the unmasked scoring
-    sums.  Returns (new_state, admit (B,) bool, pre-insert scores (B,))."""
+    live sum (one ``ace_query_sum``) feeds ``ring.insert_stats`` with the
+    unmasked scoring sums.  Returns (new_state, admit (B,) bool,
+    pre-insert scores (B,))."""
     L = cfg.num_tables
     buckets = hash_dispatch(q, w, cfg.srp)
     rows = _ring.live_rows(wstate, buckets.shape[0])
@@ -252,8 +269,7 @@ def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
         admit = admit & item_mask
     flat = _u.ace_update(_flat(wstate.counts), buckets, row_mask=admit,
                          row_base=rows)
-    live_post = torch.sum(_q.ace_query(flat, buckets, row_base=rows),
-                          dim=-1)
+    live_post = _q.ace_query_sum(flat, buckets, rows, scale="sum")
     new_state = _ring.insert_stats(wstate, wstate.counts, admit, cfg, gamma,
                                    tail_sums, live_pre, live_post)
     return new_state, admit, scores
@@ -283,13 +299,14 @@ def ace_fleet_score(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                     table_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Multi-tenant scoring of raw queries, each against its own tenant's
     tables, one hash for the batch.  Dense: one ``ace_fleet_score`` call.
-    SRHT or a table mask (T, L): the one hash kernel, then the routed
-    ``ace_query`` gather and the shared combine."""
+    SRHT or a table mask (T, L): the one hash kernel, then one routed
+    ``ace_query_sum`` launch (``fleet.state.fleet_combine``'s means)."""
     if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
         buckets = hash_dispatch(q, w, cfg.srp)
-        g = _q.ace_query(_flat(fstate.counts), buckets, row_base=_fls
-                         .tenant_rows(tenant_ids, cfg.num_tables))
-        return _fls.fleet_combine(g, tenant_ids, table_mask)
+        return _q.ace_query_sum(
+            _flat(fstate.counts), buckets,
+            _fls.tenant_rows(tenant_ids, cfg.num_tables),
+            table_mask=table_mask, tenant_ids=tenant_ids)
     return _fl.ace_fleet_score(fstate.counts, q, tenant_ids, w, cfg.srp)
 
 
@@ -299,21 +316,20 @@ def ace_fleet_admit_at(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                        table_mask: torch.Tensor | None = None,
                        item_mask: torch.Tensor | None = None):
     """Multi-tenant admission against given per-item thresholds (B,): ONE
-    hash, the routed ``ace_query`` gather at base row tid·L, the
+    hash, the routed ``ace_query_sum`` score at base row tid·L, the
     ``ace_update`` insert of the admitted rows there (in place), the
-    post-insert gather for the per-tenant Welford fold.  Returns
-    (new_state, admit (B,) bool, pre-insert scores (B,))."""
+    post-insert ``ace_query_sum`` for the per-tenant Welford fold.
+    Returns (new_state, admit (B,) bool, pre-insert scores (B,))."""
     buckets = hash_dispatch(q, w, cfg.srp)
     rows = _fls.tenant_rows(tenant_ids, cfg.num_tables)
     flat = _flat(fstate.counts)
-    scores = _fls.fleet_combine(_q.ace_query(flat, buckets, row_base=rows),
-                                tenant_ids, table_mask)
+    scores = _q.ace_query_sum(flat, buckets, rows, table_mask=table_mask,
+                              tenant_ids=tenant_ids)
     admit = scores >= thresh
     if item_mask is not None:
         admit = admit & item_mask
     _u.ace_update(flat, buckets, row_mask=admit, row_base=rows)
-    post = _fls.fleet_combine(_q.ace_query(flat, buckets, row_base=rows),
-                              tenant_ids)
+    post = _q.ace_query_sum(flat, buckets, rows)
     tot, mean, m2 = _fls.fleet_masked_welford(
         fstate, tenant_ids, post, admit.to(torch.float32), cfg.welford_min_n)
     return fstate._replace(n=tot, welford_mean=mean, welford_m2=m2), \
@@ -347,9 +363,9 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
     device, then, dense and healthy, the fused
     ``ace_fleet_window_admit_fused`` kernel (hash, tail and live gathers,
     score, threshold, masked live-epoch insert); under SRHT or a table
-    mask (T, L) the one hash kernel with the routed ``ace_query`` gathers
-    (masked for the decision) and ``ace_update`` insert.  Both then gather
-    the post-insert live counters with ``ace_query`` for
+    mask (T, L) the one hash kernel with the routed ``ace_query_sum``
+    live sums (masked for the decision) and ``ace_update`` insert.  Both
+    then sum the post-insert live counters with one ``ace_query_sum`` for
     ``fleet.window.apply_insert_stats`` and run the presence-gated clocks
     (``maybe_rotate_fleet``).  Returns (new_state, admit (B,) bool)."""
     thr_t = _fw.window_admit_thresholds(state, gamma, alpha, warmup_items,
@@ -358,14 +374,14 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
     flat = _flat(state.counts)
     if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
         buckets = hash_dispatch(q, w, cfg.srp)
-        mask = None if table_mask is None \
-            else table_mask.to(torch.float32)[tenant_ids.long()]
         (tail_sums, live_pre), dec = _window_sums(
             state, buckets, rows, _fls.tenant_rows(tenant_ids,
-                                                   cfg.num_tables), mask)
+                                                   cfg.num_tables),
+            table_mask, tenant_ids)
         if table_mask is None:
             scores = _ring.score_live(*dec, cfg.num_tables)
         else:
+            mask = table_mask.to(torch.float32)[tenant_ids.long()]
             nh = torch.clamp_min(torch.sum(mask, dim=-1), 1.0)
             scores = (dec[0] + dec[1]) * (1.0 / nh)
         admit = scores >= thr_t[tenant_ids.long()]
@@ -377,7 +393,7 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
             _fwa.ace_fleet_window_admit_fused(
                 state.counts, state.tail, state.cursor, q, tenant_ids, w,
                 thr_t, cfg.srp, item_mask=item_mask)
-    live_post = torch.sum(_q.ace_query(flat, buckets, row_base=rows), dim=-1)
+    live_post = _q.ace_query_sum(flat, buckets, rows, scale="sum")
     new_state = _fw.apply_insert_stats(state, state.counts, tenant_ids,
                                        admit, cfg, gamma, tail_sums,
                                        live_pre, live_post)

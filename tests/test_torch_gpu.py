@@ -198,12 +198,14 @@ def test_empty_batches_launch_nothing(cuda):
     w = make_projections(cfg, device=cuda)
     counts = _counts(3, 5, cuda)
     ids = torch.zeros((0, 3), dtype=torch.int32, device=cuda)
-    before = [m.KERNEL.launches for m in (H, U, Q)]
+    kernels = (H.KERNEL, U.KERNEL, Q.KERNEL, Q.GATHER_KERNEL)
+    before = [k.launches for k in kernels]
     assert tuple(H.srp_hash(torch.zeros((0, 8), device=cuda), w,
                             cfg).shape) == (0, 3)
     assert torch.equal(U.ace_update(counts.clone(), ids), counts)
     assert tuple(Q.ace_query(counts, ids).shape) == (0, 3)
-    assert [m.KERNEL.launches for m in (H, U, Q)] == before
+    assert tuple(Q.ace_query_sum(counts, ids).shape) == (0,)
+    assert [k.launches for k in kernels] == before
 
 
 @pytest.mark.parametrize("B,K,L,repeat", [(40, 4, 3, 1), (30, 6, 10, 4),
@@ -223,6 +225,70 @@ def test_ace_query_matches_plain(cuda, B, K, L):
     got = Q.ace_query(counts, ids)
     assert got.dtype == torch.float32
     assert torch.equal(got, Q.ace_query_plain(counts, ids))
+
+
+def _query_sum_cases(B, L, device, T=5, K=10, seed=3):
+    """(row_base, table_mask, tenant_ids) operand sets for ``ace_query_sum``
+    over a stacked (3L, 2^K) table: none; base rows partly outside
+    [0, 3L); an (L,) mask; a (T, L) mask routed by tenant ids partly
+    outside [0, T), one tenant with every table masked; every table
+    masked."""
+    gen = torch.Generator().manual_seed(seed)
+    base = torch.randint(-L, 3 * L, (B,), generator=gen, dtype=torch.int32)
+    tids = torch.randint(-1, T + 1, (B,), generator=gen, dtype=torch.int32)
+    mask = (torch.rand((L,), generator=gen) < 0.7).float()
+    routed = (torch.rand((T, L), generator=gen) < 0.7).float()
+    routed[1] = 0.0
+    cases = [(None, None, None), (base, None, None), (None, mask, None),
+             (base, routed, tids), (None, torch.zeros(L), None)]
+    return [tuple(None if t is None else t.to(device) for t in c)
+            for c in cases]
+
+
+@pytest.mark.parametrize("L", [1, 31, 32, 33, 50, 64, 65])
+@pytest.mark.parametrize("B", [0, 1, 33, 4096])
+def test_ace_query_sum_matches_plain_bitwise(cuda, B, L):
+    """Every scale, with and without the unmasked sum, over every operand
+    set of ``_query_sum_cases``: bitwise; one launch a call (none at
+    B = 0)."""
+    K = 10
+    counts = _counts(3 * L, K, cuda, seed=L)
+    ids = _ids(B, K, L, cuda, seed=B)
+    for base, mask, tids in _query_sum_cases(B, L, cuda):
+        table = counts if base is not None else counts[:L]
+        for scale in Q.SCALES:
+            kw = dict(table_mask=mask, tenant_ids=tids, scale=scale)
+            before = Q.KERNEL.launches
+            got = Q.ace_query_sum(table, ids, base, **kw)
+            assert Q.KERNEL.launches == before + (B > 0)
+            assert got.dtype == torch.float32 and tuple(got.shape) == (B,)
+            assert torch.equal(got, Q.ace_query_sum_plain(table, ids, base,
+                                                          **kw))
+        got, every = Q.ace_query_sum(table, ids, base, table_mask=mask,
+                                     tenant_ids=tids, scale="sum",
+                                     with_unmasked=True)
+        want = Q.ace_query_sum_plain(table, ids, base, table_mask=mask,
+                                     tenant_ids=tids, scale="sum",
+                                     with_unmasked=True)
+        assert torch.equal(got, want[0]) and torch.equal(every, want[1])
+
+
+@pytest.mark.parametrize("scale", Q.SCALES)
+def test_ace_query_sum_past_2_24_bitwise(cuda, scale):
+    """Counters near 2^20 and at both int32 ends on 50 tables: every row
+    sum passes 2^24 (or 2^31), and the kernel's exactly rounded integer
+    sum equals the plain version's."""
+    L, K, B = 50, 12, 4096
+    gen = torch.Generator().manual_seed(7)
+    counts = torch.randint((1 << 20) - 999, (1 << 20) + 999, (L, 1 << K),
+                           generator=gen, dtype=torch.int32) | 1
+    counts[:, :8] = 2**31 - 1
+    counts[:, 8:16] = -2**31
+    counts = counts.to(cuda)
+    ids = _ids(B, K, L, cuda, seed=8)
+    ids[:64] %= 16                       # rows on the extreme counters
+    got = Q.ace_query_sum(counts, ids, scale=scale)
+    assert torch.equal(got, Q.ace_query_sum_plain(counts, ids, scale=scale))
 
 
 @pytest.mark.parametrize("thresh", ["median", "-inf", "+inf"])
@@ -714,7 +780,7 @@ def test_row_base_update_and_query_match_plain(cuda, R, K, L, B, repeat,
             "half": torch.arange(B * repeat, device=cuda) % 2 == 0,
             "all": torch.zeros(B * repeat, dtype=torch.bool, device=cuda)
             }[masked]
-    before = (U.KERNEL.launches, Q.KERNEL.launches)
+    before = (U.KERNEL.launches, Q.GATHER_KERNEL.launches)
     got = U.ace_update(counts.clone(), ids, row_mask=mask, row_base=base)
     want = U.ace_update_plain(counts.clone(), ids, mask, base)
     assert torch.equal(got, want)
@@ -722,8 +788,8 @@ def test_row_base_update_and_query_match_plain(cuda, R, K, L, B, repeat,
         assert torch.equal(got, counts)
     assert torch.equal(Q.ace_query(got, ids, row_base=base),
                        Q.ace_query_plain(got, ids, base))
-    assert (U.KERNEL.launches, Q.KERNEL.launches) == (before[0] + 1,
-                                                      before[1] + 1)
+    assert (U.KERNEL.launches, Q.GATHER_KERNEL.launches) == (before[0] + 1,
+                                                             before[1] + 1)
     del counts, got, want
     torch.cuda.empty_cache()
 
@@ -870,6 +936,41 @@ def test_ace_fleet_window_admit_matches_plain(cuda, T, E, B, d, K, L,
         for a, b in zip(got, plain):
             assert torch.equal(a, b)
     del ring, tail, r, plain
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("splits", [1, None])
+def test_ace_fleet_window_admit_ids_are_srp_hash_ids(cuda, splits):
+    """At the admit shape (T = 8, E = 4, B = 256, d = 4097, K = 15,
+    L = 50), at S = 1 and at the card's own plan: the fused admission's
+    ids are ``srp_hash``'s under the same plan bitwise, agree with the
+    plain hash >= 0.999, and everything downstream of them is bitwise."""
+    T, E, B, d, K, L = 8, 4, 256, 4097, 15, 50
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=41)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(5)
+    q = torch.randn((B, d), generator=gen, device=cuda)
+    ring = torch.randint(0, 9, (T, E, L, 1 << K), dtype=torch.int32,
+                         device=cuda, generator=gen)
+    tail = torch.randint(0, 20, (T, L, 1 << K), device=cuda,
+                         generator=gen).float() * 0.37
+    cursor = torch.randint(0, E, (T,), generator=gen, dtype=torch.int32,
+                           device=cuda)
+    tids = (torch.arange(B, device=cuda) % T).to(torch.int32)
+    thr = torch.linspace(2.0, 12.0, T, device=cuda)
+    plan = _forced_plan(B, d, K, L, None, 1) if splits \
+        else H.device_plan(B, d, K, L, cuda)
+    r = ring.clone()
+    got = FWA.ace_fleet_window_admit_fused_planned(
+        r, tail, cursor, q, tids, w, thr, cfg, None, plan)
+    assert torch.equal(got[3], H.srp_hash_planned(q, w, cfg, plan))
+    assert _agreement(got[3], H.srp_hash_plain(q, w, cfg)) >= HASH_AGREEMENT
+    ref_r, ref_s, ref_a, ref_t, ref_l = _fwa_from_ids(
+        ring, tail, cursor, tids, got[3], thr, None)
+    assert torch.equal(got[1], ref_s) and torch.equal(got[2], ref_a)
+    assert torch.equal(got[4], ref_t) and torch.equal(got[5], ref_l)
+    assert torch.equal(r, ref_r)
+    del ring, tail, r, ref_r
     torch.cuda.empty_cache()
 
 
