@@ -7,8 +7,9 @@ main paths on one NVIDIA GPU, checking every result.
 Phases, in order (any failed check raises, and the script then exits
 non-zero without printing its result line):
 
-1. build   — compile the ten CUDA kernels (one ``nvcc`` per source, all
-             at once) and print the card's name and power limit;
+1. build   — compile the ten CUDA kernel sources (one ``nvcc`` per
+             source, all at once) and print the card's name and power
+             limit;
 2. kernels — each kernel against its plain PyTorch version on the card, at
              the shapes of the main paths: dense hash bucket ids agree
              >= 0.999 at the fit, admit and stream-step shapes, and are
@@ -30,8 +31,14 @@ non-zero without printing its result line):
              fleet admission's ids bitwise ``srp_hash``'s under one plan,
              and
              ``attr_estimate`` equal by value at R = 1, 2, 5, 8 (C = 256)
-             for the beam's B = 32 and all 4097 leaf coordinates, and on
-             an all-zero plane;
+             for B = 32 and all 4097 leaf coordinates, and on an all-zero
+             plane, and ``attr_find_hh`` (the one-launch drill-down)
+             bitwise its plain version and the per-level loop of
+             ``attr_estimate`` launches it replaced, at phase 7's
+             hierarchy shape, topk 8 and 18, planted, all-zero and NaN;
+             ``ace_score_fused``'s ids bitwise ``srp_hash``'s, its
+             unweighted scores bitwise ``srp_hash`` + ``ace_query_sum``
+             (either row sum), its weighted ones the table-order sum;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -79,9 +86,16 @@ non-zero without printing its result line):
              to one tenant) and the windowed filter; the last chunk's
              heavy hitters name the planted coordinates (and the fleet's
              ``hh_tenant[0]`` the offender), the kernel path's equal the
-             plain path's, one transfer each way a chunk and no host sync
-             in ``consume``, the post-mortem batch query over all 4097
-             coordinates kernel ≡ plain, items/s beside phase 5's;
+             plain path's, one ``attr_find_hh`` launch a chunk and no
+             ``attr_estimate`` on the stream, one transfer each way a
+             chunk and no host sync in ``consume``, the post-mortem batch
+             query over all 4097 coordinates one ``attr_estimate`` launch
+             and kernel ≡ plain, items/s beside phase 5's;
+             ``attr_find_hh`` bitwise its plain version on the attacked
+             chunk's drift hierarchy, and one ``find_hh`` and one
+             ``consume`` of that chunk traced with the one-launch
+             drill-down and with the per-level loop (device ops before
+             and after);
 8. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
              beside the least time the card could take (its bound);
@@ -99,13 +113,20 @@ non-zero without printing its result line):
              ``ops.ace_query``/``ace_update``/``ace_fleet_admit_at`` at
              three shapes and the windowed-fleet admission
              (``time_query_paths``, which ``kernel_ab.py`` also runs);
+             ``attr_find_hh`` on the drift hierarchy (also with the plane
+             read from global memory) against the per-level loop it
+             replaced, ``ace_score_fused`` under each row sum and
+             weighted against ``srp_hash`` + ``ace_query_sum``, and the
+             public ``attribution.find_hh`` and ``ops.ace_score``
+             (``time_public_paths``, which ``kernel_ab.py`` also runs);
              and both hash kernels at the corners of hash_mode="auto"
              (d = 64 and 4096), checked against the rule's picks.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and read just after, every kernel of a
-path must have been launched in it, and no path may launch the (B, L)
-``ace_query`` gather (every gather-and-reduce is one ``ace_query_sum``).
+before each path of phases 3 to 7 (the post-mortem query a path of its
+own) and read just after, every kernel of a path must have been launched
+in it, and no path may launch the (B, L) ``ace_query`` gather (every
+gather-and-reduce is one ``ace_query_sum``).
 The admits and ``consume`` calls traced in phases 4-7 are traced twice:
 as they run, and with the (B, L) gather + PyTorch reductions in place of
 ``ace_query_sum``, the device ops before and after it.  The last lines
@@ -175,7 +196,12 @@ REPLACES = {
     "ace_fleet_window_admit":
         "src/repro/kernels/ace_fleet_window_admit.py:250",
     "attr_estimate": "src/repro/kernels/attr_estimate.py:60",
+    "attr_find_hh": "src/repro/kernels/attr_estimate.py:60",
 }
+# The kernels of the result line: each module's KERNEL, and the second
+# entry point of csrc/attr_estimate.cu, the one-launch findHH drill-down.
+LINE_KERNELS = KERNELS + ("attr_find_hh",)
+SOURCES = {**{k: k for k in KERNELS}, "attr_find_hh": "attr_estimate"}
 
 
 class CheckFailed(RuntimeError):
@@ -201,9 +227,12 @@ def import_port():
 
 def launch_counters(mods) -> dict:
     """Every wrapper's launch counter: each module's ``KERNEL`` (for
-    ``ace_query`` the one-launch gather-and-sum every main path takes),
-    and ``ace_query``'s (B, L) gather, which no main path takes."""
+    ``ace_query`` the one-launch gather-and-sum every main path takes, for
+    ``attr_estimate`` the post-mortem batch query), ``attr_find_hh`` (the
+    stream's drill-down), and ``ace_query``'s (B, L) gather, which no main
+    path takes."""
     return {**{k: m.KERNEL for k, m in mods.items()},
+            "attr_find_hh": mods["attr_estimate"].FIND_HH_KERNEL,
             "ace_query_gather": mods["ace_query"].GATHER_KERNEL}
 
 
@@ -405,7 +434,10 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
     check(torch.equal(ck, cp), f"ace_update with all {hot.numel()} ids in "
           "one bucket a table bitwise equal to plain")
 
-    # ace_score_fused at the estimator's score shape, both forms
+    # ace_score_fused at the estimator's score shape, both forms: its
+    # ids are srp_hash's under the card's plan, its
+    # unweighted scores ace_query_sum's of them, its weighted ones the
+    # table-order sum of their gathers
     f = mods["ace_score_fused"]
     qs = torch.as_tensor(kdd_like(n_queries, KDD_D,
                                   np.random.default_rng(SEED + 4)),
@@ -417,20 +449,26 @@ def phase_kernels(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
     worst = 0.0
     for name, tw in (("unweighted", None),
                      ("weighted, 2 tables masked", tmask / tmask.sum())):
-        sk_ = f.ace_score_fused(ck, qs, w, cfg, table_weights=tw)
         sp = f.ace_score_fused_plain(ck, qs, w, cfg, table_weights=tw)
-        g = f.flat_table_gather(ck, ids)
-        ref = torch.zeros(n_queries, device=device)
-        for j in range(L_TABLES):
-            ref = ref + (g[:, j] if tw is None else g[:, j] * tw[j])
         if tw is None:
-            ref = ref * torch.tensor(1.0 / L_TABLES, dtype=torch.float32)
+            ref = q.ace_query_sum(ck, ids)
+        else:
+            g = f.flat_table_gather(ck, ids)
+            ref = torch.zeros(n_queries, device=device)
+            for j in range(L_TABLES):
+                ref = ref + g[:, j] * tw[j]
+        sk_, kid = f.ace_score_fused_planned(ck, qs, w, cfg, tw, None,
+                                             with_ids=True)
+        what = f"ace_score_fused ({name})"
         worst = max(worst, float((sk_ - sp).abs().max()))
-        check(torch.equal(sk_, ref), f"ace_score_fused ({name}) bitwise "
-              "equal to the table-order sum of its own ids' gathers")
-        check(torch.equal(sk_[same], sp[same]), f"ace_score_fused ({name}) "
-              f"bitwise equal to plain on the {int(same.sum())} of "
-              f"{n_queries} rows whose ids agree")
+        check(torch.equal(kid, ids), f"{what} ids bitwise srp_hash's "
+              "under the same plan")
+        check(torch.equal(sk_, ref), f"{what} bitwise equal to "
+              + ("srp_hash + ace_query_sum" if tw is None else
+                 "the table-order sum of its own ids' gathers"))
+        check(torch.equal(sk_[same], sp[same]), f"{what} bitwise equal "
+              f"to plain on the {int(same.sum())} of {n_queries} rows "
+              "whose ids agree")
     err["ace_score_fused"] = worst
 
     # srht_hash: ids bitwise on both sides of the one-warp / several-warp
@@ -595,9 +633,16 @@ def attr_operands(device, B, R, C, seed, zero=False):
 
 
 def phase_kernels_attr(mods, device, C=1 << ATTR_BITS) -> dict:
-    """Phase 2 for ``attr_estimate``: equal by value to its plain version
-    at the beam's B = 2·W = 32 and at B = 4097 (every leaf coordinate of
-    d_model + 1), odd and even R, and on an all-zero plane."""
+    """Phase 2 for the two kernels of ``csrc/attr_estimate.cu``:
+    ``attr_estimate`` equal by value to its plain version at the
+    post-mortem's B = 4097 (every leaf coordinate of d_model + 1) and at
+    B = 32, odd and even R, and on an all-zero plane; ``attr_find_hh``
+    bitwise its plain version (estimates equal by value, NaN to NaN) on
+    phase 7's hierarchy shape (d = 4097, R = 5, C = 256, NL = 13) with the
+    port's own tables, at topk = 8 and 18, on a plane with planted heavy
+    coordinates, an all-zero plane and one with a NaN cell, and equal to
+    the per-level composition of ``attr_estimate`` launches it replaced."""
+    from repro_torch.attribution import sketch as at
     ae = mods["attr_estimate"]
     worst = 0.0
     cases = [(B, R, False) for R in (1, 2, 5, 8) for B in (32, D_MODEL + 1)]
@@ -608,7 +653,41 @@ def phase_kernels_attr(mods, device, C=1 << ATTR_BITS) -> dict:
         worst = max(worst, float((k - p).abs().max()))
         check(torch.equal(k, p), f"attr_estimate equal by value to plain at "
               f"B={B}, R={R}, C={C}" + (", all-zero plane" if zero else ""))
-    return {"attr_estimate": worst}
+
+    acfg = at.AttrConfig(dim=D_MODEL + 1, rows=ATTR_ROWS, bits=ATTR_BITS)
+    tables = at.level_tables(acfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 27)
+    v = torch.randn(D_MODEL + 1, generator=gen, device=device) * 0.05
+    v[list(PLANTED)] = torch.tensor([3.0, -2.5, 2.0], device=device)
+    planted = at.sketch_vector(acfg, tables, v).contiguous()
+    nan = planted.clone()
+    nan[3, 2, 17] = float("nan")
+    worst_hh = 0.0
+    for what, plane in (("planted", planted),
+                        ("all-zero", torch.zeros_like(planted)),
+                        ("NaN cell", nan)):
+        for topk in (ATTR_TOPK, 18):
+            args = (plane, tables.cols, tables.signs, acfg.dim, topk)
+            k, p = ae.attr_find_hh(*args), ae.attr_find_hh_plain(*args)
+            old = ae.attr_find_hh_plain(*args, estimator=ae.attr_estimate)
+            for name, ref in (("its plain version", p),
+                              ("the per-level attr_estimate loop", old)):
+                check(torch.equal(k[0], ref[0]) and torch.equal(k[2], ref[2])
+                      and same_values(k[1], ref[1]),
+                      f"attr_find_hh ({what} plane, topk={topk}) bitwise "
+                      f"{name}")
+            diff = (k[1] - p[1]).abs().nan_to_num(0.0)
+            worst_hh = max(worst_hh, float(diff.max()))
+            if what == "planted":
+                named = set(k[0][k[2]].tolist())
+                check(set(PLANTED) <= named, f"attr_find_hh (topk={topk}) "
+                      f"names the planted coordinates {PLANTED}")
+    return {"attr_estimate": worst, "attr_find_hh": worst_hh}
+
+
+def same_values(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal by value, NaN equal to NaN (a median of zeros may be ±0)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
 
 
 # ---------------------------------------------------------------------------
@@ -1367,10 +1446,11 @@ def phase_attribution(mods, device, kind, feats, tids, base_items_per_s,
           f"one H2D and one D2H per chunk, hh_* fields included "
           f"({transfers})")
     acfg = filt.ace_cfg.attr
-    check(launches["attr_estimate"] == chunks * acfg.num_levels,
-          f"attribution ({kind}) launched attr_estimate "
-          f"{launches['attr_estimate']} times: NL = {acfg.num_levels} a "
-          f"chunk ({acfg.num_levels - 1} beam levels and the leaf ranking)")
+    check(launches["attr_find_hh"] == chunks
+          and launches["attr_estimate"] == 0,
+          f"attribution ({kind}): one attr_find_hh launch a chunk "
+          f"({launches['attr_find_hh']} in {chunks} chunks) and no "
+          f"attr_estimate launch on the stream ({launches['attr_estimate']})")
     last = sums[-1]
     named = sorted(last.hh_coord[last.hh_valid].tolist())
     print(f"  last chunk: hh_coord {last.hh_coord.tolist()}, hh_valid "
@@ -1418,10 +1498,11 @@ def phase_attribution(mods, device, kind, feats, tids, base_items_per_s,
              "window": lambda a: a.sum(0)[1]}.get(kind, lambda a: a[1])(
         state.attr).contiguous()
     coords = torch.arange(D_MODEL + 1, dtype=torch.int32, device=device)
-    before = mods["attr_estimate"].KERNEL.launches
+    reset_launches(mods)
     est = at.estimate(acfg, filt.attr_tables, plane, coords)
     sync(device)
-    check(mods["attr_estimate"].KERNEL.launches == before + 1,
+    post = read_launches(mods)
+    check(post["attr_estimate"] == 1 and sum(post.values()) == 1,
           "the post-mortem query is one attr_estimate launch")
     plain_est = at.estimate(acfg, filt.attr_tables, plane, coords,
                             use_kernels=False)
@@ -1434,9 +1515,110 @@ def phase_attribution(mods, device, kind, feats, tids, base_items_per_s,
     breakdown = stream_breakdown(
         runner, state, w, feats[:T], device,
         None if tids is None else torch.as_tensor(tids[:T], device=device))
+    # the last (attacked) chunk's drift hierarchy, and its drill-down and
+    # its consume traced with one launch and with the per-level loop
+    last = torch.as_tensor(np.stack(list(feats[-T:])), device=device)
+    last_tids = None if tids is None else torch.as_tensor(tids[-T:],
+                                                          device=device)
+    drift = drift_plane(runner, state, w, last, last_tids)
+    ae = mods["attr_estimate"]
+    args = (drift, filt.attr_tables.cols, filt.attr_tables.signs, acfg.dim,
+            ATTR_TOPK)
+    k, p = ae.attr_find_hh(*args), ae.attr_find_hh_plain(*args)
+    check(torch.equal(k[0], p[0]) and torch.equal(k[2], p[2])
+          and same_values(k[1], p[1]), f"attribution ({kind}): "
+          "attr_find_hh bitwise its plain version on the attacked chunk's "
+          "drift hierarchy")
+    breakdown.update(find_hh_both_ways(kind, runner, state, w, last,
+                                       last_tids, drift, device))
     return {"launches": launches, "items_per_s": items / secs,
             "seconds": secs, "breakdown": breakdown, "filter": filt,
-            "state": state}
+            "state": state, "drift_plane": drift,
+            "postmortem_launches": post}
+
+
+@contextlib.contextmanager
+def per_level_find_hh():
+    """``ops.attr_find_hh`` replaced, inside the block, by the drill-down
+    each chunk ran before it: the plain loop with one ``attr_estimate``
+    launch a level and its small PyTorch ops around each — to trace a
+    path's device ops both ways in one run."""
+    from repro_torch.kernels import attr_estimate as ae
+    from repro_torch.kernels import ops
+    real = ops.attr_find_hh
+
+    def per_level(plane, cols, signs, dim, topk):
+        return ae.attr_find_hh_plain(plane, cols, signs, dim, topk,
+                                     estimator=ops.attr_estimate)
+    ops.attr_find_hh = per_level
+    try:
+        yield
+    finally:
+        ops.attr_find_hh = real
+
+
+def drift_plane(runner, state, w, chunk, tids) -> torch.Tensor:
+    """The (NL, R, C) drift hierarchy that ``find_hh`` gets in one
+    ``consume`` of ``chunk``."""
+    from repro_torch.kernels import ops
+    seen = []
+    real = ops.attr_find_hh
+
+    def record(plane, *args):
+        seen.append(plane.clone())
+        return real(plane, *args)
+    ops.attr_find_hh = record
+    try:
+        runner.consume(state, w, chunk, tids)
+    finally:
+        ops.attr_find_hh = real
+    return seen[-1]
+
+
+def find_hh_both_ways(kind, runner, state, w, chunk, tids, drift,
+                      device) -> dict:
+    """Device ops of one ``find_hh`` on ``drift`` and of one attribution
+    ``consume`` of ``chunk``, each traced with the one-launch drill-down
+    and with the per-level loop in its place (``per_level_find_hh``); each
+    trace taken twice (``find_hh`` alone, a single launch, five times) and
+    the fuller kept (a trace can miss events, and missed the lone launch
+    in both of two traces once).  The consume should lose the loop's ops
+    minus the one launch."""
+    from repro_torch.attribution import sketch as at
+    acfg, tables = runner.filt.ace_cfg.attr, runner.filt.attr_tables
+
+    def fuller(fn, tries=2):
+        return max((device_trace(fn, device) for _ in range(tries)),
+                   key=lambda t: t["device_ops"])
+
+    def hh():
+        return at.find_hh(acfg, tables, drift, runner.topk)
+
+    def cons():
+        return runner.consume(state, w, chunk, tids)
+    new_hh, new_c = fuller(hh, 5), fuller(cons)
+    with per_level_find_hh():
+        hh(), cons()
+        sync(device)
+        old_hh, old_c = fuller(hh), fuller(cons)
+    print(f"  attribution ({kind}) under torch.profiler: find_hh alone "
+          f"{new_hh['device_ops']} device op(s), busy "
+          f"{new_hh['device_busy_ms']:.5f} ms, against "
+          f"{old_hh['device_ops']} ops, busy {old_hh['device_busy_ms']:.5f} "
+          f"ms for the per-level loop; one consume {new_c['device_ops']} "
+          f"device ops (busy {new_c['device_busy_ms']:.3f} ms) against "
+          f"{old_c['device_ops']} (busy {old_c['device_busy_ms']:.3f} ms) "
+          f"with the loop: {old_c['device_ops'] - new_c['device_ops']} "
+          f"fewer, the loop's {old_hh['device_ops']} minus "
+          f"{new_hh['device_ops']} predicted")
+    return {"find_hh_device_ops": new_hh["device_ops"],
+            "find_hh_device_ops_per_level": old_hh["device_ops"],
+            "find_hh_busy_ms": new_hh["device_busy_ms"],
+            "find_hh_busy_ms_per_level": old_hh["device_busy_ms"],
+            "consume_device_ops": new_c["device_ops"],
+            "consume_device_ops_per_level": old_c["device_ops"],
+            "consume_busy_ms": new_c["device_busy_ms"],
+            "consume_busy_ms_per_level": old_c["device_busy_ms"]}
 
 
 # ---------------------------------------------------------------------------
@@ -1622,7 +1804,9 @@ def phase_timing(mods, device, est, guard) -> tuple:
                                     device=device))]
     out["ace_admit_fused"] = {**admits[-1], "by_shape": admits}
 
-    # ace_score_fused at the estimator's score shape, on its fitted counts
+    # ace_score_fused at the estimator's score shape, on its fitted counts:
+    # the kernel, unweighted and weighted, against the composition it
+    # matches bitwise (srp_hash + ace_query_sum), in turns
     f, sh = mods["ace_score_fused"], mods["srht_hash"]
     qs = torch.as_tensor(kdd_like(N_QUERIES, KDD_D,
                                   np.random.default_rng(SEED + 4)),
@@ -1630,15 +1814,33 @@ def phase_timing(mods, device, est, guard) -> tuple:
     ec = est["counts"]
     Us = distinct_counters(h.srp_hash(qs, w, cfg), nb)
     B3 = N_QUERIES
+    tmask = torch.ones(L, device=device)
+    tmask[[3, 31]] = 0.0
+    tw = tmask / tmask.sum()
+    order = [("composition", lambda: q.ace_query_sum(ec, h.srp_hash(qs, w,
+                                                                    cfg))),
+             ("kernel", lambda: f.ace_score_fused(ec, qs, w, cfg)),
+             ("weighted", lambda: f.ace_score_fused(ec, qs, w, cfg,
+                                                    table_weights=tw))]
+    runs = {k: [] for k, _ in order}
+    for k, fn in order + order[::-1]:
+        runs[k].append(device_ms(fn))
+    mean = {k: statistics.mean(v) for k, v in runs.items()}
     out["ace_score_fused"] = dict(
-        ms=device_ms(lambda: f.ace_score_fused(ec, qs, w, cfg)),
+        ms=mean["kernel"],
         plain_ms=device_ms(lambda: f.ace_score_fused_plain(ec, qs, w, cfg)),
-        library_ms=None,
+        library_ms=None, composition_ms=mean["composition"],
+        weighted_ms=mean["weighted"], runs=runs,
         shape=f"B={B3}, d={KDD_D}, K={K_BITS}, L={L}, distinct counters "
               f"{Us}",
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * B3 * KDD_D * KL + B3 * L,
             4 * (B3 * KDD_D + KDD_D * KL) + 4 * Us + 4 * B3))))
+    print(f"  ace_score_fused  {out['ace_score_fused']['shape']}: "
+          f"kernel {mean['kernel']:.5f} ms, "
+          f"weighted {mean['weighted']:.5f} ms, "
+          f"srp_hash + ace_query_sum {mean['composition']:.5f} ms "
+          f"(each the mean of two medians taken in turns: {runs})")
 
     # hash_mode="auto": both hash kernels at the benchmark corners
     from repro_torch.core.srht import choose_hash_mode
@@ -1767,13 +1969,19 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
 
 
 def phase_timing_attr(mods, device, attr) -> dict:
-    """``attr_estimate`` on the attribution phase's own state and tables
-    (the SRHT filter's anomaly channel, R = 5, C = 256): at the beam's
-    B = 2·W = 32 children of one level, the launch the drill-down makes 12
-    times a chunk, and at B = 4097, the post-mortem query of every leaf
-    coordinate.  Bound: the (B, R) columns and signs read, the (B,)
-    estimates written and each plane cell touched read once, against the
-    B·R sign multiplies."""
+    """The two kernels of ``csrc/attr_estimate.cu`` on the attribution
+    phase's own state and tables (the SRHT filter: R = 5, C = 256,
+    NL = 13).  ``attr_estimate`` on the anomaly channel at the beam's
+    B = 2·W = 32 children of one level and at B = 4097, the post-mortem
+    query of every leaf coordinate; bound: the (B, R) columns and signs
+    read, the (B,) estimates written and each plane cell touched read
+    once, against the B·R sign multiplies.  ``attr_find_hh``, one whole
+    drill-down at topk = 8 on the last chunk's drift hierarchy, against
+    the per-level composition it replaced (the plain loop with one
+    ``attr_estimate`` launch a level) and its plain version; bound: the
+    table entries of the 2W children of each of the NL − 1 levels and the
+    distinct plane cells they name read once (``find_hh_touched``), the
+    outputs written once, against one sign multiply an entry."""
     ae = mods["attr_estimate"]
     filt, state = attr["filter"], attr["state"]
     acfg, tables = filt.ace_cfg.attr, filt.attr_tables
@@ -1801,7 +2009,69 @@ def phase_timing_attr(mods, device, attr) -> dict:
               f"({v['bound_by']}), {100 * v['bound_ms'] / v['ms']:.1f}% of "
               "bound")
     beam, leaves = out.values()
-    return {"attr_estimate": {**beam, "at_post_mortem": leaves}}
+
+    drift, nl = attr["drift_plane"], acfg.num_levels
+    args = (drift, tables.cols, tables.signs, acfg.dim, ATTR_TOPK)
+    W = ae.beam_width(ATTR_TOPK)
+    entries, cells = find_hh_touched(ae, args)
+    hh_bound = bound(entries, 4 * cells + 8 * entries + 9 * ATTR_TOPK)
+    # one drill-down between the events (inner=1): the per-level loop is
+    # ~320 device ops whose enqueue (~4 ms) the queued sleep then covers,
+    # so the events time the device's work and not the host's; in turns
+    order = [("kernel", lambda: ae.attr_find_hh(*args)),
+             ("per_level", lambda: ae.attr_find_hh_plain(
+                 *args, estimator=ae.attr_estimate))]
+    runs = {k: [] for k, _ in order}
+    for k, fn in order + order[::-1]:
+        runs[k].append(device_ms(fn, inner=1))
+    # the same launch with the plane read from global memory at every
+    # level, the layout find_hh_layout picks where the plane does not fit
+    layout = ae.find_hh_layout
+    ae.find_hh_layout = lambda *a: (False, layout(*a)[1])
+    try:
+        unstaged_ms = device_ms(order[0][1])
+    finally:
+        ae.find_hh_layout = layout
+    hh = dict(ms=device_ms(order[0][1]), unstaged_ms=unstaged_ms,
+              one_call_ms=statistics.mean(runs["kernel"]),
+              old_composition_ms=statistics.mean(runs["per_level"]),
+              plain_ms=device_ms(lambda: ae.attr_find_hh_plain(*args),
+                                 inner=1),
+              library_ms=None, runs=runs,
+              **dict(zip(("bound_ms", "bound_by"), hh_bound)),
+              shape=f"d={acfg.dim}, NL={nl}, R={R}, C={C}, topk="
+                    f"{ATTR_TOPK} (W={W}), the drift hierarchy, table "
+                    f"entries read {entries}, plane cells touched {cells}")
+    print(f"  attr_find_hh     {hh['shape']}: {hh['ms']:.5f} ms a launch "
+          f"back to back ({unstaged_ms:.5f} ms with the plane read from "
+          f"global memory); one call alone {hh['one_call_ms']:.5f} ms against "
+          f"the per-level attr_estimate loop "
+          f"{hh['old_composition_ms']:.5f} ms (each the mean of two medians "
+          f"taken in turns: {runs}), plain {hh['plain_ms']:.5f} ms, bound "
+          f"{hh['bound_ms']:.3g} ms ({hh['bound_by']}), "
+          f"{100 * hh['bound_ms'] / hh['ms']:.2f}% of bound")
+    return {"attr_estimate": {**beam, "at_post_mortem": leaves},
+            "attr_find_hh": hh}
+
+
+def find_hh_touched(ae, args) -> tuple[int, int]:
+    """(table entries, distinct plane cells) that one drill-down on
+    ``args`` reads: the (2W, R) entries of each level the beam descends
+    and the cells of that level they name, from the plain loop's own
+    per-level calls.  The leaf ranking reuses the last level's estimates,
+    so its call (the last) reads nothing new when NL > 1."""
+    calls = []
+
+    def record(plane, cols, signs):
+        R, C = plane.shape
+        rows = torch.arange(R, device=cols.device)[None, :]
+        cells = rows * C + torch.clamp(cols.long(), 0, C - 1)
+        calls.append((cols.numel(), int(torch.unique(cells).numel())))
+        return ae.attr_estimate_plain(plane, cols, signs)
+    ae.attr_find_hh_plain(*args, estimator=record)
+    if len(calls) > 1:
+        calls.pop()
+    return sum(e for e, _ in calls), sum(u for _, u in calls)
 
 
 def fit_ids(device) -> torch.Tensor:
@@ -1976,6 +2246,47 @@ def time_query_paths(device) -> dict:
     return out
 
 
+def time_public_paths(device) -> dict:
+    """``attribution.find_hh`` at phase 7's hierarchy (d = 4097, R = 5,
+    C = 256, topk = 8, a sketch with three planted coordinates) and
+    ``ops.ace_score`` at the estimator's score shape (B = 16,384, d = 36,
+    K = 15, L = 50, counts of the fit's first batch; unweighted and with
+    two tables masked), through whichever ``repro_torch`` is first on the
+    path, on inputs made here from SEED: two checkouts time the same work
+    through the same public functions (``scripts/kernel_ab.py``)."""
+    from repro_torch.attribution import sketch as at
+    from repro_torch.core import sketch as sk
+    from repro_torch.core.srp import make_projections
+    from repro_torch.kernels import ops
+    acfg = at.AttrConfig(dim=D_MODEL + 1, rows=ATTR_ROWS, bits=ATTR_BITS)
+    tables = at.level_tables(acfg, device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 41)
+    v = torch.randn(D_MODEL + 1, generator=gen, device=device) * 0.05
+    v[list(PLANTED)] = 3.0
+    plane = at.sketch_vector(acfg, tables, v).contiguous()
+    cfg = sk.AceConfig(dim=KDD_D, num_bits=K_BITS, num_tables=L_TABLES)
+    w = make_projections(cfg.srp, device=device)
+    state = ops.ace_update(sk.init(cfg, device), fit_ids(device), cfg)
+    qs = torch.as_tensor(kdd_like(N_QUERIES, KDD_D,
+                                  np.random.default_rng(SEED + 4)),
+                         device=device)
+    tmask = torch.ones(L_TABLES, device=device)
+    tmask[[3, 31]] = 0.0
+    shape = f"B={N_QUERIES}, d={KDD_D}, K={K_BITS}, L={L_TABLES}"
+    return {
+        "attribution.find_hh": {"by_shape": [{
+            "shape": f"d={acfg.dim}, R={ATTR_ROWS}, C={acfg.width}, "
+                     f"topk={ATTR_TOPK}",
+            "ms": device_ms(lambda: at.find_hh(acfg, tables, plane,
+                                               ATTR_TOPK))}]},
+        "ops.ace_score": {"by_shape": [
+            {"shape": shape, "ms": device_ms(
+                lambda: ops.ace_score(state, qs, w, cfg))},
+            {"shape": f"{shape}, 2 tables masked", "ms": device_ms(
+                lambda: ops.ace_score(state, qs, w, cfg,
+                                      table_mask=tmask))}]}}
+
+
 def srht_bound(B: int, d: int, cfg):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
     add rate against x, the signs, the row sample and the ids in bytes."""
@@ -2045,6 +2356,8 @@ def main() -> int:
         paths[f"attribution_{kind}"] = phase_attribution(
             mods, device, kind, feats, tids,
             paths[f"stream_{kind}"]["items_per_s"])
+        paths[f"postmortem_{kind}"] = {
+            "launches": paths[f"attribution_{kind}"]["postmortem_launches"]}
     del feats
     print("phase 8: timing (CUDA events, median of 30)")
     times, _ = phase_timing(mods, device, paths["estimator"],
@@ -2053,7 +2366,8 @@ def main() -> int:
         mods, device, *(paths[f"guardrail_{k}"]["guardrail"]
                         for k in GUARD_KINDS)))
     times.update(phase_timing_attr(mods, device, paths["attribution_srht"]))
-    for k, v in time_query_paths(device).items():
+    for k, v in {**time_query_paths(device),
+                 **time_public_paths(device)}.items():
         print(f"  {k}: " + "; ".join(f"{r['shape']} {r['ms']:.5f} ms"
                                      for r in v["by_shape"]))
 
@@ -2061,14 +2375,14 @@ def main() -> int:
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
     kernels = []
-    for name in KERNELS:
+    for name in LINE_KERNELS:
         by_path = {p: r["launches"][name] for p, r in paths.items()}
         launches = sum(by_path.values())
         check(launches > 0, f"{name} launched on the main paths ({launches})")
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{name}.cu",
+            "source": f"src/repro_torch/csrc/{SOURCES[name]}.cu",
             "replaces": REPLACES[name], "launches": launches,
             "max_abs_err": err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
@@ -2077,7 +2391,10 @@ def main() -> int:
             **{k: t[k] for k in ("matmul_ms", "plan", "by_shape",
                                  "copies_ms", "at_post_mortem",
                                  "old_sequence_ms", "gather_ms",
-                                 "gather_library_ms")
+                                 "gather_library_ms", "old_composition_ms",
+                                 "composition_ms",
+                                 "weighted_ms", "runs", "one_call_ms",
+                                 "unstaged_ms")
                  if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "

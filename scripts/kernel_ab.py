@@ -1,18 +1,22 @@
 #!/usr/bin/env python3
 """Time one checkout's kernels at the main path's shapes, on one card, and
-print one JSON line: the ``ace_update`` and ``srht_hash`` kernels, and the
+print one JSON line: the ``ace_update`` and ``srht_hash`` kernels, the
 calls around the gather — ``ops.ace_query``, ``ops.ace_update`` and
 ``ops.ace_fleet_admit_at`` at the fit, admit and stream-step shapes, and
-the fused windowed-fleet admission at its guardrail's shape.
+the fused windowed-fleet admission at its guardrail's shape — and the
+public functions ``attribution.find_hh`` (phase 7's hierarchy) and
+``ops.ace_score`` (the estimator's score shape, with and without a table
+mask).
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
 
 The kernels come from ``DIR/src/repro_torch`` (default: this checkout)
 and are built there; the inputs, shapes and timing are this checkout's
-``chip_smoke.time_update_and_srht`` and ``chip_smoke.time_query_paths``,
-so two checkouts unpacked side by side time the same work.  To compare a change with its parent on one
-card, run parent, change, change, parent in one sitting: the card and
-its power limit are in each line.  Exits non-zero without a card.
+``chip_smoke.time_update_and_srht``, ``chip_smoke.time_query_paths`` and
+``chip_smoke.time_public_paths``, so two checkouts unpacked side by side
+time the same work.  To compare a change with its parent on one card,
+run parent, change, change, parent in one sitting: the card and its
+power limit are in each line.  Exits non-zero without a card.
 """
 from __future__ import annotations
 
@@ -48,6 +52,7 @@ def main() -> int:
     device = torch.device("cuda")
     times = chip_smoke.time_update_and_srht(ace_update, srht_hash, device)
     times.update(chip_smoke.time_query_paths(device))
+    times.update(chip_smoke.time_public_paths(device))
     keep = ("ms", "copies_ms", "plain_ms", "library_ms", "bound_ms",
             "bound_by", "shape")
     print(json.dumps({

@@ -1,7 +1,8 @@
 """Heavy-hitter attribution — signed count-sketch planes and the dyadic
 findHH drill-down (port of ``repro.attribution``); see
-``repro_torch.attribution.sketch``.  Its point estimates run on the
-``attr_estimate`` CUDA kernel (``repro_torch.kernels.ops.attr_estimate``).
+``repro_torch.attribution.sketch``.  Its point estimates and its
+drill-down run on the two kernels of ``csrc/attr_estimate.cu``
+(``repro_torch.kernels.ops.attr_estimate`` and ``attr_find_hh``).
 """
 from repro_torch.attribution.sketch import (AttrConfig, AttrTables,
                                             chunk_energy, chunk_planes,

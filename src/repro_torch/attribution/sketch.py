@@ -30,11 +30,11 @@ only the flagged anomalies'; windowed states carry (E, 2, NL, R, C) rings
 (T, ...) stacks.
 
 Every function is plain PyTorch with fixed shapes and no host sync.  The
-point estimates (``estimate_level``, ``estimate`` and each level of
-``find_hh``) go through ``repro_torch.kernels.ops.attr_estimate``, the
-``attr_estimate`` CUDA kernel on CUDA tensors (the reference keeps
-``find_hh`` on an inline gather; on the card the kernel is one launch a
-level where the gather, sign, sort and midpoint are about six).  Sketching
+point estimates (``estimate_level``, ``estimate``) go through
+``repro_torch.kernels.ops.attr_estimate``, the ``attr_estimate`` CUDA
+kernel on CUDA tensors, and the whole ``find_hh`` drill-down through
+``ops.attr_find_hh``, one launch of that source's second kernel where the
+reference runs one ``lax.scan`` over an inline gather.  Sketching
 is deterministic on every device: node sums per level, then a gather of
 each plane cell's nodes from a host-built table and a sum in a fixed
 order — no atomics, so a fleet of one tenant gives the flat path's bits
@@ -357,10 +357,6 @@ def observe_fleet_window(attr: torch.Tensor, planes: torch.Tensor,
 # Estimation: point queries, L2, and the fixed-shape findHH drill-down.
 # ---------------------------------------------------------------------------
 
-def _estimator(use_kernels: bool):
-    return ops.attr_estimate if use_kernels else _ae.attr_estimate_plain
-
-
 def estimate_level(cfg: AttrConfig, tables: AttrTables, plane: torch.Tensor,
                    nodes: torch.Tensor, level: int,
                    use_kernels: bool = True) -> torch.Tensor:
@@ -369,10 +365,9 @@ def estimate_level(cfg: AttrConfig, tables: AttrTables, plane: torch.Tensor,
     estimates.  Node ids are clamped into [0, 2^NL), as the reference's
     gather clamps.  ``use_kernels`` picks ``ops.attr_estimate`` (the
     kernel on CUDA tensors) or the plain version."""
-    nodes = torch.clamp(nodes.long(), 0, cfg.padded_dim - 1)
-    return _estimator(use_kernels)(plane[level].contiguous(),
-                                   tables.cols[level][nodes],
-                                   tables.signs[level][nodes])
+    return _ae.level_estimate(
+        plane, tables.cols, tables.signs, nodes, level,
+        ops.attr_estimate if use_kernels else _ae.attr_estimate_plain)
 
 
 def estimate(cfg: AttrConfig, tables: AttrTables, plane: torch.Tensor,
@@ -388,44 +383,19 @@ def l2estimate(plane: torch.Tensor) -> torch.Tensor:
     return _median_lastaxis(torch.sqrt(torch.sum(plane * plane, dim=-1)))
 
 
-def _top(rank: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest entries, ties to the lower index (as
-    ``jax.lax.top_k``): a stable descending sort."""
-    return torch.sort(rank, descending=True, stable=True).indices[:k]
-
-
 def find_hh(cfg: AttrConfig, tables: AttrTables, plane: torch.Tensor,
             topk: int, use_kernels: bool = True):
-    """Dyadic findHH drill-down with a fixed beam, a Python loop over the
-    static depths 2 … NL (no data-dependent shapes, no host sync).
+    """Dyadic findHH drill-down with a fixed beam (no data-dependent
+    shapes, no host sync).
 
     ``plane`` (NL, R, C) is a single-channel signed hierarchy (the sketch
     of a drift vector).  A beam of W = max(2·topk, 8) nodes descends: each
     depth expands every candidate into its two children, masks those
-    outside the tree or past ``dim``, estimates |v̂| at the level (one
-    ``attr_estimate`` of the 2W children) and keeps the top W.  After the
-    leaf level the beam is ranked once more.  Returns (coords (topk,)
-    int32, ests (topk,) float32 signed estimates, valid (topk,) bool —
-    False lanes are beam padding)."""
-    nl, d2 = cfg.num_levels, cfg.padded_dim
-    topk = int(topk)
-    if topk < 1:
-        raise ValueError(f"topk must be >= 1, got {topk}")
-    beam = max(2 * topk, 8)
-    dev = plane.device
-    keys = torch.arange(beam, dtype=torch.int32, device=dev)
-    valid = keys < 2                               # depth-1 nodes: {0, 1}
-    for depth in range(2, nl + 1):
-        children = torch.cat([2 * keys, 2 * keys + 1])          # (2W,)
-        cvalid = torch.cat([valid, valid]) & (children < (1 << depth))
-        # the node's first covered coordinate k·2^(NL−d) must be < dim
-        cvalid &= children <= ((cfg.dim - 1) >> (nl - depth))
-        cidx = torch.clamp(children, 0, d2 - 1)
-        est = estimate_level(cfg, tables, plane, cidx, depth - 1,
-                             use_kernels)
-        top = _top(torch.where(cvalid, torch.abs(est), float("-inf")), beam)
-        keys, valid = cidx[top], cvalid[top]
-    valid = valid & (keys < cfg.dim)               # leaf node == coordinate
-    est = estimate_level(cfg, tables, plane, keys, nl - 1, use_kernels)
-    top = _top(torch.where(valid, torch.abs(est), float("-inf")), topk)
-    return keys[top], est[top], valid[top]
+    outside the tree or past ``dim``, estimates |v̂| at the level and keeps
+    the top W.  After the leaf level the beam is ranked once more.
+    ``use_kernels`` takes ``ops.attr_find_hh`` (on CUDA tensors the whole
+    drill-down is one kernel launch), else the plain loop.  Returns
+    (coords (topk,) int32, ests (topk,) float32 signed estimates, valid
+    (topk,) bool — False lanes are beam padding)."""
+    fn = ops.attr_find_hh if use_kernels else _ae.attr_find_hh_plain
+    return fn(plane.contiguous(), tables.cols, tables.signs, cfg.dim, topk)

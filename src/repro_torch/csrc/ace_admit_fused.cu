@@ -35,14 +35,14 @@ __global__ void __launch_bounds__(repro::gemm::kThreads,
 admit_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
                   const float* __restrict__ w, int* __restrict__ buckets,
                   float* __restrict__ gathered, int B, int d, int P, int K,
-                  int L, int nbuckets, repro::gemm::Plan plan) {
+                  int L, long long nbuckets, repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   repro::gemm::srp_gemm_tile(
       q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
         gathered[o] = static_cast<float>(
-            counts[static_cast<long long>(j) * nbuckets + bucket]);
+            counts[j * nbuckets + bucket]);
       });
 }
 
@@ -53,7 +53,7 @@ __global__ void admit_score_insert(int* __restrict__ counts,
                                    const unsigned char* __restrict__ item_mask,
                                    float* __restrict__ scores,
                                    unsigned char* __restrict__ admit, int B,
-                                   int L, int nbuckets, float inv_l) {
+                                   int L, long long nbuckets, float inv_l) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= B) return;
   const long long base = static_cast<long long>(row) * L;
@@ -67,8 +67,7 @@ __global__ void admit_score_insert(int* __restrict__ counts,
   if (!a) return;
 #pragma unroll 10
   for (int j = 0; j < L; ++j)
-    atomicAdd(&counts[static_cast<long long>(j) * nbuckets + buckets[base + j]],
-              1);
+    atomicAdd(&counts[j * nbuckets + buckets[base + j]], 1);
 }
 
 }  // namespace
@@ -76,20 +75,20 @@ __global__ void admit_score_insert(int* __restrict__ counts,
 // counts (L, nbuckets) int32, updated in place; q (B, d), w (d, P) fp32,
 // w 16-byte aligned; thresh: one fp32 on the device; item_mask (B,) bool
 // or null.  Outputs: buckets (B, L) int32, scores (B,) fp32, admit (B,)
-// bool; gathered (B, L) fp32 is scratch.  The hash's plan as in
-// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does not fit
-// returns cudaErrorInvalidValue.
+// bool; gathered (B, L) fp32 is scratch.  nbuckets is 64-bit (2^31 at
+// K = 31).  The hash's plan as in repro_srp_hash.  Needs 1 <= K <= 31,
+// B >= 1; a plan that does not fit returns cudaErrorInvalidValue.
 REPRO_API int repro_ace_admit_fused(int* counts, const float* q,
                                     const float* w, const float* thresh,
                                     const unsigned char* item_mask,
                                     int* buckets, float* gathered,
                                     float* scores, unsigned char* admit,
                                     int B, int d, int P, int K, int L,
-                                    int nbuckets, float inv_l, int rows,
-                                    int row_tiles, int tables, int groups,
-                                    int splits, int b0, int b1, int b2,
-                                    int b3, int b4, int b5, int b6, int b7,
-                                    int b8, void* stream) {
+                                    long long nbuckets, float inv_l,
+                                    int rows, int row_tiles, int tables,
+                                    int groups, int splits, int b0, int b1,
+                                    int b2, int b3, int b4, int b5, int b6,
+                                    int b7, int b8, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
   const repro::gemm::Plan plan = repro::gemm::make_plan(

@@ -7,7 +7,7 @@
 // ace_score_fused; the tenant axis adds one integer multiply-add to each
 // gather's offset, not a loop.
 //
-// Design: ace_score_fused.cu's, two kernels on one stream.
+// Design: two kernels on one stream.
 //   Phase 1 (fleet_hash_gather): the srp_tile.cuh block hash over
 //     (16 rows x one group of tables) blocks, whose epilogue gathers
 //     counts[(tid * L + j) * 2^K + bucket] into a (B, L) fp32 scratch;

@@ -45,19 +45,10 @@ constexpr int kSumThreads = 32 * kRowsPerBlock;
 enum Scale : int { kSum = 0, kMean = 1 };
 
 __device__ __forceinline__ long long counter_offset(long long r, int b,
-                                                    int R, int nbuckets) {
+                                                    int R,
+                                                    long long nbuckets) {
   r = r < 0 ? 0 : (r >= R ? R - 1 : r);
-  return r * nbuckets + min(max(b, 0), nbuckets - 1);
-}
-
-// Exact warp sum of one int64 a lane with |value| < 2^42 (L <= 65535
-// int32 counters a row): the low 20 bits (< 2^25 over 32 lanes) and the
-// rest (< 2^27) are reduced apart.
-__device__ __forceinline__ long long warp_sum(long long v) {
-  const unsigned lo =
-      __reduce_add_sync(kFull, static_cast<unsigned>(v & 0xFFFFF));
-  const int hi = __reduce_add_sync(kFull, static_cast<int>(v >> 20));
-  return static_cast<long long>(hi) * (1LL << 20) + lo;
+  return r * nbuckets + min(max(b, 0), static_cast<int>(nbuckets - 1));
 }
 
 __global__ void __launch_bounds__(kSumThreads)
@@ -67,7 +58,8 @@ ace_query_sum_kernel(const int* __restrict__ counts,
                      const unsigned char* __restrict__ mask,
                      const int* __restrict__ tenant_ids,
                      float* __restrict__ out, float* __restrict__ out_all,
-                     int B, int L, int R, int nbuckets, int T, int scale) {
+                     int B, int L, int R, long long nbuckets, int T,
+                     int scale) {
   const int lane = threadIdx.x % 32;
   const long long b =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / 32;
@@ -100,8 +92,9 @@ ace_query_sum_kernel(const int* __restrict__ counts,
       healthy += __popc(__ballot_sync(kFull, ha))
                  + __popc(__ballot_sync(kFull, hb));
   }
-  const long long s = warp_sum(part);
-  const long long s_all = out_all != nullptr ? warp_sum(part_all) : 0;
+  const long long s = repro::warp_sum(part);
+  const long long s_all =
+      out_all != nullptr ? repro::warp_sum(part_all) : 0;
   if (lane != 0) return;
   const float nh = static_cast<float>(m == nullptr ? L : max(healthy, 1));
   float v = __ll2float_rn(s);
@@ -114,7 +107,7 @@ __global__ void ace_query_kernel(const int* __restrict__ counts,
                                  const int* __restrict__ buckets,
                                  const int* __restrict__ row_base,
                                  float* __restrict__ out, int B, int L, int R,
-                                 int nbuckets) {
+                                 long long nbuckets) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
   if (i >= static_cast<long long>(B) * L) return;
@@ -129,13 +122,14 @@ __global__ void ace_query_kernel(const int* __restrict__ counts,
 // or null (row j for table j, R == L); mask (T, L) uint8 (nonzero:
 // healthy) or null; tenant_ids (B,) int32 picks item b's mask row, or null
 // (row 0); out (B,) fp32, scaled by `scale` (Scale); out_all (B,) fp32, the
-// unscaled sum over every table, or null.  Needs 1 <= L <= 65535.
+// unscaled sum over every table, or null.  nbuckets is 64-bit (2^31 at
+// K = 31).  Needs 1 <= L <= 65535.
 REPRO_API int repro_ace_query_sum(const int* counts, const int* buckets,
                                   const int* row_base,
                                   const unsigned char* mask,
                                   const int* tenant_ids, float* out,
                                   float* out_all, int B, int L, int R,
-                                  int nbuckets, int T, int scale,
+                                  long long nbuckets, int T, int scale,
                                   void* stream) {
   const unsigned int blocks =
       static_cast<unsigned int>((B + kRowsPerBlock - 1) / kRowsPerBlock);
@@ -150,7 +144,7 @@ REPRO_API int repro_ace_query_sum(const int* counts, const int* buckets,
 // or null (row j for table j, R == L); out (B, L) fp32.
 REPRO_API int repro_ace_query(const int* counts, const int* buckets,
                               const int* row_base, float* out, int B, int L,
-                              int R, int nbuckets, void* stream) {
+                              int R, long long nbuckets, void* stream) {
   constexpr int kThreads = 256;
   const long long n = static_cast<long long>(B) * L;
   const unsigned int blocks =

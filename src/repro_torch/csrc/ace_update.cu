@@ -85,7 +85,7 @@ __global__ void __launch_bounds__(kThreads)
 ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
                   const unsigned char* __restrict__ row_mask,
                   const int* __restrict__ row_base, int B, int L, int R,
-                  int nbuckets) {
+                  long long nbuckets) {
   __shared__ unsigned int keys[kSlots];
   __shared__ int hits[kSlots];
   const int j = blockIdx.y;
@@ -97,7 +97,8 @@ ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
   const bool on = live && (row_mask == nullptr || row_mask[b]);
   const long long row = (live && row_base != nullptr ? row_base[b] : 0) + j;
   const int id = live ? buckets[b * L + j] : -1;
-  const bool valid = on && row >= 0 && row < R && id >= 0 && id < nbuckets;
+  const bool valid = on && row >= 0 && row < R && id >= 0
+                     && id <= static_cast<int>(nbuckets - 1);
   const long long key = valid ? row * nbuckets + id : -1;
   const bool fits = valid && key < kEmpty;
   const unsigned int k = fits ? static_cast<unsigned int>(key) : kEmpty;
@@ -152,12 +153,12 @@ ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
 
 // counts (R, nbuckets) int32, updated in place; buckets (B, L) int32;
 // row_mask (B,) bool or null (every row); row_base (B,) int32 or null
-// (row j for table j, R == L).  One block a table and 256 rows: L must
-// be at most 65535 (the grid's y).
+// (row j for table j, R == L).  nbuckets is 64-bit: 2^31 at K = 31.  One
+// block a table and 256 rows: L must be at most 65535 (the grid's y).
 REPRO_API int repro_ace_update(int* counts, const int* buckets,
                                const unsigned char* row_mask,
                                const int* row_base, int B, int L, int R,
-                               int nbuckets, void* stream) {
+                               long long nbuckets, void* stream) {
   if (B < 1 || L < 1 || L > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned int>(
                       (static_cast<long long>(B) + kThreads - 1) / kThreads),

@@ -31,7 +31,7 @@ namespace {
 __global__ void window_gather(const int* __restrict__ counts,
                               const int* __restrict__ buckets,
                               float* __restrict__ gathered, int B, int E,
-                              int L, int nbuckets) {
+                              int L, long long nbuckets) {
   const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
                       + threadIdx.x;
   const long long EL = static_cast<long long>(E) * L;
@@ -39,7 +39,8 @@ __global__ void window_gather(const int* __restrict__ counts,
   const long long row = i / EL;
   const long long ej = i % EL;           // e * L + j
   const int j = static_cast<int>(ej % L);
-  const int b = min(max(buckets[row * L + j], 0), nbuckets - 1);
+  const int b = min(max(buckets[row * L + j], 0),
+                    static_cast<int>(nbuckets - 1));
   gathered[i] = static_cast<float>(counts[ej * nbuckets + b]);
 }
 
@@ -70,11 +71,12 @@ __global__ void window_combine(const float* __restrict__ gathered,
 
 // counts (E, L, nbuckets) int32; buckets (B, L) int32; w (E,) fp32 epoch
 // weights; tw (L,) fp32 table weights or null; scores (B,) fp32;
-// gathered (B, E, L) fp32 is scratch.  Needs B >= 1.
+// gathered (B, E, L) fp32 is scratch.  nbuckets is 64-bit (2^31 at
+// K = 31).  Needs B >= 1.
 REPRO_API int repro_ace_window_combine(const int* counts, const int* buckets,
                                        const float* w, const float* tw,
                                        float* gathered, float* scores, int B,
-                                       int E, int L, int nbuckets,
+                                       int E, int L, long long nbuckets,
                                        float inv_l, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   constexpr int kThreads = 256;

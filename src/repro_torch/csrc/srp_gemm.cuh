@@ -1,7 +1,7 @@
 // The dense SRP hash of one block, redesigned for Hopper: sign bits of
 // x @ W, packed K bits per table, MSB first.  Shared by srp_hash.cu,
-// ace_admit_fused.cu and ace_fleet_window_admit.cu (the other two
-// dense-hash kernels, ace_score_fused.cu and ace_fleet_score.cu, still use
+// ace_admit_fused.cu, ace_fleet_window_admit.cu and ace_score_fused.cu
+// (the last dense-hash kernel, ace_fleet_score.cu, still uses
 // srp_tile.cuh).
 //
 // A block covers kRows = 64 rows of x and one group of whole tables (at
@@ -52,9 +52,6 @@
 #include <cooperative_groups.h>
 
 #include <algorithm>
-#include <mutex>
-#include <set>
-#include <utility>
 
 #include "common.cuh"
 
@@ -351,30 +348,13 @@ struct LaunchConfig {
   }
 };
 
-// Let `kernel` take kSmemBytes of dynamic shared memory on the current
-// device.  Set once per kernel and device: the launches sit on a
-// host-bound path.
-inline cudaError_t allow_smem(const void* kernel) {
-  static std::mutex mu;
-  static std::set<std::pair<const void*, int>> done;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mu);
-  if (done.count({kernel, dev})) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(kSmemBytes));
-  if (err == cudaSuccess) done.insert({kernel, dev});
-  return err;
-}
-
 // Launch `kernel` (whose parameters the caller passes in `args`) on the
 // plan's grid.  Returns the launch's error; the plan must fit.
 template <typename... Params, typename... Args>
 inline cudaError_t launch(void (*kernel)(Params...), const Plan& plan,
                           cudaStream_t stream, Args&&... args) {
-  cudaError_t err = allow_smem(reinterpret_cast<const void*>(kernel));
+  cudaError_t err = repro::allow_smem(reinterpret_cast<const void*>(kernel),
+                                      static_cast<int>(kSmemBytes));
   if (err != cudaSuccess) return err;
   LaunchConfig lc(plan, static_cast<int>(kSmemBytes), stream);
   if (plan.splits == 1) lc.cfg.numAttrs = 0;   // no cluster launch

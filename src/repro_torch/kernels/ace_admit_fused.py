@@ -30,8 +30,8 @@ from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
                                           lane_padded, srp_hash_plain)
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
-                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 6
-                      + [ctypes.c_float] + PLAN_ARGTYPES)
+                      [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
+                      + [ctypes.c_longlong, ctypes.c_float] + PLAN_ARGTYPES)
 
 
 def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,

@@ -9,8 +9,9 @@ Replaces the TPU kernel ``repro.kernels.ace_fleet_score.ace_fleet_score``
 ``csrc/srp_tile.cuh``.
 
 Bound on the H100: the hash's fp32 operations, 2·B·d·K·L FLOP at 67
-TFLOP/s, as for ``ace_score_fused``, whose design this is with a tenant
-row offset: phase 1 hashes (rows × table group) blocks and gathers each
+TFLOP/s, as for ``ace_score_fused``.  The design is two kernels on one
+stream (``ace_score_fused``'s before it moved to ``srp_gemm.cuh``): phase
+1 hashes (rows × table group) blocks on ``srp_tile.cuh`` and gathers each
 table's counter at (tid·L + j)·2^K + b_j, phase 2 sums each row's gathers
 in table order.  ``ace_fleet_score_plain`` sums in the same order, so the
 scores are bitwise wherever the ids agree.  A row whose tenant id lies

@@ -48,10 +48,12 @@ SCALES = ("sum", "mean")
 
 # Every main path's gather-and-sum; its count is the module's launches.
 KERNEL = build.Kernel("ace_query", "repro_ace_query_sum",
-                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
+                      [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
+                      + [ctypes.c_longlong] + [ctypes.c_int] * 2)
 # The (B, L) gather, for diagnostics.
 GATHER_KERNEL = build.Kernel("ace_query", "repro_ace_query",
-                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+                             [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                             + [ctypes.c_longlong])
 
 
 def ace_query_plain(counts: torch.Tensor, buckets: torch.Tensor,

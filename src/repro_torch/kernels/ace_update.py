@@ -39,7 +39,8 @@ import torch
 from repro_torch.kernels import build
 
 KERNEL = build.Kernel("ace_update", "repro_ace_update",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4)
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
+                      + [ctypes.c_longlong])
 
 # The kernel's constants (csrc/ace_update.cu): rows b a block (of one
 # table), the block's shared table of counters and its probes, the hash

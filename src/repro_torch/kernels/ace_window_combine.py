@@ -32,8 +32,8 @@ from repro_torch.kernels.ace_score_fused import table_order_sum
 from repro_torch.kernels.ace_update import gather_rows
 
 KERNEL = build.Kernel("ace_window_combine", "repro_ace_window_combine",
-                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4
-                      + [ctypes.c_float])
+                      [ctypes.c_void_p] * 6 + [ctypes.c_int] * 3
+                      + [ctypes.c_longlong, ctypes.c_float])
 
 
 def ring_gather(counts: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:

@@ -82,10 +82,17 @@ def attr_estimate(plane: torch.Tensor, cols: torch.Tensor,
                   signs: torch.Tensor) -> torch.Tensor:
     """Signed count-sketch point estimates through the ``attr_estimate``
     kernel: one (R, C) attribution-level plane, (B, R) bucket columns and
-    ±1 signs -> (B,) median-of-rows estimates.  Every estimate of
-    ``repro_torch.attribution`` comes here: ``estimate``,
-    ``estimate_level`` and each level of ``find_hh``'s beam."""
+    ±1 signs -> (B,) median-of-rows estimates: ``attribution``'s
+    ``estimate`` and ``estimate_level`` (the post-mortem query)."""
     return _ae.attr_estimate(plane, cols, signs)
+
+
+def attr_find_hh(plane: torch.Tensor, cols: torch.Tensor,
+                 signs: torch.Tensor, dim: int, topk: int):
+    """The whole findHH drill-down of one (NL, R, C) hierarchy through the
+    ``attr_find_hh`` kernel, one launch: ``attribution.find_hh`` on the
+    stream path.  Returns (coords, ests, valid), each (topk,)."""
+    return _ae.attr_find_hh(plane, cols, signs, dim, topk)
 
 
 def ace_update(state: AceState, buckets: torch.Tensor,

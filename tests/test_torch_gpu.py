@@ -219,6 +219,67 @@ def test_ace_update_matches_plain(cuda, B, K, L, repeat):
     assert torch.equal(got, U.ace_update_plain(counts.clone(), ids))
 
 
+def test_update_and_query_sum_at_k_31(cuda):
+    """2^31 counters a table, a count past a 32-bit int: ids at both ends
+    of the range insert and gather at 64-bit offsets (two tables of 8.6
+    GB, and a copy for the plain version)."""
+    K, L, B = 31, 2, 256
+    gen = torch.Generator(cuda).manual_seed(31)
+    ids = torch.randint((1 << 31) - 500, (1 << 31) - 1, (B, L),
+                        dtype=torch.int32, device=cuda, generator=gen)
+    ids[::4] = torch.randint(0, 500, (B // 4, L), dtype=torch.int32,
+                             device=cuda, generator=gen)
+    counts = torch.zeros((L, 1 << K), dtype=torch.int32, device=cuda)
+    got = U.ace_update(counts, ids)
+    want = U.ace_update_plain(torch.zeros_like(counts), ids)
+    assert torch.equal(got, want) and int(got.sum()) == B * L
+    del want
+    assert torch.equal(Q.ace_query_sum(got, ids),
+                       Q.ace_query_sum_plain(got, ids))
+    assert torch.equal(Q.ace_query(got, ids), Q.ace_query_plain(got, ids))
+    del got, counts
+    torch.cuda.empty_cache()
+
+
+def test_admit_and_window_combine_at_k_31(cuda):
+    """The fused admission and the window combine at 2^31 counters a table
+    (17 GB each): every item admitted at a -inf threshold adds one at each
+    of its ids, pre-insert scores are the gathered means, and the combine
+    equals its plain version at ids at both ends of the range."""
+    K, L, B, d = 31, 2, 64, 40
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=9)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(9)
+    q = torch.randn((B, d), generator=gen, device=cuda)
+    counts = torch.randint(0, 9, (L, 1 << K), dtype=torch.int32,
+                           device=cuda, generator=gen)
+    ids = H.srp_hash(q, w, cfg)
+    rows = torch.arange(L, device=cuda)[None, :]
+    before = counts[rows, ids.long()].clone()
+    total = int(counts.sum(dtype=torch.int64))
+    _, scores, admit, got_ids = A.ace_admit_fused(
+        counts, q, w, torch.tensor(float("-inf"), device=cuda), cfg)
+    assert torch.equal(got_ids, ids) and bool(admit.all())
+    assert torch.equal(scores, before.float().sum(-1)
+                       * torch.tensor(1.0 / L, dtype=torch.float32))
+    hits = torch.zeros_like(before)
+    for j in range(L):
+        _, inv, n = torch.unique(ids[:, j], return_inverse=True,
+                                 return_counts=True)
+        hits[:, j] = n[inv].to(torch.int32)
+    assert torch.equal(counts[rows, ids.long()], before + hits)
+    assert int(counts.sum(dtype=torch.int64)) == total + B * L
+    ring = counts.view(2, 1, 1 << K)               # E = 2 epochs of L = 1
+    top = torch.randint((1 << 31) - 300, (1 << 31) - 1, (B, 1),
+                        dtype=torch.int32, device=cuda, generator=gen)
+    top[::3] = ids[::3, :1]
+    ew = torch.tensor([0.5, 1.0], device=cuda)
+    assert torch.equal(WC.ace_window_combine(ring, top, ew),
+                       WC.ace_window_combine_plain(ring, top, ew))
+    del counts, ring
+    torch.cuda.empty_cache()
+
+
 @pytest.mark.parametrize("B,K,L", [(40, 4, 3), (33, 12, 50), (4096, 15, 50)])
 def test_ace_query_matches_plain(cuda, B, K, L):
     counts, ids = _counts(L, K, cuda), _ids(B, K, L, cuda, repeat=2)
@@ -669,12 +730,13 @@ def test_ace_score_fused_matches_plain(cuda, B, d, K, L, weighted):
     ids = H.srp_hash(q, w, cfg)
     plain_ids = H.srp_hash_plain(q, w, cfg)
     assert _agreement(ids, plain_ids) >= HASH_AGREEMENT
-    g = F.flat_table_gather(counts, ids)
-    ref = torch.zeros(B, device=cuda)
-    for j in range(L):
-        ref = ref + (g[:, j] if tw is None else g[:, j] * tw[j])
-    if tw is None:
-        ref = ref * torch.tensor(1.0 / L, dtype=torch.float32)
+    if tw is None:      # ace_query_sum's convention: exact sum, one scale
+        ref = Q.ace_query_sum(counts, ids)
+    else:               # table order, no FMA
+        g = F.flat_table_gather(counts, ids)
+        ref = torch.zeros(B, device=cuda)
+        for j in range(L):
+            ref = ref + g[:, j] * tw[j]
     assert torch.equal(got, ref), "bitwise, downstream of the kernel's ids"
     same = (ids == plain_ids).all(dim=1)
     plain = F.ace_score_fused_plain(counts, q, w, cfg, table_weights=tw)
@@ -1126,10 +1188,10 @@ def _attr_filters(kind, cuda, use_kernels=True):
 
 @pytest.mark.parametrize("kind", ["dense", "srht", "window", "fleet"])
 def test_attribution_consume_has_no_host_sync(cuda, kind):
-    """An attribution chunk (energy split, planes, find_hh through the
-    kernel) under sync-debug "error"; the drift planted in the last chunk
-    is named, and the kernel path's heavy hitters equal the plain
-    path's."""
+    """An attribution chunk (energy split, planes, find_hh through its
+    one-launch kernel) under sync-debug "error"; the drift planted in the
+    last chunk is named, and the kernel path's heavy hitters equal the
+    plain path's."""
     from repro_torch.attribution import sketch as at
     fk, fp = _attr_filters(kind, cuda), _attr_filters(kind, cuda, False)
     rk, rp = StreamRunner(fk, 4, topk=3), StreamRunner(fp, 4, topk=3)
@@ -1137,7 +1199,7 @@ def test_attribution_consume_has_no_host_sync(cuda, kind):
     rng = np.random.default_rng(0)
     tids = torch.as_tensor(rng.integers(0, 4, (4, 64)), dtype=torch.int32,
                            device=cuda) if kind == "fleet" else None
-    before = AE.KERNEL.launches
+    before = AE.KERNEL.launches, AE.FIND_HH_KERNEL.launches
     for c in range(4):
         f = (rng.normal(size=(4, 64, 97)) * 0.3).astype(np.float32)
         f[..., :32] += 1.0
@@ -1154,7 +1216,9 @@ def test_attribution_consume_has_no_host_sync(cuda, kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         sp, plain = rp.consume(sp, w, chunk, *extra)
-    assert AE.KERNEL.launches - before == 4 * at.AttrConfig(97).num_levels
+    # one drill-down launch a chunk, no per-level estimate
+    assert (AE.KERNEL.launches - before[0],
+            AE.FIND_HH_KERNEL.launches - before[1]) == (0, 4)
     host, hp = rk.fetch(summary), rp.fetch(plain)
     assert {5, 40, 77} <= set(host.hh_coord[host.hh_valid].tolist())
     if kind == "srht":
@@ -1181,3 +1245,179 @@ def test_attribution_fleet_of_one_is_flat_on_the_card(cuda, use_kernels):
         for k in ("hh_coord", "hh_est", "hh_valid"):
             assert torch.equal(getattr(a, k), getattr(b, k)), k
     assert torch.equal(s1.attr, sf.attr[0])
+
+
+# ---------------------------------------------------------------------------
+# attr_find_hh: the one-launch drill-down, bitwise its plain version.
+# ---------------------------------------------------------------------------
+
+def _same_values(a, b) -> bool:
+    """Equal by value, NaN equal to NaN (an estimate may be ±0.0)."""
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _find_hh_case(dim, R, bits, seed, plane_kind="normal"):
+    """(plane (NL, R, C), cols, signs (NL, 2^NL, R)) from numpy: random
+    node tables and a plane with a few heavy cells, or an all-zero plane,
+    a plane of few distinct values (tied estimates) or one with a NaN
+    cell."""
+    from repro_torch.kernels.attr_estimate import num_levels
+    nl, C = num_levels(dim), 1 << bits
+    rng = np.random.default_rng(seed)
+    cols = rng.integers(0, C, size=(nl, 1 << nl, R)).astype(np.int32)
+    signs = rng.choice([-1.0, 1.0], size=(nl, 1 << nl, R)).astype(np.float32)
+    plane = rng.normal(size=(nl, R, C)).astype(np.float32)
+    plane[:, :, rng.integers(0, C, size=3)] *= 40.0
+    if plane_kind == "zero":
+        plane[:] = 0.0
+    elif plane_kind == "tied":
+        plane = rng.integers(-2, 3, size=(nl, R, C)).astype(np.float32)
+    elif plane_kind == "nan":
+        plane[:, :, 3] = np.nan
+    return plane, cols, signs
+
+
+# topk 1, the default 8, the 72 children of 18 (shared-memory ranking),
+# 300 (1200 children: threads loop past 1024); R 1 and 2, the default 5,
+# 8 (the last register sort), 9 (rank selection); bits 4, 8 and 11 (a
+# plane of 13 levels that does not fit shared memory at R >= 3).
+@pytest.mark.parametrize("bits", [4, 8, 11])
+@pytest.mark.parametrize("R", [1, 2, 5, 8, 9])
+@pytest.mark.parametrize("topk", [1, 8, 18, 300])
+def test_attr_find_hh_matches_plain(cuda, topk, R, bits):
+    from repro_torch.kernels.attr_estimate import find_hh_layout
+    dim = 4097
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _find_hh_case(dim, R, bits, seed=topk * 31 + R + bits)]
+    stage, _ = find_hh_layout(13, R, 1 << bits, topk)
+    if bits == 11:
+        assert not stage or R < 3
+    before = AE.KERNEL.launches, AE.FIND_HH_KERNEL.launches
+    got = AE.attr_find_hh(*args, dim, topk)
+    torch.cuda.synchronize()
+    assert (AE.KERNEL.launches, AE.FIND_HH_KERNEL.launches) == (
+        before[0], before[1] + 1)
+    want = AE.attr_find_hh_plain(*args, dim, topk)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape == (topk,)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert _same_values(got[1], want[1])
+    cpu = AE.attr_find_hh(*(a.cpu() for a in args), dim, topk)
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert _same_values(got[1].cpu(), cpu[1])
+
+
+# topk 3000: a beam of W = 6000 lanes (264 KB) past a block's shared
+# memory, so the kernel keeps it in its device workspace; bits 4 with the
+# plane staged beside it, bits 11 with the plane read from global memory;
+# a NaN cell and tied estimates on the small plane
+@pytest.mark.parametrize("bits,kind", [(4, "normal"), (4, "nan"),
+                                       (4, "tied"), (11, "normal")])
+@pytest.mark.parametrize("R", [5, 9])
+def test_attr_find_hh_beam_in_workspace_matches_plain(cuda, R, bits, kind):
+    from repro_torch.kernels.attr_estimate import find_hh_layout
+    dim, topk = 4097, 3000
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _find_hh_case(dim, R, bits, seed=R + bits,
+                                   plane_kind=kind)]
+    stage, beam_in_smem = find_hh_layout(13, R, 1 << bits, topk)
+    assert not beam_in_smem and stage == (bits == 4)
+    before = AE.FIND_HH_KERNEL.launches
+    got = AE.attr_find_hh(*args, dim, topk)
+    torch.cuda.synchronize()
+    assert AE.FIND_HH_KERNEL.launches == before + 1
+    want = AE.attr_find_hh_plain(*args, dim, topk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert _same_values(got[1], want[1])
+
+
+# an all-zero plane (every estimate ±0: ties to the lower index), few
+# distinct values (tied estimates), a NaN cell (NaN ranks first); dims
+# with one level, a power of two and one past it
+@pytest.mark.parametrize("kind", ["zero", "tied", "nan"])
+@pytest.mark.parametrize("dim,topk", [(2, 3), (13, 8), (48, 18),
+                                      (4097, 8)])
+def test_attr_find_hh_edges_match_plain(cuda, kind, dim, topk):
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _find_hh_case(dim, 5, 8, seed=dim, plane_kind=kind)]
+    got = AE.attr_find_hh(*args, dim, topk)
+    want = AE.attr_find_hh_plain(*args, dim, topk)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[2], want[2])
+    assert _same_values(got[1], want[1])
+    cpu = AE.attr_find_hh(*(a.cpu() for a in args), dim, topk)
+    assert torch.equal(got[0].cpu(), cpu[0])
+    assert torch.equal(got[2].cpu(), cpu[2])
+
+
+def test_attr_find_hh_is_the_old_per_level_composition(cuda):
+    """The kernel equals the per-level loop of ``attr_estimate`` launches
+    it replaced, on the card, and gives the same bits twice."""
+    args = [torch.as_tensor(a, device=cuda)
+            for a in _find_hh_case(4097, 5, 8, seed=7)]
+    got = AE.attr_find_hh(*args, 4097, 8)
+    old = AE.attr_find_hh_plain(*args, 4097, 8, estimator=AE.attr_estimate)
+    assert torch.equal(got[0], old[0]) and torch.equal(got[2], old[2])
+    assert _same_values(got[1], old[1])
+    again = AE.attr_find_hh(*args, 4097, 8)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+# ---------------------------------------------------------------------------
+# ace_score_fused on srp_gemm.cuh: ids srp_hash's, scores ace_query_sum's.
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("B", [1, 63, 64, 65, 16384])
+def test_ace_score_fused_ids_and_scores_are_the_composition(cuda, B, splits):
+    """At the fit's d = 36, K = 15, L = 50, under S = 1 and the card's own
+    plan: the fused score's ids are ``srp_hash``'s under the same plan
+    bitwise (>= 0.999 with the plain hash), its unweighted scores are
+    ``ace_query_sum`` of those ids bitwise, and its
+    weighted scores bitwise the plain version's where the ids agree."""
+    d, K, L = 36, 15, 50
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=B)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(B)
+    q = torch.randn((B, d), generator=gen, device=cuda).abs()
+    counts = torch.randint(0, 1 << 20, (L, 1 << K), dtype=torch.int32,
+                           device=cuda, generator=gen)
+    plan = _forced_plan(B, d, K, L, None, 1) if splits \
+        else H.device_plan(B, d, K, L, cuda)
+    before = F.KERNEL.launches
+    got, ids = F.ace_score_fused_planned(counts, q, w, cfg, None, plan,
+                                         with_ids=True)
+    assert F.KERNEL.launches == before + 1
+    assert torch.equal(ids, H.srp_hash_planned(q, w, cfg, plan))
+    plain_ids = H.srp_hash_plain(q, w, cfg)
+    assert _agreement(ids, plain_ids) >= HASH_AGREEMENT
+    assert torch.equal(got, Q.ace_query_sum(counts, ids))
+    m = torch.ones(L, device=cuda)
+    m[[3, 31]] = 0.0
+    tw = m / m.sum()
+    weighted = F.ace_score_fused_planned(counts, q, w, cfg, tw, plan)
+    same = (ids == plain_ids).all(dim=1)
+    plain = F.ace_score_fused_plain(counts, q, w, cfg, table_weights=tw)
+    assert torch.equal(weighted[same], plain[same])
+    g = F.flat_table_gather(counts, ids)
+    ref = torch.zeros(B, device=cuda)
+    for j in range(L):
+        ref = ref + g[:, j] * tw[j]
+    assert torch.equal(weighted, ref)
+
+
+def test_ace_score_fused_past_2_24_is_exact(cuda):
+    """Rows whose counters sum past 2^24: the int64 sum, rounded once,
+    × float32(1/L), as ``ace_query_sum`` and its plain version give it."""
+    d, K, L = 36, 10, 50
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=3)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(3)
+    q = torch.randn((300, d), generator=gen, device=cuda)
+    counts = torch.randint((1 << 25) - 99, 1 << 25, (L, 1 << K),
+                           dtype=torch.int32, device=cuda, generator=gen)
+    got, ids = F.ace_score_fused_planned(counts, q, w, cfg, None, None,
+                                         with_ids=True)
+    want = (counts[torch.arange(L, device=cuda)[None, :], ids.long()]
+            .long().sum(-1).float() * torch.tensor(1.0 / L))
+    assert torch.equal(got, want)
+    assert torch.equal(got, Q.ace_query_sum_plain(counts, ids))

@@ -194,18 +194,24 @@ class TestAceScoreFused:
             np.testing.assert_array_equal(got.numpy()[same], want[same])
 
     def test_sums_in_table_order(self):
-        """Above 2^24 a float sum depends on its order: the plain version
-        adds the L gathers in table order j = 0..L−1, as the kernel does."""
+        """Above 2^24 a float sum depends on its order: the weighted form
+        adds the L products in table order j = 0..L−1, as the kernel does;
+        the unweighted form takes ``ace_query_sum``'s exact integer sum,
+        rounded once, then × float32(1/L)."""
         _, cfg, w, x, _ = _inputs(5, 8, 4, 3)
         counts = np.zeros((3, 16), np.int32)
         counts[0], counts[1], counts[2] = 1 << 24, 1, 1
-        got = F.ace_score_fused(_t(counts), _t(x),
-                                params_from_numpy(w, CPU), cfg)
+        pw = params_from_numpy(w, CPU)
+        got = F.ace_score_fused(_t(counts), _t(x), pw, cfg,
+                                table_weights=torch.ones(3))
         s = np.float32(1 << 24)
         for v in (1.0, 1.0):
             s = np.float32(s + np.float32(v))
+        np.testing.assert_array_equal(got.numpy(), np.full(5, s, np.float32))
+        got = F.ace_score_fused(_t(counts), _t(x), pw, cfg)
         np.testing.assert_array_equal(
-            got.numpy(), np.full(5, s * np.float32(1.0 / 3), np.float32))
+            got.numpy(), np.full(5, np.float32((1 << 24) + 2)
+                                 * np.float32(1.0 / 3), np.float32))
 
     def test_flat_table_gather_matches_reference(self):
         from repro.kernels.ace_score_fused import flat_table_gather as jflat
