@@ -28,8 +28,10 @@ non-zero without printing its result line):
              every scale, with a health mask and at those base rows with a
              (T, L) mask routed by tenant id, also bitwise equal to the
              (B, L) gather + PyTorch reduction it replaced, the windowed-
-             fleet admission's ids bitwise ``srp_hash``'s under one plan,
-             and
+             fleet admission's and the fleet score's ids bitwise
+             ``srp_hash``'s under one plan, the fleet score bitwise
+             ``srp_hash`` + the routed ``ace_query_sum`` (also on rows
+             that sum past 2^24), and
              ``attr_estimate`` equal by value at R = 1, 2, 5, 8 (C = 256)
              for B = 32 and all 4097 leaf coordinates, and on an all-zero
              plane, and ``attr_find_hh`` (the one-launch drill-down)
@@ -113,11 +115,14 @@ non-zero without printing its result line):
              ``ops.ace_query``/``ace_update``/``ace_fleet_admit_at`` at
              three shapes and the windowed-fleet admission
              (``time_query_paths``, which ``kernel_ab.py`` also runs);
-             ``attr_find_hh`` on the drift hierarchy (also with the plane
-             read from global memory) against the per-level loop it
-             replaced, ``ace_score_fused`` under each row sum and
-             weighted against ``srp_hash`` + ``ace_query_sum``, and the
-             public ``attribution.find_hh`` and ``ops.ace_score``
+             ``attr_find_hh`` on the drift hierarchy against the
+             per-level loop it replaced, ``ace_score_fused`` unweighted
+             and weighted against ``srp_hash`` + ``ace_query_sum``,
+             ``ace_window_combine`` unweighted and weighted, and
+             ``ace_fleet_score`` against ``srp_hash`` + the routed
+             ``ace_query_sum``, each in turns, and the public
+             ``attribution.find_hh``, ``ops.ace_score``,
+             ``ops.ace_window_score`` and ``ops.ace_fleet_score``
              (``time_public_paths``, which ``kernel_ab.py`` also runs);
              and both hash kernels at the corners of hash_mode="auto"
              (d = 64 and 4096), checked against the rule's picks.
@@ -563,18 +568,32 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
               f"equal to plain at B={admit_b}, E={E}, L={L}, K={K}")
     err["ace_window_combine"] = worst
 
-    # ace_fleet_score on the ring's live epochs seen as a fleet
-    counts = ring[:, 0].contiguous()
-    sk_ = fs.ace_fleet_score(counts, x, tids, w, cfg)
-    sp = fs.ace_fleet_score_plain(counts, x, tids, w, cfg)
-    ref = fs.fleet_score_from_ids(counts, ids, tids)
+    # ace_fleet_score on the ring's live epochs seen as a fleet, and on a
+    # fleet whose rows sum past 2^24: its ids srp_hash's under one plan,
+    # its scores srp_hash + the routed ace_query_sum (the exact row sum)
+    plan = h.device_plan(admit_b, d_model + 1, K, L, device)
+    rows = (tids * L).contiguous()
     same = (ids == h.srp_hash_plain(x, w, cfg)).all(dim=1)
-    err["ace_fleet_score"] = float((sk_ - sp).abs().max())
-    check(torch.equal(sk_, ref), "ace_fleet_score bitwise equal to the "
-          "routed table-order gather of its own ids")
-    check(torch.equal(sk_[same], sp[same]), f"ace_fleet_score bitwise equal "
-          f"to plain on the {int(same.sum())} of {admit_b} rows whose ids "
-          "agree")
+    big = torch.randint(0, 1 << 20, (T, L, nb), generator=gen,
+                        device=device, dtype=torch.int32)
+    for name, counts in (("live epochs", ring[:, 0].contiguous()),
+                         ("counters to 2^20, rows past 2^24", big)):
+        sk_, fids = fs.ace_fleet_score_planned(counts, x, tids, w, cfg, plan,
+                                               with_ids=True)
+        sp = fs.ace_fleet_score_plain(counts, x, tids, w, cfg)
+        err["ace_fleet_score"] = max(err.get("ace_fleet_score", 0.0),
+                                     float((sk_ - sp).abs().max()))
+        check(torch.equal(fids, h.srp_hash_planned(x, w, cfg, plan)),
+              f"ace_fleet_score ({name}) ids bitwise equal to srp_hash's "
+              f"under the same plan ({plan.describe()})")
+        check(torch.equal(sk_, q.ace_query_sum(counts.view(T * L, nb), fids,
+                                               rows)),
+              f"ace_fleet_score ({name}) bitwise equal to srp_hash + the "
+              "routed ace_query_sum of its own ids")
+        check(torch.equal(sk_[same], sp[same]), f"ace_fleet_score ({name}) "
+              f"bitwise equal to plain on the {int(same.sum())} of "
+              f"{admit_b} rows whose ids agree")
+    del big
 
     # ace_fleet_window_admit: random and colliding batches, quarantine mask
     xc = x[: admit_b // 8].repeat(8, 1).contiguous()
@@ -584,7 +603,6 @@ def phase_kernels_windows_fleets(mods, device, d_model=D_MODEL,
         torch.full((T,), float("-inf"), device=device))[0]
     thr = torch.stack([torch.median(pre[tids == t]) for t in range(T)])
     worst = 0.0
-    plan = h.device_plan(admit_b, d_model + 1, K, L, device)
     for name, qb, tb in (("random", x, tids), ("colliding", xc, tc)):
         r = ring.clone()
         out = fwa.ace_fleet_window_admit_fused(r, tail, cursor, qb, tb, w,
@@ -1901,12 +1919,24 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
     KL = K_BITS * L
     out = {}
 
-    ids = mods["srp_hash"].srp_hash(feat, gw.w, gw.ace_cfg.srp)
+    h, q = mods["srp_hash"], mods["ace_query"]
+    ids = h.srp_hash(feat, gw.w, gw.ace_cfg.srp)
     wts = ring.epoch_weights(gw.state.cursor, WIN_E, WIN_GAMMA)
     counts = gw.state.counts
+    tmask = torch.ones(L, device=device)
+    tmask[[3, 31]] = 0.0
+    tw = tmask / tmask.sum()
     Uw = WIN_E * distinct_counters(ids, nb)
+    # unweighted and weighted (two tables masked), in turns
+    order = [("kernel", lambda: wc.ace_window_combine(counts, ids, wts)),
+             ("weighted", lambda: wc.ace_window_combine(counts, ids, wts,
+                                                        tw))]
+    runs = {k: [] for k, _ in order}
+    for k, fn in order + order[::-1]:
+        runs[k].append(device_ms(fn))
     out["ace_window_combine"] = dict(
-        ms=device_ms(lambda: wc.ace_window_combine(counts, ids, wts)),
+        ms=statistics.mean(runs["kernel"]),
+        weighted_ms=statistics.mean(runs["weighted"]), runs=runs,
         plain_ms=device_ms(lambda: wc.ace_window_combine_plain(counts, ids,
                                                                wts)),
         library_ms=None, shape=f"B={B}, E={WIN_E}, L={L}, 2^K={nb}, "
@@ -1914,18 +1944,31 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * B * WIN_E * L, 4 * B * L + 4 * Uw + 4 * WIN_E + 4 * B))))
 
-    fc = gf.state.counts
-    fids = mods["srp_hash"].srp_hash(feat, gf.w, gf.ace_cfg.srp)
+    # the fleet score in turns with the composition it matches bitwise
+    # (srp_hash + the routed ace_query_sum, the SRHT and masked branch of
+    # ops.ace_fleet_score)
+    fc, fcfg = gf.state.counts, gf.ace_cfg.srp
+    fids = h.srp_hash(feat, gf.w, fcfg)
     table_rows = mods["ace_update"].table_rows
     rows = table_rows(fids, tids.long() * L)
     Uf = int(torch.unique(rows * nb + fids.long()).numel())
+    base = (tids * L).contiguous()
+    flat = fc.view(FLEET_T * L, nb)
+    order = [("composition", lambda: q.ace_query_sum(
+                 flat, h.srp_hash(feat, gf.w, fcfg), base)),
+             ("kernel", lambda: fs.ace_fleet_score(fc, feat, tids, gf.w,
+                                                   fcfg))]
+    runs = {k: [] for k, _ in order}
+    for k, fn in order + order[::-1]:
+        runs[k].append(device_ms(fn))
     out["ace_fleet_score"] = dict(
-        ms=device_ms(lambda: fs.ace_fleet_score(fc, feat, tids, gf.w,
-                                                gf.ace_cfg.srp)),
+        ms=statistics.mean(runs["kernel"]),
+        composition_ms=statistics.mean(runs["composition"]), runs=runs,
         plain_ms=device_ms(lambda: fs.ace_fleet_score_plain(
-            fc, feat, tids, gf.w, gf.ace_cfg.srp)),
+            fc, feat, tids, gf.w, fcfg)),
         library_ms=None, shape=f"B={B}, d={d}, T={FLEET_T}, K={K_BITS}, "
         f"L={L}, counters touched {Uf}",
+        plan=h.device_plan(B, d, K_BITS, L, device).describe(),
         **dict(zip(("bound_ms", "bound_by"), bound(
             2 * B * d * KL + B * L,
             4 * (B * d + d * KL) + 4 * B + 4 * Uf + 4 * B))))
@@ -1961,10 +2004,15 @@ def phase_timing_windows_fleets(mods, device, gw, gf, gfw) -> dict:
             4 * (B * d + d * KL) + 4 * Ut + 4 * Ul + 2 * 4 * Ui
             + 4 * B * L + 4 * 4 * B + 2 * B + 8 * FLEET_T))))
     for k, v in out.items():
-        print(f"  {k:16s} {v['shape']}: kernel {v['ms']:.5f} ms, plain "
-              f"{v['plain_ms']:.5f} ms, library null, bound "
+        extra = "".join(f", {n} {v[f'{n}_ms']:.5f} ms"
+                        for n in ("weighted", "composition")
+                        if f"{n}_ms" in v)
+        print(f"  {k:16s} {v['shape']}: kernel {v['ms']:.5f} ms{extra}, "
+              f"plain {v['plain_ms']:.5f} ms, library null, bound "
               f"{v['bound_ms']:.5f} ms ({v['bound_by']}), "
-              f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound")
+              f"{100 * v['bound_ms'] / v['ms']:.1f}% of bound"
+              + (f" (each the mean of two medians taken in turns: "
+                 f"{v['runs']})" if "runs" in v else ""))
     return out
 
 
@@ -2024,15 +2072,7 @@ def phase_timing_attr(mods, device, attr) -> dict:
     runs = {k: [] for k, _ in order}
     for k, fn in order + order[::-1]:
         runs[k].append(device_ms(fn, inner=1))
-    # the same launch with the plane read from global memory at every
-    # level, the layout find_hh_layout picks where the plane does not fit
-    layout = ae.find_hh_layout
-    ae.find_hh_layout = lambda *a: (False, layout(*a)[1])
-    try:
-        unstaged_ms = device_ms(order[0][1])
-    finally:
-        ae.find_hh_layout = layout
-    hh = dict(ms=device_ms(order[0][1]), unstaged_ms=unstaged_ms,
+    hh = dict(ms=device_ms(order[0][1]),
               one_call_ms=statistics.mean(runs["kernel"]),
               old_composition_ms=statistics.mean(runs["per_level"]),
               plain_ms=device_ms(lambda: ae.attr_find_hh_plain(*args),
@@ -2043,8 +2083,7 @@ def phase_timing_attr(mods, device, attr) -> dict:
                     f"{ATTR_TOPK} (W={W}), the drift hierarchy, table "
                     f"entries read {entries}, plane cells touched {cells}")
     print(f"  attr_find_hh     {hh['shape']}: {hh['ms']:.5f} ms a launch "
-          f"back to back ({unstaged_ms:.5f} ms with the plane read from "
-          f"global memory); one call alone {hh['one_call_ms']:.5f} ms against "
+          f"back to back; one call alone {hh['one_call_ms']:.5f} ms against "
           f"the per-level attr_estimate loop "
           f"{hh['old_composition_ms']:.5f} ms (each the mean of two medians "
           f"taken in turns: {runs}), plain {hh['plain_ms']:.5f} ms, bound "
@@ -2248,16 +2287,21 @@ def time_query_paths(device) -> dict:
 
 def time_public_paths(device) -> dict:
     """``attribution.find_hh`` at phase 7's hierarchy (d = 4097, R = 5,
-    C = 256, topk = 8, a sketch with three planted coordinates) and
+    C = 256, topk = 8, a sketch with three planted coordinates),
     ``ops.ace_score`` at the estimator's score shape (B = 16,384, d = 36,
     K = 15, L = 50, counts of the fit's first batch; unweighted and with
-    two tables masked), through whichever ``repro_torch`` is first on the
-    path, on inputs made here from SEED: two checkouts time the same work
-    through the same public functions (``scripts/kernel_ab.py``)."""
+    two tables masked), and ``ops.ace_window_score`` (unmasked and with
+    two tables masked) and ``ops.ace_fleet_score`` at phase 6's query
+    shape (B = 256, d = 4097, K = 15, L = 50, E = 4, T = 8), through
+    whichever ``repro_torch`` is first on the path, on inputs made here
+    from SEED: two checkouts time the same work through the same public
+    functions (``scripts/kernel_ab.py``)."""
     from repro_torch.attribution import sketch as at
     from repro_torch.core import sketch as sk
     from repro_torch.core.srp import make_projections
+    from repro_torch.fleet import state as fl
     from repro_torch.kernels import ops
+    from repro_torch.window import ring
     acfg = at.AttrConfig(dim=D_MODEL + 1, rows=ATTR_ROWS, bits=ATTR_BITS)
     tables = at.level_tables(acfg, device)
     gen = torch.Generator(device=device).manual_seed(SEED + 41)
@@ -2273,7 +2317,36 @@ def time_public_paths(device) -> dict:
     tmask = torch.ones(L_TABLES, device=device)
     tmask[[3, 31]] = 0.0
     shape = f"B={N_QUERIES}, d={KDD_D}, K={K_BITS}, L={L_TABLES}"
+    # phase 6's queries: a ring and a fleet of counters up to 2^20
+    B, dq, nb = ADMIT_B, D_MODEL + 1, 1 << K_BITS
+    qcfg = sk.AceConfig(dim=dq, num_bits=K_BITS, num_tables=L_TABLES,
+                        seed=41)
+    qw = make_projections(qcfg.srp, device=device)
+    qx = torch.randn((B, dq), generator=gen, device=device)
+    qids = torch.randint(0, nb, (B, L_TABLES), generator=gen, device=device,
+                         dtype=torch.int32)
+    wst = ring.init(qcfg, WIN_E, device)._replace(
+        counts=torch.randint(0, 1 << 20, (WIN_E, L_TABLES, nb),
+                             generator=gen, device=device,
+                             dtype=torch.int32),
+        cursor=torch.tensor(1, dtype=torch.int32, device=device))
+    fst = fl.init(fl.FleetConfig(ace=qcfg, num_tenants=FLEET_T),
+                  device)._replace(
+        counts=torch.randint(0, 1 << 20, (FLEET_T, L_TABLES, nb),
+                             generator=gen, device=device,
+                             dtype=torch.int32))
+    qtids = (torch.arange(B, device=device) % FLEET_T).to(torch.int32)
+    qshape = f"B={B}, K={K_BITS}, L={L_TABLES}"
     return {
+        "ops.ace_window_score": {"by_shape": [
+            {"shape": f"{qshape}, E={WIN_E}", "ms": device_ms(
+                lambda: ops.ace_window_score(wst, qids, WIN_GAMMA))},
+            {"shape": f"{qshape}, E={WIN_E}, 2 tables masked",
+             "ms": device_ms(lambda: ops.ace_window_score(
+                 wst, qids, WIN_GAMMA, table_mask=tmask))}]},
+        "ops.ace_fleet_score": {"by_shape": [
+            {"shape": f"{qshape}, d={dq}, T={FLEET_T}", "ms": device_ms(
+                lambda: ops.ace_fleet_score(fst, qx, qtids, qw, qcfg))}]},
         "attribution.find_hh": {"by_shape": [{
             "shape": f"d={acfg.dim}, R={ATTR_ROWS}, C={acfg.width}, "
                      f"topk={ATTR_TOPK}",
@@ -2393,8 +2466,7 @@ def main() -> int:
                                  "old_sequence_ms", "gather_ms",
                                  "gather_library_ms", "old_composition_ms",
                                  "composition_ms",
-                                 "weighted_ms", "runs", "one_call_ms",
-                                 "unstaged_ms")
+                                 "weighted_ms", "runs", "one_call_ms")
                  if k in t}})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "

@@ -4,9 +4,10 @@ print one JSON line: the ``ace_update`` and ``srht_hash`` kernels, the
 calls around the gather — ``ops.ace_query``, ``ops.ace_update`` and
 ``ops.ace_fleet_admit_at`` at the fit, admit and stream-step shapes, and
 the fused windowed-fleet admission at its guardrail's shape — and the
-public functions ``attribution.find_hh`` (phase 7's hierarchy) and
+public functions ``attribution.find_hh`` (phase 7's hierarchy),
 ``ops.ace_score`` (the estimator's score shape, with and without a table
-mask).
+mask), ``ops.ace_window_score`` (with and without a table mask) and
+``ops.ace_fleet_score`` (phase 6's query shape).
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
 

@@ -50,22 +50,12 @@ score_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
       });
 }
 
-__device__ __forceinline__ float mean_of(long long s, int L) {
-  return __fmul_rn(__ll2float_rn(s), __frcp_rn(static_cast<float>(L)));
-}
-
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
 score_warp_rows(const int* __restrict__ gathered, float* __restrict__ scores,
                 int B, int L) {
-  const int lane = threadIdx.x % 32;
   const long long b =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / 32;
-  if (b >= B) return;                      // the whole warp leaves
-  const int* g = gathered + b * L;
-  long long part = 0;
-  for (int j = lane; j < L; j += 32) part += g[j];
-  const long long s = repro::warp_sum(part);
-  if (lane == 0) scores[b] = mean_of(s, L);
+  if (b < B) repro::warp_row_mean(gathered, scores, b, L);
 }
 
 __global__ void score_weighted_rows(const int* __restrict__ gathered,

@@ -6,87 +6,143 @@
 //
 // Bound on the H100: memory — the (B, L) ids, the (B,) scores and one read
 // of each counter the batch touches in each of the E epochs; there is no
-// arithmetic to speak of (E*L adds a row).
+// arithmetic to speak of (E*L adds a row).  What holds a row back is
+// latency: id -> counter are two dependent loads.
 //
-// Design: two kernels on one stream, as ace_score_fused.cu.
-//   Phase 1 (window_gather): one thread per (b, e, j) reads
-//     C[(e*L + j) * 2^K + b_j] into a (B, E, L) fp32 scratch; neighbouring
-//     threads take neighbouring tables of one row, so the id reads and
-//     scratch writes coalesce and only the counter reads scatter.
-//   Phase 2 (window_combine): one thread per row sums each epoch's L
-//     gathers in table order (weighted with __fmul_rn when table weights
-//     are given), multiplies by w_e and accumulates over e in ring-index
-//     order with __fadd_rn, then multiplies by float32(1/L) unless
-//     weighted: the reference's canonical order (window/ring.py
-//     score_from_sums), reproduced op for op by the plain version.
-// The TPU kernel's choice between one flat take and a per-epoch unroll
-// (choose_mode, FLAT_MAX_COLS) is a lowering choice calibrated on the TPU
-// and is not carried over.  Offsets are 64-bit: E*L*2^K may pass 2^31.
-// Ids outside [0, 2^K) are clamped, as in ace_query.cu.
+// Design: one kernel, a warp a row (ace_query_sum's design, ace_query.cu),
+// 8 rows a block; nothing of size (B, E, L) is written.  Lanes take tables
+// j and j + 32, 64 tables a pass: a lane loads and clamps its two ids once,
+// then issues the counter loads of both tables in up to kEpochs epochs at
+// once (16 independent loads in flight), epochs kEpochs at a time.
+//   Unweighted: each epoch's sum is exact in int64 (repro::warp_sum, two
+//     redux.sync adds), converted to fp32 once; every lane then folds
+//     acc = acc + w_e * s_e in ring-index order (__fadd_rn/__fmul_rn, no
+//     FMA) and lane 0 writes acc * __frcp_rn(L) = acc * float32(1/L): the
+//     reference's canonical order (window/ring.py score_from_sums) with
+//     each epoch's table sum exact, which is the bits of a float sum in any
+//     order while that sum is below 2^24.
+//   Weighted (table_weights, the degraded path): the lanes form the
+//     products __fmul_rn(g_j, tw_j) of a pass into the warp's shared tile,
+//     one row an epoch, and lane k adds epoch k's products in table order
+//     j = 0..L-1 with __fadd_rn, carrying its sum from pass to pass; the
+//     epochs' sums then reach every lane by shuffle and fold as above,
+//     with no 1/L.  The L adds of the epochs run side by side, one lane
+//     each.
+// The plain version (kernels/ace_window_combine.py) runs the same
+// arithmetic, so the two agree bitwise.  The TPU kernel's choice between
+// one flat take and a per-epoch unroll (choose_mode, FLAT_MAX_COLS) is a
+// lowering choice calibrated on the TPU and is not carried over.  Offsets
+// are 64-bit: E*L*2^K may pass 2^31.  Ids outside [0, 2^K) are clamped,
+// as in ace_query.cu.
 
 #include "common.cuh"
 
 namespace {
 
-__global__ void window_gather(const int* __restrict__ counts,
-                              const int* __restrict__ buckets,
-                              float* __restrict__ gathered, int B, int E,
-                              int L, long long nbuckets) {
-  const long long i = blockIdx.x * static_cast<long long>(blockDim.x)
-                      + threadIdx.x;
-  const long long EL = static_cast<long long>(E) * L;
-  if (i >= static_cast<long long>(B) * EL) return;
-  const long long row = i / EL;
-  const long long ej = i % EL;           // e * L + j
-  const int j = static_cast<int>(ej % L);
-  const int b = min(max(buckets[row * L + j], 0),
-                    static_cast<int>(nbuckets - 1));
-  gathered[i] = static_cast<float>(counts[ej * nbuckets + b]);
-}
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowsPerBlock = 8;           // a warp a row
+constexpr int kThreads = 32 * kRowsPerBlock;
+constexpr int kEpochs = 8;                 // epochs whose loads fly together
+constexpr int kPass = 64;                  // tables a pass: j and j + 32
+constexpr int kTileStride = kPass + 1;     // lane k reads row k: no conflict
+// The weighted form's shared tile: a (kEpochs, kPass) row block a warp.
+constexpr int kTileBytes =
+    static_cast<int>(sizeof(float)) * kRowsPerBlock * kEpochs * kTileStride;
 
-__global__ void window_combine(const float* __restrict__ gathered,
-                               const float* __restrict__ w,
-                               const float* __restrict__ tw,
-                               float* __restrict__ scores, int B, int E,
-                               int L, float inv_l) {
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  if (row >= B) return;
-  const float* g = gathered + static_cast<long long>(row) * E * L;
+template <bool kWeighted>
+__global__ void __launch_bounds__(kThreads)
+window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
+               const float* __restrict__ w, const float* __restrict__ tw,
+               float* __restrict__ scores, int B, int E, int L,
+               long long nbuckets) {
+  extern __shared__ float tile[];
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  const long long b =
+      static_cast<long long>(blockIdx.x) * kRowsPerBlock + warp;
+  if (b >= B) return;                      // the whole warp leaves
+  float* prod = tile + warp * kEpochs * kTileStride;
+  const int* ids = buckets + b * L;
+  const int top = static_cast<int>(nbuckets - 1);
+  const long long epoch = static_cast<long long>(L) * nbuckets;
   float acc = 0.0f;
-  for (int e = 0; e < E; ++e, g += L) {
-    float s;
-    if (tw == nullptr) {
-      s = repro::table_order_sum(g, L);
-    } else {
-      s = 0.0f;
-#pragma unroll 10
-      for (int j = 0; j < L; ++j) s = __fadd_rn(s, __fmul_rn(g[j], tw[j]));
+  for (int e0 = 0; e0 < E; e0 += kEpochs) {
+    const int ne = min(kEpochs, E - e0);   // the same in every lane
+    long long part[kEpochs];
+#pragma unroll
+    for (int k = 0; k < kEpochs; ++k) part[k] = 0;
+    float run = 0.0f;                      // lane k: epoch e0 + k, weighted
+    for (int j0 = 0; j0 < L; j0 += kPass) {
+      const int ja = j0 + lane, jb = ja + 32;
+      const bool va = ja < L, vb = jb < L;
+      const long long oa = e0 * epoch + ja * nbuckets
+                           + (va ? min(max(ids[ja], 0), top) : 0);
+      const long long ob = e0 * epoch + jb * nbuckets
+                           + (vb ? min(max(ids[jb], 0), top) : 0);
+      int ca[kEpochs], cb[kEpochs];
+#pragma unroll
+      for (int k = 0; k < kEpochs; ++k) {
+        ca[k] = va && k < ne ? counts[oa + k * epoch] : 0;
+        cb[k] = vb && k < ne ? counts[ob + k * epoch] : 0;
+      }
+      if constexpr (!kWeighted) {
+#pragma unroll
+        for (int k = 0; k < kEpochs; ++k)
+          part[k] += static_cast<long long>(ca[k]) + cb[k];
+      } else {
+        const float ta = va ? tw[ja] : 0.0f, tb = vb ? tw[jb] : 0.0f;
+#pragma unroll
+        for (int k = 0; k < kEpochs; ++k) {
+          prod[k * kTileStride + lane] =
+              __fmul_rn(static_cast<float>(ca[k]), ta);
+          prod[k * kTileStride + lane + 32] =
+              __fmul_rn(static_cast<float>(cb[k]), tb);
+        }
+        __syncwarp();
+        if (lane < ne) {
+          const float* row = prod + lane * kTileStride;
+          const int n = min(kPass, L - j0);
+#pragma unroll 8
+          for (int j = 0; j < n; ++j) run = __fadd_rn(run, row[j]);
+        }
+        __syncwarp();                      // the tile is free again
+      }
     }
-    acc = __fadd_rn(acc, __fmul_rn(w[e], s));
+#pragma unroll
+    for (int k = 0; k < kEpochs; ++k) {
+      if (k < ne) {
+        float s;
+        if constexpr (kWeighted) {
+          s = __shfl_sync(kFull, run, k);
+        } else {
+          s = __ll2float_rn(repro::warp_sum(part[k]));
+        }
+        acc = __fadd_rn(acc, __fmul_rn(w[e0 + k], s));
+      }
+    }
   }
-  scores[row] = tw == nullptr ? __fmul_rn(acc, inv_l) : acc;
+  if (lane == 0)
+    scores[b] = kWeighted ? acc
+                          : __fmul_rn(acc, __frcp_rn(static_cast<float>(L)));
 }
 
 }  // namespace
 
 // counts (E, L, nbuckets) int32; buckets (B, L) int32; w (E,) fp32 epoch
-// weights; tw (L,) fp32 table weights or null; scores (B,) fp32;
-// gathered (B, E, L) fp32 is scratch.  nbuckets is 64-bit (2^31 at
-// K = 31).  Needs B >= 1.
+// weights; tw (L,) fp32 table weights or null; scores (B,) fp32.
+// nbuckets is 64-bit (2^31 at K = 31).  Needs B >= 1, 1 <= L <= 65535.
 REPRO_API int repro_ace_window_combine(const int* counts, const int* buckets,
                                        const float* w, const float* tw,
-                                       float* gathered, float* scores, int B,
-                                       int E, int L, long long nbuckets,
-                                       float inv_l, void* stream) {
+                                       float* scores, int B, int E, int L,
+                                       long long nbuckets, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  constexpr int kThreads = 256;
-  const long long n = static_cast<long long>(B) * E * L;
-  window_gather<<<static_cast<unsigned int>((n + kThreads - 1) / kThreads),
-                  kThreads, 0, s>>>(counts, buckets, gathered, B, E, L,
-                                    nbuckets);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  window_combine<<<(B + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      gathered, w, tw, scores, B, E, L, inv_l);
+  const unsigned int blocks =
+      static_cast<unsigned int>((B + kRowsPerBlock - 1) / kRowsPerBlock);
+  if (tw != nullptr) {
+    window_combine<true><<<blocks, kThreads, kTileBytes, s>>>(
+        counts, buckets, w, tw, scores, B, E, L, nbuckets);
+  } else {
+    window_combine<false><<<blocks, kThreads, 0, s>>>(
+        counts, buckets, w, tw, scores, B, E, L, nbuckets);
+  }
   return static_cast<int>(cudaGetLastError());
 }

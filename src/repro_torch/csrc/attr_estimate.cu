@@ -22,23 +22,19 @@
 //   depth - 1, or -inf where invalid, and the top W keep their slots.
 //   After the leaf level the beam (valid where key < dim, estimated at
 //   the clamped key) is ranked once more and the top topk written.
-//   Bound on the H100: by bytes ~0.03 us (the hierarchy and 2W R table
-//   entries a level); in practice NL dependent round trips to L2, one a
+//   Bound on the H100: by bytes ~0.007 us (the 2W R table entries a
+//   level and the plane cells they name); in practice NL dependent round trips to L2, one a
 //   level, and with one warp at work each level's chain of dependent
 //   instructions (the loads, the median network, the ranking).  Design:
 //   one block, a child a thread: 2W threads rounded up to a warp (32 at
-//   topk = 8; threads loop over children past 1024), at least 4 warps
-//   when the plane is staged.  The hierarchy is staged into shared memory
-//   with cp.async by every warp at the start (66.6 KB at NL = 13, R = 5,
-//   C = 256; one warp alone took longer than the first level) while the
-//   first level reads the plane from global memory; where it does not fit
-//   (bits up to 20) the wrapper asks for no staging, by shape, and every
-//   level reads the plane from global memory.  At 2W <= 32 only warp 0
-//   works past the staging.  A child issues its R column and sign loads
-//   together (and asks for its own two children's entries at the next
-//   level into L1, so the next level's loads mostly hit there), then
-//   reads its plane cells and takes the median with the batch kernel's
-//   code.  Its slot is p = #{j ranked above i} + #{j < i tied with i},
+//   topk = 8, one warp; threads loop over children past 1024).  Every
+//   level reads the plane from global memory through L1 (staging the
+//   hierarchy in shared memory first was 4-5% slower at NL = 13, R = 5,
+//   C = 256, and cannot hold it past bits ~11).  A child issues its R
+//   column and sign loads together (and asks for its own two children's
+//   entries at the next level into L1, so the next level's loads mostly
+//   hit there), then reads its plane cells and takes the median with the
+//   batch kernel's code.  Its slot is p = #{j ranked above i} + #{j < i tied with i},
 //   on integer keys of the ranks (rank_key), from unrolled warp shuffles
 //   and one __match_any_sync when 2W <= 32 and from the keys in shared
 //   memory otherwise; each child with p < W writes its key, flag and
@@ -75,7 +71,6 @@ namespace {
 constexpr int kMaxRegR = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxThreads = 1024;
-constexpr int kStageThreads = 128;         // warps that stage the plane
 // A beam lane's shared memory: its key, flag and estimate, and its two
 // children's id, flag, estimate and rank, 4 bytes each
 // (kernels/attr_estimate.py BEAM_LANE_BYTES).
@@ -221,35 +216,6 @@ __device__ __forceinline__ int slot_mem(const unsigned* keys, int i, int n) {
   return p;
 }
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
-               "l"(src)
-               : "memory");
-}
-
-// The hierarchy into shared memory, 16 bytes a copy where the source and
-// the cell count allow it, 4 otherwise; one commit group.
-__device__ __forceinline__ void stage_plane(float* dst, const float* src,
-                                            long long cells) {
-  const int tid = threadIdx.x, nt = blockDim.x;
-  if ((reinterpret_cast<unsigned long long>(src) & 15) == 0
-      && (cells & 3) == 0) {
-    for (long long i = 4LL * tid; i < cells; i += 4LL * nt)
-      cp_async16(dst + i, src + i);
-  } else {
-    for (long long i = tid; i < cells; i += nt) cp_async4(dst + i, src + i);
-  }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
 struct FindHH {
   const float* plane;           // (NL, R, C)
   const int* cols;              // (NL, 2^NL, R)
@@ -258,7 +224,7 @@ struct FindHH {
   float* ests;                  // (topk,)
   unsigned char* valid;         // (topk,)
   unsigned char* work;          // the beam in device memory, or null
-  int NL, R, C, dim, topk, beam, stage;
+  int NL, R, C, dim, topk, beam;
 };
 
 // Ask for the table entries of nodes node0 and node0 + 1 at one level,
@@ -282,14 +248,7 @@ attr_find_hh_kernel(const FindHH a) {
   const int n = 2 * W, tid = threadIdx.x, nt = blockDim.x;
   const bool one_warp = n <= 32;            // warp 0: a child a lane
   const long long D2 = 1LL << NL, level_cells = static_cast<long long>(R) * C;
-  float* staged = reinterpret_cast<float*>(smem);
-  unsigned char* mem = a.work;
-  if (a.stage) {
-    stage_plane(staged, a.plane, NL * level_cells);
-    if (mem == nullptr) mem = smem + 4 * NL * level_cells;
-  } else if (mem == nullptr) {
-    mem = smem;
-  }
+  unsigned char* mem = a.work != nullptr ? a.work : smem;
   int* keys = reinterpret_cast<int*>(mem);  // (W,) the beam's nodes
   int* kvalid = keys + W;                   // (W,)
   float* kest = reinterpret_cast<float*>(kvalid + W);  // (W,) estimates
@@ -301,20 +260,11 @@ attr_find_hh_kernel(const FindHH a) {
     keys[i] = i;
     kvalid[i] = i < 2;                      // depth-1 nodes: {0, 1}
   }
-  bool ready = !a.stage;
-  auto plane_at = [&](int lvl) {
-    return (ready ? (a.stage ? staged : a.plane) : a.plane)
-           + lvl * level_cells;
-  };
-  auto staged_ready = [&]() {               // uniform: every thread calls it
-    if (!ready) asm volatile("cp.async.wait_all;\n" ::: "memory");
-    ready = true;
-  };
   __syncthreads();
 
   for (int depth = 2; depth <= NL; ++depth) {
     const int lvl = depth - 1;
-    const float* pl = plane_at(lvl);
+    const float* pl = a.plane + lvl * level_cells;
     const long long below = (a.dim - 1) >> (NL - depth);
     // child i: its clamped id, its flag, its estimate and its rank; the
     // entries of its own children at the next level are asked for now,
@@ -365,17 +315,14 @@ attr_find_hh_kernel(const FindHH a) {
         }
       }
     }
-    staged_ready();
-    __syncthreads();                        // the new beam and the plane
+    __syncthreads();                        // the new beam
   }
-  staged_ready();
-  __syncthreads();
 
   // the leaf ranking: valid where the key is a coordinate.  Past one
   // level the beam's keys are the last level's clamped children, whose
   // estimates at level NL - 1 the last level kept: the same bits as
   // estimating them again.
-  const float* pl = plane_at(NL - 1);
+  const float* pl = a.plane + (NL - 1) * level_cells;
   auto leaf = [&](int i, int& key, int& v, float& e, unsigned& r) {
     key = keys[i];
     v = kvalid[i] && key < a.dim;
@@ -472,25 +419,22 @@ REPRO_API int repro_attr_estimate(const float* plane, const int* cols,
 
 // plane (NL, R, C) fp32; cols (NL, 2^NL, R) int32; signs (NL, 2^NL, R)
 // fp32 (±1); outputs coords (topk,) int32, ests (topk,) fp32, valid
-// (topk,) bool.  stage: nonzero to stage the plane in shared memory; work:
-// null (the beam in shared memory) or 44 * max(2 topk, 8) bytes of device
-// memory.  NL >= 1 with 2^(NL-1) < dim <= 2^NL (or NL = 1), R, C, topk
+// (topk,) bool.  work: null (the beam in shared memory) or
+// 44 * max(2 topk, 8) bytes of device memory.  NL >= 1 with 2^(NL-1) < dim <= 2^NL (or NL = 1), R, C, topk
 // >= 1.
 REPRO_API int repro_attr_find_hh(const float* plane, const int* cols,
                                  const float* signs, int* coords,
                                  float* ests, unsigned char* valid,
                                  unsigned char* work, int NL, int R, int C,
-                                 int dim, int topk, int stage,
-                                 void* stream) {
+                                 int dim, int topk, void* stream) {
   const int beam = topk > 4 ? 2 * topk : 8;
   const long long n = 2LL * beam;
-  int threads = static_cast<int>(
+  const int threads = static_cast<int>(
       n > kMaxThreads ? kMaxThreads : (n + 31) / 32 * 32);
-  if (stage && threads < kStageThreads) threads = kStageThreads;
-  size_t smem = stage ? 4ull * NL * R * C : 0;
-  if (work == nullptr) smem += static_cast<size_t>(kBeamLaneBytes) * beam;
+  const size_t smem =
+      work == nullptr ? static_cast<size_t>(kBeamLaneBytes) * beam : 0;
   const FindHH a{plane, cols, signs, coords, ests, valid, work,
-                 NL, R, C, dim, topk, beam, stage};
+                 NL, R, C, dim, topk, beam};
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (R) {
     case 1: return static_cast<int>(launch_find_hh<1>(a, threads, smem, s));

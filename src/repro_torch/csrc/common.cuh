@@ -37,6 +37,23 @@ __device__ __forceinline__ long long warp_sum(long long v) {
   return static_cast<long long>(hi) * (1LL << 20) + lo;
 }
 
+// The mean of row b of a (B, L) int32 scratch, by the warp that holds the
+// row (every lane calls it, lane 0 writes): the exact int64 sum, one
+// conversion to fp32, then times __frcp_rn(L) = float32(1/L), the
+// convention of ace_query_sum.
+__device__ __forceinline__ void warp_row_mean(const int* __restrict__ gathered,
+                                              float* __restrict__ scores,
+                                              long long b, int L) {
+  const int lane = threadIdx.x % 32;
+  const int* g = gathered + b * L;
+  long long part = 0;
+  for (int j = lane; j < L; j += 32) part += g[j];
+  const long long s = warp_sum(part);
+  if (lane == 0)
+    scores[b] = __fmul_rn(__ll2float_rn(s),
+                          __frcp_rn(static_cast<float>(L)));
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory a block on the
 // current device (bytes < 0: the card's opt-in maximum).  Set once per
 // kernel and device, each kernel always with the same bytes: the launches

@@ -1,8 +1,7 @@
 // The dense SRP hash of one block, redesigned for Hopper: sign bits of
-// x @ W, packed K bits per table, MSB first.  Shared by srp_hash.cu,
-// ace_admit_fused.cu, ace_fleet_window_admit.cu and ace_score_fused.cu
-// (the last dense-hash kernel, ace_fleet_score.cu, still uses
-// srp_tile.cuh).
+// x @ W, packed K bits per table, MSB first.  Shared by every dense-hash
+// kernel: srp_hash.cu, ace_admit_fused.cu, ace_score_fused.cu,
+// ace_fleet_score.cu and ace_fleet_window_admit.cu.
 //
 // A block covers kRows = 64 rows of x and one group of whole tables (at
 // most kCols = 128 projection columns) over one depth range of a launch

@@ -24,9 +24,9 @@ one a level (by bytes ~0.03 µs).  The batch query is one thread per query
 b: the R values sit in registers and a compare-exchange network sorts
 them for R <= 8; any larger R takes an exact rank selection with no
 array, so no R is refused.  The drill-down is one block, a child a
-thread, the hierarchy staged in shared memory where it fits
-(``find_hh_layout``), each child's slot in the beam its stable rank
-among the 2W children.  Columns outside [0, C) are clamped, as the
+thread, the plane read through L1 at every level, the beam in shared
+memory where it fits (``beam_in_smem``), each child's slot in the beam
+its stable rank among the 2W children.  Columns outside [0, C) are clamped, as the
 reference's gather clamps.
 """
 from __future__ import annotations
@@ -42,7 +42,7 @@ KERNEL = build.Kernel("attr_estimate", "repro_attr_estimate",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3)
 # The one-launch drill-down of the stream path.
 FIND_HH_KERNEL = build.Kernel("attr_estimate", "repro_attr_find_hh",
-                              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6)
+                              [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5)
 
 # The dynamic shared memory one block may ask for on sm_90 (H100, H200: 227
 # KB), the only target the kernels are built for.
@@ -104,19 +104,12 @@ def num_levels(dim: int) -> int:
     return max(1, (dim - 1).bit_length())
 
 
-def find_hh_layout(NL: int, R: int, C: int, topk: int) -> tuple[bool, bool]:
-    """Where the drill-down kernel keeps its data, chosen by shape:
-    (stage the (NL, R, C) plane in shared memory, keep the beam there).
-    The beam takes ``BEAM_LANE_BYTES`` a lane and goes to a device
-    workspace only when it alone exceeds a block's shared memory (topk in
-    the thousands); the plane is staged where it fits beside the beam
-    (NL = 13, R = 5, C = 256: 66.6 KB), and read from global memory
-    otherwise (``bits`` up to 20)."""
-    beam = BEAM_LANE_BYTES * beam_width(topk)
-    plane = 4 * NL * R * C
-    if beam > SMEM_PER_BLOCK:
-        return plane <= SMEM_PER_BLOCK, False
-    return plane + beam <= SMEM_PER_BLOCK, True
+def beam_in_smem(topk: int) -> bool:
+    """Where the drill-down kernel keeps its beam: in shared memory, at
+    ``BEAM_LANE_BYTES`` a lane, unless that exceeds a block's (topk in the
+    thousands), and then in a device workspace.  The plane is always read
+    from global memory, through L1."""
+    return BEAM_LANE_BYTES * beam_width(topk) <= SMEM_PER_BLOCK
 
 
 def level_estimate(plane: torch.Tensor, cols: torch.Tensor,
@@ -199,11 +192,10 @@ def attr_find_hh(plane: torch.Tensor, cols: torch.Tensor,
     coords = torch.empty((topk,), dtype=torch.int32, device=dev)
     ests = torch.empty((topk,), dtype=torch.float32, device=dev)
     valid = torch.empty((topk,), dtype=torch.bool, device=dev)
-    stage, beam_in_smem = find_hh_layout(NL, R, C, topk)
-    work = None if beam_in_smem else torch.empty(
+    work = None if beam_in_smem(topk) else torch.empty(
         (BEAM_LANE_BYTES * beam_width(topk),), dtype=torch.uint8, device=dev)
     FIND_HH_KERNEL(dev, plane.data_ptr(), cols.data_ptr(), signs.data_ptr(),
                    coords.data_ptr(), ests.data_ptr(), valid.data_ptr(),
                    None if work is None else work.data_ptr(), NL, R, C, dim,
-                   topk, int(stage))
+                   topk)
     return coords, ests, valid

@@ -307,7 +307,9 @@ def ace_fleet_score(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
     """Multi-tenant scoring of raw queries, each against its own tenant's
     tables, one hash for the batch.  Dense: one ``ace_fleet_score`` call.
     SRHT or a table mask (T, L): the one hash kernel, then one routed
-    ``ace_query_sum`` launch (``fleet.state.fleet_combine``'s means)."""
+    ``ace_query_sum`` launch (``fleet.state.fleet_combine``'s means).  Both
+    take the exact row sum × float32(1/L): on the same ids the branches
+    agree bitwise."""
     if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
         buckets = hash_dispatch(q, w, cfg.srp)
         return _q.ace_query_sum(

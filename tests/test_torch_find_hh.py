@@ -160,26 +160,26 @@ def test_wrapper_checks_its_operands():
         "the plain version launches nothing"
 
 
-@pytest.mark.parametrize("NL,R,C,topk,stage,beam_in_smem", [
-    (13, 5, 256, 8, True, True),        # the defaults: 66.6 KB staged
-    (13, 8, 256, 300, True, True),
-    (13, 1, 2048, 8, True, True),       # bits 11 fits at R = 1, 2
-    (13, 2, 2048, 300, False, True),    # ... but not beside a wide beam
-    (13, 3, 2048, 8, False, True),
-    (13, 5, 2048, 8, False, True),
-    (20, 5, 1 << 20, 8, False, True),   # bits 20: far past a block
-    (13, 5, 256, 3000, True, False),    # the beam alone past 227 KB
-    (13, 5, 2048, 3000, False, False),
+@pytest.mark.parametrize("topk,beam_in_smem", [
+    (1, True),                          # W = 8: the smallest beam
+    (8, True),                          # the default
+    (18, True),
+    (300, True),
+    (558, True),                        # 48 KB: the static limit ...
+    (559, True),                        # ... passed, opted into
+    (2641, True),                       # the last beam a block holds
+    (2642, False),                      # past 227 KB: a device workspace
+    (3000, False),
 ])
-def test_layout_is_chosen_by_shape(NL, R, C, topk, stage, beam_in_smem):
-    """Where the kernel keeps the hierarchy and the beam: staged plane and
-    beam together within a block's 227 KB, else the plane read from
-    global memory, else (topk in the thousands) the beam in a device
-    workspace."""
-    assert AE.find_hh_layout(NL, R, C, topk) == (stage, beam_in_smem)
-    W = AE.beam_width(topk)
-    used = AE.BEAM_LANE_BYTES * W * beam_in_smem + 4 * NL * R * C * stage
-    assert used <= AE.SMEM_PER_BLOCK
+def test_layout_is_chosen_by_shape(topk, beam_in_smem):
+    """Where the kernel keeps the beam: in a block's 227 KB of shared
+    memory at 44 bytes a lane, else (topk in the thousands) in a device
+    workspace.  The plane is never staged: every level reads it from
+    global memory."""
+    assert AE.beam_in_smem(topk) == beam_in_smem
+    used = AE.BEAM_LANE_BYTES * AE.beam_width(topk)
+    assert (used <= AE.SMEM_PER_BLOCK) == beam_in_smem
+    assert (used > 48 * 1024) == (topk >= 559)
 
 
 @pytest.mark.parametrize("dim,nl", [(1, 1), (2, 1), (3, 2), (4, 2), (5, 3),

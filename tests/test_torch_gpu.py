@@ -12,10 +12,12 @@ installed.
 Tolerances, as in ``chip_smoke.py``: bucket ids agree >= 0.999 with TF32
 off for the plain hash (the kernels use none); everything downstream of
 one set of bucket ids (counts, gathers, pre-insert scores, admit masks)
-bitwise; Welford mean/M2 rtol 1e-5.  The window combine, the fleet score
-and the windowed-fleet admission sum in table order with no FMA, as their
-plain versions do, so they are bitwise too (the admission's tail sums
-included, at fractional tail values).  SRHT ids bitwise, against the plain
+bitwise; Welford mean/M2 rtol 1e-5.  The fleet score and the unweighted
+window combine sum each row (each epoch) as an exact integer, converted
+once, as ``ace_query_sum`` does; the weighted combine and the
+windowed-fleet admission sum in table order with no FMA, as their plain
+versions do; so all are bitwise (the admission's tail sums included, at
+fractional tail values).  SRHT ids bitwise, against the plain
 version on the card and on the CPU; fused scores bitwise wherever the
 ids agree, the weighted form too (both sum in table order, no FMA).
 Attribution point estimates equal by value (an empty cell gives ±0.0, and
@@ -856,15 +858,39 @@ def test_row_base_update_and_query_match_plain(cuda, R, K, L, B, repeat,
     torch.cuda.empty_cache()
 
 
+def _window_ref(counts, ids, w, tw):
+    """The combine's convention, written out: each epoch's exact int64 sum
+    converted once (weighted: tw_j·g_j added in table order), weighted by
+    w_e, accumulated in ring-index order, × float32(1/L) unweighted."""
+    E, L, _ = counts.shape
+    rows = torch.arange(L, device=counts.device)[None, :]
+    acc = torch.zeros(ids.shape[0], device=counts.device)
+    for e in range(E):
+        g = counts[e][rows, ids.long()]
+        if tw is None:
+            s = g.long().sum(-1).float()
+        else:
+            s = torch.zeros_like(acc)
+            for j in range(L):
+                s = s + g[:, j].float() * tw[j]
+        acc = acc + w[e] * s
+    return acc if tw is not None else acc * torch.tensor(1.0 / L)
+
+
 @pytest.mark.parametrize("weighted", [False, True])
 @pytest.mark.parametrize("E,L,K,B,repeat", [(1, 5, 4, 1, 1),
                                             (4, 50, 15, 300, 1),
                                             (3, 7, 3, 64, 8),
-                                            (2, 33, 25, 5, 1)])
+                                            (2, 33, 25, 5, 1),
+                                            (9, 130, 6, 33, 1),
+                                            (17, 2, 3, 9, 1)])
 def test_ace_window_combine_matches_plain(cuda, E, L, K, B, repeat,
                                           weighted):
-    """E = 1, B = 1 and off the block size, colliding rows, and a ring of
-    2·33·2^25 > 2^31 counters (64-bit offsets): bitwise."""
+    """One launch a call, E = 1, B = 1 and off the block size, colliding
+    rows, a ring of 2·33·2^25 > 2^31 counters (64-bit offsets), more
+    epochs than one pass of 8 and more tables than one of 64: bitwise the
+    plain version and the exact-sum convention written out (counters up
+    to 2^20, so an epoch of 50 tables sums past 2^24)."""
     g = torch.Generator(cuda).manual_seed(E + L)
     counts = torch.randint(0, 1 << 20, (E, L, 1 << K), dtype=torch.int32,
                            device=cuda, generator=g)
@@ -879,6 +905,7 @@ def test_ace_window_combine_matches_plain(cuda, E, L, K, B, repeat,
     got = WC.ace_window_combine(counts, ids, w, tw)
     assert WC.KERNEL.launches == before + 1
     assert torch.equal(got, WC.ace_window_combine_plain(counts, ids, w, tw))
+    assert torch.equal(got, _window_ref(counts, ids, w, tw))
     if repeat > 1:
         s = got.view(repeat, B)
         assert torch.equal(s, s[:1].expand_as(s))
@@ -890,7 +917,9 @@ def test_ace_window_combine_matches_plain(cuda, E, L, K, B, repeat,
                                        (1310, 64, 36, 15, 50)])
 def test_ace_fleet_score_matches_plain(cuda, T, B, d, K, L):
     """B = 1 and off the block size, the guardrail's width, and a fleet of
-    1310 × 50 × 2^15 counters (the int32 offset cap: 64-bit offsets)."""
+    1310 × 50 × 2^15 counters (the int32 offset cap: 64-bit offsets); the
+    counters reach 2^20, so rows of 50 sum past 2^24: the exact int64 sum
+    rounded once, × float32(1/L)."""
     cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=5)
     w = make_projections(cfg, device=cuda)
     q = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
@@ -908,14 +937,44 @@ def test_ace_fleet_score_matches_plain(cuda, T, B, d, K, L):
     plain_ids = H.srp_hash_plain(q, w, cfg)
     assert _agreement(ids, plain_ids) >= HASH_AGREEMENT
     rows = tids.long()[:, None] * L + torch.arange(L, device=cuda)[None, :]
-    gth = counts.view(T * L, -1)[rows, ids.long()].float()
-    ref = torch.zeros(B, device=cuda)
-    for j in range(L):
-        ref = ref + gth[:, j]
-    assert torch.equal(got, ref * torch.tensor(1.0 / L))
+    gth = counts.view(T * L, -1)[rows, ids.long()]
+    ref = gth.long().sum(-1).float() * torch.tensor(1.0 / L)
+    assert torch.equal(got, ref)
     same = (ids == plain_ids).all(dim=1)
     plain = FS.ace_fleet_score_plain(counts, q, tids, w, cfg)
     assert torch.equal(got[same], plain[same])
+    del counts
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("splits", [1, None])
+@pytest.mark.parametrize("B", [1, 65, 256])
+def test_ace_fleet_score_ids_and_scores_are_the_composition(cuda, B, splits):
+    """At the guardrail's d = 4097, K = 15, L = 50, T = 8, under S = 1 and
+    the card's own plan: the fleet score's ids are ``srp_hash``'s under
+    the same plan bitwise (>= 0.999 with the plain hash), and its scores
+    are ``srp_hash`` + the routed ``ace_query_sum`` of those ids bitwise
+    (the branch ``ops.ace_fleet_score`` takes for SRHT or a mask), past
+    2^24 a row too."""
+    T, d, K, L = 8, 4097, 15, 50
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=B + 7)
+    w = make_projections(cfg, device=cuda)
+    gen = torch.Generator(cuda).manual_seed(B)
+    q = torch.randn((B, d), generator=gen, device=cuda)
+    counts = torch.randint(0, 1 << 20, (T, L, 1 << K), dtype=torch.int32,
+                           device=cuda, generator=gen)
+    tids = (torch.arange(B, device=cuda) % T).to(torch.int32)
+    plan = _forced_plan(B, d, K, L, None, 1) if splits \
+        else H.device_plan(B, d, K, L, cuda)
+    before = FS.KERNEL.launches
+    got, ids = FS.ace_fleet_score_planned(counts, q, tids, w, cfg, plan,
+                                          with_ids=True)
+    assert FS.KERNEL.launches == before + 1
+    assert torch.equal(ids, H.srp_hash_planned(q, w, cfg, plan))
+    assert _agreement(ids, H.srp_hash_plain(q, w, cfg)) >= HASH_AGREEMENT
+    assert torch.equal(got, Q.ace_query_sum(
+        counts.view(T * L, -1), ids, (tids * L).contiguous()))
+    assert torch.equal(got, FS.fleet_score_from_ids(counts, ids, tids))
     del counts
     torch.cuda.empty_cache()
 
@@ -1285,13 +1344,9 @@ def _find_hh_case(dim, R, bits, seed, plane_kind="normal"):
 @pytest.mark.parametrize("R", [1, 2, 5, 8, 9])
 @pytest.mark.parametrize("topk", [1, 8, 18, 300])
 def test_attr_find_hh_matches_plain(cuda, topk, R, bits):
-    from repro_torch.kernels.attr_estimate import find_hh_layout
     dim = 4097
     args = [torch.as_tensor(a, device=cuda)
             for a in _find_hh_case(dim, R, bits, seed=topk * 31 + R + bits)]
-    stage, _ = find_hh_layout(13, R, 1 << bits, topk)
-    if bits == 11:
-        assert not stage or R < 3
     before = AE.KERNEL.launches, AE.FIND_HH_KERNEL.launches
     got = AE.attr_find_hh(*args, dim, topk)
     torch.cuda.synchronize()
@@ -1308,20 +1363,18 @@ def test_attr_find_hh_matches_plain(cuda, topk, R, bits):
 
 
 # topk 3000: a beam of W = 6000 lanes (264 KB) past a block's shared
-# memory, so the kernel keeps it in its device workspace; bits 4 with the
-# plane staged beside it, bits 11 with the plane read from global memory;
-# a NaN cell and tied estimates on the small plane
+# memory, so the kernel keeps it in its device workspace; bits 4 and 11
+# (a plane of 13 levels past a block's shared memory; every plane is read
+# from global memory); a NaN cell and tied estimates on the small plane
 @pytest.mark.parametrize("bits,kind", [(4, "normal"), (4, "nan"),
                                        (4, "tied"), (11, "normal")])
 @pytest.mark.parametrize("R", [5, 9])
 def test_attr_find_hh_beam_in_workspace_matches_plain(cuda, R, bits, kind):
-    from repro_torch.kernels.attr_estimate import find_hh_layout
     dim, topk = 4097, 3000
     args = [torch.as_tensor(a, device=cuda)
             for a in _find_hh_case(dim, R, bits, seed=R + bits,
                                    plane_kind=kind)]
-    stage, beam_in_smem = find_hh_layout(13, R, 1 << bits, topk)
-    assert not beam_in_smem and stage == (bits == 4)
+    assert not AE.beam_in_smem(topk)
     before = AE.FIND_HH_KERNEL.launches
     got = AE.attr_find_hh(*args, dim, topk)
     torch.cuda.synchronize()

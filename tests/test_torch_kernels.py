@@ -488,22 +488,36 @@ class TestAceWindowCombine:
             s = got.numpy().reshape(repeat, -1)
             assert (s == s[:1]).all()
 
-    def test_sums_in_table_then_ring_order(self):
-        """Above 2^24 the order matters: table order within an epoch,
-        weighted, then ring-index order across epochs."""
+    @pytest.mark.parametrize("weighted", [False, True])
+    def test_sums_in_table_then_ring_order(self, weighted):
+        """Above 2^24 the order matters.  Unweighted: each epoch's sum is
+        exact, converted once, weighted, then accumulated in ring-index
+        order and × float32(1/L).  Weighted: each epoch adds tw_j·g_j in
+        table order j = 0..L−1 (a float sum), then ring-index order."""
         counts = np.zeros((2, 3, 16), np.int32)
         counts[0, 0], counts[0, 1:] = 1 << 24, 1
         counts[1] = 3
         ids = np.zeros((4, 3), np.int32)
         w = np.array([1.0, 0.5], np.float32)
-        got = WC.ace_window_combine(_t(counts), _t(ids), _t(w))
-        s0 = np.float32(1 << 24)
-        for _ in range(2):
-            s0 = np.float32(s0 + np.float32(1))
+        tw = np.ones(3, np.float32) if weighted else None
+        got = WC.ace_window_combine(_t(counts), _t(ids), _t(w),
+                                    None if tw is None else _t(tw))
+        if weighted:
+            s0 = np.float32(1 << 24)
+            for j in (1, 2):                 # + 1 twice: each rounds off
+                s0 = np.float32(s0 + np.float32(1) * tw[j])
+            s1 = np.float32(0)
+            for j in range(3):
+                s1 = np.float32(s1 + np.float32(3) * tw[j])
+            assert s0 == np.float32(1 << 24)
+        else:
+            s0 = np.float32((1 << 24) + 2)   # exact: 2^24 + 1 + 1
+            s1 = np.float32(9)
         acc = np.float32(np.float32(0) + w[0] * s0)
-        acc = np.float32(acc + w[1] * np.float32(9))
-        np.testing.assert_array_equal(
-            got.numpy(), np.full(4, acc * np.float32(1.0 / 3), np.float32))
+        acc = np.float32(acc + w[1] * s1)
+        if not weighted:
+            acc = np.float32(acc * np.float32(1.0 / 3))
+        np.testing.assert_array_equal(got.numpy(), np.full(4, acc))
 
     def test_empty_batch(self):
         got = WC.ace_window_combine(torch.zeros((2, 3, 8), dtype=torch.int32),
@@ -723,6 +737,10 @@ class TestWrapperContract:
             A.ace_admit_fused(counts, x, w, torch.zeros(2), cfg)
 
 
+DENSE_HASH_SOURCES = ("srp_hash", "ace_admit_fused", "ace_score_fused",
+                      "ace_fleet_score", "ace_fleet_window_admit")
+
+
 class TestBuild:
     def test_nvcc_command_targets_hopper(self):
         cmd = build.nvcc_command("nvcc", "srp_hash", build.BUILD_DIR / "x.so")
@@ -741,8 +759,8 @@ class TestBuild:
         shutil.copytree(build.CSRC, csrc)
         monkeypatch.setattr(build, "CSRC", csrc)
         before = build.library_path("srp_hash")
-        (csrc / "srp_tile.cuh").write_text(
-            (csrc / "srp_tile.cuh").read_text() + "\n// edit\n")
+        (csrc / "common.cuh").write_text(
+            (csrc / "common.cuh").read_text() + "\n// edit\n")
         assert build.library_path("srp_hash") != before
 
     def test_cache_key_follows_the_dense_hash_header(self, tmp_path,
@@ -750,11 +768,19 @@ class TestBuild:
         csrc = tmp_path / "csrc"
         shutil.copytree(build.CSRC, csrc)
         monkeypatch.setattr(build, "CSRC", csrc)
-        before = {n: build.library_path(n)
-                  for n in ("srp_hash", "ace_admit_fused")}
+        before = {n: build.library_path(n) for n in DENSE_HASH_SOURCES}
         (csrc / "srp_gemm.cuh").write_text(
             (csrc / "srp_gemm.cuh").read_text() + "\n// edit\n")
         assert all(build.library_path(n) != p for n, p in before.items())
+
+    def test_every_dense_hash_kernel_is_on_srp_gemm(self):
+        """One dense hash: the five kernels that hash include
+        ``srp_gemm.cuh``, and the only headers are it and ``common.cuh``."""
+        assert sorted(p.name for p in build.CSRC.glob("*.cuh")) == [
+            "common.cuh", "srp_gemm.cuh"]
+        for name in DENSE_HASH_SOURCES:
+            assert '#include "srp_gemm.cuh"' in (
+                build.CSRC / f"{name}.cu").read_text()
 
     def test_missing_nvcc_raises(self, tmp_path, monkeypatch):
         import torch.utils.cpp_extension as cpp_ext
