@@ -125,14 +125,32 @@ non-zero without printing its result line):
              ``ops.ace_window_score`` and ``ops.ace_fleet_score``
              (``time_public_paths``, which ``kernel_ab.py`` also runs);
              and both hash kernels at the corners of hash_mode="auto"
-             (d = 64 and 4096), checked against the rule's picks.
+             (d = 64 and 4096), checked against the rule's picks;
+9. quantile — ``threshold_mode="quantile"``: the four ``Guardrail``
+             flavours at phase 6's width and traffic with q = 0.01, one
+             D2H an admit, then run in lockstep with the plain path from
+             the same state before every admit (ids >= 0.999, verdicts
+             equal on every row whose ids agree, each histogram row's
+             total equal to the finite rows observed past the half-warmup
+             gate), admit p50 in turns with mu-sigma's and one admit traced
+             beside phases 4 and 6; ``benchmarks/quantile_bench.py``'s
+             calibration scenario at its full shape (B = 384, d = 64,
+             three tenants of different tails, 220 steps, a burst from
+             step 200; its stream copied here in numpy) through
+             ``FleetDataFilter`` + ``StreamRunner`` in both modes, held to
+             that benchmark's gates (quantile FPR in [q/2, 2q] for every
+             tenant, mu-sigma under- and over-flagging, burst recall
+             >= 0.8); phase 5's fleet stream in quantile mode (one
+             transfer each way a chunk, no sync inside ``consume``),
+             items/s in turns with mu-sigma's.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 (the post-mortem query a path of its
-own) and read just after, every kernel of a path must have been launched
-in it, and no path may launch the (B, L) ``ace_query`` gather (every
+before each path of phases 3 to 7 and 9 (the post-mortem query a path
+of its own) and read just after, every kernel of a path must have been
+launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
-The admits and ``consume`` calls traced in phases 4-7 are traced twice:
+The admits and ``consume`` calls traced in phases 4-7 and 9 are traced
+twice:
 as they run, and with the (B, L) gather + PyTorch reductions in place of
 ``ace_query_sum``, the device ops before and after it.  The last lines
 are the card's ``nvidia-smi`` name and power limit, one JSON line of
@@ -146,6 +164,7 @@ Data and weights are made from SEED.  Nothing here imports JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import statistics
 import subprocess
@@ -1640,6 +1659,366 @@ def find_hh_both_ways(kind, runner, state, w, chunk, tids, drift,
 
 
 # ---------------------------------------------------------------------------
+# Phase 9: quantile-calibrated admission (threshold_mode="quantile").
+# ---------------------------------------------------------------------------
+
+QUANT_Q = 0.01                       # the quantile guardrails' flag rate
+QUANT_KINDS = {"flat": {}, **GUARD_KINDS}
+# benchmarks/quantile_bench.py's full-size calibration scenario
+CAL_TENANTS = ("light", "bimodal", "pareto")
+CAL_BIMODAL_FRAC = 0.08
+CAL_SHAPE = dict(steps=220, batch=384, dim=64, T=3)
+CAL_STREAM = dict(burst_from=200, burst_frac=0.3, drift=0.1,
+                  noise_scale=0.55, seed=0)
+CAL_CHUNK_T, CAL_ARM, CAL_Q = 10, 20, 0.02
+CAL_FILTER = dict(num_bits=10, num_tables=32, alpha=3.0,
+                  warmup_items=1024.0, insert_all=True)
+
+
+def cal_noise(rng, kind: str, rows: int, dim: int, scale: float):
+    """Per-tenant angular noise: one scale, three tails (numpy copy of
+    ``benchmarks/quantile_bench.py``'s ``_noise``)."""
+    if kind == "light":       # bounded support: zero mass beyond √3·σ
+        return rng.uniform(-1.0, 1.0, (rows, dim)) * (scale * np.sqrt(3.0))
+    g = rng.normal(size=(rows, dim))
+    if kind == "bimodal":     # majority mode: plain Gaussian
+        return g * scale
+    mult = rng.pareto(2.0, (rows, 1)) + 0.1   # infinite-variance tail
+    return g * mult * scale
+
+
+def calibration_stream(steps: int, batch: int, dim: int, T: int, *,
+                       burst_from: int, burst_frac: float, drift: float,
+                       noise_scale: float, seed: int):
+    """The mixed-tenant heavy-tailed drift stream of
+    ``benchmarks/quantile_bench.py`` (``_make_stream``), in numpy, draw for
+    draw: a list of (x (B, dim) f32, tids (B,) i32, y (B,) i8) steps.
+    Tenant t's inliers sit on a cone drifting from block t to block t + 1;
+    the bimodal tenant has a benign 8% minority cone; from ``burst_from``
+    on, ``burst_frac`` of each tenant's rows are scattered anomalies."""
+    rng = np.random.default_rng(seed)
+    per = batch // T
+    blocks = T + 1
+    span = dim // blocks
+    mus = []
+    for t in range(T):
+        a = np.zeros(dim)
+        a[t * span:(t + 1) * span] = 5.0
+        b = np.zeros(dim)
+        b[(t + 1) * span:(t + 2) * span] = 5.0
+        mus.append((a, b))
+    out = []
+    for s in range(steps):
+        frac = drift * s / max(steps - 1, 1)
+        xs, ts, ys = [], [], []
+        for t in range(T):
+            a, b = mus[t]
+            mu = (1.0 - frac) * a + frac * b
+            x = np.abs(mu + cal_noise(rng, CAL_TENANTS[t], per, dim,
+                                      noise_scale))
+            if CAL_TENANTS[t] == "bimodal":
+                alt = np.zeros(dim)
+                alt[t * span:t * span + span // 2] = 7.0
+                rows = rng.uniform(size=per) < CAL_BIMODAL_FRAC
+                k = int(rows.sum())
+                x[rows] = np.abs(alt + rng.normal(size=(k, dim)) * 0.3)
+            y = np.zeros(per, np.int8)
+            if s >= burst_from and burst_frac > 0:
+                k = max(1, int(round(per * burst_frac)))
+                rows = rng.choice(per, size=k, replace=False)
+                x[rows] = rng.normal(size=(k, dim)) * 3.0
+                y[rows] = 1
+            xs.append(x)
+            ts.append(np.full(per, t, np.int32))
+            ys.append(y)
+        order = rng.permutation(batch)
+        out.append((np.concatenate(xs)[order].astype(np.float32),
+                    np.concatenate(ts)[order],
+                    np.concatenate(ys)[order]))
+    return out
+
+
+def clone_state(state):
+    return type(state)(*(None if x is None else x.clone() for x in state))
+
+
+def phase_quantile_guardrail(mods, device, kind, d_model=D_MODEL,
+                             admits=SHIFT_ADMITS, b=ADMIT_B,
+                             s=ADMIT_S) -> dict:
+    """One ``Guardrail`` flavour with ``threshold_mode="quantile"`` on
+    phase 6's shifting traffic: the timed run (launches, one D2H an
+    admit), then a lockstep run against the plain path from the same
+    state before every admit (ids, verdicts where a row's ids agree, the
+    histograms' totals against the finite rows past the half-warmup
+    gate)."""
+    import repro_torch.serve.engine as engine
+    from repro_torch.core.srp import hash_buckets
+    from repro_torch.data.pipeline import mean_embed_features
+    from repro_torch.window import ring
+    gcfg = engine.GuardrailConfig(d_model=d_model, num_bits=K_BITS,
+                                  num_tables=L_TABLES,
+                                  threshold_mode="quantile",
+                                  quantile_q=QUANT_Q, **QUANT_KINDS[kind])
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    windowed = gcfg.window_epochs > 1
+
+    def batches():
+        return shift_batches(device, d_model, admits, b, s, SHIFT_AT, T)
+    d2h = []
+    real_to_host = engine._to_host
+
+    def to_host(x):
+        d2h.append(tuple(x.shape))
+        return real_to_host(x)
+    engine._to_host = to_host
+    try:
+        reset_launches(mods)
+        g = engine.Guardrail(gcfg, use_kernels=True, device=device)
+        masks, lat = [], []
+        for e, t in batches():
+            t0 = time.perf_counter()
+            masks.append(g.admit(e, t))          # ends in the one transfer
+            lat.append(time.perf_counter() - t0)
+        launches = read_launches(mods)
+    finally:
+        engine._to_host = real_to_host
+    p50 = 1e3 * statistics.median(lat)
+    print(f"  quantile guardrail ({kind}): {admits} admits of {b} x {s} x "
+          f"{d_model}, K={K_BITS}, L={L_TABLES}, q={QUANT_Q}; admit p50 "
+          f"{p50:.3f} ms (host clock, ends in the mask transfer); launches "
+          f"{launches}")
+    check(d2h == [(2, b)] * admits, f"one D2H an admit ({len(d2h)} for "
+          f"{admits} admits, each the (2, {b}) verdict block)")
+    m = np.stack(masks)
+    nan_rows = np.zeros_like(m)
+    nan_rows[np.arange(admits), np.arange(admits) % b] = True
+    pre = slice(SHIFT_AT - 4, SHIFT_AT)
+    flagged_pre = 1.0 - float(m[pre][~nan_rows[pre]].mean())
+    flagged_new = 1.0 - float(m[SHIFT_AT:SHIFT_AT + 4]
+                              [~nan_rows[SHIFT_AT:SHIFT_AT + 4]].mean())
+    flagged_last = 1.0 - float(m[-4:][~nan_rows[-4:]].mean())
+    print(f"  flagged: 4 admits before the shift {flagged_pre:.4f} (q = "
+          f"{QUANT_Q}), first 4 after it {flagged_new:.4f}, last 4 "
+          f"{flagged_last:.4f}")
+    check(flagged_new > flagged_pre, "the new regime is flagged more than "
+          "the armed guardrail's own traffic")
+
+    # lockstep: both paths from the kernel path's state before each admit
+    gk = engine.Guardrail(gcfg, use_kernels=True, device=device, w=g.w)
+    gp = engine.Guardrail(gcfg, use_kernels=False, device=device, w=g.w)
+    cfg, gate = gk.ace_cfg, 0.5 * gcfg.warmup_items
+    lead = tuple(gk.state.qhist.shape[:-1])
+    expect = np.zeros(lead, np.float64)
+    ids_same = ids_total = rows_same = verdicts_differ = 0
+    for e, t in batches():
+        st = gk.state
+        gp.state = clone_state(st)
+        feat = mean_embed_features(e, gcfg.bias_const)
+        finite = torch.all(torch.isfinite(feat), dim=-1)
+        feat = torch.where(finite[:, None], feat, 0.0)
+        ids_k = mods["srp_hash"].srp_hash(feat, gk.w, cfg.srp)
+        ids_p = hash_buckets(feat, gk.w, cfg.srp)
+        ids_same += int((ids_k == ids_p).sum())
+        ids_total += ids_k.numel()
+        agree = torch.all(ids_k == ids_p, dim=1).cpu().numpy()
+        n_gate = (ring.combined_n(st, gcfg.window_decay) if windowed
+                  else st.n).cpu().numpy()
+        cur = st.cursor.cpu().numpy() if windowed else None
+        obs = finite.cpu().numpy() & (
+            (n_gate if T is None else n_gate[t]) >= gate)
+        mk, mp = gk.admit(e, t), gp.admit(e, t)
+        rows_same += int(agree.sum())
+        verdicts_differ += int((mk != mp)[agree].sum())
+        if T is None and not windowed:
+            expect += obs.sum()
+        elif T is None:
+            expect[cur] += obs.sum()
+        elif not windowed:
+            np.add.at(expect, t, obs)
+        else:
+            np.add.at(expect, (t, cur[t]), obs)
+        if windowed:                 # a rotation retires the row it enters
+            new = gk.state.cursor.cpu().numpy()
+            moved = np.nonzero(np.atleast_1d(new != cur))[0]
+            if T is None and moved.size:
+                expect[new] = 0.0
+            elif T is not None:
+                expect[moved, new[moved]] = 0.0
+    share = ids_same / ids_total
+    check(share >= 0.999, f"kernel path ids equal the plain path's "
+          f"({share:.6f} >= 0.999)")
+    check(verdicts_differ == 0, f"verdicts equal the plain path's on every "
+          f"row whose ids agree ({rows_same} of {admits * b} rows, from "
+          "the same state before each admit)")
+    for name, gg in (("kernel", gk), ("plain", gp)):
+        got = gg.state.qhist.sum(dim=-1).double().cpu().numpy()
+        check(np.array_equal(got, expect), f"{name} path: every histogram "
+              f"row's total equals the finite rows observed past the "
+              f"half-warmup gate ({int(expect.sum())} in all)")
+    path = {"flat": ("ace_admit_fused", "ace_query"),
+            "fleet_window": ("ace_fleet_window_admit", "ace_query")}.get(
+                kind, ("srp_hash", "ace_query", "ace_update"))
+    for k in path:
+        check(launches[k] > 0, f"quantile guardrail ({kind}) path "
+              f"launched {k}")
+
+    # both rules' admits in turns on the same batches (which goes first
+    # alternates), so their p50s share the host's state of the moment
+    arms = {mode: engine.Guardrail(dataclasses.replace(
+        gcfg, threshold_mode=mode), device=device, w=g.w)
+        for mode in ("quantile", "mu_sigma")}
+    lat = {mode: [] for mode in arms}
+    for i, (e, t) in enumerate(batches()):
+        for mode in (list(arms) if i % 2 else list(arms)[::-1]):
+            t0 = time.perf_counter()
+            arms[mode].admit(e, t)
+            lat[mode].append(time.perf_counter() - t0)
+    turns = {mode: 1e3 * statistics.median(v) for mode, v in lat.items()}
+    print(f"  in turns, admit by admit: quantile p50 "
+          f"{turns['quantile']:.3f} ms, mu-sigma {turns['mu_sigma']:.3f} ms "
+          f"(ratio {turns['quantile'] / turns['mu_sigma']:.3f}; host "
+          "clock)")
+    e, t = next(batches())
+    return {"launches": launches, "p50_ms": p50, "guardrail": g,
+            "p50_turns_ms": turns,
+            "breakdown": admit_breakdown(g, e, t, device)}
+
+
+def calibration_fpr(flags, tids, y, T):
+    """Per-tenant false-positive rates over the armed pre-burst band and
+    the burst recall of (steps, B) flags."""
+    band = slice(CAL_ARM, CAL_STREAM["burst_from"])
+    out = {}
+    for t in range(T):
+        sel = (tids[band] == t) & ~y[band]
+        out[f"fpr_{CAL_TENANTS[t]}"] = float(flags[band][sel].mean())
+    burst = slice(CAL_STREAM["burst_from"], None)
+    out["recall_burst"] = float(flags[burst][y[burst]].mean())
+    return out
+
+
+def phase_calibration(mods, device) -> dict:
+    """``benchmarks/quantile_bench.py``'s calibration scenario at its full
+    shape through ``FleetDataFilter`` + ``StreamRunner`` in both modes,
+    held to that benchmark's gates."""
+    from repro_torch.fleet.filter import FleetDataFilter
+    from repro_torch.stream.runner import StreamRunner
+    steps, B, dim, T = (CAL_SHAPE[k] for k in ("steps", "batch", "dim",
+                                                "T"))
+    stream = calibration_stream(**CAL_SHAPE, **CAL_STREAM)
+    raw = torch.as_tensor(np.stack([x for x, _, _ in stream]), device=device)
+    tids = np.stack([x[1] for x in stream])
+    y = np.stack([x[2] for x in stream]).astype(bool)
+    dev_tids = torch.as_tensor(tids, device=device)
+    q = CAL_Q
+    out, launches = {}, None
+    for mode in ("mu_sigma", "quantile"):
+        filt = FleetDataFilter(d_model=dim, num_tenants=T, **CAL_FILTER,
+                               threshold_mode=mode, quantile_q=q,
+                               device=device)
+        runner = StreamRunner(filt, chunk_T=CAL_CHUNK_T, return_masks=True)
+        state, w = runner.init()
+        feats = filt.features(raw.reshape(-1, 1, dim)).reshape(
+            steps, B, dim + 1)
+        if mode == "quantile":
+            reset_launches(mods)
+        keeps = []
+        t0 = time.perf_counter()
+        for c in range(steps // CAL_CHUNK_T):
+            sl = slice(c * CAL_CHUNK_T, (c + 1) * CAL_CHUNK_T)
+            state, _, k = runner.consume(state, w, feats[sl], dev_tids[sl])
+            keeps.append(k)
+        flags = ~torch.cat(keeps).cpu().numpy()
+        secs = time.perf_counter() - t0
+        if mode == "quantile":
+            launches = read_launches(mods)
+        out[mode] = calibration_fpr(flags, tids, y, T)
+        print(f"  calibration ({mode}): {steps} steps of {B} x {dim + 1}, "
+              f"T={T}, K={CAL_FILTER['num_bits']}, L="
+              f"{CAL_FILTER['num_tables']}, alpha={CAL_FILTER['alpha']}, "
+              f"q={q}; per-tenant FPR over steps {CAL_ARM}-"
+              f"{CAL_STREAM['burst_from']}: "
+              + ", ".join(f"{n} {out[mode][f'fpr_{n}']:.4f}"
+                          for n in CAL_TENANTS)
+              + f"; burst recall {out[mode]['recall_burst']:.4f} "
+              f"({secs:.3f} s, host clock)")
+    qt, mu = out["quantile"], out["mu_sigma"]
+    for n in CAL_TENANTS:
+        check(q / 2 <= qt[f"fpr_{n}"] <= 2 * q, f"quantile mode holds the "
+              f"{n} tenant's FPR {qt[f'fpr_{n}']:.4f} inside [q/2, 2q]")
+    check(mu["fpr_light"] < q / 2, f"mu-sigma under-flags the light tenant "
+          f"({mu['fpr_light']:.4f} < q/2)")
+    check(mu["fpr_bimodal"] > 2 * q, f"mu-sigma over-flags the bimodal "
+          f"tenant ({mu['fpr_bimodal']:.4f} > 2q)")
+    check(qt["recall_burst"] >= 0.8, f"quantile burst recall "
+          f"{qt['recall_burst']:.4f} >= 0.8")
+    for k in ("srp_hash", "ace_query", "ace_update"):
+        check(launches[k] > 0, f"calibration (quantile) path launched {k}")
+    return {"launches": launches, **{f"{m}_{k}": v for m, r in out.items()
+                                     for k, v in r.items()}}
+
+
+def phase_quantile_stream(mods, device, d_model=D_MODEL,
+                          chunks=STREAM_CHUNKS, T=STREAM_T,
+                          B=STREAM_B) -> dict:
+    """Phase 5's fleet stream with ``threshold_mode="quantile"``: one
+    transfer each way a chunk and no sync inside ``consume``, then
+    items/s beside the mu-sigma fleet's, the two runners taking the
+    chunks in turns."""
+    import repro_torch.stream.runner as runner_mod
+    feats, _ = stream_features(device, d_model, chunks, T, B)
+    tids = np.random.default_rng(SEED + 9).integers(
+        0, FLEET_T, size=(chunks * T, B)).astype(np.int32)
+    filt = stream_filter("fleet", device, d_model,
+                         threshold_mode="quantile", quantile_q=QUANT_Q)
+    runner = runner_mod.StreamRunner(filt, chunk_T=T)
+    state, w, sums, secs, launches, transfers = instrumented_run(
+        mods, runner, device, feats, tids, T)
+    print(f"  stream path (fleet, quantile): {chunks} chunks of {T} x {B} x "
+          f"{d_model + 1}; {chunks * T * B / secs:,.0f} items/s "
+          f"({secs:.3f} s, host clock); launches {launches}")
+    check(transfers == {"h2d": chunks, "d2h": chunks},
+          f"one H2D and one D2H per chunk ({transfers}), no host sync "
+          "inside consume (sync debug mode 'error')")
+    check(all(int(x.quarantined) == T for x in sums),
+          "quarantined == 1 per step in every chunk")
+    total = float(state.qhist.sum())
+    check(0 < total <= chunks * T * (B - 1) and total == int(total),
+          f"the histograms hold {int(total)} observations, whole, at most "
+          "the finite rows")
+    for k in ("srp_hash", "ace_query", "ace_update"):
+        check(launches[k] > 0, f"stream path (fleet, quantile) launched {k}")
+
+    # items/s of both modes, the runners taking the chunks in turns
+    arms = {}
+    for mode in ("mu_sigma", "quantile"):
+        f = stream_filter("fleet", device, d_model, threshold_mode=mode,
+                          quantile_q=QUANT_Q)
+        r = runner_mod.StreamRunner(f, chunk_T=T)
+        st, ww = r.init()
+        r.run(st, ww, iter(feats[:T]), iter(tids[:T]))     # warm, thrown away
+        arms[mode] = [r, *r.init(), 0.0]
+    sync(device)
+    for c in range(chunks):
+        sl = slice(c * T, (c + 1) * T)
+        for arm in arms.values():
+            r, st, ww, _ = arm
+            t0 = time.perf_counter()
+            arm[1], _ = r.run(st, ww, iter(feats[sl]), iter(tids[sl]))
+            arm[3] += time.perf_counter() - t0
+    rate = {m: chunks * T * B / a[3] for m, a in arms.items()}
+    print(f"  in turns, chunk by chunk: quantile {rate['quantile']:,.0f} "
+          f"items/s, mu-sigma {rate['mu_sigma']:,.0f} items/s (ratio "
+          f"{rate['quantile'] / rate['mu_sigma']:.3f}; host clock)")
+    breakdown = stream_breakdown(runner, state, w, feats[:T], device,
+                                 torch.as_tensor(tids[:T], device=device))
+    return {"launches": launches, "items_per_s": rate["quantile"],
+            "mu_sigma_items_per_s": rate["mu_sigma"],
+            "run_items_per_s": chunks * T * B / secs,
+            "breakdown": breakdown}
+
+
+# ---------------------------------------------------------------------------
 # Phase 8: timing on the card.
 # ---------------------------------------------------------------------------
 
@@ -2443,6 +2822,24 @@ def main() -> int:
                  **time_public_paths(device)}.items():
         print(f"  {k}: " + "; ".join(f"{r['shape']} {r['ms']:.5f} ms"
                                      for r in v["by_shape"]))
+    print("phase 9: quantile admission (threshold_mode='quantile'): four "
+          "Guardrail flavours, the calibration scenario, the fleet stream")
+    for kind in QUANT_KINDS:
+        paths[f"quantile_{kind}"] = phase_quantile_guardrail(mods, device,
+                                                             kind)
+        mu = paths["guardrail" if kind == "flat" else f"guardrail_{kind}"]
+        qb, mb = paths[f"quantile_{kind}"]["breakdown"], mu["breakdown"]
+        print(f"  admit ({kind}): quantile p50 "
+              f"{paths[f'quantile_{kind}']['p50_ms']:.3f} ms, "
+              f"{qb['device_ops']} device ops; mu-sigma (phase "
+              f"{4 if kind == 'flat' else 6}) p50 {mu['p50_ms']:.3f} ms, "
+              f"{mb['device_ops']} device ops")
+    paths["quantile_calibration"] = phase_calibration(mods, device)
+    paths["quantile_stream"] = phase_quantile_stream(mods, device)
+    print(f"  consume (fleet): quantile "
+          f"{paths['quantile_stream']['breakdown']['device_ops']} device "
+          f"ops, mu-sigma (phase 5) "
+          f"{paths['stream_fleet']['breakdown']['device_ops']}")
 
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
@@ -2479,7 +2876,12 @@ def main() -> int:
                       f"{k}" for k in ("dense", "srht", "window", "fleet"))
           + "; with attribution "
           + ", ".join(f"{paths[f'attribution_{k}']['items_per_s']:,.0f} "
-                      f"items/s {k}" for k in ATTR_KINDS))
+                      f"items/s {k}" for k in ATTR_KINDS)
+          + "; quantile admit p50 "
+          + ", ".join(f"{paths[f'quantile_{k}']['p50_ms']:.3f} ms {k}"
+                      for k in QUANT_KINDS)
+          + "; quantile fleet stream "
+          f"{paths['quantile_stream']['items_per_s']:,.0f} items/s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

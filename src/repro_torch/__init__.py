@@ -4,7 +4,7 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of the JAX package ``repro``, module for module under the same
 names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``kernels.ops``, ``data.pipeline``, ``window``, ``fleet``,
-``attribution``, ``stream``, ``serve.engine``).  It imports
+``quantile``, ``attribution``, ``stream``, ``serve.engine``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -17,7 +17,10 @@ the dyadic ``find_hh``), the ``AceDataFilter``, ``WindowedAceFilter`` and
 ``FleetDataFilter`` with their chunked ``StreamRunner`` (its summaries
 name each chunk's heavy-hitter coordinates and, for a fleet, tenants),
 and the ``Guardrail`` in its flat, windowed, fleet and windowed-fleet
-flavours; its ten kernels, one for each TPU kernel of the reference, are
+flavours.  Every filter and ``Guardrail`` takes either admission rule:
+μ−ασ, or ``threshold_mode="quantile"`` (``quantile``: per-tenant,
+per-epoch rate histograms read as an inverse CDF, on the same kernels).
+Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,
 ``ace_fleet_score``, ``ace_fleet_window_admit`` and ``attr_estimate``
@@ -33,7 +36,6 @@ import torch
 
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    7: "repro.quantile",
     9: "repro.core.quantize (int8/int16 planes plus the escalation table)",
     10: "repro.resilience",
     13: "repro.dist",

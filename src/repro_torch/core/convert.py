@@ -5,7 +5,8 @@ nor ``repro``: the caller turns JAX arrays into numpy (``np.asarray``)
 before calling, and back (``jnp.asarray``) after.  The layouts are the
 same in both packages — W is (d, P) with P = round_up(K·L, 128), or the
 (d, 0) placeholder under the SRHT family, counts are (L, 2^K),
-attribution planes (…, 2, NL, R, C) — so nothing is reshaped.  The SRHT's
+quantile histograms (…, NUM_BINS), attribution planes (…, 2, NL, R, C) —
+so nothing is reshaped.  The SRHT's
 sign diagonals and row sample need no carrying: both packages draw them
 from ``cfg.seed`` with numpy.  The attribution hash tables, which the port
 draws with torch as it draws W, carry across with
@@ -26,9 +27,10 @@ def params_from_numpy(w, device) -> torch.Tensor:
 
 
 def state_from_numpy(counts, n, welford_mean, welford_m2, device,
-                     attr=None) -> AceState:
+                     attr=None, qhist=None) -> AceState:
     """An ``AceState`` on ``device`` from the reference state's leaves
-    (``attr``, the (2, NL, R, C) attribution planes, when it has them)."""
+    (``attr``, the (2, NL, R, C) attribution planes, and ``qhist``, the
+    (NUM_BINS,) rate histogram, when it has them)."""
     def scalar(v):
         return torch.tensor(float(np.asarray(v, np.float32)),
                             dtype=torch.float32, device=device)
@@ -36,6 +38,8 @@ def state_from_numpy(counts, n, welford_mean, welford_m2, device,
         counts=torch.as_tensor(np.array(counts), device=device),
         n=scalar(n), welford_mean=scalar(welford_mean),
         welford_m2=scalar(welford_m2),
+        qhist=None if qhist is None
+        else torch.as_tensor(np.array(qhist, np.float32), device=device),
         attr=None if attr is None
         else torch.as_tensor(np.array(attr, np.float32), device=device))
 

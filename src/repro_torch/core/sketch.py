@@ -13,11 +13,14 @@ Every function here is plain PyTorch and functional: it returns new
 tensors and leaves its inputs as they were.  The kernel path
 (``repro_torch.kernels.ops``) updates counts in place instead.
 
-The ``esc``/``qhist`` leaves of ``AceState`` stay ``None``: the quantized
-planes and quantile histograms belong to later slices (ROADMAP.md queue
-1).  ``attr`` is the (2, NL, R, C) attribution plane when
-``AceConfig.attr_rows > 0`` (``repro_torch.attribution``); every function
-here that rebuilds a state carries it unchanged, and ``merge`` adds it.
+The ``esc`` leaf of ``AceState`` stays ``None``: the quantized planes
+belong to a later slice (ROADMAP.md queue 1 item 9).  ``qhist`` is the
+(NUM_BINS,) rate histogram of ``threshold_mode="quantile"``
+(``repro_torch.quantile.sketch``; its callers observe into it) and
+``attr`` the (2, NL, R, C) attribution plane when
+``AceConfig.attr_rows > 0`` (``repro_torch.attribution``): every function
+here that rebuilds a state carries both unchanged, and ``merge`` adds
+them.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.core.srp import SrpConfig, hash_buckets, make_projections
+from repro_torch.quantile import sketch as qsk
 
 COUNT_DTYPES = {"int32": torch.int32, "float32": torch.float32}
 
@@ -39,7 +43,9 @@ class AceState(NamedTuple):
     n:      () float32 — number of items represented (exact up to 2^24).
     welford_mean / welford_m2: () float32 — streaming mean/M2 of the
             insert-time collision RATES score/n (the σ of the threshold).
-    esc, qhist: always None in this slice.
+    esc:    always None in this slice.
+    qhist:  (NUM_BINS,) float32 collision-rate histogram for
+            ``threshold_mode="quantile"``, or None.
     attr:   (2, NL, R, C) float32 signed count-sketch attribution planes
             (``repro_torch.attribution``) when ``attr_rows > 0``, else None.
     """
@@ -286,9 +292,12 @@ def delete_buckets(state: AceState, buckets: torch.Tensor,
 
 def merge(a: AceState, b: AceState) -> AceState:
     """Merge two sketches over disjoint data: counts add, the Welford
-    streams merge by Chan's parallel rule, attribution planes add (the
-    count-sketch is linear).  A state with planes and one without do not
-    merge."""
+    streams merge by Chan's parallel rule, quantile histograms and
+    attribution planes add (both are linear).  A state with a histogram
+    (planes) and one without do not merge."""
+    if (a.qhist is None) != (b.qhist is None):
+        raise ValueError("cannot merge a quantile-tracking sketch with a "
+                         "non-tracking one")
     if (a.attr is None) != (b.attr is None):
         raise ValueError("cannot merge an attribution-tracking sketch "
                          "with a non-tracking one")
@@ -300,6 +309,7 @@ def merge(a: AceState, b: AceState) -> AceState:
         n=tot,
         welford_mean=a.welford_mean + delta * b.n / safe,
         welford_m2=a.welford_m2 + b.welford_m2 + delta**2 * a.n * b.n / safe,
+        qhist=None if a.qhist is None else a.qhist + b.qhist,
         attr=None if a.attr is None else a.attr + b.attr)
 
 
@@ -375,15 +385,22 @@ def admit_threshold(state: AceState, alpha: float, warmup_items: float,
                     q: float = 0.01) -> torch.Tensor:
     """Score-space admission threshold: admit iff score >= threshold.
 
-    The μ−ασ rule in rate space, multiplied through by max(n, 1) so the
-    decision is one compare against ONE device scalar (what the fused
-    admit kernel reads through a pointer).  −inf during warmup
-    (n < warmup_items).  Device ops only: no host sync.  ``table_mask``
-    takes μ over the same healthy tables the masked scores average over
-    (the Welford σ is a scalar over batch means and needs no mask).
+    ``"mu_sigma"``: the μ−ασ rule in rate space, multiplied through by
+    max(n, 1) so the decision is one compare against ONE device scalar
+    (what the fused admit kernel reads through a pointer).
+    ``"quantile"``: the q-quantile of the rate histogram ``state.qhist``
+    times the same max(n, 1) (``quantile.sketch.quantile_threshold``).
+    −inf during warmup (n < warmup_items).  Device ops only: no host
+    sync.  ``table_mask`` takes μ over the same healthy tables the masked
+    scores average over (the Welford σ and the histogram are over table
+    means and need no mask).
     """
     if threshold_mode == "quantile":
-        not_ported("threshold_mode='quantile'", 7)
+        if state.qhist is None:
+            raise ValueError("threshold_mode='quantile' needs a sketch "
+                             "with an attached qhist leaf "
+                             "(see repro_torch.quantile.sketch.init_hist)")
+        return qsk.quantile_threshold(state.qhist, state.n, q, warmup_items)
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
     t = (mean_rate(state, table_mask) - alpha * sigma_welford(state)) \

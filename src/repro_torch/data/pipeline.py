@@ -7,6 +7,8 @@ consumer.  Per-sequence feature = mean embedding plus a bias coordinate;
 items below μ − α·σ are flagged (and, in filter mode, never inserted);
 the sketch updates online with the items it keeps.  ``step`` is the body
 of ``repro_torch.stream.StreamRunner``'s chunk loop.
+``threshold_mode="quantile"`` flags the worst ``quantile_q`` of the stream
+instead of μ − α·σ (``repro_torch.quantile.sketch``).
 
 ``DataStream``/``synth_batch`` and the training loop that consumes the
 filter belong to later slices (ROADMAP.md queue 1 item 12).
@@ -17,13 +19,14 @@ import dataclasses
 
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.attribution import sketch as at
 from repro_torch.core import sketch as sk
 from repro_torch.core import srht
 from repro_torch.core import srp
 from repro_torch.core.sketch import AceConfig
 from repro_torch.kernels import ops as kops
+from repro_torch.quantile import sketch as qsk
 
 
 def mean_embed_features(embeds: torch.Tensor,
@@ -43,8 +46,8 @@ def mean_embed_features(embeds: torch.Tensor,
 
 @dataclasses.dataclass(frozen=True)
 class AceDataFilter:
-    """The flat, single-tenant, ``mu_sigma`` ACE filter with the
-    reference's defaults (``repro.data.pipeline.AceDataFilter``).
+    """The flat, single-tenant ACE filter with the reference's defaults
+    (``repro.data.pipeline.AceDataFilter``).
 
     ``insert_all=True`` is detector mode: items are still flagged
     (keep=False) but every finite item is inserted.  ``use_kernels=True``
@@ -54,6 +57,8 @@ class AceDataFilter:
     ``attr_rows > 0`` puts attribution planes on the state
     (``repro_torch.attribution``, ``attr_bits`` wide rows); the
     ``StreamRunner`` fills them and names each chunk's heavy hitters.
+    ``threshold_mode="quantile"`` thresholds at the ``quantile_q``
+    quantile of the stream's rate histogram (the state's ``qhist``).
     """
 
     d_model: int
@@ -66,7 +71,8 @@ class AceDataFilter:
     insert_all: bool = False
     count_dtype: str = "int32"
     esc_capacity: int = 0
-    threshold_mode: str = "mu_sigma"
+    threshold_mode: str = "mu_sigma"   # "mu_sigma" | "quantile"
+    quantile_q: float = 0.01    # target flag rate for quantile mode
     attr_rows: int = 0          # > 0: attribution planes ride the state
     attr_bits: int = 8          # log2 columns per attribution row
     use_kernels: bool = True
@@ -77,9 +83,7 @@ class AceDataFilter:
                                             repr=False)
 
     def __post_init__(self):
-        if self.threshold_mode == "quantile":
-            not_ported("threshold_mode='quantile'", 7)
-        if self.threshold_mode != "mu_sigma":
+        if self.threshold_mode not in ("mu_sigma", "quantile"):
             raise ValueError(f"unknown threshold_mode "
                              f"{self.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
@@ -106,14 +110,17 @@ class AceDataFilter:
                          attr_bits=self.attr_bits)
 
     def init(self):
-        """(state, w) on the filter's device.  Under the SRHT family the
-        sign diagonals and row sample are put there now, so no step
-        copies anything to the device."""
+        """(state, w) on the filter's device, with the rate histogram in
+        quantile mode.  Under the SRHT family the sign diagonals and row
+        sample are put there now (and the histogram's bin table in
+        quantile mode), so no step copies anything to the device."""
         cfg = self.ace_cfg
         if srp.resolve_hash_mode(cfg.srp) == "srht":
             srht.srht_params(cfg.srp).tensors(self.device)
-        return (sk.init(cfg, self.device),
-                sk.make_params(cfg, device=self.device))
+        state = sk.init(cfg, self.device)
+        if self.threshold_mode == "quantile":
+            state = state._replace(qhist=qsk.init_hist(device=self.device))
+        return state, sk.make_params(cfg, device=self.device)
 
     def features(self, embeds: torch.Tensor) -> torch.Tensor:
         """(B, S, D) embeddings -> (B, D+1) features."""
@@ -123,7 +130,9 @@ class AceDataFilter:
              table_mask: torch.Tensor | None = None):
         """One filter step over (B, D+1) features: hash ONCE, score from the
         same bucket ids against the PRE-insert counts, threshold on the
-        device, masked insert; no host sync.
+        device, masked insert; in quantile mode every finite item's
+        pre-insert rate (score over the pre-insert n) then goes into the
+        histogram, past the half-warmup gate; no host sync.
 
         Returns (new_state, keep (B,) bool, margin (B,) float32) where
         ``margin = score − threshold`` (+inf during warmup, when the
@@ -138,7 +147,9 @@ class AceDataFilter:
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
         thresh = sk.admit_threshold(state, self.alpha, self.warmup_items,
-                                    table_mask=table_mask)
+                                    table_mask=table_mask,
+                                    threshold_mode=self.threshold_mode,
+                                    q=self.quantile_q)
         if self.use_kernels:
             t_ins = (torch.full((), float("-inf"), device=thresh.device)
                      if self.insert_all else thresh)
@@ -152,6 +163,12 @@ class AceDataFilter:
             keep = (scores >= thresh) & finite
             new_state = sk.insert_buckets_masked(
                 state, buckets, finite if self.insert_all else keep, cfg)
+        if self.threshold_mode == "quantile":
+            rates = scores / torch.clamp_min(state.n, 1.0)
+            new_state = new_state._replace(qhist=qsk.observe_rates(
+                new_state.qhist, rates,
+                qsk.calib_mask(finite.to(torch.float32), state.n,
+                               self.warmup_items)))
         margin = torch.where(finite, scores - thresh, float("-inf"))
         return new_state, keep, margin
 

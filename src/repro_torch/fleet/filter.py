@@ -6,7 +6,9 @@ Same step protocol, same single hash per batch, but the state is a
 (B,): each item scores against its own tenant's tables and threshold
 (each tenant warms up, drifts and alarms on its own), and the masked
 insert scatters the whole mixed batch at once.  With ``num_tenants=1``
-(all-zero ids) the filter is bitwise ``AceDataFilter``.
+(all-zero ids) the filter is bitwise ``AceDataFilter``.  In quantile mode
+each tenant thresholds at the ``quantile_q`` quantile of its own rate
+histogram, a row of the fleet's (T, NUM_BINS) ``qhist``.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ import dataclasses
 
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.attribution import sketch as at
 from repro_torch.core import sketch as sk
 from repro_torch.core import srht
@@ -24,6 +26,7 @@ from repro_torch.data.pipeline import mean_embed_features
 from repro_torch.fleet import state as fl
 from repro_torch.fleet.state import FleetConfig, FleetState
 from repro_torch.kernels import ops as kops
+from repro_torch.quantile import sketch as qsk
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,7 +44,8 @@ class FleetDataFilter:
     hash_mode: str = "dense"
     insert_all: bool = False
     count_dtype: str = "int32"
-    threshold_mode: str = "mu_sigma"
+    threshold_mode: str = "mu_sigma"   # "mu_sigma" | "quantile"
+    quantile_q: float = 0.01    # target per-tenant flag rate
     attr_rows: int = 0          # > 0: attribution planes ride the state
     attr_bits: int = 8          # log2 columns per attribution row
     use_kernels: bool = True
@@ -52,9 +56,7 @@ class FleetDataFilter:
                                             repr=False)
 
     def __post_init__(self):
-        if self.threshold_mode == "quantile":
-            not_ported("threshold_mode='quantile'", 7)
-        if self.threshold_mode != "mu_sigma":
+        if self.threshold_mode not in ("mu_sigma", "quantile"):
             raise ValueError(f"unknown threshold_mode "
                              f"{self.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
@@ -85,11 +87,13 @@ class FleetDataFilter:
         return FleetConfig(ace=self.ace_cfg, num_tenants=self.num_tenants)
 
     def init(self):
-        """(fleet state, w) on the filter's device."""
+        """(fleet state, w) on the filter's device, with the (T, NUM_BINS)
+        histograms in quantile mode."""
         cfg = self.ace_cfg
         if srp.resolve_hash_mode(cfg.srp) == "srht":
             srht.srht_params(cfg.srp).tensors(self.device)
-        return (fl.init(self.fleet_cfg, self.device),
+        return (fl.init(self.fleet_cfg, self.device,
+                        quantile=self.threshold_mode == "quantile"),
                 sk.make_params(cfg, device=self.device))
 
     def features(self, embeds: torch.Tensor) -> torch.Tensor:
@@ -100,8 +104,11 @@ class FleetDataFilter:
              tenant_ids: torch.Tensor,
              table_mask: torch.Tensor | None = None,
              tenant_mask: torch.Tensor | None = None):
-        """Hash ONCE → tenant-routed score → per-tenant μ−ασ threshold →
-        one mixed-batch masked insert; no host sync.
+        """Hash ONCE → tenant-routed score → per-tenant threshold → one
+        mixed-batch masked insert; in quantile mode every finite item's
+        rate (over its tenant's pre-insert n) then goes into its tenant's
+        histogram, owned or not, past the half-warmup gate; no host
+        sync.
 
         ``tenant_ids`` (B,) int32 in [0, T) on the filter's device.
         Returns (new_state, keep (B,) bool, margin (B,) float32), with the
@@ -116,7 +123,9 @@ class FleetDataFilter:
         feat = torch.where(finite[:, None], feat, 0.0)
         tids = tenant_ids.long()
         thresh = fl.admit_thresholds(state, self.alpha, self.warmup_items,
-                                     table_mask=table_mask)[tids]
+                                     table_mask=table_mask,
+                                     threshold_mode=self.threshold_mode,
+                                     q=self.quantile_q)[tids]
         owned = None if tenant_mask is None else tenant_mask[tids] > 0
         if self.use_kernels:
             t_ins = torch.full_like(thresh, float("-inf")) \
@@ -138,6 +147,12 @@ class FleetDataFilter:
                 keep, ins = keep & owned, ins & owned
             new_state = fl.insert_masked(state, tenant_ids, buckets, ins,
                                          cfg)
+        if self.threshold_mode == "quantile":
+            n_t = state.n[tids]                             # pre-insert
+            new_state = new_state._replace(qhist=qsk.observe_rates_fleet(
+                new_state.qhist, scores / torch.clamp_min(n_t, 1.0),
+                tenant_ids, qsk.calib_mask(finite.to(torch.float32), n_t,
+                                           self.warmup_items)))
         margin = torch.where(finite, scores - thresh, float("-inf"))
         return new_state, keep, margin
 

@@ -5,6 +5,8 @@ port of ``repro.fleet.state``.
     n             (T,)          per-tenant item counts
     welford_mean  (T,)          per-tenant streaming rate means
     welford_m2    (T,)          per-tenant streaming rate M2s
+    qhist         (T, NUM_BINS) per-tenant rate histograms when
+                  ``threshold_mode="quantile"`` (``init(quantile=True)``)
     attr          (T, 2, NL, R, C)  per-tenant attribution planes when
                   ``attr_rows > 0`` (``repro_torch.attribution``)
 
@@ -36,10 +38,10 @@ from typing import NamedTuple, Optional, Sequence
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig, AceState
 from repro_torch.kernels.ace_update import gather_rows, table_rows
+from repro_torch.quantile import sketch as qsk
 
 _INT32_MAX = 2**31 - 1
 
@@ -79,7 +81,7 @@ class FleetState(NamedTuple):
     n: torch.Tensor             # (T,) float32
     welford_mean: torch.Tensor  # (T,) float32
     welford_m2: torch.Tensor    # (T,) float32
-    qhist: Optional[torch.Tensor] = None
+    qhist: Optional[torch.Tensor] = None  # (T, NUM_BINS) float32
     attr: Optional[torch.Tensor] = None   # (T, 2, NL, R, C) float32
 
     @property
@@ -108,8 +110,6 @@ class FleetConfig:
 
 
 def init(cfg: FleetConfig, device, quantile: bool = False) -> FleetState:
-    if quantile:
-        not_ported("threshold_mode='quantile'", 7)
     T, ace = cfg.num_tenants, cfg.ace
     zeros = torch.zeros((T,), dtype=torch.float32, device=device)
     acfg = ace.attr
@@ -117,6 +117,7 @@ def init(cfg: FleetConfig, device, quantile: bool = False) -> FleetState:
         counts=torch.zeros((T, ace.num_tables, ace.num_buckets),
                            dtype=ace.torch_dtype, device=device),
         n=zeros, welford_mean=zeros.clone(), welford_m2=zeros.clone(),
+        qhist=qsk.init_hist(T, device=device) if quantile else None,
         attr=None if acfg is None else torch.zeros(
             (T,) + acfg.plane_shape(), dtype=torch.float32, device=device))
 
@@ -126,15 +127,18 @@ def tenant_view(state: FleetState, t: int) -> AceState:
     return AceState(counts=state.counts[t], n=state.n[t],
                     welford_mean=state.welford_mean[t],
                     welford_m2=state.welford_m2[t],
+                    qhist=None if state.qhist is None else state.qhist[t],
                     attr=None if state.attr is None else state.attr[t])
 
 
 def set_tenant(state: FleetState, t: int, ace: AceState) -> FleetState:
     """A copy of the fleet with tenant t's sketch replaced by ``ace`` (its
-    attribution planes too, when both carry them)."""
+    rate histogram and attribution planes too, when both carry them)."""
     names = ["counts", "n", "welford_mean", "welford_m2"]
-    if state.attr is not None and ace.attr is not None:
-        names.append("attr")
+    for name in ("qhist", "attr"):
+        if getattr(state, name) is not None \
+                and getattr(ace, name) is not None:
+            names.append(name)
     out = {}
     for name in names:
         leaf = getattr(state, name).clone()
@@ -145,11 +149,14 @@ def set_tenant(state: FleetState, t: int, ace: AceState) -> FleetState:
 
 def merge_fleet(a: FleetState, b: FleetState) -> FleetState:
     """Merge two fleets over disjoint data: ``sketch.merge`` per tenant
-    (counts add in int32, the Welford streams by Chan's rule, attribution
-    planes add)."""
+    (counts add in int32, the Welford streams by Chan's rule, rate
+    histograms and attribution planes add)."""
     if a.counts.shape != b.counts.shape:
         raise ValueError(f"fleet shape mismatch: {tuple(a.counts.shape)} "
                          f"vs {tuple(b.counts.shape)}")
+    if (a.qhist is None) != (b.qhist is None):
+        raise ValueError("cannot merge a quantile-tracking fleet with a "
+                         "non-tracking one")
     if (a.attr is None) != (b.attr is None):
         raise ValueError("cannot merge an attribution-tracking fleet with "
                          "a non-tracking one")
@@ -162,18 +169,21 @@ def merge_fleet(a: FleetState, b: FleetState) -> FleetState:
         welford_mean=a.welford_mean + delta * b.n / safe,
         welford_m2=a.welford_m2 + b.welford_m2
         + delta**2 * a.n * b.n / safe,
+        qhist=None if a.qhist is None else a.qhist + b.qhist,
         attr=None if a.attr is None else a.attr + b.attr)
 
 
 def from_states(states: Sequence[AceState]) -> FleetState:
-    """Stack single-tenant sketches into a fleet (with attribution planes
-    when every one carries them)."""
-    attrs = [s.attr for s in states]
+    """Stack single-tenant sketches into a fleet (with rate histograms and
+    attribution planes when every one carries them)."""
+    def stacked(k):
+        leaves = [getattr(s, k) for s in states]
+        return (torch.stack(leaves) if all(x is not None for x in leaves)
+                else None)
     return FleetState(
         *(torch.stack([getattr(s, k) for s in states])
           for k in ("counts", "n", "welford_mean", "welford_m2")),
-        attr=(torch.stack(attrs) if all(p is not None for p in attrs)
-              else None))
+        qhist=stacked("qhist"), attr=stacked("attr"))
 
 
 # ---------------------------------------------------------------------------
@@ -312,10 +322,15 @@ def admit_thresholds(state: FleetState, alpha: float, warmup_items: float,
                      threshold_mode: str = "mu_sigma",
                      q: float = 0.01) -> torch.Tensor:
     """(T,) per-tenant score-space thresholds: ``sketch.admit_threshold``
-    over the tenant axis (−inf during each tenant's own warmup).  Route
-    to items with ``admit_thresholds(...)[tenant_ids]``."""
+    over the tenant axis (−inf during each tenant's own warmup); in
+    quantile mode each tenant's own q-quantile from its row of
+    ``state.qhist`` (one batched ``hist_quantile``).  Route to items with
+    ``admit_thresholds(...)[tenant_ids]``."""
     if threshold_mode == "quantile":
-        not_ported("threshold_mode='quantile'", 7)
+        if state.qhist is None:
+            raise ValueError("threshold_mode='quantile' needs a fleet "
+                             "initialised with quantile=True")
+        return qsk.quantile_threshold(state.qhist, state.n, q, warmup_items)
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
     t = (mean_rate_fleet(state, table_mask) - alpha

@@ -7,13 +7,16 @@
     ssq           (T,)             per-tenant ‖C_w‖² streams
     cursor        (T,)  int32      per-tenant ring pointers
     tick          (T,)  int32      per-tenant insert-step clocks
+    qhist         (T, E, NUM_BINS) f32  per-tenant per-epoch rate
+                  histograms when ``threshold_mode="quantile"``
     attr          (T, E, 2, NL, R, C) f32  per-tenant per-epoch
                   attribution planes when ``attr_rows > 0``
 
 Each tenant's tick advances only on batches that held its items, and
 ``maybe_rotate_fleet`` rotates exactly the tenants whose live epoch just
 filled, gated on presence: a tenant parked on a boundary while absent
-never re-rotates from its neighbours' traffic.  Routing reuses the flat
+never re-rotates from its neighbours' traffic (and keeps its histogram
+rows).  Routing reuses the flat
 offset twice: the live epoch of item i is rows tid·E·L + cursor[tid]·L + j
 of the (T·E·L, 2^K) ring, its tail rows tid·L + j of the (T·L, 2^K) tail.
 
@@ -29,12 +32,12 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig
 from repro_torch.fleet.state import (check_flat_addressable, segment_sum,
                                      tenant_onehot)
 from repro_torch.kernels.ace_update import gather_rows, table_rows
+from repro_torch.quantile import sketch as qsk
 from repro_torch.window import ring
 from repro_torch.window.ring import WindowConfig, WindowedAceState
 
@@ -51,7 +54,7 @@ class WindowedFleetState(NamedTuple):
     ssq: torch.Tensor           # (T,) float32
     cursor: torch.Tensor        # (T,) int32
     tick: torch.Tensor          # (T,) int32
-    qhist: Optional[torch.Tensor] = None
+    qhist: Optional[torch.Tensor] = None  # (T, E, NUM_BINS) float32
     attr: Optional[torch.Tensor] = None   # (T, E, 2, NL, R, C) float32
 
     @property
@@ -67,16 +70,18 @@ def init_fleet_window(cfg: WindowConfig, num_tenants: int, device,
                       quantile: bool = False) -> WindowedFleetState:
     if num_tenants < 1:
         raise ValueError(f"num_tenants must be >= 1, got {num_tenants}")
-    if quantile:
-        not_ported("threshold_mode='quantile'", 7)
     check_flat_addressable(num_tenants * cfg.num_epochs * cfg.ace.num_tables,
                            cfg.ace.num_buckets, "init_fleet_window")
     one = ring.init_window(cfg, "meta")
-    return WindowedFleetState(*(
+    state = WindowedFleetState(*(
         None if leaf is None
         else torch.zeros((num_tenants,) + tuple(leaf.shape),
                          dtype=leaf.dtype, device=device)
         for leaf in one))
+    if quantile:
+        state = state._replace(qhist=qsk.init_hist(
+            num_tenants, cfg.num_epochs, device=device))
+    return state
 
 
 def tenant_window_view(state: WindowedFleetState, t: int
@@ -149,10 +154,26 @@ def window_admit_thresholds(state: WindowedFleetState, gamma: float,
                             threshold_mode: str = "mu_sigma",
                             q: float = 0.01) -> torch.Tensor:
     """(T,) per-tenant windowed thresholds: each tenant's
-    ``ring.admit_threshold_windowed``, as (T,) vectors of its operations."""
+    ``ring.admit_threshold_windowed`` (μ−ασ, or the q-quantile of its own
+    γ-combined histogram), as (T,) vectors of its operations."""
     return ring.admit_threshold_windowed(
         state, gamma, alpha, warmup_items, table_mask=table_mask,
         threshold_mode=threshold_mode, q=q)
+
+
+def observe_current_fleet(state: WindowedFleetState, rates: torch.Tensor,
+                          tenant_ids: torch.Tensor,
+                          maskf: torch.Tensor) -> WindowedFleetState:
+    """Fold a mixed-tenant batch of windowed rates into each item's
+    tenant's LIVE epoch histogram row: ONE ``index_add`` at
+    tid·E·NUM_BINS + cursor[tid]·NUM_BINS + bin.  ``maskf`` is the OBSERVE
+    mask (finite rows), not the admit mask."""
+    T, E, nb = state.qhist.shape
+    tids = tenant_ids.long()
+    offs = tids * (E * nb) + state.cursor.long()[tids] * nb \
+        + qsk.bin_index(rates)
+    return state._replace(qhist=state.qhist.reshape(-1).index_add(
+        0, offs, maskf.to(torch.float32)).reshape(state.qhist.shape))
 
 
 # ---------------------------------------------------------------------------
@@ -231,7 +252,7 @@ def rotate_fleet(state: WindowedFleetState,
                  gamma: float = 1.0) -> WindowedFleetState:
     """Rotate EVERY tenant's ring once (``ring.rotate`` over the tenant
     axis: each tenant's tail recomputed from its own ring at its own new
-    cursor)."""
+    cursor, its new live epoch's histogram row zeroed)."""
     return ring.rotate(state, gamma)
 
 

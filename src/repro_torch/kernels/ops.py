@@ -32,6 +32,12 @@ host.  The float tail views are gathered and summed with plain PyTorch,
 as the reference gathers them with jnp; the stats epilogues are the
 plain modules' own (``ring.insert_stats``,
 ``fleet.state.fleet_masked_welford``, ``fleet.window.apply_insert_stats``).
+
+Quantile admission (``threshold_mode="quantile"``) hands every kernel
+the same one score-space threshold per tenant, so no kernel changes: the
+threshold is read from the state's rate histogram, and after the insert
+the PRE-insert scores the admission already has (the fused kernels
+write them) are observed into it, before any rotation clock.
 """
 from __future__ import annotations
 
@@ -53,6 +59,7 @@ from repro_torch.kernels import ace_window_combine as _wc
 from repro_torch.kernels import attr_estimate as _ae
 from repro_torch.kernels import srht_hash as _sh
 from repro_torch.kernels import srp_hash as _h
+from repro_torch.quantile import sketch as _qsk
 from repro_torch.window import ring as _ring
 
 
@@ -186,18 +193,37 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
                           welford_m2=new_m2), admit, scores
 
 
+def _observe_maskf(scores: torch.Tensor, item_mask: torch.Tensor | None,
+                   n: torch.Tensor, warmup_items: float) -> torch.Tensor:
+    """The quantile observation mask: every item of ``item_mask`` (the
+    finite rows; None: the whole batch), admitted or not, gated by the
+    half-warmup floor on the PRE-insert count ``n``
+    (``quantile.sketch.calib_mask``)."""
+    maskf = (torch.ones_like(scores) if item_mask is None
+             else item_mask.to(torch.float32))
+    return _qsk.calib_mask(maskf, n, warmup_items)
+
+
 def ace_admit(state: AceState, q: torch.Tensor, w: torch.Tensor,
               cfg: AceConfig, *, alpha: float, warmup_items: float,
               table_mask: torch.Tensor | None = None,
-              item_mask: torch.Tensor | None = None):
-    """Guardrail admission: the μ−ασ threshold computed on the device from
-    the state scalars (−inf during warmup), then ``ace_admit_at``.
-    Returns (new_state, admit (B,) bool)."""
+              item_mask: torch.Tensor | None = None,
+              threshold_mode: str = "mu_sigma", quantile_q: float = 0.01):
+    """Guardrail admission: the threshold (μ−ασ, or the ``quantile_q``
+    quantile of ``state.qhist``) computed on the device from the state
+    (−inf during warmup), then ``ace_admit_at``; in quantile mode the
+    pre-insert rates are then observed.  Returns (new_state, admit (B,)
+    bool)."""
     thresh = _sk.admit_threshold(state, alpha, warmup_items,
-                                 table_mask=table_mask)
-    new_state, admit, _ = ace_admit_at(state, q, w, cfg, thresh,
-                                       table_mask=table_mask,
-                                       item_mask=item_mask)
+                                 table_mask=table_mask,
+                                 threshold_mode=threshold_mode, q=quantile_q)
+    new_state, admit, scores = ace_admit_at(state, q, w, cfg, thresh,
+                                            table_mask=table_mask,
+                                            item_mask=item_mask)
+    if threshold_mode == "quantile":
+        new_state = new_state._replace(qhist=_qsk.observe_rates(
+            new_state.qhist, scores / torch.clamp_min(state.n, 1.0),
+            _observe_maskf(scores, item_mask, state.n, warmup_items)))
     return new_state, admit
 
 
@@ -286,18 +312,26 @@ def ace_admit_windowed(wstate, q: torch.Tensor, w: torch.Tensor,
                        cfg: AceConfig, *, gamma: float, alpha: float,
                        warmup_items: float, rotate_every: int = 0,
                        table_mask: torch.Tensor | None = None,
-                       item_mask: torch.Tensor | None = None):
+                       item_mask: torch.Tensor | None = None,
+                       threshold_mode: str = "mu_sigma",
+                       quantile_q: float = 0.01):
     """Kernel-path windowed admission (``repro.kernels.ops
-    .ace_admit_windowed``): the window-combined μ−ασ threshold on the
-    device, ``ace_admit_windowed_at``, then the epoch clock
-    (``ring.maybe_rotate``, a device-side select).  Returns
+    .ace_admit_windowed``): the window-combined threshold on the device,
+    ``ace_admit_windowed_at``, in quantile mode the live epoch's
+    observation of the rates over the pre-insert n_w, then the epoch
+    clock (``ring.maybe_rotate``, a device-side select).  Returns
     (new_state, admit (B,) bool)."""
-    thresh = _ring.admit_threshold_windowed(wstate, gamma, alpha,
-                                            warmup_items,
-                                            table_mask=table_mask)
-    new_state, admit, _ = ace_admit_windowed_at(
+    thresh = _ring.admit_threshold_windowed(
+        wstate, gamma, alpha, warmup_items, table_mask=table_mask,
+        threshold_mode=threshold_mode, q=quantile_q)
+    new_state, admit, scores = ace_admit_windowed_at(
         wstate, q, w, cfg, thresh, gamma=gamma, table_mask=table_mask,
         item_mask=item_mask)
+    if threshold_mode == "quantile":
+        n_w = _ring.combined_n(wstate, gamma)        # pre-insert
+        new_state = _ring.observe_current(
+            new_state, scores / torch.clamp_min(n_w, 1.0),
+            _observe_maskf(scores, item_mask, n_w, warmup_items))
     return _ring.maybe_rotate(new_state, rotate_every, gamma), admit
 
 
@@ -349,15 +383,26 @@ def ace_fleet_admit(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                     w: torch.Tensor, cfg: AceConfig, *, alpha: float,
                     warmup_items: float,
                     table_mask: torch.Tensor | None = None,
-                    item_mask: torch.Tensor | None = None):
+                    item_mask: torch.Tensor | None = None,
+                    threshold_mode: str = "mu_sigma",
+                    quantile_q: float = 0.01):
     """Kernel-path multi-tenant admission (``repro.kernels.ops
-    .ace_fleet_admit``): per-tenant μ−ασ thresholds routed to the items,
-    then ``ace_fleet_admit_at``.  Returns (new_state, admit (B,) bool)."""
-    thresh = _fls.admit_thresholds(fstate, alpha, warmup_items,
-                                   table_mask=table_mask)[tenant_ids.long()]
-    new_state, admit, _ = ace_fleet_admit_at(
+    .ace_fleet_admit``): per-tenant thresholds routed to the items, then
+    ``ace_fleet_admit_at``; in quantile mode each item's rate over its
+    tenant's pre-insert n is then observed into its tenant's row.
+    Returns (new_state, admit (B,) bool)."""
+    tids = tenant_ids.long()
+    thresh = _fls.admit_thresholds(
+        fstate, alpha, warmup_items, table_mask=table_mask,
+        threshold_mode=threshold_mode, q=quantile_q)[tids]
+    new_state, admit, scores = ace_fleet_admit_at(
         fstate, q, tenant_ids, w, cfg, thresh, table_mask=table_mask,
         item_mask=item_mask)
+    if threshold_mode == "quantile":
+        n_t = fstate.n[tids]                          # pre-insert
+        new_state = new_state._replace(qhist=_qsk.observe_rates_fleet(
+            new_state.qhist, scores / torch.clamp_min(n_t, 1.0), tenant_ids,
+            _observe_maskf(scores, item_mask, n_t, warmup_items)))
     return new_state, admit
 
 
@@ -366,7 +411,9 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
                            alpha: float, warmup_items: float,
                            rotate_every: int = 0,
                            table_mask: torch.Tensor | None = None,
-                           item_mask: torch.Tensor | None = None):
+                           item_mask: torch.Tensor | None = None,
+                           threshold_mode: str = "mu_sigma",
+                           quantile_q: float = 0.01):
     """Kernel-path windowed-fleet admission (``repro.kernels.ops
     .ace_fleet_window_admit``): per-tenant windowed thresholds on the
     device, then, dense and healthy, the fused
@@ -375,10 +422,15 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
     mask (T, L) the one hash kernel with the routed ``ace_query_sum``
     live sums (masked for the decision) and ``ace_update`` insert.  Both
     then sum the post-insert live counters with one ``ace_query_sum`` for
-    ``fleet.window.apply_insert_stats`` and run the presence-gated clocks
-    (``maybe_rotate_fleet``).  Returns (new_state, admit (B,) bool)."""
+    ``fleet.window.apply_insert_stats``, in quantile mode observe the
+    pre-insert scores (the fused kernel's ``scores`` output) over each
+    tenant's pre-insert n_w into its live epoch's row, and run the
+    presence-gated clocks (``maybe_rotate_fleet``).  Returns
+    (new_state, admit (B,) bool)."""
     thr_t = _fw.window_admit_thresholds(state, gamma, alpha, warmup_items,
-                                        table_mask=table_mask)
+                                        table_mask=table_mask,
+                                        threshold_mode=threshold_mode,
+                                        q=quantile_q)
     rows = _fw.live_rows_fleet(state, tenant_ids)
     flat = _flat(state.counts)
     if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
@@ -398,7 +450,7 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
             admit = admit & item_mask
         _u.ace_update(flat, buckets, row_mask=admit, row_base=rows)
     else:
-        _, _, admit, buckets, tail_sums, live_pre = \
+        _, scores, admit, buckets, tail_sums, live_pre = \
             _fwa.ace_fleet_window_admit_fused(
                 state.counts, state.tail, state.cursor, q, tenant_ids, w,
                 thr_t, cfg.srp, item_mask=item_mask)
@@ -406,6 +458,11 @@ def ace_fleet_window_admit(state, q: torch.Tensor, tenant_ids: torch.Tensor,
     new_state = _fw.apply_insert_stats(state, state.counts, tenant_ids,
                                        admit, cfg, gamma, tail_sums,
                                        live_pre, live_post)
+    if threshold_mode == "quantile":
+        n_w = _ring.combined_n(state, gamma)[tenant_ids.long()]
+        new_state = _fw.observe_current_fleet(
+            new_state, scores / torch.clamp_min(n_w, 1.0), tenant_ids,
+            _observe_maskf(scores, item_mask, n_w, warmup_items))
     new_state = _fw.maybe_rotate_fleet(new_state, rotate_every, gamma,
                                        tenant_ids=tenant_ids)
     return new_state, admit

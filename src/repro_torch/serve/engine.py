@@ -1,14 +1,15 @@
 """The ACE request guardrail: out-of-distribution requests are rejected in
 O(K·L) before they reach the model (the paper's query phase as an
-admission filter).  Port of ``repro.serve.engine``'s ``Guardrail`` in
-``mu_sigma`` mode with int32 counts, under either hash family
-(``hash_mode`` "dense", "srht" or "auto"), in its four flavours: the flat
-sketch, the sliding window (``window_epochs > 1``), the tenant fleet
-(``num_tenants > 1``) and the windowed fleet (both).
+admission filter).  Port of ``repro.serve.engine``'s ``Guardrail`` with
+int32 counts, under either hash family (``hash_mode`` "dense", "srht" or
+"auto") and either threshold rule (``threshold_mode`` "mu_sigma" or
+"quantile"), in its four flavours: the flat sketch, the sliding window
+(``window_epochs > 1``), the tenant fleet (``num_tenants > 1``) and the
+windowed fleet (both).
 
 ``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
-item 12); quantile thresholds, quantized planes, health/repair and meshes
-raise ``NotImplementedError`` naming the queue item that brings them.
+item 12); quantized planes, health/repair and meshes raise
+``NotImplementedError`` naming the queue item that brings them.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ from repro_torch.data.pipeline import mean_embed_features
 from repro_torch.fleet import state as fl
 from repro_torch.fleet import window as fw
 from repro_torch.kernels import ops as kops
+from repro_torch.quantile import sketch as qsk
 from repro_torch.window import ring
 
 
@@ -37,7 +39,11 @@ class GuardrailConfig:
     epochs, weighted γ^age by ``window_decay`` and rotated every
     ``rotate_every`` admit calls; ``num_tenants > 1`` stacks that many
     tenant sketches (``admit`` then takes tenant ids); ``fail_policy`` is
-    one policy or, for a fleet, a tuple of one per tenant."""
+    one policy or, for a fleet, a tuple of one per tenant.
+    ``threshold_mode="quantile"`` admits iff a request's score is at
+    least the ``quantile_q`` quantile of its sketch's (tenant's, window's)
+    rate histogram: it flags a rate of the traffic, whatever the shape of
+    the score distribution."""
 
     d_model: int
     num_bits: int = 13
@@ -52,7 +58,8 @@ class GuardrailConfig:
     num_tenants: int = 1
     count_dtype: str = "int32"
     esc_capacity: int = 0
-    threshold_mode: str = "mu_sigma"
+    threshold_mode: str = "mu_sigma"   # "mu_sigma" | "quantile"
+    quantile_q: float = 0.01    # target flag rate for quantile mode
     fail_policy: str | tuple = "fail_open"
 
 
@@ -61,11 +68,14 @@ class Guardrail:
 
     ``admit`` featurises a (B, S, D) batch, quarantines rows whose
     features are non-finite, hashes once, scores against the PRE-insert
-    counts, compares with the on-device μ−ασ score threshold (−inf during
-    warmup), and inserts the admitted rows.  With ``use_kernels=True``
-    (the default here; the reference defaults to False) the flat sketch
-    runs the fused ``ace_admit_fused`` kernel plus the ``ace_query``
-    gather of the Welford epilogue (``ops.ace_admit``); the window
+    counts, compares with the on-device score threshold (μ−ασ or the
+    rate quantile; −inf during warmup), and inserts the admitted rows; in
+    quantile mode every finite row's pre-insert rate then goes into the
+    histogram (before the rotation clock of a window).  With
+    ``use_kernels=True`` (the default here; the reference defaults to
+    False) the flat sketch runs the fused ``ace_admit_fused`` kernel plus
+    the ``ace_query`` gather of the Welford epilogue (``ops.ace_admit``);
+    the window
     ``ops.ace_admit_windowed``, the fleet ``ops.ace_fleet_admit`` and the
     windowed fleet the fused ``ace_fleet_window_admit_fused`` kernel
     (``ops.ace_fleet_window_admit``).  The only device→host transfer of a
@@ -89,9 +99,7 @@ class Guardrail:
 
     def __init__(self, gcfg: GuardrailConfig, *, use_kernels: bool = True,
                  device=None, w: torch.Tensor | None = None, mesh=None):
-        if gcfg.threshold_mode == "quantile":
-            not_ported("threshold_mode='quantile'", 7)
-        if gcfg.threshold_mode != "mu_sigma":
+        if gcfg.threshold_mode not in ("mu_sigma", "quantile"):
             raise ValueError(f"unknown threshold_mode "
                              f"{gcfg.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
@@ -131,16 +139,21 @@ class Guardrail:
                                      num_epochs=gcfg.window_epochs,
                                      decay=gcfg.window_decay,
                                      rotate_every=gcfg.rotate_every)
+        quantile = gcfg.threshold_mode == "quantile"
         if self.multi_tenant and self.windowed:
-            state = fw.init_fleet_window(wcfg, gcfg.num_tenants, self.device)
+            state = fw.init_fleet_window(wcfg, gcfg.num_tenants, self.device,
+                                         quantile=quantile)
         elif self.multi_tenant:
             state = fl.init(fl.FleetConfig(ace=self.ace_cfg,
                                            num_tenants=gcfg.num_tenants),
-                            self.device)
+                            self.device, quantile=quantile)
         elif self.windowed:
-            state = ring.init_window(wcfg, self.device)
+            state = ring.init_window(wcfg, self.device, quantile=quantile)
         else:
             state = sk.init(self.ace_cfg, self.device)
+            if quantile:
+                state = state._replace(qhist=qsk.init_hist(
+                    device=self.device))
         self.state = state
         if w is not None:
             check_projections(w, self.ace_cfg.srp)
@@ -165,67 +178,101 @@ class Guardrail:
         return torch.stack([final, finite])
 
     def _admit_branches(self, feat, finite, tids):
-        """Score → threshold → masked insert for every sketch flavour;
-        ``finite`` is the item mask (quarantined rows never admit and
-        never insert).  Updates ``self.state``; returns the admit mask."""
+        """Score → threshold → masked insert (→ in quantile mode the
+        observation of every finite row's pre-insert rate) → rotation
+        clock, for every sketch flavour; ``finite`` is the item mask
+        (quarantined rows never admit and never insert).  Updates
+        ``self.state``; returns the admit mask."""
         g, cfg, st = self.gcfg, self.ace_cfg, self.state
         gamma = g.window_decay
+        mode = dict(threshold_mode=g.threshold_mode, q=g.quantile_q)
+        quantile = g.threshold_mode == "quantile"
         if self.multi_tenant and self.windowed:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_window_admit(
                     st, feat, tids, self.w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
-                    item_mask=finite)
+                    item_mask=finite, threshold_mode=g.threshold_mode,
+                    quantile_q=g.quantile_q)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 pre = fw.window_table_sums_fleet(st, tids, buckets)
                 scores = ring.score_live(*pre, cfg.num_tables)
                 admit = scores >= fw.window_admit_thresholds(
-                    st, gamma, g.alpha, g.warmup_items)[tids.long()]
+                    st, gamma, g.alpha, g.warmup_items,
+                    **mode)[tids.long()]
                 admit = admit & finite
-                st = fw.insert_current_fleet(st, tids, buckets, admit, cfg,
-                                             gamma=gamma, pre_sums=pre)
-                st = fw.maybe_rotate_fleet(st, g.rotate_every, gamma,
+                new = fw.insert_current_fleet(st, tids, buckets, admit, cfg,
+                                              gamma=gamma, pre_sums=pre)
+                if quantile:
+                    n_w = ring.combined_n(st, gamma)[tids.long()]
+                    new = fw.observe_current_fleet(
+                        new, scores / torch.clamp_min(n_w, 1.0), tids,
+                        qsk.calib_mask(finite.to(torch.float32), n_w,
+                                       g.warmup_items))
+                st = fw.maybe_rotate_fleet(new, g.rotate_every, gamma,
                                            tenant_ids=tids)
         elif self.multi_tenant:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_admit(
                     st, feat, tids, self.w, cfg, alpha=g.alpha,
-                    warmup_items=g.warmup_items, item_mask=finite)
+                    warmup_items=g.warmup_items, item_mask=finite,
+                    threshold_mode=g.threshold_mode, quantile_q=g.quantile_q)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 scores = fl.fleet_scores(st, tids, buckets)
                 admit = scores >= fl.admit_thresholds(
-                    st, g.alpha, g.warmup_items)[tids.long()]
+                    st, g.alpha, g.warmup_items, **mode)[tids.long()]
                 admit = admit & finite
-                st = fl.insert_masked(st, tids, buckets, admit, cfg)
+                new = fl.insert_masked(st, tids, buckets, admit, cfg)
+                if quantile:
+                    n_t = st.n[tids.long()]
+                    new = new._replace(qhist=qsk.observe_rates_fleet(
+                        new.qhist, scores / torch.clamp_min(n_t, 1.0), tids,
+                        qsk.calib_mask(finite.to(torch.float32), n_t,
+                                       g.warmup_items)))
+                st = new
         elif self.windowed:
             if self.use_kernels:
                 st, admit = kops.ace_admit_windowed(
                     st, feat, self.w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
-                    item_mask=finite)
+                    item_mask=finite, threshold_mode=g.threshold_mode,
+                    quantile_q=g.quantile_q)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 pre = ring.window_table_sums(st, buckets)
                 scores = ring.score_live(*pre, cfg.num_tables)
                 admit = scores >= ring.admit_threshold_windowed(
-                    st, gamma, g.alpha, g.warmup_items)
+                    st, gamma, g.alpha, g.warmup_items, **mode)
                 admit = admit & finite
-                st = ring.insert_current(st, buckets, admit, cfg,
-                                         gamma=gamma, pre_sums=pre)
-                st = ring.maybe_rotate(st, g.rotate_every, gamma)
+                new = ring.insert_current(st, buckets, admit, cfg,
+                                          gamma=gamma, pre_sums=pre)
+                if quantile:
+                    n_w = ring.combined_n(st, gamma)
+                    new = ring.observe_current(
+                        new, scores / torch.clamp_min(n_w, 1.0),
+                        qsk.calib_mask(finite.to(torch.float32), n_w,
+                                       g.warmup_items))
+                st = ring.maybe_rotate(new, g.rotate_every, gamma)
         elif self.use_kernels:
             st, admit = kops.ace_admit(
                 st, feat, self.w, cfg, alpha=g.alpha,
-                warmup_items=g.warmup_items, item_mask=finite)
+                warmup_items=g.warmup_items, item_mask=finite,
+                threshold_mode=g.threshold_mode, quantile_q=g.quantile_q)
         else:
             buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
             scores = sk.lookup(st, buckets)
             admit = scores >= sk.admit_threshold(st, g.alpha,
-                                                 g.warmup_items)
+                                                 g.warmup_items, **mode)
             admit = admit & finite
-            st = sk.insert_buckets_masked(st, buckets, admit, cfg)
+            new = sk.insert_buckets_masked(st, buckets, admit, cfg)
+            if quantile:
+                new = new._replace(qhist=qsk.observe_rates(
+                    new.qhist, scores / torch.clamp_min(st.n, 1.0),
+                    qsk.calib_mask(finite.to(torch.float32), st.n,
+                                   g.warmup_items)))
+            st = new
         self.state = st
         return admit
 

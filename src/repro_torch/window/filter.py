@@ -9,7 +9,8 @@ window-combined, so the filter forgets: a stale regime ages out in
 belongs to whoever drives the stream clock (``StreamRunner(rotate_every)``
 at segment boundaries, the ``Guardrail`` per admit, ``__call__`` here), so
 one step is one insert tick everywhere.  With ``num_epochs=1`` the filter
-is bitwise ``AceDataFilter``.
+is bitwise ``AceDataFilter`` (in quantile mode too: the live epoch's
+histogram row is the flat filter's histogram).
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ import dataclasses
 
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.attribution import sketch as at
 from repro_torch.core import sketch as sk
 from repro_torch.core import srht
@@ -25,6 +26,7 @@ from repro_torch.core import srp
 from repro_torch.core.sketch import AceConfig
 from repro_torch.data.pipeline import mean_embed_features
 from repro_torch.kernels import ops as kops
+from repro_torch.quantile import sketch as qsk
 from repro_torch.window import ring
 from repro_torch.window.ring import WindowConfig, WindowedAceState
 
@@ -45,7 +47,9 @@ class WindowedAceFilter:
     num_epochs: int = 4
     decay: float = 1.0          # γ; 1.0 = hard window
     rotate_every: int = 0       # steps per epoch (driver-enforced clock)
-    threshold_mode: str = "mu_sigma"
+    threshold_mode: str = "mu_sigma"   # "mu_sigma" | "quantile": Q_q of
+                                # the γ-combined window rate histogram
+    quantile_q: float = 0.01    # target flag rate for quantile mode
     attr_rows: int = 0          # > 0: attribution planes ride the state
     attr_bits: int = 8          # log2 columns per attribution row
     use_kernels: bool = True
@@ -56,9 +60,7 @@ class WindowedAceFilter:
                                             repr=False)
 
     def __post_init__(self):
-        if self.threshold_mode == "quantile":
-            not_ported("threshold_mode='quantile'", 7)
-        if self.threshold_mode != "mu_sigma":
+        if self.threshold_mode not in ("mu_sigma", "quantile"):
             raise ValueError(f"unknown threshold_mode "
                              f"{self.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
@@ -86,12 +88,14 @@ class WindowedAceFilter:
                             rotate_every=self.rotate_every)
 
     def init(self):
-        """(ring state, w) on the filter's device (SRHT parameters put
+        """(ring state, w) on the filter's device, with the (E, NUM_BINS)
+        histogram ring in quantile mode (SRHT parameters and bin table put
         there now, so no step copies anything to the device)."""
         cfg = self.ace_cfg
         if srp.resolve_hash_mode(cfg.srp) == "srht":
             srht.srht_params(cfg.srp).tensors(self.device)
-        return (ring.init_window(self.window_cfg, self.device),
+        return (ring.init_window(self.window_cfg, self.device,
+                                 quantile=self.threshold_mode == "quantile"),
                 sk.make_params(cfg, device=self.device))
 
     def features(self, embeds: torch.Tensor) -> torch.Tensor:
@@ -100,8 +104,10 @@ class WindowedAceFilter:
 
     def step(self, state: WindowedAceState, w: torch.Tensor,
              feat: torch.Tensor, table_mask: torch.Tensor | None = None):
-        """Hash ONCE → window-combined score → window-combined μ−ασ
-        threshold → masked insert into the live epoch; no host sync.
+        """Hash ONCE → window-combined score → window-combined threshold →
+        masked insert into the live epoch; in quantile mode every finite
+        item's rate (score over the pre-insert n_w) then goes into the live
+        epoch's histogram row, past the half-warmup gate; no host sync.
 
         Returns (new_state, keep (B,) bool, margin (B,) float32), with the
         quarantine of non-finite rows of ``AceDataFilter.step``.
@@ -116,7 +122,8 @@ class WindowedAceFilter:
         feat = torch.where(finite[:, None], feat, 0.0)
         thresh = ring.admit_threshold_windowed(
             state, self.decay, self.alpha, self.warmup_items,
-            table_mask=table_mask)
+            table_mask=table_mask, threshold_mode=self.threshold_mode,
+            q=self.quantile_q)
         if self.use_kernels:
             t_ins = (torch.full((), float("-inf"), device=thresh.device)
                      if self.insert_all else thresh)
@@ -133,6 +140,12 @@ class WindowedAceFilter:
             new_state = ring.insert_current(
                 state, buckets, finite if self.insert_all else keep, cfg,
                 gamma=self.decay, pre_sums=pre)
+        if self.threshold_mode == "quantile":
+            n_w = ring.combined_n(state, self.decay)    # pre-insert
+            new_state = ring.observe_current(
+                new_state, scores / torch.clamp_min(n_w, 1.0),
+                qsk.calib_mask(finite.to(torch.float32), n_w,
+                               self.warmup_items))
         margin = torch.where(finite, scores - thresh, float("-inf"))
         return new_state, keep, margin
 

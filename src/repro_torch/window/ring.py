@@ -28,12 +28,13 @@ gathers and inserts through the kernels instead and shares the stats
 epilogue ``insert_stats`` with ``insert_current``.
 
 The window statistics (``epoch_weights``, ``combined_n``,
-``decayed_counts``, ``combined_moments``, ``mean_mu_windowed``,
-``sigma_windowed``, ``admit_threshold_windowed``) and ``rotate`` index the
-epoch axis from the end, so they take a ``WindowedFleetState``
-(``repro_torch.fleet.window``, a (T,) leading tenant axis) as well and
-give the per-tenant values with the same elementwise operations — the
-port's counterpart of the reference's ``vmap``.  Sums over the E epochs
+``combined_qhist``, ``decayed_counts``, ``combined_moments``,
+``mean_mu_windowed``, ``sigma_windowed``, ``admit_threshold_windowed``)
+and ``rotate`` index the epoch axis from the end, so they take a
+``WindowedFleetState`` (``repro_torch.fleet.window``, a (T,) leading
+tenant axis) as well and give the per-tenant values with the same
+elementwise operations — the port's counterpart of the reference's
+``vmap``.  Sums over the E epochs
 are explicit loops in ring-index order, so a fleet of one tenant and a
 single ring give the same bits on any device.
 
@@ -42,11 +43,15 @@ order (Σ_e w_e·C_e as E multiply-adds), while the reference contracts with
 XLA's ``tensordot``: the two agree to float tolerance at γ < 1 and bitwise
 at γ = 1, where every value is an integer below 2^24.
 
-The ``qhist`` leaf stays ``None``: quantile admission belongs to a later
-slice (ROADMAP.md queue 1 item 7).  ``attr`` is the (E, 2, NL, R, C) ring
-of attribution planes when ``attr_rows > 0`` (``repro_torch.attribution``):
-the runner adds a chunk's planes to the live row, and ``rotate`` zeroes
-the row it moves into, as it zeroes the counts.
+``qhist`` is the (E, NUM_BINS) ring of rate histograms of
+``threshold_mode="quantile"`` (``init(..., quantile=True)``): callers
+observe into the live row (``observe_current``), the window's histogram
+is the γ^age-weighted sum of the rows (``combined_qhist``), and
+``rotate`` zeroes the row it moves into.  ``attr`` is the
+(E, 2, NL, R, C) ring of attribution planes when ``attr_rows > 0``
+(``repro_torch.attribution``): the runner adds a chunk's planes to the
+live row, and ``rotate`` zeroes the row it moves into, as it zeroes the
+counts.
 """
 from __future__ import annotations
 
@@ -55,10 +60,10 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig, AceState
 from repro_torch.kernels.ace_update import gather_rows, table_rows
+from repro_torch.quantile import sketch as qsk
 
 
 class WindowedAceState(NamedTuple):
@@ -73,7 +78,7 @@ class WindowedAceState(NamedTuple):
     ssq: torch.Tensor           # () float32
     cursor: torch.Tensor        # () int32
     tick: torch.Tensor          # () int32
-    qhist: Optional[torch.Tensor] = None
+    qhist: Optional[torch.Tensor] = None  # (E, NUM_BINS) float32
     attr: Optional[torch.Tensor] = None   # (E, 2, NL, R, C) float32
 
     @property
@@ -111,8 +116,6 @@ def init(cfg: AceConfig, num_epochs: int, device,
          quantile: bool = False) -> WindowedAceState:
     if num_epochs < 1:
         raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
-    if quantile:
-        not_ported("threshold_mode='quantile'", 7)
     shape = (cfg.num_tables, cfg.num_buckets)
 
     def zeros(*s, dtype=torch.float32):
@@ -123,6 +126,8 @@ def init(cfg: AceConfig, num_epochs: int, device,
         n=zeros(num_epochs), welford_mean=zeros(num_epochs),
         welford_m2=zeros(num_epochs), tail=zeros(*shape), ssq=zeros(),
         cursor=zeros(dtype=torch.int32), tick=zeros(dtype=torch.int32),
+        qhist=qsk.init_hist(num_epochs, device=device) if quantile
+        else None,
         attr=None if acfg is None else zeros(num_epochs,
                                              *acfg.plane_shape()))
 
@@ -184,12 +189,12 @@ def decay_sum(w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 def rotate(state, gamma: float = 1.0):
     """Advance the ring (every ring of a fleet): the oldest epoch expires
     and becomes the new live epoch (zeroed counts, moments and, when the
-    state carries them, attribution planes — that row only), and the
-    tail is recomputed from the updated ring, tail' = Σ_e γ^age'·C'_e (the
-    zeroed new-live slab contributes nothing), with ssq = ‖tail'‖².  The
-    zeroing is an ``index_fill`` at a device index: no host sync.  Applied
-    E times this returns the ring to all zeros with the cursor back where
-    it started."""
+    state carries them, rate histogram and attribution planes — that row
+    only), and the tail is recomputed from the updated ring,
+    tail' = Σ_e γ^age'·C'_e (the zeroed new-live slab contributes
+    nothing), with ssq = ‖tail'‖².  The zeroing is an ``index_fill`` at a
+    device index: no host sync.  Applied E times this returns the ring to
+    all zeros with the cursor back where it started."""
     E = state.num_epochs
     new_cursor = torch.remainder(state.cursor + 1, E).to(torch.int32)
     rows = slab_rows(new_cursor, E)
@@ -199,14 +204,17 @@ def rotate(state, gamma: float = 1.0):
 
     def clear(x):
         return x.reshape(-1).index_fill(0, rows, 0.0).reshape(x.shape)
-    attr = state.attr
+    qhist, attr = state.qhist, state.attr
+    if qhist is not None:
+        qhist = qhist.reshape(-1, qhist.shape[-1]).index_fill(0, rows, 0.0) \
+            .reshape(qhist.shape)
     if attr is not None:
         plane = attr.shape[-4:]
         attr = attr.reshape((-1,) + plane).index_fill(0, rows, 0.0) \
             .reshape(attr.shape)
     tail = decay_sum(epoch_weights(new_cursor, E, gamma), counts)
     return state._replace(
-        counts=counts, n=clear(state.n), attr=attr,
+        counts=counts, n=clear(state.n), qhist=qhist, attr=attr,
         welford_mean=clear(state.welford_mean),
         welford_m2=clear(state.welford_m2), tail=tail,
         ssq=torch.sum(tail * tail, dim=(-2, -1)), cursor=new_cursor)
@@ -428,6 +436,35 @@ def combined_n(state, gamma: float) -> torch.Tensor:
                     state.n)
 
 
+def combined_qhist(state, gamma: float) -> torch.Tensor:
+    """γ-weighted window rate histogram H_w = Σ_e γ^age·H_e: (NUM_BINS,)
+    for a ring, (T, NUM_BINS) for a fleet; explicit float32 multiply-adds
+    in ring-index order from epoch 0's product (exact at γ = 1, where
+    every bin is an integer).  A rotated-out epoch's row is zero, so its
+    rates leave the window quantile with its counts."""
+    if state.qhist is None:
+        raise ValueError("window has no qhist leaf (threshold_mode="
+                         "'quantile' needs init_window(..., quantile=True))")
+    w = epoch_weights(state.cursor, state.num_epochs, gamma)
+    h = state.qhist
+    acc = w[..., 0, None] * h[..., 0, :]
+    for e in range(1, h.shape[-2]):
+        acc = acc + w[..., e, None] * h[..., e, :]
+    return acc
+
+
+def observe_current(state: WindowedAceState, rates: torch.Tensor,
+                    maskf: torch.Tensor) -> WindowedAceState:
+    """Fold a batch of windowed rates into the LIVE epoch's histogram row:
+    one ``index_add`` at cursor·NUM_BINS + bin of the flat (E·NUM_BINS)
+    ring.  ``maskf`` is the OBSERVE mask (finite rows), not the admit
+    mask."""
+    nb = state.qhist.shape[-1]
+    offs = state.cursor.long() * nb + qsk.bin_index(rates)
+    return state._replace(qhist=state.qhist.reshape(-1).index_add(
+        0, offs, maskf.to(torch.float32)).reshape(state.qhist.shape))
+
+
 def combined_moments(state, gamma: float):
     """Window-combined Welford stream (n_w, mean_w, m2_w): Chan's merge
     folded across epochs in ring-index order, epoch e entering at weight
@@ -480,13 +517,17 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
                              q: float = 0.01) -> torch.Tensor:
     """Score-space admission threshold from WINDOW-combined statistics:
     ``sketch.admit_threshold`` with every statistic swapped for its window
-    counterpart, (rate_w − α·σ_w)·max(n_w, 1), −inf while n_w is below
-    ``warmup_items``.  () for a ring, (T,) for a fleet; device ops only."""
+    counterpart — μ−ασ: (rate_w − α·σ_w)·max(n_w, 1); quantile: the
+    q-quantile of ``combined_qhist`` times max(n_w, 1) — −inf while n_w is
+    below ``warmup_items``.  () for a ring, (T,) for a fleet; device ops
+    only."""
+    n_w = combined_n(state, gamma)
     if threshold_mode == "quantile":
-        not_ported("threshold_mode='quantile'", 7)
+        t = qsk.hist_quantile(combined_qhist(state, gamma), q) \
+            * torch.clamp_min(n_w, 1.0)
+        return torch.where(n_w >= warmup_items, t, float("-inf"))
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    n_w = combined_n(state, gamma)
     rate = mean_mu_windowed(state, gamma, table_mask=table_mask) \
         / torch.clamp_min(n_w, 1.0)
     t = (rate - alpha * sigma_windowed(state, gamma)) \

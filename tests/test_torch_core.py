@@ -299,9 +299,10 @@ class TestSketch:
             sk.AceConfig(dim=4, **kw)
 
     def test_degraded_and_quantile_raise(self):
-        """The quantile threshold still raises (queue 1 item 7); degraded
-        scoring (``table_mask``) is ported and scores like the
-        reference."""
+        """Degraded scoring (``table_mask``) scores like the reference; the
+        quantile threshold (ported) raises, as the reference's does, on a
+        sketch with no histogram, and with one equals the reference's
+        (rtol 1e-6)."""
         jcfg, cfg = _pair()
         ids = _bucket_ids(40, 8, 16, 70)
         js = jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids), jcfg)
@@ -312,8 +313,22 @@ class TestSketch:
             sk.lookup(ps, _t(ids[:5]), table_mask=_t(mask)).numpy(),
             np.asarray(jsk.lookup(js, jnp.asarray(ids[:5]),
                                   table_mask=jnp.asarray(mask))))
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(ValueError, match="qhist"):
+            jsk.admit_threshold(js, 1.0, 0.0, threshold_mode="quantile")
+        with pytest.raises(ValueError, match="qhist"):
             sk.admit_threshold(ps, 1.0, 0.0, threshold_mode="quantile")
+        from repro.quantile import sketch as jq
+        rates = (jsk.lookup(js, jnp.asarray(ids)) / js.n).astype(jnp.float32)
+        jh = jq.observe_rates(jq.init_hist(), rates, jnp.ones(40))
+        js, ps = js._replace(qhist=jh), ps._replace(
+            qhist=torch.from_numpy(np.array(jh)))
+        for warmup in (0.0, 100.0):
+            np.testing.assert_allclose(
+                float(sk.admit_threshold(ps, 1.0, warmup,
+                                         threshold_mode="quantile", q=0.1)),
+                float(jsk.admit_threshold(js, 1.0, warmup,
+                                          threshold_mode="quantile", q=0.1)),
+                rtol=1e-6)
 
     @pytest.mark.parametrize("dead", [[], [0], [3, 7, 15], list(range(16))])
     def test_masked_statistics_match_reference(self, dead):

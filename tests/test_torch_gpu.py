@@ -33,7 +33,8 @@ from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.estimators import AceEstimator  # noqa: E402
 from repro_torch.core.srp import SrpConfig, make_projections  # noqa: E402
 from repro_torch.kernels import ace_admit_fused as A  # noqa: E402
-from repro_torch.data.pipeline import AceDataFilter  # noqa: E402
+from repro_torch.data.pipeline import (AceDataFilter,  # noqa: E402
+                                       mean_embed_features)
 from repro_torch.fleet.filter import FleetDataFilter  # noqa: E402
 from repro_torch.kernels import ace_fleet_score as FS  # noqa: E402
 from repro_torch.kernels import ace_fleet_window_admit as FWA  # noqa: E402
@@ -1474,3 +1475,164 @@ def test_ace_score_fused_past_2_24_is_exact(cuda):
             .long().sum(-1).float() * torch.tensor(1.0 / L))
     assert torch.equal(got, want)
     assert torch.equal(got, Q.ace_query_sum_plain(counts, ids))
+
+
+# ---------------------------------------------------------------------------
+# Quantile-calibrated admission (repro_torch.quantile.sketch) on the card.
+# ---------------------------------------------------------------------------
+
+def _quantile_hists():
+    """(N, NUM_BINS) histograms: unit-weight ones from rates, a weighted
+    one, an empty one, all mass in one bin (first, middle, last) and a
+    tail mostly in the overflow bin."""
+    from repro_torch.quantile import sketch as qsk
+    rng = np.random.default_rng(5)
+    nb = qsk.NUM_BINS
+    rows = []
+    for r in (rng.uniform(0.0, 1.0, 500),
+              np.minimum(rng.lognormal(-8.0, 4.0, 500), 1.2),
+              np.minimum(rng.pareto(1.1, 500) * 1e-3, 1.2)):
+        h = np.zeros(nb, np.float32)
+        np.add.at(h, qsk.bin_index(torch.as_tensor(r.astype(np.float32)))
+                  .numpy(), 1.0)
+        rows.append(h)
+    rows.append(np.zeros(nb, np.float32))
+    for b in (0, 60, nb - 1):
+        h = np.zeros(nb, np.float32)
+        h[b] = 37.0
+        rows.append(h)
+    tail = rows[0].copy()
+    tail[nb - 1] += 900.0
+    rows.append(tail)
+    weighted = rows[0] * rng.uniform(0.0, 3.0, nb).astype(np.float32)
+    return np.stack(rows), weighted
+
+
+def test_hist_quantile_and_thresholds_match_the_cpu(cuda):
+    """The inverse CDF and the thresholds on the card against the CPU:
+    bitwise on unit-weight histograms (integer cumulative sums), rtol 1e-6
+    on a weighted one; batched rows as one call each."""
+    from repro_torch.quantile import sketch as qsk
+    stack, weighted = _quantile_hists()
+    n = np.linspace(0.0, 3000.0, stack.shape[0]).astype(np.float32)
+    for q in (0.001, 0.01, 0.02, 0.5, 0.99, 1.0):
+        got = qsk.hist_quantile(torch.as_tensor(stack, device=cuda), q)
+        want = qsk.hist_quantile(torch.as_tensor(stack), q)
+        assert torch.equal(got.cpu(), want)
+        for warmup in (0.0, 1500.0):
+            t = qsk.quantile_threshold(torch.as_tensor(stack, device=cuda),
+                                       torch.as_tensor(n, device=cuda), q,
+                                       warmup)
+            assert torch.equal(t.cpu(), qsk.quantile_threshold(
+                torch.as_tensor(stack), torch.as_tensor(n), q, warmup))
+        np.testing.assert_allclose(
+            float(qsk.hist_quantile(torch.as_tensor(weighted, device=cuda),
+                                    q)),
+            float(qsk.hist_quantile(torch.as_tensor(weighted), q)),
+            rtol=1e-6)
+
+
+def test_bin_index_and_observe_fleet_match_the_cpu(cuda):
+    """``bin_index`` on the card against the CPU, ±1 bin only for a rate
+    within 4 ulp of an edge (CUDA's ``logf`` may differ by an ulp); then
+    ``observe_rates_fleet`` bitwise the CPU's on rates clear of the
+    edges (the atomics add unit weights, exact in any order)."""
+    from repro_torch.quantile import sketch as qsk
+    rng = np.random.default_rng(6)
+    L = 50
+    k = rng.integers(0, 4096 * L, 200_000)
+    r = ((k.astype(np.float32) * np.float32(1.0 / L))
+         / np.float32(4096.0)).astype(np.float32)
+    got = qsk.bin_index(torch.as_tensor(r, device=cuda)).cpu().numpy()
+    want = qsk.bin_index(torch.as_tensor(r)).numpy()
+    bad = got != want
+    if bad.any():
+        gap = np.min(np.abs(qsk._EDGES_NP[None, :] - r[bad][:, None]), 1)
+        assert (np.abs(got[bad] - want[bad]) <= 1).all()
+        assert (gap <= 4 * np.spacing(r[bad])).all()
+    edges = qsk._EDGES_NP.astype(np.float64)
+    b = rng.integers(1, qsk.NUM_BINS - 1, 100_000)
+    mid = np.sqrt(edges[b] * edges[b + 1]).astype(np.float32)
+    T = 7
+    tids = rng.integers(0, T, mid.size).astype(np.int32)
+    mask = (rng.uniform(size=mid.size) < 0.8).astype(np.float32)
+    out = qsk.observe_rates_fleet(
+        qsk.init_hist(T, device=cuda), torch.as_tensor(mid, device=cuda),
+        torch.as_tensor(tids, device=cuda),
+        torch.as_tensor(mask, device=cuda))
+    assert torch.equal(out.cpu(), qsk.observe_rates_fleet(
+        qsk.init_hist(T), torch.as_tensor(mid), torch.as_tensor(tids),
+        torch.as_tensor(mask)))
+
+
+QUANTILE_GUARDS = {"flat": {}, "window": dict(window_epochs=3,
+                                              window_decay=0.9,
+                                              rotate_every=2),
+                   "fleet": dict(num_tenants=4),
+                   "fleet_window": dict(num_tenants=4, window_epochs=3,
+                                        window_decay=0.9, rotate_every=2)}
+
+
+@pytest.mark.parametrize("kind", sorted(QUANTILE_GUARDS))
+def test_quantile_guardrail_kernels_match_plain_path(cuda, kind):
+    """Each flavour's quantile admit through the kernels against the
+    plain path on the card, from the same state before every admit:
+    verdicts equal on every row whose ids agree, and when all agree the
+    histograms, counts and n bitwise."""
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, threshold_mode="quantile",
+                           quantile_q=0.05, **QUANTILE_GUARDS[kind])
+    gk = Guardrail(gcfg, use_kernels=True, device=cuda)
+    gp = Guardrail(gcfg, use_kernels=False, device=cuda, w=gk.w)
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    rng = np.random.default_rng(3)
+    all_agree = True
+    for e in _guardrail_batches(8, 96):
+        t = None if T is None else rng.integers(0, T, 64).astype(np.int32)
+        gp.state = type(gk.state)(*(None if x is None else x.clone()
+                                    for x in gk.state))
+        f = mean_embed_features(torch.as_tensor(e, device=cuda),
+                                gcfg.bias_const)
+        f = torch.where(torch.isfinite(f).all(dim=1)[:, None], f, 0.0)
+        ids_k = H.srp_hash(f, gk.w, gk.ace_cfg.srp)
+        ids_p = H.srp_hash_plain(f, gk.w, gk.ace_cfg.srp)
+        agree = (ids_k == ids_p).all(dim=1).cpu().numpy()
+        all_agree &= bool(agree.all())
+        mk, mp = gk.admit(e, t), gp.admit(e, t)
+        np.testing.assert_array_equal(mk[agree], mp[agree])
+        if agree.all():
+            assert torch.equal(gk.state.qhist, gp.state.qhist)
+            assert torch.equal(gk.state.counts, gp.state.counts)
+            assert torch.equal(gk.state.n, gp.state.n)
+    assert float(gk.state.qhist.sum()) > 0
+    assert gk.quarantined == gp.quarantined == 8
+
+
+@pytest.mark.parametrize("kind", ["flat", "window", "fleet"])
+def test_quantile_consume_has_no_host_sync(cuda, kind):
+    """A quantile ``StreamRunner.consume`` under sync-debug "error": the
+    threshold's inverse CDF and the histogram's observation sync nothing
+    with the host."""
+    kw = dict(d_model=96, num_bits=10, num_tables=20, warmup_items=200.0,
+              threshold_mode="quantile", quantile_q=0.02, device=cuda)
+    filt = {"flat": lambda: AceDataFilter(**kw),
+            "window": lambda: WindowedAceFilter(**kw, num_epochs=3,
+                                                rotate_every=2),
+            "fleet": lambda: FleetDataFilter(**kw, num_tenants=4)}[kind]()
+    runner = StreamRunner(filt, 4)
+    st, w = runner.init()
+    rng = np.random.default_rng(0)
+    for c in range(3):
+        f = rng.normal(size=(4, 64, 97)).astype(np.float32)
+        f[:, 0, 0] = np.nan
+        chunk = torch.as_tensor(f, device=cuda)
+        tids = (torch.as_tensor(rng.integers(0, 4, (4, 64)), dtype=torch.int32,
+                                device=cuda) if kind == "fleet" else None)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, summary = runner.consume(st, w, chunk, tids)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    assert int(runner.fetch(summary).quarantined) == 4
+    assert 0 < float(st.qhist.sum()) <= 3 * 4 * 63

@@ -145,14 +145,35 @@ class TestGuardrailSlice:
 class TestNotPorted:
     @pytest.mark.parametrize("kw,item", [
         (dict(window_epochs=2, rotate_every=1, count_dtype="int16"), 9),
-        (dict(num_tenants=2, threshold_mode="quantile"), 7),
-        (dict(threshold_mode="quantile"), 7),
         (dict(count_dtype="int8"), 9),
         (dict(esc_capacity=4), 9)])
     def test_guardrail_features_of_later_slices_raise(self, kw, item):
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
             engine.Guardrail(engine.GuardrailConfig(d_model=8, **kw),
                              device="cpu")
+
+    @pytest.mark.parametrize("kw", [
+        dict(num_tenants=2, threshold_mode="quantile"),
+        dict(threshold_mode="quantile")])
+    def test_quantile_guardrails_now_run_like_the_reference(self, kw):
+        """Quantile admission, once refused here (queue 1 item 7), now
+        admits like the reference on the same W: masks, counts and the
+        rate histogram bitwise (tests/test_torch_quantile.py covers every
+        flavour)."""
+        gj, gp = _pair(True, False, quantile_q=0.05, **kw)
+        T = kw.get("num_tenants")
+        rng = np.random.default_rng(0)
+        for e in _batches(6):
+            t = None if T is None else rng.integers(0, T, 16).astype(
+                np.int32)
+            want = gj.admit(jnp.asarray(e)) if t is None \
+                else gj.admit(jnp.asarray(e), jnp.asarray(t))
+            np.testing.assert_array_equal(gp.admit(e, t), np.asarray(want))
+        got = state_to_numpy(gp.state)
+        for k in ("counts", "n", "qhist"):
+            np.testing.assert_array_equal(got[k], np.asarray(
+                getattr(gj.state, k)), err_msg=k)
+        assert got["qhist"].sum() > 0
 
     def test_mesh_and_health_raise(self):
         with pytest.raises(NotImplementedError, match="queue 1 item 13"):

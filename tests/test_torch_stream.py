@@ -143,15 +143,33 @@ class TestFilterStep:
             assert torch.equal(getattr(sk_, k), getattr(sp, k)), k
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(threshold_mode="quantile"), 7), (dict(count_dtype="int8"), 9),
-        (dict(esc_capacity=4), 9),
-        (dict(threshold_mode="quantile", num_epochs=2), 7)])
+        (dict(count_dtype="int8"), 9), (dict(esc_capacity=4), 9)])
     def test_later_slices_raise(self, kw, item):
-        cls = AceDataFilter
-        if "num_epochs" in kw:                 # the windowed filter
-            from repro_torch.window.filter import WindowedAceFilter as cls
         with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            cls(d_model=8, device="cpu", **kw)
+            AceDataFilter(d_model=8, device="cpu", **kw)
+
+    @pytest.mark.parametrize("windowed", [False, True])
+    def test_quantile_filters_now_step_like_the_reference(self, windowed):
+        """Quantile admission, once refused here (queue 1 item 7), now
+        steps like the reference: keep masks and histograms bitwise
+        (tests/test_torch_quantile.py covers every filter)."""
+        from repro.window.filter import WindowedAceFilter as JWin
+        from repro_torch.window.filter import WindowedAceFilter
+        kw = {**FKW, "threshold_mode": "quantile", "quantile_q": 0.05,
+              "warmup_items": 40.0}
+        if windowed:
+            kw["num_epochs"] = 2
+        jf = (JWin if windowed else JFilter)(**kw)
+        pf = (WindowedAceFilter if windowed else AceDataFilter)(
+            **kw, device="cpu")
+        (js, jw), (ps, _) = jf.init(), pf.init()
+        w = params_from_numpy(np.asarray(jw), CPU)
+        for f in _features(6, burst_from=4):
+            js, jk, _ = jf.step(js, jw, jnp.asarray(f))
+            ps, pk, _ = pf.step(ps, w, torch.from_numpy(f))
+            np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+        np.testing.assert_array_equal(ps.qhist.numpy(), np.asarray(js.qhist))
+        assert float(ps.qhist.sum()) > 0
 
     def test_bad_options_raise(self):
         with pytest.raises(ValueError, match="threshold_mode"):

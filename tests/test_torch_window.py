@@ -212,8 +212,11 @@ class TestRingAlgebra:
             WindowConfig(ace=cfg, decay=1.5)
         with pytest.raises(ValueError, match="decay"):
             WindowConfig(ace=cfg, decay=0.0)
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-            ring.init(cfg, 2, CPU, quantile=True)
+        qh = ring.init(cfg, 2, CPU, quantile=True).qhist
+        np.testing.assert_array_equal(
+            qh.numpy(), np.asarray(jring.init(jsk.AceConfig(**KW), 2,
+                                              quantile=True).qhist))
+        assert ring.init(cfg, 2, CPU).qhist is None
         assert WindowConfig(ace=cfg, num_epochs=3).memory_bytes() == \
             jring.WindowConfig(ace=jsk.AceConfig(**KW),
                                num_epochs=3).memory_bytes()
@@ -381,9 +384,15 @@ class TestWindowedFilter:
         assert_window(ps, js, gamma)
 
     def test_bad_options_raise(self):
-        with pytest.raises(NotImplementedError, match="queue 1 item 7"):
+        with pytest.raises(ValueError, match="threshold_mode"):
             WindowedAceFilter(d_model=8, device="cpu",
-                              threshold_mode="quantile")
+                              threshold_mode="median")
+        qf = WindowedAceFilter(d_model=8, device="cpu",
+                               threshold_mode="quantile", num_epochs=3)
+        np.testing.assert_array_equal(
+            qf.init()[0].qhist.numpy(),
+            np.asarray(JFilter(d_model=8, threshold_mode="quantile",
+                               num_epochs=3).init()[0].qhist))
         with pytest.raises(ValueError, match="decay"):
             WindowedAceFilter(d_model=8, device="cpu", decay=2.0)
         with pytest.raises(ValueError, match="num_epochs"):
