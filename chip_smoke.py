@@ -41,6 +41,12 @@ non-zero without printing its result line):
              ``ace_score_fused``'s ids bitwise ``srp_hash``'s, its
              unweighted scores bitwise ``srp_hash`` + ``ace_query_sum``
              (either row sum), its weighted ones the table-order sum;
+             then the seven kernels that read or add counters again in
+             int16, int8 and float32 counters (``phase_kernels_dtypes``):
+             the same shapes and checks, a batch of 4096 into one bucket
+             from the cap (narrow counters wrap, add for add), 4096 rows
+             on the four int8 buckets of one 32-bit word, and base rows
+             of the windowed fleet's ring in each dtype;
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -142,11 +148,29 @@ non-zero without printing its result line):
              tenant, mu-sigma under- and over-flagging, burst recall
              >= 0.8); phase 5's fleet stream in quantile mode (one
              transfer each way a chunk, no sync inside ``consume``),
-             items/s in turns with mu-sigma's.
+             items/s in turns with mu-sigma's;
+10. narrow — every narrow flavour in lockstep with its int32 twin (one
+             W, the same traffic, the order alternating, each admit
+             timed): the flat ``Guardrail`` at phase 4's width and
+             traffic in int16 (3,276,800 B of counters), in int8 (which
+             wraps) and in int8 with ``esc_capacity`` 4096 (hot counters
+             promoted past 127), the windowed, fleet and windowed-fleet
+             guardrails on phase 6's traffic in int16 and int8; verdicts
+             equal every admit, counts widened (densified) bitwise while
+             no counter passes the cap, and an unpromoted plane past it
+             the int32 counts wrapped; the fused, window and fleet queries
+             on the narrow states; ``AceEstimator`` at phase 3's shape
+             in int16 with promotion (densified ≡ phase 3's int32 fit,
+             none lost) and phase 5's dense stream in int16 (one
+             transfer each way a chunk, no sync in ``consume``), each in
+             turns with int32; then the seven count-reading kernels timed
+             in int32, int16 and int8 in one call
+             (``phase_timing_dtypes``).
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 (the post-mortem query a path
-of its own) and read just after, every kernel of a path must have been
+before each path of phases 3 to 7, 9 and 10 (the post-mortem query a
+path of its own; in phase 10 before each narrow admit) and read just
+after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
 The admits and ``consume`` calls traced in phases 4-7 and 9 are traced
@@ -157,7 +181,9 @@ are the card's ``nvidia-smi`` name and power limit, one JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``.  A kernel's
 ``max_abs_err`` there is the largest absolute difference, in phase 2,
 between any of its outputs (bucket ids, counts, gathers, scores) and the
-plain version's.
+plain version's; each count-reading kernel's ``by_dtype`` gives the same
+in int16, int8 and float32, its times and bound in each narrow dtype,
+and its launches on phase 10's paths of that dtype.
 
 Data and weights are made from SEED.  Nothing here imports JAX.
 """
@@ -2753,6 +2779,649 @@ def srht_bound(B: int, d: int, cfg):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+# ---------------------------------------------------------------------------
+# Phase 2, count dtypes: the seven kernels that read or add counters, in
+# the reference's other count dtypes, against their plain versions.
+# ---------------------------------------------------------------------------
+
+NARROW_KERNELS = ("ace_update", "ace_query", "ace_admit_fused",
+                  "ace_score_fused", "ace_window_combine", "ace_fleet_score",
+                  "ace_fleet_window_admit")
+COUNT_DTYPES = ("int16", "int8", "float32")
+
+
+def max_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float((a.double() - b.double()).abs().max()) if a.numel() else 0.0
+
+
+def phase_kernels_dtypes(mods, device, fit_batch=FIT_BATCH, d_model=D_MODEL,
+                         admit_b=ADMIT_B, n_queries=N_QUERIES) -> dict:
+    """Phase 2 in int16, int8 and float32 counters, at the main paths'
+    shapes, each kernel against its plain version on the card, bitwise
+    downstream of the kernel's own ids: ``ace_update`` on the fit batch
+    (with a row mask; the whole batch in one bucket a table from the cap,
+    so narrow counters wrap; the rows on four neighbouring buckets of one
+    32-bit word, the int8 compare-and-swap's contention), ``ace_query``
+    and ``ace_query_sum`` in every scale, ``ace_admit_fused`` on random,
+    colliding and stream-step batches, ``ace_score_fused`` at the
+    estimator's score shape in both forms, and on the windowed fleet's
+    (T·E·L, 2^15) ring in each dtype ``ace_update``/``ace_query_sum`` at
+    per-item base rows, ``ace_window_combine``, ``ace_fleet_score`` and
+    ``ace_fleet_window_admit``.  Returns {kernel: {dtype: max_abs_err}}."""
+    from repro_torch.core.srp import SrpConfig, make_projections
+    h, u, q, a, f, wc, fs, fwa = (mods[k] for k in (
+        "srp_hash", "ace_update", "ace_query", "ace_admit_fused",
+        "ace_score_fused", "ace_window_combine", "ace_fleet_score",
+        "ace_fleet_window_admit"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    err = {k: {dt: 0.0 for dt in COUNT_DTYPES} for k in NARROW_KERNELS}
+    L, K, nb = L_TABLES, K_BITS, 1 << K_BITS
+
+    def same(kernel, dt, x, y) -> bool:
+        err[kernel][dt] = max(err[kernel][dt], max_err(x, y))
+        return torch.equal(x, y)
+
+    cfg = SrpConfig(dim=KDD_D, num_bits=K, num_tables=L)
+    w = make_projections(cfg, device=device)
+    x = torch.as_tensor(kdd_like(fit_batch, KDD_D,
+                                 np.random.default_rng(SEED + 1)),
+                        device=device)
+    kb = h.srp_hash(x, w, cfg)
+    base = torch.randint(0, 9, (L, nb), generator=gen, device=device,
+                         dtype=torch.int32)
+    rmask = torch.rand((fit_batch,), generator=gen, device=device) < 0.5
+    hot = torch.full_like(kb, 12345)
+    word = (400 + torch.arange(fit_batch, device=device) % 4)[:, None] \
+        .expand(fit_batch, L).to(torch.int32).contiguous()
+    tmask = torch.ones(L, device=device)
+    tmask[[3, 31]] = 0.0
+    acfg = SrpConfig(dim=d_model + 1, num_bits=K, num_tables=L, seed=41)
+    aw = make_projections(acfg, device=device)
+    qr = torch.randn((admit_b, d_model + 1), generator=gen, device=device)
+    qc = qr[: admit_b // 8].repeat(8, 1).contiguous()
+    amask = torch.rand((admit_b,), generator=gen, device=device) < 0.9
+    scfg = SrpConfig(dim=d_model + 1, num_bits=STREAM_K,
+                     num_tables=STREAM_L, seed=47)
+    sw = make_projections(scfg, device=device)
+    sq = torch.randn((STREAM_B, d_model + 1), generator=gen, device=device)
+    sbase = torch.randint(0, 9, (STREAM_L, 1 << STREAM_K), generator=gen,
+                          device=device, dtype=torch.int32)
+    qs = torch.as_tensor(kdd_like(n_queries, KDD_D,
+                                  np.random.default_rng(SEED + 4)),
+                         device=device)
+    ids_s = h.srp_hash(qs, w, cfg)
+    agree_s = (ids_s == h.srp_hash_plain(qs, w, cfg)).all(dim=1)
+    for dt in COUNT_DTYPES:
+        tdt = getattr(torch, dt)
+        c0 = base.to(tdt)
+        tag = f"[{dt}]"
+        # ace_update
+        capped = c0.clone()
+        if dt != "float32":
+            capped[:, 12345] = torch.iinfo(tdt).max
+        for name, c, ids_, m in (
+                ("fit batch", c0, kb, None), ("row mask", c0, kb, rmask),
+                (f"all {fit_batch} rows in one bucket a table, from the cap",
+                 capped, hot, None),
+                ("the same, row mask", capped, hot, rmask),
+                ("four neighbouring buckets of one word", c0, word, None),
+                ("four buckets of one word, row mask", c0, word, rmask)):
+            ck = u.ace_update(c.clone(), ids_, row_mask=m)
+            cp = u.ace_update_plain(c.clone(), ids_, m)
+            check(same("ace_update", dt, ck, cp), f"ace_update {tag} "
+                  f"({name}) bitwise equal to plain")
+            if ids_ is hot:
+                n_in = fit_batch if m is None else int(m.sum())
+                want = (capped[:, 12345].to(torch.int64) + n_in)
+                want = want.to(tdt) if dt != "float32" else want.float()
+                check(torch.equal(ck[:, 12345], want), f"ace_update {tag}: "
+                      f"{n_in} adds to a counter at "
+                      f"{capped[0, 12345].item():g} give "
+                      f"{ck[0, 12345].item():g}, the reference's add in "
+                      f"{dt} (a narrow counter wraps past its max)")
+        # ace_query: the (B, L) gather and the sum in every scale
+        ck = u.ace_update(c0.clone(), kb)
+        gk, gp = q.ace_query(ck, kb), q.ace_query_plain(ck, kb)
+        check(same("ace_query", dt, gk, gp), f"ace_query {tag} (B, L) "
+              "gather bitwise equal to plain")
+        wide = q.ace_query_sum(ck.to(torch.int32), kb)
+        for scale in q.SCALES:
+            for m in (None, tmask):
+                got = q.ace_query_sum(ck, kb, table_mask=m, scale=scale)
+                ref = q.ace_query_sum_plain(ck, kb, table_mask=m, scale=scale)
+                check(same("ace_query", dt, got, ref), f"ace_query_sum {tag} "
+                      f"({scale}{', 2 tables masked' if m is not None else ''}"
+                      ") bitwise equal to plain")
+        check(torch.equal(q.ace_query_sum(ck, kb), wide), f"ace_query_sum "
+              f"{tag} bitwise the int32 plane's on the same counters")
+        # ace_admit_fused: random, colliding, the stream step
+        for name, qb, c, wb, cb, mb in (
+                ("random", qr, c0, aw, acfg, amask),
+                ("colliding", qc, c0, aw, acfg, amask),
+                ("stream step", sq, sbase.to(tdt), sw, scfg, None)):
+            nt = cb.num_tables
+            rr = torch.arange(nt, device=device)[None, :]
+            rc = torch.tensor(1.0 / nt, dtype=torch.float32)
+            pre = h.srp_hash_plain(qb, wb, cb)
+            thresh = torch.median(c[rr, pre.long()].float().sum(-1) * rc)
+            ck, sk_, ak, bk = a.ace_admit_fused(c.clone(), qb, wb, thresh, cb,
+                                                item_mask=mb)
+            ref_s = c[rr, bk.long()].float().sum(-1) * rc
+            ref_a = ref_s >= thresh
+            if mb is not None:
+                ref_a = ref_a & mb
+            ref_c = c.clone().index_put_(
+                (rr, bk.long()), ref_a.to(tdt)[:, None].expand(bk.shape),
+                accumulate=True)
+            check(all([same("ace_admit_fused", dt, sk_, ref_s),
+                       same("ace_admit_fused", dt, ak, ref_a),
+                       same("ace_admit_fused", dt, ck, ref_c)]),
+                  f"ace_admit_fused {tag} ({name}) scores, admit mask and "
+                  "counts bitwise downstream of its own ids")
+            share = agreement(bk, h.srp_hash_plain(qb, wb, cb))
+            check(share >= 0.999, f"ace_admit_fused {tag} ({name}) ids "
+                  f"agree with plain: {share:.6f} >= 0.999")
+        # ace_score_fused at the estimator's score shape, both forms
+        ck_fit = u.ace_update(c0.clone(), kb)
+        for name, tw in (("unweighted", None),
+                         ("weighted, 2 tables masked", tmask / tmask.sum())):
+            sk_, kid = f.ace_score_fused_planned(ck_fit, qs, w, cfg, tw, None,
+                                                 with_ids=True)
+            if tw is None:
+                ref = q.ace_query_sum(ck_fit, kid)
+            else:
+                ref = f.table_order_sum(f.flat_table_gather(ck_fit, kid), tw)
+            sp = f.ace_score_fused_plain(ck_fit, qs, w, cfg, tw)
+            same("ace_score_fused", dt, sk_[agree_s], sp[agree_s])
+            check(torch.equal(kid, ids_s) and torch.equal(sk_, ref)
+                  and torch.equal(sk_[agree_s], sp[agree_s]),
+                  f"ace_score_fused {tag} ({name}): ids srp_hash's, scores "
+                  f"bitwise its own ids' and plain on the {int(agree_s.sum())}"
+                  f" of {n_queries} rows whose ids agree")
+    del base, capped
+
+    # the windowed fleet's ring in each dtype
+    T, E = FLEET_T, WIN_E
+    x6 = torch.randn((admit_b, d_model + 1), generator=gen, device=device)
+    ids6 = h.srp_hash(x6, aw, acfg)
+    ring32 = torch.randint(0, 9, (T, E, L, nb), generator=gen, device=device,
+                           dtype=torch.int32)
+    tail = torch.randint(0, 40, (T, L, nb), generator=gen,
+                         device=device).float() * 0.9
+    cursor = torch.randint(0, E, (T,), generator=gen, device=device,
+                           dtype=torch.int32)
+    tids = (torch.arange(admit_b, device=device) % T).to(torch.int32)
+    live = ((tids.long() * E + cursor.long()[tids.long()]) * L) \
+        .to(torch.int32)
+    routed = (torch.rand((T, L), generator=gen, device=device) < 0.9).float()
+    weights = WIN_GAMMA ** torch.arange(E, dtype=torch.float32, device=device)
+    plan = h.device_plan(admit_b, d_model + 1, K, L, device)
+    agree6 = (ids6 == h.srp_hash_plain(x6, aw, acfg)).all(dim=1)
+    xc6 = x6[: admit_b // 8].repeat(8, 1).contiguous()
+    tc6 = tids[: admit_b // 8].repeat(8).contiguous()
+    pre = fwa.fleet_window_admit_from_ids(
+        ring32.clone(), tail, cursor, ids6, tids,
+        torch.full((T,), float("-inf"), device=device))[0]
+    thr = torch.stack([torch.median(pre[tids == t]) for t in range(T)])
+    for dt in COUNT_DTYPES:
+        tdt = getattr(torch, dt)
+        tag = f"[{dt}]"
+        ring = ring32.to(tdt)
+        flat = ring.view(T * E * L, nb)
+        ck = u.ace_update(flat.clone(), ids6, row_mask=amask, row_base=live)
+        cp = u.ace_update_plain(flat.clone(), ids6, amask, live)
+        check(same("ace_update", dt, ck, cp), f"ace_update {tag} at "
+              f"per-item base rows of the ({T * E * L}, 2^{K}) ring bitwise "
+              "equal to plain")
+        for scale in q.SCALES:
+            got = q.ace_query_sum(ck, ids6, live, table_mask=routed,
+                                  tenant_ids=tids, scale=scale,
+                                  with_unmasked=True)
+            ref = q.ace_query_sum_plain(ck, ids6, live, table_mask=routed,
+                                        tenant_ids=tids, scale=scale,
+                                        with_unmasked=True)
+            check(all([same("ace_query", dt, got[0], ref[0]),
+                       same("ace_query", dt, got[1], ref[1])]),
+                  f"ace_query_sum {tag} ({scale}) at per-item base rows, a "
+                  "routed (T, L) mask, with the unmasked sum: bitwise plain")
+        for name, tw in (("unweighted", None),
+                         ("weighted, 2 tables masked", tmask / tmask.sum())):
+            got = wc.ace_window_combine(ring[0], ids6, weights, tw)
+            ref = wc.ace_window_combine_plain(ring[0], ids6, weights, tw)
+            check(same("ace_window_combine", dt, got, ref),
+                  f"ace_window_combine {tag} ({name}) bitwise equal to plain "
+                  f"at B={admit_b}, E={E}, L={L}, K={K}")
+        live0 = ring[:, 0].contiguous()
+        got, fids = fs.ace_fleet_score_planned(live0, x6, tids, aw, acfg,
+                                               plan, with_ids=True)
+        ref = q.ace_query_sum(live0.view(T * L, nb), fids,
+                              (tids * L).contiguous())
+        sp = fs.ace_fleet_score_plain(live0, x6, tids, aw, acfg)
+        same("ace_fleet_score", dt, got[agree6], sp[agree6])
+        check(torch.equal(fids, h.srp_hash_planned(x6, aw, acfg, plan))
+              and same("ace_fleet_score", dt, got, ref)
+              and torch.equal(got[agree6], sp[agree6]),
+              f"ace_fleet_score {tag}: ids srp_hash's under one plan, "
+              "scores bitwise srp_hash + the routed ace_query_sum and plain "
+              f"on the {int(agree6.sum())} of {admit_b} rows whose ids agree")
+        for name, qb, tb in (("random", x6, tids), ("colliding", xc6, tc6)):
+            r = ring.clone()
+            out = fwa.ace_fleet_window_admit_fused(r, tail, cursor, qb, tb, aw,
+                                                   thr, acfg, item_mask=amask)
+            r_ref = ring.clone()
+            ref = (r_ref, *fwa.fleet_window_admit_from_ids(
+                r_ref, tail, cursor, out[3], tb, thr, amask))
+            ok = all([same("ace_fleet_window_admit", dt, x_, y_)
+                      for x_, y_ in ((r, ref[0]), (out[1], ref[1]),
+                                     (out[2], ref[2]), (out[4], ref[3]),
+                                     (out[5], ref[4]))])
+            check(ok and torch.equal(out[3],
+                                     h.srp_hash_planned(qb, aw, acfg, plan)),
+                  f"ace_fleet_window_admit {tag} ({name}): ids srp_hash's; "
+                  "ring, scores, admit mask and both sums bitwise downstream "
+                  "of its own ids")
+        del ring, flat, ck, cp
+    return err
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: narrow count planes end to end, each in lockstep with int32.
+# ---------------------------------------------------------------------------
+
+NARROW_ESC = 4096        # escalation slots of the promoted flat sketches
+
+
+def widened(state) -> torch.Tensor:
+    """A state's counts as int32: narrow ones widened, a quantized plane's
+    densified through its escalation table."""
+    from repro_torch.core import quantize as qz
+    if getattr(state, "esc", None) is not None:
+        return qz.densify(state.counts, state.esc)
+    return state.counts.to(torch.int32)
+
+
+def lockstep(mods, what, gn, g32, batches) -> dict:
+    """Each batch admitted by the narrow guardrail ``gn`` and its int32 twin
+    ``g32`` (one W, both empty to start) in turns, the order alternating,
+    each admit timed (host clock, ends in the verdict transfer); the
+    launch counts set to 0 just before each narrow admit and read just
+    after.  Checked after every admit: the verdicts equal, and the narrow
+    counts widened (densified through the escalation table) bitwise the
+    int32 twin's while its largest counter stays at most the narrow cap.
+    An admit that takes a counter of an unpromoted narrow plane past its
+    cap must leave the narrow counts the int32 ones wrapped into the
+    narrow dtype (the reference's add); from there the two are different
+    sketches and are not compared."""
+    cap = torch.iinfo(gn.state.counts.dtype).max
+    promoted = getattr(gn.state, "esc", None) is not None
+    launches = {k: 0 for k in launch_counters(mods)}
+    t_n, t_32, compared, wrapped_at = [], [], 0, None
+    for i, (e, t) in enumerate(batches):
+        order = (gn, g32) if i % 2 == 0 else (g32, gn)
+        masks = {}
+        for g in order:
+            if g is gn:
+                reset_launches(mods)
+            t0 = time.perf_counter()
+            masks[id(g)] = g.admit(e, t)
+            (t_n if g is gn else t_32).append(time.perf_counter() - t0)
+            if g is gn:
+                for k, v in read_launches(mods).items():
+                    launches[k] += v
+        if wrapped_at is not None:
+            continue
+        check(np.array_equal(masks[id(gn)], masks[id(g32)]),
+              f"{what}: admit {i + 1} verdicts equal the int32 twin's")
+        top = int(g32.state.counts.max())
+        if promoted or top <= cap:
+            check(torch.equal(widened(gn.state), g32.state.counts),
+                  f"{what}: after admit {i + 1} the counts, "
+                  f"{'densified' if promoted else 'widened'}, are bitwise "
+                  f"the int32 twin's (largest counter {top})")
+            compared += 1
+        else:
+            check(torch.equal(gn.state.counts,
+                              g32.state.counts.to(gn.state.counts.dtype)),
+                  f"{what}: admit {i + 1} takes a counter to {top}, past "
+                  f"{cap}: the narrow counts are the int32 ones wrapped, "
+                  "add for add; from here the sketches differ")
+            wrapped_at = i + 1
+    p50_n, p50_32 = (1e3 * statistics.median(x) for x in (t_n, t_32))
+    print(f"  {what}: admit p50 {p50_n:.3f} ms, int32 twin {p50_32:.3f} ms "
+          f"(in turns); {compared} admits compared bitwise"
+          + ("" if wrapped_at is None else
+             f", wrapped at admit {wrapped_at}")
+          + f"; memory_bytes {gn.memory_bytes():,} (int32 "
+          f"{g32.memory_bytes():,}); launches {launches}")
+    return {"launches": launches, "p50_ms": p50_n, "int32_p50_ms": p50_32,
+            "compared": compared, "wrapped_at": wrapped_at,
+            "memory_bytes": gn.memory_bytes(),
+            "int32_memory_bytes": g32.memory_bytes()}
+
+
+def phase_narrow(mods, device, est, d_model=D_MODEL) -> dict:
+    """Phase 10: every narrow flavour beside its int32 twin on the same W
+    and traffic.  Flat guardrails at phase 4's width on its traffic: int16
+    (3,276,800 B of counters at K = 15, L = 50) and int8 with
+    ``esc_capacity`` so hot counters pass 127; the windowed, fleet and
+    windowed-fleet guardrails with int8 rings on phase 6's traffic; the
+    queries on the narrow states (``ops.ace_score`` on the int16 sketch,
+    ``ops.ace_window_score`` and ``ops.ace_fleet_score`` on the int8
+    rings); ``AceEstimator`` at phase 3's KDD shape in int16 with
+    promotion (``est``: phase 3's int32 fit); phase 5's dense stream in
+    int16.  Returns {path: result}."""
+    from repro_torch.core import quantize as qz
+    from repro_torch.core.estimators import AceEstimator
+    from repro_torch.core.sketch import AceConfig
+    from repro_torch.data.pipeline import mean_embed_features
+    from repro_torch.kernels import ops
+    from repro_torch.stream.runner import StreamRunner
+    from repro_torch.serve.engine import Guardrail, GuardrailConfig
+    from repro_torch.window import ring
+    out = {}
+    base = dict(d_model=d_model, num_bits=K_BITS, num_tables=L_TABLES)
+    guards = {}
+    flavours = [("flat_int16", dict(count_dtype="int16"), "phase4"),
+                ("flat_int8", dict(count_dtype="int8"), "phase4"),
+                ("flat_int8_esc", dict(count_dtype="int8",
+                                       esc_capacity=NARROW_ESC), "phase4")]
+    flavours += [(f"{k}_{dt}", dict(count_dtype=dt, **GUARD_KINDS[k]),
+                  "phase6") for dt in ("int16", "int8") for k in GUARD_KINDS]
+    for name, kw, traffic in flavours:
+        dt = kw["count_dtype"]
+        extra = {k: v for k, v in kw.items()
+                 if k not in ("count_dtype", "esc_capacity")}
+        g32 = Guardrail(GuardrailConfig(**base, **extra), device=device)
+        gn = Guardrail(GuardrailConfig(**base, **kw), device=device, w=g32.w)
+        T = gn.gcfg.num_tenants if gn.gcfg.num_tenants > 1 else None
+        batches = (((e, None) for e, _ in guardrail_batches(
+            device, d_model, ADMITS, ADMIT_B, ADMIT_S))
+            if traffic == "phase4" else shift_batches(
+                device, d_model, SHIFT_ADMITS, ADMIT_B, ADMIT_S, SHIFT_AT, T))
+        r = lockstep(mods, f"guardrail {name}", gn, g32, batches)
+        st = gn.state
+        check(st.counts.dtype == getattr(torch, dt),
+              f"guardrail {name} keeps {dt} counts")
+        if dt == "int16":
+            check(r["wrapped_at"] is None, f"guardrail {name}: no counter "
+                  "reaches the int16 cap on this traffic; every admit "
+                  "bitwise the int32 twin's")
+        if name == "flat_int16":
+            check(gn.memory_bytes() == 3_276_800,
+                  f"int16 flat sketch: memory_bytes {gn.memory_bytes():,} "
+                  "B (L x 2^K x 2, under 4 MB); largest counter "
+                  f"{int(st.counts.max())}")
+        if name == "flat_int8_esc":
+            slots = int((st.esc.offs != qz.SENTINEL).sum())
+            print(f"  guardrail {name}: {slots} promoted slots of "
+                  f"{NARROW_ESC}, lost {float(st.esc.lost):g}, largest "
+                  f"logical counter {int(widened(st).max())}")
+            check(slots > 0 and float(st.esc.lost) == 0.0
+                  and r["compared"] == ADMITS,
+                  "int8 with promotion: hot counters promoted past 127, "
+                  "none lost, every admit bitwise the int32 twin's")
+            path = ("srp_hash",)
+        elif name.startswith("flat"):
+            path = ("ace_admit_fused", "ace_query")
+        elif name.startswith("fleet_window"):
+            path = ("ace_fleet_window_admit", "ace_query")
+        else:
+            path = ("srp_hash", "ace_query", "ace_update")
+        for k in path:
+            check(r["launches"][k] > 0, f"guardrail {name} launched {k}")
+        out[f"narrow_{name}"] = {**r, "dtype": dt}
+        guards[name] = (gn, g32)
+
+    # the queries on the narrow states: the fused score of the flat
+    # sketch, the E-way window score, the fleet score; bitwise what the
+    # same kernels' inputs give on another route, and bitwise the int32
+    # twins' where the two never diverged
+    e, _ = next(guardrail_batches(device, d_model, ADMITS, ADMIT_B, ADMIT_S))
+    tids = (torch.arange(ADMIT_B, device=device) % FLEET_T).to(torch.int32)
+    for dt in ("int16", "int8"):
+        gs, gs32 = guards[f"flat_{dt}"]
+        gw, gw32 = guards[f"window_{dt}"]
+        gf, gf32 = guards[f"fleet_{dt}"]
+        feat = mean_embed_features(e, gs.gcfg.bias_const)
+        feat = torch.where(torch.isfinite(feat).all(-1)[:, None], feat, 0.0)
+        ids = mods["srp_hash"].srp_hash(feat, gs.w, gs.ace_cfg.srp)
+        wids = mods["srp_hash"].srp_hash(feat, gw.w, gw.ace_cfg.srp)
+        fids = mods["srp_hash"].srp_hash(feat, gf.w, gf.ace_cfg.srp)
+        reset_launches(mods)
+        got = {"flat": ops.ace_score(gs.state, feat, gs.w, gs.ace_cfg),
+               "window": ops.ace_window_score(gw.state, wids, WIN_GAMMA),
+               "fleet": ops.ace_fleet_score(gf.state, feat, tids, gf.w,
+                                            gf.ace_cfg)}
+        launches = read_launches(mods)
+        wts = ring.epoch_weights(gw.state.cursor, WIN_E, WIN_GAMMA)
+        other = {"flat": mods["ace_query"].ace_query_sum(gs.state.counts,
+                                                         ids),
+                 "window": mods["ace_window_combine"]
+                 .ace_window_combine_plain(gw.state.counts, wids, wts),
+                 "fleet": mods["ace_fleet_score"].fleet_score_from_ids(
+                     gf.state.counts, fids, tids)}
+        twin = {"flat": lambda: ops.ace_score(gs32.state, feat, gs.w,
+                                              gs.ace_cfg),
+                "window": lambda: ops.ace_window_score(gw32.state, wids,
+                                                       WIN_GAMMA),
+                "fleet": lambda: ops.ace_fleet_score(gf32.state, feat, tids,
+                                                     gf.w, gf.ace_cfg)}
+        for k in got:
+            check(torch.equal(got[k], other[k]), f"{dt} {k} query bitwise "
+                  "the same counters' score on another route (srp_hash + "
+                  "ace_query_sum, the plain combine, the routed sum)")
+            if out[f"narrow_{k}_{dt}"]["wrapped_at"] is None:
+                check(torch.equal(got[k], twin[k]()), f"{dt} {k} query "
+                      "bitwise the int32 twin's")
+        for k in ("ace_score_fused", "ace_window_combine", "ace_fleet_score"):
+            check(launches[k] > 0, f"{dt} query path launched {k}")
+        print(f"  narrow queries ({dt}): launches {launches}")
+        out[f"narrow_queries_{dt}"] = {"launches": launches, "dtype": dt}
+    guards.clear()
+
+    # AceEstimator at the KDD shape in int16 with promotion, in turns
+    # with the int32 fit (phase 3's data and W)
+    rng = np.random.default_rng(SEED + 2)
+    x = kdd_like(KDD_N + N_QUERIES - N_QUERIES // 100, KDD_D, rng)[:KDD_N]
+    xd = torch.as_tensor(x, device=device)
+    secs = {"int16": [], "int32": []}
+    launches = {k: 0 for k in launch_counters(mods)}
+    for dt in ("int16", "int32", "int16", "int32"):
+        cfg = AceConfig(dim=KDD_D, num_bits=K_BITS, num_tables=L_TABLES,
+                        counter_dtype=dt,
+                        esc_capacity=NARROW_ESC if dt == "int16" else 0)
+        e_ = AceEstimator(cfg, device=device, w=est["w"])
+        sync(device)
+        if dt == "int16":
+            reset_launches(mods)
+        t0 = time.perf_counter()
+        e_.fit(xd, batch=FIT_BATCH)
+        sync(device)
+        secs[dt].append(time.perf_counter() - t0)
+        if dt == "int16":
+            for k, v in read_launches(mods).items():
+                launches[k] += v
+            narrow = e_
+    st = narrow.state
+    slots = int((st.esc.offs != qz.SENTINEL).sum())
+    check(torch.equal(widened(st), est["counts"]) and float(st.n) == KDD_N
+          and float(st.esc.lost) == 0.0,
+          f"AceEstimator int16 + promotion: densified counts bitwise the "
+          f"int32 fit's ({slots} promoted slots of {NARROW_ESC}, largest "
+          f"counter {int(widened(st).max()):,}, lost 0)")
+    qx = xd[:N_QUERIES]
+    reset_launches(mods)
+    s_n = narrow.score(qx)
+    launches_q = read_launches(mods)
+    for k, v in launches_q.items():
+        launches[k] += v
+    e32 = AceEstimator(AceConfig(dim=KDD_D, num_bits=K_BITS,
+                                 num_tables=L_TABLES), device=device,
+                       w=est["w"])
+    e32.state = e32.state._replace(counts=est["counts"])
+    check(torch.equal(s_n, e32.score(qx)), "its scores bitwise the int32 "
+          "sketch's (the logical gather of the same ids)")
+    check(launches["srp_hash"] > 0, "estimator int16 path launched srp_hash")
+    f16, f32 = statistics.median(secs["int16"]), statistics.median(
+        secs["int32"])
+    print(f"  AceEstimator int16 + promotion: fit {KDD_N:,} x {KDD_D} in "
+          f"{f16:.3f} s, int32 {f32:.3f} s (in turns, medians of 2); "
+          f"memory_bytes {narrow.memory_bytes():,} (int32 "
+          f"{e32.memory_bytes():,}); launches {launches}")
+    out["narrow_estimator_int16_esc"] = {
+        "launches": launches, "dtype": "int16", "seconds": f16,
+        "int32_seconds": f32, "memory_bytes": narrow.memory_bytes(),
+        "promoted": slots}
+    del xd, narrow, e32
+
+    # phase 5's dense stream in int16, in turns with int32
+    chunks, T, B = STREAM_CHUNKS, STREAM_T, STREAM_B
+    feats, _ = stream_features(device, d_model, chunks, T, B)
+    runs = {}
+    for dt in ("int32", "int16", "int16", "int32"):
+        filt = stream_filter("dense", device, d_model, count_dtype=dt)
+        runner = StreamRunner(filt, chunk_T=T)
+        res = instrumented_run(mods, runner, device, feats, None, T)
+        runs.setdefault(dt, []).append(res)
+    (st16, _, sums16, _, launches, tr16) = runs["int16"][0]
+    (st32, _, sums32, _, _, _) = runs["int32"][0]
+    check(tr16 == {"h2d": chunks, "d2h": chunks}, f"int16 stream: one H2D "
+          f"and one D2H a chunk ({tr16}), no host sync inside consume")
+    check(st16.counts.dtype == torch.int16
+          and torch.equal(st16.counts.to(torch.int32), st32.counts)
+          and all(np.array_equal(a.kept_frac, b.kept_frac)
+                  for a, b in zip(sums16, sums32)),
+          f"int16 stream: counts widened and kept fractions bitwise the "
+          f"int32 stream's (largest counter {int(st32.counts.max())})")
+    for k in ("ace_admit_fused", "ace_query"):
+        check(launches[k] > 0, f"int16 stream path launched {k}")
+    ips = {dt: statistics.median(chunks * T * B / r[3] for r in rs)
+           for dt, rs in runs.items()}
+    print(f"  stream int16: {ips['int16']:,.0f} items/s, int32 "
+          f"{ips['int32']:,.0f} items/s (in turns, medians of 2); launches "
+          f"{launches}")
+    out["narrow_stream_int16"] = {"launches": launches, "dtype": "int16",
+                                  "items_per_s": ips["int16"],
+                                  "int32_items_per_s": ips["int32"]}
+    return out
+
+
+def phase_timing_dtypes(mods, device, d_model=D_MODEL) -> dict:
+    """Phase 8 for the seven count-reading kernels in int32, int16 and
+    int8, in one call so the three compare: each at its main path's shape
+    (``ace_update`` and ``ace_query_sum`` at the fit into one zeroed table,
+    ``ace_admit_fused`` at the admit, ``ace_score_fused`` at the
+    estimator's score, ``ace_window_combine``, ``ace_fleet_score`` and
+    ``ace_fleet_window_admit`` on a (8, 4, 50, 2^15) ring at the admit),
+    its plain version, and its bound counting the plane's own bytes (each
+    counter the batch touches read once, written once when added to).
+    Returns {kernel: {dtype: row}}."""
+    from repro_torch.core.srp import SrpConfig, make_projections
+    h, u, q, a, f, wc, fs, fwa = (mods[k] for k in (
+        "srp_hash", "ace_update", "ace_query", "ace_admit_fused",
+        "ace_score_fused", "ace_window_combine", "ace_fleet_score",
+        "ace_fleet_window_admit"))
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    L, K, nb = L_TABLES, K_BITS, 1 << K_BITS
+    T, E, Ba, da = FLEET_T, WIN_E, ADMIT_B, d_model + 1
+    ids = fit_ids(device)
+    B = ids.shape[0]
+    U = distinct_counters(ids, nb)
+    cfg = SrpConfig(dim=KDD_D, num_bits=K, num_tables=L)
+    w = make_projections(cfg, device=device)
+    qs = torch.as_tensor(kdd_like(N_QUERIES, KDD_D,
+                                  np.random.default_rng(SEED + 4)),
+                         device=device)
+    Uq = distinct_counters(h.srp_hash(qs, w, cfg), nb)
+    acfg = SrpConfig(dim=da, num_bits=K, num_tables=L, seed=41)
+    aw = make_projections(acfg, device=device)
+    P = acfg.padded_projections
+    feat = torch.randn((Ba, da), generator=gen, device=device)
+    aids = h.srp_hash(feat, aw, acfg)
+    Ua = distinct_counters(aids, nb)
+    base = torch.randint(0, 9, (L, nb), generator=gen, device=device,
+                         dtype=torch.int32)
+    ring32 = torch.randint(0, 9, (T, E, L, nb), generator=gen, device=device,
+                           dtype=torch.int32)
+    tail = torch.randint(0, 40, (T, L, nb), generator=gen,
+                         device=device).float()
+    cursor = torch.randint(0, E, (T,), generator=gen, device=device,
+                           dtype=torch.int32)
+    tids = (torch.arange(Ba, device=device) % T).to(torch.int32)
+    thr = torch.full((T,), float("-inf"), device=device)   # all admitted
+    thresh = torch.tensor(float("-inf"), device=device)
+    weights = WIN_GAMMA ** torch.arange(E, dtype=torch.float32, device=device)
+    hash_flops = 2.0 * Ba * da * K * L
+    out = {k: {} for k in NARROW_KERNELS}
+
+    def row(kernel, dt, fn, plain, flops, nbytes, shape, library=None):
+        r = dict(ms=device_ms(fn), plain_ms=device_ms(plain, reps=10),
+                 library_ms=None if library is None else device_ms(library),
+                 shape=shape, **dict(zip(("bound_ms", "bound_by"),
+                                         bound(flops, nbytes))),
+                 plane_bytes_ms=1e3 * nbytes / PEAK_BYTES_PER_S)
+        out[kernel][dt] = r
+        print(f"  {kernel} [{dt}] {shape}: kernel {r['ms']:.5f} ms, plain "
+              f"{r['plain_ms']:.5f}"
+              + ("" if library is None else f", library "
+                 f"{r['library_ms']:.5f}")
+              + f", bound {r['bound_ms']:.5f} ms ({r['bound_by']}; the "
+              f"bytes alone {r['plane_bytes_ms']:.6f})")
+
+    for dt in ("int32", "int16", "int8"):
+        tdt = getattr(torch, dt)
+        isz = torch.empty((), dtype=tdt).element_size()
+        zero = torch.zeros((L, nb), dtype=tdt, device=device)
+        counts = base.to(tdt)
+        rows = torch.arange(L, device=device)[None, :].expand(B, L)
+        ones = torch.ones((B, L), dtype=tdt, device=device)
+        row("ace_update", dt, lambda: u.ace_update(zero, ids),
+            lambda: u.ace_update_plain(zero, ids), B * L,
+            4 * B * L + 2 * isz * U,
+            f"fit B={B}, L={L}, 2^K={nb}, distinct counters {U}",
+            library=lambda: zero.index_put_((rows, ids.long()), ones,
+                                            accumulate=True))
+        row("ace_query", dt, lambda: q.ace_query_sum(counts, ids),
+            lambda: q.ace_query_sum_plain(counts, ids), 0,
+            4 * B * L + 4 * B + isz * U,
+            f"fit B={B}, L={L}, distinct counters {U}")
+        row("ace_admit_fused", dt,
+            lambda: a.ace_admit_fused(counts, feat, aw, thresh, acfg),
+            lambda: a.ace_admit_fused_plain(counts, feat, aw, thresh, acfg),
+            hash_flops,
+            4 * (Ba * da + da * P) + 2 * isz * Ua + 4 * Ba * L + 5 * Ba,
+            f"admit B={Ba}, d={da}, K={K}, L={L}")
+        row("ace_score_fused", dt,
+            lambda: f.ace_score_fused(counts, qs, w, cfg),
+            lambda: f.ace_score_fused_plain(counts, qs, w, cfg),
+            2.0 * N_QUERIES * KDD_D * K * L,
+            4 * (N_QUERIES * KDD_D + KDD_D * cfg.padded_projections)
+            + isz * Uq + 4 * N_QUERIES,
+            f"score B={N_QUERIES}, d={KDD_D}, distinct counters {Uq}")
+        ring = ring32.to(tdt)
+        row("ace_window_combine", dt,
+            lambda: wc.ace_window_combine(ring[0], aids, weights),
+            lambda: wc.ace_window_combine_plain(ring[0], aids, weights), 0,
+            4 * Ba * L + 4 * Ba + 4 * E + E * isz * Ua,
+            f"B={Ba}, E={E}, L={L}, distinct counters {Ua} an epoch")
+        live0 = ring[:, 0].contiguous()
+        row("ace_fleet_score", dt,
+            lambda: fs.ace_fleet_score(live0, feat, tids, aw, acfg),
+            lambda: fs.ace_fleet_score_plain(live0, feat, tids, aw, acfg),
+            hash_flops, 4 * (Ba * da + da * P) + 8 * Ba + isz * Ua,
+            f"admit B={Ba}, T={T}")
+        row("ace_fleet_window_admit", dt,
+            lambda: fwa.ace_fleet_window_admit_fused(
+                ring, tail, cursor, feat, tids, aw, thr, acfg),
+            lambda: fwa.ace_fleet_window_admit_fused_plain(
+                ring, tail, cursor, feat, tids, aw, thr, acfg),
+            hash_flops, 4 * (Ba * da + da * P) + (4 + 2 * isz) * Ua
+            + 4 * Ba * L + 17 * Ba,
+            f"admit B={Ba}, T={T}, E={E}, ring {ring.numel() * isz:,} B")
+        del ring, live0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -2784,6 +3453,9 @@ def main() -> int:
     for k, v in phase_kernels_windows_fleets(mods, device).items():
         err[k] = max(err.get(k, 0.0), v)
     err.update(phase_kernels_attr(mods, device))
+    print("phase 2: the seven count-reading kernels in int16, int8 and "
+          "float32 against their plain versions on the card")
+    err_dt = phase_kernels_dtypes(mods, device)
     print("phase 3: AceEstimator path")
     paths = {"estimator": phase_estimator(mods, device),
              "estimator_srht": phase_estimator_srht(mods, device)}
@@ -2841,6 +3513,11 @@ def main() -> int:
           f"ops, mu-sigma (phase 5) "
           f"{paths['stream_fleet']['breakdown']['device_ops']}")
 
+    print("phase 10: narrow count planes (int16, int8; the flat sketch "
+          "also with promotion) end to end, in turns with int32")
+    paths.update(phase_narrow(mods, device, paths["estimator"]))
+    times_dt = phase_timing_dtypes(mods, device)
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -2865,6 +3542,14 @@ def main() -> int:
                                  "composition_ms",
                                  "weighted_ms", "runs", "one_call_ms")
                  if k in t}})
+        if name in NARROW_KERNELS:
+            kernels[-1]["by_dtype"] = {
+                dt: {**times_dt[name].get(dt, {}),
+                     "max_abs_err": err_dt[name].get(dt, err[name]),
+                     "launches": sum(r["launches"][name]
+                                     for r in paths.values()
+                                     if r.get("dtype") == dt)}
+                for dt in ("int16", "int8", "float32")}
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
           f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "
@@ -2881,7 +3566,17 @@ def main() -> int:
           + ", ".join(f"{paths[f'quantile_{k}']['p50_ms']:.3f} ms {k}"
                       for k in QUANT_KINDS)
           + "; quantile fleet stream "
-          f"{paths['quantile_stream']['items_per_s']:,.0f} items/s")
+          f"{paths['quantile_stream']['items_per_s']:,.0f} items/s"
+          + "; narrow admit p50 "
+          + ", ".join(f"{paths[k]['p50_ms']:.3f} ms {k[7:]} (int32 "
+                      f"{paths[k]['int32_p50_ms']:.3f})" for k in paths
+                      if k.startswith("narrow_") and "p50_ms" in paths[k])
+          + f"; int16 + promotion fit "
+          f"{paths['narrow_estimator_int16_esc']['seconds']:.3f} s (int32 "
+          f"{paths['narrow_estimator_int16_esc']['int32_seconds']:.3f}); "
+          f"int16 stream "
+          f"{paths['narrow_stream_int16']['items_per_s']:,.0f} items/s "
+          f"(int32 {paths['narrow_stream_int16']['int32_items_per_s']:,.0f})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

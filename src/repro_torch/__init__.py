@@ -8,8 +8,10 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
-The port carries both SRP hash families (dense and SRHT), the int32 flat
-sketch with degraded (table-masked) scoring, the ``AceEstimator`` (paper
+The port carries both SRP hash families (dense and SRHT), the flat
+sketch in int32, int16, int8 or float32 counters (the narrow ones with or
+without the exact overflow promotion of ``core.quantize``) with degraded
+(table-masked) scoring, the ``AceEstimator`` (paper
 Algorithm 1), the sliding-window epoch ring (``window``), tenant fleets
 and windowed fleets (``fleet``), heavy-hitter attribution
 (``attribution``: signed count-sketch planes on every kind of state and
@@ -36,7 +38,7 @@ import torch
 
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    9: "repro.core.quantize (int8/int16 planes plus the escalation table)",
+    9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
     10: "repro.resilience",
     13: "repro.dist",
 }

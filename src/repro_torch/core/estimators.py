@@ -73,9 +73,6 @@ class AceEstimator:
                  generator: torch.Generator | None = None):
         self.cfg = cfg
         self.device = resolve_device(device)
-        if use_kernels and cfg.counter_dtype != "int32":
-            raise ValueError("the kernels take int32 counts; use "
-                             "use_kernels=False for float32 counts")
         if w is not None:
             check_projections(w, cfg.srp)
         self.w = (sk.make_params(cfg, generator, self.device) if w is None

@@ -1,7 +1,7 @@
 """The ACE sketch: L count arrays of size 2^K + streaming statistics.
 
-Port of ``repro.core.sketch`` for int32 and float32 counts (paper
-Algorithm 1, batch-parallel):
+Port of ``repro.core.sketch`` for int32, int16, int8 and float32 counts
+(paper Algorithm 1, batch-parallel):
 
 * state  = counts (L, 2^K) + n (items inserted) + the Welford stream of
   insert-time collision rates; no data point is stored;
@@ -13,8 +13,13 @@ Every function here is plain PyTorch and functional: it returns new
 tensors and leaves its inputs as they were.  The kernel path
 (``repro_torch.kernels.ops``) updates counts in place instead.
 
-The ``esc`` leaf of ``AceState`` stays ``None``: the quantized planes
-belong to a later slice (ROADMAP.md queue 1 item 9).  ``qhist`` is the
+Narrow (int8/int16) planes without promotion add and wrap in their own
+dtype, as the reference's do.  With ``esc_capacity > 0`` the ``esc`` leaf
+of ``AceState`` is the overflow table of ``repro_torch.core.quantize``,
+and every count read and write below goes through it (``lookup``,
+``insert_buckets``, ``insert_buckets_masked``, ``delete_buckets``,
+``merge``, ``mean_mu``), so counts stay exact past the dtype max.
+``qhist`` is the
 (NUM_BINS,) rate histogram of ``threshold_mode="quantile"``
 (``repro_torch.quantile.sketch``; its callers observe into it) and
 ``attr`` the (2, NL, R, C) attribution plane when
@@ -29,21 +34,23 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from repro_torch import not_ported
+from repro_torch.core import quantize as qz
 from repro_torch.core.srp import SrpConfig, hash_buckets, make_projections
 from repro_torch.quantile import sketch as qsk
 
-COUNT_DTYPES = {"int32": torch.int32, "float32": torch.float32}
+COUNT_DTYPES = {"int32": torch.int32, "int16": torch.int16,
+                "int8": torch.int8, "float32": torch.float32}
 
 
 class AceState(NamedTuple):
     """Dynamic sketch state (``repro.core.sketch.AceState``'s fields).
 
-    counts: (L, 2^K) int32 or float32 counters.
+    counts: (L, 2^K) int32, int16, int8 or float32 counters.
     n:      () float32 — number of items represented (exact up to 2^24).
     welford_mean / welford_m2: () float32 — streaming mean/M2 of the
             insert-time collision RATES score/n (the σ of the threshold).
-    esc:    always None in this slice.
+    esc:    the overflow table (``quantize.EscTable``) of a narrow plane
+            with ``esc_capacity > 0``, else None.
     qhist:  (NUM_BINS,) float32 collision-rate histogram for
             ``threshold_mode="quantile"``, or None.
     attr:   (2, NL, R, C) float32 signed count-sketch attribution planes
@@ -54,7 +61,7 @@ class AceState(NamedTuple):
     n: torch.Tensor
     welford_mean: torch.Tensor
     welford_m2: torch.Tensor
-    esc: Optional[object] = None
+    esc: Optional[qz.EscTable] = None
     qhist: Optional[torch.Tensor] = None
     attr: Optional[torch.Tensor] = None
 
@@ -67,10 +74,10 @@ class AceConfig:
     num_bits: int = 15          # K
     num_tables: int = 50        # L
     seed: int = 0
-    counter_dtype: str = "int32"
+    counter_dtype: str = "int32"  # "int16" is the paper's 2x saving
     welford_min_n: float = 0.0  # skip σ-stream updates below this n
     hash_mode: str = "dense"
-    esc_capacity: int = 0
+    esc_capacity: int = 0       # > 0: exact overflow promotion (narrow)
     attr_rows: int = 0          # > 0: attribution planes with that many rows
     attr_bits: int = 8          # log2 columns per attribution row
 
@@ -83,11 +90,18 @@ class AceConfig:
                              f"{self.attr_rows}")
         if self.attr_rows > 0:
             self.attr                   # AttrConfig checks dim/rows/bits
-        if self.counter_dtype in ("int8", "int16") or self.esc_capacity > 0:
-            not_ported(f"counter_dtype={self.counter_dtype!r} / "
-                       "esc_capacity", 9)
         if self.counter_dtype not in COUNT_DTYPES:
             raise ValueError(f"unknown counter_dtype {self.counter_dtype!r}")
+        if self.esc_capacity > 0:
+            if not qz.is_narrow(self.counter_dtype):
+                raise ValueError(
+                    "esc_capacity > 0 (overflow promotion) requires a "
+                    "narrow count_dtype (int8/int16); got "
+                    f"{self.counter_dtype!r}")
+            if self.num_tables * (1 << self.num_bits) > qz.SENTINEL:
+                raise ValueError(
+                    "quantized planes must stay int32 flat-addressable: "
+                    f"L·2^K = {self.num_tables * (1 << self.num_bits)}")
 
     @property
     def srp(self) -> SrpConfig:
@@ -113,10 +127,25 @@ class AceConfig:
     def torch_dtype(self) -> torch.dtype:
         return COUNT_DTYPES[self.counter_dtype]
 
+    @property
+    def count_dtype(self) -> str:
+        """The reference's alias of ``counter_dtype``."""
+        return self.counter_dtype
+
+    @property
+    def quantized(self) -> bool:
+        """True when the sketch carries an overflow escalation table."""
+        return self.esc_capacity > 0
+
     def memory_bytes(self) -> int:
-        """The paper's headline number: L × 2^K × sizeof(counter)."""
+        """The paper's headline number: L × 2^K × sizeof(counter), plus
+        the escalation table (8 bytes a slot and ``lost``) and the
+        attribution planes when there are any (the reference's sum)."""
         itemsize = torch.empty((), dtype=self.torch_dtype).element_size()
-        return self.num_tables * self.num_buckets * itemsize
+        base = self.num_tables * self.num_buckets * itemsize
+        base += self.esc_capacity * 8 + (4 if self.quantized else 0)
+        acfg = self.attr
+        return base + (acfg.memory_bytes() if acfg is not None else 0)
 
 
 def init(cfg: AceConfig, device) -> AceState:
@@ -129,6 +158,7 @@ def init(cfg: AceConfig, device) -> AceState:
         counts=torch.zeros((cfg.num_tables, cfg.num_buckets),
                            dtype=cfg.torch_dtype, device=device),
         n=zero, welford_mean=zero.clone(), welford_m2=zero.clone(),
+        esc=qz.init_esc(cfg.esc_capacity, device) if cfg.quantized else None,
         attr=None if acfg is None else init_plane(acfg, device))
 
 
@@ -185,7 +215,11 @@ def masked_table_mean(gathered: torch.Tensor,
 def lookup(state: AceState, buckets: torch.Tensor,
            table_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Ŝ(q, D) of Algorithm 1 (query phase): (B, L) -> (B,) float32,
-    over the healthy tables only when ``table_mask`` is given."""
+    over the healthy tables only when ``table_mask`` is given; through the
+    escalation table when the state has one."""
+    if state.esc is not None:
+        return qz.batch_scores_logical(state.counts, state.esc, buckets,
+                                       table_mask)
     return batch_scores(state.counts, buckets, table_mask)
 
 
@@ -226,11 +260,21 @@ def insert_buckets(state: AceState, buckets: torch.Tensor,
     """Insert a batch.  Order-invariant; exact for any batch size.
 
     Welford stats take the post-insert score of each item (its own count
-    included), Algorithm 1 line 12's convention.
+    included), Algorithm 1 line 12's convention.  A quantized plane inserts
+    through the saturating scatter, whose exact post-insert values are
+    the gather the scores need.
     """
-    new_counts = _scatter_add(state.counts, buckets,
-                              torch.ones_like(buckets))
-    scores = batch_scores(new_counts, buckets)
+    new_esc = None
+    if state.esc is not None:
+        new_counts, new_esc, post = _quantized(
+            state, buckets, torch.ones(buckets.shape[0], dtype=torch.int32,
+                                       device=buckets.device))
+        scores = torch.sum(post.to(torch.float32), dim=-1) \
+            * reciprocal(cfg.num_tables)
+    else:
+        new_counts = _scatter_add(state.counts, buckets,
+                                  torch.ones_like(buckets))
+        scores = batch_scores(new_counts, buckets)
     b = float(buckets.shape[0])
     tot = state.n + b
     rates = scores / torch.clamp_min(tot, 1.0)
@@ -240,7 +284,15 @@ def insert_buckets(state: AceState, buckets: torch.Tensor,
                                     state.n, b, tot, mean_b, m2_b,
                                     cfg.welford_min_n)
     return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
-                          welford_m2=new_m2)
+                          welford_m2=new_m2, esc=new_esc)
+
+
+def _quantized(state: AceState, buckets: torch.Tensor, w: torch.Tensor):
+    """``quantize.quantized_scatter`` of weights ``w`` (B,) at the flat
+    offsets of (B, L) ids: (new_counts, new_esc, post)."""
+    return qz.quantized_scatter(
+        state.counts, state.esc,
+        qz.flat_offsets(buckets, state.counts.shape[1]), w)
 
 
 def masked_batch_welford(state: AceState, scores: torch.Tensor,
@@ -271,30 +323,63 @@ def insert_buckets_masked(state: AceState, buckets: torch.Tensor,
     counts/n/μ and up to float summation order for the Welford stream,
     with fixed shapes (the serving guardrail's insert).
     """
-    w_ctr = mask.to(state.counts.dtype)[:, None].expand(buckets.shape)
-    new_counts = _scatter_add(state.counts, buckets, w_ctr)
-    scores = batch_scores(new_counts, buckets)
+    new_esc = None
+    if state.esc is not None:
+        # post holds every item's exact post-scatter counts, masked-out
+        # items included: the gather of the unquantized branch
+        new_counts, new_esc, post = _quantized(state, buckets,
+                                               mask.to(torch.int32))
+        scores = torch.sum(post.to(torch.float32), dim=-1) \
+            * reciprocal(cfg.num_tables)
+    else:
+        w_ctr = mask.to(state.counts.dtype)[:, None].expand(buckets.shape)
+        new_counts = _scatter_add(state.counts, buckets, w_ctr)
+        scores = batch_scores(new_counts, buckets)
     tot, new_mean, new_m2 = masked_batch_welford(
         state, scores, mask.to(torch.float32), cfg.welford_min_n)
     return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
-                          welford_m2=new_m2)
+                          welford_m2=new_m2, esc=new_esc)
 
 
 def delete_buckets(state: AceState, buckets: torch.Tensor,
                    cfg: AceConfig) -> AceState:
     """Remove previously inserted items (paper §3.4.1, Eq. 12).  The Welford
-    stream is not un-merged; μ is a pure function of the counts."""
+    stream is not un-merged; μ is a pure function of the counts.  A
+    quantized plane deletes through the saturating scatter with weight −1:
+    a promoted bucket that drops back to the cap frees its slot."""
+    n = state.n - float(buckets.shape[0])
+    if state.esc is not None:
+        new_counts, new_esc, _ = _quantized(
+            state, buckets, torch.full((buckets.shape[0],), -1,
+                                       dtype=torch.int32,
+                                       device=buckets.device))
+        return state._replace(counts=new_counts, esc=new_esc, n=n)
     new_counts = _scatter_add(state.counts, buckets,
                               torch.full_like(buckets, -1))
-    return state._replace(counts=new_counts,
-                          n=state.n - float(buckets.shape[0]))
+    return state._replace(counts=new_counts, n=n)
 
 
 def merge(a: AceState, b: AceState) -> AceState:
     """Merge two sketches over disjoint data: counts add, the Welford
     streams merge by Chan's parallel rule, quantile histograms and
-    attribution planes add (both are linear).  A state with a histogram
-    (planes) and one without do not merge."""
+    attribution planes add (both are linear).  Quantized sketches densify
+    to int32, add and requantize, ``lost`` summed.  A state with a
+    histogram (planes, an escalation table) and one without do not
+    merge."""
+    if (a.esc is None) != (b.esc is None):
+        raise ValueError("cannot merge a quantized sketch with an "
+                         "unquantized one")
+    if a.esc is not None:
+        if (a.esc.capacity != b.esc.capacity
+                or a.counts.dtype != b.counts.dtype):
+            raise ValueError("quantized merge requires matching "
+                             "count_dtype and esc_capacity")
+        counts, esc = qz.requantize(
+            qz.densify(a.counts, a.esc) + qz.densify(b.counts, b.esc),
+            a.esc.capacity, a.counts.dtype)
+        esc = esc._replace(lost=esc.lost + a.esc.lost + b.esc.lost)
+    else:
+        counts, esc = a.counts + b.counts, None
     if (a.qhist is None) != (b.qhist is None):
         raise ValueError("cannot merge a quantile-tracking sketch with a "
                          "non-tracking one")
@@ -305,10 +390,11 @@ def merge(a: AceState, b: AceState) -> AceState:
     tot = a.n + b.n
     safe = torch.clamp_min(tot, 1.0)
     return AceState(
-        counts=a.counts + b.counts,
+        counts=counts,
         n=tot,
         welford_mean=a.welford_mean + delta * b.n / safe,
         welford_m2=a.welford_m2 + b.welford_m2 + delta**2 * a.n * b.n / safe,
+        esc=esc,
         qhist=None if a.qhist is None else a.qhist + b.qhist,
         attr=None if a.attr is None else a.attr + b.attr)
 
@@ -322,12 +408,18 @@ def mean_mu(state: AceState,
     """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11).
 
     ``table_mask`` (L,) restricts it to the healthy tables:
-    Σ_{j healthy} ‖A_j‖² / (n · num_healthy).
+    Σ_{j healthy} ‖A_j‖² / (n · num_healthy).  A quantized plane sums
+    its logical counts (``quantize.sq_sum``; densified under a mask).
     """
     L = state.counts.shape[0]
-    c = state.counts.to(torch.float32)
     if table_mask is None:
-        return torch.sum(c * c) / (torch.clamp_min(state.n, 1.0) * L)
+        denom = torch.clamp_min(state.n, 1.0) * L
+        if state.esc is not None:
+            return qz.sq_sum(state.counts, state.esc) / denom
+        c = state.counts.to(torch.float32)
+        return torch.sum(c * c) / denom
+    c = (qz.densify(state.counts, state.esc) if state.esc is not None
+         else state.counts).to(torch.float32)
     maskf = table_mask.to(torch.float32)
     nh = torch.clamp_min(torch.sum(maskf), 1.0)
     per_table = torch.sum(c * c, dim=1)                          # (L,)

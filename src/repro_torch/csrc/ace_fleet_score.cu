@@ -23,6 +23,10 @@
 //     routed ace_query_sum (the SRHT and masked branch of
 //     ops.ace_fleet_score), and bitwise a float sum in any order while a
 //     row's sum is below 2^24.
+// Counters are int32, int16, int8 or float32 (common.cuh's count trait):
+// the scratch holds each counter's value (int32, narrow ones
+// sign-extended; fp32 for float counters), summed exactly in int64 (fp64
+// for float counters), as in ace_score_fused.cu.
 // A row whose tenant id lies outside [0, T) gathers zeros: no read leaves
 // the fleet (the entry points check ids on the host).  Offsets are 64-bit.
 
@@ -32,12 +36,15 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;           // fleet_warp_rows: a warp a row
 
+template <typename Cnt>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
                                   repro::gemm::kMinBlocks)
-fleet_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
+fleet_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
                   const float* __restrict__ w,
                   const int* __restrict__ tenant_ids,
-                  int* __restrict__ gathered, int* __restrict__ buckets,
+                  typename repro::CountTraits<Cnt>::Value* __restrict__
+                      gathered,
+                  int* __restrict__ buckets,
                   int B, int d, int P, int K, int L, int T,
                   repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -53,13 +60,16 @@ fleet_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
         const long long o = static_cast<long long>(row) * L + j;
         if (buckets != nullptr) buckets[o] = bucket;
         const int t = tile_tids[row - row0];
-        gathered[o] = (t < 0 || t >= T) ? 0 : counts[
-            (static_cast<long long>(t) * L + j) * nbuckets + bucket];
+        gathered[o] = (t < 0 || t >= T)
+            ? 0
+            : repro::load_count(counts + (static_cast<long long>(t) * L + j)
+                                             * nbuckets + bucket);
       });
 }
 
+template <typename V>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-fleet_warp_rows(const int* __restrict__ gathered, float* __restrict__ scores,
+fleet_warp_rows(const V* __restrict__ gathered, float* __restrict__ scores,
                 int B, int L) {
   const long long b =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / 32;
@@ -68,28 +78,38 @@ fleet_warp_rows(const int* __restrict__ gathered, float* __restrict__ scores,
 
 }  // namespace
 
-// counts (T, L, 2^K) int32; q (B, d), w (d, P) fp32, w 16-byte aligned;
-// tenant_ids (B,) int32; gathered (B, L) int32 scratch; scores (B,) fp32;
-// buckets (B, L) int32 or null (the ids, for the tests).  The hash's plan
-// as in repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan
-// that does not fit returns cudaErrorInvalidValue.
+// counts (T, L, 2^K) of the type `count_type` (repro::CountCode); q (B, d),
+// w (d, P) fp32, w 16-byte aligned; tenant_ids (B,) int32; gathered (B, L)
+// scratch, int32 (fp32 for float counters); scores (B,) fp32; buckets
+// (B, L) int32 or null (the ids, for the tests).  The hash's plan as in
+// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan that
+// does not fit returns cudaErrorInvalidValue.
 REPRO_API int repro_ace_fleet_score(
-    const int* counts, const float* q, const float* w, const int* tenant_ids,
-    int* gathered, int* buckets, float* scores, int B, int d, int P, int K,
-    int L, int T, int rows, int row_tiles, int tables, int groups,
-    int splits, int b0, int b1, int b2, int b3, int b4, int b5, int b6,
-    int b7, int b8, void* stream) {
+    const void* counts, const float* q, const float* w,
+    const int* tenant_ids, void* gathered, int* buckets, float* scores,
+    int B, int d, int P, int K, int L, int T, int rows, int row_tiles,
+    int tables, int groups, int splits, int b0, int b1, int b2, int b3,
+    int b4, int b5, int b6, int b7, int b8, int count_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
   if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = repro::gemm::launch(
-      fleet_hash_gather, plan, s, counts, q, w, tenant_ids, gathered,
-      buckets, B, d, P, K, L, T, plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fleet_warp_rows<<<(B + kRowsPerBlock - 1) / kRowsPerBlock,
-                    kRowsPerBlock * 32, 0, s>>>(gathered, scores, B, L);
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using C = decltype(tag);
+        using V = typename repro::CountTraits<C>::Value;
+        V* g = static_cast<V*>(gathered);
+        err = repro::gemm::launch(fleet_hash_gather<C>, plan, s,
+                                  static_cast<const C*>(counts), q, w,
+                                  tenant_ids, g, buckets, B, d, P, K, L, T,
+                                  plan);
+        if (err != cudaSuccess) return;
+        fleet_warp_rows<V><<<(B + kRowsPerBlock - 1) / kRowsPerBlock,
+                             kRowsPerBlock * 32, 0, s>>>(g, scores, B, L);
+        err = cudaGetLastError();
+      }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }

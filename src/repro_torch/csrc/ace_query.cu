@@ -29,6 +29,11 @@
 // block.  The (B, L) gather is one thread per (b, j): both its streams
 // coalesce and only the counter reads scatter.
 //
+// Counters are int32, int16, int8 or float32 (common.cuh's count trait):
+// narrow ones are read sign-extended and summed as exactly as int32;
+// float ones sum in fp64 (exact for integer-valued counters below 2^53)
+// with one conversion to fp32, so kernel and plain version agree bitwise.
+//
 // Ids outside [0, 2^K), rows outside [0, R) and tenant ids outside
 // [0, T) are clamped, as the reference's gather clamps out-of-bounds
 // indices (the hash never produces one).  Offsets are 64-bit.
@@ -51,8 +56,9 @@ __device__ __forceinline__ long long counter_offset(long long r, int b,
   return r * nbuckets + min(max(b, 0), static_cast<int>(nbuckets - 1));
 }
 
+template <typename Cnt>
 __global__ void __launch_bounds__(kSumThreads)
-ace_query_sum_kernel(const int* __restrict__ counts,
+ace_query_sum_kernel(const Cnt* __restrict__ counts,
                      const int* __restrict__ buckets,
                      const int* __restrict__ row_base,
                      const unsigned char* __restrict__ mask,
@@ -75,35 +81,41 @@ ace_query_sum_kernel(const int* __restrict__ counts,
       t = __shfl_sync(kFull, lane == 0 ? tenant_ids[b] : 0, 0);
     m = mask + static_cast<long long>(min(max(t, 0), T - 1)) * L;
   }
-  long long part = 0, part_all = 0;
+  using V = typename repro::CountTraits<Cnt>::Value;
+  using S = typename repro::CountTraits<Cnt>::Sum;
+  S part = 0, part_all = 0;
   int healthy = 0;
   for (int j0 = 0; j0 < L; j0 += 64) {
     const int ja = j0 + lane, jb = ja + 32;
     const bool va = ja < L, vb = jb < L;
     const int ia = va ? ids[ja] : 0;
     const int ib = vb ? ids[jb] : 0;
-    const int ca = va ? counts[counter_offset(base + ja, ia, R, nbuckets)] : 0;
-    const int cb = vb ? counts[counter_offset(base + jb, ib, R, nbuckets)] : 0;
+    const V ca = va ? repro::load_count(
+                          counts + counter_offset(base + ja, ia, R, nbuckets))
+                    : V(0);
+    const V cb = vb ? repro::load_count(
+                          counts + counter_offset(base + jb, ib, R, nbuckets))
+                    : V(0);
     const bool ha = va && (m == nullptr || m[ja] != 0);
     const bool hb = vb && (m == nullptr || m[jb] != 0);
-    part += static_cast<long long>(ha ? ca : 0) + (hb ? cb : 0);
-    part_all += static_cast<long long>(ca) + cb;
+    part += static_cast<S>(ha ? ca : V(0)) + static_cast<S>(hb ? cb : V(0));
+    part_all += static_cast<S>(ca) + static_cast<S>(cb);
     if (m != nullptr)
       healthy += __popc(__ballot_sync(kFull, ha))
                  + __popc(__ballot_sync(kFull, hb));
   }
-  const long long s = repro::warp_sum(part);
-  const long long s_all =
-      out_all != nullptr ? repro::warp_sum(part_all) : 0;
+  const S s = repro::warp_sum(part);
+  const S s_all = out_all != nullptr ? repro::warp_sum(part_all) : S(0);
   if (lane != 0) return;
   const float nh = static_cast<float>(m == nullptr ? L : max(healthy, 1));
-  float v = __ll2float_rn(s);
+  float v = repro::sum_to_float(s);
   if (scale == kMean) v = __fmul_rn(v, __frcp_rn(nh));
   out[b] = v;
-  if (out_all != nullptr) out_all[b] = __ll2float_rn(s_all);
+  if (out_all != nullptr) out_all[b] = repro::sum_to_float(s_all);
 }
 
-__global__ void ace_query_kernel(const int* __restrict__ counts,
+template <typename Cnt>
+__global__ void ace_query_kernel(const Cnt* __restrict__ counts,
                                  const int* __restrict__ buckets,
                                  const int* __restrict__ row_base,
                                  float* __restrict__ out, int B, int L, int R,
@@ -112,44 +124,55 @@ __global__ void ace_query_kernel(const int* __restrict__ counts,
                       + threadIdx.x;
   if (i >= static_cast<long long>(B) * L) return;
   const long long r = (row_base != nullptr ? row_base[i / L] : 0) + i % L;
-  out[i] = static_cast<float>(
-      counts[counter_offset(r, buckets[i], R, nbuckets)]);
+  out[i] = static_cast<float>(repro::load_count(
+      counts + counter_offset(r, buckets[i], R, nbuckets)));
 }
 
 }  // namespace
 
-// counts (R, nbuckets) int32; buckets (B, L) int32; row_base (B,) int32
-// or null (row j for table j, R == L); mask (T, L) uint8 (nonzero:
-// healthy) or null; tenant_ids (B,) int32 picks item b's mask row, or null
-// (row 0); out (B,) fp32, scaled by `scale` (Scale); out_all (B,) fp32, the
-// unscaled sum over every table, or null.  nbuckets is 64-bit (2^31 at
-// K = 31).  Needs 1 <= L <= 65535.
-REPRO_API int repro_ace_query_sum(const int* counts, const int* buckets,
+// counts (R, nbuckets) of the type `count_type` (repro::CountCode);
+// buckets (B, L) int32; row_base (B,) int32 or null (row j for table j,
+// R == L); mask (T, L) uint8 (nonzero: healthy) or null; tenant_ids (B,)
+// int32 picks item b's mask row, or null (row 0); out (B,) fp32, scaled by
+// `scale` (Scale); out_all (B,) fp32, the unscaled sum over every table, or
+// null.  nbuckets is 64-bit (2^31 at K = 31).  Needs 1 <= L <= 65535.
+REPRO_API int repro_ace_query_sum(const void* counts, const int* buckets,
                                   const int* row_base,
                                   const unsigned char* mask,
                                   const int* tenant_ids, float* out,
                                   float* out_all, int B, int L, int R,
                                   long long nbuckets, int T, int scale,
-                                  void* stream) {
+                                  int count_type, void* stream) {
   const unsigned int blocks =
       static_cast<unsigned int>((B + kRowsPerBlock - 1) / kRowsPerBlock);
-  ace_query_sum_kernel<<<blocks, kSumThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      counts, buckets, row_base, mask, tenant_ids, out, out_all, B, L, R,
-      nbuckets, T, scale);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using C = decltype(tag);
+        ace_query_sum_kernel<C><<<blocks, kSumThreads, 0, s>>>(
+            static_cast<const C*>(counts), buckets, row_base, mask,
+            tenant_ids, out, out_all, B, L, R, nbuckets, T, scale);
+      }))
+    return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }
 
-// counts (R, nbuckets) int32; buckets (B, L) int32; row_base (B,) int32
-// or null (row j for table j, R == L); out (B, L) fp32.
-REPRO_API int repro_ace_query(const int* counts, const int* buckets,
+// counts (R, nbuckets) of the type `count_type`; buckets (B, L) int32;
+// row_base (B,) int32 or null (row j for table j, R == L); out (B, L) fp32.
+REPRO_API int repro_ace_query(const void* counts, const int* buckets,
                               const int* row_base, float* out, int B, int L,
-                              int R, long long nbuckets, void* stream) {
+                              int R, long long nbuckets, int count_type,
+                              void* stream) {
   constexpr int kThreads = 256;
   const long long n = static_cast<long long>(B) * L;
   const unsigned int blocks =
       static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-  ace_query_kernel<<<blocks, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, buckets, row_base, out, B, L, R, nbuckets);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using C = decltype(tag);
+        ace_query_kernel<C><<<blocks, kThreads, 0, s>>>(
+            static_cast<const C*>(counts), buckets, row_base, out, B, L, R,
+            nbuckets);
+      }))
+    return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }

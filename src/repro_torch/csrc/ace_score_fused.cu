@@ -24,6 +24,10 @@
 //   __fmul_rn(g_j, tw_j) in table order j = 0..L-1 with __fadd_rn, so nvcc
 //   contracts nothing into an FMA and the plain version's
 //   multiply-then-add loop gives the same bits.
+// Counters are int32, int16, int8 or float32 (common.cuh's count trait):
+// the scratch holds each counter's value (int32, narrow ones
+// sign-extended; fp32 for float counters) and the row sum is exact in
+// int64 (fp64 for float counters, exact for integer values below 2^53).
 // The TPU kernel's pack matmul and its (bm, 128) padded output tile are
 // not carried over.  Offsets are 64-bit.
 
@@ -34,10 +38,13 @@ namespace {
 constexpr int kRowsPerBlock = 8;           // score_warp_rows: a warp a row
 constexpr int kRowThreads = 256;           // score_weighted_rows
 
+template <typename Cnt>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
                                   repro::gemm::kMinBlocks)
-score_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
-                  const float* __restrict__ w, int* __restrict__ gathered,
+score_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
+                  const float* __restrict__ w,
+                  typename repro::CountTraits<Cnt>::Value* __restrict__
+                      gathered,
                   int* __restrict__ buckets, int B, int d, int P, int K,
                   int L, repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -46,25 +53,27 @@ score_hash_gather(const int* __restrict__ counts, const float* __restrict__ q,
       q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         if (buckets != nullptr) buckets[o] = bucket;
-        gathered[o] = counts[j * nbuckets + bucket];
+        gathered[o] = repro::load_count(counts + j * nbuckets + bucket);
       });
 }
 
+template <typename V>
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
-score_warp_rows(const int* __restrict__ gathered, float* __restrict__ scores,
+score_warp_rows(const V* __restrict__ gathered, float* __restrict__ scores,
                 int B, int L) {
   const long long b =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + threadIdx.x / 32;
   if (b < B) repro::warp_row_mean(gathered, scores, b, L);
 }
 
-__global__ void score_weighted_rows(const int* __restrict__ gathered,
+template <typename V>
+__global__ void score_weighted_rows(const V* __restrict__ gathered,
                                     const float* __restrict__ tw,
                                     float* __restrict__ scores, int B,
                                     int L) {
   const int row = blockIdx.x * blockDim.x + threadIdx.x;
   if (row >= B) return;
-  const int* g = gathered + static_cast<long long>(row) * L;
+  const V* g = gathered + static_cast<long long>(row) * L;
   float s = 0.0f;
 #pragma unroll 10
   for (int j = 0; j < L; ++j)
@@ -74,33 +83,42 @@ __global__ void score_weighted_rows(const int* __restrict__ gathered,
 
 }  // namespace
 
-// counts (L, 2^K) int32; q (B, d), w (d, P) fp32, w 16-byte aligned; tw
-// (L,) fp32 or null; gathered (B, L) int32 scratch; scores (B,) fp32;
-// buckets (B, L) int32 or null (the ids, for the tests).  The hash's plan
-// as in repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan
-// that does not fit returns cudaErrorInvalidValue.
+// counts (L, 2^K) of the type `count_type` (repro::CountCode); q (B, d),
+// w (d, P) fp32, w 16-byte aligned; tw (L,) fp32 or null; gathered (B, L)
+// scratch, int32 (fp32 for float counters); scores (B,) fp32; buckets
+// (B, L) int32 or null (the ids, for the tests).  The hash's plan as in
+// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan that
+// does not fit returns cudaErrorInvalidValue.
 REPRO_API int repro_ace_score_fused(
-    const int* counts, const float* q, const float* w, const float* tw,
-    int* gathered, int* buckets, float* scores, int B, int d, int P, int K,
+    const void* counts, const float* q, const float* w, const float* tw,
+    void* gathered, int* buckets, float* scores, int B, int d, int P, int K,
     int L, int rows, int row_tiles, int tables, int groups, int splits,
     int b0, int b1, int b2, int b3, int b4, int b5, int b6, int b7, int b8,
-    void* stream) {
+    int count_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
   if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = repro::gemm::launch(
-      score_hash_gather, plan, s, counts, q, w, gathered, buckets, B, d, P,
-      K, L, plan);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (tw != nullptr) {
-    score_weighted_rows<<<(B + kRowThreads - 1) / kRowThreads, kRowThreads,
-                          0, s>>>(gathered, tw, scores, B, L);
-  } else {
-    score_warp_rows<<<(B + kRowsPerBlock - 1) / kRowsPerBlock,
-                      kRowsPerBlock * 32, 0, s>>>(gathered, scores, B, L);
-  }
-  return static_cast<int>(cudaGetLastError());
+  cudaError_t err = cudaSuccess;
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using T = decltype(tag);
+        using V = typename repro::CountTraits<T>::Value;
+        V* g = static_cast<V*>(gathered);
+        err = repro::gemm::launch(score_hash_gather<T>, plan, s,
+                                  static_cast<const T*>(counts), q, w, g,
+                                  buckets, B, d, P, K, L, plan);
+        if (err != cudaSuccess) return;
+        if (tw != nullptr) {
+          score_weighted_rows<V><<<(B + kRowThreads - 1) / kRowThreads,
+                                   kRowThreads, 0, s>>>(g, tw, scores, B, L);
+        } else {
+          score_warp_rows<V><<<(B + kRowsPerBlock - 1) / kRowsPerBlock,
+                               kRowsPerBlock * 32, 0, s>>>(g, scores, B, L);
+        }
+        err = cudaGetLastError();
+      }))
+    return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(err);
 }

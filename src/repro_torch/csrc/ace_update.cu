@@ -44,8 +44,14 @@
 // table it is slower than one atomic an item on the fit's clustered
 // batch.
 //
-// Integer adds in any order give the same counts, so every path is exact
-// and no TPU lowering choice is carried over.  Ids outside [0, 2^K) and
+// Counters are int32, int16, int8 or float32 (common.cuh's count trait;
+// one instantiation each, picked by the entry point's type code).  A
+// flush adds n in the plane's own type: int32 with atomicAdd, int16 and
+// int8 with repro::add_count's CAS loops, which wrap past the dtype max
+// as the reference's narrow .add does; float32 with the float atomicAdd,
+// exact while a counter stays below 2^24.  Modular integer adds in any
+// order give the same counts, so every path is exact and no TPU lowering
+// choice is carried over.  Ids outside [0, 2^K) and
 // rows outside [0, R) are dropped, as the reference's scatter drops
 // out-of-bounds updates (the hash never produces one, and the callers'
 // base rows stay inside the table).  Offsets are 64-bit: a stacked table
@@ -81,8 +87,9 @@ __device__ __forceinline__ bool add_shared(unsigned int* keys, int* hits,
   return false;
 }
 
+template <typename Cnt>
 __global__ void __launch_bounds__(kThreads)
-ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
+ace_update_kernel(Cnt* __restrict__ counts, const int* __restrict__ buckets,
                   const unsigned char* __restrict__ row_mask,
                   const int* __restrict__ row_base, int B, int L, int R,
                   long long nbuckets) {
@@ -120,12 +127,12 @@ ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
       >= kThreads / 32;
   if (direct || spread) {
     if (same) {
-      if (lane == __ffs(in) - 1) atomicAdd(counts + lo, __popc(in));
+      if (lane == __ffs(in) - 1) repro::add_count(counts + lo, __popc(in));
     } else if (fits) {
-      atomicAdd(counts + k, 1);
+      repro::add_count(counts + k, 1);
     }
   }
-  if (valid && !fits) atomicAdd(counts + key, 1);
+  if (valid && !fits) repro::add_count(counts + key, 1);
   if (direct) return;
 
   for (int s = threadIdx.x; s < kSlots; s += kThreads) {
@@ -136,34 +143,42 @@ ace_update_kernel(int* __restrict__ counts, const int* __restrict__ buckets,
   if (!spread) {
     if (same) {
       if (lane == __ffs(in) - 1 && !add_shared(keys, hits, lo, __popc(in)))
-        atomicAdd(counts + lo, __popc(in));
+        repro::add_count(counts + lo, __popc(in));
     } else if (fits && !add_shared(keys, hits, k, 1)) {
-      atomicAdd(counts + k, 1);
+      repro::add_count(counts + k, 1);
     }
   }
   __syncthreads();
 
   for (int s = threadIdx.x; s < kSlots; s += kThreads) {
     const unsigned int kk = keys[s];
-    if (kk != kEmpty) atomicAdd(counts + kk, hits[s]);
+    if (kk != kEmpty) repro::add_count(counts + kk, hits[s]);
   }
 }
 
 }  // namespace
 
-// counts (R, nbuckets) int32, updated in place; buckets (B, L) int32;
-// row_mask (B,) bool or null (every row); row_base (B,) int32 or null
-// (row j for table j, R == L).  nbuckets is 64-bit: 2^31 at K = 31.  One
-// block a table and 256 rows: L must be at most 65535 (the grid's y).
-REPRO_API int repro_ace_update(int* counts, const int* buckets,
+// counts (R, nbuckets) of the type `count_type` (repro::CountCode), updated
+// in place (int8 planes 4-byte aligned); buckets (B, L) int32; row_mask
+// (B,) bool or null (every row); row_base (B,) int32 or null (row j for
+// table j, R == L).  nbuckets is 64-bit: 2^31 at K = 31.  One block a
+// table and 256 rows: L must be at most 65535 (the grid's y).
+REPRO_API int repro_ace_update(void* counts, const int* buckets,
                                const unsigned char* row_mask,
                                const int* row_base, int B, int L, int R,
-                               long long nbuckets, void* stream) {
+                               long long nbuckets, int count_type,
+                               void* stream) {
   if (B < 1 || L < 1 || L > 65535) return cudaErrorInvalidValue;
   const dim3 grid(static_cast<unsigned int>(
                       (static_cast<long long>(B) + kThreads - 1) / kThreads),
                   static_cast<unsigned int>(L));
-  ace_update_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      counts, buckets, row_mask, row_base, B, L, R, nbuckets);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using T = decltype(tag);
+        ace_update_kernel<T><<<grid, kThreads, 0, s>>>(
+            static_cast<T*>(counts), buckets, row_mask, row_base, B, L, R,
+            nbuckets);
+      }))
+    return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }

@@ -28,6 +28,10 @@
 //     epochs' sums then reach every lane by shuffle and fold as above,
 //     with no 1/L.  The L adds of the epochs run side by side, one lane
 //     each.
+// Counters are int32, int16, int8 or float32 (common.cuh's count trait):
+// narrow ones are read sign-extended and each epoch's sum is as exact as
+// int32's; float ones sum in fp64 (exact for integer values below 2^53)
+// and convert once.
 // The plain version (kernels/ace_window_combine.py) runs the same
 // arithmetic, so the two agree bitwise.  The TPU kernel's choice between
 // one flat take and a per-epoch unroll (choose_mode, FLAT_MAX_COLS) is a
@@ -49,9 +53,9 @@ constexpr int kTileStride = kPass + 1;     // lane k reads row k: no conflict
 constexpr int kTileBytes =
     static_cast<int>(sizeof(float)) * kRowsPerBlock * kEpochs * kTileStride;
 
-template <bool kWeighted>
+template <typename Cnt, bool kWeighted>
 __global__ void __launch_bounds__(kThreads)
-window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
+window_combine(const Cnt* __restrict__ counts, const int* __restrict__ buckets,
                const float* __restrict__ w, const float* __restrict__ tw,
                float* __restrict__ scores, int B, int E, int L,
                long long nbuckets) {
@@ -64,10 +68,12 @@ window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
   const int* ids = buckets + b * L;
   const int top = static_cast<int>(nbuckets - 1);
   const long long epoch = static_cast<long long>(L) * nbuckets;
+  using V = typename repro::CountTraits<Cnt>::Value;
+  using S = typename repro::CountTraits<Cnt>::Sum;
   float acc = 0.0f;
   for (int e0 = 0; e0 < E; e0 += kEpochs) {
     const int ne = min(kEpochs, E - e0);   // the same in every lane
-    long long part[kEpochs];
+    S part[kEpochs];
 #pragma unroll
     for (int k = 0; k < kEpochs; ++k) part[k] = 0;
     float run = 0.0f;                      // lane k: epoch e0 + k, weighted
@@ -78,16 +84,18 @@ window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
                            + (va ? min(max(ids[ja], 0), top) : 0);
       const long long ob = e0 * epoch + jb * nbuckets
                            + (vb ? min(max(ids[jb], 0), top) : 0);
-      int ca[kEpochs], cb[kEpochs];
+      V ca[kEpochs], cb[kEpochs];
 #pragma unroll
       for (int k = 0; k < kEpochs; ++k) {
-        ca[k] = va && k < ne ? counts[oa + k * epoch] : 0;
-        cb[k] = vb && k < ne ? counts[ob + k * epoch] : 0;
+        ca[k] = va && k < ne ? repro::load_count(counts + oa + k * epoch)
+                             : V(0);
+        cb[k] = vb && k < ne ? repro::load_count(counts + ob + k * epoch)
+                             : V(0);
       }
       if constexpr (!kWeighted) {
 #pragma unroll
         for (int k = 0; k < kEpochs; ++k)
-          part[k] += static_cast<long long>(ca[k]) + cb[k];
+          part[k] += static_cast<S>(ca[k]) + static_cast<S>(cb[k]);
       } else {
         const float ta = va ? tw[ja] : 0.0f, tb = vb ? tw[jb] : 0.0f;
 #pragma unroll
@@ -114,7 +122,7 @@ window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
         if constexpr (kWeighted) {
           s = __shfl_sync(kFull, run, k);
         } else {
-          s = __ll2float_rn(repro::warp_sum(part[k]));
+          s = repro::sum_to_float(repro::warp_sum(part[k]));
         }
         acc = __fadd_rn(acc, __fmul_rn(w[e0 + k], s));
       }
@@ -127,22 +135,29 @@ window_combine(const int* __restrict__ counts, const int* __restrict__ buckets,
 
 }  // namespace
 
-// counts (E, L, nbuckets) int32; buckets (B, L) int32; w (E,) fp32 epoch
-// weights; tw (L,) fp32 table weights or null; scores (B,) fp32.
-// nbuckets is 64-bit (2^31 at K = 31).  Needs B >= 1, 1 <= L <= 65535.
-REPRO_API int repro_ace_window_combine(const int* counts, const int* buckets,
+// counts (E, L, nbuckets) of the type `count_type` (repro::CountCode);
+// buckets (B, L) int32; w (E,) fp32 epoch weights; tw (L,) fp32 table
+// weights or null; scores (B,) fp32.  nbuckets is 64-bit (2^31 at K = 31).
+// Needs B >= 1, 1 <= L <= 65535.
+REPRO_API int repro_ace_window_combine(const void* counts, const int* buckets,
                                        const float* w, const float* tw,
                                        float* scores, int B, int E, int L,
-                                       long long nbuckets, void* stream) {
+                                       long long nbuckets, int count_type,
+                                       void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const unsigned int blocks =
       static_cast<unsigned int>((B + kRowsPerBlock - 1) / kRowsPerBlock);
-  if (tw != nullptr) {
-    window_combine<true><<<blocks, kThreads, kTileBytes, s>>>(
-        counts, buckets, w, tw, scores, B, E, L, nbuckets);
-  } else {
-    window_combine<false><<<blocks, kThreads, 0, s>>>(
-        counts, buckets, w, tw, scores, B, E, L, nbuckets);
-  }
+  if (!repro::with_count_type(count_type, [&](auto tag) {
+        using T = decltype(tag);
+        const T* c = static_cast<const T*>(counts);
+        if (tw != nullptr) {
+          window_combine<T, true><<<blocks, kThreads, kTileBytes, s>>>(
+              c, buckets, w, tw, scores, B, E, L, nbuckets);
+        } else {
+          window_combine<T, false><<<blocks, kThreads, 0, s>>>(
+              c, buckets, w, tw, scores, B, E, L, nbuckets);
+        }
+      }))
+    return cudaErrorInvalidValue;
   return static_cast<int>(cudaGetLastError());
 }

@@ -87,11 +87,8 @@ class AceDataFilter:
             raise ValueError(f"unknown threshold_mode "
                              f"{self.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
-        cfg = self.ace_cfg          # raises for narrow planes
+        cfg = self.ace_cfg          # checks the count dtype and esc
         srp.resolve_hash_mode(cfg.srp)      # raises for an unknown mode
-        if self.use_kernels and cfg.counter_dtype != "int32":
-            raise ValueError("the kernels take int32 counts; use "
-                             "use_kernels=False for float32 counts")
         object.__setattr__(self, "device", resolve_device(self.device))
         acfg = self.ace_cfg.attr
         if acfg is not None and self.attr_tables is None:

@@ -62,9 +62,6 @@ class FleetDataFilter:
                              "'mu_sigma' or 'quantile'")
         cfg = self.fleet_cfg.ace          # validates T and the planes
         srp.resolve_hash_mode(cfg.srp)
-        if self.use_kernels and cfg.counter_dtype != "int32":
-            raise ValueError("the kernels take int32 counts; use "
-                             "use_kernels=False for float32 counts")
         object.__setattr__(self, "device", resolve_device(self.device))
         acfg = self.ace_cfg.attr
         if acfg is not None and self.attr_tables is None:

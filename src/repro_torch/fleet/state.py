@@ -103,6 +103,12 @@ class FleetConfig:
                 f"num_tenants must be >= 1, got {self.num_tenants}")
         check_flat_addressable(self.num_tenants * self.ace.num_tables,
                                self.ace.num_buckets, "FleetConfig")
+        if self.ace.esc_capacity > 0:
+            raise NotImplementedError(
+                "overflow promotion (esc_capacity > 0) is wired for the "
+                "flat sketch only; fleet tables take narrow count dtypes "
+                "without an escalation table (exact below saturation). "
+                "See docs/ARCHITECTURE.md §7.")
 
     def memory_bytes(self) -> int:
         """The fleet's device bill: T × the per-detector table."""
@@ -147,10 +153,20 @@ def set_tenant(state: FleetState, t: int, ace: AceState) -> FleetState:
     return state._replace(**out)
 
 
+def promote_fleet(state: FleetState, dtype=torch.int32) -> FleetState:
+    """Widen a fleet's count planes to ``dtype`` (default int32): narrow
+    planes are exact below saturation on each host, but adding two hosts'
+    planes in the narrow dtype would wrap, so a merge across hosts
+    promotes first.  The statistics are left as they are."""
+    return state._replace(counts=state.counts.to(dtype))
+
+
 def merge_fleet(a: FleetState, b: FleetState) -> FleetState:
     """Merge two fleets over disjoint data: ``sketch.merge`` per tenant
     (counts add in int32, the Welford streams by Chan's rule, rate
-    histograms and attribution planes add)."""
+    histograms and attribution planes add).  Narrow planes are widened
+    first, so ``merge_fleet(a8, b8)`` ≡ ``merge_fleet(promote_fleet(a8),
+    promote_fleet(b8))``; the result stays int32."""
     if a.counts.shape != b.counts.shape:
         raise ValueError(f"fleet shape mismatch: {tuple(a.counts.shape)} "
                          f"vs {tuple(b.counts.shape)}")

@@ -9,13 +9,16 @@ Bound on the H100: the hash's fp32 operations (2·B·d·K·L FLOP; at
 B=256, d=4097, K·L=750: 1.57 GFLOP, 23 µs at 67 TFLOP/s).  The design is
 two kernels on one stream: phase 1 is ``srp_hash``'s register-tiled,
 cluster-split hash under the same launch plan (``srp_hash.hash_plan``),
-whose epilogue gathers each bucket's PRE-insert counter; phase 2 sums each
-row's gathers in table order, multiplies by float32(1/L), compares with
-the threshold read through a device pointer (no host sync), gates on the
-item mask, and atomically inserts the admitted rows.  Stream order puts
+whose epilogue gathers each bucket's PRE-insert counter; phase 2, a warp
+a row, sums the row's gathers in table order in one lane, multiplies by
+float32(1/L), compares with the threshold read through a device pointer
+(no host sync), gates on the item mask, and inserts an admitted row with
+one atomic a lane, its L tables side by side.  Stream order puts
 every gather before any insert, which is the reference's contract that
 all scores are taken against the pre-insert counts; a single launch with
-many blocks could not promise it.
+many blocks could not promise it.  Counters are int32, int16, int8 or
+float32 (``build.COUNT_DTYPES``): gathered as fp32, inserted in their own
+dtype (a narrow counter wraps past its max, as the reference's does).
 """
 from __future__ import annotations
 
@@ -31,7 +34,8 @@ from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
-                      + [ctypes.c_longlong, ctypes.c_float] + PLAN_ARGTYPES)
+                      + [ctypes.c_longlong, ctypes.c_float] + PLAN_ARGTYPES
+                      + [ctypes.c_int])
 
 
 def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -50,7 +54,7 @@ def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,
     if item_mask is not None:
         admit = admit & item_mask
     counts.index_put_((rows, buckets.long()),
-                      admit.to(torch.int32)[:, None].expand(buckets.shape),
+                      admit.to(counts.dtype)[:, None].expand(buckets.shape),
                       accumulate=True)
     return counts, scores, admit, buckets
 
@@ -60,7 +64,7 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
                     item_mask: torch.Tensor | None = None):
     """One guardrail admission step.
 
-    counts (L, 2^K) int32, q (B, d) fp32, w (d, P) fp32, thresh () fp32
+    counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, w (d, P) fp32, thresh () fp32
     (score space; −inf admits everything), item_mask (B,) bool or None ->
         (counts          — the same tensor, + the masked batch histogram,
          scores (B,) fp32 — PRE-insert Ŝ(q, D),
@@ -85,7 +89,7 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
     if L != cfg.num_tables or nbuckets != cfg.num_buckets:
         raise ValueError(f"counts {tuple(counts.shape)} do not match "
                          f"K={K}, L={cfg.num_tables}")
-    build.check(counts, "counts", torch.int32, (L, nbuckets))
+    build.check_counts(counts, "counts", (L, nbuckets))
     build.check(q, "q", torch.float32, (B, d))
     build.check(w, "w", torch.float32, (d, P))
     build.check(thresh, "thresh", torch.float32, ())
@@ -109,5 +113,5 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
                None if item_mask is None else item_mask.data_ptr(),
                buckets.data_ptr(), gathered.data_ptr(), scores.data_ptr(),
                admit.data_ptr(), B, d, P, K, L, nbuckets, 1.0 / L,
-               *plan.args())
+               *plan.args(), build.count_code(counts))
     return counts, scores, admit, buckets

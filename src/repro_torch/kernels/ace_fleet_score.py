@@ -20,7 +20,9 @@ The score takes ``ace_query_sum``'s convention: the exact integer sum,
 one conversion, then × float32(1/L) — bitwise ``srp_hash`` + the routed
 ``ace_query_sum`` (the SRHT and masked branch of ``ops.ace_fleet_score``),
 and bitwise a float sum in any order while a row's sum is below 2^24.
-A row whose tenant id lies outside [0, T) scores 0 on the card (nothing
+Counters are int32, int16, int8 or float32 (``build.COUNT_DTYPES``),
+summed as in ``ace_score_fused``.  A row whose tenant id lies outside
+[0, T) scores 0 on the card (nothing
 outside the fleet is read); the entry points reject such ids on the host.
 """
 from __future__ import annotations
@@ -32,6 +34,7 @@ import torch
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_query import ace_query_sum_plain
+from repro_torch.kernels.ace_score_fused import gather_dtype
 from repro_torch.kernels.ace_update import MAX_TABLES
 from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
                                           check_w_aligned, device_plan,
@@ -39,7 +42,7 @@ from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
 
 KERNEL = build.Kernel("ace_fleet_score", "repro_ace_fleet_score",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                      + PLAN_ARGTYPES)
+                      + PLAN_ARGTYPES + [ctypes.c_int])
 
 
 def ace_fleet_score_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -65,7 +68,7 @@ def fleet_score_from_ids(counts: torch.Tensor, buckets: torch.Tensor,
 def ace_fleet_score(counts: torch.Tensor, q: torch.Tensor,
                     tenant_ids: torch.Tensor, w: torch.Tensor,
                     cfg: SrpConfig) -> torch.Tensor:
-    """counts (T, L, 2^K) int32, q (B, d) fp32, tenant_ids (B,) int32 in
+    """counts (T, L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, tenant_ids (B,) int32 in
     [0, T), w (d, P) fp32 -> scores (B,) fp32."""
     return ace_fleet_score_planned(counts, q, tenant_ids, w, cfg, None)
 
@@ -87,7 +90,7 @@ def ace_fleet_score_planned(counts: torch.Tensor, q: torch.Tensor,
     if L > MAX_TABLES:
         raise ValueError(f"ace_fleet_score: L={L} tables; the kernel takes "
                          f"at most {MAX_TABLES}")
-    build.check(counts, "counts", torch.int32, (T, L, nbuckets))
+    build.check_counts(counts, "counts", (T, L, nbuckets))
     build.check(q, "q", torch.float32, (B, d))
     build.check(tenant_ids, "tenant_ids", torch.int32, (B,))
     build.check(w, "w", torch.float32, (d, P))
@@ -103,9 +106,10 @@ def ace_fleet_score_planned(counts: torch.Tensor, q: torch.Tensor,
         w, P = lane_padded(w, cfg)
         check_w_aligned(w)
         plan = plan or device_plan(B, d, K, L, dev)
-        gathered = torch.empty((B, L), dtype=torch.int32, device=dev)
+        gathered = torch.empty((B, L), dtype=gather_dtype(counts),
+                               device=dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                tenant_ids.data_ptr(), gathered.data_ptr(),
                None if ids is None else ids.data_ptr(), scores.data_ptr(),
-               B, d, P, K, L, T, *plan.args())
+               B, d, P, K, L, T, *plan.args(), build.count_code(counts))
     return (scores, ids) if with_ids else scores

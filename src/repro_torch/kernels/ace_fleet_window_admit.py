@@ -15,17 +15,19 @@ d=4097, K·L=750: 1.57 GFLOP, 23 µs at 67 TFLOP/s).  The design is
 ``srp_hash``'s register-tiled, cluster-split hash under the same launch
 plan (``srp_hash.hash_plan``), so its ids are ``srp_hash``'s bits, and its
 epilogue gathers every item's tail value at row tid·L + j and live
-counter at row (tid·E + cursor[tid])·L + j; phase 2 sums both in table
-order, scores, compares with ``thresholds[tid]`` read on the device,
-gates on the item mask and atomically inserts the admitted rows into
-their live epochs.  ``ops.ace_fleet_window_admit`` then sums the
+counter at row (tid·E + cursor[tid])·L + j; phase 2, a warp a row, sums
+both in table order in one lane, scores, compares with
+``thresholds[tid]`` read on the device, gates on the item mask and
+inserts an admitted row into its live epoch with one atomic a lane.  ``ops.ace_fleet_window_admit`` then sums the
 post-insert live counters with one ``ace_query_sum`` launch.
 Stream order puts every gather before any insert, so every score is
 pre-insert, copies of one row to one tenant included.  The cursor is read
 inside the kernel: no host sync.  ``ace_fleet_window_admit_fused_plain``
 sums in the same order, so everything downstream of one set of ids is
-bitwise.  int32 rings only: int8/int16 rings belong to the quantized
-planes (ROADMAP.md queue 1 item 9).
+bitwise.  Rings are int32, int16, int8 or float32
+(``build.COUNT_DTYPES``): live counters gathered as fp32, inserts in the
+ring's own dtype (a narrow counter wraps past its max, as the
+reference's does); the tails are fp32 whatever the ring.
 """
 from __future__ import annotations
 
@@ -33,7 +35,6 @@ import ctypes
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.core import sketch as sk
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
@@ -45,7 +46,7 @@ from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
 
 KERNEL = build.Kernel("ace_fleet_window_admit", "repro_ace_fleet_window_admit",
                       [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-                      + [ctypes.c_float] + PLAN_ARGTYPES)
+                      + [ctypes.c_float] + PLAN_ARGTYPES + [ctypes.c_int])
 
 
 def ace_fleet_window_admit_fused_plain(ring_counts: torch.Tensor,
@@ -101,7 +102,7 @@ def ace_fleet_window_admit_fused(ring_counts: torch.Tensor,
                                  item_mask: torch.Tensor | None = None):
     """One windowed-fleet admission step (the counts half).
 
-    ring_counts (T, E, L, 2^K) int32, tail (T, L, 2^K) fp32, cursor (T,)
+    ring_counts (T, E, L, 2^K) of any ``build.COUNT_DTYPES``, tail (T, L, 2^K) fp32, cursor (T,)
     int32, q (B, d) fp32, tenant_ids (B,) int32 in [0, T), w (d, P) fp32,
     thresholds (T,) fp32 (score space, −inf admits all), item_mask (B,)
     bool or None ->
@@ -129,8 +130,6 @@ def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
                                          plan: HashPlan | None):
     """``ace_fleet_window_admit_fused`` with the hash under a given launch
     plan (None: ``srp_hash.device_plan``'s)."""
-    if ring_counts.dtype in (torch.int8, torch.int16):
-        not_ported("int8/int16 windowed fleet rings", 9)
     T, E, L, nbuckets = ring_counts.shape
     B, d = q.shape
     K, P = cfg.num_bits, cfg.padded_projections
@@ -138,7 +137,7 @@ def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
     if L != cfg.num_tables or nbuckets != cfg.num_buckets:
         raise ValueError(f"ring {tuple(ring_counts.shape)} does not match "
                          f"K={K}, L={cfg.num_tables}")
-    build.check(ring_counts, "ring_counts", torch.int32, (T, E, L, nbuckets))
+    build.check_counts(ring_counts, "ring_counts", (T, E, L, nbuckets))
     build.check(tail, "tail", torch.float32, (T, L, nbuckets))
     build.check(cursor, "cursor", torch.int32, (T,))
     build.check(q, "q", torch.float32, (B, d))
@@ -171,5 +170,5 @@ def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
                buckets.data_ptr(), tail_g.data_ptr(), live_g.data_ptr(),
                scores.data_ptr(), admit.data_ptr(), tail_sums.data_ptr(),
                live_pre.data_ptr(), B, d, P, K, L, E, T, 1.0 / L,
-               *plan.args())
+               *plan.args(), build.count_code(ring_counts))
     return ring_counts, scores, admit, buckets, tail_sums, live_pre

@@ -28,6 +28,11 @@ one load broadcast by shuffle, both counter loads of a lane in flight at
 once, the integer sum two ``redux.sync`` adds and the healthy count a
 ballot.  Rows, ids and tenant ids outside the table are clamped into it,
 as the reference's gather clamps.
+
+Counters are int32, int16, int8 or float32 (``build.COUNT_DTYPES``):
+narrow ones are read with their sign and summed as exactly as int32's;
+float ones sum in float64 (exact for integer-valued counters below
+2^53), converted once, in the kernel and in the plain version alike.
 """
 from __future__ import annotations
 
@@ -49,11 +54,11 @@ SCALES = ("sum", "mean")
 # Every main path's gather-and-sum; its count is the module's launches.
 KERNEL = build.Kernel("ace_query", "repro_ace_query_sum",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3
-                      + [ctypes.c_longlong] + [ctypes.c_int] * 2)
+                      + [ctypes.c_longlong] + [ctypes.c_int] * 3)
 # The (B, L) gather, for diagnostics.
 GATHER_KERNEL = build.Kernel("ace_query", "repro_ace_query",
                              [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                             + [ctypes.c_longlong])
+                             + [ctypes.c_longlong, ctypes.c_int])
 
 
 def ace_query_plain(counts: torch.Tensor, buckets: torch.Tensor,
@@ -64,11 +69,12 @@ def ace_query_plain(counts: torch.Tensor, buckets: torch.Tensor,
 
 def ace_query(counts: torch.Tensor, buckets: torch.Tensor,
               row_base: torch.Tensor | None = None) -> torch.Tensor:
-    """counts (R, 2^K) int32, buckets (B, L) int32 -> gathered (B, L) fp32;
-    item b's table j is row ``row_base[b] + j`` ((B,) int32) or j."""
+    """counts (R, 2^K) of any ``build.COUNT_DTYPES``, buckets (B, L) int32
+    -> gathered (B, L) fp32; item b's table j is row ``row_base[b] + j``
+    ((B,) int32) or j."""
     R, nbuckets = counts.shape
     B, L = buckets.shape
-    build.check(counts, "counts", torch.int32, (R, nbuckets))
+    build.check_counts(counts, "counts", (R, nbuckets))
     operands = [counts, buckets]
     check_rows(counts, buckets, row_base, operands)
     if build.on_cpu(*operands):
@@ -77,7 +83,8 @@ def ace_query(counts: torch.Tensor, buckets: torch.Tensor,
     if B:
         GATHER_KERNEL(counts.device, counts.data_ptr(), buckets.data_ptr(),
                       None if row_base is None else row_base.data_ptr(),
-                      out.data_ptr(), B, L, R, nbuckets)
+                      out.data_ptr(), B, L, R, nbuckets,
+                      build.count_code(counts))
     return out
 
 
@@ -97,11 +104,13 @@ def ace_query_sum_plain(counts: torch.Tensor, buckets: torch.Tensor,
                         tenant_ids: torch.Tensor | None = None,
                         scale: str = "mean", with_unmasked: bool = False):
     """The same function in plain PyTorch: the clamped gather summed in
-    int64, converted once and scaled as the kernel does."""
+    int64 (float64 for float counters), converted once and scaled as the
+    kernel does."""
     R, nbuckets = counts.shape
     L = buckets.shape[1]
     g = counts[table_rows(buckets, row_base).clamp(0, R - 1),
-               buckets.long().clamp(0, nbuckets - 1)].long()
+               buckets.long().clamp(0, nbuckets - 1)]
+    g = g.double() if g.is_floating_point() else g.long()
     total = torch.sum(g, dim=-1)
     s, nh = total, None
     if table_mask is not None:
@@ -120,7 +129,8 @@ def ace_query_sum(counts: torch.Tensor, buckets: torch.Tensor,
                   table_mask: torch.Tensor | None = None,
                   tenant_ids: torch.Tensor | None = None,
                   scale: str = "mean", with_unmasked: bool = False):
-    """counts (R, 2^K) int32, buckets (B, L) int32 -> (B,) fp32: the sum of
+    """counts (R, 2^K) of any ``build.COUNT_DTYPES``, buckets (B, L) int32
+    -> (B,) fp32: the sum of
     each row's gathered counters over its healthy tables, scaled by
     ``scale`` (``SCALES``).  Item b's table j is row ``row_base[b] + j``
     ((B,) int32) or j.  ``table_mask`` (L,), or (T, L) routed by
@@ -129,7 +139,7 @@ def ace_query_sum(counts: torch.Tensor, buckets: torch.Tensor,
     over every table, (B,) fp32, as a second result."""
     R, nbuckets = counts.shape
     B, L = buckets.shape
-    build.check(counts, "counts", torch.int32, (R, nbuckets))
+    build.check_counts(counts, "counts", (R, nbuckets))
     operands = [counts, buckets]
     check_rows(counts, buckets, row_base, operands)
     if scale not in SCALES:
@@ -169,5 +179,6 @@ def ace_query_sum(counts: torch.Tensor, buckets: torch.Tensor,
                None if routed is None else routed.data_ptr(),
                out.data_ptr(),
                None if out_all is None else out_all.data_ptr(),
-               B, L, R, nbuckets, T, SCALES.index(scale))
+               B, L, R, nbuckets, T, SCALES.index(scale),
+               build.count_code(counts))
     return (out, out_all) if with_unmasked else out

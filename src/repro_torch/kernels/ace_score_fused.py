@@ -23,6 +23,10 @@ and bitwise a float sum in any order while a row's sum is below 2^24.
 The weighted form adds g_j·tw_j in table order j = 0..L−1 with
 ``__fmul_rn``/``__fadd_rn`` (no FMA), as ``ace_score_fused_plain`` does,
 so wherever the ids agree the scores are bitwise equal.
+
+Counters are int32, int16, int8 or float32 (``build.COUNT_DTYPES``): the
+scratch holds their values as int32 (float32 for float counters) and the
+unweighted row sum is ``ace_query_sum``'s, exact in int64 (float64).
 """
 from __future__ import annotations
 
@@ -40,7 +44,13 @@ from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
 
 KERNEL = build.Kernel("ace_score_fused", "repro_ace_score_fused",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                      + PLAN_ARGTYPES)
+                      + PLAN_ARGTYPES + [ctypes.c_int])
+
+def gather_dtype(counts: torch.Tensor) -> torch.dtype:
+    """The dtype of the fused kernels' (B, L) gather scratch: int32 for
+    integer counters (narrow ones widened), float32 for float ones."""
+    return torch.float32 if counts.is_floating_point() else torch.int32
+
 
 def flat_table_gather(counts: torch.Tensor,
                       buckets: torch.Tensor) -> torch.Tensor:
@@ -85,8 +95,8 @@ def ace_score_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
                     cfg: SrpConfig,
                     table_weights: torch.Tensor | None = None
                     ) -> torch.Tensor:
-    """counts (L, 2^K) int32, q (B, d) fp32, w (d, P) fp32 -> scores (B,)
-    fp32.  ``table_weights`` (L,) fp32, when given, replaces the 1/L mean
+    """counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, w
+    (d, P) fp32 -> scores (B,) fp32.  ``table_weights`` (L,) fp32, when given, replaces the 1/L mean
     with Σ_j tw_j·g_j (the degraded path: the caller bakes the health
     mask and its 1/num_healthy into tw)."""
     return ace_score_fused_planned(counts, q, w, cfg, table_weights, None)
@@ -110,7 +120,7 @@ def ace_score_fused_planned(counts: torch.Tensor, q: torch.Tensor,
     if L > MAX_TABLES:
         raise ValueError(f"ace_score_fused: L={L} tables; the kernel takes "
                          f"at most {MAX_TABLES}")
-    build.check(counts, "counts", torch.int32, (L, nbuckets))
+    build.check_counts(counts, "counts", (L, nbuckets))
     build.check(q, "q", torch.float32, (B, d))
     build.check(w, "w", torch.float32, (d, P))
     operands = [counts, q, w]
@@ -128,10 +138,11 @@ def ace_score_fused_planned(counts: torch.Tensor, q: torch.Tensor,
         w, P = lane_padded(w, cfg)
         check_w_aligned(w)
         plan = plan or device_plan(B, d, K, L, dev)
-        gathered = torch.empty((B, L), dtype=torch.int32, device=dev)
+        gathered = torch.empty((B, L), dtype=gather_dtype(counts),
+                               device=dev)
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                None if table_weights is None else table_weights.data_ptr(),
                gathered.data_ptr(),
                None if ids is None else ids.data_ptr(), scores.data_ptr(),
-               B, d, P, K, L, *plan.args())
+               B, d, P, K, L, *plan.args(), build.count_code(counts))
     return (scores, ids) if with_ids else scores

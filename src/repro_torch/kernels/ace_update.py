@@ -20,6 +20,12 @@ global at once).  Integer adds in any order give the same counts, so the TPU's
 lowering choice (``choose_mode`` and its break-even constants) is not
 carried over.
 
+Counters are int32, int16, int8 or float32 (``build.COUNT_DTYPES``): the
+adds are in the plane's own dtype, so a narrow counter wraps past its
+max (int8 127 + 1 → −128) as the reference's narrow scatter-add does;
+the card has no 8- or 16-bit atomic add, so those are compare-and-swap
+loops (``csrc/common.cuh`` ``add_count``).
+
 Unlike the reference, which returns a new array, the update is in place
 (the counts tensor passed in is the one returned), on the CPU too.
 
@@ -40,7 +46,7 @@ from repro_torch.kernels import build
 
 KERNEL = build.Kernel("ace_update", "repro_ace_update",
                       [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
-                      + [ctypes.c_longlong])
+                      + [ctypes.c_longlong, ctypes.c_int])
 
 # The kernel's constants (csrc/ace_update.cu): rows b a block (of one
 # table), the block's shared table of counters and its probes, the hash
@@ -69,9 +75,10 @@ def ace_update_plain(counts: torch.Tensor, buckets: torch.Tensor,
                      row_base: torch.Tensor | None = None) -> torch.Tensor:
     """The same function in plain PyTorch (``repro.kernels.ref.ace_update_ref``;
     with a mask, ``repro.core.sketch.insert_buckets_masked``'s scatter),
-    in place."""
-    ones = (torch.ones_like(buckets) if row_mask is None
-            else row_mask.to(torch.int32)[:, None].expand(buckets.shape))
+    in place, adding in the counts' dtype."""
+    ones = (torch.ones(buckets.shape, dtype=counts.dtype,
+                       device=counts.device) if row_mask is None
+            else row_mask.to(counts.dtype)[:, None].expand(buckets.shape))
     return counts.index_put_((table_rows(buckets, row_base),
                               buckets.long()), ones, accumulate=True)
 
@@ -92,13 +99,13 @@ def check_rows(counts: torch.Tensor, buckets: torch.Tensor,
 def ace_update(counts: torch.Tensor, buckets: torch.Tensor,
                row_mask: torch.Tensor | None = None,
                row_base: torch.Tensor | None = None) -> torch.Tensor:
-    """counts (R, 2^K) int32 += histogram of buckets (B, L) int32, over the
-    rows where ``row_mask`` (B,) bool is True when one is given; item b's
-    table j is row ``row_base[b] + j`` ((B,) int32) or j.  Returns
-    ``counts``, updated in place."""
+    """counts (R, 2^K) of any ``build.COUNT_DTYPES`` += histogram of
+    buckets (B, L) int32, over the rows where ``row_mask`` (B,) bool is
+    True when one is given; item b's table j is row ``row_base[b] + j``
+    ((B,) int32) or j.  Returns ``counts``, updated in place."""
     R, nbuckets = counts.shape
     B, L = buckets.shape
-    build.check(counts, "counts", torch.int32, (R, nbuckets))
+    build.check_counts(counts, "counts", (R, nbuckets))
     operands = [counts, buckets]
     check_rows(counts, buckets, row_base, operands)
     if row_mask is not None:
@@ -113,5 +120,5 @@ def ace_update(counts: torch.Tensor, buckets: torch.Tensor,
         KERNEL(counts.device, counts.data_ptr(), buckets.data_ptr(),
                None if row_mask is None else row_mask.data_ptr(),
                None if row_base is None else row_base.data_ptr(),
-               B, L, R, nbuckets)
+               B, L, R, nbuckets, build.count_code(counts))
     return counts

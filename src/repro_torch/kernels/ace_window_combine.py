@@ -22,7 +22,9 @@ multiplies with ``__fadd_rn``/``__fmul_rn`` and
 ``ace_window_combine_plain`` runs the same arithmetic, so the two agree
 bitwise.  The reference's ``mode``, ``choose_mode`` and ``FLAT_MAX_COLS``
 choose between two TPU lowerings from a budget calibrated on the TPU; one
-kernel serves every E·L here, and they are not carried over.
+kernel serves every E·L here, and they are not carried over.  Rings are int32, int16, int8 or float32
+(``build.COUNT_DTYPES``): narrow counters are read with their sign, and
+a float ring's epoch sums are taken in float64, converted once.
 """
 from __future__ import annotations
 
@@ -37,7 +39,7 @@ from repro_torch.kernels.ace_update import MAX_TABLES, gather_rows
 
 KERNEL = build.Kernel("ace_window_combine", "repro_ace_window_combine",
                       [ctypes.c_void_p] * 5 + [ctypes.c_int] * 3
-                      + [ctypes.c_longlong])
+                      + [ctypes.c_longlong, ctypes.c_int])
 
 
 def ring_gather(counts: torch.Tensor, buckets: torch.Tensor) -> torch.Tensor:
@@ -64,7 +66,8 @@ def ace_window_combine_plain(counts: torch.Tensor, buckets: torch.Tensor,
     acc = torch.zeros(g.shape[0], dtype=torch.float32, device=g.device)
     for e in range(E):
         if table_weights is None:
-            s = torch.sum(g[:, e], dim=-1, dtype=torch.int64)
+            s = torch.sum(g[:, e], dim=-1, dtype=torch.float64
+                          if g.is_floating_point() else torch.int64)
             s = s.to(torch.float32)
         else:
             s = table_order_sum(g[:, e].to(torch.float32), table_weights)
@@ -76,13 +79,14 @@ def ace_window_combine(counts: torch.Tensor, buckets: torch.Tensor,
                        weights: torch.Tensor,
                        table_weights: torch.Tensor | None = None
                        ) -> torch.Tensor:
-    """counts (E, L, 2^K) int32, buckets (B, L) int32, weights (E,) fp32
+    """counts (E, L, 2^K) of any ``build.COUNT_DTYPES``, buckets (B, L)
+    int32, weights (E,) fp32
     -> scores (B,) fp32.  ``table_weights`` (L,) fp32, when given, weighs
     each table's gather and replaces the 1/L mean (the caller bakes the
     health mask and its 1/num_healthy in)."""
     E, L, nbuckets = counts.shape
     B = buckets.shape[0]
-    build.check(counts, "counts", torch.int32, (E, L, nbuckets))
+    build.check_counts(counts, "counts", (E, L, nbuckets))
     build.check(buckets, "buckets", torch.int32, (B, L))
     build.check(weights, "weights", torch.float32, (E,))
     operands = [counts, buckets, weights]
@@ -100,5 +104,6 @@ def ace_window_combine(counts: torch.Tensor, buckets: torch.Tensor,
     if B:
         KERNEL(dev, counts.data_ptr(), buckets.data_ptr(), weights.data_ptr(),
                None if table_weights is None else table_weights.data_ptr(),
-               scores.data_ptr(), B, E, L, nbuckets)
+               scores.data_ptr(), B, E, L, nbuckets,
+               build.count_code(counts))
     return scores

@@ -149,6 +149,30 @@ def check(t: torch.Tensor, name: str, dtype: torch.dtype, shape) -> None:
         raise ValueError(f"{name}: must be contiguous")
 
 
+# The counter types of the kernels that read or add counters, in the order
+# of their codes (csrc/common.cuh CountCode): the reference's count dtypes.
+COUNT_DTYPES = (torch.int32, torch.int16, torch.int8, torch.float32)
+
+
+def check_counts(t: torch.Tensor, name: str, shape) -> None:
+    """``check`` for a count plane of any of ``COUNT_DTYPES``.  On the card
+    the plane must also start 4-byte aligned: an int8 add is a
+    compare-and-swap of the aligned word that holds the byte (the
+    allocator's tensors are; a view at an odd offset is not)."""
+    if t.dtype not in COUNT_DTYPES:
+        raise TypeError(f"{name}: want one of "
+                        f"{', '.join(map(str, COUNT_DTYPES))}, got {t.dtype}")
+    check(t, name, t.dtype, shape)
+    if t.is_cuda and t.data_ptr() % 4:
+        raise ValueError(f"{name}: a count plane on the card must start "
+                         "4-byte aligned")
+
+
+def count_code(t: torch.Tensor) -> int:
+    """The kernels' code of a count plane's dtype."""
+    return COUNT_DTYPES.index(t.dtype)
+
+
 def check_bits(num_bits: int) -> None:
     if not 1 <= num_bits <= 31:
         raise ValueError(f"num_bits must be in [1, 31], got {num_bits}")

@@ -33,6 +33,16 @@ as the reference gathers them with jnp; the stats epilogues are the
 plain modules' own (``ring.insert_stats``,
 ``fleet.state.fleet_masked_welford``, ``fleet.window.apply_insert_stats``).
 
+Counters of any of the reference's dtypes (int32, int16, int8, float32)
+go through the same kernels, which read and add in the plane's own dtype
+(a narrow counter wraps past its max, as the reference's does).  A flat
+sketch with an escalation table (``state.esc``, ``esc_capacity > 0``)
+takes the reference's plain path instead: the one hash still through
+``hash_dispatch``, then ``core.quantize``'s exact saturating scatter and
+logical lookups in plain PyTorch (``sketch.lookup``,
+``sketch.insert_buckets``, ``sketch.insert_buckets_masked``), as the
+reference runs them in jnp outside any kernel.
+
 Quantile admission (``threshold_mode="quantile"``) hands every kernel
 the same one score-space threshold per tenant, so no kernel changes: the
 threshold is read from the state's rate histogram, and after the insert
@@ -109,7 +119,11 @@ def ace_update(state: AceState, buckets: torch.Tensor,
     float32(1/L), as ``torch.mean`` computes them on the card and
     ``sketch.insert_buckets`` everywhere) for the Welford stream (the
     reference's formula, with no ``welford_min_n`` gate, as in
-    ``repro.kernels.ops.ace_update``)."""
+    ``repro.kernels.ops.ace_update``).  A quantized plane inserts through
+    ``sketch.insert_buckets`` (the exact saturating scatter), as the
+    reference's does."""
+    if state.esc is not None:
+        return _sk.insert_buckets(state, buckets, cfg)
     new_counts = _u.ace_update(state.counts, buckets)
     scores = _q.ace_query_sum(new_counts, buckets)
     b = float(scores.shape[0])
@@ -138,7 +152,10 @@ def ace_query(state: AceState, buckets: torch.Tensor,
     """(B, L) bucket ids -> (B,) scores in one ``ace_query_sum`` launch:
     the sum times float32(1/L) (``sketch.reciprocal``, so kernel and plain
     scores agree bitwise), or the mean over the healthy tables of
-    ``table_mask`` (``sketch.masked_table_mean``'s)."""
+    ``table_mask`` (``sketch.masked_table_mean``'s).  A quantized plane
+    reads through its escalation table (``sketch.lookup``)."""
+    if state.esc is not None:
+        return _sk.lookup(state, buckets, table_mask)
     return _q.ace_query_sum(state.counts, buckets, table_mask=table_mask)
 
 
@@ -148,10 +165,10 @@ def ace_score(state: AceState, q: torch.Tensor, w: torch.Tensor,
     """Hash + lookup + mean of raw query vectors.
 
     Dense: one ``ace_score_fused`` call, with the health mask baked into
-    its ``table_weights`` when ``table_mask`` is given.  SRHT: the
-    ``srht_hash`` kernel, then ``ace_query_sum``.
+    its ``table_weights`` when ``table_mask`` is given.  SRHT, or a
+    quantized plane: the one hash kernel, then ``ace_query``.
     """
-    if resolve_hash_mode(cfg.srp) == "srht":
+    if resolve_hash_mode(cfg.srp) == "srht" or state.esc is not None:
         return ace_query(state, hash_dispatch(q, w, cfg.srp),
                          table_mask=table_mask)
     if table_mask is None:
@@ -173,9 +190,19 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
     ``hash_dispatch``, ``ace_query_sum`` for the (masked) score, the
     ``ace_update`` kernel with the admit mask as its row mask.  Both then
     score the post-insert counts with ``ace_query_sum`` from the same
-    bucket ids, as ``repro.core.sketch.insert_buckets_masked`` does.
+    bucket ids, as ``repro.core.sketch.insert_buckets_masked`` does.  A
+    quantized plane: ``hash_dispatch``, then ``sketch.lookup`` and
+    ``sketch.insert_buckets_masked`` (the reference's path).
     Returns (new_state, admit (B,) bool, pre-insert scores (B,) f32).
     """
+    if state.esc is not None:
+        buckets = hash_dispatch(q, w, cfg.srp)
+        scores = _sk.lookup(state, buckets, table_mask)
+        admit = scores >= thresh
+        if item_mask is not None:
+            admit = admit & item_mask
+        return (_sk.insert_buckets_masked(state, buckets, admit, cfg),
+                admit, scores)
     if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
         buckets = hash_dispatch(q, w, cfg.srp)
         scores = ace_query(state, buckets, table_mask)

@@ -1,14 +1,16 @@
 """The ACE request guardrail: out-of-distribution requests are rejected in
 O(K·L) before they reach the model (the paper's query phase as an
 admission filter).  Port of ``repro.serve.engine``'s ``Guardrail`` with
-int32 counts, under either hash family (``hash_mode`` "dense", "srht" or
+int32, int16, int8 or float32 counts (``count_dtype``; the flat sketch
+also with exact overflow promotion, ``esc_capacity > 0``), under either
+hash family (``hash_mode`` "dense", "srht" or
 "auto") and either threshold rule (``threshold_mode`` "mu_sigma" or
 "quantile"), in its four flavours: the flat sketch, the sliding window
 (``window_epochs > 1``), the tenant fleet (``num_tenants > 1``) and the
 windowed fleet (both).
 
 ``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
-item 12); quantized planes, health/repair and meshes raise
+item 12); health/repair and meshes raise
 ``NotImplementedError`` naming the queue item that brings them.
 """
 from __future__ import annotations
@@ -56,8 +58,8 @@ class GuardrailConfig:
     window_decay: float = 1.0
     rotate_every: int = 0
     num_tenants: int = 1
-    count_dtype: str = "int32"
-    esc_capacity: int = 0
+    count_dtype: str = "int32"  # "float32" | "int32" | "int16" | "int8"
+    esc_capacity: int = 0       # > 0: exact promotion (flat sketch only)
     threshold_mode: str = "mu_sigma"   # "mu_sigma" | "quantile"
     quantile_q: float = 0.01    # target flag rate for quantile mode
     fail_policy: str | tuple = "fail_open"
@@ -113,9 +115,6 @@ class Guardrail:
                                  hash_mode=gcfg.hash_mode,
                                  counter_dtype=gcfg.count_dtype,
                                  esc_capacity=gcfg.esc_capacity)
-        if use_kernels and gcfg.count_dtype != "int32":
-            raise ValueError("the kernels take int32 counts; use "
-                             "use_kernels=False for float32 counts")
         self.windowed = gcfg.window_epochs > 1
         self.multi_tenant = gcfg.num_tenants > 1
         pol = gcfg.fail_policy
@@ -296,6 +295,25 @@ class Guardrail:
         out = _to_host(self._admit_device(embeds, tids))  # the ONE transfer
         self.quarantined += int((~out[1]).sum())
         return out[0].astype(bool)
+
+    def memory_bytes(self) -> int:
+        """The device bill of the sketch state, from the reference's
+        config formulas: the flat sketch's ``AceConfig.memory_bytes``
+        (narrow planes and the escalation table included), the window's
+        ``WindowConfig.memory_bytes`` (E epochs + the fp32 tail), the
+        fleet's ``FleetConfig.memory_bytes``, and T windows for the
+        windowed fleet."""
+        g = self.gcfg
+        if self.windowed:
+            wcfg = ring.WindowConfig(ace=self.ace_cfg,
+                                     num_epochs=g.window_epochs,
+                                     decay=g.window_decay,
+                                     rotate_every=g.rotate_every)
+            return max(g.num_tenants, 1) * wcfg.memory_bytes()
+        if self.multi_tenant:
+            return fl.FleetConfig(ace=self.ace_cfg,
+                                  num_tenants=g.num_tenants).memory_bytes()
+        return self.ace_cfg.memory_bytes()
 
     def health_check(self):
         not_ported("Guardrail.health_check", 10)

@@ -49,6 +49,7 @@ import torch
 
 from repro_torch import not_ported
 from repro_torch.attribution import sketch as at
+from repro_torch.core import quantize as qz
 from repro_torch.fleet.state import check_tenant_ids, per_tenant_counts
 from repro_torch.quantile.moments import falpha_index
 from repro_torch.window import ring
@@ -309,9 +310,12 @@ class StreamRunner:
                                   ring.combined_n(state, gamma),
                                   table_mask=table_mask)
         else:
+            # a quantized plane's moment index reads the exact logical
+            # counts: the narrow plane clips the very buckets it weighs
             n = state.n
-            falpha = falpha_index(state.counts, state.n,
-                                  table_mask=table_mask)
+            counts = (state.counts if state.esc is None
+                      else qz.densify(state.counts, state.esc))
+            falpha = falpha_index(counts, state.n, table_mask=table_mask)
         return ChunkSummary(
             n=n, falpha=falpha,
             degraded=torch.full((), table_mask is not None, dtype=torch.bool,

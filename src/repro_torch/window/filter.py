@@ -34,7 +34,10 @@ from repro_torch.window.ring import WindowConfig, WindowedAceState
 @dataclasses.dataclass(frozen=True)
 class WindowedAceFilter:
     """ACE anomaly filter over a sliding epoch ring, with the reference's
-    defaults.  ``use_kernels`` and ``device`` as in ``AceDataFilter``."""
+    defaults.  ``use_kernels`` and ``device`` as in ``AceDataFilter``.
+    ``count_dtype`` (not a field of the reference's filter, whose ring is
+    int32) narrows the ring to int16 or int8 as the windowed
+    ``Guardrail``'s ``count_dtype`` does; rings take no promotion."""
 
     d_model: int
     num_bits: int = 13
@@ -52,6 +55,7 @@ class WindowedAceFilter:
     quantile_q: float = 0.01    # target flag rate for quantile mode
     attr_rows: int = 0          # > 0: attribution planes ride the state
     attr_bits: int = 8          # log2 columns per attribution row
+    count_dtype: str = "int32"  # the ring's counters (int16/int8 narrow)
     use_kernels: bool = True
     device: torch.device | str | None = None
     # the attribution hash tables on ``device`` (repro_torch.attribution
@@ -78,6 +82,7 @@ class WindowedAceFilter:
                          num_tables=self.num_tables, seed=29,
                          welford_min_n=self.warmup_items / 2,
                          hash_mode=self.hash_mode,
+                         counter_dtype=self.count_dtype,
                          attr_rows=self.attr_rows,
                          attr_bits=self.attr_bits)
 

@@ -70,7 +70,7 @@ class WindowedAceState(NamedTuple):
     """Ring of E epoch sketches + the maintained γ-weighted tail view
     (``repro.window.ring.WindowedAceState``'s fields)."""
 
-    counts: torch.Tensor        # (E, L, 2^K) int32 (or float32)
+    counts: torch.Tensor        # (E, L, 2^K) int32, int16, int8 or float32
     n: torch.Tensor             # (E,) float32
     welford_mean: torch.Tensor  # (E,) float32
     welford_m2: torch.Tensor    # (E,) float32
@@ -104,6 +104,12 @@ class WindowConfig:
             raise ValueError(f"num_epochs must be >= 1, got {self.num_epochs}")
         if not (0.0 < self.decay <= 1.0):
             raise ValueError(f"decay must be in (0, 1], got {self.decay}")
+        if self.ace.esc_capacity > 0:
+            raise NotImplementedError(
+                "overflow promotion (esc_capacity > 0) is wired for the "
+                "flat sketch only; window rings take narrow count dtypes "
+                "without an escalation table (exact below saturation). "
+                "See docs/ARCHITECTURE.md §7.")
 
     def memory_bytes(self) -> int:
         """The window's device bill: E epochs + the f32 tail view."""
@@ -116,6 +122,10 @@ def init(cfg: AceConfig, num_epochs: int, device,
          quantile: bool = False) -> WindowedAceState:
     if num_epochs < 1:
         raise ValueError(f"num_epochs must be >= 1, got {num_epochs}")
+    if cfg.esc_capacity > 0:
+        raise NotImplementedError(
+            "overflow promotion (esc_capacity > 0) is flat-sketch only; "
+            "window rings take narrow count dtypes without promotion")
     shape = (cfg.num_tables, cfg.num_buckets)
 
     def zeros(*s, dtype=torch.float32):

@@ -291,12 +291,36 @@ class TestSketch:
                       jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids),
                                          jcfg))
 
-    @pytest.mark.parametrize("kw,item", [
-        (dict(counter_dtype="int16"), 9), (dict(esc_capacity=4), 9),
-        (dict(counter_dtype="int8"), 9)])
-    def test_later_slices_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            sk.AceConfig(dim=4, **kw)
+    @pytest.mark.parametrize("kw", [
+        dict(counter_dtype="int16"),
+        dict(counter_dtype="int8", esc_capacity=4),
+        dict(counter_dtype="int8")])
+    def test_narrow_planes_now_run_like_the_reference(self, kw):
+        """Narrow planes (with and without promotion), once refused here
+        (queue 1 item 9), now insert, score, delete and merge like the
+        reference: counts, the escalation table and n bitwise, μ at RTOL
+        (tests/test_torch_quantize.py covers every path)."""
+        from repro_torch.core.convert import state_to_numpy
+        jcfg, cfg = _pair(**kw)
+        assert cfg.memory_bytes() == jcfg.memory_bytes()
+        ids = _bucket_ids(40, 8, 16, 51)
+        ps = sk.insert_buckets(sk.init(cfg, CPU), _t(ids), cfg)
+        js = jsk.insert_buckets(jsk.init(jcfg), jnp.asarray(ids), jcfg)
+        ps = sk.merge(sk.delete_buckets(ps, _t(ids[:7]), cfg), ps)
+        js = jsk.merge(jsk.delete_buckets(js, jnp.asarray(ids[:7]), jcfg),
+                       js)
+        got = state_to_numpy(ps)
+        assert got["counts"].dtype == np.dtype(kw["counter_dtype"])
+        _assert_state(ps, js)
+        if js.esc is not None:
+            for k in ("offs", "vals", "lost"):
+                np.testing.assert_array_equal(got[f"esc.{k}"],
+                                              np.asarray(getattr(js.esc, k)))
+        np.testing.assert_array_equal(
+            sk.lookup(ps, _t(ids)).numpy(),
+            np.asarray(jsk.lookup(js, jnp.asarray(ids))))
+        np.testing.assert_allclose(float(sk.mean_mu(ps)),
+                                   float(jsk.mean_mu(js)), rtol=RTOL)
 
     def test_degraded_and_quantile_raise(self):
         """Degraded scoring (``table_mask``) scores like the reference; the

@@ -1636,3 +1636,145 @@ def test_quantile_consume_has_no_host_sync(cuda, kind):
             torch.cuda.set_sync_debug_mode("default")
     assert int(runner.fetch(summary).quarantined) == 4
     assert 0 < float(st.qhist.sum()) <= 3 * 4 * 63
+
+
+# ---------------------------------------------------------------------------
+# Count dtypes: int16, int8 and float32 counters through the seven kernels
+# that read or add them.
+# ---------------------------------------------------------------------------
+
+COUNT_DTYPES = [torch.int16, torch.int8, torch.float32]
+
+
+def _plane(shape, dtype, device, seed=1, hi=9):
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(rng.integers(0, hi, size=shape),
+                           device=device).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", COUNT_DTYPES)
+@pytest.mark.parametrize("B,K,L,repeat", [(1, 2, 1, 1), (40, 4, 3, 4),
+                                          (257, 15, 50, 2)])
+def test_count_dtypes_update_and_query_match_plain(cuda, dtype, B, K, L,
+                                                   repeat):
+    """``ace_update`` (with and without a row mask), the (B, L) gather and
+    ``ace_query_sum`` in every scale on a narrow or float plane, bitwise
+    the plain versions, repeated rows included (int8 and int16 counters
+    of one 32-bit word retried against each other)."""
+    ids = _ids(B, K, L, cuda, seed=3, repeat=repeat)
+    mask = torch.rand(ids.shape[0], device=cuda) < 0.6
+    for m in (None, mask):
+        c = _plane((L, 1 << K), dtype, cuda)
+        got = U.ace_update(c.clone(), ids, row_mask=m)
+        assert torch.equal(got, U.ace_update_plain(c.clone(), ids, m))
+    assert torch.equal(Q.ace_query(got, ids), Q.ace_query_plain(got, ids))
+    tm = (torch.arange(L, device=cuda) % 3 != 1).float()
+    for scale in Q.SCALES:
+        for t in (None, tm):
+            assert torch.equal(
+                Q.ace_query_sum(got, ids, table_mask=t, scale=scale),
+                Q.ace_query_sum_plain(got, ids, table_mask=t, scale=scale))
+
+
+@pytest.mark.parametrize("dtype", [torch.int16, torch.int8])
+def test_narrow_adds_wrap_and_contend_like_plain(cuda, dtype):
+    """From the cap a narrow counter wraps, add for add; 4096 rows on the
+    four neighbouring int8 buckets of one word (or two int16 ones) all
+    land."""
+    cap = torch.iinfo(dtype).max
+    B, L, K = 4096, 3, 10
+    c = _plane((L, 1 << K), dtype, cuda)
+    c[:, 5] = cap
+    hot = torch.full((B, L), 5, dtype=torch.int32, device=cuda)
+    got = U.ace_update(c.clone(), hot)
+    want = (c[:, 5].long() + B).to(dtype)
+    assert torch.equal(got[:, 5], want)
+    assert torch.equal(got, U.ace_update_plain(c.clone(), hot))
+    word = (8 + torch.arange(B, device=cuda) % 4)[:, None].expand(B, L) \
+        .to(torch.int32).contiguous()
+    mask = torch.rand(B, device=cuda) < 0.5
+    for m in (None, mask):
+        assert torch.equal(U.ace_update(c.clone(), word, row_mask=m),
+                           U.ace_update_plain(c.clone(), word, m))
+
+
+def test_narrow_plane_off_a_word_boundary_refused(cuda):
+    """The narrow add is a compare-and-swap of the aligned word: a plane
+    that does not start 4-byte aligned is refused, not half-written."""
+    c = torch.zeros(4 * 16 + 1, dtype=torch.int8, device=cuda)[1:].view(4, 16)
+    with pytest.raises(ValueError, match="aligned"):
+        U.ace_update(c, torch.zeros((2, 4), dtype=torch.int32, device=cuda))
+
+
+@pytest.mark.parametrize("dtype", COUNT_DTYPES)
+def test_count_dtypes_fused_kernels_match_plain(cuda, dtype):
+    """The four hash-fused kernels and the window combine on a narrow or
+    float plane: bitwise their plain versions downstream of the kernel's
+    own ids, colliding copies included."""
+    B, d, K, L, T, E = 65, 36, 12, 20, 3, 2
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=5)
+    w = make_projections(cfg, device=cuda)
+    x = torch.randn((B, d), device=cuda)
+    x = torch.cat([x, x[:16]]).contiguous()
+    Bx = x.shape[0]
+    counts = _plane((L, 1 << K), dtype, cuda, seed=6)
+    thresh = torch.tensor(2.0, device=cuda)
+    c, s, a, b = A.ace_admit_fused(counts.clone(), x, w, thresh, cfg)
+    rows = torch.arange(L, device=cuda)[None, :]
+    ref_s = counts[rows, b.long()].float().sum(-1) \
+        * torch.tensor(1.0 / L, dtype=torch.float32)
+    assert torch.equal(s, ref_s) and torch.equal(a, ref_s >= thresh)
+    assert torch.equal(c, counts.clone().index_put_(
+        (rows, b.long()), a.to(dtype)[:, None].expand(b.shape),
+        accumulate=True))
+    s, ids = F.ace_score_fused_planned(counts, x, w, cfg, None, None,
+                                       with_ids=True)
+    assert torch.equal(s, Q.ace_query_sum(counts, ids))
+    tids = (torch.arange(Bx, device=cuda) % T).to(torch.int32)
+    fleet = _plane((T, L, 1 << K), dtype, cuda, seed=7)
+    s, fids = FS.ace_fleet_score_planned(fleet, x, tids, w, cfg, None,
+                                         with_ids=True)
+    assert torch.equal(s, FS.fleet_score_from_ids(fleet, fids, tids))
+    ring = _plane((T, E, L, 1 << K), dtype, cuda, seed=8)
+    tail = _plane((T, L, 1 << K), torch.float32, cuda, seed=9, hi=30) * 0.5
+    cursor = torch.tensor([1, 0, 1], dtype=torch.int32, device=cuda)
+    thr = torch.tensor([3.0, 5.0, float("-inf")], device=cuda)
+    r = ring.clone()
+    out = FWA.ace_fleet_window_admit_fused(r, tail, cursor, x, tids, w, thr,
+                                           cfg)
+    r_ref = ring.clone()
+    ref = FWA.fleet_window_admit_from_ids(r_ref, tail, cursor, out[3], tids,
+                                          thr)
+    assert torch.equal(r, r_ref)
+    for got, want in zip((out[1], out[2], out[4], out[5]), ref):
+        assert torch.equal(got, want)
+    weights = torch.tensor([1.0, 0.7], device=cuda)
+    for tw in (None, torch.full((L,), 1.0 / L, device=cuda)):
+        assert torch.equal(
+            WC.ace_window_combine(ring[0], ids, weights, tw),
+            WC.ace_window_combine_plain(ring[0], ids, weights, tw))
+
+
+def test_quantized_consume_has_no_host_sync(cuda):
+    """An int8 filter with promotion under sync-debug "error": the exact
+    saturating scatter (``core.quantize``) has fixed shapes and syncs
+    nothing with the host, and counters pass 127 into the table."""
+    kw = dict(d_model=96, num_bits=3, num_tables=8, warmup_items=1e9,
+              count_dtype="int8", esc_capacity=64, device=cuda)
+    runner = StreamRunner(AceDataFilter(**kw), 4)
+    st, w = runner.init()
+    rng = np.random.default_rng(0)
+    for c in range(3):
+        chunk = torch.as_tensor(rng.normal(size=(4, 64, 97))
+                                .astype(np.float32), device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            st, summary = runner.consume(st, w, chunk)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    from repro_torch.core import quantize as qz
+    assert float(runner.fetch(summary).n) == 3 * 4 * 64
+    assert int((st.esc.offs != qz.SENTINEL).sum()) > 0
+    assert float(st.esc.lost) == 0.0
+    assert int(qz.densify(st.counts, st.esc).sum(1)[0]) == 3 * 4 * 64

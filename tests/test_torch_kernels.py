@@ -660,13 +660,29 @@ class TestAceFleetWindowAdmit:
             accumulate=True)
         assert torch.equal(r.view(-1, 64), want_r)
 
-    def test_narrow_rings_are_a_later_slice(self):
-        _, cfg, w, x, ring, tail, cursor, tids, thr = self._case(
-            2, 2, 4, 8, 5, 3, 1, "spread", integral=True)
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-            FWA.ace_fleet_window_admit_fused(
-                _t(ring.astype(np.int16)), _t(tail), _t(cursor), _t(x),
-                _t(tids), params_from_numpy(w, CPU), _t(thr), cfg)
+    @pytest.mark.parametrize("dtype", [np.int16, np.int8])
+    def test_narrow_rings_match_pallas_kernel(self, dtype):
+        """Narrow rings, once refused here (queue 1 item 9): the ring in
+        its own dtype, scores, admit mask and both sums bitwise the Pallas
+        kernel's (interpret mode) on the same inputs, as the reference's
+        test_narrow_ring_dtypes holds its kernel to its oracle."""
+        from repro.kernels.ace_fleet_window_admit import \
+            ace_fleet_window_admit_fused as jfwa
+        jcfg, cfg, w, x, ring, tail, cursor, tids, thr = self._case(
+            2, 2, 4, 8, 5, 3, 2, "spread", integral=True)
+        ring = ring.astype(dtype)
+        want = jfwa(jnp.asarray(ring), jnp.asarray(tail),
+                    jnp.asarray(cursor), jnp.asarray(x), jnp.asarray(tids),
+                    jnp.asarray(w), jnp.asarray(thr), jcfg, interpret=True)
+        r = _t(ring.copy())
+        got = FWA.ace_fleet_window_admit_fused(
+            r, _t(tail), _t(cursor), _t(x), _t(tids),
+            params_from_numpy(w, CPU), _t(thr), cfg)
+        assert got[0] is r and r.dtype == torch.from_numpy(ring).dtype
+        np.testing.assert_array_equal(got[3].numpy(), np.asarray(want[3]))
+        for i, (a, b) in enumerate(zip(got, want)):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                          err_msg=str(i))
 
 
 class TestWrapperContract:
@@ -681,7 +697,8 @@ class TestWrapperContract:
         with pytest.raises(TypeError):
             H.srp_hash(x.double(), w, cfg)
         with pytest.raises(TypeError):
-            U.ace_update(counts.float(), torch.zeros((2, 3), dtype=torch.int32))
+            U.ace_update(counts.double(),
+                         torch.zeros((2, 3), dtype=torch.int32))
 
     def test_rejects_wrong_shape(self):
         cfg, w, x, counts = self._args()

@@ -143,14 +143,32 @@ class TestGuardrailSlice:
 
 
 class TestNotPorted:
-    @pytest.mark.parametrize("kw,item", [
-        (dict(window_epochs=2, rotate_every=1, count_dtype="int16"), 9),
-        (dict(count_dtype="int8"), 9),
-        (dict(esc_capacity=4), 9)])
-    def test_guardrail_features_of_later_slices_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            engine.Guardrail(engine.GuardrailConfig(d_model=8, **kw),
-                             device="cpu")
+    @pytest.mark.parametrize("kw", [
+        dict(window_epochs=2, rotate_every=1, count_dtype="int16"),
+        dict(count_dtype="int8"),
+        dict(count_dtype="int8", esc_capacity=4)])
+    def test_narrow_guardrails_now_run_like_the_reference(self, kw):
+        """Narrow planes, once refused here (queue 1 item 9), now admit
+        like the reference on the same W: masks, counts (in their dtype)
+        and the escalation table bitwise, and the same memory bill
+        (tests/test_torch_quantize.py covers every flavour)."""
+        gj, gp = _pair(True, False, **kw)
+        for e in _batches(6):
+            np.testing.assert_array_equal(gp.admit(e),
+                                          np.asarray(gj.admit(jnp.asarray(e))))
+        got = state_to_numpy(gp.state)
+        assert got["counts"].dtype == np.dtype(kw["count_dtype"])
+        for k in ("counts", "n"):
+            np.testing.assert_array_equal(got[k], np.asarray(
+                getattr(gj.state, k)), err_msg=k)
+        if "esc_capacity" in kw:
+            for k in ("offs", "vals", "lost"):
+                np.testing.assert_array_equal(
+                    got[f"esc.{k}"], np.asarray(getattr(gj.state.esc, k)))
+        from repro.window.ring import WindowConfig
+        want = (WindowConfig(ace=gj.ace_cfg, num_epochs=2).memory_bytes()
+                if "window_epochs" in kw else gj.ace_cfg.memory_bytes())
+        assert gp.memory_bytes() == want
 
     @pytest.mark.parametrize("kw", [
         dict(num_tenants=2, threshold_mode="quantile"),

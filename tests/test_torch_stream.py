@@ -142,11 +142,26 @@ class TestFilterStep:
         for k in ("counts", "n", "welford_mean", "welford_m2"):
             assert torch.equal(getattr(sk_, k), getattr(sp, k)), k
 
-    @pytest.mark.parametrize("kw,item", [
-        (dict(count_dtype="int8"), 9), (dict(esc_capacity=4), 9)])
-    def test_later_slices_raise(self, kw, item):
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            AceDataFilter(d_model=8, device="cpu", **kw)
+    @pytest.mark.parametrize("kw", [
+        dict(count_dtype="int8"), dict(count_dtype="int8", esc_capacity=4)])
+    def test_narrow_filters_now_step_like_the_reference(self, kw):
+        """Narrow planes, once refused here (queue 1 item 9), now step like
+        the reference through the kernel path: keep masks, margins,
+        counts (in their dtype) and the escalation table alike
+        (tests/test_torch_quantize.py covers every filter)."""
+        jf, pf, (js, jw), (ps, pw) = _pair("dense", True, warmup_items=40.0,
+                                           **kw)
+        for f in _features(6, burst_from=4):
+            js, jk, jm = jf.step(js, jw, jnp.asarray(f))
+            ps, pk, pm = pf.step(ps, pw, torch.from_numpy(f))
+            np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+            _assert_margins(pm.numpy(), jm, js.n)
+            _assert_state(ps, js)
+        assert ps.counts.dtype == torch.int8
+        if "esc_capacity" in kw:
+            for k in ("offs", "vals", "lost"):
+                np.testing.assert_array_equal(
+                    getattr(ps.esc, k).numpy(), np.asarray(getattr(js.esc, k)))
 
     @pytest.mark.parametrize("windowed", [False, True])
     def test_quantile_filters_now_step_like_the_reference(self, windowed):
@@ -176,8 +191,18 @@ class TestFilterStep:
             AceDataFilter(d_model=8, device="cpu", threshold_mode="median")
         with pytest.raises(ValueError, match="hash_mode"):
             AceDataFilter(d_model=8, device="cpu", hash_mode="fwht")
-        with pytest.raises(ValueError, match="int32"):
-            AceDataFilter(d_model=8, device="cpu", count_dtype="float32")
+        with pytest.raises(ValueError, match="counter_dtype"):
+            AceDataFilter(d_model=8, device="cpu", count_dtype="int4")
+        # float32 counts, once refused on the kernel path, step like the
+        # reference's
+        jf, pf, (js, jw), (ps, pw) = _pair("dense", True, warmup_items=40.0,
+                                           count_dtype="float32")
+        for f in _features(4):
+            js, jk, _ = jf.step(js, jw, jnp.asarray(f))
+            ps, pk, _ = pf.step(ps, pw, torch.from_numpy(f))
+            np.testing.assert_array_equal(pk.numpy(), np.asarray(jk))
+        assert ps.counts.dtype == torch.float32
+        _assert_state(ps, js)
 
 
 class TestStreamRunner:
