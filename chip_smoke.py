@@ -146,9 +146,11 @@ non-zero without printing its result line):
              ``FleetDataFilter`` + ``StreamRunner`` in both modes, held to
              that benchmark's gates (quantile FPR in [q/2, 2q] for every
              tenant, mu-sigma under- and over-flagging, burst recall
-             >= 0.8); phase 5's fleet stream in quantile mode (one
-             transfer each way a chunk, no sync inside ``consume``),
-             items/s in turns with mu-sigma's;
+             >= 0.8), its rates' bin ids on the card against a CPU
+             ``bin_index`` of the same rates (how many lie within 4 ulp
+             of an edge, how many differ); phase 5's fleet stream in
+             quantile mode (one transfer each way a chunk, no sync inside
+             ``consume``), items/s in turns with mu-sigma's;
 10. narrow — every narrow flavour in lockstep with its int32 twin (one
              W, the same traffic, the order alternating, each admit
              timed): the flat ``Guardrail`` at phase 4's width and
@@ -165,11 +167,28 @@ non-zero without printing its result line):
              transfer each way a chunk, no sync in ``consume``), each in
              turns with int32; then the seven count-reading kernels timed
              in int32, int16 and int8 in one call
-             (``phase_timing_dtypes``).
+             (``phase_timing_dtypes``);
+11. resilience — each ``Guardrail`` flavour at phase 6's width and
+             traffic, a kernel guardrail and a plain one in lockstep:
+             armed, 4 NaN rows quarantined, 2 bits flipped in each of
+             ⌈L/4⌉ = 13 tables (``resilience.flip_count_bits``), the
+             ``health_check`` reports equal, every flagged table a
+             flipped one (all of them where conservation is two-sided),
+             masked scores bitwise an unflipped twin's, degraded admits
+             (one D2H each, verdicts equal where ids agree, ``srp_hash``,
+             ``ace_query_sum`` and ``ace_update`` launched and no fused
+             admission, no sync under sync-debug "error"), their p50 in
+             turns with the healthy route's and one traced, ``repair``
+             (the invariants hold at once), re-warm within the
+             reference's bound and the healthy route again, and two
+             CRC-checked checkpoints of the state, the newest torn, the
+             intact one restored bitwise.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7, 9 and 10 (the post-mortem query a
-path of its own; in phase 10 before each narrow admit) and read just
+before each path of phases 3 to 7 and 9 to 11 (the post-mortem query a
+path of its own; in phase 10 before each narrow admit, in phase 11
+before each degraded admit and the first healthy one after recovery)
+and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
@@ -3422,6 +3441,410 @@ def phase_timing_dtypes(mods, device, d_model=D_MODEL) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 9's bin ids on the card against a CPU recomputation.
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def recorded_bins():
+    """Inside the block, every ``quantile.sketch.bin_index`` call on the
+    card keeps a copy of its rates and bin ids (no sync: device copies)."""
+    from repro_torch.quantile import sketch as qsk
+    real = qsk.bin_index
+    seen = []
+
+    def record(rates):
+        ids = real(rates)
+        if rates.is_cuda:
+            seen.append((rates.detach().to(torch.float32).reshape(-1).clone(),
+                         ids.reshape(-1).clone()))
+        return ids
+    qsk.bin_index = record
+    try:
+        yield seen
+    finally:
+        qsk.bin_index = real
+
+
+def bin_edge_counts(seen) -> dict:
+    """Of the recorded rates: how many lie within 4 ulp of a bin edge (the
+    parity tests' ±1-bin band), and how many bin ids computed on the card
+    differ from ``bin_index`` of the same rates on the CPU."""
+    from repro_torch.quantile import sketch as qsk
+    rates = torch.cat([r for r, _ in seen]).cpu()
+    ids = torch.cat([i for _, i in seen]).cpu()
+    cpu_ids = qsk.bin_index(rates)
+    r = rates.numpy()
+    edges = qsk._EDGES_NP
+    at = np.clip(np.searchsorted(edges, r), 1, len(edges) - 1)
+    gap = np.minimum(np.abs(r - edges[at - 1]), np.abs(edges[at] - r))
+    near = int((gap <= 4 * np.spacing(np.abs(r))).sum())
+    differ = ids != cpu_ids
+    return {"rates": int(r.size), "near_edge": near,
+            "differ": int(differ.sum()),
+            "differ_by_more_than_1": int(
+                ((ids - cpu_ids).abs() > 1).sum()),
+            "differ_rates": r[differ.numpy()][:8].tolist()}
+
+
+# ---------------------------------------------------------------------------
+# Phase 11: resilience — health audit, degraded admission, repair, re-warm
+# and CRC-checked checkpoints in the four Guardrail flavours.
+# ---------------------------------------------------------------------------
+
+RES_KINDS = {"flat": {}, **GUARD_KINDS}
+RES_WARM = 12            # clean admits: every flavour's sketch armed
+RES_NAN = 4              # NaN rows of the quarantine batch
+RES_DEGRADED = 4         # degraded admits in lockstep with the plain path
+RES_TURNS = 16           # admits each in turns, degraded and healthy
+RES_CKPT = ROOT / "build" / "resilience_ckpt"
+
+
+class RequestStream:
+    """Phase 6's traffic before its shift: rows around the same 8 topics
+    (the same topic draw from SEED + 8), each tenant every T-th row, the
+    first ``nan_rows`` rows of a batch NaN when asked."""
+
+    def __init__(self, device, d_model, b, s, tenants=None):
+        self.gen = torch.Generator(device=device).manual_seed(SEED + 8)
+        self.topics = torch.nn.functional.normalize(torch.randn(
+            (12, d_model), generator=self.gen, device=device), dim=-1)
+        self.device, self.tenants = device, tenants
+        self.shape = (b, s, d_model)
+        self.i = 0
+
+    def next(self, nan_rows=0):
+        b, s, d = self.shape
+        pick = torch.randint(0, 8, (b,), generator=self.gen,
+                             device=self.device)
+        e = self.topics[pick][:, None, :] + 0.02 * torch.randn(
+            (b, s, d), generator=self.gen, device=self.device)
+        e[:nan_rows, 0, 0] = float("nan")
+        tids = None if self.tenants is None \
+            else ((np.arange(b) + self.i) % self.tenants).astype(np.int32)
+        self.i += 1
+        return e, tids
+
+
+def mirror(dst, src) -> None:
+    """``dst`` takes a copy of ``src``'s sketch and health state."""
+    dst.state = clone_state(src.state)
+    dst._table_mask = None if src._table_mask is None \
+        else src._table_mask.clone()
+    dst._repair_offsets = None if src._repair_offsets is None \
+        else src._repair_offsets.clone()
+    dst._rewarm_admits = src._rewarm_admits
+    dst._rewarming = None if src._rewarming is None \
+        else src._rewarming.copy()
+    dst.quarantined = src.quarantined
+
+
+def flavour_thresholds(g) -> torch.Tensor:
+    """The guardrail's score-space thresholds (−inf while unarmed)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.fleet import state as fl
+    from repro_torch.fleet import window as fw
+    from repro_torch.window import ring
+    c = g.gcfg
+    if g.multi_tenant and g.windowed:
+        return fw.window_admit_thresholds(g.state, c.window_decay, c.alpha,
+                                          c.warmup_items)
+    if g.multi_tenant:
+        return fl.admit_thresholds(g.state, c.alpha, c.warmup_items)
+    if g.windowed:
+        return ring.admit_threshold_windowed(g.state, c.window_decay,
+                                             c.alpha, c.warmup_items)
+    return sk.admit_threshold(g.state, c.alpha, c.warmup_items)
+
+
+def masked_scores(g, state, ids, tids) -> torch.Tensor:
+    """Pre-insert scores of (B, L) ids against ``state`` over ``g``'s
+    serving mask, by the plain path of ``g``'s flavour."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.fleet import state as fl
+    from repro_torch.fleet import window as fw
+    from repro_torch.window import ring
+    mask = g._table_mask
+    if g.multi_tenant and g.windowed:
+        return fw.window_fleet_scores(state, tids, ids, table_mask=mask)
+    if g.multi_tenant:
+        return fl.fleet_scores(state, tids, ids, table_mask=mask)
+    if g.windowed:
+        return ring.score_live(*ring.window_table_sums(state, ids,
+                                                       table_mask=mask),
+                               g.ace_cfg.num_tables, table_mask=mask)
+    return sk.lookup(state, ids, mask)
+
+
+def request_ids(mods, g, e):
+    """(features, kernel ids, plain ids) of a request batch."""
+    from repro_torch.core.srp import hash_buckets
+    from repro_torch.data.pipeline import mean_embed_features
+    feat = mean_embed_features(e, g.gcfg.bias_const)
+    feat = torch.where(torch.isfinite(feat).all(-1)[:, None], feat, 0.0)
+    return (feat, mods["srp_hash"].srp_hash(feat, g.w, g.ace_cfg.srp),
+            hash_buckets(feat, g.w, g.ace_cfg.srp))
+
+
+def reports_equal(a, b) -> bool:
+    return all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def states_equal(a, b) -> bool:
+    return all((x is None and y is None) or torch.equal(x, y)
+               for x, y in zip(a, b))
+
+
+def phase_resilience(mods, device, kind, healthy_ops, d_model=D_MODEL,
+                     b=ADMIT_B, s=ADMIT_S) -> dict:
+    """One ``Guardrail`` flavour through the whole self-healing cycle at
+    phase 6's width and traffic, a kernel guardrail and a plain one in
+    lockstep (the plain one takes the kernel one's state before every
+    step): warm up, quarantine NaN rows, flip 2 bits in each of ⌈L/4⌉
+    tables, audit, masked scores against the unflipped twin, degraded
+    admits (one D2H each; the hash, the masked sum and the insert, no
+    fused admission), repair, re-warm within the reference's bound, the
+    healthy route again; a degraded admit's device ops and p50 in turns
+    with the healthy one's; and two checkpoints with CRCs, the newest
+    torn, the intact one restored bitwise."""
+    import shutil
+    import repro_torch.serve.engine as engine
+    from repro_torch import resilience as rz
+    from repro_torch.train import checkpoint as ck
+    gcfg = engine.GuardrailConfig(d_model=d_model, num_bits=K_BITS,
+                                  num_tables=L_TABLES, **RES_KINDS[kind])
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    L = L_TABLES
+    stream = RequestStream(device, d_model, b, s, T)
+    gk = engine.Guardrail(gcfg, use_kernels=True, device=device)
+    gp = engine.Guardrail(gcfg, use_kernels=False, device=device, w=gk.w)
+    for _ in range(RES_WARM):
+        gk.admit(*stream.next())
+    check(bool(torch.isfinite(flavour_thresholds(gk)).all()),
+          f"resilience ({kind}): armed after {RES_WARM} clean admits")
+
+    mirror(gp, gk)
+    q0 = gk.quarantined
+    e, t = stream.next(nan_rows=RES_NAN)
+    gk.admit(e, t)
+    gp.admit(e, t)
+    check(gk.quarantined - q0 == RES_NAN and gp.quarantined - q0 == RES_NAN,
+          f"quarantined grew by {RES_NAN} in both guardrails")
+    saved = clone_state(gk.state)              # checkpoint step 1
+
+    # inject: 2 flipped bits in each of ceil(L/4) tables
+    twin = clone_state(gk.state)
+    gen = torch.Generator(device=device).manual_seed(SEED + 11)
+    tables = sorted(torch.randperm(L, generator=gen, device=device)
+                    [:-(-L // 4)].tolist())
+    counts = gk.state.counts
+    for j in tables:
+        counts = rz.flip_count_bits(counts, gen, num_flips=2, tables=(j,))
+    gk.state = gk.state._replace(counts=counts)
+    where = torch.nonzero(counts != twin.counts).cpu().numpy()
+    flipped = {(int(r[0]), int(r[-2])) if T else int(r[-2]) for r in where}
+    mirror(gp, gk)
+
+    # audit, both ways
+    t0 = time.perf_counter()
+    rep = gk.health_check()                     # ends in its one transfer
+    check_ms = 1e3 * (time.perf_counter() - t0)
+    rep_p = gp.health_check()
+    check(reports_equal(rep, rep_p), "health reports equal (kernel and "
+          "plain guardrail)")
+    bad = {(int(x[0]), int(x[1])) if T else int(x[0])
+           for x in np.argwhere(~rep.table_ok)}
+    print(f"  resilience ({kind}): flipped 2 bits in each of tables "
+          f"{tables} ({len(flipped)} "
+          f"{'(tenant, table)' if T else 'table'} planes changed); "
+          f"health_check flags {len(bad)}: {sorted(bad)}")
+    check(bad and bad <= flipped, "every flagged table is a flipped one, "
+          "at least one flagged")
+    if not gk.windowed:
+        check(bad == flipped, "conservation is two-sided: every flipped "
+              "table flagged")
+    check(gk.degraded and gp.degraded, "both guardrails degraded")
+
+    # masked scores against the unflipped twin
+    e, t = stream.next()
+    _, _, ids = request_ids(mods, gk, e)
+    tdev = None if t is None else torch.as_tensor(t, device=device)
+    got = masked_scores(gk, gk.state, ids, tdev)
+    want = masked_scores(gk, twin, ids, tdev)
+    keep = torch.ones(b, dtype=torch.bool, device=device)
+    if gk.windowed:
+        # a flip that lowers a count passes the one-sided Σ <= n: rows
+        # reading such a counter of the live epoch differ, by design
+        cur = twin.cursor.cpu().numpy()
+        for r in where:
+            tab = int(r[-2])
+            if (int(r[0]), tab) in bad if T else tab in bad:
+                continue
+            if (cur[int(r[0])] if T else int(cur)) != int(r[-3]):
+                continue
+            hit = ids[:, tab] == int(r[-1])
+            if T:
+                hit &= tdev == int(r[0])
+            keep &= ~hit
+    kept = int(keep.sum())
+    check(kept > 0 and torch.equal(got[keep], want[keep]),
+          f"masked scores equal the unflipped twin's bitwise ({kept} of {b} "
+          "rows; the rest read an unflagged flipped counter)")
+
+    # degraded admits, kernel and plain from the same state
+    d2h = []
+    real_to_host = engine._to_host
+
+    def to_host(x):
+        d2h.append(tuple(x.shape))
+        return real_to_host(x)
+    launches = {k: 0 for k in read_launches(mods)}
+    differ = agree_rows = 0
+    engine._to_host = to_host
+    try:
+        for _ in range(RES_DEGRADED):
+            e, t = stream.next(nan_rows=1)
+            mirror(gp, gk)
+            _, ik, ip = request_ids(mods, gk, e)
+            agree = torch.all(ik == ip, dim=1).cpu().numpy()
+            n0 = len(d2h)
+            reset_launches(mods)
+            mk = gk.admit(e, t)
+            got = read_launches(mods)
+            check(len(d2h) == n0 + 1, "one D2H a degraded admit")
+            launches = {k: launches[k] + v for k, v in got.items()}
+            mp = gp.admit(e, t)
+            agree_rows += int(agree.sum())
+            differ += int((mk != mp)[agree].sum())
+    finally:
+        engine._to_host = real_to_host
+    check(differ == 0, f"degraded verdicts equal the plain path's on every "
+          f"row whose ids agree ({agree_rows} of {RES_DEGRADED * b})")
+    print(f"  degraded launches over {RES_DEGRADED} admits: {launches}")
+    for k in ("srp_hash", "ace_query", "ace_update"):
+        check(launches[k] > 0, f"degraded route launched {k}")
+    for k in ("ace_admit_fused", "ace_fleet_window_admit"):
+        check(launches[k] == 0, f"degraded route launched no {k}")
+
+    # a degraded admit against a healthy one, in turns, on copies
+    gd = engine.Guardrail(gcfg, device=device, w=gk.w)
+    gh = engine.Guardrail(gcfg, device=device, w=gk.w)
+    mirror(gd, gk)
+    gh.state = clone_state(twin)
+    e, t = stream.next()
+    tdev = None if t is None else torch.as_tensor(t, device=device)
+    sync(device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        gd._admit_device(e, tdev)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    print("  ok: no host sync inside a degraded admit (sync debug mode "
+          "'error')")
+    lat = {"degraded": [], "healthy": []}
+    arms = {"degraded": gd, "healthy": gh}
+    for i in range(RES_TURNS):
+        e, t = stream.next()
+        for name in (("degraded", "healthy") if i % 2 else
+                     ("healthy", "degraded")):
+            t0 = time.perf_counter()
+            arms[name].admit(e, t)
+            lat[name].append(time.perf_counter() - t0)
+    check(gd.degraded and not gh.degraded, "the timed copies kept their "
+          "routes")
+    p50 = {k: 1e3 * statistics.median(v) for k, v in lat.items()}
+    e, t = stream.next()
+    gd.admit(e, t)
+    sync(device)
+
+    def fuller(a, b):
+        return a if a["device_ops"] >= b["device_ops"] else b
+    tr = fuller(device_trace(lambda: gd.admit(e, t), device),
+                device_trace(lambda: gd.admit(e, t), device))
+    print(f"  in turns, admit by admit: degraded p50 {p50['degraded']:.3f} "
+          f"ms, healthy {p50['healthy']:.3f} ms (host clock); one degraded "
+          f"admit {tr['device_ops']} device ops, busy "
+          f"{tr['device_busy_ms']:.3f} ms (healthy, phase "
+          f"{4 if kind == 'flat' else 6}: {healthy_ops})")
+
+    # repair, both ways
+    mirror(gp, gk)
+    t0 = time.perf_counter()
+    pre = gk.repair()                  # ends in health_check's transfer
+    repair_ms = 1e3 * (time.perf_counter() - t0)
+    pre_p = gp.repair()
+    check(reports_equal(pre, pre_p) and states_equal(gk.state, gp.state),
+          "repair: reports and repaired states equal (kernel and plain)")
+    post = rz.health_check(gk.state, gk._repair_offsets)
+    check(bool(post.table_ok.all()), "every invariant holds right after "
+          "the repair")
+    check(gk.degraded == (not pre.table_ok.all()), "repaired tables "
+          "re-warm before they serve")
+
+    # re-warm: serve and audit until healthy
+    if gk.windowed:
+        bound = WIN_E * WIN_R
+    else:
+        rows = b if T is None else b // T
+        bound = -(-int(gcfg.warmup_items) // rows) + 2
+    admits = differ = 0
+    while gk.degraded and admits < bound:
+        e, t = stream.next()
+        mirror(gp, gk)
+        _, ik, ip = request_ids(mods, gk, e)
+        agree = torch.all(ik == ip, dim=1).cpu().numpy()
+        mk, mp = gk.admit(e, t), gp.admit(e, t)
+        differ += int((mk != mp)[agree].sum())
+        admits += 1
+        gk.health_check()
+        gp.health_check()
+        check(gk.degraded == gp.degraded, "degraded flags equal after "
+              f"re-warm admit {admits}")
+    check(not gk.degraded and differ == 0, f"recovered after {admits} "
+          f"admits (bound {bound}), verdicts equal where ids agree")
+    reset_launches(mods)
+    gk.admit(*stream.next())
+    healthy = read_launches(mods)
+    route = {"flat": ("ace_admit_fused",),
+             "fleet_window": ("ace_fleet_window_admit",)}.get(
+                 kind, ("srp_hash", "ace_query", "ace_update"))
+    for k in route:
+        check(healthy[k] > 0, f"the healthy route resumed: {k} launched")
+
+    # checkpoints with CRCs: the newest torn, the intact one restored
+    d = RES_CKPT / kind
+    shutil.rmtree(d, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        ck.save(str(d), 1, saved, keep=5)
+        save_ms = 1e3 * (time.perf_counter() - t0)
+        nbytes = (d / "step_0000000001" / "arrays.npz").stat().st_size
+        ck.save(str(d), 2, gk.state, keep=5)
+        rz.tear_checkpoint(str(d), 2, mode="truncate")
+        t0 = time.perf_counter()
+        restored, manifest = ck.CheckpointManager(str(d)).restore_latest(
+            gk.state)
+        sync(device)
+        restore_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    check(manifest is not None and manifest["step"] == 1
+          and states_equal(restored, saved), "the torn step 2 skipped, "
+          "step 1 restored bitwise")
+    print(f"  health_check {check_ms:.3f} ms, repair {repair_ms:.3f} ms "
+          f"(host clock, each ending in its transfer); recovered after "
+          f"{admits} admits (bound {bound}); checkpoint save {save_ms:.1f} "
+          f"ms, restore {restore_ms:.1f} ms (the torn step tried first), "
+          f"{nbytes:,} B")
+    return {"launches": launches, "healthy_launches": healthy,
+            "p50_ms": p50["degraded"], "healthy_p50_ms": p50["healthy"],
+            "device_ops": tr["device_ops"], "healthy_device_ops": healthy_ops,
+            "health_check_ms": check_ms, "repair_ms": repair_ms,
+            "recovery_admits": admits, "recovery_bound": bound,
+            "save_ms": save_ms, "restore_ms": restore_ms,
+            "checkpoint_bytes": nbytes}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -3506,7 +3929,16 @@ def main() -> int:
               f"{qb['device_ops']} device ops; mu-sigma (phase "
               f"{4 if kind == 'flat' else 6}) p50 {mu['p50_ms']:.3f} ms, "
               f"{mb['device_ops']} device ops")
-    paths["quantile_calibration"] = phase_calibration(mods, device)
+    with recorded_bins() as seen:
+        paths["quantile_calibration"] = phase_calibration(mods, device)
+    edges = bin_edge_counts(seen)
+    print(f"  calibration bin ids: {edges['rates']:,} rates observed on the "
+          f"card, {edges['near_edge']} within 4 ulp of a bin edge; "
+          f"{edges['differ']} bin ids differ from bin_index of the same "
+          f"rates on the CPU ({edges['differ_by_more_than_1']} by more "
+          f"than one bin; rates {edges['differ_rates']})")
+    check(edges["differ_by_more_than_1"] == 0, "no card bin id more than "
+          "one bin off the CPU's")
     paths["quantile_stream"] = phase_quantile_stream(mods, device)
     print(f"  consume (fleet): quantile "
           f"{paths['quantile_stream']['breakdown']['device_ops']} device "
@@ -3517,6 +3949,18 @@ def main() -> int:
           "also with promotion) end to end, in turns with int32")
     paths.update(phase_narrow(mods, device, paths["estimator"]))
     times_dt = phase_timing_dtypes(mods, device)
+
+    print("phase 11: resilience — health audit, degraded admission, repair, "
+          "re-warm and checkpoints in the four Guardrail flavours")
+    t11 = time.perf_counter()
+    for kind in RES_KINDS:
+        mu = paths["guardrail" if kind == "flat" else f"guardrail_{kind}"]
+        res = phase_resilience(mods, device, kind,
+                               mu["breakdown"]["device_ops"])
+        paths[f"resilience_{kind}"] = res
+        paths[f"resilience_{kind}_healthy"] = {
+            "launches": res["healthy_launches"]}
+    print(f"  phase 11 took {time.perf_counter() - t11:.1f} s")
 
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
@@ -3576,7 +4020,11 @@ def main() -> int:
           f"{paths['narrow_estimator_int16_esc']['int32_seconds']:.3f}); "
           f"int16 stream "
           f"{paths['narrow_stream_int16']['items_per_s']:,.0f} items/s "
-          f"(int32 {paths['narrow_stream_int16']['int32_items_per_s']:,.0f})")
+          f"(int32 {paths['narrow_stream_int16']['int32_items_per_s']:,.0f})"
+          + "; degraded admit p50 "
+          + ", ".join(f"{r['p50_ms']:.3f} ms {k} (healthy "
+                      f"{r['healthy_p50_ms']:.3f})" for k, r in (
+                          (k, paths[f"resilience_{k}"]) for k in RES_KINDS)))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

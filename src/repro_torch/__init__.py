@@ -4,7 +4,8 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 The port of the JAX package ``repro``, module for module under the same
 names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``kernels.ops``, ``data.pipeline``, ``window``, ``fleet``,
-``quantile``, ``attribution``, ``stream``, ``serve.engine``).  It imports
+``quantile``, ``attribution``, ``stream``, ``serve.engine``,
+``resilience``, ``train.checkpoint``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -19,7 +20,11 @@ the dyadic ``find_hh``), the ``AceDataFilter``, ``WindowedAceFilter`` and
 ``FleetDataFilter`` with their chunked ``StreamRunner`` (its summaries
 name each chunk's heavy-hitter coordinates and, for a fleet, tenants),
 and the ``Guardrail`` in its flat, windowed, fleet and windowed-fleet
-flavours.  Every filter and ``Guardrail`` takes either admission rule:
+flavours, each of which audits its own sketch, serves degraded over its
+healthy tables, repairs and re-warms the corrupted ones
+(``resilience``: health invariants, repair ops and seeded fault
+injectors), beside CRC-checked checkpoints that restore the newest
+intact step (``train.checkpoint``, in the reference's on-disk format).  Every filter and ``Guardrail`` takes either admission rule:
 μ−ασ, or ``threshold_mode="quantile"`` (``quantile``: per-tenant,
 per-epoch rate histograms read as an inverse CDF, on the same kernels).
 Its ten kernels, one for each TPU kernel of the reference, are
@@ -39,7 +44,6 @@ import torch
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
     9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
-    10: "repro.resilience",
     13: "repro.dist",
 }
 

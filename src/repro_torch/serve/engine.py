@@ -7,11 +7,14 @@ hash family (``hash_mode`` "dense", "srht" or
 "auto") and either threshold rule (``threshold_mode`` "mu_sigma" or
 "quantile"), in its four flavours: the flat sketch, the sliding window
 (``window_epochs > 1``), the tenant fleet (``num_tenants > 1``) and the
-windowed fleet (both).
+windowed fleet (both).  Each flavour audits its own sketch
+(``health_check``), serves degraded over its healthy tables only, repairs
+the corrupted ones and re-warms them (``repair``), as
+``repro.resilience`` wires them into the reference's.
 
 ``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
-item 12); health/repair and meshes raise
-``NotImplementedError`` naming the queue item that brings them.
+item 12); meshes raise ``NotImplementedError`` naming the queue item that
+brings them.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import not_ported, resilience as rz, resolve_device
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig
 from repro_torch.core.srp import check_projections, hash_buckets
@@ -94,6 +97,12 @@ class Guardrail:
     request to its own tenant's sketch; the ids are checked on the host
     (shape, integer, in [0, T)) before they go to the device.
 
+    Degraded (``degraded``): after ``health_check`` finds a table failing
+    its invariants, or while a repaired table re-warms, every branch
+    scores and thresholds over the healthy tables only (a device float
+    mask, (L,) or (T, L), handed to the same ops; the kernel branches then
+    take their unfused route), still with one transfer an admit.
+
     ``device`` defaults to CUDA and raises when there is none; ``w``
     carries a given projection matrix (d_model + 1, P; (d_model + 1, 0)
     under SRHT) instead of drawing one.
@@ -162,6 +171,12 @@ class Guardrail:
         self._fail_open = torch.tensor([p == "fail_open" for p in pol],
                                        device=self.device)
         self.quarantined = 0          # total non-finite rows seen
+        # health state (repro.resilience): the serving table mask is None
+        # while healthy, a device float32 (L,) / (T, L) mask while degraded
+        self._table_mask = None
+        self._repair_offsets = None   # flat/fleet per-table n at repair
+        self._rewarm_admits = 0       # windowed re-warm countdown (admits)
+        self._rewarming = None        # host bool mask of re-warming tables
 
     def _admit_device(self, embeds: torch.Tensor,
                       tids: torch.Tensor | None) -> torch.Tensor:
@@ -170,33 +185,41 @@ class Guardrail:
         feat = mean_embed_features(embeds, self.gcfg.bias_const)
         finite = torch.all(torch.isfinite(feat), dim=-1)          # (B,)
         feat = torch.where(finite[:, None], feat, 0.0)
-        admit = self._admit_branches(feat, finite, tids)
+        admit = self._admit_branches(feat, finite, tids, self._table_mask)
         fail_open = self._fail_open[0] if tids is None \
             else self._fail_open[tids.long()]
         final = torch.where(finite, admit, fail_open)
         return torch.stack([final, finite])
 
-    def _admit_branches(self, feat, finite, tids):
+    def _admit_branches(self, feat, finite, tids, table_mask):
         """Score → threshold → masked insert (→ in quantile mode the
         observation of every finite row's pre-insert rate) → rotation
         clock, for every sketch flavour; ``finite`` is the item mask
-        (quarantined rows never admit and never insert).  Updates
-        ``self.state``; returns the admit mask."""
+        (quarantined rows never admit and never insert).  ``table_mask``
+        (None while healthy) restricts scores and thresholds to the
+        healthy tables; a window's insert keeps the unmasked sums for its
+        ssq.  Updates ``self.state``; returns the admit mask."""
         g, cfg, st = self.gcfg, self.ace_cfg, self.state
         gamma = g.window_decay
-        mode = dict(threshold_mode=g.threshold_mode, q=g.quantile_q)
+        mode = dict(table_mask=table_mask, threshold_mode=g.threshold_mode,
+                    q=g.quantile_q)
+        kmode = dict(table_mask=table_mask, item_mask=finite,
+                     threshold_mode=g.threshold_mode, quantile_q=g.quantile_q)
         quantile = g.threshold_mode == "quantile"
         if self.multi_tenant and self.windowed:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_window_admit(
                     st, feat, tids, self.w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
-                    item_mask=finite, threshold_mode=g.threshold_mode,
-                    quantile_q=g.quantile_q)
+                    **kmode)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 pre = fw.window_table_sums_fleet(st, tids, buckets)
-                scores = ring.score_live(*pre, cfg.num_tables)
+                if table_mask is None:
+                    scores = ring.score_live(*pre, cfg.num_tables)
+                else:
+                    scores = fw.window_fleet_scores(st, tids, buckets,
+                                                    table_mask=table_mask)
                 admit = scores >= fw.window_admit_thresholds(
                     st, gamma, g.alpha, g.warmup_items,
                     **mode)[tids.long()]
@@ -215,11 +238,11 @@ class Guardrail:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_admit(
                     st, feat, tids, self.w, cfg, alpha=g.alpha,
-                    warmup_items=g.warmup_items, item_mask=finite,
-                    threshold_mode=g.threshold_mode, quantile_q=g.quantile_q)
+                    warmup_items=g.warmup_items, **kmode)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
-                scores = fl.fleet_scores(st, tids, buckets)
+                scores = fl.fleet_scores(st, tids, buckets,
+                                         table_mask=table_mask)
                 admit = scores >= fl.admit_thresholds(
                     st, g.alpha, g.warmup_items, **mode)[tids.long()]
                 admit = admit & finite
@@ -236,12 +259,14 @@ class Guardrail:
                 st, admit = kops.ace_admit_windowed(
                     st, feat, self.w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
-                    item_mask=finite, threshold_mode=g.threshold_mode,
-                    quantile_q=g.quantile_q)
+                    **kmode)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 pre = ring.window_table_sums(st, buckets)
-                scores = ring.score_live(*pre, cfg.num_tables)
+                dec = pre if table_mask is None else ring.window_table_sums(
+                    st, buckets, table_mask=table_mask)
+                scores = ring.score_live(*dec, cfg.num_tables,
+                                         table_mask=table_mask)
                 admit = scores >= ring.admit_threshold_windowed(
                     st, gamma, g.alpha, g.warmup_items, **mode)
                 admit = admit & finite
@@ -257,11 +282,10 @@ class Guardrail:
         elif self.use_kernels:
             st, admit = kops.ace_admit(
                 st, feat, self.w, cfg, alpha=g.alpha,
-                warmup_items=g.warmup_items, item_mask=finite,
-                threshold_mode=g.threshold_mode, quantile_q=g.quantile_q)
+                warmup_items=g.warmup_items, **kmode)
         else:
             buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
-            scores = sk.lookup(st, buckets)
+            scores = sk.lookup(st, buckets, table_mask)
             admit = scores >= sk.admit_threshold(st, g.alpha,
                                                  g.warmup_items, **mode)
             admit = admit & finite
@@ -281,7 +305,8 @@ class Guardrail:
         [0, num_tenants), checked here on the host.  Non-finite rows are
         quarantined (never scored against real counts, never inserted,
         counted in ``self.quarantined``) and answered by the fail policy
-        (of their tenant)."""
+        (of their tenant).  While ``degraded`` the decision runs over the
+        healthy tables only, with no more transfers."""
         embeds = torch.as_tensor(embeds, device=self.device)
         tids = None
         if self.multi_tenant:
@@ -294,7 +319,16 @@ class Guardrail:
             raise ValueError("tenant_ids given but num_tenants == 1")
         out = _to_host(self._admit_device(embeds, tids))  # the ONE transfer
         self.quarantined += int((~out[1]).sum())
+        if self._rewarm_admits > 0:
+            self._rewarm_admits -= 1      # host arithmetic, no sync
         return out[0].astype(bool)
+
+    @property
+    def degraded(self) -> bool:
+        """True while the serving mask excludes any table (``health_check``
+        found corruption, or a repaired table is still re-warming).  Reads
+        host state only."""
+        return self._table_mask is not None
 
     def memory_bytes(self) -> int:
         """The device bill of the sketch state, from the reference's
@@ -315,15 +349,82 @@ class Guardrail:
                                   num_tenants=g.num_tenants).memory_bytes()
         return self.ace_cfg.memory_bytes()
 
+    def _audit(self):
+        """The invariant audit on the device and its report on the host:
+        (device report, host ``HealthReport`` of numpy arrays, host n,
+        host repair offsets or None), in one packed transfer."""
+        report = rz.health_check(self.state, self._repair_offsets)
+        parts = list(report)
+        if self._repair_offsets is not None:
+            parts += [self.state.n, self._repair_offsets]
+        flat = _to_host(torch.cat(
+            [p.reshape(-1).to(torch.float32) for p in parts]))
+        out, at = [], 0
+        for p in parts:
+            out.append(flat[at:at + p.numel()].reshape(tuple(p.shape)))
+            at += p.numel()
+        host = rz.HealthReport(*(x.astype(bool) for x in out[:4]))
+        n, offs = (out[4], out[5]) if len(out) > 4 else (None, None)
+        return report, host, n, offs
+
     def health_check(self):
-        not_ported("Guardrail.health_check", 10)
+        """Audit the sketch invariants (``resilience.health_check``) and
+        refresh the serving table mask.  A control-plane call: it brings
+        the report to the host in one transfer (``admit`` never does).
+
+        Returns the host ``HealthReport``.  Tables failing their
+        invariants, and repaired tables still re-warming, are left out of
+        scoring by later ``admit`` calls; once every table passes again
+        (and the re-warm has elapsed) the mask drops back to None and the
+        healthy route resumes."""
+        _, host, n, offs = self._audit()
+        serving = host.table_ok.copy()
+        if offs is not None:
+            # flat/fleet re-warm gate: a repaired table rejoins once it has
+            # absorbed a warmup's worth of the live stream
+            seen = (n[..., None] if offs.ndim == n.ndim + 1 else n) - offs
+            serving &= (offs == 0) | (seen >= self.gcfg.warmup_items)
+        if self._rewarm_admits > 0:
+            # windowed re-warm gate: repaired ring tables stay masked until
+            # the zeroed epochs have expired
+            serving &= ~self._rewarming
+        self._table_mask = None if serving.all() else torch.as_tensor(
+            serving, dtype=torch.float32, device=self.device)
+        return host
 
     def repair(self):
-        not_ported("Guardrail.repair", 10)
+        """Zero every table failing its invariants (and restart any
+        poisoned Welford stream) while the healthy tables keep serving —
+        the ``resilience`` repair op of this flavour.  Control-plane: the
+        repaired tables stay masked until they re-warm (flat and fleet: a
+        warmup's worth of stream past the repair offsets; windowed:
+        ``window_epochs × rotate_every`` admits).  Returns the host
+        pre-repair ``HealthReport``."""
+        report, host, _, _ = self._audit()
+        table_ok = report.table_ok
+        if self.multi_tenant and self.windowed:
+            self.state = rz.repair_fleet_window(self.state, table_ok)
+        elif self.multi_tenant:
+            self.state, self._repair_offsets = rz.repair_fleet(
+                self.state, table_ok, self._repair_offsets)
+        elif self.windowed:
+            self.state = rz.repair_window(self.state, table_ok)
+        else:
+            self.state, self._repair_offsets = rz.repair_ace(
+                self.state, table_ok, self._repair_offsets)
+        if self.windowed and not host.table_ok.all():
+            self._rewarm_admits = (self.gcfg.window_epochs
+                                   * self.gcfg.rotate_every)
+            self._rewarming = ~host.table_ok
+        if not host.moments_ok.all():
+            self.state = rz.repair_moments(self.state)
+        self.health_check()
+        return host
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """The ONE device→host transfer of an ``admit`` call.
+    """The ONE device→host transfer of an ``admit`` call (and of a
+    ``health_check``, outside the hot path: the packed report).
 
     A named function, not an inline ``.cpu()``, so the one-transfer
     contract is a single call site that tests can count.

@@ -1778,3 +1778,190 @@ def test_quantized_consume_has_no_host_sync(cuda):
     assert int((st.esc.offs != qz.SENTINEL).sum()) > 0
     assert float(st.esc.lost) == 0.0
     assert int(qz.densify(st.counts, st.esc).sum(1)[0]) == 3 * 4 * 64
+
+
+# ---------------------------------------------------------------------------
+# Resilience: degraded admission, an all-masked tenant, the audit of the
+# full ring, and no sync inside a degraded admit.
+# ---------------------------------------------------------------------------
+
+def _degrade(g, seed=7, tables=(1, 5)):
+    """Flip two bits in each of ``tables`` of the guardrail's counts and
+    audit it; returns the host report."""
+    from repro_torch import resilience as rz
+    counts = g.state.counts
+    for t in tables:
+        gen = torch.Generator(device=counts.device).manual_seed(seed + t)
+        counts = rz.flip_count_bits(counts, gen, num_flips=2, tables=(t,))
+    g.state = g.state._replace(counts=counts)
+    return g.health_check()
+
+
+def _mirror(dst, src):
+    """``dst`` takes ``src``'s state (cloned) and health state."""
+    dst.state = type(src.state)(*(None if x is None else x.clone()
+                                  for x in src.state))
+    dst._table_mask = None if src._table_mask is None \
+        else src._table_mask.clone()
+    dst._repair_offsets = None if src._repair_offsets is None \
+        else src._repair_offsets.clone()
+    dst._rewarm_admits = src._rewarm_admits
+    dst._rewarming = src._rewarming
+
+
+@pytest.mark.parametrize("kind", sorted(QUANTILE_GUARDS))
+def test_degraded_guardrail_kernels_match_plain_path(cuda, kind):
+    """Each flavour degraded (bit flips found by ``health_check``):
+    through the kernels against the plain path from the same state before
+    every admit, verdicts equal on every row whose ids agree; the degraded
+    route launches the hash, the masked sum and the insert, never the
+    fused admissions; ``repair`` then re-warms it back to the healthy
+    route."""
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, **QUANTILE_GUARDS[kind])
+    gk = Guardrail(gcfg, use_kernels=True, device=cuda)
+    gp = Guardrail(gcfg, use_kernels=False, device=cuda, w=gk.w)
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    t = None if T is None else np.arange(64, dtype=np.int32) % T
+    batches = [next(g) for g in [_guardrail_batches(48, 96)]
+               for _ in range(24)]             # the on-topic half
+    for e in batches[:6]:
+        gk.admit(np.nan_to_num(e), t)
+    rep = _degrade(gk)
+    assert gk.degraded and not rep.table_ok.all()
+    kernels = (H.KERNEL, Q.KERNEL, U.KERNEL, A.KERNEL, FWA.KERNEL)
+    for e in batches[6:12]:
+        _mirror(gp, gk)
+        f = mean_embed_features(torch.as_tensor(e, device=cuda),
+                                gcfg.bias_const)
+        f = torch.where(torch.isfinite(f).all(dim=1)[:, None], f, 0.0)
+        agree = (H.srp_hash(f, gk.w, gk.ace_cfg.srp)
+                 == H.srp_hash_plain(f, gk.w, gk.ace_cfg.srp)).all(
+                     dim=1).cpu().numpy()
+        before = [k.launches for k in kernels]
+        mk = gk.admit(e, t)
+        got = [k.launches - b for k, b in zip(kernels, before)]
+        mp = gp.admit(e, t)
+        np.testing.assert_array_equal(mk[agree], mp[agree])
+        assert got[0] == 1 and got[1] >= 1 and got[2] == 1, got
+        assert got[3] == 0 and got[4] == 0, "no fused admission degraded"
+        assert gk.degraded and gp.degraded
+    _mirror(gp, gk)
+    assert rep.table_ok.shape == gp.health_check().table_ok.shape
+    pre = gk.repair()
+    # (a window may have rotated the flipped epochs out already)
+    assert gk.degraded == (not pre.table_ok.all())
+    for e in batches[12:]:
+        gk.admit(np.nan_to_num(e), t)
+        gk.health_check()
+        if not gk.degraded:
+            break
+    assert not gk.degraded
+    before = [k.launches for k in kernels]
+    gk.admit(np.nan_to_num(batches[0]), t)
+    fused = {"flat": 3, "fleet_window": 4}.get(kind)
+    if fused is not None:
+        assert kernels[fused].launches == before[fused] + 1
+
+
+@pytest.mark.parametrize("windowed", [False, True])
+def test_all_masked_tenant_kernels_match_plain_path(cuda, windowed):
+    """A fleet tenant with every table masked: the masked means and the
+    thresholds divide by a clamped healthy count; kernel ≡ plain on the
+    card and ≡ the CPU's plain path on the same state."""
+    kw = dict(num_tenants=4) if not windowed else QUANTILE_GUARDS[
+        "fleet_window"]
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, **kw)
+    gk = Guardrail(gcfg, use_kernels=True, device=cuda)
+    t = np.arange(64, dtype=np.int32) % 4
+    batches = list(_guardrail_batches(8, 96))
+    for e in batches[:4]:
+        gk.admit(e, t)
+    mask = torch.ones((4, 20), device=cuda)
+    mask[2] = 0.0
+    mask[0, :7] = 0.0
+    gk._table_mask = mask
+    gp = Guardrail(gcfg, use_kernels=False, device=cuda, w=gk.w)
+    gc = Guardrail(gcfg, use_kernels=False, device="cpu", w=gk.w.cpu())
+    for e in batches[4:]:
+        _mirror(gp, gk)
+        gc.state = type(gk.state)(*(None if x is None
+                                    else x.to("cpu", copy=True)
+                                    for x in gk.state))
+        gc._table_mask = mask.cpu()
+        f = mean_embed_features(torch.as_tensor(e, device=cuda),
+                                gcfg.bias_const)
+        f = torch.where(torch.isfinite(f).all(dim=1)[:, None], f, 0.0)
+        agree = (H.srp_hash(f, gk.w, gk.ace_cfg.srp)
+                 == H.srp_hash_plain(f, gk.w, gk.ace_cfg.srp)).all(
+                     dim=1).cpu().numpy()
+        mk, mp, mc = gk.admit(e, t), gp.admit(e, t), gc.admit(e, t)
+        np.testing.assert_array_equal(mk[agree], mp[agree])
+        np.testing.assert_array_equal(mp, mc)
+    assert gk.degraded
+
+
+def test_health_check_of_the_full_ring_matches_the_cpu(cuda):
+    """The windowed fleet's full (8, 4, 50, 2^15) int32 ring (210 MB)
+    audited on the card equals the CPU's audit of the same state, before
+    and after flips (the float32 conservation sums a block of rows at a
+    time), and its repair likewise (ssq rtol 1e-6)."""
+    from repro_torch import resilience as rz
+    from repro_torch.fleet import window as fw
+    from repro_torch.window import ring
+    wcfg = ring.WindowConfig(ace=sk.AceConfig(dim=8, num_bits=15,
+                                              num_tables=50),
+                             num_epochs=4, decay=0.9, rotate_every=4)
+    st = fw.init_fleet_window(wcfg, 8, cuda)
+    rng = np.random.default_rng(0)
+    counts = torch.as_tensor(rng.integers(0, 3, size=st.counts.shape,
+                                          dtype=np.int32), device=cuda)
+    n = counts.sum(dim=-1, dtype=torch.int64).amax(dim=-1).float()
+    st = st._replace(counts=counts, n=n,
+                     tail=torch.as_tensor(rng.random(st.tail.shape,
+                                                     dtype=np.float32),
+                                          device=cuda))
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    for c in (st.counts, rz.flip_count_bits(st.counts, gen, num_flips=40,
+                                            tables=(3, 17, 44))):
+        s = st._replace(counts=c)
+        got = rz.health_check(s)
+        cpu = type(s)(*(None if x is None else x.cpu() for x in s))
+        want = rz.health_check(cpu)
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        fixed = rz.repair_fleet_window(s, got.table_ok)
+        ref = rz.repair_fleet_window(cpu, want.table_ok)
+        assert torch.equal(fixed.counts.cpu(), ref.counts)
+        assert torch.equal(fixed.tail.cpu(), ref.tail)
+        torch.testing.assert_close(fixed.ssq.cpu(), ref.ssq, rtol=1e-6,
+                                   atol=0.0)
+    assert not bool(got.ok.all())
+
+
+@pytest.mark.parametrize("kind", sorted(QUANTILE_GUARDS))
+def test_degraded_admit_has_no_host_sync(cuda, kind):
+    """The degraded admission on the device under sync-debug "error": the
+    health mask is a device operand; the only sync of an admit is its one
+    transfer, outside."""
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, **QUANTILE_GUARDS[kind])
+    g = Guardrail(gcfg, device=cuda)
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    t = None if T is None else np.arange(64, dtype=np.int32) % T
+    batches = list(_guardrail_batches(6, 96))
+    for e in batches[:4]:
+        g.admit(e, t)
+    _degrade(g)
+    assert g.degraded
+    dt = None if t is None else torch.as_tensor(t, device=cuda)
+    for e in batches[4:]:
+        emb = torch.as_tensor(e, device=cuda)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            packed = g._admit_device(emb, dt)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert packed.shape == (2, 64)

@@ -55,6 +55,15 @@ def test_port_imports_and_admits_with_jax_blocked():
         e = np.random.default_rng(0).normal(size=(6, 2, 8)).astype("f4")
         mask = g.admit(e)
         assert mask.shape == (6,) and mask.all() and float(g.state.n) == 6
+        # the resilience slice too: audit, repair, a CRC'd checkpoint
+        import tempfile
+        from repro_torch.train import checkpoint as ck
+        assert g.health_check().ok and not g.degraded
+        g.repair()
+        with tempfile.TemporaryDirectory() as d:
+            ck.save(d, 1, g.state)
+            back, man = ck.CheckpointManager(d).restore_latest(g.state)
+        assert man["step"] == 1 and bool((back.counts == g.state.counts).all())
         assert not any(k == "repro" or k.startswith("repro.")
                        for k in sys.modules), "the JAX package was imported"
         print("ISOLATED_OK")

@@ -197,10 +197,14 @@ class TestNotPorted:
         with pytest.raises(NotImplementedError, match="queue 1 item 13"):
             engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu",
                              mesh=object())
+        # health_check / repair are ported (queue 1 item 10): a fresh
+        # guardrail audits healthy, repairs nothing and stays undegraded
         g = engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu")
         for fn in (g.health_check, g.repair):
-            with pytest.raises(NotImplementedError, match="queue 1 item 10"):
-                fn()
+            rep = fn()
+            assert rep.table_ok.shape == (32,) and rep.table_ok.all()
+            assert bool(rep.ok) and bool(rep.moments_ok)
+            assert not g.degraded and g._table_mask is None
 
 
 class TestEstimatorSlice:
