@@ -3,9 +3,10 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 
 The port of the JAX package ``repro``, module for module under the same
 names (``core.srp``, ``core.sketch``, ``core.estimators``,
-``kernels.ops``, ``data.pipeline``, ``window``, ``fleet``,
-``quantile``, ``attribution``, ``stream``, ``serve.engine``,
-``resilience``, ``train.checkpoint``).  It imports
+``core.privacy``, ``kernels.ops``, ``data.pipeline``,
+``data.synthetic``, ``window``, ``fleet``, ``quantile``,
+``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
+``resilience``, ``train.checkpoint``, ``baselines``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -27,6 +28,13 @@ injectors), beside CRC-checked checkpoints that restore the newest
 intact step (``train.checkpoint``, in the reference's on-disk format).  Every filter and ``Guardrail`` takes either admission rule:
 μ−ασ, or ``threshold_mode="quantile"`` (``quantile``: per-tenant,
 per-epoch rate histograms read as an inverse CDF, on the same kernels).
+The open-loop front end (``serve.frontend``) batches single requests for
+any ``Guardrail`` flavour behind a bounded queue with absolute deadlines,
+shedding by each tenant's ``fail_open_mask``.  ``core.privacy`` is the
+paper's §4 differentially private hash, ``data.synthetic`` the paper's
+three datasets (bitwise the reference's), and ``baselines`` its 11
+competitors on one shared kNN graph (plain PyTorch on the card, as the
+reference's are plain jnp).
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,

@@ -168,7 +168,11 @@ class Guardrail:
         self.w = (sk.make_params(self.ace_cfg, device=self.device) if w is None
                   else w.to(self.device, torch.float32).contiguous())
         self.use_kernels = use_kernels
-        self._fail_open = torch.tensor([p == "fail_open" for p in pol],
+        # the policy twice: on the host for the front end's sheds
+        # (``fail_open_mask``, read with no device access) and on the
+        # device for the quarantine select inside ``admit``
+        self._fail_open_host = np.array([p == "fail_open" for p in pol])
+        self._fail_open = torch.tensor(self._fail_open_host,
                                        device=self.device)
         self.quarantined = 0          # total non-finite rows seen
         # health state (repro.resilience): the serving table mask is None
@@ -329,6 +333,16 @@ class Guardrail:
         found corruption, or a repaired table is still re-warming).  Reads
         host state only."""
         return self._table_mask is not None
+
+    @property
+    def fail_open_mask(self) -> np.ndarray:
+        """(T,) host bool, (1,) for one tenant: True where the tenant's
+        policy is fail_open (a shed or quarantined request is admitted),
+        False for fail_closed (rejected).  The open-loop front end
+        (``repro_torch.serve.frontend``) answers every shed request from
+        it, so it is a host array and a shed touches no device memory; a
+        copy, so a caller cannot change the policy."""
+        return self._fail_open_host.copy()
 
     def memory_bytes(self) -> int:
         """The device bill of the sketch state, from the reference's

@@ -1965,3 +1965,117 @@ def test_degraded_admit_has_no_host_sync(cuda, kind):
         finally:
             torch.cuda.set_sync_debug_mode("default")
         assert packed.shape == (2, 64)
+
+
+class _Recorder:
+    """A guardrail behind a front end that also feeds every padded batch
+    to a twin guardrail, keeping the twin's verdicts of the non-pad rows
+    in service order."""
+
+    def __init__(self, g, twin):
+        self.g, self.twin, self.twin_rows = g, twin, []
+
+    multi_tenant = property(lambda self: self.g.multi_tenant)
+    fail_open_mask = property(lambda self: self.g.fail_open_mask)
+
+    def admit(self, embeds, tenants=None):
+        args = (embeds,) if tenants is None else (embeds, tenants)
+        v = self.g.admit(*args)
+        real = ~np.isnan(embeds[:, 0, 0])
+        self.twin_rows.extend(self.twin.admit(*args)[real].tolist())
+        return v
+
+
+@pytest.mark.parametrize("kind", sorted(QUANTILE_GUARDS))
+def test_frontend_lockstep_and_no_sync_shed(cuda, kind):
+    """The front end over each guardrail flavour on the card: the served
+    tickets' verdicts are bitwise a twin guardrail's (same W, same initial
+    state) fed the same padded batches; every shed answers its tenant's
+    policy; pads are the only quarantined rows; and a full-queue burst
+    plus deadline sheds run under sync-debug "error" (a shed reads the
+    host policy only)."""
+    from repro_torch.serve.frontend import FrontEnd, FrontEndConfig
+    kw = QUANTILE_GUARDS[kind]
+    T = kw.get("num_tenants", 1)
+    pol = tuple("fail_open" if t % 2 == 0 else "fail_closed"
+                for t in range(T))
+    gcfg = GuardrailConfig(d_model=96, num_bits=10, num_tables=20,
+                           warmup_items=64.0, fail_policy=pol, **kw)
+    g = Guardrail(gcfg, device=cuda)
+    twin = Guardrail(gcfg, device=cuda, w=g.w.clone())
+    rec = _Recorder(g, twin)
+    fe = FrontEnd(rec, FrontEndConfig(batch_size=64, seq=4, d_model=96,
+                                      max_queue=128))
+    rng = np.random.default_rng(3)
+    pool = list(_guardrail_batches(16, 96))          # (64, 4, 96) each
+    tickets = []
+    for k in range(700):
+        tickets.append(fe.submit(np.nan_to_num(pool[k % 16][k % 64]),
+                                 tenant=int(rng.integers(0, T)),
+                                 deadline=None if k % 9 else -1.0))
+        if fe.ready():
+            fe.pump()
+    fe.drain()
+    served = [t.admitted for t in tickets if t.status == "served"]
+    assert served == rec.twin_rows and len(served) > 0
+    mask = g.fail_open_mask
+    for t in tickets:
+        if t.status == "shed":
+            assert t.admitted is bool(mask[t.tenant if T > 1 else 0])
+    assert g.quarantined == fe.pad_rows
+    m = fe.metrics()
+    assert m["served"] + m["shed_queue_full"] + m["shed_deadline"] == 700
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        burst = [fe.submit(pool[0][i % 64], tenant=i % T, deadline=-1.0)
+                 for i in range(300)]
+        assert fe.pump() == 0                   # every queued one sheds
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert all(t.status == "shed" for t in burst)
+    assert fe.queue_len == 0
+
+
+def test_private_hash_at_sigma_zero_is_the_srp_hash_kernel(cuda):
+    """σ = 0: the private ids (the plain projection, TF32 off) agree with
+    the ``srp_hash`` kernel's on >= 0.999 of them, at the KDD width."""
+    from repro_torch.core import privacy
+    cfg = SrpConfig(dim=37, num_bits=15, num_tables=50)
+    w = make_projections(cfg, device=cuda)
+    x = torch.rand((20_000, 37), generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    before = H.KERNEL.launches
+    want = H.srp_hash(x, w, cfg)
+    assert H.KERNEL.launches == before + 1
+    got = privacy.private_hash_buckets(
+        x, w, cfg, torch.Generator(device=cuda).manual_seed(0), 0.0)
+    assert _agreement(got, want) >= HASH_AGREEMENT
+
+
+def test_knn_graph_on_the_card_matches_the_cpu(cuda):
+    """The chunked kNN graph at n = 5000 (three chunks and a ragged one)
+    on the card and on the CPU, each held to a float64 witness: every
+    distance within the expansion's forward error of |a − b| computed
+    directly in float64 — γ_{d+2}·(|a| + |b|)² / |a − b| from the norms'
+    and dot products' rounding in any order, through the square root,
+    plus the root's own u·|a − b| — so a failure names the side that is
+    off; indices equal on >= 0.999 of the entries (a near tie may swap
+    two neighbours)."""
+    from repro_torch.baselines.knn_graph import knn_graph
+    rng = np.random.default_rng(4)
+    x = np.abs(rng.normal(size=(5000, 36)) + 1.0).astype(np.float32)
+    dg, ig = knn_graph(x, 10, chunk=1536, device=cuda)
+    dc, ic = knn_graph(x, 10, chunk=1536, device="cpu")
+    u = 2.0**-24
+    gamma = (x.shape[1] + 2) * u / (1 - (x.shape[1] + 2) * u)
+    x64 = x.astype(np.float64)
+    norm = np.linalg.norm(x64, axis=1)
+    for side, d, i in (("card", dg.cpu().numpy(), ig.cpu().numpy()),
+                       ("cpu", dc.numpy(), ic.numpy())):
+        exact = np.linalg.norm(x64[:, None, :] - x64[i], axis=-1)
+        bound = gamma * (norm[:, None] + norm[i])**2 / exact + u * exact
+        ratio = np.abs(d - exact) / bound
+        assert ratio.max() <= 1.0, (side, float(ratio.max()),
+                                    int((ratio > 1.0).sum()))
+    assert _agreement(ig.cpu(), ic) >= 0.999
