@@ -221,13 +221,37 @@ non-zero without printing its result line):
              CPU version on the card's graph, then all 11 at
              kddcup99_http's full n; seconds and reported / correct /
              missed for each, every score finite, ODIN's indegrees
-             summing to n*k.
+             summing to n*k;
+15. serving — ``ServeEngine.generate`` behind phase 4's flat
+             ``Guardrail`` (K=15, L=50, warmed past its warm-up on the
+             model's embedding rows): (a) Mixtral-8x7B at full width
+             (d_model 4096, 32 heads, kv 8, d_ff 14336, 8 experts top-2,
+             window 4096, vocab 32000, bf16 activations, float32
+             parameters cast at each use) cut to 8 of its 32 layers, 64
+             prompts of 128 tokens, 64 new tokens each: the output's
+             shape and dtype, one ``ace_admit_fused`` launch a generate,
+             the guardrail's verdict block and the tokens the only
+             ``_to_host`` transfers, no sync in prefill and decode
+             (sync-debug "error" from the admit's return to the tokens'
+             transfer); prefill ms, generate and ``decode_throughput``
+             tokens/s, the prefill's ``moe_drop_frac`` and the peak
+             memory; (b) two of those layers in float32 (TF32 off, the
+             capacity factor E/K so that no token drops): prefill +
+             decode logits against ``forward`` within rtol 2e-4 / atol
+             2e-4, and a ring cache (window cut to 32, ``s_max`` 32)
+             against a full one (``s_max`` 64) over 48 greedy tokens that
+             wrap it, tokens equal; (c) olmo_1b at its full size (16
+             layers, d_model 2048) served as in (a) behind a guardrail
+             at d_model 2048, then its weights in float32: 2 prompts of
+             16 tokens and 4 greedy tokens on the card against the CPU,
+             logits within rtol 2e-4 / atol 2e-4 and tokens equal.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 14 (the post-mortem query a
+before each path of phases 3 to 7 and 9 to 15 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
-in phase 12 before each open loop; in phase 14 before each ACE fit)
+in phase 12 before each open loop; in phase 14 before each ACE fit; in
+phase 15 before each measured generate)
 and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
@@ -250,6 +274,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import statistics
 import subprocess
@@ -3954,6 +3979,22 @@ def shed_by_policy(tickets, g, T) -> bool:
                for t in tickets if t.status == "shed")
 
 
+@contextlib.contextmanager
+def frozen_heap():
+    """Run a front-end loop with the heap that the earlier phases left
+    frozen (``gc.freeze``): one full collection over it took 120-190 ms on
+    an H100 host, long enough to shed a deadline's worth (50 ms) of
+    requests wherever it lands in a 2 s loop, and where it lands moves
+    with any allocation anywhere in the script.  The loop's own garbage
+    is still collected."""
+    gc.collect()
+    gc.freeze()
+    try:
+        yield
+    finally:
+        gc.unfreeze()
+
+
 def frontend_capacity(g, fcfg, T) -> float:
     """Closed-loop requests/s through ``submit`` + ``pump``, deadlines far
     past the run so nothing sheds."""
@@ -3961,14 +4002,15 @@ def frontend_capacity(g, fcfg, T) -> float:
     pool = request_pool(np.random.default_rng(7), fcfg)
     fe = FrontEnd(g, fcfg)
     q0 = g.quarantined
-    t0 = time.perf_counter()
-    for k in range(FE_CAP_REQ):
-        fe.submit(pool[k % len(pool)], tenant=k % T,
-                  deadline=time.perf_counter() + 60.0)
-        if fe.ready():
-            fe.pump()
-    fe.drain()
-    wall = time.perf_counter() - t0
+    with frozen_heap():
+        t0 = time.perf_counter()
+        for k in range(FE_CAP_REQ):
+            fe.submit(pool[k % len(pool)], tenant=k % T,
+                      deadline=time.perf_counter() + 60.0)
+            if fe.ready():
+                fe.pump()
+        fe.drain()
+        wall = time.perf_counter() - t0
     check(fe.served == FE_CAP_REQ and g.quarantined - q0 == fe.pad_rows,
           f"closed loop: all {FE_CAP_REQ} requests served, the "
           f"{fe.pad_rows} pad rows the only quarantined rows")
@@ -3989,25 +4031,26 @@ def open_loop(mods, g, fcfg, T, kind, rate: float, seed: int) -> dict:
     tickets = []
     clk = time.perf_counter
     reset_launches(mods)
-    t0 = clk()
-    for k in range(n_req):
-        while clk() - t0 < arrivals[k]:
+    with frozen_heap():
+        t0 = clk()
+        for k in range(n_req):
+            while clk() - t0 < arrivals[k]:
+                if fe.ready():
+                    fe.pump()
+                else:
+                    ahead = arrivals[k] - (clk() - t0)
+                    if ahead > 0.0005:
+                        time.sleep(min(ahead, 0.002))
+            tickets.append((fe.submit(
+                pool[k % len(pool)], tenant=k % T,
+                deadline=t0 + arrivals[k] + fcfg.default_deadline),
+                arrivals[k]))
             if fe.ready():
                 fe.pump()
-            else:
-                ahead = arrivals[k] - (clk() - t0)
-                if ahead > 0.0005:
-                    time.sleep(min(ahead, 0.002))
-        tickets.append((fe.submit(
-            pool[k % len(pool)], tenant=k % T,
-            deadline=t0 + arrivals[k] + fcfg.default_deadline),
-            arrivals[k]))
-        if fe.ready():
-            fe.pump()
-    t_end = clk()
-    while fe.queue_len and clk() - t_end < 1.0:    # bounded tail drain
-        fe.pump(force=True)
-    wall = clk() - t0
+        t_end = clk()
+        while fe.queue_len and clk() - t_end < 1.0:    # bounded tail drain
+            fe.pump(force=True)
+        wall = clk() - t0
     launches = read_launches(mods)
     lat = np.array([tk.t_done - t0 - sched for tk, sched in tickets
                     if tk.status == "served"])
@@ -4372,6 +4415,265 @@ def phase_paper(mods, device, datasets) -> tuple:
     return paths, tables
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: a language model served behind the guardrail (ServeEngine).
+# ---------------------------------------------------------------------------
+
+SERVE_B, SERVE_PROMPT, SERVE_NEW, SERVE_SMAX = 64, 128, 64, 256
+MIXTRAL_LAYERS = 8          # of Mixtral-8x7B's 32: 47 GB of float32 weights
+CONSIST_LAYERS = 2          # (b): Mixtral's first two layers in float32
+RING_WINDOW, RING_NEW = 32, 48   # (b): the ring's window cut, tokens decoded
+CPU_B, CPU_PROMPT, CPU_NEW = 2, 16, 4   # (c): the card against the CPU
+MODEL_TOL = dict(rtol=2e-4, atol=2e-4)  # the reference's tests/test_archs.py
+
+
+def serve_guardrail(device, params, vocab: int, d_model: int):
+    """Phase 4's flat guardrail at ``d_model``, warmed past its warm-up on
+    384 rows of the model's embeddings (3 admits of 128 prompts x 4)."""
+    from repro_torch.serve.engine import Guardrail, GuardrailConfig
+    g = Guardrail(GuardrailConfig(d_model=d_model, num_bits=K_BITS,
+                                  num_tables=L_TABLES), device=device)
+    gen = torch.Generator(device=device).manual_seed(SEED + 15)
+    for _ in range(3):
+        toks = torch.randint(0, vocab, (128, 4), generator=gen, device=device)
+        g.admit(params["embed"][toks])
+    check(float(g.state.n) >= g.gcfg.warmup_items,
+          f"guardrail warmed past warmup_items ({float(g.state.n):g} >= "
+          f"{g.gcfg.warmup_items:g})")
+    return g
+
+
+def prompts_for(device, vocab: int, b: int, s: int, seed: int):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randint(0, vocab, (b, s), generator=gen, device=device,
+                         dtype=torch.int32)
+
+
+def serve_model(mods, device, what, arch, params, g, card) -> dict:
+    """One warm-up generate, then one measured generate of SERVE_NEW tokens
+    for SERVE_B prompts of SERVE_PROMPT tokens behind ``g``: its launches,
+    transfers and syncs checked; then prefill ms and decode_throughput."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as E
+    cfg = arch.cfg
+    eng = E.ServeEngine(arch, s_max=SERVE_SMAX, guardrail=g, device=device)
+    batch = {"tokens": prompts_for(device, cfg.vocab_size, SERVE_B,
+                                   SERVE_PROMPT, SEED + 16)}
+    eng.generate(params, batch, num_new_tokens=2, prompt_len=SERVE_PROMPT)
+
+    transfers = []
+    to_host, admit = E._to_host, g.admit
+
+    def counted_to_host(x):
+        torch.cuda.set_sync_debug_mode(0)      # the transfer may sync
+        transfers.append(tuple(x.shape))
+        return to_host(x)
+
+    def then_no_sync(*a, **k):
+        out = admit(*a, **k)                   # ends in its one transfer
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    E._to_host, g.admit = counted_to_host, then_no_sync
+    sync(device)
+    reset_launches(mods)
+    try:
+        t0 = time.perf_counter()
+        toks = eng.generate(params, batch, num_new_tokens=SERVE_NEW,
+                            prompt_len=SERVE_PROMPT)
+        gen_s = time.perf_counter() - t0
+    except RuntimeError as e:
+        check(False, f"{what}: no sync in prefill and decode ({e})")
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        E._to_host = to_host
+        del g.admit
+    launches = read_launches(mods)
+    check(toks.shape == (SERVE_B, SERVE_NEW) and toks.dtype == np.int32,
+          f"{what}: generate returned {toks.shape} {toks.dtype}")
+    check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+          f"{what}: every token in the vocabulary")
+    check(launches["ace_admit_fused"] == 1 and launches["ace_query"] >= 1,
+          f"{what}: one ace_admit_fused launch in the generate "
+          f"({launches['ace_admit_fused']}), ace_query_sum "
+          f"{launches['ace_query']}")
+    check(transfers == [(2, SERVE_B), (SERVE_B, SERVE_NEW)],
+          f"{what}: the guardrail's verdict block and the tokens are the "
+          f"generate's only transfers ({transfers}); no sync in prefill "
+          "and decode under sync-debug \"error\"")
+
+    pre = []
+    for _ in range(3):
+        sync(device)
+        t0 = time.perf_counter()
+        logits, cache = arch.prefill(params, batch, s_max=SERVE_SMAX)
+        sync(device)
+        pre.append(time.perf_counter() - t0)
+    step = {"tokens": torch.argmax(logits[:, -1], dim=-1)
+            .to(torch.int32)[:, None]}
+    pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32,
+                     device=device)
+    # two runs of 16 steps each: the spread of the host clock
+    dec = [E.decode_throughput(arch, params, cache, step, pos, iters=16)
+           for _ in range(2)]
+    tr = device_trace(lambda: arch.decode_step(params, step, cache, pos),
+                      device)
+    out = {"launches": launches, "prefill_ms": 1e3 * statistics.median(pre),
+           "generate_tokens_per_s": SERVE_B * SERVE_NEW / gen_s,
+           "generate_s": gen_s, "decode_tokens_per_s": dec[0],
+           "decode_tokens_per_s_runs": dec,
+           "decode_step_trace": {k: v for k, v in tr.items() if k != "top"}}
+    if cfg.moe_num_experts:
+        _, aux, _ = tf._run_full(params, batch, cfg)
+        out["moe_drop_frac"] = float(aux["moe_drop_frac"]) / cfg.num_layers
+    print(f"  {what}: B {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
+          f"{SERVE_NEW} new: prefill {out['prefill_ms']:.3f} ms (median of "
+          f"3); generate {gen_s:.3f} s = {out['generate_tokens_per_s']:,.1f} "
+          f"tokens/s (the admit included); decode_throughput "
+          f"{dec[0]:,.1f} / {dec[1]:,.1f} tokens/s (two runs of 16 steps)"
+          + (f"; prefill moe_drop_frac {out['moe_drop_frac']:.4f} a layer"
+             if "moe_drop_frac" in out else "")
+          + f"; launches {launches} ({card})")
+    busy = tr["device_busy_ms"]
+    print(f"  {what}: one decode step under torch.profiler: wall "
+          f"{tr['profiled_wall_ms']:.3f} ms, {tr['device_ops']} device ops, "
+          f"device busy {busy:.3f} ms (idle share "
+          f"{1 - busy / tr['profiled_wall_ms']:.3f}); top: "
+          + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in tr["top"])
+          + f" ({card})" if tr["device_ops"] else
+          f"  {what}: no device op in the decode step's trace; device idle "
+          "share not measured")
+    return out
+
+
+def greedy_logits(arch, params, prompts, new: int, s_max: int):
+    """Greedy decode keeping every step's logits: (tokens, logits)."""
+    logits, cache = arch.prefill(params, {"tokens": prompts}, s_max=s_max)
+    B, P = prompts.shape
+    outs, toks = [logits[:, -1]], []
+    for i in range(new):
+        tok = torch.argmax(outs[-1], dim=-1).to(torch.int32)
+        toks.append(tok)
+        if i == new - 1:
+            break
+        pos = torch.full((B,), P + i, dtype=torch.int32, device=tok.device)
+        logits, cache = arch.decode_step(params, {"tokens": tok[:, None]},
+                                         cache, pos)
+        outs.append(logits[:, -1])
+    return torch.stack(toks, 1), torch.stack(outs, 1)
+
+
+def sub_model(arch, params, layers: int, **kw):
+    """An Arch on the first ``layers`` layers of ``params`` (no copy), its
+    config replaced by ``kw`` too."""
+    import copy
+    a = copy.copy(arch)
+    a.cfg = dataclasses.replace(arch.cfg, num_layers=layers, **kw)
+    return a, {**params, "blocks": params["blocks"][:a.cfg.num_superblocks]}
+
+
+def consistency_fp32(arch, params, device, card) -> None:
+    """(b): Mixtral's first CONSIST_LAYERS layers in float32."""
+    from repro_torch.serve.engine import ServeEngine
+    cfg = arch.cfg
+    a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
+                     moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    toks = prompts_for(device, cfg.vocab_size, 2, 17, SEED + 17)
+    full, aux = a.forward(p, {"tokens": toks})
+    check(float(aux["moe_drop_frac"]) == 0.0,
+          "capacity E/K: forward drops no token")
+    last, cache = a.prefill(p, {"tokens": toks[:, :16]}, s_max=32)
+    step, _ = a.decode_step(p, {"tokens": toks[:, 16:]}, cache,
+                            torch.full((2,), 16, dtype=torch.int32,
+                                       device=device))
+    for name, got, want in (("prefill", last[:, 0], full[:, 15]),
+                            ("decode", step[:, 0], full[:, 16])):
+        err = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **MODEL_TOL))
+        check(ok, f"mixtral x{CONSIST_LAYERS} float32: {name} last-token "
+              f"logits against forward within rtol/atol 2e-4 (max abs "
+              f"{err:.3g}; {card})")
+    a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
+                     sliding_window=RING_WINDOW)
+    prompts = prompts_for(device, cfg.vocab_size, 2, 8, SEED + 18)
+    ring = ServeEngine(a, s_max=RING_WINDOW, device=device).generate(
+        p, {"tokens": prompts}, num_new_tokens=RING_NEW, prompt_len=8)
+    flat = ServeEngine(a, s_max=2 * RING_WINDOW, device=device).generate(
+        p, {"tokens": prompts}, num_new_tokens=RING_NEW, prompt_len=8)
+    check((ring == flat).all(), f"mixtral x{CONSIST_LAYERS} float32, window "
+          f"{RING_WINDOW}: ring cache (s_max {RING_WINDOW}) tokens equal the "
+          f"full cache's (s_max {2 * RING_WINDOW}) over {RING_NEW} tokens "
+          "that wrap it")
+
+
+def card_against_cpu(arch, params, device, card) -> None:
+    """(c): olmo_1b's weights in float32, the card's greedy decode against
+    the CPU's."""
+    a, p = sub_model(arch, params, arch.cfg.num_layers, dtype="float32")
+    prompts = prompts_for(device, a.cfg.vocab_size, CPU_B, CPU_PROMPT,
+                          SEED + 19)
+    toks, logits = greedy_logits(a, p, prompts, CPU_NEW, 32)
+    cpu = torch.device("cpu")
+
+    def to_cpu(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(cpu)
+        if isinstance(tree, dict):
+            return {k: to_cpu(v) for k, v in tree.items()}
+        return [to_cpu(v) for v in tree]
+
+    ctoks, clogits = greedy_logits(a, to_cpu(p), prompts.cpu(), CPU_NEW, 32)
+    err = float((logits.cpu() - clogits).abs().max())
+    check(torch.allclose(logits.cpu(), clogits, **MODEL_TOL),
+          f"olmo_1b float32: card logits of {CPU_NEW} greedy steps against "
+          f"the CPU's within rtol/atol 2e-4 (max abs {err:.3g}; {card})")
+    check(torch.equal(toks.cpu(), ctoks), "olmo_1b float32: card tokens "
+          "equal the CPU's")
+
+
+def phase_serve(mods, device, card) -> dict:
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    out = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch = Arch("mixtral_8x7b")
+    arch.cfg = dataclasses.replace(arch.cfg, num_layers=MIXTRAL_LAYERS)
+    t0 = time.perf_counter()
+    params = arch.init_params(SEED, device=device)
+    sync(device)
+    print(f"  mixtral_8x7b at full width, {MIXTRAL_LAYERS} of 32 layers: "
+          f"{sum(t.numel() for t in leaves(params)) / 1e9:.2f} B float32 "
+          f"parameters drawn in {time.perf_counter() - t0:.2f} s ({card})")
+    g = serve_guardrail(device, params, arch.cfg.vocab_size,
+                        arch.cfg.d_model)
+    out["serve_mixtral"] = serve_model(mods, device, "mixtral_8x7b", arch,
+                                       params, g, card)
+    consistency_fp32(arch, params, device, card)
+    peak = torch.cuda.max_memory_allocated()
+    out["serve_mixtral"]["max_memory_allocated"] = peak
+    print(f"  mixtral peak memory (max_memory_allocated) {peak / 2**30:.2f} "
+          f"GiB ({card})")
+    del params, g
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    arch = Arch("olmo_1b")
+    params = arch.init_params(SEED, device=device)
+    g = serve_guardrail(device, params, arch.cfg.vocab_size,
+                        arch.cfg.d_model)
+    out["serve_olmo"] = serve_model(mods, device, "olmo_1b", arch, params, g,
+                                    card)
+    peak = torch.cuda.max_memory_allocated()
+    out["serve_olmo"]["max_memory_allocated"] = peak
+    print(f"  olmo_1b peak memory (max_memory_allocated) {peak / 2**30:.2f} "
+          f"GiB ({card})")
+    card_against_cpu(arch, params, device, card)
+    del params, g
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -4516,6 +4818,12 @@ def main() -> int:
     paths.update(paper_paths)
     print(f"  phase 14 took {time.perf_counter() - t14:.1f} s")
 
+    print("phase 15: a language model served behind the guardrail "
+          "(ServeEngine.generate): Mixtral-8x7B at full width, olmo_1b")
+    t15 = time.perf_counter()
+    paths.update(phase_serve(mods, device, card))
+    print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -4588,7 +4896,12 @@ def main() -> int:
           + ", ".join(f"{paths[f'paper_ace_{n}']['seconds']:.3f} s {n}"
                       for n in PAPER_K)
           + "; kNN graph + LOF at kddcup99_http's full n "
-          f"{tables['kddcup99_http_full']['lof']['seconds']:.3f} s")
+          f"{tables['kddcup99_http_full']['lof']['seconds']:.3f} s"
+          + "; served " + ", ".join(
+              f"{k[6:]} prefill {r['prefill_ms']:.3f} ms, generate "
+              f"{r['generate_tokens_per_s']:,.1f} tokens/s, decode "
+              f"{r['decode_tokens_per_s']:,.1f} tokens/s"
+              for k, r in paths.items() if k.startswith("serve_")))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

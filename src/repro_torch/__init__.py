@@ -6,7 +6,8 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``core.privacy``, ``kernels.ops``, ``data.pipeline``,
 ``data.synthetic``, ``window``, ``fleet``, ``quantile``,
 ``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
-``resilience``, ``train.checkpoint``, ``baselines``).  It imports
+``resilience``, ``train.checkpoint``, ``baselines``, ``models``,
+``configs``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -34,7 +35,10 @@ shedding by each tenant's ``fail_open_mask``.  ``core.privacy`` is the
 paper's §4 differentially private hash, ``data.synthetic`` the paper's
 three datasets (bitwise the reference's), and ``baselines`` its 11
 competitors on one shared kNN graph (plain PyTorch on the card, as the
-reference's are plain jnp).
+reference's are plain jnp).  ``models`` and ``configs`` are the model
+zoo's attention family (decoder-only transformers of "attn" and "swa"
+layers, dense or MoE, and all ten configs), which ``serve.engine``'s
+``ServeEngine`` serves greedily behind a ``Guardrail``.
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,
@@ -52,6 +56,10 @@ import torch
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
     9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
+    12: "mamba + jamba, rwkv6, whisper; then repro.train (train_loop with "
+        "its ACE prefilter, optim, schedule, compression, fault), "
+        "data.pipeline's StreamConfig, synth_batch and DataStream, and "
+        "repro.launch",
     13: "repro.dist",
 }
 

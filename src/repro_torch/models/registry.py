@@ -1,0 +1,122 @@
+"""Arch registry: an architecture's name -> its config and model functions.
+Port of ``repro.models.registry`` for the attention family; an ``Arch`` of
+jamba, rwkv6 or whisper raises ``not_ported`` (ROADMAP.md queue 1 item
+12), and the dry run's ``input_specs``, ``cache_specs`` and ``all_cells``
+wait with ``repro.launch``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import ALIASES, get_config
+from repro_torch.models import transformer as tf
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned input-shape cell."""
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str            # "train" | "prefill" | "decode"
+
+
+SHAPES = {
+    "train_4k": ShapeSpec("train_4k", 4096, 256, "train"),
+    "prefill_32k": ShapeSpec("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": ShapeSpec("decode_32k", 32768, 128, "decode"),
+    "long_500k": ShapeSpec("long_500k", 524_288, 1, "decode"),
+}
+
+# archs for which long_500k is skipped (pure full attention)
+LONG_CONTEXT_SKIP = {
+    "mistral_large_123b": "pure full attention (no SWA in 2407 config)",
+    "olmo_1b": "pure full attention",
+    "qwen2_1_5b": "pure full attention",
+    "qwen2_vl_7b": "pure full attention",
+    "whisper_tiny": "full-attention decoder; 500k beyond positional design",
+}
+
+
+def is_whisper(cfg: ModelConfig) -> bool:
+    return cfg.encoder_layers > 0
+
+
+class Arch:
+    """One architecture: its config and step functions.  Raises
+    ``not_ported`` for a model outside the attention family."""
+
+    def __init__(self, name: str, reduced: bool = False):
+        self.name = ALIASES.get(name, name)
+        self.cfg = get_config(name, reduced=reduced)
+        tf.check_ported(self.cfg)
+
+    # ---- model fns --------------------------------------------------------
+    def init_params(self, generator: torch.Generator | int = 0,
+                    device=None) -> dict:
+        """Random parameters on ``device`` (CUDA unless the caller names
+        another), drawn from ``generator`` or a generator seeded with it."""
+        device = resolve_device(device)
+        if not isinstance(generator, torch.Generator):
+            generator = torch.Generator(device=device).manual_seed(
+                int(generator))
+        return tf.init_params(self.cfg, generator, device)
+
+    def forward(self, params, batch, remat=True):
+        return tf.forward(params, batch, self.cfg, remat=remat)
+
+    def prefill(self, params, batch, s_max=None):
+        return tf.prefill(params, batch, self.cfg, s_max=s_max)
+
+    def decode_step(self, params, batch, cache, pos):
+        return tf.decode_step(params, batch, cache, pos, self.cfg)
+
+    # ---- shape cells ------------------------------------------------------
+    def supports(self, shape_name: str) -> bool:
+        return not (shape_name == "long_500k"
+                    and self.name in LONG_CONTEXT_SKIP)
+
+    def skip_reason(self, shape_name: str) -> str | None:
+        if shape_name == "long_500k":
+            return LONG_CONTEXT_SKIP.get(self.name)
+        return None
+
+    # ---- analytics ---------------------------------------------------------
+    def _shapes(self) -> dict:
+        return tf.init_params(self.cfg, None, torch.device("meta"))
+
+    def param_count(self) -> int:
+        """Parameters, counted from shapes on the ``meta`` device (nothing
+        is allocated)."""
+        return sum(t.numel() for t in leaves(self._shapes()))
+
+    def active_param_count(self) -> int:
+        """The reference's MoE-aware count of parameters a token uses, by
+        its rule: it takes as expert weights the leaves under ``"mlp"``
+        whose superblock-stacked shape is 3-D, that is the per-layer 2-D
+        ones (the router, or a dense MLP), and scales them by 1 − K/E.
+        The expert banks (E, ·, ·) are 4-D stacked and never counted: a
+        fault of the reference, copied so the numbers agree (ROADMAP.md
+        queue 3 item 13)."""
+        total = self.param_count()
+        cfg = self.cfg
+        if not cfg.moe_num_experts:
+            return total
+        expert = sum(t.numel() for row in self._shapes()["blocks"]
+                     for layer in row for t in layer["mlp"].values()
+                     if t.dim() == 2)
+        inactive = expert * (1 - cfg.moe_top_k / cfg.moe_num_experts)
+        return int(total - inactive)
+
+
+def leaves(tree):
+    """Every tensor of a parameter or cache tree (dicts and lists)."""
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    else:
+        for v in (tree.values() if isinstance(tree, dict) else tree):
+            yield from leaves(v)

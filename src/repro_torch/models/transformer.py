@@ -1,0 +1,242 @@
+"""The decoder-only LM of the zoo, one config-driven implementation of its
+attention family: ``"attn"`` and ``"swa"`` layers, dense or MoE.  Port of
+``repro.models.transformer``; its ``"mamba"`` and ``"rwkv"`` layers (and
+whisper, ``repro.models.whisper``) raise ``not_ported`` naming ROADMAP.md
+queue 1 item 12.
+
+Depth is ``cfg.num_superblocks`` repetitions of ``cfg.block_pattern``.
+The reference stacks each pattern position's parameters over the
+superblocks and scans them; here ``params["blocks"][r][i]`` is the dict of
+superblock r's layer at pattern position i, applied in a Python loop.
+
+Entry points (plain functions of dicts of tensors):
+    forward(params, batch, cfg)            -> logits, aux   (training)
+    prefill(params, batch, cfg, s_max)     -> logits, cache (serving)
+    decode_step(params, batch, cache, pos, cfg) -> logits, cache
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch import not_ported
+from repro_torch.models import attention as attn
+from repro_torch.models import mlp as mlp_mod
+from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+                                       init_norm, softcap)
+
+ATTENTION_KINDS = ("attn", "swa")
+
+
+def check_ported(cfg: ModelConfig) -> None:
+    """Raise ``not_ported`` for a model outside the attention family
+    (checked where parameters or caches are made)."""
+    if cfg.encoder_layers > 0:
+        not_ported(f"the encoder-decoder model {cfg.name!r} "
+                   "(repro.models.whisper)", 12)
+    for kind in cfg.block_pattern:
+        if kind in ("mamba", "rwkv"):
+            not_ported(f"{kind!r} layers ({cfg.name!r})", 12)
+        if kind not in ATTENTION_KINDS:
+            raise ValueError(f"unknown layer kind {kind!r}")
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+def _layer_has_moe(cfg: ModelConfig, pos_in_pattern: int) -> bool:
+    if cfg.moe_num_experts is None:
+        return False
+    return pos_in_pattern % cfg.moe_layer_period == cfg.moe_layer_period - 1
+
+
+def _init_layer(cfg: ModelConfig, use_moe: bool, generator, device) -> dict:
+    p = {"norm1": init_norm(cfg, device),
+         "mixer": attn.init_attention(cfg, generator, device),
+         "norm2": init_norm(cfg, device),
+         "mlp": (mlp_mod.init_moe if use_moe else mlp_mod.init_mlp)(
+             cfg, generator, device)}
+    if cfg.post_block_norm:   # gemma2 sandwich norms
+        p["post_norm1"] = init_norm(cfg, device)
+        p["post_norm2"] = init_norm(cfg, device)
+    return p
+
+
+def init_params(cfg: ModelConfig, generator: torch.Generator | None,
+                device) -> dict:
+    """Random parameters in ``cfg.param_dtype`` on ``device``, drawn from
+    ``generator`` (which lives on ``device``; None on ``meta``, where only
+    shapes are made).  The same shapes and distributions as the
+    reference's ``init_params``; blocks held per superblock."""
+    check_ported(cfg)
+    params: dict = {}
+    if cfg.input_mode == "tokens":
+        # GPT-2-style 0.02 std: keeps tied-head logits O(1) at init.
+        params["embed"] = dense_init((cfg.vocab_size, cfg.d_model),
+                                     cfg.pdtype, generator, device,
+                                     scale=0.02)
+    params["blocks"] = [
+        [_init_layer(cfg, _layer_has_moe(cfg, i), generator, device)
+         for i in range(len(cfg.block_pattern))]
+        for _ in range(cfg.num_superblocks)]
+    params["final_norm"] = init_norm(cfg, device)
+    if cfg.embed_norm:
+        params["embed_norm"] = init_norm(cfg, device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
+                                       cfg.pdtype, generator, device)
+    return params
+
+
+def layers(cfg: ModelConfig):
+    """(superblock, pattern position, kind, use_moe) of every layer, in the
+    order they run."""
+    for r in range(cfg.num_superblocks):
+        for i, kind in enumerate(cfg.block_pattern):
+            yield r, i, kind, _layer_has_moe(cfg, i)
+
+
+# ---------------------------------------------------------------------------
+# Layer application
+# ---------------------------------------------------------------------------
+
+def _apply_layer_full(p, x, kind, use_moe, cfg: ModelConfig, positions,
+                      rope_tables=None):
+    """Full-sequence layer.  Returns (x, aux, cache entry)."""
+    aux = {}
+    h = apply_norm(p["norm1"], x, cfg)
+    out, cache = attn.attention(p["mixer"], h, cfg, positions=positions,
+                                layer_kind=kind, rope_tables=rope_tables)
+    if cfg.post_block_norm:
+        out = apply_norm(p["post_norm1"], out, cfg)
+    x = x + out
+    h = apply_norm(p["norm2"], x, cfg)
+    if use_moe:
+        out, aux = mlp_mod.moe(p["mlp"], h, cfg)
+    else:
+        out = mlp_mod.mlp(p["mlp"], h, cfg)
+    if cfg.post_block_norm:
+        out = apply_norm(p["post_norm2"], out, cfg)
+    return x + out, aux, cache
+
+
+def _apply_layer_decode(p, x, kind, use_moe, cfg: ModelConfig, pos, cache):
+    """One-token layer.  Returns (x, new cache entry)."""
+    h = apply_norm(p["norm1"], x, cfg)
+    out, new_cache = attn.decode_attention(p["mixer"], h, cache, pos, cfg,
+                                           layer_kind=kind)
+    if cfg.post_block_norm:
+        out = apply_norm(p["post_norm1"], out, cfg)
+    x = x + out
+    h = apply_norm(p["norm2"], x, cfg)
+    if use_moe:
+        # decode: capacity E/K gives C = T, so no token is ever dropped
+        out, _ = mlp_mod.moe(p["mlp"], h, cfg,
+                             capacity_factor=float(cfg.moe_num_experts)
+                             / cfg.moe_top_k)
+    else:
+        out = mlp_mod.mlp(p["mlp"], h, cfg)
+    if cfg.post_block_norm:
+        out = apply_norm(p["post_norm2"], out, cfg)
+    return x + out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# Embedding / head
+# ---------------------------------------------------------------------------
+
+def embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
+    if cfg.input_mode == "tokens":
+        x = params["embed"][batch["tokens"].long()].to(cfg.adtype)
+    else:
+        x = batch["embeds"].to(cfg.adtype)
+    if cfg.scale_embeddings:
+        # sqrt(d_model) rounded to the activation dtype, as the reference
+        x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt().item()
+    if cfg.embed_norm:
+        x = apply_norm(params["embed_norm"], x, cfg)
+    return x
+
+
+def lm_head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return softcap(x @ w.to(x.dtype), cfg.final_logit_softcap)
+
+
+def _positions_for(batch, cfg: ModelConfig, S: int, B: int, device):
+    if cfg.mrope_sections is not None:
+        return batch["positions"]            # (3, B, S) from the caller
+    return torch.arange(S, dtype=torch.int32, device=device)[None] \
+        .expand(B, S)
+
+
+def _run_full(params, batch, cfg: ModelConfig):
+    """Embed, then every layer over the full sequence: (x, aux sums,
+    caches [r][i])."""
+    x = embed_inputs(params, batch, cfg)
+    B, S = x.shape[0], x.shape[1]
+    positions = _positions_for(batch, cfg, S, B, x.device)
+    rope = attn.make_rope_tables(positions, cfg, cfg.head_dim)
+    aux_acc = {"moe_load_balance": torch.zeros((), device=x.device),
+               "moe_drop_frac": torch.zeros((), device=x.device)} \
+        if cfg.moe_num_experts else {}
+    caches = [[None] * len(cfg.block_pattern)
+              for _ in range(cfg.num_superblocks)]
+    for r, i, kind, use_moe in layers(cfg):
+        x, aux, caches[r][i] = _apply_layer_full(
+            params["blocks"][r][i], x, kind, use_moe, cfg, positions,
+            rope_tables=rope)
+        for k, v in aux.items():
+            aux_acc[k] = aux_acc[k] + v
+    return apply_norm(params["final_norm"], x, cfg), aux_acc, caches
+
+
+def forward(params, batch, cfg: ModelConfig, remat: bool = True):
+    """batch: {"tokens": (B, S)} or {"embeds": (B, S, D)} (+ "positions"
+    (3, B, S) under M-RoPE).  Returns (logits (B, S, V), aux): for MoE the
+    sums over layers of ``moe_load_balance`` and ``moe_drop_frac``.
+    ``remat`` is accepted for the reference's signature; with no backward
+    pass it changes nothing."""
+    x, aux, _ = _run_full(params, batch, cfg)
+    return lm_head(params, x, cfg), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving: prefill + decode
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
+    """Zero KV caches in the activation dtype, ``[r][i]`` as the blocks."""
+    check_ported(cfg)
+    shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
+    return [[attn.KVCache(torch.zeros(shape, dtype=cfg.adtype, device=device),
+                          torch.zeros(shape, dtype=cfg.adtype, device=device))
+             for _ in cfg.block_pattern]
+            for _ in range(cfg.num_superblocks)]
+
+
+def prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
+    """Full-context pass building the cache, padded with zeros out to
+    ``s_max`` slots.  Returns (last-position logits (B, 1, V), cache)."""
+    x, _, caches = _run_full(params, batch, cfg)
+    S = x.shape[1]
+    pad = (s_max or S) - S
+    if pad > 0:
+        caches = [[attn.KVCache(*(torch.nn.functional.pad(
+            t, (0, 0, 0, 0, 0, pad)) for t in c)) for c in row]
+            for row in caches]
+    return lm_head(params, x[:, -1:, :], cfg), caches
+
+
+def decode_step(params, batch, cache, pos, cfg: ModelConfig):
+    """One token for the whole batch.  batch {"tokens": (B, 1)} or
+    {"embeds": (B, 1, D)}; pos (B,) integers ((3, B) under M-RoPE).
+    Returns (logits (B, 1, V), the new cache)."""
+    x = embed_inputs(params, batch, cfg)
+    new_cache = [[None] * len(cfg.block_pattern)
+                 for _ in range(cfg.num_superblocks)]
+    for r, i, kind, use_moe in layers(cfg):
+        x, new_cache[r][i] = _apply_layer_decode(
+            params["blocks"][r][i], x, kind, use_moe, cfg, pos, cache[r][i])
+    x = apply_norm(params["final_norm"], x, cfg)
+    return lm_head(params, x, cfg), new_cache

@@ -12,13 +12,15 @@ windowed fleet (both).  Each flavour audits its own sketch
 the corrupted ones and re-warms them (``repair``), as
 ``repro.resilience`` wires them into the reference's.
 
-``ServeEngine`` and the model zoo are not ported yet (ROADMAP.md queue 1
-item 12); meshes raise ``NotImplementedError`` naming the queue item that
-brings them.
+``ServeEngine`` generates greedily with a model of the zoo's attention
+family (``repro_torch.models``) behind an optional guardrail, and
+``decode_throughput`` times its decode step.  Meshes raise
+``NotImplementedError`` naming the queue item that brings them.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
@@ -31,6 +33,7 @@ from repro_torch.data.pipeline import mean_embed_features
 from repro_torch.fleet import state as fl
 from repro_torch.fleet import window as fw
 from repro_torch.kernels import ops as kops
+from repro_torch.models.registry import Arch
 from repro_torch.quantile import sketch as qsk
 from repro_torch.window import ring
 
@@ -437,10 +440,77 @@ class Guardrail:
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:
-    """The ONE device→host transfer of an ``admit`` call (and of a
-    ``health_check``, outside the hot path: the packed report).
+    """The ONE device→host transfer of an ``admit`` call (of a
+    ``health_check``, outside the hot path: the packed report; and of a
+    ``ServeEngine.generate``: its tokens).
 
     A named function, not an inline ``.cpu()``, so the one-transfer
     contract is a single call site that tests can count.
     """
     return x.cpu().numpy()
+
+
+class ServeEngine:
+    """Greedy generation over a fixed batch, the serving path the guardrail
+    stands in front of.  Port of the reference's ``ServeEngine``; runs on
+    ``device`` (CUDA unless the caller names another), where ``params``
+    and the guardrail live."""
+
+    def __init__(self, arch: Arch, s_max: int = 256,
+                 guardrail: Guardrail | None = None, device=None):
+        self.arch = arch
+        self.s_max = s_max
+        self.guardrail = guardrail
+        self.device = resolve_device(device)
+
+    def generate(self, params, batch, num_new_tokens: int,
+                 prompt_len: int) -> np.ndarray:
+        """Greedy decode.  Returns (B, num_new_tokens) int32.
+
+        With a guardrail, a batch of tokens is first screened:
+        ``guardrail.admit`` runs on the prompts' embedding rows
+        (``params["embed"][tokens]``) and updates its sketch, but its
+        verdict is not used, as in the reference (the whole batch is
+        generated; ROADMAP.md queue 3 item 11).  Then prefill and the
+        decode loop run with no host sync: the tokens stay on the device
+        and leave through the one ``_to_host`` at the end.  A model fed
+        embeddings (``input_mode="embeds"``) cannot decode: the step feeds
+        tokens, and ``embed_inputs`` raises ``KeyError: 'embeds'``, as the
+        reference's does (ROADMAP.md queue 3 item 12)."""
+        cfg = self.arch.cfg
+        batch = {k: torch.as_tensor(v, device=self.device)
+                 for k, v in batch.items()}
+        if self.guardrail is not None and "embeds" not in batch:
+            self.guardrail.admit(params["embed"][batch["tokens"].long()])
+        logits, cache = self.arch.prefill(params, batch, s_max=self.s_max)
+        B = logits.shape[0]
+        tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+        toks = [tok]
+        for i in range(1, num_new_tokens):
+            pos = torch.full((B,), prompt_len + i - 1, dtype=torch.int32,
+                             device=self.device)
+            if cfg.mrope_sections is not None:
+                pos = pos[None].expand(3, B)
+            logits, cache = self.arch.decode_step(
+                params, {"tokens": tok[:, None]}, cache, pos)
+            tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
+            toks.append(tok)
+        return _to_host(torch.stack(toks, dim=1))    # the ONE transfer
+
+
+def decode_throughput(arch: Arch, params, cache, batch, pos,
+                      iters: int = 8) -> float:
+    """Tokens a second of ``arch.decode_step`` on the host clock: one
+    warm-up step, then ``iters`` steps ended by a synchronise."""
+    def wait(t):
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+
+    logits, cache = arch.decode_step(params, batch, cache, pos)
+    wait(logits)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        logits, cache = arch.decode_step(params, batch, cache, pos)
+    wait(logits)
+    dt = (time.perf_counter() - t0) / iters
+    return batch[next(iter(batch))].shape[0] / dt

@@ -26,8 +26,10 @@ event instead:
 
 Transfers: a batch is assembled on the host in one staging array that
 every batch reuses (a fresh 64 MB array a batch at full width, 256 × 16 ×
-4096 float32, costs more in page faults than the row copies) and handed
-to ``Guardrail.admit`` as it is; the admit's ``torch.as_tensor`` is the
+4096 float32, costs more in page faults than the row copies), page-locked
+when the guardrail is on the card (a pageable 64 MB copy takes several
+times as long as a page-locked one), and handed to ``Guardrail.admit`` as
+it is; the admit's ``torch.as_tensor`` is the
 one host→device copy and its packed verdict block the one device→host
 copy, which also ends the measured service time.  So a guardrail must not
 keep the array past ``admit``.  ``pump`` adds no transfer or sync of its
@@ -46,6 +48,7 @@ import dataclasses
 import time
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,8 +95,8 @@ class FrontEnd:
             collections.deque()
         self._est_service: float | None = None   # EWMA sec per batch
         # the padded batch, reused: rows past the last batch's stay NaN
-        self._stage = np.full((cfg.batch_size, cfg.seq, cfg.d_model),
-                              np.nan, np.float32)
+        self._stage = _staging((cfg.batch_size, cfg.seq, cfg.d_model),
+                               getattr(guardrail, "device", None))
         self._staged = 0         # rows of _stage holding requests
         self.submitted = 0
         self.served = 0
@@ -236,3 +239,14 @@ class FrontEnd:
             "est_service_s": self.est_service,
             "pad_rows": self.pad_rows,
         }
+
+
+def _staging(shape, device) -> np.ndarray:
+    """The NaN-filled staging array: a numpy view of page-locked memory
+    when the guardrail's device is CUDA (CUDA then copies it by DMA
+    straight from the array), plain numpy otherwise."""
+    if device is not None and torch.device(device).type == "cuda":
+        out = torch.empty(shape, dtype=torch.float32, pin_memory=True).numpy()
+        out.fill(np.nan)
+        return out
+    return np.full(shape, np.nan, np.float32)

@@ -2079,3 +2079,108 @@ def test_knn_graph_on_the_card_matches_the_cpu(cuda):
         assert ratio.max() <= 1.0, (side, float(ratio.max()),
                                     int((ratio > 1.0).sum()))
     assert _agreement(ig.cpu(), ic) >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# The model zoo's attention family (repro_torch.models) on the card against
+# the CPU, in float32 with TF32 off: logits within rtol / atol 2e-4 (the
+# reference's model bound, tests/test_archs.py:122), greedy tokens, MoE
+# routing and drops exact.
+# ---------------------------------------------------------------------------
+
+def _model_on_both(cuda, name, **kw):
+    """A reduced Arch with ``kw`` and its weights (drawn on the CPU) on the
+    card and on the CPU."""
+    import dataclasses
+    from repro_torch.models import Arch
+    a = Arch(name, reduced=True)
+    a.cfg = dataclasses.replace(a.cfg, **kw)
+    cpu = a.init_params(7, device="cpu")
+
+    def move(tree):
+        if isinstance(tree, torch.Tensor):
+            return tree.to(cuda)
+        if isinstance(tree, dict):
+            return {k: move(v) for k, v in tree.items()}
+        return [move(v) for v in tree]
+
+    return a, move(cpu), cpu
+
+
+def _decode_both(cuda, a, card, cpu, prompt, pos, s_max):
+    """Prefill ``prompt`` then one decode step at ``pos`` on both devices:
+    the (prefill, decode) logits of each and the decode caches."""
+    out = []
+    for dev, p in ((cuda, card), (torch.device("cpu"), cpu)):
+        toks = torch.as_tensor(prompt, device=dev)
+        last, cache = a.prefill(p, {"tokens": toks}, s_max=s_max)
+        nxt = torch.argmax(last[:, -1], dim=-1).to(torch.int32)
+        step, cache = a.decode_step(
+            p, {"tokens": nxt[:, None]}, cache,
+            torch.full((toks.shape[0],), pos, dtype=torch.int32, device=dev))
+        out.append((last.cpu(), step.cpu(), cache))
+    return out
+
+
+def test_model_decode_ring_wrap_card_vs_cpu(cuda):
+    """GQA (8 heads on 2 kv heads) with every layer "swa" and a ring
+    cache of the window's 8 slots: a prompt of 6, then one step at
+    position 13, past the ring's wrap (slot 5; the slots of positions
+    6-12 never written)."""
+    a, card, cpu = _model_on_both(cuda, "mixtral_8x7b", num_heads=8,
+                                  num_kv_heads=2, head_dim=16,
+                                  sliding_window=8)
+    prompt = np.random.default_rng(1).integers(
+        0, a.cfg.vocab_size, (3, 6)).astype(np.int32)
+    (gl, gs, gc), (cl, cs, cc) = _decode_both(cuda, a, card, cpu, prompt,
+                                              13, 8)
+    torch.testing.assert_close(gl, cl, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(gs, cs, rtol=2e-4, atol=2e-4)
+    assert torch.equal(gs.argmax(-1), cs.argmax(-1))
+    for g_row, c_row in zip(gc, cc):
+        for g, c in zip(g_row, c_row):
+            torch.testing.assert_close(g.k.cpu(), c.k, rtol=1e-5, atol=1e-5)
+            assert bool((g.k[:, 6:] == 0).all())    # slots never written
+
+
+def test_model_moe_drops_card_vs_cpu(cuda):
+    """Mixtral's reduced MoE at capacity factor 1.0 (tokens dropped) with
+    two router columns equal (ties): the routing, ``keep`` and
+    ``moe_drop_frac`` exact, the forward's logits within 2e-4."""
+    from repro_torch.models import mlp
+    a, card, cpu = _model_on_both(cuda, "mixtral_8x7b",
+                                  moe_capacity_factor=1.0)
+    for p in (card, cpu):
+        r = p["blocks"][0][0]["mlp"]["router"]
+        r[:, 3] = r[:, 2]
+    toks = np.random.default_rng(2).integers(
+        0, a.cfg.vocab_size, (4, 16)).astype(np.int32)
+    outs = []
+    for dev, p in ((cuda, card), (torch.device("cpu"), cpu)):
+        t = torch.as_tensor(toks, device=dev)
+        logits, aux = a.forward(p, {"tokens": t})
+        x = p["embed"][t.long()].reshape(1, -1, a.cfg.d_model)
+        route = mlp.route(p["blocks"][0][0]["mlp"], x, a.cfg,
+                          mlp.capacity(a.cfg, x.shape[1]))
+        outs.append((logits.cpu(), float(aux["moe_drop_frac"]),
+                     route.top_idx.cpu(), route.keep.cpu()))
+    (gl, gd, gi, gk), (cl, cd, ci, ck) = outs
+    assert torch.equal(gi, ci) and torch.equal(gk, ck)
+    assert not bool(ck.all()), "capacity 1.0 drops here"
+    assert gd == cd and cd > 0
+    torch.testing.assert_close(gl, cl, rtol=2e-4, atol=2e-4)
+
+
+def test_model_gemma2_softcaps_and_sandwich_card_vs_cpu(cuda):
+    """gemma2's reduced model (local "swa" + global "attn", logit softcaps
+    50 and 30, sandwich norms, scaled and tied embeddings): prefill and
+    one decode step on both, logits within 2e-4 and inside the final
+    cap."""
+    a, card, cpu = _model_on_both(cuda, "gemma2_27b")
+    prompt = np.random.default_rng(3).integers(
+        0, a.cfg.vocab_size, (2, 20)).astype(np.int32)
+    (gl, gs, _), (cl, cs, _) = _decode_both(cuda, a, card, cpu, prompt,
+                                            20, 24)
+    torch.testing.assert_close(gl, cl, rtol=2e-4, atol=2e-4)
+    torch.testing.assert_close(gs, cs, rtol=2e-4, atol=2e-4)
+    assert float(gs.abs().max()) <= a.cfg.final_logit_softcap
