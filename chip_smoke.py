@@ -244,14 +244,39 @@ non-zero without printing its result line):
              layers, d_model 2048) served as in (a) behind a guardrail
              at d_model 2048, then its weights in float32: 2 prompts of
              16 tokens and 4 greedy tokens on the card against the CPU,
-             logits within rtol 2e-4 / atol 2e-4 and tokens equal.
+             logits within rtol 2e-4 / atol 2e-4 and tokens equal;
+16. the rest of the zoo — served as in phase 15: (a) Jamba-v0.1 at full
+             width (d_model 4096, 32 heads, kv 8, d_ff 14336, 16 experts
+             top-2 at the odd pattern positions, Mamba d_state 16, d_conv
+             4, expand 2, vocab 65536) cut to one of its four 8-layer
+             superblocks (7 Mamba + 1 attention layer), behind a
+             guardrail at d_model 4096, with the checks and numbers of
+             phase 15 (a), then that superblock in float32 at capacity
+             E/K, B = 2: prefill + decode logits against ``forward``
+             within 2e-4 (the Mamba scan against its step); (b) RWKV-6 7B
+             at its full size (32 layers, d_model 4096, 64 heads of 64,
+             d_ff 14336) served the same way, then its first 2 layers in
+             float32 with the zero-initialised time-mix ``wo`` and
+             channel-mix ``wv`` redrawn (std 1/sqrt(fan-in)): prefill +
+             decode against ``forward``, and 2 prompts of 16 tokens and
+             4 greedy tokens on the card against the CPU, within 2e-4,
+             tokens equal; (c) whisper_tiny at its full size (4 + 4
+             layers, d_model 384, 1500 frames, vocab 51865) on 64 frame
+             batches and prompts of 128 tokens: its batch carries
+             "embeds", so ``generate`` never calls the guardrail (the
+             reference's rule): no launch, the tokens the one transfer,
+             no sync; then in float32 the card's greedy logits and tokens
+             against the CPU's (2 frame batches, 16 prompt tokens, 4
+             new).  For Jamba and RWKV-6 one recurrent mixer (projections
+             and the time loop) is also timed at the prefill's shape,
+             beside the prefill it is part of.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
 before each path of phases 3 to 7 and 9 to 15 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
-phase 15 before each measured generate)
+phases 15 and 16 before each measured generate)
 and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
@@ -3982,17 +4007,42 @@ def shed_by_policy(tickets, g, T) -> bool:
 @contextlib.contextmanager
 def frozen_heap():
     """Run a front-end loop with the heap that the earlier phases left
-    frozen (``gc.freeze``): one full collection over it took 120-190 ms on
-    an H100 host, long enough to shed a deadline's worth (50 ms) of
-    requests wherever it lands in a 2 s loop, and where it lands moves
-    with any allocation anywhere in the script.  The loop's own garbage
-    is still collected."""
+    frozen (``gc.freeze``) and the cyclic collector off: one full
+    collection over the earlier heap took 120-190 ms on an H100 host, long
+    enough to shed a deadline's worth (50 ms) of requests wherever it
+    lands in a 2 s loop, and where it lands moves with any allocation
+    anywhere in the script.  Inside the loop the collector would walk the
+    tickets that the harness keeps for its percentiles (one a request,
+    tens of thousands at 2x), a pause that lands on one batch of 256
+    requests and so on the p999.  The loop's garbage is acyclic and freed
+    by reference counting; the collection on the way out takes the
+    rest."""
     gc.collect()
     gc.freeze()
+    gc.disable()
     try:
         yield
     finally:
+        gc.enable()
         gc.unfreeze()
+        gc.collect()
+
+
+@contextlib.contextmanager
+def gc_pauses():
+    """The cyclic collector's pauses inside the block: (generation, s)."""
+    out, t = [], [0.0]
+
+    def cb(phase, info):
+        if phase == "start":
+            t[0] = time.perf_counter()
+        else:
+            out.append((info["generation"], time.perf_counter() - t[0]))
+    gc.callbacks.append(cb)
+    try:
+        yield out
+    finally:
+        gc.callbacks.remove(cb)
 
 
 def frontend_capacity(g, fcfg, T) -> float:
@@ -4030,13 +4080,21 @@ def open_loop(mods, g, fcfg, T, kind, rate: float, seed: int) -> dict:
     q0 = g.quarantined
     tickets = []
     clk = time.perf_counter
+    pumps = []              # (assembly s, whole pump s) of each batch
+
+    def pump(force=False):
+        a, p0 = fe.assembly_s, clk()
+        n = fe.pump(force=force)
+        if n:
+            pumps.append((fe.assembly_s - a, clk() - p0))
+        return n
     reset_launches(mods)
-    with frozen_heap():
+    with frozen_heap(), gc_pauses() as pauses:
         t0 = clk()
         for k in range(n_req):
             while clk() - t0 < arrivals[k]:
                 if fe.ready():
-                    fe.pump()
+                    pump()
                 else:
                     ahead = arrivals[k] - (clk() - t0)
                     if ahead > 0.0005:
@@ -4046,10 +4104,10 @@ def open_loop(mods, g, fcfg, T, kind, rate: float, seed: int) -> dict:
                 deadline=t0 + arrivals[k] + fcfg.default_deadline),
                 arrivals[k]))
             if fe.ready():
-                fe.pump()
+                pump()
         t_end = clk()
         while fe.queue_len and clk() - t_end < 1.0:    # bounded tail drain
-            fe.pump(force=True)
+            pump(force=True)
         wall = clk() - t0
     launches = read_launches(mods)
     lat = np.array([tk.t_done - t0 - sched for tk, sched in tickets
@@ -4076,7 +4134,13 @@ def open_loop(mods, g, fcfg, T, kind, rate: float, seed: int) -> dict:
             "p50_ms": pct(50), "p99_ms": pct(99), "p999_ms": pct(99.9),
             "est_service_ms": m["est_service_s"] * 1e3,
             "served": m["served"], "assembly_ms": 1e3 * fe.assembly_s / max(batches, 1),
-            "batches": batches, "launches": launches}
+            "batches": batches, "launches": launches,
+            "max_ms": float(lat.max() * 1e3) if len(lat) else float("nan"),
+            "max_assembly_ms": 1e3 * max((a for a, _ in pumps), default=0),
+            "max_pump_ms": 1e3 * max((p for _, p in pumps), default=0),
+            "gc_pauses": len(pauses),
+            "gc_max_ms": 1e3 * max((d for _, d in pauses), default=0),
+            "gc_full": sum(gen == 2 for gen, _ in pauses)}
 
 
 class TwinRecorder:
@@ -4190,7 +4254,11 @@ def phase_frontend(mods, device, kind, d_model=D_MODEL) -> dict:
               f"p999 {pt['p999_ms']:.2f}; est_service "
               f"{pt['est_service_ms']:.3f} ms; batch assembly "
               f"{pt['assembly_ms']:.3f} ms a batch (host, {pt['batches']} "
-              "batches)")
+              f"batches); worst batch: latency {pt['max_ms']:.2f} ms, "
+              f"assembly {pt['max_assembly_ms']:.3f} ms, pump "
+              f"{pt['max_pump_ms']:.3f} ms; {pt['gc_pauses']} collector "
+              f"pauses ({pt['gc_full']} full), the longest "
+              f"{pt['gc_max_ms']:.3f} ms")
     if 0.5 in out["loads"]:     # under capacity: little shed, all served
         low = out["loads"][0.5]
         check(low["shed_rate"] <= 0.05
@@ -4449,17 +4517,24 @@ def prompts_for(device, vocab: int, b: int, s: int, seed: int):
                          dtype=torch.int32)
 
 
-def serve_model(mods, device, what, arch, params, g, card) -> dict:
+def serve_model(mods, device, what, arch, params, g, card,
+                extra=None) -> dict:
     """One warm-up generate, then one measured generate of SERVE_NEW tokens
     for SERVE_B prompts of SERVE_PROMPT tokens behind ``g``: its launches,
-    transfers and syncs checked; then prefill ms and decode_throughput."""
+    transfers and syncs checked; then prefill ms and decode_throughput.
+    ``extra`` joins the batch (whisper's {"embeds": frames}); a batch with
+    "embeds" is never screened (the reference's rule): then no launch,
+    the tokens the one transfer, and sync-debug "error" from the call's
+    start."""
     from repro_torch.models import transformer as tf
     from repro_torch.serve import engine as E
     cfg = arch.cfg
     eng = E.ServeEngine(arch, s_max=SERVE_SMAX, guardrail=g, device=device)
     batch = {"tokens": prompts_for(device, cfg.vocab_size, SERVE_B,
-                                   SERVE_PROMPT, SEED + 16)}
+                                   SERVE_PROMPT, SEED + 16), **(extra or {})}
+    screened = "embeds" not in batch
     eng.generate(params, batch, num_new_tokens=2, prompt_len=SERVE_PROMPT)
+    g_n = float(g.state.n)
 
     transfers = []
     to_host, admit = E._to_host, g.admit
@@ -4478,6 +4553,8 @@ def serve_model(mods, device, what, arch, params, g, card) -> dict:
     sync(device)
     reset_launches(mods)
     try:
+        if not screened:
+            torch.cuda.set_sync_debug_mode("error")
         t0 = time.perf_counter()
         toks = eng.generate(params, batch, num_new_tokens=SERVE_NEW,
                             prompt_len=SERVE_PROMPT)
@@ -4493,14 +4570,24 @@ def serve_model(mods, device, what, arch, params, g, card) -> dict:
           f"{what}: generate returned {toks.shape} {toks.dtype}")
     check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
           f"{what}: every token in the vocabulary")
-    check(launches["ace_admit_fused"] == 1 and launches["ace_query"] >= 1,
-          f"{what}: one ace_admit_fused launch in the generate "
-          f"({launches['ace_admit_fused']}), ace_query_sum "
-          f"{launches['ace_query']}")
-    check(transfers == [(2, SERVE_B), (SERVE_B, SERVE_NEW)],
-          f"{what}: the guardrail's verdict block and the tokens are the "
-          f"generate's only transfers ({transfers}); no sync in prefill "
-          "and decode under sync-debug \"error\"")
+    if screened:
+        check(launches["ace_admit_fused"] == 1 and launches["ace_query"] >= 1,
+              f"{what}: one ace_admit_fused launch in the generate "
+              f"({launches['ace_admit_fused']}), ace_query_sum "
+              f"{launches['ace_query']}")
+        check(transfers == [(2, SERVE_B), (SERVE_B, SERVE_NEW)],
+              f"{what}: the guardrail's verdict block and the tokens are "
+              f"the generate's only transfers ({transfers}); no sync in "
+              "prefill and decode under sync-debug \"error\"")
+    else:
+        check(sum(launches.values()) == 0 and float(g.state.n) == g_n,
+              f"{what}: a batch with \"embeds\" is never screened: no "
+              f"kernel launch in the generate ({launches}), the guardrail's "
+              "n unchanged")
+        check(transfers == [(SERVE_B, SERVE_NEW)],
+              f"{what}: the tokens are the generate's one transfer "
+              f"({transfers}); no sync in the whole generate under "
+              "sync-debug \"error\"")
 
     pre = []
     for _ in range(3):
@@ -4525,14 +4612,15 @@ def serve_model(mods, device, what, arch, params, g, card) -> dict:
            "decode_step_trace": {k: v for k, v in tr.items() if k != "top"}}
     if cfg.moe_num_experts:
         _, aux, _ = tf._run_full(params, batch, cfg)
-        out["moe_drop_frac"] = float(aux["moe_drop_frac"]) / cfg.num_layers
+        moe_layers = sum(moe for *_, moe in tf.layers(cfg))
+        out["moe_drop_frac"] = float(aux["moe_drop_frac"]) / moe_layers
     print(f"  {what}: B {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
           f"{SERVE_NEW} new: prefill {out['prefill_ms']:.3f} ms (median of "
           f"3); generate {gen_s:.3f} s = {out['generate_tokens_per_s']:,.1f} "
           f"tokens/s (the admit included); decode_throughput "
           f"{dec[0]:,.1f} / {dec[1]:,.1f} tokens/s (two runs of 16 steps)"
-          + (f"; prefill moe_drop_frac {out['moe_drop_frac']:.4f} a layer"
-             if "moe_drop_frac" in out else "")
+          + (f"; prefill moe_drop_frac {out['moe_drop_frac']:.4f} an MoE "
+             "layer" if "moe_drop_frac" in out else "")
           + f"; launches {launches} ({card})")
     busy = tr["device_busy_ms"]
     print(f"  {what}: one decode step under torch.profiler: wall "
@@ -4546,9 +4634,11 @@ def serve_model(mods, device, what, arch, params, g, card) -> dict:
     return out
 
 
-def greedy_logits(arch, params, prompts, new: int, s_max: int):
-    """Greedy decode keeping every step's logits: (tokens, logits)."""
-    logits, cache = arch.prefill(params, {"tokens": prompts}, s_max=s_max)
+def greedy_logits(arch, params, prompts, new: int, s_max: int, extra=None):
+    """Greedy decode keeping every step's logits: (tokens, logits).
+    ``extra`` joins the prefill's batch (whisper's frames)."""
+    logits, cache = arch.prefill(params, {"tokens": prompts, **(extra or {})},
+                                 s_max=s_max)
     B, P = prompts.shape
     outs, toks = [logits[:, -1]], []
     for i in range(new):
@@ -4569,7 +4659,33 @@ def sub_model(arch, params, layers: int, **kw):
     import copy
     a = copy.copy(arch)
     a.cfg = dataclasses.replace(arch.cfg, num_layers=layers, **kw)
+    if "blocks" not in params:           # whisper: all its layers
+        return a, params
     return a, {**params, "blocks": params["blocks"][:a.cfg.num_superblocks]}
+
+
+def fp32_against_forward(what, a, p, device, card) -> dict:
+    """A float32 model ``a``: prefill of 16 tokens and one decode step, the
+    last-token logits against ``forward``'s over all 17 (2 prompts), within
+    rtol/atol 2e-4; an MoE's forward at capacity E/K drops no token.
+    Returns the max abs errors."""
+    toks = prompts_for(device, a.cfg.vocab_size, 2, 17, SEED + 17)
+    full, aux = a.forward(p, {"tokens": toks})
+    if a.cfg.moe_num_experts:
+        check(float(aux["moe_drop_frac"]) == 0.0,
+              f"{what}: capacity E/K, forward drops no token")
+    last, cache = a.prefill(p, {"tokens": toks[:, :16]}, s_max=32)
+    step, _ = a.decode_step(p, {"tokens": toks[:, 16:]}, cache,
+                            torch.full((2,), 16, dtype=torch.int32,
+                                       device=device))
+    errs = {}
+    for name, got, want in (("prefill", last[:, 0], full[:, 15]),
+                            ("decode", step[:, 0], full[:, 16])):
+        errs[name] = float((got - want).abs().max())
+        ok = bool(torch.allclose(got, want, **MODEL_TOL))
+        check(ok, f"{what}: {name} last-token logits against forward "
+              f"within rtol/atol 2e-4 (max abs {errs[name]:.3g}; {card})")
+    return errs
 
 
 def consistency_fp32(arch, params, device, card) -> None:
@@ -4578,21 +4694,8 @@ def consistency_fp32(arch, params, device, card) -> None:
     cfg = arch.cfg
     a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
                      moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
-    toks = prompts_for(device, cfg.vocab_size, 2, 17, SEED + 17)
-    full, aux = a.forward(p, {"tokens": toks})
-    check(float(aux["moe_drop_frac"]) == 0.0,
-          "capacity E/K: forward drops no token")
-    last, cache = a.prefill(p, {"tokens": toks[:, :16]}, s_max=32)
-    step, _ = a.decode_step(p, {"tokens": toks[:, 16:]}, cache,
-                            torch.full((2,), 16, dtype=torch.int32,
-                                       device=device))
-    for name, got, want in (("prefill", last[:, 0], full[:, 15]),
-                            ("decode", step[:, 0], full[:, 16])):
-        err = float((got - want).abs().max())
-        ok = bool(torch.allclose(got, want, **MODEL_TOL))
-        check(ok, f"mixtral x{CONSIST_LAYERS} float32: {name} last-token "
-              f"logits against forward within rtol/atol 2e-4 (max abs "
-              f"{err:.3g}; {card})")
+    fp32_against_forward(f"mixtral x{CONSIST_LAYERS} float32", a, p, device,
+                         card)
     a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
                      sliding_window=RING_WINDOW)
     prompts = prompts_for(device, cfg.vocab_size, 2, 8, SEED + 18)
@@ -4606,13 +4709,16 @@ def consistency_fp32(arch, params, device, card) -> None:
           "that wrap it")
 
 
-def card_against_cpu(arch, params, device, card) -> None:
-    """(c): olmo_1b's weights in float32, the card's greedy decode against
-    the CPU's."""
+def card_against_cpu(arch, params, device, card, what="olmo_1b float32",
+                     extra=None) -> float:
+    """(c): a model's weights in float32, the card's greedy decode against
+    the CPU's; ``extra`` joins the prefill's batch on both.  Returns the
+    max abs error of the logits."""
     a, p = sub_model(arch, params, arch.cfg.num_layers, dtype="float32")
     prompts = prompts_for(device, a.cfg.vocab_size, CPU_B, CPU_PROMPT,
                           SEED + 19)
-    toks, logits = greedy_logits(a, p, prompts, CPU_NEW, 32)
+    extra = extra or {}
+    toks, logits = greedy_logits(a, p, prompts, CPU_NEW, 32, extra)
     cpu = torch.device("cpu")
 
     def to_cpu(tree):
@@ -4622,13 +4728,15 @@ def card_against_cpu(arch, params, device, card) -> None:
             return {k: to_cpu(v) for k, v in tree.items()}
         return [to_cpu(v) for v in tree]
 
-    ctoks, clogits = greedy_logits(a, to_cpu(p), prompts.cpu(), CPU_NEW, 32)
+    ctoks, clogits = greedy_logits(a, to_cpu(p), prompts.cpu(), CPU_NEW, 32,
+                                   to_cpu(extra))
     err = float((logits.cpu() - clogits).abs().max())
     check(torch.allclose(logits.cpu(), clogits, **MODEL_TOL),
-          f"olmo_1b float32: card logits of {CPU_NEW} greedy steps against "
-          f"the CPU's within rtol/atol 2e-4 (max abs {err:.3g}; {card})")
-    check(torch.equal(toks.cpu(), ctoks), "olmo_1b float32: card tokens "
-          "equal the CPU's")
+          f"{what}: card logits of {CPU_NEW} greedy steps against the "
+          f"CPU's within rtol/atol 2e-4 (max abs {err:.3g}; {card})")
+    check(torch.equal(toks.cpu(), ctoks), f"{what}: card tokens equal the "
+          "CPU's")
+    return err
 
 
 def phase_serve(mods, device, card) -> dict:
@@ -4670,6 +4778,153 @@ def phase_serve(mods, device, card) -> dict:
           f"GiB ({card})")
     card_against_cpu(arch, params, device, card)
     del params, g
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 16: the rest of the zoo served behind the guardrail: Jamba's Mamba
+# hybrid, RWKV-6 and whisper.
+# ---------------------------------------------------------------------------
+
+JAMBA_LAYERS = 8            # one of Jamba's four 8-layer superblocks: 53 GB
+RWKV_FP32_LAYERS = 2        # (b): RWKV-6's first two layers in float32
+
+
+def redraw_rwkv_zeros(params, device, seed: int):
+    """``params`` with every RWKV block's zero-initialised time-mix ``wo``
+    and channel-mix ``wv`` drawn anew, std 1/sqrt(fan-in), from a
+    generator seeded with ``seed`` (new dicts; ``params`` unchanged): at
+    init those blocks add exactly 0, so a check would hold only the
+    embedding, ln0 and the head."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def drawn(t):
+        return torch.randn(t.shape, generator=gen, device=device,
+                           dtype=t.dtype) / t.shape[0] ** 0.5
+
+    return {**params, "blocks": [[
+        {**b, "mixer": {**b["mixer"], "wo": drawn(b["mixer"]["wo"])},
+         "mlp": {**b["mlp"], "wv": drawn(b["mlp"]["wv"])}} for b in row]
+        for row in params["blocks"]]}
+
+
+def recurrent_mixer_ms(what, arch, params, prefill_ms, device, card):
+    """Host-clock ms (median of 3 after a warm-up, each ending in a sync)
+    of one recurrent mixer, ``mamba_scan`` or ``rwkv_time_scan`` with its
+    projections, on the prefill's (SERVE_B, SERVE_PROMPT, d_model) in the
+    activation dtype; printed beside the prefill it is part of."""
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import rwkv6 as rw
+    from repro_torch.models import transformer as tf
+    cfg = arch.cfg
+    layers = list(tf.layers(cfg))
+    r, i, kind, _ = next(x for x in layers if x[2] in ("mamba", "rwkv"))
+    p = params["blocks"][r][i]["mixer"]
+    gen = torch.Generator(device=device).manual_seed(SEED + 22)
+    h = torch.randn((SERVE_B, SERVE_PROMPT, cfg.d_model), generator=gen,
+                    device=device).to(cfg.adtype)
+    st = rw.init_rwkv_state(cfg, SERVE_B, cfg.adtype, device)
+
+    def run():
+        if kind == "mamba":
+            return mb.mamba_scan(p, h, cfg)
+        return rw.rwkv_time_scan(p, h, st.x_prev_att, st.wkv, cfg)
+
+    times = []
+    for _ in range(4):
+        sync(device)
+        t0 = time.perf_counter()
+        run()
+        sync(device)
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(times[1:])
+    n = sum(x[2] == kind for x in layers)
+    print(f"  {what}: one {kind} mixer (projections and the time loop) at "
+          f"the prefill's shape {ms:.3f} ms (median of 3); x {n} layers = "
+          f"{n * ms:.1f} ms of the prefill's {prefill_ms:.1f} ms ({card})")
+    return ms
+
+
+def serve_zoo_model(mods, device, card, name, layers=None, frames=False):
+    """``name`` at its published widths (cut to ``layers``), its weights
+    drawn on the card, served by ``serve_model`` behind a warmed flat
+    guardrail at its d_model (with ``frames``, on SERVE_B frame batches
+    (B, encoder_seq, d_model) drawn from SEED); returns (the path's
+    numbers, arch, params, the frames or None)."""
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch = Arch(name)
+    if layers is not None:
+        arch.cfg = dataclasses.replace(arch.cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    params = arch.init_params(SEED, device=device)
+    sync(device)
+    n = sum(t.numel() for t in leaves(params))
+    print(f"  {name} at full width, {arch.cfg.num_layers} layers: "
+          f"{n / 1e9:.3f} B float32 parameters ({4 * n / 1e9:.1f} GB) drawn "
+          f"in {time.perf_counter() - t0:.2f} s ({card})")
+    g = serve_guardrail(device, params, arch.cfg.vocab_size,
+                        arch.cfg.d_model)
+    embeds = None
+    if frames:
+        gen = torch.Generator(device=device).manual_seed(SEED + 21)
+        embeds = torch.randn((SERVE_B, arch.cfg.encoder_seq,
+                              arch.cfg.d_model), generator=gen,
+                             device=device)
+    out = serve_model(mods, device, name, arch, params, g, card,
+                      None if embeds is None else {"embeds": embeds})
+    out["params"] = n
+    if {"mamba", "rwkv"} & set(arch.cfg.block_pattern):
+        out["mixer_ms"] = recurrent_mixer_ms(name, arch, params,
+                                             out["prefill_ms"], device, card)
+    return out, arch, params, embeds
+
+
+def phase_serve_zoo(mods, device, card) -> dict:
+    """(a) Jamba's superblock, (b) RWKV-6 7B, (c) whisper_tiny, each served
+    and checked in float32 (the module docstring, phase 16)."""
+    out = {}
+    res, arch, params, _ = serve_zoo_model(mods, device, card,
+                                           "jamba_v01_52b",
+                                           layers=JAMBA_LAYERS)
+    cfg = arch.cfg
+    a, p = sub_model(arch, params, JAMBA_LAYERS, dtype="float32",
+                     moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
+    res["fp32_err"] = fp32_against_forward(
+        f"jamba x{JAMBA_LAYERS} float32 (7 Mamba + 1 attention)", a, p,
+        device, card)
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"  jamba peak memory (max_memory_allocated) "
+          f"{res['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    out["serve_jamba"] = res
+    del params, a, p
+
+    res, arch, params, _ = serve_zoo_model(mods, device, card, "rwkv6_7b")
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"  rwkv6_7b peak memory (max_memory_allocated) "
+          f"{res['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    a, p = sub_model(arch, params, RWKV_FP32_LAYERS, dtype="float32")
+    p = redraw_rwkv_zeros(p, device, SEED + 20)
+    what = f"rwkv6 x{RWKV_FP32_LAYERS} float32, wo and wv redrawn"
+    res["fp32_err"] = fp32_against_forward(what, a, p, device, card)
+    res["fp32_err"]["card_vs_cpu"] = card_against_cpu(a, p, device, card,
+                                                      what)
+    out["serve_rwkv"] = res
+    del params, a, p
+
+    res, arch, params, frames = serve_zoo_model(mods, device, card,
+                                                "whisper_tiny", frames=True)
+    res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+    print(f"  whisper_tiny peak memory (max_memory_allocated) "
+          f"{res['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    res["fp32_err"] = {"card_vs_cpu": card_against_cpu(
+        arch, params, device, card, "whisper_tiny float32",
+        {"embeds": frames[:CPU_B]})}
+    out["serve_whisper"] = res
+    del params, frames
     torch.cuda.empty_cache()
     return out
 
@@ -4823,6 +5078,13 @@ def main() -> int:
     t15 = time.perf_counter()
     paths.update(phase_serve(mods, device, card))
     print(f"  phase 15 took {time.perf_counter() - t15:.1f} s")
+
+    print("phase 16: the rest of the zoo served behind the guardrail: "
+          "Jamba-v0.1 (one 8-layer superblock at full width), RWKV-6 7B, "
+          "whisper_tiny")
+    t16 = time.perf_counter()
+    paths.update(phase_serve_zoo(mods, device, card))
+    print(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "

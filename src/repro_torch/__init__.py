@@ -36,9 +36,10 @@ paper's §4 differentially private hash, ``data.synthetic`` the paper's
 three datasets (bitwise the reference's), and ``baselines`` its 11
 competitors on one shared kNN graph (plain PyTorch on the card, as the
 reference's are plain jnp).  ``models`` and ``configs`` are the model
-zoo's attention family (decoder-only transformers of "attn" and "swa"
-layers, dense or MoE, and all ten configs), which ``serve.engine``'s
-``ServeEngine`` serves greedily behind a ``Guardrail``.
+zoo and its ten configs (decoder-only LMs of "attn", "swa", "mamba" and
+"rwkv" layers, dense or MoE, and the encoder-decoder whisper), which
+``serve.engine``'s ``ServeEngine`` serves greedily behind a
+``Guardrail``.
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,
@@ -56,10 +57,9 @@ import torch
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
     9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
-    12: "mamba + jamba, rwkv6, whisper; then repro.train (train_loop with "
-        "its ACE prefilter, optim, schedule, compression, fault), "
-        "data.pipeline's StreamConfig, synth_batch and DataStream, and "
-        "repro.launch",
+    12: "repro.train (train_loop with its ACE prefilter, optim, schedule, "
+        "compression, fault), data.pipeline's StreamConfig, synth_batch "
+        "and DataStream, and repro.launch",
     13: "repro.dist",
 }
 

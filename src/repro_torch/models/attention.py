@@ -1,11 +1,11 @@
-"""GQA attention with the variations of the decoder-only zoo: grouped KV
-heads, an optional QKV bias (qwen2), sliding-window masks (mixtral, gemma2's
-local layers), the attention-logit softcap (gemma2), RoPE and M-RoPE, and
-one-token decode against a KV cache (a ring buffer for sliding-window
-layers whose cache is no longer than the window).  Port of
-``repro.models.attention`` for the ``"attn"`` and ``"swa"`` layers; the
-bidirectional and cross-attention modes are whisper's and wait with it
-(ROADMAP.md queue 1 item 12).
+"""GQA attention with every variation of the zoo: grouped KV heads, an
+optional QKV bias (qwen2), sliding-window masks (mixtral, gemma2's local
+layers), the attention-logit softcap (gemma2), RoPE, M-RoPE or no
+positional rotation (whisper adds sinusoidal positions at the embedding),
+the bidirectional mode (whisper's encoder), cross-attention over a memory
+stream (whisper's decoder), and one-token decode against a KV cache (a
+ring buffer for sliding-window layers whose cache is no longer than the
+window).  Port of ``repro.models.attention``.
 
 The same einsum / softmax steps as the reference, written in torch
 (not ``scaled_dot_product_attention``, whose numerics differ): scores in
@@ -27,7 +27,10 @@ from repro_torch.models.common import (ModelConfig, dense_init, mrope_slots,
 Q_CHUNK = 512        # the q-chunked path's rows a chunk
 
 
-def init_attention(cfg: ModelConfig, generator, device) -> dict:
+def init_attention(cfg: ModelConfig, generator, device,
+                   cross: bool = False) -> dict:
+    """wq, wk, wv, wo (and the qkv biases); ``cross`` (whisper's decoder)
+    changes nothing, as in the reference."""
     D, H, Hk, Dh = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     p = {name: dense_init(shape, cfg.pdtype, generator, device)
          for name, shape in (("wq", (D, H, Dh)), ("wk", (D, Hk, Dh)),
@@ -50,13 +53,19 @@ def _heads(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return (x @ w.to(x.dtype).reshape(D, H * Dh)).unflatten(-1, (H, Dh))
 
 
+def _project_q(p: dict, x: torch.Tensor) -> torch.Tensor:
+    q = _heads(x, p["wq"])
+    return q + p["bq"].to(x.dtype) if "bq" in p else q
+
+
 def _project_qkv(p: dict, x: torch.Tensor, xkv: torch.Tensor):
-    q, k, v = _heads(x, p["wq"]), _heads(xkv, p["wk"]), _heads(xkv, p["wv"])
+    """q from x, k and v from xkv (x itself, or a cross-attention's
+    memory)."""
+    k, v = _heads(xkv, p["wk"]), _heads(xkv, p["wv"])
     if "bq" in p:
-        q = q + p["bq"].to(x.dtype)
         k = k + p["bk"].to(x.dtype)
         v = v + p["bv"].to(x.dtype)
-    return q, k, v
+    return _project_q(p, x), k, v
 
 
 def _out_proj(out: torch.Tensor, wo: torch.Tensor) -> torch.Tensor:
@@ -79,11 +88,19 @@ def make_rope_tables(positions: torch.Tensor, cfg: ModelConfig, dim: int):
     return torch.cos(ang), torch.sin(ang)
 
 
-def _pe(q, k, positions, cfg: ModelConfig, rope_tables=None):
+def _pe(q, k, positions, kv_positions, cfg: ModelConfig, use_rope: bool,
+        rope_tables=None):
+    """RoPE of q at ``positions`` and of k at ``kv_positions`` (the same
+    tables when they are the same tensor); with ``use_rope=False`` q and k
+    as they are."""
+    if not use_rope:
+        return q, k
     if rope_tables is None:
         rope_tables = make_rope_tables(positions, cfg, q.shape[-1])
+    kv_tables = rope_tables if kv_positions is positions \
+        else make_rope_tables(kv_positions, cfg, k.shape[-1])
     q = rotate(q, *rope_tables).to(q.dtype)
-    k = rotate(k, *rope_tables).to(k.dtype)
+    k = rotate(k, *kv_tables).to(k.dtype)
     return q, k
 
 
@@ -146,19 +163,29 @@ def _attend(q, k, v, cfg: ModelConfig, q_pos, k_pos, causal, window,
 
 
 def attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, positions,
-              layer_kind: str = "attn", rope_tables=None):
-    """Causal self-attention over a full sequence (training or prefill).
+              layer_kind: str = "attn", causal: bool = True,
+              use_rope: bool = True, xkv=None, kv_positions=None,
+              k_valid=None, rope_tables=None):
+    """Full-sequence attention: causal self-attention (training, prefill),
+    bidirectional (``causal=False``, whisper's encoder) or cross-attention
+    over the memory ``xkv`` (B, Sk, D) (whisper's decoder).
 
-    ``positions`` drive the RoPE ((3, B, S) under M-RoPE); the MASK always
-    uses the plain slot indices.  Returns (B, S, D) and the (k, v) of the
-    cache, k rotated."""
-    q, k, v = _project_qkv(p, x, x)
-    q, k = _pe(q, k, positions, cfg, rope_tables)
-    B, S = x.shape[0], x.shape[1]
-    slots = torch.arange(S, dtype=torch.int32,
-                         device=x.device)[None].expand(B, S)
+    ``positions`` drive the RoPE of q ((3, B, S) under M-RoPE),
+    ``kv_positions`` (default ``positions``) that of k; the MASK always
+    uses the plain slot indices 0..Sq-1 and 0..Sk-1, and ``k_valid``
+    (B, Sk) masks keys out.  Returns (B, S, D) and the (k, v) of the cache,
+    k rotated."""
+    xkv = x if xkv is None else xkv
+    kv_positions = positions if kv_positions is None else kv_positions
+    q, k, v = _project_qkv(p, x, xkv)
+    q, k = _pe(q, k, positions, kv_positions, cfg, use_rope, rope_tables)
+    B, Sq, Sk = x.shape[0], x.shape[1], xkv.shape[1]
+    mask_q = torch.arange(Sq, dtype=torch.int32,
+                          device=x.device)[None].expand(B, Sq)
+    mask_k = mask_q if Sk == Sq else torch.arange(
+        Sk, dtype=torch.int32, device=x.device)[None].expand(B, Sk)
     window = cfg.sliding_window if layer_kind == "swa" else None
-    out = _attend(q, k, v, cfg, slots, slots, True, window)
+    out = _attend(q, k, v, cfg, mask_q, mask_k, causal, window, k_valid)
     return _out_proj(out, p["wo"]), KVCache(k, v)
 
 
@@ -182,7 +209,7 @@ def write_slot(buf: torch.Tensor, new: torch.Tensor,
 
 def decode_attention(p: dict, x: torch.Tensor, cache: KVCache,
                      pos: torch.Tensor, cfg: ModelConfig, *,
-                     layer_kind: str = "attn"):
+                     layer_kind: str = "attn", use_rope: bool = True):
     """One-token decode against a cache.
 
     x (B, 1, D); pos (B,) integer absolute position of the new token
@@ -192,7 +219,8 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache,
     a ring (``ring_mode``) writes slot ``pos % S_max`` and rebuilds each
     slot's absolute position as pos − ((pos − slot) mod S_max), the slots
     never written (< 0) masked and no window applied (residency is the
-    window).  Returns (out (B, 1, D), the new cache)."""
+    window).  ``use_rope=False`` (whisper) leaves q and k unrotated.
+    Returns (out (B, 1, D), the new cache)."""
     B = x.shape[0]
     S_max = cache.k.shape[1]
     if cfg.mrope_sections is not None:
@@ -200,7 +228,7 @@ def decode_attention(p: dict, x: torch.Tensor, cache: KVCache,
     else:
         positions, scalar_pos = pos[:, None], pos
     q, k_new, v_new = _project_qkv(p, x, x)
-    q, k_new = _pe(q, k_new, positions, cfg)
+    q, k_new = _pe(q, k_new, positions, positions, cfg, use_rope)
 
     ring = ring_mode(cfg, layer_kind, S_max)
     slot = scalar_pos % S_max if ring else scalar_pos

@@ -1,6 +1,6 @@
 """Model-zoo substrate: the config schema and the layers every model shares
-(initialisers, norms, RoPE / M-RoPE, softcap).  Port of
-``repro.models.common``.
+(initialisers, norms, RoPE / M-RoPE, whisper's sinusoidal positions,
+softcap).  Port of ``repro.models.common``.
 
 Parameters are plain dicts of tensors held in ``cfg.param_dtype``
 (float32); activations run in ``cfg.dtype`` and every weight is cast to it
@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 
@@ -209,6 +210,18 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     pos = positions3[mrope_slots(cfg, half, x.device)]       # (half, B, S)
     ang = torch.movedim(pos, 0, -1).to(torch.float32) * inv
     return rotate(x, torch.cos(ang), torch.sin(ang)).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, dim: int, device=None) -> torch.Tensor:
+    """Whisper's fixed sinusoidal embeddings (seq, dim) float32: [sin | cos]
+    of pos · 10000^(-i / (dim/2 - 1)), built in float64 with numpy as the
+    reference builds them and rounded once, so bitwise its table."""
+    half = dim // 2
+    pos = np.arange(seq)[:, None]
+    freq = np.exp(-np.log(10000.0) * np.arange(half) / max(half - 1, 1))
+    ang = pos * freq[None, :]
+    table = np.concatenate([np.sin(ang), np.cos(ang)], axis=1)
+    return torch.as_tensor(table.astype(np.float32), device=device)
 
 
 def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:

@@ -1,6 +1,6 @@
-"""MLP blocks: the dense SwiGLU and the GShard-style top-k MoE (mixtral).
-Port of ``repro.models.mlp``; its relu² MLP is rwkv's and waits with rwkv
-(ROADMAP.md queue 1 item 12).
+"""MLP blocks: the dense SwiGLU and the GShard-style top-k MoE (mixtral,
+jamba).  Port of ``repro.models.mlp``; rwkv's squared-relu channel mix is
+``models.rwkv6.rwkv_channel``, as in the reference.
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
-"""Arch registry: an architecture's name -> its config and model functions.
-Port of ``repro.models.registry`` for the attention family; an ``Arch`` of
-jamba, rwkv6 or whisper raises ``not_ported`` (ROADMAP.md queue 1 item
-12), and the dry run's ``input_specs``, ``cache_specs`` and ``all_cells``
-wait with ``repro.launch``.
+"""Arch registry: an architecture's name -> its config and model functions
+(``models.transformer`` for the decoder-only LMs, ``models.whisper`` for
+the encoder-decoder).  Port of ``repro.models.registry``; the dry run's
+``input_specs``, ``cache_specs`` and ``all_cells`` wait with
+``repro.launch`` (ROADMAP.md queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -13,6 +13,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.models import transformer as tf
+from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
 
 
@@ -47,15 +48,17 @@ def is_whisper(cfg: ModelConfig) -> bool:
 
 
 class Arch:
-    """One architecture: its config and step functions.  Raises
-    ``not_ported`` for a model outside the attention family."""
+    """One architecture: its config and step functions."""
 
     def __init__(self, name: str, reduced: bool = False):
         self.name = ALIASES.get(name, name)
         self.cfg = get_config(name, reduced=reduced)
-        tf.check_ported(self.cfg)
 
     # ---- model fns --------------------------------------------------------
+    @property
+    def mod(self):
+        return wh if is_whisper(self.cfg) else tf
+
     def init_params(self, generator: torch.Generator | int = 0,
                     device=None) -> dict:
         """Random parameters on ``device`` (CUDA unless the caller names
@@ -64,16 +67,16 @@ class Arch:
         if not isinstance(generator, torch.Generator):
             generator = torch.Generator(device=device).manual_seed(
                 int(generator))
-        return tf.init_params(self.cfg, generator, device)
+        return self.mod.init_params(self.cfg, generator, device)
 
     def forward(self, params, batch, remat=True):
-        return tf.forward(params, batch, self.cfg, remat=remat)
+        return self.mod.forward(params, batch, self.cfg, remat=remat)
 
     def prefill(self, params, batch, s_max=None):
-        return tf.prefill(params, batch, self.cfg, s_max=s_max)
+        return self.mod.prefill(params, batch, self.cfg, s_max=s_max)
 
     def decode_step(self, params, batch, cache, pos):
-        return tf.decode_step(params, batch, cache, pos, self.cfg)
+        return self.mod.decode_step(params, batch, cache, pos, self.cfg)
 
     # ---- shape cells ------------------------------------------------------
     def supports(self, shape_name: str) -> bool:
@@ -87,7 +90,7 @@ class Arch:
 
     # ---- analytics ---------------------------------------------------------
     def _shapes(self) -> dict:
-        return tf.init_params(self.cfg, None, torch.device("meta"))
+        return self.mod.init_params(self.cfg, None, torch.device("meta"))
 
     def param_count(self) -> int:
         """Parameters, counted from shapes on the ``meta`` device (nothing
@@ -114,7 +117,8 @@ class Arch:
 
 
 def leaves(tree):
-    """Every tensor of a parameter or cache tree (dicts and lists)."""
+    """Every tensor of a parameter or cache tree (dicts, lists and tuples,
+    the NamedTuple caches among them)."""
     if isinstance(tree, torch.Tensor):
         yield tree
     else:

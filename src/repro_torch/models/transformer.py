@@ -1,8 +1,8 @@
-"""The decoder-only LM of the zoo, one config-driven implementation of its
-attention family: ``"attn"`` and ``"swa"`` layers, dense or MoE.  Port of
-``repro.models.transformer``; its ``"mamba"`` and ``"rwkv"`` layers (and
-whisper, ``repro.models.whisper``) raise ``not_ported`` naming ROADMAP.md
-queue 1 item 12.
+"""The decoder-only LM of the zoo, one config-driven implementation of
+every layer kind: ``"attn"`` and ``"swa"`` (dense or MoE), ``"mamba"``
+(jamba's hybrid, dense or MoE) and ``"rwkv"`` (its own channel mix, never
+MoE).  Port of ``repro.models.transformer``; the encoder-decoder whisper
+is ``models.whisper``.
 
 Depth is ``cfg.num_superblocks`` repetitions of ``cfg.block_pattern``.
 The reference stacks each pattern position's parameters over the
@@ -18,26 +18,14 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch import not_ported
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlp_mod
+from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
                                        init_norm, softcap)
 
 ATTENTION_KINDS = ("attn", "swa")
-
-
-def check_ported(cfg: ModelConfig) -> None:
-    """Raise ``not_ported`` for a model outside the attention family
-    (checked where parameters or caches are made)."""
-    if cfg.encoder_layers > 0:
-        not_ported(f"the encoder-decoder model {cfg.name!r} "
-                   "(repro.models.whisper)", 12)
-    for kind in cfg.block_pattern:
-        if kind in ("mamba", "rwkv"):
-            not_ported(f"{kind!r} layers ({cfg.name!r})", 12)
-        if kind not in ATTENTION_KINDS:
-            raise ValueError(f"unknown layer kind {kind!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -45,17 +33,30 @@ def check_ported(cfg: ModelConfig) -> None:
 # ---------------------------------------------------------------------------
 
 def _layer_has_moe(cfg: ModelConfig, pos_in_pattern: int) -> bool:
+    """MoE at the pattern positions p with p % period == period − 1 (jamba:
+    the odd ones, its attention layer at 3 among them)."""
     if cfg.moe_num_experts is None:
         return False
     return pos_in_pattern % cfg.moe_layer_period == cfg.moe_layer_period - 1
 
 
-def _init_layer(cfg: ModelConfig, use_moe: bool, generator, device) -> dict:
-    p = {"norm1": init_norm(cfg, device),
-         "mixer": attn.init_attention(cfg, generator, device),
-         "norm2": init_norm(cfg, device),
-         "mlp": (mlp_mod.init_moe if use_moe else mlp_mod.init_mlp)(
-             cfg, generator, device)}
+def _init_layer(cfg: ModelConfig, kind: str, use_moe: bool, generator,
+                device) -> dict:
+    if kind in ATTENTION_KINDS:
+        mixer = attn.init_attention(cfg, generator, device)
+    elif kind == "mamba":
+        mixer = mb.init_mamba(cfg, generator, device)
+    elif kind == "rwkv":
+        mixer = rw.init_rwkv_time(cfg, generator, device)
+    else:
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind == "rwkv":
+        mlp = rw.init_rwkv_channel(cfg, generator, device)
+    else:
+        mlp = (mlp_mod.init_moe if use_moe else mlp_mod.init_mlp)(
+            cfg, generator, device)
+    p = {"norm1": init_norm(cfg, device), "mixer": mixer,
+         "norm2": init_norm(cfg, device), "mlp": mlp}
     if cfg.post_block_norm:   # gemma2 sandwich norms
         p["post_norm1"] = init_norm(cfg, device)
         p["post_norm2"] = init_norm(cfg, device)
@@ -68,17 +69,17 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     ``generator`` (which lives on ``device``; None on ``meta``, where only
     shapes are made).  The same shapes and distributions as the
     reference's ``init_params``; blocks held per superblock."""
-    check_ported(cfg)
     params: dict = {}
     if cfg.input_mode == "tokens":
         # GPT-2-style 0.02 std: keeps tied-head logits O(1) at init.
         params["embed"] = dense_init((cfg.vocab_size, cfg.d_model),
                                      cfg.pdtype, generator, device,
                                      scale=0.02)
-    params["blocks"] = [
-        [_init_layer(cfg, _layer_has_moe(cfg, i), generator, device)
-         for i in range(len(cfg.block_pattern))]
-        for _ in range(cfg.num_superblocks)]
+    params["blocks"] = [[None] * len(cfg.block_pattern)
+                        for _ in range(cfg.num_superblocks)]
+    for r, i, kind, use_moe in layers(cfg):
+        params["blocks"][r][i] = _init_layer(cfg, kind, use_moe, generator,
+                                             device)
     params["final_norm"] = init_norm(cfg, device)
     if cfg.embed_norm:
         params["embed_norm"] = init_norm(cfg, device)
@@ -90,10 +91,10 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
 
 def layers(cfg: ModelConfig):
     """(superblock, pattern position, kind, use_moe) of every layer, in the
-    order they run."""
+    order they run.  An rwkv layer is never MoE."""
     for r in range(cfg.num_superblocks):
         for i, kind in enumerate(cfg.block_pattern):
-            yield r, i, kind, _layer_has_moe(cfg, i)
+            yield r, i, kind, _layer_has_moe(cfg, i) and kind != "rwkv"
 
 
 # ---------------------------------------------------------------------------
@@ -102,16 +103,29 @@ def layers(cfg: ModelConfig):
 
 def _apply_layer_full(p, x, kind, use_moe, cfg: ModelConfig, positions,
                       rope_tables=None):
-    """Full-sequence layer.  Returns (x, aux, cache entry)."""
+    """Full-sequence layer.  Returns (x, aux, cache entry): a ``KVCache``,
+    a ``MambaState`` or rwkv's (x_prev_att, wkv, x_prev_ffn)."""
     aux = {}
     h = apply_norm(p["norm1"], x, cfg)
-    out, cache = attn.attention(p["mixer"], h, cfg, positions=positions,
-                                layer_kind=kind, rope_tables=rope_tables)
+    if kind in ATTENTION_KINDS:
+        out, cache = attn.attention(p["mixer"], h, cfg, positions=positions,
+                                    layer_kind=kind, rope_tables=rope_tables)
+    elif kind == "mamba":
+        out, cache = mb.mamba_scan(p["mixer"], h, cfg)
+    else:
+        st0 = rw.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+        out, xp, wkv = rw.rwkv_time_scan(p["mixer"], h, st0.x_prev_att,
+                                         st0.wkv, cfg)
+        cache = (xp, wkv)
     if cfg.post_block_norm:
         out = apply_norm(p["post_norm1"], out, cfg)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg)
-    if use_moe:
+    if kind == "rwkv":
+        out, xp_f = rw.rwkv_channel(p["mlp"], h, torch.zeros_like(h[:, 0]),
+                                    cfg)
+        cache = cache + (xp_f,)
+    elif use_moe:
         out, aux = mlp_mod.moe(p["mlp"], h, cfg)
     else:
         out = mlp_mod.mlp(p["mlp"], h, cfg)
@@ -123,13 +137,23 @@ def _apply_layer_full(p, x, kind, use_moe, cfg: ModelConfig, positions,
 def _apply_layer_decode(p, x, kind, use_moe, cfg: ModelConfig, pos, cache):
     """One-token layer.  Returns (x, new cache entry)."""
     h = apply_norm(p["norm1"], x, cfg)
-    out, new_cache = attn.decode_attention(p["mixer"], h, cache, pos, cfg,
-                                           layer_kind=kind)
+    if kind in ATTENTION_KINDS:
+        out, new_cache = attn.decode_attention(p["mixer"], h, cache, pos,
+                                               cfg, layer_kind=kind)
+    elif kind == "mamba":
+        out, new_cache = mb.mamba_step(p["mixer"], h, cache, cfg)
+    else:
+        xp_att, wkv, xp_ffn = cache
+        out, new_xp, new_wkv = rw.rwkv_time_step(
+            p["mixer"], h, rw.RwkvState(xp_att, xp_ffn, wkv), cfg)
     if cfg.post_block_norm:
         out = apply_norm(p["post_norm1"], out, cfg)
     x = x + out
     h = apply_norm(p["norm2"], x, cfg)
-    if use_moe:
+    if kind == "rwkv":
+        out, new_xpf = rw.rwkv_channel(p["mlp"], h, xp_ffn.to(h.dtype), cfg)
+        new_cache = (new_xp, new_wkv, new_xpf.to(xp_ffn.dtype))
+    elif use_moe:
         # decode: capacity E/K gives C = T, so no token is ever dropped
         out, _ = mlp_mod.moe(p["mlp"], h, cfg,
                              capacity_factor=float(cfg.moe_num_experts)
@@ -176,7 +200,8 @@ def _run_full(params, batch, cfg: ModelConfig):
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = _positions_for(batch, cfg, S, B, x.device)
-    rope = attn.make_rope_tables(positions, cfg, cfg.head_dim)
+    rope = attn.make_rope_tables(positions, cfg, cfg.head_dim) \
+        if cfg.block_pattern != ("rwkv",) else None
     aux_acc = {"moe_load_balance": torch.zeros((), device=x.device),
                "moe_drop_frac": torch.zeros((), device=x.device)} \
         if cfg.moe_num_experts else {}
@@ -206,24 +231,39 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = True):
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
-    """Zero KV caches in the activation dtype, ``[r][i]`` as the blocks."""
-    check_ported(cfg)
+    """Zero caches, ``[r][i]`` as the blocks: KV caches in the activation
+    dtype; a ``MambaState`` (conv window in the activation dtype, ssm in
+    float32); rwkv's (x_prev_att, wkv float32, x_prev_ffn)."""
+    cdt = cfg.adtype
     shape = (batch, s_max, cfg.num_kv_heads, cfg.head_dim)
-    return [[attn.KVCache(torch.zeros(shape, dtype=cfg.adtype, device=device),
-                          torch.zeros(shape, dtype=cfg.adtype, device=device))
-             for _ in cfg.block_pattern]
+
+    def entry(kind):
+        if kind in ATTENTION_KINDS:
+            return attn.KVCache(
+                torch.zeros(shape, dtype=cdt, device=device),
+                torch.zeros(shape, dtype=cdt, device=device))
+        if kind == "mamba":
+            return mb.init_mamba_state(cfg, batch, cdt, device)
+        if kind == "rwkv":
+            st = rw.init_rwkv_state(cfg, batch, cdt, device)
+            return (st.x_prev_att, st.wkv, st.x_prev_ffn)
+        raise ValueError(f"unknown layer kind {kind!r}")
+
+    return [[entry(kind) for kind in cfg.block_pattern]
             for _ in range(cfg.num_superblocks)]
 
 
 def prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):
-    """Full-context pass building the cache, padded with zeros out to
-    ``s_max`` slots.  Returns (last-position logits (B, 1, V), cache)."""
+    """Full-context pass building the cache, its KV caches padded with
+    zeros out to ``s_max`` slots (the recurrent states are O(1) and stay
+    as they are).  Returns (last-position logits (B, 1, V), cache)."""
     x, _, caches = _run_full(params, batch, cfg)
     S = x.shape[1]
     pad = (s_max or S) - S
     if pad > 0:
         caches = [[attn.KVCache(*(torch.nn.functional.pad(
-            t, (0, 0, 0, 0, 0, pad)) for t in c)) for c in row]
+            t, (0, 0, 0, 0, 0, pad)) for t in c))
+            if isinstance(c, attn.KVCache) else c for c in row]
             for row in caches]
     return lm_head(params, x[:, -1:, :], cfg), caches
 

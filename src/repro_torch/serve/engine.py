@@ -12,8 +12,8 @@ windowed fleet (both).  Each flavour audits its own sketch
 the corrupted ones and re-warms them (``repair``), as
 ``repro.resilience`` wires them into the reference's.
 
-``ServeEngine`` generates greedily with a model of the zoo's attention
-family (``repro_torch.models``) behind an optional guardrail, and
+``ServeEngine`` generates greedily with any model of the zoo
+(``repro_torch.models``) behind an optional guardrail, and
 ``decode_throughput`` times its decode step.  Meshes raise
 ``NotImplementedError`` naming the queue item that brings them.
 """
@@ -471,12 +471,15 @@ class ServeEngine:
         ``guardrail.admit`` runs on the prompts' embedding rows
         (``params["embed"][tokens]``) and updates its sketch, but its
         verdict is not used, as in the reference (the whole batch is
-        generated; ROADMAP.md queue 3 item 11).  Then prefill and the
-        decode loop run with no host sync: the tokens stay on the device
-        and leave through the one ``_to_host`` at the end.  A model fed
-        embeddings (``input_mode="embeds"``) cannot decode: the step feeds
-        tokens, and ``embed_inputs`` raises ``KeyError: 'embeds'``, as the
-        reference's does (ROADMAP.md queue 3 item 12)."""
+        generated; ROADMAP.md queue 3 item 11).  A batch that carries
+        ``"embeds"`` (whisper's {"embeds": frames, "tokens": prompts}) is
+        never screened, the reference's rule (queue 3 item 14).  Then
+        prefill and the decode loop run with no host sync: the tokens stay
+        on the device and leave through the one ``_to_host`` at the end.
+        A decoder-only model fed embeddings (qwen2_vl,
+        ``input_mode="embeds"``) cannot decode: the step feeds tokens, and
+        ``embed_inputs`` raises ``KeyError: 'embeds'``, as the reference's
+        does (queue 3 item 12)."""
         cfg = self.arch.cfg
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}

@@ -9,9 +9,13 @@ XLA compile a config; its own init is carried across in
 Tolerances: logits, aux values and decode logits within rtol 2e-4 / atol
 2e-4, the reference's own bound for prefill + decode against forward
 (``tests/test_archs.py:122``); config fields, parameter counts and greedy
-tokens exact.  The port's own init matches the reference's distribution:
-each leaf's standard deviation within 5%, pooled over the superblocks of a
-config wide enough that every leaf holds >= 16,384 values.
+tokens exact.  The port's own init matches the reference's distribution
+in every family: each random leaf's standard deviation within 5%, pooled
+over the superblocks (whisper: the layers) of a config wide and deep
+enough that every leaf holds >= 16,384 values; constant leaves exactly,
+Mamba's ``A_log`` = log(1..N) within 1 ulp.  The Mamba, RWKV and whisper
+models are held to the reference's forward, decode and engine in
+``test_torch_mamba``, ``test_torch_rwkv`` and ``test_torch_whisper``.
 """
 import dataclasses
 import functools
@@ -30,6 +34,7 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.models.convert import params_from_reference  # noqa: E402
 from repro_torch.models.registry import Arch, leaves  # noqa: E402
+from torch_zoo_helpers import reference_tree  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
 
@@ -46,7 +51,6 @@ def _one_torch_thread():
 CPU = torch.device("cpu")
 FAMILY = ["mistral_large_123b", "gemma2_27b", "olmo_1b", "qwen2_1_5b",
           "qwen2_vl_7b", "mixtral_8x7b", "mixtral_8x22b"]
-NOT_PORTED = ["jamba_v01_52b", "rwkv6_7b", "whisper_tiny"]
 TOL = dict(rtol=2e-4, atol=2e-4)
 
 
@@ -55,22 +59,6 @@ def reference_params(ja: JArch, seed: int = 1):
     a tree of numpy arrays."""
     p = jax.jit(lambda k: ja.init_params(k)[0])(jax.random.PRNGKey(seed))
     return jax.tree.map(np.asarray, p)
-
-
-def reference_tree(params, cfg):
-    """The port's parameters in the reference's layout, as numpy: each
-    pattern position's leaves stacked over the superblocks."""
-    def stack(layers):
-        return {k: stack([x[k] for x in layers])
-                if isinstance(layers[0][k], dict)
-                else np.stack([x[k].numpy() for x in layers])
-                for k in layers[0]}
-    tree = {k: ({kk: vv.numpy() for kk, vv in v.items()}
-                if isinstance(v, dict) else v.numpy())
-            for k, v in params.items() if k != "blocks"}
-    tree["blocks"] = [stack([row[i] for row in params["blocks"]])
-                      for i in range(len(cfg.block_pattern))]
-    return tree
 
 
 @functools.lru_cache(maxsize=None)
@@ -117,13 +105,7 @@ def test_config_fields_equal_reference(name):
         assert got.pdtype == getattr(torch, str(want.pdtype))
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_arch_outside_the_family_raises(name):
-    with pytest.raises(NotImplementedError, match="item 12"):
-        Arch(name, reduced=True)
-
-
-@pytest.mark.parametrize("name", FAMILY)
+@pytest.mark.parametrize("name", configs.ARCHS)
 def test_param_counts_equal_reference(name):
     a, ja = Arch(name), JArch(name)
     assert all(t.device.type == "meta" for t in leaves(a._shapes()))
@@ -200,19 +182,28 @@ def test_ring_cache_equals_full():
     np.testing.assert_allclose(ring, jring, **TOL)
 
 
+def _stacks(port_params, ref_tree):
+    """(path prefix, the reference's stacked subtree, the port's layers)
+    of every stack: each pattern position over the superblocks, whisper's
+    encoder and decoder over their layers."""
+    for i, stacked in enumerate(ref_tree.get("blocks", [])):
+        yield (f"blocks.{i}", stacked,
+               [row[i] for row in port_params["blocks"]])
+    for k in ("enc", "dec"):
+        if k in ref_tree:
+            yield k, ref_tree[k], port_params[k]
+
+
 def _pooled_stats(port_params, ref_tree):
     """{leaf path: (port values, reference values)}, each pooled over the
-    superblocks."""
+    layers of its stack."""
     out = {}
+    for prefix, stacked, layers in _stacks(port_params, ref_tree):
+        for path, ref in _flat(stacked):
+            got = [_get(layer, path) for layer in layers]
+            out[f"{prefix}.{path}"] = (torch.stack(got).numpy(), ref)
     for k, v in ref_tree.items():
-        if k == "blocks":
-            for i, stacked in enumerate(v):
-                for path, ref in _flat(stacked):
-                    got = [_get(port_params["blocks"][r][i], path)
-                           for r in range(len(port_params["blocks"]))]
-                    out[f"blocks.{i}.{path}"] = (
-                        torch.stack(got).numpy(), ref)
-        else:
+        if k not in ("blocks", "enc", "dec"):
             for path, ref in _flat({k: v}):
                 out[path] = (_get(port_params, path).numpy(), ref)
     return out
@@ -245,27 +236,43 @@ def _get(tree, path):
                           head_dim=32, d_ff=64, moe_num_experts=8)),
     ("qwen2_1_5b", dict(d_model=256, num_heads=8, num_kv_heads=4,
                         head_dim=64, d_ff=256)),
+    # 32 superblocks: conv_w (4, 128), dt_proj_w (4, 128) and the router
+    # (64, 8) pool 16,384
+    ("jamba_v01_52b", dict(d_model=64, num_layers=256, mamba_d_state=16,
+                           d_ff=16, moe_num_experts=8)),
+    # 128 layers: bonus_u (8, 16) pools 16,384
+    ("rwkv6_7b", dict(num_layers=128, d_ff=128)),
+    ("whisper_tiny", dict(d_model=128, num_heads=4, num_kv_heads=4,
+                          head_dim=32)),
 ])
 def test_own_init_matches_reference_distribution(name, widen):
     """The port's init draws each leaf from the reference's distribution:
     fan-in from the FIRST axis (experts (E, D, F) std 1/sqrt(E), ``wo``
-    (H, Dh, D) 1/sqrt(H)), embeddings 0.02, norms and biases constant."""
+    (H, Dh, D) 1/sqrt(H), RWKV's ``tm_w2`` (5, 32, D) 1/sqrt(5) and
+    ``bonus_u`` (H, Dh) 1/sqrt(H)), Mamba's ``conv_w`` at scale 0.5,
+    embeddings 0.02, norms, biases and RWKV's zero leaves constant."""
     a, ja = Arch(name, reduced=True), JArch(name, reduced=True)
     a.cfg = dataclasses.replace(a.cfg, **widen)
     ja.cfg = dataclasses.replace(ja.cfg, **widen)
     ref = reference_params(ja, seed=5)
     port = a.init_params(5, device="cpu")
     carried = params_from_reference(a.cfg, ref, CPU)
-    assert [[{k: tuple(t.shape) for k, t in _flat_t(x)} for x in row]
-            for row in carried["blocks"]] == \
-        [[{k: tuple(t.shape) for k, t in _flat_t(x)} for x in row]
-         for row in port["blocks"]]
-    np.testing.assert_array_equal(carried["blocks"][-1][0]["mixer"]["wq"],
-                                  ref["blocks"][0]["mixer"]["wq"][-1])
+
+    def layer_shapes(params):
+        return [[{k: tuple(t.shape) for k, t in _flat_t(x)} for x in layers]
+                for _, _, layers in _stacks(params, ref)]
+
+    assert layer_shapes(carried) == layer_shapes(port)
+    for _, stacked, layers in _stacks(carried, ref):
+        path, leaf = next(_flat(stacked))
+        np.testing.assert_array_equal(_get(layers[-1], path), leaf[-1])
     stats = _pooled_stats(port, ref)
     assert len(stats) == len(jax.tree.leaves(ref))
     for path, (got, want) in stats.items():
         assert got.shape == want.shape and got.dtype == want.dtype, path
+        if path.endswith(".A_log"):     # log(1..N), torch's log and XLA's
+            np.testing.assert_allclose(got, want, rtol=2e-7, atol=0)
+            continue
         if want.std() == 0:
             np.testing.assert_array_equal(got, want, err_msg=path)
             continue
@@ -276,6 +283,8 @@ def test_own_init_matches_reference_distribution(name, widen):
         ratio = np.abs(got).max() / np.abs(want).max()
         assert abs(ratio - 1) <= 0.05, (path, ratio)
     if a.cfg.moe_num_experts:     # 0.8796: a standard normal cut at ±2
+        i = next(i for i in range(len(a.cfg.block_pattern))
+                 if tf._layer_has_moe(a.cfg, i))
         np.testing.assert_allclose(
-            stats["blocks.0.mlp.w_gate"][0].std(),
+            stats[f"blocks.{i}.mlp.w_gate"][0].std(),
             0.8796 / np.sqrt(a.cfg.moe_num_experts), rtol=0.05)

@@ -2096,6 +2096,8 @@ def _model_on_both(cuda, name, **kw):
     a = Arch(name, reduced=True)
     a.cfg = dataclasses.replace(a.cfg, **kw)
     cpu = a.init_params(7, device="cpu")
+    if "rwkv" in a.cfg.block_pattern:
+        _redraw_rwkv_zeros(cpu)
 
     def move(tree):
         if isinstance(tree, torch.Tensor):
@@ -2105,6 +2107,17 @@ def _model_on_both(cuda, name, **kw):
         return [move(v) for v in tree]
 
     return a, move(cpu), cpu
+
+
+def _redraw_rwkv_zeros(params, seed=11):
+    """RWKV's time-mix ``wo`` and channel-mix ``wv`` are zeros at init, so
+    every block would add exactly 0: redraw them, std 1/√fan-in."""
+    gen = torch.Generator().manual_seed(seed)
+    for row in params["blocks"]:
+        for b in row:
+            for d, name in (b["mixer"], "wo"), (b["mlp"], "wv"):
+                d[name] = torch.randn(d[name].shape, generator=gen) \
+                    / d[name].shape[0] ** 0.5
 
 
 def _decode_both(cuda, a, card, cpu, prompt, pos, s_max):
@@ -2184,3 +2197,42 @@ def test_model_gemma2_softcaps_and_sandwich_card_vs_cpu(cuda):
     torch.testing.assert_close(gl, cl, rtol=2e-4, atol=2e-4)
     torch.testing.assert_close(gs, cs, rtol=2e-4, atol=2e-4)
     assert float(gs.abs().max()) <= a.cfg.final_logit_softcap
+
+
+def _greedy(a, p, batch, new, s_max):
+    """Prefill, then greedy decode keeping every step's logits: (tokens
+    (B, new), logits (B, new, V))."""
+    logits, cache = a.prefill(p, batch, s_max=s_max)
+    B, P = batch["tokens"].shape
+    outs, toks = [logits[:, -1]], []
+    for i in range(new):
+        toks.append(torch.argmax(outs[-1], dim=-1).to(torch.int32))
+        if i == new - 1:
+            break
+        pos = torch.full((B,), P + i, dtype=torch.int32,
+                         device=toks[-1].device)
+        logits, cache = a.decode_step(p, {"tokens": toks[-1][:, None]},
+                                      cache, pos)
+        outs.append(logits[:, -1])
+    return torch.stack(toks, 1), torch.stack(outs, 1)
+
+
+@pytest.mark.parametrize("name", ["jamba_v01_52b", "rwkv6_7b",
+                                  "whisper_tiny"])
+def test_model_zoo_family_card_vs_cpu(cuda, name):
+    """The reduced jamba (Mamba scan and steps, MoE, one attention layer),
+    rwkv6 (``wo`` and ``wv`` redrawn) and whisper (encoder over 50 frames,
+    cross-attention): prefill of 12 tokens and 8 greedy steps on the card
+    against the CPU, logits within 2e-4 and tokens equal."""
+    a, card, cpu = _model_on_both(cuda, name)
+    gen = torch.Generator().manual_seed(8)
+    batch = {"tokens": torch.randint(0, a.cfg.vocab_size, (3, 12),
+                                     generator=gen, dtype=torch.int32)}
+    if a.cfg.encoder_layers:
+        batch["embeds"] = torch.randn((3, a.cfg.encoder_seq, a.cfg.d_model),
+                                      generator=gen)
+    ctoks, clogits = _greedy(a, cpu, batch, 8, 20)
+    gtoks, glogits = _greedy(a, card, {k: v.to(cuda)
+                                       for k, v in batch.items()}, 8, 20)
+    torch.testing.assert_close(glogits.cpu(), clogits, rtol=2e-4, atol=2e-4)
+    assert torch.equal(gtoks.cpu(), ctoks)

@@ -1,7 +1,7 @@
-"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
-neither JAX nor the JAX package, every module of the port imports and a
-guardrail admit runs with JAX blocked, and without a CUDA device the
-entry points raise instead of falling back to the CPU."""
+"""The port stands alone: ``repro_torch``, ``chip_smoke.py`` and the port's
+scripts import neither JAX nor the JAX package, every module of the port
+imports and a guardrail admit runs with JAX blocked, and without a CUDA
+device the entry points raise instead of falling back to the CPU."""
 import ast
 import os
 import subprocess
@@ -21,7 +21,8 @@ from repro_torch.serve import engine  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
-    + [REPO / "chip_smoke.py"]
+    + [REPO / "chip_smoke.py", REPO / "scripts" / "kernel_ab.py",
+       REPO / "scripts" / "frontend_tail_ab.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
