@@ -269,14 +269,63 @@ non-zero without printing its result line):
              against the CPU's (2 frame batches, 16 prompt tokens, 4
              new).  For Jamba and RWKV-6 one recurrent mixer (projections
              and the time loop) is also timed at the prefill's shape,
-             beside the prefill it is part of.
+             beside the prefill it is part of;
+17. training — ``train_loop.train`` behind the ACE data filter and the
+             ACE gradient monitor (AdamW, remat, the cosine schedule): (a)
+             olmo_1b at its full size (16 layers, d_model 2048, vocab
+             50304, bf16 activations, float32 parameters) on a
+             ``DataStream`` of 8 × 128 tokens made from SEED, one
+             warm-up step, then 8 steps with 2 microbatches and the
+             in-step filter and 8 with the chunked prefilter (T = 4), no
+             checkpoint: every loss finite, every kernel of the path
+             (``ace_admit_fused``, ``ace_query_sum``, ``srp_hash``,
+             ``ace_update``) launched, one H2D (the batch) and one D2H
+             (the metrics) a step and no sync in a step (sync-debug
+             "error" from the batch's H2D to the metrics transfer); step
+             ms (median), tokens/s, the filter's keep fraction and the
+             peak memory; then 3 unprofiled steps (their median wall)
+             and one step traced on the card only (device ops, busy, the
+             idle share against the unprofiled wall) with the stream ms
+             of its forward, backward, clip, filter, monitor and
+             optimiser from CUDA events and their device busy ms from
+             the trace; (b) reduced olmo_1b in float32 (TF32 off),
+             filter, monitor and compression on, 4 steps on the card and
+             on the CPU from one set of weights and one noise draw
+             (recorded on the card, replayed on the CPU): losses within
+             rtol 1e-5, verdicts equal, params within the summed
+             learning rate and 99.9% within 1e-6, filter counts all but
+             0.2%; 24 more steps of each past the monitor's warmup:
+             verdicts equal, the monitor's counts all but 0.2%, n exact,
+             Welford within rtol 1e-5; the monitor's kernel path against
+             its plain path on the card, one shared state a step, over
+             the card run's features twice and a spike, and the filter's
+             (both threshold modes) over 84 batches of embeddings, past
+             both warmups: verdicts, scores, counts, n and Welford equal
+             where the ids agree; then an
+             interrupted run restored from its checkpoint against the
+             uninterrupted one on the card, plain and chunked prefilter:
+             params within 1e-6, sketches and generator bitwise; (c) one
+             Mamba mixer of Jamba (d_model 4096, d_inner 8192, N 16) and
+             one RWKV-6 time mix (64 heads of 64) at full width in
+             float32, B = 2, S = 256, time_chunk 64: loss and gradients
+             against the CPU's within 2e-4, forward + backward ms and
+             peak memory beside the in-place inference loop's forward;
+             (d) poison, reduced olmo_1b: the reference's
+             test_monitor_skips_poisoned_step (30 healthy steps, then
+             zeros with every label the last token: flagged, params and
+             moments unchanged), then 130 steps of a corrupt_every=13
+             stream of 64 x 16 tokens with the filter in quantile mode
+             (q = 0.05), whose
+             keep fraction must drop on the poisoned batches after it
+             arms, and again in μ−ασ mode (reported).
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 15 (the post-mortem query a
+before each path of phases 3 to 7 and 9 to 17 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
-phases 15 and 16 before each measured generate)
+phases 15 and 16 before each measured generate; in phase 17 before each
+measured ``train``)
 and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
@@ -4929,6 +4978,782 @@ def phase_serve_zoo(mods, device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 17: training behind the data filter and the gradient monitor.
+# ---------------------------------------------------------------------------
+
+TRAIN_B, TRAIN_S = 8, 128            # the training launcher's defaults
+TRAIN_STEPS, TRAIN_CHUNK = 8, 4      # (a): each run's steps, the prefilter's T
+TRAIN_KERNELS = ("srp_hash", "ace_query", "ace_update", "ace_admit_fused")
+REDUCED_STEPS = 4                    # (b): card against CPU
+ARMED_STEPS = 24                     # (b): then on past the monitor's warmup
+LOCKSTEP_BATCHES = 84                # (b): the filter's 64 warmup steps + 20
+REDUCED_B, REDUCED_S = 8, 16         # (b), (d): the reference test's stream
+RECUR_B, RECUR_S, RECUR_CHUNK = 2, 256, 64   # (c)
+POISON_STEPS, POISON_EVERY, POISON_Q = 130, 13, 0.05   # (d)
+POISON_B = 64                        # (d): the filter's stream (arms at step 8)
+TRAIN_CKPT = ROOT / "build" / "train_ckpt"
+SECTIONS = ("forward", "backward", "clip", "filter", "monitor", "optimiser")
+BREAKDOWN_STEPS = 3                  # unprofiled steps timed for the idle share
+
+
+def train_config(**kw):
+    """The phase's TrainConfig: AdamW, remat, filter and monitor on, two
+    warm-up steps of the cosine schedule, on the card unless ``kw`` says
+    otherwise."""
+    from repro_torch.train.train_loop import TrainConfig
+    base = dict(optimizer="adamw", peak_lr=3e-4, warmup_steps=2,
+                total_steps=64, remat=True, use_data_filter=True,
+                use_grad_monitor=True, seed=SEED, device="cuda")
+    return TrainConfig(**{**base, **kw})
+
+
+@contextlib.contextmanager
+def step_transfers(rec: dict):
+    """``train_loop``'s two named transfers counted, and every step held
+    to no sync: sync-debug "error" from the end of each batch's H2D to the
+    step's metrics D2H, off only inside the two transfers; ``rec["ends"]``
+    the host time each metrics transfer returned."""
+    from repro_torch.train import train_loop as tl
+    to_device, to_host = tl._to_device, tl._to_host
+
+    def counted_device(batch, dev):
+        torch.cuda.set_sync_debug_mode(0)
+        out = to_device(batch, dev)
+        rec["h2d"] += 1
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    def counted_host(x):
+        torch.cuda.set_sync_debug_mode(0)
+        out = to_host(x)
+        rec["d2h"] += 1
+        rec["ends"].append(time.perf_counter())
+        torch.cuda.set_sync_debug_mode("error")
+        return out
+
+    tl._to_device, tl._to_host = counted_device, counted_host
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        tl._to_device, tl._to_host = to_device, to_host
+
+
+def run_train(mods, device, card, what, arch, tcfg, state, stream, steps,
+              tokens_per_step):
+    """``train`` for ``steps`` steps with the launch counts set to 0 just
+    before and read just after, its transfers counted and no sync allowed
+    inside a step; prints and returns (state, the path's numbers)."""
+    from repro_torch.train.train_loop import train
+    rec = {"h2d": 0, "d2h": 0, "ends": []}
+    sync(device)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(mods)
+    t0 = time.perf_counter()
+    try:
+        with step_transfers(rec):
+            state, hist = train(arch, tcfg, stream, steps, log_every=0,
+                                state=state)
+    except RuntimeError as e:
+        check(False, f"{what}: no sync inside a step ({e})")
+    sync(device)
+    seconds = time.perf_counter() - t0
+    launches = read_launches(mods)
+    ends = [t0] + rec["ends"]
+    step_ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
+    losses = [h["loss"] for h in hist]
+    keep = statistics.mean(h.get("filter_keep_frac", 1.0) for h in hist)
+    out = {"launches": launches, "steps": steps, "seconds": seconds,
+           "step_ms": statistics.median(step_ms), "losses": losses,
+           "keep_frac": keep, "hist": hist,
+           "tokens_per_s": steps * tokens_per_step / seconds,
+           "grad_anomalies": sum(h.get("grad_anomaly", 0.0) for h in hist),
+           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+    check(len(hist) == steps and all(np.isfinite(losses)),
+          f"{what}: {steps} steps, every loss finite ({losses[0]:.4f} -> "
+          f"{losses[-1]:.4f})")
+    check(rec["d2h"] == steps and rec["h2d"] == steps,
+          f"{what}: one H2D (the batch) and one D2H (the metrics) a step "
+          f"({rec['h2d']}, {rec['d2h']}), no sync in a step")
+    ran = {k: launches[k] for k in TRAIN_KERNELS}
+    check(all(ran.values()), f"{what}: every kernel of the path launched "
+          f"{ran}")
+    print(f"  {what}: step {out['step_ms']:.3f} ms (median of {steps}, "
+          f"host clock between metrics transfers), "
+          f"{out['tokens_per_s']:,.0f} tokens/s over {seconds:.3f} s, "
+          f"filter keep {keep:.4f}, monitor flagged "
+          f"{out['grad_anomalies']:.0f}, peak memory "
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    return state, out
+
+
+@contextlib.contextmanager
+def sectioned(events: list):
+    """Each of ``SECTIONS`` bracketed by a pair of CUDA events on the
+    current stream, appended to ``events`` as (label, start, end), at the
+    functions a train step calls: ``Arch.loss`` (forward and loss),
+    ``torch.autograd.grad`` (backward), the clip, the filter's
+    ``__call__``, ``GradMonitor.step`` and ``AdamW.update``."""
+    from repro_torch.data import pipeline
+    from repro_torch.models import registry
+    from repro_torch.train import fault, optim
+    from repro_torch.train import train_loop as tl
+    targets = [("forward", registry.Arch, "loss"),
+               ("backward", torch.autograd, "grad"),
+               ("clip", tl, "clip_by_global_norm"),
+               ("filter", pipeline.AceDataFilter, "__call__"),
+               ("monitor", fault.GradMonitor, "step"),
+               ("optimiser", optim.AdamW, "update")]
+    real = [(owner, name, getattr(owner, name)) for _, owner, name
+            in targets]
+
+    def timed(label, fn):
+        def wrapper(*a, **k):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **k)
+            end.record()
+            events.append((label, start, end))
+            return out
+        return wrapper
+
+    for (label, owner, name), (_, _, fn) in zip(targets, real):
+        setattr(owner, name, timed(label, fn))
+    try:
+        yield
+    finally:
+        for owner, name, fn in real:
+            setattr(owner, name, fn)
+
+
+def step_breakdown(arch, tcfg, state, stream, device, card) -> dict:
+    """One full-size step under ``torch.profiler`` tracing the card only
+    (no CPU-op recording, which would slow the host's dispatch): device
+    ops and busy ms; the idle share against the median wall time of
+    BREAKDOWN_STEPS unprofiled steps, each bracketed by syncs.  Each
+    section's stream ms (its CUDA events) and device busy ms and ops: the
+    traced kernels that start inside its event window, aligned on the
+    ``torch.cuda._sleep(1)`` marker (``spin_kernel``) launched right after
+    the origin event on an idle card; when the trace's first kernel is not
+    that marker, the sections' busy ms are not measured (a kernel that
+    starts within a few µs of a window's edge may fall on the wrong
+    side)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.train import train_loop as tl
+    step_fn = tl.make_train_step(arch, tcfg)
+
+    def batch():
+        return tl._to_device({k: v for k, v in next(stream).items()
+                              if not k.startswith("_")}, device)
+    state, _ = step_fn(state, batch())        # warm
+    walls = []
+    for _ in range(BREAKDOWN_STEPS):
+        b = batch()
+        sync(device)
+        t0 = time.perf_counter()
+        state, _ = step_fn(state, b)
+        sync(device)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = statistics.median(walls)
+    b = batch()
+    sync(device)
+    events: list = []
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        with sectioned(events):
+            t0 = time.perf_counter()
+            origin = torch.cuda.Event(enable_timing=True)
+            origin.record()
+            torch.cuda._sleep(1)
+            state, _ = step_fn(state, b)
+            sync(device)
+            traced_ms = 1e3 * (time.perf_counter() - t0)
+    kernels = sorted((x for x in prof.events()
+                      if x.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda x: x.time_range.start)
+    busy_ms = sum(x.time_range.elapsed_us() for x in kernels) / 1e3
+    stream_ms = {k: 0.0 for k in SECTIONS}
+    windows = [(label, 1e3 * origin.elapsed_time(s),
+                1e3 * origin.elapsed_time(e)) for label, s, e in events]
+    for label, lo, hi in windows:
+        stream_ms[label] += (hi - lo) / 1e3
+    out = {"wall_ms": wall_ms, "wall_ms_runs": walls,
+           "traced_wall_ms": traced_ms, "device_ops": len(kernels),
+           "device_busy_ms": busy_ms, "stream_ms": stream_ms,
+           "busy_ms": None, "ops": None}
+    print(f"  olmo_1b step, unprofiled: wall {wall_ms:.3f} ms (median of "
+          f"{BREAKDOWN_STEPS}: {', '.join(f'{w:.3f}' for w in walls)}) "
+          f"({card})")
+    if not kernels:
+        print("  one full-size step under torch.profiler: no device op in "
+              "the trace; device busy ms and idle share not measured")
+        return state, out
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    print(f"  one full-size step under torch.profiler (card only): wall "
+          f"{traced_ms:.3f} ms traced, {len(kernels)} device ops, busy "
+          f"{busy_ms:.3f} ms; idle share against the unprofiled wall "
+          f"{out['idle_share']:.3f} ({card})")
+    if "spin_kernel" not in kernels[0].name:
+        print(f"  by section, stream ms: "
+              + ", ".join(f"{k} {stream_ms[k]:.3f}" for k in SECTIONS)
+              + f"; device busy ms by section not measured (the trace's "
+              f"first kernel is {kernels[0].name[:60]!r}, not the marker)")
+        return state, out
+    busy = {k: 0.0 for k in SECTIONS}
+    ops = {k: 0 for k in SECTIONS}
+    for x in kernels[1:]:
+        at = x.time_range.start - kernels[0].time_range.start
+        for label, lo, hi in windows:
+            if lo <= at < hi:
+                busy[label] += x.time_range.elapsed_us() / 1e3
+                ops[label] += 1
+                break
+    out.update(busy_ms=busy, ops=ops)
+    print("  by section, device busy ms (ops) / stream ms: "
+          + ", ".join(f"{k} {busy[k]:.3f} ({ops[k]}) / {stream_ms[k]:.3f}"
+                      for k in SECTIONS)
+          + f"; outside them {busy_ms - sum(busy.values()):.3f}")
+    return state, out
+
+
+def move_state(state, device):
+    """A TrainState on ``device``: every tensor copied there, the
+    generator a new one there seeded with SEED."""
+    from repro_torch.models.registry import tree_map
+    return type(state)(*[
+        torch.Generator(device=device).manual_seed(SEED)
+        if isinstance(f, torch.Generator)
+        else tree_map(lambda t: t.to(device, copy=True), f)
+        for f in state])
+
+
+@contextlib.contextmanager
+def recorded_noise(tape: list, replay: bool):
+    """``compression.uniform_noise`` recording its draws into ``tape``
+    (on the CPU), or replaying them in order: one noise draw for two
+    runs."""
+    from repro_torch.train import compression
+    real = compression.uniform_noise
+    it = iter(list(tape))
+
+    def noise(shape, generator):
+        if replay:
+            return next(it)
+        out = real(shape, generator)
+        tape.append(out)
+        return out
+
+    compression.uniform_noise = noise
+    try:
+        yield
+    finally:
+        compression.uniform_noise = real
+
+
+@contextlib.contextmanager
+def recorded_outputs(owner, name: str, tape: list):
+    """``owner.name`` appending a copy of each of its outputs to ``tape``."""
+    real = getattr(owner, name)
+
+    def wrapper(*a, **k):
+        out = real(*a, **k)
+        tape.append(out.detach().clone())
+        return out
+
+    setattr(owner, name, wrapper)
+    try:
+        yield
+    finally:
+        setattr(owner, name, real)
+
+
+def sketch_agreement(a, b) -> tuple:
+    """Two AceStates: the counters that differ, whether n is equal, and the
+    larger relative difference of the two Welford fields."""
+    def rel(x, y):
+        x, y = float(x), float(y)
+        return 0.0 if x == y else abs(x - y) / max(abs(x), abs(y))
+    return (int((a.counts.cpu() != b.counts.cpu()).sum()),
+            float(a.n) == float(b.n),
+            max(rel(a.welford_mean, b.welford_mean),
+                rel(a.welford_m2, b.welford_m2)))
+
+
+def monitor_lockstep(mon, w, rows, card) -> dict:
+    """``GradMonitor.step_features``' kernel path (``srp_hash``,
+    ``ace_query_sum``, ``ace_update(row_mask=~is_anom)``, the Welford fold
+    through ``masked_batch_welford``) against its plain path
+    (``sketch.score`` / ``sketch.insert`` + select) on the card, step by
+    step from one state over ``rows`` (1, d + 1): where a step's ids agree,
+    verdict, score, counts, n, Welford (rtol 1e-5) and the counters
+    equal; where they do not, at most 2 counters differ per differing id.
+    Ids agree >= 0.999, and once armed the monitor both flags and
+    inserts."""
+    from repro_torch.core import srp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import tree_map
+    cfg = mon.ace_cfg
+    state, _ = mon.init()
+    wrong_ids = total_ids = 0
+    faults, armed = [], {True: 0, False: 0}
+    for t, feat in enumerate(rows):
+        wrong = int((kops.srp_hash(feat, w, cfg.srp)
+                     != srp.hash_buckets(feat, w, cfg.srp)).sum())
+        wrong_ids += wrong
+        total_ids += cfg.srp.num_tables
+        plain, anom_p, score_p = mon.step_features(
+            tree_map(torch.clone, state), w, feat, kernels=False)
+        is_armed = float(state.warmup_left) <= 0.0
+        state, anom_k, score_k = mon.step_features(state, w, feat,
+                                                   kernels=True)
+        differ, n_eq, w_rel = sketch_agreement(state.ace, plain.ace)
+        if is_armed:
+            armed[bool(anom_k)] += 1
+        if wrong:
+            ok = differ <= 2 * wrong
+        else:
+            ok = (bool(anom_k) == bool(anom_p) and differ == 0 and n_eq
+                  and w_rel <= 1e-5
+                  and abs(float(score_k) - float(score_p))
+                  <= 1e-6 * abs(float(score_p))
+                  and all(torch.equal(getattr(state, f), getattr(plain, f))
+                          for f in ("anomalies", "consecutive",
+                                    "warmup_left")))
+        if not ok:
+            faults.append((t, wrong, differ, bool(anom_k), bool(anom_p),
+                           n_eq, w_rel))
+    agree = 1 - wrong_ids / total_ids
+    print(f"  monitor, kernel path against plain path on the card from one "
+          f"state a step, {len(rows)} steps of (1, {cfg.dim}) features "
+          f"(the card run's, twice, then a spike): ids agree {agree:.6f}; "
+          f"armed verdicts {armed[True]} flagged, {armed[False]} inserted; "
+          f"steps disagreeing {faults[:4]} ({card})")
+    check(agree >= 0.999 and not faults,
+          "monitor kernel path = plain path a step: verdict, score, counts, "
+          "n, Welford (rtol 1e-5) where the ids agree")
+    check(armed[True] > 0 and armed[False] > 0,
+          "monitor lockstep: once armed it both flags and inserts")
+    return {"steps": len(rows), "ids_agree": agree,
+            "armed_flagged": armed[True], "armed_inserted": armed[False]}
+
+
+def filter_lockstep(filt, w, feats, card) -> dict:
+    """The data filter's kernel path (``ace_admit_fused`` + its
+    ``ace_query_sum``) against ``use_kernels=False`` on the card, step by
+    step from one state over the (B, d + 1) batches ``feats``, past the
+    filter's warmup: keep and margin equal on rows whose ids agree; where
+    every id of a step agrees, counts, n, Welford (rtol 1e-5) and the
+    histogram equal; else at most 2 counters differ per differing id."""
+    from repro_torch.core import srp
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models.registry import tree_map
+    plain_f = dataclasses.replace(filt, use_kernels=False)
+    cfg = filt.ace_cfg
+    state, _ = filt.init()
+    wrong_ids = total_ids = armed_rows = flagged = 0
+    faults = []
+    for t, feat in enumerate(feats):
+        row_ok = torch.all(kops.srp_hash(feat, w, cfg.srp)
+                           == srp.hash_buckets(feat, w, cfg.srp), dim=-1)
+        wrong = int((~row_ok).sum()) * cfg.srp.num_tables
+        wrong_ids += wrong
+        total_ids += feat.shape[0] * cfg.srp.num_tables
+        plain, keep_p, margin_p = plain_f.step(tree_map(torch.clone, state),
+                                               w, feat)
+        state, keep_k, margin_k = filt.step(state, w, feat)
+        differ, n_eq, w_rel = sketch_agreement(state, plain)
+        armed = bool(torch.all(torch.isfinite(margin_k)))
+        if armed:
+            armed_rows += feat.shape[0]
+            flagged += int((~keep_k).sum())
+        same_rows = bool(torch.equal(keep_k[row_ok], keep_p[row_ok])
+                         and torch.allclose(margin_k[row_ok],
+                                            margin_p[row_ok], rtol=1e-6,
+                                            atol=0))
+        if wrong:
+            ok = same_rows and differ <= 2 * wrong
+        else:
+            ok = (same_rows and differ == 0 and n_eq and w_rel <= 1e-5
+                  and (state.qhist is None
+                       or torch.equal(state.qhist, plain.qhist)))
+        if not ok:
+            faults.append((t, wrong, differ, n_eq, w_rel))
+    agree = 1 - wrong_ids / total_ids
+    print(f"  filter {filt.threshold_mode}, kernel path against "
+          f"use_kernels=False on the card from one state a step, "
+          f"{len(feats)} steps of {tuple(feats[0].shape)}: ids agree "
+          f"{agree:.6f}; armed on {armed_rows} rows, flagged {flagged}; "
+          f"steps disagreeing {faults[:4]} ({card})")
+    check(agree >= 0.999 and not faults and armed_rows > 0,
+          f"filter {filt.threshold_mode} kernel path = plain path a step "
+          "past warmup: keep and margin where the ids agree; counts, n, "
+          "Welford (rtol 1e-5), histogram")
+    return {"steps": len(feats), "ids_agree": agree,
+            "armed_rows": armed_rows, "flagged": flagged}
+
+
+def reduced_card_vs_cpu(device, card) -> dict:
+    """(b): reduced olmo_1b in float32 (TF32 off), filter, monitor and
+    compression on, REDUCED_STEPS steps on the card and on the CPU from
+    one set of weights and one noise draw; then ARMED_STEPS more of each,
+    past the monitor's 20-step warmup: verdicts and the monitor's sketch
+    card against CPU.  Then the monitor's and the filter's kernel paths
+    against their plain paths on the card on the same inputs, past their
+    warmups: the monitor on the card run's features, the filter on
+    LOCKSTEP_BATCHES batches of sequence embeddings."""
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    from repro_torch.train.fault import GradMonitor
+    from repro_torch.train.train_loop import (init_train_state,
+                                              make_data_filter,
+                                              sequence_embeddings, train)
+    arch = Arch("olmo_1b", reduced=True)
+    kw = dict(grad_compression=True, peak_lr=1e-3, total_steps=16)
+    cpu_cfg = train_config(device="cpu", **kw)
+    cpu_state = init_train_state(arch, cpu_cfg)
+    card_state = move_state(cpu_state, device)
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=REDUCED_S,
+                        global_batch=REDUCED_B, seed=SEED)
+    streams = [DataStream(scfg), DataStream(scfg)]
+    feats: list = []
+
+    def both(card_state, cpu_state, steps):
+        tape: list = []
+        with recorded_noise(tape, replay=False), \
+                recorded_outputs(GradMonitor, "features", feats):
+            card_state, card_hist = train(arch, train_config(**kw),
+                                          streams[0], steps, log_every=0,
+                                          state=card_state)
+        tape[:] = [t.cpu() for t in tape]
+        with recorded_noise(tape, replay=True):
+            cpu_state, cpu_hist = train(arch, cpu_cfg, streams[1], steps,
+                                        log_every=0, state=cpu_state)
+        return card_state, card_hist, cpu_state, cpu_hist, len(tape)
+
+    def counters_differ(a, b):
+        touched = (a.counts.cpu() != 0) | (b.counts != 0)
+        return int((a.counts.cpu() != b.counts).sum()), int(touched.sum())
+
+    card_state, card_hist, cpu_state, cpu_hist, draws = both(
+        card_state, cpu_state, REDUCED_STEPS)
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(card_hist, cpu_hist))
+    same = all(a[k] == b[k] for a, b in zip(card_hist, cpu_hist)
+               for k in ("filter_keep_frac", "grad_anomaly"))
+    diffs = np.concatenate([(a.cpu() - b).abs().reshape(-1).numpy()
+                            for a, b in zip(leaves(card_state.params),
+                                            leaves(cpu_state.params))])
+    lr_sum = sum(h["lr"] for h in cpu_hist)
+    differ, touched = counters_differ(card_state.filter_state,
+                                      cpu_state.filter_state)
+    out = {"loss_rel_err": loss_err, "param_max_abs": float(diffs.max()),
+           "param_share_within_1e-6": float(np.mean(diffs <= 1e-6)),
+           "noise_draws": draws, "filter_counters_differ": differ}
+    print(f"  reduced olmo_1b float32, filter + monitor + compression, "
+          f"{REDUCED_STEPS} steps card vs CPU ({draws} noise tensors "
+          f"drawn on the card, replayed on the CPU): loss rel err "
+          f"{loss_err:.3g}, params max abs {diffs.max():.3g} "
+          f"({out['param_share_within_1e-6']:.6f} within 1e-6), filter "
+          f"counters differing {differ} of {touched} touched ({card})")
+    check(loss_err <= 1e-5, "losses card vs CPU within rtol 1e-5 (float32 "
+          "sums in another order)")
+    check(same, "filter keep fractions and monitor verdicts equal card "
+          "vs CPU (both in warmup)")
+    check(diffs.max() <= lr_sum and out["param_share_within_1e-6"] >= 0.999,
+          f"params card vs CPU: every one within the summed lr "
+          f"{lr_sum:.3g} (AdamW's update is ~1 where |g| ~ eps, and an int8 "
+          "rounding at a .5 tie moves a gradient by one scale), 99.9% "
+          "within 1e-6")
+    check(differ <= max(2, int(0.002 * touched)),
+          "filter counts card vs CPU: dense ids agree >= 0.999, so <= 0.2% "
+          "of touched counters differ")
+    card_state, card_hist, cpu_state, cpu_hist, _ = both(
+        card_state, cpu_state, ARMED_STEPS)
+    flags = [[h["grad_anomaly"] for h in x] for x in (card_hist, cpu_hist)]
+    agree = [a == b for a, b in zip(*flags)]
+    mon_differ, mon_touched = counters_differ(card_state.monitor.ace,
+                                              cpu_state.monitor.ace)
+    _, n_eq, w_rel = sketch_agreement(card_state.monitor.ace,
+                                      cpu_state.monitor.ace)
+    out.update(armed_verdicts_agree=sum(agree),
+               armed_flags=[sum(f) for f in flags],
+               monitor_counters_differ=mon_differ, monitor_n_equal=n_eq,
+               monitor_welford_rel=w_rel)
+    print(f"  then {ARMED_STEPS} more steps past the monitor's warmup: "
+          f"verdicts agree on {sum(agree)} of {ARMED_STEPS} steps, flagged "
+          f"{out['armed_flags'][0]:.0f} on the card and "
+          f"{out['armed_flags'][1]:.0f} on the CPU; the monitor's sketch: "
+          f"counters differing {mon_differ} of {mon_touched} touched, n "
+          f"{'equal' if n_eq else 'differs'}, Welford rel diff {w_rel:.3g}; "
+          f"losses {card_hist[-1]['loss']:.4f} and "
+          f"{cpu_hist[-1]['loss']:.4f} ({card})")
+    check(all(agree), "armed monitor verdicts equal card vs CPU on every "
+          "step")
+    check(mon_differ <= max(2, int(0.002 * mon_touched)) and n_eq
+          and w_rel <= 1e-5,
+          "monitor sketch card vs CPU after the armed steps: <= 0.2% of "
+          "touched counters differ, n exact, Welford within rtol 1e-5")
+
+    mon = GradMonitor(feature_dim=cpu_cfg.monitor_feature_dim,
+                      device=device)
+    rows = [f[None] for f in feats]
+    spike = rows[-1].clone()
+    spike[0, :-2] += 3.0            # every leaf's log-norm up 3: e^3 larger
+    out["monitor_lockstep"] = monitor_lockstep(
+        mon, card_state.monitor_w, rows + rows + [spike], card)
+    embed_stream = DataStream(scfg)
+    batches = []
+    with torch.no_grad():
+        for _ in range(LOCKSTEP_BATCHES):
+            tokens = torch.from_numpy(next(embed_stream)["tokens"])
+            batches.append(sequence_embeddings(
+                card_state.params, {"tokens": tokens.to(device)}, arch.cfg))
+    for mode in ("mu_sigma", "quantile"):
+        filt = make_data_filter(
+            train_config(filter_threshold_mode=mode,
+                         filter_quantile_q=POISON_Q), arch.cfg.d_model)
+        out[f"filter_lockstep_{mode}"] = filter_lockstep(
+            filt, card_state.filter_w, [filt.features(e) for e in batches],
+            card)
+    check(out["filter_lockstep_quantile"]["flagged"] > 0,
+          "filter lockstep, quantile mode: rows flagged once armed")
+    return out
+
+
+def restart_on_card(device, card, what, **kw) -> None:
+    """(b): an interrupted run restored from its checkpoint equals the
+    uninterrupted one on the card (the reference's restart tests)."""
+    import shutil
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    from repro_torch.train.train_loop import train
+    arch = Arch("olmo_1b", reduced=True)
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=REDUCED_S,
+                        global_batch=REDUCED_B, seed=SEED)
+    dirs = [TRAIN_CKPT / f"{what}_{x}" for x in "ab"]
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+    chunked = kw.get("filter_chunk", 0) > 1
+    first = 5 if chunked else 6
+    ta = train_config(ckpt_dir=str(dirs[0]),
+                      ckpt_interval=2 if chunked else 4, peak_lr=1e-3,
+                      grad_compression=True, **kw)
+    tb = dataclasses.replace(ta, ckpt_dir=str(dirs[1]))
+    sa, _ = train(arch, ta, DataStream(scfg), 8, log_every=0)
+    train(arch, tb, DataStream(scfg), first, log_every=0)
+    sc, _ = train(arch, tb, DataStream(scfg), 4, log_every=0)
+    err = max(float((x - y).abs().max()) for x, y in
+              zip(leaves(sa.params), leaves(sc.params)))
+    sketches = all(torch.equal(x, y) for f in ("filter_state", "monitor",
+                                                "ef")
+                   for x, y in zip(leaves(getattr(sa, f)),
+                                   leaves(getattr(sc, f))))
+    check(int(sc.step) == 8 and err <= 1e-6 and sketches
+          and torch.equal(sa.rng.get_state(), sc.rng.get_state()),
+          f"{what}: 8 steps equal {first} + 4 restored from step 4 on the "
+          f"card (params max abs {err:.3g}; filter, monitor, residual and "
+          f"generator state bitwise) ({card})")
+    for d in dirs:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def recurrence_backward(device, card, name) -> dict:
+    """(c): one recurrent mixer at full width in float32 (time_chunk
+    RECUR_CHUNK), loss = mean(out · probe): the output, the loss and
+    every gradient on the card against the CPU; forward + backward ms and
+    peak memory, beside the in-place inference loop's forward."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import mamba as mb
+    from repro_torch.models import rwkv6 as rw
+    cfg = dataclasses.replace(get_config(name), dtype="float32")
+    cpu = torch.device("cpu")
+    gen = torch.Generator().manual_seed(SEED + 30)
+    if name.startswith("jamba"):
+        p = mb.init_mamba(cfg, gen, cpu)
+
+        def scan(q, x):
+            return mb.mamba_scan(q, x, cfg, time_chunk=RECUR_CHUNK)[0]
+    else:
+        p = rw.init_rwkv_time(cfg, gen, cpu)
+        p["wo"] = torch.randn(p["wo"].shape, generator=gen) \
+            / p["wo"].shape[0] ** 0.5         # zero at init: redrawn
+
+        def scan(q, x):
+            st = rw.init_rwkv_state(cfg, x.shape[0], x.dtype, x.device)
+            return rw.rwkv_time_scan(q, x, st.x_prev_att, st.wkv, cfg,
+                                     time_chunk=RECUR_CHUNK)[0]
+    x = torch.randn((RECUR_B, RECUR_S, cfg.d_model), generator=gen)
+    probe = torch.randn((RECUR_B, RECUR_S, cfg.d_model), generator=gen)
+
+    def fwd_bwd(dev):
+        q = {k: v.to(dev).requires_grad_() for k, v in p.items()}
+        xx = x.to(dev).requires_grad_()
+        out = scan(q, xx)
+        loss = torch.mean(out * probe.to(dev))
+        return out.detach(), loss.detach(), \
+            torch.autograd.grad(loss, [xx, *q.values()])
+
+    def timed(fn):
+        times = []
+        for _ in range(4):
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            times.append(time.perf_counter() - t0)
+        return 1e3 * statistics.median(times[1:])
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out, loss, grads = fwd_bwd(device)
+    peak = torch.cuda.max_memory_allocated()
+    ms = timed(lambda: fwd_bwd(device))
+    with torch.no_grad():
+        qd = {k: v.to(device) for k, v in p.items()}
+        xd = x.to(device)
+        inf_ms = timed(lambda: scan(qd, xd))
+    c_out, c_loss, c_grads = fwd_bwd(cpu)
+    # the loss, a mean of products of either sign, cancels: its error is
+    # read against the mean magnitude of those products
+    loss_err = abs(float(loss) - float(c_loss)) \
+        / float(torch.mean(torch.abs(c_out * probe)))
+    out_err = float((out.cpu() - c_out).abs().max() / c_out.abs().max())
+    rel = max(float((a.cpu() - b).abs().max() / b.abs().max())
+              for a, b in zip(grads, c_grads))
+    kind = "Mamba mixer" if name.startswith("jamba") else "RWKV-6 time mix"
+    print(f"  {name} {kind} at full width (d_model {cfg.d_model}), B "
+          f"{RECUR_B} x S {RECUR_S}, time_chunk {RECUR_CHUNK}, float32: "
+          f"forward + backward {ms:.3f} ms (median of 3), peak memory "
+          f"{peak / 2**30:.2f} GiB; the in-place inference loop's forward "
+          f"{inf_ms:.3f} ms; card vs CPU: output max abs err / max "
+          f"{out_err:.3g}, loss err / mean |out · probe| {loss_err:.3g}, "
+          f"gradients max abs err / leaf max {rel:.3g} ({card})")
+    check(max(out_err, loss_err, rel) <= 2e-4,
+          f"{name}: output, loss and gradients card vs CPU within 2e-4 "
+          "(the zoo's float32 bound)")
+    return {"fwd_bwd_ms": ms, "inference_fwd_ms": inf_ms, "peak": peak,
+            "out_err": out_err, "loss_err": loss_err, "grad_rel_err": rel}
+
+
+def poison(mods, device, card) -> dict:
+    """(d): the monitor as the reference's test_monitor_skips_poisoned_step
+    drives it (30 healthy steps, then zeros with every label the last
+    token), then the filter on a corrupt_every=13 stream in both
+    threshold modes."""
+    from repro_torch.data.pipeline import DataStream, StreamConfig, \
+        synth_batch
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    from repro_torch.train import train_loop as tl
+    arch = Arch("olmo_1b", reduced=True)
+    tcfg = train_config(use_data_filter=False, peak_lr=1e-3,
+                        total_steps=100, seed=1)
+    step_fn = tl.make_train_step(arch, tcfg)
+    state = tl.init_train_state(arch, tcfg, 1)
+    stream = DataStream(StreamConfig(vocab_size=arch.cfg.vocab_size,
+                                     seq_len=REDUCED_S,
+                                     global_batch=REDUCED_B, seed=1))
+    for _ in range(30):
+        state, _ = step_fn(state, tl._to_device(
+            {k: v for k, v in next(stream).items()
+             if not k.startswith("_")}, device))
+    before = [t.clone() for t in leaves((state.params, state.opt_state))]
+    bad = {k: v for k, v in next(stream).items() if not k.startswith("_")}
+    bad["tokens"] = np.zeros_like(bad["tokens"])
+    bad["labels"] = np.full_like(bad["labels"], arch.cfg.vocab_size - 1)
+    state, m = step_fn(state, tl._to_device(bad, device))
+    kept = all(torch.equal(a, b) for a, b in
+               zip(before, leaves((state.params, state.opt_state))))
+    check(float(m["grad_anomaly"]) == 1.0 and kept,
+          "the monitor skips the poisoned step once armed: flagged, params "
+          f"and optimiser state unchanged ({card})")
+    out = {}
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=REDUCED_S,
+                        global_batch=POISON_B, seed=1,
+                        corrupt_every=POISON_EVERY)
+    armed = 512 // POISON_B                # the filter's warmup_items
+    poisoned = {i for i in range(POISON_STEPS)
+                if "_poisoned" in synth_batch(scfg, i)}
+    for mode in ("quantile", "mu_sigma"):
+        tc = train_config(peak_lr=1e-3, total_steps=200, seed=1,
+                          filter_threshold_mode=mode,
+                          filter_quantile_q=POISON_Q)
+        _, res = run_train(mods, device, card, f"poison, filter {mode}",
+                           arch, tc, None, DataStream(scfg), POISON_STEPS,
+                           POISON_B * REDUCED_S)
+        hist = res.pop("hist")
+        bad = [hist[i] for i in sorted(poisoned) if i >= armed]
+        good = [h for i, h in enumerate(hist)
+                if i >= armed and i not in poisoned]
+        res["keep_poisoned"] = statistics.mean(h["filter_keep_frac"]
+                                               for h in bad)
+        res["keep_clean"] = statistics.mean(h["filter_keep_frac"]
+                                            for h in good)
+        res["flagged_poisoned"] = sum(h["grad_anomaly"] for h in bad)
+        res["flagged_clean"] = sum(h["grad_anomaly"] for h in good)
+        print(f"  poison, filter {mode}: after the filter arms (step "
+              f"{armed}), keep {res['keep_poisoned']:.4f} on {len(bad)} "
+              f"poisoned batches against {res['keep_clean']:.4f} on "
+              f"{len(good)} clean ones; monitor flagged "
+              f"{res['flagged_poisoned']:.0f} poisoned, "
+              f"{res['flagged_clean']:.0f} clean steps ({card})")
+        out[f"poison_{mode}"] = res
+    q = out["poison_quantile"]
+    check(q["keep_poisoned"] < q["keep_clean"],
+          f"the filter's keep fraction drops on poisoned batches (quantile "
+          f"q = {POISON_Q}: {q['keep_poisoned']:.4f} < "
+          f"{q['keep_clean']:.4f})")
+    return out
+
+
+def phase_train(mods, device, card) -> dict:
+    """Phase 17 (the module docstring)."""
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    from repro_torch.train.train_loop import init_train_state, train
+    out = {}
+    torch.cuda.empty_cache()
+    arch = Arch("olmo_1b")
+    tcfg = train_config(microbatches=2)
+    t0 = time.perf_counter()
+    state = init_train_state(arch, tcfg)
+    sync(device)
+    n = sum(t.numel() for t in leaves(state.params))
+    print(f"  olmo_1b at full size: {n:,} float32 parameters and AdamW "
+          f"moments drawn in {time.perf_counter() - t0:.2f} s ({card})")
+    stream = DataStream(StreamConfig(vocab_size=arch.cfg.vocab_size,
+                                     seq_len=TRAIN_S, global_batch=TRAIN_B,
+                                     seed=SEED))
+    state, _ = train(arch, tcfg, stream, 1, log_every=0, state=state)
+    tokens = TRAIN_B * TRAIN_S
+    for key, what, tc in (
+            ("train_olmo_microbatches",
+             "olmo_1b, 2 microbatches, in-step filter", tcfg),
+            ("train_olmo_chunked",
+             f"olmo_1b, chunked prefilter T = {TRAIN_CHUNK}",
+             train_config(filter_chunk=TRAIN_CHUNK))):
+        state, out[key] = run_train(mods, device, card, what, arch, tc,
+                                    state, stream, TRAIN_STEPS, tokens)
+        out[key].pop("hist")
+    state, out["breakdown"] = step_breakdown(arch, train_config(), state,
+                                             stream, device, card)
+    del state
+    torch.cuda.empty_cache()
+
+    out["card_vs_cpu"] = reduced_card_vs_cpu(device, card)
+    restart_on_card(device, card, "restart, plain loop")
+    restart_on_card(device, card, "restart, chunked prefilter",
+                    filter_chunk=2)
+    for name in ("jamba_v01_52b", "rwkv6_7b"):
+        out[f"backward_{name}"] = recurrence_backward(device, card, name)
+    out.update(poison(mods, device, card))
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -5086,6 +5911,14 @@ def main() -> int:
     paths.update(phase_serve_zoo(mods, device, card))
     print(f"  phase 16 took {time.perf_counter() - t16:.1f} s")
 
+    print("phase 17: training behind the data filter and the gradient "
+          "monitor: olmo_1b at full size, reduced olmo_1b card vs CPU and "
+          "restarts, the recurrences' backward at full width, poison")
+    t17 = time.perf_counter()
+    trained = phase_train(mods, device, card)
+    paths.update({k: v for k, v in trained.items() if "launches" in v})
+    print(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -5163,7 +5996,12 @@ def main() -> int:
               f"{k[6:]} prefill {r['prefill_ms']:.3f} ms, generate "
               f"{r['generate_tokens_per_s']:,.1f} tokens/s, decode "
               f"{r['decode_tokens_per_s']:,.1f} tokens/s"
-              for k, r in paths.items() if k.startswith("serve_")))
+              for k, r in paths.items() if k.startswith("serve_"))
+          + "; trained olmo_1b " + ", ".join(
+              f"{k[12:]} step {r['step_ms']:.3f} ms, "
+              f"{r['tokens_per_s']:,.0f} tokens/s, peak "
+              f"{r['max_memory_allocated'] / 2**30:.2f} GiB"
+              for k, r in trained.items() if k.startswith("train_olmo")))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

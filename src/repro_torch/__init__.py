@@ -6,7 +6,7 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``core.privacy``, ``kernels.ops``, ``data.pipeline``,
 ``data.synthetic``, ``window``, ``fleet``, ``quantile``,
 ``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
-``resilience``, ``train.checkpoint``, ``baselines``, ``models``,
+``resilience``, ``train``, ``launch.train``, ``baselines``, ``models``,
 ``configs``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
@@ -39,7 +39,11 @@ reference's are plain jnp).  ``models`` and ``configs`` are the model
 zoo and its ten configs (decoder-only LMs of "attn", "swa", "mamba" and
 "rwkv" layers, dense or MoE, and the encoder-decoder whisper), which
 ``serve.engine``'s ``ServeEngine`` serves greedily behind a
-``Guardrail``.
+``Guardrail``.  ``train`` trains them (``train_loop.train``: PyTorch
+autograd, remat, microbatches, the ``optim`` optimisers and ``schedule``,
+int8 ``compression`` with error feedback) behind the ACE data filter and
+the ACE gradient monitor (``fault.GradMonitor``), with checkpoint,
+restart and rollback; ``launch.train`` is its command line.
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,
@@ -57,10 +61,8 @@ import torch
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
     9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
-    12: "repro.train (train_loop with its ACE prefilter, optim, schedule, "
-        "compression, fault), data.pipeline's StreamConfig, synth_batch "
-        "and DataStream, and repro.launch",
-    13: "repro.dist",
+    13: "repro.dist, with launch.dryrun, launch.mesh and Arch.input_specs, "
+        "cache_specs and all_cells",
 }
 
 

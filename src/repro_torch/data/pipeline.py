@@ -10,13 +10,20 @@ of ``repro_torch.stream.StreamRunner``'s chunk loop.
 ``threshold_mode="quantile"`` flags the worst ``quantile_q`` of the stream
 instead of μ − α·σ (``repro_torch.quantile.sketch``).
 
-``DataStream``/``synth_batch`` and the training loop that consumes the
-filter belong to later slices (ROADMAP.md queue 1 item 12).
+The synthetic LM stream the training loop consumes (``StreamConfig``,
+``synth_batch``, ``DataStream``) is numpy, copied from the reference, so
+its batches are bitwise the reference's: a batch is a pure function of
+(seed, step), and the iterator's state is its step counter, so a restart
+from a checkpoint replays the exact stream.  ``corrupt_every`` swaps a
+batch for uniform garbage tokens (flagged ``_poisoned``), which the filter
+should catch.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Iterator
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
@@ -27,6 +34,58 @@ from repro_torch.core import srp
 from repro_torch.core.sketch import AceConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.quantile import sketch as qsk
+
+
+@dataclasses.dataclass(frozen=True)
+class StreamConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    seed: int = 0
+    corrupt_every: int = 0        # 0 = clean stream
+    n_docs: int = 4096            # synthetic corpus size
+
+
+def synth_batch(cfg: StreamConfig, step: int) -> dict[str, np.ndarray]:
+    """Markov-ish synthetic LM batch, pure function of (seed, step)."""
+    rng = np.random.default_rng(cfg.seed * 1_000_003 + step)
+    B, S, V = cfg.global_batch, cfg.seq_len, cfg.vocab_size
+    # low-entropy structured stream: random walk over the vocab
+    start = rng.integers(0, V, (B, 1))
+    steps = rng.integers(-3, 4, (B, S - 1))
+    toks = np.concatenate([start, start + np.cumsum(steps, axis=1)], axis=1)
+    toks = np.mod(toks, V).astype(np.int32)
+    batch = {"tokens": toks, "labels": toks,
+             "mask": np.ones((B, S), np.float32)}
+    if cfg.corrupt_every and step % cfg.corrupt_every == cfg.corrupt_every - 1:
+        # poisoned batch: uniform garbage tokens (very different embedding
+        # statistics from the random-walk stream)
+        batch["tokens"] = rng.integers(0, V, (B, S)).astype(np.int32)
+        batch["labels"] = batch["tokens"]
+        batch["_poisoned"] = np.ones((), np.bool_)
+    return batch
+
+
+class DataStream:
+    """Stateless-iterator facade: state == step (checkpoint-friendly)."""
+
+    def __init__(self, cfg: StreamConfig, start_step: int = 0):
+        self.cfg = cfg
+        self.step = start_step
+
+    def __iter__(self) -> Iterator[dict[str, np.ndarray]]:
+        return self
+
+    def __next__(self):
+        b = synth_batch(self.cfg, self.step)
+        self.step += 1
+        return b
+
+    def state_dict(self):
+        return {"step": self.step}
+
+    def load_state_dict(self, s):
+        self.step = int(s["step"])
 
 
 def mean_embed_features(embeds: torch.Tensor,

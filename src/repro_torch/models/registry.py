@@ -1,8 +1,8 @@
 """Arch registry: an architecture's name -> its config and model functions
 (``models.transformer`` for the decoder-only LMs, ``models.whisper`` for
 the encoder-decoder).  Port of ``repro.models.registry``; the dry run's
-``input_specs``, ``cache_specs`` and ``all_cells`` wait with
-``repro.launch`` (ROADMAP.md queue 1 item 12).
+``input_specs``, ``cache_specs`` and ``all_cells`` come with
+``launch.dryrun`` and ``repro.dist`` (ROADMAP.md queue 1 item 13).
 """
 from __future__ import annotations
 
@@ -72,6 +72,16 @@ class Arch:
     def forward(self, params, batch, remat=True):
         return self.mod.forward(params, batch, self.cfg, remat=remat)
 
+    def loss(self, params, batch, remat=True, remat_policy="full"):
+        """(loss, aux) of the next-token loss; whisper's takes no
+        ``remat_policy``, as in the reference."""
+        if is_whisper(self.cfg):
+            return self.mod.next_token_loss(params, batch, self.cfg,
+                                            remat=remat)
+        return self.mod.next_token_loss(params, batch, self.cfg,
+                                        remat=remat,
+                                        remat_policy=remat_policy)
+
     def prefill(self, params, batch, s_max=None):
         return self.mod.prefill(params, batch, self.cfg, s_max=s_max)
 
@@ -118,9 +128,33 @@ class Arch:
 
 def leaves(tree):
     """Every tensor of a parameter or cache tree (dicts, lists and tuples,
-    the NamedTuple caches among them)."""
+    the NamedTuple caches among them), dicts in insertion order; ``None``
+    is no leaf."""
     if isinstance(tree, torch.Tensor):
         yield tree
-    else:
+    elif tree is not None:
         for v in (tree.values() if isinstance(tree, dict) else tree):
             yield from leaves(v)
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` applied leaf by leaf to ``tree`` and the trees of the same
+    structure in ``rest``; the result has ``tree``'s structure (``None``
+    stays ``None``)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    out = [tree_map(fn, v, *(r[i] for r in rest))
+           for i, v in enumerate(tree)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
+def unflatten(tree, values):
+    """A tree of ``tree``'s structure holding ``values`` in ``leaves``'
+    order."""
+    it = iter(values)
+    return tree_map(lambda _: next(it), tree)

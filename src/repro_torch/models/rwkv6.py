@@ -10,10 +10,13 @@ data-dependent token shift (ddlerp) producing the r/k/v/w/g streams
 through a small LoRA.
 
 ``rwkv_time_scan`` (prefill, forward) is a Python loop over time with the
-float32 state updated in place; it computes r_t·(S + diag(u)·kᵀv) as
-r_t·S + (Σ_k r_t u k_t)·v_t, the same sum without the (B, H, Dh, Dh)
-temporary.  ``rwkv_time_step`` is the O(1) decode update.  Nothing in
-either reads a tensor on the host, so neither syncs.
+float32 state, updated in place for inference and, when a backward pass
+will follow, in the reference's checkpointed chunks with out-of-place
+updates (``mamba.chunked_recurrence``); either way it computes
+r_t·(S + diag(u)·kᵀv) as r_t·S + (Σ_k r_t u k_t)·v_t, the same sum
+without the (B, H, Dh, Dh) temporary.  ``rwkv_time_step`` is the O(1)
+decode update.  Nothing in either reads a tensor on the host, so neither
+syncs.
 """
 from __future__ import annotations
 
@@ -23,7 +26,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.common import ModelConfig, dense_init
-from repro_torch.models.mamba import check_time_chunk
+from repro_torch.models.mamba import (check_time_chunk, chunked_recurrence,
+                                     needs_grad)
 
 TM_RANK = 32  # token-shift LoRA rank (RWKV6 TIME_MIX_EXTRA_DIM)
 GROUP_NORM_EPS = 64e-5   # the per-head group norm's eps (not cfg.norm_eps)
@@ -157,13 +161,26 @@ def rwkv_time_scan(p: dict, x: torch.Tensor, x_prev: torch.Tensor,
     r32, k32, v32, w32 = (t.to(torch.float32).permute(1, 0, 2, 3)
                           .reshape(S, B * H, Dh) for t in (r, k, v, w))
     ruk = torch.sum(r32 * (u.repeat(B, 1) * k32), -1, keepdim=True)
-    state = wkv0.reshape(B * H, Dh, Dh).clone()
-    ys = torch.empty((S, B * H, 1, Dh), dtype=torch.float32, device=x.device)
-    for t in range(S):
-        torch.bmm(r32[t, :, None, :], state, out=ys[t])     # r·S_{t−1}
-        ys[t].addcmul_(ruk[t, :, None, :], v32[t, :, None, :])
-        state.mul_(w32[t, :, :, None])
-        state.baddbmm_(k32[t, :, :, None], v32[t, :, None, :])
+    if needs_grad(x, p):
+        def step(st, r_t, k_t, v_t, w_t, ruk_t):
+            y = torch.addcmul(torch.bmm(r_t[:, None, :], st),
+                              ruk_t[:, None, :], v_t[:, None, :])
+            st = torch.baddbmm(st * w_t[:, :, None], k_t[:, :, None],
+                               v_t[:, None, :])
+            return st, y
+
+        state, ys = chunked_recurrence(
+            step, wkv0.reshape(B * H, Dh, Dh), (r32, k32, v32, w32, ruk),
+            min(time_chunk or cfg.time_chunk, S))
+    else:
+        state = wkv0.reshape(B * H, Dh, Dh).clone()
+        ys = torch.empty((S, B * H, 1, Dh), dtype=torch.float32,
+                         device=x.device)
+        for t in range(S):
+            torch.bmm(r32[t, :, None, :], state, out=ys[t])  # r·S_{t−1}
+            ys[t].addcmul_(ruk[t, :, None, :], v32[t, :, None, :])
+            state.mul_(w32[t, :, :, None])
+            state.baddbmm_(k32[t, :, :, None], v32[t, :, None, :])
     y = ys.reshape(S, B, H, Dh).transpose(0, 1)
     out = _out_norm(p, y, g, x.dtype, cfg)
     return out, x[:, -1, :], state.reshape(B, H, Dh, Dh)

@@ -11,10 +11,13 @@ superblock r's layer at pattern position i, applied in a Python loop.
 
 Entry points (plain functions of dicts of tensors):
     forward(params, batch, cfg)            -> logits, aux   (training)
+    next_token_loss(params, batch, cfg)    -> loss, aux     (training)
     prefill(params, batch, cfg, s_max)     -> logits, cache (serving)
     decode_step(params, batch, cache, pos, cfg) -> logits, cache
 """
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -89,12 +92,19 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
     return params
 
 
+def _pattern(cfg: ModelConfig) -> list:
+    """(pattern position, kind, use_moe) of one superblock's layers.  An
+    rwkv layer is never MoE."""
+    return [(i, kind, _layer_has_moe(cfg, i) and kind != "rwkv")
+            for i, kind in enumerate(cfg.block_pattern)]
+
+
 def layers(cfg: ModelConfig):
     """(superblock, pattern position, kind, use_moe) of every layer, in the
-    order they run.  An rwkv layer is never MoE."""
+    order they run."""
     for r in range(cfg.num_superblocks):
-        for i, kind in enumerate(cfg.block_pattern):
-            yield r, i, kind, _layer_has_moe(cfg, i) and kind != "rwkv"
+        for i, kind, use_moe in _pattern(cfg):
+            yield r, i, kind, use_moe
 
 
 # ---------------------------------------------------------------------------
@@ -194,36 +204,112 @@ def _positions_for(batch, cfg: ModelConfig, S: int, B: int, device):
         .expand(B, S)
 
 
-def _run_full(params, batch, cfg: ModelConfig):
-    """Embed, then every layer over the full sequence: (x, aux sums,
-    caches [r][i])."""
+def _superblock(row, x, aux, cfg: ModelConfig, positions, rope,
+                keep_cache: bool):
+    """One superblock's layers over the full sequence: (x, aux sums, its
+    cache entries, each None unless ``keep_cache``)."""
+    caches = []
+    for i, kind, use_moe in _pattern(cfg):
+        x, a, c = _apply_layer_full(row[i], x, kind, use_moe, cfg, positions,
+                                    rope_tables=rope)
+        aux = {k: aux[k] + a[k] if k in a else aux[k] for k in aux}
+        caches.append(c if keep_cache else None)
+    return x, aux, caches
+
+
+def _run_full(params, batch, cfg: ModelConfig, keep_cache: bool = True,
+              checkpoint_kw: dict | None = None):
+    """Embed, then every superblock over the full sequence: (x after the
+    final norm, aux sums, caches [r][i]).  With ``checkpoint_kw`` each
+    superblock runs under ``torch.utils.checkpoint`` with those
+    arguments."""
     x = embed_inputs(params, batch, cfg)
     B, S = x.shape[0], x.shape[1]
     positions = _positions_for(batch, cfg, S, B, x.device)
     rope = attn.make_rope_tables(positions, cfg, cfg.head_dim) \
         if cfg.block_pattern != ("rwkv",) else None
-    aux_acc = {"moe_load_balance": torch.zeros((), device=x.device),
-               "moe_drop_frac": torch.zeros((), device=x.device)} \
+    aux = {"moe_load_balance": torch.zeros((), device=x.device),
+           "moe_drop_frac": torch.zeros((), device=x.device)} \
         if cfg.moe_num_experts else {}
-    caches = [[None] * len(cfg.block_pattern)
-              for _ in range(cfg.num_superblocks)]
-    for r, i, kind, use_moe in layers(cfg):
-        x, aux, caches[r][i] = _apply_layer_full(
-            params["blocks"][r][i], x, kind, use_moe, cfg, positions,
-            rope_tables=rope)
-        for k, v in aux.items():
-            aux_acc[k] = aux_acc[k] + v
-    return apply_norm(params["final_norm"], x, cfg), aux_acc, caches
+    caches = []
+    for row in params["blocks"]:
+        args = (row, x, aux, cfg, positions, rope, keep_cache)
+        if checkpoint_kw is None:
+            x, aux, c = _superblock(*args)
+        else:
+            from torch.utils.checkpoint import checkpoint
+            x, aux, c = checkpoint(_superblock, *args, **checkpoint_kw)
+        caches.append(c)
+    return apply_norm(params["final_norm"], x, cfg), aux, caches
 
 
-def forward(params, batch, cfg: ModelConfig, remat: bool = True):
+# the matmul outputs the "dots" policy saves (jax.checkpoint_policies
+# .checkpoint_dots): every product of the zoo lowers to one of these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def forward(params, batch, cfg: ModelConfig, remat: bool = True,
+            remat_policy: str = "full"):
     """batch: {"tokens": (B, S)} or {"embeds": (B, S, D)} (+ "positions"
     (3, B, S) under M-RoPE).  Returns (logits (B, S, V), aux): for MoE the
     sums over layers of ``moe_load_balance`` and ``moe_drop_frac``.
-    ``remat`` is accepted for the reference's signature; with no backward
-    pass it changes nothing."""
-    x, aux, _ = _run_full(params, batch, cfg)
+
+    With ``remat`` and grad mode on, each superblock runs under a
+    non-reentrant ``torch.utils.checkpoint``, as the reference checkpoints
+    its scan body: ``remat_policy="full"`` saves only the superblock
+    boundaries and recomputes the rest in the backward pass; ``"dots"``
+    saves the matmul outputs (``aten.mm``, ``bmm``, ``addmm``) and
+    recomputes everything else, as ``checkpoint_dots`` does."""
+    if remat_policy not in ("full", "dots"):
+        raise ValueError(f"unknown remat_policy {remat_policy!r}")
+    kw = None
+    if remat and torch.is_grad_enabled():
+        kw = dict(use_reentrant=False, preserve_rng_state=False)
+        if remat_policy == "dots":
+            from torch.utils.checkpoint import \
+                create_selective_checkpoint_contexts
+            kw["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+    x, aux, _ = _run_full(params, batch, cfg, keep_cache=False,
+                          checkpoint_kw=kw)
     return lm_head(params, x, cfg), aux
+
+
+def token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Shifted next-token NLL in float32: logsumexp minus the target
+    logit at each position but the last, (B, S − 1)."""
+    logits = logits[:, :-1, :].to(torch.float32)
+    tgt = torch.gather(logits, -1, labels[:, 1:].long()[..., None])[..., 0]
+    return torch.logsumexp(logits, dim=-1) - tgt
+
+
+def next_token_loss(params, batch, cfg: ModelConfig, remat: bool = True,
+                    remat_policy: str = "full"):
+    """Causal LM loss with shift, masked by ``mask[:, 1:]`` and divided by
+    max(Σ mask, 1) (the mean without a mask); MoE adds 0.01 ·
+    moe_load_balance / num_layers.  Returns (loss, aux), ``aux["nll"]``
+    the loss, as the reference sets it."""
+    logits, aux = forward(params, batch, cfg, remat=remat,
+                          remat_policy=remat_policy)
+    nll = token_nll(logits, batch["labels"])
+    mask = batch.get("mask")
+    if mask is not None:
+        m = mask[:, 1:].to(torch.float32)
+        loss = torch.sum(nll * m) / torch.clamp_min(torch.sum(m), 1.0)
+    else:
+        loss = torch.mean(nll)
+    if cfg.moe_num_experts:
+        lb = aux["moe_load_balance"]
+        loss = loss + 0.01 * lb / torch.full_like(lb, cfg.num_layers)
+    aux["nll"] = loss
+    return loss, aux
 
 
 # ---------------------------------------------------------------------------

@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import attention as attn
+from repro_torch.models.transformer import token_nll
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
                                        init_norm, sinusoidal_positions)
 
@@ -149,6 +150,16 @@ def forward(params, batch, cfg: ModelConfig, remat: bool = True):
     (logits (B, S, V), {}); ``remat`` is the reference's signature."""
     memory = encode(params, batch["embeds"], cfg)
     return decode_full(params, batch["tokens"], memory, cfg), {}
+
+
+def next_token_loss(params, batch, cfg: ModelConfig, remat: bool = True):
+    """The mean shifted next-token NLL in float32; ``batch["mask"]`` is
+    not read, as in the reference (ROADMAP.md queue 3), so a data
+    filter's mask changes nothing here.  Returns (loss, {"nll": loss})."""
+    logits, aux = forward(params, batch, cfg, remat)
+    loss = torch.mean(token_nll(logits, batch["labels"]))
+    aux["nll"] = loss
+    return loss, aux
 
 
 # --------------------------- serving path ----------------------------------

@@ -1,4 +1,6 @@
-"""Training-side support — the parts of ``repro.train`` the port carries
-so far: CRC-checked checkpoints (``checkpoint``) and the host-side
-straggler timer (``fault.StepTimer``).  The train loop, optimisers and
-``GradMonitor`` come with ROADMAP.md queue 1 item 12."""
+"""Training (port of ``repro.train``): the train step and loop
+(``train_loop``) behind the ACE data filter and the ACE gradient monitor
+(``fault.GradMonitor``, beside the host-side ``fault.StepTimer``), the
+optimisers (``optim``), learning-rate schedules (``schedule``), int8
+gradient compression with error feedback (``compression``) and
+CRC-checked checkpoints (``checkpoint``)."""

@@ -22,7 +22,8 @@ from repro_torch.serve import engine  # noqa: E402
 REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py", REPO / "scripts" / "kernel_ab.py",
-       REPO / "scripts" / "frontend_tail_ab.py"]
+       REPO / "scripts" / "frontend_tail_ab.py",
+       REPO / "examples" / "train_lm_ace_monitor_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -89,3 +90,24 @@ def test_entry_points_without_cuda_raise(monkeypatch):
     assert g.state.counts.device.type == "cpu"
     mask = g.admit(np.ones((2, 1, 8), np.float32))
     assert mask.shape == (2,)
+
+
+def test_train_entry_points_without_cuda_raise(monkeypatch):
+    """The training stack defaults to the card as well: the train state,
+    the gradient monitor and the launcher raise without one."""
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.registry import Arch
+    from repro_torch.train import fault, train_loop
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    a = Arch("olmo_1b", reduced=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_loop.init_train_state(a, train_loop.TrainConfig())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        fault.GradMonitor(feature_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        launcher.main(["--arch", "olmo_1b", "--reduced", "--steps", "1"])
+    state = train_loop.init_train_state(
+        a, train_loop.TrainConfig(device="cpu"))
+    assert all(t.device.type == "cpu" for t in
+               [*state.params["blocks"][0][0]["mixer"].values(),
+                state.step, state.monitor_w, state.filter_w])
