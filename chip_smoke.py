@@ -46,7 +46,17 @@ non-zero without printing its result line):
              the same shapes and checks, a batch of 4096 into one bucket
              from the cap (narrow counters wrap, add for add), 4096 rows
              on the four int8 buckets of one 32-bit word, and base rows
-             of the windowed fleet's ring in each dtype;
+             of the windowed fleet's ring in each dtype; then the six
+             hash kernels on bfloat16 and on float16 x and W
+             (``phase_kernels_operands``): ``srp_hash`` at its three
+             shapes (ids >= 0.999 against the plain version, which
+             widens both operands, and bitwise the float32 kernel's on
+             the widened operands), ``srht_hash`` at its three (bitwise),
+             the four fused kernels at the admit shape (ids ``srp_hash``'s,
+             every output bitwise the kernel's on the widened operands),
+             and one ``ops.ace_admit`` on a bfloat16 W (its own path:
+             one ``ace_admit_fused`` launch, outputs equal to the float32
+             W's);
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -106,7 +116,15 @@ non-zero without printing its result line):
              and after);
 8. timing  — each kernel, its plain version and (where one PyTorch call
              computes the same function) that call, timed with CUDA events,
-             beside the least time the card could take (its bound);
+             beside the least time the card could take (its bound); the
+             six hash kernels also on bfloat16 and float16 operands in
+             turns with float32 and, the five dense ones, with the
+             operands widened on the card before a float32 launch
+             (``srp_hash`` and ``srht_hash`` at their three shapes, the
+             fused four at the admit shape; the dense bound the products
+             at the bf16/fp16 tensor-core rate against x and W at 2
+             bytes, beside cuBLAS's projection on the narrow operands;
+             the SRHT's its fp32 adds against a 2-byte x);
              ``srp_hash`` at its three main-path shapes (fit, admit, stream
              step) under its launch plan and every other cluster size, and
              ``ace_admit_fused`` at its two (admit, stream step), each
@@ -317,15 +335,40 @@ non-zero without printing its result line):
              stream of 64 x 16 tokens with the filter in quantile mode
              (q = 0.05), whose
              keep fraction must drop on the poisoned batches after it
-             arms, and again in μ−ασ mode (reported).
+             arms, and again in μ−ασ mode (reported);
+18. cluster — ``repro_torch.cluster`` at full width: two host processes
+             (``chip_smoke.py --cluster-child h0|h1``, started once the
+             kernels are built, so they only load them) on the card, each
+             a ``ClusterNode`` over a 16-tenant ``FleetDataFilter``
+             (d_model 4096, K = 15, L = 50, int32: 104,857,600 B a host),
+             chunks of 8 single-tenant batches of 512 rows, 2 chunks an
+             epoch, a checkpoint an epoch, a ``TCPStore`` served by this
+             process, batches of the reference chaos test's structure
+             made from SEED; (a) h1 fetches h0's first full-width gossip
+             blob (bytes, publish and fetch ms); (b) h1 dies (exit 137,
+             no cleanup) half an epoch past its last publish; h0 declares
+             it dead at its first poll more than the failure timeout past
+             h1's last beat, adopts its 8 tenants from that gossip with exact n and
+             resumes their streams; a never-failed replay here on the
+             card: survivors' counts, n and Welford bitwise, adopted
+             counts and n equal, probe scores exact, every served verdict
+             equal, recall after re-homing >= 0.9 × fault-free; (c) h1
+             restarted cold rejoins through ``try_rejoin`` and wins back
+             only its HRW tenants, from h0's gossip with exact n; (d)
+             items/s a host ingests, ``ingest_chunk`` in turns with a
+             plain ``StreamRunner`` on one fleet, the epoch boundary by
+             part, kill-to-dead, re-shard + adoption ms, gossip bytes;
+             each host's launches (``srp_hash``, ``ace_query_sum``,
+             ``ace_update``, no (B, L) gather) join the kernels' counts.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 17 (the post-mortem query a
+before each path of phases 3 to 7 and 9 to 18 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
 phases 15 and 16 before each measured generate; in phase 17 before each
-measured ``train``)
+measured ``train``; in phase 18 in each serving host process, before
+its first chunk)
 and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
@@ -340,7 +383,11 @@ per-kernel numbers, and ``{"ok": true, "device": {...}}``.  A kernel's
 between any of its outputs (bucket ids, counts, gathers, scores) and the
 plain version's; each count-reading kernel's ``by_dtype`` gives the same
 in int16, int8 and float32, its times and bound in each narrow dtype,
-and its launches on phase 10's paths of that dtype.
+and its launches on phase 10's paths of that dtype; each hash kernel's
+``by_dtype`` also gives bfloat16 and float16 operands: ``max_abs_err``
+of the ids, times in turns with float32 (and, the dense ones, with the
+operands widened on the card first), bounds, cuBLAS's projection on the
+narrow operands, and launches on the bfloat16-W ``ops.ace_admit`` path.
 
 Data and weights are made from SEED.  Nothing here imports JAX.
 """
@@ -348,8 +395,12 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import datetime
 import gc
 import json
+import os
+import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -362,11 +413,13 @@ import torch
 SEED = 0
 ROOT = Path(__file__).resolve().parent
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): fp32 outside the
-# tensor cores (an FMA counts two, so plain adds run at half of it), and
-# HBM3 bandwidth.
+# Published peaks of one H100 SXM (NVIDIA data sheet, dense): fp32 outside
+# the tensor cores (an FMA counts two, so plain adds run at half of it),
+# bf16/fp16 products on the tensor cores with fp32 accumulation (exact for
+# 2-byte operands, so the same ids), and HBM3 bandwidth.
 PEAK_FP32_FLOPS = 67e12
 PEAK_FP32_ADDS = 33.5e12
+PEAK_16BIT_TC_FLOPS = 989e12
 PEAK_BYTES_PER_S = 3.35e12
 
 KDD_N, KDD_D = 596_853, 36          # KDD-Cup99 HTTP (repro/data/synthetic.py)
@@ -2228,8 +2281,8 @@ def device_ms(fn, reps: int = 30, inner: int = 10) -> float:
     return statistics.median(samples)
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES_PER_S
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -2923,15 +2976,17 @@ def time_public_paths(device) -> dict:
                                       table_mask=tmask))}]}}
 
 
-def srht_bound(B: int, d: int, cfg):
+def srht_bound(B: int, d: int, cfg, x_bytes: int = 4):
     """The SRHT's bound: its adds, sign flips and sampled compares at the
-    add rate against x, the signs, the row sample and the ids in bytes."""
+    add rate against x (``x_bytes`` an element), the signs, the row sample
+    and the ids in bytes."""
     from repro_torch.core.srht import next_pow2
     d_pad = next_pow2(max(d, 2))
     log2 = d_pad.bit_length() - 1
     m = cfg.num_projections
     ops = B * (2 * d_pad * log2 + 2 * d_pad + m)
-    nbytes = 4 * B * d + 2 * 4 * d_pad + 4 * m + 4 * B * cfg.num_tables
+    nbytes = (x_bytes * B * d + 2 * 4 * d_pad + 4 * m
+              + 4 * B * cfg.num_tables)
     t_ops, t_bytes = ops / PEAK_FP32_ADDS, nbytes / PEAK_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
@@ -5754,11 +5809,853 @@ def phase_train(mods, device, card) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phases 2 and 8, operand dtypes: the six hash kernels on bfloat16 and
+# float16 x and W, against their plain versions (which widen both operands
+# to float32, as the kernels and the reference's Pallas kernels do).
+# ---------------------------------------------------------------------------
+
+OPERAND_KERNELS = ("srp_hash", "srht_hash", "ace_admit_fused",
+                   "ace_score_fused", "ace_fleet_score",
+                   "ace_fleet_window_admit")
+OPERAND_DTYPES = ("bfloat16", "float16")
+
+
+def dense_hash_shapes(d_model=D_MODEL, fit_batch=FIT_BATCH,
+                      admit_b=ADMIT_B):
+    """(where, B, d, K, L) of the dense hash's three main-path shapes."""
+    return (("fit", fit_batch, KDD_D, K_BITS, L_TABLES),
+            ("admit", admit_b, d_model + 1, K_BITS, L_TABLES),
+            ("stream step", STREAM_B, d_model + 1, STREAM_K, STREAM_L))
+
+
+def srht_shapes(d_model=D_MODEL, fit_batch=FIT_BATCH):
+    """(where, B, d, K, L) of ``srht_hash``'s three main-path shapes."""
+    return (("stream step", STREAM_B, d_model + 1, STREAM_K, STREAM_L),
+            ("fit", fit_batch, KDD_D, K_BITS, L_TABLES),
+            ("auto corner", AUTO_B, AUTO_DIMS[0], K_BITS, L_TABLES))
+
+
+def operands(B, d, K, L, dtype, device, seed, srht=False):
+    """(cfg, x, W) in float32 and the same rounded to ``dtype``."""
+    from repro_torch.core.srp import SrpConfig, make_projections
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=seed,
+                    hash_mode="srht" if srht else "dense")
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn((B, d), generator=gen, device=device)
+    w = make_projections(cfg, device=device)
+    nd = getattr(torch, dtype)
+    return cfg, (x, w), (x.to(nd), w.to(nd))
+
+
+def fused_cases(mods, device, cfg, B: int):
+    """The four fused hash kernels on (B, d) queries under ``cfg``, over
+    random counters: a flat table, a fleet of ``FLEET_T`` tenants, a
+    4-epoch ring of them with integer tails, thresholds of L (some rows
+    admit, some not).  Returns ({name: run(q, w) -> outputs}, {name:
+    bytes the call moves beside q and W, as a function of the ids})."""
+    a, f = mods["ace_admit_fused"], mods["ace_score_fused"]
+    fs, fwa = mods["ace_fleet_score"], mods["ace_fleet_window_admit"]
+    T, E, L, nb = FLEET_T, 4, cfg.num_tables, cfg.num_buckets
+    gen = torch.Generator(device=device).manual_seed(SEED + 54)
+
+    def ints(shape, hi):
+        return torch.randint(0, hi, shape, generator=gen, device=device,
+                             dtype=torch.int32)
+    counts, fleet = ints((L, nb), 9), ints((T, L, nb), 9)
+    ring, tail = ints((T, E, L, nb), 9), ints((T, L, nb), 20).float()
+    cursor, tids = ints((T,), E), ints((B,), T)
+    thr = torch.full((T,), float(L), device=device)
+    t1 = torch.tensor(float(L), device=device)
+    rows = torch.arange(L, device=device)[None, :]
+
+    def fleet_u(ids):       # distinct (tenant, table, bucket) counters
+        return int(torch.unique((tids.long()[:, None] * L + rows) * nb
+                                + ids.long()).numel())
+    runs = {       # fresh=False: update the counters in place (timing)
+        "ace_admit_fused": lambda q, v, fresh=True: a.ace_admit_fused(
+            counts.clone() if fresh else counts, q, v, t1, cfg),
+        "ace_score_fused": lambda q, v, fresh=True: f.ace_score_fused_planned(
+            counts, q, v, cfg, None, None, with_ids=True),
+        "ace_fleet_score": lambda q, v, fresh=True: fs.ace_fleet_score_planned(
+            fleet, q, tids, v, cfg, None, with_ids=True),
+        "ace_fleet_window_admit": lambda q, v, fresh=True:
+            fwa.ace_fleet_window_admit_fused(ring.clone() if fresh else ring,
+                                             tail, cursor, q, tids, v, thr,
+                                             cfg)}
+    # counters gathered (read once) and inserted (read and written), the
+    # outputs, the tenant ids, thresholds and cursors
+    moved = {
+        "ace_admit_fused": lambda ids: 4 * distinct_counters(ids, nb)
+        + 2 * 4 * distinct_counters(ids, nb) + 4 * B * L + 5 * B + 4,
+        "ace_score_fused": lambda ids: 4 * distinct_counters(ids, nb)
+        + 4 * B,
+        "ace_fleet_score": lambda ids: 4 * fleet_u(ids) + 8 * B,
+        "ace_fleet_window_admit": lambda ids: (4 + 4 + 2 * 4) * fleet_u(ids)
+        + 4 * B * L + 17 * B + 8 * T}
+    return runs, moved
+
+
+def phase_kernels_operands(mods, device, d_model=D_MODEL,
+                           fit_batch=FIT_BATCH, admit_b=ADMIT_B) -> dict:
+    """Phase 2 on narrow operands: x and W both bfloat16, then both
+    float16.  ``srp_hash`` at its three main-path shapes: ids >= 0.999
+    against the plain version and bitwise the float32 kernel's on the
+    widened operands; ``srht_hash`` at its three: ids bitwise the plain
+    version's; the four fused hash kernels at the admit shape (T = 8
+    tenants, a 4-epoch ring): their ids ``srp_hash``'s, and every output
+    bitwise the same kernel's on the operands widened to float32 (which
+    phase 2 holds against the plain versions).
+    Returns {kernel: {dtype: max_abs_err of the ids}}."""
+    h, sh = mods["srp_hash"], mods["srht_hash"]
+    err = {k: {} for k in OPERAND_KERNELS}
+    for dt in OPERAND_DTYPES:
+        e = 0.0
+        for where, B, d, K, L in dense_hash_shapes(d_model, fit_batch,
+                                                   admit_b):
+            cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 51)
+            got = h.srp_hash(nx, nw, cfg)
+            plain = h.srp_hash_plain(nx, nw, cfg)
+            e = max(e, max_err(got, plain))
+            share = agreement(got, plain)
+            check(share >= 0.999 and torch.equal(got, h.srp_hash(
+                nx.float(), nw.float(), cfg)), f"srp_hash {dt} {where} "
+                f"B={B}, d={d}: ids agree with plain {share:.6f} >= 0.999 "
+                "and equal the float32 kernel's on the widened operands")
+        err["srp_hash"][dt] = e
+        e = 0.0
+        for where, B, d, K, L in srht_shapes(d_model, fit_batch):
+            cfg, (x, _), (nx, _) = operands(B, d, K, L, dt, device, 52,
+                                            srht=True)
+            got = sh.srht_hash(nx, cfg)
+            plain = sh.srht_hash_plain(nx, cfg)
+            e = max(e, max_err(got, plain))
+            check(torch.equal(got, plain) and torch.equal(
+                got, sh.srht_hash(nx.float(), cfg)),
+                f"srht_hash {dt} {where} B={B}, d={d}: ids bitwise plain "
+                "and the kernel's on the widened x")
+        err["srht_hash"][dt] = e
+
+        B, d, K, L = admit_b, d_model + 1, K_BITS, L_TABLES
+        cfg, _, (nx, nw) = operands(B, d, K, L, dt, device, 53)
+        wx, ww = nx.float(), nw.float()       # the widened operands
+        ids = h.srp_hash(nx, nw, cfg)
+        plain_ids = h.srp_hash_plain(nx, nw, cfg)
+        runs = fused_cases(mods, device, cfg, B)[0]
+        for name, run in runs.items():
+            got, wide = run(nx, nw), run(wx, ww)
+            kid = got[3] if len(got) > 2 else got[1]
+            err[name][dt] = max_err(kid, plain_ids)
+            check(torch.equal(kid, ids) and all(
+                torch.equal(u, v) for u, v in zip(got, wide)),
+                f"{name} {dt} admit shape B={B}, d={d}: ids srp_hash's "
+                f"(plain ids agree {agreement(ids, plain_ids):.6f}), every "
+                "output the kernel's on the widened operands")
+    for k in OPERAND_KERNELS:
+        print(f"  {k}: max |ids - plain| " + ", ".join(
+            f"{dt} {err[k][dt]:g}" for dt in OPERAND_DTYPES))
+    return err
+
+
+def narrow_admit_path(mods, device, d_model=D_MODEL,
+                      admit_b=ADMIT_B) -> dict:
+    """One ``ops.ace_admit`` on a bfloat16 W at the flat guardrail's shape
+    (armed sketch), counts set to 0 just before it: its outputs equal
+    the same admission on W widened to float32, and it launched the fused
+    admission."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.kernels import ops
+    cfg = sk.AceConfig(dim=d_model + 1, num_bits=K_BITS,
+                       num_tables=L_TABLES, seed=55)
+    w = sk.make_params(cfg, device=device, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device).manual_seed(SEED + 55)
+    state = sk.init(cfg, device)
+    for _ in range(4):                      # arm it: n past the warmup
+        q = torch.randn((admit_b, d_model + 1), generator=gen,
+                        device=device)
+        state, _ = ops.ace_admit(state, q, w.float(), cfg, alpha=4.0,
+                                 warmup_items=2.0 * admit_b)
+    q = torch.randn((admit_b, d_model + 1), generator=gen, device=device)
+    twin = sk.AceState(*(v if v is None or not torch.is_tensor(v)
+                         else v.clone() for v in state))
+    reset_launches(mods)
+    got, admit = ops.ace_admit(state, q, w, cfg, alpha=4.0,
+                               warmup_items=2.0 * admit_b)
+    sync(device)
+    launches = read_launches(mods)
+    want, wadmit = ops.ace_admit(twin, q, w.float(), cfg, alpha=4.0,
+                                 warmup_items=2.0 * admit_b)
+    check(launches["ace_admit_fused"] == 1, "ops.ace_admit on a bfloat16 W "
+          "launched ace_admit_fused once")
+    check(torch.equal(admit, wadmit) and all(
+        torch.equal(u, v) for u, v in zip(got, want)
+        if torch.is_tensor(u)), "ops.ace_admit on a bfloat16 W equals it on "
+          f"W widened to float32 ({int(admit.sum())} of {admit_b} admitted)")
+    return {"launches": launches, "dtype": "bfloat16"}
+
+
+def time_in_turns(**fns) -> tuple:
+    """Device ms of each function, in turns (the order given, then
+    reversed: float32, narrow, widened, widened, narrow, float32):
+    ({name: mean ms}, {name: every sample})."""
+    runs = {k: [] for k in fns}
+    for k in [*fns, *reversed(fns)]:
+        runs[k].append(device_ms(fns[k], reps=10))
+    return {k: statistics.mean(v) for k, v in runs.items()}, runs
+
+
+def phase_timing_operands(mods, device, d_model=D_MODEL) -> dict:
+    """Phase 8 on narrow operands: ``srp_hash`` at its three main-path
+    shapes, ``srht_hash`` at its three and the four fused hash kernels at
+    the admit shape, each dtype in turns with float32 and (the dense
+    kernels) with the same kernel on operands widened on the card first
+    (``x.float()``, ``w.float()``, the casts included: ``widen_ms``).
+    The dense kernels' bound: their products at the card's bf16/fp16
+    tensor-core rate (a 2-byte product accumulated in fp32 is exact)
+    against the bytes with x and W at two bytes an element; beside them
+    cuBLAS's projection on the same narrow operands (``matmul_ms``).  The
+    SRHT's: its fp32 adds against a 2-byte x.  Returns {kernel: {dtype:
+    entry}} (with ``by_shape`` for the two hashes)."""
+    h, sh = mods["srp_hash"], mods["srht_hash"]
+    out = {"srp_hash": {}, "srht_hash": {}}
+    for dt in OPERAND_DTYPES:
+        rows = []
+        for where, B, d, K, L in dense_hash_shapes(d_model):
+            cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 56)
+            KL = cfg.num_projections
+            ms, runs = time_in_turns(
+                float32=lambda: h.srp_hash(x, w, cfg),
+                narrow=lambda: h.srp_hash(nx, nw, cfg),
+                widened=lambda: h.srp_hash(nx.float(), nw.float(), cfg))
+            r = dict(ms=ms["narrow"], float32_ms=ms["float32"],
+                     widen_ms=ms["widened"], runs=runs,
+                     plain_ms=device_ms(lambda: h.srp_hash_plain(nx, nw,
+                                                                 cfg)),
+                     matmul_ms=device_ms(lambda: torch.matmul(nx,
+                                                              nw[:, :KL])),
+                     library_ms=None,
+                     shape=f"{where} B={B}, d={d}, K={K}, L={L}",
+                     **dict(zip(("bound_ms", "bound_by"), bound(
+                         2 * B * d * KL, 2 * (B * d + d * KL) + 4 * B * L,
+                         PEAK_16BIT_TC_FLOPS))))
+            print(f"  srp_hash {dt} {r['shape']}: kernel {r['ms']:.5f} ms, "
+                  f"float32 {r['float32_ms']:.5f}, widened on the card + "
+                  f"float32 kernel {r['widen_ms']:.5f} (in turns), plain "
+                  f"{r['plain_ms']:.5f}, cuBLAS {dt} projection "
+                  f"{r['matmul_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
+                  "of bound")
+            rows.append(r)
+        out["srp_hash"][dt] = {**rows[-1], "by_shape": rows}
+        rows = []
+        for where, B, d, K, L in srht_shapes(d_model):
+            cfg, (x, _), (nx, _) = operands(B, d, K, L, dt, device, 57,
+                                            srht=True)
+            ms, runs = time_in_turns(float32=lambda: sh.srht_hash(x, cfg),
+                                     narrow=lambda: sh.srht_hash(nx, cfg))
+            b_ms, b_by = srht_bound(B, d, cfg, x_bytes=2)
+            r = dict(ms=ms["narrow"], float32_ms=ms["float32"], runs=runs,
+                     plain_ms=device_ms(lambda: sh.srht_hash_plain(nx,
+                                                                   cfg)),
+                     library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                     shape=f"{where} B={B}, d={d}, K={K}, L={L}")
+            print(f"  srht_hash {dt} {r['shape']}: kernel {r['ms']:.5f} ms, "
+                  f"float32 {r['float32_ms']:.5f} (in turns), plain "
+                  f"{r['plain_ms']:.5f}, bound {b_ms:.5f} ms ({b_by})")
+            rows.append(r)
+        out["srht_hash"][dt] = {**rows[0], "by_shape": rows}
+        B, d, K, L = ADMIT_B, d_model + 1, K_BITS, L_TABLES
+        cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 58)
+        runs, moved = fused_cases(mods, device, cfg, B)
+        ids = h.srp_hash(nx, nw, cfg)
+        KL = cfg.num_projections
+        matmul_ms = device_ms(lambda: torch.matmul(nx, nw[:, :KL]))
+        for name, run in runs.items():
+            ms, samples = time_in_turns(
+                float32=lambda: run(x, w, fresh=False),
+                narrow=lambda: run(nx, nw, fresh=False),
+                widened=lambda: run(nx.float(), nw.float(), fresh=False))
+            b_ms, b_by = bound(2 * B * d * KL,
+                               2 * (B * d + d * KL) + moved[name](ids),
+                               PEAK_16BIT_TC_FLOPS)
+            out.setdefault(name, {})[dt] = dict(
+                ms=ms["narrow"], float32_ms=ms["float32"],
+                widen_ms=ms["widened"], runs=samples, bound_ms=b_ms,
+                bound_by=b_by, library_ms=None, matmul_ms=matmul_ms,
+                shape=f"admit B={B}, d={d}, K={K}, L={L}")
+            print(f"  {name} {dt} admit B={B}, d={d}: kernel "
+                  f"{ms['narrow']:.5f} ms, float32 {ms['float32']:.5f}, "
+                  f"widened + float32 kernel {ms['widened']:.5f} (in turns), "
+                  f"cuBLAS {dt} projection {matmul_ms:.5f}, bound "
+                  f"{b_ms:.5f} ms ({b_by})")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the fault-tolerant multi-host fleet (repro_torch.cluster).  Two
+# host processes on the one card over a TCPStore this process serves, the
+# reference's chaos test (tests/test_cluster_multiprocess.py) at Mixtral's
+# width and the paper's K and L.
+# ---------------------------------------------------------------------------
+
+CL_HOSTS = ("h0", "h1")
+CL_T, CL_B, CL_D = 16, 512, 4096        # tenants; a batch's rows; d_model
+CL_CHUNK_T, CL_EPOCH_CHUNKS = 8, 2
+CL_BEAT, CL_TIMEOUT = 0.1, 1.5          # heartbeat interval, failure timeout
+CL_KILL_AFTER = 10                      # h1 dies after chunk 11: mid-epoch 6
+CL_RESUME_TO = 16                       # h0 serves adopted tenants this far
+CL_TIMING_CHUNKS = 4                    # (d): chunks a turn
+CL_DIR = ROOT / "build" / "cluster"
+CL_CHILD_TIMEOUT = 300
+CL_DEVICE = "cuda"                      # the hosts' device
+
+
+def cluster_config(host: str, root: Path):
+    """The chaos test's cluster at full width: a 16-tenant int32 fleet of
+    K = 15, L = 50 over 4097-wide features, 2 hosts, chunks of 8
+    single-tenant batches of 512 rows, an epoch 2 chunks, a checkpoint an
+    epoch.  The warmup is the reference's three batches (48 items of 16
+    rows there, 1536 of 512 here)."""
+    from repro_torch.cluster import ClusterConfig, MembershipConfig
+    return ClusterConfig(
+        host_id=host, hosts=CL_HOSTS, num_tenants=CL_T, d_model=CL_D,
+        num_bits=K_BITS, num_tables=L_TABLES, alpha=2.0,
+        warmup_items=3.0 * CL_B, insert_all=True, chunk_T=CL_CHUNK_T,
+        epoch_chunks=CL_EPOCH_CHUNKS, ckpt_root=str(root / "ckpt"),
+        ckpt_every_epochs=1, ckpt_keep=3,
+        membership=MembershipConfig(heartbeat_interval=CL_BEAT,
+                                    failure_timeout=CL_TIMEOUT))
+
+
+def cluster_batch(t: int, idx: int, B: int = CL_B, D: int = CL_D):
+    """Batch ``idx`` of tenant t, the reference chaos test's ``_GEN`` at
+    width D: rows around one of the tenant's three centres (norm 6),
+    and from batch 6 on every third batch a burst of scattered anomalies
+    (the first quarter of the rows, norm 8, each its own direction).  The
+    noise is scaled by sqrt(8 / D), so the angles are those of the
+    reference's D = 8.  Returns (x (B, D) float32, y (B,) bool)."""
+    rng = np.random.default_rng(1 + 7919 * t + idx)
+    crng = np.random.default_rng(555 + t)
+    s = np.float32(np.sqrt(8.0 / D))
+    centers = crng.standard_normal((3, D), dtype=np.float32)
+    centers *= 6.0 / np.linalg.norm(centers, axis=1, keepdims=True)
+    assign = rng.integers(0, 3, size=B)
+    x = centers[assign] + (0.5 * s) * rng.standard_normal((B, D),
+                                                          dtype=np.float32)
+    y = np.zeros(B, bool)
+    if idx >= 6 and idx % 3 == 0:
+        nb = B // 4
+        y[:nb] = True
+        d = rng.standard_normal((nb, D), dtype=np.float32)
+        d /= np.linalg.norm(d, axis=1, keepdims=True)
+        x[:nb] = 8.0 * d + (0.3 * s) * rng.standard_normal(
+            (nb, D), dtype=np.float32)
+    return x.astype(np.float32), y
+
+
+def cluster_features(filt, x: np.ndarray) -> np.ndarray:
+    """(B, D) embeddings -> (B, D + 1) features, on the host (every process
+    computes them alike)."""
+    return filt.features(torch.from_numpy(x[:, None, :])).numpy()
+
+
+class ClusterHost:
+    """A chaos host's stream: each chunk takes the next batch of each owned
+    tenant in turn, as the reference worker's ``run_chunk`` does, and logs
+    what was served and its verdicts."""
+
+    def __init__(self, node):
+        self.node = node
+        self.counters = {t: 0 for t in range(CL_T)}
+        self.step_no = 0
+        self.served, self.keeps = [], []
+        self.chunk_ms = []
+        self.published = {}           # epoch -> {tenant: n} as published
+
+    def run_chunk(self) -> None:
+        node, T = self.node, CL_CHUNK_T
+        owned = node.owned()
+        feats = np.empty((T, CL_B, CL_D + 1), np.float32)
+        tids = np.empty((T, CL_B), np.int32)
+        meta = []
+        for j in range(T):
+            t = owned[(self.step_no + j) % len(owned)]
+            idx = self.counters[t]
+            self.counters[t] += 1
+            feats[j] = cluster_features(node.filt, cluster_batch(t, idx)[0])
+            tids[j] = t
+            meta.append((t, idx))
+        self.step_no += T
+        epoch = node.epoch
+        t0 = time.perf_counter()
+        _, keeps = node.ingest_chunk(feats, tids)
+        self.chunk_ms.append(1e3 * (time.perf_counter() - t0))
+        if node.epoch != epoch:
+            n = node.state.n.cpu().numpy()
+            self.published[node.epoch] = {t: float(n[t])
+                                          for t in node.owned()}
+        for m, k in zip(meta, keeps):
+            self.served.append(m)
+            self.keeps.append(k)
+
+
+def wait_key(store, key: str, timeout: float = CL_CHILD_TIMEOUT) -> str:
+    t0 = time.monotonic()
+    while time.monotonic() - t0 < timeout:
+        v = store.get(key)
+        if v is not None:
+            return v
+        time.sleep(0.01)
+    raise CheckFailed(f"timed out waiting for {key}")
+
+
+def detection_reading(polls, last_beat, dead_at) -> tuple:
+    """h0's failure detection of h1 read from h0's poll stamps, h1's last
+    beat and the declaring poll (one monotonic clock): ((the gap between
+    the polls around the beat, the gap before the declaring poll), the
+    beat to the declaration, the timeout + one beat + the longest poll
+    gap from the beat to the declaration, that gap).  The detector marks
+    the beat seen at the first poll after it and declares h1 dead at the
+    first poll more than the timeout later, so the beat to the
+    declaration lies past the timeout and within the timeout and those
+    two gaps."""
+    j = next(i for i, p in enumerate(polls) if p >= last_beat)
+    m = polls.index(dead_at)
+    gaps = [b - a for a, b in zip(polls[j - 1:m], polls[j:m + 1])]
+    return ((gaps[0], gaps[-1]), dead_at - last_beat,
+            CL_TIMEOUT + CL_BEAT + max(gaps), max(gaps))
+
+
+def cluster_child(role: str, port: int, root: Path) -> int:
+    """One host of phase 18, run as ``chip_smoke.py --cluster-child ROLE
+    PORT DIR``: "h0" serves and survives, "h1" serves and dies (exit 137,
+    no cleanup) half an epoch past its last publish, "h1b" is h1 restarted
+    cold, rejoining.  Writes its results under DIR; the kernels are
+    already built, so it only loads them."""
+    mods = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False   # the probe's plain hash
+    from repro_torch.cluster import (ClusterNode, DistributedStore,
+                                     GossipBus, RejoinPolicy)
+    from repro_torch.kernels import build
+    device = torch.device(CL_DEVICE)
+    if device.type == "cuda":
+        for name in build.sources():
+            build.load(name)
+    store = DistributedStore(host="127.0.0.1", port=port)
+    node = ClusterNode(cluster_config(role[:2], root), store, device=device)
+    out = {"role": role}
+    if role == "h1b":
+        t0 = time.time()
+        ok = node.try_rejoin(RejoinPolicy(max_attempts=8, base_delay=0.1))
+        n = node.state.n.cpu().numpy()
+        out.update(rejoined=ok, rejoin_s=time.time() - t0,
+                   adoptions=node.adoptions, owned=list(node.owned()),
+                   map_version=node.map.version,
+                   n={str(t): float(n[t]) for t in node.owned()})
+        (root / "h1b.json").write_text(json.dumps(out))
+        store.set("h1b_done", "1")
+        return 0
+    host = ClusterHost(node)
+    # Stamps on the machine's one monotonic clock, shared by the processes:
+    # each heartbeat h1 writes (taken before the write) and each poll of
+    # h0's failure detector (taken before the poll).
+    stamps = []
+    stamped = node.heartbeat.beat if role == "h1" else node.detector.poll
+
+    def stamp(*args):
+        stamps.append(time.monotonic())
+        return stamped(*args)
+    if role == "h1":
+        node.heartbeat.beat = stamp
+    else:
+        node.detector.poll = stamp
+    reset_launches(mods)
+    host.run_chunk()
+    store.set(f"warm/{role}", "1")
+    wait_key(store, f"warm/{'h1' if role == 'h0' else 'h0'}")
+    if role == "h1":
+        for i in range(CL_KILL_AFTER):
+            host.run_chunk()
+            if i == 0:       # (a): h0's first epoch's blob, fetched here
+                want = json.loads(wait_key(store, "published/h0/1"))
+                t0 = time.perf_counter()
+                got = GossipBus(store, "h1").latest("h0")
+                out["fetch_ms"] = 1e3 * (time.perf_counter() - t0)
+                out["fetched"] = {"epoch": got[0], "map_version": got[2],
+                                  "n": {str(t): float(a.n)
+                                        for t, a in got[1].items()},
+                                  "dtype": str(next(iter(
+                                      got[1].values())).counts.dtype)}
+                out["fetch_ok"] = (got[0] == 1 and out["fetched"]["n"]
+                                   == want)
+            node.control_step()
+            time.sleep(0.05)
+        sync(device)
+        out.update(launches=read_launches(mods), chunk_ms=host.chunk_ms,
+                   boundary_ms=node.boundary_ms, last_beat_at=stamps[-1],
+                   killed_at=time.monotonic())
+        (root / "h1.json").write_text(json.dumps(out))
+        sys.stdout.flush()
+        os._exit(137)                     # SIGKILL-equivalent: no cleanup
+    # h0: serve, detect, re-home, resume the adopted streams
+    seen, t_dead, reshard_ms = 0, None, None
+    for loop in range(400):
+        host.run_chunk()
+        if loop == 0:
+            store.set("published/h0/1", json.dumps(
+                {str(t): v for t, v in host.published[1].items()}))
+        t0 = time.perf_counter()
+        dead = node.control_step()
+        if dead and t_dead is None:
+            t_dead, polls = stamps[-1], list(stamps)   # the declaring poll
+            reshard_ms = 1e3 * (time.perf_counter() - t0)
+        for rec in node.adoptions[seen:]:          # resume adopted streams
+            host.counters[rec["tenant"]] = int(round(rec["n"] / CL_B))
+            seen += 1
+        time.sleep(0.03)
+        if len(node.owned()) == CL_T:
+            adopted = [a["tenant"] for a in node.adoptions]
+            if adopted and all(host.counters[t] >= CL_RESUME_TO
+                               for t in adopted):
+                break
+    else:
+        raise CheckFailed("h1's death never produced a full adoption")
+    # one more publish, so the gossip carries the adopted tenants
+    target = node.epoch + 1
+    while node.epoch < target:
+        host.run_chunk()
+        node.control_step()
+    sync(device)
+    launches = read_launches(mods)
+    surv = sorted(set(range(CL_T)) - {a["tenant"] for a in node.adoptions})
+    qx = np.random.default_rng(424242).standard_normal(
+        (CL_B, CL_D), dtype=np.float32)
+    qf = cluster_features(node.filt, qx)
+    probe = np.stack([node.probe_scores(qf, np.full(CL_B, t, np.int32))
+                      for t in surv])
+    s = node.state
+    np.savez(root / "h0_result.npz", counts=s.counts.cpu().numpy(),
+             n=s.n.cpu().numpy(), mean=s.welford_mean.cpu().numpy(),
+             m2=s.welford_m2.cpu().numpy(),
+             served_t=np.array([t for t, _ in host.served], np.int32),
+             served_i=np.array([i for _, i in host.served], np.int32),
+             keeps=np.stack(host.keeps), probe=probe,
+             surv=np.array(surv, np.int32))
+    out.update(adoptions=node.adoptions, epoch=node.epoch,
+               map_version=node.map.version,
+               gossip_bytes=node.gossip.published_bytes,
+               gossip_epochs=node.gossip.published_epochs,
+               boundary_ms=node.boundary_ms, chunk_ms=host.chunk_ms,
+               published={str(e): v for e, v in host.published.items()},
+               dead_at=t_dead, polls=polls, reshard_ms=reshard_ms,
+               launches=launches)
+    (root / "h0.json").write_text(json.dumps(out))
+    store.set("h0_ready", "1")
+    # (c): keep the control plane running until the cold h1 is back
+    t0 = time.monotonic()
+    while store.get("h1b_done") is None:
+        if time.monotonic() - t0 > CL_CHILD_TIMEOUT:
+            raise CheckFailed("h1 never rejoined")
+        node.control_step()
+        time.sleep(0.05)
+    node.control_step()
+    (root / "h0_after.json").write_text(json.dumps(
+        {"map_version": node.map.version, "owned": list(node.owned())}))
+    return 0
+
+
+def spawn_child(role: str, port: int, root: Path) -> subprocess.Popen:
+    log = open(root / f"{role}.log", "w")
+    return subprocess.Popen(
+        [sys.executable, str(ROOT / "chip_smoke.py"), "--cluster-child",
+         role, str(port), str(root)], stdout=log, stderr=subprocess.STDOUT,
+        cwd=str(ROOT))
+
+
+def child_log(root: Path, role: str) -> str:
+    path = root / f"{role}.log"
+    return path.read_text()[-3000:] if path.exists() else ""
+
+
+def wait_child(proc, root: Path, role: str, rc: int) -> None:
+    try:
+        got = proc.wait(timeout=CL_CHILD_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        raise CheckFailed(f"cluster host {role} timed out:\n"
+                          + child_log(root, role))
+    if got != rc:
+        print(child_log(root, role))
+    check(got == rc, f"cluster host {role} exited {got} (want {rc})")
+
+
+def cluster_oracle(device, served_max: dict):
+    """The never-failed run on the card: each tenant's batches 0..max, in
+    order, one single-batch chunk at a time through a plain
+    ``StreamRunner`` over the same filter (the same W: one seed).  Returns
+    (state, {(tenant, idx): keep}, filter, W)."""
+    from repro_torch.fleet.filter import FleetDataFilter
+    from repro_torch.stream.runner import StreamRunner
+    c = cluster_config("h0", CL_DIR)
+    filt = FleetDataFilter(d_model=c.d_model, num_tenants=c.num_tenants,
+                           num_bits=c.num_bits, num_tables=c.num_tables,
+                           alpha=c.alpha, warmup_items=c.warmup_items,
+                           insert_all=c.insert_all, device=device)
+    runner = StreamRunner(filt, chunk_T=1, return_masks=True)
+    state, w = runner.init()
+    keeps = {}
+    for t in range(CL_T):
+        tid = torch.full((1, CL_B), t, dtype=torch.int32, device=device)
+        for idx in range(served_max[t] + 1):
+            f = torch.as_tensor(cluster_features(
+                filt, cluster_batch(t, idx)[0]), device=device)[None]
+            state, _, k = runner.consume(state, w, f, tid)
+            keeps[(t, idx)] = k[0].cpu().numpy()
+    return state, keeps, filt, w
+
+
+def cluster_recall(keep_of, pairs) -> tuple:
+    flagged = total = 0
+    for t, i in pairs:
+        _, y = cluster_batch(t, i)
+        if not y.any():
+            continue
+        k = np.asarray(keep_of(t, i), bool)
+        flagged += int((~k[y]).sum())
+        total += int(y.sum())
+    return flagged / max(total, 1), total
+
+
+def cluster_timing(device, card) -> dict:
+    """(d) ``ClusterNode.ingest_chunk`` (h0's ownership mask, gossip to an
+    in-process store and a checkpoint an epoch) in turns with a plain
+    ``StreamRunner`` (its fleet upload, ``consume`` and one ``fetch``) on
+    the same fleet, ``CL_TIMING_CHUNKS`` chunks a turn, host clock around
+    work that ends in a fetch."""
+    from repro_torch.cluster import ClusterNode, MemStore
+    from repro_torch.stream.runner import StreamRunner
+    node = ClusterNode(cluster_config("h0", CL_DIR / "timing"), MemStore(),
+                       device=device)
+    plain = StreamRunner(node.filt, chunk_T=CL_CHUNK_T, return_masks=True)
+    owned = node.owned()
+    chunks = []
+    for c in range(CL_TIMING_CHUNKS):
+        feats = np.stack([cluster_features(node.filt, cluster_batch(
+            owned[(c * CL_CHUNK_T + j) % len(owned)], c)[0])
+            for j in range(CL_CHUNK_T)])
+        tids = np.stack([np.full(CL_B, owned[(c * CL_CHUNK_T + j)
+                                             % len(owned)], np.int32)
+                         for j in range(CL_CHUNK_T)])
+        chunks.append((feats, tids))
+
+    def run_node():
+        for feats, tids in chunks:
+            node.ingest_chunk(feats, tids)
+
+    def run_plain():
+        for feats, tids in chunks:
+            f, t = plain._upload_fleet(list(feats), list(tids))
+            node.state, summary, keeps = plain.consume(node.state, node.w,
+                                                       f, t)
+            plain.fetch(summary)
+            keeps.cpu()
+
+    run_node()                               # warm both
+    run_plain()
+    runs = {"node": [], "plain": []}
+    for k, fn in (("node", run_node), ("plain", run_plain),
+                  ("plain", run_plain), ("node", run_node)) * 2:
+        sync(device)
+        t0 = time.perf_counter()
+        fn()
+        runs[k].append(time.perf_counter() - t0)
+    items = CL_TIMING_CHUNKS * CL_CHUNK_T * CL_B
+    r = {k: items / statistics.median(v) for k, v in runs.items()}
+    bd = node.boundary_ms[2:]                # past the warm-up's
+    split = {k: statistics.median(b[k] for b in bd)
+             for k in ("d2h", "pack", "publish", "ckpt")}
+    print(f"  (d) ingest_chunk {r['node']:,.0f} items/s, plain StreamRunner "
+          f"{r['plain']:,.0f} items/s on the same fleet (in turns, "
+          f"{CL_TIMING_CHUNKS} chunks of {CL_CHUNK_T} x {CL_B} a turn; "
+          f"{card})")
+    print("  (d) epoch boundary (median of " + str(len(bd)) + "): fleet "
+          f"D2H {split['d2h']:.3f} ms ({node.state.counts.numel() * 4:,} B "
+          f"of counts), pack + CRC {split['pack']:.3f} ms, store set "
+          f"{split['publish']:.3f} ms, checkpoint save {split['ckpt']:.3f} "
+          f"ms; gossip {bd[-1]['bytes']:,} B a publish")
+    return {"node_items_per_s": r["node"], "plain_items_per_s": r["plain"],
+            "runs": runs, "boundary_ms": split}
+
+
+def phase_cluster(mods, device, card) -> dict:
+    """Phase 18 (see the module docstring): (a) the KV and gossip round trip
+    between the two host processes, (b) the chaos kill against the
+    never-failed oracle, (c) the cold rejoin, (d) timing."""
+    from repro_torch.cluster import ShardMap
+    shutil.rmtree(CL_DIR, ignore_errors=True)
+    CL_DIR.mkdir(parents=True)
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    server = torch.distributed.TCPStore(
+        "127.0.0.1", port, is_master=True, wait_for_workers=False,
+        timeout=datetime.timedelta(seconds=CL_CHILD_TIMEOUT))
+    procs = {}
+    try:
+        t_start = time.perf_counter()
+        procs["h0"] = spawn_child("h0", port, CL_DIR)
+        procs["h1"] = spawn_child("h1", port, CL_DIR)
+        wait_child(procs["h1"], CL_DIR, "h1", 137)
+        t0 = time.monotonic()
+        while server.check(["h0_ready"]) is False:
+            if procs["h0"].poll() is not None or \
+                    time.monotonic() - t0 > CL_CHILD_TIMEOUT:
+                print(child_log(CL_DIR, "h0"))
+                raise CheckFailed("h0 never finished re-homing h1's tenants")
+            time.sleep(0.05)
+        procs["h1b"] = spawn_child("h1b", port, CL_DIR)
+        wait_child(procs["h1b"], CL_DIR, "h1b", 0)
+        wait_child(procs["h0"], CL_DIR, "h0", 0)
+        children_s = time.perf_counter() - t_start
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        del server
+    h0 = json.loads((CL_DIR / "h0.json").read_text())
+    h1 = json.loads((CL_DIR / "h1.json").read_text())
+    h1b = json.loads((CL_DIR / "h1b.json").read_text())
+    after = json.loads((CL_DIR / "h0_after.json").read_text())
+    res = np.load(CL_DIR / "h0_result.npz")
+    print(f"  the two hosts and the rejoin ran in {children_s:.1f} s "
+          f"(processes started after the kernels were built)")
+
+    # (a) the KV and gossip round trip
+    b0 = h0["boundary_ms"][0]
+    print(f"  (a) h0's first publish: {b0['bytes']:,} B for "
+          f"{len(h1['fetched']['n'])} tenants at full width, store set "
+          f"{b0['publish']:.3f} ms; h1's fetch of it {h1['fetch_ms']:.3f} "
+          f"ms ({card})")
+    check(h1["fetch_ok"] and h1["fetched"]["dtype"] == "int32",
+          "h1 fetched h0's epoch-1 blob across processes: CRCs pass, n as "
+          "h0 published it")
+
+    # (b) the chaos kill
+    adopted = {a["tenant"]: a for a in h0["adoptions"]}
+    surv = set(res["surv"].tolist())
+    won1 = set(ShardMap(0, CL_HOSTS, CL_T).owned_by("h1"))
+    check(set(adopted) == won1 and surv | won1 == set(range(CL_T)),
+          f"h0 adopted exactly h1's {len(won1)} tenants and kept its "
+          f"{len(surv)}")
+    check(all(r["source"] == "gossip" and r["source_epoch"] == 5
+              and r["n"] == 10.0 * CL_B for r in adopted.values()),
+          "every adopted tenant came from h1's last gossip (epoch 5) with "
+          "exact n (10 of its 11 batches)")
+    latency = h0["dead_at"] - h1["killed_at"]
+    ((obs_gap, decl_gap), since_beat, issue_limit,
+     window_loop) = detection_reading(h0["polls"], h1["last_beat_at"],
+                                      h0["dead_at"])
+    print(f"  (b) kill to declared dead {1e3 * latency:.1f} ms, h1's last "
+          f"beat to declared dead {1e3 * since_beat:.1f} ms (failure "
+          f"timeout {1e3 * CL_TIMEOUT:.0f} ms, beat {1e3 * CL_BEAT:.0f} ms; "
+          f"h0's polls {1e3 * obs_gap:.1f} ms apart around h1's last beat "
+          f"and {1e3 * decl_gap:.1f} ms before the declaring one; the "
+          f"longest poll gap from the beat to the declaration "
+          f"{1e3 * window_loop:.1f} ms, so timeout + one beat + that gap "
+          f"{1e3 * issue_limit:.1f} ms, "
+          f"{'held' if latency <= issue_limit else 'exceeded'}); re-shard + "
+          f"adoption of {len(adopted)} tenants {h0['reshard_ms']:.3f} ms")
+    check(CL_TIMEOUT < since_beat <= CL_TIMEOUT + obs_gap + decl_gap,
+          f"h1 declared dead {since_beat:.3f} s after its last beat: past "
+          f"the failure timeout, at the first poll past it (within the "
+          f"timeout + the poll gap around the beat + the poll gap before "
+          f"the declaration, {CL_TIMEOUT + obs_gap + decl_gap:.3f} s)")
+    served = list(zip(res["served_t"].tolist(), res["served_i"].tolist()))
+    served_max = {}
+    for t, i in served:
+        served_max[t] = max(served_max.get(t, -1), i)
+    t0 = time.perf_counter()
+    oracle, okeeps, filt, w = cluster_oracle(device, served_max)
+    print(f"  oracle replay of {sum(v + 1 for v in served_max.values())} "
+          f"batches on the card in {time.perf_counter() - t0:.1f} s")
+    same = all(np.array_equal(res[k][t], getattr(oracle, f)[t].cpu().numpy())
+               for t in surv for k, f in (("counts", "counts"), ("n", "n"),
+                                          ("mean", "welford_mean"),
+                                          ("m2", "welford_m2")))
+    check(same, "survivors' counts, n and Welford bitwise the never-failed "
+          "oracle's")
+    check(all(np.array_equal(res["counts"][t], oracle.counts[t].cpu().numpy())
+              and res["n"][t] == float(oracle.n[t]) for t in adopted),
+          "adopted tenants' counts and n equal the oracle's (seamless "
+          "resume)")
+    from repro_torch.core import srp
+    from repro_torch.fleet import state as fl
+    qx = np.random.default_rng(424242).standard_normal((CL_B, CL_D),
+                                                       dtype=np.float32)
+    qf = torch.as_tensor(cluster_features(filt, qx), device=device)
+    buckets = srp.hash_buckets(qf, w, filt.ace_cfg.srp)
+    check(all(np.array_equal(row, fl.fleet_scores(
+        oracle, torch.full((CL_B,), t, dtype=torch.int32, device=device),
+        buckets).cpu().numpy()) for row, t in zip(res["probe"],
+                                                  sorted(surv))),
+        "survivors' probe scores equal the oracle's exactly")
+    check(all(np.array_equal(k.astype(bool), okeeps[ti].astype(bool))
+              for ti, k in zip(served, res["keeps"])),
+          f"all {len(served)} batches h0 served got the oracle's verdicts")
+    post = [(t, i) for t, i in served if t in adopted and i >= 10]
+    faulted = {ti: k for ti, k in zip(served, res["keeps"])}
+    r_fault, n_fault = cluster_recall(lambda t, i: faulted[(t, i)], post)
+    r_free, n_free = cluster_recall(
+        lambda t, i: okeeps[(t, i)],
+        [(t, i) for t in adopted for i in range(11, served_max[t] + 1)])
+    print(f"  (b) recall after re-homing {r_fault:.4f} ({n_fault} anomalies)"
+          f", fault-free {r_free:.4f} ({n_free})")
+    check(n_fault > 0 and r_free > 0 and r_fault >= 0.9 * r_free,
+          "recall after re-homing >= 0.9 x fault-free")
+
+    # (c) the cold rejoin
+    moved = {a["tenant"] for a in h1b["adoptions"]}
+    pub = h0["published"][str(max(map(int, h0["published"])))]
+    check(h1b["rejoined"] and moved == won1 and set(h1b["owned"]) == won1
+          and set(after["owned"]) == surv and after["map_version"] == 2,
+          f"h1 rejoined in {h1b['rejoin_s']:.3f} s and won back only its "
+          f"{len(won1)} HRW tenants; h0 kept its own")
+    check(all(a["source"] == "gossip" and a["from_host"] == "h0"
+              and a["n"] == pub[str(a["tenant"])] for a in h1b["adoptions"]),
+          "the rejoined host took them from h0's last gossip with exact n")
+
+    # the fleet step's kernels on the card, in each serving host
+    paths = {}
+    for role, r in (("h0", h0), ("h1", h1)):
+        lc = r["launches"]
+        print(f"  launches ({role}): " + ", ".join(
+            f"{k} {v}" for k, v in lc.items() if v))
+        check(all(lc[k] > 0 for k in ("srp_hash", "ace_query", "ace_update"))
+              and lc["ace_query_gather"] == 0,
+              f"{role} launched srp_hash, ace_query_sum and ace_update, and "
+              "no (B, L) ace_query gather")
+        paths[f"cluster_{role}"] = {"launches": lc}
+        cms = r["chunk_ms"][1:]
+        rate = CL_CHUNK_T * CL_B / (1e-3 * statistics.median(cms))
+        print(f"  (d) {role}: ingest_chunk {rate:,.0f} items/s (median of "
+              f"{len(cms)} chunks during the run, host clock)")
+    bd = h0["boundary_ms"]
+    print(f"  (d) h0's epoch boundaries: gossip {bd[-1]['bytes']:,} B a "
+          f"publish ({h0['gossip_bytes']:,} B over {h0['gossip_epochs']} "
+          "epochs)")
+    cluster_timing(device, card)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
               "needs a CUDA device", file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--cluster-child"]:     # a phase-18 host process
+        return cluster_child(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]))
     mods = import_port()
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash
@@ -5788,9 +6685,14 @@ def main() -> int:
     print("phase 2: the seven count-reading kernels in int16, int8 and "
           "float32 against their plain versions on the card")
     err_dt = phase_kernels_dtypes(mods, device)
+    print("phase 2: the six hash kernels on bfloat16 and float16 x and W "
+          "against their plain versions on the card")
+    err_op = phase_kernels_operands(mods, device)
+    op_admit = narrow_admit_path(mods, device)
     print("phase 3: AceEstimator path")
     paths = {"estimator": phase_estimator(mods, device),
-             "estimator_srht": phase_estimator_srht(mods, device)}
+             "estimator_srht": phase_estimator_srht(mods, device),
+             "operands_admit_bfloat16": op_admit}
     print("phase 4: Guardrail path")
     paths["guardrail"] = phase_guardrail(mods, device)
     print("phase 5: stream paths (AceDataFilter, WindowedAceFilter, "
@@ -5822,6 +6724,9 @@ def main() -> int:
         mods, device, *(paths[f"guardrail_{k}"]["guardrail"]
                         for k in GUARD_KINDS)))
     times.update(phase_timing_attr(mods, device, paths["attribution_srht"]))
+    print("phase 8: the dense and SRHT hashes on bfloat16 and float16 "
+          "operands, in turns with float32")
+    times_op = phase_timing_operands(mods, device)
     for k, v in {**time_query_paths(device),
                  **time_public_paths(device)}.items():
         print(f"  {k}: " + "; ".join(f"{r['shape']} {r['ms']:.5f} ms"
@@ -5919,6 +6824,13 @@ def main() -> int:
     paths.update({k: v for k, v in trained.items() if "launches" in v})
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
 
+    print("phase 18: the fault-tolerant multi-host fleet (repro_torch."
+          "cluster): two host processes on the card, a kill, re-homing "
+          "and a rejoin")
+    t18 = time.perf_counter()
+    paths.update(phase_cluster(mods, device, card))
+    print(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -5951,6 +6863,14 @@ def main() -> int:
                                      for r in paths.values()
                                      if r.get("dtype") == dt)}
                 for dt in ("int16", "int8", "float32")}
+        if name in OPERAND_KERNELS:
+            kernels[-1].setdefault("by_dtype", {}).update({
+                dt: {**times_op.get(name, {}).get(dt, {}),
+                     "max_abs_err": err_op[name][dt],
+                     "launches": sum(r["launches"][name]
+                                     for r in paths.values()
+                                     if r.get("dtype") == dt)}
+                for dt in OPERAND_DTYPES})
     print(f"end to end (host clock): estimator fit + score + predict "
           f"{paths['estimator']['seconds']:.3f} s; srht estimator fit + "
           f"score {paths['estimator_srht']['seconds']:.3f} s; guardrail "

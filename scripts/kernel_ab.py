@@ -7,9 +7,16 @@ the fused windowed-fleet admission at its guardrail's shape — and the
 public functions ``attribution.find_hh`` (phase 7's hierarchy),
 ``ops.ace_score`` (the estimator's score shape, with and without a table
 mask), ``ops.ace_window_score`` (with and without a table mask) and
-``ops.ace_fleet_score`` (phase 6's query shape).
+``ops.ace_fleet_score`` (phase 6's query shape).  With ``--operands``
+it times instead the six hash kernels on bfloat16 and float16 operands
+in turns with float32 (and the five dense ones with the operands widened
+on the card first), as ``chip_smoke.phase_timing_operands`` does; with
+``--float32``, the five dense hash kernels on float32 operands alone
+(``srp_hash`` at its three main-path shapes, the fused four at the admit
+shape), which every checkout since the fused kernels can run.
 
     python scripts/kernel_ab.py [--root DIR] [--label NAME]
+                                [--operands | --float32]
 
 The kernels come from ``DIR/src/repro_torch`` (default: this checkout)
 and are built there; the inputs, shapes and timing are this checkout's
@@ -31,11 +38,34 @@ import torch
 HERE = Path(__file__).resolve().parents[1]
 
 
+def time_float32_hashes(cs, mods, device) -> dict:
+    """Device ms of ``srp_hash`` at the dense hash's three main-path
+    shapes and of the four fused hash kernels at the admit shape, on
+    float32 operands (``chip_smoke``'s shapes, inputs and timing)."""
+    h, out = mods["srp_hash"], {}
+    for where, B, d, K, L in cs.dense_hash_shapes():
+        cfg, (x, w), _ = cs.operands(B, d, K, L, "bfloat16", device, 56)
+        out[f"srp_hash {where}"] = cs.device_ms(lambda: h.srp_hash(x, w,
+                                                                    cfg))
+    B, d = cs.ADMIT_B, cs.D_MODEL + 1
+    cfg, (x, w), _ = cs.operands(B, d, cs.K_BITS, cs.L_TABLES, "bfloat16",
+                                 device, 58)
+    runs, _ = cs.fused_cases(mods, device, cfg, B)
+    for name, run in runs.items():
+        out[name] = cs.device_ms(lambda: run(x, w, fresh=False))
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--root", type=Path, default=HERE,
                     help="checkout whose kernels to time")
     ap.add_argument("--label", default=None)
+    mode = ap.add_mutually_exclusive_group()
+    mode.add_argument("--operands", action="store_true",
+                      help="time the hash kernels on 2-byte operands only")
+    mode.add_argument("--float32", action="store_true",
+                      help="time the dense hash kernels on float32 only")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("kernel_ab: torch.cuda.is_available() is false; this script "
@@ -51,6 +81,25 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash's ids
     build.build_all()
     device = torch.device("cuda")
+    if args.operands or args.float32:
+        import importlib
+        mods = {k: importlib.import_module(f"repro_torch.kernels.{k}")
+                for k in chip_smoke.KERNELS}
+    if args.float32:
+        print(json.dumps({"label": args.label or str(root),
+                          "card": chip_smoke.card_line(),
+                          **time_float32_hashes(chip_smoke, mods, device)}))
+        return 0
+    if args.operands:
+        times = chip_smoke.phase_timing_operands(mods, device)
+        keep = ("ms", "float32_ms", "widen_ms", "matmul_ms", "plain_ms",
+                "bound_ms", "bound_by", "shape")
+        print(json.dumps({
+            "label": args.label or str(root), "card": chip_smoke.card_line(),
+            **{k: {dt: [{f: r[f] for f in keep if f in r}
+                        for r in e.get("by_shape", [e])]
+                   for dt, e in v.items()} for k, v in times.items()}}))
+        return 0
     times = chip_smoke.time_update_and_srht(ace_update, srht_hash, device)
     times.update(chip_smoke.time_query_paths(device))
     times.update(chip_smoke.time_public_paths(device))

@@ -7,7 +7,7 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``data.synthetic``, ``window``, ``fleet``, ``quantile``,
 ``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
 ``resilience``, ``train``, ``launch.train``, ``baselines``, ``models``,
-``configs``).  It imports
+``configs``, ``cluster``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -44,6 +44,12 @@ autograd, remat, microbatches, the ``optim`` optimisers and ``schedule``,
 int8 ``compression`` with error feedback) behind the ACE data filter and
 the ACE gradient monitor (``fault.GradMonitor``), with checkpoint,
 restart and rollback; ``launch.train`` is its command line.
+``cluster`` serves a fleet across hosts that fail: rendezvous-hashed
+tenants, heartbeats, CRC-framed gossip of each epoch's sketches over a
+``torch.distributed`` ``TCPStore``, failover from a peer's gossip or
+checkpoint, and rejoin.  Projections come in float32, bfloat16 or
+float16; the hash kernels widen narrow x and W to float32 as they load
+them.
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,
@@ -60,7 +66,6 @@ import torch
 
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    9: "bf16/fp16 SRP projections (bf16 operands in srp_gemm.cuh)",
     13: "repro.dist, with launch.dryrun, launch.mesh and Arch.input_specs, "
         "cache_specs and all_cells",
 }

@@ -24,8 +24,21 @@ from repro_torch.core.sketch import AceState
 
 
 def params_from_numpy(w, device) -> torch.Tensor:
-    """The SRP projection matrix W (d, P), or (d, 0) under SRHT, as a
-    float32 tensor on ``device``."""
+    """The SRP projection matrix W (d, P), or (d, 0) under SRHT, as a tensor
+    on ``device``: a bfloat16 or float16 W keeps its dtype, any other comes
+    as float32.
+
+    ``np.asarray`` of a JAX bfloat16 array is an array of ``ml_dtypes``'
+    bfloat16, which ``torch.from_numpy`` does not take: its bits are read
+    as uint16 and viewed as ``torch.bfloat16``, so the values are exact.
+    The dtype is known by its name, so this module needs no ``ml_dtypes``.
+    """
+    w = np.asarray(w)
+    if w.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(w).view(np.uint16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    if w.dtype == np.float16:
+        return torch.as_tensor(np.array(w), device=device)
     return torch.as_tensor(np.array(w, np.float32), device=device)
 
 

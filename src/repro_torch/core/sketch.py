@@ -164,9 +164,9 @@ def init(cfg: AceConfig, device) -> AceState:
 
 def make_params(cfg: AceConfig, generator: torch.Generator | None = None,
                 device=None, *, dtype=torch.float32) -> torch.Tensor:
-    """The SRP projection matrix W (d, KL_padded); see
-    ``srp.make_projections`` for how the draw relates to the reference
-    (float32 only, like it)."""
+    """The SRP projection matrix W (d, KL_padded) in ``dtype`` (float32,
+    bfloat16 or float16); see ``srp.make_projections`` for how the draw
+    relates to the reference's."""
     return make_projections(cfg.srp, generator=generator, device=device,
                             dtype=dtype)
 

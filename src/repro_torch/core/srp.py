@@ -24,10 +24,9 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
-
-from repro_torch import not_ported
 
 LANE = 128  # the reference pads K·L to this multiple; kept for W's shape
 
@@ -37,6 +36,11 @@ def _round_up(x: int, m: int) -> int:
 
 
 HASH_MODES = ("dense", "srht", "auto")
+
+# The projection dtypes: the reference's, and the operand types of every
+# hash kernel, in the order of their codes (csrc/common.cuh OperandCode).
+# The kernels widen each element to float32 as they load it.
+OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +103,26 @@ def check_projections(w: torch.Tensor, cfg: SrpConfig) -> None:
     raise ValueError(msg)
 
 
+def projection_dtype(dtype) -> torch.dtype:
+    """The dtype W is drawn in for a requested ``dtype``: float32, bfloat16
+    and float16 (the reference's, and every hash kernel's operand dtypes,
+    ``OPERAND_DTYPES``) as they are; float64 as float32 with a
+    ``UserWarning``, as the reference does without 64-bit JAX
+    (``jax.random.normal`` truncates it); anything else raises
+    ``TypeError``."""
+    if dtype in OPERAND_DTYPES:
+        return dtype
+    if dtype == torch.float64:
+        warnings.warn("make_projections: float64 projections are not "
+                      "available and are drawn in float32, as the JAX "
+                      "package does without jax_enable_x64", UserWarning,
+                      stacklevel=3)
+        return torch.float32
+    raise TypeError(f"make_projections: dtype {dtype} is not a projection "
+                    f"dtype (want one of "
+                    f"{', '.join(map(str, OPERAND_DTYPES))})")
+
+
 def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
                      device=None, *, dtype=torch.float32) -> torch.Tensor:
     """Sample the (d, P) Gaussian projection matrix W.
@@ -111,20 +135,23 @@ def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
     same projections, carry the JAX ``W`` across with
     ``repro_torch.core.convert.params_from_numpy``.
 
-    Under the SRHT family W is never read: a (d, 0) placeholder keeps
-    every ``(state, w, x)`` signature, as in the reference.  ``dtype``
-    is the reference's argument; only float32 is ported (narrower
-    projections come with the narrow planes of ROADMAP queue 1 item 9).
+    ``dtype`` is float32, bfloat16 or float16 (``projection_dtype``: float64
+    gives float32 and a warning, as in the reference).  A narrow W is the
+    float32 draw rounded to nearest in the narrow dtype, so one seed gives
+    the same directions in every dtype; the hash kernels widen it back to
+    float32 as they read it.  Under the SRHT family W is never read: a
+    (d, 0) placeholder in ``dtype`` keeps every ``(state, w, x)``
+    signature, as in the reference.
     """
-    if dtype != torch.float32:
-        not_ported(f"make_projections(dtype={dtype})", 9)
+    dtype = projection_dtype(dtype)
     if resolve_hash_mode(cfg) == "srht":
-        return torch.zeros((cfg.dim, 0), dtype=torch.float32, device=device)
+        return torch.zeros((cfg.dim, 0), dtype=dtype, device=device)
     if generator is None:
         generator = torch.Generator().manual_seed(cfg.seed)
     w = torch.randn((cfg.dim, cfg.padded_projections), generator=generator,
                     device=generator.device, dtype=torch.float32)
-    return w.to(device if device is not None else generator.device)
+    return w.to(device=device if device is not None else generator.device,
+                dtype=dtype)
 
 
 def srp_bits(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:

@@ -37,16 +37,16 @@
 
 namespace {
 
-template <typename Cnt>
+template <typename Cnt, bool kNarrow>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
-                                  repro::gemm::kMinBlocks)
-admit_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
-                  const float* __restrict__ w, int* __restrict__ buckets,
-                  float* __restrict__ gathered, int B, int d, int P, int K,
-                  int L, long long nbuckets, repro::gemm::Plan plan) {
+                                  repro::gemm::min_blocks(kNarrow))
+admit_hash_gather(const Cnt* __restrict__ counts, repro::gemm::Operands op,
+                  int* __restrict__ buckets, float* __restrict__ gathered,
+                  int B, int d, int P, int K, int L, long long nbuckets,
+                  repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
-  repro::gemm::srp_gemm_tile(
-      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
         gathered[o] = static_cast<float>(
@@ -89,14 +89,15 @@ admit_score_insert(Cnt* __restrict__ counts,
 }  // namespace
 
 // counts (L, nbuckets) of the type `count_type` (repro::CountCode; int8
-// planes 4-byte aligned), updated in place; q (B, d), w (d, P) fp32,
-// w 16-byte aligned; thresh: one fp32 on the device; item_mask (B,) bool
-// or null.  Outputs: buckets (B, L) int32, scores (B,) fp32, admit (B,)
-// bool; gathered (B, L) fp32 is scratch.  nbuckets is 64-bit (2^31 at
-// K = 31).  The hash's plan as in repro_srp_hash.  Needs 1 <= K <= 31,
-// B >= 1; a plan that does not fit returns cudaErrorInvalidValue.
-REPRO_API int repro_ace_admit_fused(void* counts, const float* q,
-                                    const float* w, const float* thresh,
+// planes 4-byte aligned), updated in place; q (B, d), w (d, P) of the types
+// x_type, w_type (fp32, bf16 or fp16), w 16-byte aligned; thresh: one fp32
+// on the device; item_mask (B,) bool or null.  Outputs: buckets (B, L) int32,
+// scores (B,) fp32, admit (B,) bool; gathered (B, L) fp32 is
+// scratch.  nbuckets is 64-bit (2^31 at K = 31).  The hash's plan as in
+// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does not fit
+// returns cudaErrorInvalidValue.
+REPRO_API int repro_ace_admit_fused(void* counts, const void* q,
+                                    const void* w, const float* thresh,
                                     const unsigned char* item_mask,
                                     int* buckets, float* gathered,
                                     float* scores, unsigned char* admit,
@@ -106,20 +107,22 @@ REPRO_API int repro_ace_admit_fused(void* counts, const float* q,
                                     int groups, int splits, int b0, int b1,
                                     int b2, int b3, int b4, int b5, int b6,
                                     int b7, int b8, int count_type,
-                                    void* stream) {
+                                    int x_type, int w_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Operands op{q, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (!repro::with_count_type(count_type, [&](auto tag) {
         using T = decltype(tag);
         T* c = static_cast<T*>(counts);
-        err = repro::gemm::launch(admit_hash_gather<T>, plan, s, c, q, w,
-                                  buckets, gathered, B, d, P, K, L,
-                                  nbuckets, plan);
+        err = repro::gemm::launch(
+            op, admit_hash_gather<T, false>, admit_hash_gather<T, true>,
+            plan, s, c, op, buckets, gathered, B, d, P, K, L, nbuckets,
+            plan);
         if (err != cudaSuccess) return;
         admit_score_insert<T><<<(B + kInsertRows - 1) / kInsertRows,
                                 32 * kInsertRows, 0, s>>>(

@@ -36,11 +36,10 @@ namespace {
 
 constexpr int kRowsPerBlock = 8;           // fleet_warp_rows: a warp a row
 
-template <typename Cnt>
+template <typename Cnt, bool kNarrow>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
-                                  repro::gemm::kMinBlocks)
-fleet_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
-                  const float* __restrict__ w,
+                                  repro::gemm::min_blocks(kNarrow))
+fleet_hash_gather(const Cnt* __restrict__ counts, repro::gemm::Operands op,
                   const int* __restrict__ tenant_ids,
                   typename repro::CountTraits<Cnt>::Value* __restrict__
                       gathered,
@@ -55,8 +54,8 @@ fleet_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
   const int row0 = blockIdx.x / plan.splits * repro::gemm::kRows;
   for (int r = threadIdx.x; r < repro::gemm::kRows; r += blockDim.x)
     tile_tids[r] = row0 + r < B ? tenant_ids[row0 + r] : -1;
-  repro::gemm::srp_gemm_tile(
-      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         if (buckets != nullptr) buckets[o] = bucket;
         const int t = tile_tids[row - row0];
@@ -79,32 +78,35 @@ fleet_warp_rows(const V* __restrict__ gathered, float* __restrict__ scores,
 }  // namespace
 
 // counts (T, L, 2^K) of the type `count_type` (repro::CountCode); q (B, d),
-// w (d, P) fp32, w 16-byte aligned; tenant_ids (B,) int32; gathered (B, L)
-// scratch, int32 (fp32 for float counters); scores (B,) fp32; buckets
-// (B, L) int32 or null (the ids, for the tests).  The hash's plan as in
-// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan that
-// does not fit returns cudaErrorInvalidValue.
+// w (d, P) of the types x_type, w_type (fp32, bf16 or fp16), w 16-byte
+// aligned; tenant_ids (B,) int32; gathered (B, L) scratch, int32 (fp32 for
+// float counters); scores (B,) fp32; buckets (B, L) int32 or null (the ids,
+// for the tests).  The hash's plan as in repro_srp_hash.  Needs 1 <= K <= 31,
+// B >= 1, L <= 65535; a plan that does not fit returns
+// cudaErrorInvalidValue.
 REPRO_API int repro_ace_fleet_score(
-    const void* counts, const float* q, const float* w,
+    const void* counts, const void* q, const void* w,
     const int* tenant_ids, void* gathered, int* buckets, float* scores,
     int B, int d, int P, int K, int L, int T, int rows, int row_tiles,
     int tables, int groups, int splits, int b0, int b1, int b2, int b3,
-    int b4, int b5, int b6, int b7, int b8, int count_type, void* stream) {
+    int b4, int b5, int b6, int b7, int b8, int count_type, int x_type,
+    int w_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Operands op{q, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (!repro::with_count_type(count_type, [&](auto tag) {
         using C = decltype(tag);
         using V = typename repro::CountTraits<C>::Value;
         V* g = static_cast<V*>(gathered);
-        err = repro::gemm::launch(fleet_hash_gather<C>, plan, s,
-                                  static_cast<const C*>(counts), q, w,
-                                  tenant_ids, g, buckets, B, d, P, K, L, T,
-                                  plan);
+        err = repro::gemm::launch(
+            op, fleet_hash_gather<C, false>, fleet_hash_gather<C, true>,
+            plan, s, static_cast<const C*>(counts), op, tenant_ids, g,
+            buckets, B, d, P, K, L, T, plan);
         if (err != cudaSuccess) return;
         fleet_warp_rows<V><<<(B + kRowsPerBlock - 1) / kRowsPerBlock,
                              kRowsPerBlock * 32, 0, s>>>(g, scores, B, L);

@@ -43,20 +43,19 @@
 
 namespace {
 
-template <typename Cnt>
+template <typename Cnt, bool kNarrow>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
-                                  repro::gemm::kMinBlocks)
+                                  repro::gemm::min_blocks(kNarrow))
 fwa_hash_gather(const Cnt* __restrict__ ring, const float* __restrict__ tail,
-                const int* __restrict__ cursor, const float* __restrict__ q,
-                const float* __restrict__ w,
+                const int* __restrict__ cursor, repro::gemm::Operands op,
                 const int* __restrict__ tenant_ids, int* __restrict__ buckets,
                 float* __restrict__ tail_g, float* __restrict__ live_g, int B,
                 int d, int P, int K, int L, int E, int T,
                 repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long nbuckets = 1LL << K;
-  repro::gemm::srp_gemm_tile(
-      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
         const int t = tenant_ids[row];
@@ -118,37 +117,39 @@ fwa_score_insert(Cnt* __restrict__ ring,
 
 }  // namespace
 
-// ring (T, E, L, 2^K) of the type `count_type` (repro::CountCode; int8
-// rings 4-byte aligned), updated in place; tail (T, L, 2^K) fp32;
-// cursor (T,) int32; q (B, d), w (d, P) fp32, w 16-byte aligned;
-// tenant_ids (B,) int32; thr (T,) fp32 per-tenant score-space thresholds;
-// item_mask (B,) bool or null.  Outputs: buckets (B, L) int32, scores,
-// tail_sums, live_pre (B,) fp32, admit (B,) bool; tail_g and live_g (B, L)
-// fp32 are scratch.  The hash's plan as in repro_srp_hash.  Needs
-// 1 <= K <= 31, B >= 1; a plan that does not fit returns
-// cudaErrorInvalidValue.
+// ring (T, E, L, 2^K) of the type `count_type` (repro::CountCode; int8 rings
+// 4-byte aligned), updated in place; tail (T, L, 2^K) fp32; cursor (T,)
+// int32; q (B, d), w (d, P) of the types x_type, w_type (fp32, bf16 or
+// fp16), w 16-byte aligned; tenant_ids (B,) int32; thr (T,) fp32 per-tenant
+// score-space thresholds; item_mask (B,) bool or null.  Outputs: buckets (B,
+// L) int32, scores, tail_sums, live_pre (B,) fp32, admit (B,) bool; tail_g
+// and live_g (B, L) fp32 are scratch.  The hash's plan as in
+// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does not fit
+// returns cudaErrorInvalidValue.
 REPRO_API int repro_ace_fleet_window_admit(
-    void* ring, const float* tail, const int* cursor, const float* q,
-    const float* w, const int* tenant_ids, const float* thr,
+    void* ring, const float* tail, const int* cursor, const void* q,
+    const void* w, const int* tenant_ids, const float* thr,
     const unsigned char* item_mask, int* buckets, float* tail_g,
     float* live_g, float* scores, unsigned char* admit, float* tail_sums,
     float* live_pre, int B, int d, int P, int K, int L, int E, int T,
     float inv_l, int rows, int row_tiles, int tables, int groups,
     int splits, int b0, int b1, int b2, int b3, int b4, int b5, int b6,
-    int b7, int b8, int count_type, void* stream) {
+    int b7, int b8, int count_type, int x_type, int w_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Operands op{q, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (!repro::with_count_type(count_type, [&](auto tag) {
         using C = decltype(tag);
         C* r = static_cast<C*>(ring);
-        err = repro::gemm::launch(fwa_hash_gather<C>, plan, s, r, tail,
-                                  cursor, q, w, tenant_ids, buckets, tail_g,
-                                  live_g, B, d, P, K, L, E, T, plan);
+        err = repro::gemm::launch(
+            op, fwa_hash_gather<C, false>, fwa_hash_gather<C, true>, plan,
+            s, r, tail, cursor, op, tenant_ids, buckets, tail_g, live_g, B,
+            d, P, K, L, E, T, plan);
         if (err != cudaSuccess) return;
         fwa_score_insert<C><<<(B + kInsertRows - 1) / kInsertRows,
                               32 * kInsertRows, 0, s>>>(

@@ -38,19 +38,18 @@ namespace {
 constexpr int kRowsPerBlock = 8;           // score_warp_rows: a warp a row
 constexpr int kRowThreads = 256;           // score_weighted_rows
 
-template <typename Cnt>
+template <typename Cnt, bool kNarrow>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
-                                  repro::gemm::kMinBlocks)
-score_hash_gather(const Cnt* __restrict__ counts, const float* __restrict__ q,
-                  const float* __restrict__ w,
+                                  repro::gemm::min_blocks(kNarrow))
+score_hash_gather(const Cnt* __restrict__ counts, repro::gemm::Operands op,
                   typename repro::CountTraits<Cnt>::Value* __restrict__
                       gathered,
                   int* __restrict__ buckets, int B, int d, int P, int K,
                   int L, repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   const long long nbuckets = 1LL << K;     // 2^31 does not fit an int
-  repro::gemm::srp_gemm_tile(
-      q, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         if (buckets != nullptr) buckets[o] = bucket;
         gathered[o] = repro::load_count(counts + j * nbuckets + bucket);
@@ -83,32 +82,35 @@ __global__ void score_weighted_rows(const V* __restrict__ gathered,
 
 }  // namespace
 
-// counts (L, 2^K) of the type `count_type` (repro::CountCode); q (B, d),
-// w (d, P) fp32, w 16-byte aligned; tw (L,) fp32 or null; gathered (B, L)
-// scratch, int32 (fp32 for float counters); scores (B,) fp32; buckets
-// (B, L) int32 or null (the ids, for the tests).  The hash's plan as in
-// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1, L <= 65535; a plan that
-// does not fit returns cudaErrorInvalidValue.
+// counts (L, 2^K) of the type `count_type` (repro::CountCode); q (B, d), w
+// (d, P) of the types x_type, w_type (fp32, bf16 or fp16), w 16-byte
+// aligned; tw (L,) fp32 or null; gathered (B, L) scratch, int32 (fp32 for
+// float counters); scores (B,) fp32; buckets (B, L) int32 or null (the ids,
+// for the tests).  The hash's plan as in repro_srp_hash.  Needs 1 <= K <= 31,
+// B >= 1, L <= 65535; a plan that does not fit returns
+// cudaErrorInvalidValue.
 REPRO_API int repro_ace_score_fused(
-    const void* counts, const float* q, const float* w, const float* tw,
+    const void* counts, const void* q, const void* w, const float* tw,
     void* gathered, int* buckets, float* scores, int B, int d, int P, int K,
     int L, int rows, int row_tiles, int tables, int groups, int splits,
     int b0, int b1, int b2, int b3, int b4, int b5, int b6, int b7, int b8,
-    int count_type, void* stream) {
+    int count_type, int x_type, int w_type, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Operands op{q, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (!repro::with_count_type(count_type, [&](auto tag) {
         using T = decltype(tag);
         using V = typename repro::CountTraits<T>::Value;
         V* g = static_cast<V*>(gathered);
-        err = repro::gemm::launch(score_hash_gather<T>, plan, s,
-                                  static_cast<const T*>(counts), q, w, g,
-                                  buckets, B, d, P, K, L, plan);
+        err = repro::gemm::launch(
+            op, score_hash_gather<T, false>, score_hash_gather<T, true>,
+            plan, s, static_cast<const T*>(counts), op, g, buckets, B, d,
+            P, K, L, plan);
         if (err != cudaSuccess) return;
         if (tw != nullptr) {
           score_weighted_rows<V><<<(B + kRowThreads - 1) / kRowThreads,

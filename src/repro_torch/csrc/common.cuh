@@ -1,8 +1,10 @@
 // Shared by every kernel source: the C export macro, the error-string
-// entry point that the Python binding (kernels/build.py) reads, and the
-// count-type trait of the kernels that read or add counters.
+// entry point that the Python binding (kernels/build.py) reads, the
+// count-type trait of the kernels that read or add counters, and the
+// operand types of the hash kernels.
 #pragma once
 
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 #include <cstddef>
@@ -95,6 +97,35 @@ inline bool with_count_type(int code, F&& f) {
     case kFloat32: f(float{}); return true;
     default: return false;
   }
+}
+
+// ---------------------------------------------------------------------------
+// Hash operands (x and W) of three types: float32, and the reference's
+// bfloat16 and float16 (repro.core.srp.make_projections(dtype=)).  The
+// hash kernels take each operand as void* and the type's code (the order
+// of core/srp.py OPERAND_DTYPES) and widen every element to float32
+// as they load it, as the Pallas kernels' astype(float32) does, so the
+// products are float32 products of the widened values.
+// ---------------------------------------------------------------------------
+enum OperandCode : int { kOpFloat32 = 0, kOpBFloat16 = 1, kOpFloat16 = 2 };
+
+inline bool operand_code_ok(int code) {
+  return code == kOpFloat32 || code == kOpBFloat16 || code == kOpFloat16;
+}
+
+// A 2-byte element as float32, exactly: bfloat16 is the top half of a
+// float32's bits; float16 goes through the conversion intrinsic.
+__device__ __forceinline__ float widen16(unsigned short bits, int code) {
+  return code == kOpBFloat16
+             ? __uint_as_float(static_cast<unsigned int>(bits) << 16)
+             : __half2float(__ushort_as_half(bits));
+}
+
+// Element i of an operand of type `code`, as float32.
+__device__ __forceinline__ float load_operand(const void* p, long long i,
+                                              int code) {
+  if (code == kOpFloat32) return static_cast<const float*>(p)[i];
+  return widen16(static_cast<const unsigned short*>(p)[i], code);
 }
 
 __device__ __forceinline__ float sum_to_float(long long s) {

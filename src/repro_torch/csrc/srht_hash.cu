@@ -156,7 +156,7 @@ __device__ __forceinline__ void signed_fwht(float (&v)[Shape<N>::kElems],
 
 template <int N>
 __global__ void __launch_bounds__(Shape<N>::kThreads)
-srht_hash_kernel(const float* __restrict__ x,
+srht_hash_kernel(const void* __restrict__ x, int x_type,
                  const unsigned int* __restrict__ sign_words,
                  const int* __restrict__ rows, int* __restrict__ out, int B,
                  int d, int K, int L) {
@@ -175,7 +175,7 @@ srht_hash_kernel(const float* __restrict__ x,
     const int rloc = threadIdx.x >> S::kTeamLog;      // row in the block
     const int t = threadIdx.x & (S::kTeam - 1);       // thread in the team
     const bool live = row0 + rloc < B;
-    const float* xr = x + (row0 + rloc) * d;
+    const long long xr = (row0 + rloc) * d;   // the row's first element
     // this thread's stretch of each diagonal's bitmap (first-pass layout)
     const int first = t << S::kElemsLog;
     const int words = S::kPad > 32 ? S::kPad >> 5 : 1;
@@ -184,12 +184,13 @@ srht_hash_kernel(const float* __restrict__ x,
     const unsigned int d2 =
         __ldg(sign_words + words + (first >> 5)) >> (first & 31);
 
-    // x into registers in the last pass's layout: element t | (r << kLast)
+    // x into registers in the last pass's layout: element t | (r << kLast),
+    // a bf16 or fp16 element widened to fp32 as it is loaded
     float v[S::kElems];
 #pragma unroll
     for (int r = 0; r < S::kElems; ++r) {
       const int i = t | (r << S::kLast);
-      v[r] = live && i < d ? xr[i] : 0.0f;
+      v[r] = live && i < d ? repro::load_operand(x, xr + i, x_type) : 0.0f;
     }
     float* srow = smem + rloc * S::kStride;
     signed_fwht<N>(v, srow, t, d1);
@@ -250,9 +251,9 @@ srht_hash_kernel(const float* __restrict__ x,
 }
 
 template <int N>
-int launch(const float* x, const unsigned int* sign_words, const int* rows,
-           int* out, int B, int d, int K, int L, int elems_log,
-           int rows_per_block, cudaStream_t stream) {
+int launch(const void* x, int x_type, const unsigned int* sign_words,
+           const int* rows, int* out, int B, int d, int K, int L,
+           int elems_log, int rows_per_block, cudaStream_t stream) {
   using S = Shape<N>;
   if (elems_log != S::kElemsLog || rows_per_block != S::kRows)
     return cudaErrorInvalidValue;          // the Python plan disagrees
@@ -265,28 +266,31 @@ int launch(const float* x, const unsigned int* sign_words, const int* rows,
   const long long blocks = (static_cast<long long>(B) + S::kRows - 1)
                            / S::kRows;
   srht_hash_kernel<N><<<static_cast<unsigned int>(blocks), S::kThreads,
-                        S::kSmem, stream>>>(x, sign_words, rows, out, B, d,
-                                            K, L);
+                        S::kSmem, stream>>>(x, x_type, sign_words, rows,
+                                            out, B, d, K, L);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// x (B, d) fp32; sign_words (2, max(d_pad, 32) / 32) int32, the bitmaps of
-// D1 and D2 (bit i % 32 of word i / 32 set where the sign is -1); rows
-// (K*L,) int32 in [0, d_pad); out (B, L) int32.  d_pad = 2^log2_pad; needs
+// x (B, d) fp32, bf16 or fp16 as x_type says (repro::OperandCode);
+// sign_words (2, max(d_pad, 32) / 32) int32, the bitmaps of D1 and D2
+// (bit i % 32 of word i / 32 set where the sign is -1); rows (K*L,) int32
+// in [0, d_pad); out (B, L) int32.  d_pad = 2^log2_pad; needs
 // B >= 1, 1 <= K <= 31 and 1 <= log2_pad <= 15 (the wrapper checks all
 // three); elems_log and rows_per_block are the wrapper's plan
 // (srht_plan), which must be this source's.
-REPRO_API int repro_srht_hash(const float* x, const int* sign_words,
+REPRO_API int repro_srht_hash(const void* x, const int* sign_words,
                               const int* rows, int* out, int B, int d,
                               int log2_pad, int K, int L, int elems_log,
-                              int rows_per_block, void* stream) {
+                              int rows_per_block, int x_type,
+                              void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!repro::operand_code_ok(x_type)) return cudaErrorInvalidValue;
   const unsigned int* sw = reinterpret_cast<const unsigned int*>(sign_words);
 #define REPRO_SRHT_CASE(n)                                                  \
   case n:                                                                   \
-    return launch<n>(x, sw, rows, out, B, d, K, L, elems_log,               \
+    return launch<n>(x, x_type, sw, rows, out, B, d, K, L, elems_log,       \
                      rows_per_block, st);
   switch (log2_pad) {
     REPRO_SRHT_CASE(1) REPRO_SRHT_CASE(2) REPRO_SRHT_CASE(3)

@@ -26,6 +26,30 @@
 // are zero-filled and read nothing, so only the first K*L columns of the
 // padded W are ever read.
 //
+// Operand types: x and W are each float32, bfloat16 or float16 (common.cuh
+// OperandCode), as the Pallas kernels take them; every element is widened
+// to float32 before it is read, so the slices, the micro-tile, the depth
+// split and the epilogue are the float32 kernel's, and the ids of narrow
+// operands are the float32 kernel's ids of the widened values.  The tile
+// is instantiated twice (kNarrow; `launch` takes both and picks by the
+// operand types): the float32 one carries no code of the narrow path, so
+// its registers, shared memory and schedule are the float32 kernel's
+// alone.  In the narrow one a 2-byte operand is copied raw with cp.async
+// into its slice's ring slot, in the same pipeline as a float32 copy, and
+// once the slice has landed it is widened into one of two extra float32
+// slices (`wide`, past the masks) that the micro-tile reads (a float32
+// operand of a mixed pair is copied there): slice s + 1 is widened into
+// one while slice s is computed from the other, so the loop keeps one
+// barrier a slice and no register is held across the compute.  It runs
+// two blocks an SM, not three, so that the staging code fits the
+// registers without spills.  W's 4-column pieces are 8-byte copies (the
+// row stride P*2 is a multiple of 256, the piece starts on a 4-column
+// boundary); an x row's kBK elements are kXWords aligned 4-byte words,
+// since a 2-byte row (d = 4097) starts on any 2-byte boundary, below
+// cp.async's 4-byte minimum: the word that holds the first element, and
+// the next ones.  Bytes past the slice's last element, past row B or past
+// column K*L are zero-filled and read nothing.
+//
 // Depth split across a thread-block cluster: the S blocks of a cluster
 // (S <= 8, grid x = S * row tiles) take contiguous depth ranges of the
 // same (rows, tables) tile, so a skinny d = 4097 shape fills the card.
@@ -62,11 +86,15 @@ constexpr int kCols = 128;                 // projection columns per block
 constexpr int kTM = 8, kTN = 8;            // a thread's micro-tile
 constexpr int kThreads = kRows / kTM * (kCols / kTN);   // 128
 constexpr int kMinBlocks = 3;              // blocks an SM the registers allow
+constexpr int kNarrowMinBlocks = 2;        // the same with kNarrow
 constexpr int kBK = 16;                    // depth steps of one staged slice
 constexpr int kStages = 4;                 // slices in flight
 constexpr int kMaxSplits = 8;              // portable cluster size
 constexpr int kXStride = kRows + 4;        // transposed x slice row
 constexpr int kMaskWords = kCols / 32 + 1; // + a zero word for the shift
+// 4-byte words that hold kBK 2-byte elements from any 2-byte boundary.
+constexpr int kXWords = kBK / 2 + 1;
+constexpr int kXCopies = (kRows * kXWords + kThreads - 1) / kThreads;
 // A thread's rows are two runs of 4, kRowStep apart; its columns two runs
 // of 4, kColStep apart.
 constexpr int kColThreads = kCols / kTN;
@@ -79,6 +107,12 @@ struct Stage {
   float x[kBK][kXStride];   // x slice, transposed: x[k][row]
   float w[kBK][kCols];      // W slice: w[k][column - tile start]
 };
+// Where a 2-byte operand lands before it is widened: x row r's words at
+// word kXWords * r of the slot's x slice; W row k's kCols elements at
+// element kCols * k of its w slice.
+static_assert(sizeof(unsigned) * kRows * kXWords <=
+                  sizeof(float) * kBK * kXStride,
+              "a raw x slice fits in its float32 slot");
 
 constexpr size_t kRingBytes = sizeof(Stage) * kStages;
 constexpr size_t kPartBytes = sizeof(float) * kRows * kCols;
@@ -86,6 +120,23 @@ constexpr size_t kMainBytes = kRingBytes > kPartBytes ? kRingBytes
                                                       : kPartBytes;
 constexpr size_t kSmemBytes =
     kMainBytes + sizeof(unsigned) * kRows * kMaskWords;
+// The launch bounds' blocks an SM of an instantiation: the narrow tile's
+// staging code does not fit 168 registers without spills.
+constexpr int min_blocks(bool narrow) {
+  return narrow ? kNarrowMinBlocks : kMinBlocks;
+}
+
+// The narrow instantiation's: two widened slices after the masks.
+constexpr size_t kNarrowSmemBytes = kSmemBytes + 2 * sizeof(Stage);
+static_assert(kSmemBytes % 16 == 0, "the widened slice is 16-byte aligned");
+
+// The two operands, x (B, d) and W (d, P), row-major, each of the type of
+// its code (repro::OperandCode); passed by value.
+struct Operands {
+  const void* x;
+  const void* w;
+  int x_type, w_type;
+};
 
 // The launch plan (kernels/srp_hash.py HashPlan), passed by value.  Block
 // (x, y) takes row tile x / splits, split x % splits (its cluster rank)
@@ -99,10 +150,12 @@ struct Plan {
 // True when the plan covers (B, d, K, L) as the kernel assumes: every
 // group's live columns fit in one 128-column tile that starts on a
 // 4-column boundary, the splits partition [0, d) in order, there are at
-// most 8 of them, and W is 16-byte aligned.
-inline bool plan_fits(const Plan& p, const float* w, int B, int d, int K,
+// most 8 of them, W is 16-byte aligned and both operand types are known.
+inline bool plan_fits(const Plan& p, const Operands& op, int B, int d, int K,
                       int L) {
-  if (reinterpret_cast<unsigned long long>(w) % 16 != 0) return false;
+  if (reinterpret_cast<unsigned long long>(op.w) % 16 != 0) return false;
+  if (!operand_code_ok(op.x_type) || !operand_code_ok(op.w_type))
+    return false;
   if (p.rows != kRows || p.row_tiles != (B + kRows - 1) / kRows) return false;
   if (p.splits < 1 || p.splits > kMaxSplits) return false;
   if (p.tables < 1 || p.groups != (L + p.tables - 1) / p.tables ||
@@ -122,12 +175,21 @@ __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
-// 4 bytes, or zeros when !valid (nothing is read then).
+// 4 bytes of which the first `bytes` are read, the rest zero-filled.
 __device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          bool valid) {
+                                          int bytes) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
                    smem_addr(dst)),
-               "l"(src), "r"(valid ? 4 : 0)
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 8 bytes of which the first `bytes` are read, the rest zero-filled.
+__device__ __forceinline__ void cp_async8(void* dst, const void* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
                : "memory");
 }
 
@@ -163,14 +225,14 @@ __device__ __forceinline__ unsigned sign_word(float a, float b, float c,
   return word;
 }
 
-// x (B, d) and w (d, P) row-major fp32; `smem` holds kSmemBytes of
-// dynamic shared memory aligned to 16.  emit(row, table, bucket) is called
-// once per live (row, table) of the block's rows.
-template <typename Emit>
-__device__ __forceinline__ void srp_gemm_tile(const float* __restrict__ x,
-                                              const float* __restrict__ w,
-                                              int B, int d, int P, int K,
-                                              int L, const Plan& plan,
+// The operands x (B, d) and w (d, P); `smem` holds kSmemBytes of dynamic
+// shared memory aligned to 16 (kNarrowSmemBytes with kNarrow).
+// emit(row, table, bucket) is called once per live (row, table) of the
+// block's rows.
+template <bool kNarrow, typename Emit>
+__device__ __forceinline__ void srp_gemm_tile(const Operands& op, int B,
+                                              int d, int P, int K, int L,
+                                              const Plan& plan,
                                               unsigned char* smem,
                                               Emit emit) {
   namespace cg = cooperative_groups;
@@ -193,26 +255,117 @@ __device__ __forceinline__ void srp_gemm_tile(const float* __restrict__ x,
   Stage* ring = reinterpret_cast<Stage*>(smem);
   const int tid = threadIdx.x;
 
+  const float* __restrict__ xf = static_cast<const float*>(op.x);
+  const float* __restrict__ wf = static_cast<const float*>(op.w);
+  const unsigned short* __restrict__ x16 =
+      static_cast<const unsigned short*>(op.x);
+  const unsigned short* __restrict__ w16 =
+      static_cast<const unsigned short*>(op.w);
+  const bool x_narrow = kNarrow && op.x_type != kOpFloat32;
+  const bool w_narrow = kNarrow && op.w_type != kOpFloat32;
+  Stage* wide = reinterpret_cast<Stage*>(smem + kSmemBytes);
+  // A 4-byte-aligned address for the x copies that read nothing, and the
+  // half of its first raw word at which a narrow x row's slice starts:
+  // the parity of the element's address in halves (kb = k_begin mod 2).
+  const void* x_none = reinterpret_cast<const void*>(
+      reinterpret_cast<unsigned long long>(op.x) & ~3ull);
+  const int x_par = static_cast<int>(
+      (reinterpret_cast<unsigned long long>(op.x) >> 1) + k_begin) & 1;
+  auto x_skew = [&](int r) { return (x_par + ((row0 + r) & d)) & 1; };
   auto load_slice = [&](int s) {
     Stage& st = ring[s % kStages];
     const int kb = k_begin + s * kBK;
+    if (!x_narrow) {
 #pragma unroll
-    for (int e = 0; e < kRows * kBK / kThreads; ++e) {
-      const int i = tid + e * kThreads, k = i % kBK, r = i / kBK;
-      const bool ok = row0 + r < B && kb + k < k_end;
-      cp_async4(&st.x[k][r],
-                ok ? x + static_cast<long long>(row0 + r) * d + kb + k : x,
-                ok);
+      for (int e = 0; e < kRows * kBK / kThreads; ++e) {
+        const int i = tid + e * kThreads, k = i % kBK, r = i / kBK;
+        const bool ok = row0 + r < B && kb + k < k_end;
+        cp_async4(&st.x[k][r],
+                  ok ? xf + static_cast<long long>(row0 + r) * d + kb + k
+                     : xf,
+                  ok ? 4 : 0);
+      }
+    } else {
+      // Word q of row r holds the row's elements 2q - skew and the next.
+      unsigned* raw = reinterpret_cast<unsigned*>(&st.x[0][0]);
+      const int live = min(kBK, k_end - kb);
+#pragma unroll
+      for (int e = 0; e < kXCopies; ++e) {
+        const int i = tid + e * kThreads, r = i / kXWords, q = i % kXWords;
+        if (i >= kRows * kXWords) break;
+        int bytes = 0;
+        const void* src = x_none;
+        if (row0 + r < B) {
+          const int first = 2 * q - x_skew(r);   // -1 .. 2 kXWords - 2
+          bytes = first + 1 < live ? 4 : first < live ? 2 : 0;
+          if (bytes)
+            src = x16 + static_cast<long long>(row0 + r) * d + kb + first;
+        }
+        cp_async4(raw + i, src, bytes);
+      }
     }
 #pragma unroll
     for (int e = 0; e < kBK * kCols / 4 / kThreads; ++e) {
       const int i = tid + e * kThreads;
       const int k = i / (kCols / 4), c4 = i % (kCols / 4);
       const int col = a0 + 4 * c4;
-      const int bytes = kb + k < k_end ? 4 * min(max(KL - col, 0), 4) : 0;
-      cp_async16(&st.w[k][4 * c4],
-                 bytes ? w + static_cast<long long>(kb + k) * P + col : w,
-                 bytes);
+      const int n = kb + k < k_end ? min(max(KL - col, 0), 4) : 0;
+      const long long at = static_cast<long long>(kb + k) * P + col;
+      if (!w_narrow)
+        cp_async16(&st.w[k][4 * c4], n ? wf + at : wf, 4 * n);
+      else
+        cp_async8(reinterpret_cast<unsigned short*>(&st.w[0][0]) +
+                      kCols * k + 4 * c4,
+                  n ? w16 + at : w16, 2 * n);
+    }
+  };
+  // Slice s into wide[s % 2], where the narrow instantiation's micro-tile
+  // reads it: a narrow operand widened from its raw copy, a float32 one
+  // (a mixed pair) copied as it is.
+  auto widen_slice = [&](int s) {
+    const Stage& st = ring[s % kStages];
+    Stage* out = wide + s % 2;
+    if (!x_narrow) {
+#pragma unroll
+      for (int e = 0; e < kRows * kBK / 4 / kThreads; ++e) {
+        const int i = tid + e * kThreads;
+        const int k = i / (kRows / 4), r4 = 4 * (i % (kRows / 4));
+        *reinterpret_cast<float4*>(&out->x[k][r4]) =
+            *reinterpret_cast<const float4*>(&st.x[k][r4]);
+      }
+    } else {
+      const unsigned short* raw =
+          reinterpret_cast<const unsigned short*>(&st.x[0][0]);
+      const int r = tid % kRows, skew = row0 + r < B ? x_skew(r) : 0;
+#pragma unroll
+      for (int e = 0; e < kRows * kBK / kThreads; ++e) {
+        const int k = (tid + e * kThreads) / kRows;
+        out->x[k][r] = widen16(raw[2 * kXWords * r + skew + k], op.x_type);
+      }
+    }
+    if (!w_narrow) {
+#pragma unroll
+      for (int e = 0; e < kBK * kCols / 4 / kThreads; ++e) {
+        const int i = tid + e * kThreads;
+        const int k = i / (kCols / 4), c4 = 4 * (i % (kCols / 4));
+        *reinterpret_cast<float4*>(&out->w[k][c4]) =
+            *reinterpret_cast<const float4*>(&st.w[k][c4]);
+      }
+    } else {
+      const unsigned short* raw =
+          reinterpret_cast<const unsigned short*>(&st.w[0][0]);
+#pragma unroll
+      for (int e = 0; e < kBK * kCols / 4 / kThreads; ++e) {
+        const int i = tid + e * kThreads;
+        const int k = i / (kCols / 4), c4 = i % (kCols / 4);
+        const uint2 v =
+            *reinterpret_cast<const uint2*>(raw + kCols * k + 4 * c4);
+        *reinterpret_cast<float4*>(&out->w[k][4 * c4]) = make_float4(
+            widen16(static_cast<unsigned short>(v.x), op.w_type),
+            widen16(static_cast<unsigned short>(v.x >> 16), op.w_type),
+            widen16(static_cast<unsigned short>(v.y), op.w_type),
+            widen16(static_cast<unsigned short>(v.y >> 16), op.w_type));
+      }
     }
   };
 
@@ -227,17 +380,7 @@ __device__ __forceinline__ void srp_gemm_tile(const float* __restrict__ x,
 #pragma unroll
     for (int j = 0; j < kTN; ++j) acc[i][j] = 0.0f;
 
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nslices) load_slice(s);
-    cp_async_commit();
-  }
-  for (int s = 0; s < nslices; ++s) {
-    cp_async_wait<kStages - 2>();   // slice s has landed
-    __syncthreads();                // and slice s - 1 is no longer read
-    if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
-    cp_async_commit();
-    const Stage& st = ring[s % kStages];
+  auto compute = [&](const Stage& st) {
 #pragma unroll
     for (int k = 0; k < kBK; ++k) {
       float a[kTM], b[kTN];
@@ -259,6 +402,38 @@ __device__ __forceinline__ void srp_gemm_tile(const float* __restrict__ x,
       for (int i = 0; i < kTM; ++i)
 #pragma unroll
         for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nslices) load_slice(s);
+    cp_async_commit();
+  }
+  if constexpr (!kNarrow) {
+    for (int s = 0; s < nslices; ++s) {
+      cp_async_wait<kStages - 2>();   // slice s has landed
+      __syncthreads();                // and slice s - 1 is no longer read
+      if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
+      cp_async_commit();
+      compute(ring[s % kStages]);
+    }
+  } else {
+    // Slice s + 1 is widened into the other wide slice while slice s is
+    // computed from its own, so the loop keeps one barrier a slice; the
+    // copies run one slice less ahead.
+    cp_async_wait<kStages - 2>();     // slice 0 has landed
+    __syncthreads();
+    if (nslices > 0) widen_slice(0);
+    for (int s = 0; s < nslices; ++s) {
+      // Slice s + 1 has landed, wide[s % 2] is written, and wide[(s + 1)
+      // % 2] and slot s - 1 are no longer read.
+      cp_async_wait<kStages - 3>();
+      __syncthreads();
+      if (s + kStages - 1 < nslices) load_slice(s + kStages - 1);
+      cp_async_commit();
+      compute(wide[s % 2]);
+      if (s + 1 < nslices) widen_slice(s + 1);
     }
   }
   cp_async_wait<0>();
@@ -347,15 +522,21 @@ struct LaunchConfig {
   }
 };
 
-// Launch `kernel` (whose parameters the caller passes in `args`) on the
-// plan's grid.  Returns the launch's error; the plan must fit.
+// Launch the tile kernel for the operands, `narrow` (the tile with
+// kNarrow, and its shared memory) when either is 2-byte, else `f32`, on
+// the plan's grid; the caller passes the kernel's parameters in `args`.
+// Returns the launch's error; the plan must fit.
 template <typename... Params, typename... Args>
-inline cudaError_t launch(void (*kernel)(Params...), const Plan& plan,
+inline cudaError_t launch(const Operands& op, void (*f32)(Params...),
+                          void (*narrow)(Params...), const Plan& plan,
                           cudaStream_t stream, Args&&... args) {
-  cudaError_t err = repro::allow_smem(reinterpret_cast<const void*>(kernel),
-                                      static_cast<int>(kSmemBytes));
+  const bool wide = op.x_type != kOpFloat32 || op.w_type != kOpFloat32;
+  void (*kernel)(Params...) = wide ? narrow : f32;
+  const int smem = static_cast<int>(wide ? kNarrowSmemBytes : kSmemBytes);
+  cudaError_t err =
+      repro::allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;
-  LaunchConfig lc(plan, static_cast<int>(kSmemBytes), stream);
+  LaunchConfig lc(plan, smem, stream);
   if (plan.splits == 1) lc.cfg.numAttrs = 0;   // no cluster launch
   return cudaLaunchKernelEx(&lc.cfg, kernel, std::forward<Args>(args)...);
 }

@@ -16,38 +16,40 @@
 
 namespace {
 
+template <bool kNarrow>
 __global__ void __launch_bounds__(repro::gemm::kThreads,
-                                  repro::gemm::kMinBlocks)
-srp_hash_kernel(const float* __restrict__ x, const float* __restrict__ w,
-                int* __restrict__ out, int B, int d, int P, int K, int L,
-                repro::gemm::Plan plan) {
+                                  repro::gemm::min_blocks(kNarrow))
+srp_hash_kernel(repro::gemm::Operands op, int* __restrict__ out, int B,
+                int d, int P, int K, int L, repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
-  repro::gemm::srp_gemm_tile(
-      x, w, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+  repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         out[static_cast<long long>(row) * L + j] = bucket;
       });
 }
 
 }  // namespace
 
-// x (B, d), w (d, P) fp32, w 16-byte aligned; out (B, L) int32.  The plan:
+// x (B, d), w (d, P), each fp32, bf16 or fp16 as x_type and w_type say
+// (repro::OperandCode), w 16-byte aligned; out (B, L) int32.  The plan:
 // rows, row_tiles, tables, groups, splits, then the splits + 1 depth
 // bounds (b0..b8; the unused ones are ignored).  Needs 1 <= K <= 31,
 // B >= 1; a plan that does not fit returns cudaErrorInvalidValue.
-REPRO_API int repro_srp_hash(const float* x, const float* w, int* out, int B,
+REPRO_API int repro_srp_hash(const void* x, const void* w, int* out, int B,
                              int d, int P, int K, int L, int rows,
                              int row_tiles, int tables, int groups,
                              int splits, int b0, int b1, int b2, int b3,
                              int b4, int b5, int b6, int b7, int b8,
-                             void* stream) {
+                             int x_type, int w_type, void* stream) {
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
+  const repro::gemm::Operands op{x, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, w, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
     return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(repro::gemm::launch(
-      srp_hash_kernel, plan, static_cast<cudaStream_t>(stream), x, w, out,
-      B, d, P, K, L, plan));
+      op, srp_hash_kernel<false>, srp_hash_kernel<true>, plan,
+      static_cast<cudaStream_t>(stream), op, out, B, d, P, K, L, plan));
 }
 
 // How many clusters of `splits` blocks the card runs at once, each block
@@ -60,5 +62,5 @@ REPRO_API int repro_srp_hash_max_clusters(int splits, int smem,
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       repro::gemm::kRows, 1, 1, 1, splits, bounds);
   return static_cast<int>(repro::gemm::max_active_clusters(
-      srp_hash_kernel, plan, smem, clusters));
+      srp_hash_kernel<false>, plan, smem, clusters));
 }

@@ -28,14 +28,15 @@ import torch
 
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
-from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
-                                          check_w_aligned, device_plan,
-                                          lane_padded, srp_hash_plain)
+from repro_torch.kernels.srp_hash import (OPERAND_ARGTYPES, PLAN_ARGTYPES,
+                                          HashPlan, check_w_aligned,
+                                          device_plan, lane_padded,
+                                          srp_hash_plain)
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                       + [ctypes.c_longlong, ctypes.c_float] + PLAN_ARGTYPES
-                      + [ctypes.c_int])
+                      + [ctypes.c_int] + OPERAND_ARGTYPES)
 
 
 def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -64,7 +65,9 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
                     item_mask: torch.Tensor | None = None):
     """One guardrail admission step.
 
-    counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, w (d, P) fp32, thresh () fp32
+    counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) and w (d, P)
+    each of any ``build.OPERAND_DTYPES`` (widened to fp32 in the kernel),
+    thresh () fp32
     (score space; −inf admits everything), item_mask (B,) bool or None ->
         (counts          — the same tensor, + the masked batch histogram,
          scores (B,) fp32 — PRE-insert Ŝ(q, D),
@@ -90,8 +93,8 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"counts {tuple(counts.shape)} do not match "
                          f"K={K}, L={cfg.num_tables}")
     build.check_counts(counts, "counts", (L, nbuckets))
-    build.check(q, "q", torch.float32, (B, d))
-    build.check(w, "w", torch.float32, (d, P))
+    build.check_operand(q, "q", (B, d))
+    build.check_operand(w, "w", (d, P))
     build.check(thresh, "thresh", torch.float32, ())
     operands = [counts, q, w, thresh]
     if item_mask is not None:
@@ -113,5 +116,6 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
                None if item_mask is None else item_mask.data_ptr(),
                buckets.data_ptr(), gathered.data_ptr(), scores.data_ptr(),
                admit.data_ptr(), B, d, P, K, L, nbuckets, 1.0 / L,
-               *plan.args(), build.count_code(counts))
+               *plan.args(), build.count_code(counts),
+               build.operand_code(q), build.operand_code(w))
     return counts, scores, admit, buckets

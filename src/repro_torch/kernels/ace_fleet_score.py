@@ -36,13 +36,14 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ace_query import ace_query_sum_plain
 from repro_torch.kernels.ace_score_fused import gather_dtype
 from repro_torch.kernels.ace_update import MAX_TABLES
-from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
-                                          check_w_aligned, device_plan,
-                                          lane_padded, srp_hash_plain)
+from repro_torch.kernels.srp_hash import (OPERAND_ARGTYPES, PLAN_ARGTYPES,
+                                          HashPlan, check_w_aligned,
+                                          device_plan, lane_padded,
+                                          srp_hash_plain)
 
 KERNEL = build.Kernel("ace_fleet_score", "repro_ace_fleet_score",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6
-                      + PLAN_ARGTYPES + [ctypes.c_int])
+                      + PLAN_ARGTYPES + [ctypes.c_int] + OPERAND_ARGTYPES)
 
 
 def ace_fleet_score_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -68,8 +69,9 @@ def fleet_score_from_ids(counts: torch.Tensor, buckets: torch.Tensor,
 def ace_fleet_score(counts: torch.Tensor, q: torch.Tensor,
                     tenant_ids: torch.Tensor, w: torch.Tensor,
                     cfg: SrpConfig) -> torch.Tensor:
-    """counts (T, L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, tenant_ids (B,) int32 in
-    [0, T), w (d, P) fp32 -> scores (B,) fp32."""
+    """counts (T, L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d),
+    tenant_ids (B,) int32 in [0, T), w (d, P); q and w each of any
+    ``build.OPERAND_DTYPES`` -> scores (B,) fp32."""
     return ace_fleet_score_planned(counts, q, tenant_ids, w, cfg, None)
 
 
@@ -91,9 +93,9 @@ def ace_fleet_score_planned(counts: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"ace_fleet_score: L={L} tables; the kernel takes "
                          f"at most {MAX_TABLES}")
     build.check_counts(counts, "counts", (T, L, nbuckets))
-    build.check(q, "q", torch.float32, (B, d))
+    build.check_operand(q, "q", (B, d))
     build.check(tenant_ids, "tenant_ids", torch.int32, (B,))
-    build.check(w, "w", torch.float32, (d, P))
+    build.check_operand(w, "w", (d, P))
     if build.on_cpu(counts, q, tenant_ids, w):
         ids = srp_hash_plain(q, w, cfg)
         scores = fleet_score_from_ids(counts, ids, tenant_ids)
@@ -111,5 +113,6 @@ def ace_fleet_score_planned(counts: torch.Tensor, q: torch.Tensor,
         KERNEL(dev, counts.data_ptr(), q.data_ptr(), w.data_ptr(),
                tenant_ids.data_ptr(), gathered.data_ptr(),
                None if ids is None else ids.data_ptr(), scores.data_ptr(),
-               B, d, P, K, L, T, *plan.args(), build.count_code(counts))
+               B, d, P, K, L, T, *plan.args(), build.count_code(counts),
+               build.operand_code(q), build.operand_code(w))
     return (scores, ids) if with_ids else scores

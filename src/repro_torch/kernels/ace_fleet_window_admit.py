@@ -40,13 +40,15 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_score_fused import table_order_sum
 from repro_torch.kernels.ace_update import ace_update_plain, gather_rows
-from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
-                                          check_w_aligned, device_plan,
-                                          lane_padded, srp_hash_plain)
+from repro_torch.kernels.srp_hash import (OPERAND_ARGTYPES, PLAN_ARGTYPES,
+                                          HashPlan, check_w_aligned,
+                                          device_plan, lane_padded,
+                                          srp_hash_plain)
 
 KERNEL = build.Kernel("ace_fleet_window_admit", "repro_ace_fleet_window_admit",
                       [ctypes.c_void_p] * 15 + [ctypes.c_int] * 7
-                      + [ctypes.c_float] + PLAN_ARGTYPES + [ctypes.c_int])
+                      + [ctypes.c_float] + PLAN_ARGTYPES + [ctypes.c_int]
+                      + OPERAND_ARGTYPES)
 
 
 def ace_fleet_window_admit_fused_plain(ring_counts: torch.Tensor,
@@ -103,7 +105,8 @@ def ace_fleet_window_admit_fused(ring_counts: torch.Tensor,
     """One windowed-fleet admission step (the counts half).
 
     ring_counts (T, E, L, 2^K) of any ``build.COUNT_DTYPES``, tail (T, L, 2^K) fp32, cursor (T,)
-    int32, q (B, d) fp32, tenant_ids (B,) int32 in [0, T), w (d, P) fp32,
+    int32, q (B, d), tenant_ids (B,) int32 in [0, T), w (d, P) (q and w
+    each of any ``build.OPERAND_DTYPES``),
     thresholds (T,) fp32 (score space, −inf admits all), item_mask (B,)
     bool or None ->
         (ring_counts — the same tensor, + the masked live-epoch inserts,
@@ -140,9 +143,9 @@ def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
     build.check_counts(ring_counts, "ring_counts", (T, E, L, nbuckets))
     build.check(tail, "tail", torch.float32, (T, L, nbuckets))
     build.check(cursor, "cursor", torch.int32, (T,))
-    build.check(q, "q", torch.float32, (B, d))
+    build.check_operand(q, "q", (B, d))
     build.check(tenant_ids, "tenant_ids", torch.int32, (B,))
-    build.check(w, "w", torch.float32, (d, P))
+    build.check_operand(w, "w", (d, P))
     build.check(thresholds, "thresholds", torch.float32, (T,))
     operands = [ring_counts, tail, cursor, q, tenant_ids, w, thresholds]
     if item_mask is not None:
@@ -170,5 +173,6 @@ def ace_fleet_window_admit_fused_planned(ring_counts: torch.Tensor,
                buckets.data_ptr(), tail_g.data_ptr(), live_g.data_ptr(),
                scores.data_ptr(), admit.data_ptr(), tail_sums.data_ptr(),
                live_pre.data_ptr(), B, d, P, K, L, E, T, 1.0 / L,
-               *plan.args(), build.count_code(ring_counts))
+               *plan.args(), build.count_code(ring_counts),
+               build.operand_code(q), build.operand_code(w))
     return ring_counts, scores, admit, buckets, tail_sums, live_pre

@@ -38,13 +38,14 @@ from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.ace_query import ace_query_sum_plain
 from repro_torch.kernels.ace_update import MAX_TABLES
-from repro_torch.kernels.srp_hash import (PLAN_ARGTYPES, HashPlan,
-                                          check_w_aligned, device_plan,
-                                          lane_padded, srp_hash_plain)
+from repro_torch.kernels.srp_hash import (OPERAND_ARGTYPES, PLAN_ARGTYPES,
+                                          HashPlan, check_w_aligned,
+                                          device_plan, lane_padded,
+                                          srp_hash_plain)
 
 KERNEL = build.Kernel("ace_score_fused", "repro_ace_score_fused",
                       [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                      + PLAN_ARGTYPES + [ctypes.c_int])
+                      + PLAN_ARGTYPES + [ctypes.c_int] + OPERAND_ARGTYPES)
 
 def gather_dtype(counts: torch.Tensor) -> torch.dtype:
     """The dtype of the fused kernels' (B, L) gather scratch: int32 for
@@ -95,8 +96,9 @@ def ace_score_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
                     cfg: SrpConfig,
                     table_weights: torch.Tensor | None = None
                     ) -> torch.Tensor:
-    """counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) fp32, w
-    (d, P) fp32 -> scores (B,) fp32.  ``table_weights`` (L,) fp32, when given, replaces the 1/L mean
+    """counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) and w (d, P)
+    each of any ``build.OPERAND_DTYPES`` -> scores (B,) fp32.
+    ``table_weights`` (L,) fp32, when given, replaces the 1/L mean
     with Σ_j tw_j·g_j (the degraded path: the caller bakes the health
     mask and its 1/num_healthy into tw)."""
     return ace_score_fused_planned(counts, q, w, cfg, table_weights, None)
@@ -121,8 +123,8 @@ def ace_score_fused_planned(counts: torch.Tensor, q: torch.Tensor,
         raise ValueError(f"ace_score_fused: L={L} tables; the kernel takes "
                          f"at most {MAX_TABLES}")
     build.check_counts(counts, "counts", (L, nbuckets))
-    build.check(q, "q", torch.float32, (B, d))
-    build.check(w, "w", torch.float32, (d, P))
+    build.check_operand(q, "q", (B, d))
+    build.check_operand(w, "w", (d, P))
     operands = [counts, q, w]
     if table_weights is not None:
         build.check(table_weights, "table_weights", torch.float32, (L,))
@@ -144,5 +146,6 @@ def ace_score_fused_planned(counts: torch.Tensor, q: torch.Tensor,
                None if table_weights is None else table_weights.data_ptr(),
                gathered.data_ptr(),
                None if ids is None else ids.data_ptr(), scores.data_ptr(),
-               B, d, P, K, L, *plan.args(), build.count_code(counts))
+               B, d, P, K, L, *plan.args(), build.count_code(counts),
+               build.operand_code(q), build.operand_code(w))
     return (scores, ids) if with_ids else scores

@@ -30,6 +30,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.srp import OPERAND_DTYPES
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -171,6 +173,20 @@ def check_counts(t: torch.Tensor, name: str, shape) -> None:
 def count_code(t: torch.Tensor) -> int:
     """The kernels' code of a count plane's dtype."""
     return COUNT_DTYPES.index(t.dtype)
+
+
+def check_operand(t: torch.Tensor, name: str, shape) -> None:
+    """``check`` for a hash operand (x or W) of any of ``OPERAND_DTYPES``."""
+    if t.dtype not in OPERAND_DTYPES:
+        raise TypeError(f"{name}: want one of "
+                        f"{', '.join(map(str, OPERAND_DTYPES))}, "
+                        f"got {t.dtype}")
+    check(t, name, t.dtype, shape)
+
+
+def operand_code(t: torch.Tensor) -> int:
+    """The kernels' code of a hash operand's dtype."""
+    return OPERAND_DTYPES.index(t.dtype)
 
 
 def check_bits(num_bits: int) -> None:

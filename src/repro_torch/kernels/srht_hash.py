@@ -32,7 +32,7 @@ from repro_torch.kernels import build
 MAX_D_PAD = 32768       # a team of 1024 threads, 32 elements each
 
 KERNEL = build.Kernel("srht_hash", "repro_srht_hash",
-                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7)
+                      [ctypes.c_void_p] * 4 + [ctypes.c_int] * 8)
 
 BLOCK_THREADS = 128     # a block's threads when a row's team is smaller
 MAX_SAMPLE = 1024       # row-sample indices the kernel keeps in smem
@@ -82,18 +82,20 @@ class SrhtWidthError(ValueError):
 
 def srht_hash_plain(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
     """The same function in plain PyTorch
-    (``repro.core.srht.srht_hash_buckets``)."""
-    return srht_hash_buckets(x, srht_params(cfg))
+    (``repro.core.srht.srht_hash_buckets``), on x widened to float32 as the
+    kernel and the reference's Pallas kernel widen it."""
+    return srht_hash_buckets(x.float(), srht_params(cfg))
 
 
 def srht_hash(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
-    """(B, d) fp32 -> (B, L) int32 bucket ids in [0, 2^K); the sign
+    """(B, d) float32, bfloat16 or float16 (widened to float32 as the
+    kernel loads it) -> (B, L) int32 bucket ids in [0, 2^K); the sign
     diagonals and row sample come from ``cfg.seed``.  Raises
     ``SrhtWidthError`` when d pads past ``MAX_D_PAD``."""
     B, d = x.shape
     K, L = cfg.num_bits, cfg.num_tables
     build.check_bits(K)
-    build.check(x, "x", torch.float32, (B, cfg.dim))
+    build.check_operand(x, "x", (B, cfg.dim))
     params = srht_params(cfg)
     if params.d_pad > MAX_D_PAD:
         raise SrhtWidthError(
@@ -108,5 +110,5 @@ def srht_hash(x: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
         plan = srht_plan(params.d_pad)
         KERNEL(x.device, x.data_ptr(), words.data_ptr(), rows.data_ptr(),
                out.data_ptr(), B, d, plan.log2_pad, K, L, plan.elems_log,
-               plan.rows)
+               plan.rows, build.operand_code(x))
     return out

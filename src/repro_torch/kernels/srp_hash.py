@@ -16,7 +16,10 @@ tiles in rank order through distributed shared memory (at S = 1 a plain
 launch takes the signs straight from its registers), then take signs
 and pack with a funnel shift, so the (B, K·L) projection never reaches
 device memory and the ids are the same bits run to run.  No TF32: it
-flips sign bits.
+flips sign bits.  x and W may each be bfloat16 or float16: the kernel
+widens them to float32 as it stages them (2-byte operands through
+registers, not ``cp.async``), so their ids are the float32 kernel's ids of
+the widened values, and only the bytes it reads shrink.
 
 ``hash_plan`` is the launch plan both dense-hash wrappers (this one and
 ``ace_admit_fused``) give the kernel: the row tile, the table groups, the
@@ -49,10 +52,12 @@ MAX_SPLITS = 8       # a portable cluster (kMaxSplits)
 H100_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
 
 PLAN_ARGTYPES = [ctypes.c_int] * (5 + MAX_SPLITS + 1)
+# The codes of x's and W's dtypes (build.OPERAND_DTYPES), after the plan.
+OPERAND_ARGTYPES = [ctypes.c_int] * 2
 
 KERNEL = build.Kernel("srp_hash", "repro_srp_hash",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                      + PLAN_ARGTYPES)
+                      + PLAN_ARGTYPES + OPERAND_ARGTYPES)
 
 
 @dataclass(frozen=True)
@@ -210,14 +215,18 @@ def check_w_aligned(w: torch.Tensor) -> None:
 
 def srp_hash_plain(x: torch.Tensor, w: torch.Tensor,
                    cfg: SrpConfig) -> torch.Tensor:
-    """The same function in plain PyTorch (``repro.kernels.ref.srp_hash_ref``).
-    On a CUDA tensor it is only exact with TF32 matmuls off
+    """The same function in plain PyTorch (``repro.kernels.ref.srp_hash_ref``):
+    both operands widened to float32, as the kernel and the reference's
+    Pallas kernel widen them, then the float32 product.  On a CUDA tensor
+    it is only exact with TF32 matmuls off
     (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default)."""
-    return pack_buckets(srp_bits(x, w, cfg), cfg)
+    return pack_buckets(srp_bits(x.float(), w.float(), cfg), cfg)
 
 
 def srp_hash(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
-    """(B, d) fp32 @ (d, P) fp32 -> (B, L) int32 bucket ids in [0, 2^K)."""
+    """(B, d) @ (d, P) -> (B, L) int32 bucket ids in [0, 2^K).  x and W are
+    each float32, bfloat16 or float16 (``build.OPERAND_DTYPES``); the kernel
+    widens every element to float32 as it loads it."""
     return srp_hash_planned(x, w, cfg, None)
 
 
@@ -228,8 +237,8 @@ def srp_hash_planned(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig,
     B, d = x.shape
     K, L, P = cfg.num_bits, cfg.num_tables, cfg.padded_projections
     build.check_bits(K)
-    build.check(x, "x", torch.float32, (B, d))
-    build.check(w, "w", torch.float32, (d, P))
+    build.check_operand(x, "x", (B, d))
+    build.check_operand(w, "w", (d, P))
     if build.on_cpu(x, w):
         return srp_hash_plain(x, w, cfg)
     out = torch.empty((B, L), dtype=torch.int32, device=x.device)
@@ -238,5 +247,6 @@ def srp_hash_planned(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig,
         check_w_aligned(w)
         plan = plan or device_plan(B, d, K, L, x.device)
         KERNEL(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
-               B, d, P, K, L, *plan.args())
+               B, d, P, K, L, *plan.args(),
+               build.operand_code(x), build.operand_code(w))
     return out

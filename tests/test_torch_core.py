@@ -137,6 +137,65 @@ class TestSrp:
 CFG = dict(dim=12, num_bits=8, num_tables=16, seed=11)
 
 
+class TestNarrowProjections:
+    """bfloat16 and float16 projections: the reference's ``make_projections
+    (dtype=)`` and the port's, carried across bit for bit, and the plain
+    path (the product in x's dtype, as ``repro.core.srp.srp_bits`` takes
+    it) against the reference's ``hash_buckets`` at its bf16 floor 0.99
+    (tests/test_kernels.py)."""
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    def test_reference_w_carries_across_exactly(self, dtype):
+        jcfg = jsrp.SrpConfig(dim=24, num_bits=6, num_tables=9, seed=4)
+        jw = jsrp.make_projections(jcfg, dtype=getattr(jnp, dtype))
+        host = np.asarray(jw)
+        assert host.dtype.name == dtype      # ml_dtypes' bfloat16 too
+        w = params_from_numpy(host, CPU)
+        assert w.dtype == getattr(torch, dtype)
+        np.testing.assert_array_equal(
+            w.float().numpy(), np.asarray(jw.astype(jnp.float32)))
+
+    @pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+    @pytest.mark.parametrize("xdtype", ["float32", "bfloat16"])
+    def test_plain_hash_matches_reference(self, dtype, xdtype):
+        kw = dict(dim=64, num_bits=15, num_tables=50, seed=2)
+        jcfg, cfg = jsrp.SrpConfig(**kw), srp.SrpConfig(**kw)
+        jw = jsrp.make_projections(jcfg, dtype=getattr(jnp, dtype))
+        jx = jnp.asarray(_data(256, 64, seed=5)).astype(getattr(jnp, xdtype))
+        want = np.asarray(jsrp.hash_buckets(jx, jw, jcfg))
+        got = srp.hash_buckets(params_from_numpy(np.asarray(jx), CPU),
+                               params_from_numpy(np.asarray(jw), CPU), cfg)
+        assert (got.numpy() == want).mean() >= 0.99
+
+    @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+    def test_port_draw_is_the_float32_draw_rounded(self, dtype):
+        cfg = srp.SrpConfig(dim=20, num_bits=5, num_tables=7, seed=9)
+        w32 = srp.make_projections(cfg)
+        w = srp.make_projections(cfg, dtype=dtype)
+        assert w.dtype == dtype and w.shape == w32.shape
+        assert torch.equal(w, w32.to(dtype))
+        assert sk.make_params(sk.AceConfig(dim=20, num_bits=5, num_tables=7,
+                                           seed=9), dtype=dtype).dtype \
+            == dtype
+        srht_cfg = srp.SrpConfig(dim=20, num_bits=5, num_tables=7,
+                                 hash_mode="srht")
+        assert srp.make_projections(srht_cfg, dtype=dtype).shape == (20, 0)
+
+    def test_float64_is_float32_with_a_warning_as_in_the_reference(self):
+        cfg = srp.SrpConfig(dim=12, num_bits=4, num_tables=3)
+        with pytest.warns(UserWarning, match="float32"):
+            w = srp.make_projections(cfg, dtype=torch.float64)
+        assert w.dtype == torch.float32
+        assert torch.equal(w, srp.make_projections(cfg))
+        with pytest.warns(UserWarning):
+            jw = jsrp.make_projections(jsrp.SrpConfig(dim=12, num_bits=4,
+                                                      num_tables=3),
+                                       dtype=jnp.float64)
+        assert jw.dtype == jnp.float32
+        with pytest.raises(TypeError, match="projection dtype"):
+            srp.make_projections(cfg, dtype=torch.int32)
+
+
 def _pair(welford_min_n=0.0, **kw):
     kw = {**CFG, "welford_min_n": welford_min_n, **kw}
     return jsk.AceConfig(**kw), sk.AceConfig(**kw)

@@ -2236,3 +2236,117 @@ def test_model_zoo_family_card_vs_cpu(cuda, name):
                                        for k, v in batch.items()}, 8, 20)
     torch.testing.assert_close(glogits.cpu(), clogits, rtol=2e-4, atol=2e-4)
     assert torch.equal(gtoks.cpu(), ctoks)
+
+
+# bf16 and fp16 hash operands: (x dtype, W dtype) pairs with a narrow one.
+NARROW_PAIRS = [(torch.bfloat16, torch.bfloat16),
+                (torch.float32, torch.bfloat16),
+                (torch.float16, torch.float16),
+                (torch.float16, torch.float32)]
+
+
+def _narrow_case(B, d, K, L, xdt, wdt, device, seed=0):
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=seed + d)
+    w = make_projections(cfg, device=device, dtype=wdt)
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(seed)) \
+        .to(device=device, dtype=xdt)
+    return cfg, x, w
+
+
+@pytest.mark.parametrize("splits", range(1, H.MAX_SPLITS + 1))
+@pytest.mark.parametrize("B", [1, 63, 64, 65])
+@pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS, ids=str)
+def test_dense_hash_narrow_operands(cuda, xdt, wdt, B, splits):
+    """Narrow x and W at d = 4097 (a 2-byte x row starts only 2-byte
+    aligned) under every cluster size: the kernel widens each element as
+    it stages it, so its ids are the float32 kernel's on the widened
+    operands, bitwise, and agree with the plain version at >= 0.999."""
+    d, K, L = 4097, 15, 50
+    cfg, x, w = _narrow_case(B, d, K, L, xdt, wdt, cuda, seed=B)
+    plan = H.make_plan(B, d, K, L, H.tables_per_group(K, L), splits)
+    before = H.KERNEL.launches
+    got = H.srp_hash_planned(x, w, cfg, plan)
+    assert H.KERNEL.launches == before + 1
+    assert torch.equal(got, H.srp_hash_planned(x.float(), w.float(), cfg,
+                                               plan))
+    assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+
+
+@pytest.mark.parametrize("splits", [1, 3, 8])
+@pytest.mark.parametrize("d", [1, 5, 17, 4097])
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16], ids=str)
+def test_dense_hash_narrow_x_off_a_word(cuda, xdt, d, splits):
+    """A 2-byte x whose first element sits 2 bytes past a 4-byte boundary
+    (a view one element into its buffer): the kernel copies each row's
+    aligned words and takes its elements from the row's skew, so its ids
+    are still the float32 kernel's on x.float(), bitwise."""
+    B, K, L = 65, 15, 50
+    cfg, _, w = _narrow_case(B, d, K, L, xdt, torch.bfloat16, cuda, seed=d)
+    buf = torch.randn(B * d + 1, generator=torch.Generator().manual_seed(d))
+    x = buf.to(device=cuda, dtype=xdt)[1:].view(B, d)
+    assert x.data_ptr() % 4 == 2
+    plan = H.make_plan(B, d, K, L, H.tables_per_group(K, L), splits)
+    got = H.srp_hash_planned(x, w, cfg, plan)
+    assert torch.equal(got, H.srp_hash_planned(x.float(), w.float(), cfg,
+                                               plan))
+    assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
+
+
+@pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS, ids=str)
+def test_fused_hash_kernels_take_narrow_operands(cuda, xdt, wdt):
+    """``ace_admit_fused``, ``ace_score_fused``, ``ace_fleet_score`` and
+    the windowed-fleet admission hash narrow operands to ``srp_hash``'s
+    ids, and everything downstream equals their plain versions on the
+    card (the plain versions widen the operands too)."""
+    B, d, K, L, T, E = 65, 4097, 15, 50, 3, 2
+    cfg, x, w = _narrow_case(B, d, K, L, xdt, wdt, cuda, seed=7)
+    ids = H.srp_hash(x, w, cfg)
+    counts = _counts(L, K, cuda)
+    t = torch.tensor(float(L), device=cuda)       # some admit, some not
+    got = A.ace_admit_fused(counts.clone(), x, w, t, cfg)
+    want = A.ace_admit_fused_plain(counts.clone(), x, w, t, cfg)
+    assert torch.equal(got[3], ids)
+    scores, sids = F.ace_score_fused_planned(counts, x, w, cfg, None, None,
+                                             with_ids=True)
+    assert torch.equal(sids, ids)
+    if torch.equal(want[3], ids):     # the plain hash agrees on every row
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert torch.equal(scores, F.ace_score_fused_plain(counts, x, w,
+                                                           cfg))
+    rng = np.random.default_rng(3)
+    fleet = torch.as_tensor(rng.integers(0, 9, size=(T, L, 1 << K)),
+                            dtype=torch.int32, device=cuda)
+    tids = torch.as_tensor(rng.integers(0, T, size=B), dtype=torch.int32,
+                           device=cuda)
+    scores, fids = FS.ace_fleet_score_planned(fleet, x, tids, w, cfg, None,
+                                              with_ids=True)
+    assert torch.equal(fids, ids)
+    assert torch.equal(scores, FS.fleet_score_from_ids(fleet, ids, tids))
+    ring = torch.as_tensor(rng.integers(0, 9, size=(T, E, L, 1 << K)),
+                           dtype=torch.int32, device=cuda)
+    tail = torch.as_tensor(rng.integers(0, 20, size=(T, L, 1 << K)),
+                           dtype=torch.float32, device=cuda)
+    cursor = torch.zeros((T,), dtype=torch.int32, device=cuda)
+    thr = torch.full((T,), float(L), device=cuda)
+    got = FWA.ace_fleet_window_admit_fused(ring.clone(), tail, cursor, x,
+                                           tids, w, thr, cfg)
+    want = FWA.ace_fleet_window_admit_fused_plain(ring.clone(), tail,
+                                                  cursor, x, tids, w, thr,
+                                                  cfg)
+    assert torch.equal(got[3], ids)
+    if torch.equal(want[3], ids):
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16], ids=str)
+@pytest.mark.parametrize("B,d,K,L", SRHT_SHAPES[:4])
+def test_srht_hash_narrow_x_bitwise(cuda, B, d, K, L, xdt):
+    """The SRHT kernel widens a narrow x as it loads it: ids bitwise the
+    kernel's on x.float() and the plain version's."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=d,
+                    hash_mode="srht")
+    x = torch.randn((B, d), generator=torch.Generator().manual_seed(d)) \
+        .to(device=cuda, dtype=xdt)
+    got = SH.srht_hash(x, cfg)
+    assert torch.equal(got, SH.srht_hash(x.float(), cfg))
+    assert torch.equal(got, SH.srht_hash_plain(x, cfg))

@@ -10,7 +10,9 @@ the main-path shapes fill 132 SMs, and the cluster size is the largest
 whose clusters the card runs at once (on the H100's table and others).
 A numpy model of the kernel's
 epilogue (the per-row sign mask words and the funnel-shift pack) is held
-bitwise against the port's ``pack_buckets`` on the same projections.
+bitwise against the port's ``pack_buckets`` on the same projections, and
+one of its staging of a 2-byte x (raw aligned words, the row's skew)
+against the rows it must stage.
 No JAX here: the plan has no counterpart in the reference.
 """
 import itertools
@@ -254,3 +256,65 @@ def test_epilogue_model_packs_like_pack_buckets(B, K, L):
     for plan in all_plans(B, 8, K, L):
         assert np.array_equal(model_ids(proj, K, L, plan), want), \
             plan.describe()
+
+
+X_WORDS = H.SLICE // 2 + 1    # srp_gemm.cuh kXWords
+
+
+def model_narrow_x_slice(mem: np.ndarray, base: int, B: int, d: int,
+                         row0: int, k_begin: int, kb: int,
+                         k_end: int) -> np.ndarray:
+    """The (SLICE, ROWS) x slice ``srp_gemm.cuh`` stages from a 2-byte x
+    that starts at half ``base`` of ``mem`` (whose half 0 is 4-byte
+    aligned), as raw bits: each row's X_WORDS aligned 4-byte words from
+    the one holding its first element (the row's skew from the kernel's
+    parity rule, which must be its first element's address parity), the
+    bytes past the slice's last element (or of a row past B) zero-filled,
+    then element k read at half skew + k of the row's words.  Reading
+    outside x's elements other than the dropped half before a row's first
+    one raises."""
+    live = min(H.SLICE, k_end - kb)
+    raw = np.zeros((H.ROWS, 2 * X_WORDS), dtype=np.uint16)
+    skew = np.zeros(H.ROWS, dtype=np.int64)
+    x_par = (base + k_begin) & 1
+    for r in range(min(H.ROWS, B - row0)):
+        e0 = base + (row0 + r) * d + kb
+        skew[r] = (x_par + ((row0 + r) & d)) & 1
+        assert skew[r] == e0 & 1
+        for q in range(X_WORDS):
+            first = 2 * q - skew[r]
+            n = 2 if first + 1 < live else 1 if first < live else 0
+            for h in range(n):
+                at = e0 + first + h
+                assert base - 1 <= at < base + B * d, "read outside x"
+                assert at >= base or first + h == -1
+                raw[r, 2 * q + h] = mem[at]
+    return np.stack([raw[np.arange(H.ROWS), skew + k]
+                     for k in range(H.SLICE)])
+
+
+@pytest.mark.parametrize("base", [0, 1], ids=["aligned", "skewed"])
+@pytest.mark.parametrize("B,d", [(1, 1), (65, 2), (65, 5), (1, 16),
+                                 (65, 17), (3, 33), (2, 4097)])
+def test_narrow_x_staging_model_reads_each_element_once(B, d, base):
+    """A 2-byte x row starts on any 2-byte boundary (d odd, or a view 2
+    bytes off a word): the raw words and the skew give every block's x
+    slice the row's elements in order, zeros past the split's depth and
+    past row B, under every plan of the shape, from a base on a word or 2
+    bytes past it."""
+    rng = np.random.default_rng(B * d + base)
+    x = rng.integers(1, 1 << 16, size=(B, d), dtype=np.uint16)
+    mem = np.concatenate([np.full(base, 0xFFFF, np.uint16), x.ravel(),
+                          np.full(2, 0xFFFF, np.uint16)])
+    for plan in all_plans(B, d, 15, 50):
+        for tile, split in itertools.product(range(plan.row_tiles),
+                                             range(plan.splits)):
+            row0 = tile * plan.rows
+            lo, hi = plan.bounds[split], plan.bounds[split + 1]
+            for kb in range(lo, hi, H.SLICE):
+                want = np.zeros((H.SLICE, H.ROWS), dtype=np.uint16)
+                rows = x[row0:row0 + H.ROWS, kb:min(kb + H.SLICE, hi)]
+                want[:rows.shape[1], :rows.shape[0]] = rows.T
+                got = model_narrow_x_slice(mem, base, B, d, row0, lo, kb,
+                                           hi)
+                assert np.array_equal(got, want), (plan.describe(), kb)

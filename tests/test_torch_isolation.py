@@ -39,7 +39,7 @@ def _imported_roots(path: Path) -> set[str]:
 @pytest.mark.parametrize("path", PORT_FILES,
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_no_jax_or_reference_import(path):
-    bad = _imported_roots(path) & {"jax", "jaxlib", "repro"}
+    bad = _imported_roots(path) & {"jax", "jaxlib", "repro", "ml_dtypes"}
     assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
@@ -75,6 +75,44 @@ def test_port_imports_and_admits_with_jax_blocked():
                          text=True, timeout=300, env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED_OK" in out.stdout
+
+
+def test_cluster_runs_with_jax_blocked():
+    """The cluster (``repro_torch.cluster``) and the narrow projections run
+    with JAX and ``ml_dtypes`` blocked: a node serves a chunk, publishes
+    its epoch's gossip and a peer reads it back."""
+    code = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        sys.modules["ml_dtypes"] = None
+        import numpy as np, torch
+        from repro_torch.cluster import (ClusterConfig, ClusterNode,
+                                         GossipBus, MemStore)
+        from repro_torch.core import srp
+        cfg = srp.SrpConfig(dim=8, num_bits=4, num_tables=3)
+        assert srp.make_projections(cfg, dtype=torch.bfloat16).dtype \\
+            == torch.bfloat16
+        store = MemStore()
+        node = ClusterNode(ClusterConfig(
+            host_id="h0", hosts=("h0", "h1"), num_tenants=4, d_model=6,
+            num_bits=5, num_tables=4, chunk_T=2, epoch_chunks=1),
+            store, device="cpu")
+        t = node.owned()[0]
+        feats = np.random.default_rng(0).normal(size=(2, 8, 7))
+        _, keeps = node.ingest_chunk(feats.astype("f4"),
+                                     np.full((2, 8), t, "i4"))
+        epoch, states, _ = GossipBus(store, "h1").latest("h0")
+        assert keeps.shape == (2, 8) and epoch == 1
+        assert float(states[t].n) == 16.0
+        assert not any(k == "repro" or k.startswith("repro.")
+                       for k in sys.modules), "the JAX package was imported"
+        print("CLUSTER_ISOLATED_OK")
+    """)
+    env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "CLUSTER_ISOLATED_OK" in out.stdout
 
 
 def test_entry_points_without_cuda_raise(monkeypatch):

@@ -685,6 +685,135 @@ class TestAceFleetWindowAdmit:
                                           err_msg=str(i))
 
 
+# (x dtype, W dtype) pairs with a narrow operand: the reference's Pallas
+# kernels take any of float32, bfloat16 and float16 for each
+NARROW_PAIRS = [("float32", "bfloat16"), ("bfloat16", "float32"),
+                ("bfloat16", "bfloat16"), ("float16", "float16"),
+                ("float32", "float16"), ("float16", "bfloat16")]
+
+
+def _narrow(a, dtype):
+    """The same narrow operand for both packages: the JAX array rounded to
+    ``dtype`` and its bits carried into a torch tensor."""
+    j = jnp.asarray(a).astype(dtype)
+    return j, params_from_numpy(np.asarray(j), CPU)
+
+
+class TestNarrowOperands:
+    """bfloat16 and float16 x and W through every dense-hash wrapper (and x
+    through ``srht_hash``), each plain version against the reference's
+    Pallas kernel in interpret mode on the same narrow operands: both widen
+    to float32 before the product, so the ids agree at the float32 floor
+    and everything downstream of one set of ids is bitwise."""
+
+    @pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS)
+    @pytest.mark.parametrize("B,d,K,L", SHAPES)
+    def test_srp_hash_matches_pallas(self, B, d, K, L, xdt, wdt):
+        from repro.kernels.srp_hash import srp_hash as jhash
+        jcfg, cfg, w, x, _ = _inputs(B, d, K, L)
+        (jx, px), (jw, pw) = _narrow(x, xdt), _narrow(w, wdt)
+        assert (px.dtype, pw.dtype) == (getattr(torch, xdt),
+                                        getattr(torch, wdt))
+        want = np.asarray(jhash(jx, jw, jcfg, interpret=True))
+        got = H.srp_hash(px, pw, cfg)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (B, L)
+        assert (got.numpy() == want).mean() >= HASH_AGREEMENT
+        # the plain version is the float32 product of the widened operands
+        np.testing.assert_array_equal(
+            got.numpy(), H.srp_hash(px.float(), pw.float(), cfg).numpy())
+
+    @pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS[:3])
+    def test_admit_fused_matches_pallas(self, xdt, wdt):
+        jcfg, cfg, w, x, counts = _inputs(16, 36, 15, 50, repeat=2)
+        (jx, px), (jw, pw) = _narrow(x, xdt), _narrow(w, wdt)
+        thresh = np.float32(np.median(np.asarray(R.ace_score_ref(
+            jnp.asarray(counts), jx.astype(jnp.float32),
+            jw.astype(jnp.float32), jcfg))))
+        mask = np.random.default_rng(6).random(len(x)) < 0.8
+        jc, js, ja, jb = jax_admit_fused(
+            jnp.asarray(counts), jx, jw, jnp.float32(thresh), jcfg,
+            interpret=True, item_mask=jnp.asarray(mask))
+        c, s, a, b = A.ace_admit_fused(_t(counts.copy()), px, pw,
+                                       torch.tensor(thresh), cfg,
+                                       item_mask=_t(mask))
+        assert (b.numpy() == np.asarray(jb)).mean() >= HASH_AGREEMENT
+        nc, s2, a2 = _jax_admit_from_buckets(
+            jnp.asarray(counts), jnp.asarray(b.numpy()),
+            jnp.float32(thresh), jnp.asarray(mask))
+        np.testing.assert_array_equal(s.numpy(), np.asarray(s2))
+        np.testing.assert_array_equal(a.numpy(), np.asarray(a2))
+        np.testing.assert_array_equal(c.numpy(), np.asarray(nc))
+
+    @pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS[:4])
+    def test_score_fused_and_fleet_score_match_pallas(self, xdt, wdt):
+        from repro.kernels.ace_fleet_score import ace_fleet_score as jfs
+        from repro.kernels.ace_score_fused import ace_score_fused as jfused
+        jcfg, cfg, w, x, counts, tids = _fleet_inputs(5, 33, 36, 15, 50)
+        (jx, px), (jw, pw) = _narrow(x, xdt), _narrow(w, wdt)
+        ids = H.srp_hash(px, pw, cfg).numpy()
+        jids = np.asarray(R.srp_hash_ref(jx.astype(jnp.float32),
+                                         jw.astype(jnp.float32), jcfg))
+        assert (ids == jids).mean() >= HASH_AGREEMENT
+        same = (ids == jids).all(axis=1)
+        want = np.asarray(jfused(jnp.asarray(counts[0]), jx, jw, jcfg,
+                                 interpret=True))
+        got = F.ace_score_fused(_t(counts[0]), px, pw, cfg)
+        np.testing.assert_array_equal(got.numpy()[same], want[same])
+        want = np.asarray(jfs(jnp.asarray(counts), jx, jnp.asarray(tids),
+                              jw, jcfg, interpret=True))
+        got = FS.ace_fleet_score(_t(counts), px, _t(tids), pw, cfg)
+        np.testing.assert_array_equal(got.numpy()[same], want[same])
+
+    @pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS[:3])
+    def test_fleet_window_admit_matches_pallas(self, xdt, wdt):
+        from repro.kernels.ace_fleet_window_admit import \
+            ace_fleet_window_admit_fused as jfwa
+        case = TestAceFleetWindowAdmit()._case(4, 2, 8, 36, 15, 50, 2,
+                                               "spread", integral=True)
+        jcfg, cfg, w, x, ring, tail, cursor, tids, thr = case
+        (jx, px), (jw, pw) = _narrow(x, xdt), _narrow(w, wdt)
+        want = jfwa(jnp.asarray(ring), jnp.asarray(tail),
+                    jnp.asarray(cursor), jx, jnp.asarray(tids), jw,
+                    jnp.asarray(thr), jcfg, interpret=True)
+        got = FWA.ace_fleet_window_admit_fused(
+            _t(ring.copy()), _t(tail), _t(cursor), px, _t(tids), pw,
+            _t(thr), cfg)
+        assert (got[3].numpy() == np.asarray(want[3])).mean() \
+            >= HASH_AGREEMENT
+        if (got[3].numpy() == np.asarray(want[3])).all():
+            for i, (a, b) in enumerate(zip(got, want)):
+                np.testing.assert_array_equal(a.numpy(), np.asarray(b),
+                                              err_msg=str(i))
+
+    @pytest.mark.parametrize("xdt", ["bfloat16", "float16"])
+    @pytest.mark.parametrize("d", [36, 300])
+    def test_srht_hash_matches_pallas(self, d, xdt):
+        from repro.kernels.srht_hash import srht_hash as jsrht
+        kw = dict(dim=d, num_bits=15, num_tables=50, seed=3,
+                  hash_mode="srht")
+        jcfg, cfg = JSrpConfig(**kw), SrpConfig(**kw)
+        x = np.random.default_rng(d).normal(size=(24, d)).astype(np.float32)
+        jx, px = _narrow(x, xdt)
+        want = np.asarray(jsrht(jx, jcfg, interpret=True))
+        got = SH.srht_hash(px, cfg)
+        assert (got.numpy() == want).mean() >= HASH_AGREEMENT
+        np.testing.assert_array_equal(
+            got.numpy(), SH.srht_hash(px.float(), cfg).numpy())
+
+    def test_other_dtypes_refused(self):
+        _, cfg, w, x, counts = _inputs(4, 8, 5, 3)
+        pw = params_from_numpy(w, CPU)
+        for bad in (torch.float64, torch.int32):
+            with pytest.raises(TypeError, match="bfloat16"):
+                H.srp_hash(_t(x).to(bad), pw, cfg)
+            with pytest.raises(TypeError, match="bfloat16"):
+                F.ace_score_fused(_t(counts), _t(x), pw.to(bad), cfg)
+        assert build.OPERAND_DTYPES == (torch.float32, torch.bfloat16,
+                                        torch.float16)
+        assert [build.operand_code(torch.zeros(1, dtype=t))
+                for t in build.OPERAND_DTYPES] == [0, 1, 2]
+
+
 class TestWrapperContract:
     """What every wrapper checks before it runs anything."""
 

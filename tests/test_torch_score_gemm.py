@@ -147,9 +147,10 @@ def test_launch_takes_the_hash_plan_and_its_scratch(monkeypatch, B, d, K, L,
     assert asked == [(B, d, K, L)] * 2
     want_plan = H.hash_plan(B, d, K, L, H.H100_CLUSTERS)
     for call, with_ids in zip(rec.calls, (False, True)):
-        ptrs, ints, plan_args = call[:7], call[7:12], call[12:-1]
+        ptrs, ints, plan_args = call[:7], call[7:12], call[12:-3]
         assert tuple(plan_args) == want_plan.args()
-        assert call[-1] == build.count_code(counts) == 0   # int32
+        assert call[-3] == build.count_code(counts) == 0   # int32
+        assert call[-2:] == (0, 0)          # float32 q and W
         assert ints == (B, d, cfg.padded_projections, K, L)
         gathered, ids = ptrs[4:6]
         assert gathered is not None
