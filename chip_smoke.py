@@ -353,22 +353,49 @@ non-zero without printing its result line):
              card: survivors' counts, n and Welford bitwise, adopted
              counts and n equal, probe scores exact, every served verdict
              equal, recall after re-homing >= 0.9 × fault-free; (c) h1
-             restarted cold rejoins through ``try_rejoin`` and wins back
-             only its HRW tenants, from h0's gossip with exact n; (d)
+             restarted cold rejoins through ``try_rejoin``, then runs
+             its control loop until h0 has read the state, and wins back
+             only its HRW tenants, from h0's gossip with exact n (its
+             silence at the new map version against the failure timeout
+             printed); (d)
              items/s a host ingests, ``ingest_chunk`` in turns with a
              plain ``StreamRunner`` on one fleet, the epoch boundary by
              part, kill-to-dead, re-shard + adoption ms, gossip bytes;
              each host's launches (``srp_hash``, ``ace_query_sum``,
              ``ace_update``, no (B, L) gather) join the kernels' counts.
+19. dist — ``repro_torch.dist`` as ``gloo`` ranks on the card
+             (``chip_smoke.py --dist-child WORLD RANK DIR``, started once
+             the kernels are built), world 2 and then world 4, each held
+             against this process running the main path with no mesh
+             (the fused admission, the filters' kernel path), whose timed
+             runs go before and after the ranks: (a) flat guardrails at d_model 4096,
+             K = 15, L = 50 (25 tables a rank), 16 admits of 256 × 16,
+             replicated and table-sharded, μ−ασ and quantile: masks,
+             counts, n, μ, Welford bitwise, ``srp_hash``, ``ace_query_sum``
+             and ``ace_update`` launched on each rank and no fused
+             admission, the all-reduce tally 2 × 4·B bytes an admit (+ 8
+             for μ's int64 Σc²); (b) T = 8 fleets tenant-sharded (world
+             2) and tenant × table (world 4), each rank its tenants'
+             requests: bitwise, no collective on the tenant axis; (c) the
+             table-sharded stream (T 16 × B 512 × d 4097, K 13, L 32, 2
+             chunks) flat and windowed (E 4, γ 0.9, R 4): keeps and state
+             bitwise; (d) K = 18, L = 200 (209,715,200 B) over 2 ranks:
+             each rank's block bitwise; (e) reduced olmo_1b, 2 ZeRO-2
+             steps at 2 × 1 (FSDP specs): loss within rtol 1e-5,
+             parameters within the summed lr and 99.9% within 1e-6, the
+             filter's and monitor's sketches bitwise; (f) GPipe, 2 stages
+             × 8 microbatches, against the sequential stages; admit p50
+             and items/s beside one process's, each rank's tally and
+             launches (which join the kernels' counts).
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 18 (the post-mortem query a
+before each path of phases 3 to 7 and 9 to 19 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
 phases 15 and 16 before each measured generate; in phase 17 before each
 measured ``train``; in phase 18 in each serving host process, before
-its first chunk)
+its first chunk; in phase 19 in each rank, before each part)
 and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
@@ -6245,15 +6272,39 @@ def cluster_child(role: str, port: int, root: Path) -> int:
     node = ClusterNode(cluster_config(role[:2], root), store, device=device)
     out = {"role": role}
     if role == "h1b":
+        # stamps on the machine's one monotonic clock: each beat h1b
+        # writes (before the write) with the map version it carries, and
+        # each adoption's start and end
+        beats, adopts = [], []
+        beat, adopt = node.heartbeat.beat, node._adopt
+
+        def stamped_beat():
+            beats.append((time.monotonic(), int(node.heartbeat.version)))
+            beat()
+
+        def timed_adopt(*args):
+            t = time.monotonic()
+            adopt(*args)
+            adopts.append((t, time.monotonic()))
+        node.heartbeat.beat, node._adopt = stamped_beat, timed_adopt
         t0 = time.time()
         ok = node.try_rejoin(RejoinPolicy(max_attempts=8, base_delay=0.1))
         n = node.state.n.cpu().numpy()
         out.update(rejoined=ok, rejoin_s=time.time() - t0,
-                   adoptions=node.adoptions, owned=list(node.owned()),
+                   adoptions=list(node.adoptions), owned=list(node.owned()),
                    map_version=node.map.version,
                    n={str(t): float(n[t]) for t in node.owned()})
-        (root / "h1b.json").write_text(json.dumps(out))
         store.set("h1b_done", "1")
+        # back in the cluster, the host runs its control loop until h0
+        # has read the state after the rejoin
+        t0 = time.monotonic()
+        while store.get("h0_after") is None \
+                and time.monotonic() - t0 < CL_CHILD_TIMEOUT:
+            node.control_step()
+            time.sleep(0.05)
+        out.update(beats=beats, adopts=adopts,
+                   map_version_end=node.map.version)
+        (root / "h1b.json").write_text(json.dumps(out))
         return 0
     host = ClusterHost(node)
     # Stamps on the machine's one monotonic clock, shared by the processes:
@@ -6351,16 +6402,23 @@ def cluster_child(role: str, port: int, root: Path) -> int:
                launches=launches)
     (root / "h0.json").write_text(json.dumps(out))
     store.set("h0_ready", "1")
-    # (c): keep the control plane running until the cold h1 is back
+    # (c): keep the control plane running until the cold h1 is back;
+    # each turn's end on the shared clock, the map version and the hosts
+    # it declared dead
+    turns = []
     t0 = time.monotonic()
     while store.get("h1b_done") is None:
         if time.monotonic() - t0 > CL_CHILD_TIMEOUT:
             raise CheckFailed("h1 never rejoined")
-        node.control_step()
+        dead = node.control_step()
+        turns.append((time.monotonic(), node.map.version, dead))
         time.sleep(0.05)
-    node.control_step()
+    dead = node.control_step()
+    turns.append((time.monotonic(), node.map.version, dead))
     (root / "h0_after.json").write_text(json.dumps(
-        {"map_version": node.map.version, "owned": list(node.owned())}))
+        {"map_version": node.map.version, "owned": list(node.owned()),
+         "turns": turns}))
+    store.set("h0_after", "1")
     return 0
 
 
@@ -6616,6 +6674,19 @@ def phase_cluster(mods, device, card) -> dict:
           "recall after re-homing >= 0.9 x fault-free")
 
     # (c) the cold rejoin
+    admitted = next((t for t, v, _ in after["turns"] if v == 2), None)
+    new_beats = [t for t, v in h1b["beats"] if v == 2]
+    redeclared = [t for t, _, d in after["turns"] if "h1" in d]
+    if admitted is not None and new_beats:
+        gaps = np.diff([admitted] + new_beats)
+        print(f"  (c) rejoin: h1's first beat at the new map version "
+              f"{1e3 * (new_beats[0] - admitted):.1f} ms after h0's turn "
+              f"that admitted it; adoption "
+              + ", ".join(f"{1e3 * (b - a):.1f}" for a, b in h1b["adopts"])
+              + f" ms; longest silence at that version "
+              f"{1e3 * float(gaps.max()):.1f} ms (failure timeout "
+              f"{1e3 * CL_TIMEOUT:.0f} ms); h0 declared h1 dead again: "
+              f"{'yes' if redeclared else 'no'}")
     moved = {a["tenant"] for a in h1b["adoptions"]}
     pub = h0["published"][str(max(map(int, h0["published"])))]
     check(h1b["rejoined"] and moved == won1 and set(h1b["owned"]) == won1
@@ -6649,6 +6720,522 @@ def phase_cluster(mods, device, card) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: repro_torch.dist — sharded sketches, GPipe and ZeRO-2 training,
+# as gloo ranks on the one card
+# ---------------------------------------------------------------------------
+
+DI_DIR = ROOT / "build" / "dist"
+DI_DEVICE = "cuda"                       # the ranks' device
+DI_TIMEOUT = 600                         # seconds a group of ranks may take
+DI_L = 50                                # (a), (b): 25 tables a rank
+DI_ADMITS = 16                           # (a): admits of ADMIT_B rows
+DI_T, DI_FLEET_ADMITS = 8, 8             # (b): tenants; admits a group
+DI_STREAM = dict(T=16, B=512, K=13, L=32, chunks=2)     # (c)
+DI_WINDOW = dict(num_epochs=4, decay=0.9, rotate_every=4)
+DI_BIG = dict(K=18, L=200, admits=4)     # (d): 209,715,200 B of int32
+DI_PIPE = dict(S=2, M=8, mb=64, D=1024)  # (f)
+DI_TRAIN_STEPS = 2                       # (e)
+DI_MODES = ("mu_sigma", "quantile")
+DI_LAYOUTS = ("replicated", "table_sharded")
+
+
+def dist_guard_cfg(**kw):
+    from repro_torch.serve.engine import GuardrailConfig
+    base = dict(d_model=D_MODEL, num_bits=K_BITS, num_tables=DI_L,
+                warmup_items=4.0 * ADMIT_B)
+    return GuardrailConfig(**{**base, **kw})
+
+
+def dist_big_cfg():
+    return dist_guard_cfg(num_bits=DI_BIG["K"], num_tables=DI_BIG["L"],
+                          warmup_items=float(ADMIT_B))
+
+
+def dist_fleet_batches(device, group: int, groups: int):
+    """(embeds, tenant ids) of each fleet admit of tenant group ``group``:
+    the guardrail traffic, each row routed to one of the group's
+    DI_T / groups tenants."""
+    per = DI_T // groups
+    rng = np.random.default_rng(SEED + 190 + group)
+    for e, _ in guardrail_batches(device, D_MODEL, DI_FLEET_ADMITS, ADMIT_B,
+                                  ADMIT_S):
+        yield e, (rng.integers(0, per, ADMIT_B) + per * group).astype(
+            np.int32)
+
+
+def timed_admit(g, e, t=None):
+    """One admit: (host-clock ms, its verdicts); the verdicts' D2H
+    syncs."""
+    t0 = time.perf_counter()
+    mask = g.admit(e, t)
+    return 1e3 * (time.perf_counter() - t0), mask
+
+
+def dist_guardrail_run(device, mode, w, mesh=None, layout="replicated"):
+    """DI_ADMITS admits of one flat Guardrail, over ``mesh`` in ``layout``
+    or with no mesh: (guardrail, masks, ms)."""
+    from repro_torch.serve.engine import Guardrail
+    g = Guardrail(dist_guard_cfg(threshold_mode=mode), device=device,
+                  mesh=mesh, sketch_layout=layout, w=w)
+    masks, ms = [], []
+    for e, _ in guardrail_batches(device, D_MODEL, DI_ADMITS, ADMIT_B,
+                                  ADMIT_S):
+        t, m = timed_admit(g, e)
+        masks.append(m)
+        ms.append(t)
+    return g, np.stack(masks), ms
+
+
+def dist_fleet_run(device, layout, w, mesh, group, groups):
+    from repro_torch.serve.engine import Guardrail
+    g = Guardrail(dist_guard_cfg(num_tenants=DI_T, warmup_items=ADMIT_B),
+                  device=device, mesh=mesh, sketch_layout=layout, w=w)
+    masks, ms = [], []
+    for e, t in dist_fleet_batches(device, group, groups):
+        dt, m = timed_admit(g, e, t)
+        masks.append(m)
+        ms.append(dt)
+    return g, np.stack(masks), ms
+
+
+def dist_filters(device):
+    from repro_torch.data.pipeline import AceDataFilter
+    from repro_torch.window.filter import WindowedAceFilter
+    s = DI_STREAM
+    kw = dict(d_model=D_MODEL, num_bits=s["K"], num_tables=s["L"],
+              device=device)
+    return {"flat": AceDataFilter(**kw),
+            "window": WindowedAceFilter(**kw, **DI_WINDOW)}
+
+
+def dist_stream_run(device, filt, mesh, feats, w):
+    """DI_STREAM's chunks through a StreamRunner: (state, keeps, items/s)."""
+    from repro_torch.stream.runner import StreamRunner
+    s = DI_STREAM
+    runner = StreamRunner(filt, s["T"], return_masks=True, mesh=mesh,
+                          sketch_layout="table_sharded")
+    state, _ = runner.init()
+    keeps, secs = [], 0.0
+    for c in range(s["chunks"]):
+        chunk = torch.as_tensor(feats[c * s["T"]:(c + 1) * s["T"]],
+                                device=device)
+        sync(device)
+        t0 = time.perf_counter()
+        state, summary, keep = runner.consume(state, w, chunk)
+        runner.fetch(summary)
+        secs += time.perf_counter() - t0
+        keeps.append(keep.cpu())
+    return runner, state, torch.stack(keeps), s["chunks"] * s["T"] * s[
+        "B"] / secs
+
+
+def dist_train(device, mesh, steps):
+    """Reduced olmo_1b (phase 17's (b) config, no compression), ``steps``
+    steps: over ``mesh`` with FSDP specs (``launch.train``'s), or on one
+    process.  Returns (state, history, specs or None)."""
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.dist import mesh as dm
+    from repro_torch.models import Arch
+    from repro_torch.models.common import set_rules
+    from repro_torch.train import sharded
+    from repro_torch.train.train_loop import init_train_state, train
+    arch = Arch("olmo_1b", reduced=True)
+    tcfg = train_config(peak_lr=1e-3, total_steps=16, device=device.type)
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=REDUCED_S,
+                        global_batch=REDUCED_B, seed=SEED)
+    if mesh is None:
+        state, hist = train(arch, tcfg, DataStream(scfg), steps, log_every=0)
+        return state, hist, None
+    set_rules(dm.rules_for(mesh))
+    shapes = arch.abstract_params()[0]
+    specs = dm.sharding_tree_for(
+        mesh, dm.fsdp_tree(arch.param_pspecs(), shapes, mesh), shapes)
+    set_rules({})
+    state = sharded.shard_train_state(init_train_state(arch, tcfg), arch,
+                                      tcfg, mesh, specs)
+    state, hist = train(arch, tcfg, DataStream(scfg), steps, log_every=0,
+                        state=state, mesh=mesh, grad_pspecs=specs)
+    return state, hist, specs
+
+
+def dist_pipe_operands(device):
+    p = DI_PIPE
+    gen = torch.Generator(device=device).manual_seed(SEED + 19)
+    w = 0.3 * torch.randn((p["S"], p["D"], p["D"]), generator=gen,
+                          device=device) / p["D"] ** 0.5
+    x = torch.randn((p["M"], p["mb"], p["D"]), generator=gen, device=device)
+    return w, x
+
+
+def dist_layer(p, h):
+    return torch.tanh(h @ p["w"])
+
+
+def np_state(st) -> dict:
+    return {k: getattr(st, k).cpu() for k in ("counts", "n", "welford_mean",
+                                               "welford_m2")}
+
+
+def dist_child(world: int, rank: int, root: Path) -> int:
+    """One rank of phase 19, run as ``chip_smoke.py --dist-child WORLD
+    RANK DIR``: joins the gloo group of WORLD ranks (``file://`` init under
+    DIR), runs its parts on the card, and writes its results there: a JSON
+    of launches, tallies and timings, tensors in a ``.pt``.  The kernels
+    are already built, so it only loads them."""
+    import torch.distributed as dist
+    mods = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.mesh import make_debug_mesh, make_mesh
+    from repro_torch.kernels import build
+    device = torch.device(DI_DEVICE)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        for name in build.sources():
+            build.load(name)
+    dist.init_process_group("gloo", init_method=f"file://{root}/init{world}",
+                            rank=rank, world_size=world)
+    dtype = device.type
+    out = {"rank": rank, "world": world, "paths": {}, "tally": {},
+           "ms": {}}
+    tensors = {}
+    w = torch.load(root / "w.pt").to(device)
+
+    def part(name, fn):
+        reset_launches(mods)
+        col.TALLY.reset()
+        res = fn()
+        out["paths"][f"dist_{name}_r{rank}"] = {
+            "launches": read_launches(mods)}
+        out["tally"][name] = col.TALLY.snapshot()
+        return res
+
+    try:
+        if world == 2:
+            mesh = make_debug_mesh(data=1, model=2, device_type=dtype)
+            for layout in DI_LAYOUTS:
+                for mode in DI_MODES:
+                    name = f"guardrail_{layout}_{mode}"
+                    g, masks, ms = part(name, lambda: dist_guardrail_run(
+                        device, mode, w, mesh, layout))
+                    out["ms"][name] = ms
+                    tensors[f"{name}_masks"] = torch.as_tensor(masks)
+                    tensors[name] = np_state(g._shard.gather(g.state))
+            tmesh = make_debug_mesh(data=2, model=1, device_type=dtype)
+            g, masks, ms = part("fleet_tenant_sharded", lambda: dist_fleet_run(
+                device, "tenant_sharded", w, tmesh, rank, 2))
+            out["ms"]["fleet_tenant_sharded"] = ms
+            tensors["fleet_tenant_sharded_masks"] = torch.as_tensor(masks)
+            tensors["fleet_tenant_sharded"] = np_state(
+                g._shard.gather(g.state))
+            del g
+            feats, _ = stream_features(device, D_MODEL, DI_STREAM["chunks"],
+                                       DI_STREAM["T"], DI_STREAM["B"])
+            ws = torch.load(root / "w_stream.pt").to(device)
+            for kind, filt in dist_filters(device).items():
+                runner, st, keeps, ips = part(
+                    f"stream_{kind}", lambda: dist_stream_run(
+                        device, filt, mesh, feats, ws))
+                out["ms"][f"stream_{kind}_items_per_s"] = ips
+                tensors[f"stream_{kind}_keeps"] = keeps
+                tensors[f"stream_{kind}"] = np_state(runner.shard.gather(st))
+            del feats
+            wb = torch.load(root / "w_big.pt").to(device)
+            from repro_torch.serve.engine import Guardrail
+
+            def big():
+                g = Guardrail(dist_big_cfg(), device=device, mesh=mesh,
+                              sketch_layout="table_sharded", w=wb)
+                masks, ms = [], []
+                for e, _ in guardrail_batches(device, D_MODEL,
+                                              DI_BIG["admits"], ADMIT_B,
+                                              ADMIT_S):
+                    dt, m = timed_admit(g, e)
+                    masks.append(m)
+                    ms.append(dt)
+                return g, np.stack(masks), ms
+            g, masks, ms = part("big", big)
+            out["ms"]["big"] = ms
+            out["big_block_bytes"] = g.state.counts.numel() * 4
+            tensors["big_masks"] = torch.as_tensor(masks)
+            tensors["big_block"] = g.state.counts.cpu()
+            tensors["big"] = {k: v for k, v in np_state(g.state).items()
+                              if k != "counts"}
+            del g
+            dmesh = make_debug_mesh(data=2, model=1, device_type=dtype)
+            st, hist, specs = part("train", lambda: dist_train(
+                device, dmesh, DI_TRAIN_STEPS))
+            from repro_torch.models.registry import leaves
+            from repro_torch.train import sharded
+            full = sharded.gather_params(st.params, specs, dmesh)
+            tensors["train_params"] = torch.cat(
+                [t.reshape(-1).cpu() for t in leaves(full)])
+            tensors["train_filter"] = np_state(st.filter_state)
+            tensors["train_monitor"] = np_state(st.monitor.ace)
+            out["train_hist"] = hist
+            out["train_fsdp_leaves"] = sum(
+                1 for ps in sharded.spec_leaves(specs) if "data" in ps)
+            pmesh = make_mesh((2,), ("pipe",), dtype)
+            pw, px = dist_pipe_operands(device)
+            from repro_torch.dist.pipeline import pipeline_apply
+            tensors["pipe"] = part("pipe", lambda: pipeline_apply(
+                dist_layer, {"w": pw}, px, mesh=pmesh,
+                num_stages=DI_PIPE["S"],
+                num_microbatches=DI_PIPE["M"])).cpu()
+        else:
+            mesh = make_debug_mesh(data=2, model=2, device_type=dtype)
+            g, masks, ms = part("fleet_tenant_table_sharded",
+                                lambda: dist_fleet_run(
+                                    device, "tenant_table_sharded", w, mesh,
+                                    mesh.get_local_rank("data"), 2))
+            out["ms"]["fleet_tenant_table_sharded"] = ms
+            tensors["fleet_tenant_table_sharded_masks"] = \
+                torch.as_tensor(masks)
+            tensors["fleet_tenant_table_sharded"] = np_state(
+                g._shard.gather(g.state))
+        out["host_staged"] = sorted(col.GLOO_HOST_STAGED)
+    finally:
+        dist.destroy_process_group()
+    torch.save(tensors, root / f"w{world}_r{rank}.pt")
+    (root / f"w{world}_r{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def spawn_ranks(world: int, root: Path) -> list:
+    procs = []
+    for r in range(world):
+        log = open(root / f"w{world}_r{r}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dist-child",
+             str(world), str(r), str(root)], stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    return procs
+
+
+def wait_ranks(procs: list, world: int, root: Path) -> None:
+    t0 = time.monotonic()
+    try:
+        for r, p in enumerate(procs):
+            left = max(DI_TIMEOUT - (time.monotonic() - t0), 1.0)
+            try:
+                rc = p.wait(timeout=left)
+            except subprocess.TimeoutExpired:
+                rc = None
+            if rc != 0:
+                print((root / f"w{world}_r{r}.log").read_text()[-4000:])
+            check(rc == 0, f"phase 19 rank {r} of {world} exited {rc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def same_state(a: dict, b: dict, what: str) -> None:
+    for k in b:
+        check(torch.equal(a[k], b[k]), f"{what}: {k} bitwise")
+
+
+def p50(ms) -> float:
+    return statistics.median(ms)
+
+
+def phase_dist(mods, device, card) -> dict:
+    """Phase 19 (see the module docstring).  This process runs every
+    baseline first, on the main path with no mesh (the unmeshed
+    ``Guardrail`` with its fused admission, the filters' kernel path,
+    one process's training), then the ranks as two groups of processes
+    on the card, world 2 and then world 4, waiting idle, then the timed
+    baselines again (in turns around the ranks); then compares."""
+    from repro_torch.models.registry import leaves
+    from repro_torch.serve.engine import Guardrail
+    shutil.rmtree(DI_DIR, ignore_errors=True)
+    DI_DIR.mkdir(parents=True)
+    w = Guardrail(dist_guard_cfg(), device=device).w
+    torch.save(w.cpu(), DI_DIR / "w.pt")
+    ws = dist_filters(device)["flat"].init()[1]
+    torch.save(ws.cpu(), DI_DIR / "w_stream.pt")
+    wb = Guardrail(dist_big_cfg(), device=device).w
+    torch.save(wb.cpu(), DI_DIR / "w_big.pt")
+
+    def timed_baselines():
+        out = {}
+        for mode in DI_MODES:
+            g, masks, ms = dist_guardrail_run(device, mode, w)
+            out[mode] = (np_state(g.state), masks, ms)
+        feats, _ = stream_features(device, D_MODEL, DI_STREAM["chunks"],
+                                   DI_STREAM["T"], DI_STREAM["B"])
+        for kind, f in dist_filters(device).items():
+            _, st, keeps, ips = dist_stream_run(device, f, None, feats, ws)
+            out[f"stream_{kind}"] = (np_state(st), keeps, ips)
+        return out
+
+    t0 = time.perf_counter()
+    before = timed_baselines()
+    g = Guardrail(dist_guard_cfg(num_tenants=DI_T, warmup_items=ADMIT_B),
+                  device=device, w=w)
+    fleet_masks = {0: [], 1: []}
+    for (e0, i0), (e1, i1) in zip(dist_fleet_batches(device, 0, 2),
+                                  dist_fleet_batches(device, 1, 2)):
+        fleet_masks[0].append(g.admit(e0, i0))
+        fleet_masks[1].append(g.admit(e1, i1))
+    fleet = np_state(g.state)
+    g = Guardrail(dist_big_cfg(), device=device, w=wb)
+    big_masks, big_ms = [], []
+    for e, _ in guardrail_batches(device, D_MODEL, DI_BIG["admits"],
+                                  ADMIT_B, ADMIT_S):
+        dt, m = timed_admit(g, e)
+        big_masks.append(m)
+        big_ms.append(dt)
+    big_state = np_state(g.state)
+    del g
+    tstate, thist, _ = dist_train(device, None, DI_TRAIN_STEPS)
+    pw, px = dist_pipe_operands(device)
+    seq = px
+    for s in range(DI_PIPE["S"]):
+        seq = dist_layer({"w": pw[s]}, seq)
+    t1 = time.perf_counter()
+    for world in (2, 4):
+        wait_ranks(spawn_ranks(world, DI_DIR), world, DI_DIR)
+    ranks_s = time.perf_counter() - t1
+    after = timed_baselines()
+    res = {(wd, r): (json.loads((DI_DIR / f"w{wd}_r{r}.json").read_text()),
+                     torch.load(DI_DIR / f"w{wd}_r{r}.pt"))
+           for wd in (2, 4) for r in range(wd)}
+    print(f"  one-process baselines {t1 - t0:.1f} s, then the ranks (world "
+          f"2, then world 4, on the one card) {ranks_s:.1f} s ({card})")
+    print(f"  gloo host staging: {res[(2, 0)][0]['host_staged']} go "
+          "through a host copy on CUDA tensors (gloo's point-to-point "
+          "sends read device pointers as host memory); all-reduce, "
+          "all-gather, reduce-scatter and broadcast take them directly")
+    paths = {}      # one a part and world, its ranks' launches summed
+    for (wd, r), (js, _) in res.items():
+        for name, p in js["paths"].items():
+            part = name[5:-3]
+            total = paths.setdefault(f"dist_{part}_w{wd}", {
+                "launches": dict.fromkeys(p["launches"], 0)})["launches"]
+            for k, v in p["launches"].items():
+                total[k] += v
+            print(f"  rank {r} of {wd}, {part}: launches "
+                  + ", ".join(f"{k} {v}" for k, v in p["launches"].items()
+                              if v)
+                  + f"; tally {js['tally'][part]}")
+
+    # (a) flat guardrails, world 2
+    for layout in DI_LAYOUTS:
+        for mode in DI_MODES:
+            name = f"guardrail_{layout}_{mode}"
+            want, masks, _ = before[mode]
+            for r in range(2):
+                js, t = res[(2, r)]
+                check(np.array_equal(t[f"{name}_masks"].numpy(), masks),
+                      f"(a) {name} rank {r}: {DI_ADMITS} masks bitwise the "
+                      "one process's")
+                same_state(t[name], want, f"(a) {name} rank {r}")
+                launched = js["paths"][f"dist_{name}_r{r}"]["launches"]
+                check(all(launched[k] > 0 for k in ("srp_hash", "ace_query",
+                                                    "ace_update"))
+                      and launched["ace_admit_fused"] == 0,
+                      f"(a) {name} rank {r}: srp_hash, ace_query_sum and "
+                      "ace_update launched, no fused admission")
+                tally = js["tally"][name]
+                ar = tally.get("all-reduce", {"bytes": 0, "count": 0})
+                per = 2 * 4 * ADMIT_B + (8 if mode == "mu_sigma" else 0)
+                want_bytes = per * DI_ADMITS if layout == "table_sharded" \
+                    else 0
+                check(ar["bytes"] == want_bytes,
+                      f"(a) {name}: all-reduce bytes {ar['bytes']} = "
+                      f"{DI_ADMITS} admits x (two (B,) float partial sums, "
+                      f"4·B = {4 * ADMIT_B} B each"
+                      + (", and μ's int64 Σc²)" if mode == "mu_sigma"
+                         else ")"))
+            print(f"  (a) {name}: admit p50 "
+                  f"{p50(res[(2, 0)][0]['ms'][name]):.3f} ms at world 2, "
+                  f"one process {p50(before[mode][2]):.3f} / "
+                  f"{p50(after[mode][2]):.3f} ms (before / after) ({card})")
+    # (b) fleets
+    for layout, wd in (("tenant_sharded", 2), ("tenant_table_sharded", 4)):
+        for r in range(wd):
+            js, t = res[(wd, r)]
+            group = r if wd == 2 else r // 2
+            check(np.array_equal(t[f"fleet_{layout}_masks"].numpy(),
+                                 np.stack(fleet_masks[group])),
+                  f"(b) fleet {layout} rank {r}: masks bitwise the one "
+                  "process's for its tenants")
+            same_state(t[f"fleet_{layout}"], fleet,
+                       f"(b) fleet {layout} rank {r}")
+            tally = js["tally"][f"fleet_{layout}"]
+            check("data" not in tally["by_axis"],
+                  f"(b) fleet {layout} rank {r}: no collective on the "
+                  f"tenant axis (tally by axis {tally['by_axis']})")
+        print(f"  (b) fleet {layout}, T {DI_T}: admit p50 "
+              f"{p50(res[(wd, 0)][0]['ms'][f'fleet_{layout}']):.3f} ms at "
+              f"world {wd} ({card})")
+    # (c) stream
+    for kind in ("flat", "window"):
+        want, keeps, ips = before[f"stream_{kind}"]
+        for r in range(2):
+            js, t = res[(2, r)]
+            check(torch.equal(t[f"stream_{kind}_keeps"], keeps),
+                  f"(c) stream {kind} rank {r}: keep masks bitwise")
+            same_state(t[f"stream_{kind}"], want, f"(c) stream {kind} "
+                       f"rank {r}")
+        print(f"  (c) stream {kind} (T {DI_STREAM['T']}, B "
+              f"{DI_STREAM['B']}, d {D_MODEL + 1}, K {DI_STREAM['K']}, L "
+              f"{DI_STREAM['L']}): "
+              f"{res[(2, 0)][0]['ms'][f'stream_{kind}_items_per_s']:,.0f} "
+              f"items/s at world 2, one process {ips:,.0f} / "
+              f"{after[f'stream_{kind}'][2]:,.0f} (before / after) ({card})")
+    # (d) the big sketch
+    half = DI_BIG["L"] // 2
+    for r in range(2):
+        js, t = res[(2, r)]
+        check(np.array_equal(t["big_masks"].numpy(), np.stack(big_masks)),
+              f"(d) big sketch rank {r}: masks bitwise")
+        check(torch.equal(t["big_block"],
+                          big_state["counts"][r * half:(r + 1) * half]),
+              f"(d) big sketch rank {r}: its {js['big_block_bytes']:,} B "
+              "block bitwise the one process's tables "
+              f"{r * half}..{(r + 1) * half - 1}")
+        same_state(t["big"], {k: v for k, v in big_state.items()
+                              if k != "counts"}, f"(d) big rank {r}")
+    print(f"  (d) K {DI_BIG['K']}, L {DI_BIG['L']}: "
+          f"{big_state['counts'].numel() * 4:,} B of counts, admit p50 "
+          f"{p50(res[(2, 0)][0]['ms']['big']):.3f} ms at world 2, one "
+          f"process {p50(big_ms):.3f} ms ({card})")
+    # (e) ZeRO-2 training
+    js, t = res[(2, 0)]
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(js["train_hist"], thist))
+    one_params = torch.cat([p.reshape(-1).cpu() for p in
+                            leaves(tstate.params)])
+    diffs = (t["train_params"] - one_params).abs()
+    lr_sum = sum(h["lr"] for h in thist)
+    share = float((diffs <= 1e-6).float().mean())
+    print(f"  (e) reduced olmo_1b, {DI_TRAIN_STEPS} steps at --mesh 2x1 "
+          f"({js['train_fsdp_leaves']} leaves split over data): loss rel "
+          f"err {loss_err:.3g}, params max abs {float(diffs.max()):.3g} "
+          f"({share:.6f} within 1e-6) against one process")
+    check(loss_err <= 1e-5, "(e) losses within rtol 1e-5 of one process")
+    check(float(diffs.max()) <= lr_sum and share >= 0.999,
+          "(e) params within the summed lr, 99.9% within 1e-6")
+    same_state(t["train_filter"], np_state(tstate.filter_state),
+               "(e) the data filter's sketch")
+    same_state(t["train_monitor"], np_state(tstate.monitor.ace),
+               "(e) the gradient monitor's sketch")
+    # (f) GPipe
+    err = float((res[(2, 0)][1]["pipe"] - seq.cpu()).abs().max())
+    check(torch.allclose(res[(2, 0)][1]["pipe"], seq.cpu(), rtol=2e-5,
+                         atol=2e-5),
+          f"(f) GPipe over 2 stages against the sequential stages (max abs "
+          f"{err:.3g}; bubble {DI_PIPE['S'] - 1}/"
+          f"{DI_PIPE['S'] + DI_PIPE['M'] - 1})")
+    print(f"  (f) tally of a rank: {res[(2, 0)][0]['tally']['pipe']}")
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -6656,6 +7243,9 @@ def main() -> int:
         return 1
     if sys.argv[1:2] == ["--cluster-child"]:     # a phase-18 host process
         return cluster_child(sys.argv[2], int(sys.argv[3]), Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--dist-child"]:        # a phase-19 rank
+        return dist_child(int(sys.argv[2]), int(sys.argv[3]),
+                          Path(sys.argv[4]))
     mods = import_port()
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash
@@ -6830,6 +7420,14 @@ def main() -> int:
     t18 = time.perf_counter()
     paths.update(phase_cluster(mods, device, card))
     print(f"  phase 18 took {time.perf_counter() - t18:.1f} s")
+
+    print("phase 19: repro_torch.dist as gloo ranks on the card: flat "
+          "guardrails replicated and table-sharded, tenant-sharded fleets, "
+          "the table-sharded stream, a K=18 L=200 sketch, ZeRO-2 training, "
+          "GPipe")
+    t19 = time.perf_counter()
+    paths.update(phase_dist(mods, device, card))
+    print(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
 
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "

@@ -7,7 +7,7 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``data.synthetic``, ``window``, ``fleet``, ``quantile``,
 ``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
 ``resilience``, ``train``, ``launch.train``, ``baselines``, ``models``,
-``configs``, ``cluster``).  It imports
+``configs``, ``cluster``, ``dist``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -44,6 +44,11 @@ autograd, remat, microbatches, the ``optim`` optimisers and ``schedule``,
 int8 ``compression`` with error feedback) behind the ACE data filter and
 the ACE gradient monitor (``fault.GradMonitor``), with checkpoint,
 restart and rollback; ``launch.train`` is its command line.
+``dist`` shards the sketches over ranks of a ``torch.distributed``
+mesh — replicated, table-sharded and tenant-sharded, behind
+``Guardrail(mesh=…)`` and ``StreamRunner(mesh=…)`` — with GPipe and
+ZeRO-2 training (``make_train_step(grad_pspecs=…, sketch_layout=…)``,
+``launch.train --devices/--mesh``).
 ``cluster`` serves a fleet across hosts that fail: rendezvous-hashed
 tenants, heartbeats, CRC-framed gossip of each epoch's sketches over a
 ``torch.distributed`` ``TCPStore``, failover from a peer's gossip or
@@ -66,8 +71,8 @@ import torch
 
 # ROADMAP.md queue 1 items that bring what the port leaves out so far.
 ROADMAP_QUEUE_1 = {
-    13: "repro.dist, with launch.dryrun, launch.mesh and Arch.input_specs, "
-        "cache_specs and all_cells",
+    13: "the dry run of repro.dist: launch.dryrun, dist.roofline and "
+        "Arch.input_specs, cache_specs and all_cells",
 }
 
 

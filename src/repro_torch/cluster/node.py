@@ -28,6 +28,14 @@ loop interleaves between chunks:
   re-enters through attempt-bounded exponential backoff; the coordinator
   re-adds it, and HRW moves back only the tenants it wins.
 
+A host that applies a newer map beats at once at its version, and keeps
+beating (at most once a heartbeat interval) between the steps of an
+adoption: the coordinator gives a re-admitted host one failure timeout
+from its first poll, and an adoption slower than that (a slow store, a
+large checkpoint) would otherwise get it declared dead again.  The
+reference's node writes no beat from applying a map until its adoption
+is done.
+
 A dead host's tenants lose at most the partial epoch since its last
 publish; every surviving tenant's state is BITWISE untouched (tenant
 isolation + ownership masking), so survivors stay parity-exact with a
@@ -299,6 +307,7 @@ class ClusterNode:
         old_owned = set(prev.owned_by(self.cfg.host_id))
         self.map = m
         self.heartbeat.version = m.version   # beats carry the new regime
+        self.heartbeat.beat()                # ... from now on
         for host in set(prev.hosts) - set(m.hosts):
             self.detector.forget(host)
         gained = sorted(set(self.owned()) - old_owned)
@@ -323,8 +332,10 @@ class ClusterNode:
         a divergent timeline, and only the map version fences it.  With no
         intact candidate the tenant cold-starts (zero row, fresh warmup)."""
         snap = self.gossip.latest(prev_host)
+        self.heartbeat.maybe_beat()          # alive while it adopts
         peer_ckpt = self._restore_peer_ckpt(prev_host)
         for t in tenants:
+            self.heartbeat.maybe_beat()
             cands = []
             if snap is not None and t in snap[1]:
                 ace = snap[1][t]

@@ -296,18 +296,24 @@ def _quantized(state: AceState, buckets: torch.Tensor, w: torch.Tensor):
 
 
 def masked_batch_welford(state: AceState, scores: torch.Tensor,
-                         maskf: torch.Tensor, min_n: float):
+                         maskf: torch.Tensor, min_n: float, reduce=None):
     """Welford fold over only the masked items of a fixed-shape batch.
 
     ``scores`` are post-insert scores of ALL items (B,); ``maskf`` is the
     0/1 float admit mask.  Returns (n, welford_mean, welford_m2); an
-    all-zero mask leaves the stream untouched.
+    all-zero mask leaves the stream untouched.  ``reduce`` (optional) is
+    applied to each scalar partial sum (count, rate sum, M2 sum): the
+    all-reduce over the data axes when the batch is split over ranks
+    (``repro_torch.dist.sketch_parallel``), the identity otherwise.
     """
-    b = torch.sum(maskf)
+    if reduce is None:
+        def reduce(v):
+            return v
+    b = reduce(torch.sum(maskf))
     tot = state.n + b
     rates = scores / torch.clamp_min(tot, 1.0)
-    mean_b = torch.sum(rates * maskf) / torch.clamp_min(b, 1.0)
-    m2_b = torch.sum(((rates - mean_b) ** 2) * maskf)
+    mean_b = reduce(torch.sum(rates * maskf)) / torch.clamp_min(b, 1.0)
+    m2_b = reduce(torch.sum(((rates - mean_b) ** 2) * maskf))
     new_mean, new_m2 = welford_fold(state.welford_mean, state.welford_m2,
                                     state.n, b, tot, mean_b, m2_b, min_n)
     has = b > 0
@@ -403,9 +409,20 @@ def merge(a: AceState, b: AceState) -> AceState:
 # Statistics of the sketch.
 # ---------------------------------------------------------------------------
 
+def sq_sum(counts: torch.Tensor, dim=None) -> torch.Tensor:
+    """Σ c² over ``dim`` (all of it when None), exact: in int64 for integer
+    counters, float64 for float ones, so the sum is the same whatever
+    order it is taken in — a table-sharded sketch's partial sums add up
+    to the single card's bits (``repro_torch.dist.sketch_parallel``)."""
+    wide = counts.to(torch.float64 if counts.is_floating_point()
+                     else torch.int64, copy=True).square_()
+    return torch.sum(wide) if dim is None else torch.sum(wide, dim=dim)
+
+
 def mean_mu(state: AceState,
             table_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11).
+    """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11),
+    Σ‖A_j‖² summed exactly (``sq_sum``) and rounded to float32 once.
 
     ``table_mask`` (L,) restricts it to the healthy tables:
     Σ_{j healthy} ‖A_j‖² / (n · num_healthy).  A quantized plane sums
@@ -416,8 +433,7 @@ def mean_mu(state: AceState,
         denom = torch.clamp_min(state.n, 1.0) * L
         if state.esc is not None:
             return qz.sq_sum(state.counts, state.esc) / denom
-        c = state.counts.to(torch.float32)
-        return torch.sum(c * c) / denom
+        return sq_sum(state.counts).to(torch.float32) / denom
     c = (qz.densify(state.counts, state.esc) if state.esc is not None
          else state.counts).to(torch.float32)
     maskf = table_mask.to(torch.float32)
@@ -474,7 +490,8 @@ def sigma_cubic_proxy(state: AceState) -> torch.Tensor:
 def admit_threshold(state: AceState, alpha: float, warmup_items: float,
                     table_mask: torch.Tensor | None = None,
                     threshold_mode: str = "mu_sigma",
-                    q: float = 0.01) -> torch.Tensor:
+                    q: float = 0.01,
+                    mu: torch.Tensor | None = None) -> torch.Tensor:
     """Score-space admission threshold: admit iff score >= threshold.
 
     ``"mu_sigma"``: the μ−ασ rule in rate space, multiplied through by
@@ -485,7 +502,8 @@ def admit_threshold(state: AceState, alpha: float, warmup_items: float,
     −inf during warmup (n < warmup_items).  Device ops only: no host
     sync.  ``table_mask`` takes μ over the same healthy tables the masked
     scores average over (the Welford σ and the histogram are over table
-    means and need no mask).
+    means and need no mask).  ``mu`` passes a μ computed elsewhere (a
+    table-sharded sketch's, summed over the ranks).
     """
     if threshold_mode == "quantile":
         if state.qhist is None:
@@ -495,7 +513,9 @@ def admit_threshold(state: AceState, alpha: float, warmup_items: float,
         return qsk.quantile_threshold(state.qhist, state.n, q, warmup_items)
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    t = (mean_rate(state, table_mask) - alpha * sigma_welford(state)) \
+    if mu is None:
+        mu = mean_mu(state, table_mask)
+    t = (mu / torch.clamp_min(state.n, 1.0) - alpha * sigma_welford(state)) \
         * torch.clamp_min(state.n, 1.0)
     return torch.where(state.n >= warmup_items, t, float("-inf"))
 

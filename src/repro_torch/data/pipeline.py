@@ -183,7 +183,7 @@ class AceDataFilter:
         return mean_embed_features(embeds, self.bias_const)
 
     def step(self, state, w: torch.Tensor, feat: torch.Tensor,
-             table_mask: torch.Tensor | None = None):
+             table_mask: torch.Tensor | None = None, shard=None):
         """One filter step over (B, D+1) features: hash ONCE, score from the
         same bucket ids against the PRE-insert counts, threshold on the
         device, masked insert; in quantile mode every finite item's
@@ -196,22 +196,25 @@ class AceDataFilter:
         before hashing, never kept, never inserted (even under
         ``insert_all``) and get ``margin = −inf``, so drivers can count
         them as quarantined.  ``table_mask`` (L,) scores and thresholds
-        over the healthy tables only.
+        over the healthy tables only.  ``shard`` (a
+        ``repro_torch.dist.sketch_parallel.ShardedSketch``) runs the step
+        on this rank's block of a sharded sketch, through its hooks in
+        ``repro_torch.kernels.ops``.
         """
         cfg = self.ace_cfg
         srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
-        thresh = sk.admit_threshold(state, self.alpha, self.warmup_items,
-                                    table_mask=table_mask,
-                                    threshold_mode=self.threshold_mode,
-                                    q=self.quantile_q)
-        if self.use_kernels:
+        thresh = kops.admit_threshold(
+            state, self.alpha, self.warmup_items, table_mask=table_mask,
+            threshold_mode=self.threshold_mode, q=self.quantile_q,
+            shard=shard)
+        if self.use_kernels or shard is not None:
             t_ins = (torch.full((), float("-inf"), device=thresh.device)
                      if self.insert_all else thresh)
             new_state, _, scores = kops.ace_admit_at(
                 state, feat, w, cfg, t_ins, table_mask=table_mask,
-                item_mask=finite)
+                item_mask=finite, shard=shard)
             keep = (scores >= thresh) & finite
         else:
             buckets = srp.hash_buckets(feat, w, cfg.srp)   # the ONE hash

@@ -100,7 +100,7 @@ class FleetDataFilter:
     def step(self, state: FleetState, w: torch.Tensor, feat: torch.Tensor,
              tenant_ids: torch.Tensor,
              table_mask: torch.Tensor | None = None,
-             tenant_mask: torch.Tensor | None = None):
+             tenant_mask: torch.Tensor | None = None, shard=None):
         """Hash ONCE → tenant-routed score → per-tenant threshold → one
         mixed-batch masked insert; in quantile mode every finite item's
         rate (over its tenant's pre-insert n) then goes into its tenant's
@@ -113,24 +113,26 @@ class FleetDataFilter:
         ``table_mask`` (T, L) scores and thresholds each tenant over its
         healthy tables.  ``tenant_mask`` (T,) is the ownership mask:
         items of a tenant this replica does not own are scored (finite
-        margin) but neither kept nor inserted."""
+        margin) but neither kept nor inserted.  ``shard`` (a
+        ``ShardedSketch``) runs the step on this rank's block of a sharded
+        fleet, with ``tenant_ids`` local to it."""
         cfg = self.ace_cfg
         srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
         tids = tenant_ids.long()
-        thresh = fl.admit_thresholds(state, self.alpha, self.warmup_items,
-                                     table_mask=table_mask,
-                                     threshold_mode=self.threshold_mode,
-                                     q=self.quantile_q)[tids]
+        thresh = kops.admit_thresholds(
+            state, self.alpha, self.warmup_items, table_mask=table_mask,
+            threshold_mode=self.threshold_mode, q=self.quantile_q,
+            shard=shard)[tids]
         owned = None if tenant_mask is None else tenant_mask[tids] > 0
-        if self.use_kernels:
+        if self.use_kernels or shard is not None:
             t_ins = torch.full_like(thresh, float("-inf")) \
                 if self.insert_all else thresh
             item = finite if owned is None else finite & owned
             new_state, _, scores = kops.ace_fleet_admit_at(
                 state, feat, tenant_ids, w, cfg, t_ins,
-                table_mask=table_mask, item_mask=item)
+                table_mask=table_mask, item_mask=item, shard=shard)
             keep = (scores >= thresh) & finite
             if owned is not None:
                 keep = keep & owned

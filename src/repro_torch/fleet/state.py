@@ -307,13 +307,14 @@ def insert_masked(state: FleetState, tenant_ids: torch.Tensor,
 
 def mean_mu_fleet(state: FleetState,
                   table_mask: torch.Tensor | None = None) -> torch.Tensor:
-    """(T,) exact per-tenant μ = Σ‖A_j‖² / (n·L); ``table_mask`` (T, L)
-    means over each tenant's healthy tables."""
+    """(T,) exact per-tenant μ = Σ‖A_j‖² / (n·L), Σ‖A_j‖² summed exactly
+    (``sketch.sq_sum``); ``table_mask`` (T, L) means over each tenant's
+    healthy tables."""
     L = state.counts.shape[1]
-    c = state.counts.to(torch.float32)
     if table_mask is None:
-        return torch.sum(c * c, dim=(1, 2)) \
+        return sk.sq_sum(state.counts, dim=(1, 2)).to(torch.float32) \
             / (torch.clamp_min(state.n, 1.0) * L)
+    c = state.counts.to(torch.float32)
     maskf = table_mask.to(torch.float32)
     nh = torch.clamp_min(torch.sum(maskf, dim=1), 1.0)
     per_table = torch.sum(c * c, dim=2)
@@ -336,12 +337,14 @@ def sigma_welford_fleet(state: FleetState) -> torch.Tensor:
 def admit_thresholds(state: FleetState, alpha: float, warmup_items: float,
                      table_mask: torch.Tensor | None = None,
                      threshold_mode: str = "mu_sigma",
-                     q: float = 0.01) -> torch.Tensor:
+                     q: float = 0.01,
+                     mu: torch.Tensor | None = None) -> torch.Tensor:
     """(T,) per-tenant score-space thresholds: ``sketch.admit_threshold``
     over the tenant axis (−inf during each tenant's own warmup); in
     quantile mode each tenant's own q-quantile from its row of
     ``state.qhist`` (one batched ``hist_quantile``).  Route to items with
-    ``admit_thresholds(...)[tenant_ids]``."""
+    ``admit_thresholds(...)[tenant_ids]``.  ``mu`` (T,) passes per-tenant
+    μ computed elsewhere (summed over a table-sharded fleet's ranks)."""
     if threshold_mode == "quantile":
         if state.qhist is None:
             raise ValueError("threshold_mode='quantile' needs a fleet "
@@ -349,7 +352,9 @@ def admit_thresholds(state: FleetState, alpha: float, warmup_items: float,
         return qsk.quantile_threshold(state.qhist, state.n, q, warmup_items)
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    t = (mean_rate_fleet(state, table_mask) - alpha
+    if mu is None:
+        mu = mean_mu_fleet(state, table_mask)
+    t = (mu / torch.clamp_min(state.n, 1.0) - alpha
          * sigma_welford_fleet(state)) * torch.clamp_min(state.n, 1.0)
     return torch.where(state.n >= warmup_items, t, float("-inf"))
 

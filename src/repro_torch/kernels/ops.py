@@ -43,6 +43,17 @@ logical lookups in plain PyTorch (``sketch.lookup``,
 ``sketch.insert_buckets``, ``sketch.insert_buckets_masked``), as the
 reference runs them in jnp outside any kernel.
 
+Sharded sketches (``repro_torch.dist.sketch_parallel``): the admissions
+and thresholds take ``shard``, a ``ShardedSketch`` resolving a layout on
+a live mesh for this rank, and then run on the rank's block through its
+hooks: ``shard.buckets`` hashes all L tables and keeps the rank's slice,
+``shard.scores`` and ``shard.table_sum`` all-reduce the
+``ace_query_sum`` partial sums over the table axis, ``shard.mean_mu``
+the exact Σc², and ``shard.gather_tables`` the float tail gathers.  With
+no ``shard`` each hook is the identity.  A flat admission under a mesh
+takes the unfused route (the fused kernel is single-card); a table mask
+under a mesh raises.
+
 Quantile admission (``threshold_mode="quantile"``) hands every kernel
 the same one score-space threshold per tenant, so no kernel changes: the
 threshold is read from the state's rate histogram, and after the insert
@@ -93,6 +104,81 @@ def hash_dispatch(x: torch.Tensor, w: torch.Tensor,
     if resolve_hash_mode(cfg) == "srht":
         return srht_hash(x, cfg)
     return _h.srp_hash(x, w, cfg)
+
+
+def _hash(q: torch.Tensor, w: torch.Tensor, cfg: AceConfig,
+          shard) -> torch.Tensor:
+    """``hash_dispatch``; under a mesh this rank's (B, L_local) slice of
+    all L tables (``ShardedSketch.buckets``)."""
+    if shard is None:
+        return hash_dispatch(q, w, cfg.srp)
+    return shard.buckets(q, w)
+
+
+def _table_sum(x: torch.Tensor, shard) -> torch.Tensor:
+    """A rank's per-item partial sums summed over the table axis; the
+    identity with no mesh."""
+    return x if shard is None else shard.table_sum(x)
+
+
+def _mean(counts: torch.Tensor, buckets: torch.Tensor, shard,
+          rows: torch.Tensor | None = None, **masks) -> torch.Tensor:
+    """The (B,) mean over L of the gathered counters: one
+    ``ace_query_sum`` launch (× float32(1/L), or the healthy tables'
+    mean under ``masks``); under a mesh the rank's unscaled partial sums
+    all-reduced, then × float32(1/L) (``ShardedSketch.scores``)."""
+    if shard is None:
+        return _q.ace_query_sum(counts, buckets, rows, **masks)
+    return shard.scores(counts, buckets, rows)
+
+
+def _no_mask(shard, table_mask) -> None:
+    if shard is not None and table_mask is not None:
+        raise NotImplementedError(
+            "degraded (table-masked) scoring is single-card: the sharded "
+            "layouts do not audit or mask tables")
+
+
+def admit_threshold(state: AceState, alpha: float, warmup_items: float, *,
+                    table_mask: torch.Tensor | None = None,
+                    threshold_mode: str = "mu_sigma", q: float = 0.01,
+                    shard=None) -> torch.Tensor:
+    """``sketch.admit_threshold``; under a mesh with μ over the whole
+    sketch (``ShardedSketch.mean_mu``)."""
+    _no_mask(shard, table_mask)
+    mu = shard.mean_mu(state) \
+        if shard is not None and threshold_mode == "mu_sigma" else None
+    return _sk.admit_threshold(state, alpha, warmup_items,
+                               table_mask=table_mask,
+                               threshold_mode=threshold_mode, q=q, mu=mu)
+
+
+def admit_threshold_windowed(wstate, gamma: float, alpha: float,
+                             warmup_items: float, *,
+                             table_mask: torch.Tensor | None = None,
+                             threshold_mode: str = "mu_sigma",
+                             q: float = 0.01, shard=None) -> torch.Tensor:
+    """``ring.admit_threshold_windowed``; under a mesh μ_w from the ring's
+    ssq, which every rank holds whole, over all L tables."""
+    _no_mask(shard, table_mask)
+    return _ring.admit_threshold_windowed(
+        wstate, gamma, alpha, warmup_items, table_mask=table_mask,
+        threshold_mode=threshold_mode, q=q,
+        num_tables=None if shard is None else shard.cfg.num_tables)
+
+
+def admit_thresholds(fstate, alpha: float, warmup_items: float, *,
+                     table_mask: torch.Tensor | None = None,
+                     threshold_mode: str = "mu_sigma", q: float = 0.01,
+                     shard=None) -> torch.Tensor:
+    """``fleet.state.admit_thresholds`` (T,); under a mesh the (T_local,)
+    thresholds of this rank's tenants, μ over all L tables."""
+    _no_mask(shard, table_mask)
+    mu = shard.mean_mu(fstate) \
+        if shard is not None and threshold_mode == "mu_sigma" else None
+    return _fls.admit_thresholds(fstate, alpha, warmup_items,
+                                 table_mask=table_mask,
+                                 threshold_mode=threshold_mode, q=q, mu=mu)
 
 
 def attr_estimate(plane: torch.Tensor, cols: torch.Tensor,
@@ -180,7 +266,7 @@ def ace_score(state: AceState, q: torch.Tensor, w: torch.Tensor,
 def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
                  cfg: AceConfig, thresh: torch.Tensor, *,
                  table_mask: torch.Tensor | None = None,
-                 item_mask: torch.Tensor | None = None):
+                 item_mask: torch.Tensor | None = None, shard=None):
     """Admission against a given score-space threshold: ONE hash, no host
     sync.  ``admit = score >= thresh`` (and ``item_mask``); admitted rows
     are inserted; the Welford stream folds their POST-insert scores.
@@ -188,24 +274,27 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
     Dense with no table mask: the ``ace_admit_fused`` kernel (hash,
     pre-insert score, threshold, masked insert).  SRHT or a table mask:
     ``hash_dispatch``, ``ace_query_sum`` for the (masked) score, the
-    ``ace_update`` kernel with the admit mask as its row mask.  Both then
-    score the post-insert counts with ``ace_query_sum`` from the same
-    bucket ids, as ``repro.core.sketch.insert_buckets_masked`` does.  A
-    quantized plane: ``hash_dispatch``, then ``sketch.lookup`` and
-    ``sketch.insert_buckets_masked`` (the reference's path).
+    ``ace_update`` kernel with the admit mask as its row mask; so does a
+    ``shard``, on its block.  Both then score the post-insert counts with
+    ``ace_query_sum`` from the same bucket ids, as
+    ``repro.core.sketch.insert_buckets_masked`` does.  A quantized plane
+    (replicated under a mesh): ``hash_dispatch``, then ``sketch.lookup``
+    and ``sketch.insert_buckets_masked`` (the reference's path).
     Returns (new_state, admit (B,) bool, pre-insert scores (B,) f32).
     """
+    _no_mask(shard, table_mask)
     if state.esc is not None:
-        buckets = hash_dispatch(q, w, cfg.srp)
+        buckets = _hash(q, w, cfg, shard)
         scores = _sk.lookup(state, buckets, table_mask)
         admit = scores >= thresh
         if item_mask is not None:
             admit = admit & item_mask
         return (_sk.insert_buckets_masked(state, buckets, admit, cfg),
                 admit, scores)
-    if resolve_hash_mode(cfg.srp) == "srht" or table_mask is not None:
-        buckets = hash_dispatch(q, w, cfg.srp)
-        scores = ace_query(state, buckets, table_mask)
+    if (shard is not None or resolve_hash_mode(cfg.srp) == "srht"
+            or table_mask is not None):
+        buckets = _hash(q, w, cfg, shard)
+        scores = _mean(state.counts, buckets, shard, table_mask=table_mask)
         admit = scores >= thresh
         if item_mask is not None:
             admit = admit & item_mask
@@ -213,7 +302,7 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
     else:
         new_counts, scores, admit, buckets = _a.ace_admit_fused(
             state.counts, q, w, thresh, cfg.srp, item_mask=item_mask)
-    post = ace_query(state._replace(counts=new_counts), buckets)
+    post = _mean(new_counts, buckets, shard)
     tot, new_mean, new_m2 = _sk.masked_batch_welford(
         state, post, admit.to(torch.float32), cfg.welford_min_n)
     return state._replace(counts=new_counts, n=tot, welford_mean=new_mean,
@@ -235,18 +324,20 @@ def ace_admit(state: AceState, q: torch.Tensor, w: torch.Tensor,
               cfg: AceConfig, *, alpha: float, warmup_items: float,
               table_mask: torch.Tensor | None = None,
               item_mask: torch.Tensor | None = None,
-              threshold_mode: str = "mu_sigma", quantile_q: float = 0.01):
+              threshold_mode: str = "mu_sigma", quantile_q: float = 0.01,
+              shard=None):
     """Guardrail admission: the threshold (μ−ασ, or the ``quantile_q``
     quantile of ``state.qhist``) computed on the device from the state
     (−inf during warmup), then ``ace_admit_at``; in quantile mode the
     pre-insert rates are then observed.  Returns (new_state, admit (B,)
     bool)."""
-    thresh = _sk.admit_threshold(state, alpha, warmup_items,
-                                 table_mask=table_mask,
-                                 threshold_mode=threshold_mode, q=quantile_q)
+    thresh = admit_threshold(state, alpha, warmup_items,
+                             table_mask=table_mask,
+                             threshold_mode=threshold_mode, q=quantile_q,
+                             shard=shard)
     new_state, admit, scores = ace_admit_at(state, q, w, cfg, thresh,
                                             table_mask=table_mask,
-                                            item_mask=item_mask)
+                                            item_mask=item_mask, shard=shard)
     if threshold_mode == "quantile":
         new_state = new_state._replace(qhist=_qsk.observe_rates(
             new_state.qhist, scores / torch.clamp_min(state.n, 1.0),
@@ -280,18 +371,23 @@ def ace_window_score(wstate, buckets: torch.Tensor, gamma: float,
 def _window_sums(wstate, buckets: torch.Tensor, rows: torch.Tensor,
                  tail_rows: torch.Tensor | None,
                  table_mask: torch.Tensor | None,
-                 tenant_ids: torch.Tensor | None = None):
+                 tenant_ids: torch.Tensor | None = None, shard=None):
     """Pre-insert (tail_sums, live_sums) and the masked pair the decision
     uses (the same pair without a mask): the live sums in one
     ``ace_query_sum`` launch at base rows ``rows`` (masked and unmasked
     at once), the float tail gathered and summed in plain PyTorch, as
     ``ring.table_sums`` does.  ``table_mask`` is (L,), or (T, L) routed
-    by ``tenant_ids``."""
+    by ``tenant_ids``.  Under a mesh (no mask) the tail gathers are
+    all-gathered over the table axis and summed whole, the single card's
+    float sequence, and the live partial sums all-reduced."""
     flat = _flat(wstate.counts)
     tail_g = _u.gather_rows(_flat(wstate.tail), buckets, tail_rows)
+    if shard is not None:
+        tail_g = shard.gather_tables(tail_g, dim=1)
     tail_pre = torch.sum(tail_g, dim=-1)
     if table_mask is None:
-        pre = (tail_pre, _q.ace_query_sum(flat, buckets, rows, scale="sum"))
+        pre = (tail_pre, _table_sum(
+            _q.ace_query_sum(flat, buckets, rows, scale="sum"), shard))
         return pre, pre
     live_dec, live_pre = _q.ace_query_sum(
         flat, buckets, rows, table_mask=table_mask, tenant_ids=tenant_ids,
@@ -308,7 +404,7 @@ def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
                           gamma: float,
                           table_mask: torch.Tensor | None = None,
                           item_mask: torch.Tensor | None = None,
-                          masked_sums: bool = True):
+                          masked_sums: bool = True, shard=None):
     """Windowed admission against a given score-space threshold: ONE hash,
     no host sync.  Scores are tail + live-epoch gathers (masked for the
     decision under ``table_mask``; ``masked_sums=False`` scores the
@@ -316,20 +412,24 @@ def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
     ``WindowedAceFilter.step`` does); admitted rows go into the live epoch
     through ``ace_update`` at base row cursor·L, in place; the post-insert
     live sum (one ``ace_query_sum``) feeds ``ring.insert_stats`` with the
-    unmasked scoring sums.  Returns (new_state, admit (B,) bool,
-    pre-insert scores (B,))."""
+    unmasked scoring sums; a ``shard`` runs it on its ring block
+    (``_window_sums``).  Returns (new_state, admit (B,) bool, pre-insert
+    scores (B,))."""
+    _no_mask(shard, table_mask)
     L = cfg.num_tables
-    buckets = hash_dispatch(q, w, cfg.srp)
+    buckets = _hash(q, w, cfg, shard)
     rows = _ring.live_rows(wstate, buckets.shape[0])
     (tail_sums, live_pre), dec = _window_sums(
-        wstate, buckets, rows, None, table_mask if masked_sums else None)
+        wstate, buckets, rows, None, table_mask if masked_sums else None,
+        shard=shard)
     scores = _ring.score_live(*dec, L, table_mask=table_mask)
     admit = scores >= thresh
     if item_mask is not None:
         admit = admit & item_mask
     flat = _u.ace_update(_flat(wstate.counts), buckets, row_mask=admit,
                          row_base=rows)
-    live_post = _q.ace_query_sum(flat, buckets, rows, scale="sum")
+    live_post = _table_sum(_q.ace_query_sum(flat, buckets, rows,
+                                            scale="sum"), shard)
     new_state = _ring.insert_stats(wstate, wstate.counts, admit, cfg, gamma,
                                    tail_sums, live_pre, live_post)
     return new_state, admit, scores
@@ -341,25 +441,27 @@ def ace_admit_windowed(wstate, q: torch.Tensor, w: torch.Tensor,
                        table_mask: torch.Tensor | None = None,
                        item_mask: torch.Tensor | None = None,
                        threshold_mode: str = "mu_sigma",
-                       quantile_q: float = 0.01):
+                       quantile_q: float = 0.01, shard=None):
     """Kernel-path windowed admission (``repro.kernels.ops
     .ace_admit_windowed``): the window-combined threshold on the device,
     ``ace_admit_windowed_at``, in quantile mode the live epoch's
     observation of the rates over the pre-insert n_w, then the epoch
-    clock (``ring.maybe_rotate``, a device-side select).  Returns
-    (new_state, admit (B,) bool)."""
-    thresh = _ring.admit_threshold_windowed(
+    clock (``ring.maybe_rotate``, a device-side select; under a mesh
+    ``ShardedSketch.maybe_rotate``).  Returns (new_state, admit (B,)
+    bool)."""
+    thresh = admit_threshold_windowed(
         wstate, gamma, alpha, warmup_items, table_mask=table_mask,
-        threshold_mode=threshold_mode, q=quantile_q)
+        threshold_mode=threshold_mode, q=quantile_q, shard=shard)
     new_state, admit, scores = ace_admit_windowed_at(
         wstate, q, w, cfg, thresh, gamma=gamma, table_mask=table_mask,
-        item_mask=item_mask)
+        item_mask=item_mask, shard=shard)
     if threshold_mode == "quantile":
         n_w = _ring.combined_n(wstate, gamma)        # pre-insert
         new_state = _ring.observe_current(
             new_state, scores / torch.clamp_min(n_w, 1.0),
             _observe_maskf(scores, item_mask, n_w, warmup_items))
-    return _ring.maybe_rotate(new_state, rotate_every, gamma), admit
+    return (_ring if shard is None else shard).maybe_rotate(
+        new_state, rotate_every, gamma), admit
 
 
 def ace_fleet_score(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
@@ -384,22 +486,26 @@ def ace_fleet_admit_at(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                        w: torch.Tensor, cfg: AceConfig,
                        thresh: torch.Tensor, *,
                        table_mask: torch.Tensor | None = None,
-                       item_mask: torch.Tensor | None = None):
+                       item_mask: torch.Tensor | None = None, shard=None):
     """Multi-tenant admission against given per-item thresholds (B,): ONE
     hash, the routed ``ace_query_sum`` score at base row tid·L, the
     ``ace_update`` insert of the admitted rows there (in place), the
-    post-insert ``ace_query_sum`` for the per-tenant Welford fold.
-    Returns (new_state, admit (B,) bool, pre-insert scores (B,))."""
-    buckets = hash_dispatch(q, w, cfg.srp)
-    rows = _fls.tenant_rows(tenant_ids, cfg.num_tables)
+    post-insert ``ace_query_sum`` for the per-tenant Welford fold.  A
+    ``shard`` runs it on its block, ``tenant_ids`` local, at base row
+    tid·L_local, the partial sums all-reduced over the table axis (none
+    when the tables are whole).  Returns (new_state, admit (B,) bool,
+    pre-insert scores (B,))."""
+    _no_mask(shard, table_mask)
+    buckets = _hash(q, w, cfg, shard)
+    rows = _fls.tenant_rows(tenant_ids, buckets.shape[1])
     flat = _flat(fstate.counts)
-    scores = _q.ace_query_sum(flat, buckets, rows, table_mask=table_mask,
-                              tenant_ids=tenant_ids)
+    scores = _mean(flat, buckets, shard, rows, table_mask=table_mask,
+                   tenant_ids=tenant_ids)
     admit = scores >= thresh
     if item_mask is not None:
         admit = admit & item_mask
     _u.ace_update(flat, buckets, row_mask=admit, row_base=rows)
-    post = _q.ace_query_sum(flat, buckets, rows)
+    post = _mean(flat, buckets, shard, rows)
     tot, mean, m2 = _fls.fleet_masked_welford(
         fstate, tenant_ids, post, admit.to(torch.float32), cfg.welford_min_n)
     return fstate._replace(n=tot, welford_mean=mean, welford_m2=m2), \
@@ -412,19 +518,20 @@ def ace_fleet_admit(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
                     table_mask: torch.Tensor | None = None,
                     item_mask: torch.Tensor | None = None,
                     threshold_mode: str = "mu_sigma",
-                    quantile_q: float = 0.01):
+                    quantile_q: float = 0.01, shard=None):
     """Kernel-path multi-tenant admission (``repro.kernels.ops
     .ace_fleet_admit``): per-tenant thresholds routed to the items, then
     ``ace_fleet_admit_at``; in quantile mode each item's rate over its
-    tenant's pre-insert n is then observed into its tenant's row.
-    Returns (new_state, admit (B,) bool)."""
+    tenant's pre-insert n is then observed into its tenant's row.  Under
+    a mesh ``tenant_ids`` are local to the rank's block.  Returns
+    (new_state, admit (B,) bool)."""
     tids = tenant_ids.long()
-    thresh = _fls.admit_thresholds(
+    thresh = admit_thresholds(
         fstate, alpha, warmup_items, table_mask=table_mask,
-        threshold_mode=threshold_mode, q=quantile_q)[tids]
+        threshold_mode=threshold_mode, q=quantile_q, shard=shard)[tids]
     new_state, admit, scores = ace_fleet_admit_at(
         fstate, q, tenant_ids, w, cfg, thresh, table_mask=table_mask,
-        item_mask=item_mask)
+        item_mask=item_mask, shard=shard)
     if threshold_mode == "quantile":
         n_t = fstate.n[tids]                          # pre-insert
         new_state = new_state._replace(qhist=_qsk.observe_rates_fleet(

@@ -1,18 +1,23 @@
 """Model-zoo substrate: the config schema and the layers every model shares
 (initialisers, norms, RoPE / M-RoPE, whisper's sinusoidal positions,
-softcap).  Port of ``repro.models.common``.
+softcap), and the logical-axis sharding rules.  Port of
+``repro.models.common``.
 
 Parameters are plain dicts of tensors held in ``cfg.param_dtype``
 (float32); activations run in ``cfg.dtype`` and every weight is cast to it
-at its point of use, as the reference does.  The reference's logical-axis
-sharding rules (``shard``, ``set_rules``, ``logical_to_pspec``) and its
-XLA barrier (``opt_barrier``) are mesh and compiler mechanisms with no
-counterpart here: sharding is ROADMAP.md queue 1 item 13.
+at its point of use, as the reference does.  ``LOGICAL_AXES`` names the
+logical axes of every parameter of the zoo (the reference declares them
+beside each init), ``logical_to_pspec`` maps them through the active
+rules to a ``repro_torch.dist.mesh.PartitionSpec``.  ``shard`` (an
+activation's layout hint to GSPMD in the reference) is the identity: the
+port gathers each parameter at use and runs the layers whole.  The
+reference's XLA barrier (``opt_barrier``) has no counterpart.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Any
 
 import numpy as np
 import torch
@@ -228,3 +233,116 @@ def softcap(x: torch.Tensor, cap: float | None) -> torch.Tensor:
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+# ---------------------------------------------------------------------------
+# Logical-axis sharding rules
+# ---------------------------------------------------------------------------
+# Logical axis vocabulary used across the zoo:
+#   batch, seq, embed, heads, kv_heads, head_dim, ff, vocab,
+#   experts, capacity, conv, state
+DEFAULT_RULES: dict[str, Any] = {
+    "batch": ("pod", "data"),
+    "seq": None,
+    "cache_seq": None,
+    "embed": None,
+    "heads": "model",
+    "kv_heads": "model",
+    "head_dim": None,
+    "ff": "model",
+    "vocab": "model",
+    "experts": None,
+    "capacity": ("pod", "data"),
+    "conv": None,
+    "state": None,
+    "layers": None,   # the reference's stacked superblock dim — never split
+}
+
+_ACTIVE_RULES: dict[str, Any] = dict(DEFAULT_RULES)
+
+
+def set_rules(rules: dict[str, Any]) -> None:
+    """Install the active logical -> mesh rules (the launcher calls this)."""
+    _ACTIVE_RULES.clear()
+    _ACTIVE_RULES.update(DEFAULT_RULES)
+    _ACTIVE_RULES.update(rules)
+
+
+def get_rules() -> dict[str, Any]:
+    return dict(_ACTIVE_RULES)
+
+
+def logical_to_pspec(axes: tuple, rules: dict[str, Any] | None = None):
+    """('embed', 'ff') -> PartitionSpec(None, 'model'), trailing Nones
+    trimmed."""
+    from repro_torch.dist.mesh import PartitionSpec
+    rules = rules if rules is not None else _ACTIVE_RULES
+    out = [None if a is None else rules.get(a) for a in axes]
+    while out and out[-1] is None:
+        out.pop()
+    return PartitionSpec(*out)
+
+
+def shard(x: torch.Tensor, *axes) -> torch.Tensor:
+    """An activation's logical layout: the identity (see the module
+    docstring)."""
+    del axes
+    return x
+
+
+NORM_AXES = {"scale": ("embed",), "bias": ("embed",)}
+
+# One layer's parameters by module, as the reference's inits declare them
+# (without its stacked leading "layers" axis: the port holds a layer's
+# parameters per layer).
+LOGICAL_AXES: dict[str, dict[str, tuple]] = {
+    "attention": {
+        "wq": ("embed", "heads", "head_dim"),
+        "wk": ("embed", "kv_heads", "head_dim"),
+        "wv": ("embed", "kv_heads", "head_dim"),
+        "wo": ("heads", "head_dim", "embed"),
+        "bq": ("heads", "head_dim"),
+        "bk": ("kv_heads", "head_dim"),
+        "bv": ("kv_heads", "head_dim")},
+    "mlp": {"w_gate": ("embed", "ff"), "w_up": ("embed", "ff"),
+            "w_down": ("ff", "embed")},
+    "moe": {"router": ("embed", "experts"),
+            "w_gate": ("experts", "embed", "ff"),
+            "w_up": ("experts", "embed", "ff"),
+            "w_down": ("experts", "ff", "embed")},
+    "gelu_mlp": {"w_up": ("embed", "ff"), "b_up": ("ff",),
+                 "w_down": ("ff", "embed"), "b_down": ("embed",)},
+    "mamba": {"in_proj": ("embed", "ff"), "conv_w": ("conv", "ff"),
+              "conv_b": ("ff",), "x_proj": ("ff", None),
+              "dt_proj_w": (None, "ff"), "dt_proj_b": ("ff",),
+              "A_log": ("ff", "state"), "D": ("ff",),
+              "norm_scale": ("ff",), "out_proj": ("ff", "embed")},
+    "rwkv_time": {"mu_x": ("embed",), "mu_rkvwg": (None, "embed"),
+                  "tm_w1": ("embed", None), "tm_w2": (None, None, "embed"),
+                  "decay_base": ("embed",), "dd_w1": ("embed", None),
+                  "dd_w2": (None, "embed"), "bonus_u": ("heads", "head_dim"),
+                  "wr": ("embed", "ff"), "wk": ("embed", "ff"),
+                  "wv": ("embed", "ff"), "wg": ("embed", "ff"),
+                  "wo": ("ff", "embed"), "ln_scale": ("embed",),
+                  "ln_bias": ("embed",)},
+    "rwkv_channel": {"mu_k": ("embed",), "mu_r": ("embed",),
+                     "wk": ("embed", "ff"), "wr": ("embed", "ff"),
+                     "wv": ("ff", "embed")},
+    "norm": NORM_AXES,
+}
+
+
+def module_axes(module: str, params: dict) -> dict:
+    """The logical axes of one module's parameter dict."""
+    table = LOGICAL_AXES[module]
+    return {k: table[k] for k in params}
+
+
+def pspec_tree(logical, rules: dict[str, Any] | None = None):
+    """A logical-axes tree (dicts and lists of axis tuples) as a tree of
+    PartitionSpecs through ``rules`` (the active ones by default)."""
+    if isinstance(logical, tuple):
+        return logical_to_pspec(logical, rules)
+    if isinstance(logical, dict):
+        return {k: pspec_tree(v, rules) for k, v in logical.items()}
+    return [pspec_tree(v, rules) for v in logical]

@@ -98,7 +98,7 @@ def reference_leaves(tree: dict) -> list[RefLeaf]:
         if isinstance(first, dict):
             for k in sorted(first):
                 walk([n[k] for n in nodes], path + [str(k)], stacked)
-        elif isinstance(first, (list, tuple)):
+        elif type(first) in (list, tuple):    # a PartitionSpec is a leaf
             for i in range(len(first)):
                 walk([n[i] for n in nodes], path + [str(i)], stacked)
         else:

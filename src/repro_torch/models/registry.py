@@ -2,7 +2,7 @@
 (``models.transformer`` for the decoder-only LMs, ``models.whisper`` for
 the encoder-decoder).  Port of ``repro.models.registry``; the dry run's
 ``input_specs``, ``cache_specs`` and ``all_cells`` come with
-``launch.dryrun`` and ``repro.dist`` (ROADMAP.md queue 1 item 13).
+``launch.dryrun`` (ROADMAP.md queue 1 item 13) and raise until then.
 """
 from __future__ import annotations
 
@@ -10,7 +10,7 @@ import dataclasses
 
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import not_ported, resolve_device
 from repro_torch.configs import ALIASES, get_config
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
@@ -98,6 +98,22 @@ class Arch:
             return LONG_CONTEXT_SKIP.get(self.name)
         return None
 
+    # ---- sharding ----------------------------------------------------------
+    def abstract_params(self):
+        """(parameters on ``meta``, their logical-axes tree)."""
+        return self.mod.abstract_params(self.cfg)
+
+    def param_pspecs(self, rules=None):
+        """PartitionSpec tree of the parameters under ``rules`` (the active
+        ones of ``models.common.set_rules`` by default)."""
+        return self.mod.param_pspecs(self.cfg, rules)
+
+    def input_specs(self, shape, batch_override=None):
+        not_ported("Arch.input_specs (the dry run's abstract inputs)", 13)
+
+    def cache_specs(self, shape, batch_override=None):
+        not_ported("Arch.cache_specs (the dry run's abstract cache)", 13)
+
     # ---- analytics ---------------------------------------------------------
     def _shapes(self) -> dict:
         return self.mod.init_params(self.cfg, None, torch.device("meta"))
@@ -158,3 +174,8 @@ def unflatten(tree, values):
     order."""
     it = iter(values)
     return tree_map(lambda _: next(it), tree)
+
+
+def all_cells(include_skipped: bool = False):
+    """Every (arch × shape) cell of the dry run."""
+    not_ported("all_cells (the dry run's cells)", 13)

@@ -26,6 +26,7 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+                                       module_axes, pspec_tree,
                                        init_norm, softcap)
 
 ATTENTION_KINDS = ("attn", "swa")
@@ -90,6 +91,35 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
         params["lm_head"] = dense_init((cfg.d_model, cfg.vocab_size),
                                        cfg.pdtype, generator, device)
     return params
+
+
+def _layer_axes(layer: dict, kind: str, use_moe: bool) -> dict:
+    mixer = ("attention" if kind in ATTENTION_KINDS
+             else "mamba" if kind == "mamba" else "rwkv_time")
+    mlp = ("rwkv_channel" if kind == "rwkv"
+           else "moe" if use_moe else "mlp")
+    return {k: module_axes(mixer if k == "mixer" else mlp if k == "mlp"
+                           else "norm", v) for k, v in layer.items()}
+
+
+@functools.lru_cache(maxsize=None)
+def abstract_params(cfg: ModelConfig):
+    """(parameters on ``meta``, logical-axes tree of the same structure):
+    shapes only, no allocation."""
+    params = init_params(cfg, None, torch.device("meta"))
+    logical = {k: module_axes("norm", v) if k.endswith("norm")
+               else ("vocab", "embed") if k == "embed"
+               else ("embed", "vocab") if k == "lm_head" else None
+               for k, v in params.items() if k != "blocks"}
+    logical["blocks"] = [[_layer_axes(params["blocks"][r][i], kind, use_moe)
+                          for i, kind, use_moe in _pattern(cfg)]
+                         for r in range(cfg.num_superblocks)]
+    return params, {k: logical[k] for k in params}
+
+
+def param_pspecs(cfg: ModelConfig, rules=None):
+    """PartitionSpec tree of the parameters (their structure)."""
+    return pspec_tree(abstract_params(cfg)[1], rules)
 
 
 def _pattern(cfg: ModelConfig) -> list:

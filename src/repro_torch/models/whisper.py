@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from repro_torch.models import attention as attn
 from repro_torch.models.transformer import token_nll
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
+                                       module_axes, pspec_tree,
                                        init_norm, sinusoidal_positions)
 
 
@@ -73,6 +74,31 @@ def init_params(cfg: ModelConfig, generator: torch.Generator | None,
         "enc_norm": init_norm(cfg, device),
         "dec_norm": init_norm(cfg, device),
     }
+
+
+_LAYER_MODULES = {"self": "attention", "cross": "attention",
+                  "mlp": "gelu_mlp"}
+
+
+@functools.lru_cache(maxsize=None)
+def abstract_params(cfg: ModelConfig):
+    """(parameters on ``meta``, logical-axes tree of the same structure)."""
+    params = init_params(cfg, None, torch.device("meta"))
+
+    def layer(p):
+        return {k: module_axes(_LAYER_MODULES.get(k, "norm"), v)
+                for k, v in p.items()}
+    return params, {
+        "embed": ("vocab", "embed"),
+        "enc": [layer(p) for p in params["enc"]],
+        "dec": [layer(p) for p in params["dec"]],
+        "enc_norm": module_axes("norm", params["enc_norm"]),
+        "dec_norm": module_axes("norm", params["dec_norm"])}
+
+
+def param_pspecs(cfg: ModelConfig, rules=None):
+    """PartitionSpec tree of the parameters (their structure)."""
+    return pspec_tree(abstract_params(cfg)[1], rules)
 
 
 @functools.lru_cache(maxsize=16)

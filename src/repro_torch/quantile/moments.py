@@ -18,6 +18,19 @@ from __future__ import annotations
 import torch
 
 
+def falpha_per_table(counts: torch.Tensor, n: torch.Tensor,
+                     alpha: float = 1.25) -> torch.Tensor:
+    """(..., L) per-table indices F_α(A_j) / (n^α · m^{1−α}) of
+    ``falpha_index``, before the mean over the tables (a table-sharded
+    sketch gathers its ranks' blocks of them)."""
+    c = torch.clamp_min(counts.to(torch.float32), 0.0)
+    m = c.shape[-1]
+    f_alpha = torch.sum(c ** alpha, dim=-1)                       # (L,)
+    denom = (torch.clamp_min(n.to(torch.float32), 1.0) ** alpha
+             * float(torch.tensor(m ** (1.0 - alpha), dtype=torch.float32)))
+    return f_alpha / denom[..., None]
+
+
 def falpha_index(counts: torch.Tensor, n: torch.Tensor, alpha: float = 1.25,
                  table_mask: torch.Tensor | None = None) -> torch.Tensor:
     """Normalised α-th frequency-moment index of (..., L, M) count planes
@@ -25,12 +38,7 @@ def falpha_index(counts: torch.Tensor, n: torch.Tensor, alpha: float = 1.25,
     against the leading axes.  Negative counters (corruption) clamp to 0
     so the fractional power is defined; ``table_mask`` ((L,) or (T, L))
     restricts the table mean to healthy planes."""
-    c = torch.clamp_min(counts.to(torch.float32), 0.0)
-    m = c.shape[-1]
-    f_alpha = torch.sum(c ** alpha, dim=-1)                       # (L,)
-    denom = (torch.clamp_min(n.to(torch.float32), 1.0) ** alpha
-             * float(torch.tensor(m ** (1.0 - alpha), dtype=torch.float32)))
-    per_table = f_alpha / denom[..., None]
+    per_table = falpha_per_table(counts, n, alpha)
     if table_mask is None:
         return torch.mean(per_table, dim=-1)
     maskf = table_mask.to(torch.float32)

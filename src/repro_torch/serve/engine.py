@@ -12,10 +12,13 @@ windowed fleet (both).  Each flavour audits its own sketch
 the corrupted ones and re-warms them (``repair``), as
 ``repro.resilience`` wires them into the reference's.
 
+With a ``mesh`` the sketch is sharded over ranks
+(``repro_torch.dist.sketch_parallel``): replicated, table-sharded, and
+for fleets tenant-sharded or both.
+
 ``ServeEngine`` generates greedily with any model of the zoo
 (``repro_torch.models``) behind an optional guardrail, and
-``decode_throughput`` times its decode step.  Meshes raise
-``NotImplementedError`` naming the queue item that brings them.
+``decode_throughput`` times its decode step.
 """
 from __future__ import annotations
 
@@ -25,11 +28,13 @@ import time
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resilience as rz, resolve_device
+from repro_torch import resilience as rz, resolve_device
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig
 from repro_torch.core.srp import check_projections, hash_buckets
 from repro_torch.data.pipeline import mean_embed_features
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sketch_parallel import ShardedSketch
 from repro_torch.fleet import state as fl
 from repro_torch.fleet import window as fw
 from repro_torch.kernels import ops as kops
@@ -109,16 +114,38 @@ class Guardrail:
     ``device`` defaults to CUDA and raises when there is none; ``w``
     carries a given projection matrix (d_model + 1, P; (d_model + 1, 0)
     under SRHT) instead of drawing one.
+
+    Sharded (``mesh``, a live ``DeviceMesh``; one process a rank):
+    ``sketch_layout`` ``"replicated"`` or ``"table_sharded"`` (the L axis
+    over ``table_axis``), and for a flat fleet also ``"tenant_sharded"``
+    and ``"tenant_table_sharded"`` (tenants over the ``"data"`` axis).
+    Each rank holds its block of the state and admits through the
+    ``repro_torch.kernels.ops`` admissions with ``shard``, the layout's
+    ``ShardedSketch``: the hash, ``ace_query_sum`` partial sums with one
+    (B,) all-reduce over the table axis, ``ace_update`` on its block.
+    Every rank of a table group takes the same batch and returns the same
+    mask, with one transfer an admit; under the tenant layouts each rank
+    takes requests of its own tenants only.  W is drawn on rank 0 and
+    broadcast.  The fused single-card admission is refused under a mesh,
+    as the reference refuses its kernels: ``use_kernels`` defaults to None
+    (the fused route without a mesh, the sharded one with it), True
+    with a mesh raises and False with one takes the sharded route too.
+    Sharded windowed fleets, quantized planes outside ``"replicated"``
+    and the audit (``health_check``, ``repair``) are refused.
     """
 
-    def __init__(self, gcfg: GuardrailConfig, *, use_kernels: bool = True,
-                 device=None, w: torch.Tensor | None = None, mesh=None):
+    def __init__(self, gcfg: GuardrailConfig, *,
+                 use_kernels: bool | None = None, device=None,
+                 w: torch.Tensor | None = None, mesh=None,
+                 sketch_layout: str = "replicated",
+                 table_axis: str = "model"):
         if gcfg.threshold_mode not in ("mu_sigma", "quantile"):
             raise ValueError(f"unknown threshold_mode "
                              f"{gcfg.threshold_mode!r} — expected "
                              "'mu_sigma' or 'quantile'")
-        if mesh is not None:
-            not_ported("sharded guardrails (mesh)", 13)
+        if mesh is not None and use_kernels:
+            raise ValueError("use_kernels admission is single-device; "
+                             "drop the mesh or use the jnp path")
         self.gcfg = gcfg
         self.ace_cfg = AceConfig(dim=gcfg.d_model + 1,
                                  num_bits=gcfg.num_bits,
@@ -165,12 +192,29 @@ class Guardrail:
             if quantile:
                 state = state._replace(qhist=qsk.init_hist(
                     device=self.device))
-        self.state = state
         if w is not None:
             check_projections(w, self.ace_cfg.srp)
         self.w = (sk.make_params(self.ace_cfg, device=self.device) if w is None
                   else w.to(self.device, torch.float32).contiguous())
-        self.use_kernels = use_kernels
+        # under a mesh the kernel path is the sharded one (``ops`` with
+        # ``shard``), whatever ``use_kernels`` says short of True
+        self.use_kernels = use_kernels is None or use_kernels \
+            or mesh is not None
+        self._shard = None
+        if mesh is not None:
+            if self.multi_tenant and self.windowed:
+                raise NotImplementedError(
+                    "sharded windowed fleets are not wired yet — "
+                    "drop the mesh or use window_epochs=1")
+            kind = ("fleet" if self.multi_tenant
+                    else "window" if self.windowed else "flat")
+            self._shard = ShardedSketch(
+                self.ace_cfg, mesh, sketch_layout, kind=kind,
+                table_axis=table_axis, num_tenants=gcfg.num_tenants,
+                num_epochs=gcfg.window_epochs, quantile=quantile)
+            state = self._shard.place(state)
+            col.broadcast(self.w)     # rank 0's W: the ranks cannot drift
+        self.state = state
         # the policy twice: on the host for the front end's sheds
         # (``fail_open_mask``, read with no device access) and on the
         # device for the quarantine select inside ``admit``
@@ -206,7 +250,7 @@ class Guardrail:
         (None while healthy) restricts scores and thresholds to the
         healthy tables; a window's insert keeps the unmasked sums for its
         ssq.  Updates ``self.state``; returns the admit mask."""
-        g, cfg, st = self.gcfg, self.ace_cfg, self.state
+        g, cfg, st, sh = self.gcfg, self.ace_cfg, self.state, self._shard
         gamma = g.window_decay
         mode = dict(table_mask=table_mask, threshold_mode=g.threshold_mode,
                     q=g.quantile_q)
@@ -244,8 +288,9 @@ class Guardrail:
         elif self.multi_tenant:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_admit(
-                    st, feat, tids, self.w, cfg, alpha=g.alpha,
-                    warmup_items=g.warmup_items, **kmode)
+                    st, feat, tids if sh is None else sh.local_tenants(tids),
+                    self.w, cfg, alpha=g.alpha, warmup_items=g.warmup_items,
+                    shard=sh, **kmode)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 scores = fl.fleet_scores(st, tids, buckets,
@@ -266,7 +311,7 @@ class Guardrail:
                 st, admit = kops.ace_admit_windowed(
                     st, feat, self.w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
-                    **kmode)
+                    shard=sh, **kmode)
             else:
                 buckets = hash_buckets(feat, self.w, cfg.srp)
                 pre = ring.window_table_sums(st, buckets)
@@ -289,7 +334,7 @@ class Guardrail:
         elif self.use_kernels:
             st, admit = kops.ace_admit(
                 st, feat, self.w, cfg, alpha=g.alpha,
-                warmup_items=g.warmup_items, **kmode)
+                warmup_items=g.warmup_items, shard=sh, **kmode)
         else:
             buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
             scores = sk.lookup(st, buckets, table_mask)
@@ -319,9 +364,15 @@ class Guardrail:
         if self.multi_tenant:
             if tenant_ids is None:
                 raise ValueError("multi-tenant guardrail needs tenant_ids")
-            tids = torch.as_tensor(fl.check_tenant_ids(
-                tenant_ids, self.gcfg.num_tenants, embeds.shape[:1]),
-                device=self.device)
+            ids = fl.check_tenant_ids(tenant_ids, self.gcfg.num_tenants,
+                                      embeds.shape[:1])
+            if self._shard is not None and not self._shard.owns(ids):
+                raise ValueError(
+                    "tenant ids outside this rank's tenants "
+                    f"[{self._shard.tenant_start}, "
+                    f"{self._shard.tenant_start + self._shard.t_local}) "
+                    f"under the {self._shard.layout!r} layout")
+            tids = torch.as_tensor(ids, device=self.device)
         elif tenant_ids is not None:
             raise ValueError("tenant_ids given but num_tenants == 1")
         out = _to_host(self._admit_device(embeds, tids))  # the ONE transfer
@@ -370,6 +421,10 @@ class Guardrail:
         """The invariant audit on the device and its report on the host:
         (device report, host ``HealthReport`` of numpy arrays, host n,
         host repair offsets or None), in one packed transfer."""
+        if self._shard is not None:
+            raise NotImplementedError(
+                "the audit and repair are single-card: a sharded "
+                "guardrail does not audit its blocks")
         report = rz.health_check(self.state, self._repair_offsets)
         parts = list(report)
         if self._repair_offsets is not None:

@@ -35,7 +35,19 @@ live row of a ring, after the chunk's last rotation), and the dyadic
 ``find_hh`` drill-down on the chunk's drift vector — all on the device,
 its results in the summary's ``hh_*`` fields (the same one transfer).
 
-Meshes raise ``NotImplementedError`` naming their ROADMAP.md queue item.
+With a ``mesh`` (a live ``DeviceMesh``, one process a rank) the
+filter's state is sharded (``repro_torch.dist.sketch_parallel``):
+``sketch_layout`` ``"replicated"`` or ``"table_sharded"``, and for a
+fleet also ``"tenant_sharded"`` and ``"tenant_table_sharded"``.  Each rank
+holds its block, and every step runs through ``kernels.ops`` with the
+layout's ``ShardedSketch`` as ``shard`` (one (B,) all-reduce of partial
+sums a score over the table axis).  The
+rate histograms and attribution planes are replicated, or split with the
+tenants under the tenant layouts.  Every rank of a table group consumes
+the same chunks; under the tenant layouts each rank consumes a stream of
+its own tenants (global ids, checked in ``run``), and its summary's
+per-tenant rows are its own tenants'.
+
 The reference compiles a chunk into one program
 (``trace_count``); the port runs it eagerly, and a captured CUDA graph of
 the chunk is ROADMAP.md queue 1 item 3's open point.
@@ -47,9 +59,10 @@ from typing import Iterable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported
 from repro_torch.attribution import sketch as at
 from repro_torch.core import quantize as qz
+from repro_torch.dist import collectives as col
+from repro_torch.dist.sketch_parallel import ShardedSketch
 from repro_torch.fleet.state import check_tenant_ids, per_tenant_counts
 from repro_torch.quantile.moments import falpha_index
 from repro_torch.window import ring
@@ -143,14 +156,16 @@ class StreamRunner:
 
     ``consume`` takes one (T, B, d) chunk with T = ``chunk_T`` (and, for a
     fleet, its (T, B) int32 tenant ids); ``return_masks=True`` also
-    returns the (T, B) keep mask.
+    returns the (T, B) keep mask.  ``mesh``, ``sketch_layout`` and
+    ``table_axis`` shard the filter's state (module docstring); a chunk
+    under a mesh takes no ``table_mask``.
     """
 
     def __init__(self, filt, chunk_T: int, topk: int = 8,
                  return_masks: bool = False, *, mesh=None,
+                 sketch_layout: str = "replicated",
+                 table_axis: str = "model",
                  rotate_every: int | None = None):
-        if mesh is not None:
-            not_ported("sharded stream ingest (mesh)", 13)
         self.filt = filt
         self.chunk_T = int(chunk_T)
         self.topk = int(topk)
@@ -177,10 +192,25 @@ class StreamRunner:
                 f"rotate_every={R} must divide or be a multiple of "
                 f"chunk_T={self.chunk_T} so epoch boundaries land "
                 "deterministically inside or between chunks")
+        self.shard = None
+        if mesh is not None:
+            kind = ("fleet" if self.is_fleet
+                    else "window" if self.windowed else "flat")
+            self.shard = ShardedSketch(
+                filt.ace_cfg, mesh, sketch_layout, kind=kind,
+                table_axis=table_axis,
+                num_tenants=getattr(filt, "num_tenants", 1),
+                num_epochs=getattr(filt, "num_epochs", 1),
+                quantile=filt.threshold_mode == "quantile",
+                attr=self.attr_cfg is not None)
 
     def init(self):
-        """(state, w) on the filter's device."""
-        return self.filt.init()
+        """(state, w) on the filter's device; under a mesh this rank's
+        blocks of the state and rank 0's W."""
+        state, w = self.filt.init()
+        if self.shard is None:
+            return state, w
+        return self.shard.place(state), col.broadcast(w)
 
     def consume(self, state, w: torch.Tensor, feats: torch.Tensor,
                 tenant_ids: torch.Tensor | None = None,
@@ -205,21 +235,28 @@ class StreamRunner:
                              "is not a fleet")
         T, R = self.chunk_T, self.rotate_every
         gamma = getattr(self.filt, "decay", 1.0)
+        sh = self.shard
+        if sh is not None and tenant_ids is not None:
+            tenant_ids = sh.local_tenants(tenant_ids)
+            if tenant_mask is not None:
+                tenant_mask = tenant_mask[sh.tenant_start:
+                                          sh.tenant_start + sh.t_local]
         keeps, margins = [], []
         for t in range(T):
             if self.is_fleet:
                 state, keep, margin = self.filt.step(
                     state, w, feats[t], tenant_ids[t], table_mask=table_mask,
-                    tenant_mask=tenant_mask)
+                    tenant_mask=tenant_mask, shard=sh)
             else:
-                state, keep, margin = self.filt.step(state, w, feats[t],
-                                                     table_mask=table_mask)
+                state, keep, margin = self.filt.step(
+                    state, w, feats[t], table_mask=table_mask, shard=sh)
             keeps.append(keep)
             margins.append(margin)
             # the tick-gated clock at each segment boundary (R | T) or at
             # the chunk's end (T | R)
             if R and (t + 1) % min(R, T) == 0:
-                state = ring.maybe_rotate(state, R, gamma)
+                state = (ring if sh is None else sh).maybe_rotate(state, R,
+                                                                  gamma)
         keeps, margins = torch.stack(keeps), torch.stack(margins)
         hh = {}
         if self.attr_cfg is not None:
@@ -277,7 +314,7 @@ class StreamRunner:
         # the sums, so zero them first (the filter step's sanitize)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
-        nt = self.filt.num_tenants if self.is_fleet else 1
+        nt = self._tenants()
         split = at.chunk_energy(feat, margins_flat, nt, tenant_ids)
         del feat                      # the chunk-sized copy, before find_hh
         planes = at.chunk_planes(acfg, tables, split[0], split[1])
@@ -301,21 +338,32 @@ class StreamRunner:
                       hh_tenant_est=l2[:kt])
         return state._replace(attr=attr), hh
 
+    def _tenants(self) -> int:
+        """Tenants of this rank's state (all of them off a mesh)."""
+        if not self.is_fleet:
+            return 1
+        return self.filt.num_tenants if self.shard is None \
+            else self.shard.t_local
+
+    def _falpha(self, counts: torch.Tensor, n: torch.Tensor, table_mask):
+        if self.shard is None:
+            return falpha_index(counts, n, table_mask=table_mask)
+        return self.shard.falpha(counts, n)
+
     def _summary(self, state, keeps: torch.Tensor, margins: torch.Tensor,
                  table_mask, hh: dict | None = None) -> ChunkSummary:
         if self.windowed:
             gamma = self.filt.decay
             n = torch.sum(state.n)                    # the ring total
-            falpha = falpha_index(ring.decayed_counts(state, gamma),
-                                  ring.combined_n(state, gamma),
-                                  table_mask=table_mask)
+            falpha = self._falpha(ring.decayed_counts(state, gamma),
+                                  ring.combined_n(state, gamma), table_mask)
         else:
             # a quantized plane's moment index reads the exact logical
             # counts: the narrow plane clips the very buckets it weighs
             n = state.n
             counts = (state.counts if state.esc is None
                       else qz.densify(state.counts, state.esc))
-            falpha = falpha_index(counts, state.n, table_mask=table_mask)
+            falpha = self._falpha(counts, state.n, table_mask)
         return ChunkSummary(
             n=n, falpha=falpha,
             degraded=torch.full((), table_mask is not None, dtype=torch.bool,
@@ -326,7 +374,7 @@ class StreamRunner:
                        margins: torch.Tensor, tenant_ids: torch.Tensor,
                        table_mask, tenant_mask,
                        hh: dict | None = None) -> FleetChunkSummary:
-        nt = self.filt.num_tenants
+        nt = self._tenants()
         tids = tenant_ids.reshape(-1)
         dev = margins.device
         misrouted = torch.zeros((), dtype=torch.int32, device=dev) \
@@ -339,8 +387,7 @@ class StreamRunner:
             n=state.n, misrouted=misrouted,
             degraded=torch.full((), table_mask is not None, dtype=torch.bool,
                                 device=dev),
-            falpha=falpha_index(state.counts, state.n,
-                                table_mask=table_mask),
+            falpha=self._falpha(state.counts, state.n, table_mask),
             **self._topk(keeps, margins), **(hh or {}))
 
     def fetch(self, summary):
@@ -382,8 +429,13 @@ class StreamRunner:
             b = np.asarray(b, np.float32)
             buf.append(b)
             if tit is not None:
-                tbuf.append(check_tenant_ids(next(tit), self.filt.num_tenants,
-                                             b.shape[:1]))
+                ids = check_tenant_ids(next(tit), self.filt.num_tenants,
+                                       b.shape[:1])
+                if self.shard is not None and not self.shard.owns(ids):
+                    raise ValueError("tenant ids outside this rank's "
+                                     f"tenants under the "
+                                     f"{self.shard.layout!r} layout")
+                tbuf.append(ids)
             if len(buf) < self.chunk_T:
                 continue
             if self.is_fleet:

@@ -97,11 +97,17 @@ class GradMonitor:
         + 1,)."""
         groups = reference_leaves(grads)[: self.feature_dim - 1]
         parts = [g.to(F32) for leaf in groups for g in leaf.parts]
-        sizes = [len(leaf.parts) for leaf in groups]
         norms = torch.stack(torch._foreach_norm(parts))
-        sq = torch.split(norms * norms, sizes)
-        vec = torch.log1p(torch.sqrt(torch.stack([torch.sum(s)
-                                                  for s in sq])))
+        return self.features_from_sq(norms * norms, groups, loss)
+
+    def features_from_sq(self, sq: torch.Tensor, groups, loss: torch.Tensor
+                         ) -> torch.Tensor:
+        """``features`` from the squared norm of every part of the first
+        ``feature_dim − 1`` reference leaves (``groups``), (parts,) in
+        their order: a sharded step's norms, summed over the ranks."""
+        sizes = [len(leaf.parts) for leaf in groups]
+        vec = torch.log1p(torch.sqrt(torch.stack(
+            [torch.sum(s) for s in torch.split(sq, sizes)])))
         pad = self.feature_dim - 1 - vec.shape[0]
         dev = vec.device
         return torch.cat([
@@ -116,23 +122,31 @@ class GradMonitor:
         return self.step_features(state, w, self.features(grads, loss)[None])
 
     def step_features(self, state: MonitorState, w: torch.Tensor,
-                      feat: torch.Tensor, kernels: bool | None = None):
+                      feat: torch.Tensor, kernels: bool | None = None,
+                      shard=None):
         """``step`` on a (1, feature_dim + 1) feature row.  ``kernels``
         None takes the kernels when ``use_kernels`` or on a CUDA tensor;
         False takes the plain sketch functions on any device, the version
-        the kernel path is held against on the card."""
+        the kernel path is held against on the card.  ``shard`` (a
+        ``repro_torch.dist.sketch_parallel.ShardedSketch``) runs the
+        kernel path on this rank's block of a sharded monitor sketch."""
         cfg = self.ace_cfg
         ace = state.ace
         if kernels is None:
-            kernels = self.use_kernels or feat.is_cuda
-        if kernels:
+            kernels = self.use_kernels or feat.is_cuda or shard is not None
+        if shard is not None:
+            buckets = shard.buckets(feat, w)                   # the ONE hash
+            score = shard.scores(ace.counts, buckets)[0]
+            mu_rate = shard.mean_mu(ace) / torch.clamp_min(ace.n, 1.0)
+        elif kernels:
             buckets = kops.srp_hash(feat, w, cfg.srp)          # the ONE hash
             score = kops.ace_query(ace, buckets)[0]
+            mu_rate = sk.mean_rate(ace)
         else:
             score = sk.score(ace, w, feat, cfg)[0]
+            mu_rate = sk.mean_rate(ace)
         # rate space: stationary stream -> meaningful σ (see sketch.py)
         rate = score / torch.clamp_min(ace.n, 1.0)
-        mu_rate = sk.mean_rate(ace)
         sigma = sk.sigma_welford(ace)
         armed = state.warmup_left <= 0.0
         is_anom = armed & (rate < mu_rate - self.alpha * sigma)
@@ -141,7 +155,8 @@ class GradMonitor:
         if kernels:
             keep = ~is_anom.reshape(1)
             counts = _u.ace_update(ace.counts, buckets, row_mask=keep)
-            post = kops.ace_query(ace._replace(counts=counts), buckets)
+            post = (kops.ace_query(ace._replace(counts=counts), buckets)
+                    if shard is None else shard.scores(counts, buckets))
             n, mean, m2 = sk.masked_batch_welford(
                 ace, post, keep.to(F32), cfg.welford_min_n)
             new_ace = ace._replace(counts=counts, n=n, welford_mean=mean,

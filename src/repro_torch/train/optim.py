@@ -24,9 +24,10 @@ walks ``models.convert.reference_leaves`` and works on each stacked leaf
 as the reference does (its moments are held in that layout).
 
 Implemented: SGD (+momentum, Nesterov), AdamW (decoupled decay), Adafactor
-(factored second moments for leaves of rank >= 2).  The reference's
-``state_pspecs`` (sharding) comes with ``repro.dist`` (ROADMAP.md queue 1
-item 13).
+(factored second moments for leaves of rank >= 2).  ``state_pspecs``
+gives the state's ``repro_torch.dist.mesh.PartitionSpec`` tree from the
+parameters', as the reference's does; Sgd and AdamW update a rank's
+blocks of a sharded state leaf by leaf as they update whole tensors.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.dist.mesh import P
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.registry import leaves, tree_map
 from repro_torch.train.schedule import scalar_div
@@ -84,6 +86,10 @@ class Sgd:
                                                      device=p.device),
                               params)}
 
+    def state_pspecs(self, param_pspecs):
+        """The state's specs, given the parameters'."""
+        return {} if self.momentum == 0.0 else {"m": param_pspecs}
+
     def update(self, params, grads, state, step, lr, skip=None):
         del step
         ms = list(leaves(state["m"])) if self.momentum != 0.0 else None
@@ -114,6 +120,10 @@ class AdamW:
         def z(p):
             return torch.zeros(p.shape, dtype=F32, device=p.device)
         return {"m": tree_map(z, params), "v": tree_map(z, params)}
+
+    def state_pspecs(self, param_pspecs):
+        """The state's specs, given the parameters'."""
+        return {"m": param_pspecs, "v": param_pspecs}
 
     def update(self, params, grads, state, step, lr, skip=None):
         # b ** t in float32 on the step's device, as jnp computes it
@@ -177,6 +187,20 @@ class Adafactor:
                 slots.append({"v": torch.zeros(shape, dtype=F32,
                                                device=dev)})
         return {"slots": slots}
+
+    def state_pspecs(self, param_pspecs):
+        """The slots' specs, one a reference leaf: a stacked leaf's spec
+        gains the reference's leading (unsplit) layers entry; ``vr`` drops
+        the last entry, ``vc`` the second to last, ``v`` keeps them all
+        (every key, as the reference gives them)."""
+        def per_leaf(leaf):
+            entries = ((None,) if leaf.stacked else ()) + tuple(leaf.parts[0])
+            return {"vr": P(*entries[:-1]),
+                    "vc": P(*(entries[:-2] + entries[-1:]))
+                    if len(entries) >= 2 else P(),
+                    "v": P(*entries)}
+        return {"slots": [per_leaf(leaf)
+                          for leaf in reference_leaves(param_pspecs)]}
 
     def update(self, params, grads, state, step, lr, skip=None):
         t = _t32(step) + 1.0

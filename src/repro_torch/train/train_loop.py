@@ -36,8 +36,9 @@ What differs from the reference, and why:
   + ``ace_update`` + ``ace_query_sum`` a monitor step), which write their
   counts in place: the state passed to a step shares its sketch tensors
   with the state it returns.
-The reference's ``grad_pspecs`` and ``sketch_layout`` (sharding) come
-with ``repro.dist`` (ROADMAP.md queue 1 item 13).
+``make_train_step(grad_pspecs=…, sketch_layout=…, mesh=…)`` and
+``train(mesh=…)`` train ZeRO-2 over the ranks of a ``torch.distributed``
+mesh (``train.sharded``).
 """
 from __future__ import annotations
 
@@ -48,7 +49,7 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.data.pipeline import AceDataFilter, DataStream
 from repro_torch.models.registry import Arch, leaves, tree_map, unflatten
 from repro_torch.train import checkpoint as ckpt_lib
@@ -179,19 +180,30 @@ def sequence_embeddings(params, batch, cfg):
 
 
 def make_train_step(arch: Arch, tcfg: TrainConfig, grad_pspecs=None,
-                    sketch_layout: str | None = None):
+                    sketch_layout: str | None = None, mesh=None):
     """Builds the train step ``(state, batch) -> (state, metrics)``; batch
     and metrics are dicts of tensors on the device.
 
     With ``filter_chunk > 1`` the filter runs outside the step (``train``
     runs it once a chunk through ``StreamRunner``); the step then takes
-    the batches already masked."""
-    if grad_pspecs is not None:
-        not_ported("make_train_step(grad_pspecs=...) (sharded gradients)",
-                   13)
-    if sketch_layout is not None:
-        not_ported("make_train_step(sketch_layout=...) (sharded sketches)",
-                   13)
+    the batches already masked.
+
+    ``grad_pspecs`` (a PartitionSpec tree of the parameters' structure)
+    and ``sketch_layout`` ("replicated" or "table_sharded") train over
+    the ranks of ``mesh``, a live ``DeviceMesh`` (the reference's ambient
+    mesh), on a state of this rank's blocks (``train.sharded``: ZeRO-2,
+    the gradients reduce-scattered onto ``grad_pspecs``, which is also
+    the parameters' and the optimiser state's layout)."""
+    if grad_pspecs is not None or sketch_layout is not None \
+            or mesh is not None:
+        from repro_torch.train import sharded
+        if mesh is None:
+            raise ValueError("grad_pspecs / sketch_layout shard over a "
+                             "mesh: pass mesh=")
+        if grad_pspecs is None:
+            grad_pspecs = sharded.replicated_specs(arch)
+        return sharded.make_sharded_train_step(arch, tcfg, grad_pspecs,
+                                               sketch_layout, mesh)
     cfg = arch.cfg
     device = resolve_device(tcfg.device)
     opt = make_optimizer(tcfg.optimizer)
@@ -331,7 +343,8 @@ def _restore(mgr, state: TrainState):
 
 def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
           num_steps: int, log_every: int = 10,
-          state: TrainState | None = None):
+          state: TrainState | None = None, *, mesh=None, grad_pspecs=None,
+          sketch_layout: str | None = None):
     """Host loop: checkpoint/restart, straggler timer, rollback, logging.
 
     With ``tcfg.filter_chunk = T > 1`` the data filter runs as a chunked
@@ -347,14 +360,32 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
     holds batches no step has trained on), so a restart stays exact; pick
     ``ckpt_interval`` a multiple of ``filter_chunk``.
 
+    With a ``mesh`` every rank runs this loop on the same stream and
+    trains its blocks (``make_train_step``); a ``state`` passed in is then
+    already sharded, and rank 0 alone logs.  Checkpoints and the chunked
+    prefilter are single-card.
+
     Returns (final state, list of metric dicts of floats)."""
     from repro_torch.stream.runner import StreamRunner
     from repro_torch.window import ring
 
     device = resolve_device(tcfg.device)
-    step_fn = make_train_step(arch, tcfg)
+    logs = True
+    if mesh is not None:
+        import torch.distributed as dist
+        from repro_torch.train import sharded
+        if grad_pspecs is None:
+            grad_pspecs = sharded.replicated_specs(arch)
+        if tcfg.ckpt_dir:
+            raise NotImplementedError("checkpoints of a sharded run")
+        logs = dist.get_rank() == 0
+        if state is None:
+            state = sharded.shard_train_state(
+                init_train_state(arch, tcfg), arch, tcfg, mesh,
+                grad_pspecs, sketch_layout)
     if state is None:
         state = init_train_state(arch, tcfg)
+    step_fn = make_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh)
 
     mgr = None
     if tcfg.ckpt_dir:
@@ -438,7 +469,7 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
         if mgr is not None and saveable:
             mgr.maybe_save(host_step, _ckpt_tree(state),
                            extra={"data_step": stream.state_dict()["step"]})
-        if log_every and host_step % log_every == 0:
+        if logs and log_every and host_step % log_every == 0:
             print(f"step {host_step}: loss={metrics['loss']:.4f} "
                   f"gnorm={metrics['grad_norm']:.3f} "
                   f"keep={metrics.get('filter_keep_frac', 1.0):.3f} "

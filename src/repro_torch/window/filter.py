@@ -108,7 +108,8 @@ class WindowedAceFilter:
         return mean_embed_features(embeds, self.bias_const)
 
     def step(self, state: WindowedAceState, w: torch.Tensor,
-             feat: torch.Tensor, table_mask: torch.Tensor | None = None):
+             feat: torch.Tensor, table_mask: torch.Tensor | None = None,
+             shard=None):
         """Hash ONCE → window-combined score → window-combined threshold →
         masked insert into the live epoch; in quantile mode every finite
         item's rate (score over the pre-insert n_w) then goes into the live
@@ -120,21 +121,23 @@ class WindowedAceFilter:
         score's unmasked sums by the healthy count, as the reference's
         step does (its ``ops.ace_admit_windowed`` and ``Guardrail`` mask
         the sums too — ROADMAP.md queue 3); the insert's ssq increment
-        keeps the true unmasked sums."""
+        keeps the true unmasked sums.  ``shard`` (a ``ShardedSketch``)
+        runs the step on this rank's block of a sharded ring."""
         cfg = self.ace_cfg
         srp.check_projections(w, cfg.srp)
         finite = torch.all(torch.isfinite(feat), dim=-1)
         feat = torch.where(finite[:, None], feat, 0.0)
-        thresh = ring.admit_threshold_windowed(
+        thresh = kops.admit_threshold_windowed(
             state, self.decay, self.alpha, self.warmup_items,
             table_mask=table_mask, threshold_mode=self.threshold_mode,
-            q=self.quantile_q)
-        if self.use_kernels:
+            q=self.quantile_q, shard=shard)
+        if self.use_kernels or shard is not None:
             t_ins = (torch.full((), float("-inf"), device=thresh.device)
                      if self.insert_all else thresh)
             new_state, _, scores = kops.ace_admit_windowed_at(
                 state, feat, w, cfg, t_ins, gamma=self.decay,
-                table_mask=table_mask, item_mask=finite, masked_sums=False)
+                table_mask=table_mask, item_mask=finite, masked_sums=False,
+                shard=shard)
             keep = (scores >= thresh) & finite
         else:
             buckets = srp.hash_buckets(feat, w, cfg.srp)   # the ONE hash

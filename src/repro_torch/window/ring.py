@@ -196,7 +196,7 @@ def decay_sum(w: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
 # Ring mechanics.
 # ---------------------------------------------------------------------------
 
-def rotate(state, gamma: float = 1.0):
+def rotate(state, gamma: float = 1.0, whole=None):
     """Advance the ring (every ring of a fleet): the oldest epoch expires
     and becomes the new live epoch (zeroed counts, moments and, when the
     state carries them, rate histogram and attribution planes — that row
@@ -204,7 +204,9 @@ def rotate(state, gamma: float = 1.0):
     tail' = Σ_e γ^age'·C'_e (the zeroed new-live slab contributes
     nothing), with ssq = ‖tail'‖².  The zeroing is an ``index_fill`` at a
     device index: no host sync.  Applied E times this returns the ring to
-    all zeros with the cursor back where it started."""
+    all zeros with the cursor back where it started.  ``whole`` maps a
+    table-sharded rank's tail block to the whole (L, 2^K) tail, whose
+    ‖·‖² is the ring's ssq."""
     E = state.num_epochs
     new_cursor = torch.remainder(state.cursor + 1, E).to(torch.int32)
     rows = slab_rows(new_cursor, E)
@@ -223,24 +225,26 @@ def rotate(state, gamma: float = 1.0):
         attr = attr.reshape((-1,) + plane).index_fill(0, rows, 0.0) \
             .reshape(attr.shape)
     tail = decay_sum(epoch_weights(new_cursor, E, gamma), counts)
+    whole_tail = tail if whole is None else whole(tail)
     return state._replace(
         counts=counts, n=clear(state.n), qhist=qhist, attr=attr,
         welford_mean=clear(state.welford_mean),
         welford_m2=clear(state.welford_m2), tail=tail,
-        ssq=torch.sum(tail * tail, dim=(-2, -1)), cursor=new_cursor)
+        ssq=torch.sum(whole_tail * whole_tail, dim=(-2, -1)),
+        cursor=new_cursor)
 
 
 def maybe_rotate(state: WindowedAceState, rotate_every: int,
-                 gamma: float = 1.0) -> WindowedAceState:
+                 gamma: float = 1.0, whole=None) -> WindowedAceState:
     """Rotate when the tick says the live epoch is full (call AFTER an
     insert step): ``tick > 0 ∧ tick % R == 0``.  A device-side select
     over a rotated candidate, so no host sync.  ``rotate_every <= 0`` is
-    the identity."""
+    the identity; ``whole`` as in ``rotate``."""
     if rotate_every <= 0:
         return state
     should = (state.tick > 0) & (torch.remainder(state.tick,
                                                  rotate_every) == 0)
-    return select(should, rotate(state, gamma), state)
+    return select(should, rotate(state, gamma, whole), state)
 
 
 def live_epoch(state: WindowedAceState) -> AceState:
@@ -340,8 +344,10 @@ def insert_stats(state: WindowedAceState, new_ring: torch.Tensor,
     increment Δ‖C_w‖² = 2·m_tail + m_pre + m_post (masked sums of the
     pre/post gathers), and the live epoch's Welford stream folds the
     post-insert windowed rates score_w/n_w (``sketch.masked_batch_welford``
-    term for term, with the epoch's own n as the stream length)."""
-    L = state.counts.shape[1]
+    term for term, with the epoch's own n as the stream length).  The
+    sums are over all ``cfg.num_tables`` tables (a table-sharded ring's
+    summed over its ranks)."""
+    L = cfg.num_tables
     maskf = mask.to(torch.float32)
     scores = score_live(tail_sums, live_post, L)
     m_tail = torch.sum(tail_sums * maskf)
@@ -498,12 +504,15 @@ def combined_moments(state, gamma: float):
 
 
 def mean_mu_windowed(state, gamma: float,
-                     table_mask: torch.Tensor | None = None) -> torch.Tensor:
+                     table_mask: torch.Tensor | None = None,
+                     num_tables: int | None = None) -> torch.Tensor:
     """γ-generalised Eq. 11 closed form μ_w = ‖C_w‖² / (n_w·L) from the
     maintained ssq (exact at γ = 1).  ``table_mask`` ((L,), or (T, L) for
     a fleet) recomputes per-table squared norms from ``decayed_counts``
-    and means over the healthy tables."""
-    L = state.counts.shape[-2]
+    and means over the healthy tables.  ``num_tables`` is L when the
+    state holds only some of the tables (a table-sharded rank's block,
+    whose ssq is the whole ring's)."""
+    L = num_tables or state.counts.shape[-2]
     n_w = torch.clamp_min(combined_n(state, gamma), 1.0)
     if table_mask is None:
         return state.ssq / (n_w * L)
@@ -524,7 +533,8 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
                              warmup_items: float,
                              table_mask: torch.Tensor | None = None,
                              threshold_mode: str = "mu_sigma",
-                             q: float = 0.01) -> torch.Tensor:
+                             q: float = 0.01,
+                             num_tables: int | None = None) -> torch.Tensor:
     """Score-space admission threshold from WINDOW-combined statistics:
     ``sketch.admit_threshold`` with every statistic swapped for its window
     counterpart — μ−ασ: (rate_w − α·σ_w)·max(n_w, 1); quantile: the
@@ -538,7 +548,8 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
         return torch.where(n_w >= warmup_items, t, float("-inf"))
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    rate = mean_mu_windowed(state, gamma, table_mask=table_mask) \
+    rate = mean_mu_windowed(state, gamma, table_mask=table_mask,
+                            num_tables=num_tables) \
         / torch.clamp_min(n_w, 1.0)
     t = (rate - alpha * sigma_windowed(state, gamma)) \
         * torch.clamp_min(n_w, 1.0)

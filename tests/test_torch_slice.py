@@ -25,6 +25,8 @@ from repro_torch.core import estimators as est  # noqa: E402
 from repro_torch.core import sketch as sk  # noqa: E402
 from repro_torch.core.convert import (params_from_numpy,  # noqa: E402
                                       state_from_numpy, state_to_numpy)
+from repro_torch.dist.mesh import make_host_local_mesh  # noqa: E402
+from repro_torch.models.registry import Arch  # noqa: E402
 from repro_torch.serve import engine  # noqa: E402
 
 jax.config.update("jax_platform_name", "cpu")
@@ -194,9 +196,35 @@ class TestNotPorted:
         assert got["qhist"].sum() > 0
 
     def test_mesh_and_health_raise(self):
+        """Meshes are ported (``repro_torch.dist``; across ranks in
+        tests/test_torch_dist_sharded.py): on a one-rank mesh a guardrail
+        admits as the unmeshed one, bitwise; the fused single-card
+        admission under a mesh, the audit of a sharded sketch and sharded
+        windowed fleets are refused; the dry run's cells still raise
+        naming queue 1 item 13."""
+        mesh = make_host_local_mesh()
+        gcfg = engine.GuardrailConfig(d_model=8, num_bits=6, num_tables=8,
+                                      warmup_items=16.0)
+        with pytest.raises(ValueError, match="single-device"):
+            engine.Guardrail(gcfg, device="cpu", mesh=mesh, use_kernels=True)
+        plain = engine.Guardrail(gcfg, device="cpu")
+        meshed = engine.Guardrail(gcfg, device="cpu", mesh=mesh,
+                                  sketch_layout="table_sharded", w=plain.w)
+        rng = np.random.default_rng(0)
+        for _ in range(4):
+            e = rng.normal(size=(16, 2, 8)).astype(np.float32)
+            np.testing.assert_array_equal(meshed.admit(e), plain.admit(e))
+        for k in ("counts", "n", "welford_mean", "welford_m2"):
+            assert torch.equal(getattr(meshed.state, k),
+                               getattr(plain.state, k)), k
+        with pytest.raises(NotImplementedError, match="single-card"):
+            meshed.health_check()
+        with pytest.raises(NotImplementedError, match="windowed fleets"):
+            engine.Guardrail(engine.GuardrailConfig(
+                d_model=8, num_tenants=2, window_epochs=2, rotate_every=1),
+                device="cpu", mesh=mesh)
         with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu",
-                             mesh=object())
+            Arch("olmo_1b", reduced=True).input_specs(None)
         # health_check / repair are ported (queue 1 item 10): a fresh
         # guardrail audits healthy, repairs nothing and stays undegraded
         g = engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu")

@@ -27,6 +27,8 @@ from repro.data.pipeline import AceDataFilter as JFilter  # noqa: E402
 from repro.stream.runner import StreamRunner as JRunner  # noqa: E402
 from repro_torch.core.convert import params_from_numpy  # noqa: E402
 from repro_torch.data.pipeline import AceDataFilter  # noqa: E402
+from repro_torch.dist.mesh import make_host_local_mesh  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.stream import runner as runner_mod  # noqa: E402
 from repro_torch.stream.runner import StreamRunner  # noqa: E402
 
@@ -311,11 +313,36 @@ class TestStreamRunner:
         assert (s.counts.sum(dim=1) == int(host.n)).all()
 
     @pytest.mark.parametrize("kw,item", [
-        (dict(mesh=object()), 13), (dict(mesh=object(), rotate_every=2), 13)])
+        (dict(mesh=make_host_local_mesh()), 13),
+        (dict(mesh=make_host_local_mesh(), rotate_every=2), 13)])
     def test_later_slices_raise(self, kw, item):
+        """A mesh is ported (``repro_torch.dist``; across ranks in
+        tests/test_torch_dist_sharded.py): on a one-rank mesh the runner
+        is the unmeshed one bitwise, and a rotation clock on the flat
+        filter is refused as without a mesh.  The dry run is what still
+        raises naming queue 1 item 13."""
         pf = AceDataFilter(**FKW, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"queue 1 item {item}"):
-            StreamRunner(pf, T, **kw)
+        if "rotate_every" in kw:
+            with pytest.raises(ValueError, match="windowed filter"):
+                StreamRunner(pf, T, **kw)
+        else:
+            feats = _features(2 * T)
+            outs = []
+            for runner in (StreamRunner(pf, T), StreamRunner(pf, T, **kw)):
+                s, w = runner.init()
+                outs.append(runner.run(s, w, feats))
+            (s0, sum0), (s1, sum1) = outs
+            assert torch.equal(s0.counts, s1.counts)
+            for k in ("n", "welford_mean", "welford_m2"):
+                assert torch.equal(getattr(s0, k), getattr(s1, k)), k
+            for a, b in zip(sum0, sum1):
+                for f in a._fields:
+                    if getattr(a, f) is not None:
+                        np.testing.assert_array_equal(getattr(a, f),
+                                                      getattr(b, f))
+        with pytest.raises(NotImplementedError,
+                           match=f"queue 1 item {item}"):
+            dryrun.main([])
 
     def test_fleets_and_windows_raise(self):
         """Windows and fleets are ported (tests/test_torch_window.py and

@@ -46,9 +46,10 @@ from repro.train.compression import (  # noqa: E402
 from repro.train.fault import GradMonitor as JMonitor  # noqa: E402
 from repro.train.optim import make_optimizer as jmake_opt  # noqa: E402
 from repro_torch.data.pipeline import DataStream, StreamConfig  # noqa: E402
+from repro_torch.dist.mesh import make_host_local_mesh  # noqa: E402
 from repro_torch.launch import train as launcher  # noqa: E402
 from repro_torch.models.convert import params_to_reference  # noqa: E402
-from repro_torch.models.registry import Arch, leaves  # noqa: E402
+from repro_torch.models.registry import Arch, all_cells, leaves  # noqa: E402
 from repro_torch.train import fault as tfault  # noqa: E402
 from repro_torch.train import train_loop as TT  # noqa: E402
 from torch_zoo_helpers import one_torch_thread  # noqa: E402
@@ -361,15 +362,24 @@ def test_launcher_on_the_cpu_and_not_ported_options():
         launcher.main(["--arch", "olmo_1b", "--reduced", "--steps", "3",
                        "--batch", "4", "--seq", "16", "--device", "cpu"])
     assert "done: step=3 loss" in out.getvalue()
-    for extra in (["--mesh", "2x2"], ["--devices", "4"]):
-        with pytest.raises(NotImplementedError, match="item 13"):
-            launcher.main(["--arch", "olmo_1b", "--reduced", "--device",
-                           "cpu", *extra])
+    # --devices/--mesh are ported (train.sharded; against one process in
+    # tests/test_torch_dist_sharded.py): a mesh that does not hold the
+    # ranks asked for is refused before anything spawns
+    with pytest.raises(ValueError, match="ranks"):
+        launcher.main(["--arch", "olmo_1b", "--reduced", "--device", "cpu",
+                       "--mesh", "2x2", "--devices", "2"])
     a = Arch("olmo_1b", reduced=True)
     tcfg = TT.TrainConfig(device="cpu")
     for kw in (dict(grad_pspecs={}), dict(sketch_layout="replicated")):
-        with pytest.raises(NotImplementedError, match="item 13"):
+        with pytest.raises(ValueError, match="mesh="):
             TT.make_train_step(a, tcfg, **kw)
+    with pytest.raises(NotImplementedError, match="Adafactor"):
+        TT.make_train_step(a, TT.TrainConfig(optimizer="adafactor",
+                                             device="cpu"),
+                           mesh=make_host_local_mesh())
+    # the dry run is what still raises naming queue 1 item 13
+    with pytest.raises(NotImplementedError, match="item 13"):
+        all_cells()
     with pytest.raises(ValueError, match="filter_rotate_every"):
         TT.make_data_filter(TT.TrainConfig(filter_window_epochs=2,
                                            device="cpu"), 16)

@@ -1,0 +1,340 @@
+"""The rank side of ``tests/test_torch_dist_sharded.py``: the port's
+``repro_torch.dist`` run as WORLD = 4 ``gloo`` processes on the CPU, one
+(2, 2) data × model mesh, on inputs the test wrote (the reference's W and
+batches).  Run as
+
+    PYTHONPATH=src python tests/torch_dist_helpers.py IN.npz OUT.npz
+
+It spawns the ranks (``file://`` init beside OUT.npz, so parallel test
+workers never share a port), and rank 0 writes every result, each global
+state gathered from the ranks' blocks, to OUT.npz.  It imports no JAX.
+The case tables (``GUARD_CASES``, ``STREAM_CASES``) are shared with the
+test, which runs the reference on the same ones.
+"""
+import os
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+import torch.multiprocessing as mp
+
+WORLD = 4
+SKETCH = dict(dim=16, num_bits=8, num_tables=8, seed=0, welford_min_n=16.0)
+
+# Guardrail flavours: (name, GuardrailConfig fields, layout)
+GUARD_BASE = dict(d_model=16, num_bits=8, num_tables=8, warmup_items=64.0)
+GUARD_CASES = (
+    ("flat_table", {}, "table_sharded"),
+    ("flat_table_quantile", dict(threshold_mode="quantile"),
+     "table_sharded"),
+    ("flat_replicated", {}, "replicated"),
+    ("window_table", dict(window_epochs=3, window_decay=0.9,
+                          rotate_every=2), "table_sharded"),
+    ("window_table_quantile", dict(window_epochs=3, window_decay=0.9,
+                                   rotate_every=2, threshold_mode="quantile"),
+     "table_sharded"),
+    ("fleet_table", dict(num_tenants=4, warmup_items=32.0),
+     "table_sharded"),
+    ("fleet_tenant", dict(num_tenants=4, warmup_items=32.0),
+     "tenant_sharded"),
+    ("fleet_tenant_table", dict(num_tenants=4, warmup_items=32.0,
+                                threshold_mode="quantile"),
+     "tenant_table_sharded"),
+)
+GUARD_ADMITS, GUARD_B, GUARD_S = 6, 32, 4
+
+# StreamRunner filters: (name, kind, filter fields, layout)
+FILTER_BASE = dict(d_model=16, num_bits=8, num_tables=8, warmup_items=64.0)
+STREAM_CASES = (
+    ("flat", "flat", {}, "table_sharded"),
+    ("window", "window", dict(num_epochs=3, decay=0.9, rotate_every=2),
+     "table_sharded"),
+    ("fleet", "fleet", dict(num_tenants=4, warmup_items=32.0),
+     "tenant_table_sharded"),
+)
+STREAM_T, STREAM_B, STREAM_CHUNKS = 4, 32, 2
+TRAIN_STEPS, TRAIN_B, TRAIN_S = 2, 8, 16
+TRAIN_CFG = dict(optimizer="adamw", peak_lr=1e-3, warmup_steps=1,
+                 total_steps=8)
+TENANT_LAYOUTS = ("tenant_sharded", "tenant_table_sharded")
+
+
+def tenant_groups(layout: str) -> int:
+    """Streams of a fleet case: one a tenant group (the data axis) under
+    the tenant layouts, one shared by every rank otherwise."""
+    return 2 if layout in TENANT_LAYOUTS else 1
+
+
+def guard_batches(case: int, groups: int):
+    """[admit][group] -> (embeds (B, S, 16), tenant ids (B,) or None):
+    group g's ids lie in its tenant block {2g, 2g + 1}; every third admit
+    is shifted so the threshold rejects."""
+    _, fields, layout = GUARD_CASES[case]
+    rng = np.random.default_rng(100 + case)
+    T = fields.get("num_tenants", 1)
+    out = []
+    for k in range(GUARD_ADMITS):
+        row = []
+        for g in range(groups):
+            e = rng.normal(size=(GUARD_B, GUARD_S, 16)).astype(np.float32)
+            if k % 3 == 2:
+                e[: GUARD_B // 4] += 3.0
+            tids = None
+            if T > 1:
+                tids = (rng.integers(0, 2, GUARD_B) + 2 * g if groups > 1
+                        else rng.integers(0, T, GUARD_B)).astype(np.int32)
+            row.append((e, tids))
+        out.append(row)
+    return out
+
+
+def stream_batches(case: int, groups: int):
+    """[group] -> (list of (B, 17) feature batches, list of ids or None)."""
+    _, kind, _, _ = STREAM_CASES[case]
+    rng = np.random.default_rng(200 + case)
+    out = []
+    for g in range(groups):
+        feats, tids = [], []
+        for k in range(STREAM_T * STREAM_CHUNKS):
+            f = rng.normal(size=(STREAM_B, 17)).astype(np.float32)
+            if k % 3 == 2:
+                f[: STREAM_B // 4] += 2.0
+            feats.append(f)
+            if kind == "fleet":
+                tids.append((rng.integers(0, 2, STREAM_B)
+                             + 2 * g).astype(np.int32))
+        out.append((feats, tids or None))
+    return out
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def _state(prefix: str, st, out: dict) -> None:
+    for f in ("counts", "n", "welford_mean", "welford_m2"):
+        out[f"{prefix}_{f}"] = _np(getattr(st, f))
+
+
+def primitives(mesh, d: dict, out: dict) -> None:
+    """The explicit-collective primitives on the oracle's inputs."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.dist import sketch_parallel as sp
+    from repro_torch.dist.mesh import P, local_block
+    cfg = sk.AceConfig(**SKETCH)
+    w = torch.as_tensor(d["w"])
+    xs = [torch.as_tensor(d[f"x{i}"]) for i in range(3)]
+    masks = [torch.as_tensor(d[f"m{i}"]) for i in range(3)]
+    q = torch.as_tensor(d["q"])
+    dr = mesh.get_local_rank("data")
+    ts = sp.table_sharded_shardings(mesh)
+
+    def fresh(spec=ts):
+        return sp.place(sk.init(cfg, "cpu"), spec, mesh)
+
+    upd = sp.make_shardmap_update(mesh, cfg, data_axes=("data",))
+    st = sk.init(cfg, "cpu")
+    for x in xs:
+        st = upd(st, x.chunk(2)[dr], w)
+    _state("shardmap", st, out)
+
+    upd = sp.make_table_sharded_update(mesh, cfg)
+    st = fresh()
+    for x in xs:
+        st = upd(st, x, w)
+    _state("ts", sp.gather(st, ts, mesh), out)
+    from repro_torch.dist import collectives as col
+    with col.tallied() as tally:
+        out["ts_scores"] = _np(sp.make_table_sharded_score(mesh, cfg)(
+            st, q, w))
+    out["score_tally_bytes"] = np.asarray(tally.snapshot()["total_bytes"])
+    out["ts_mu"] = _np(sp.make_table_sharded_mean_mu(mesh, cfg)(st))
+
+    upd = sp.make_table_sharded_update(mesh, cfg, data_axes=("data",))
+    st = fresh()
+    for x in xs:
+        st = upd(st, x.chunk(2)[dr], w)
+    _state("tsdata", sp.gather(st, ts, mesh), out)
+
+    rupd = sp.make_masked_update(mesh, cfg)
+    tupd = sp.make_table_sharded_masked_update(mesh, cfg)
+    r, t = sk.init(cfg, "cpu"), fresh()
+    for x, m in zip(xs, masks):
+        r = rupd(r, x, w, m)
+        t = tupd(t, x, w, m)
+    _state("mrep", r, out)
+    _state("mts", sp.gather(t, ts, mesh), out)
+
+    upd = sp.make_table_sharded_update(mesh, cfg)
+    merged = sk.merge(upd(fresh(), xs[0], w), upd(fresh(), xs[1], w))
+    _state("merge", sp.gather(merged, ts, mesh), out)
+    out["merge_mu"] = _np(sp.table_sharded_mean_mu(mesh, cfg, merged))
+
+    ring = local_block(torch.as_tensor(d["ring"]), P(None, "model", None),
+                       mesh)
+    out["win_scores"] = _np(sp.make_table_sharded_window_score(mesh, cfg)(
+        ring, torch.as_tensor(d["ring_w"]), q, w))
+    # the single card's windowed score of the whole ring (cursor 1, γ 0.9)
+    from repro_torch.kernels import ops as kops
+    from repro_torch.window import ring as wr
+    whole = torch.as_tensor(d["ring"])
+    ids = kops.hash_dispatch(q, w, cfg.srp).long()
+    sums = torch.stack([torch.sum(whole[e][torch.arange(8), ids].to(
+        torch.float32), dim=-1) for e in range(whole.shape[0])])
+    out["win_one"] = _np(wr.score_from_sums(sums, torch.tensor(1), 0.9, 8))
+
+
+def guardrails(mesh, d: dict, out: dict) -> None:
+    """Every Guardrail case, sharded and on one process, on the same W."""
+    from repro_torch.serve.engine import Guardrail, GuardrailConfig
+    dr = mesh.get_local_rank("data")
+    for c, (name, fields, layout) in enumerate(GUARD_CASES):
+        gcfg = GuardrailConfig(**{**GUARD_BASE, **fields})
+        w = torch.as_tensor(d[f"g_{name}_w"])
+        g = Guardrail(gcfg, device="cpu", mesh=mesh, sketch_layout=layout,
+                      w=w)
+        one = Guardrail(gcfg, device="cpu", w=w)
+        groups = tenant_groups(layout)
+        masks, ones = [], []
+        for row in guard_batches(c, groups):
+            e, tids = row[dr if groups > 1 else 0]
+            masks.append(g.admit(e, tids))
+            for e1, t1 in row:
+                ones.append(one.admit(e1, t1))
+        masks = np.stack(masks)
+        every = [None] * WORLD
+        dist.all_gather_object(every, masks)
+        out[f"g_{name}_masks"] = np.stack(every)       # (ranks, admits, B)
+        out[f"g_{name}_one_masks"] = np.stack(ones)
+        _state(f"g_{name}", g._shard.gather(g.state), out)
+        _state(f"g_{name}_one", one.state, out)
+
+
+def streams(mesh, d: dict, out: dict) -> None:
+    """Every StreamRunner case sharded, with its keep masks and summaries,
+    on the reference's W."""
+    from repro_torch.data.pipeline import AceDataFilter
+    from repro_torch.fleet.filter import FleetDataFilter
+    from repro_torch.stream.runner import StreamRunner
+    from repro_torch.window.filter import WindowedAceFilter
+    kinds = {"flat": AceDataFilter, "window": WindowedAceFilter,
+             "fleet": FleetDataFilter}
+    dr = mesh.get_local_rank("data")
+    for c, (name, kind, fields, layout) in enumerate(STREAM_CASES):
+        filt = kinds[kind](**{**FILTER_BASE, **fields}, device="cpu")
+        runner = StreamRunner(filt, STREAM_T, return_masks=True, mesh=mesh,
+                              sketch_layout=layout)
+        state, _ = runner.init()
+        w = torch.as_tensor(d[f"s_{name}_w"])
+        groups = tenant_groups(layout)
+        feats, tids = stream_batches(c, groups)[dr if groups > 1 else 0]
+        keeps, summaries = [], []
+        for k in range(STREAM_CHUNKS):
+            chunk = torch.as_tensor(np.stack(
+                feats[k * STREAM_T:(k + 1) * STREAM_T]))
+            tc = None if tids is None else torch.as_tensor(np.stack(
+                tids[k * STREAM_T:(k + 1) * STREAM_T]))
+            state, summary, keep = runner.consume(state, w, chunk, tc)
+            keeps.append(_np(keep))
+            summaries.append(runner.fetch(summary))
+        every = [None] * WORLD
+        dist.all_gather_object(every, np.stack(keeps))
+        out[f"s_{name}_keeps"] = np.stack(every)
+        _state(f"s_{name}", runner.shard.gather(state), out)
+        for f in ("n", "falpha", "kept_frac", "topk_margin"):
+            out[f"s_{name}_sum_{f}"] = np.stack([getattr(s, f)
+                                             for s in summaries])
+
+
+def gpipe(d: dict, out: dict) -> None:
+    from repro_torch.dist.mesh import make_mesh
+    from repro_torch.dist.pipeline import pipeline_apply
+    pmesh = make_mesh((WORLD,), ("pipe",), "cpu")
+    x = torch.as_tensor(d["pipe_x"])
+    out["pipe_out"] = _np(pipeline_apply(
+        lambda p, h: torch.tanh(h @ p["w"]),
+        {"w": torch.as_tensor(d["pipe_w"])}, x, mesh=pmesh,
+        num_stages=WORLD, num_microbatches=x.shape[0]))
+
+
+def training(mesh, d: dict, out: dict) -> None:
+    """Reduced olmo_1b, TRAIN_STEPS steps sharded (FSDP + model-axis rules,
+    table-sharded sketches) and on one process, each from the port's
+    initial parameters with the reference's filter and monitor W (the
+    start of the reference's run in the test)."""
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.dist import mesh as dm
+    from repro_torch.models.common import set_rules
+    from repro_torch.models.registry import Arch, leaves
+    from repro_torch.train import sharded
+    from repro_torch.train.train_loop import (TrainConfig,
+                                              init_train_state, train)
+    arch = Arch("olmo_1b", reduced=True)
+    tcfg = TrainConfig(**TRAIN_CFG, device="cpu")
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=TRAIN_S,
+                        global_batch=TRAIN_B)
+    set_rules(dm.rules_for(mesh))
+    shapes = arch.abstract_params()[0]
+    specs = dm.sharding_tree_for(
+        mesh, dm.fsdp_tree(arch.param_pspecs(), shapes, mesh), shapes)
+
+    def start():
+        return init_train_state(arch, tcfg)._replace(
+            filter_w=torch.as_tensor(d["tr_filter_w"]),
+            monitor_w=torch.as_tensor(d["tr_monitor_w"]))
+    state = sharded.shard_train_state(start(), arch, tcfg, mesh, specs,
+                                      "table_sharded")
+    state, hist = train(arch, tcfg, DataStream(scfg), TRAIN_STEPS,
+                        log_every=0, state=state, mesh=mesh,
+                        grad_pspecs=specs, sketch_layout="table_sharded")
+    one, one_hist = train(arch, tcfg, DataStream(scfg), TRAIN_STEPS,
+                          log_every=0, state=start())
+    params = sharded.gather_params(state.params, specs, mesh)
+    out["t_params"] = np.concatenate([_np(a).reshape(-1)
+                                      for a in leaves(params)])
+    out["t_param_diff"] = np.concatenate(
+        [_np(a - b).reshape(-1) for a, b in zip(leaves(params),
+                                                leaves(one.params))])
+    out["t_lr_sum"] = np.asarray(sum(h["lr"] for h in one_hist))
+    for k in ("loss", "grad_norm", "filter_keep_frac", "grad_anomaly"):
+        out[f"t_{k}"] = np.asarray([h[k] for h in hist])
+        out[f"t_one_{k}"] = np.asarray([h[k] for h in one_hist])
+    fsh, msh = sharded.sketch_shards(tcfg, arch, mesh, "table_sharded")
+    _state("t_filter", fsh.gather(state.filter_state), out)
+    _state("t_filter_one", one.filter_state, out)
+    _state("t_monitor", msh.gather(state.monitor.ace), out)
+    _state("t_monitor_one", one.monitor.ace, out)
+    out["t_fsdp_split"] = np.asarray(sum(
+        1 for ps in sharded.spec_leaves(specs) if "data" in ps))
+
+
+def run(rank: int, d: dict) -> dict:
+    from repro_torch.dist.mesh import make_debug_mesh
+    mesh = make_debug_mesh(data=2, model=2, device_type="cpu")
+    out: dict = {}
+    primitives(mesh, d, out)
+    guardrails(mesh, d, out)
+    streams(mesh, d, out)
+    gpipe(d, out)
+    training(mesh, d, out)
+    return out
+
+
+def _rank(rank: int, inp: str, out_path: str, init: str) -> None:
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init}",
+                            rank=rank, world_size=WORLD)
+    try:
+        res = run(rank, dict(np.load(inp)))
+        if rank == 0:
+            np.savez(out_path, **res)
+    finally:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    inp, out_path = sys.argv[1], sys.argv[2]
+    init = os.path.join(os.path.dirname(os.path.abspath(out_path)),
+                        "gloo_init")
+    mp.spawn(_rank, args=(inp, out_path, init), nprocs=WORLD)
