@@ -387,16 +387,39 @@ non-zero without printing its result line):
              × 8 microbatches, against the sequential stages; admit p50
              and items/s beside one process's, each rank's tally and
              launches (which join the kernels' counts).
+20. dry run — ``repro_torch.launch.dryrun`` on the ``meta`` device (no
+             allocation): (a) olmo_1b train_4k, mixtral_8x7b prefill_32k,
+             jamba_v01_52b decode_32k and rwkv6_7b long_500k on the 16×16
+             and 2×16×16 meshes, each ``ok`` with collectives, and their
+             ``dist.roofline`` table at the H100 datasheet rates; (b) the
+             one-card (1 × 1) prediction of phase 17's olmo_1b step
+             (B 8 × S 128, 2 microbatches) and phase 15's olmo_1b prefill
+             (B 64 × 128): each measured time >= the compute bound and
+             >= ``memory.args`` at the HBM rate, ``memory.args`` <= the
+             phase's ``max_memory_allocated``, measured ÷ ``bound_s``
+             printed; while ``chip_smoke.py --dryrun-child WORLD RANK DIR``
+             ranks (world 2 and world 4 at once, ``gloo`` on the card)
+             run (c) one live step of reduced olmo_1b (AdamW; Adafactor
+             with int8 compression) on (2, 1) and (2, 2) meshes, each
+             rank's tally equal to the same step's run on ``meta`` over
+             the mesh's shape (``train.sharded.step_on_meta``), and (d)
+             Adafactor at world 2 and on a (2, 2) mesh at world 4, and
+             at world 2 int8 compression, the chunked prefilter (a
+             (1, 2) mesh, table-sharded sketch) and a run that
+             checkpoints at steps 2 and 4, resumed from step 2 at world
+             2 and here at world 1, each against this process's run
+             (phase 19 (e)'s tolerances); the ranks' launches join the
+             kernels' counts.
 
 Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 19 (the post-mortem query a
+before each path of phases 3 to 7 and 9 to 20 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
 phases 15 and 16 before each measured generate; in phase 17 before each
 measured ``train``; in phase 18 in each serving host process, before
-its first chunk; in phase 19 in each rank, before each part)
-and read just
+its first chunk; in phase 19 in each rank, before each part; in phase
+20 in each rank, before each step or run) and read just
 after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
@@ -7014,18 +7037,19 @@ def spawn_ranks(world: int, root: Path) -> list:
     return procs
 
 
-def wait_ranks(procs: list, world: int, root: Path) -> None:
+def wait_ranks(procs: list, world: int, root: Path, phase: int = 19,
+               timeout: float = DI_TIMEOUT) -> None:
     t0 = time.monotonic()
     try:
         for r, p in enumerate(procs):
-            left = max(DI_TIMEOUT - (time.monotonic() - t0), 1.0)
+            left = max(timeout - (time.monotonic() - t0), 1.0)
             try:
                 rc = p.wait(timeout=left)
             except subprocess.TimeoutExpired:
                 rc = None
             if rc != 0:
                 print((root / f"w{world}_r{r}.log").read_text()[-4000:])
-            check(rc == 0, f"phase 19 rank {r} of {world} exited {rc}")
+            check(rc == 0, f"phase {phase} rank {r} of {world} exited {rc}")
     finally:
         for p in procs:
             if p.poll() is None:
@@ -7236,6 +7260,360 @@ def phase_dist(mods, device, card) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run (launch.dryrun, dist.roofline) on ``meta``, its
+# one-card prediction against phases 15 and 17, its planned collectives
+# against live ranks, and the training features a sharded run takes
+# ---------------------------------------------------------------------------
+
+DR_DIR = ROOT / "build" / "dryrun"
+DR_DEVICE = "cuda"                       # the ranks' device
+DR_TIMEOUT = 400                         # seconds the ranks may take
+DR_CELLS = (("olmo_1b", "train_4k"), ("mixtral_8x7b", "prefill_32k"),
+            ("jamba_v01_52b", "decode_32k"), ("rwkv6_7b", "long_500k"))
+DR_STEPS = 4                             # (d): each run's steps
+# (d): name -> (TrainConfig fields, (data, model) mesh, sketch layout)
+DR_FEATURES = {
+    "adafactor": (dict(optimizer="adafactor"), (2, 1), None),
+    "adafactor_2x2": (dict(optimizer="adafactor"), (2, 2), None),
+    "compression": (dict(grad_compression=True), (2, 1), None),
+    "chunked": (dict(filter_chunk=2), (1, 2), "table_sharded"),
+    "ckpt": (dict(grad_compression=True, ckpt_interval=2), (2, 1), None),
+}
+# (c): world -> the live steps held to the step on meta (TrainConfig fields,
+# layout)
+DR_PLANS = {2: ((dict(), None),
+                (dict(optimizer="adafactor", grad_compression=True), None)),
+            4: ((dict(), "table_sharded"),
+                (dict(optimizer="adafactor", grad_compression=True),
+                 "table_sharded"))}
+
+
+def dr_config(name=None, **kw):
+    """Reduced olmo_1b's TrainConfig of phase 19 (e), with a feature's
+    fields."""
+    fields = DR_FEATURES[name][0] if name else {}
+    return train_config(peak_lr=1e-3, total_steps=16, device=DR_DEVICE,
+                        **{**fields, **kw})
+
+
+def dr_specs(arch, mesh):
+    """``launch.train``'s specs: the mesh's rules, FSDP, divisibility."""
+    from repro_torch.dist import mesh as dm
+    from repro_torch.models.common import set_rules
+    set_rules(dm.rules_for(mesh))
+    shapes = arch.abstract_params()[0]
+    specs = dm.sharding_tree_for(
+        mesh, dm.fsdp_tree(arch.param_pspecs(), shapes, mesh), shapes)
+    set_rules({})
+    return specs
+
+
+def dr_stream(arch):
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    return DataStream(StreamConfig(vocab_size=arch.cfg.vocab_size,
+                                   seq_len=REDUCED_S, global_batch=REDUCED_B,
+                                   seed=SEED))
+
+
+def dr_run(name, mesh=None, steps=DR_STEPS, **kw):
+    """A feature's run of reduced olmo_1b: over ``mesh`` (this rank's
+    blocks, the feature's sketch layout) or on one process.  Returns
+    (state, history, specs or None)."""
+    from repro_torch.models import Arch
+    from repro_torch.train import sharded
+    from repro_torch.train.train_loop import init_train_state, train
+    arch = Arch("olmo_1b", reduced=True)
+    tcfg = dr_config(name, **kw)
+    if mesh is None:
+        state, hist = train(arch, tcfg, dr_stream(arch), steps, log_every=0)
+        return state, hist, None
+    layout = DR_FEATURES[name][2]
+    specs = dr_specs(arch, mesh)
+    state = sharded.shard_train_state(init_train_state(arch, tcfg), arch,
+                                      tcfg, mesh, specs, layout)
+    state, hist = train(arch, tcfg, dr_stream(arch), steps, log_every=0,
+                        state=state, mesh=mesh, grad_pspecs=specs,
+                        sketch_layout=layout)
+    return state, hist, specs
+
+
+def dr_params(state, specs=None, mesh=None) -> torch.Tensor:
+    from repro_torch.models.registry import leaves
+    from repro_torch.train import sharded
+    params = state.params if specs is None else sharded.gather_params(
+        state.params, specs, mesh)
+    return torch.cat([t.reshape(-1).float().cpu() for t in leaves(params)])
+
+
+def dryrun_child(world: int, rank: int, root: Path) -> int:
+    """One rank of phase 20, run as ``chip_smoke.py --dryrun-child WORLD
+    RANK DIR``: (c) one live step of each ``DR_PLANS[world]`` case with
+    its tally, and at world 2 (d) every ``DR_FEATURES`` run and the
+    checkpointed run resumed from its step 2; a JSON of launches, tallies
+    and histories and a ``.pt`` of gathered parameters under DIR."""
+    import torch.distributed as dist
+    mods = import_port()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from repro_torch.dist import collectives as col
+    from repro_torch.dist.mesh import make_debug_mesh
+    from repro_torch.kernels import build
+    from repro_torch.models import Arch
+    from repro_torch.train import sharded
+    from repro_torch.train import train_loop as tl
+    device = torch.device(DR_DEVICE)
+    if device.type == "cuda":
+        torch.cuda.set_device(0)
+        for name in build.sources():
+            build.load(name)
+    dist.init_process_group("gloo", init_method=f"file://{root}/init{world}",
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "world": world, "paths": {}, "tally": {},
+           "hist": {}}
+    tensors = {}
+
+    def part(name, fn):
+        reset_launches(mods)
+        res = fn()
+        out["paths"][f"dryrun_{name}_r{rank}"] = {
+            "launches": read_launches(mods)}
+        return res
+
+    def mesh_of(shape):
+        return make_debug_mesh(data=shape[0], model=shape[1],
+                               device_type=device.type)
+
+    try:
+        mesh = mesh_of((2, world // 2))
+        arch = Arch("olmo_1b", reduced=True)
+        specs = dr_specs(arch, mesh)
+        for i, (fields, layout) in enumerate(DR_PLANS[world]):
+            tcfg = dr_config(**fields)
+            state = sharded.shard_train_state(
+                tl.init_train_state(arch, tcfg), arch, tcfg, mesh, specs,
+                layout)
+            step = tl.make_train_step(arch, tcfg, specs, layout, mesh)
+            batch = tl._to_device({k: v for k, v in next(dr_stream(arch))
+                                   .items() if not k.startswith("_")},
+                                  device)
+            with col.tallied() as tally:
+                part(f"plan{i}", lambda: step(state, batch))
+            out["tally"][f"plan{i}"] = tally.snapshot()
+            del state, step
+        for name, (_, shape, _) in DR_FEATURES.items():
+            if shape[0] * shape[1] != world:
+                continue
+            m = mesh_of(shape)
+            kw = {"ckpt_dir": str(root / "ckpt")} if name == "ckpt" \
+                else {}
+            st, hist, sp = part(name, lambda: dr_run(name, m, **kw))
+            tensors[name] = dr_params(st, sp, m)
+            out["hist"][name] = hist
+        if world == 2:
+            resumed = root / "resumed_w2"
+            if rank == 0:
+                resumed.mkdir()
+                shutil.copytree(root / "ckpt" / f"step_{2:010d}",
+                                resumed / f"step_{2:010d}")
+            dist.barrier()
+            m = mesh_of(DR_FEATURES["ckpt"][1])
+            st, hist, sp = part("resumed", lambda: dr_run(
+                "ckpt", m, steps=DR_STEPS - 2, ckpt_dir=str(resumed)))
+            tensors["resumed"] = dr_params(st, sp, m)
+            out["hist"]["resumed"] = hist
+    finally:
+        dist.destroy_process_group()
+    torch.save(tensors, root / f"w{world}_r{rank}.pt")
+    (root / f"w{world}_r{rank}.json").write_text(json.dumps(out))
+    return 0
+
+
+def spawn_dryrun_ranks(world: int, root: Path) -> list:
+    procs = []
+    for r in range(world):
+        log = open(root / f"w{world}_r{r}.log", "w")
+        procs.append(subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--dryrun-child",
+             str(world), str(r), str(root)], stdout=log,
+            stderr=subprocess.STDOUT, cwd=str(ROOT)))
+    return procs
+
+
+def dr_agree(what, hist, params, want_hist, want_params, card) -> None:
+    """Phase 19 (e)'s tolerances: keep fractions and verdicts exact,
+    losses within rtol 1e-5, parameters within the summed lr and 99.9%
+    within 1e-6."""
+    for k in ("filter_keep_frac", "grad_anomaly"):
+        check([h.get(k) for h in hist] == [h.get(k) for h in want_hist],
+              f"{what}: {k} equal step for step")
+    loss_err = max(abs(a["loss"] - b["loss"]) / abs(b["loss"])
+                   for a, b in zip(hist, want_hist))
+    diffs = (params - want_params).abs()
+    lr_sum = sum(h["lr"] for h in want_hist)
+    share = float((diffs <= 1e-6).float().mean())
+    print(f"  {what}: loss rel err {loss_err:.3g}, params max abs "
+          f"{float(diffs.max()):.3g} ({share:.6f} within 1e-6) ({card})")
+    check(len(hist) == len(want_hist) and loss_err <= 1e-5,
+          f"{what}: losses within rtol 1e-5")
+    check(float(diffs.max()) <= lr_sum and share >= 0.999,
+          f"{what}: params within the summed lr, 99.9% within 1e-6")
+
+
+def dr_predictions(card, measured) -> None:
+    """(b): the dry run of phase 17's olmo_1b step and phase 15's olmo_1b
+    prefill on one card (a 1 × 1 mesh, float32 parameters as the card ran
+    them), against their measured times and peak memory."""
+    from repro_torch.dist import roofline as rf
+    from repro_torch.dist.mesh import MeshShape
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import ShapeSpec
+    one = MeshShape((1, 1), ("data", "model"))
+    arch = Arch("olmo_1b")
+    cells = (
+        ("phase 17 step (B 8 x S 128, 2 microbatches, AdamW)", dr.dry_run(
+            arch, ShapeSpec("train_b8_s128", TRAIN_S, TRAIN_B, "train"), one,
+            policy=dr.CellPolicy("adamw", 2),
+            tcfg=train_config(microbatches=2)),
+         measured["train_step_ms"], measured["train_peak"]),
+        ("phase 15 prefill (B 64 x 128)", dr.dry_run(
+            arch, ShapeSpec("prefill_b64_s128", SERVE_PROMPT, SERVE_B,
+                            "prefill"), one,
+            policy=dr.CellPolicy("adamw", 1)),
+         measured["prefill_ms"], measured["prefill_peak"]))
+    for what, cell, ms, peak in cells:
+        check(cell.ok, f"(b) olmo_1b {what}: dry run ok "
+              f"({(cell.error or '').splitlines()[:1]})")
+        row = rf.build_row(dataclasses.asdict(cell))
+        args = cell.memory["args"]
+        args_s = args / rf.HBM_BW
+        s = ms / 1e3
+        print(f"  (b) olmo_1b {what}: predicted flops {cell.flops:.6g}, "
+              f"bytes {cell.bytes_accessed:.6g}, compute_s "
+              f"{row.compute_s:.6g}, memory_s {row.memory_s:.6g}, bound_s "
+              f"{row.bound_s:.6g} ({row.dominant}), memory.args {args:,} B "
+              f"({args_s:.6g} s at HBM rate); measured {ms:.3f} ms = "
+              f"{s / row.bound_s:.3f} x bound_s, {s / row.compute_s:.2f} x "
+              f"compute_s; peak {peak:,} B ({card})")
+        check(s >= max(row.compute_s, args_s),
+              f"(b) olmo_1b {what}: measured {ms:.3f} ms >= the compute "
+              f"bound {1e3 * row.compute_s:.3f} ms and the state-bytes "
+              f"bound {1e3 * args_s:.3f} ms")
+        check(args <= peak, f"(b) olmo_1b {what}: memory.args {args:,} B <= "
+              f"max_memory_allocated {peak:,} B")
+
+
+def phase_dryrun(mods, device, card, measured) -> dict:
+    """Phase 20 (the module docstring).  The ranks (world 2 and world 4,
+    at once) start first; this process meanwhile runs (a) and (b) on
+    ``meta`` and the one-process runs of (d) on the card, then reads the
+    ranks' results."""
+    from repro_torch.dist import roofline as rf
+    from repro_torch.dist.mesh import MeshShape
+    from repro_torch.launch import dryrun as dr
+    from repro_torch.models import Arch
+    from repro_torch.train import sharded
+    shutil.rmtree(DR_DIR, ignore_errors=True)
+    DR_DIR.mkdir(parents=True)
+    groups = {w: spawn_dryrun_ranks(w, DR_DIR) for w in (2, 4)}
+    try:
+        t0 = time.perf_counter()
+        rows = []
+        for arch_name, shape_name in DR_CELLS:
+            for multi_pod in (False, True):
+                cell = dataclasses.asdict(dr.run_cell(arch_name, shape_name,
+                                                      multi_pod))
+                tag = f"{arch_name}__{shape_name}__{cell['mesh']}"
+                (DR_DIR / f"{tag}.json").write_text(json.dumps(cell))
+                check(cell["ok"] and cell["collectives"]["total_bytes"] > 0,
+                      f"(a) {tag} on meta: ok, "
+                      f"{cell['collectives']['total_bytes'] if cell['ok'] else 0:,.0f}"
+                      f" B of collectives a rank, {cell['seconds']} s"
+                      + ("" if cell["ok"] else f": {cell['error']}"))
+                rows.append(rf.build_row(cell))
+        print(f"  (a) {len(rows)} cells on meta in "
+              f"{time.perf_counter() - t0:.1f} s; roofline at H100 SXM5 "
+              f"datasheet rates ({rf.PEAK_FLOPS:.4g} FLOP/s bf16, "
+              f"{rf.HBM_BW:.4g} B/s HBM, {rf.INTERNODE_BW:.4g} B/s between "
+              f"nodes), beside this card ({card}):")
+        for line in rf.format_table(rows).splitlines():
+            print(f"  {line}")
+        dr_predictions(card, measured)
+        baselines = {name: dr_run(name) for name in DR_FEATURES}
+        arch = Arch("olmo_1b", reduced=True)
+        batch = {k: torch.empty(np.shape(v), dtype=torch.as_tensor(v).dtype,
+                                device="meta")
+                 for k, v in next(dr_stream(arch)).items()
+                 if not k.startswith("_")}
+        plans = {}
+        for world, cases in DR_PLANS.items():
+            mesh = MeshShape((2, world // 2), ("data", "model"))
+            specs = dr_specs(arch, mesh)
+            plans[world] = [sharded.step_on_meta(
+                arch, dr_config(**fields), specs, layout, mesh, batch)
+                for fields, layout in cases]
+        t1 = time.perf_counter()
+        for world, procs in groups.items():
+            wait_ranks(procs, world, DR_DIR, 20, DR_TIMEOUT)
+        print(f"  the ranks' results after {time.perf_counter() - t1:.1f} s "
+              "more")
+    finally:
+        for procs in groups.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+    res = {(w, r): (json.loads((DR_DIR / f"w{w}_r{r}.json").read_text()),
+                    torch.load(DR_DIR / f"w{w}_r{r}.pt"))
+           for w in (2, 4) for r in range(w)}
+    paths = {}
+    # (c) the step on meta against every rank's tally
+    for (w, r), (js, _) in res.items():
+        for i, plan in enumerate(plans[w]):
+            tally = js["tally"][f"plan{i}"]
+            fields, layout = DR_PLANS[w][i]
+            check(tally == plan, f"(c) world {w} rank {r}, "
+                  f"{fields or 'adamw'}, sketches {layout}: tally equals "
+                  f"the step's on meta by kind, bytes, calls and axis "
+                  f"({plan['total_bytes']:,} B: " + ", ".join(
+                      f"{k} {v['count']} x {v['bytes']:,} B"
+                      for k, v in plan.items() if isinstance(v, dict)
+                      and "count" in v) + ")")
+        for name, p in js["paths"].items():
+            part = name[len("dryrun_"):name.rindex("_r")]
+            launched = p["launches"]
+            check(all(launched[k] > 0 for k in ("srp_hash", "ace_query",
+                                                "ace_update")),
+                  f"(c)/(d) {part} rank {r} of {w}: srp_hash, "
+                  "ace_query_sum and ace_update launched")
+            total = paths.setdefault(f"dryrun_{part}_w{w}", {
+                "launches": dict.fromkeys(launched, 0)})["launches"]
+            for k, v in launched.items():
+                total[k] += v
+    # (d) the features at world 2 and 4 against one process
+    for name, (st, hist, _) in baselines.items():
+        shape = DR_FEATURES[name][1]
+        world = shape[0] * shape[1]
+        js, t = res[(world, 0)]
+        dr_agree(f"(d) {name} at world {world} {shape}, against one "
+                 "process", js["hist"][name], t[name], hist, dr_params(st),
+                 card)
+    js, t = res[(2, 0)]
+    one_st, one_hist, _ = baselines["ckpt"]
+    resumed = DR_DIR / "resumed_w1"
+    resumed.mkdir()
+    shutil.copytree(DR_DIR / "ckpt" / f"step_{2:010d}",
+                    resumed / f"step_{2:010d}")
+    st, hist, _ = dr_run("ckpt", steps=DR_STEPS - 2, ckpt_dir=str(resumed))
+    dr_agree("(d) world-2 checkpoint of step 2 resumed at world 2",
+             js["hist"]["resumed"], t["resumed"], one_hist[2:],
+             dr_params(one_st), card)
+    dr_agree("(d) world-2 checkpoint of step 2 resumed at world 1",
+             hist, dr_params(st), one_hist[2:], dr_params(one_st), card)
+    return paths
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7246,6 +7624,9 @@ def main() -> int:
     if sys.argv[1:2] == ["--dist-child"]:        # a phase-19 rank
         return dist_child(int(sys.argv[2]), int(sys.argv[3]),
                           Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--dryrun-child"]:      # a phase-20 rank
+        return dryrun_child(int(sys.argv[2]), int(sys.argv[3]),
+                            Path(sys.argv[4]))
     mods = import_port()
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash
@@ -7428,6 +7809,19 @@ def main() -> int:
     t19 = time.perf_counter()
     paths.update(phase_dist(mods, device, card))
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s")
+
+    print("phase 20: the dry run on meta (production cells, the roofline, "
+          "the one-card prediction against phases 15 and 17), the planned "
+          "collectives against gloo ranks' tallies, and Adafactor, "
+          "compression, the chunked prefilter and checkpoints at world 2")
+    t20 = time.perf_counter()
+    paths.update(phase_dryrun(mods, device, card, {
+        "train_step_ms": trained["train_olmo_microbatches"]["step_ms"],
+        "train_peak": trained["train_olmo_microbatches"][
+            "max_memory_allocated"],
+        "prefill_ms": paths["serve_olmo"]["prefill_ms"],
+        "prefill_peak": paths["serve_olmo"]["max_memory_allocated"]}))
+    print(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "

@@ -7,7 +7,7 @@ names (``core.srp``, ``core.sketch``, ``core.estimators``,
 ``data.synthetic``, ``window``, ``fleet``, ``quantile``,
 ``attribution``, ``stream``, ``serve.engine``, ``serve.frontend``,
 ``resilience``, ``train``, ``launch.train``, ``baselines``, ``models``,
-``configs``, ``cluster``, ``dist``).  It imports
+``configs``, ``cluster``, ``dist``, ``launch.dryrun``).  It imports
 neither JAX nor ``repro``: ``repro`` is the reference its tests hold it
 against, and only the tests import both.
 
@@ -48,7 +48,11 @@ restart and rollback; ``launch.train`` is its command line.
 mesh — replicated, table-sharded and tenant-sharded, behind
 ``Guardrail(mesh=…)`` and ``StreamRunner(mesh=…)`` — with GPipe and
 ZeRO-2 training (``make_train_step(grad_pspecs=…, sketch_layout=…)``,
-``launch.train --devices/--mesh``).
+``launch.train --devices/--mesh``, with every optimiser, int8
+compression, the chunked prefilter and checkpoints).  ``launch.dryrun``
+builds every (arch × shape) cell of the production meshes on the
+``meta`` device — per-rank bytes, flops, traffic and the planned
+collectives — and ``dist.roofline`` reads them against an H100's rates.
 ``cluster`` serves a fleet across hosts that fail: rendezvous-hashed
 tenants, heartbeats, CRC-framed gossip of each epoch's sketches over a
 ``torch.distributed`` ``TCPStore``, failover from a peer's gossip or
@@ -69,19 +73,9 @@ from __future__ import annotations
 
 import torch
 
-# ROADMAP.md queue 1 items that bring what the port leaves out so far.
-ROADMAP_QUEUE_1 = {
-    13: "the dry run of repro.dist: launch.dryrun, dist.roofline and "
-        "Arch.input_specs, cache_specs and all_cells",
-}
-
-
-def not_ported(feature: str, item: int):
-    """Raise NotImplementedError for a feature a later slice brings,
-    naming its ROADMAP.md queue item."""
-    raise NotImplementedError(
-        f"{feature} is not ported to repro_torch yet: ROADMAP.md queue 1 "
-        f"item {item} ({ROADMAP_QUEUE_1[item]})")
+# ROADMAP.md queue 1 items that bring what the port leaves out: none, the
+# port does all the reference does.
+ROADMAP_QUEUE_1: dict = {}
 
 
 def resolve_device(device=None) -> torch.device:

@@ -13,6 +13,7 @@
                                       entry points hand to
                                       ``kernels.ops`` under a mesh.
 * ``repro_torch.dist.pipeline``       GPipe over a ``pipe`` axis.
+* ``repro_torch.dist.roofline``       the dry run's three-term roofline.
 
 The reference runs each primitive in two modes: explicit ``shard_map``
 collectives, and jit/SPMD, where GSPMD places the state and inserts the
@@ -22,11 +23,12 @@ each rank runs its block, and the collectives are explicit calls of
 (``Guardrail(mesh=…)``, ``StreamRunner(mesh=…)``,
 ``make_train_step(sketch_layout=…)``) map onto that mode.
 
-Left out: ``repro.dist.hlo_analysis`` parses compiled HLO text, which a
-PyTorch program does not produce; ``collectives.TALLY`` counts the same
-bytes by kind as the calls run.  ``repro.dist.roofline``, with the dry
-run (``launch.dryrun``) it reads, is ROADMAP.md queue 1 item 13's
-remainder.
+``repro.dist.hlo_analysis`` parses compiled HLO text, which a PyTorch
+program does not produce: ``collectives.TALLY`` counts the same bytes by
+kind as the calls run, on a live mesh or, over a shape-only
+``MeshShape``, on ``meta`` without communicating.
+``repro_torch.dist.roofline`` reads the dry run's cells
+(``repro_torch.launch.dryrun``) at an H100's rates.
 """
 from repro_torch.dist import collectives, mesh, pipeline, sketch_parallel  # noqa: F401
 from repro_torch.dist.sketch_parallel import (  # noqa: F401

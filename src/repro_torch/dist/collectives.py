@@ -8,7 +8,15 @@ live ``DeviceMesh`` (an axis of size 1 is the identity and moves nothing)
 and adds to ``TALLY`` the bytes of its result — the per-rank payload, the
 quantity the reference's tally counts: an all-reduce its tensor, an
 all-gather its gathered output, a reduce-scatter its local block, a
-permute or a broadcast its tensor.
+permute or a broadcast its tensor (``call_bytes``).
+
+Over a shape-only ``MeshShape`` the wrappers take ``meta`` tensors: each
+call is tallied as on a live mesh (rank 0's view) and returns an empty
+tensor of its result's shape, and nothing is communicated.  The same
+program run that way — a sharded train step on ``meta``
+(``train.sharded.step_on_meta``), the dry run's cells
+(``launch.dryrun``) — gives its collectives call for call, which take
+the place of the reference's HLO analysis.
 
 The ``gloo`` backend stages CUDA tensors through the host for some
 collectives and refuses others.  Where it refuses (``GLOO_HOST_STAGED``,
@@ -22,11 +30,12 @@ from __future__ import annotations
 
 import collections
 import contextlib
+import math
 
 import torch
 import torch.distributed as dist
 
-from repro_torch.dist.mesh import axis_sizes
+from repro_torch.dist.mesh import MeshShape, axis_sizes
 
 # The collectives ``gloo`` does not run on CUDA tensors: on an H100 with
 # torch 2.11's gloo, all-reduce, all-gather, reduce-scatter, broadcast and
@@ -70,6 +79,18 @@ class Tally:
 TALLY = Tally()
 
 
+def call_bytes(kind: str, numel: int, itemsize: int, n: int) -> int:
+    """The bytes one call of ``kind`` adds to a tally, given its input's
+    element count and size and the ``n`` ranks of its axis: an all-gather
+    its gathered output, a reduce-scatter its block of the input, every
+    other kind its input."""
+    if kind == "all-gather":
+        return n * numel * itemsize
+    if kind == "reduce-scatter":
+        return numel // n * itemsize
+    return numel * itemsize
+
+
 @contextlib.contextmanager
 def tallied():
     """Reset the tally, yield it, and leave its counts in place."""
@@ -79,6 +100,18 @@ def tallied():
 
 def axis_size(mesh, axis: str) -> int:
     return axis_sizes(mesh).get(axis, 1)
+
+
+def shape_only(mesh, x: torch.Tensor) -> bool:
+    """True when ``mesh`` is a shape-only ``MeshShape``: the call is
+    tallied and nothing communicated.  Its tensors must lie on ``meta``
+    (a shape-only result holds no values)."""
+    if not isinstance(mesh, MeshShape):
+        return False
+    if x.device.type != "meta":
+        raise ValueError("a shape-only mesh runs on meta tensors, not on "
+                         f"{x.device}")
+    return True
 
 
 def _group(mesh, axis: str):
@@ -93,6 +126,12 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _add(kind: str, x: torch.Tensor, mesh, axis: str) -> None:
+    """Tally one call of ``kind`` on input ``x`` over ``axis``."""
+    TALLY.add(kind, call_bytes(kind, x.numel(), x.element_size(),
+                               axis_size(mesh, axis)), axis)
+
+
 def _staged(kind: str, group, x: torch.Tensor) -> bool:
     return (x.is_cuda and kind in GLOO_HOST_STAGED
             and dist.get_backend(group) == "gloo")
@@ -103,11 +142,11 @@ def all_reduce(x: torch.Tensor, mesh, axes, op=dist.ReduceOp.SUM
     """``x`` summed (``op``) over every rank of the named axes, in place;
     one call an axis of more than one rank.  Returns ``x``."""
     for axis in (axes,) if isinstance(axes, str) else tuple(axes):
-        g = _group(mesh, axis)
-        if g is None:
+        if mesh is None or axis_size(mesh, axis) == 1:
             continue
-        dist.all_reduce(x, op=op, group=g)
-        TALLY.add("all-reduce", _nbytes(x), axis)
+        if not shape_only(mesh, x):
+            dist.all_reduce(x, op=op, group=_group(mesh, axis))
+        _add("all-reduce", x, mesh, axis)
     return x
 
 
@@ -115,15 +154,15 @@ def all_gather(x: torch.Tensor, mesh, axis: str, dim: int = 0
                ) -> torch.Tensor:
     """The blocks of ``x`` of every rank of ``axis``, concatenated along
     ``dim`` in axis order."""
-    g = _group(mesh, axis)
-    if g is None:
+    if mesh is None or axis_size(mesh, axis) == 1:
         return x
     n = axis_size(mesh, axis)
     x = x.movedim(dim, 0).contiguous()
     out = torch.empty((n * x.shape[0],) + tuple(x.shape[1:]),
                       dtype=x.dtype, device=x.device)
-    dist.all_gather_into_tensor(out, x, group=g)
-    TALLY.add("all-gather", _nbytes(out), axis)
+    if not shape_only(mesh, x):
+        dist.all_gather_into_tensor(out, x, group=_group(mesh, axis))
+    _add("all-gather", x, mesh, axis)
     return out.movedim(0, dim)
 
 
@@ -131,15 +170,15 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str, dim: int = 0
                    ) -> torch.Tensor:
     """``x`` summed over the ranks of ``axis``; this rank keeps its block
     (chunk ``get_local_rank(axis)`` of ``dim``)."""
-    g = _group(mesh, axis)
-    if g is None:
+    if mesh is None or axis_size(mesh, axis) == 1:
         return x
     n = axis_size(mesh, axis)
     src = x.movedim(dim, 0).contiguous()
     out = torch.empty((src.shape[0] // n,) + tuple(src.shape[1:]),
                       dtype=src.dtype, device=src.device)
-    dist.reduce_scatter_tensor(out, src, group=g)
-    TALLY.add("reduce-scatter", _nbytes(out), axis)
+    if not shape_only(mesh, src):
+        dist.reduce_scatter_tensor(out, src, group=_group(mesh, axis))
+    _add("reduce-scatter", src, mesh, axis)
     return out.movedim(0, dim)
 
 
@@ -148,15 +187,25 @@ def broadcast(x: torch.Tensor, mesh=None, axis: str | None = None,
     """``x`` from rank ``src`` of ``axis`` (of the whole job when ``axis``
     is None) to every rank of it, in place."""
     if axis is None:
-        if not dist.is_initialized() or dist.get_world_size() == 1:
+        if mesh is not None and shape_only(mesh, x):
+            n = math.prod(axis_sizes(mesh).values())
+        elif dist.is_initialized():
+            n = dist.get_world_size()
+        else:
+            n = 1
+        if n == 1:
             return x
-        dist.broadcast(x, src=src)
-    else:
+        if not isinstance(mesh, MeshShape):
+            dist.broadcast(x, src=src)
+        TALLY.add("broadcast", call_bytes("broadcast", x.numel(),
+                                          x.element_size(), n), "*")
+        return x
+    if mesh is None or axis_size(mesh, axis) == 1:
+        return x
+    if not shape_only(mesh, x):
         g = _group(mesh, axis)
-        if g is None:
-            return x
         dist.broadcast(x, src=dist.get_global_rank(g, src), group=g)
-    TALLY.add("broadcast", _nbytes(x), axis or "*")
+    _add("broadcast", x, mesh, axis)
     return x
 
 
@@ -164,9 +213,12 @@ def permute(x: torch.Tensor, mesh, axis: str, shift: int = 1
             ) -> torch.Tensor:
     """The ring shift of ``axis``: rank i sends ``x`` to rank i + shift and
     returns what rank i − shift sent (modulo the axis size)."""
-    g = _group(mesh, axis)
-    if g is None:
+    if mesh is None or axis_size(mesh, axis) == 1:
         return x
+    if shape_only(mesh, x):
+        _add("collective-permute", x, mesh, axis)
+        return torch.empty_like(x)
+    g = _group(mesh, axis)
     n = axis_size(mesh, axis)
     i = mesh.get_local_rank(axis)
     src = x.contiguous()
@@ -181,5 +233,5 @@ def permute(x: torch.Tensor, mesh, axis: str, shift: int = 1
                       dist.get_global_rank(g, (i - shift) % n), g)]
     for work in dist.batch_isend_irecv(ops):
         work.wait()
-    TALLY.add("collective-permute", _nbytes(out), axis)
+    _add("collective-permute", src, mesh, axis)
     return out.to(x.device) if staged else out

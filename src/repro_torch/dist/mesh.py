@@ -50,10 +50,17 @@ P = PartitionSpec
 
 @dataclasses.dataclass(frozen=True)
 class MeshShape:
-    """A mesh by its shape alone: axis names and sizes, no ranks."""
+    """A mesh by its shape alone: axis names and sizes, no ranks.  It
+    stands for rank 0's view (``get_local_rank`` is 0 on every axis), so a
+    program run on ``meta`` tensors against it takes rank 0's blocks, and
+    ``repro_torch.dist.collectives`` tallies its calls without
+    communicating."""
 
     shape: tuple
     axis_names: tuple
+
+    def get_local_rank(self, axis: str) -> int:
+        return 0
 
 
 def axis_sizes(mesh) -> dict:
@@ -296,6 +303,23 @@ def local_shape(shape: tuple, ps, mesh) -> tuple:
     out = list(shape)
     for i, entry in enumerate(ps):
         out[i] //= _entry_size(entry, sizes) if entry is not None else 1
+    return tuple(out)
+
+
+def split_axes(ps, dim: int, mesh) -> tuple:
+    """The axes of more than one rank that split dim ``dim`` under ``ps``
+    (a dim past the spec's end is never split)."""
+    sizes = axis_sizes(mesh)
+    entry = ps[dim] if dim < len(ps) else None
+    return tuple(a for a in dim_axes(entry) if sizes.get(a, 1) > 1)
+
+
+def global_shape(shape: tuple, ps, mesh) -> tuple:
+    """The global shape whose block under ``ps`` has ``shape``."""
+    sizes = axis_sizes(mesh)
+    out = list(shape)
+    for i, entry in enumerate(ps):
+        out[i] *= _entry_size(entry, sizes) if entry is not None else 1
     return tuple(out)
 
 

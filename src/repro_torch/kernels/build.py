@@ -20,6 +20,7 @@ tensors alone.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -126,14 +127,35 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
+_shapes = threading.local()
+
+
+@contextlib.contextmanager
+def plain_on_meta():
+    """Within it, ``meta`` tensors take the plain versions (shapes only:
+    nothing is computed and no kernel launches), so a program can run on
+    ``meta`` for its shapes, costs and collectives
+    (``train.sharded.step_on_meta``).  Outside it a wrapper refuses
+    ``meta``."""
+    before = getattr(_shapes, "on", False)
+    _shapes.on = True
+    try:
+        yield
+    finally:
+        _shapes.on = before
+
+
 def on_cpu(*tensors: torch.Tensor) -> bool:
     """Where a wrapper runs: True when every tensor lies on the CPU (take
-    the plain version), False when all lie on one CUDA device (launch the
-    kernel).  Raises for anything else: mixed devices or another backend."""
+    the plain version), or on ``meta`` within ``plain_on_meta``; False when
+    all lie on one CUDA device (launch the kernel).  Raises for anything
+    else: mixed devices or another backend."""
     devices = {t.device for t in tensors}
     if len(devices) != 1:
         raise ValueError(f"operands on different devices: {sorted(map(str, devices))}")
     device = devices.pop()
+    if device.type == "meta" and getattr(_shapes, "on", False):
+        return True
     if device.type not in ("cpu", "cuda"):
         raise ValueError(f"no repro_torch kernel for device {device}")
     return device.type == "cpu"

@@ -3,7 +3,8 @@ mesh of ranks.  Port of ``repro.launch.train``.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b \
         --reduced --steps 100 [--device cpu] [--devices 4 --mesh 2x2] \
-        [--ckpt DIR]
+        [--ckpt-dir DIR] [--optimizer adafactor] [--grad-compression] \
+        [--filter-chunk T]
 
 Runs on the card unless ``--device cpu``.  ``--devices N`` spawns N
 processes joined by the ``gloo`` backend (where the reference forces N
@@ -13,7 +14,10 @@ trains its blocks: parameters and optimiser state split by the logical
 rules of the mesh (``dist.mesh.rules_for``) plus FSDP over ``data``,
 gradients reduce-scattered onto that layout (ZeRO-2,
 ``train.sharded``); the filter's and the monitor's sketches stay whole on
-every rank.  Rank 0 logs and prints the result.  As in the
+every rank.  Every option runs under a mesh as on one device: Adafactor,
+int8 compression, the chunked prefilter and checkpoints (gathered whole
+and saved by rank 0, so a run at any world size resumes them).  Rank 0
+logs and prints the result.  As in the
 reference, a model fed frame embeddings (whisper) trains with the data
 filter off: its loss ignores the loss mask the filter writes.
 """
@@ -34,6 +38,8 @@ def _run(args, mesh=None) -> None:
         microbatches=args.microbatches,
         use_data_filter=not args.no_filter and arch.cfg.input_mode == "tokens",
         use_grad_monitor=not args.no_monitor,
+        grad_compression=args.grad_compression,
+        filter_chunk=args.filter_chunk,
         ckpt_dir=args.ckpt, ckpt_interval=max(args.steps // 5, 10),
         device=args.device)
     scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=args.seq,
@@ -94,7 +100,9 @@ def main(argv=None) -> None:
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--optimizer", default="adamw")
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--ckpt", default=None)
+    ap.add_argument("--ckpt", "--ckpt-dir", dest="ckpt", default=None)
+    ap.add_argument("--grad-compression", action="store_true")
+    ap.add_argument("--filter-chunk", type=int, default=0)
     ap.add_argument("--no-filter", action="store_true")
     ap.add_argument("--no-monitor", action="store_true")
     ap.add_argument("--device", default="cuda")

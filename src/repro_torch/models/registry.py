@@ -1,8 +1,13 @@
 """Arch registry: an architecture's name -> its config and model functions
 (``models.transformer`` for the decoder-only LMs, ``models.whisper`` for
-the encoder-decoder).  Port of ``repro.models.registry``; the dry run's
-``input_specs``, ``cache_specs`` and ``all_cells`` come with
-``launch.dryrun`` (ROADMAP.md queue 1 item 13) and raise until then.
+the encoder-decoder), and the dry run's cells.  Port of
+``repro.models.registry``.
+
+``input_specs``, ``decode_pos_spec`` and ``cache_specs`` build every
+input of a (train | prefill | decode) step as tensors on the ``meta``
+device, the counterpart of the reference's ``jax.ShapeDtypeStruct``:
+the reference's shapes and dtypes, nothing allocated.  ``all_cells`` is
+the dry run's list of (arch, shape) cells.
 """
 from __future__ import annotations
 
@@ -10,8 +15,8 @@ import dataclasses
 
 import torch
 
-from repro_torch import not_ported, resolve_device
-from repro_torch.configs import ALIASES, get_config
+from repro_torch import resolve_device
+from repro_torch.configs import ALIASES, get_config, list_archs
 from repro_torch.models import transformer as tf
 from repro_torch.models import whisper as wh
 from repro_torch.models.common import ModelConfig
@@ -41,6 +46,9 @@ LONG_CONTEXT_SKIP = {
     "qwen2_vl_7b": "pure full attention",
     "whisper_tiny": "full-attention decoder; 500k beyond positional design",
 }
+
+
+META = torch.device("meta")
 
 
 def is_whisper(cfg: ModelConfig) -> bool:
@@ -108,11 +116,69 @@ class Arch:
         ones of ``models.common.set_rules`` by default)."""
         return self.mod.param_pspecs(self.cfg, rules)
 
-    def input_specs(self, shape, batch_override=None):
-        not_ported("Arch.input_specs (the dry run's abstract inputs)", 13)
+    # ---- dry-run input specs ---------------------------------------------
+    def input_specs(self, shape: ShapeSpec, batch_override: int | None = None
+                    ) -> dict:
+        """Every model input of a ``shape.kind`` step, on ``meta``: tokens,
+        labels and positions int32, embeddings in ``cfg.adtype``."""
+        cfg = self.cfg
+        B = batch_override or shape.global_batch
+        S = shape.seq_len
 
-    def cache_specs(self, shape, batch_override=None):
-        not_ported("Arch.cache_specs (the dry run's abstract cache)", 13)
+        def spec(shape_, dtype=torch.int32):
+            return torch.empty(shape_, dtype=dtype, device=META)
+
+        if is_whisper(cfg):
+            enc = spec((B, cfg.encoder_seq, cfg.d_model), cfg.adtype)
+            if shape.kind == "train":
+                return {"embeds": enc, "tokens": spec((B, S)),
+                        "labels": spec((B, S))}
+            if shape.kind == "prefill":
+                return {"embeds": enc, "tokens": spec((B, S))}
+            return {"tokens": spec((B, 1))}
+
+        if cfg.input_mode == "embeds":   # qwen2-vl backbone
+            if shape.kind == "decode":
+                out = {"embeds": spec((B, 1, cfg.d_model), cfg.adtype)}
+                if cfg.mrope_sections:
+                    out["positions"] = spec((3, B, 1))
+                return out
+            out = {"embeds": spec((B, S, cfg.d_model), cfg.adtype)}
+            if cfg.mrope_sections:
+                out["positions"] = spec((3, B, S))
+            if shape.kind == "train":
+                out["labels"] = spec((B, S))
+            return out
+
+        if shape.kind == "decode":
+            return {"tokens": spec((B, 1))}
+        out = {"tokens": spec((B, S))}
+        if shape.kind == "train":
+            out["labels"] = spec((B, S))
+        return out
+
+    def decode_pos_spec(self, shape: ShapeSpec,
+                        batch_override: int | None = None) -> torch.Tensor:
+        """A decode step's positions on ``meta``: (3, B) under M-RoPE, else
+        (B,), int32."""
+        B = batch_override or shape.global_batch
+        dims = (3, B) if self.cfg.mrope_sections is not None else (B,)
+        return torch.empty(dims, dtype=torch.int32, device=META)
+
+    def cache_specs(self, shape: ShapeSpec,
+                    batch_override: int | None = None):
+        """The decode cache of ``shape`` (``seq_len`` slots) built by
+        ``init_cache`` on ``meta``: shapes and dtypes, nothing
+        allocated."""
+        B = batch_override or shape.global_batch
+        return self.mod.init_cache(self.cfg, B, shape.seq_len, META)
+
+    def cache_pspecs(self, long_context: bool = False, rules=None):
+        """PartitionSpec tree of ``cache_specs``' cache."""
+        if is_whisper(self.cfg):
+            return wh.cache_pspecs(self.cfg, rules)
+        return tf.cache_pspecs(self.cfg, long_context=long_context,
+                               rules=rules)
 
     # ---- analytics ---------------------------------------------------------
     def _shapes(self) -> dict:
@@ -177,5 +243,12 @@ def unflatten(tree, values):
 
 
 def all_cells(include_skipped: bool = False):
-    """Every (arch × shape) cell of the dry run."""
-    not_ported("all_cells (the dry run's cells)", 13)
+    """Every (arch × shape) cell of the dry run (40 with the skipped
+    ones), in the reference's order."""
+    out = []
+    for arch_name in list_archs():
+        a = Arch(arch_name)
+        for sname in SHAPES:
+            if a.supports(sname) or include_skipped:
+                out.append((arch_name, sname))
+    return out

@@ -26,8 +26,8 @@ from repro_torch.models import mamba as mb
 from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import rwkv6 as rw
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
-                                       module_axes, pspec_tree,
-                                       init_norm, softcap)
+                                       logical_to_pspec, module_axes,
+                                       pspec_tree, init_norm, softcap)
 
 ATTENTION_KINDS = ("attn", "swa")
 
@@ -363,6 +363,34 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int, device) -> list:
         if kind == "rwkv":
             st = rw.init_rwkv_state(cfg, batch, cdt, device)
             return (st.x_prev_att, st.wkv, st.x_prev_ffn)
+        raise ValueError(f"unknown layer kind {kind!r}")
+
+    return [[entry(kind) for kind in cfg.block_pattern]
+            for _ in range(cfg.num_superblocks)]
+
+
+def cache_pspecs(cfg: ModelConfig, long_context: bool = False, rules=None):
+    """PartitionSpecs of the cache, ``[r][i]`` as ``init_cache``'s: the
+    batch on (pod, data); for batch-1 long context the attention cache
+    splits its SEQUENCE axis over the data axes instead (context
+    parallelism).  The reference's specs without their leading (never
+    split) ``"layers"`` entry: the port holds a layer's cache per
+    layer."""
+    kv = logical_to_pspec(
+        (None if long_context else "batch", "cache_seq", "kv_heads",
+         "head_dim"), rules)
+
+    def entry(kind):
+        if kind in ATTENTION_KINDS:
+            return attn.KVCache(kv, kv)
+        if kind == "mamba":
+            return mb.MambaState(
+                conv=logical_to_pspec(("batch", None, "ff"), rules),
+                ssm=logical_to_pspec(("batch", "ff", None), rules))
+        if kind == "rwkv":
+            x = logical_to_pspec(("batch", "embed"), rules)
+            return (x, logical_to_pspec(("batch", "heads", None, None),
+                                        rules), x)
         raise ValueError(f"unknown layer kind {kind!r}")
 
     return [[entry(kind) for kind in cfg.block_pattern]

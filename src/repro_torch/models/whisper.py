@@ -25,8 +25,9 @@ import torch.nn.functional as F
 from repro_torch.models import attention as attn
 from repro_torch.models.transformer import token_nll
 from repro_torch.models.common import (ModelConfig, apply_norm, dense_init,
-                                       module_axes, pspec_tree,
-                                       init_norm, sinusoidal_positions)
+                                       logical_to_pspec, module_axes,
+                                       pspec_tree, init_norm,
+                                       sinusoidal_positions)
 
 
 def _init_gelu_mlp(cfg: ModelConfig, generator, device) -> dict:
@@ -194,6 +195,31 @@ class WhisperCache(NamedTuple):
     self_kv: list           # a KVCache (B, S_max, H, Dh) a decoder layer
     cross_k: list           # (B, T_enc, H, Dh) a decoder layer
     cross_v: list
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device) -> WhisperCache:
+    """A zero decoder cache in the activation dtype: ``s_max`` self-attention
+    slots and the ``encoder_seq`` cross K/V a decoder layer."""
+    def kv(s):
+        return torch.zeros((batch, s, cfg.num_kv_heads, cfg.head_dim),
+                           dtype=cfg.adtype, device=device)
+    L = cfg.num_layers
+    return WhisperCache(
+        self_kv=[attn.KVCache(kv(s_max), kv(s_max)) for _ in range(L)],
+        cross_k=[kv(cfg.encoder_seq) for _ in range(L)],
+        cross_v=[kv(cfg.encoder_seq) for _ in range(L)])
+
+
+def cache_pspecs(cfg: ModelConfig, rules=None) -> WhisperCache:
+    """PartitionSpecs of ``init_cache``'s tree: every K/V split as the
+    reference's dry run splits them (batch, cache_seq, kv_heads,
+    head_dim), without its leading layers entry."""
+    kv = logical_to_pspec(("batch", "cache_seq", "kv_heads", "head_dim"),
+                          rules)
+    L = cfg.num_layers
+    return WhisperCache(self_kv=[attn.KVCache(kv, kv) for _ in range(L)],
+                        cross_k=[kv] * L, cross_v=[kv] * L)
 
 
 def prefill(params, batch, cfg: ModelConfig, s_max: int | None = None):

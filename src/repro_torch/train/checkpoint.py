@@ -20,8 +20,10 @@ restores what the other saved.
   ``CheckpointManager.restore_latest`` falls back to the newest intact
   step.
 * ``restore`` places each leaf on the device and in the dtype of the
-  matching leaf of ``like_tree``; resharding onto a mesh comes with
-  ROADMAP.md queue 1 item 13.
+  matching leaf of ``like_tree``; with ``specs`` and a ``mesh`` (the
+  counterpart of the reference's ``shardings=``) each leaf is cut to this
+  rank's block (``dist.mesh.local_block``), whatever world size saved
+  it: a checkpoint always holds whole leaves.
 """
 from __future__ import annotations
 
@@ -174,10 +176,36 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def restore(ckpt_dir: str, step: int, like_tree):
+def _spec_leaves(like, specs) -> list:
+    """The spec of each leaf of ``like``, in ``_flatten_with_names``'
+    order, from ``specs``, a tree of ``like``'s structure with a
+    ``PartitionSpec`` at each tensor."""
+    out = []
+
+    def walk(node, spec):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], spec[k])
+        elif isinstance(node, (list, tuple)):
+            for v, sp in zip(node, spec):
+                walk(v, sp)
+        else:
+            out.append(spec)
+    walk(like, specs)
+    return out
+
+
+def restore(ckpt_dir: str, step: int, like_tree, specs=None, mesh=None):
     """Load a checkpoint into the structure of ``like_tree``; each leaf
     takes the dtype and device of its ``like_tree`` leaf.  Returns
     ``(tree, manifest)``.
+
+    With ``specs`` (a ``PartitionSpec`` at each tensor of ``like_tree``'s
+    structure) and a live ``mesh``,
+    ``like_tree`` holds this rank's blocks and so does the result: each
+    whole leaf of the checkpoint is cut to its block under its spec.
 
     Raises ``CheckpointCorruptError`` when the npz is torn or unreadable
     or any leaf's CRC32 disagrees with the manifest (a manifest without
@@ -207,13 +235,21 @@ def restore(ckpt_dir: str, step: int, like_tree):
     if names != manifest["names"]:
         raise ValueError("checkpoint tree mismatch: "
                          f"{set(names) ^ set(manifest['names'])}")
+    per_leaf = (_spec_leaves(like_tree, specs) if mesh is not None
+                else [None] * len(like_leaves))
     leaves = []
-    for arr, like in zip(arrays, like_leaves):
-        if tuple(arr.shape) != tuple(like.shape):
+    for arr, like, ps in zip(arrays, like_leaves, per_leaf):
+        whole = torch.from_numpy(np.array(arr))
+        if ps is not None:
+            from repro_torch.dist.mesh import local_block, local_shape
+            if local_shape(arr.shape, ps, mesh) != tuple(like.shape):
+                raise ValueError(f"shape mismatch: {arr.shape} under {ps} "
+                                 f"is not the block {tuple(like.shape)}")
+            whole = local_block(whole, ps, mesh)
+        elif tuple(arr.shape) != tuple(like.shape):
             raise ValueError(f"shape mismatch {arr.shape} vs "
                              f"{tuple(like.shape)}")
-        leaves.append(torch.from_numpy(np.array(arr)).to(device=like.device,
-                                                         dtype=like.dtype))
+        leaves.append(whole.to(device=like.device, dtype=like.dtype))
     return _unflatten(like_tree, iter(leaves)), manifest
 
 
@@ -229,13 +265,14 @@ class CheckpointManager:
             return None
         return save(self.ckpt_dir, step, tree, extra=extra, keep=self.keep)
 
-    def restore_latest(self, like_tree):
-        """Restore the newest intact checkpoint: steps are tried newest
-        first, and one that fails verification (``CheckpointCorruptError``)
-        is skipped.  Returns ``(None, None)`` when none is intact."""
+    def restore_latest(self, like_tree, specs=None, mesh=None):
+        """Restore the newest intact checkpoint (onto ``mesh``'s blocks by
+        ``specs``, as ``restore``): steps are tried newest first, and one
+        that fails verification (``CheckpointCorruptError``) is skipped.
+        Returns ``(None, None)`` when none is intact."""
         for step in reversed(all_steps(self.ckpt_dir)):
             try:
-                return restore(self.ckpt_dir, step, like_tree)
+                return restore(self.ckpt_dir, step, like_tree, specs, mesh)
             except CheckpointCorruptError:
                 continue
         return None, None

@@ -24,9 +24,13 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.dist import collectives as col
+from repro_torch.dist.mesh import global_shape, local_block
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.registry import leaves, tree_map, unflatten
+from repro_torch.train.optim import leaf_axes
 from repro_torch.train.schedule import scalar_div
 
 F32 = torch.float32
@@ -48,10 +52,14 @@ def uniform_noise(shape, generator: torch.Generator) -> torch.Tensor:
                       device=generator.device) - 0.5
 
 
-def int8_scale(parts) -> torch.Tensor:
-    """max(max |x| over every part, 1e-12) / 127: one leaf's scale."""
-    amax = torch.stack([torch.max(torch.abs(x)) for x in parts])
-    return scalar_div(torch.clamp_min(torch.max(amax), 1e-12), 127.0)
+def int8_scale(parts, mesh=None, axes=()) -> torch.Tensor:
+    """max(max |x| over every part, 1e-12) / 127: one leaf's scale; the
+    largest magnitude all-reduced (max) over ``axes`` of ``mesh``, the
+    axes that split the leaf, when its parts are blocks."""
+    amax = torch.max(torch.stack([torch.max(torch.abs(x)) for x in parts]))
+    if axes:
+        amax = col.all_reduce(amax, mesh, axes, op=dist.ReduceOp.MAX)
+    return scalar_div(torch.clamp_min(amax, 1e-12), 127.0)
 
 
 def quantise_int8(x: torch.Tensor, noise: torch.Tensor,
@@ -69,16 +77,30 @@ def dequantise_int8(q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return q.to(F32) * scale
 
 
-def compress_grads_with_ef(grads, ef: EfState, generator: torch.Generator):
+def compress_grads_with_ef(grads, ef: EfState, generator: torch.Generator,
+                           mesh=None, specs=None):
     """Returns (quantised tree, scales tree, new EfState).
 
-    The residual (what int8 could not represent) feeds back next step."""
+    The residual (what int8 could not represent) feeds back next step.
+    With a ``mesh`` the trees are this rank's blocks under ``specs`` (the
+    module docstring)."""
     qs, scales, new_res = {}, {}, {}
-    for gl, rl in zip(reference_leaves(grads), reference_leaves(ef.residual)):
+    refs = reference_leaves(specs) if mesh is not None else None
+    for i, (gl, rl) in enumerate(zip(reference_leaves(grads),
+                                     reference_leaves(ef.residual))):
         corrected = [g.to(F32) + r for g, r in zip(gl.parts, rl.parts)]
-        scale = int8_scale(corrected)
+        ps = refs[i].parts[0] if refs is not None else None
+        axes = () if ps is None else leaf_axes(refs[i], mesh)
+        scale = int8_scale(corrected, mesh, axes)
         for g, c in zip(gl.parts, corrected):
-            q, _ = quantise_int8(c, uniform_noise(c.shape, generator), scale)
+            if c.is_meta:                   # shapes only: no draw
+                noise = torch.empty_like(c)
+            elif axes:
+                noise = local_block(uniform_noise(
+                    global_shape(c.shape, ps, mesh), generator), ps, mesh)
+            else:
+                noise = uniform_noise(c.shape, generator)
+            q, _ = quantise_int8(c, noise, scale)
             qs[id(g)], scales[id(g)] = q, scale
             new_res[id(g)] = c - dequantise_int8(q, scale)
     order = [id(g) for g in leaves(grads)]

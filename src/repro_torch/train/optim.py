@@ -26,16 +26,20 @@ as the reference does (its moments are held in that layout).
 Implemented: SGD (+momentum, Nesterov), AdamW (decoupled decay), Adafactor
 (factored second moments for leaves of rank >= 2).  ``state_pspecs``
 gives the state's ``repro_torch.dist.mesh.PartitionSpec`` tree from the
-parameters', as the reference's does; Sgd and AdamW update a rank's
-blocks of a sharded state leaf by leaf as they update whole tensors.
+parameters', as the reference's does.  Under a mesh (``train.sharded``)
+Sgd and AdamW update a rank's blocks leaf by leaf as they update whole
+tensors; Adafactor's ``update(mesh=, specs=)`` all-reduces each
+whole-leaf statistic over the axes that split it.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 
-from repro_torch.dist.mesh import P
+from repro_torch.dist import collectives as col
+from repro_torch.dist.mesh import P, axis_sizes, split_axes
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.registry import leaves, tree_map
 from repro_torch.train.schedule import scalar_div
@@ -202,19 +206,34 @@ class Adafactor:
         return {"slots": [per_leaf(leaf)
                           for leaf in reference_leaves(param_pspecs)]}
 
-    def update(self, params, grads, state, step, lr, skip=None):
+    def update(self, params, grads, state, step, lr, skip=None, *,
+               mesh=None, specs=None):
+        """One step.  Under a ``mesh`` the trees hold this rank's blocks
+        of the leaves, laid out by ``specs`` (the parameters' spec tree),
+        and each whole-leaf statistic is all-reduced over the axes that
+        split the dims it reduces: the factored row and column means and
+        the mean of ``vr`` (their partial means summed, ÷ the number of
+        blocks), and the update clip's Σu² with its element count.  An
+        unsplit leaf takes no collective and the single card's sums."""
         t = _t32(step) + 1.0
         beta2 = 1.0 - t ** (-self.decay_pow)
-        for pl, gl, slot in zip(reference_leaves(params),
-                                reference_leaves(grads), state["slots"]):
+        refs = (reference_leaves(specs) if mesh is not None
+                else [None] * len(state["slots"]))
+        for pl, gl, slot, sl in zip(reference_leaves(params),
+                                    reference_leaves(grads), state["slots"],
+                                    refs):
             p, g = _stacked(pl), _stacked(gl).to(F32)
+            split = split_dims(sl, p.dim(), mesh)
             g2 = g * g + self.eps
             if self._factored(p.shape):
-                vr = beta2 * slot["vr"] + (1 - beta2) * torch.mean(g2, -1)
-                vc = beta2 * slot["vc"] + (1 - beta2) * torch.mean(g2, -2)
+                vr = beta2 * slot["vr"] + (1 - beta2) * _mean(
+                    g2, -1, split[-1], mesh)
+                vc = beta2 * slot["vc"] + (1 - beta2) * _mean(
+                    g2, -2, split[-2], mesh)
                 denom = torch.sqrt(
                     vr[..., :, None] * vc[..., None, :]
-                    / (torch.mean(vr, -1, keepdim=True)[..., None] + 1e-30))
+                    / (_mean(vr, -1, split[-2], mesh, keepdim=True)
+                       [..., None] + 1e-30))
                 u = g / (denom + 1e-30)
                 new_slot = {"vr": vr, "vc": vc}
             else:
@@ -222,7 +241,17 @@ class Adafactor:
                 u = g / (torch.sqrt(v) + 1e-30)
                 new_slot = {"v": v}
             # update clipping (RMS <= threshold)
-            rms = torch.sqrt(torch.mean(u * u) + 1e-30)
+            every = leaf_axes(sl, mesh) if sl is not None else ()
+            if every:
+                # Σu² and the element count over every block of the leaf
+                tot = col.all_reduce(torch.stack(
+                    [torch.sum(u * u).to(torch.float64),
+                     torch.tensor(float(u.numel()), dtype=torch.float64,
+                                  device=u.device)]), mesh, every)
+                ms = (tot[0] / tot[1]).to(F32)
+            else:
+                ms = torch.mean(u * u)
+            rms = torch.sqrt(ms + 1e-30)
             u = u / torch.clamp_min(scalar_div(rms, self.clip_threshold),
                                     1.0)
             p32 = p.to(F32)
@@ -237,6 +266,37 @@ class Adafactor:
             else:
                 _write(pl.parts[0], new_p, skip)
         return params, state
+
+
+def split_dims(ref_spec, rank: int, mesh) -> list:
+    """Per dim of a reference leaf of ``rank`` dims, the mesh axes of more
+    than one rank that split it (none off a mesh): its parts' spec behind
+    the stacked leaf's unsplit leading entry."""
+    if ref_spec is None:
+        return [()] * rank
+    entries = P(*(((None,) if ref_spec.stacked else ())
+                  + tuple(ref_spec.parts[0])))
+    return [split_axes(entries, d, mesh) for d in range(rank)]
+
+
+def leaf_axes(ref_spec, mesh) -> tuple:
+    """Every axis of more than one rank that splits a reference leaf."""
+    ps = ref_spec.parts[0]
+    return tuple(dict.fromkeys(a for d in range(len(ps))
+                               for a in split_axes(ps, d, mesh)))
+
+
+def _mean(x: torch.Tensor, dim: int, axes: tuple, mesh,
+          keepdim: bool = False) -> torch.Tensor:
+    """The mean over dim ``dim`` of the whole leaf of block ``x``: the
+    block's mean, and where ``axes`` split that dim the blocks' means
+    summed over them ÷ their count (equal blocks)."""
+    m = torch.mean(x, dim, keepdim=keepdim)
+    if not axes:
+        return m
+    sizes = axis_sizes(mesh)
+    return scalar_div(col.all_reduce(m, mesh, axes),
+                      math.prod(sizes[a] for a in axes))
 
 
 def make_optimizer(name: str, **kw):

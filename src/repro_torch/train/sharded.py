@@ -27,45 +27,49 @@ the collectives; here every rank runs them explicitly
 * gradients are reduce-scattered over the batch axes onto the layout
   (all-reduced where a leaf is whole on a batch axis), sliced on the
   model axes, clipped by the norm summed over the ranks, fed to the
-  gradient monitor through their per-leaf squared norms, and applied to
-  the local blocks by the optimiser (Sgd and AdamW, elementwise);
+  int8-compressed with error feedback (``train.compression``: each
+  leaf's scale all-reduced (max), the whole leaf's noise drawn on every
+  rank), fed to the gradient monitor through their per-leaf squared
+  norms, and applied to the local blocks by the optimiser (Sgd and AdamW
+  elementwise; Adafactor all-reduces its factored means and its update
+  clip's Σu² over the axes that split a leaf, ``train.optim``);
 * ``sketch_layout`` places the data filter's and the gradient monitor's
   sketches (``ShardedSketch``); None keeps them whole on every rank, on
-  the single-card kernels.
+  the single-card kernels.  With ``filter_chunk > 1`` the filter runs
+  outside the step, as ``train``'s chunked prefilter;
+* ``state_specs`` lays out a whole ``TrainState``: ``gather_state``
+  gathers it whole for a checkpoint (saved from rank 0 in the unsharded
+  format, so any world size restores it) and ``train.checkpoint.restore
+  (specs=, mesh=)`` takes each rank's blocks back.
 
-Left out under a mesh: Adafactor (its factored moments reduce across the
-leaf), int8 compression (its per-leaf scale), the chunked prefilter and
-checkpoints.
+``step_on_meta`` runs the same step on ``meta`` against a shape-only
+mesh: its collectives are tallied and not run, so a live step's
+``collectives.TALLY`` equals them by construction, and the dry run
+(``launch.dryrun``) counts its flops and bytes there too.
 """
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import math
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.dist import collectives as col
-from repro_torch.dist.mesh import (P, axis_names, axis_sizes, dim_axes,
-                                   local_block, map_specs)
+from repro_torch.dist.mesh import (MeshShape, P, axis_names, axis_sizes,
+                                   dim_axes, is_spec, local_block,
+                                   local_shape, map_specs)
 from repro_torch.dist.sketch_parallel import ShardedSketch, gather_block
 from repro_torch.models.convert import reference_leaves
 from repro_torch.models.registry import is_whisper, leaves, unflatten
+from repro_torch.train.compression import (compress_grads_with_ef,
+                                           decompress_grads)
 from repro_torch.train.optim import make_optimizer
 from repro_torch.train.schedule import CosineSchedule, scalar_div
 from repro_torch.window import ring
 
 F32 = torch.float32
-
-
-def check_supported(tcfg) -> None:
-    if tcfg.optimizer == "adafactor":
-        raise NotImplementedError(
-            "Adafactor under a mesh: its factored moments reduce across a "
-            "leaf's blocks; use sgd or adamw")
-    if tcfg.grad_compression:
-        raise NotImplementedError(
-            "int8 gradient compression under a mesh (its per-leaf scale "
-            "spans the blocks)")
 
 
 def replicated_specs(arch):
@@ -130,28 +134,70 @@ def shard_train_state(state, arch, tcfg, mesh, param_pspecs,
                       sketch_layout: str | None = None):
     """This rank's blocks of a whole ``TrainState``: parameters under
     ``param_pspecs``, the optimiser state under its ``state_pspecs``, the
-    sketches under ``sketch_layout``; the projections broadcast from
-    rank 0."""
-    check_supported(tcfg)
-    opt = make_optimizer(tcfg.optimizer)
-
-    def block(ps, t):
-        return local_block(t, ps, mesh)
-    params = map_specs(block, param_pspecs, state.params)
-    ospecs = opt.state_pspecs(param_pspecs)
-    opt_state = {k: map_specs(block, ospecs[k], v)
-                 for k, v in state.opt_state.items()}
-    fsh, msh = sketch_shards(tcfg, arch, mesh, sketch_layout)
-    fs, mon = state.filter_state, state.monitor
-    if fsh is not None:
-        fs = fsh.place(fs)
-    if msh is not None:
-        mon = mon._replace(ace=msh.place(mon.ace))
+    error feedback under the parameters' specs, the sketches under
+    ``sketch_layout``; the projections broadcast from rank 0."""
+    specs = state_specs(state, arch, tcfg, mesh, param_pspecs, sketch_layout)
+    placed = map_specs(lambda ps, t: local_block(t, ps, mesh), specs,
+                       state._replace(rng=state.rng.get_state()))
     for w in (state.filter_w, state.monitor_w):
         if w is not None:
             col.broadcast(w)
-    return state._replace(params=params, opt_state=opt_state,
-                          filter_state=fs, monitor=mon)
+    return state._replace(**{f: getattr(placed, f) for f in
+                             ("params", "opt_state", "filter_state",
+                              "monitor", "ef")})
+
+
+def reconcile(spec, tree):
+    """``spec`` with ``tree``'s structure: a spec (or None, whole) given for
+    a subtree covers each of its tensors; dicts follow ``tree``'s keys
+    (the reference's ``state_pspecs`` gives every Adafactor slot key, a
+    slot holds some)."""
+    if tree is None:
+        return None
+    if spec is None or is_spec(spec):
+        if isinstance(tree, torch.Tensor):
+            return P() if spec is None else spec
+        spec = spec or P()
+        if isinstance(tree, dict):
+            return {k: reconcile(spec, v) for k, v in tree.items()}
+        out = [reconcile(spec, v) for v in tree]
+        return type(tree)(*out) if hasattr(tree, "_fields") \
+            else type(tree)(out)
+    if isinstance(tree, dict):
+        return {k: reconcile(spec[k], v) for k, v in tree.items()}
+    out = [reconcile(a, b) for a, b in zip(spec, tree)]
+    return type(tree)(*out) if hasattr(tree, "_fields") else type(tree)(out)
+
+
+def state_specs(state, arch, tcfg, mesh, param_pspecs,
+                sketch_layout: str | None = None):
+    """The spec of every tensor of a ``TrainState`` (its structure, the
+    generator as its state bytes, whole): parameters, optimiser state and
+    error feedback by ``param_pspecs``, the sketches by
+    ``sketch_layout``, the rest whole."""
+    fsh, msh = sketch_shards(tcfg, arch, mesh, sketch_layout)
+    mon = None
+    if state.monitor is not None:
+        mon = type(state.monitor)(*(
+            msh.specs if (f == "ace" and msh is not None) else None
+            for f in state.monitor._fields))
+    spec = state._replace(
+        params=param_pspecs,
+        opt_state=make_optimizer(tcfg.optimizer).state_pspecs(param_pspecs),
+        step=None, monitor=mon, monitor_w=None,
+        filter_state=None if fsh is None else fsh.specs, filter_w=None,
+        ef=None if state.ef is None else type(state.ef)(param_pspecs),
+        rng=None)
+    tree = state._replace(rng=state.rng.get_state()) \
+        if isinstance(state.rng, torch.Generator) else state
+    return reconcile(spec, tree)
+
+
+def gather_state(state, specs, mesh):
+    """The whole ``TrainState`` (every rank gets it) of this rank's blocks,
+    its generator as its state bytes: a checkpoint's tree."""
+    tree = state._replace(rng=state.rng.get_state())
+    return map_specs(lambda ps, t: gather_block(t, ps, mesh), specs, tree)
 
 
 def gather_params(params, specs, mesh):
@@ -189,9 +235,6 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
     from repro_torch.train.fault import GradMonitor
     from repro_torch.train.train_loop import (make_data_filter,
                                               sequence_embeddings)
-    check_supported(tcfg)
-    if tcfg.use_data_filter and tcfg.filter_chunk > 1:
-        raise NotImplementedError("the chunked prefilter under a mesh")
     cfg = arch.cfg
     device = resolve_device(tcfg.device)
     opt = make_optimizer(tcfg.optimizer)
@@ -201,8 +244,10 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
     gm = GradMonitor(feature_dim=tcfg.monitor_feature_dim, device=device) \
         if tcfg.use_grad_monitor else None
     filt = make_data_filter(tcfg, cfg.d_model) \
-        if tcfg.use_data_filter else None
+        if tcfg.use_data_filter and tcfg.filter_chunk <= 1 else None
     fsh, msh = sketch_shards(tcfg, arch, mesh, sketch_layout)
+    okw = dict(mesh=mesh, specs=grad_pspecs) \
+        if tcfg.optimizer == "adafactor" else {}
     specs = grad_pspecs
     reps = [replication(ps, mesh) for ps in spec_leaves(specs)]
     all_axes = axis_names(mesh)
@@ -253,6 +298,12 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
         total = col.all_reduce(c.clone(), mesh, baxes)
         return parts, torch.clamp_min(c, 1.0) / torch.clamp_min(total, 1.0)
 
+    def leaf_sq(grads):
+        """The squared norm of every leaf, each block counted once."""
+        return col.all_reduce(torch.stack(
+            [torch.sum(g * g) / r for g, r in zip(grads, reps)]), mesh,
+            all_axes)
+
     def train_step(state, batch):
         metrics = {}
         full = gather_params(state.params, specs, mesh)   # gathered at use
@@ -273,17 +324,23 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
         loss = col.all_reduce(loss, mesh, baxes)
         grads = [reduce_grad(g, ps, mesh)
                  for g, ps in zip(grads, spec_leaves(specs))]
-        # the squared norm of every leaf, each block counted once
-        sq = col.all_reduce(torch.stack(
-            [torch.sum(g * g) / r for g, r in zip(grads, reps)]), mesh,
-            all_axes)
+        sq = leaf_sq(grads)
         gnorm = torch.sqrt(torch.sum(sq))
         scale = torch.clamp_max(torch.full_like(gnorm, tcfg.grad_clip)
                                 / (gnorm + 1e-9), 1.0)
         grads = [g * scale for g in grads]
+        sq = sq * scale * scale
         metrics["loss"] = loss
         metrics["grad_norm"] = gnorm
         gtree = unflatten(state.params, grads)
+        ef = state.ef
+        if tcfg.grad_compression:
+            q, scales, ef = compress_grads_with_ef(gtree, ef, state.rng,
+                                                   mesh, specs)
+            gtree = decompress_grads(q, scales)
+            del q
+            grads = list(leaves(gtree))
+            sq = leaf_sq(grads)             # the monitor's, as on one card
 
         monitor = state.monitor
         lr = sched(state.step)
@@ -293,7 +350,7 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
             index = {id(g): i for i, g in enumerate(grads)}
             groups = reference_leaves(gtree)[: gm.feature_dim - 1]
             sq_parts = torch.stack([sq[index[id(p)]] for leaf in groups
-                                    for p in leaf.parts]) * scale * scale
+                                    for p in leaf.parts])
             feat = gm.features_from_sq(sq_parts, groups, loss)[None]
             monitor, skip, score = gm.step_features(
                 state.monitor, state.monitor_w, feat, shard=msh)
@@ -302,10 +359,65 @@ def make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh):
             metrics["rollback_needed"] = gm.rollback_needed(monitor).to(F32)
         new_params, new_opt = opt.update(state.params, gtree,
                                          state.opt_state, state.step, lr,
-                                         skip=skip)
+                                         skip=skip, **okw)
         return state._replace(params=new_params, opt_state=new_opt,
                               step=state.step + 1, monitor=monitor,
-                              filter_state=filter_state), metrics
+                              filter_state=filter_state, ef=ef), metrics
 
     return train_step
 
+
+def abstract_train_state(arch, tcfg, grad_pspecs, sketch_layout, mesh):
+    """Rank 0's blocks of a ``TrainState`` on ``meta`` (nothing allocated):
+    parameter, optimiser and error-feedback blocks by ``grad_pspecs``, the
+    sketches whole or placed by ``sketch_layout``; ``rng`` an unused CPU
+    generator (compression draws nothing on ``meta``)."""
+    from repro_torch.train.fault import GradMonitor
+    from repro_torch.train.train_loop import TrainState, make_data_filter
+    from repro_torch.train.compression import init_error_feedback
+    meta = torch.device("meta")
+    params = map_specs(lambda ps, p: torch.empty(
+        local_shape(p.shape, ps, mesh), dtype=p.dtype, device=meta),
+        grad_pspecs, arch.abstract_params()[0])
+    fsh, msh = sketch_shards(tcfg, arch, mesh, sketch_layout)
+    mon = mon_w = fs = fw = None
+    if tcfg.use_grad_monitor:
+        mon, mon_w = GradMonitor(feature_dim=tcfg.monitor_feature_dim,
+                                 device=meta).init()
+        if msh is not None:
+            mon = mon._replace(ace=msh.place(mon.ace))
+    if tcfg.use_data_filter:
+        fs, fw = make_data_filter(tcfg, arch.cfg.d_model).init()
+        if fsh is not None:
+            fs = fsh.place(fs)
+    return TrainState(
+        params=params,
+        opt_state=make_optimizer(tcfg.optimizer).init(params),
+        step=torch.zeros((), dtype=torch.int32, device=meta), monitor=mon,
+        monitor_w=mon_w, filter_state=fs, filter_w=fw,
+        ef=init_error_feedback(params) if tcfg.grad_compression else None,
+        rng=torch.Generator())
+
+
+def step_on_meta(arch, tcfg, grad_pspecs, sketch_layout, mesh, batch,
+                 count=None) -> dict:
+    """One ``make_sharded_train_step`` step of rank 0 on ``meta``, against
+    ``mesh``'s shape: the program itself, its collectives tallied and not
+    run (``dist.collectives`` over a ``MeshShape``), the sketches' kernels
+    in their plain versions on shapes (``kernels.build.plain_on_meta``).
+    ``batch`` is the global batch as ``meta`` tensors; ``count`` a context
+    manager entered around the step alone (the dry run's cost counters).
+    Returns the step's collectives (``collectives.TALLY.snapshot()``):
+    a live step's tally on every rank equals it."""
+    from repro_torch.kernels import build
+    shape = mesh if isinstance(mesh, MeshShape) else MeshShape(
+        tuple(axis_sizes(mesh).values()), axis_names(mesh))
+    tcfg = dataclasses.replace(tcfg, device="meta")
+    state = abstract_train_state(arch, tcfg, grad_pspecs, sketch_layout,
+                                 shape)
+    step = make_sharded_train_step(arch, tcfg, grad_pspecs, sketch_layout,
+                                   shape)
+    with build.plain_on_meta(), col.tallied() as tally, \
+            (count or contextlib.nullcontext()):
+        step(state, batch)
+    return tally.snapshot()

@@ -166,16 +166,27 @@ def init_train_state(arch: Arch, tcfg: TrainConfig,
                           tcfg.seed))
 
 
+def filter_stride(seq_len: int) -> int:
+    """The stride of the tokens the data filter scores: S // 256, at least
+    1 (every token up to S = 511)."""
+    return max(seq_len // 256, 1)
+
+
+def filter_tokens(seq_len: int) -> int:
+    """How many tokens of a sequence the data filter scores."""
+    return len(range(0, seq_len, filter_stride(seq_len)))
+
+
 def sequence_embeddings(params, batch, cfg):
     """The embeddings the data filter scores, shared by the in-step filter
     and the chunked prefilter: ``batch["embeds"]``, or the token
-    embeddings of at most 256 tokens a sequence (stride S // 256) in the
+    embeddings of about 256 tokens a sequence (``filter_stride``) in the
     activation dtype, gathered before the cast (the same values as the
     reference's cast-then-gather, without a cast of the whole table)."""
     if "embeds" in batch:
         return batch["embeds"]
     toks = batch["tokens"]
-    stride = max(toks.shape[1] // 256, 1)
+    stride = filter_stride(toks.shape[1])
     return params["embed"][toks[:, ::stride].long()].to(cfg.adtype)
 
 
@@ -329,11 +340,12 @@ def _ckpt_tree(state: TrainState) -> TrainState:
     return state._replace(rng=state.rng.get_state())
 
 
-def _restore(mgr, state: TrainState):
+def _restore(mgr, state: TrainState, specs=None, mesh=None):
     """The newest intact checkpoint as a ``TrainState`` (its generator
     rebuilt on the state's device), with its manifest; (None, None) when
-    there is none."""
-    restored, manifest = mgr.restore_latest(_ckpt_tree(state))
+    there is none.  With ``specs`` and a ``mesh`` (``sharded.state_specs``)
+    ``state`` holds this rank's blocks, and so does the result."""
+    restored, manifest = mgr.restore_latest(_ckpt_tree(state), specs, mesh)
     if restored is None:
         return None, None
     rng = torch.Generator(device=state.rng.device)
@@ -362,8 +374,13 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
 
     With a ``mesh`` every rank runs this loop on the same stream and
     trains its blocks (``make_train_step``); a ``state`` passed in is then
-    already sharded, and rank 0 alone logs.  Checkpoints and the chunked
-    prefilter are single-card.
+    already sharded, and rank 0 alone logs.  Every rank runs the chunked
+    prefilter on the global batches (its sketch under ``sketch_layout``,
+    ``StreamRunner(mesh=…)``), as the in-step filter does.  A checkpoint
+    is the state gathered whole (``sharded.gather_state``) and saved by
+    rank 0 in the unsharded format, so a run at any world size (one
+    process too) restores it; a sharded run restores its blocks
+    (``checkpoint.restore(specs=, mesh=)``).
 
     Returns (final state, list of metric dicts of floats)."""
     from repro_torch.stream.runner import StreamRunner
@@ -371,18 +388,21 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
 
     device = resolve_device(tcfg.device)
     logs = True
+    sspecs = fsh = None
     if mesh is not None:
         import torch.distributed as dist
+        from repro_torch.dist.sketch_parallel import gather_block
         from repro_torch.train import sharded
         if grad_pspecs is None:
             grad_pspecs = sharded.replicated_specs(arch)
-        if tcfg.ckpt_dir:
-            raise NotImplementedError("checkpoints of a sharded run")
         logs = dist.get_rank() == 0
         if state is None:
             state = sharded.shard_train_state(
                 init_train_state(arch, tcfg), arch, tcfg, mesh,
                 grad_pspecs, sketch_layout)
+        sspecs = sharded.state_specs(state, arch, tcfg, mesh, grad_pspecs,
+                                     sketch_layout)
+        fsh, _ = sharded.sketch_shards(tcfg, arch, mesh, sketch_layout)
     if state is None:
         state = init_train_state(arch, tcfg)
     step_fn = make_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh)
@@ -391,7 +411,7 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
     if tcfg.ckpt_dir:
         mgr = ckpt_lib.CheckpointManager(tcfg.ckpt_dir,
                                          interval=tcfg.ckpt_interval)
-        restored, manifest = _restore(mgr, state)
+        restored, manifest = _restore(mgr, state, sspecs, mesh)
         if restored is not None:
             state = restored
             stream.load_state_dict({"step": manifest["extra"]["data_step"]})
@@ -403,11 +423,18 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
         filt = make_data_filter(tcfg, arch.cfg.d_model)
         # a windowed filter carries its own rotation clock; the runner
         # inherits it and rotates inside the chunk
-        runner = StreamRunner(filt, chunk_T=chunk_T, return_masks=True)
+        runner = StreamRunner(
+            filt, chunk_T=chunk_T, return_masks=True,
+            **({} if fsh is None else dict(mesh=mesh,
+                                           sketch_layout=sketch_layout)))
 
     def features(params, batches):
-        """(T, B, d+1) filter features of T batches, in one pass."""
+        """(T, B, d+1) filter features of T batches, in one pass (under a
+        mesh the token embeddings gathered whole first)."""
         key = "embeds" if "embeds" in batches[0] else "tokens"
+        if mesh is not None and key == "tokens":
+            params = {"embed": gather_block(params["embed"],
+                                            grad_pspecs["embed"], mesh)}
         stacked = torch.cat([b[key] for b in batches])
         with torch.no_grad():
             f = filt.features(sequence_embeddings(params, {key: stacked},
@@ -449,7 +476,7 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
                 rollbacks += 1
                 if tcfg.rollback_backoff > 0:
                     time.sleep(tcfg.rollback_backoff * rollbacks)
-                restored, manifest = _restore(mgr, state)
+                restored, manifest = _restore(mgr, state, sspecs, mesh)
                 if restored is not None:
                     state = restored
                     host_step = int(manifest["step"])
@@ -466,9 +493,14 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
         # pass has already inserted all T batches and advanced the
         # stream, so a checkpoint there would restore a sketch that has
         # seen batches no step trained on
-        if mgr is not None and saveable:
-            mgr.maybe_save(host_step, _ckpt_tree(state),
-                           extra={"data_step": stream.state_dict()["step"]})
+        if mgr is not None and saveable and host_step % mgr.interval == 0:
+            tree = _ckpt_tree(state) if mesh is None \
+                else sharded.gather_state(state, sspecs, mesh)
+            if logs:
+                mgr.maybe_save(host_step, tree, extra={
+                    "data_step": stream.state_dict()["step"]})
+            if mesh is not None:        # every rank sees the new step
+                dist.barrier()
         if logs and log_every and host_step % log_every == 0:
             print(f"step {host_step}: loss={metrics['loss']:.4f} "
                   f"gnorm={metrics['grad_norm']:.3f} "
@@ -499,10 +531,11 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
                 # per-step program, its rotation clock included
                 fstate, keep, _ = filt.step(state.filter_state,
                                             state.filter_w,
-                                            features(state.params, [jb])[0])
+                                            features(state.params, [jb])[0],
+                                            shard=fsh)
                 if getattr(filt, "num_epochs", 1) > 1:
-                    fstate = ring.maybe_rotate(fstate, filt.rotate_every,
-                                               filt.decay)
+                    fstate = (fsh or ring).maybe_rotate(
+                        fstate, filt.rotate_every, filt.decay)
                 state = state._replace(filter_state=fstate)
                 run_step(jb, keep=keep)
             else:

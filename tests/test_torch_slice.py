@@ -223,8 +223,13 @@ class TestNotPorted:
             engine.Guardrail(engine.GuardrailConfig(
                 d_model=8, num_tenants=2, window_epochs=2, rotate_every=1),
                 device="cpu", mesh=mesh)
-        with pytest.raises(NotImplementedError, match="queue 1 item 13"):
-            Arch("olmo_1b", reduced=True).input_specs(None)
+        # the dry run's abstract inputs are ported (queue 1 item 13; held
+        # to the reference in tests/test_torch_dryrun.py): meta tensors
+        from repro_torch.models.registry import SHAPES
+        specs = Arch("olmo_1b", reduced=True).input_specs(SHAPES["train_4k"])
+        assert {k: (tuple(v.shape), v.device.type)
+                for k, v in specs.items()} == {
+            "tokens": ((256, 4096), "meta"), "labels": ((256, 4096), "meta")}
         # health_check / repair are ported (queue 1 item 10): a fresh
         # guardrail audits healthy, repairs nothing and stays undegraded
         g = engine.Guardrail(engine.GuardrailConfig(d_model=8), device="cpu")

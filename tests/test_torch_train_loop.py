@@ -373,13 +373,14 @@ def test_launcher_on_the_cpu_and_not_ported_options():
     for kw in (dict(grad_pspecs={}), dict(sketch_layout="replicated")):
         with pytest.raises(ValueError, match="mesh="):
             TT.make_train_step(a, tcfg, **kw)
-    with pytest.raises(NotImplementedError, match="Adafactor"):
-        TT.make_train_step(a, TT.TrainConfig(optimizer="adafactor",
-                                             device="cpu"),
-                           mesh=make_host_local_mesh())
-    # the dry run is what still raises naming queue 1 item 13
-    with pytest.raises(NotImplementedError, match="item 13"):
-        all_cells()
+    # Adafactor, compression, the chunked prefilter and checkpoints run
+    # under a mesh (tests/test_torch_dist_train_features.py), and so does
+    # the dry run (tests/test_torch_dryrun.py): nothing refuses them
+    assert callable(TT.make_train_step(
+        a, TT.TrainConfig(optimizer="adafactor", grad_compression=True,
+                          filter_chunk=2, device="cpu"),
+        mesh=make_host_local_mesh()))
+    assert len(all_cells()) == 35 and len(all_cells(True)) == 40
     with pytest.raises(ValueError, match="filter_rotate_every"):
         TT.make_data_filter(TT.TrainConfig(filter_window_epochs=2,
                                            device="cpu"), 16)

@@ -10,6 +10,16 @@ workers never share a port), and rank 0 writes every result, each global
 state gathered from the ranks' blocks, to OUT.npz.  It imports no JAX.
 The case tables (``GUARD_CASES``, ``STREAM_CASES``) are shared with the
 test, which runs the reference on the same ones.
+
+    PYTHONPATH=src python tests/torch_dist_helpers.py --features IN.npz OUT.npz
+
+is the rank side of ``tests/test_torch_dist_train_features.py``: one
+spawn of 2 ranks, then one of 4 (``features``): the sharded train step's
+collectives on ``meta`` against its live tally, and the training features
+a sharded run takes (Adafactor on a (2, 1) and a (2, 2) mesh, int8
+compression on the reference's rounding noise, the chunked prefilter,
+checkpoints saved at world 2 and resumed), each written to ``w2/out.npz``
+and ``w4/out.npz`` beside OUT.npz, with the checkpoint directory.
 """
 import os
 import sys
@@ -309,6 +319,186 @@ def training(mesh, d: dict, out: dict) -> None:
         1 for ps in sharded.spec_leaves(specs) if "data" in ps))
 
 
+FEATURE_STEPS = 4                 # each feature run's steps
+FEATURE_CFGS = {                  # name: (TrainConfig fields, mesh, layout)
+    "adafactor": (dict(optimizer="adafactor"), (2, 1), None),
+    "adafactor_2x2": (dict(optimizer="adafactor"), (2, 2), None),
+    "compression": (dict(grad_compression=True), (2, 1), None),
+    "chunked": (dict(filter_chunk=2), (1, 2), "table_sharded"),
+    "ckpt": (dict(grad_compression=True, ckpt_interval=2), (2, 1), None),
+}
+# plan-against-tally cases: (TrainConfig fields, layout) on the world's mesh
+PLAN_CASES = ((dict(), None), (dict(), "table_sharded"),
+              (dict(optimizer="adafactor", grad_compression=True),
+               "table_sharded"))
+
+
+def feature_config(name: str, **kw):
+    from repro_torch.train.train_loop import TrainConfig
+    fields, _, _ = FEATURE_CFGS[name]
+    return TrainConfig(**{**TRAIN_CFG, **fields, **kw}, device="cpu")
+
+
+def feature_specs(arch, mesh):
+    """launch.train's specs: the logical rules of the mesh, FSDP over
+    data, divisibility."""
+    from repro_torch.dist import mesh as dm
+    from repro_torch.models.common import set_rules
+    set_rules(dm.rules_for(mesh))
+    shapes = arch.abstract_params()[0]
+    specs = dm.sharding_tree_for(
+        mesh, dm.fsdp_tree(arch.param_pspecs(), shapes, mesh), shapes)
+    set_rules({})
+    return specs
+
+
+def feature_start(arch, tcfg, d: dict):
+    """The port's initial state with the reference's filter and monitor W
+    (the start of the reference's runs in the test)."""
+    from repro_torch.train.train_loop import init_train_state
+    return init_train_state(arch, tcfg)._replace(
+        filter_w=torch.tensor(d["tr_filter_w"]),
+        monitor_w=torch.tensor(d["tr_monitor_w"]))
+
+
+def feature_stream(arch):
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    return DataStream(StreamConfig(vocab_size=arch.cfg.vocab_size,
+                                   seq_len=TRAIN_S, global_batch=TRAIN_B))
+
+
+def _save_run(prefix, state, hist, specs, mesh, out):
+    from repro_torch.models.registry import leaves
+    from repro_torch.train import sharded
+    params = sharded.gather_params(state.params, specs, mesh)
+    out[f"{prefix}_params"] = np.concatenate(
+        [_np(a).reshape(-1) for a in leaves(params)])
+    for k in ("loss", "grad_norm", "lr", "filter_keep_frac",
+              "grad_anomaly"):
+        out[f"{prefix}_{k}"] = np.asarray([h.get(k, np.nan) for h in hist])
+
+
+def noise_feed(d: dict):
+    """``train.compression.uniform_noise`` in the test's draws
+    (``cnoise_0``, ``cnoise_1``, … in draw order: the reference's
+    rounding noise, each part of a leaf whole), and a check that every
+    draw was taken."""
+    taken = [0]
+
+    def feed(shape, generator):
+        x = torch.tensor(d[f"cnoise_{taken[0]}"])
+        assert tuple(x.shape) == tuple(shape), (tuple(x.shape), shape)
+        taken[0] += 1
+        return x
+
+    def check():
+        assert f"cnoise_{taken[0]}" not in d and taken[0] > 0, taken[0]
+    return feed, check
+
+
+def meta_batch(batch: dict) -> dict:
+    """A batch's shapes and dtypes as ``meta`` tensors."""
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+
+
+def plans(world: int, mesh, d: dict, out: dict) -> None:
+    """One live step of each ``PLAN_CASES`` case against the same step on
+    ``meta`` over the mesh's shape (``sharded.step_on_meta``): by kind,
+    bytes and count, and by axis."""
+    import json
+    from repro_torch.dist import collectives as col
+    from repro_torch.models.registry import Arch
+    from repro_torch.train import sharded
+    from repro_torch.train import train_loop as tl
+    arch = Arch("olmo_1b", reduced=True)
+    specs = feature_specs(arch, mesh)
+    for i, (fields, layout) in enumerate(PLAN_CASES):
+        tcfg = tl.TrainConfig(**{**TRAIN_CFG, **fields}, device="cpu")
+        state = sharded.shard_train_state(feature_start(arch, tcfg, d), arch,
+                                          tcfg, mesh, specs, layout)
+        step = tl.make_train_step(arch, tcfg, specs, layout, mesh)
+        batch = tl._to_device({k: v for k, v in next(feature_stream(arch))
+                               .items() if not k.startswith("_")},
+                              torch.device("cpu"))
+        with col.tallied() as tally:
+            step(state, batch)
+        live = tally.snapshot()
+        plan = sharded.step_on_meta(arch, tcfg, specs, layout, mesh,
+                                    meta_batch(batch))
+        every = [None] * world
+        dist.all_gather_object(every, json.dumps(live, sort_keys=True))
+        out[f"plan{i}_live"] = np.asarray(every)
+        out[f"plan{i}_plan"] = np.asarray(json.dumps(plan, sort_keys=True))
+
+
+def trainings(world: int, mesh_of, d: dict, out: dict, root: str) -> None:
+    """Every ``FEATURE_CFGS`` run whose mesh has ``world`` ranks; the
+    compression case on the reference's rounding noise (``noise_feed``),
+    the checkpoint case on the generator's and also resumed from its
+    step-2 checkpoint."""
+    import math
+    import shutil
+    from repro_torch.models.registry import Arch
+    from repro_torch.train import compression, sharded
+    from repro_torch.train.train_loop import train
+    arch = Arch("olmo_1b", reduced=True)
+    for name, (_, shape, layout) in FEATURE_CFGS.items():
+        if math.prod(shape) != world:
+            continue
+        mesh = mesh_of(shape)
+        specs = feature_specs(arch, mesh)
+        kw = {}
+        if name == "ckpt":
+            kw["ckpt_dir"] = os.path.join(root, "ckpt")
+        tcfg = feature_config(name, **kw)
+        state = sharded.shard_train_state(feature_start(arch, tcfg, d), arch,
+                                          tcfg, mesh, specs, layout)
+        drawn = compression.uniform_noise
+        if name == "compression":
+            compression.uniform_noise, check = noise_feed(d)
+        try:
+            state, hist = train(arch, tcfg, feature_stream(arch),
+                                FEATURE_STEPS, log_every=0, state=state,
+                                mesh=mesh, grad_pspecs=specs,
+                                sketch_layout=layout)
+        finally:
+            compression.uniform_noise = drawn
+        if name == "compression":
+            check()
+        _save_run(f"f_{name}", state, hist, specs, mesh, out)
+        if layout is not None:
+            fsh, _ = sharded.sketch_shards(tcfg, arch, mesh, layout)
+            _state(f"f_{name}_filter", fsh.gather(state.filter_state), out)
+        if name != "ckpt":
+            continue
+        resumed = os.path.join(root, "resumed")
+        if dist.get_rank() == 0:
+            os.makedirs(resumed)
+            shutil.copytree(os.path.join(root, "ckpt", f"step_{2:010d}"),
+                            os.path.join(resumed, f"step_{2:010d}"))
+        dist.barrier()
+        tcfg = feature_config(name, ckpt_dir=resumed)
+        state = sharded.shard_train_state(feature_start(arch, tcfg, d), arch,
+                                          tcfg, mesh, specs, layout)
+        state, hist = train(arch, tcfg, feature_stream(arch),
+                            FEATURE_STEPS - 2, log_every=0, state=state,
+                            mesh=mesh, grad_pspecs=specs)
+        _save_run("f_resumed", state, hist, specs, mesh, out)
+
+
+def features(rank: int, world: int, d: dict, root: str) -> dict:
+    from repro_torch.dist.mesh import make_debug_mesh
+    out: dict = {}
+
+    def mesh_of(shape):
+        return make_debug_mesh(data=shape[0], model=shape[1],
+                               device_type="cpu")
+    plans(world, mesh_of((2, world // 2)), d, out)
+    trainings(world, mesh_of, d, out, root)
+    return out
+
+
 def run(rank: int, d: dict) -> dict:
     from repro_torch.dist.mesh import make_debug_mesh
     mesh = make_debug_mesh(data=2, model=2, device_type="cpu")
@@ -321,12 +511,15 @@ def run(rank: int, d: dict) -> dict:
     return out
 
 
-def _rank(rank: int, inp: str, out_path: str, init: str) -> None:
+def _rank(rank: int, inp: str, out_path: str, init: str,
+          world: int = WORLD, mode: str = "layouts") -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init}",
-                            rank=rank, world_size=WORLD)
+                            rank=rank, world_size=world)
     try:
-        res = run(rank, dict(np.load(inp)))
+        d = dict(np.load(inp))
+        res = (run(rank, d) if mode == "layouts" else
+               features(rank, world, d, os.path.dirname(out_path)))
         if rank == 0:
             np.savez(out_path, **res)
     finally:
@@ -334,7 +527,17 @@ def _rank(rank: int, inp: str, out_path: str, init: str) -> None:
 
 
 if __name__ == "__main__":
-    inp, out_path = sys.argv[1], sys.argv[2]
-    init = os.path.join(os.path.dirname(os.path.abspath(out_path)),
-                        "gloo_init")
-    mp.spawn(_rank, args=(inp, out_path, init), nprocs=WORLD)
+    if sys.argv[1] == "--features":
+        inp, out_path = sys.argv[2], sys.argv[3]
+        root = os.path.dirname(os.path.abspath(out_path))
+        for world in (2, 4):
+            sub = os.path.join(root, f"w{world}")
+            os.makedirs(sub)
+            mp.spawn(_rank, args=(inp, os.path.join(sub, "out.npz"),
+                                  os.path.join(sub, "gloo_init"), world,
+                                  "features"), nprocs=world)
+    else:
+        inp, out_path = sys.argv[1], sys.argv[2]
+        init = os.path.join(os.path.dirname(os.path.abspath(out_path)),
+                            "gloo_init")
+        mp.spawn(_rank, args=(inp, out_path, init), nprocs=WORLD)
