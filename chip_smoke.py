@@ -384,9 +384,18 @@ non-zero without printing its result line):
              steps at 2 × 1 (FSDP specs): loss within rtol 1e-5,
              parameters within the summed lr and 99.9% within 1e-6, the
              filter's and monitor's sketches bitwise; (f) GPipe, 2 stages
-             × 8 microbatches, against the sequential stages; admit p50
-             and items/s beside one process's, each rank's tally and
-             launches (which join the kernels' counts).
+             × 8 microbatches, against the sequential stages; (g) the
+             self-healing lifecycle under a mesh at world 2 (the flat
+             guardrail table-sharded in both modes, the windowed one
+             table-sharded, the T = 8 fleet tenant-sharded): bits
+             flipped in both ranks' tables, ``health_check``, degraded
+             admits, ``repair``, re-warm, each bitwise one process
+             (verdicts, reports, masked μ, repaired states, a ring's
+             ssq), one D2H an admit and an audit, ``health_check`` and
+             ``repair`` ms, degraded against healthy admit p50 in turns
+             and their collectives; admit p50 and items/s beside one
+             process's, each rank's tally and launches (which join the
+             kernels' counts).
 20. dry run — ``repro_torch.launch.dryrun`` on the ``meta`` device (no
              allocation): (a) olmo_1b train_4k, mixtral_8x7b prefill_32k,
              jamba_v01_52b decode_32k and rwkv6_7b long_500k on the 16×16
@@ -6761,6 +6770,17 @@ DI_PIPE = dict(S=2, M=8, mb=64, D=1024)  # (f)
 DI_TRAIN_STEPS = 2                       # (e)
 DI_MODES = ("mu_sigma", "quantile")
 DI_LAYOUTS = ("replicated", "table_sharded")
+# (g): the self-healing lifecycle under a mesh, name -> (GuardrailConfig
+# fields, layout); admits before the flips, re-warm cap, timed turns
+DI_LIFE = {
+    "flat_mu_sigma": (dict(), "table_sharded"),
+    "flat_quantile": (dict(threshold_mode="quantile"), "table_sharded"),
+    "window": (dict(window_epochs=4, window_decay=0.9, rotate_every=2),
+               "table_sharded"),
+    "fleet": (dict(num_tenants=DI_T, warmup_items=float(ADMIT_B)),
+              "tenant_sharded"),
+}
+DI_LIFE_WARM, DI_LIFE_REWARM, DI_LIFE_TURNS = 6, 16, 8
 
 
 def dist_guard_cfg(**kw):
@@ -6775,13 +6795,14 @@ def dist_big_cfg():
                           warmup_items=float(ADMIT_B))
 
 
-def dist_fleet_batches(device, group: int, groups: int):
+def dist_fleet_batches(device, group: int, groups: int,
+                       admits: int = DI_FLEET_ADMITS):
     """(embeds, tenant ids) of each fleet admit of tenant group ``group``:
     the guardrail traffic, each row routed to one of the group's
     DI_T / groups tenants."""
     per = DI_T // groups
     rng = np.random.default_rng(SEED + 190 + group)
-    for e, _ in guardrail_batches(device, D_MODEL, DI_FLEET_ADMITS, ADMIT_B,
+    for e, _ in guardrail_batches(device, D_MODEL, admits, ADMIT_B,
                                   ADMIT_S):
         yield e, (rng.integers(0, per, ADMIT_B) + per * group).astype(
             np.int32)
@@ -6896,8 +6917,190 @@ def dist_layer(p, h):
 
 
 def np_state(st) -> dict:
-    return {k: getattr(st, k).cpu() for k in ("counts", "n", "welford_mean",
-                                               "welford_m2")}
+    """The state's counts, n and Welford, copied to the host."""
+    return {k: getattr(st, k).detach().to("cpu", copy=True)
+            for k in ("counts", "n", "welford_mean", "welford_m2")}
+
+
+def dist_life_flips(name: str) -> list:
+    """(g)'s flips (lead, table, bucket, bit): two tables in each half of
+    the L = 50 (each rank's tables under the table layout) or, for the
+    fleet, one tenant of each tenant group a flip; the lead is the
+    fleet's tenant or the ring's epoch; bits 16-30, which no count of
+    this traffic has, so every flip raises its table's sum."""
+    fields, _ = DI_LIFE[name]
+    rng = np.random.default_rng(SEED + 197)
+    half, nb = DI_L // 2, 1 << K_BITS
+    fleet = fields.get("num_tenants", 1) > 1
+    flips = []
+    for shard in (0, 1):
+        for j in rng.choice(half, 2, replace=False) + shard * half:
+            lead = (rng.integers(0, DI_T // 2) + shard * DI_T // 2 if fleet
+                    else rng.integers(0, fields.get("window_epochs", 1)))
+            flips.append((int(lead), int(j), int(rng.integers(0, nb)),
+                          int(rng.integers(16, 31))))
+    return flips
+
+
+def dist_flip(g, flips: list) -> None:
+    """The flips that land in ``g``'s block (all of them with no mesh),
+    in place."""
+    sh = g._shard
+    t0, lt = (0, g.gcfg.num_tables) if sh is None \
+        else (sh.table_start, sh.l_local)
+    u0, ut = (0, max(g.gcfg.num_tenants, 1)) if sh is None \
+        else (sh.tenant_start, sh.t_local)
+    counts = g.state.counts
+    for lead, j, b, bit in flips:
+        if not t0 <= j < t0 + lt:
+            continue
+        if g.multi_tenant:
+            if not u0 <= lead < u0 + ut:
+                continue
+            idx = (lead - u0, j - t0, b)
+        else:
+            idx = (lead, j - t0, b) if g.windowed else (j - t0, b)
+        counts[idx] ^= 1 << bit
+
+
+def life_mu(g) -> torch.Tensor:
+    """μ under ``g``'s serving mask: ``ShardedSketch.mean_mu`` on a rank,
+    the single card's function with no mesh."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.fleet import state as fl
+    from repro_torch.window import ring
+    mask, gamma = g._table_mask, g.gcfg.window_decay
+    if g._shard is not None:
+        return g._shard.mean_mu(g.state, mask, gamma).cpu()
+    if g.windowed:
+        return ring.mean_mu_windowed(g.state, gamma, mask).cpu()
+    if g.multi_tenant:
+        return fl.mean_mu_fleet(g.state, mask).cpu()
+    return sk.mean_mu(g.state, mask).cpu()
+
+
+def copied_state(g) -> dict:
+    """``np_state`` of the guardrail's whole state (a sharded one's
+    gathered)."""
+    return np_state(g.state if g._shard is None else g._shard.gather(g.state))
+
+
+def dist_life_run(device, name, w, mesh=None, group=0):
+    """One (g) lifecycle of a Guardrail: over ``mesh`` (this rank's
+    blocks; a fleet rank serves tenant group ``group``) or on one process
+    (a fleet's two tenant groups admitted in turns): DI_LIFE_WARM admits,
+    ``dist_life_flips``, ``health_check``, two degraded admits,
+    ``repair``, admit + ``health_check`` until healthy (at most
+    DI_LIFE_REWARM), one healthy admit.  Returns (guardrail, its traffic
+    streams, record): verdicts, reports, ``degraded`` / ``_rewarm_admits``
+    after each audit, ``_to_host`` calls an admit and a health_check,
+    the masked μ after the first audit, the repaired state (and a ring's
+    ssq), the admit of recovery, the final state, the two control calls'
+    host-clock ms."""
+    import repro_torch.serve.engine as engine
+    fields, layout = DI_LIFE[name]
+    g = engine.Guardrail(dist_guard_cfg(**fields), device=device, mesh=mesh,
+                         sketch_layout=layout, w=w)
+    admits = DI_LIFE_WARM + 2 + DI_LIFE_REWARM + 1 + 2 * DI_LIFE_TURNS
+    if g.multi_tenant:
+        streams = [dist_fleet_batches(device, gr, 2, admits)
+                   for gr in ((0, 1) if mesh is None else (group,))]
+    else:
+        streams = [((e, None) for e, _ in guardrail_batches(
+            device, D_MODEL, admits, ADMIT_B, ADMIT_S))]
+    rec = {"masks": [], "reports": [], "flags": [], "d2h_admit": [],
+           "d2h_check": []}
+    calls = [0]
+    real = engine._to_host
+
+    def counted(x):
+        calls[0] += 1
+        return real(x)
+
+    def serve():
+        row = []
+        for stream in streams:
+            c0 = calls[0]
+            row.append(g.admit(*next(stream)))
+            rec["d2h_admit"].append(calls[0] - c0)
+        rec["masks"].append(np.stack(row))
+
+    def audit(method):
+        c0 = calls[0]
+        t0 = time.perf_counter()
+        rep = getattr(g, method)()          # ends in its one transfer
+        ms = 1e3 * (time.perf_counter() - t0)
+        if method == "health_check":
+            rec["d2h_check"].append(calls[0] - c0)
+        rec["reports"].append(np.concatenate(
+            [np.asarray(x, bool).reshape(-1) for x in rep]))
+        rec["flags"].append([bool(g.degraded), int(g._rewarm_admits)])
+        return ms
+
+    engine._to_host = counted
+    try:
+        for _ in range(DI_LIFE_WARM):
+            serve()
+        dist_flip(g, dist_life_flips(name))
+        rec["health_check_ms"] = audit("health_check")
+        rec["mu"] = life_mu(g)
+        rec["degraded_mask"] = g._table_mask
+        for _ in range(2):
+            serve()
+        rec["repair_ms"] = audit("repair")
+        rec["repaired"] = copied_state(g)
+        if g.windowed:
+            rec["ssq"] = g.state.ssq.detach().to("cpu", copy=True)
+        rec["landed"] = -1
+        for i in range(DI_LIFE_REWARM):
+            serve()
+            audit("health_check")
+            if not g.degraded:
+                rec["landed"] = i
+                break
+        serve()
+    finally:
+        engine._to_host = real
+    rec["final"] = copied_state(g)
+    rec["masks"] = torch.as_tensor(np.stack(rec["masks"]))
+    rec["reports"] = torch.as_tensor(np.stack(rec["reports"]))
+    return g, streams, rec
+
+
+def tally_delta(before: dict, after: dict) -> dict:
+    """{kind: {"bytes", "count"}} of the collectives between two
+    ``TALLY.snapshot()``s."""
+    kinds = [k for k, v in after.items() if isinstance(v, dict)
+             and "count" in v]
+    return {k: {f: after[k][f] - before.get(k, {}).get(f, 0)
+                for f in ("bytes", "count")} for k in kinds
+            if after[k]["count"] > before.get(k, {}).get("count", 0)}
+
+
+def dist_life_turns(g, streams, dmask) -> dict:
+    """A degraded admit (``dmask`` the serving mask) and a healthy one (no
+    mask) in turns on the same sharded guardrail, DI_LIFE_TURNS each, the
+    order alternating: host-clock p50s; then one of each with its
+    collectives counted."""
+    from repro_torch.dist import collectives as col
+    lat = {"degraded": [], "healthy": []}
+    for i in range(DI_LIFE_TURNS):
+        for route in (("degraded", "healthy") if i % 2 else
+                      ("healthy", "degraded")):
+            g._table_mask = dmask if route == "degraded" else None
+            e, t = next(streams[0])
+            t0 = time.perf_counter()
+            g.admit(e, t)
+            lat[route].append(1e3 * (time.perf_counter() - t0))
+    out = {f"{k}_p50_ms": statistics.median(v) for k, v in lat.items()}
+    for route in ("degraded", "healthy"):
+        g._table_mask = dmask if route == "degraded" else None
+        before = col.TALLY.snapshot()
+        g.admit(*next(streams[0]))
+        out[f"{route}_collectives"] = tally_delta(before,
+                                                  col.TALLY.snapshot())
+    g._table_mask = None
+    return out
 
 
 def dist_child(world: int, rank: int, root: Path) -> int:
@@ -6954,6 +7157,21 @@ def dist_child(world: int, rank: int, root: Path) -> int:
             tensors["fleet_tenant_sharded"] = np_state(
                 g._shard.gather(g.state))
             del g
+            out["life"] = {}
+            for name, (_, layout) in DI_LIFE.items():
+                lmesh = tmesh if layout == "tenant_sharded" else mesh
+
+                def life():
+                    g, streams, rec = dist_life_run(device, name, w, lmesh,
+                                                    rank)
+                    rec.update(dist_life_turns(g, streams,
+                                               rec.pop("degraded_mask")))
+                    return rec
+                rec = part(f"life_{name}", life)
+                tensors[f"life_{name}"] = {k: rec.pop(k) for k in (
+                    "masks", "reports", "mu", "repaired", "final", "ssq")
+                    if k in rec}
+                out["life"][name] = rec
             feats, _ = stream_features(device, D_MODEL, DI_STREAM["chunks"],
                                        DI_STREAM["T"], DI_STREAM["B"])
             ws = torch.load(root / "w_stream.pt").to(device)
@@ -7120,6 +7338,11 @@ def phase_dist(mods, device, card) -> dict:
     seq = px
     for s in range(DI_PIPE["S"]):
         seq = dist_layer({"w": pw[s]}, seq)
+    life_one = {}
+    for name in DI_LIFE:
+        rec = dist_life_run(device, name, w)[2]
+        rec.pop("degraded_mask")
+        life_one[name] = rec
     t1 = time.perf_counter()
     for world in (2, 4):
         wait_ranks(spawn_ranks(world, DI_DIR), world, DI_DIR)
@@ -7257,7 +7480,74 @@ def phase_dist(mods, device, card) -> dict:
           f"{err:.3g}; bubble {DI_PIPE['S'] - 1}/"
           f"{DI_PIPE['S'] + DI_PIPE['M'] - 1})")
     print(f"  (f) tally of a rank: {res[(2, 0)][0]['tally']['pipe']}")
+    dist_life_checks(life_one, res, card)
     return paths
+
+
+def dist_life_checks(life_one: dict, res: dict, card: str) -> None:
+    """(g): each rank's lifecycle against this process's on the same W,
+    traffic and flips: verdicts, every report, ``degraded`` and
+    ``_rewarm_admits``, the admit of recovery, the masked μ, the repaired
+    and final states (and a ring's re-anchored ssq) bitwise; one D2H an
+    admit and a health_check; the flipped tables exactly the flagged
+    ones; the three kernels launched, no fused admission."""
+    for name, (fields, layout) in DI_LIFE.items():
+        one = life_one[name]
+        fleet = "num_tenants" in fields
+        L, T = DI_L, DI_T if fleet else 1
+        first = one["reports"][0][:T * L].reshape(T, L).numpy()
+        flagged = {(int(t), int(j)) for t, j in np.argwhere(~first)}
+        flipped = {(lead if fleet else 0, j)
+                   for lead, j, _, _ in dist_life_flips(name)}
+        check(flagged == flipped, f"(g) {name}: the audit flags exactly "
+              f"the flipped tables {sorted(flipped)}")
+        check(one["landed"] >= 0, f"(g) {name}: one process recovers "
+              f"within {DI_LIFE_REWARM} admits")
+        for r in range(2):
+            js, t = res[(2, r)]
+            info, got = js["life"][name], t[f"life_{name}"]
+            what = f"(g) {name} {layout} rank {r}"
+            want_masks = one["masks"][:, r:r + 1] if fleet else one["masks"]
+            check(torch.equal(got["masks"], want_masks),
+                  f"{what}: verdicts bitwise the one process's at every "
+                  "admit")
+            check(torch.equal(got["reports"], one["reports"])
+                  and info["flags"] == one["flags"]
+                  and info["landed"] == one["landed"],
+                  f"{what}: every report, degraded flag and re-warm "
+                  f"countdown equal, recovered at the same admit "
+                  f"({one['landed'] + 1} after the repair)")
+            per = DI_T // 2
+            want_mu = one["mu"][r * per:(r + 1) * per] if fleet \
+                else one["mu"]
+            check(torch.equal(got["mu"], want_mu), f"{what}: masked μ "
+                  "bitwise")
+            same_state(got["repaired"], one["repaired"], f"{what} repaired")
+            same_state(got["final"], one["final"], f"{what} final")
+            if "ssq" in one:
+                check(torch.equal(got["ssq"], one["ssq"]),
+                      f"{what}: the repaired ring's ssq bitwise")
+            check(set(info["d2h_admit"]) == {1}
+                  and set(info["d2h_check"]) == {1},
+                  f"{what}: one D2H an admit (degraded or not) and a "
+                  "health_check")
+            launched = js["paths"][f"dist_life_{name}_r{r}"]["launches"]
+            check(all(launched[k] > 0 for k in ("srp_hash", "ace_query",
+                                                "ace_update"))
+                  and launched["ace_admit_fused"] == 0,
+                  f"{what}: srp_hash, ace_query_sum and ace_update "
+                  "launched, no fused admission")
+        info = res[(2, 0)][0]["life"][name]
+        print(f"  (g) {name} {layout}: flagged {len(flagged)} tables; "
+              f"health_check {info['health_check_ms']:.3f} ms, repair "
+              f"{info['repair_ms']:.3f} ms at world 2 (one process "
+              f"{one['health_check_ms']:.3f} / {one['repair_ms']:.3f} ms); "
+              f"in turns, admit p50 degraded {info['degraded_p50_ms']:.3f} "
+              f"ms, healthy {info['healthy_p50_ms']:.3f} ms (host clock); "
+              f"collectives of a degraded admit "
+              f"{info['degraded_collectives']}, of a healthy one "
+              f"{info['healthy_collectives']}; recovered "
+              f"{one['landed'] + 1} admits after the repair ({card})")
 
 
 # ---------------------------------------------------------------------------
@@ -7805,7 +8095,8 @@ def main() -> int:
     print("phase 19: repro_torch.dist as gloo ranks on the card: flat "
           "guardrails replicated and table-sharded, tenant-sharded fleets, "
           "the table-sharded stream, a K=18 L=200 sketch, ZeRO-2 training, "
-          "GPipe")
+          "GPipe, the sharded guardrails' audit, degraded admits and "
+          "repair")
     t19 = time.perf_counter()
     paths.update(phase_dist(mods, device, card))
     print(f"  phase 19 took {time.perf_counter() - t19:.1f} s")

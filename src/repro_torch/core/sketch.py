@@ -419,14 +419,16 @@ def sq_sum(counts: torch.Tensor, dim=None) -> torch.Tensor:
     return torch.sum(wide) if dim is None else torch.sum(wide, dim=dim)
 
 
-def mean_mu(state: AceState,
-            table_mask: torch.Tensor | None = None) -> torch.Tensor:
+def mean_mu(state: AceState, table_mask: torch.Tensor | None = None,
+            whole=None) -> torch.Tensor:
     """Exact dataset mean score μ = Σ‖A_j‖² / (n·L)  (≡ paper Eq. 11),
     Σ‖A_j‖² summed exactly (``sq_sum``) and rounded to float32 once.
 
     ``table_mask`` (L,) restricts it to the healthy tables:
     Σ_{j healthy} ‖A_j‖² / (n · num_healthy).  A quantized plane sums
     its logical counts (``quantize.sq_sum``; densified under a mask).
+    ``whole`` maps a table-sharded rank's per-table ‖A_j‖² to all L
+    tables' (``ShardedSketch.mean_mu``).
     """
     L = state.counts.shape[0]
     if table_mask is None:
@@ -439,6 +441,8 @@ def mean_mu(state: AceState,
     maskf = table_mask.to(torch.float32)
     nh = torch.clamp_min(torch.sum(maskf), 1.0)
     per_table = torch.sum(c * c, dim=1)                          # (L,)
+    if whole is not None:
+        per_table = whole(per_table)
     return torch.sum(per_table * maskf) / (torch.clamp_min(state.n, 1.0)
                                            * nh)
 

@@ -44,12 +44,21 @@ Layouts (``repro_torch.dist.mesh``):
   its block with the tenant ids made local, with no collective on the
   tenant axis; the second composes the table split.
 
+Degraded (table-masked) scoring and the health audit run on every
+layout (``ShardedSketch``): every rank keeps the whole health mask ((L,),
+or its tenants' (T_local, L)), the kernel sums the rank's healthy
+tables, the partial sums are all-reduced and scaled by 1/num_healthy of
+the whole mask, and the masked μ reduces the all-gathered per-table
+Σc² as one card does; the audit's verdicts are ANDed over the replicas
+and all-gathered whole.
+
 Quantized sketches (``esc_capacity > 0``) are refused outside the
 replicated layout, as in the reference.
 """
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.core import sketch as sk
 from repro_torch.core.sketch import AceConfig, AceState
@@ -59,7 +68,7 @@ from repro_torch.dist.mesh import (P, axis_sizes, dim_axes, fleet_pspecs,
                                    window_pspecs)
 from repro_torch.fleet import state as fl
 from repro_torch.kernels import ops as kops
-from repro_torch.kernels.ace_query import ace_query_sum
+from repro_torch.kernels.ace_query import ace_query_sum, num_healthy
 from repro_torch.kernels.ace_update import ace_update
 from repro_torch.quantile import moments
 from repro_torch.window import ring
@@ -550,8 +559,10 @@ class ShardedSketch:
     """A sketch layout resolved on a live mesh for this rank: the hooks
     that ``Guardrail(mesh=…)`` and the filters under
     ``StreamRunner(mesh=…)`` hand to ``repro_torch.kernels.ops``'s admissions and thresholds as
-    ``shard``: the hash's slice, the table axis's sums and gathers, μ and
-    the rotation's ssq over the whole sketch.
+    ``shard``: the hash's slice, the table axis's sums and gathers (a
+    health mask's block and its whole healthy count), μ (masked or not)
+    and the rotation's and repair's ssq over the whole sketch, and the
+    audit made whole (``whole_audit``).
 
     ``kind`` is ``"flat"``, ``"window"`` or ``"fleet"``.  Every rank of a
     table group scores and inserts the same batch; ranks along a fleet's
@@ -609,6 +620,20 @@ class ShardedSketch:
         lo, hi = self.tenant_start, self.tenant_start + self.t_local
         return bool(((tenant_ids >= lo) & (tenant_ids < hi)).all())
 
+    def tenant_block(self, x):
+        """This rank's tenants' rows of a (T, …) tensor or array (all of
+        them off the tenant layouts)."""
+        if self.tenant_shards == 1:
+            return x
+        return x[self.tenant_start:self.tenant_start + self.t_local]
+
+    def table_block(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's tables of a (…, L) tensor (a health mask)."""
+        if self.table_shards == 1:
+            return x
+        return x[..., self.table_start:self.table_start + self.l_local] \
+            .contiguous()
+
     # -- the pieces -----------------------------------------------------------
     def buckets(self, q: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
         """ALL L tables hashed, this rank's (B, L_local) kept."""
@@ -629,37 +654,126 @@ class ShardedSketch:
         return col.all_gather(x, self.mesh, self.table_axis,
                               dim=dim).contiguous()
 
+    def whole_planes(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole (L, 2^K) of this rank's (L_local, 2^K) float planes
+        (a ring's tail, or tail + live epoch): one all-gather of 4·L·2^K
+        bytes, so their ‖·‖² is the single card's sum."""
+        return self.gather_tables(x, dim=-2)
+
     def scores(self, counts: torch.Tensor, buckets: torch.Tensor,
-               row_base: torch.Tensor | None = None) -> torch.Tensor:
-        return self.table_sum(ace_query_sum(counts, buckets, row_base,
-                                            scale="sum")) \
-            * sk.reciprocal(self.cfg.num_tables).to(counts.device)
+               row_base: torch.Tensor | None = None, *,
+               table_mask: torch.Tensor | None = None,
+               tenant_ids: torch.Tensor | None = None) -> torch.Tensor:
+        """(B,) means over the tables: this rank's unscaled partial sums,
+        ONE (B,) all-reduce over the table axis, × float32(1/L).  With a
+        health mask ((L,), or this rank's tenants' (T_local, L) routed by
+        the local ``tenant_ids``) the kernel sums this rank's healthy
+        tables and the all-reduced sum is scaled by 1/num_healthy of the
+        WHOLE mask, computed here: the kernel's own ``"mean"`` would divide
+        by this rank's count."""
+        if table_mask is None:
+            return self.table_sum(ace_query_sum(counts, buckets, row_base,
+                                                scale="sum")) \
+                * sk.reciprocal(self.cfg.num_tables).to(counts.device)
+        part = ace_query_sum(counts, buckets, row_base,
+                             table_mask=self.table_block(table_mask),
+                             tenant_ids=tenant_ids, scale="sum")
+        return self.table_sum(part) * (1.0 / num_healthy(table_mask,
+                                                         tenant_ids))
+
+    def masked_sums(self, counts: torch.Tensor, buckets: torch.Tensor,
+                    row_base: torch.Tensor | None, table_mask: torch.Tensor,
+                    tenant_ids: torch.Tensor | None = None):
+        """(masked, unmasked) unscaled sums of the gathered counters: one
+        ``ace_query_sum`` launch with ``with_unmasked`` on this rank's
+        block of the mask, both partial sums all-reduced in ONE (2, B)
+        call."""
+        both = torch.stack(ace_query_sum(
+            counts, buckets, row_base, table_mask=self.table_block(table_mask),
+            tenant_ids=tenant_ids, scale="sum", with_unmasked=True))
+        both = self.table_sum(both)
+        return both[0], both[1]
 
     def sq_sum(self, counts: torch.Tensor, dim=None) -> torch.Tensor:
         return self.table_sum(sk.sq_sum(counts, dim)).to(F32)
 
     # -- the statistics the thresholds read -----------------------------------
-    def mean_mu(self, state) -> torch.Tensor:
-        """μ of the whole sketch, Σc² summed exactly over the table axis:
-        () for a flat sketch, (T_local,) for this rank's tenants of a
-        fleet.  A quantized (replicated) plane takes ``sketch.mean_mu``."""
-        dim = (1, 2) if self.kind == "fleet" else None
-        if dim is None and state.esc is not None:
-            return sk.mean_mu(state)
-        return self.sq_sum(state.counts, dim) / (
-            torch.clamp_min(state.n, 1.0) * self.cfg.num_tables)
+    def mean_mu(self, state, table_mask: torch.Tensor | None = None,
+                gamma: float = 1.0) -> torch.Tensor:
+        """μ of the whole sketch: () for a flat sketch or a ring (μ_w at
+        ``gamma``), (T_local,) for this rank's tenants of a fleet.  With
+        no mask Σc² is summed exactly over the table axis (a ring's ssq is
+        already the whole ring's).  With a health mask ((L,), or the
+        rank's tenants' (T_local, L)) each table's float32 Σc² (of the
+        γ-combined ring) is taken on its rank and the (…, L) vector
+        all-gathered over the table axis inside the single card's own
+        function, so μ is the single card's.  A quantized (replicated)
+        plane takes ``sketch.mean_mu``."""
+        L = self.cfg.num_tables
+        whole = lambda x: self.gather_tables(x, dim=-1)     # noqa: E731
+        if self.kind == "window":
+            return ring.mean_mu_windowed(state, gamma, table_mask, L, whole)
+        if self.kind == "fleet":
+            if table_mask is not None:
+                return fl.mean_mu_fleet(state, table_mask, whole)
+            return self.sq_sum(state.counts, (1, 2)) / (
+                torch.clamp_min(state.n, 1.0) * L)
+        if table_mask is not None or state.esc is not None:
+            return sk.mean_mu(state, table_mask, whole)
+        return self.sq_sum(state.counts) / (torch.clamp_min(state.n, 1.0)
+                                            * L)
 
-    def falpha(self, counts: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    def falpha(self, counts: torch.Tensor, n: torch.Tensor,
+               table_mask: torch.Tensor | None = None) -> torch.Tensor:
         """``falpha_index`` of the whole sketch: the per-table indices
-        gathered over the table axis, then their mean."""
+        gathered over the table axis, then their mean (over the healthy
+        tables of ``table_mask``, (L,) or the rank's tenants' (T_local,
+        L))."""
         per_table = self.gather_tables(moments.falpha_per_table(counts, n),
                                        dim=-1)
-        return torch.mean(per_table, dim=-1)
+        return moments.table_mean(per_table, table_mask)
 
     def maybe_rotate(self, wstate, rotate_every: int, gamma: float = 1.0):
         """``ring.maybe_rotate`` on this rank's ring block: the rotated
         candidate's ssq = ‖tail‖² over the tail all-gathered whole (one
         all-gather of 4·L·2^K bytes a call), the single card's sum."""
-        return ring.maybe_rotate(
-            wstate, rotate_every, gamma,
-            whole=lambda tail: self.gather_tables(tail, dim=-2))
+        return ring.maybe_rotate(wstate, rotate_every, gamma,
+                                 whole=self.whole_planes)
+
+    # -- the audit ------------------------------------------------------------
+    def replica_axes(self) -> tuple:
+        """The mesh axes along which ranks hold the same block: every axis
+        the layout does not split (all of them when replicated)."""
+        split = set()
+        if self.table_shards > 1:
+            split.add(self.table_axis)
+        if self.tenant_shards > 1:
+            split.add(self.tenant_axis)
+        return tuple(a for a in axis_sizes(self.mesh) if a not in split)
+
+    def whole_audit(self, block: torch.Tensor, table_cols: int):
+        """A rank's packed audit block made whole.  ``block`` is float32
+        (rows, table_cols·L_local + s): one row a tenant of the rank's
+        (one for a flat sketch or a ring), first ``table_cols`` per-table
+        fields of its L_local tables (the verdicts, then the repair
+        offsets), then s per-row scalars (the moment and structure
+        verdicts, n).  Replicas AND their verdicts in one all-reduce (MIN:
+        the offsets and n they hold alike); the block is then
+        all-gathered over the table axis, its per-table fields put in
+        table order, and over the tenant axis under the tenant layouts.
+        Returns (the ANDed block, the whole (T or 1, table_cols·L + s)
+        matrix), both on the device."""
+        block = col.all_reduce(block, self.mesh, self.replica_axes(),
+                               op=dist.ReduceOp.MIN)
+        whole = block
+        if self.table_shards > 1:
+            rows, lt = block.shape[0], self.l_local
+            g = col.all_gather(block[None], self.mesh, self.table_axis,
+                               dim=0)                  # (shards, rows, C)
+            per_table = g[:, :, :table_cols * lt].reshape(
+                self.table_shards, rows, table_cols, lt).permute(1, 2, 0, 3)
+            whole = torch.cat([per_table.reshape(rows, -1),
+                               g[0, :, table_cols * lt:]], dim=1)
+        if self.tenant_shards > 1:
+            whole = col.all_gather(whole, self.mesh, self.tenant_axis, dim=0)
+        return block, whole

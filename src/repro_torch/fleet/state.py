@@ -306,10 +306,11 @@ def insert_masked(state: FleetState, tenant_ids: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def mean_mu_fleet(state: FleetState,
-                  table_mask: torch.Tensor | None = None) -> torch.Tensor:
+                  table_mask: torch.Tensor | None = None,
+                  whole=None) -> torch.Tensor:
     """(T,) exact per-tenant μ = Σ‖A_j‖² / (n·L), Σ‖A_j‖² summed exactly
     (``sketch.sq_sum``); ``table_mask`` (T, L) means over each tenant's
-    healthy tables."""
+    healthy tables, ``whole`` as in ``sketch.mean_mu``."""
     L = state.counts.shape[1]
     if table_mask is None:
         return sk.sq_sum(state.counts, dim=(1, 2)).to(torch.float32) \
@@ -318,6 +319,8 @@ def mean_mu_fleet(state: FleetState,
     maskf = table_mask.to(torch.float32)
     nh = torch.clamp_min(torch.sum(maskf, dim=1), 1.0)
     per_table = torch.sum(c * c, dim=2)
+    if whole is not None:
+        per_table = whole(per_table)
     return torch.sum(per_table * maskf, dim=1) \
         / (torch.clamp_min(state.n, 1.0) * nh)
 

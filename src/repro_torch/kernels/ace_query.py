@@ -98,6 +98,16 @@ def healthy_tables(table_mask: torch.Tensor,
     return healthy[tenant_ids.long().clamp(0, healthy.shape[0] - 1)]
 
 
+def num_healthy(table_mask: torch.Tensor,
+                tenant_ids: torch.Tensor | None = None) -> torch.Tensor:
+    """The healthy tables of an (L,) mask, or of each item's row of a
+    (T, L) mask, (B,), as float32 clamped to at least 1: the masked
+    mean's divisor (a table-sharded rank takes it from the whole mask,
+    ``ShardedSketch.scores``)."""
+    return torch.clamp_min(torch.sum(healthy_tables(table_mask, tenant_ids),
+                                     dim=-1).to(torch.float32), 1.0)
+
+
 def ace_query_sum_plain(counts: torch.Tensor, buckets: torch.Tensor,
                         row_base: torch.Tensor | None = None, *,
                         table_mask: torch.Tensor | None = None,
@@ -114,10 +124,9 @@ def ace_query_sum_plain(counts: torch.Tensor, buckets: torch.Tensor,
     total = torch.sum(g, dim=-1)
     s, nh = total, None
     if table_mask is not None:
-        healthy = healthy_tables(table_mask, tenant_ids)
-        s = torch.sum(torch.where(healthy, g, 0), dim=-1)
-        nh = torch.clamp_min(torch.sum(healthy, dim=-1).to(torch.float32),
-                             1.0)
+        s = torch.sum(torch.where(healthy_tables(table_mask, tenant_ids),
+                                  g, 0), dim=-1)
+        nh = num_healthy(table_mask, tenant_ids)
     out = s.to(torch.float32)
     if scale == "mean":
         out = out * (sk.reciprocal(L) if nh is None else 1.0 / nh)

@@ -51,8 +51,12 @@ hooks: ``shard.buckets`` hashes all L tables and keeps the rank's slice,
 ``ace_query_sum`` partial sums over the table axis, ``shard.mean_mu``
 the exact Σc², and ``shard.gather_tables`` the float tail gathers.  With
 no ``shard`` each hook is the identity.  A flat admission under a mesh
-takes the unfused route (the fused kernel is single-card); a table mask
-under a mesh raises.
+takes the unfused route (the fused kernel is single-card).  A health
+mask under a mesh stays whole on every rank ((L,), or the rank's
+tenants' (T_local, L)): the kernel sums the rank's healthy tables, the
+partial sums are all-reduced (masked and unmasked together in one call
+where both are needed) and scaled by 1/num_healthy of the whole mask,
+and the masked μ all-gathers the per-table Σc².
 
 Quantile admission (``threshold_mode="quantile"``) hands every kernel
 the same one score-space threshold per tenant, so no kernel changes: the
@@ -126,17 +130,10 @@ def _mean(counts: torch.Tensor, buckets: torch.Tensor, shard,
     """The (B,) mean over L of the gathered counters: one
     ``ace_query_sum`` launch (× float32(1/L), or the healthy tables'
     mean under ``masks``); under a mesh the rank's unscaled partial sums
-    all-reduced, then × float32(1/L) (``ShardedSketch.scores``)."""
+    all-reduced, then scaled (``ShardedSketch.scores``)."""
     if shard is None:
         return _q.ace_query_sum(counts, buckets, rows, **masks)
-    return shard.scores(counts, buckets, rows)
-
-
-def _no_mask(shard, table_mask) -> None:
-    if shard is not None and table_mask is not None:
-        raise NotImplementedError(
-            "degraded (table-masked) scoring is single-card: the sharded "
-            "layouts do not audit or mask tables")
+    return shard.scores(counts, buckets, rows, **masks)
 
 
 def admit_threshold(state: AceState, alpha: float, warmup_items: float, *,
@@ -145,8 +142,7 @@ def admit_threshold(state: AceState, alpha: float, warmup_items: float, *,
                     shard=None) -> torch.Tensor:
     """``sketch.admit_threshold``; under a mesh with μ over the whole
     sketch (``ShardedSketch.mean_mu``)."""
-    _no_mask(shard, table_mask)
-    mu = shard.mean_mu(state) \
+    mu = shard.mean_mu(state, table_mask) \
         if shard is not None and threshold_mode == "mu_sigma" else None
     return _sk.admit_threshold(state, alpha, warmup_items,
                                table_mask=table_mask,
@@ -158,13 +154,14 @@ def admit_threshold_windowed(wstate, gamma: float, alpha: float,
                              table_mask: torch.Tensor | None = None,
                              threshold_mode: str = "mu_sigma",
                              q: float = 0.01, shard=None) -> torch.Tensor:
-    """``ring.admit_threshold_windowed``; under a mesh μ_w from the ring's
-    ssq, which every rank holds whole, over all L tables."""
-    _no_mask(shard, table_mask)
+    """``ring.admit_threshold_windowed``; under a mesh μ_w over all L
+    tables (``ShardedSketch.mean_mu``: the ring's ssq, which every rank
+    holds whole, or the masked per-table norms gathered)."""
+    mu = shard.mean_mu(wstate, table_mask, gamma) \
+        if shard is not None and threshold_mode == "mu_sigma" else None
     return _ring.admit_threshold_windowed(
         wstate, gamma, alpha, warmup_items, table_mask=table_mask,
-        threshold_mode=threshold_mode, q=q,
-        num_tables=None if shard is None else shard.cfg.num_tables)
+        threshold_mode=threshold_mode, q=q, mu=mu)
 
 
 def admit_thresholds(fstate, alpha: float, warmup_items: float, *,
@@ -172,9 +169,9 @@ def admit_thresholds(fstate, alpha: float, warmup_items: float, *,
                      threshold_mode: str = "mu_sigma", q: float = 0.01,
                      shard=None) -> torch.Tensor:
     """``fleet.state.admit_thresholds`` (T,); under a mesh the (T_local,)
-    thresholds of this rank's tenants, μ over all L tables."""
-    _no_mask(shard, table_mask)
-    mu = shard.mean_mu(fstate) \
+    thresholds of this rank's tenants, μ over all L tables (a mask: the
+    rank's tenants' (T_local, L))."""
+    mu = shard.mean_mu(fstate, table_mask) \
         if shard is not None and threshold_mode == "mu_sigma" else None
     return _fls.admit_thresholds(fstate, alpha, warmup_items,
                                  table_mask=table_mask,
@@ -282,7 +279,6 @@ def ace_admit_at(state: AceState, q: torch.Tensor, w: torch.Tensor,
     and ``sketch.insert_buckets_masked`` (the reference's path).
     Returns (new_state, admit (B,) bool, pre-insert scores (B,) f32).
     """
-    _no_mask(shard, table_mask)
     if state.esc is not None:
         buckets = _hash(q, w, cfg, shard)
         scores = _sk.lookup(state, buckets, table_mask)
@@ -377,9 +373,10 @@ def _window_sums(wstate, buckets: torch.Tensor, rows: torch.Tensor,
     ``ace_query_sum`` launch at base rows ``rows`` (masked and unmasked
     at once), the float tail gathered and summed in plain PyTorch, as
     ``ring.table_sums`` does.  ``table_mask`` is (L,), or (T, L) routed
-    by ``tenant_ids``.  Under a mesh (no mask) the tail gathers are
-    all-gathered over the table axis and summed whole, the single card's
-    float sequence, and the live partial sums all-reduced."""
+    by ``tenant_ids``.  Under a mesh the tail gathers are all-gathered
+    over the table axis and summed whole, the single card's float
+    sequence, and the live partial sums all-reduced (masked and unmasked
+    in one call, ``ShardedSketch.masked_sums``)."""
     flat = _flat(wstate.counts)
     tail_g = _u.gather_rows(_flat(wstate.tail), buckets, tail_rows)
     if shard is not None:
@@ -389,9 +386,13 @@ def _window_sums(wstate, buckets: torch.Tensor, rows: torch.Tensor,
         pre = (tail_pre, _table_sum(
             _q.ace_query_sum(flat, buckets, rows, scale="sum"), shard))
         return pre, pre
-    live_dec, live_pre = _q.ace_query_sum(
-        flat, buckets, rows, table_mask=table_mask, tenant_ids=tenant_ids,
-        scale="sum", with_unmasked=True)
+    if shard is None:
+        live_dec, live_pre = _q.ace_query_sum(
+            flat, buckets, rows, table_mask=table_mask,
+            tenant_ids=tenant_ids, scale="sum", with_unmasked=True)
+    else:
+        live_dec, live_pre = shard.masked_sums(flat, buckets, rows,
+                                               table_mask, tenant_ids)
     maskf = table_mask.to(torch.float32)
     if maskf.dim() == 2:
         maskf = maskf[tenant_ids.long()]
@@ -415,7 +416,6 @@ def ace_admit_windowed_at(wstate, q: torch.Tensor, w: torch.Tensor,
     unmasked scoring sums; a ``shard`` runs it on its ring block
     (``_window_sums``).  Returns (new_state, admit (B,) bool, pre-insert
     scores (B,))."""
-    _no_mask(shard, table_mask)
     L = cfg.num_tables
     buckets = _hash(q, w, cfg, shard)
     rows = _ring.live_rows(wstate, buckets.shape[0])
@@ -493,9 +493,9 @@ def ace_fleet_admit_at(fstate, q: torch.Tensor, tenant_ids: torch.Tensor,
     post-insert ``ace_query_sum`` for the per-tenant Welford fold.  A
     ``shard`` runs it on its block, ``tenant_ids`` local, at base row
     tid·L_local, the partial sums all-reduced over the table axis (none
-    when the tables are whole).  Returns (new_state, admit (B,) bool,
-    pre-insert scores (B,))."""
-    _no_mask(shard, table_mask)
+    when the tables are whole), ``table_mask`` the rank's tenants'
+    (T_local, L).  Returns (new_state, admit (B,) bool, pre-insert scores
+    (B,))."""
     buckets = _hash(q, w, cfg, shard)
     rows = _fls.tenant_rows(tenant_ids, buckets.shape[1])
     flat = _flat(fstate.counts)

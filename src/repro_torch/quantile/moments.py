@@ -38,7 +38,14 @@ def falpha_index(counts: torch.Tensor, n: torch.Tensor, alpha: float = 1.25,
     against the leading axes.  Negative counters (corruption) clamp to 0
     so the fractional power is defined; ``table_mask`` ((L,) or (T, L))
     restricts the table mean to healthy planes."""
-    per_table = falpha_per_table(counts, n, alpha)
+    return table_mean(falpha_per_table(counts, n, alpha), table_mask)
+
+
+def table_mean(per_table: torch.Tensor,
+               table_mask: torch.Tensor | None = None) -> torch.Tensor:
+    """The mean over the last (table) axis of ``falpha_per_table``'s
+    indices, over the healthy tables of ``table_mask`` when one is
+    given."""
     if table_mask is None:
         return torch.mean(per_table, dim=-1)
     maskf = table_mask.to(torch.float32)

@@ -34,6 +34,11 @@ order of reduction; a flip that pushes a sum past 2^24 leaves it past
 2^24 in any order, and a negative counter fails the range check whatever
 its table sums to, so the verdicts are the reference's whenever n < 2^24.
 
+Each check reads whole tables only, so it runs unchanged on a
+table-sharded or tenant-sharded rank's block (``repro_torch.dist``):
+the per-table sums stay local, and ``Guardrail`` makes the block's
+report whole (``ShardedSketch.whole_audit``).
+
 Repair (``repair_*``) zeroes the corrupted tables' planes while the
 healthy L − k keep serving.  Flat and fleet sketches return a repair
 offset per table — the n at repair time — since their counts never
@@ -267,14 +272,19 @@ def _live(counts: torch.Tensor, cursor: torch.Tensor) -> torch.Tensor:
     return torch.index_select(counts, 0, idx)[0]
 
 
-def repair_window(state: WindowedAceState,
-                  table_ok: torch.Tensor) -> WindowedAceState:
+def repair_window(state: WindowedAceState, table_ok: torch.Tensor,
+                  whole=None) -> WindowedAceState:
     """Zero the corrupted tables of a window ring — every epoch and the
-    tail row — and re-anchor ssq from the surviving planes."""
+    tail row — and re-anchor ssq from the surviving planes.  ``whole``
+    maps a table-sharded rank's (L_local, 2^K) tail + live plane to the
+    whole (L, 2^K) one, whose ‖·‖² is the ring's ssq (``ring.rotate``'s
+    argument)."""
     okc = table_ok.to(state.counts.dtype)
     new_counts = state.counts * okc[None, :, None]
     new_tail = state.tail * table_ok.to(torch.float32)[:, None]
     cw = new_tail + _live(new_counts, state.cursor).to(torch.float32)
+    if whole is not None:
+        cw = whole(cw)
     return state._replace(counts=new_counts, tail=new_tail,
                           ssq=torch.sum(cw * cw))
 

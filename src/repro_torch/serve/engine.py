@@ -130,8 +130,16 @@ class Guardrail:
     as the reference refuses its kernels: ``use_kernels`` defaults to None
     (the fused route without a mesh, the sharded one with it), True
     with a mesh raises and False with one takes the sharded route too.
-    Sharded windowed fleets, quantized planes outside ``"replicated"``
-    and the audit (``health_check``, ``repair``) are refused.
+    Sharded windowed fleets and quantized planes outside
+    ``"replicated"`` are refused, as in the reference.  The audit runs on
+    each rank's block: ranks holding the same tables (replicas) AND their
+    verdicts in one all-reduce, the block's verdicts, repair offsets and
+    n are all-gathered over the table (and tenant) axes, and every rank
+    returns the whole report from the one transfer of ``health_check``.
+    Each rank keeps the serving mask whole ((L,), or its tenants'
+    (T_local, L)) and serves degraded with the same one transfer an
+    admit; ``repair`` zeroes the rank's own corrupted tables (a ring's
+    ssq re-anchored over its planes gathered whole).
     """
 
     def __init__(self, gcfg: GuardrailConfig, *,
@@ -224,6 +232,7 @@ class Guardrail:
         self.quarantined = 0          # total non-finite rows seen
         # health state (repro.resilience): the serving table mask is None
         # while healthy, a device float32 (L,) / (T, L) mask while degraded
+        # (under a tenant layout the rows of this rank's tenants)
         self._table_mask = None
         self._repair_offsets = None   # flat/fleet per-table n at repair
         self._rewarm_admits = 0       # windowed re-warm countdown (admits)
@@ -419,25 +428,39 @@ class Guardrail:
 
     def _audit(self):
         """The invariant audit on the device and its report on the host:
-        (device report, host ``HealthReport`` of numpy arrays, host n,
-        host repair offsets or None), in one packed transfer."""
-        if self._shard is not None:
-            raise NotImplementedError(
-                "the audit and repair are single-card: a sharded "
-                "guardrail does not audit its blocks")
+        (device table verdicts of this rank's block, host
+        ``HealthReport`` of numpy arrays, host n, host repair offsets or
+        None), in one packed transfer.  The report's verdicts, the repair
+        offsets and n are packed as float32 rows, one a tenant (one for a
+        flat sketch or a ring): per-table fields, then per-row scalars;
+        under a mesh ``ShardedSketch.whole_audit`` ANDs them over the
+        replicas and gathers them whole."""
         report = rz.health_check(self.state, self._repair_offsets)
-        parts = list(report)
-        if self._repair_offsets is not None:
-            parts += [self.state.n, self._repair_offsets]
-        flat = _to_host(torch.cat(
-            [p.reshape(-1).to(torch.float32) for p in parts]))
-        out, at = [], 0
-        for p in parts:
-            out.append(flat[at:at + p.numel()].reshape(tuple(p.shape)))
-            at += p.numel()
-        host = rz.HealthReport(*(x.astype(bool) for x in out[:4]))
-        n, offs = (out[4], out[5]) if len(out) > 4 else (None, None)
-        return report, host, n, offs
+        offs = self._repair_offsets
+        rows = report.table_ok.reshape(-1, report.table_ok.shape[-1])
+        per_table = [report.table_ok] + ([] if offs is None else [offs])
+        per_row = [report.moments_ok, report.struct_ok] \
+            + ([] if offs is None else [self.state.n])
+        block = torch.cat([p.reshape(rows.shape[0], -1).to(torch.float32)
+                           for p in per_table + per_row], dim=1)
+        whole = block
+        if self._shard is not None:
+            block, whole = self._shard.whole_audit(block, len(per_table))
+        table_ok = (block[:, :rows.shape[1]] > 0).reshape(
+            report.table_ok.shape)
+        host = _to_host(whole)                          # the ONE transfer
+        L = self.gcfg.num_tables
+        shape = (-1,) if self.multi_tenant else ()
+        tables = host[:, :L] > 0
+        moments_ok, struct_ok = (host[:, len(per_table) * L + i] > 0
+                                 for i in range(2))
+        report = rz.HealthReport(*(x.reshape(shape + x.shape[1:]) for x in (
+            tables, moments_ok, struct_ok,
+            tables.all(axis=1) & moments_ok & struct_ok)))
+        if offs is None:
+            return table_ok, report, None, None
+        return (table_ok, report, host[:, -1].reshape(shape),
+                host[:, L:2 * L].reshape(shape + (L,)))
 
     def health_check(self):
         """Audit the sketch invariants (``resilience.health_check``) and
@@ -460,8 +483,13 @@ class Guardrail:
             # windowed re-warm gate: repaired ring tables stay masked until
             # the zeroed epochs have expired
             serving &= ~self._rewarming
-        self._table_mask = None if serving.all() else torch.as_tensor(
-            serving, dtype=torch.float32, device=self.device)
+        if serving.all():
+            self._table_mask = None
+        else:
+            if self._shard is not None:   # the rows of this rank's tenants
+                serving = self._shard.tenant_block(serving)
+            self._table_mask = torch.as_tensor(serving, dtype=torch.float32,
+                                               device=self.device)
         return host
 
     def repair(self):
@@ -472,15 +500,17 @@ class Guardrail:
         warmup's worth of stream past the repair offsets; windowed:
         ``window_epochs × rotate_every`` admits).  Returns the host
         pre-repair ``HealthReport``."""
-        report, host, _, _ = self._audit()
-        table_ok = report.table_ok
+        table_ok, host, _, _ = self._audit()
+        sh = self._shard
         if self.multi_tenant and self.windowed:
             self.state = rz.repair_fleet_window(self.state, table_ok)
         elif self.multi_tenant:
             self.state, self._repair_offsets = rz.repair_fleet(
                 self.state, table_ok, self._repair_offsets)
         elif self.windowed:
-            self.state = rz.repair_window(self.state, table_ok)
+            self.state = rz.repair_window(
+                self.state, table_ok,
+                whole=None if sh is None else sh.whole_planes)
         else:
             self.state, self._repair_offsets = rz.repair_ace(
                 self.state, table_ok, self._repair_offsets)

@@ -41,7 +41,11 @@ filter's state is sharded (``repro_torch.dist.sketch_parallel``):
 fleet also ``"tenant_sharded"`` and ``"tenant_table_sharded"``.  Each rank
 holds its block, and every step runs through ``kernels.ops`` with the
 layout's ``ShardedSketch`` as ``shard`` (one (B,) all-reduce of partial
-sums a score over the table axis).  The
+sums a score over the table axis).  A health mask is given whole ((L,),
+or a fleet's (T, L), whose rows of the rank's tenants it keeps): scores
+and μ mask the rank's tables and divide by the whole mask's healthy
+count, and the summary's ``falpha`` takes the masked mean of the
+gathered per-table indices.  The
 rate histograms and attribution planes are replicated, or split with the
 tenants under the tenant layouts.  Every rank of a table group consumes
 the same chunks; under the tenant layouts each rank consumes a stream of
@@ -157,8 +161,7 @@ class StreamRunner:
     ``consume`` takes one (T, B, d) chunk with T = ``chunk_T`` (and, for a
     fleet, its (T, B) int32 tenant ids); ``return_masks=True`` also
     returns the (T, B) keep mask.  ``mesh``, ``sketch_layout`` and
-    ``table_axis`` shard the filter's state (module docstring); a chunk
-    under a mesh takes no ``table_mask``.
+    ``table_axis`` shard the filter's state (module docstring).
     """
 
     def __init__(self, filt, chunk_T: int, topk: int = 8,
@@ -221,7 +224,8 @@ class StreamRunner:
         (new_state, summary[, keeps]), all still on the device.
         ``table_mask`` ((L,), or (T, L) for a fleet) scores the chunk over
         healthy tables only and sets the summary's ``degraded``;
-        ``tenant_mask`` (T,) is a fleet's ownership mask."""
+        ``tenant_mask`` (T,) is a fleet's ownership mask.  Under a mesh
+        both are whole: a tenant layout keeps its tenants' rows."""
         if feats.ndim != 3 or feats.shape[0] != self.chunk_T:
             raise ValueError(f"want a ({self.chunk_T}, B, d) chunk, got "
                              f"{tuple(feats.shape)}")
@@ -239,8 +243,9 @@ class StreamRunner:
         if sh is not None and tenant_ids is not None:
             tenant_ids = sh.local_tenants(tenant_ids)
             if tenant_mask is not None:
-                tenant_mask = tenant_mask[sh.tenant_start:
-                                          sh.tenant_start + sh.t_local]
+                tenant_mask = sh.tenant_block(tenant_mask)
+            if table_mask is not None:
+                table_mask = sh.tenant_block(table_mask)
         keeps, margins = [], []
         for t in range(T):
             if self.is_fleet:
@@ -348,7 +353,7 @@ class StreamRunner:
     def _falpha(self, counts: torch.Tensor, n: torch.Tensor, table_mask):
         if self.shard is None:
             return falpha_index(counts, n, table_mask=table_mask)
-        return self.shard.falpha(counts, n)
+        return self.shard.falpha(counts, n, table_mask)
 
     def _summary(self, state, keeps: torch.Tensor, margins: torch.Tensor,
                  table_mask, hh: dict | None = None) -> ChunkSummary:

@@ -505,13 +505,15 @@ def combined_moments(state, gamma: float):
 
 def mean_mu_windowed(state, gamma: float,
                      table_mask: torch.Tensor | None = None,
-                     num_tables: int | None = None) -> torch.Tensor:
+                     num_tables: int | None = None,
+                     whole=None) -> torch.Tensor:
     """γ-generalised Eq. 11 closed form μ_w = ‖C_w‖² / (n_w·L) from the
     maintained ssq (exact at γ = 1).  ``table_mask`` ((L,), or (T, L) for
     a fleet) recomputes per-table squared norms from ``decayed_counts``
     and means over the healthy tables.  ``num_tables`` is L when the
     state holds only some of the tables (a table-sharded rank's block,
-    whose ssq is the whole ring's)."""
+    whose ssq is the whole ring's); ``whole`` then maps its per-table
+    norms to all L tables' (``ShardedSketch.mean_mu``)."""
     L = num_tables or state.counts.shape[-2]
     n_w = torch.clamp_min(combined_n(state, gamma), 1.0)
     if table_mask is None:
@@ -520,6 +522,8 @@ def mean_mu_windowed(state, gamma: float,
     nh = torch.clamp_min(torch.sum(maskf, dim=-1), 1.0)
     cw = decayed_counts(state, gamma)
     per_table = torch.sum(cw * cw, dim=-1)
+    if whole is not None:
+        per_table = whole(per_table)
     return torch.sum(per_table * maskf, dim=-1) / (n_w * nh)
 
 
@@ -534,13 +538,14 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
                              table_mask: torch.Tensor | None = None,
                              threshold_mode: str = "mu_sigma",
                              q: float = 0.01,
-                             num_tables: int | None = None) -> torch.Tensor:
+                             mu: torch.Tensor | None = None) -> torch.Tensor:
     """Score-space admission threshold from WINDOW-combined statistics:
     ``sketch.admit_threshold`` with every statistic swapped for its window
     counterpart — μ−ασ: (rate_w − α·σ_w)·max(n_w, 1); quantile: the
     q-quantile of ``combined_qhist`` times max(n_w, 1) — −inf while n_w is
     below ``warmup_items``.  () for a ring, (T,) for a fleet; device ops
-    only."""
+    only.  ``mu`` passes a μ_w computed elsewhere (a table-sharded ring's,
+    over all its ranks' tables)."""
     n_w = combined_n(state, gamma)
     if threshold_mode == "quantile":
         t = qsk.hist_quantile(combined_qhist(state, gamma), q) \
@@ -548,9 +553,9 @@ def admit_threshold_windowed(state, gamma: float, alpha: float,
         return torch.where(n_w >= warmup_items, t, float("-inf"))
     if threshold_mode != "mu_sigma":
         raise ValueError(f"unknown threshold_mode {threshold_mode!r}")
-    rate = mean_mu_windowed(state, gamma, table_mask=table_mask,
-                            num_tables=num_tables) \
-        / torch.clamp_min(n_w, 1.0)
+    if mu is None:
+        mu = mean_mu_windowed(state, gamma, table_mask=table_mask)
+    rate = mu / torch.clamp_min(n_w, 1.0)
     t = (rate - alpha * sigma_windowed(state, gamma)) \
         * torch.clamp_min(n_w, 1.0)
     return torch.where(n_w >= warmup_items, t, float("-inf"))

@@ -15,6 +15,11 @@ Two oracles, each computed once for the module:
 
 The port runs every layout and entry point in ONE spawn of 4 ``gloo``
 ranks on the CPU (``torch_dist_helpers.py``, a (2, 2) data × model mesh).
+The self-healing lifecycle of each sharded ``Guardrail`` and a masked
+stream chunk are held to the reference's single-device ``Guardrail`` and
+``StreamRunner`` on the same W, traffic and bit flips (drawn here with
+numpy, in tables of both table shards and tenants of both tenant
+groups).
 Tolerances: counts, n, scores, μ and masks bitwise on the table and
 tenant axes; the Welford mean and M2 at rtol 1e-6 against the reference
 (batch sums in another order), bitwise against the port's own single
@@ -164,9 +169,112 @@ def _reference_guardrails() -> dict:
     return out
 
 
+def _draw_flips(case: int) -> np.ndarray:
+    """(k, 4) flips (lead, table, bucket, bit) of a GUARD_CASES case: one
+    in a table of each table shard (4 tables each), and for a fleet in a
+    tenant of each tenant group ({0, 1}, {2, 3}) against each shard; the
+    lead of a ring a random epoch; bits 16-30, which a count of this
+    traffic never has, so every flip raises its table's sum."""
+    _, fields, _ = H.GUARD_CASES[case]
+    rng = np.random.default_rng(400 + case)
+    L, nb = H.GUARD_BASE["num_tables"], 1 << H.GUARD_BASE["num_bits"]
+    epochs = fields.get("window_epochs", 1)
+    fleet = fields.get("num_tenants", 1) > 1
+    flips = []
+    for group in (0, 1) if fleet else (0,):
+        for shard in (0, 1):
+            lead = (2 * group + rng.integers(0, 2) if fleet
+                    else rng.integers(0, epochs))
+            flips.append((lead, shard * L // 2 + rng.integers(0, L // 2),
+                          rng.integers(0, nb), rng.integers(16, 31)))
+    return np.asarray(flips, np.int64)
+
+
+def _flip(counts, flips: np.ndarray, kind: str) -> np.ndarray:
+    c = np.array(counts)
+    bits = c.view(np.uint32)
+    for lead, j, b, bit in flips.tolist():
+        bits[H.flip_index(lead, j, b, kind)] ^= np.uint32(1 << bit)
+    return c
+
+
+def _reference_lifecycles(ref: dict) -> dict:
+    """Each GUARD_CASES case's lifecycle on the reference, single device
+    (a ``LIFE_CASES`` replica case shares its case's): the flips drawn
+    here, then what ``torch_dist_helpers.lifecycle`` records, the tenant
+    groups admitted one after the other."""
+    out = {}
+    for case, (name, gc, replica) in enumerate(H.LIFE_CASES):
+        gname, fields, layout = H.GUARD_CASES[gc]
+        if replica:
+            continue
+        flips = _draw_flips(gc)
+        out[f"life_{gname}_flips"] = flips
+        g = jengine.Guardrail(jengine.GuardrailConfig(**{**H.GUARD_BASE,
+                                                         **fields}))
+        assert np.array_equal(np.asarray(g.w), ref[f"g_{gname}_w"])
+        kind = ("fleet" if g.multi_tenant else "window" if g.windowed
+                else "flat")
+        batches = iter(H.life_batches(case, H.tenant_groups(layout)))
+        masks, reports, flags = [], [], []
+
+        def serve():
+            masks.append([np.asarray(g.admit(jnp.asarray(e)) if t is None
+                                     else g.admit(jnp.asarray(e),
+                                                  jnp.asarray(t)))
+                          for e, t in next(batches)])
+
+        def audit(method):
+            rep = getattr(g, method)()
+            reports.append(np.concatenate([np.asarray(x, bool).reshape(-1)
+                                           for x in rep]))
+            flags.append((g.degraded, g._rewarm_admits))
+
+        for _ in range(H.LIFE_WARM):
+            serve()
+        g.state = g.state._replace(counts=jnp.asarray(
+            _flip(g.state.counts, flips, kind)))
+        audit("health_check")
+        serve()
+        audit("repair")
+        for k in FIELDS:
+            out[f"life_{gname}_repaired_{k}"] = np.asarray(getattr(g.state,
+                                                                   k))
+        landed = -1
+        for i in range(H.LIFE_REWARM):
+            serve()
+            audit("health_check")
+            if not g.degraded:
+                landed = i
+                break
+        serve()
+        out[f"life_{gname}_masks"] = np.asarray(masks)   # (admits, groups, B)
+        out[f"life_{gname}_reports"] = np.stack(reports)
+        out[f"life_{gname}_flags"] = np.asarray(flags)
+        out[f"life_{gname}_landed"] = np.asarray(landed)
+        for k in FIELDS:
+            out[f"life_{gname}_final_{k}"] = np.asarray(getattr(g.state, k))
+    return out
+
+
+def _stream_mask(case: int) -> np.ndarray:
+    """A stream case's health mask: (L,) with one table of each table
+    shard masked; a fleet's (T, L) with one such table a tenant."""
+    _, kind, fields, _ = H.STREAM_CASES[case]
+    rng = np.random.default_rng(500 + case)
+    L = H.FILTER_BASE["num_tables"]
+    rows = fields.get("num_tenants", 1) if kind == "fleet" else 1
+    mask = np.ones((rows, L), np.float32)
+    for r in range(rows):
+        mask[r, rng.integers(0, L // 2)] = 0.0
+        mask[r, L // 2 + rng.integers(0, L // 2)] = 0.0
+    return mask if kind == "fleet" else mask[0]
+
+
 def _reference_streams() -> dict:
     """Each StreamRunner case on the reference: W, keep masks, state,
-    summaries (a fleet's tenant groups' chunks in turns)."""
+    summaries (a fleet's tenant groups' chunks in turns), then one chunk
+    a group under the case's health mask."""
     kinds = {"flat": JFlat, "window": JWindow, "fleet": JFleet}
     out = {}
     for c, (name, kind, fields, layout) in enumerate(H.STREAM_CASES):
@@ -191,6 +299,23 @@ def _reference_streams() -> dict:
         for f in ("n", "falpha", "kept_frac", "topk_margin"):
             out[f"s_{name}_sum_{f}"] = np.stack([np.asarray(getattr(s, f))
                                              for s in summaries])
+        mask = _stream_mask(c)
+        out[f"s_{name}_mask"] = mask
+        masked = {"keeps": [], "sum_n": [], "sum_falpha": [],
+                  "sum_degraded": []}
+        for feats, tids in H.stream_batches(c, H.tenant_groups(layout), 1,
+                                            seed=250):
+            state, summary, keep = runner.consume(
+                state, w, jnp.asarray(np.stack(feats)),
+                None if tids is None else jnp.asarray(np.stack(tids)),
+                table_mask=jnp.asarray(mask))
+            masked["keeps"].append(np.asarray(keep))
+            for f in ("n", "falpha", "degraded"):
+                masked[f"sum_{f}"].append(np.asarray(getattr(summary, f)))
+        for f, v in masked.items():
+            out[f"sm_{name}_{f}"] = np.stack(v)          # (groups, ...)
+        for k in FIELDS:
+            out[f"sm_{name}_{k}"] = np.asarray(getattr(state, k))
     return out
 
 
@@ -246,6 +371,7 @@ def results(tmp_path_factory):
           "JAX_PLATFORMS": "cpu"})
     ref = dict(np.load(oracle))
     ref.update(_reference_guardrails())
+    ref.update(_reference_lifecycles(ref))
     ref.update(_reference_streams())
     ref.update(_reference_training())
     inputs, port = tmp / "inputs.npz", tmp / "port.npz"
@@ -351,6 +477,81 @@ def test_stream_runner_layouts_match_single_device(results, case):
             np.testing.assert_allclose(port[f"s_{case}_sum_{f}"],
                                        ref[f"s_{case}_sum_{f}"], rtol=RTOL,
                                        atol=1e-7)
+
+
+@pytest.mark.parametrize("case", [c[0] for c in H.LIFE_CASES])
+def test_guardrail_lifecycle_matches_single_device(results, case):
+    """``health_check``, degraded admits, ``repair`` and the re-warm of a
+    sharded ``Guardrail`` against the reference's single-device one on the
+    same W, traffic and flips, on every rank: verdicts at every admit,
+    the whole report of every audit, ``degraded`` and
+    ``_rewarm_admits`` after it, the admit at which recovery lands, the
+    gathered repaired and final counts and n bitwise (Welford rtol 1e-6);
+    the masked μ of ``ShardedSketch.mean_mu`` bitwise the single card's
+    on the gathered state; one ``_to_host`` an admit, degraded or not,
+    and one a ``health_check``.  The replica case flips on data rank 0
+    only: every rank still masks and repairs the same tables, so every
+    replica's repaired counts are equal."""
+    ref, port = results
+    _, gc, replica = dict((c[0], c) for c in H.LIFE_CASES)[case]
+    gname, _, layout = H.GUARD_CASES[gc]
+    groups = H.tenant_groups(layout)
+    got = {k[len(f"life_{case}_"):]: v for k, v in port.items()
+           if k.startswith(f"life_{case}_")}
+    want = {k[len(f"life_{gname}_"):]: v for k, v in ref.items()
+            if k.startswith(f"life_{gname}_")}
+    assert want["landed"] >= 0, "the reference recovers within the cap"
+    assert want["flags"][0][0], "the flips degrade the reference"
+    for r in range(H.WORLD):
+        g = r // 2 if groups > 1 else 0
+        np.testing.assert_array_equal(got["masks"][r], want["masks"][:, g],
+                                      err_msg=f"rank {r} verdicts")
+        np.testing.assert_array_equal(got["reports"][r], want["reports"],
+                                      err_msg=f"rank {r} reports")
+        np.testing.assert_array_equal(got["flags"][r], want["flags"],
+                                      err_msg=f"rank {r} degraded/re-warm")
+        assert got["landed"][r] == want["landed"], f"rank {r} recovery"
+        np.testing.assert_array_equal(got["mu"][r][0], got["mu"][r][1],
+                                      err_msg=f"rank {r} masked mu")
+        assert (got["d2h_admit"][r] == 1).all(), "one D2H an admit"
+        assert (got["d2h_check"][r] == 1).all(), "one D2H a health_check"
+        for stage in ("repaired", "final"):
+            for k in FIELDS:
+                tol = dict(rtol=RTOL) if k.startswith("welford") else {}
+                cmp = (np.testing.assert_allclose if tol
+                       else np.testing.assert_array_equal)
+                cmp(got[f"{stage}_{k}"][r], want[f"{stage}_{k}"], **tol,
+                    err_msg=f"rank {r} {stage} {k}")
+    if replica:
+        for r in range(1, H.WORLD):
+            np.testing.assert_array_equal(got["repaired_counts"][r],
+                                          got["repaired_counts"][0])
+
+
+@pytest.mark.parametrize("case", [c[0] for c in H.STREAM_CASES])
+def test_masked_chunk_matches_single_device(results, case):
+    """``StreamRunner(mesh=…).consume(table_mask=…)``: one chunk under a
+    health mask (a table of each shard masked, a fleet's per tenant)
+    against the reference's single-device runner: keeps, the summary's n
+    and ``degraded`` bitwise, ``falpha`` within rtol 1e-6, and the
+    gathered state's counts and n bitwise (Welford rtol 1e-6)."""
+    ref, port = results
+    _, _, fields, layout = dict((c[0], c) for c in H.STREAM_CASES)[case]
+    groups = H.tenant_groups(layout)
+    per = fields.get("num_tenants", 1) // groups
+    for r in range(H.WORLD):
+        g = r // 2 if groups > 1 else 0
+        np.testing.assert_array_equal(port[f"sm_{case}_keeps"][r],
+                                      ref[f"sm_{case}_keeps"][g])
+        assert bool(port[f"sm_{case}_sum_degraded"][r])
+        assert bool(ref[f"sm_{case}_sum_degraded"][g])
+        n, fa = ref[f"sm_{case}_sum_n"][g], ref[f"sm_{case}_sum_falpha"][g]
+        if groups > 1:                           # the rank's tenants' rows
+            n, fa = n[g * per:(g + 1) * per], fa[g * per:(g + 1) * per]
+        np.testing.assert_array_equal(port[f"sm_{case}_sum_n"][r], n)
+        np.testing.assert_allclose(port[f"sm_{case}_sum_falpha"][r], fa,
+                                   rtol=RTOL)
+    _same_state(ref, port, f"sm_{case}", f"sm_{case}")
 
 
 def test_sharded_train_step_matches_one_process(results):

@@ -198,10 +198,10 @@ class TestNotPorted:
     def test_mesh_and_health_raise(self):
         """Meshes are ported (``repro_torch.dist``; across ranks in
         tests/test_torch_dist_sharded.py): on a one-rank mesh a guardrail
-        admits as the unmeshed one, bitwise; the fused single-card
-        admission under a mesh, the audit of a sharded sketch and sharded
-        windowed fleets are refused; the dry run's cells still raise
-        naming queue 1 item 13."""
+        admits as the unmeshed one, bitwise, and audits, serves degraded
+        and repairs as it does; the fused single-card admission under a
+        mesh and sharded windowed fleets are refused; the dry run's
+        abstract inputs are ``meta`` tensors."""
         mesh = make_host_local_mesh()
         gcfg = engine.GuardrailConfig(d_model=8, num_bits=6, num_tables=8,
                                       warmup_items=16.0)
@@ -217,8 +217,18 @@ class TestNotPorted:
         for k in ("counts", "n", "welford_mean", "welford_m2"):
             assert torch.equal(getattr(meshed.state, k),
                                getattr(plain.state, k)), k
-        with pytest.raises(NotImplementedError, match="single-card"):
-            meshed.health_check()
+        for g in (meshed, plain):           # one flipped bit in table 3
+            g.state.counts[3, 5] ^= 1 << 20
+        for method in ("health_check", "repair"):
+            for got, want in zip(getattr(meshed, method)(),
+                                 getattr(plain, method)()):
+                np.testing.assert_array_equal(got, want)
+            assert meshed.degraded and plain.degraded
+        e = rng.normal(size=(16, 2, 8)).astype(np.float32)
+        np.testing.assert_array_equal(meshed.admit(e), plain.admit(e))
+        for k in ("counts", "n", "welford_mean", "welford_m2"):
+            assert torch.equal(getattr(meshed.state, k),
+                               getattr(plain.state, k)), k
         with pytest.raises(NotImplementedError, match="windowed fleets"):
             engine.Guardrail(engine.GuardrailConfig(
                 d_model=8, num_tenants=2, window_epochs=2, rotate_every=1),

@@ -13,6 +13,12 @@ test, which runs the reference on the same ones.
 
     PYTHONPATH=src python tests/torch_dist_helpers.py --features IN.npz OUT.npz
 
+The ``health`` part runs every ``LIFE_CASES`` lifecycle (serve, flip
+bits, ``health_check``, serve degraded, ``repair``, re-warm) on the
+sharded ``Guardrail`` with the test's flips (IN's ``life_<case>_flips``),
+and ``streams`` ends each case with one chunk under the test's health
+mask (IN's ``s_<case>_mask``).
+
 is the rank side of ``tests/test_torch_dist_train_features.py``: one
 spawn of 2 ranks, then one of 4 (``features``): the sharded train step's
 collectives on ``meta`` against its live tally, and the training features
@@ -54,6 +60,15 @@ GUARD_CASES = (
 )
 GUARD_ADMITS, GUARD_B, GUARD_S = 6, 32, 4
 
+# Guardrail lifecycles: (name, GUARD_CASES index, flips on data rank 0
+# only).  Each flip is (lead, table, bucket, bit): lead is the epoch of a
+# ring, the tenant of a fleet, unused for a flat sketch.
+LIFE_CASES = tuple((name, c, False) for c, (name, _, _)
+                   in enumerate(GUARD_CASES)) + (("flat_table_replica", 0,
+                                                  True),)
+LIFE_WARM, LIFE_REWARM = 4, 16       # admits before the flips; re-warm cap
+LIFE_ADMITS = LIFE_WARM + 1 + LIFE_REWARM + 1
+
 # StreamRunner filters: (name, kind, filter fields, layout)
 FILTER_BASE = dict(d_model=16, num_bits=8, num_tables=8, warmup_items=64.0)
 STREAM_CASES = (
@@ -76,15 +91,16 @@ def tenant_groups(layout: str) -> int:
     return 2 if layout in TENANT_LAYOUTS else 1
 
 
-def guard_batches(case: int, groups: int):
+def guard_batches(case: int, groups: int, admits: int = GUARD_ADMITS,
+                  seed: int = 100):
     """[admit][group] -> (embeds (B, S, 16), tenant ids (B,) or None):
     group g's ids lie in its tenant block {2g, 2g + 1}; every third admit
     is shifted so the threshold rejects."""
     _, fields, layout = GUARD_CASES[case]
-    rng = np.random.default_rng(100 + case)
+    rng = np.random.default_rng(seed + case)
     T = fields.get("num_tenants", 1)
     out = []
-    for k in range(GUARD_ADMITS):
+    for k in range(admits):
         row = []
         for g in range(groups):
             e = rng.normal(size=(GUARD_B, GUARD_S, 16)).astype(np.float32)
@@ -99,14 +115,27 @@ def guard_batches(case: int, groups: int):
     return out
 
 
-def stream_batches(case: int, groups: int):
+def life_batches(case: int, groups: int):
+    """A lifecycle's traffic: ``guard_batches`` of its GUARD_CASES case,
+    LIFE_ADMITS admits."""
+    return guard_batches(LIFE_CASES[case][1], groups, LIFE_ADMITS, seed=300)
+
+
+def flip_index(lead: int, table: int, bucket: int, kind: str) -> tuple:
+    """The counts index of one flip in a (L, 2^K), (E, L, 2^K) or
+    (T, L, 2^K) plane."""
+    return (table, bucket) if kind == "flat" else (lead, table, bucket)
+
+
+def stream_batches(case: int, groups: int, chunks: int = STREAM_CHUNKS,
+                   seed: int = 200):
     """[group] -> (list of (B, 17) feature batches, list of ids or None)."""
     _, kind, _, _ = STREAM_CASES[case]
-    rng = np.random.default_rng(200 + case)
+    rng = np.random.default_rng(seed + case)
     out = []
     for g in range(groups):
         feats, tids = [], []
-        for k in range(STREAM_T * STREAM_CHUNKS):
+        for k in range(STREAM_T * chunks):
             f = rng.normal(size=(STREAM_B, 17)).astype(np.float32)
             if k % 3 == 2:
                 f[: STREAM_B // 4] += 2.0
@@ -122,8 +151,11 @@ def _np(t):
     return t.detach().cpu().numpy()
 
 
+FIELDS = ("counts", "n", "welford_mean", "welford_m2")
+
+
 def _state(prefix: str, st, out: dict) -> None:
-    for f in ("counts", "n", "welford_mean", "welford_m2"):
+    for f in FIELDS:
         out[f"{prefix}_{f}"] = _np(getattr(st, f))
 
 
@@ -255,6 +287,150 @@ def streams(mesh, d: dict, out: dict) -> None:
         for f in ("n", "falpha", "kept_frac", "topk_margin"):
             out[f"s_{name}_sum_{f}"] = np.stack([getattr(s, f)
                                              for s in summaries])
+        # one chunk under a health mask, whole on every rank
+        feats, tids = stream_batches(c, groups, 1, seed=250)[
+            dr if groups > 1 else 0]
+        state, summary, keep = runner.consume(
+            state, w, torch.as_tensor(np.stack(feats)),
+            None if tids is None else torch.as_tensor(np.stack(tids)),
+            table_mask=torch.as_tensor(d[f"s_{name}_mask"]))
+        summary = runner.fetch(summary)
+        every = [None] * WORLD
+        dist.all_gather_object(every, (_np(keep), summary.n, summary.falpha,
+                                       summary.degraded))
+        for i, f in enumerate(("keeps", "sum_n", "sum_falpha",
+                               "sum_degraded")):
+            out[f"sm_{name}_{f}"] = np.stack([e[i] for e in every])
+        _state(f"sm_{name}", runner.shard.gather(state), out)
+
+
+def _report(rep) -> np.ndarray:
+    """A host ``HealthReport`` as one flat bool vector."""
+    return np.concatenate([np.asarray(x, bool).reshape(-1) for x in rep])
+
+
+def masked_mu(g, report: np.ndarray) -> np.ndarray:
+    """(this rank's masked μ through ``ShardedSketch.mean_mu``, the single
+    card's masked μ of the gathered state, its rows of this rank's
+    tenants), under the whole serving mask of the first audit (its
+    table verdicts: no table re-warms yet)."""
+    from repro_torch.core import sketch as sk
+    from repro_torch.fleet import state as fl
+    from repro_torch.window import ring
+    sh, cfg = g._shard, g.gcfg
+    T, L = max(cfg.num_tenants, 1), cfg.num_tables
+    whole = torch.as_tensor(report[:T * L].reshape((T, L) if T > 1 else (L,))
+                            .astype(np.float32))
+    state = sh.gather(g.state)
+    if g.windowed:
+        one = ring.mean_mu_windowed(state, cfg.window_decay, whole)
+    elif g.multi_tenant:
+        one = sh.tenant_block(fl.mean_mu_fleet(state, whole))
+    else:
+        one = sk.mean_mu(state, whole)
+    got = sh.mean_mu(g.state, g._table_mask, cfg.window_decay)
+    return np.stack([_np(got), _np(one)])
+
+
+def lifecycle(mesh, case: int, d: dict, out: dict) -> None:
+    """One ``LIFE_CASES`` lifecycle on the sharded ``Guardrail``: LIFE_WARM
+    admits, the test's bit flips in this rank's block (on data rank 0
+    only for a replica case), ``health_check``, one degraded admit,
+    ``repair``, then admit + ``health_check`` until healthy (at most
+    LIFE_REWARM), one healthy admit.  Rank 0 keeps every rank's verdicts,
+    reports, ``degraded`` and ``_rewarm_admits`` after each audit, the
+    admit at which recovery landed, the ``_to_host`` calls of each step,
+    and each rank's gathered state right after the repair and at the
+    end."""
+    from repro_torch.serve import engine
+    name, gc, replica = LIFE_CASES[case]
+    _, fields, layout = GUARD_CASES[gc]
+    gname = GUARD_CASES[gc][0]
+    gcfg = engine.GuardrailConfig(**{**GUARD_BASE, **fields})
+    g = engine.Guardrail(gcfg, device="cpu", mesh=mesh, sketch_layout=layout,
+                         w=torch.as_tensor(d[f"g_{gname}_w"]))
+    sh = g._shard
+    dr = mesh.get_local_rank("data")
+    groups = tenant_groups(layout)
+    batches = iter(life_batches(case, groups))
+    calls = []
+    real = engine._to_host
+
+    def counted(x):
+        calls.append(tuple(x.shape))
+        return real(x)
+
+    def step(fn):
+        """fn() and the number of ``_to_host`` calls it made."""
+        before = len(calls)
+        res = fn()
+        return res, len(calls) - before
+
+    masks, reports, flags, d2h = [], [], [], {"admit": [], "health_check": []}
+
+    def serve():
+        e, t = next(batches)[dr if groups > 1 else 0]
+        m, k = step(lambda: g.admit(e, t))
+        masks.append(m)
+        d2h["admit"].append(k)
+
+    def audit(method):
+        rep, k = step(getattr(g, method))
+        if method == "health_check":
+            d2h["health_check"].append(k)
+        reports.append(_report(rep))
+        flags.append((g.degraded, g._rewarm_admits))
+
+    kind = "fleet" if g.multi_tenant else "window" if g.windowed else "flat"
+    engine._to_host = counted
+    try:
+        for _ in range(LIFE_WARM):
+            serve()
+        if not replica or dr == 0:
+            c = g.state.counts
+            for lead, j, b, bit in d[f"life_{gname}_flips"].tolist():
+                if not sh.table_start <= j < sh.table_start + sh.l_local:
+                    continue
+                if kind == "fleet":
+                    if not sh.tenant_start <= lead < (sh.tenant_start
+                                                      + sh.t_local):
+                        continue
+                    lead -= sh.tenant_start
+                c[flip_index(lead, j - sh.table_start, b, kind)] ^= 1 << bit
+        audit("health_check")
+        mu = masked_mu(g, reports[-1])
+        serve()                                  # degraded
+        audit("repair")
+        # copied now: the kernels update the counts in place
+        repaired = {k: _np(v).copy() for k, v in zip(
+            FIELDS, (getattr(sh.gather(g.state), f) for f in FIELDS))}
+        landed = -1
+        for i in range(LIFE_REWARM):
+            serve()
+            audit("health_check")
+            if not g.degraded:
+                landed = i
+                break
+        serve()
+    finally:
+        engine._to_host = real
+    final = sh.gather(g.state)
+    mine = dict(masks=np.stack(masks), reports=np.stack(reports), mu=mu,
+                flags=np.asarray(flags), landed=np.asarray(landed),
+                d2h_admit=np.asarray(d2h["admit"]),
+                d2h_check=np.asarray(d2h["health_check"]),
+                **{f"repaired_{k}": v for k, v in repaired.items()},
+                **{f"final_{k}": _np(getattr(final, k)) for k in FIELDS})
+    every = [None] * WORLD
+    dist.all_gather_object(every, mine)
+    for k in mine:
+        out[f"life_{name}_{k}"] = np.stack([e[k] for e in every])
+
+
+def health(mesh, d: dict, out: dict) -> None:
+    """Every ``LIFE_CASES`` lifecycle."""
+    for case in range(len(LIFE_CASES)):
+        lifecycle(mesh, case, d, out)
 
 
 def gpipe(d: dict, out: dict) -> None:
@@ -505,6 +681,7 @@ def run(rank: int, d: dict) -> dict:
     out: dict = {}
     primitives(mesh, d, out)
     guardrails(mesh, d, out)
+    health(mesh, d, out)
     streams(mesh, d, out)
     gpipe(d, out)
     training(mesh, d, out)
