@@ -418,21 +418,46 @@ non-zero without printing its result line):
              checkpoints at steps 2 and 4, resumed from step 2 at world
              2 and here at world 1, each against this process's run
              (phase 19 (e)'s tolerances); the ranks' launches join the
-             kernels' counts.
+             kernels' counts;
+21. compile once — ``Guardrail.admit`` and ``StreamRunner.consume`` as
+             one captured ``torch.cuda.CUDAGraph`` a signature
+             (``repro_torch.core.capture``; phases 1-20 run captured
+             too), each against its eager twin under
+             ``capture.disabled()`` on the same W and inputs: the four
+             guardrail flavours in both threshold modes at phase 6's
+             shapes through warm-up, phase 11's flips, degraded admits,
+             repair, re-warm and healthy admits, verdicts and states
+             bitwise every admit, one D2H each, ``trace_count`` 2, replays
+             under sync-debug "error" (healthy and degraded) each adding
+             its capture's launch tally, admit p50 and items/s in turns
+             with the eager twin and (μ−ασ) one traced admit each way;
+             the copy of the embeds into the admit's static buffer
+             against featurising eagerly, timed; seven stream kinds at
+             phase 5's shapes (dense, SRHT, window, fleet, fleet with
+             attribution, fleet in quantile mode, ``return_masks``),
+             three chunks (one with a health mask) bitwise the twin
+             (summaries, keep masks, states), ``run`` both ways from
+             identical states bitwise with one H2D (from the reused
+             page-locked buffer) and one D2H a chunk and no sync in a
+             captured ``consume``, items/s in turns, one traced
+             ``consume`` each way; every kernel of these paths launched
+             inside a graph.
 
-Every kernel wrapper counts its launches; the counts are set to 0 just
-before each path of phases 3 to 7 and 9 to 20 (the post-mortem query a
+Every kernel wrapper counts its launches (a captured graph's replay adds
+the launches its capture recorded); the counts are set to 0 just
+before each path of phases 3 to 7 and 9 to 21 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
 phases 15 and 16 before each measured generate; in phase 17 before each
 measured ``train``; in phase 18 in each serving host process, before
 its first chunk; in phase 19 in each rank, before each part; in phase
-20 in each rank, before each step or run) and read just
-after, every kernel of a path must have been
+20 in each rank, before each step or run; in phase 21 around each
+captured call) and read just after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
 The admits and ``consume`` calls traced in phases 4-7 and 9 are traced
+eagerly (``capture.disabled()``; phase 21 traces the captured ones)
 twice:
 as they run, and with the (B, L) gather + PyTorch reductions in place of
 ``ace_query_sum``, the device ops before and after it.  The last lines
@@ -1414,23 +1439,28 @@ def device_trace(fn, device) -> dict:
 
 
 def traced_both_ways(what, fn, device) -> dict:
-    """``device_trace`` of ``fn`` as it runs, then, after one untraced
-    call, with the (B, L) gather and PyTorch's reductions in place of
-    ``ace_query_sum``; prints both.  Each is traced twice and the trace
-    with more device ops kept: a trace can miss device events (PERF.md,
-    PR 17), never invent them."""
+    """``device_trace`` of ``fn`` as it runs eagerly (``capture.disabled``:
+    a captured graph would replay the kernels it recorded, whatever is
+    patched in later), then, after one untraced call, with the (B, L)
+    gather and PyTorch's reductions in place of ``ace_query_sum``; prints
+    both.  Each is traced twice and the trace with more device ops kept:
+    a trace can miss device events (PERF.md), never invent them.
+    Phase 21 traces the captured paths."""
+    from repro_torch.core import capture
+
     def fuller(a, b):
         return a if a["device_ops"] >= b["device_ops"] else b
-    tr = fuller(device_trace(fn, device), device_trace(fn, device))
-    with gather_then_reduce():
-        fn()
-        sync(device)
-        old = fuller(device_trace(fn, device), device_trace(fn, device))
+    with capture.disabled():
+        tr = fuller(device_trace(fn, device), device_trace(fn, device))
+        with gather_then_reduce():
+            fn()
+            sync(device)
+            old = fuller(device_trace(fn, device), device_trace(fn, device))
     if not tr["device_ops"]:
         print(f"  {what} under torch.profiler: no device op in the trace; "
               "device idle share not measured")
     else:
-        print(f"  {what} under torch.profiler: wall "
+        print(f"  {what} (eager) under torch.profiler: wall "
               f"{tr['profiled_wall_ms']:.3f} ms, {tr['device_ops']} device "
               f"ops, device busy {tr['device_busy_ms']:.3f} ms (idle share "
               f"{1 - tr['device_busy_ms'] / tr['profiled_wall_ms']:.3f}); "
@@ -1893,6 +1923,7 @@ def per_level_find_hh():
 def drift_plane(runner, state, w, chunk, tids) -> torch.Tensor:
     """The (NL, R, C) drift hierarchy that ``find_hh`` gets in one
     ``consume`` of ``chunk``."""
+    from repro_torch.core import capture
     from repro_torch.kernels import ops
     seen = []
     real = ops.attr_find_hh
@@ -1902,7 +1933,8 @@ def drift_plane(runner, state, w, chunk, tids) -> torch.Tensor:
         return real(plane, *args)
     ops.attr_find_hh = record
     try:
-        runner.consume(state, w, chunk, tids)
+        with capture.disabled():        # a replay would not call record
+            runner.consume(state, w, chunk, tids)
     finally:
         ops.attr_find_hh = real
     return seen[-1]
@@ -1918,6 +1950,7 @@ def find_hh_both_ways(kind, runner, state, w, chunk, tids, drift,
     in both of two traces once).  The consume should lose the loop's ops
     minus the one launch."""
     from repro_torch.attribution import sketch as at
+    from repro_torch.core import capture
     acfg, tables = runner.filt.ace_cfg.attr, runner.filt.attr_tables
 
     def fuller(fn, tries=2):
@@ -1927,8 +1960,9 @@ def find_hh_both_ways(kind, runner, state, w, chunk, tids, drift,
     def hh():
         return at.find_hh(acfg, tables, drift, runner.topk)
 
-    def cons():
-        return runner.consume(state, w, chunk, tids)
+    def cons():                         # eager: the loop is patched in
+        with capture.disabled():
+            return runner.consume(state, w, chunk, tids)
     new_hh, new_c = fuller(hh, 5), fuller(cons)
     with per_level_find_hh():
         hh(), cons()
@@ -7904,6 +7938,387 @@ def phase_dryrun(mods, device, card, measured) -> dict:
     return paths
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the compile-once contract — Guardrail.admit and
+# StreamRunner.consume as one captured CUDA graph a signature, against
+# their eager twins.
+# ---------------------------------------------------------------------------
+
+CAP_MODES = ("mu_sigma", "quantile")
+CAP_DEGRADED = 4             # degraded admits after phase 11's flips
+CAP_REWARM = 20              # admits the re-warm may take (windows: 16)
+CAP_TURNS = 12               # timed admits each, captured and eager
+CAP_CHUNKS = 3               # phase 5's chunks a stream kind
+CAP_STREAMS = {"dense": ("dense", {}), "srht": ("srht", {}),
+               "window": ("window", {}), "fleet": ("fleet", {}),
+               "fleet_attr": ("fleet", ATTR_KW),
+               "fleet_quantile": ("fleet", dict(threshold_mode="quantile",
+                                                quantile_q=QUANT_Q)),
+               "dense_masks": ("dense", {})}
+# every kernel of these paths, each launched inside a captured graph
+# (``ace_window_combine`` is the windowed query's, ``ops.ace_window_score``:
+# a windowed admit reads its ring through ``ace_query_sum`` at base rows)
+CAP_KERNELS = ("srp_hash", "ace_update", "ace_query", "ace_admit_fused",
+               "ace_fleet_window_admit", "srht_hash", "attr_find_hh")
+
+
+def launch_delta(mods, fn, into: dict):
+    """``fn()``, its kernel launches added to ``into``."""
+    before = read_launches(mods)
+    out = fn()
+    for k, v in read_launches(mods).items():
+        into[k] = into.get(k, 0) + v - before[k]
+    return out
+
+
+def graph_tallies(mods, program) -> dict:
+    """Kernel name -> launches one replay of each of ``program``'s graphs
+    adds, summed over its graphs; checks every key has a graph."""
+    names = {id(c): k for k, c in launch_counters(mods).items()}
+    out = {}
+    for entry in program._entries.values():
+        check(entry.graph is not None, f"{program.name}: every signature "
+              "replays a captured torch.cuda.CUDAGraph")
+        for kernel, n in entry.tally.items():
+            name = names[id(kernel)]
+            out[name] = out.get(name, 0) + n
+    return out
+
+
+def replays_add_tally(mods, program, run, what: str, n=3) -> None:
+    """``run`` (a replay of one signature) n times under sync-debug
+    "error": no sync, and each kernel's ``launches`` grows by n × that
+    graph's tally."""
+    run()
+    sync(program.device)
+    entry = program._last
+    before = {k: k.launches for k in entry.tally}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(entry.tally and all(k.launches - before[k] == n * c
+                              for k, c in entry.tally.items()),
+          f"{what}: {n} replays under sync-debug 'error', no sync, each "
+          f"kernel's launches grown by {n} x the capture's tally "
+          f"({sum(entry.tally.values())} launches a replay)")
+
+
+def idle_line(tr: dict) -> str:
+    if not tr["device_ops"]:
+        return "no device op in the trace (idle share not measured)"
+    return (f"{tr['device_ops']} device ops, busy {tr['device_busy_ms']:.3f} "
+            f"ms of {tr['profiled_wall_ms']:.3f} ms (idle share "
+            f"{1 - tr['device_busy_ms'] / tr['profiled_wall_ms']:.3f})")
+
+
+def captured_guardrail(mods, device, kind, mode, d_model=D_MODEL,
+                       b=ADMIT_B, s=ADMIT_S) -> dict:
+    """One ``Guardrail`` flavour and threshold mode at phase 6's shapes,
+    captured, in lockstep with its twin under ``capture.disabled()`` (same
+    W, the same batches): warm-up, phase 11's flips, degraded admits,
+    repair and re-warm, healthy again — verdicts and states bitwise every
+    admit, one D2H an admit, two graphs; replays without a sync adding
+    their tally; then p50 in turns and one traced admit each way."""
+    import repro_torch.serve.engine as engine
+    from repro_torch import resilience as rz
+    from repro_torch.core import capture
+    gcfg = engine.GuardrailConfig(d_model=d_model, num_bits=K_BITS,
+                                  num_tables=L_TABLES, threshold_mode=mode,
+                                  quantile_q=QUANT_Q, **RES_KINDS[kind])
+    T = gcfg.num_tenants if gcfg.num_tenants > 1 else None
+    L = L_TABLES
+    g = engine.Guardrail(gcfg, device=device)
+    eager = engine.Guardrail(gcfg, device=device, w=g.w)
+    stream = RequestStream(device, d_model, b, s, T)
+    launches, bad, d2h = {}, [], []
+    real_to_host = engine._to_host
+
+    def to_host(x):
+        d2h.append(tuple(x.shape))
+        return real_to_host(x)
+
+    def both(e, t, where):
+        n0 = len(d2h)
+        got = launch_delta(mods, lambda: g.admit(e, t), launches)
+        if len(d2h) - n0 != 1:
+            bad.append(f"{where}: {len(d2h) - n0} D2H")
+        with capture.disabled():
+            want = eager.admit(e, t)
+        if not (np.array_equal(got, want)
+                and states_equal(g.state, eager.state)):
+            bad.append(where)
+
+    engine._to_host = to_host
+    try:
+        for i in range(RES_WARM):
+            both(*stream.next(), f"warm {i}")
+        gen = torch.Generator(device=device).manual_seed(SEED + 11)
+        tables = sorted(torch.randperm(L, generator=gen, device=device)
+                        [:-(-L // 4)].tolist())
+        counts = g.state.counts
+        for j in tables:
+            counts = rz.flip_count_bits(counts, gen, num_flips=2,
+                                        tables=(j,))
+        g.state = g.state._replace(counts=counts)       # copied in
+        eager.state = eager.state._replace(counts=counts.clone())
+        check(reports_equal(g.health_check(), eager.health_check())
+              and g.degraded and eager.degraded,
+              f"captured {kind} ({mode}): phase 11's flips found alike, "
+              "both degraded")
+        for i in range(CAP_DEGRADED):
+            both(*stream.next(), f"degraded {i}")
+        check(reports_equal(g.repair(), eager.repair()),
+              f"captured {kind} ({mode}): repair reports equal")
+        rewarm = None
+        for i in range(CAP_REWARM):
+            both(*stream.next(), f"re-warm {i}")
+            g.health_check()
+            eager.health_check()
+            if g.degraded != eager.degraded:
+                bad.append(f"re-warm {i}: degraded flags differ")
+            if not g.degraded:
+                rewarm = i + 1
+                break
+        for i in range(2):
+            both(*stream.next(), f"healthy {i}")
+    finally:
+        engine._to_host = real_to_host
+    admits = RES_WARM + CAP_DEGRADED + (rewarm or CAP_REWARM) + 2
+    check(not bad and rewarm is not None,
+          f"captured {kind} ({mode}): {admits} admits (healthy, degraded, "
+          f"re-warm in {rewarm}, healthy) with verdicts and states bitwise "
+          f"the eager twin's, one D2H each{'' if not bad else f' ({bad})'}")
+    check(g.trace_count == 2 and eager.trace_count == 0,
+          f"captured {kind} ({mode}): trace_count {g.trace_count} (healthy "
+          "and degraded signatures)")
+    tallies = graph_tallies(mods, g._program)
+    e, t = stream.next()
+    tdev = None if t is None else torch.as_tensor(t, device=device)
+    replays_add_tally(mods, g._program, lambda: g._admit_device(e, tdev),
+                      f"captured {kind} ({mode}) healthy admit")
+    mask = torch.ones((T, L) if T else (L,), device=device)
+    mask[..., 3] = 0.0
+    g._table_mask = mask
+    replays_add_tally(mods, g._program, lambda: g._admit_device(e, tdev),
+                      f"captured {kind} ({mode}) degraded admit")
+    g._table_mask = None
+    mirror(eager, g)
+
+    lat = {"captured": [], "eager": []}
+    for i in range(CAP_TURNS):
+        e, t = stream.next()
+        for arm in (("captured", "eager") if i % 2 == 0
+                    else ("eager", "captured")):
+            with contextlib.ExitStack() as ctx:
+                if arm == "eager":
+                    ctx.enter_context(capture.disabled())
+                t0 = time.perf_counter()
+                (g if arm == "captured" else eager).admit(e, t)
+                lat[arm].append(1e3 * (time.perf_counter() - t0))
+    ms = {k: p50(v) for k, v in lat.items()}
+    out = {"launches": launches, "tallies": tallies,
+           "p50_ms": ms["captured"], "eager_p50_ms": ms["eager"],
+           "items_per_s": b / ms["captured"] * 1e3,
+           "eager_items_per_s": b / ms["eager"] * 1e3, "rewarm": rewarm}
+    line = (f"  captured {kind} ({mode}): admit p50 {ms['captured']:.3f} ms "
+            f"({out['items_per_s']:,.0f} items/s), eager "
+            f"{ms['eager']:.3f} ms ({out['eager_items_per_s']:,.0f} "
+            f"items/s), in turns ({CAP_TURNS} each, host clock, each ends "
+            f"in its D2H); one D2H an admit; trace_count 2")
+    print(line)
+    if mode == "mu_sigma":
+        e, t = stream.next()
+        tr = device_trace(lambda: g.admit(e, t), device)
+        with capture.disabled():
+            tr_e = device_trace(lambda: eager.admit(e, t), device)
+        print(f"    one traced admit: captured {idle_line(tr)}; eager "
+              f"{idle_line(tr_e)}")
+        out.update(trace=tr, eager_trace=tr_e)
+    return out
+
+
+def embeds_or_features(device, d_model=D_MODEL, b=ADMIT_B,
+                       s=ADMIT_S) -> dict:
+    """What the flat admit's program starts from, measured: the copy of
+    the (B, S, D) embeds into its static buffer (the graph then
+    featurises), against featurising eagerly (``mean_embed_features`` and
+    the quarantine select) and copying the (B, D + 1) features."""
+    from repro_torch.data.pipeline import mean_embed_features
+    from repro_torch.serve.engine import GuardrailConfig
+    bias = GuardrailConfig(d_model=d_model).bias_const
+    gen = torch.Generator(device=device).manual_seed(SEED + 21)
+    e = torch.randn((b, s, d_model), generator=gen, device=device)
+    static = torch.empty_like(e)
+
+    def featurise():
+        f = mean_embed_features(e, bias)
+        return torch.where(torch.isfinite(f).all(-1)[:, None], f, 0.0)
+    f = featurise()
+    fstatic = torch.empty_like(f)
+    out = {"embeds_copy_ms": device_ms(lambda: static.copy_(e)),
+           "featurise_ms": device_ms(featurise),
+           "features_copy_ms": device_ms(lambda: fstatic.copy_(f))}
+    print(f"  the admit's program input at ({b}, {s}, {d_model}) float32: "
+          f"embeds copy {out['embeds_copy_ms']:.5f} ms "
+          f"({e.numel() * 4 / 2**20:.0f} MiB D2D); featurising eagerly "
+          f"instead {out['featurise_ms']:.5f} ms + the ({b}, {d_model + 1}) "
+          f"features' copy {out['features_copy_ms']:.5f} ms (CUDA events)")
+    return out
+
+
+def captured_stream(mods, device, kind, feats, tids, T=STREAM_T,
+                    B=STREAM_B) -> dict:
+    """One stream kind at phase 5's shapes, captured, against a twin
+    runner under ``capture.disabled()`` on the same filter and W: chunk
+    by chunk from identical states (the second with a health mask: a
+    second graph), summaries, keep masks and states bitwise; then
+    ``run`` both ways in turns from identical states (summaries and
+    states bitwise, one H2D and one D2H a chunk, no sync in a captured
+    ``consume``), replays adding their tally, one traced consume each
+    way."""
+    import repro_torch.stream.runner as runner_mod
+    from repro_torch.core import capture
+    base, extra = CAP_STREAMS[kind]
+    fleet = base == "fleet"
+    masks = kind.endswith("masks")
+    filt = stream_filter(base, device, D_MODEL, **extra)
+    r = runner_mod.StreamRunner(filt, chunk_T=T, return_masks=masks)
+    twin = runner_mod.StreamRunner(filt, chunk_T=T, return_masks=masks)
+    state, w = r.init()
+    tstate = capture.tree_map(torch.clone, state)
+    tids = tids if fleet else None
+    chunks = len(feats) // T
+    tmask = torch.ones((FLEET_T, STREAM_L) if fleet else (STREAM_L,),
+                       device=device)
+    tmask[..., 5] = 0.0
+    launches, bad = {}, []
+    for c in range(chunks):
+        f = torch.as_tensor(feats[c * T:(c + 1) * T], device=device)
+        tc = None if tids is None else torch.as_tensor(
+            tids[c * T:(c + 1) * T], device=device)
+        m = tmask if c == 1 else None
+        out = launch_delta(mods, lambda: r.consume(state, w, f, tc,
+                                                   table_mask=m), launches)
+        with capture.disabled():
+            tout = twin.consume(tstate, w, f, tc, table_mask=m)
+        state, tstate = out[0], tout[0]
+        if not (all((a is None and b is None) or torch.equal(a, b)
+                    for a, b in zip(capture.leaves(out[1:]),
+                                    capture.leaves(tout[1:])))
+                and states_equal(state, tstate)):
+            bad.append(f"chunk {c}")
+    check(not bad, f"captured stream ({kind}): {chunks} chunks (one with a "
+          "health mask) with summaries, keep masks and states bitwise the "
+          f"eager twin's {bad or ''}")
+    check(r.trace_count == 2 and twin.trace_count == 0,
+          f"captured stream ({kind}): trace_count {r.trace_count} "
+          "(healthy and masked signatures)")
+    tallies = graph_tallies(mods, r._program)
+    replays_add_tally(mods, r._program,
+                      lambda: r.consume(state, w, f, tc),
+                      f"captured stream ({kind}) consume")
+
+    transfers = {"h2d": 0, "d2h": 0}
+    real_in, real_out, real_consume = (runner_mod._to_device,
+                                       runner_mod._to_host, r.consume)
+
+    def to_device(x, to):
+        transfers["h2d"] += 1
+        return real_in(x, to)
+
+    def to_host(x):
+        transfers["d2h"] += 1
+        return real_out(x)
+
+    def consume_no_sync(*a, **k):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            return real_consume(*a, **k)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    start = capture.tree_map(torch.clone, state)
+    secs = {"captured": [], "eager": []}
+    runs = {}
+    for rnd in range(2):
+        for arm in (("captured", "eager") if rnd == 0
+                    else ("eager", "captured")):
+            s0 = capture.tree_map(torch.clone, start)
+            sync(device)
+            with contextlib.ExitStack() as ctx:
+                if arm == "eager":
+                    ctx.enter_context(capture.disabled())
+                    runner = twin
+                else:
+                    runner_mod._to_device, runner_mod._to_host = (to_device,
+                                                                  to_host)
+                    r.consume = consume_no_sync
+                    ctx.callback(setattr, runner_mod, "_to_device", real_in)
+                    ctx.callback(setattr, runner_mod, "_to_host", real_out)
+                    ctx.callback(delattr, r, "consume")
+                    runner = r
+                t0 = time.perf_counter()
+                runs[arm] = launch_delta(
+                    mods, lambda: runner.run(s0, w, iter(feats),
+                                             None if tids is None
+                                             else iter(tids)),
+                    launches if arm == "captured" else {})
+                secs[arm].append(time.perf_counter() - t0)
+    (sc, hc), (se, he) = runs["captured"], runs["eager"]
+    same = states_equal(sc, se) and all(
+        all(np.array_equal(x, y) for x, y in zip(a, b)
+            if x is not None or y is not None) for a, b in zip(hc, he))
+    check(same, f"captured stream ({kind}): run's summaries and final state "
+          "bitwise the eager twin's")
+    check(transfers == {"h2d": 2 * chunks, "d2h": 2 * chunks},
+          f"captured stream ({kind}): one H2D (from the reused page-locked "
+          f"buffer) and one D2H a chunk ({transfers} in 2 runs of {chunks})"
+          ", no sync inside a captured consume")
+    items = chunks * T * B
+    ips = {k: items / min(v) for k, v in secs.items()}
+    f = torch.as_tensor(feats[:T], device=device)
+    tc = None if tids is None else torch.as_tensor(tids[:T], device=device)
+    r.consume(sc, w, f, tc)
+    tr = device_trace(lambda: r.consume(sc, w, f, tc), device)
+    with capture.disabled():
+        tr_e = device_trace(lambda: twin.consume(se, w, f, tc), device)
+    print(f"  captured stream ({kind}): {ips['captured']:,.0f} items/s, "
+          f"eager {ips['eager']:,.0f} items/s (run over {chunks} chunks of "
+          f"{T} x {B} x {D_MODEL + 1}, better of 2 in turns, host clock); "
+          f"one traced consume: captured {idle_line(tr)}; eager "
+          f"{idle_line(tr_e)}")
+    return {"launches": launches, "tallies": tallies,
+            "items_per_s": ips["captured"], "eager_items_per_s": ips["eager"],
+            "trace": tr, "eager_trace": tr_e}
+
+
+def phase_captured(mods, device) -> dict:
+    """Phase 21: every guardrail flavour in both threshold modes and every
+    stream kind through its captured program against the eager twin."""
+    out = {}
+    for kind in RES_KINDS:
+        for mode in CAP_MODES:
+            out[f"captured_guardrail_{kind}_{mode}"] = captured_guardrail(
+                mods, device, kind, mode)
+    out["captured_input"] = embeds_or_features(device)
+    feats, _ = stream_features(device, D_MODEL, CAP_CHUNKS, STREAM_T,
+                               STREAM_B)
+    tids = np.random.default_rng(SEED + 9).integers(
+        0, FLEET_T, size=(len(feats), STREAM_B)).astype(np.int32)
+    for kind in CAP_STREAMS:
+        out[f"captured_stream_{kind}"] = captured_stream(mods, device, kind,
+                                                         feats, tids)
+    seen = set()
+    for r in out.values():
+        seen |= {k for k, n in r.get("tallies", {}).items() if n}
+    check(set(CAP_KERNELS) <= seen, "every kernel of these paths launched "
+          f"inside a captured graph: {sorted(seen)}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -7918,13 +8333,14 @@ def main() -> int:
         return dryrun_child(int(sys.argv[2]), int(sys.argv[3]),
                             Path(sys.argv[4]))
     mods = import_port()
+    from repro_torch.core import capture
     from repro_torch.kernels import build
     torch.backends.cuda.matmul.allow_tf32 = False   # the plain hash
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda")
 
     print("phase 1: build")
-    t0 = time.perf_counter()
+    t0 = t_all = time.perf_counter()
     build.build_all()
     for name in build.sources():
         build.load(name)
@@ -8004,7 +8420,8 @@ def main() -> int:
               f"{qb['device_ops']} device ops; mu-sigma (phase "
               f"{4 if kind == 'flat' else 6}) p50 {mu['p50_ms']:.3f} ms, "
               f"{mb['device_ops']} device ops")
-    with recorded_bins() as seen:
+    # eager: a captured chunk's replay would not call the recorder
+    with recorded_bins() as seen, capture.disabled():
         paths["quantile_calibration"] = phase_calibration(mods, device)
     edges = bin_edge_counts(seen)
     print(f"  calibration bin ids: {edges['rates']:,} rates observed on the "
@@ -8114,6 +8531,15 @@ def main() -> int:
         "prefill_peak": paths["serve_olmo"]["max_memory_allocated"]}))
     print(f"  phase 20 took {time.perf_counter() - t20:.1f} s")
 
+    print("phase 21: the compile-once contract: each Guardrail flavour in "
+          "both threshold modes and each stream kind as one captured CUDA "
+          "graph a signature, against its eager twin (capture.disabled)")
+    t21 = time.perf_counter()
+    captured = phase_captured(mods, device)
+    paths.update({k: v for k, v in captured.items() if "launches" in v})
+    print(f"  phase 21 took {time.perf_counter() - t21:.1f} s; phases 1-21 "
+          f"{time.perf_counter() - t_all:.1f} s")
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -8204,7 +8630,15 @@ def main() -> int:
               f"{k[12:]} step {r['step_ms']:.3f} ms, "
               f"{r['tokens_per_s']:,.0f} tokens/s, peak "
               f"{r['max_memory_allocated'] / 2**30:.2f} GiB"
-              for k, r in trained.items() if k.startswith("train_olmo")))
+              for k, r in trained.items() if k.startswith("train_olmo"))
+          + "; captured admit p50 " + ", ".join(
+              f"{r['p50_ms']:.3f} ms {k[19:]} (eager {r['eager_p50_ms']:.3f})"
+              for k, r in captured.items()
+              if k.startswith("captured_guardrail_"))
+          + "; captured stream " + ", ".join(
+              f"{r['items_per_s']:,.0f} items/s {k[16:]} (eager "
+              f"{r['eager_items_per_s']:,.0f})" for k, r in captured.items()
+              if k.startswith("captured_stream_")))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -258,8 +258,10 @@ int launch(const void* x, int x_type, const unsigned int* sign_words,
   if (elems_log != S::kElemsLog || rows_per_block != S::kRows)
     return cudaErrorInvalidValue;          // the Python plan disagrees
   if (S::kSmem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        srht_hash_kernel<N>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    // once per kernel and device, so no attribute call sits in a launch
+    // that a CUDA graph captures
+    const cudaError_t err = repro::allow_smem(
+        reinterpret_cast<const void*>(&srht_hash_kernel<N>),
         static_cast<int>(S::kSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }

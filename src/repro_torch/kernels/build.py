@@ -216,12 +216,36 @@ def check_bits(num_bits: int) -> None:
         raise ValueError(f"num_bits must be in [1, 31], got {num_bits}")
 
 
+_tally = threading.local()
+
+
+@contextlib.contextmanager
+def tally_launches():
+    """Within it, a launch adds to the yielded {Kernel: n} tally instead
+    of ``Kernel.launches``: a CUDA graph's capture records its launches
+    and runs none (``core.capture``), and each replay adds the tally back
+    (``add_launches``)."""
+    before = getattr(_tally, "rec", None)
+    _tally.rec = rec = {}
+    try:
+        yield rec
+    finally:
+        _tally.rec = before
+
+
+def add_launches(tally: dict) -> None:
+    """Count a replay of a captured graph: its tally's launches."""
+    for kernel, n in tally.items():
+        kernel.launches += n
+
+
 class Kernel:
     """One C entry point of one kernel source, with its launch counter.
 
     ``launches`` is a plain integer: it grows by one for each call that
     launched the kernel (and nowhere else), so a run can show that its
-    main path went through the kernel.
+    main path went through the kernel.  A captured graph's replay adds
+    the launches its capture recorded (``tally_launches``).
     """
 
     def __init__(self, source: str, symbol: str, argtypes: list):
@@ -252,4 +276,8 @@ class Kernel:
         if err != 0:
             raise RuntimeError(f"{self.symbol}: CUDA error {err} "
                                f"({self._err_str(err).decode()})")
-        self.launches += 1
+        rec = getattr(_tally, "rec", None)
+        if rec is None:
+            self.launches += 1
+        else:
+            rec[self] = rec.get(self, 0) + 1

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch import resilience as rz, resolve_device
-from repro_torch.core import sketch as sk
+from repro_torch.core import capture, sketch as sk
 from repro_torch.core.sketch import AceConfig
 from repro_torch.core.srp import check_projections, hash_buckets
 from repro_torch.data.pipeline import mean_embed_features
@@ -114,6 +114,16 @@ class Guardrail:
     ``device`` defaults to CUDA and raises when there is none; ``w``
     carries a given projection matrix (d_model + 1, P; (d_model + 1, 0)
     under SRHT) instead of drawing one.
+
+    Compile once (``core.capture``): the admission step is one captured
+    CUDA graph a signature (batch shape and dtype, tenant ids present,
+    degraded or not), replayed from static buffers; ``trace_count``
+    counts the programs built, as the reference's jitted admit does.  The
+    state is donated: after an admit ``self.state`` is the program's
+    static buffers, which the next admit of that signature overwrites,
+    and a state assigned to ``self.state`` is copied in.  A host array of
+    embeds (the front end's page-locked staging) is copied straight into
+    the static buffer.
 
     Sharded (``mesh``, a live ``DeviceMesh``; one process a rank):
     ``sketch_layout`` ``"replicated"`` or ``"table_sharded"`` (the L axis
@@ -223,6 +233,12 @@ class Guardrail:
             state = self._shard.place(state)
             col.broadcast(self.w)     # rank 0's W: the ranks cannot drift
         self.state = state
+        # one captured program a signature (the reference's jitted,
+        # state-donating admit); a mesh's collectives stage through the
+        # host, so a sharded guardrail runs it uncaptured
+        self._program = capture.Program(
+            self._admit_impl, self.device, name="Guardrail.admit",
+            capture=mesh is None, consts=(0,))
         # the policy twice: on the host for the front end's sheds
         # (``fail_open_mask``, read with no device access) and on the
         # device for the quarantine select inside ``admit``
@@ -238,28 +254,48 @@ class Guardrail:
         self._rewarm_admits = 0       # windowed re-warm countdown (admits)
         self._rewarming = None        # host bool mask of re-warming tables
 
+    @property
+    def trace_count(self) -> int:
+        """Admission programs built so far: one a signature (batch shape
+        and dtype, tenant ids present, degraded or not), as the
+        reference's jitted admit traces once a signature."""
+        return self._program.trace_count
+
     def _admit_device(self, embeds: torch.Tensor,
                       tids: torch.Tensor | None) -> torch.Tensor:
-        """The admission step on the device; returns the packed (2, B)
-        bool block [verdicts, finite]."""
+        """The admission step on the device, through the signature's
+        captured program (``core.capture``); updates ``self.state`` (the
+        program's static buffers) and returns the packed (2, B) bool block
+        [verdicts, finite]."""
+        self.state, packed = self._program(
+            self.state, self.w, embeds, tids, self._table_mask,
+            flags=(self.use_kernels,))
+        return packed
+
+    def _admit_impl(self, state, w, embeds, tids, table_mask):
+        """The whole admission step as one program: featurise, quarantine
+        non-finite rows, admit through the flavour's branch, and answer
+        quarantined rows by their fail policy.  Returns (new state, the
+        packed (2, B) block)."""
         feat = mean_embed_features(embeds, self.gcfg.bias_const)
         finite = torch.all(torch.isfinite(feat), dim=-1)          # (B,)
         feat = torch.where(finite[:, None], feat, 0.0)
-        admit = self._admit_branches(feat, finite, tids, self._table_mask)
+        state, admit = self._admit_branches(state, w, feat, finite, tids,
+                                            table_mask)
         fail_open = self._fail_open[0] if tids is None \
             else self._fail_open[tids.long()]
         final = torch.where(finite, admit, fail_open)
-        return torch.stack([final, finite])
+        return state, torch.stack([final, finite])
 
-    def _admit_branches(self, feat, finite, tids, table_mask):
+    def _admit_branches(self, st, w, feat, finite, tids, table_mask):
         """Score → threshold → masked insert (→ in quantile mode the
         observation of every finite row's pre-insert rate) → rotation
         clock, for every sketch flavour; ``finite`` is the item mask
         (quarantined rows never admit and never insert).  ``table_mask``
         (None while healthy) restricts scores and thresholds to the
         healthy tables; a window's insert keeps the unmasked sums for its
-        ssq.  Updates ``self.state``; returns the admit mask."""
-        g, cfg, st, sh = self.gcfg, self.ace_cfg, self.state, self._shard
+        ssq.  Returns (new state, the admit mask)."""
+        g, cfg, sh = self.gcfg, self.ace_cfg, self._shard
         gamma = g.window_decay
         mode = dict(table_mask=table_mask, threshold_mode=g.threshold_mode,
                     q=g.quantile_q)
@@ -269,11 +305,11 @@ class Guardrail:
         if self.multi_tenant and self.windowed:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_window_admit(
-                    st, feat, tids, self.w, cfg, gamma=gamma, alpha=g.alpha,
+                    st, feat, tids, w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
                     **kmode)
             else:
-                buckets = hash_buckets(feat, self.w, cfg.srp)
+                buckets = hash_buckets(feat, w, cfg.srp)
                 pre = fw.window_table_sums_fleet(st, tids, buckets)
                 if table_mask is None:
                     scores = ring.score_live(*pre, cfg.num_tables)
@@ -298,10 +334,10 @@ class Guardrail:
             if self.use_kernels:
                 st, admit = kops.ace_fleet_admit(
                     st, feat, tids if sh is None else sh.local_tenants(tids),
-                    self.w, cfg, alpha=g.alpha, warmup_items=g.warmup_items,
+                    w, cfg, alpha=g.alpha, warmup_items=g.warmup_items,
                     shard=sh, **kmode)
             else:
-                buckets = hash_buckets(feat, self.w, cfg.srp)
+                buckets = hash_buckets(feat, w, cfg.srp)
                 scores = fl.fleet_scores(st, tids, buckets,
                                          table_mask=table_mask)
                 admit = scores >= fl.admit_thresholds(
@@ -318,11 +354,11 @@ class Guardrail:
         elif self.windowed:
             if self.use_kernels:
                 st, admit = kops.ace_admit_windowed(
-                    st, feat, self.w, cfg, gamma=gamma, alpha=g.alpha,
+                    st, feat, w, cfg, gamma=gamma, alpha=g.alpha,
                     warmup_items=g.warmup_items, rotate_every=g.rotate_every,
                     shard=sh, **kmode)
             else:
-                buckets = hash_buckets(feat, self.w, cfg.srp)
+                buckets = hash_buckets(feat, w, cfg.srp)
                 pre = ring.window_table_sums(st, buckets)
                 dec = pre if table_mask is None else ring.window_table_sums(
                     st, buckets, table_mask=table_mask)
@@ -342,10 +378,10 @@ class Guardrail:
                 st = ring.maybe_rotate(new, g.rotate_every, gamma)
         elif self.use_kernels:
             st, admit = kops.ace_admit(
-                st, feat, self.w, cfg, alpha=g.alpha,
+                st, feat, w, cfg, alpha=g.alpha,
                 warmup_items=g.warmup_items, shard=sh, **kmode)
         else:
-            buckets = hash_buckets(feat, self.w, cfg.srp)   # the ONE hash
+            buckets = hash_buckets(feat, w, cfg.srp)   # the ONE hash
             scores = sk.lookup(st, buckets, table_mask)
             admit = scores >= sk.admit_threshold(st, g.alpha,
                                                  g.warmup_items, **mode)
@@ -357,8 +393,7 @@ class Guardrail:
                     qsk.calib_mask(finite.to(torch.float32), st.n,
                                    g.warmup_items)))
             st = new
-        self.state = st
-        return admit
+        return st, admit
 
     def admit(self, embeds, tenant_ids=None) -> np.ndarray:
         """(B, S, D) request embeddings -> (B,) bool admitted; admitted rows
@@ -368,7 +403,10 @@ class Guardrail:
         counted in ``self.quarantined``) and answered by the fail policy
         (of their tenant).  While ``degraded`` the decision runs over the
         healthy tables only, with no more transfers."""
-        embeds = torch.as_tensor(embeds, device=self.device)
+        if not isinstance(embeds, torch.Tensor):
+            # a host array stays on the host: the program copies it into
+            # its static buffer (without a wait from page-locked memory)
+            embeds = torch.as_tensor(embeds)
         tids = None
         if self.multi_tenant:
             if tenant_ids is None:
@@ -381,7 +419,11 @@ class Guardrail:
                     f"[{self._shard.tenant_start}, "
                     f"{self._shard.tenant_start + self._shard.t_local}) "
                     f"under the {self._shard.layout!r} layout")
-            tids = torch.as_tensor(ids, device=self.device)
+            # copied in by the program: from page-locked memory without a
+            # wait on the card
+            tids = torch.as_tensor(ids)
+            if self.device.type == "cuda":
+                tids = tids.pin_memory()
         elif tenant_ids is not None:
             raise ValueError("tenant_ids given but num_tenants == 1")
         out = _to_host(self._admit_device(embeds, tids))  # the ONE transfer

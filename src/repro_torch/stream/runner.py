@@ -52,9 +52,15 @@ the same chunks; under the tenant layouts each rank consumes a stream of
 its own tenants (global ids, checked in ``run``), and its summary's
 per-tenant rows are its own tenants'.
 
-The reference compiles a chunk into one program
-(``trace_count``); the port runs it eagerly, and a captured CUDA graph of
-the chunk is ROADMAP.md queue 1 item 3's open point.
+As the reference compiles a chunk into one jitted program with its state
+donated, ``consume`` runs one captured CUDA graph a signature
+(``core.capture``: the chunk's shape and dtype, the filter's kind, the
+mask operands present), the T steps unrolled into it; ``trace_count``
+counts the programs built.  The state passed in is dead after the call:
+the returned state is the program's static buffers.  ``run`` writes each
+batch into its row of one reused page-locked host buffer (the fleet's
+tenant ids in the same buffer) and makes one non-blocking host-to-device
+copy a chunk straight into the program's static input.
 """
 from __future__ import annotations
 
@@ -64,7 +70,7 @@ import numpy as np
 import torch
 
 from repro_torch.attribution import sketch as at
-from repro_torch.core import quantize as qz
+from repro_torch.core import capture, quantize as qz
 from repro_torch.dist import collectives as col
 from repro_torch.dist.sketch_parallel import ShardedSketch
 from repro_torch.fleet.state import check_tenant_ids, per_tenant_counts
@@ -196,6 +202,10 @@ class StreamRunner:
                 f"chunk_T={self.chunk_T} so epoch boundaries land "
                 "deterministically inside or between chunks")
         self.shard = None
+        # run's staging: one page-locked host buffer, its device twin, the
+        # twin's (features, ids) views and the event of the last copy
+        self._host = self._dev = self._staged = self._copied = None
+        self._shape = None
         if mesh is not None:
             kind = ("fleet" if self.is_fleet
                     else "window" if self.windowed else "flat")
@@ -206,6 +216,17 @@ class StreamRunner:
                 num_epochs=getattr(filt, "num_epochs", 1),
                 quantile=filt.threshold_mode == "quantile",
                 attr=self.attr_cfg is not None)
+        # one captured program a signature; a mesh's collectives stage
+        # through the host, so a sharded runner runs it uncaptured
+        self._program = capture.Program(
+            self._consume_impl, filt.device, name="StreamRunner.consume",
+            capture=mesh is None, consts=(0,))
+
+    @property
+    def trace_count(self) -> int:
+        """Chunk programs built so far: one a signature, as the
+        reference's jitted ``consume`` traces once a chunk shape."""
+        return self._program.trace_count
 
     def init(self):
         """(state, w) on the filter's device; under a mesh this rank's
@@ -225,7 +246,12 @@ class StreamRunner:
         ``table_mask`` ((L,), or (T, L) for a fleet) scores the chunk over
         healthy tables only and sets the summary's ``degraded``;
         ``tenant_mask`` (T,) is a fleet's ownership mask.  Under a mesh
-        both are whole: a tenant layout keeps its tenants' rows."""
+        both are whole: a tenant layout keeps its tenants' rows.
+
+        The chunk runs as its signature's captured program
+        (``core.capture``): ``state`` is dead after the call, and
+        ``new_state`` is the program's static buffers, which the next
+        call of the same signature overwrites in place."""
         if feats.ndim != 3 or feats.shape[0] != self.chunk_T:
             raise ValueError(f"want a ({self.chunk_T}, B, d) chunk, got "
                              f"{tuple(feats.shape)}")
@@ -237,6 +263,19 @@ class StreamRunner:
         elif tenant_ids is not None or tenant_mask is not None:
             raise ValueError("tenant_ids/tenant_mask given but the filter "
                              "is not a fleet")
+        ops = (w, feats, tenant_ids, table_mask, tenant_mask)
+        staged = () if self._staged is None else {
+            t.data_ptr() for t in self._staged if t is not None}
+        state, out = self._program(
+            state, *ops, flags=(self.return_masks, self.filt.use_kernels),
+            borrowed=tuple(i for i, t in enumerate(ops)
+                           if t is not None and t.data_ptr() in staged))
+        return (state, *out)
+
+    def _consume_impl(self, state, w, feats, tenant_ids, table_mask,
+                      tenant_mask):
+        """The chunk's program: T filter steps (and the rotation clock),
+        attribution, the summary.  Returns (new state, (summary[, keeps]))."""
         T, R = self.chunk_T, self.rotate_every
         gamma = getattr(self.filt, "decay", 1.0)
         sh = self.shard
@@ -276,8 +315,8 @@ class StreamRunner:
         else:
             summary = self._summary(state, keeps, margins, table_mask, hh)
         if self.return_masks:
-            return state, summary, keeps
-        return state, summary
+            return state, (summary, keeps)
+        return state, (summary,)
 
     def _topk(self, keeps: torch.Tensor, margins: torch.Tensor) -> dict:
         """The fields every summary shares: kept fraction, per-step
@@ -418,21 +457,26 @@ class StreamRunner:
         """Host driver: chunk an iterator of (B, d) feature batches (and,
         for a fleet, an iterable of (B,) tenant ids beside them, each
         checked here to lie in [0, T)) and consume each chunk with one
-        copy to the device and one summary copy back.  Returns (final
-        state, [host summary per chunk]).  A trailing partial chunk is
-        dropped, as in the reference."""
+        copy to the device and one summary copy back.  Each batch goes
+        into its row of the reused page-locked staging buffer as it
+        arrives.  Returns (final state, [host summary per chunk]).  A
+        trailing partial chunk is dropped, as in the reference."""
         if self.is_fleet and tenant_ids is None:
             raise ValueError("fleet filters need tenant_ids batches")
         if not self.is_fleet and tenant_ids is not None:
             raise ValueError("tenant_ids given but the filter is not a "
                              "fleet (num_tenants attribute missing)")
         summaries = []
-        buf: list[np.ndarray] = []
-        tbuf: list[np.ndarray] = []
         tit = iter(tenant_ids) if tenant_ids is not None else None
+        t = 0
         for b in batches:
             b = np.asarray(b, np.float32)
-            buf.append(b)
+            if t == 0:
+                feats, tids = self._staging(b.shape)
+            elif b.shape != feats.shape[1:]:
+                raise ValueError(f"batch {tuple(b.shape)} in a chunk of "
+                                 f"{tuple(feats.shape[1:])} batches")
+            feats[t] = b
             if tit is not None:
                 ids = check_tenant_ids(next(tit), self.filt.num_tenants,
                                        b.shape[:1])
@@ -440,43 +484,78 @@ class StreamRunner:
                     raise ValueError("tenant ids outside this rank's "
                                      f"tenants under the "
                                      f"{self.shard.layout!r} layout")
-                tbuf.append(ids)
-            if len(buf) < self.chunk_T:
+                tids[t] = ids
+            t += 1
+            if t < self.chunk_T:
                 continue
-            if self.is_fleet:
-                feats, tids = self._upload_fleet(buf, tbuf)
-                tbuf.clear()
-                out = self.consume(state, w, feats, tids)
-            else:
-                out = self.consume(state, w, _to_device(np.stack(buf),
-                                                        self.filt.device))
-            buf.clear()
+            t = 0
+            out = self.consume(state, w, *self._upload())
             state = out[0]
             summaries.append(self.fetch(out[1]))
         return state, summaries
 
-    def _upload_fleet(self, buf: list[np.ndarray], tbuf: list[np.ndarray]):
-        """A fleet chunk's features and tenant ids in ONE host-to-device
-        copy: one float32 buffer holding the (T, B, d) features then the
-        (T, B) int32 ids' bits, split on the device into two contiguous
-        views."""
-        T = len(buf)
-        B, d = buf[0].shape
+    def _staging(self, shape) -> tuple:
+        """Host (T, B, d) features and (T, B) int32 ids (None unless a
+        fleet): views of the reused page-locked staging buffer, made again
+        only when the batch shape changes.  Waits for the last chunk's copy
+        out of it first (a chunk's summary fetch has already waited)."""
+        T, (B, d) = self.chunk_T, shape
         n = T * B * d
-        host = np.empty(n + T * B, np.float32)
-        feats = host[:n].reshape(T, B, d)
-        for t, b in enumerate(buf):
+        if self._shape != (T, B, d):
+            pin = torch.device(self.filt.device).type == "cuda"
+            self._host = torch.empty(n + (T * B if self.is_fleet else 0),
+                                     dtype=torch.float32, pin_memory=pin)
+            self._dev = self._staged = self._copied = None
+            self._shape = (T, B, d)
+        elif self._copied is not None:
+            self._copied.synchronize()
+        host = self._host.numpy()
+        return (host[:n].reshape(T, B, d),
+                host[n:].view(np.int32).reshape(T, B) if self.is_fleet
+                else None)
+
+    def _upload(self) -> tuple:
+        """The staged chunk in ONE host-to-device copy into the runner's
+        device buffer, which the chunk's program adopts as its static input:
+        (features (T, B, d), tenant ids (T, B) or None), views of it that
+        the next upload overwrites."""
+        T, B, d = self._shape
+        n = T * B * d
+        if self._dev is None:
+            self._dev = torch.empty(self._host.shape, dtype=torch.float32,
+                                    device=self.filt.device)
+        if self.is_fleet:
+            _to_device(self._host, self._dev)
+        else:
+            _to_device(self._host.view(T, B, d), self._dev.view(T, B, d))
+        if self._dev.is_cuda:
+            self._copied = torch.cuda.Event()
+            self._copied.record()
+        self._staged = (self._dev[:n].view(T, B, d),
+                        self._dev[n:].view(torch.int32).view(T, B)
+                        if self.is_fleet else None)
+        return self._staged
+
+    def _upload_fleet(self, buf: list[np.ndarray], tbuf: list[np.ndarray]):
+        """A fleet chunk's T feature batches and tenant-id rows through the
+        staging buffers in ONE host-to-device copy: (features (T, B, d),
+        ids (T, B) int32) on the device, overwritten by the next upload."""
+        feats, tids = self._staging(np.shape(buf[0]))
+        for t, (b, ids) in enumerate(zip(buf, tbuf)):
             feats[t] = b
-        host[n:].view(np.int32).reshape(T, B)[:] = np.stack(tbuf)
-        dev = _to_device(host, self.filt.device)
-        return (dev[:n].view(T, B, d),
-                dev[n:].view(torch.int32).view(T, B))
+            tids[t] = ids
+        return self._upload()
 
 
-def _to_device(x: np.ndarray, device: torch.device) -> torch.Tensor:
+def _to_device(x, to) -> torch.Tensor:
     """The ONE host-to-device transfer of a chunk (a named function, so
-    tests can count it)."""
-    return torch.as_tensor(x, device=device)
+    tests can count it): ``x`` a host array or tensor; ``to`` a device
+    (a new tensor) or the device tensor to fill (without a wait from
+    page-locked memory)."""
+    if isinstance(to, torch.Tensor):
+        x = torch.as_tensor(x)
+        return to.copy_(x, non_blocking=to.is_cuda and x.is_pinned())
+    return torch.as_tensor(x, device=to)
 
 
 def _to_host(x: torch.Tensor) -> np.ndarray:

@@ -2350,3 +2350,145 @@ def test_srht_hash_narrow_x_bitwise(cuda, B, d, K, L, xdt):
     got = SH.srht_hash(x, cfg)
     assert torch.equal(got, SH.srht_hash(x.float(), cfg))
     assert torch.equal(got, SH.srht_hash_plain(x, cfg))
+
+
+# ---------------------------------------------------------------------------
+# The compile-once contract: one captured CUDA graph a signature
+# (``core.capture``) for ``Guardrail.admit`` and ``StreamRunner.consume``.
+# ---------------------------------------------------------------------------
+
+CAPTURE_GUARDS = {"flat": {}, "window": dict(window_epochs=3, rotate_every=2),
+                  "fleet": dict(num_tenants=3),
+                  "fleet_window": dict(num_tenants=3, window_epochs=3,
+                                       rotate_every=2)}
+
+
+def _replays_count_their_tally(program, run, n=3):
+    """``run`` n times, each a replay of the entry it last built or used,
+    under sync-debug "error": each kernel's ``launches`` grows by n × the
+    capture's tally, and nothing syncs."""
+    run()
+    torch.cuda.synchronize()
+    before = {k: k.launches for e in program._entries.values()
+              for k in e.tally}
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(n):
+            run()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    grown = {k: k.launches - b for k, b in before.items()}
+    return grown
+
+
+@pytest.mark.parametrize("mode", ["mu_sigma", "quantile"])
+@pytest.mark.parametrize("kind", sorted(CAPTURE_GUARDS))
+def test_captured_admit_is_the_eager_twin(cuda, kind, mode):
+    """Each flavour, healthy, degraded and healthy again: the captured
+    admits' verdicts and states bitwise those of a twin run under
+    ``capture.disabled()``; two graphs (healthy, degraded); a replay
+    syncs nothing and adds its capture's tally to every kernel's
+    ``launches``."""
+    from repro_torch.core import capture
+    kw = dict(d_model=64, num_bits=10, num_tables=16, warmup_items=64.0,
+              threshold_mode=mode, quantile_q=0.05, **CAPTURE_GUARDS[kind])
+    g = Guardrail(GuardrailConfig(**kw), device=cuda)
+    twin = Guardrail(GuardrailConfig(**kw), device=cuda, w=g.w)
+    T = kw.get("num_tenants")
+    gen = torch.Generator(device=cuda).manual_seed(5)
+
+    def batch(i):
+        e = torch.randn((64, 4, 64), generator=gen, device=cuda)
+        e[: 16 * (i > 8)] += 3.0
+        e[i % 64, 0, 0] = float("nan")
+        t = None if T is None else ((np.arange(64) + i) % T).astype(np.int32)
+        return e, t
+
+    for i in range(14):
+        if i in (6, 11):
+            mask = None
+            if i == 6:
+                mask = torch.ones((T, 16) if T else (16,), device=cuda)
+                mask[..., 2] = mask[..., 5] = 0.0
+            for x in (g, twin):
+                x._table_mask = None if mask is None else mask.clone()
+        e, t = batch(i)
+        got = g.admit(e, t)
+        with capture.disabled():
+            want = twin.admit(e, t)
+        np.testing.assert_array_equal(got, want)
+        assert all(torch.equal(a, b) for a, b in zip(g.state, twin.state)
+                   if a is not None)
+    assert g.trace_count == 2 and twin.trace_count == 0
+    entries = list(g._program._entries.values())
+    assert all(e.graph is not None for e in entries)
+    e, t = batch(20)
+    tdev = None if t is None else torch.as_tensor(t, device=cuda)
+    grown = _replays_count_their_tally(
+        g._program, lambda: g._admit_device(e, tdev))
+    healthy = entries[0]
+    assert healthy.tally and all(grown[k] == 3 * n
+                                 for k, n in healthy.tally.items())
+
+
+CAPTURE_STREAMS = ("dense", "srht", "window", "fleet", "attr_fleet",
+                   "quantile_fleet", "masks")
+
+
+@pytest.mark.parametrize("kind", CAPTURE_STREAMS)
+def test_captured_consume_is_the_eager_twin(cuda, kind):
+    """Each stream kind over four chunks, the third scored with a health
+    mask: summaries, keep masks and states bitwise those of a twin runner
+    under ``capture.disabled()``; two graphs; a replay syncs nothing and
+    adds its capture's tally to every kernel's ``launches``."""
+    from repro_torch.core import capture
+    kw = dict(d_model=64, num_bits=10, num_tables=16, warmup_items=128.0,
+              device=cuda)
+    fleet = "fleet" in kind
+    if fleet:
+        filt = FleetDataFilter(num_tenants=4, **kw, **(
+            dict(attr_rows=4, attr_bits=6) if kind == "attr_fleet" else
+            dict(threshold_mode="quantile", quantile_q=0.05)
+            if kind == "quantile_fleet" else {}))
+    elif kind == "window":
+        filt = WindowedAceFilter(num_epochs=3, rotate_every=2, **kw)
+    else:
+        filt = AceDataFilter(hash_mode="srht" if kind == "srht" else "dense",
+                             **kw)
+    masks = kind == "masks"
+    r = StreamRunner(filt, 4, return_masks=masks)
+    twin = StreamRunner(filt, 4, return_masks=masks)
+    s, w = r.init()
+    ts = capture.tree_map(torch.clone, s)
+    rng = np.random.default_rng(3)
+    tmask = torch.ones((4, 16) if fleet else (16,), device=cuda)
+    tmask[..., 7] = 0.0
+
+    def chunk(c):
+        f = rng.normal(size=(4, 128, 65)).astype(np.float32)
+        f[:, c, 0] = np.nan
+        tids = (torch.as_tensor(rng.integers(0, 4, (4, 128)),
+                                dtype=torch.int32, device=cuda)
+                if fleet else None)
+        return torch.as_tensor(f, device=cuda), tids
+
+    for c in range(4):
+        f, tids = chunk(c)
+        m = tmask if c == 2 else None
+        out = r.consume(s, w, f, tids, table_mask=m)
+        with capture.disabled():
+            tout = twin.consume(ts, w, f, tids, table_mask=m)
+        s, ts = out[0], tout[0]
+        for a, b in zip(capture.leaves(out[1:]), capture.leaves(tout[1:])):
+            assert (a is None and b is None) or torch.equal(a, b)
+        assert all(torch.equal(a, b) for a, b in zip(
+            capture.leaves(s), capture.leaves(ts)) if a is not None)
+    assert r.trace_count == 2 and twin.trace_count == 0
+    entries = list(r._program._entries.values())
+    assert all(e.graph is not None for e in entries)
+    f, tids = chunk(5)
+    grown = _replays_count_their_tally(
+        r._program, lambda: r.consume(s, w, f, tids))
+    healthy = entries[0]
+    assert healthy.tally and all(grown[k] == 3 * n
+                                 for k, n in healthy.tally.items())
