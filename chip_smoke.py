@@ -246,15 +246,25 @@ non-zero without printing its result line):
              (d_model 4096, 32 heads, kv 8, d_ff 14336, 8 experts top-2,
              window 4096, vocab 32000, bf16 activations, float32
              parameters cast at each use) cut to 8 of its 32 layers, 64
-             prompts of 128 tokens, 64 new tokens each: the output's
+             prompts of 128 tokens, 64 new tokens each, through the
+             engine's captured prefill and decode programs
+             (``core.capture``, one CUDA graph a signature) in turns
+             with their eager twin (``capture.disabled()``): the output's
              shape and dtype, one ``ace_admit_fused`` launch a generate,
              the guardrail's verdict block and the tokens the only
              ``_to_host`` transfers, no sync in prefill and decode
              (sync-debug "error" from the admit's return to the tokens'
-             transfer); prefill ms, generate and ``decode_throughput``
-             tokens/s, the prefill's ``moe_drop_frac`` and the peak
-             memory; (b) two of those layers in float32 (TF32 off, the
-             capacity factor E/K so that no token drops): prefill +
+             transfer), the captured tokens equal to the eager twin's,
+             ``trace_counts`` (1, 1), the weights adopted (the graphs
+             read the caller's tensors, same ``data_ptr``), the
+             prefill's and one decode step's logits from one cache
+             against the eager twin's (bitwise, else within 2e-4);
+             captured / eager: prefill ms, generate and
+             ``decode_throughput`` tokens/s, one traced decode step, the
+             peak memory and ``memory_reserved`` of each path; the
+             prefill's ``moe_drop_frac``; (b) two of those layers in
+             float32 (TF32 off, the capacity factor E/K so that no token
+             drops): prefill +
              decode logits against ``forward`` within rtol 2e-4 / atol
              2e-4, and a ring cache (window cut to 32, ``s_max`` 32)
              against a full one (``s_max`` 64) over 48 greedy tokens that
@@ -449,7 +459,8 @@ before each path of phases 3 to 7 and 9 to 21 (the post-mortem query a
 path of its own; in phase 10 before each narrow admit, in phase 11
 before each degraded admit and the first healthy one after recovery;
 in phase 12 before each open loop; in phase 14 before each ACE fit; in
-phases 15 and 16 before each measured generate; in phase 17 before each
+phases 15 and 16 before each checked captured generate; in phase 17
+before each
 measured ``train``; in phase 18 in each serving host process, before
 its first chunk; in phase 19 in each rank, before each part; in phase
 20 in each rank, before each step or run; in phase 21 around each
@@ -4714,25 +4725,16 @@ def prompts_for(device, vocab: int, b: int, s: int, seed: int):
                          dtype=torch.int32)
 
 
-def serve_model(mods, device, what, arch, params, g, card,
-                extra=None) -> dict:
-    """One warm-up generate, then one measured generate of SERVE_NEW tokens
-    for SERVE_B prompts of SERVE_PROMPT tokens behind ``g``: its launches,
-    transfers and syncs checked; then prefill ms and decode_throughput.
-    ``extra`` joins the batch (whisper's {"embeds": frames}); a batch with
-    "embeds" is never screened (the reference's rule): then no launch,
-    the tokens the one transfer, and sync-debug "error" from the call's
-    start."""
-    from repro_torch.models import transformer as tf
+def checked_generate(mods, device, what, eng, params, batch, g, screened):
+    """One measured ``generate`` of SERVE_NEW tokens, its launches, transfers
+    and syncs checked: behind a screened batch one ``ace_admit_fused``
+    launch, the verdict block and the tokens the only transfers and no
+    sync in prefill and decode under sync-debug "error"; behind an
+    unscreened one no launch, the guardrail's n unchanged, the tokens the
+    one transfer and no sync from the call's start.  Returns (tokens,
+    host seconds, each kernel's launches in the call)."""
     from repro_torch.serve import engine as E
-    cfg = arch.cfg
-    eng = E.ServeEngine(arch, s_max=SERVE_SMAX, guardrail=g, device=device)
-    batch = {"tokens": prompts_for(device, cfg.vocab_size, SERVE_B,
-                                   SERVE_PROMPT, SEED + 16), **(extra or {})}
-    screened = "embeds" not in batch
-    eng.generate(params, batch, num_new_tokens=2, prompt_len=SERVE_PROMPT)
     g_n = float(g.state.n)
-
     transfers = []
     to_host, admit = E._to_host, g.admit
 
@@ -4765,7 +4767,7 @@ def serve_model(mods, device, what, arch, params, g, card,
     launches = read_launches(mods)
     check(toks.shape == (SERVE_B, SERVE_NEW) and toks.dtype == np.int32,
           f"{what}: generate returned {toks.shape} {toks.dtype}")
-    check(((toks >= 0) & (toks < cfg.vocab_size)).all(),
+    check(((toks >= 0) & (toks < eng.arch.cfg.vocab_size)).all(),
           f"{what}: every token in the vocabulary")
     if screened:
         check(launches["ace_admit_fused"] == 1 and launches["ace_query"] >= 1,
@@ -4785,49 +4787,199 @@ def serve_model(mods, device, what, arch, params, g, card,
               f"{what}: the tokens are the generate's one transfer "
               f"({transfers}); no sync in the whole generate under "
               "sync-debug \"error\"")
+    return toks, gen_s, launches
 
-    pre = []
-    for _ in range(3):
+
+def memory_now(device) -> dict:
+    """The peak allocated since the last reset and what the allocator holds
+    (the graphs' pools included), after a sync."""
+    sync(device)
+    return {"max_memory_allocated": torch.cuda.max_memory_allocated(),
+            "memory_reserved": torch.cuda.memory_reserved()}
+
+
+def logits_agree(what, kind, got, want, card) -> float:
+    """Captured logits against the eager twin's: bitwise expected, else
+    within the reference tests' 2e-4.  Returns the max abs difference."""
+    err = float((got.float() - want.float()).abs().max())
+    same = bool(torch.equal(got, want))
+    check(same or torch.allclose(got.float(), want.float(), **MODEL_TOL),
+          f"{what}: captured {kind} logits against the eager twin's "
+          f"({'bitwise' if same else f'max abs {err:.3g}'}; {card})")
+    return err
+
+
+def serve_model(mods, device, what, arch, params, g, card,
+                extra=None) -> dict:
+    """SERVE_B prompts of SERVE_PROMPT tokens behind ``g``, SERVE_NEW new,
+    through the engine's captured programs in turns with their eager twin
+    (``capture.disabled()``).  The eager twin first, from a flushed cache
+    (its warm-up, then a measured generate: its memory); then the captured
+    path (a warm-up generate that builds both programs, then the measured
+    ``checked_generate``: its memory, the graphs' pools included); the
+    tokens equal; ``trace_counts`` (1, 1); the weights adopted (same
+    ``data_ptr``s); one eager then one captured generate more (turns E, C,
+    C, E).  Then prefill ms (median of 3, through the engine's prefill
+    program, in turns), the prefill's and one decode step's logits from
+    one cache against the eager twin's, the device ms of the cache's
+    hand-over (the prefill's outputs cloned, then copied into the decode
+    program's state), ``decode_throughput`` (two runs of 16, in turns)
+    and one traced decode step each way.  ``extra`` joins
+    the batch (whisper's {"embeds": frames}); a batch with "embeds" is
+    never screened (the reference's rule)."""
+    from repro_torch.core import capture
+    from repro_torch.models import transformer as tf
+    from repro_torch.serve import engine as E
+    cfg = arch.cfg
+    eng = E.ServeEngine(arch, s_max=SERVE_SMAX, guardrail=g, device=device)
+    batch = {"tokens": prompts_for(device, cfg.vocab_size, SERVE_B,
+                                   SERVE_PROMPT, SEED + 16), **(extra or {})}
+    screened = "embeds" not in batch
+    ptrs = [t.data_ptr() for t in capture.leaves(params)]
+    gen = {"captured": [], "eager": []}
+
+    def timed(kind):
         sync(device)
         t0 = time.perf_counter()
-        logits, cache = arch.prefill(params, batch, s_max=SERVE_SMAX)
-        sync(device)
-        pre.append(time.perf_counter() - t0)
-    step = {"tokens": torch.argmax(logits[:, -1], dim=-1)
+        toks = eng.generate(params, batch, num_new_tokens=SERVE_NEW,
+                            prompt_len=SERVE_PROMPT)
+        gen[kind].append(time.perf_counter() - t0)
+        return toks
+
+    mem = {}
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with capture.disabled():
+        eng.generate(params, batch, num_new_tokens=2, prompt_len=SERVE_PROMPT)
+        eager_toks = timed("eager")
+    mem["eager"] = memory_now(device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng.generate(params, batch, num_new_tokens=2, prompt_len=SERVE_PROMPT)
+    toks, gen_s, launches = checked_generate(mods, device, what, eng, params,
+                                             batch, g, screened)
+    gen["captured"].append(gen_s)
+    mem["captured"] = memory_now(device)
+    check(np.array_equal(toks, eager_toks), f"{what}: captured tokens equal "
+          f"the eager twin's ({SERVE_B} x {SERVE_NEW})")
+    check(eng.trace_counts == (1, 1), f"{what}: one prefill and one decode "
+          f"program after the warm-up and the measured generate "
+          f"(trace_counts {eng.trace_counts})")
+    kept = [t.data_ptr() for t in capture.leaves(params)]
+    held = [w[0] for p in (eng._prefill, eng._decode)
+            for w in p._last.where[0]]
+    check(kept == ptrs and held == 2 * ptrs, f"{what}: the weights adopted, "
+          f"not cloned: the graphs read the caller's {len(ptrs)} tensors "
+          f"where they lie (same data_ptr)")
+    check(np.array_equal(timed("captured"), eager_toks),
+          f"{what}: a second captured generate gives the same tokens")
+    with capture.disabled():
+        timed("eager")
+
+    pre = {"captured": [], "eager": []}
+    got = {}
+    for _ in range(3):
+        for kind in ("captured", "eager"):
+            with contextlib.ExitStack() as stack:
+                if kind == "eager":
+                    stack.enter_context(capture.disabled())
+                sync(device)
+                t0 = time.perf_counter()
+                _, got[kind] = eng._prefill(None, params, batch)
+                sync(device)
+                pre[kind].append(time.perf_counter() - t0)
+    (logits, cache), (elogits, ecache) = got["captured"], got["eager"]
+    err = {"prefill": logits_agree(what, "prefill", logits, elogits, card)}
+    step = {"tokens": torch.argmax(elogits[:, -1], dim=-1)
             .to(torch.int32)[:, None]}
     pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32,
                      device=device)
-    # two runs of 16 steps each: the spread of the host clock
-    dec = [E.decode_throughput(arch, params, cache, step, pos, iters=16)
-           for _ in range(2)]
-    tr = device_trace(lambda: arch.decode_step(params, step, cache, pos),
-                      device)
-    out = {"launches": launches, "prefill_ms": 1e3 * statistics.median(pre),
+    # one decode step from one cache: the program copies it in, the eager
+    # step reads it; neither writes it
+    _, dlogits = eng._decode(ecache, params, step, pos)
+    with capture.disabled():
+        _, delogits = eng._decode(ecache, params, step, pos)
+    err["decode"] = logits_agree(what, "decode step", dlogits, delogits,
+                                 card)
+    # two runs of 16 steps each way, in turns: the spread of the host clock
+    dec = {"captured": [], "eager": []}
+    for kind in ("captured", "eager", "eager", "captured"):
+        with contextlib.ExitStack() as stack:
+            if kind == "eager":
+                stack.enter_context(capture.disabled())
+            dec[kind].append(E.decode_throughput(arch, params, cache, step,
+                                                 pos, iters=16))
+    state, _ = eng._decode(cache, params, step, pos)
+    # the cache's hand-over: cloned out of the prefill's graph, then copied
+    # into the decode program's static state at the first step
+    pairs = list(zip(capture.leaves(state), capture.leaves(cache)))
+    hand = {"bytes": sum(x.numel() * x.element_size() for _, x in pairs),
+            "clone_ms": device_ms(
+                lambda: capture.tree_map(torch.clone, cache), reps=5,
+                inner=2),
+            "copy_in_ms": device_ms(
+                lambda: [s.copy_(x) for s, x in pairs], reps=5, inner=2)}
+    tr = {"captured": device_trace(
+        lambda: eng._decode(state, params, step, pos), device)}
+    with capture.disabled():
+        tr["eager"] = device_trace(
+            lambda: arch.decode_step(params, step, cache, pos), device)
+    out = {"launches": launches,
+           "prefill_ms": 1e3 * statistics.median(pre["captured"]),
+           "eager_prefill_ms": 1e3 * statistics.median(pre["eager"]),
            "generate_tokens_per_s": SERVE_B * SERVE_NEW / gen_s,
-           "generate_s": gen_s, "decode_tokens_per_s": dec[0],
-           "decode_tokens_per_s_runs": dec,
-           "decode_step_trace": {k: v for k, v in tr.items() if k != "top"}}
+           "generate_s": gen["captured"], "eager_generate_s": gen["eager"],
+           "eager_generate_tokens_per_s":
+               SERVE_B * SERVE_NEW / gen["eager"][0],
+           "decode_tokens_per_s": dec["captured"][0],
+           "decode_tokens_per_s_runs": dec["captured"],
+           "eager_decode_tokens_per_s_runs": dec["eager"],
+           "decode_step_trace": {k: v for k, v in tr["captured"].items()
+                                 if k != "top"},
+           "eager_decode_step_trace": {k: v for k, v in tr["eager"].items()
+                                       if k != "top"},
+           "logits_max_abs_err": err, "trace_counts": eng.trace_counts,
+           "memory": mem, "cache_hand_over": hand}
     if cfg.moe_num_experts:
-        _, aux, _ = tf._run_full(params, batch, cfg)
+        with torch.no_grad():
+            _, aux, _ = tf._run_full(params, batch, cfg)
         moe_layers = sum(moe for *_, moe in tf.layers(cfg))
         out["moe_drop_frac"] = float(aux["moe_drop_frac"]) / moe_layers
+    toks_s = [SERVE_B * SERVE_NEW / t for t in gen["captured"]]
+    etoks_s = [SERVE_B * SERVE_NEW / t for t in gen["eager"]]
     print(f"  {what}: B {SERVE_B} x {SERVE_PROMPT} prompt tokens, "
-          f"{SERVE_NEW} new: prefill {out['prefill_ms']:.3f} ms (median of "
-          f"3); generate {gen_s:.3f} s = {out['generate_tokens_per_s']:,.1f} "
-          f"tokens/s (the admit included); decode_throughput "
-          f"{dec[0]:,.1f} / {dec[1]:,.1f} tokens/s (two runs of 16 steps)"
+          f"{SERVE_NEW} new, captured / eager: prefill "
+          f"{out['prefill_ms']:.3f} / {out['eager_prefill_ms']:.3f} ms "
+          f"(median of 3, the engine's prefill program); generate "
+          f"{toks_s[0]:,.1f}, {toks_s[1]:,.1f} / {etoks_s[0]:,.1f}, "
+          f"{etoks_s[1]:,.1f} tokens/s (turns E C C E, the admit included); "
+          f"decode_throughput {dec['captured'][0]:,.1f}, "
+          f"{dec['captured'][1]:,.1f} / {dec['eager'][0]:,.1f}, "
+          f"{dec['eager'][1]:,.1f} tokens/s (two runs of 16 steps each)"
           + (f"; prefill moe_drop_frac {out['moe_drop_frac']:.4f} an MoE "
              "layer" if "moe_drop_frac" in out else "")
-          + f"; launches {launches} ({card})")
-    busy = tr["device_busy_ms"]
-    print(f"  {what}: one decode step under torch.profiler: wall "
-          f"{tr['profiled_wall_ms']:.3f} ms, {tr['device_ops']} device ops, "
-          f"device busy {busy:.3f} ms (idle share "
-          f"{1 - busy / tr['profiled_wall_ms']:.3f}); top: "
-          + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in tr["top"])
-          + f" ({card})" if tr["device_ops"] else
-          f"  {what}: no device op in the decode step's trace; device idle "
-          "share not measured")
+          + f"; logits max abs prefill {err['prefill']:.3g}, decode "
+          f"{err['decode']:.3g}; the cache's hand-over "
+          f"{hand['bytes'] / 1e9:.3f} GB: clone {hand['clone_ms']:.3f} ms + "
+          f"copy-in {hand['copy_in_ms']:.3f} ms (CUDA events); trace_counts "
+          f"{eng.trace_counts}; launches "
+          f"{launches} ({card})")
+    for kind in ("captured", "eager"):
+        m = mem[kind]
+        print(f"  {what} {kind}: warm-up + measured generate peak "
+              f"(max_memory_allocated) {m['max_memory_allocated'] / 2**30:.2f}"
+              f" GiB, memory_reserved {m['memory_reserved'] / 2**30:.2f} GiB "
+              f"({card})")
+        t = tr[kind]
+        busy = t["device_busy_ms"]
+        print(f"  {what}: one {kind} decode step under torch.profiler: wall "
+              f"{t['profiled_wall_ms']:.3f} ms, {t['device_ops']} device ops, "
+              f"device busy {busy:.3f} ms (idle share "
+              f"{1 - busy / t['profiled_wall_ms']:.3f}); top: "
+              + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in t["top"])
+              + f" ({card})" if t["device_ops"] else
+              f"  {what}: no device op in the {kind} decode step's trace; "
+              "device idle share not measured")
     return out
 
 
@@ -8621,10 +8773,13 @@ def main() -> int:
                       for n in PAPER_K)
           + "; kNN graph + LOF at kddcup99_http's full n "
           f"{tables['kddcup99_http_full']['lof']['seconds']:.3f} s"
-          + "; served " + ", ".join(
-              f"{k[6:]} prefill {r['prefill_ms']:.3f} ms, generate "
-              f"{r['generate_tokens_per_s']:,.1f} tokens/s, decode "
-              f"{r['decode_tokens_per_s']:,.1f} tokens/s"
+          + "; served (captured / eager) " + ", ".join(
+              f"{k[6:]} prefill {r['prefill_ms']:.3f} / "
+              f"{r['eager_prefill_ms']:.3f} ms, generate "
+              f"{r['generate_tokens_per_s']:,.1f} / "
+              f"{r['eager_generate_tokens_per_s']:,.1f} tokens/s, decode "
+              f"{r['decode_tokens_per_s']:,.1f} / "
+              f"{r['eager_decode_tokens_per_s_runs'][0]:,.1f} tokens/s"
               for k, r in paths.items() if k.startswith("serve_"))
           + "; trained olmo_1b " + ", ".join(
               f"{k[12:]} step {r['step_ms']:.3f} ms, "

@@ -3,45 +3,69 @@ static buffers — the port's counterpart of ``jax.jit(fn,
 donate_argnums=0)`` (port-only, like ``core.convert``).
 
 A ``Program`` wraps ``fn(state, *inputs) -> (new_state, outputs)``, where
-``state`` is a tree (NamedTuples, tuples, None) of tensors that the call
-consumes, as a donated argument, and ``inputs`` are tensors (or None) that
-it only reads.  Its key is the flavour flags of the call, the tree and the
-shapes and dtypes of the state's leaves and of the inputs; a None operand
-and a tensor give different keys, so a degraded call (a health mask
-given) is one more program, as in the reference.  ``trace_count`` grows by
-one for each key built.
+``state`` is a tree (dicts, lists, tuples, NamedTuples, None) of tensors
+that the call consumes, as a donated argument, and ``inputs`` are trees
+(or single tensors, or None) that it only reads.  Its key is the flavour
+flags of the call, the tree and the shapes and dtypes of the state's
+leaves and of the inputs' leaves (a dict's keys sorted, as jit's pytrees
+sort them); a None operand and a tensor give different keys, so a
+degraded call (a health mask given) is one more program, as in the
+reference.  ``trace_count`` grows by one for each key built.
 
-* The first call of a key runs ``fn`` eagerly on the caller's state: the
-  warm-up, which fills every cache the path keeps (constant tables, the
-  card's cluster table, shared-memory opt-ins) outside any capture.  Its
-  new state becomes the key's static state buffers (a leaf that is still
-  one of the caller's tensors is cloned first, so the buffers belong to
-  the program alone) and copies of its inputs its static inputs.  Then
-  ``fn`` is captured once on those buffers into a ``torch.cuda.CUDAGraph``
-  whose last nodes ``copy_`` each new state leaf into its static buffer
-  wherever the storage differs (the kernels update counts in place; n,
-  the Welford leaves and the plain paths' scatters make new tensors).  A
-  capture records and runs nothing, so the warm-up's insert is not made
+* The first call of a key builds it.  Its inputs become the key's static
+  inputs: a leaf on the program's device is cloned, one on the host
+  copied over (so the buffers belong to the program alone), but an input
+  named in ``adopt`` (the program's, or a call's own) is read where it
+  lies, never cloned and never written (a model's weights: a second copy
+  of Mixtral's 47 GB would not fit the card; a runner's own staging
+  buffer, refilled in place).  Then ``fn`` runs eagerly on the caller's
+  state and the static inputs: the warm-up, which fills every cache the
+  path keeps (constant tables, the card's cluster table, shared-memory
+  opt-ins) outside any capture.  Its new state becomes the key's static
+  state buffers (a leaf that is still one of the caller's tensors or an
+  input is cloned first).  Then ``fn`` is captured once on those buffers into a
+  ``torch.cuda.CUDAGraph`` whose last nodes ``copy_`` each new state leaf
+  into its static buffer wherever the storage differs (the kernels update
+  counts in place; n, the Welford leaves, the plain paths' scatters and a
+  model's caches make new tensors, a view of a new tensor among them).
+  A capture records and runs nothing, so the warm-up's insert is not made
   twice.
 * A later call copies in every state leaf that is not the static buffer
   (compared by ``data_ptr``: a state a caller assigned, a repair, a
-  checkpoint restore) and every input (an input named in ``consts`` only
-  when another tensor, or the same one changed, comes in; one named in
-  ``borrowed`` is adopted as the static buffer at the first call, for a
-  caller that fills it in place), replays the graph and adds the launches
-  its capture recorded to each kernel's ``launches``.
+  checkpoint restore, a prefill's cache) and every input leaf; a leaf of
+  an input named in ``consts`` only when another tensor, or the same one
+  changed (its ``_version``), comes in than the last one copied (a const
+  is small, a projection, and may come from the host or anew from a
+  restore: a copy costs less than a capture).  An
+  adopted input is not copied: the graph reads its leaves at the
+  addresses it was captured on, so a call whose adopted leaves lie there
+  (the same tensors, changed in place or not) replays, and a call whose
+  adopted leaves lie elsewhere (new weights of the same shapes), or that
+  adopts other inputs than the build did, builds that key again on them
+  — a warm-up and a capture that replace the key's graph and drop the
+  old one — without counting a program, as jit does not retrace for new
+  values.  The program keeps no reference to an adopted tensor, so a
+  caller's ``del`` frees it.  Then the graph is replayed and the launches
+  its capture recorded are added to each kernel's ``launches``.
 * Every call returns the static state buffers: the state passed in is dead
   after the call, as under ``donate_argnums=0``.  A replay's outputs are
   clones (the graph's own are overwritten by the next replay).
 
-The graphs of one program share one memory pool.  On the CPU, and with
-``capture=False`` (a sharded run, whose collectives stage through the
-host), keys, counting, static buffers and copy-in/copy-out all run and
-only the capture and the replay are skipped: each call runs ``fn`` on the
-static buffers.  On the card a capture that fails raises, naming the last
-op it reached; nothing falls back to the eager path.  ``disabled()`` runs
-``fn`` eagerly on the caller's state, the counterpart of
-``jax.disable_jit()`` (no key, no count).
+Graphs share one memory pool: a program's own (``Pool``), or one that
+several programs of an owner share (``ServeEngine``'s prefill and decode
+step), which holds one peak of temporaries instead of one a program.
+Sharing is safe in any replay order: the static buffers lie outside the
+pool and each replay's outputs are cloned before any other graph runs,
+so between replays the pool holds nothing live but the outputs the
+graphs keep.  On the CPU, and with ``capture=False`` (a sharded run,
+whose collectives stage through the host), keys, counting, static
+buffers and copy-in/copy-out all run and only the capture and the replay
+are skipped: each call runs ``fn`` on the static buffers (and on the
+adopted inputs it was given).  On the card a
+capture that fails raises, naming the last op it reached; nothing falls
+back to the eager path.  ``disabled()`` runs ``fn`` eagerly on the
+caller's state, the counterpart of ``jax.disable_jit()`` (no key, no
+count).
 """
 from __future__ import annotations
 
@@ -74,31 +98,52 @@ def is_disabled() -> bool:
     return getattr(_off, "on", False)
 
 
-def signature(tree):
-    """The hashable shape of a tree: its types, None leaves, each tensor's
-    shape and dtype, and any other leaf's value."""
-    if tree is None:
-        return None
+def _walk(tree, out: list):
+    """Append the tensor (or None) leaves of ``tree`` to ``out``, in order
+    (a dict's by sorted key), and return its structure: the types, a
+    dict's keys, which leaves are None and any other leaf's value."""
     if isinstance(tree, torch.Tensor):
-        return tuple(tree.shape), tree.dtype
+        out.append(tree)
+        return True
+    if tree is None:
+        out.append(None)
+        return None
+    if isinstance(tree, dict):
+        keys = sorted(tree)
+        return dict, tuple(keys), tuple([_walk(tree[k], out) for k in keys])
     if isinstance(tree, (tuple, list)):
-        return type(tree), tuple(signature(x) for x in tree)
+        return type(tree), tuple([_walk(x, out) for x in tree])
     return type(tree), tree
 
 
+def flatten(tree) -> tuple:
+    """(signature, leaves) of a tree in one walk: the signature is hashable,
+    its structure and each tensor leaf's shape and dtype."""
+    out: list = []
+    structure = _walk(tree, out)
+    return (structure, tuple([None if x is None else (x.shape, x.dtype)
+                              for x in out])), out
+
+
+def signature(tree):
+    """The hashable shape of a tree (``flatten``)."""
+    return flatten(tree)[0]
+
+
 def leaves(tree) -> list:
-    """The tensor (or None) leaves of a tree, in order."""
-    if tree is None or isinstance(tree, torch.Tensor):
-        return [tree]
-    if isinstance(tree, (tuple, list)):
-        return [x for t in tree for x in leaves(t)]
-    return []
+    """The tensor (or None) leaves of a tree, in order (a dict's by sorted
+    key)."""
+    out: list = []
+    _walk(tree, out)
+    return out
 
 
 def tree_map(fn, tree):
     """``fn`` applied to each tensor of a tree, the rest kept."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
         return type(tree)(*(tree_map(fn, x) for x in tree))
     if isinstance(tree, (tuple, list)):
@@ -127,6 +172,32 @@ def _copy_from(dst: torch.Tensor, src: torch.Tensor) -> None:
     dst.copy_(src, non_blocking=pinned)
 
 
+def _source(x):
+    """What a const leaf was last copied in from: the tensor itself (held
+    weakly: a new tensor the allocator puts at a freed one's address is
+    another source) and its version."""
+    return None if x is None else (weakref.ref(x), x._version)
+
+
+def _unchanged(source, x) -> bool:
+    return source is not None and source[0]() is x \
+        and source[1] == x._version
+
+
+class Pool:
+    """One CUDA graph memory pool, made at the first capture; programs
+    given the same ``Pool`` capture into it (module docstring)."""
+
+    def __init__(self):
+        self._handle = None
+
+    @property
+    def handle(self):
+        if self._handle is None:
+            self._handle = torch.cuda.graph_pool_handle()
+        return self._handle
+
+
 class _LastOp(TorchFunctionMode):
     """Remembers the last PyTorch function a capture called, to name it
     when the capture fails."""
@@ -140,14 +211,32 @@ class _LastOp(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
-class _Entry:
-    __slots__ = ("state", "inputs", "sources", "graph", "out", "tally")
+def _where(xs) -> tuple:
+    """Where a graph reads an adopted input's leaves: each one's address
+    and strides (its shape and dtype are in the key)."""
+    return tuple([None if x is None else (x.data_ptr(), x.stride())
+                  for x in xs])
 
-    def __init__(self, state, inputs):
-        self.state, self.inputs = state, inputs
-        self.sources = [None] * len(inputs)   # consts: (ptr, version)
+
+class _Entry:
+    __slots__ = ("state", "inputs", "state_leaves", "input_leaves",
+                 "adopt", "where", "sources", "graph", "out", "tally")
+
+    def __init__(self, state, inputs, adopt):
+        self.state, self.inputs, self.adopt = state, inputs, adopt
+        self.state_leaves = leaves(state)
+        self.input_leaves = [leaves(x) for x in inputs]
+        self.where = [_where(xs) if i in adopt else None
+                      for i, xs in enumerate(self.input_leaves)]
+        self.sources = [None] * len(inputs)   # consts: each leaf's source
         self.graph = self.out = None
         self.tally = {}
+
+    def let_go(self) -> None:
+        """Hold no adopted tensor past the build: the graph reads them by
+        address, and an uncaptured call is given them anew."""
+        for i in self.adopt:
+            self.inputs[i] = self.input_leaves[i] = None
 
 
 class Program:
@@ -155,7 +244,8 @@ class Program:
     docstring); ``trace_count`` keys built so far."""
 
     def __init__(self, fn, device, *, name: str, capture: bool = True,
-                 consts: tuple = ()):
+                 consts: tuple = (), adopt: tuple = (),
+                 pool: Pool | None = None):
         # a method is held weakly, so its owner (which holds the program)
         # is freed, graphs and pool with it, as soon as it is dropped
         self._fn = weakref.WeakMethod(fn) if hasattr(fn, "__self__") \
@@ -166,49 +256,73 @@ class Program:
         self.name = name
         self.capture = capture and self.device.type == "cuda"
         self.consts = frozenset(consts)
+        self.adopt = frozenset(adopt)   # a call's default
         self.trace_count = 0
         self._entries: dict = {}
         self._last = None             # the entry of the latest call
-        self._pool = None
+        self._pool = pool or Pool()
 
     @property
     def fn(self):
         return self._fn()
 
     def _on_device(self, x):
-        if x is None or x.device == self.device:
+        if x.device == self.device:
             return x
         out = torch.empty_like(x, device=self.device)
         _copy_from(out, x)
         return out
 
-    def __call__(self, state, *inputs, flags=(), borrowed=()):
+    def _staged(self, x):
+        """A leaf's static buffer: the program's own copy of it."""
+        return x.clone() if x.device == self.device else self._on_device(x)
+
+    def _adopted(self, tree):
+        for x in leaves(tree):
+            if x is not None and x.device != self.device:
+                raise ValueError(f"{self.name}: an adopted input lies on "
+                                 f"{x.device}, the program on {self.device}")
+        return tree
+
+    def __call__(self, state, *inputs, flags=(), adopt=None):
         """(static new state, outputs) of ``fn`` on this call's operands.
-        ``flags`` are the flavour's hashable switches; ``borrowed`` the
-        indices of inputs whose tensors the caller owns and refills in
-        place, adopted as the static buffers."""
+        ``flags`` are the flavour's hashable switches; ``adopt`` the
+        indices of inputs read where they lie (module docstring), the
+        program's ``adopt`` unless given."""
         if is_disabled():
-            return self.fn(state, *map(self._on_device, inputs))
-        key = (flags, signature(state), tuple(map(signature, inputs)))
+            return self.fn(state, *(tree_map(self._on_device, x)
+                                    for x in inputs))
+        adopt = self.adopt if adopt is None else frozenset(adopt)
+        sig, given = flatten(state)
+        flat = [flatten(x) for x in inputs]
+        key = (flags, sig, tuple(f[0] for f in flat))
         entry = self._entries.get(key)
         if entry is None:
             self.trace_count += 1
-            return self._build(key, state, inputs, borrowed)
+            return self._build(key, state, inputs, adopt)
+        if entry.adopt != adopt or any(entry.where[i] != _where(flat[i][1])
+                                       for i in adopt):
+            return self._build(key, state, inputs, adopt)   # not counted
         self._last = entry
-        for s, x in zip(leaves(entry.state), leaves(state)):
-            if s is not None and not _same(s, x):
+        for s, x in zip(entry.state_leaves, given):
+            if s is not None and s is not x and not _same(s, x):
                 s.copy_(x)
-        for i, (s, x) in enumerate(zip(entry.inputs, inputs)):
-            if s is None or _same(s, x):
+        for i, (_, given) in enumerate(flat):
+            if i in adopt:
                 continue
-            if i in self.consts:
-                src = (x.data_ptr(), x._version)
-                if entry.sources[i] == src:
+            sources = entry.sources[i]
+            for j, (s, x) in enumerate(zip(entry.input_leaves[i], given)):
+                if s is None or s is x or _same(s, x):
                     continue
-                entry.sources[i] = src
-            _copy_from(s, x)
+                if sources is not None:
+                    if _unchanged(sources[j], x):
+                        continue
+                    sources[j] = _source(x)
+                _copy_from(s, x)
         if entry.graph is None:
-            new, out = self.fn(entry.state, *entry.inputs)
+            new, out = self.fn(entry.state, *(
+                x if i in adopt else s
+                for i, (s, x) in enumerate(zip(entry.inputs, inputs))))
             _copy_into(entry.state, new)
         else:
             entry.graph.replay()
@@ -216,15 +330,16 @@ class Program:
             out = tree_map(torch.clone, entry.out)
         return entry.state, out
 
-    def _build(self, key, state, inputs, borrowed):
-        moved = [self._on_device(x) for x in inputs]
-        new, out = self.fn(state, *moved)             # the warm-up
+    def _build(self, key, state, inputs, adopt):
+        static = [self._adopted(x) if i in adopt else tree_map(self._staged, x)
+                  for i, x in enumerate(inputs)]
+        new, out = self.fn(state, *static)            # the warm-up
         if signature(new) != signature(state):
             raise TypeError(f"{self.name}: the call changed its state's "
                             f"signature ({signature(state)} -> "
                             f"{signature(new)}); a program keeps one")
         # the static state: the new leaves, each the program's own
-        taken = {x.data_ptr() for x in leaves(state) + moved
+        taken = {x.data_ptr() for x in leaves(state) + leaves(static)
                  if x is not None and x.numel()}
 
         def own(x):
@@ -232,14 +347,14 @@ class Program:
                 x = x.clone()
             taken.add(x.data_ptr())
             return x
-        entry = _Entry(tree_map(own, new), [
-            x if x is None or i in borrowed or x is not orig else x.clone()
-            for i, (x, orig) in enumerate(zip(moved, inputs))])
-        for i in self.consts:
-            if inputs[i] is not None:
-                entry.sources[i] = (inputs[i].data_ptr(), inputs[i]._version)
+        if self._entries.pop(key, None) is self._last:
+            self._last = None           # a rebuilt key's old graph goes now
+        entry = _Entry(tree_map(own, new), static, adopt)
+        for i in self.consts - adopt:
+            entry.sources[i] = [_source(x) for x in leaves(inputs[i])]
         if self.capture:
             self._capture(entry)
+        entry.let_go()
         self._entries[key] = self._last = entry
         return entry.state, out
 
@@ -248,8 +363,6 @@ class Program:
         appended.  The capture's own device-wide synchronise (and the
         allocator's cache flush) run outside the caller's sync-debug mode:
         they belong to the build, as a trace's compile does."""
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
         graph = torch.cuda.CUDAGraph()
         mode = torch.cuda.get_sync_debug_mode()
         last = _LastOp()
@@ -260,7 +373,7 @@ class Program:
         gc.disable()
         try:
             with build.tally_launches() as tally, \
-                    torch.cuda.graph(graph, pool=self._pool):
+                    torch.cuda.graph(graph, pool=self._pool.handle):
                 with last:
                     new, out = self.fn(entry.state, *entry.inputs)
                     _copy_into(entry.state, new)

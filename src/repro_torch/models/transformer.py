@@ -209,14 +209,20 @@ def _apply_layer_decode(p, x, kind, use_moe, cfg: ModelConfig, pos, cache):
 # Embedding / head
 # ---------------------------------------------------------------------------
 
+@functools.lru_cache(maxsize=None)
+def _embed_scale(d_model: int, dtype: torch.dtype) -> float:
+    """sqrt(d_model) rounded to the activation dtype, as the reference
+    rounds it; computed once on the host, never a device read."""
+    return torch.tensor(float(d_model), dtype=dtype).sqrt().item()
+
+
 def embed_inputs(params, batch, cfg: ModelConfig) -> torch.Tensor:
     if cfg.input_mode == "tokens":
         x = params["embed"][batch["tokens"].long()].to(cfg.adtype)
     else:
         x = batch["embeds"].to(cfg.adtype)
     if cfg.scale_embeddings:
-        # sqrt(d_model) rounded to the activation dtype, as the reference
-        x = x * torch.tensor(float(cfg.d_model), dtype=x.dtype).sqrt().item()
+        x = x * _embed_scale(cfg.d_model, x.dtype)
     if cfg.embed_norm:
         x = apply_norm(params["embed_norm"], x, cfg)
     return x

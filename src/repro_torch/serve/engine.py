@@ -23,6 +23,7 @@ for fleets tenant-sharded or both.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 
 import numpy as np
@@ -581,7 +582,20 @@ class ServeEngine:
     """Greedy generation over a fixed batch, the serving path the guardrail
     stands in front of.  Port of the reference's ``ServeEngine``; runs on
     ``device`` (CUDA unless the caller names another), where ``params``
-    and the guardrail live."""
+    and the guardrail live.
+
+    Compile once (``core.capture``): the prefill and the decode step are
+    each one program, one captured CUDA graph a signature, as the
+    reference jits both (``_prefill``, ``_decode``).  The prefill's key is
+    the weights' and the batch's shapes (a new prompt length or batch size
+    is one more program); the decode step's the cache's, the weights', the
+    step's tokens and ``pos``.  The weights are adopted: the graphs read
+    the caller's tensors where they lie, never cloned and never written,
+    and new weights of the same shapes elsewhere are captured again with
+    no new program counted, as jit does not retrace for new values.  The
+    decode step's cache is its donated state; the prefill's cache (a
+    clone of the graph's) is copied into it at the first step.  The two
+    programs share one graph memory pool."""
 
     def __init__(self, arch: Arch, s_max: int = 256,
                  guardrail: Guardrail | None = None, device=None):
@@ -589,7 +603,28 @@ class ServeEngine:
         self.s_max = s_max
         self.guardrail = guardrail
         self.device = resolve_device(device)
+        pool = capture.Pool()
+        self._prefill = capture.Program(
+            self._prefill_impl, self.device, name="ServeEngine.prefill",
+            adopt=(0,), pool=pool)
+        self._decode = capture.Program(
+            self._decode_impl, self.device, name="ServeEngine.decode",
+            adopt=(0,), pool=pool)
 
+    @property
+    def trace_counts(self) -> tuple:
+        """(prefill, decode) programs built so far, as the reference's
+        ``_prefill._cache_size()`` and ``_decode._cache_size()``."""
+        return self._prefill.trace_count, self._decode.trace_count
+
+    @torch.no_grad()
+    def _prefill_impl(self, state, params, batch):
+        return None, self.arch.prefill(params, batch, s_max=self.s_max)
+
+    def _decode_impl(self, cache, params, batch, pos):
+        return _decode_step(self.arch, cache, params, batch, pos)
+
+    @torch.no_grad()
     def generate(self, params, batch, num_new_tokens: int,
                  prompt_len: int) -> np.ndarray:
         """Greedy decode.  Returns (B, num_new_tokens) int32.
@@ -600,19 +635,20 @@ class ServeEngine:
         verdict is not used, as in the reference (the whole batch is
         generated; ROADMAP.md queue 3 item 11).  A batch that carries
         ``"embeds"`` (whisper's {"embeds": frames, "tokens": prompts}) is
-        never screened, the reference's rule (queue 3 item 14).  Then
-        prefill and the decode loop run with no host sync: the tokens stay
-        on the device and leave through the one ``_to_host`` at the end.
-        A decoder-only model fed embeddings (qwen2_vl,
-        ``input_mode="embeds"``) cannot decode: the step feeds tokens, and
-        ``embed_inputs`` raises ``KeyError: 'embeds'``, as the reference's
-        does (queue 3 item 12)."""
+        never screened, the reference's rule (queue 3 item 14).  Then the
+        prefill's program and the decode step's, once a token, run with no
+        host sync: the tokens stay on the device and leave through the one
+        ``_to_host`` at the end.  A decoder-only model fed embeddings
+        (qwen2_vl, ``input_mode="embeds"``) cannot decode: the step feeds
+        tokens, and ``embed_inputs`` raises ``KeyError: 'embeds'`` from
+        the decode step's warm-up, as the reference's does (queue 3 item
+        12)."""
         cfg = self.arch.cfg
         batch = {k: torch.as_tensor(v, device=self.device)
                  for k, v in batch.items()}
         if self.guardrail is not None and "embeds" not in batch:
             self.guardrail.admit(params["embed"][batch["tokens"].long()])
-        logits, cache = self.arch.prefill(params, batch, s_max=self.s_max)
+        _, (logits, cache) = self._prefill(None, params, batch)
         B = logits.shape[0]
         tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
         toks = [tok]
@@ -621,26 +657,40 @@ class ServeEngine:
                              device=self.device)
             if cfg.mrope_sections is not None:
                 pos = pos[None].expand(3, B)
-            logits, cache = self.arch.decode_step(
-                params, {"tokens": tok[:, None]}, cache, pos)
+            cache, logits = self._decode(cache, params,
+                                         {"tokens": tok[:, None]}, pos)
             tok = torch.argmax(logits[:, -1, :], dim=-1).to(torch.int32)
             toks.append(tok)
         return _to_host(torch.stack(toks, dim=1))    # the ONE transfer
 
 
+@torch.no_grad()
+def _decode_step(arch: Arch, cache, params, batch, pos):
+    """One decode step as a program's function: (new cache, logits)."""
+    logits, cache = arch.decode_step(params, batch, cache, pos)
+    return cache, logits
+
+
 def decode_throughput(arch: Arch, params, cache, batch, pos,
                       iters: int = 8) -> float:
-    """Tokens a second of ``arch.decode_step`` on the host clock: one
-    warm-up step, then ``iters`` steps ended by a synchronise."""
+    """Tokens a second of ``arch.decode_step`` as one program
+    (``core.capture``, built for this call, as the reference jits the step
+    it times) on the host clock: the build (a warm-up step and the
+    capture), then ``iters`` replays ended by a synchronise.  ``cache`` is
+    read, never written: the program's state starts as the warm-up's new
+    cache."""
     def wait(t):
         if t.is_cuda:
             torch.cuda.synchronize(t.device)
 
-    logits, cache = arch.decode_step(params, batch, cache, pos)
+    program = capture.Program(functools.partial(_decode_step, arch),
+                              pos.device, name="decode_throughput",
+                              adopt=(0,))
+    cache, logits = program(cache, params, batch, pos)
     wait(logits)
     t0 = time.perf_counter()
     for _ in range(iters):
-        logits, cache = arch.decode_step(params, batch, cache, pos)
+        cache, logits = program(cache, params, batch, pos)
     wait(logits)
     dt = (time.perf_counter() - t0) / iters
     return batch[next(iter(batch))].shape[0] / dt

@@ -268,8 +268,8 @@ class StreamRunner:
             t.data_ptr() for t in self._staged if t is not None}
         state, out = self._program(
             state, *ops, flags=(self.return_masks, self.filt.use_kernels),
-            borrowed=tuple(i for i, t in enumerate(ops)
-                           if t is not None and t.data_ptr() in staged))
+            adopt=tuple(i for i, t in enumerate(ops)
+                        if t is not None and t.data_ptr() in staged))
         return (state, *out)
 
     def _consume_impl(self, state, w, feats, tenant_ids, table_mask,

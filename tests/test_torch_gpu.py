@@ -2492,3 +2492,101 @@ def test_captured_consume_is_the_eager_twin(cuda, kind):
     healthy = entries[0]
     assert healthy.tally and all(grown[k] == 3 * n
                                  for k, n in healthy.tally.items())
+
+
+CAPTURE_SERVE = ("mixtral_8x7b", "jamba_v01_52b", "rwkv6_7b", "whisper_tiny")
+
+
+@pytest.mark.parametrize("name", CAPTURE_SERVE)
+def test_captured_serve_is_the_eager_twin(cuda, name, monkeypatch):
+    """``ServeEngine.generate`` through its captured prefill and decode
+    programs at each family's reduced size (Mixtral: MoE and sliding
+    windows; Jamba: Mamba, MoE and attention; RWKV-6; whisper): tokens,
+    the prefill's logits and one decode step's bitwise those of the eager
+    twin (``capture.disabled()``); one graph each (``trace_counts`` (1,
+    1)); the weights adopted (the graphs read the caller's ``data_ptr``s);
+    a generate of replays syncs nothing before its one transfer, the
+    tokens.  Then the CPU test's sequence on the card — a new prompt
+    length, a new batch size, the first shape again, other weights of the
+    same shapes, the first weights again — so that the shared graph pool
+    holds three prefill and two decode graphs replayed out of capture
+    order, and the weights' keys are built again: every generate bitwise
+    its eager twin, neither set of weights written."""
+    from repro_torch.core import capture
+    from repro_torch.serve import engine as E
+    a, card, _ = _model_on_both(cuda, name)
+    eng = E.ServeEngine(a, s_max=24, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(9)
+
+    def batch_of(B, P):
+        batch = {"tokens": torch.randint(0, a.cfg.vocab_size, (B, P),
+                                         generator=gen, device=cuda,
+                                         dtype=torch.int32)}
+        if a.cfg.encoder_layers:
+            batch["embeds"] = torch.randn(
+                (B, a.cfg.encoder_seq, a.cfg.d_model), generator=gen,
+                device=cuda)
+        return batch
+
+    batch = batch_of(3, 12)
+    toks = eng.generate(card, batch, num_new_tokens=8, prompt_len=12)
+    with capture.disabled():
+        want = eng.generate(card, batch, num_new_tokens=8, prompt_len=12)
+    np.testing.assert_array_equal(toks, want)
+    assert eng.trace_counts == (1, 1)
+    programs = (eng._prefill, eng._decode)
+    assert all(e.graph is not None for p in programs
+               for e in p._entries.values())
+    ptrs = [t.data_ptr() for t in capture.leaves(card)]
+    assert all([w[0] for w in p._last.where[0]] == ptrs for p in programs)
+
+    calls, to_host = [], E._to_host
+
+    def counted(x):
+        torch.cuda.set_sync_debug_mode(0)
+        calls.append(tuple(x.shape))
+        return to_host(x)
+
+    monkeypatch.setattr(E, "_to_host", counted)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = eng.generate(card, batch, num_new_tokens=8, prompt_len=12)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert calls == [(3, 8)]
+    np.testing.assert_array_equal(got, want)
+    assert eng.trace_counts == (1, 1)
+    monkeypatch.setattr(E, "_to_host", to_host)
+
+    other = capture.tree_map(lambda t: t.flip(-1).contiguous(), card)
+    kept = [capture.tree_map(torch.clone, p) for p in (card, other)]
+    for B, P, new, p in [(3, 10, 6, card), (2, 10, 6, card),
+                         (3, 12, 8, card), (3, 12, 8, other),
+                         (2, 10, 6, other), (3, 12, 8, card)]:
+        b = batch if (B, P) == (3, 12) else batch_of(B, P)
+        got = eng.generate(p, b, num_new_tokens=new, prompt_len=P)
+        with capture.disabled():
+            want = eng.generate(p, b, num_new_tokens=new, prompt_len=P)
+        np.testing.assert_array_equal(got, want, err_msg=f"B {B}, P {P}")
+    assert eng.trace_counts == (3, 2)
+    assert all(e.graph is not None for p in programs
+               for e in p._entries.values())
+    for p, k in zip((card, other), kept):
+        assert all(torch.equal(x, y) for x, y in zip(capture.leaves(p),
+                                                      capture.leaves(k)))
+
+    _, (logits, cache) = eng._prefill(None, card, batch)
+    with capture.disabled():
+        _, (elogits, ecache) = eng._prefill(None, card, batch)
+    assert torch.equal(logits, elogits)
+    assert all(torch.equal(x, y) for x, y in zip(capture.leaves(cache),
+                                                  capture.leaves(ecache)))
+    step = {"tokens": torch.argmax(elogits[:, -1], -1).to(torch.int32)[:, None]}
+    pos = torch.full((3,), 12, dtype=torch.int32, device=cuda)
+    state, dlogits = eng._decode(ecache, card, step, pos)
+    with capture.disabled():
+        estate, delogits = eng._decode(ecache, card, step, pos)
+    assert torch.equal(dlogits, delogits)
+    assert all(torch.equal(x, y) for x, y in zip(capture.leaves(state),
+                                                  capture.leaves(estate)))

@@ -23,7 +23,8 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py", REPO / "scripts" / "kernel_ab.py",
        REPO / "scripts" / "frontend_tail_ab.py",
-       REPO / "examples" / "train_lm_ace_monitor_torch.py"]
+       REPO / "examples" / "train_lm_ace_monitor_torch.py",
+       REPO / "examples" / "serve_guardrail_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
