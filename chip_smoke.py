@@ -305,18 +305,32 @@ non-zero without printing its result line):
              ``DataStream`` of 8 × 128 tokens made from SEED, one
              warm-up step, then 8 steps with 2 microbatches and the
              in-step filter and 8 with the chunked prefilter (T = 4), no
-             checkpoint: every loss finite, every kernel of the path
-             (``ace_admit_fused``, ``ace_query_sum``, ``srp_hash``,
-             ``ace_update``) launched, one H2D (the batch) and one D2H
+             checkpoint, each in turns captured (``train``'s step, chunk
+             features and tail step as ``core.capture`` programs) and
+             as its eager twin (``capture.disabled()``) from a copy of
+             the same state at the same stream position: every loss
+             finite, every kernel of the path (``ace_admit_fused``,
+             ``ace_query_sum``, ``srp_hash``, ``ace_update``) launched,
+             as often captured as eager, one H2D (the batch) and one D2H
              (the metrics) a step and no sync in a step (sync-debug
-             "error" from the batch's H2D to the metrics transfer); step
-             ms (median), tokens/s, the filter's keep fraction and the
-             peak memory; then 3 unprofiled steps (their median wall)
-             and one step traced on the card only (device ops, busy, the
-             idle share against the unprofiled wall) with the stream ms
-             of its forward, backward, clip, filter, monitor and
-             optimiser from CUDA events and their device busy ms from
-             the trace; (b) reduced olmo_1b in float32 (TF32 off),
+             "error" from the batch's H2D to the metrics transfer);
+             metrics, parameters, moments, sketches, residual and
+             generator bitwise the twin's (each part that differs
+             named with its largest difference); one step program
+             (``trace_count``), none in the twin; the captured peak
+             memory within 4 GiB of the twin's (the state donated, not
+             cloned); step ms (median), tokens/s, the filter's keep
+             fraction and the peak memory; then 3 unprofiled eager
+             steps (their median wall) and one step traced on the card
+             only (device ops, busy, the idle share against the
+             unprofiled wall) with the stream ms of its forward,
+             backward, clip, filter, monitor and optimiser from CUDA
+             events and their device busy ms from the trace; and the
+             same step as one captured program: its build, 3 unprofiled
+             replays and one traced (device ops, busy, idle share);
+             (b) reduced olmo_1b in float32 (TF32 off), eager on the
+             card (its noise recorder is a Python hook a replay would
+             not call),
              filter, monitor and compression on, 4 steps on the card and
              on the CPU from one set of weights and one noise draw
              (recorded on the card, replayed on the CPU): losses within
@@ -332,13 +346,14 @@ non-zero without printing its result line):
              where the ids agree; then an
              interrupted run restored from its checkpoint against the
              uninterrupted one on the card, plain and chunked prefilter:
-             params within 1e-6, sketches and generator bitwise; (c) one
+             params within 1e-6, sketches and generator bitwise, both
+             runs captured; (c) one
              Mamba mixer of Jamba (d_model 4096, d_inner 8192, N 16) and
              one RWKV-6 time mix (64 heads of 64) at full width in
              float32, B = 2, S = 256, time_chunk 64: loss and gradients
              against the CPU's within 2e-4, forward + backward ms and
              peak memory beside the in-place inference loop's forward;
-             (d) poison, reduced olmo_1b: the reference's
+             (d) poison, reduced olmo_1b, captured: the reference's
              test_monitor_skips_poisoned_step (30 healthy steps, then
              zeros with every label the last token: flagged, params and
              moments unchanged), then 130 steps of a corrupt_every=13
@@ -5347,12 +5362,14 @@ def run_train(mods, device, card, what, arch, tcfg, state, stream, steps,
     inside a step; prints and returns (state, the path's numbers)."""
     from repro_torch.train.train_loop import train
     rec = {"h2d": 0, "d2h": 0, "ends": []}
+    gc.collect()             # an earlier step's garbage is not this run's
     sync(device)
     torch.cuda.reset_peak_memory_stats()
+    at_start = torch.cuda.memory_allocated()
     reset_launches(mods)
     t0 = time.perf_counter()
     try:
-        with step_transfers(rec):
+        with step_transfers(rec), train_programs() as programs:
             state, hist = train(arch, tcfg, stream, steps, log_every=0,
                                 state=state)
     except RuntimeError as e:
@@ -5360,6 +5377,7 @@ def run_train(mods, device, card, what, arch, tcfg, state, stream, steps,
     sync(device)
     seconds = time.perf_counter() - t0
     launches = read_launches(mods)
+    traces = {k: p.trace_count for k, p in programs.items()}
     ends = [t0] + rec["ends"]
     step_ms = [1e3 * (b - a) for a, b in zip(ends, ends[1:])]
     losses = [h["loss"] for h in hist]
@@ -5369,7 +5387,8 @@ def run_train(mods, device, card, what, arch, tcfg, state, stream, steps,
            "keep_frac": keep, "hist": hist,
            "tokens_per_s": steps * tokens_per_step / seconds,
            "grad_anomalies": sum(h.get("grad_anomaly", 0.0) for h in hist),
-           "max_memory_allocated": torch.cuda.max_memory_allocated()}
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "memory_at_start": at_start, "trace_counts": traces}
     check(len(hist) == steps and all(np.isfinite(losses)),
           f"{what}: {steps} steps, every loss finite ({losses[0]:.4f} -> "
           f"{losses[-1]:.4f})")
@@ -5384,8 +5403,118 @@ def run_train(mods, device, card, what, arch, tcfg, state, stream, steps,
           f"{out['tokens_per_s']:,.0f} tokens/s over {seconds:.3f} s, "
           f"filter keep {keep:.4f}, monitor flagged "
           f"{out['grad_anomalies']:.0f}, peak memory "
-          f"{out['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+          f"{out['max_memory_allocated'] / 2**30:.2f} GiB "
+          f"({(out['max_memory_allocated'] - at_start) / 2**30:.2f} over "
+          f"the run's start), programs {traces} ({card})")
     return state, out
+
+
+@contextlib.contextmanager
+def train_programs():
+    """``train``'s captured programs made within it, by function: the
+    step (``train_step``), the chunk features and the tail step."""
+    from repro_torch.core import capture
+    real = capture.Program
+    made = {}
+
+    class Recorded(real):
+        def __init__(self, fn, *a, **k):
+            super().__init__(fn, *a, **k)
+            name = getattr(fn, "__name__", "")
+            if name in ("train_step", "chunk_features", "tail_step"):
+                made[name] = self
+
+    capture.Program = Recorded
+    try:
+        yield made
+    finally:
+        capture.Program = real
+
+
+def clone_train_state(state):
+    """A TrainState's copy on its device: every tensor cloned, the
+    generator a new one in the same state."""
+    from repro_torch.models.registry import tree_map
+
+    def gen(g):
+        out = torch.Generator(device=g.device)
+        out.set_state(g.get_state())
+        return out
+    return type(state)(*[gen(f) if isinstance(f, torch.Generator)
+                         else tree_map(torch.clone, f) for f in state])
+
+
+def twin_differences(a, b, hist_a, hist_b) -> dict:
+    """Each part of two training runs that is not bitwise the same, by
+    name, with its largest absolute difference: the metrics, the
+    parameters, the moments (``opt_state``), the sketches (the filter's,
+    the monitor's), the residual and the generator's state."""
+    from repro_torch.models.registry import leaves
+    out = {}
+    for k in sorted({k for h in hist_a for k in h}):
+        x = np.array([h.get(k, np.nan) for h in hist_a])
+        y = np.array([h.get(k, np.nan) for h in hist_b])
+        if not np.array_equal(x, y, equal_nan=True):
+            out[f"metric {k}"] = float(np.nanmax(np.abs(x - y)))
+    for f in ("params", "opt_state", "filter_state", "monitor", "ef"):
+        for i, (x, y) in enumerate(zip(leaves(getattr(a, f)),
+                                       leaves(getattr(b, f)))):
+            if not torch.equal(x, y):
+                d = (x.double() - y.double()).abs().max()
+                out[f"{f} leaf {i} {tuple(x.shape)}"] = float(d)
+    if not torch.equal(a.rng.get_state(), b.rng.get_state()):
+        out["generator state"] = float("nan")
+    return out
+
+
+def train_twins(mods, device, card, what, arch, tcfg, state, stream,
+                tokens) -> tuple:
+    """(a): one configuration's TRAIN_STEPS steps of ``train`` captured,
+    then its eager twin (``capture.disabled()``) from a copy of the same
+    state at the same stream position: (state, captured numbers, eager
+    numbers, the parts that differ).  While one runs the other's state
+    lies on the card too (the peak memory over the run's start excludes
+    it)."""
+    from repro_torch.core import capture
+    from repro_torch.data.pipeline import DataStream
+    twin = clone_train_state(state)
+    twin_stream = DataStream(stream.cfg)
+    twin_stream.load_state_dict(stream.state_dict())
+    state, got = run_train(mods, device, card, f"{what}, captured", arch,
+                           tcfg, state, stream, TRAIN_STEPS, tokens)
+    with capture.disabled():
+        twin, want = run_train(mods, device, card, f"{what}, eager twin",
+                               arch, tcfg, twin, twin_stream, TRAIN_STEPS,
+                               tokens)
+    differ = twin_differences(state, twin, got.pop("hist"),
+                              want.pop("hist"))
+    del twin
+    over = [(r["max_memory_allocated"] - r["memory_at_start"]) / 2**30
+            for r in (got, want)]
+    print(f"  {what}: captured against the eager twin over {TRAIN_STEPS} "
+          f"steps: "
+          + ("metrics, parameters, moments, sketches, residual and "
+             "generator bitwise" if not differ else
+             "differ in " + "; ".join(f"{k} (max abs {v:.3g})"
+                                      for k, v in differ.items()))
+          + f"; step {got['step_ms']:.3f} ms against {want['step_ms']:.3f} "
+          f"ms ({want['step_ms'] / got['step_ms']:.3f}x), peak "
+          f"{got['max_memory_allocated'] / 2**30:.2f} against "
+          f"{want['max_memory_allocated'] / 2**30:.2f} GiB ({over[0]:.2f} "
+          f"against {over[1]:.2f} over the run's start) ({card})")
+    check(not differ, f"{what}: captured bitwise the eager twin "
+          f"({sorted(differ)})")
+    check(got["launches"] == want["launches"], f"{what}: each kernel "
+          f"launched as often captured as eager ({got['launches']})")
+    check(got["trace_counts"].get("train_step") == 1
+          and not any(want["trace_counts"].values()),
+          f"{what}: one step program captured, none in the twin "
+          f"({got['trace_counts']}, {want['trace_counts']})")
+    grow = got["max_memory_allocated"] - want["max_memory_allocated"]
+    check(grow <= 4 * 2**30, f"{what}: captured peak within 4 GiB of the "
+          f"twin's ({grow / 2**30:+.2f} GiB): no copy of the donated "
+          "parameters and moments")
+    return state, got, want, differ
 
 
 @contextlib.contextmanager
@@ -5514,6 +5643,71 @@ def step_breakdown(arch, tcfg, state, stream, device, card) -> dict:
           + ", ".join(f"{k} {busy[k]:.3f} ({ops[k]}) / {stream_ms[k]:.3f}"
                       for k in SECTIONS)
           + f"; outside them {busy_ms - sum(busy.values()):.3f}")
+    return state, out
+
+
+def captured_step(arch, tcfg, state, stream, device, card) -> tuple:
+    """(a): ``step_breakdown``'s step as ``train`` runs it, one captured
+    program (``core.capture``, its state donated): built by its first
+    call (the eager warm-up and the capture, timed), then
+    BREAKDOWN_STEPS replays each bracketed by syncs (their median wall,
+    the batch's copy into the static inputs and the metrics' clones
+    included) and one replay traced on the card (``device_trace``, the
+    fuller of two traces): device ops, busy ms and the idle share against
+    the unprofiled wall."""
+    from repro_torch.core import capture
+    from repro_torch.train import train_loop as tl
+    step = capture.Program(tl.make_train_step(arch, tcfg), device,
+                           name="train.step", donate=True)
+
+    def batch():
+        return tl._to_device({k: v for k, v in next(stream).items()
+                              if not k.startswith("_")}, device)
+    sync(device)
+    t0 = time.perf_counter()
+    state, _ = step(state, batch())
+    sync(device)
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    walls = []
+    for _ in range(BREAKDOWN_STEPS):
+        b = batch()
+        sync(device)
+        t0 = time.perf_counter()
+        state, _ = step(state, b)
+        sync(device)
+        walls.append(1e3 * (time.perf_counter() - t0))
+    wall_ms = statistics.median(walls)
+    traces = []
+    for _ in range(2):
+        b = batch()
+        sync(device)
+
+        def one():
+            nonlocal state
+            state, _ = step(state, b)
+        traces.append(device_trace(one, device))
+    tr = max(traces, key=lambda t: t["device_ops"])
+    out = {"build_ms": build_ms, "wall_ms": wall_ms, "wall_ms_runs": walls,
+           "device_ops": tr["device_ops"],
+           "device_busy_ms": tr["device_busy_ms"],
+           "traced_wall_ms": tr["profiled_wall_ms"],
+           "trace_count": step.trace_count}
+    print(f"  olmo_1b step captured (one program, {step.trace_count} key; "
+          f"its build, the eager warm-up and the capture, {build_ms:.3f} "
+          f"ms): wall {wall_ms:.3f} ms unprofiled (median of "
+          f"{BREAKDOWN_STEPS}: {', '.join(f'{w:.3f}' for w in walls)}) "
+          f"({card})")
+    if not tr["device_ops"]:
+        print("  one captured step under torch.profiler: no device op in "
+              "the trace; device busy ms and idle share not measured")
+        return state, out
+    out["idle_share"] = 1 - tr["device_busy_ms"] / wall_ms
+    print(f"  one captured step under torch.profiler: wall "
+          f"{tr['profiled_wall_ms']:.3f} ms traced, {tr['device_ops']} "
+          f"device ops, busy {tr['device_busy_ms']:.3f} ms; idle share "
+          f"against the unprofiled wall {out['idle_share']:.3f}; top: "
+          + ", ".join(f"{n[:40]} {v / 1e3:.3f} ms" for n, v in tr["top"])
+          + f" ({card})")
     return state, out
 
 
@@ -5752,7 +5946,9 @@ def reduced_card_vs_cpu(device, card) -> dict:
            "param_share_within_1e-6": float(np.mean(diffs <= 1e-6)),
            "noise_draws": draws, "filter_counters_differ": differ}
     print(f"  reduced olmo_1b float32, filter + monitor + compression, "
-          f"{REDUCED_STEPS} steps card vs CPU ({draws} noise tensors "
+          f"{REDUCED_STEPS} steps card vs CPU, eager on the card "
+          f"(capture.disabled(): a replay would not call the noise "
+          f"recorder) ({draws} noise tensors "
           f"drawn on the card, replayed on the CPU): loss rel err "
           f"{loss_err:.3g}, params max abs {diffs.max():.3g} "
           f"({out['param_share_within_1e-6']:.6f} within 1e-6), filter "
@@ -5943,6 +6139,7 @@ def poison(mods, device, card) -> dict:
     drives it (30 healthy steps, then zeros with every label the last
     token), then the filter on a corrupt_every=13 stream in both
     threshold modes."""
+    from repro_torch.core import capture
     from repro_torch.data.pipeline import DataStream, StreamConfig, \
         synth_batch
     from repro_torch.models import Arch
@@ -5951,7 +6148,8 @@ def poison(mods, device, card) -> dict:
     arch = Arch("olmo_1b", reduced=True)
     tcfg = train_config(use_data_filter=False, peak_lr=1e-3,
                         total_steps=100, seed=1)
-    step_fn = tl.make_train_step(arch, tcfg)
+    step_fn = capture.Program(tl.make_train_step(arch, tcfg), device,
+                              name="train.step", donate=True)
     state = tl.init_train_state(arch, tcfg, 1)
     stream = DataStream(StreamConfig(vocab_size=arch.cfg.vocab_size,
                                      seq_len=REDUCED_S,
@@ -5967,9 +6165,11 @@ def poison(mods, device, card) -> dict:
     state, m = step_fn(state, tl._to_device(bad, device))
     kept = all(torch.equal(a, b) for a, b in
                zip(before, leaves((state.params, state.opt_state))))
-    check(float(m["grad_anomaly"]) == 1.0 and kept,
-          "the monitor skips the poisoned step once armed: flagged, params "
-          f"and optimiser state unchanged ({card})")
+    check(float(m["grad_anomaly"]) == 1.0 and kept
+          and step_fn.trace_count == 1,
+          "the monitor skips the poisoned step once armed (one captured "
+          "step program): flagged, params and optimiser state unchanged "
+          f"({card})")
     out = {}
     scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=REDUCED_S,
                         global_batch=POISON_B, seed=1,
@@ -6011,6 +6211,7 @@ def poison(mods, device, card) -> dict:
 
 def phase_train(mods, device, card) -> dict:
     """Phase 17 (the module docstring)."""
+    from repro_torch.core import capture
     from repro_torch.data.pipeline import DataStream, StreamConfig
     from repro_torch.models import Arch
     from repro_torch.models.registry import leaves
@@ -6036,15 +6237,22 @@ def phase_train(mods, device, card) -> dict:
             ("train_olmo_chunked",
              f"olmo_1b, chunked prefilter T = {TRAIN_CHUNK}",
              train_config(filter_chunk=TRAIN_CHUNK))):
-        state, out[key] = run_train(mods, device, card, what, arch, tc,
-                                    state, stream, TRAIN_STEPS, tokens)
-        out[key].pop("hist")
+        state, out[key], out[f"{key}_eager"], out[f"{key}_differ"] = \
+            train_twins(mods, device, card, what, arch, tc, state, stream,
+                        tokens)
     state, out["breakdown"] = step_breakdown(arch, train_config(), state,
                                              stream, device, card)
+    state, out["captured_step"] = captured_step(arch, train_config(), state,
+                                                stream, device, card)
+    eager, got = out["breakdown"]["wall_ms"], out["captured_step"]["wall_ms"]
+    print(f"  olmo_1b plain-loop step: captured {got:.3f} ms against eager "
+          f"{eager:.3f} ms ({eager / got:.3f}x) ({card})")
     del state
     torch.cuda.empty_cache()
 
-    out["card_vs_cpu"] = reduced_card_vs_cpu(device, card)
+    # eager: a captured step's replay would not call the noise recorder
+    with capture.disabled():
+        out["card_vs_cpu"] = reduced_card_vs_cpu(device, card)
     restart_on_card(device, card, "restart, plain loop")
     restart_on_card(device, card, "restart, chunked prefilter",
                     filter_chunk=2)
@@ -8651,7 +8859,8 @@ def main() -> int:
           "restarts, the recurrences' backward at full width, poison")
     t17 = time.perf_counter()
     trained = phase_train(mods, device, card)
-    paths.update({k: v for k, v in trained.items() if "launches" in v})
+    paths.update({k: v for k, v in trained.items()
+                  if not k.endswith("_differ") and "launches" in v})
     print(f"  phase 17 took {time.perf_counter() - t17:.1f} s")
 
     print("phase 18: the fault-tolerant multi-host fleet (repro_torch."
@@ -8781,11 +8990,17 @@ def main() -> int:
               f"{r['decode_tokens_per_s']:,.1f} / "
               f"{r['eager_decode_tokens_per_s_runs'][0]:,.1f} tokens/s"
               for k, r in paths.items() if k.startswith("serve_"))
-          + "; trained olmo_1b " + ", ".join(
-              f"{k[12:]} step {r['step_ms']:.3f} ms, "
-              f"{r['tokens_per_s']:,.0f} tokens/s, peak "
-              f"{r['max_memory_allocated'] / 2**30:.2f} GiB"
-              for k, r in trained.items() if k.startswith("train_olmo"))
+          + "; trained olmo_1b (captured / eager) " + ", ".join(
+              f"{k[11:]} step {r['step_ms']:.3f} / {e['step_ms']:.3f} ms, "
+              f"{r['tokens_per_s']:,.0f} / {e['tokens_per_s']:,.0f} "
+              f"tokens/s, peak {r['max_memory_allocated'] / 2**30:.2f} / "
+              f"{e['max_memory_allocated'] / 2**30:.2f} GiB"
+              for k, r, e in ((k, trained[k], trained[f"{k}_eager"]) for k
+                              in ("train_olmo_microbatches",
+                                  "train_olmo_chunked")))
+          + f"; plain-loop step captured "
+          f"{trained['captured_step']['wall_ms']:.3f} / eager "
+          f"{trained['breakdown']['wall_ms']:.3f} ms"
           + "; captured admit p50 " + ", ".join(
               f"{r['p50_ms']:.3f} ms {k[19:]} (eager {r['eager_p50_ms']:.3f})"
               for k, r in captured.items()

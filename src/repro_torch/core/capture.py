@@ -23,7 +23,11 @@ reference.  ``trace_count`` grows by one for each key built.
   path keeps (constant tables, the card's cluster table, shared-memory
   opt-ins) outside any capture.  Its new state becomes the key's static
   state buffers (a leaf that is still one of the caller's tensors or an
-  input is cloned first).  Then ``fn`` is captured once on those buffers into a
+  input is cloned first; with ``donate=True`` one of the caller's state
+  tensors is kept as it is, uncloned: a training step that writes its
+  parameters and moments in place owns them from then on, as
+  ``donate_argnums=0`` gives jit the caller's buffers).  Then ``fn`` is
+  captured once on those buffers into a
   ``torch.cuda.CUDAGraph`` whose last nodes ``copy_`` each new state leaf
   into its static buffer wherever the storage differs (the kernels update
   counts in place; n, the Welford leaves, the plain paths' scatters and a
@@ -50,6 +54,13 @@ reference.  ``trace_count`` grows by one for each key built.
 * Every call returns the static state buffers: the state passed in is dead
   after the call, as under ``donate_argnums=0``.  A replay's outputs are
   clones (the graph's own are overwritten by the next replay).
+* A ``torch.Generator`` in the state (a training state's ``rng``) is keyed
+  on its device only, as a key array of jit is on its shape: a restore
+  that hands in another generator replays the same program.  The key's
+  generator is the one its build was given; a later call that hands in
+  another copies that one's state into it, and a capture registers it
+  with the graph (``register_generator_state``), so each replay draws
+  where the eager call would and advances the generator as it does.
 
 Graphs share one memory pool: a program's own (``Pool``), or one that
 several programs of an owner share (``ServeEngine``'s prefill and decode
@@ -113,6 +124,8 @@ def _walk(tree, out: list):
         return dict, tuple(keys), tuple([_walk(tree[k], out) for k in keys])
     if isinstance(tree, (tuple, list)):
         return type(tree), tuple([_walk(x, out) for x in tree])
+    if isinstance(tree, torch.Generator):
+        return torch.Generator, tree.device
     return type(tree), tree
 
 
@@ -136,6 +149,17 @@ def leaves(tree) -> list:
     out: list = []
     _walk(tree, out)
     return out
+
+
+def generators(tree) -> list:
+    """The ``torch.Generator`` leaves of a tree, in ``leaves`` order."""
+    if isinstance(tree, torch.Generator):
+        return [tree]
+    if isinstance(tree, dict):
+        return [g for k in sorted(tree) for g in generators(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [g for x in tree for g in generators(x)]
+    return []
 
 
 def tree_map(fn, tree):
@@ -219,12 +243,14 @@ def _where(xs) -> tuple:
 
 
 class _Entry:
-    __slots__ = ("state", "inputs", "state_leaves", "input_leaves",
-                 "adopt", "where", "sources", "graph", "out", "tally")
+    __slots__ = ("state", "inputs", "state_leaves", "generators",
+                 "input_leaves", "adopt", "where", "sources", "graph", "out",
+                 "tally")
 
     def __init__(self, state, inputs, adopt):
         self.state, self.inputs, self.adopt = state, inputs, adopt
         self.state_leaves = leaves(state)
+        self.generators = generators(state)
         self.input_leaves = [leaves(x) for x in inputs]
         self.where = [_where(xs) if i in adopt else None
                       for i, xs in enumerate(self.input_leaves)]
@@ -244,7 +270,7 @@ class Program:
     docstring); ``trace_count`` keys built so far."""
 
     def __init__(self, fn, device, *, name: str, capture: bool = True,
-                 consts: tuple = (), adopt: tuple = (),
+                 consts: tuple = (), adopt: tuple = (), donate: bool = False,
                  pool: Pool | None = None):
         # a method is held weakly, so its owner (which holds the program)
         # is freed, graphs and pool with it, as soon as it is dropped
@@ -257,6 +283,7 @@ class Program:
         self.capture = capture and self.device.type == "cuda"
         self.consts = frozenset(consts)
         self.adopt = frozenset(adopt)   # a call's default
+        self.donate = donate
         self.trace_count = 0
         self._entries: dict = {}
         self._last = None             # the entry of the latest call
@@ -307,6 +334,9 @@ class Program:
         for s, x in zip(entry.state_leaves, given):
             if s is not None and s is not x and not _same(s, x):
                 s.copy_(x)
+        for s, g in zip(entry.generators, generators(state)):
+            if s is not g:
+                s.set_state(g.get_state())
         for i, (_, given) in enumerate(flat):
             if i in adopt:
                 continue
@@ -338,8 +368,10 @@ class Program:
             raise TypeError(f"{self.name}: the call changed its state's "
                             f"signature ({signature(state)} -> "
                             f"{signature(new)}); a program keeps one")
-        # the static state: the new leaves, each the program's own
-        taken = {x.data_ptr() for x in leaves(state) + leaves(static)
+        # the static state: the new leaves, each the program's own (a
+        # donated state's tensors are the program's already)
+        taken = {x.data_ptr() for x in leaves(static)
+                 + ([] if self.donate else leaves(state))
                  if x is not None and x.numel()}
 
         def own(x):
@@ -364,6 +396,9 @@ class Program:
         allocator's cache flush) run outside the caller's sync-debug mode:
         they belong to the build, as a trace's compile does."""
         graph = torch.cuda.CUDAGraph()
+        for g in entry.generators:
+            if g.device.type == "cuda":
+                graph.register_generator_state(g)
         mode = torch.cuda.get_sync_debug_mode()
         last = _LastOp()
         torch.cuda.set_sync_debug_mode(0)

@@ -38,7 +38,9 @@ What differs from the reference, and why:
   with the state it returns.
 ``make_train_step(grad_pspecs=…, sketch_layout=…, mesh=…)`` and
 ``train(mesh=…)`` train ZeRO-2 over the ranks of a ``torch.distributed``
-mesh (``train.sharded``).
+mesh (``train.sharded``), uncaptured (a mesh's collectives stage through
+the host); on one device ``train`` runs the step, the chunk features and
+the tail step as captured programs (``core.capture``).
 """
 from __future__ import annotations
 
@@ -50,6 +52,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import capture
 from repro_torch.data.pipeline import AceDataFilter, DataStream
 from repro_torch.models.registry import Arch, leaves, tree_map, unflatten
 from repro_torch.train import checkpoint as ckpt_lib
@@ -341,16 +344,23 @@ def _ckpt_tree(state: TrainState) -> TrainState:
 
 
 def _restore(mgr, state: TrainState, specs=None, mesh=None):
-    """The newest intact checkpoint as a ``TrainState`` (its generator
-    rebuilt on the state's device), with its manifest; (None, None) when
-    there is none.  With ``specs`` and a ``mesh`` (``sharded.state_specs``)
-    ``state`` holds this rank's blocks, and so does the result."""
+    """The newest intact checkpoint written into ``state``, with its
+    manifest; (None, None) when there is none.  Each leaf is copied into
+    the tensor that holds it and the generator's state set, so the step's
+    program (whose static buffers and generator these are) replays on
+    them with no new key, and the chunk features' graph reads the
+    parameters where it was captured on them.  With ``specs`` and a
+    ``mesh`` (``sharded.state_specs``) ``state`` holds this rank's
+    blocks."""
     restored, manifest = mgr.restore_latest(_ckpt_tree(state), specs, mesh)
     if restored is None:
         return None, None
-    rng = torch.Generator(device=state.rng.device)
-    rng.set_state(restored.rng)
-    return restored._replace(rng=rng), manifest
+    with torch.no_grad():
+        for dst, src in zip(leaves(state._replace(rng=None)),
+                            leaves(restored._replace(rng=None))):
+            dst.copy_(src)
+    state.rng.set_state(restored.rng)
+    return state, manifest
 
 
 def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
@@ -371,6 +381,18 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
     Checkpoints are taken only on chunk-final steps (mid-chunk the sketch
     holds batches no step has trained on), so a restart stays exact; pick
     ``ckpt_interval`` a multiple of ``filter_chunk``.
+
+    On one device the loop compiles once, as the reference jits its three
+    programs: the step, the chunk features and the tail step are each a
+    ``core.capture.Program`` (one captured CUDA graph a signature on the
+    card; ``capture.disabled()`` runs the eager twin).  The step's state
+    is donated: its program keeps the tensors it is given (the
+    parameters and moments the optimiser writes in place, uncloned) as
+    its static buffers, and the state returned is those buffers.  The
+    batch is copied into the step's static inputs; the chunk features
+    read the parameters where the step keeps them.  A rollback or a
+    restore writes the checkpoint into those buffers and the generator
+    (``_restore``), so it builds no new program.
 
     With a ``mesh`` every rank runs this loop on the same stream and
     trains its blocks (``make_train_step``); a ``state`` passed in is then
@@ -406,6 +428,10 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
     if state is None:
         state = init_train_state(arch, tcfg)
     step_fn = make_train_step(arch, tcfg, grad_pspecs, sketch_layout, mesh)
+    if mesh is None:
+        # the step's key holds the state it is given (donated, uncloned)
+        step_fn = capture.Program(step_fn, device, name="train.step",
+                                  donate=True)
 
     mgr = None
     if tcfg.ckpt_dir:
@@ -428,18 +454,42 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
             **({} if fsh is None else dict(mesh=mesh,
                                            sketch_layout=sketch_layout)))
 
-    def features(params, batches):
-        """(T, B, d+1) filter features of T batches, in one pass (under a
-        mesh the token embeddings gathered whole first)."""
-        key = "embeds" if "embeds" in batches[0] else "tokens"
-        if mesh is not None and key == "tokens":
+    def chunk_features(_, params, stacked):
+        """(None, (T, B, d+1) filter features of T stacked batches), in
+        one pass (under a mesh the token embeddings gathered whole
+        first)."""
+        if mesh is not None and "tokens" in stacked:
             params = {"embed": gather_block(params["embed"],
                                             grad_pspecs["embed"], mesh)}
-        stacked = torch.cat([b[key] for b in batches])
+        T, B = next(iter(stacked.values())).shape[:2]
+        flat = {k: v.reshape(T * B, *v.shape[2:]) for k, v in stacked.items()}
         with torch.no_grad():
-            f = filt.features(sequence_embeddings(params, {key: stacked},
-                                                  arch.cfg))
-        return f.reshape(len(batches), -1, f.shape[-1])
+            f = filt.features(sequence_embeddings(params, flat, arch.cfg))
+        return None, f.reshape(T, B, f.shape[-1])
+
+    def tail_step(fstate, w, feat):
+        """A tail batch past the last full chunk: the runner's per-step
+        program, its rotation clock included."""
+        fstate, keep, _ = filt.step(fstate, w, feat, shard=fsh)
+        if getattr(filt, "num_epochs", 1) > 1:
+            fstate = (fsh or ring).maybe_rotate(fstate, filt.rotate_every,
+                                                filt.decay)
+        return fstate, keep
+
+    if runner is not None and mesh is None:
+        # the parameters are read where the step's program keeps them
+        chunk_features = capture.Program(chunk_features, device,
+                                         name="train.features", adopt=(0,))
+        tail_step = capture.Program(tail_step, device, name="train.tail",
+                                    consts=(0,))
+
+    def features(params, batches):
+        if "embeds" in batches[0]:
+            key, params = "embeds", {}
+        else:
+            key, params = "tokens", {"embed": params["embed"]}
+        return chunk_features(None, params, {
+            key: torch.stack([b[key] for b in batches])})[1]
 
     timer = StepTimer(slo_seconds=tcfg.step_slo_seconds)
     history = []
@@ -527,15 +577,9 @@ def train(arch: Arch, tcfg: TrainConfig, stream: DataStream,
         else:
             jb = next_jbatch()
             if runner is not None:
-                # a tail batch past the last full chunk: the runner's
-                # per-step program, its rotation clock included
-                fstate, keep, _ = filt.step(state.filter_state,
-                                            state.filter_w,
-                                            features(state.params, [jb])[0],
-                                            shard=fsh)
-                if getattr(filt, "num_epochs", 1) > 1:
-                    fstate = (fsh or ring).maybe_rotate(
-                        fstate, filt.rotate_every, filt.decay)
+                fstate, keep = tail_step(
+                    state.filter_state, state.filter_w,
+                    features(state.params, [jb])[0])
                 state = state._replace(filter_state=fstate)
                 run_step(jb, keep=keep)
             else:

@@ -24,6 +24,8 @@ Attribution point estimates equal by value (an empty cell gives ±0.0, and
 which zero a median of zeros returns may differ); the attribution planes
 and heavy hitters of a fleet of one tenant equal the flat path's bitwise.
 """
+import contextlib
+
 import numpy as np
 import pytest
 
@@ -2590,3 +2592,74 @@ def test_captured_serve_is_the_eager_twin(cuda, name, monkeypatch):
     assert torch.equal(dlogits, delogits)
     assert all(torch.equal(x, y) for x, y in zip(capture.leaves(state),
                                                   capture.leaves(estate)))
+
+
+@pytest.mark.parametrize("chunk", [0, 2])
+def test_captured_train_is_the_eager_twin(cuda, chunk, tmp_path, monkeypatch):
+    """``train`` on reduced olmo_1b (AdamW, filter, monitor and int8
+    compression on; the in-step filter, or the chunked prefilter at T = 2
+    with a tail) through its captured step, chunk-features and tail
+    programs, against the eager twin (``capture.disabled()``) from the
+    same initial state: 2 steps that checkpoint, then a run that restores
+    that checkpoint, trips the monitor's rollback at once (restoring it
+    again) and goes on for 2 (chunked: 3) steps.  Every metric, the
+    parameters, moments, sketches, residual and the generator's state
+    bitwise; one program a function (neither the restore nor the
+    rollback adds one), each a captured graph; each kernel launched as
+    often as in the twin."""
+    from repro_torch.core import capture
+    from repro_torch.data.pipeline import DataStream, StreamConfig
+    from repro_torch.models.registry import Arch, leaves
+    from repro_torch.train import fault
+    from repro_torch.train import train_loop as tl
+    arch = Arch("olmo_1b", reduced=True)
+    scfg = StreamConfig(vocab_size=arch.cfg.vocab_size, seq_len=16,
+                        global_batch=8, seed=5)
+    kernels = (H.KERNEL, Q.KERNEL, U.KERNEL, A.KERNEL)
+    made = []
+
+    class Recorded(capture.Program):
+        def __init__(self, fn, *a, **k):
+            super().__init__(fn, *a, **k)
+            made.append(self)
+
+    monkeypatch.setattr(capture, "Program", Recorded)
+
+    def run(where, eager):
+        tcfg = tl.TrainConfig(
+            optimizer="adamw", peak_lr=1e-3, warmup_steps=1, total_steps=16,
+            grad_compression=True, filter_chunk=chunk, ckpt_interval=2,
+            max_rollbacks=1, ckpt_dir=str(tmp_path / where), seed=5,
+            device="cuda")
+        before = [k.launches for k in kernels]
+        with (capture.disabled() if eager else contextlib.nullcontext()):
+            _, first = tl.train(arch, tcfg, DataStream(scfg), 2, log_every=0)
+            del made[:]
+            with monkeypatch.context() as m:
+                m.setattr(fault.GradMonitor, "rollback_needed",
+                          lambda self, st: torch.ones_like(
+                              st.anomalies, dtype=torch.bool))
+                state, hist = tl.train(arch, tcfg, DataStream(scfg),
+                                       3 if chunk else 2, log_every=0)
+        torch.cuda.synchronize()
+        programs = {p.fn.__name__: p for p in made
+                    if getattr(p.fn, "__name__", "").startswith(
+                        ("train_step", "chunk_features", "tail_step"))}
+        return (state, first + hist, programs,
+                [k.launches - b for k, b in zip(kernels, before)])
+
+    state, hist, programs, launches = run("captured", eager=False)
+    twin, twin_hist, twin_programs, twin_launches = run("eager", eager=True)
+    assert [h["rollback"] for h in hist[2:4]] == [1.0, 0.0]
+    assert hist == twin_hist
+    for f in ("params", "opt_state", "monitor", "filter_state", "ef"):
+        for x, y in zip(leaves(getattr(state, f)), leaves(getattr(twin, f))):
+            assert torch.equal(x, y), f
+    assert torch.equal(state.rng.get_state(), twin.rng.get_state())
+    assert launches == twin_launches and all(launches)
+    want = {"train_step": 1, **({"chunk_features": 2, "tail_step": 1}
+                                if chunk else {})}
+    assert {k: p.trace_count for k, p in programs.items()} == want
+    assert all(e.graph is not None for p in programs.values()
+               for e in p._entries.values())
+    assert all(p.trace_count == 0 for p in twin_programs.values())
