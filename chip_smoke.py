@@ -466,7 +466,41 @@ non-zero without printing its result line):
              page-locked buffer) and one D2H a chunk and no sync in a
              captured ``consume``, items/s in turns, one traced
              ``consume`` each way; every kernel of these paths launched
-             inside a graph.
+             inside a graph;
+22. the five configurations the card had not run — qwen2_1_5b (all 28
+             layers), gemma2_27b (8 of 46: four local/global superblocks),
+             mistral_large_123b (4 of 88), mixtral_8x22b (4 of 56) and
+             qwen2_vl_7b (all 28) at their published widths, fewer layers
+             only where the card's memory forces it (printed), each freed
+             before the next: the four that take tokens served by
+             phase 15's ``serve_model`` (B 64 × 128 prompt tokens, 64
+             new, s_max 256, behind a warmed flat guardrail at the
+             model's d_model) with the prefill's logits and cache and one
+             decode step's logits required bitwise the eager twin's, then
+             the guardrail's kernels at that d_model against a plain-path
+             guardrail from one state (masks at the ids floor, counts, n,
+             μ and Welford as phase 4);
+             qwen2_vl_7b's prefill of 64 seeded embedding batches
+             (M-RoPE) captured and eager, bitwise, and its ``generate``
+             raising ``KeyError`` as the reference's does; each family's
+             first 2 layers (gemma2: one superblock) in float32 against
+             ``forward`` within rtol/atol 2e-4 (mixtral at capacity E/K;
+             qwen2_vl on embeddings), gemma2 again with its window cut
+             to 32 and a prompt of 48, and its local layers' ring cache
+             against a full one; qwen2_1_5b in float32 on the card
+             against the CPU;
+23. the examples as users run them — ``examples/quickstart_torch.py``,
+             ``fleet_serving_torch.py``, ``streaming_detection_torch.py``,
+             ``drift_postmortem_torch.py`` and
+             ``scripts/chaos_report_torch.py --json
+             build/RESILIENCE_torch.json``, each its own process
+             (``PYTHONPATH=src``, on the card by default), all at once:
+             each exits 0, and its printed figures are parsed and
+             checked against its story (the exact inverse and the merge;
+             bursts flagged, isolation, one admit program; the window
+             catching post-shift bursts the frozen sketch misses; the
+             planted dims and the offender; the drill's five stages ok
+             and two admission programs).
 
 Every kernel wrapper counts its launches (a captured graph's replay adds
 the launches its capture recorded); the counts are set to 0 just
@@ -479,7 +513,8 @@ before each
 measured ``train``; in phase 18 in each serving host process, before
 its first chunk; in phase 19 in each rank, before each part; in phase
 20 in each rank, before each step or run; in phase 21 around each
-captured call) and read just after, every kernel of a path must have been
+captured call; in phase 22 before each checked captured generate) and
+read just after, every kernel of a path must have been
 launched in it, and no path may launch the (B, L) ``ace_query`` gather (every
 gather-and-reduce is one ``ace_query_sum``).
 The admits and ``consume`` calls traced in phases 4-7 and 9 are traced
@@ -509,6 +544,7 @@ import datetime
 import gc
 import json
 import os
+import re
 import shutil
 import socket
 import statistics
@@ -1207,6 +1243,42 @@ def guardrail_batches(device, d_model, admits, b, s):
         yield e, burst
 
 
+def against_plain(what, g, plain, masks, plain_masks, floor) -> int:
+    """A kernel-path guardrail ``g`` against the plain-path ``plain`` after
+    the same admits from one state: the masks agree on >= ``floor`` of
+    the rows; the counts but for displaced insertions within the hash
+    floor (1e-3 of n·L); n bitwise where the masks agree; μ and the
+    Welford moments within 1e-5 (1e-3 with displaced insertions).
+    Returns the displaced insertions."""
+    from repro_torch.core import sketch as sk
+    mismatch = int((plain_masks != masks).sum())
+    check(mismatch <= (1 - floor) * masks.size, f"{what}masks agree with "
+          f"the plain-path guardrail ({mismatch} of {masks.size} differ, "
+          f"<= {1 - floor:.1%})")
+    # The two paths hash with different fp32 summation orders (the
+    # kernel's tile loop vs cuBLAS), so a projection at |proj| ~ 0 may
+    # land an admitted item in another bucket of one table: hold the
+    # displaced share of the n·L insertions to the hash floor.
+    moved = int((g.state.counts - plain.state.counts).abs().sum()) // 2
+    share = moved / max(float(plain.state.n) * g.gcfg.num_tables, 1.0)
+    check(share <= 0.001, f"{what}counts equal the plain path's but for "
+          f"{moved} displaced insertions ({share:.2e} <= 1e-3 of n*L)")
+    if mismatch == 0:
+        check(float(g.state.n) == float(plain.state.n),
+              f"{what}n bitwise equal to the plain-path guardrail")
+    for name, a, p in (
+            ("mu", sk.mean_mu(g.state), sk.mean_mu(plain.state)),
+            ("Welford mean", g.state.welford_mean,
+             plain.state.welford_mean),
+            ("Welford M2", g.state.welford_m2, plain.state.welford_m2)):
+        rel = abs(float(a) - float(p)) / max(abs(float(p)), 1e-30)
+        tol = 1e-5 if moved == 0 else 1e-3
+        check(rel <= tol, f"{what}{name} {float(a):.6g} vs plain "
+              f"{float(p):.6g}: rel {rel:.2e} <= {tol:g} ({moved} displaced "
+              "insertions)")
+    return moved
+
+
 def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
                     b=ADMIT_B, s=ADMIT_S) -> dict:
     from repro_torch.serve.engine import Guardrail, GuardrailConfig
@@ -1257,30 +1329,7 @@ def phase_guardrail(mods, device, d_model=D_MODEL, admits=ADMITS,
     print(f"  admitted: normal rows after warmup {f_norm:.4f}, burst rows "
           f"{f_burst:.4f}")
     check(f_burst < f_norm, "burst rows admitted less often than normal rows")
-    mismatch = int((np.stack(plain_masks) != m).sum())
-    check(mismatch <= 0.01 * m.size, f"masks agree with the plain-path "
-          f"guardrail ({mismatch} of {m.size} differ, <= 1%)")
-    # The two paths hash with different fp32 summation orders (the
-    # kernel's tile loop vs cuBLAS), so a projection at |proj| ~ 0 may
-    # land an admitted item in another bucket of one table: hold the
-    # displaced share of the n·L insertions to the hash floor.
-    moved = int((g.state.counts - plain.state.counts).abs().sum()) // 2
-    share = moved / max(float(plain.state.n) * L_TABLES, 1.0)
-    check(share <= 0.001, f"counts equal the plain path's but for "
-          f"{moved} displaced insertions ({share:.2e} <= 1e-3 of n*L)")
-    if mismatch == 0:
-        check(float(g.state.n) == float(plain.state.n),
-              "n bitwise equal to the plain-path guardrail")
-    from repro_torch.core import sketch as sk
-    for name, a, p in (
-            ("mu", sk.mean_mu(g.state), sk.mean_mu(plain.state)),
-            ("Welford mean", g.state.welford_mean,
-             plain.state.welford_mean),
-            ("Welford M2", g.state.welford_m2, plain.state.welford_m2)):
-        rel = abs(float(a) - float(p)) / max(abs(float(p)), 1e-30)
-        tol = 1e-5 if moved == 0 else 1e-3
-        check(rel <= tol, f"{name} {float(a):.6g} vs plain {float(p):.6g}: "
-              f"rel {rel:.2e} <= {tol:g} ({moved} displaced insertions)")
+    against_plain("", g, plain, m, np.stack(plain_masks), 0.99)
     for k in ("ace_admit_fused", "ace_query"):
         check(launches[k] > 0, f"guardrail path launched {k}")
     e, _ = next(guardrail_batches(device, d_model, admits, b, s))
@@ -4813,19 +4862,52 @@ def memory_now(device) -> dict:
             "memory_reserved": torch.cuda.memory_reserved()}
 
 
-def logits_agree(what, kind, got, want, card) -> float:
+def logits_agree(what, kind, got, want, card, exact=False) -> float:
     """Captured logits against the eager twin's: bitwise expected, else
-    within the reference tests' 2e-4.  Returns the max abs difference."""
+    (unless ``exact``) within the reference tests' 2e-4.  Returns the max
+    abs difference."""
     err = float((got.float() - want.float()).abs().max())
     same = bool(torch.equal(got, want))
-    check(same or torch.allclose(got.float(), want.float(), **MODEL_TOL),
+    check(same or not exact and torch.allclose(got.float(), want.float(),
+                                               **MODEL_TOL),
           f"{what}: captured {kind} logits against the eager twin's "
           f"({'bitwise' if same else f'max abs {err:.3g}'}; {card})")
     return err
 
 
+def prefill_in_turns(eng, params, batch, device) -> tuple:
+    """The engine's prefill program captured and eager in turns (C E E C
+    C E): (host ms of each, {kind: (logits, cache)} of the last of
+    each)."""
+    from repro_torch.core import capture
+    ms = {"captured": [], "eager": []}
+    got = {}
+    for kind in ("captured", "eager", "eager", "captured", "captured",
+                 "eager"):
+        with contextlib.ExitStack() as stack:
+            if kind == "eager":
+                stack.enter_context(capture.disabled())
+            sync(device)
+            t0 = time.perf_counter()
+            _, got[kind] = eng._prefill(None, params, batch)
+            sync(device)
+            ms[kind].append(1e3 * (time.perf_counter() - t0))
+    return ms, got
+
+
+def bitwise(what, kind, got, want, card) -> None:
+    """Captured against the eager twin, trees of tensors leaf by leaf:
+    bitwise, the phase's contract."""
+    from repro_torch.core import capture
+    pairs = list(zip(capture.leaves(got), capture.leaves(want)))
+    err = max(float((x.float() - y.float()).abs().max()) for x, y in pairs)
+    check(all(torch.equal(x, y) for x, y in pairs),
+          f"{what}: captured {kind} bitwise the eager twin's ({len(pairs)} "
+          f"tensors, max abs {err:.3g}; {card})")
+
+
 def serve_model(mods, device, what, arch, params, g, card,
-                extra=None) -> dict:
+                extra=None, exact=False) -> dict:
     """SERVE_B prompts of SERVE_PROMPT tokens behind ``g``, SERVE_NEW new,
     through the engine's captured programs in turns with their eager twin
     (``capture.disabled()``).  The eager twin first, from a flushed cache
@@ -4835,8 +4917,9 @@ def serve_model(mods, device, what, arch, params, g, card,
     tokens equal; ``trace_counts`` (1, 1); the weights adopted (same
     ``data_ptr``s); one eager then one captured generate more (turns E, C,
     C, E).  Then prefill ms (median of 3, through the engine's prefill
-    program, in turns), the prefill's and one decode step's logits from
-    one cache against the eager twin's, the device ms of the cache's
+    program, in turns C E E C C E), the prefill's and one decode step's
+    logits from one cache against the eager twin's (``exact``: bitwise,
+    the prefill's cache too), the device ms of the cache's
     hand-over (the prefill's outputs cloned, then copied into the decode
     program's state), ``decode_throughput`` (two runs of 16, in turns)
     and one traced decode step each way.  ``extra`` joins
@@ -4891,20 +4974,12 @@ def serve_model(mods, device, what, arch, params, g, card,
     with capture.disabled():
         timed("eager")
 
-    pre = {"captured": [], "eager": []}
-    got = {}
-    for _ in range(3):
-        for kind in ("captured", "eager"):
-            with contextlib.ExitStack() as stack:
-                if kind == "eager":
-                    stack.enter_context(capture.disabled())
-                sync(device)
-                t0 = time.perf_counter()
-                _, got[kind] = eng._prefill(None, params, batch)
-                sync(device)
-                pre[kind].append(time.perf_counter() - t0)
+    pre, got = prefill_in_turns(eng, params, batch, device)
     (logits, cache), (elogits, ecache) = got["captured"], got["eager"]
-    err = {"prefill": logits_agree(what, "prefill", logits, elogits, card)}
+    err = {"prefill": logits_agree(what, "prefill", logits, elogits, card,
+                                   exact)}
+    if exact:
+        bitwise(what, "prefill cache", cache, ecache, card)
     step = {"tokens": torch.argmax(elogits[:, -1], dim=-1)
             .to(torch.int32)[:, None]}
     pos = torch.full((SERVE_B,), SERVE_PROMPT, dtype=torch.int32,
@@ -4915,7 +4990,7 @@ def serve_model(mods, device, what, arch, params, g, card,
     with capture.disabled():
         _, delogits = eng._decode(ecache, params, step, pos)
     err["decode"] = logits_agree(what, "decode step", dlogits, delogits,
-                                 card)
+                                 card, exact)
     # two runs of 16 steps each way, in turns: the spread of the host clock
     dec = {"captured": [], "eager": []}
     for kind in ("captured", "eager", "eager", "captured"):
@@ -4940,8 +5015,8 @@ def serve_model(mods, device, what, arch, params, g, card,
         tr["eager"] = device_trace(
             lambda: arch.decode_step(params, step, cache, pos), device)
     out = {"launches": launches,
-           "prefill_ms": 1e3 * statistics.median(pre["captured"]),
-           "eager_prefill_ms": 1e3 * statistics.median(pre["eager"]),
+           "prefill_ms": statistics.median(pre["captured"]),
+           "eager_prefill_ms": statistics.median(pre["eager"]),
            "generate_tokens_per_s": SERVE_B * SERVE_NEW / gen_s,
            "generate_s": gen["captured"], "eager_generate_s": gen["eager"],
            "eager_generate_tokens_per_s":
@@ -5028,23 +5103,32 @@ def sub_model(arch, params, layers: int, **kw):
     return a, {**params, "blocks": params["blocks"][:a.cfg.num_superblocks]}
 
 
-def fp32_against_forward(what, a, p, device, card) -> dict:
-    """A float32 model ``a``: prefill of 16 tokens and one decode step, the
-    last-token logits against ``forward``'s over all 17 (2 prompts), within
-    rtol/atol 2e-4; an MoE's forward at capacity E/K drops no token.
-    Returns the max abs errors."""
-    toks = prompts_for(device, a.cfg.vocab_size, 2, 17, SEED + 17)
+def fp32_against_forward(what, a, p, device, card, prompt=16,
+                         s_max=32) -> dict:
+    """A float32 model ``a``: prefill of ``prompt`` tokens (a cache of
+    ``s_max`` slots) and one decode step, the last-token logits against
+    ``forward``'s over all ``prompt`` + 1 (2 prompts), within rtol/atol
+    2e-4; an MoE's forward at capacity E/K drops no token.  Returns the
+    max abs errors."""
+    toks = prompts_for(device, a.cfg.vocab_size, 2, prompt + 1, SEED + 17)
     full, aux = a.forward(p, {"tokens": toks})
     if a.cfg.moe_num_experts:
         check(float(aux["moe_drop_frac"]) == 0.0,
               f"{what}: capacity E/K, forward drops no token")
-    last, cache = a.prefill(p, {"tokens": toks[:, :16]}, s_max=32)
-    step, _ = a.decode_step(p, {"tokens": toks[:, 16:]}, cache,
-                            torch.full((2,), 16, dtype=torch.int32,
+    last, cache = a.prefill(p, {"tokens": toks[:, :prompt]}, s_max=s_max)
+    step, _ = a.decode_step(p, {"tokens": toks[:, prompt:]}, cache,
+                            torch.full((2,), prompt, dtype=torch.int32,
                                        device=device))
+    return logits_against_forward(what, last, step, full, prompt, card)
+
+
+def logits_against_forward(what, last, step, full, prompt, card) -> dict:
+    """The prefill's last-token logits and one decode step's against
+    ``forward``'s at positions ``prompt`` - 1 and ``prompt``, within
+    rtol/atol 2e-4.  Returns the max abs errors."""
     errs = {}
-    for name, got, want in (("prefill", last[:, 0], full[:, 15]),
-                            ("decode", step[:, 0], full[:, 16])):
+    for name, got, want in (("prefill", last[:, 0], full[:, prompt - 1]),
+                            ("decode", step[:, 0], full[:, prompt])):
         errs[name] = float((got - want).abs().max())
         ok = bool(torch.allclose(got, want, **MODEL_TOL))
         check(ok, f"{what}: {name} last-token logits against forward "
@@ -5054,7 +5138,6 @@ def fp32_against_forward(what, a, p, device, card) -> dict:
 
 def consistency_fp32(arch, params, device, card) -> None:
     """(b): Mixtral's first CONSIST_LAYERS layers in float32."""
-    from repro_torch.serve.engine import ServeEngine
     cfg = arch.cfg
     a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
                      moe_capacity_factor=cfg.moe_num_experts / cfg.moe_top_k)
@@ -5062,15 +5145,23 @@ def consistency_fp32(arch, params, device, card) -> None:
                          card)
     a, p = sub_model(arch, params, CONSIST_LAYERS, dtype="float32",
                      sliding_window=RING_WINDOW)
-    prompts = prompts_for(device, cfg.vocab_size, 2, 8, SEED + 18)
+    ring_against_full(f"mixtral x{CONSIST_LAYERS} float32", a, p, device)
+
+
+def ring_against_full(what, a, p, device) -> None:
+    """``a``, every layer sliding-window with its window cut to
+    RING_WINDOW: greedy tokens from a ring cache (s_max RING_WINDOW)
+    equal to those from a full one (s_max 2 x RING_WINDOW) over RING_NEW
+    tokens that wrap it, 2 prompts of 8."""
+    from repro_torch.serve.engine import ServeEngine
+    prompts = prompts_for(device, a.cfg.vocab_size, 2, 8, SEED + 18)
     ring = ServeEngine(a, s_max=RING_WINDOW, device=device).generate(
         p, {"tokens": prompts}, num_new_tokens=RING_NEW, prompt_len=8)
     flat = ServeEngine(a, s_max=2 * RING_WINDOW, device=device).generate(
         p, {"tokens": prompts}, num_new_tokens=RING_NEW, prompt_len=8)
-    check((ring == flat).all(), f"mixtral x{CONSIST_LAYERS} float32, window "
-          f"{RING_WINDOW}: ring cache (s_max {RING_WINDOW}) tokens equal the "
-          f"full cache's (s_max {2 * RING_WINDOW}) over {RING_NEW} tokens "
-          "that wrap it")
+    check((ring == flat).all(), f"{what}, window {RING_WINDOW}: ring cache "
+          f"(s_max {RING_WINDOW}) tokens equal the full cache's (s_max "
+          f"{2 * RING_WINDOW}) over {RING_NEW} tokens that wrap it")
 
 
 def card_against_cpu(arch, params, device, card, what="olmo_1b float32",
@@ -8679,6 +8770,353 @@ def phase_captured(mods, device) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 22: the five configurations the card had not run, served at their
+# published widths.
+# ---------------------------------------------------------------------------
+
+# layers kept of each config (None: all).  At full depth the cut ones'
+# float32 weights pass the card's 80 GB (gemma2_27b 108.9 GB, mistral_large
+# 490.4, mixtral_8x22b 562.5); the depths kept (22.8, 25.4, 41.7 GB) leave
+# room for the bf16 casts, the graphs' pools and the eager twin's peak, and
+# gemma2 keeps whole (local, global) superblocks
+CONFIG_LAYERS = {"qwen2_1_5b": None, "gemma2_27b": 8,
+                 "mistral_large_123b": 4, "mixtral_8x22b": 4,
+                 "qwen2_vl_7b": None}
+CONFIG_FP32_LAYERS = 2      # float32 against forward (gemma2: a superblock)
+WINDOW_PROMPT = 48          # gemma2's window cut to RING_WINDOW: a prompt
+                            # past it, where the mask bites
+SHADOW_BATCHES = 3          # seeded token batches after the served one in
+                            # the guardrail's check against the plain path
+
+
+def config_model(name, layers, device, card):
+    """``name`` at its published widths with its first ``layers`` layers
+    (all of them with None), the reason for a cut printed; its weights
+    drawn on the card from SEED.  Returns (arch, params)."""
+    from repro_torch.models import Arch
+    from repro_torch.models.registry import leaves
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    arch = Arch(name)
+    full = arch.cfg.num_layers
+    if layers is not None:
+        room = torch.cuda.get_device_properties(device).total_memory
+        print(f"  {name}: all {full} layers' float32 weights, "
+              f"{4 * arch.param_count() / 1e9:.1f} GB, pass the card's "
+              f"{room / 1e9:.1f} GB: {layers} kept (CONFIG_LAYERS)")
+        arch.cfg = dataclasses.replace(arch.cfg, num_layers=layers)
+    t0 = time.perf_counter()
+    params = arch.init_params(SEED, device=device)
+    sync(device)
+    n = sum(t.numel() for t in leaves(params))
+    cfg = arch.cfg
+    print(f"  {name} at full width (d_model {cfg.d_model}, {cfg.num_heads} "
+          f"heads over {cfg.num_kv_heads}, d_ff {cfg.d_ff}"
+          + (f", {cfg.moe_num_experts} experts top-{cfg.moe_top_k}"
+             if cfg.moe_num_experts else "")
+          + f", vocab {cfg.vocab_size}), {cfg.num_layers} of {full} layers: "
+          f"{n / 1e9:.3f} B float32 parameters, {4 * n / 1e9:.2f} GB, drawn "
+          f"in {time.perf_counter() - t0:.2f} s ({card})")
+    return arch, params
+
+
+def fp32_embeds_against_forward(what, a, p, device, card) -> dict:
+    """``fp32_against_forward`` for a model fed embeddings (qwen2_vl):
+    2 seeded batches of 17 embeddings with M-RoPE positions whose three
+    sections differ (t, h, w = i, i // 4, i % 4), prefill of 16 and one
+    decode step on the 17th, against ``forward``."""
+    gen = torch.Generator(device=device).manual_seed(SEED + 23)
+    e = torch.randn((2, 17, a.cfg.d_model), generator=gen, device=device)
+    i = torch.arange(17, dtype=torch.int32, device=device)
+    pos = torch.stack([i, i // 4, i % 4])[:, None].expand(3, 2, 17)
+    full, _ = a.forward(p, {"embeds": e, "positions": pos})
+    last, cache = a.prefill(p, {"embeds": e[:, :16],
+                                "positions": pos[..., :16]}, s_max=32)
+    step, _ = a.decode_step(p, {"embeds": e[:, 16:]}, cache, pos[..., 16])
+    return logits_against_forward(what, last, step, full, 16, card)
+
+
+def serve_embeds(device, card, what, arch, params) -> dict:
+    """A model fed embeddings (qwen2_vl): the engine's prefill of SERVE_B
+    seeded embedding batches of SERVE_PROMPT (M-RoPE positions i, i // 4,
+    i % 4) captured and eager in turns (C E E C C E), logits and cache
+    bitwise; then
+    ``generate`` raises ``KeyError`` from the decode step's build, as the
+    reference's does (ROADMAP queue 3 item 12)."""
+    from repro_torch.serve import engine as E
+    gen = torch.Generator(device=device).manual_seed(SEED + 24)
+    i = torch.arange(SERVE_PROMPT, dtype=torch.int32, device=device)
+    batch = {"embeds": torch.randn((SERVE_B, SERVE_PROMPT,
+                                    arch.cfg.d_model), generator=gen,
+                                   device=device),
+             "positions": torch.stack([i, i // 4, i % 4])[:, None]
+             .expand(3, SERVE_B, SERVE_PROMPT).contiguous()}
+    eng = E.ServeEngine(arch, s_max=SERVE_SMAX, device=device)
+    torch.cuda.reset_peak_memory_stats()
+    eng._prefill(None, params, batch)           # builds the program
+    pre, got = prefill_in_turns(eng, params, batch, device)
+    (logits, cache), (elogits, ecache) = got["captured"], got["eager"]
+    bitwise(what, "prefill logits", logits, elogits, card)
+    bitwise(what, "prefill cache", cache, ecache, card)
+    mem = memory_now(device)
+    try:
+        eng.generate(params, batch, num_new_tokens=2,
+                     prompt_len=SERVE_PROMPT)
+        raised = None
+    except KeyError as err:
+        raised = err
+    check(raised is not None and "embeds" in str(raised),
+          f"{what}: generate raises KeyError 'embeds' from the decode "
+          f"step's build, as the reference's does ({raised!r})")
+    check(eng.trace_counts == (1, 1), f"{what}: one prefill program and the "
+          f"failed decode build, as the reference's jit caches count "
+          f"(trace_counts {eng.trace_counts})")
+    out = {"launches": {}, "trace_counts": eng.trace_counts,
+           "prefill_ms": statistics.median(pre["captured"]),
+           "eager_prefill_ms": statistics.median(pre["eager"]),
+           "prefill_ms_runs": pre["captured"],
+           "eager_prefill_ms_runs": pre["eager"], "memory": mem}
+    print(f"  {what}: B {SERVE_B} x {SERVE_PROMPT} embeddings (M-RoPE); "
+          f"captured / eager prefill "
+          + ", ".join(f"{x:.3f}" for x in pre["captured"]) + " / "
+          + ", ".join(f"{x:.3f}" for x in pre["eager"])
+          + f" ms (turns C E E C C E; captured ÷ eager "
+          f"{out['prefill_ms'] / out['eager_prefill_ms']:.3f}); logits and "
+          f"cache bitwise; generate raised {raised!r}; trace_counts "
+          f"{eng.trace_counts}; peak (max_memory_allocated) "
+          f"{mem['max_memory_allocated'] / 2**30:.2f} GiB ({card})")
+    return out
+
+
+def gemma_window(what, arch, params, device, card) -> dict:
+    """gemma2 with its window cut to RING_WINDOW, in float32: one
+    superblock (local + global) against ``forward`` on prompts of
+    WINDOW_PROMPT tokens, past the window, in a full cache; then its
+    local layers alone (the global ones keep a full cache by design)
+    as ``ring_against_full``.  Returns the max abs errors."""
+    a, p = sub_model(arch, params, CONFIG_FP32_LAYERS, dtype="float32",
+                     sliding_window=RING_WINDOW)
+    errs = fp32_against_forward(
+        f"{what} x{CONFIG_FP32_LAYERS} float32, window {RING_WINDOW}, "
+        f"prompt {WINDOW_PROMPT}", a, p, device, card, prompt=WINDOW_PROMPT,
+        s_max=2 * WINDOW_PROMPT)
+    local, lp = sub_model(arch, params, CONFIG_FP32_LAYERS, dtype="float32",
+                          sliding_window=RING_WINDOW, block_pattern=("swa",))
+    lp = {**lp, "blocks": [[row[0]] for row in
+                           params["blocks"][:CONFIG_FP32_LAYERS]]}
+    ring_against_full(f"{what} local layers x{CONFIG_FP32_LAYERS} float32",
+                      local, lp, device)
+    return errs
+
+
+def guardrail_against_plain(what, g, params, device, card) -> dict:
+    """``g``'s admission kernels (``ace_admit_fused``, ``ace_query_sum``)
+    at the served model's d_model held against the plain path: a
+    plain-path guardrail on ``g``'s W starts from a copy of ``g``'s
+    state, then both admit the served prompts' embedding rows (as
+    ``generate`` screens them, B SERVE_B x SERVE_PROMPT) and
+    SHADOW_BATCHES seeded batches of 128 x 4 embedding rows (the
+    warm-up's shape), through ``g``'s captured programs;
+    ``against_plain`` at the ids floor (masks agree on >= 0.999 of the
+    rows).  Returns the rows, differing masks and displaced
+    insertions."""
+    from repro_torch.core import capture
+    from repro_torch.serve.engine import Guardrail
+    plain = Guardrail(g.gcfg, use_kernels=False, device=device, w=g.w)
+    plain.state = capture.tree_map(torch.clone, g.state)
+    vocab = params["embed"].shape[0]
+    gen = torch.Generator(device=device).manual_seed(SEED + 34)
+    toks = [prompts_for(device, vocab, SERVE_B, SERVE_PROMPT, SEED + 16)] \
+        + [torch.randint(0, vocab, (128, 4), generator=gen, device=device)
+           for _ in range(SHADOW_BATCHES)]
+    embeds = [params["embed"][t.long()] for t in toks]
+    masks = np.concatenate([g.admit(e) for e in embeds])
+    plain_masks = np.concatenate([plain.admit(e) for e in embeds])
+    moved = against_plain(f"{what} at d_model {g.gcfg.d_model}: ", g, plain,
+                          masks, plain_masks, 0.999)
+    out = {"rows": int(masks.size), "displaced": moved,
+           "masks_differ": int((masks != plain_masks).sum())}
+    print(f"  {what}: the guardrail's kernels against the plain path at "
+          f"d_model {g.gcfg.d_model} from one state: {out['rows']} rows, "
+          f"{out['masks_differ']} masks differ, {moved} displaced "
+          f"insertions ({card})")
+    return out
+
+
+def phase_serve_configs(mods, device, card) -> dict:
+    """The five configurations at their published widths: served, held
+    captured against eager, and checked in float32 (module docstring,
+    phase 22).  Each model is freed before the next is drawn."""
+    from repro_torch.models.registry import leaves
+    out = {}
+    for name, layers in CONFIG_LAYERS.items():
+        t0 = time.perf_counter()
+        arch, params = config_model(name, layers, device, card)
+        cfg = arch.cfg
+        extra = {}
+        if cfg.moe_num_experts:
+            extra["moe_capacity_factor"] = (cfg.moe_num_experts
+                                            / cfg.moe_top_k)
+        a, p = sub_model(arch, params, CONFIG_FP32_LAYERS, dtype="float32",
+                         **extra)
+        fp32 = f"{name} x{CONFIG_FP32_LAYERS} float32"
+        if cfg.input_mode == "embeds":
+            res = serve_embeds(device, card, name, arch, params)
+            res["fp32_err"] = fp32_embeds_against_forward(fp32, a, p, device,
+                                                          card)
+        else:
+            g = serve_guardrail(device, params, cfg.vocab_size, cfg.d_model)
+            res = serve_model(mods, device, name, arch, params, g, card,
+                              exact=True)
+            res["decode_step_ms"] = 1e3 * SERVE_B / res["decode_tokens_per_s"]
+            res["guardrail_vs_plain"] = guardrail_against_plain(
+                name, g, params, device, card)
+            del g
+            res["fp32_err"] = fp32_against_forward(fp32, a, p, device, card)
+        if name == "gemma2_27b":
+            res["window_err"] = gemma_window(name, arch, params, device,
+                                             card)
+        if name == "qwen2_1_5b":
+            res["fp32_err"]["card_vs_cpu"] = card_against_cpu(
+                arch, params, device, card, f"{name} float32")
+        res["params"] = sum(t.numel() for t in leaves(params))
+        res["layers"] = cfg.num_layers
+        res["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+        res["seconds"] = time.perf_counter() - t0
+        print(f"  {name}: float32 max abs against forward "
+              + ", ".join(f"{k} {v:.3g}" for k, v in res["fp32_err"].items())
+              + (", window: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                          res["window_err"].items())
+                 if "window_err" in res else "")
+              + (f"; captured decode step {res['decode_step_ms']:.3f} ms "
+                 "(decode_throughput, 16 replays)"
+                 if "decode_step_ms" in res else "")
+              + f"; {res['seconds']:.1f} s ({card})")
+        out[f"config_{name}"] = res
+        del arch, params, a, p
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 23: the examples and the chaos drill as users run them.
+# ---------------------------------------------------------------------------
+
+EXAMPLES = {
+    "quickstart": ["examples/quickstart_torch.py"],
+    "fleet_serving": ["examples/fleet_serving_torch.py"],
+    "streaming_detection": ["examples/streaming_detection_torch.py"],
+    "drift_postmortem": ["examples/drift_postmortem_torch.py"],
+    "chaos_report": ["scripts/chaos_report_torch.py", "--json",
+                     "build/RESILIENCE_torch.json"],
+}
+EXAMPLE_TIMEOUT = 300
+
+
+def example_figures(name: str, out: str) -> dict:
+    """The figures an example prints, parsed, each checked against the
+    example's own story."""
+    def grab(pat, what):
+        m = re.search(pat, out)
+        check(m is not None, f"phase 23 {name}: prints {what}")
+        return m.groups()
+
+    if name == "quickstart":
+        flagged, caught, anomalies = grab(
+            r"flagged (\d+) \((\d+)/(\d+) true", "its flags")
+        inverse, = grab(r"exact inverse: (\w+)", "the delete check")
+        merged, = grab(r"bulk build: (\w+)", "the merge check")
+        check(inverse == merged == "True", "phase 23 quickstart: delete + "
+              "re-insert is an exact inverse of μ and shard-and-merge "
+              "equals the bulk build")
+        return {"flagged": int(flagged), "caught": f"{caught}/{anomalies}"}
+    if name == "fleet_serving":
+        traces, = grab(r"trace_count=(\d+)", "its trace count")
+        caught, total = grab(r"bursts flagged: (\d+)/(\d+)", "its bursts")
+        false, = grab(r"other \d+ tenants: (\d+)", "its neighbour flags")
+        check("bitwise identical" in out and out.rstrip().endswith("OK"),
+              "phase 23 fleet_serving: isolation bitwise, OK")
+        return {"bursts": f"{caught}/{total}", "neighbour_flags": int(false),
+                "trace_count": int(traces)}
+    if name == "streaming_detection":
+        caught, missed, false = grab(
+            r"bursts caught (\d+), missed (\d+), clean batches falsely "
+            r"flagged (\d+)", "its bursts")
+        traces, = grab(r"built (\d+)x", "its trace count")
+        figs = {"caught": int(caught), "missed": int(missed),
+                "false_flags": int(false), "trace_count": int(traces)}
+        for kind in ("frozen", "windowed"):
+            pre = grab(rf"{kind}\s*: bursts pre-shift (\d+/\d+)\s+"
+                       r"post-shift \(re-adapted\) (\d+/\d+)", kind)
+            figs[kind] = {"pre_shift": pre[0], "post_shift": pre[1]}
+        frozen, windowed = (int(figs[k]["post_shift"].split("/")[0])
+                            for k in ("frozen", "windowed"))
+        check(windowed > frozen and traces == "1", "phase 23 streaming: "
+              "the window catches post-shift bursts the frozen sketch "
+              f"misses ({windowed} > {frozen}), one chunk program")
+        return figs
+    if name == "drift_postmortem":
+        check("all planted dims [3, 11, 17] named." in out,
+              "phase 23 drift_postmortem: the planted dims named")
+        offender, = grab(r"tenant (\d+) named as the offender", "offender")
+        dims = [int(d) for d in re.findall(r"dim +(\d+) +drift", out)]
+        return {"planted_named": dims, "offender": int(offender)}
+    stages = re.findall(r"\[(ok|FAIL)\] (\w+):", out)
+    check([s for _, s in stages] == ["baseline", "quarantine", "degrade",
+                                     "repair", "checkpoint_fallback"]
+          and all(v == "ok" for v, _ in stages), "phase 23 chaos_report: "
+          f"the five stages in order, each ok ({stages})")
+    programs, = grab(r"admission programs built: (\d+)", "its programs")
+    report = json.loads((ROOT / "build" / "RESILIENCE_torch.json")
+                        .read_text())
+    check(report["ok"], "phase 23 chaos_report: the report's ok")
+    return {"stages": [s for _, s in stages], "programs": int(programs),
+            "quarantined_total": report["quarantined_total"]}
+
+
+def phase_examples(card) -> dict:
+    """The four ``examples/*_torch.py`` and ``scripts/chaos_report_torch.py``
+    as a user runs them: each its own process (``PYTHONPATH=src python
+    …``, on the card by default), all five at once; each must exit 0,
+    and its printed figures are parsed and checked."""
+    log = ROOT / "build" / "examples"
+    log.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    procs = {}
+    t0 = time.perf_counter()
+    for name, argv in EXAMPLES.items():
+        with open(log / f"{name}.log", "w") as f:
+            procs[name] = subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT, env=env, stdout=f,
+                stderr=subprocess.STDOUT)
+    out = {}
+    try:
+        for name, proc in procs.items():
+            try:
+                rc = proc.wait(timeout=max(
+                    1.0, EXAMPLE_TIMEOUT - (time.perf_counter() - t0)))
+            except subprocess.TimeoutExpired:
+                rc = None
+            text = (log / f"{name}.log").read_text()
+            if rc != 0:
+                print(f"  {name}'s output ends:\n{text[-3000:]}")
+            check(rc == 0, f"phase 23 {name}: exits 0 (rc {rc})")
+            out[name] = {"seconds": time.perf_counter() - t0,
+                         **example_figures(name, text)}
+            print(f"  {' '.join(EXAMPLES[name])}: exit 0 after "
+                  f"{out[name]['seconds']:.1f} s; "
+                  + ", ".join(f"{k} {v}" for k, v in out[name].items()
+                              if k != "seconds") + f" ({card})")
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this script "
@@ -8901,6 +9339,23 @@ def main() -> int:
     print(f"  phase 21 took {time.perf_counter() - t21:.1f} s; phases 1-21 "
           f"{time.perf_counter() - t_all:.1f} s")
 
+    print("phase 22: the five configurations the card had not run, served "
+          "at their published widths: qwen2_1_5b, gemma2_27b, "
+          "mistral_large_123b, mixtral_8x22b, qwen2_vl_7b")
+    t22 = time.perf_counter()
+    configs = phase_serve_configs(mods, device, card)
+    paths.update({k: v for k, v in configs.items() if v["launches"]})
+    print(f"  phase 22 took {time.perf_counter() - t22:.1f} s")
+
+    print("phase 23: the four examples and the chaos drill as users run "
+          "them (PYTHONPATH=src python examples/..._torch.py, "
+          "scripts/chaos_report_torch.py)")
+    t23 = time.perf_counter()
+    examples = phase_examples(card)
+    print(f"  phase 23 took {time.perf_counter() - t23:.1f} s; phases 22-23 "
+          f"{time.perf_counter() - t22:.1f} s; phases 1-23 "
+          f"{time.perf_counter() - t_all:.1f} s")
+
     gathers = sum(r["launches"]["ace_query_gather"] for r in paths.values())
     check(gathers == 0, "no main path launched the (B, L) ace_query gather "
           f"({gathers}): every gather-and-reduce is one ace_query_sum")
@@ -9008,7 +9463,15 @@ def main() -> int:
           + "; captured stream " + ", ".join(
               f"{r['items_per_s']:,.0f} items/s {k[16:]} (eager "
               f"{r['eager_items_per_s']:,.0f})" for k, r in captured.items()
-              if k.startswith("captured_stream_")))
+              if k.startswith("captured_stream_"))
+          + "; configs (captured / eager) " + ", ".join(
+              f"{k[7:]} prefill {r['prefill_ms']:.3f} / "
+              f"{r['eager_prefill_ms']:.3f} ms"
+              + (f", decode step {r['decode_step_ms']:.3f} ms"
+                 if "decode_step_ms" in r else "")
+              for k, r in configs.items())
+          + "; examples " + ", ".join(f"{k} exit 0 in {r['seconds']:.1f} s"
+                                      for k, r in examples.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -2663,3 +2663,85 @@ def test_captured_train_is_the_eager_twin(cuda, chunk, tmp_path, monkeypatch):
     assert all(e.graph is not None for p in programs.values()
                for e in p._entries.values())
     assert all(p.trace_count == 0 for p in twin_programs.values())
+
+
+def test_gemma2_ring_and_captured_decode(cuda):
+    """gemma2 at reduced width on the card (local "swa" + global "attn",
+    softcaps 50 and 30, sandwich norms, scaled tied embeddings): the
+    generate through the captured programs bitwise its eager twin —
+    tokens, the prefill's logits and one decode step's — with every
+    logit inside the final cap; then its local layers alone (the global
+    ones keep a full cache by design) with a ring cache of the window's
+    16 slots against a full one of 32, greedy over 24 tokens that wrap
+    it: tokens equal, logits within 2e-4."""
+    from repro_torch.core import capture
+    from repro_torch.serve import engine as E
+    a, card, _ = _model_on_both(cuda, "gemma2_27b")
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    batch = {"tokens": torch.randint(0, a.cfg.vocab_size, (3, 20),
+                                     generator=gen, device=cuda,
+                                     dtype=torch.int32)}
+    eng = E.ServeEngine(a, s_max=32, device=cuda)
+    toks = eng.generate(card, batch, num_new_tokens=8, prompt_len=20)
+    with capture.disabled():
+        want = eng.generate(card, batch, num_new_tokens=8, prompt_len=20)
+    np.testing.assert_array_equal(toks, want)
+    assert eng.trace_counts == (1, 1)
+    _, (logits, cache) = eng._prefill(None, card, batch)
+    with capture.disabled():
+        _, (elogits, ecache) = eng._prefill(None, card, batch)
+    assert torch.equal(logits, elogits)
+    step = {"tokens": torch.argmax(elogits[:, -1], -1)
+            .to(torch.int32)[:, None]}
+    pos = torch.full((3,), 20, dtype=torch.int32, device=cuda)
+    _, dlogits = eng._decode(ecache, card, step, pos)
+    with capture.disabled():
+        _, delogits = eng._decode(ecache, card, step, pos)
+    assert torch.equal(dlogits, delogits)
+    cap = a.cfg.final_logit_softcap
+    assert float(logits.abs().max()) <= cap
+    assert float(dlogits.abs().max()) <= cap
+
+    import copy
+    import dataclasses
+    local = copy.copy(a)
+    local.cfg = dataclasses.replace(a.cfg, block_pattern=("swa",),
+                                    num_layers=a.cfg.num_superblocks)
+    lp = {**card, "blocks": [[row[0]] for row in card["blocks"]]}
+    window = a.cfg.sliding_window
+    prompt = batch["tokens"][:, :8]
+    ring_toks, ring_logits = _greedy(local, lp, {"tokens": prompt}, 24,
+                                     window)
+    full_toks, full_logits = _greedy(local, lp, {"tokens": prompt}, 24,
+                                     2 * window)
+    assert torch.equal(ring_toks, full_toks)
+    torch.testing.assert_close(ring_logits, full_logits, rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_qwen2_vl_embeds_prefill_captured(cuda):
+    """qwen2_vl at reduced width on the card: the engine's prefill of
+    embeddings with M-RoPE positions whose three sections differ, through
+    its captured program, bitwise the eager twin (logits and cache); the
+    decode step feeds tokens, so ``generate`` raises the reference's
+    ``KeyError``."""
+    from repro_torch.core import capture
+    from repro_torch.serve import engine as E
+    a, card, _ = _model_on_both(cuda, "qwen2_vl_7b")
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    i = torch.arange(12, dtype=torch.int32, device=cuda)
+    batch = {"embeds": torch.randn((3, 12, a.cfg.d_model), generator=gen,
+                                   device=cuda),
+             "positions": torch.stack([i, i // 4, i % 4])[:, None]
+             .expand(3, 3, 12).contiguous()}
+    eng = E.ServeEngine(a, s_max=24, device=cuda)
+    for _ in range(2):                  # the build, then a replay
+        _, (logits, cache) = eng._prefill(None, card, batch)
+    with capture.disabled():
+        _, (elogits, ecache) = eng._prefill(None, card, batch)
+    assert torch.equal(logits, elogits)
+    assert all(torch.equal(x, y) for x, y in zip(capture.leaves(cache),
+                                                  capture.leaves(ecache)))
+    assert eng.trace_counts == (1, 0)
+    with pytest.raises(KeyError, match="embeds"):
+        eng.generate(card, batch, num_new_tokens=2, prompt_len=12)

@@ -23,8 +23,13 @@ REPO = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((REPO / "src" / "repro_torch").rglob("*.py")) \
     + [REPO / "chip_smoke.py", REPO / "scripts" / "kernel_ab.py",
        REPO / "scripts" / "frontend_tail_ab.py",
+       REPO / "scripts" / "chaos_report_torch.py",
        REPO / "examples" / "train_lm_ace_monitor_torch.py",
-       REPO / "examples" / "serve_guardrail_torch.py"]
+       REPO / "examples" / "serve_guardrail_torch.py",
+       REPO / "examples" / "quickstart_torch.py",
+       REPO / "examples" / "streaming_detection_torch.py",
+       REPO / "examples" / "fleet_serving_torch.py",
+       REPO / "examples" / "drift_postmortem_torch.py"]
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -67,13 +72,32 @@ def test_port_imports_and_admits_with_jax_blocked():
             ck.save(d, 1, g.state)
             back, man = ck.CheckpointManager(d).restore_latest(g.state)
         assert man["step"] == 1 and bool((back.counts == g.state.counts).all())
+        # the fleet example's stream and the chaos drill on the CPU (one
+        # intra-op thread: the other test workers hold the cores)
+        import importlib.util, os, torch
+        torch.set_num_threads(1)
+        def load(path):
+            spec = importlib.util.spec_from_file_location("m", path)
+            mod = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mod)
+            return mod
+        repo = sys.argv[1]
+        fleet = load(os.path.join(repo, "examples", "fleet_serving_torch.py"))
+        g, masks = fleet.run_stream(bursts=True, device="cpu")
+        assert masks.shape == (fleet.LIVE_STEPS, fleet.T * fleet.B_PER)
+        assert g.trace_count == 1
+        drill = load(os.path.join(repo, "scripts", "chaos_report_torch.py"))
+        with tempfile.TemporaryDirectory() as d:
+            assert drill.main(["--json", os.path.join(d, "r.json"),
+                               "--device", "cpu"]) == 0
         assert not any(k == "repro" or k.startswith("repro.")
                        for k in sys.modules), "the JAX package was imported"
         print("ISOLATED_OK")
     """)
     env = {**os.environ, "PYTHONPATH": str(REPO / "src")}
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, timeout=300, env=env)
+    out = subprocess.run([sys.executable, "-c", code, str(REPO)],
+                         capture_output=True, text=True, timeout=300,
+                         env=env)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "ISOLATED_OK" in out.stdout
 
@@ -150,3 +174,22 @@ def test_train_entry_points_without_cuda_raise(monkeypatch):
     assert all(t.device.type == "cpu" for t in
                [*state.params["blocks"][0][0]["mixer"].values(),
                 state.step, state.monitor_w, state.filter_w])
+
+
+@pytest.mark.parametrize("script", [
+    "examples/quickstart_torch.py", "examples/streaming_detection_torch.py",
+    "examples/fleet_serving_torch.py", "examples/drift_postmortem_torch.py",
+    "scripts/chaos_report_torch.py"])
+def test_examples_without_cuda_raise(script, monkeypatch, tmp_path):
+    """The four examples and the chaos drill run on the card by default:
+    without one, ``main()`` raises before any work (the drill writes no
+    report); ``--device cpu`` is the way onto the CPU."""
+    import importlib.util
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = importlib.util.spec_from_file_location("entry", REPO / script)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    report = tmp_path / "report.json"
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        mod.main(["--json", str(report)] if "chaos" in script else [])
+    assert not report.exists()
