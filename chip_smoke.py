@@ -48,15 +48,20 @@ non-zero without printing its result line):
              on the four int8 buckets of one 32-bit word, and base rows
              of the windowed fleet's ring in each dtype; then the six
              hash kernels on bfloat16 and on float16 x and W
-             (``phase_kernels_operands``): ``srp_hash`` at its three
+             (``phase_kernels_operands``): ``srp_hash`` and
+             ``ace_admit_fused`` on the tensor-core tile at their three
              shapes (ids >= 0.999 against the plain version, which
-             widens both operands, and bitwise the float32 kernel's on
-             the widened operands), ``srht_hash`` at its three (bitwise),
-             the four fused kernels at the admit shape (ids ``srp_hash``'s,
-             every output bitwise the kernel's on the widened operands),
-             and one ``ops.ace_admit`` on a bfloat16 W (its own path:
-             one ``ace_admit_fused`` launch, outputs equal to the float32
-             W's);
+             widens both operands, two launches bitwise equal, the
+             admission's counts, scores and verdicts bitwise the plain
+             path downstream of its ids; the widening tile, asked for by
+             name, bitwise the float32 kernel's on the widened
+             operands), ``srht_hash`` at its three (bitwise), the other
+             three fused kernels at the admit shape (ids the widening
+             tile's, every output bitwise the kernel's on the widened
+             operands), and ``ops.ace_admit`` on a bfloat16 W and on
+             bfloat16 q and W (each its own path: one
+             ``ace_admit_fused`` launch, outputs equal to the widened
+             operands' where the two tiles' ids agree);
 3. estimator — ``AceEstimator`` (paper Algorithm 1) at K=15, L=50 fit on
              596,853 x 36 clustered non-negative points (the KDD-Cup99 HTTP
              shape) in batches of 4096, then 16,384 queries scored and
@@ -118,13 +123,15 @@ non-zero without printing its result line):
              computes the same function) that call, timed with CUDA events,
              beside the least time the card could take (its bound); the
              six hash kernels also on bfloat16 and float16 operands in
-             turns with float32 and, the five dense ones, with the
-             operands widened on the card before a float32 launch
-             (``srp_hash`` and ``srht_hash`` at their three shapes, the
-             fused four at the admit shape; the dense bound the products
-             at the bf16/fp16 tensor-core rate against x and W at 2
-             bytes, beside cuBLAS's projection on the narrow operands;
-             the SRHT's its fp32 adds against a 2-byte x);
+             turns with float32: ``srp_hash`` and ``ace_admit_fused`` on
+             the tensor-core tile at their three shapes, also in turns
+             with the widening tile on the same operands, ``srht_hash``
+             at its three, the other three fused kernels at the admit
+             shape also in turns with the operands widened on the card
+             before a float32 launch (the dense bound the products at
+             the bf16/fp16 tensor-core rate against x and W at 2 bytes,
+             beside cuBLAS's projection on the narrow operands; the
+             SRHT's its fp32 adds against a 2-byte x);
              ``srp_hash`` at its three main-path shapes (fit, admit, stream
              step) under its launch plan and every other cluster size, and
              ``ace_admit_fused`` at its two (admit, stream step), each
@@ -530,9 +537,11 @@ plain version's; each count-reading kernel's ``by_dtype`` gives the same
 in int16, int8 and float32, its times and bound in each narrow dtype,
 and its launches on phase 10's paths of that dtype; each hash kernel's
 ``by_dtype`` also gives bfloat16 and float16 operands: ``max_abs_err``
-of the ids, times in turns with float32 (and, the dense ones, with the
-operands widened on the card first), bounds, cuBLAS's projection on the
-narrow operands, and launches on the bfloat16-W ``ops.ace_admit`` path.
+of the ids, times in turns with float32 (and with the widening tile,
+``srp_hash`` and ``ace_admit_fused``; with the operands widened on the
+card first, the other three dense ones), bounds, cuBLAS's projection on
+the narrow operands, and launches on the two bfloat16 ``ops.ace_admit``
+paths.
 
 Data and weights are made from SEED.  Nothing here imports JAX.
 """
@@ -6440,33 +6449,91 @@ def fused_cases(mods, device, cfg, B: int):
     return runs, moved
 
 
+def admit_from_ids(counts, ids, thresh, mask=None):
+    """The plain path of a flat admission downstream of one set of ids:
+    (counts after the masked insert, PRE-insert scores, verdicts)."""
+    L = counts.shape[0]
+    rows = torch.arange(L, device=counts.device)[None, :]
+    scores = counts[rows, ids.long()].float().sum(-1) \
+        * torch.tensor(1.0 / L, dtype=torch.float32)
+    admit = scores >= thresh
+    if mask is not None:
+        admit &= mask
+    after = counts.clone().index_put_(
+        (rows, ids.long()), admit.to(counts.dtype)[:, None].expand_as(ids),
+        accumulate=True)
+    return after, scores, admit
+
+
+def tensor_core_checks(mods, what, cfg, nx, nw, counts,
+                       mask=None) -> tuple:
+    """``srp_hash`` and ``ace_admit_fused`` on a same-type 2-byte pair,
+    which they run on the tensor-core tile: ids >= 0.999 against the plain
+    version, two launches of each bitwise equal, the admission's ids
+    ``srp_hash``'s and its counts, scores and verdicts bitwise the plain
+    path's downstream of them, at the median pre-insert score as the
+    threshold (about half the rows insert); the widening tile asked for
+    by name bitwise the float32 kernel on the widened operands.  Returns
+    (ids, max |ids - plain|, the admission's largest output difference
+    from that plain path, the threshold)."""
+    h, a = mods["srp_hash"], mods["ace_admit_fused"]
+    ids, again = h.srp_hash(nx, nw, cfg), h.srp_hash(nx, nw, cfg)
+    thresh = torch.median(admit_from_ids(counts, ids, float("-inf"))[1])
+    plain = h.srp_hash_plain(nx, nw, cfg)
+    share = agreement(ids, plain)
+    wide = h.srp_hash_planned(nx, nw, cfg, None, "widening")
+    check(share >= 0.999 and torch.equal(ids, again) and torch.equal(
+        wide, h.srp_hash(nx.float(), nw.float(), cfg)),
+        f"srp_hash {what}: tensor-core ids agree with plain {share:.6f} >= "
+        "0.999, two launches bitwise equal; the widening tile bitwise the "
+        f"float32 kernel's on the widened operands (agree with the "
+        f"tensor-core tile {agreement(ids, wide):.6f})")
+    got = a.ace_admit_fused(counts.clone(), nx, nw, thresh, cfg,
+                            item_mask=mask)
+    twice = a.ace_admit_fused(counts.clone(), nx, nw, thresh, cfg,
+                              item_mask=mask)
+    want = admit_from_ids(counts, got[3], thresh, mask)
+    check(torch.equal(got[3], ids) and all(
+        torch.equal(u, v) for u, v in zip(got, twice)) and all(
+        torch.equal(u, v) for u, v in zip(got[:3], want)),
+        f"ace_admit_fused {what}: ids srp_hash's, two launches bitwise "
+        "equal, counts, scores and verdicts bitwise the plain path's "
+        f"downstream of them ({int(got[2].sum())} of {nx.shape[0]} "
+        "admitted)")
+    return ids, max_err(ids, plain), max(max_err(u, v) for u, v in zip(
+        got[:3], want)), thresh
+
+
 def phase_kernels_operands(mods, device, d_model=D_MODEL,
                            fit_batch=FIT_BATCH, admit_b=ADMIT_B) -> dict:
     """Phase 2 on narrow operands: x and W both bfloat16, then both
-    float16.  ``srp_hash`` at its three main-path shapes: ids >= 0.999
-    against the plain version and bitwise the float32 kernel's on the
-    widened operands; ``srht_hash`` at its three: ids bitwise the plain
-    version's; the four fused hash kernels at the admit shape (T = 8
-    tenants, a 4-epoch ring): their ids ``srp_hash``'s, and every output
-    bitwise the same kernel's on the operands widened to float32 (which
-    phase 2 holds against the plain versions).
+    float16.  ``srp_hash`` and ``ace_admit_fused`` run such a pair on the
+    tensor-core tile: at the three main-path shapes, ``tensor_core_checks``
+    (ids >= 0.999 against the plain version, two launches bitwise equal,
+    the admission bitwise the plain path downstream of its ids, the
+    widening tile bitwise the float32 kernel on the widened operands);
+    ``srht_hash`` at its three: ids bitwise the plain version's; the
+    other three fused hash kernels (the widening tile) at the admit shape
+    (T = 8 tenants, a 4-epoch ring): their ids the widening tile's, and
+    every output bitwise the same kernel's on the operands widened to
+    float32 (which phase 2 holds against the plain versions).
     Returns {kernel: {dtype: max_abs_err of the ids}}."""
     h, sh = mods["srp_hash"], mods["srht_hash"]
     err = {k: {} for k in OPERAND_KERNELS}
     for dt in OPERAND_DTYPES:
-        e = 0.0
+        e = ea = 0.0
         for where, B, d, K, L in dense_hash_shapes(d_model, fit_batch,
                                                    admit_b):
-            cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 51)
-            got = h.srp_hash(nx, nw, cfg)
-            plain = h.srp_hash_plain(nx, nw, cfg)
-            e = max(e, max_err(got, plain))
-            share = agreement(got, plain)
-            check(share >= 0.999 and torch.equal(got, h.srp_hash(
-                nx.float(), nw.float(), cfg)), f"srp_hash {dt} {where} "
-                f"B={B}, d={d}: ids agree with plain {share:.6f} >= 0.999 "
-                "and equal the float32 kernel's on the widened operands")
+            cfg, _, (nx, nw) = operands(B, d, K, L, dt, device, 51)
+            counts = torch.randint(0, 9, (L, cfg.num_buckets),
+                                   dtype=torch.int32, device=device)
+            mask = torch.arange(B, device=device) % 7 != 0
+            _, eh, _, _ = tensor_core_checks(
+                mods, f"{dt} {where} B={B}, d={d}", cfg, nx, nw, counts,
+                mask)
+            e, ea = max(e, eh), max(ea, eh)
         err["srp_hash"][dt] = e
+        err["ace_admit_fused"][dt] = ea
         e = 0.0
         for where, B, d, K, L in srht_shapes(d_model, fit_batch):
             cfg, (x, _), (nx, _) = operands(B, d, K, L, dt, device, 52,
@@ -6483,18 +6550,20 @@ def phase_kernels_operands(mods, device, d_model=D_MODEL,
         B, d, K, L = admit_b, d_model + 1, K_BITS, L_TABLES
         cfg, _, (nx, nw) = operands(B, d, K, L, dt, device, 53)
         wx, ww = nx.float(), nw.float()       # the widened operands
-        ids = h.srp_hash(nx, nw, cfg)
+        ids = h.srp_hash_planned(nx, nw, cfg, None, "widening")
         plain_ids = h.srp_hash_plain(nx, nw, cfg)
         runs = fused_cases(mods, device, cfg, B)[0]
         for name, run in runs.items():
+            if name == "ace_admit_fused":     # on the tensor-core tile
+                continue
             got, wide = run(nx, nw), run(wx, ww)
             kid = got[3] if len(got) > 2 else got[1]
             err[name][dt] = max_err(kid, plain_ids)
             check(torch.equal(kid, ids) and all(
                 torch.equal(u, v) for u, v in zip(got, wide)),
-                f"{name} {dt} admit shape B={B}, d={d}: ids srp_hash's "
-                f"(plain ids agree {agreement(ids, plain_ids):.6f}), every "
-                "output the kernel's on the widened operands")
+                f"{name} {dt} admit shape B={B}, d={d}: ids the widening "
+                f"tile's (plain ids agree {agreement(ids, plain_ids):.6f}), "
+                "every output the kernel's on the widened operands")
     for k in OPERAND_KERNELS:
         print(f"  {k}: max |ids - plain| " + ", ".join(
             f"{dt} {err[k][dt]:g}" for dt in OPERAND_DTYPES))
@@ -6502,11 +6571,14 @@ def phase_kernels_operands(mods, device, d_model=D_MODEL,
 
 
 def narrow_admit_path(mods, device, d_model=D_MODEL,
-                      admit_b=ADMIT_B) -> dict:
+                      admit_b=ADMIT_B, pair=False) -> dict:
     """One ``ops.ace_admit`` on a bfloat16 W at the flat guardrail's shape
-    (armed sketch), counts set to 0 just before it: its outputs equal
-    the same admission on W widened to float32, and it launched the fused
-    admission."""
+    (armed sketch), counts set to 0 just before it: it launched the fused
+    admission once, and its outputs equal the same admission on W widened
+    to float32.  With ``pair`` the queries are bfloat16 too, a pair the
+    admission runs on the tensor-core tile, and the twin's are widened as
+    well: outputs bitwise where the two tiles' ids agree on every row (the
+    ids are held to >= 0.999 either way)."""
     from repro_torch.core import sketch as sk
     from repro_torch.kernels import ops
     cfg = sk.AceConfig(dim=d_model + 1, num_bits=K_BITS,
@@ -6520,6 +6592,8 @@ def narrow_admit_path(mods, device, d_model=D_MODEL,
         state, _ = ops.ace_admit(state, q, w.float(), cfg, alpha=4.0,
                                  warmup_items=2.0 * admit_b)
     q = torch.randn((admit_b, d_model + 1), generator=gen, device=device)
+    if pair:
+        q = q.to(torch.bfloat16)
     twin = sk.AceState(*(v if v is None or not torch.is_tensor(v)
                          else v.clone() for v in state))
     reset_launches(mods)
@@ -6527,14 +6601,21 @@ def narrow_admit_path(mods, device, d_model=D_MODEL,
                                warmup_items=2.0 * admit_b)
     sync(device)
     launches = read_launches(mods)
-    want, wadmit = ops.ace_admit(twin, q, w.float(), cfg, alpha=4.0,
+    want, wadmit = ops.ace_admit(twin, q.float(), w.float(), cfg, alpha=4.0,
                                  warmup_items=2.0 * admit_b)
-    check(launches["ace_admit_fused"] == 1, "ops.ace_admit on a bfloat16 W "
+    what = "bfloat16 q and W" if pair else "a bfloat16 W"
+    check(launches["ace_admit_fused"] == 1, f"ops.ace_admit on {what} "
           "launched ace_admit_fused once")
-    check(torch.equal(admit, wadmit) and all(
-        torch.equal(u, v) for u, v in zip(got, want)
-        if torch.is_tensor(u)), "ops.ace_admit on a bfloat16 W equals it on "
-          f"W widened to float32 ({int(admit.sum())} of {admit_b} admitted)")
+    h, scfg = mods["srp_hash"], cfg.srp
+    ids, wide = h.srp_hash(q, w, scfg), h.srp_hash(q.float(), w.float(),
+                                                   scfg)
+    share = agreement(ids, wide)
+    same = torch.equal(admit, wadmit) and all(
+        torch.equal(u, v) for u, v in zip(got, want) if torch.is_tensor(u))
+    check(share >= 0.999 and (same or not torch.equal(ids, wide)),
+          f"ops.ace_admit on {what} equals it on the operands widened to "
+          f"float32 ({int(admit.sum())} of {admit_b} admitted; the two "
+          f"tiles' ids agree {share:.6f})")
     return {"launches": launches, "dtype": "bfloat16"}
 
 
@@ -6549,48 +6630,78 @@ def time_in_turns(**fns) -> tuple:
 
 
 def phase_timing_operands(mods, device, d_model=D_MODEL) -> dict:
-    """Phase 8 on narrow operands: ``srp_hash`` at its three main-path
-    shapes, ``srht_hash`` at its three and the four fused hash kernels at
-    the admit shape, each dtype in turns with float32 and (the dense
-    kernels) with the same kernel on operands widened on the card first
-    (``x.float()``, ``w.float()``, the casts included: ``widen_ms``).
-    The dense kernels' bound: their products at the card's bf16/fp16
-    tensor-core rate (a 2-byte product accumulated in fp32 is exact)
-    against the bytes with x and W at two bytes an element; beside them
-    cuBLAS's projection on the same narrow operands (``matmul_ms``).  The
-    SRHT's: its fp32 adds against a 2-byte x.  Returns {kernel: {dtype:
-    entry}} (with ``by_shape`` for the two hashes)."""
-    h, sh = mods["srp_hash"], mods["srht_hash"]
-    out = {"srp_hash": {}, "srht_hash": {}}
+    """Phase 8 on narrow operands.  ``srp_hash`` and ``ace_admit_fused``
+    at their three main-path shapes on the tensor-core tile, each held to
+    ``tensor_core_checks`` first, then each dtype in turns with the
+    widening tile on the same operands (``widening_ms``) and with the
+    float32 kernel on the float32 operands (``float32_ms``); their bound
+    the products at the card's bf16/fp16 tensor-core rate (a 2-byte
+    product accumulated in fp32 is exact) against the bytes with x and W
+    at two bytes an element, beside cuBLAS's projection on the same
+    narrow operands (``matmul_ms``).  ``srht_hash`` at its three shapes
+    and the other three fused hash kernels at the admit shape, in turns
+    with float32 and (the fused ones) with the same kernel on operands
+    widened on the card first (``x.float()``, ``w.float()``, the casts
+    included: ``widen_ms``); the SRHT's bound its fp32 adds against a
+    2-byte x.  Returns {kernel: {dtype: entry}} (with ``by_shape`` for
+    the two hashes and the admission)."""
+    h, sh, a = mods["srp_hash"], mods["srht_hash"], mods["ace_admit_fused"]
+    out = {"srp_hash": {}, "srht_hash": {}, "ace_admit_fused": {}}
     for dt in OPERAND_DTYPES:
-        rows = []
+        rows, arows = [], []
         for where, B, d, K, L in dense_hash_shapes(d_model):
             cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 56)
-            KL = cfg.num_projections
+            KL, nb = cfg.num_projections, cfg.num_buckets
+            shape = f"{where} B={B}, d={d}, K={K}, L={L}"
+            counts = torch.randint(0, 9, (L, nb), dtype=torch.int32,
+                                   device=device)
+            ids, _, _, t1 = tensor_core_checks(
+                mods, f"{dt} {shape} (phase 8)", cfg, nx, nw, counts)
+            matmul_ms = device_ms(lambda: torch.matmul(nx, nw[:, :KL]))
             ms, runs = time_in_turns(
                 float32=lambda: h.srp_hash(x, w, cfg),
                 narrow=lambda: h.srp_hash(nx, nw, cfg),
-                widened=lambda: h.srp_hash(nx.float(), nw.float(), cfg))
+                widening=lambda: h.srp_hash_planned(nx, nw, cfg, None,
+                                                    "widening"))
             r = dict(ms=ms["narrow"], float32_ms=ms["float32"],
-                     widen_ms=ms["widened"], runs=runs,
+                     widening_ms=ms["widening"], runs=runs,
                      plain_ms=device_ms(lambda: h.srp_hash_plain(nx, nw,
                                                                  cfg)),
-                     matmul_ms=device_ms(lambda: torch.matmul(nx,
-                                                              nw[:, :KL])),
-                     library_ms=None,
-                     shape=f"{where} B={B}, d={d}, K={K}, L={L}",
+                     matmul_ms=matmul_ms, library_ms=None, shape=shape,
                      **dict(zip(("bound_ms", "bound_by"), bound(
                          2 * B * d * KL, 2 * (B * d + d * KL) + 4 * B * L,
                          PEAK_16BIT_TC_FLOPS))))
-            print(f"  srp_hash {dt} {r['shape']}: kernel {r['ms']:.5f} ms, "
-                  f"float32 {r['float32_ms']:.5f}, widened on the card + "
-                  f"float32 kernel {r['widen_ms']:.5f} (in turns), plain "
+            print(f"  srp_hash {dt} {shape}: tensor-core tile "
+                  f"{r['ms']:.5f} ms, widening tile {r['widening_ms']:.5f}, "
+                  f"float32 {r['float32_ms']:.5f} (in turns), plain "
                   f"{r['plain_ms']:.5f}, cuBLAS {dt} projection "
-                  f"{r['matmul_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+                  f"{matmul_ms:.5f}, bound {r['bound_ms']:.5f} ms "
                   f"({r['bound_by']}), {100 * r['bound_ms'] / r['ms']:.1f}% "
                   "of bound")
             rows.append(r)
+            c = counts.clone()                # updated in place (timing)
+            ms, runs = time_in_turns(
+                float32=lambda: a.ace_admit_fused(c, x, w, t1, cfg),
+                narrow=lambda: a.ace_admit_fused(c, nx, nw, t1, cfg),
+                widening=lambda: a.ace_admit_fused_planned(
+                    c, nx, nw, t1, cfg, None, None, "widening"))
+            u = distinct_counters(ids, nb)    # gathered; inserted at most
+            r = dict(ms=ms["narrow"], float32_ms=ms["float32"],
+                     widening_ms=ms["widening"], runs=runs,
+                     plain_ms=device_ms(lambda: a.ace_admit_fused_plain(
+                         c, nx, nw, t1, cfg)),
+                     matmul_ms=matmul_ms, library_ms=None, shape=shape,
+                     **dict(zip(("bound_ms", "bound_by"), bound(
+                         2 * B * d * KL, 2 * (B * d + d * KL) + 3 * 4 * u
+                         + 4 * B * L + 5 * B + 4, PEAK_16BIT_TC_FLOPS))))
+            print(f"  ace_admit_fused {dt} {shape}: tensor-core tile "
+                  f"{r['ms']:.5f} ms, widening tile {r['widening_ms']:.5f}, "
+                  f"float32 {r['float32_ms']:.5f} (in turns), plain "
+                  f"{r['plain_ms']:.5f}, bound {r['bound_ms']:.5f} ms "
+                  f"({r['bound_by']})")
+            arows.append(r)
         out["srp_hash"][dt] = {**rows[-1], "by_shape": rows}
+        out["ace_admit_fused"][dt] = {**arows[1], "by_shape": arows}
         rows = []
         for where, B, d, K, L in srht_shapes(d_model):
             cfg, (x, _), (nx, _) = operands(B, d, K, L, dt, device, 57,
@@ -6611,10 +6722,12 @@ def phase_timing_operands(mods, device, d_model=D_MODEL) -> dict:
         B, d, K, L = ADMIT_B, d_model + 1, K_BITS, L_TABLES
         cfg, (x, w), (nx, nw) = operands(B, d, K, L, dt, device, 58)
         runs, moved = fused_cases(mods, device, cfg, B)
-        ids = h.srp_hash(nx, nw, cfg)
+        ids = h.srp_hash_planned(nx, nw, cfg, None, "widening")
         KL = cfg.num_projections
         matmul_ms = device_ms(lambda: torch.matmul(nx, nw[:, :KL]))
         for name, run in runs.items():
+            if name == "ace_admit_fused":     # timed above
+                continue
             ms, samples = time_in_turns(
                 float32=lambda: run(x, w, fresh=False),
                 narrow=lambda: run(nx, nw, fresh=False),
@@ -9164,10 +9277,12 @@ def main() -> int:
           "against their plain versions on the card")
     err_op = phase_kernels_operands(mods, device)
     op_admit = narrow_admit_path(mods, device)
+    op_pair = narrow_admit_path(mods, device, pair=True)
     print("phase 3: AceEstimator path")
     paths = {"estimator": phase_estimator(mods, device),
              "estimator_srht": phase_estimator_srht(mods, device),
-             "operands_admit_bfloat16": op_admit}
+             "operands_admit_bfloat16": op_admit,
+             "operands_admit_bfloat16_pair": op_pair}
     print("phase 4: Guardrail path")
     paths["guardrail"] = phase_guardrail(mods, device)
     print("phase 5: stream paths (AceDataFilter, WindowedAceFilter, "
@@ -9200,7 +9315,7 @@ def main() -> int:
                         for k in GUARD_KINDS)))
     times.update(phase_timing_attr(mods, device, paths["attribution_srht"]))
     print("phase 8: the dense and SRHT hashes on bfloat16 and float16 "
-          "operands, in turns with float32")
+          "operands, in turns with float32 (and the widening tile)")
     times_op = phase_timing_operands(mods, device)
     for k, v in {**time_query_paths(device),
                  **time_public_paths(device)}.items():

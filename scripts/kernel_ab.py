@@ -9,8 +9,9 @@ public functions ``attribution.find_hh`` (phase 7's hierarchy),
 mask), ``ops.ace_window_score`` (with and without a table mask) and
 ``ops.ace_fleet_score`` (phase 6's query shape).  With ``--operands``
 it times instead the six hash kernels on bfloat16 and float16 operands
-in turns with float32 (and the five dense ones with the operands widened
-on the card first), as ``chip_smoke.phase_timing_operands`` does; with
+in turns with float32 (and ``srp_hash`` and ``ace_admit_fused`` with the
+widening tile, the other three dense ones with the operands widened on
+the card first), as ``chip_smoke.phase_timing_operands`` does; with
 ``--float32``, the five dense hash kernels on float32 operands alone
 (``srp_hash`` at its three main-path shapes, the fused four at the admit
 shape), which every checkout since the fused kernels can run.

@@ -57,8 +57,9 @@ collectives — and ``dist.roofline`` reads them against an H100's rates.
 tenants, heartbeats, CRC-framed gossip of each epoch's sketches over a
 ``torch.distributed`` ``TCPStore``, failover from a peer's gossip or
 checkpoint, and rejoin.  Projections come in float32, bfloat16 or
-float16; the hash kernels widen narrow x and W to float32 as they load
-them.
+float16; ``srp_hash`` and ``ace_admit_fused`` hash x and W of one 2-byte
+type on the tensor cores, and the hash kernels widen any other narrow x
+or W to float32 as they load it.
 Its ten kernels, one for each TPU kernel of the reference, are
 ``srp_hash``, ``srht_hash``, ``ace_update``, ``ace_query``,
 ``ace_score_fused``, ``ace_admit_fused``, ``ace_window_combine``,

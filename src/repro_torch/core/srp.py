@@ -39,7 +39,9 @@ HASH_MODES = ("dense", "srht", "auto")
 
 # The projection dtypes: the reference's, and the operand types of every
 # hash kernel, in the order of their codes (csrc/common.cuh OperandCode).
-# The kernels widen each element to float32 as they load it.
+# The kernels widen each element to float32 as they load it, but for x and
+# W of one 2-byte type in srp_hash and ace_admit_fused, which run on the
+# tensor cores (kernels/srp_hash.py hash_tile).
 OPERAND_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
@@ -139,9 +141,10 @@ def make_projections(cfg: SrpConfig, generator: torch.Generator | None = None,
     gives float32 and a warning, as in the reference).  A narrow W is the
     float32 draw rounded to nearest in the narrow dtype, so one seed gives
     the same directions in every dtype; the hash kernels widen it back to
-    float32 as they read it.  Under the SRHT family W is never read: a
-    (d, 0) placeholder in ``dtype`` keeps every ``(state, w, x)``
-    signature, as in the reference.
+    float32 as they read it (``srp_hash`` and ``ace_admit_fused`` take it
+    and an x of its dtype on the tensor cores).  Under the SRHT family W
+    is never read: a (d, 0) placeholder in ``dtype`` keeps every
+    ``(state, w, x)`` signature, as in the reference.
     """
     dtype = projection_dtype(dtype)
     if resolve_hash_mode(cfg) == "srht":

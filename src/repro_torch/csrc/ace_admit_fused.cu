@@ -29,6 +29,8 @@
 // adds 1 in the plane's own type (repro::add_count: narrow adds wrap past
 // the dtype max, as the reference's do).  The order above holds for
 // every type.
+// x and W both bfloat16 or both float16: phase 1 runs the tensor-core
+// tile of srp_gemm.cuh (srp_tc_tile), with the same plan and epilogue.
 // The phase-1 hash keeps srp_hash's grid instead of one block per row;
 // that is why the row sum lives in phase 2.  The TPU kernel's one-tile
 // batch and its VMEM batch cap do not apply.
@@ -46,6 +48,24 @@ admit_hash_gather(const Cnt* __restrict__ counts, repro::gemm::Operands op,
                   repro::gemm::Plan plan) {
   extern __shared__ __align__(16) unsigned char smem[];
   repro::gemm::srp_gemm_tile<kNarrow>(
+      op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
+        const long long o = static_cast<long long>(row) * L + j;
+        buckets[o] = bucket;
+        gathered[o] = static_cast<float>(
+            repro::load_count(counts + j * nbuckets + bucket));
+      });
+}
+
+template <typename Cnt, bool kF16>
+__global__ void __launch_bounds__(repro::gemm::kThreads,
+                                  repro::gemm::kTcMinBlocks)
+admit_hash_gather_tc(const Cnt* __restrict__ counts,
+                     repro::gemm::Operands op, int* __restrict__ buckets,
+                     float* __restrict__ gathered, int B, int d, int P,
+                     int K, int L, long long nbuckets,
+                     repro::gemm::Plan plan) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  repro::gemm::srp_tc_tile<kF16>(
       op, B, d, P, K, L, plan, smem, [&](int row, int j, int bucket) {
         const long long o = static_cast<long long>(row) * L + j;
         buckets[o] = bucket;
@@ -93,9 +113,10 @@ admit_score_insert(Cnt* __restrict__ counts,
 // x_type, w_type (fp32, bf16 or fp16), w 16-byte aligned; thresh: one fp32
 // on the device; item_mask (B,) bool or null.  Outputs: buckets (B, L) int32,
 // scores (B,) fp32, admit (B,) bool; gathered (B, L) fp32 is
-// scratch.  nbuckets is 64-bit (2^31 at K = 31).  The hash's plan as in
-// repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does not fit
-// returns cudaErrorInvalidValue.
+// scratch.  nbuckets is 64-bit (2^31 at K = 31).  The hash's plan and
+// tile as in repro_srp_hash.  Needs 1 <= K <= 31, B >= 1; a plan that does
+// not fit, or a tile that does not take the operand pair, returns
+// cudaErrorInvalidValue.
 REPRO_API int repro_ace_admit_fused(void* counts, const void* q,
                                     const void* w, const float* thresh,
                                     const unsigned char* item_mask,
@@ -107,22 +128,25 @@ REPRO_API int repro_ace_admit_fused(void* counts, const void* q,
                                     int groups, int splits, int b0, int b1,
                                     int b2, int b3, int b4, int b5, int b6,
                                     int b7, int b8, int count_type,
-                                    int x_type, int w_type, void* stream) {
+                                    int x_type, int w_type, int tile,
+                                    void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int bounds[] = {b0, b1, b2, b3, b4, b5, b6, b7, b8};
   const repro::gemm::Operands op{q, w, x_type, w_type};
   const repro::gemm::Plan plan = repro::gemm::make_plan(
       rows, row_tiles, tables, groups, splits, bounds);
-  if (!repro::gemm::plan_fits(plan, op, B, d, K, L))
+  if (!repro::gemm::plan_fits(plan, op, B, d, K, L) ||
+      !repro::gemm::tile_takes(tile, op))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaSuccess;
   if (!repro::with_count_type(count_type, [&](auto tag) {
         using T = decltype(tag);
         T* c = static_cast<T*>(counts);
-        err = repro::gemm::launch(
-            op, admit_hash_gather<T, false>, admit_hash_gather<T, true>,
-            plan, s, c, op, buckets, gathered, B, d, P, K, L, nbuckets,
-            plan);
+        err = repro::gemm::launch_tile(
+            tile, op, admit_hash_gather<T, false>,
+            admit_hash_gather<T, true>, admit_hash_gather_tc<T, false>,
+            admit_hash_gather_tc<T, true>, plan, s, c, op, buckets,
+            gathered, B, d, P, K, L, nbuckets, plan);
         if (err != cudaSuccess) return;
         admit_score_insert<T><<<(B + kInsertRows - 1) / kInsertRows,
                                 32 * kInsertRows, 0, s>>>(

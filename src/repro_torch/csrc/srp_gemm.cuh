@@ -27,7 +27,11 @@
 // padded W are ever read.
 //
 // Operand types: x and W are each float32, bfloat16 or float16 (common.cuh
-// OperandCode), as the Pallas kernels take them; every element is widened
+// OperandCode), as the Pallas kernels take them.  srp_hash.cu and
+// ace_admit_fused.cu run a pair of one 2-byte type on the tensor-core tile
+// at the end of this file (srp_tc_tile, `route`); every other pair with a
+// 2-byte operand, and every one in the other three kernels, runs here:
+// every element is widened
 // to float32 before it is read, so the slices, the micro-tile, the depth
 // split and the epilogue are the float32 kernel's, and the ids of narrow
 // operands are the float32 kernel's ids of the widened values.  The tile
@@ -504,6 +508,318 @@ __device__ __forceinline__ void srp_gemm_tile(const Operands& op, int B,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tensor-core tile: x and W both bfloat16 or both float16.  A 2-byte
+// product is exact in fp32, so the tensor cores can take it (a float32
+// pair cannot: TF32 flips sign bits).  The block, the plan, the depth
+// split and the epilogue are srp_gemm_tile's; what differs is the product
+// and its staging.
+//
+// Product: the block's 4 warps each own 32 rows x 64 columns of the 64 x
+// 128 tile, 2 x 8 fragments of mma.sync m16n8k16 (bf16 or f16 in, fp32
+// accumulate), 64 accumulators a thread as in the float32 tile.  A slice
+// is kTcBK = 32 depth steps, two k16 steps.  B fragments (W) come from
+// the staged slice with ldmatrix.x4.trans: W rows are padded to 272 bytes,
+// so the 8 rows of an 8 x 8 matrix fall 4 banks apart.  A fragments (x)
+// are read as 4-byte words from the raw staged rows: a 2-byte row
+// (d = 4097) starts on any 2-byte boundary, so its element k sits at half
+// skew + k of its words and a fragment's pair (k, k + 1) is one funnel
+// shift of two words by 16 * skew.  A thread's rows (g, g + 8, g + 16,
+// g + 24 of its warp's 32) share a parity, so it has one skew; x rows are
+// padded to 20 words, so the 32 lanes' reads hit 32 banks.
+//
+// Staging: the float32 tile's ring, kTcStages slices deep, one barrier a
+// slice.  x rows in 4-byte cp.async words as in the widening tile (the
+// word that holds the row's first element of the slice, and the next 16);
+// W in 16-byte cp.async copies of 8 columns when the tile's first column
+// is on an 8-column boundary (every group of the main paths' K = 15,
+// L = 50), else 8-byte copies of 4 (the plan only promises 4).  Bytes
+// past the split's depth, past row B or past column K*L are zero-filled.
+// With the products on the tensor cores, issuing the copies is most of a
+// slice's instructions, so each copy's address is worked out once a
+// block and moved by the slice's depth: that took the admit shape from
+// 0.0316 to 0.0225 ms on an H100 (PERF.md).  Deeper rings and 16-deep
+// slices changed nothing measurable.
+//
+// Sum order: the mma steps in depth order inside a split, then the
+// splits' partial tiles in rank order through distributed shared memory,
+// as in srp_gemm_tile: a launch gives the same bits every time.  The
+// tensor cores do not add in the CUDA-core FMA order, so the ids are held
+// to the dense floor (>= 0.999 agreement with the plain version), not to
+// the float32 kernel's bits.
+// ---------------------------------------------------------------------------
+constexpr int kTcBK = 32;                   // depth steps of one slice
+constexpr int kTcStages = 5;                // slices in flight
+constexpr int kTcMinBlocks = 2;             // the plan's two blocks an SM
+constexpr int kTcXWords = kTcBK / 2 + 1;    // a row's words from any half
+constexpr int kTcXStride = 20;              // words a staged x row
+constexpr int kTcWStride = kCols + 8;       // halves a staged W row
+constexpr int kTcPartStride = kCols + 8;    // floats a partial row
+constexpr int kTcXCopies = (kRows * kTcXWords + kThreads - 1) / kThreads;
+constexpr int kWarpRows = 32, kWarpCols = 64;    // 2 x 2 warps
+constexpr int kMTiles = kWarpRows / 16, kNTiles = kWarpCols / 8;
+
+static_assert(kThreads == 4 * 32 && kRows == 2 * kWarpRows &&
+                  kCols == 2 * kWarpCols,
+              "four warps, 2 x 2 over the tile");
+static_assert(kTcXStride >= kTcXWords && kTcXStride % 32 == 20,
+              "x rows 20 banks apart: a fragment read hits 32 banks");
+
+struct TcStage {
+  unsigned x[kRows][kTcXStride];            // raw x words, row-major
+  unsigned short w[kTcBK][kTcWStride];      // W slice: w[k][column]
+};
+static_assert(sizeof(TcStage) % 16 == 0 &&
+                  offsetof(TcStage, w) % 16 == 0,
+              "16-byte copies and ldmatrix rows stay aligned");
+
+constexpr size_t kTcRingBytes = sizeof(TcStage) * kTcStages;
+constexpr size_t kTcPartBytes = sizeof(float) * kRows * kTcPartStride;
+constexpr size_t kTcMainBytes =
+    kTcRingBytes > kTcPartBytes ? kTcRingBytes : kTcPartBytes;
+constexpr size_t kTcSmemBytes =
+    kTcMainBytes + sizeof(unsigned) * kRows * kMaskWords;
+
+// Four 8 x 8 matrices of 2-byte elements, transposed: lane l gives the row
+// address of matrix l / 8, row l % 8; register i takes matrix i.
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// c += a @ b for one m16n8k16 fragment, bf16 (kF16 false) or f16 in, fp32
+// accumulated.
+template <bool kF16>
+__device__ __forceinline__ void mma16816(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  if constexpr (kF16)
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+  else
+    asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+        "{%0, %1, %2, %3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// srp_gemm_tile for x and W both float16 (kF16) or both bfloat16; `smem`
+// holds kTcSmemBytes of dynamic shared memory aligned to 16.
+template <bool kF16, typename Emit>
+__device__ __forceinline__ void srp_tc_tile(const Operands& op, int B, int d,
+                                            int P, int K, int L,
+                                            const Plan& plan,
+                                            unsigned char* smem, Emit emit) {
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = plan.splits;
+  const int split = static_cast<int>(cluster.block_rank());  // x % S
+  const int row0 = (blockIdx.x / S) * kRows;
+  const int table0 = blockIdx.y * plan.tables;
+  const int ntab = min(plan.tables, L - table0);
+  const int c0 = table0 * K;              // the group's first column
+  const int a0 = c0 & ~3;                 // the tile's first column
+  const int shift = c0 - a0;
+  const int KL = K * L;
+  int k_begin = 0, k_end = 0;
+#pragma unroll
+  for (int s = 0; s < kMaxSplits; ++s)
+    if (s == split) k_begin = plan.bounds[s], k_end = plan.bounds[s + 1];
+  const int nslices = (k_end - k_begin + kTcBK - 1) / kTcBK;
+
+  TcStage* ring = reinterpret_cast<TcStage*>(smem);
+  const int tid = threadIdx.x;
+  const unsigned short* __restrict__ x16 =
+      static_cast<const unsigned short*>(op.x);
+  const unsigned short* __restrict__ w16 =
+      static_cast<const unsigned short*>(op.w);
+  // As in srp_gemm_tile: an aligned address for the copies that read
+  // nothing, and the parity that gives each row's skew.
+  const void* x_none = reinterpret_cast<const void*>(
+      reinterpret_cast<unsigned long long>(op.x) & ~3ull);
+  const int x_par = static_cast<int>(
+      (reinterpret_cast<unsigned long long>(op.x) >> 1) + k_begin) & 1;
+  // A thread's copies are the same in every slice but for the depth, so
+  // their addresses are worked out once.  x copy e is word q of row r
+  // (i = tid + e * kThreads = r * kTcXWords + q): its word in a slot, the
+  // row's element it starts at (2q - skew; kTcBK for a row past B, so that
+  // it never reads) and its source at the split's first depth.  W: column
+  // piece wc of depth rows wk, wk + kThreads / pieces, ... of the slice,
+  // wn of its columns live; 8-column pieces (16-byte copies) when the
+  // tile starts on an 8-column boundary, else 4-column ones.
+  int xword[kTcXCopies], xfirst[kTcXCopies];
+  const unsigned short* xsrc[kTcXCopies];
+#pragma unroll
+  for (int e = 0; e < kTcXCopies; ++e) {
+    const int i = tid + e * kThreads, r = i / kTcXWords, q = i % kTcXWords;
+    const bool row_live = row0 + r < B;
+    xword[e] = r * kTcXStride + q;
+    xfirst[e] =
+        row_live ? 2 * q - ((x_par + ((row0 + r) & d)) & 1) : kTcBK;
+    xsrc[e] = x16 + (row_live ? static_cast<long long>(row0 + r) * d +
+                                    k_begin + xfirst[e]
+                              : 0);
+  }
+  const bool w_wide = a0 % 8 == 0;
+  const int piece = w_wide ? 8 : 4, pieces = kCols / piece;
+  const int wk = tid / pieces, wc = tid % pieces * piece;
+  const int wn = min(max(KL - (a0 + wc), 0), piece);
+  const unsigned short* wsrc =
+      w16 + static_cast<long long>(k_begin + wk) * P + a0 + wc;
+  const long long wstep = static_cast<long long>(kThreads / pieces) * P;
+
+  auto load_slice = [&](int s) {
+    TcStage& st = ring[s % kTcStages];
+    const int live = min(kTcBK, k_end - k_begin - s * kTcBK);
+    unsigned* xs = &st.x[0][0];
+#pragma unroll
+    for (int e = 0; e < kTcXCopies; ++e) {
+      if (tid + e * kThreads >= kRows * kTcXWords) break;
+      const int f = xfirst[e];
+      const int bytes = f + 1 < live ? 4 : f < live ? 2 : 0;
+      cp_async4(xs + xword[e], bytes ? xsrc[e] + s * kTcBK : x_none, bytes);
+    }
+    const unsigned short* ws =
+        wsrc + static_cast<long long>(s) * kTcBK * P;
+    if (w_wide) {
+#pragma unroll
+      for (int e = 0; e < kTcBK * kCols / 8 / kThreads; ++e) {
+        const int k = wk + e * (kThreads / (kCols / 8));
+        const int n = k < live ? wn : 0;
+        cp_async16(&st.w[k][wc], n ? ws + e * wstep : w16, 2 * n);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kTcBK * kCols / 4 / kThreads; ++e) {
+        const int k = wk + e * (kThreads / (kCols / 4));
+        const int n = k < live ? wn : 0;
+        cp_async8(&st.w[k][wc], n ? ws + e * wstep : w16, 2 * n);
+      }
+    }
+  };
+
+  // Warp (wm, wn) owns rows wm * 32 .. + 31 and columns wn * 64 .. + 63;
+  // lane (g, t) = (lane / 4, lane % 4) holds, in fragment (mt, nt), rows
+  // 16 mt + g and + 8 and columns 8 nt + 2t and + 1 of those.
+  const int warp = tid / 32, lane = tid % 32;
+  const int wr = (warp / 2) * kWarpRows, wcol = (warp % 2) * kWarpCols;
+  const int g = lane / 4, t = lane % 4;
+  const int skew16 = 16 * ((x_par + ((row0 + wr + g) & d)) & 1);
+  // This lane's ldmatrix row: depth (lane / 8 % 2) * 8 + lane % 8 of the
+  // k16 step, columns (lane / 16) * 8 of the fragment pair.
+  const int ldm_k = (lane / 8 % 2) * 8 + lane % 8, ldm_n = lane / 16 * 8;
+  float acc[kMTiles][kNTiles][4];
+#pragma unroll
+  for (int i = 0; i < kMTiles; ++i)
+#pragma unroll
+    for (int j = 0; j < kNTiles; ++j)
+#pragma unroll
+      for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.0f;
+
+  auto compute = [&](const TcStage& st) {
+#pragma unroll
+    for (int kk = 0; kk < kTcBK; kk += 16) {
+      unsigned a[kMTiles][4];
+#pragma unroll
+      for (int mt = 0; mt < kMTiles; ++mt) {
+        const unsigned* lo = &st.x[wr + 16 * mt + g][kk / 2 + t];
+        const unsigned* hi = &st.x[wr + 16 * mt + g + 8][kk / 2 + t];
+        a[mt][0] = __funnelshift_r(lo[0], lo[1], skew16);
+        a[mt][1] = __funnelshift_r(hi[0], hi[1], skew16);
+        a[mt][2] = __funnelshift_r(lo[4], lo[5], skew16);
+        a[mt][3] = __funnelshift_r(hi[4], hi[5], skew16);
+      }
+#pragma unroll
+      for (int np = 0; np < kNTiles / 2; ++np) {
+        unsigned b[4];
+        ldmatrix_x4_trans(b, &st.w[kk + ldm_k][wcol + 16 * np + ldm_n]);
+#pragma unroll
+        for (int mt = 0; mt < kMTiles; ++mt) {
+          mma16816<kF16>(acc[mt][2 * np], a[mt], b[0], b[1]);
+          mma16816<kF16>(acc[mt][2 * np + 1], a[mt], b[2], b[3]);
+        }
+      }
+    }
+  };
+
+#pragma unroll
+  for (int s = 0; s < kTcStages - 1; ++s) {
+    if (s < nslices) load_slice(s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < nslices; ++s) {
+    cp_async_wait<kTcStages - 2>();   // slice s has landed
+    __syncthreads();                  // and slice s - 1 is no longer read
+    if (s + kTcStages - 1 < nslices) load_slice(s + kTcStages - 1);
+    cp_async_commit();
+    compute(ring[s % kTcStages]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();                    // the ring is free for the partial
+
+  // Every block leaves its partial tile in its shared memory; at S = 1 it
+  // is the whole sum.  Rows 8 floats longer than the tile: a half-warp's
+  // 8-byte stores hit 32 banks.
+  float* part = reinterpret_cast<float*>(smem);   // [kRows][kTcPartStride]
+#pragma unroll
+  for (int mt = 0; mt < kMTiles; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < kNTiles; ++nt) {
+      const int r = wr + 16 * mt + g, c = wcol + 8 * nt + 2 * t;
+      *reinterpret_cast<float2*>(&part[r * kTcPartStride + c]) =
+          make_float2(acc[mt][nt][0], acc[mt][nt][1]);
+      *reinterpret_cast<float2*>(&part[(r + 8) * kTcPartStride + c]) =
+          make_float2(acc[mt][nt][2], acc[mt][nt][3]);
+    }
+  if (S > 1)
+    cluster.sync();                   // every rank's partial is written
+  else
+    __syncthreads();
+
+  // srp_gemm_tile's epilogue: this block's rows, summed over the ranks in
+  // order, as sign masks (a row is 32 items of 4 columns, one a lane),
+  // then each (row, table)'s K bits by one funnel shift.
+  unsigned* mask = reinterpret_cast<unsigned*>(smem + kTcMainBytes);
+  const int rb = split * kRows / S, nr = (split + 1) * kRows / S - rb;
+  const float* rank0 = S > 1 ? cluster.map_shared_rank(part, 0) : part;
+  for (int i = tid; i < nr * (kCols / 4); i += kThreads) {
+    const int r = rb + i / (kCols / 4), c4 = i % (kCols / 4);
+    const int off = r * kTcPartStride + 4 * c4;
+    float4 v = *reinterpret_cast<const float4*>(rank0 + off);
+    for (int q = 1; q < S; ++q) {
+      const float4 p = *reinterpret_cast<const float4*>(
+          cluster.map_shared_rank(part, q) + off);
+      v.x = __fadd_rn(v.x, p.x);
+      v.y = __fadd_rn(v.y, p.y);
+      v.z = __fadd_rn(v.z, p.z);
+      v.w = __fadd_rn(v.w, p.w);
+    }
+    const unsigned word = sign_word(v.x, v.y, v.z, v.w, c4 % 8);
+    if (c4 % 8 == 0) mask[r * kMaskWords + c4 / 8] = word;
+    if (c4 == 0) mask[r * kMaskWords + kCols / 32] = 0u;
+  }
+  if (S > 1)
+    cluster.sync();                   // all partials read; masks visible
+  else
+    __syncthreads();
+
+  for (int i = tid; i < nr * ntab; i += kThreads) {
+    const int r = rb + i / ntab, j = i % ntab;
+    if (row0 + r >= B) continue;
+    const int s = shift + j * K;    // the table's first tile column
+    const unsigned* m = mask + r * kMaskWords + s / 32;
+    const unsigned top = __funnelshift_l(m[1], m[0], s % 32);
+    emit(row0 + r, table0 + j, static_cast<int>(top >> (32 - K)));
+  }
+}
+
 // The launch configuration of the plan: S-block clusters along x.
 struct LaunchConfig {
   cudaLaunchConfig_t cfg;
@@ -533,6 +849,51 @@ inline cudaError_t launch(const Operands& op, void (*f32)(Params...),
   const bool wide = op.x_type != kOpFloat32 || op.w_type != kOpFloat32;
   void (*kernel)(Params...) = wide ? narrow : f32;
   const int smem = static_cast<int>(wide ? kNarrowSmemBytes : kSmemBytes);
+  cudaError_t err =
+      repro::allow_smem(reinterpret_cast<const void*>(kernel), smem);
+  if (err != cudaSuccess) return err;
+  LaunchConfig lc(plan, smem, stream);
+  if (plan.splits == 1) lc.cfg.numAttrs = 0;   // no cluster launch
+  return cudaLaunchKernelEx(&lc.cfg, kernel, std::forward<Args>(args)...);
+}
+
+// The tiles a launch of srp_hash or ace_admit_fused can run
+// (kernels/srp_hash.py TILES): srp_gemm_tile, srp_gemm_tile with kNarrow
+// (the widening tile), srp_tc_tile.
+enum TileCode : int { kTileFloat32 = 0, kTileWiden = 1, kTileTensor = 2 };
+
+// The tile an operand pair runs on (kernels/srp_hash.py hash_tile): a
+// float32 pair the float32 tile, a same-type 2-byte pair the tensor-core
+// tile, a mixed pair the widening tile.
+inline int route(const Operands& op) {
+  if (op.x_type == kOpFloat32 && op.w_type == kOpFloat32) return kTileFloat32;
+  return op.x_type == op.w_type ? kTileTensor : kTileWiden;
+}
+
+// Whether `tile` takes the pair: its route, or the widening tile for any
+// pair with a 2-byte operand (asked for by name, to time it beside the
+// tensor-core tile).
+inline bool tile_takes(int tile, const Operands& op) {
+  return tile == route(op) ||
+         (tile == kTileWiden && route(op) != kTileFloat32);
+}
+
+// `launch` for the entry points that also have the tensor-core tile:
+// kTileTensor launches `bf16` or `f16` (the operands' type) with its
+// shared memory, the other tiles go to `launch`.  The caller has checked
+// tile_takes; there is no fallback from one tile to another.
+template <typename... Params, typename... Args>
+inline cudaError_t launch_tile(int tile, const Operands& op,
+                               void (*f32)(Params...),
+                               void (*narrow)(Params...),
+                               void (*bf16)(Params...),
+                               void (*f16)(Params...), const Plan& plan,
+                               cudaStream_t stream, Args&&... args) {
+  if (tile != kTileTensor)
+    return launch(op, f32, narrow, plan, stream,
+                  std::forward<Args>(args)...);
+  void (*kernel)(Params...) = op.x_type == kOpFloat16 ? f16 : bf16;
+  const int smem = static_cast<int>(kTcSmemBytes);
   cudaError_t err =
       repro::allow_smem(reinterpret_cast<const void*>(kernel), smem);
   if (err != cudaSuccess) return err;

@@ -19,6 +19,8 @@ all scores are taken against the pre-insert counts; a single launch with
 many blocks could not promise it.  Counters are int32, int16, int8 or
 float32 (``build.COUNT_DTYPES``): gathered as fp32, inserted in their own
 dtype (a narrow counter wraps past its max, as the reference's does).
+q and W of one 2-byte type hash on the tensor-core tile, any other pair as
+``srp_hash`` runs it (``srp_hash.hash_tile``).
 """
 from __future__ import annotations
 
@@ -29,14 +31,15 @@ import torch
 from repro_torch.core.srp import SrpConfig
 from repro_torch.kernels import build
 from repro_torch.kernels.srp_hash import (OPERAND_ARGTYPES, PLAN_ARGTYPES,
-                                          HashPlan, check_w_aligned,
-                                          device_plan, lane_padded,
-                                          srp_hash_plain)
+                                          TILE_ARGTYPES, HashPlan,
+                                          check_w_aligned, device_plan,
+                                          lane_padded, srp_hash_plain,
+                                          tile_code)
 
 KERNEL = build.Kernel("ace_admit_fused", "repro_ace_admit_fused",
                       [ctypes.c_void_p] * 9 + [ctypes.c_int] * 5
                       + [ctypes.c_longlong, ctypes.c_float] + PLAN_ARGTYPES
-                      + [ctypes.c_int] + OPERAND_ARGTYPES)
+                      + [ctypes.c_int] + OPERAND_ARGTYPES + TILE_ARGTYPES)
 
 
 def ace_admit_fused_plain(counts: torch.Tensor, q: torch.Tensor,
@@ -66,7 +69,7 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
     """One guardrail admission step.
 
     counts (L, 2^K) of any ``build.COUNT_DTYPES``, q (B, d) and w (d, P)
-    each of any ``build.OPERAND_DTYPES`` (widened to fp32 in the kernel),
+    each of any ``build.OPERAND_DTYPES`` (hashed on ``hash_tile``'s tile),
     thresh () fp32
     (score space; −inf admits everything), item_mask (B,) bool or None ->
         (counts          — the same tensor, + the masked batch histogram,
@@ -82,9 +85,10 @@ def ace_admit_fused(counts: torch.Tensor, q: torch.Tensor, w: torch.Tensor,
 def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
                             w: torch.Tensor, thresh: torch.Tensor,
                             cfg: SrpConfig, item_mask: torch.Tensor | None,
-                            plan: HashPlan | None):
+                            plan: HashPlan | None, tile: str | None = None):
     """``ace_admit_fused`` with the hash under a given launch plan (None:
-    ``srp_hash.device_plan``'s)."""
+    ``srp_hash.device_plan``'s) and tile (None: ``hash_tile``'s; see
+    ``srp_hash.tile_code``)."""
     L, nbuckets = counts.shape
     B, d = q.shape
     K, P = cfg.num_bits, cfg.padded_projections
@@ -96,6 +100,7 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
     build.check_operand(q, "q", (B, d))
     build.check_operand(w, "w", (d, P))
     build.check(thresh, "thresh", torch.float32, ())
+    code = tile_code(tile, q.dtype, w.dtype)
     operands = [counts, q, w, thresh]
     if item_mask is not None:
         build.check(item_mask, "item_mask", torch.bool, (B,))
@@ -117,5 +122,5 @@ def ace_admit_fused_planned(counts: torch.Tensor, q: torch.Tensor,
                buckets.data_ptr(), gathered.data_ptr(), scores.data_ptr(),
                admit.data_ptr(), B, d, P, K, L, nbuckets, 1.0 / L,
                *plan.args(), build.count_code(counts),
-               build.operand_code(q), build.operand_code(w))
+               build.operand_code(q), build.operand_code(w), code)
     return counts, scores, admit, buckets

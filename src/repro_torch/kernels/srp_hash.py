@@ -16,16 +16,20 @@ tiles in rank order through distributed shared memory (at S = 1 a plain
 launch takes the signs straight from its registers), then take signs
 and pack with a funnel shift, so the (B, K·L) projection never reaches
 device memory and the ids are the same bits run to run.  No TF32: it
-flips sign bits.  x and W may each be bfloat16 or float16: the kernel
-widens them to float32 as it stages them (2-byte operands through
-registers, not ``cp.async``), so their ids are the float32 kernel's ids of
-the widened values, and only the bytes it reads shrink.
+flips sign bits.  x and W may each be bfloat16 or float16.  A pair of one
+2-byte type runs on the tensor-core tile (``hash_tile``: ``mma.sync``
+m16n8k16, fp32 accumulation, under the same plan, split and epilogue): a
+2-byte product is exact in fp32, but the tensor cores add in their own
+order, so its ids are held to the dense floor (>= 0.999 agreement with the
+plain version), not to the float32 kernel's bits.  A mixed pair runs on
+the widening tile, which widens each element to float32 as it stages it,
+so its ids are the float32 kernel's ids of the widened values.
 
 ``hash_plan`` is the launch plan both dense-hash wrappers (this one and
-``ace_admit_fused``) give the kernel: the row tile, the table groups, the
-cluster size S and each split's depth range.  S is the largest whose
-clusters the card runs all at once, two blocks an SM, as the card itself
-reports (its GPCs bound how many clusters fit).
+``ace_admit_fused``) give the kernel, whichever tile runs it: the row
+tile, the table groups, the cluster size S and each split's depth range.
+S is the largest whose clusters the card runs all at once, two blocks an
+SM, as the card itself reports (its GPCs bound how many clusters fit).
 """
 from __future__ import annotations
 
@@ -45,6 +49,9 @@ COLS = 128           # projection columns a block (kCols)
 SLICE = 16           # depth steps of one staged slice (kBK)
 MAX_SPLITS = 8       # a portable cluster (kMaxSplits)
 
+# The tiles of csrc/srp_gemm.cuh, in the order of their codes (TileCode).
+TILES = ("float32", "widening", "tensor_core")
+
 # Clusters of S = 1..8 blocks the H100 runs at once, two blocks an SM: its
 # GPCs leave SMs out of every 8-block layer.  Asked of the card by
 # ``device_clusters`` (chip_smoke.py prints it; NVIDIA H100 80GB HBM3);
@@ -52,12 +59,41 @@ MAX_SPLITS = 8       # a portable cluster (kMaxSplits)
 H100_CLUSTERS = (264, 132, 79, 62, 47, 39, 32, 30)
 
 PLAN_ARGTYPES = [ctypes.c_int] * (5 + MAX_SPLITS + 1)
-# The codes of x's and W's dtypes (build.OPERAND_DTYPES), after the plan.
+# The codes of x's and W's dtypes (build.OPERAND_DTYPES), after the plan,
+# then the tile's (TILES).
 OPERAND_ARGTYPES = [ctypes.c_int] * 2
+TILE_ARGTYPES = [ctypes.c_int]
 
 KERNEL = build.Kernel("srp_hash", "repro_srp_hash",
                       [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5
-                      + PLAN_ARGTYPES + OPERAND_ARGTYPES)
+                      + PLAN_ARGTYPES + OPERAND_ARGTYPES + TILE_ARGTYPES)
+
+
+def hash_tile(x_dtype: torch.dtype, w_dtype: torch.dtype) -> str:
+    """The tile ``srp_hash`` and ``ace_admit_fused`` run an operand pair
+    on (``srp_gemm.cuh`` ``route``): a float32 pair the float32 tile, a
+    pair of one 2-byte type the tensor-core tile, a mixed pair the
+    widening tile."""
+    if x_dtype == w_dtype == torch.float32:
+        return "float32"
+    return "tensor_core" if x_dtype == w_dtype else "widening"
+
+
+def tile_code(tile: str | None, x_dtype: torch.dtype,
+              w_dtype: torch.dtype) -> int:
+    """The code of ``tile`` (None: ``hash_tile``'s) for the pair; raises
+    for a tile that does not take it.  Besides its own route, a pair with
+    a 2-byte operand takes the widening tile when it is asked for by name
+    (to time it beside the tensor-core tile); nothing falls back from one
+    tile to another."""
+    route = hash_tile(x_dtype, w_dtype)
+    tile = tile or route
+    if tile not in TILES:
+        raise ValueError(f"tile must be one of {TILES}, got {tile!r}")
+    if tile != route and (tile, route) != ("widening", "tensor_core"):
+        raise ValueError(f"the {tile} tile does not take x {x_dtype} and "
+                         f"W {w_dtype} (their tile: {route})")
+    return TILES.index(tile)
 
 
 @dataclass(frozen=True)
@@ -216,29 +252,32 @@ def check_w_aligned(w: torch.Tensor) -> None:
 def srp_hash_plain(x: torch.Tensor, w: torch.Tensor,
                    cfg: SrpConfig) -> torch.Tensor:
     """The same function in plain PyTorch (``repro.kernels.ref.srp_hash_ref``):
-    both operands widened to float32, as the kernel and the reference's
-    Pallas kernel widen them, then the float32 product.  On a CUDA tensor
-    it is only exact with TF32 matmuls off
+    both operands widened to float32, as the widening tile and the
+    reference's Pallas kernel widen them, then the float32 product.  On a
+    CUDA tensor it is only exact with TF32 matmuls off
     (``torch.backends.cuda.matmul.allow_tf32 = False``, PyTorch's default)."""
     return pack_buckets(srp_bits(x.float(), w.float(), cfg), cfg)
 
 
 def srp_hash(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig) -> torch.Tensor:
     """(B, d) @ (d, P) -> (B, L) int32 bucket ids in [0, 2^K).  x and W are
-    each float32, bfloat16 or float16 (``build.OPERAND_DTYPES``); the kernel
-    widens every element to float32 as it loads it."""
+    each float32, bfloat16 or float16 (``build.OPERAND_DTYPES``), on the
+    tile ``hash_tile`` picks for the pair."""
     return srp_hash_planned(x, w, cfg, None)
 
 
 def srp_hash_planned(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig,
-                     plan: HashPlan | None) -> torch.Tensor:
-    """``srp_hash`` under a given launch plan (None: ``device_plan``'s);
-    the plan changes nothing but the sum order of the depth splits."""
+                     plan: HashPlan | None,
+                     tile: str | None = None) -> torch.Tensor:
+    """``srp_hash`` under a given launch plan (None: ``device_plan``'s)
+    and tile (None: ``hash_tile``'s; see ``tile_code``); the plan changes
+    nothing but the sum order of the depth splits."""
     B, d = x.shape
     K, L, P = cfg.num_bits, cfg.num_tables, cfg.padded_projections
     build.check_bits(K)
     build.check_operand(x, "x", (B, d))
     build.check_operand(w, "w", (d, P))
+    code = tile_code(tile, x.dtype, w.dtype)
     if build.on_cpu(x, w):
         return srp_hash_plain(x, w, cfg)
     out = torch.empty((B, L), dtype=torch.int32, device=x.device)
@@ -248,5 +287,5 @@ def srp_hash_planned(x: torch.Tensor, w: torch.Tensor, cfg: SrpConfig,
         plan = plan or device_plan(B, d, K, L, x.device)
         KERNEL(x.device, x.data_ptr(), w.data_ptr(), out.data_ptr(),
                B, d, P, K, L, *plan.args(),
-               build.operand_code(x), build.operand_code(w))
+               build.operand_code(x), build.operand_code(w), code)
     return out

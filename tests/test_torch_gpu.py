@@ -2260,14 +2260,15 @@ def _narrow_case(B, d, K, L, xdt, wdt, device, seed=0):
 @pytest.mark.parametrize("xdt,wdt", NARROW_PAIRS, ids=str)
 def test_dense_hash_narrow_operands(cuda, xdt, wdt, B, splits):
     """Narrow x and W at d = 4097 (a 2-byte x row starts only 2-byte
-    aligned) under every cluster size: the kernel widens each element as
-    it stages it, so its ids are the float32 kernel's on the widened
-    operands, bitwise, and agree with the plain version at >= 0.999."""
+    aligned) under every cluster size on the widening tile (a same-type
+    pair's asked for by name): it widens each element as it stages it, so
+    its ids are the float32 kernel's on the widened operands, bitwise, and
+    agree with the plain version at >= 0.999."""
     d, K, L = 4097, 15, 50
     cfg, x, w = _narrow_case(B, d, K, L, xdt, wdt, cuda, seed=B)
     plan = H.make_plan(B, d, K, L, H.tables_per_group(K, L), splits)
     before = H.KERNEL.launches
-    got = H.srp_hash_planned(x, w, cfg, plan)
+    got = H.srp_hash_planned(x, w, cfg, plan, tile="widening")
     assert H.KERNEL.launches == before + 1
     assert torch.equal(got, H.srp_hash_planned(x.float(), w.float(), cfg,
                                                plan))
@@ -2279,16 +2280,16 @@ def test_dense_hash_narrow_operands(cuda, xdt, wdt, B, splits):
 @pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16], ids=str)
 def test_dense_hash_narrow_x_off_a_word(cuda, xdt, d, splits):
     """A 2-byte x whose first element sits 2 bytes past a 4-byte boundary
-    (a view one element into its buffer): the kernel copies each row's
-    aligned words and takes its elements from the row's skew, so its ids
-    are still the float32 kernel's on x.float(), bitwise."""
+    (a view one element into its buffer): the widening tile copies each
+    row's aligned words and takes its elements from the row's skew, so
+    its ids are still the float32 kernel's on x.float(), bitwise."""
     B, K, L = 65, 15, 50
     cfg, _, w = _narrow_case(B, d, K, L, xdt, torch.bfloat16, cuda, seed=d)
     buf = torch.randn(B * d + 1, generator=torch.Generator().manual_seed(d))
     x = buf.to(device=cuda, dtype=xdt)[1:].view(B, d)
     assert x.data_ptr() % 4 == 2
     plan = H.make_plan(B, d, K, L, H.tables_per_group(K, L), splits)
-    got = H.srp_hash_planned(x, w, cfg, plan)
+    got = H.srp_hash_planned(x, w, cfg, plan, tile="widening")
     assert torch.equal(got, H.srp_hash_planned(x.float(), w.float(), cfg,
                                                plan))
     assert _agreement(got, H.srp_hash_plain(x, w, cfg)) >= HASH_AGREEMENT
@@ -2298,8 +2299,10 @@ def test_dense_hash_narrow_x_off_a_word(cuda, xdt, d, splits):
 def test_fused_hash_kernels_take_narrow_operands(cuda, xdt, wdt):
     """``ace_admit_fused``, ``ace_score_fused``, ``ace_fleet_score`` and
     the windowed-fleet admission hash narrow operands to ``srp_hash``'s
-    ids, and everything downstream equals their plain versions on the
-    card (the plain versions widen the operands too)."""
+    ids on the same tile (the last three widen a same-type pair, which
+    ``srp_hash`` runs on the widening tile when asked), and everything
+    downstream equals their plain versions on the card (the plain
+    versions widen the operands too)."""
     B, d, K, L, T, E = 65, 4097, 15, 50, 3, 2
     cfg, x, w = _narrow_case(B, d, K, L, xdt, wdt, cuda, seed=7)
     ids = H.srp_hash(x, w, cfg)
@@ -2308,11 +2311,13 @@ def test_fused_hash_kernels_take_narrow_operands(cuda, xdt, wdt):
     got = A.ace_admit_fused(counts.clone(), x, w, t, cfg)
     want = A.ace_admit_fused_plain(counts.clone(), x, w, t, cfg)
     assert torch.equal(got[3], ids)
+    ids = H.srp_hash_planned(x, w, cfg, None, tile="widening")
+    if torch.equal(want[3], got[3]):  # the plain hash agrees on every row
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
     scores, sids = F.ace_score_fused_planned(counts, x, w, cfg, None, None,
                                              with_ids=True)
     assert torch.equal(sids, ids)
-    if torch.equal(want[3], ids):     # the plain hash agrees on every row
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if torch.equal(want[3], ids):
         assert torch.equal(scores, F.ace_score_fused_plain(counts, x, w,
                                                            cfg))
     rng = np.random.default_rng(3)
@@ -2338,6 +2343,94 @@ def test_fused_hash_kernels_take_narrow_operands(cuda, xdt, wdt):
     assert torch.equal(got[3], ids)
     if torch.equal(want[3], ids):
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+# The tensor-core tile (x and W of one 2-byte type): (B, d, K, L, tables,
+# splits, x's offset in elements into its buffer); None: the plan's own.
+# d = 4097 and 36; S = 1 and 8; x 2 bytes past a word (a row's skew) and 6
+# past a 16-byte boundary; K = 31 at one table a group (tiles off an
+# 8-column boundary: W in 8-byte copies; an int8 plane of 2^31 counters a
+# table, 4.3 GB); K = 13 groups off an 8-column boundary beside one on
+# it; depths of 1 and 5 (under S = 4 three splits are empty); an empty
+# batch.
+TC_CASES = [(256, 4097, 15, 50, None, None, 0),
+            (4096, 36, 15, 50, None, None, 0),
+            (65, 4097, 15, 50, None, 1, 0), (65, 4097, 15, 50, None, 8, 0),
+            (65, 4097, 15, 50, None, 8, 1), (100, 36, 15, 50, None, 1, 3),
+            (130, 4097, 31, 2, 1, 8, 0), (40, 130, 31, 2, 1, 1, 1),
+            (512, 4097, 13, 32, None, None, 1), (7, 1, 4, 3, None, None, 1),
+            (70, 5, 13, 32, None, 4, 1), (0, 4097, 15, 50, None, None, 0)]
+
+
+def _tc_case(B, d, K, L, offset, dtype, device):
+    """x (a view ``offset`` elements into its buffer) and W, both dtype."""
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L, seed=d + K)
+    w = make_projections(cfg, device=device, dtype=dtype)
+    buf = torch.randn(B * d + offset,
+                      generator=torch.Generator().manual_seed(B + d))
+    x = buf.to(device=device, dtype=dtype)[offset:].view(B, d)
+    assert x.data_ptr() % 16 == 2 * offset
+    return cfg, x, w
+
+
+@pytest.mark.parametrize("B,d,K,L,tables,splits,offset", TC_CASES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_tile(cuda, dtype, B, d, K, L, tables, splits, offset):
+    """``srp_hash`` and ``ace_admit_fused`` on the tensor-core tile: ids
+    agree >= 0.999 with the plain version (fp32 sums in the tensor cores'
+    order), two launches give the same bits, the admission hashes to the
+    same ids, and its scores, verdicts and counts are bitwise the plain
+    path's downstream of those ids; an empty batch launches nothing."""
+    assert H.hash_tile(dtype, dtype) == "tensor_core"
+    cfg, x, w = _tc_case(B, d, K, L, offset, dtype, cuda)
+    plan = None if tables is None and splits is None else H.make_plan(
+        B, d, K, L, tables or H.tables_per_group(K, L), splits)
+    before = H.KERNEL.launches, A.KERNEL.launches
+    ids = H.srp_hash_planned(x, w, cfg, plan)
+    again = H.srp_hash_planned(x, w, cfg, plan)
+    counts = torch.randint(0, 9, (L, 1 << K), device=cuda,
+                           dtype=torch.int8 if K > 15 else torch.int32,
+                           generator=torch.Generator(cuda).manual_seed(K))
+    rows = torch.arange(L, device=cuda)[None, :]
+    recip = torch.tensor(1.0 / L, dtype=torch.float32)
+    t = torch.median(counts[rows, ids.long()].float().sum(-1) * recip) \
+        if B else torch.tensor(0.0, device=cuda)
+    mask = torch.arange(B, device=cuda) % 5 != 0
+    got_c, got_s, got_a, got_b = A.ace_admit_fused_planned(
+        counts.clone(), x, w, t, cfg, mask, plan)
+    n = 1 if B else 0
+    assert (H.KERNEL.launches, A.KERNEL.launches) == (before[0] + 2 * n,
+                                                      before[1] + n)
+    assert ids.shape == (B, L) and torch.equal(ids, again)
+    assert torch.equal(got_b, ids)
+    if B:
+        assert _agreement(ids, H.srp_hash_plain(x, w, cfg)) \
+            >= HASH_AGREEMENT
+    ref_s = counts[rows, ids.long()].float().sum(-1) * recip
+    ref_a = (ref_s >= t) & mask
+    ref_c = counts.clone().index_put_(
+        (rows, ids.long()), ref_a.to(counts.dtype)[:, None].expand(B, L),
+        accumulate=True)
+    assert torch.equal(got_s, ref_s)
+    assert torch.equal(got_a, ref_a)
+    assert torch.equal(got_c, ref_c)
+    del counts, got_c, ref_c
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16], ids=str)
+def test_tensor_core_tile_takes_only_its_pair(cuda, dtype):
+    """A same-type 2-byte pair runs the tensor-core tile or, asked for by
+    name, the widening one (the float32 kernel's bits of the widened
+    operands); the tensor-core tile refuses any other pair."""
+    B, d, K, L = 65, 4097, 15, 50
+    cfg, x, w = _tc_case(B, d, K, L, 0, dtype, cuda)
+    wide = H.srp_hash_planned(x, w, cfg, None, tile="widening")
+    assert torch.equal(wide, H.srp_hash(x.float(), w.float(), cfg))
+    assert _agreement(H.srp_hash(x, w, cfg), wide) >= HASH_AGREEMENT
+    for xx, ww in ((x.float(), w), (x, w.float()), (x.float(), w.float())):
+        with pytest.raises(ValueError, match="tensor_core tile"):
+            H.srp_hash_planned(xx, ww, cfg, None, tile="tensor_core")
 
 
 @pytest.mark.parametrize("xdt", [torch.bfloat16, torch.float16], ids=str)

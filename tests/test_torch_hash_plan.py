@@ -318,3 +318,225 @@ def test_narrow_x_staging_model_reads_each_element_once(B, d, base):
                 got = model_narrow_x_slice(mem, base, B, d, row0, lo, kb,
                                            hi)
                 assert np.array_equal(got, want), (plan.describe(), kb)
+
+
+# --- The tensor-core tile (srp_gemm.cuh srp_tc_tile) ------------------------
+
+TC_SLICE, THREADS = 32, 128                          # kTcBK, kThreads
+TC_X_WORDS, TC_X_STRIDE = TC_SLICE // 2 + 1, 20      # kTcXWords, kTcXStride
+TC_W_STRIDE = H.COLS + 8                             # kTcWStride
+
+
+def bf16_values(halves: np.ndarray) -> np.ndarray:
+    return (halves.astype(np.uint32) << 16).view(np.float32) \
+        .astype(np.float64)
+
+
+def model_tc_stage(mem, wmem, base, B, d, P, K, L, plan, tile, grp, split,
+                   s):
+    """Slice s of block (tile, grp, split) as srp_tc_tile stages it, by the
+    kernel's own per-thread copy lists: x as raw 4-byte words (each copy's
+    row, word, first element and source worked out once, then moved by the
+    slice's depth), W in 8-column pieces from an 8-column boundary, else
+    4-column ones, zero-filled past the split, row B and column K·L.  A
+    read outside x (other than the half before a row's first element) or
+    off a copy's alignment raises."""
+    row0, c0 = tile * H.ROWS, grp * plan.tables * K
+    a0, KL = c0 & ~3, K * L
+    k_begin, k_end = plan.bounds[split], plan.bounds[split + 1]
+    x_par = (base + k_begin) & 1
+    live = min(TC_SLICE, k_end - k_begin - s * TC_SLICE)
+    xs = np.zeros(H.ROWS * TC_X_STRIDE, np.uint32)
+    copies = -(-H.ROWS * TC_X_WORDS // THREADS)
+    for tid, e in itertools.product(range(THREADS), range(copies)):
+        i = tid + e * THREADS
+        if i >= H.ROWS * TC_X_WORDS:
+            continue
+        r, q = divmod(i, TC_X_WORDS)
+        row_live = row0 + r < B
+        first = 2 * q - ((x_par + ((row0 + r) & d)) & 1) if row_live \
+            else TC_SLICE
+        src = base + ((row0 + r) * d + k_begin + first if row_live else 0)
+        nbytes = 4 if first + 1 < live else 2 if first < live else 0
+        if nbytes:
+            at = src + s * TC_SLICE
+            assert at % 2 == 0, "a 4-byte copy off a word"
+            assert base - 1 <= at and at + nbytes // 2 <= base + B * d
+            assert at >= base or first == -1
+            hi = int(mem[at + 1]) if nbytes == 4 else 0
+            xs[r * TC_X_STRIDE + q] = int(mem[at]) | hi << 16
+    ws = np.zeros((TC_SLICE, TC_W_STRIDE), np.uint16)
+    piece = 8 if a0 % 8 == 0 else 4
+    pieces = H.COLS // piece
+    for tid in range(THREADS):
+        wk, wc = tid // pieces, tid % pieces * piece
+        wn = min(max(KL - (a0 + wc), 0), piece)
+        for e in range(TC_SLICE * pieces // THREADS):
+            k = wk + e * (THREADS // pieces)
+            n = wn if k < live else 0
+            if n:
+                at = (k_begin + s * TC_SLICE + k) * P + a0 + wc
+                assert at % piece == 0, "a W copy off its alignment"
+                ws[k, wc:wc + n] = wmem[at:at + n]
+    return xs.reshape(H.ROWS, TC_X_STRIDE), ws, x_par, row0
+
+
+def model_tc_slice(xs, ws, x_par, row0, d, acc):
+    """One slice's mma.sync steps into acc[warp, lane, mt, nt, 4], each
+    lane's A fragment read as the kernel reads it (two words a register,
+    a funnel shift by 16 · skew), its B fragment as ldmatrix.x4.trans
+    hands it over, each fragment placed by the PTX m16n8k16 layouts."""
+    lanes = np.arange(32)
+    g, t = lanes // 4, lanes % 4
+    ldm_k, ldm_n = (lanes // 8 % 2) * 8 + lanes % 8, lanes // 16 * 8
+    for warp in range(4):
+        wr, wcol = warp // 2 * 32, warp % 2 * 64
+        shift = (16 * ((x_par + ((row0 + wr + g) & d)) & 1)).astype(np.uint64)
+        for kk in (0, 16):
+            A = np.zeros((2, 16, 16))
+            for mt in range(2):
+                for reg, (dr, dk) in enumerate(((0, 0), (8, 0), (0, 8),
+                                                (8, 8))):
+                    w0 = xs[wr + 16 * mt + g + dr, kk // 2 + t + dk // 2]
+                    w1 = xs[wr + 16 * mt + g + dr, kk // 2 + t + dk // 2 + 1]
+                    v = ((w1.astype(np.uint64) << np.uint64(32)) | w0) \
+                        >> shift
+                    A[mt, g + dr, 2 * t + dk] = bf16_values(v & 0xFFFF)
+                    A[mt, g + dr, 2 * t + dk + 1] = bf16_values(
+                        (v >> np.uint64(16)) & 0xFFFF)
+            for pair in range(4):
+                col = wcol + 16 * pair + ldm_n
+                rows = np.stack([ws[kk + ldm_k[ln], col[ln]:col[ln] + 8]
+                                 for ln in range(32)])
+                mats = rows.reshape(4, 8, 8)        # matrix ln // 8
+                for half in range(2):
+                    Bm = np.zeros((16, 8))
+                    for reg, dk in ((2 * half, 0), (2 * half + 1, 8)):
+                        Bm[2 * t + dk, g] = bf16_values(mats[reg][2 * t, g])
+                        Bm[2 * t + dk + 1, g] = bf16_values(
+                            mats[reg][2 * t + 1, g])
+                    for mt in range(2):
+                        D = A[mt] @ Bm
+                        acc[warp, :, mt, 2 * pair + half] += np.stack(
+                            [D[g, 2 * t], D[g, 2 * t + 1], D[g + 8, 2 * t],
+                             D[g + 8, 2 * t + 1]], axis=-1)
+
+
+def model_tc_partial(acc) -> np.ndarray:
+    """The block's (64, 128) partial tile from its lanes' accumulators."""
+    part = np.zeros((H.ROWS, H.COLS))
+    g, t = np.arange(32) // 4, np.arange(32) % 4
+    for warp, mt, nt in itertools.product(range(4), range(2), range(8)):
+        r = warp // 2 * 32 + 16 * mt + g
+        c = warp % 2 * 64 + 8 * nt + 2 * t
+        for v, (dr, dc) in enumerate(((0, 0), (0, 1), (8, 0), (8, 1))):
+            part[r + dr, c + dc] = acc[warp, :, mt, nt, v]
+    return part
+
+
+@pytest.mark.parametrize("base", [0, 1], ids=["aligned", "skewed"])
+@pytest.mark.parametrize("B,d,K,L,splits", [(70, 37, 13, 32, 3),
+                                            (65, 100, 15, 50, 1),
+                                            (3, 5, 31, 9, 2),
+                                            (66, 70, 9, 20, 1)])
+def test_tensor_core_tile_model_computes_the_product(B, d, K, L, splits,
+                                                     base):
+    """A numpy model of srp_tc_tile's staging and fragment reads gives
+    every block's partial tile as the exact product of its rows, depth
+    range and columns (small integers in bf16, so any order of the sum is
+    exact), from an x on a word or 2 bytes past it, with W's pieces on
+    and off an 8-column boundary (K = 13, 31, 9), under the shape's plan.
+    The pad columns hold a value that must never be read."""
+    rng = np.random.default_rng(B * d + base)
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L)
+    P = cfg.padded_projections
+    xv = rng.integers(-8, 9, size=(B, d)).astype(np.float32)
+    wv = rng.integers(-8, 9, size=(d, P)).astype(np.float32)
+    wv[:, K * L:] = 99.0
+
+    def halves(a):
+        return (a.view(np.uint32) >> 16).astype(np.uint16)
+    mem = np.concatenate([np.full(base, 0x7FC0, np.uint16),
+                          halves(xv).ravel(), np.full(2, 0x7FC0, np.uint16)])
+    wmem = halves(wv).ravel()
+    plan = H.make_plan(B, d, K, L, H.tables_per_group(K, L), splits)
+    assert any((g * plan.tables * K & ~3) % 8 for g in range(plan.groups)) \
+        or K == 15
+    for tile, grp, split in itertools.product(range(plan.row_tiles),
+                                              range(plan.groups),
+                                              range(plan.splits)):
+        lo, hi = plan.bounds[split], plan.bounds[split + 1]
+        acc = np.zeros((4, 32, 2, 8, 4))
+        for s in range(-(-(hi - lo) // TC_SLICE)):
+            model_tc_slice(*model_tc_stage(mem, wmem, base, B, d, P, K, L,
+                                           plan, tile, grp, split, s),
+                           d, acc)
+        a0 = (grp * plan.tables * K) & ~3
+        rows = xv[tile * H.ROWS:(tile + 1) * H.ROWS, lo:hi]
+        cols = min(H.COLS, K * L - a0)
+        want = np.zeros((H.ROWS, H.COLS))
+        want[:rows.shape[0], :cols] = rows.astype(np.float64) \
+            @ wv[lo:hi, a0:a0 + cols]
+        assert np.array_equal(model_tc_partial(acc), want), \
+            (tile, grp, split, plan.describe())
+
+
+class _Recorded:
+    """Stands in for a kernel binding: records each call's arguments."""
+
+    def __init__(self):
+        self.calls = []
+        self.launches = 0
+
+    def __call__(self, device, *args):
+        self.calls.append(args)
+
+
+PAIRS = list(itertools.product((torch.float32, torch.bfloat16,
+                                torch.float16), repeat=2))
+
+
+@pytest.mark.parametrize("xdt,wdt", PAIRS, ids=str)
+def test_routing_picks_the_tile_by_operand_pair(monkeypatch, xdt, wdt):
+    """On a CUDA tensor (the device test replaced by a stand-in) both
+    dense-hash wrappers pass the tile of the pair (its last argument): a
+    float32 pair the float32 tile, one 2-byte type the tensor-core tile,
+    a mixed pair the widening tile.  Only a pair with a 2-byte operand
+    takes the widening tile by name, only a same-type 2-byte pair the
+    tensor-core one; nothing else is taken."""
+    from repro_torch.kernels import ace_admit_fused as A
+    from repro_torch.kernels import build
+    want = ("float32" if xdt == wdt == torch.float32 else
+            "tensor_core" if xdt == wdt else "widening")
+    assert H.hash_tile(xdt, wdt) == want
+    B, d, K, L = 65, 36, 15, 50
+    cfg = SrpConfig(dim=d, num_bits=K, num_tables=L)
+    plan = H.hash_plan(B, d, K, L, H.H100_CLUSTERS)
+    rec_h, rec_a = _Recorded(), _Recorded()
+    monkeypatch.setattr(build, "on_cpu", lambda *t: False)
+    monkeypatch.setattr(H, "KERNEL", rec_h)
+    monkeypatch.setattr(A, "KERNEL", rec_a)
+    monkeypatch.setattr(A, "device_plan", lambda *a: plan)
+    x = torch.zeros((B, d), dtype=xdt)
+    w = torch.zeros((d, cfg.padded_projections), dtype=wdt)
+    counts = torch.zeros((L, 1 << K), dtype=torch.int32)
+    thresh = torch.tensor(0.0)
+    takes = {want} | ({"widening"} if want != "float32" else set())
+    for tile in (None, *H.TILES):
+        if tile is not None and tile not in takes:
+            with pytest.raises(ValueError, match=f"{tile} tile"):
+                H.srp_hash_planned(x, w, cfg, plan, tile)
+            with pytest.raises(ValueError, match=f"{tile} tile"):
+                A.ace_admit_fused_planned(counts, x, w, thresh, cfg, None,
+                                          plan, tile)
+            continue
+        H.srp_hash_planned(x, w, cfg, plan, tile)
+        A.ace_admit_fused_planned(counts, x, w, thresh, cfg, None, plan,
+                                  tile)
+        code = H.TILES.index(tile or want)
+        for rec in (rec_h, rec_a):
+            args = rec.calls.pop()
+            assert args[-1] == code
+            assert args[-3:-1] == (build.OPERAND_DTYPES.index(xdt),
+                                   build.OPERAND_DTYPES.index(wdt))
+    assert not rec_h.calls and not rec_a.calls
